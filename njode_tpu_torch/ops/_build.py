@@ -1,0 +1,90 @@
+"""Build the CUDA kernels with ``nvcc`` at first use and load them with ctypes.
+
+The kernels have a plain C interface (``ops/csrc/*.cu``), so the build needs
+no PyTorch headers: ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17
+-O3 -shared -Xcompiler -fPIC`` into ``njode_tpu_torch/_build/`` (git-ignored),
+named by the source's hash so a changed source rebuilds and an unchanged one
+loads the existing library. Nothing is built or imported when this module is
+imported."""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BUILD_DIR = os.path.join(_PKG, "_build")
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+
+_lock = threading.Lock()
+_loaded = {}
+build_log = {}   # source name -> {"seconds", "ptxas", "path"}
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels are built on a machine with the "
+        "CUDA toolkit (PATH or /usr/local/cuda/bin)")
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless a library for its hash exists;
+    returns the library path."""
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    if os.path.exists(out):
+        build_log.setdefault(name, {"seconds": 0.0, "ptxas": "",
+                                    "path": out})
+        return out
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           "-Xptxas", "-v", "-o", tmp, src]
+    t0 = time.time()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
+    os.replace(tmp, out)
+    build_log[name] = {"seconds": time.time() - t0, "ptxas": res.stderr,
+                       "path": out}
+    return out
+
+
+def load(name: str = "fused_scan") -> ctypes.CDLL:
+    """Build (if needed) and load one kernel library, once per process."""
+    with _lock:
+        if name not in _loaded:
+            lib = ctypes.CDLL(build(name))
+            _declare(name, lib)
+            _loaded[name] = lib
+        return _loaded[name]
+
+
+def _declare(name, lib):
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "fused_scan":
+        lib.njode_error_string.argtypes = [I]
+        lib.njode_error_string.restype = ctypes.c_char_p
+        lib.njode_scan_fwd.argtypes = [P] * 15 + [I, P]
+        lib.njode_scan_fwd.restype = I
+        lib.njode_scan_bwd.argtypes = [P] * 15 + [P]
+        lib.njode_scan_bwd.restype = I
+        lib.njode_reduce_partials.argtypes = [P, I, I, F, P, P]
+        lib.njode_reduce_partials.restype = I
+        lib.njode_philox_masks.argtypes = [P, I, I, I, I, ctypes.c_uint32,
+                                           P, P]
+        lib.njode_philox_masks.restype = I
