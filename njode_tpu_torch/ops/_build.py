@@ -3,15 +3,16 @@
 The kernels have a plain C interface (``ops/csrc/*.cu``), so the build needs
 no PyTorch headers: ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17
 -O3 -shared -Xcompiler -fPIC`` into ``njode_tpu_torch/_build/`` (git-ignored),
-named by the source's hash so a changed source rebuilds and an unchanged one
-loads the existing library. Nothing is built or imported when this module is
-imported."""
+named by a hash of the source and of every ``csrc/`` header it includes, so
+a changed source or header rebuilds and an unchanged one loads the existing
+library. Nothing is built or imported when this module is imported."""
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -38,12 +39,39 @@ def _nvcc():
         "CUDA toolkit (PATH or /usr/local/cuda/bin)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_files(src: str):
+    """``src`` and every file it includes with ``#include "..."`` from
+    ``csrc/``, transitively, in a fixed order."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            for inc in _INCLUDE.findall(f.read()):
+                dep = os.path.join(os.path.dirname(path), inc.decode())
+                if os.path.exists(dep):
+                    todo.append(dep)
+    return seen
+
+
+def source_digest(src: str) -> str:
+    h = hashlib.sha256()
+    for path in source_files(src):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless a library for its hash exists;
-    returns the library path."""
+    """Compile ``csrc/<name>.cu`` unless a library for the hash of it and
+    its headers exists; returns the library path."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    digest = source_digest(src)
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
     if os.path.exists(out):
@@ -62,6 +90,17 @@ def build(name: str) -> str:
     build_log[name] = {"seconds": time.time() - t0, "ptxas": res.stderr,
                        "path": out}
     return out
+
+
+def build_all(names) -> dict:
+    """Build several libraries at once, one ``nvcc`` each, all started
+    together; returns {name: library path}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        paths = list(pool.map(build, names))
+    return dict(zip(names, paths))
 
 
 def load(name: str = "fused_scan") -> ctypes.CDLL:
@@ -88,3 +127,12 @@ def _declare(name, lib):
         lib.njode_philox_masks.argtypes = [P, I, I, I, I, ctypes.c_uint32,
                                            P, P]
         lib.njode_philox_masks.restype = I
+    elif name == "fused_gob":
+        lib.gob_error_string.argtypes = [I]
+        lib.gob_error_string.restype = ctypes.c_char_p
+        lib.gob_scan_fwd.argtypes = [P] * 15 + [I, P]
+        lib.gob_scan_fwd.restype = I
+        lib.gob_scan_bwd.argtypes = [P] * 16 + [P]
+        lib.gob_scan_bwd.restype = I
+        lib.gob_masks.argtypes = [P, I, I, I, ctypes.c_uint32, P, P]
+        lib.gob_masks.restype = I

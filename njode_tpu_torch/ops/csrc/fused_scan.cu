@@ -29,13 +29,16 @@
 // work (PERF.md, Open questions).
 //
 // Dropout masks. 'input' mode reads int8 keep-masks [K,S,B,Wmax]; 'prng'
-// mode draws Philox4x32-10 with key (seed_lo, seed_hi) and counter
+// mode draws Philox4x32-10 (philox.cuh, shared with the GRU-ODE-Bayes
+// kernels) with key (seed_lo, seed_hi) and counter
 // (col >> 2, global_row, k, slot), word col & 3, kept iff word < thresh.
 // The counter depends only on the global row and column, never on the CTA
 // split or the layer width, so the backward redraws the forward's masks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "philox.cuh"          // K4: philox_keep
 
 #define ROWS 16
 #define NTHREADS 256
@@ -75,29 +78,6 @@ struct MaskCtx {
   int k, row0, nv, half, jump, B, S, Wmax;
   float keep;
 };
-
-// ---------------------------------------------------------------- K4 Philox
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
-                                               uint32_t k1) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    if (i) { k0 += 0x9E3779B9u; k1 += 0xBB67AE85u; }
-    uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
-}
-
-__device__ __forceinline__ bool philox_keep(uint32_t k0, uint32_t k1,
-                                            uint32_t thresh, int col,
-                                            int grow, int k, int slot) {
-  uint4 r = philox4x32_10(make_uint4((uint32_t)col >> 2, (uint32_t)grow,
-                                     (uint32_t)k, (uint32_t)slot), k0, k1);
-  int w = col & 3;
-  uint32_t word = w == 0 ? r.x : (w == 1 ? r.y : (w == 2 ? r.z : r.w));
-  return word < thresh;          // unsigned compare
-}
 
 // keep-mask of hidden slot `slot` at local row r (stacked rows r >= half
 // belong to the second readout, slot + jump), column col

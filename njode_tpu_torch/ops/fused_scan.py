@@ -478,7 +478,7 @@ def _is_cuda(t: torch.Tensor) -> bool:
         return True
     if t.device.type == "cpu":
         return False
-    raise RuntimeError(f"fused NJODE scan: unsupported device {t.device}")
+    raise RuntimeError(f"fused scan kernels: unsupported device {t.device}")
 
 
 def _check(name, t, shape, dtype=torch.float32):

@@ -1,4 +1,5 @@
-"""Carry NJODE weights between the JAX package's pytree and this package.
+"""Carry NJODE and GRU-ODE-Bayes weights between the JAX package's pytree
+and this package.
 
 The JAX package keeps its parameters as a pytree of arrays
 ``{"ode_f": [{"w", "b"}, ...], "encoder": [...], "readout": [...],
@@ -69,4 +70,95 @@ def jax_params_from_state_dict(sd):
             gru[jk] = np.ascontiguousarray(a.T if a.ndim == 2 else a)
     if gru:
         params["gru"] = gru
+    return params
+
+
+# ---------------------------------------------------------------------------
+# GRU-ODE-Bayes
+# ---------------------------------------------------------------------------
+
+_GOB_MLPS = {"p_model": "p_model", "cov_map": "covariates_map",
+             "class_model": "classification_model"}
+
+
+def _t(a):
+    a = np.asarray(a, np.float32)
+    return torch.tensor(np.ascontiguousarray(a.T if a.ndim == 2 else a))
+
+
+def _np(t):
+    a = t.detach().cpu().numpy()
+    return np.ascontiguousarray(a.T if a.ndim == 2 else a)
+
+
+def gob_state_dict_from_jax_params(params_np):
+    """GRU-ODE-Bayes pytree (numpy leaves) -> the ``state_dict`` of
+    ``models.gru_ode_bayes.GOB``, under the reference's names: the two-layer
+    MLPs at Sequential indices 0 and 3 (``p_model``, ``covariates_map``,
+    ``classification_model``), ``gru_c.lin_*`` (or ``gru_c.weight_ih`` ...
+    for the discretized cell), ``gru_obs.gru_d.*``, ``gru_obs.w_prep``,
+    ``gru_obs.bias_prep``. Linear ``[in, out]`` becomes ``[out, in]``; the
+    GRU cells' ``w_ih [in, 3H]`` becomes ``weight_ih [3H, in]`` (gates r, z,
+    n); ``w_prep`` and ``bias_prep`` keep their shapes."""
+    sd = OrderedDict()
+
+    def lin(prefix, p):
+        sd[prefix + ".weight"] = _t(p["w"])
+        if "b" in p:
+            sd[prefix + ".bias"] = _t(p["b"])
+
+    def gru(prefix, p):
+        for jk, tk in _GRU.items():
+            if jk in p:
+                sd[f"{prefix}.{tk}"] = _t(p[jk])
+
+    for jname, tname in _GOB_MLPS.items():
+        for j, layer in enumerate(params_np[jname]):
+            lin(f"{tname}.{3 * j}", layer)
+    g = params_np["gru_c"]
+    if "cell" in g:
+        gru("gru_c", g["cell"])
+    else:
+        for name, p in g.items():
+            lin(f"gru_c.{name}", p)
+    ob = params_np["gru_obs"]
+    gru("gru_obs.gru_d", ob["gru"])
+    sd["gru_obs.w_prep"] = torch.tensor(np.asarray(ob["w_prep"], np.float32))
+    sd["gru_obs.bias_prep"] = torch.tensor(
+        np.asarray(ob["bias_prep"], np.float32))
+    return sd
+
+
+def gob_jax_params_from_state_dict(sd):
+    """``state_dict`` of a ``GOB`` -> the JAX pytree of numpy arrays
+    (inverse of :func:`gob_state_dict_from_jax_params`)."""
+    params = {}
+    for jname, tname in _GOB_MLPS.items():
+        layers = defaultdict(dict)
+        pat = re.compile(rf"^{re.escape(tname)}\.(\d+)\.(weight|bias)$")
+        for key, t in sd.items():
+            m = pat.match(key)
+            if m:
+                layers[int(m.group(1))]["w" if m.group(2) == "weight"
+                                        else "b"] = _np(t)
+        params[jname] = [layers[i] for i in sorted(layers)]
+    inv = {v: k for k, v in _GRU.items()}
+    if "gru_c.weight_ih" in sd:
+        params["gru_c"] = {"cell": {inv[k.split(".", 1)[1]]: _np(t)
+                                    for k, t in sd.items()
+                                    if k.startswith("gru_c.")}}
+    else:
+        gc = defaultdict(dict)
+        pat = re.compile(r"^gru_c\.(lin_\w+)\.(weight|bias)$")
+        for key, t in sd.items():
+            m = pat.match(key)
+            if m:
+                gc[m.group(1)]["w" if m.group(2) == "weight" else "b"] = \
+                    _np(t)
+        params["gru_c"] = dict(gc)
+    params["gru_obs"] = {
+        "gru": {inv[k.rsplit(".", 1)[1]]: _np(t) for k, t in sd.items()
+                if k.startswith("gru_obs.gru_d.")},
+        "w_prep": sd["gru_obs.w_prep"].detach().cpu().numpy().copy(),
+        "bias_prep": sd["gru_obs.bias_prep"].detach().cpu().numpy().copy()}
     return params

@@ -4,14 +4,16 @@ Dataset resolution, train/val split, optimal-loss oracle, model registry
 with resume-by-id, Adam (+5e-4 L2), epoch loop, full-validation-batch
 eval (+ optional oracle mean-squared difference), last/best checkpoints on
 the same cadence, the metric CSV with the same columns, and loss-weight
-decay per epoch.
+decay per epoch; NJODE, or GRU-ODE-Bayes with ``other_model=
+"GRU_ODE_Bayes"``.
 
 The dataset is resident on the device; each epoch queues its steps
 (training/steps.py) and reads the losses once at its end. On a CUDA device
 with a supported config the training and eval losses run through the
-hand-written kernels (ops/fused_scan.py), as the JAX trainer picks its
-Pallas kernels on a TPU. Options the port does not handle yet raise
-``NotImplementedError`` naming their ROADMAP.md entry."""
+hand-written kernels (ops/fused_scan.py for NJODE, ops/fused_gob.py for
+GRU-ODE-Bayes), as the JAX trainer picks its Pallas kernels on a TPU.
+Options the port does not handle yet raise ``NotImplementedError`` naming
+their ROADMAP.md entry."""
 
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from njode_tpu_torch.data import datasets as du
 from njode_tpu_torch.data import oracle, sde
 from njode_tpu_torch.data.grid import batch_from_paths, recompute_n_obs, \
     to_torch
+from njode_tpu_torch.models import gru_ode_bayes as gob
 from njode_tpu_torch.models import njode
 from njode_tpu_torch.models.mlp import count_params
 from njode_tpu_torch.training import checkpoints, registry
@@ -46,7 +49,6 @@ _UNPORTED = {
     "mesh": "Queue 1 item 7 (data parallelism)",
     "epoch_chunk": "Queue 1 item 3 (train_epochs, several epochs per call)",
     "ema_decay": "Queue 1 item 3 (epoch-level parameter EMA)",
-    "other_model": "Queue 1 item 5 (GRU-ODE-Bayes)",
     "profile_dir": "Queue 1 item 8 (utils/profiling.py)",
     "anomaly_detection": "Queue 1 item 8 (utils/profiling.py)",
     "plot_only": "Queue 1 item 3 (plots and the demo's pretrained ids)",
@@ -97,7 +99,10 @@ def train(
     'func_appl_X', 'which_loss', 'residual_enc_dec', 'input_current_t',
     'masked', 'evaluate', 'load_best', 'resume_training', 'repeat_seed',
     'parallel', 'use_pallas' (use the fused kernels; default: on CUDA for
-    a supported config) and 'pallas_mask_mode' ('prng' or 'input').
+    a supported config), 'pallas_mask_mode' ('prng' or 'input'),
+    'other_model' ("GRU_ODE_Bayes" trains that model instead of NJODE; its
+    'GRU_ODE_Bayes-<name>' options as in ``gru_ode_bayes.
+    config_from_options``; the optimal eval loss is then NaN).
     :return: 0 (reference convention)
     """
     _reject_unported(plot, options)
@@ -140,6 +145,8 @@ def train(
                                               weight=0.5))
     initial_print += ("\noptimal eval loss (achieved by true cond exp): "
                       f"{opt_eval_loss:.5f}")
+    if "other_model" in options:
+        opt_eval_loss = np.nan
 
     # ------- registry / resume -------
     params_dict = {
@@ -176,21 +183,32 @@ def train(
 
     # ------- model & optimizer -------
     opts = params_dict.get("options", options)
-    cfg = njode.NJODEConfig(
-        input_size=params_dict["input_size"],
-        hidden_size=params_dict["hidden_size"],
-        output_size=params_dict["output_size"],
-        ode_nn=params_dict["ode_nn"], readout_nn=params_dict["readout_nn"],
-        enc_nn=params_dict["enc_nn"], use_rnn=params_dict["use_rnn"],
-        bias=params_dict["bias"], dropout_rate=params_dict["dropout_rate"],
-        solver=params_dict["solver"],
-        which_loss=opts.get("which_loss", "standard"),
-        residual_enc_dec=opts.get("residual_enc_dec", True),
-        input_current_t=opts.get("input_current_t", False),
-        masked=opts.get("masked", False))
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(rseed)
-        model = njode.NJODE(cfg)
+    if "other_model" not in options:
+        cfg = njode.NJODEConfig(
+            input_size=params_dict["input_size"],
+            hidden_size=params_dict["hidden_size"],
+            output_size=params_dict["output_size"],
+            ode_nn=params_dict["ode_nn"],
+            readout_nn=params_dict["readout_nn"],
+            enc_nn=params_dict["enc_nn"], use_rnn=params_dict["use_rnn"],
+            bias=params_dict["bias"],
+            dropout_rate=params_dict["dropout_rate"],
+            solver=params_dict["solver"],
+            which_loss=opts.get("which_loss", "standard"),
+            residual_enc_dec=opts.get("residual_enc_dec", True),
+            input_current_t=opts.get("input_current_t", False),
+            masked=opts.get("masked", False))
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(rseed)
+            model = njode.NJODE(cfg)
+        model_name = "NJODE"
+    elif options["other_model"] == "GRU_ODE_Bayes":
+        cfg = gob.config_from_options(params_dict, options)
+        model = gob.GOB(cfg, generator=torch.Generator().manual_seed(rseed))
+        model_name = "GRU-ODE-Bayes"
+    else:
+        raise ValueError(
+            "Invalid argument for (option) parameter 'other_model'.")
     model.to(device)
     optimizer = make_optimizer(model.parameters(),
                                params_dict["learning_rate"])
@@ -200,12 +218,22 @@ def train(
     times = torch.as_tensor((np.arange(1, K + 1) * delta_t)
                             .astype(np.float32), device=device)
     dts = torch.full((K,), delta_t, dtype=torch.float32, device=device)
-    from njode_tpu_torch.ops import fused_scan
-    use_kernels = opts.get("use_pallas", device.type == "cuda"
-                           and fused_scan.supported(cfg))
-    fns = make_step_fns(model, optimizer, times, dts, next_cond_exp,
-                        use_kernels=use_kernels,
-                        mask_mode=opts.get("pallas_mask_mode", "prng"))
+    if model_name == "NJODE":
+        from njode_tpu_torch.ops import fused_scan
+        use_kernels = opts.get("use_pallas", device.type == "cuda"
+                               and fused_scan.supported(cfg))
+        fns = make_step_fns(model, optimizer, times, dts, next_cond_exp,
+                            use_kernels=use_kernels,
+                            mask_mode=opts.get("pallas_mask_mode", "prng"))
+    else:
+        # the JAX trainer passes no mask mode: 'prng', make_step_fns' default
+        from njode_tpu_torch.ops import fused_gob
+        use_kernels = opts.get("use_pallas", device.type == "cuda"
+                               and fused_gob.supported(cfg))
+        fns = gob.make_step_fns(model, optimizer, times, dts, next_cond_exp,
+                                use_kernels=use_kernels,
+                                mask_mode=opts.get("pallas_mask_mode",
+                                                   "prng"))
 
     # device-resident dataset
     train_paths_np, train_obs_np = data_train.dense_arrays(functions)
@@ -250,7 +278,7 @@ def train(
 
     # ------- training loop -------
     if epoch <= epochs:
-        initial_print += "\n\nmodel overview:"
+        initial_print += f"\n\nmodel overview ({model_name}):"
         print(initial_print)
         print(f"# parameters={count_params(model)}\n")
         print("start training ...")

@@ -146,7 +146,7 @@ def test_trainer_writes_metrics_checkpoints_and_resumes(tmp_path):
 
 @pytest.mark.parametrize("option,value", [
     ("mesh", object()), ("epoch_chunk", 4), ("ema_decay", 0.99),
-    ("other_model", "GRU_ODE_Bayes"), ("profile_dir", "p"),
+    ("profile_dir", "p"),
     ("anomaly_detection", True), ("plot", True)])
 def test_unported_trainer_options_raise(option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
