@@ -32,7 +32,26 @@ power limit, and the final ``{"ok": true, ...}`` line:
               10,000-path BlackScholes dataset (8,000 train paths, 400 steps
               an epoch) for 2 epochs; losses and evaluation_mean_diff
               finite, optimal_eval_loss NaN by design, and the launch counts
-              exactly what 2 epochs need.
+              exactly what 2 epochs need;
+9. climate_kernels - on the full-scale climate stand-in (1,114 series, 5
+              variables, T = 200, obs_perc 0.02; fold 0; the first training
+              batch of epoch 1, B = 100, K = 2,004 grid steps): the masked
+              branch of K1, K2 and K3 against their plain versions at the
+              climate widths (D 5, hidden 10, three 2x50 tanh MLPs, dropout
+              0.1) over the first 100 steps in both mask modes and over all
+              2,004 steps in 'prng' mode, and K5/K6 at the GRU-ODE-Bayes
+              climate arm (D 5, hidden 50, p_hidden 25, prep_hidden 10,
+              cov_hidden 50, full field, impute off, logvar, mixing 1e-4,
+              dropout 0.2) over the first 100 steps in both mask modes and
+              over all 2,004 steps in 'prng' mode (the trainer's shape);
+              each kernel run twice and compared bit for bit;
+10. climate_timing - CUDA-event times and bounds of the masked K1/K2/K3
+              and of K5/K6 at the climate arms, B = 100, K = 2,004;
+11. climate_trainer - climate_trainer.train on the stand-in, fold 0, 2
+              epochs of batch 100, the NJODE small arm and then the
+              GRU-ODE-Bayes arm; losses and eval_metric finite, and the
+              launch counts exactly what the epochs' batches need (so an
+              eager fallback on this path fails the run).
 
 Tolerances are those the JAX package's Pallas kernel is held to
 (tests/test_fused_scan.py): loss rtol 1e-5 / atol 1e-6, gradients rtol
@@ -44,7 +63,9 @@ arithmetic guarantees. The GRU-ODE-Bayes gradients and histories take an
 atol of 2e-5 scaled by the largest |value| (at least 1): the GOB loss is a
 sum over observations with 1/var and mixing/s2^2 (up to 5,000) factors, so
 gradients reach the thousands (tests/test_fused_gob.py scales its mesh
-check the same way).
+check the same way); in the climate phase each gradient leaf takes the
+atol scaled by its own largest |value|. Over the climate grid's 2,004
+steps the masked kernels are held to ``LONG_TOL`` (see there).
 """
 
 from __future__ import annotations
@@ -66,6 +87,16 @@ PEAK_INT32 = 33.5e12
 PEAK_BYTES = 3.35e12
 LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
+# K = 2,004 (the climate grid): the loss keeps its tolerance; the carry
+# histories and the gradients are sums over up to 2,004 fp32 steps whose
+# products the kernel adds serially and the plain version through cuBLAS,
+# so their error grows with the size of the sum: rtol 2e-4 and an atol of
+# 2e-5 scaled by the largest |value| of each history and of each gradient
+# leaf (None: scaled_tol of that reference). The climate_kernels lines
+# print the share of this tolerance each check used (PERF.md records it).
+LONG_TOL = dict(loss=LOSS_TOL, hist=None, grad=None)
+CLIMATE_SERIES = 1114      # the published scale of the USHCN file
+CLIMATE_B = 100
 
 
 def say(phase, **kw):
@@ -93,6 +124,19 @@ def cuda_ms(fn, reps, warmup=2):
     e.record()
     e.synchronize()
     return s.elapsed_time(e) / reps
+
+
+def timed(fn):
+    """``(fn(), its CUDA-event ms)`` of one call (no warm-up: for the plain
+    versions' long single runs)."""
+    import torch
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    e.synchronize()
+    return out, s.elapsed_time(e)
 
 
 def max_err(a, b):
@@ -699,6 +743,384 @@ def phase_gob_trainer(results):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _first_steps(batch, K):
+    """The first K grid steps of a GridBatch, n_obs_ot recounted."""
+    b = batch._replace(times=batch.times[:K].contiguous(),
+                       dt=batch.dt[:K].contiguous(),
+                       obs=batch.obs[:K].contiguous(),
+                       X=batch.X[:K].contiguous(), M=batch.M[:K].contiguous())
+    return b._replace(n_obs_ot=b.obs.sum(dim=0))
+
+
+def climate_setup(results, tmp):
+    """The full-scale stand-in, its fold files, fold 0's training split
+    and pre-stacked bank, and epoch 1's first training batch on the
+    card."""
+    import numpy as np
+    import torch
+
+    from njode_tpu_torch.data import climate as cdu
+    from njode_tpu_torch.training import climate_trainer as ct
+    from njode_tpu_torch.training.steps import prestacked_batch
+
+    dev = torch.device("cuda")
+    t0 = time.time()
+    csv = os.path.join(tmp, "small_chunked_sporadic.csv")
+    _, rows = cdu.make_synthetic_climate_csv(csv, n_series=CLIMATE_SERIES)
+    cdu.make_fold_indices(tmp, CLIMATE_SERIES)
+    train_idx = np.load(os.path.join(tmp, "small_chunk_fold_idx_0",
+                                     "train_idx.npy"))
+    ds = cdu.ClimateDataset(csv, idx=train_idx)
+    K = ds.max_grid_steps(0.1, 200.0)
+    pre = cdu.prestack_series(ds, 0.1, 200.0, K)
+    E = pre["k"].shape[1]
+    bank = [torch.as_tensor(a, device=dev) for a in (
+        np.concatenate([pre["k"], np.full((1, E), K, np.int32)]).astype(
+            np.int64),
+        np.concatenate([pre["X"], np.zeros((1, E, 5), np.float32)]),
+        np.concatenate([pre["M"], np.zeros((1, E, 5), np.float32)]))]
+    idx_mat, _, _ = ct.epoch_batches(398, 1, len(ds), CLIMATE_B)
+    batch = prestacked_batch(*bank, torch.as_tensor(idx_mat[0], device=dev),
+                             torch.as_tensor(pre["times"], device=dev),
+                             torch.as_tensor(pre["dt"], device=dev))
+    torch.cuda.synchronize()
+    results["climate"] = dict(dir=tmp, n_train=len(ds), batch=batch, K=K)
+    say("climate_setup", series=CLIMATE_SERIES, csv_rows=len(rows),
+        n_train=len(ds), K=K, B=CLIMATE_B,
+        batch_obs=int(batch.obs.sum()), setup_s=f"{time.time() - t0:.2f}")
+
+
+def _climate_njode(dev, seed=0):
+    import torch
+
+    from njode_tpu_torch.models.njode import NJODE, NJODEConfig
+
+    nn_desc = ((50, "tanh"), (50, "tanh"))
+    cfg = NJODEConfig(5, 10, 5, nn_desc, nn_desc, nn_desc,
+                      dropout_rate=0.1, masked=True)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = NJODE(cfg).to(dev)
+    return cfg, model
+
+
+def _climate_gob(dev, seed=0):
+    import torch
+
+    from njode_tpu_torch.models import gru_ode_bayes as gob
+
+    cfg = gob.GOBConfig(input_size=5, hidden_size=50, p_hidden=25,
+                        prep_hidden=10, cov_size=5, cov_hidden=50,
+                        logvar=True, mixing=1e-4, dropout_rate=0.2,
+                        full_gru_ode=True, impute=False)
+    model = gob.GOB(cfg, generator=torch.Generator().manual_seed(seed))
+    return cfg, model.to(dev)
+
+
+def _masked_checks(spec, leaves, arrays, h0, u, seed, tol, tag):
+    """K1 and K2 twice bit for bit and against the plain versions (the
+    plain calls timed once with CUDA events); returns (errors, plain ms,
+    K1's histories)."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    runs = [fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, True, u, seed)
+            for _ in range(2)]
+    (lk, hk), (lk2, hk2) = runs
+    torch.cuda.synchronize()
+    if not (torch.equal(lk, lk2) and all(
+            torch.equal(a, b) for a, b in zip(hk, hk2))):
+        raise AssertionError(f"masked K1 ({tag}) differs between two runs")
+    ms = {}
+    (lp, hp), ms["K1m"] = timed(lambda: fs.scan_fwd_plain(
+        spec, leaves, arrays, 0.5, h0, True, u, seed))
+    e = {"loss": check_close(f"masked K1 loss ({tag})", lk, lp, tol["loss"]),
+         "loss_val": float(lp)}
+    e["hist"] = max(check_close(f"masked K1 {n} ({tag})", a, b,
+                                tol["hist"] or scaled_tol(b))
+                    for n, a, b in zip(("h", "lastX", "tau"), hk, hp))
+    dloss = torch.ones((), device=h0.device)
+    outs = [fs.scan_bwd_cuda(spec, leaves, arrays, 0.5, True, hk, dloss, u,
+                             seed) for _ in range(2)]
+    torch.cuda.synchronize()
+    (gk, dk), (gk2, dk2) = outs
+    if not (torch.equal(dk, dk2) and all(
+            torch.equal(a, b) for a, b in zip(gk, gk2))):
+        raise AssertionError(f"masked K2 ({tag}) differs between two runs")
+    (gp, dp), ms["K2m"] = timed(lambda: fs.scan_bwd_plain(
+        spec, leaves, arrays, 0.5, True, hk, dloss, u, seed))
+    e.update(_grad_errs(f"masked K2 ({tag})", gk, gp, tol["grad"]))
+    e["dh0"] = check_close(f"masked K2 dh0 ({tag})", dk, dp,
+                           tol["grad"] or scaled_tol(dp))
+    return e, ms, hk
+
+
+def _grad_errs(name, gk, gp, tol=None):
+    """Each gradient leaf against its plain version, at ``tol`` or (None)
+    at the leaf's own ``scaled_tol``: the largest absolute error, the
+    largest error relative to its leaf's largest |g|, and the largest share
+    of the tolerance used (|a - b| / (atol + rtol |b|), 1 at the limit)."""
+    e = {"grad": 0.0, "grad_rel": 0.0, "grad_used": 0.0}
+    for i, (a, b) in enumerate(zip(gk, gp)):
+        t = tol or scaled_tol(b)
+        e["grad"] = max(e["grad"], check_close(f"{name} grad {i}", a, b, t))
+        e["grad_rel"] = max(e["grad_rel"],
+                            max_err(a, b) / max(float(b.abs().max()), 1e-30))
+        e["grad_used"] = max(e["grad_used"], float(
+            ((a.double() - b.double()).abs()
+             / (t["atol"] + t["rtol"] * b.double().abs())).max()))
+    return e
+
+
+def _gob_checks(spec, leaves, arrays, st, u, seed, tag):
+    """K5 and K6 twice bit for bit and against the plain versions (the
+    plain calls timed once with CUDA events), histories and gradients per
+    leaf at ``scaled_tol``; returns (errors, plain ms, K5's histories)."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_gob as fg
+
+    runs = [fg.gob_scan_fwd_cuda(spec, leaves, arrays, *st, True, u, seed)
+            for _ in range(2)]
+    (lk, hk), (lk2, hk2) = runs
+    torch.cuda.synchronize()
+    if not (torch.equal(lk, lk2) and all(
+            torch.equal(a, c) for a, c in zip(hk, hk2))):
+        raise AssertionError(f"K5 climate ({tag}) differs between two runs")
+    ms = {}
+    (lp, hp), ms["K5c"] = timed(lambda: fg.gob_scan_fwd_plain(
+        spec, leaves, arrays, *st, True, u, seed))
+    e = {"loss": check_close(f"K5 climate loss ({tag})", lk, lp, LOSS_TOL),
+         "loss_val": float(lp)}
+    e["hist"] = max(check_close(f"K5 climate {n} ({tag})", a, c,
+                                scaled_tol(c))
+                    for n, a, c in zip("hmv", hk, hp))
+    dloss = torch.ones((), device=lk.device)
+    outs = [fg.gob_scan_bwd_cuda(spec, leaves, arrays, True, hk, dloss, u,
+                                 seed) for _ in range(2)]
+    torch.cuda.synchronize()
+    (gk, *dk), (gk2, *dk2) = outs
+    if not all(torch.equal(a, c) for a, c in
+               zip(list(gk) + dk, list(gk2) + dk2)):
+        raise AssertionError(f"K6 climate ({tag}) differs between two runs")
+    (gp, *dp), ms["K6c"] = timed(lambda: fg.gob_scan_bwd_plain(
+        spec, leaves, arrays, True, hk, dloss, u, seed))
+    e.update(_grad_errs(f"K6 climate ({tag})", gk, gp))
+    e["d0"] = max(check_close(f"K6 climate {n} ({tag})", a, c, scaled_tol(c))
+                  for n, a, c in zip(("dh0", "dm0", "dv0"), dk, dp))
+    return e, ms, hk
+
+
+def phase_climate_kernels(results):
+    import torch
+
+    from njode_tpu_torch.models import gru_ode_bayes as gob
+    from njode_tpu_torch.ops import fused_gob as fg
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    dev = torch.device("cuda")
+    full = results["climate"]["batch"]
+    cfg, model = _climate_njode(dev)
+    leaves = [p.detach() for p in fs.flat_leaves(model)]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    errs = {"K1m": 0.0, "K2m": 0.0, "K3m": 0.0}
+    short_tol = dict(loss=LOSS_TOL, hist=GRAD_TOL, grad=GRAD_TOL)
+    for K, modes, tol in ((100, ("input", "prng"), short_tol),
+                          (results["climate"]["K"], ("prng",), LONG_TOL)):
+        b = _first_steps(full, K)
+        arrays = fs.batch_arrays(b)
+        with torch.no_grad():
+            h0 = fs.t0_state(model, b)
+        for mode in modes:
+            spec = fs.Spec(cfg, mode)
+            u = seed = None
+            if mode == "input":
+                u = (torch.rand((K, spec.S, CLIMATE_B, spec.w_max),
+                                generator=gen, device=dev) < 0.9).to(
+                    torch.int8)
+            else:
+                seed = torch.randint(0, 2 ** 62, (1,), generator=gen,
+                                     device=dev, dtype=torch.int64)
+            tag = f"K={K} {mode}"
+            e, plain_ms, hists = _masked_checks(spec, leaves, arrays, h0, u,
+                                                seed, tol, tag)
+            errs["K1m"] = max(errs["K1m"], e["loss"])
+            errs["K2m"] = max(errs["K2m"], e["grad"], e["dh0"])
+            say("climate_kernels", K=K, mode=mode,
+                loss=f"{e['loss_val']:.6f}", K1_loss_err=f"{e['loss']:.3e}",
+                K1_hist_err=f"{e['hist']:.3e}",
+                K2_grad_err=f"{e['grad']:.3e}",
+                K2_grad_rel_err=f"{e['grad_rel']:.3e}",
+                K2_grad_tol_used=f"{e['grad_used']:.3e}",
+                K2_dh0_err=f"{e['dh0']:.3e}", bitwise_repeat=True)
+        spec3 = fs.Spec(cfg, "input")
+        l3 = [fs.scan_fwd_cuda(spec3, leaves, arrays, 0.5, h0, False,
+                               want_hists=False)[0] for _ in range(2)]
+        torch.cuda.synchronize()
+        if not torch.equal(l3[0], l3[1]):
+            raise AssertionError(f"masked K3 (K={K}) differs between runs")
+        (l3p, _), plain_k3 = timed(lambda: fs.scan_fwd_plain(
+            spec3, leaves, arrays, 0.5, h0, False, want_hists=False))
+        e3 = check_close(f"masked K3 (K={K})", l3[0], l3p, tol["loss"])
+        errs["K3m"] = max(errs["K3m"], e3)
+        say("climate_kernels", K=K, K3_loss_err=f"{e3:.3e}",
+            K3_loss=f"{float(l3[0]):.6f}", bitwise_repeat=True)
+    plain_ms["K3m"] = plain_k3
+    results["climate"].update(
+        njode=(cfg, leaves, arrays, h0, seed, hists), plain_ms=plain_ms)
+
+    # K5/K6 at the GRU-ODE-Bayes climate arm: the first 100 steps in both
+    # mask modes, all 2,004 in 'prng' mode (the trainer's shape)
+    gcfg, gmodel = _climate_gob(dev)
+    gleaves = [p.detach() for p in fg.flat_leaves(gmodel, fg.Spec(gcfg))]
+    gerr = {"K5c": 0.0, "K6c": 0.0}
+    for K, modes in ((100, ("input", "prng")),
+                     (results["climate"]["K"], ("prng",))):
+        b = _first_steps(full, K)
+        garrays = (b.times, b.dt, b.obs, b.X, b.M)
+        with torch.no_grad():
+            h0 = gob.mlp2(gmodel.covariates_map, b.start_X, 0.0)
+            p0 = gob.mlp2(gmodel.p_model, h0, 0.0)
+        st = (h0.contiguous(), p0[:, :5].contiguous(), p0[:, 5:].contiguous())
+        for mode in modes:
+            spec = fg.Spec(gcfg, mode)
+            u = seed = None
+            if mode == "input":
+                u = (torch.rand((K, 3, CLIMATE_B, spec.P), generator=gen,
+                                device=dev) < 0.8).to(torch.int8)
+            else:
+                seed = torch.randint(0, 2 ** 62, (1,), generator=gen,
+                                     device=dev, dtype=torch.int64)
+            e, gplain_ms, ghists = _gob_checks(spec, gleaves, garrays, st, u,
+                                               seed, f"K={K} {mode}")
+            gerr["K5c"] = max(gerr["K5c"], e["loss"])
+            gerr["K6c"] = max(gerr["K6c"], e["grad"], e["d0"])
+            say("climate_kernels", model="GOB", K=K, mode=mode,
+                loss=f"{e['loss_val']:.6f}", K5_loss_err=f"{e['loss']:.3e}",
+                K5_hist_err=f"{e['hist']:.3e}",
+                K6_grad_err=f"{e['grad']:.3e}",
+                K6_grad_rel_err=f"{e['grad_rel']:.3e}",
+                K6_grad_tol_used=f"{e['grad_used']:.3e}",
+                K6_d0_err=f"{e['d0']:.3e}", bitwise_repeat=True)
+    plain_ms.update(gplain_ms)
+    results["climate"]["gob"] = (gcfg, gleaves, garrays, st, seed, ghists)
+    results["climate_errs"] = dict(errs, **gerr)
+
+
+def phase_climate_timing(results):
+    import torch
+
+    from njode_tpu_torch.ops import fused_gob as fg
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    cl = results["climate"]
+    cfg, leaves, arrays, h0, seed, hists = cl["njode"]
+    spec = fs.Spec(cfg, "prng")
+    spec3 = fs.Spec(cfg, "input")
+    K, B = arrays[2].shape
+    dloss = torch.ones((), device=h0.device)
+    t, bnd = {}, {}
+    t["K1m"] = (cuda_ms(lambda: fs.scan_fwd_cuda(
+        spec, leaves, arrays, 0.5, h0, True, None, seed), 3, 1),
+        cl["plain_ms"]["K1m"])
+    t["K2m"] = (cuda_ms(lambda: fs.scan_bwd_cuda(
+        spec, leaves, arrays, 0.5, True, hists, dloss, None, seed), 3, 1),
+        cl["plain_ms"]["K2m"])
+    t["K3m"] = (cuda_ms(lambda: fs.scan_fwd_cuda(
+        spec3, leaves, arrays, 0.5, h0, False, want_hists=False), 3, 1),
+        cl["plain_ms"]["K3m"])
+    mac = _macs_per_row_step(spec)
+    D, H, P = spec.D, spec.H, spec.n_params
+    n_cta = -(-B // fs.ROWS)
+    data = 4 * (2 * K + K * B + 2 * K * B * D + B + B * D + B * H + P)
+    hist = 4 * K * B * (H + D + 1)
+    f1 = 2.0 * mac * B * K
+    bnd["K1m"] = bound(f1, data + 8 + hist + 4 * n_cta, PEAK_FP32)
+    bnd["K2m"] = bound(3.0 * f1, data + 8 + hist + 4 + 4 * n_cta * P
+                       + 4 * B * H, PEAK_FP32)
+    bnd["K3m"] = bound(f1, data + 4 * n_cta, PEAK_FP32)
+
+    gcfg, gleaves, garrays, st, gseed, ghists = cl["gob"]
+    gspec = fg.Spec(gcfg, "prng")
+    t["K5c"] = (cuda_ms(lambda: fg.gob_scan_fwd_cuda(
+        gspec, gleaves, garrays, *st, True, None, gseed), 2, 1),
+        cl["plain_ms"]["K5c"])
+    t["K6c"] = (cuda_ms(lambda: fg.gob_scan_bwd_cuda(
+        gspec, gleaves, garrays, True, ghists, dloss, None, gseed), 2, 1),
+        cl["plain_ms"]["K6c"])
+    (f5, b5), (f6, b6) = gob_bounds(gspec, K, B, -(-B // fg.ROWS))
+    bnd["K5c"] = bound(f5, b5, PEAK_FP32)
+    bnd["K6c"] = bound(f6, b6, PEAK_FP32)
+    results["times"].update(t)
+    results["bounds"].update(bnd)
+    for k in ("K1m", "K2m", "K3m", "K5c", "K6c"):
+        ms, plain = t[k]
+        bms, by = bnd[k]
+        say("climate_timing", kernel=k, B=B, K=K, ms=f"{ms:.4f}",
+            ms_per_step=f"{ms / K:.5f}", plain_ms=f"{plain:.4f}",
+            bound_ms=f"{bms:.6f}", bound_by=by,
+            roofline_share=f"{bms / ms:.2e}")
+
+
+def _climate_run(results, tag, expect, **kw):
+    """One ``climate_trainer.train`` run with every count set to 0 just
+    before and read just after; checks the metric CSV and the counts."""
+    import numpy as np
+    import torch
+
+    from njode_tpu_torch.ops import fused_gob as fg
+    from njode_tpu_torch.ops import fused_scan as fs
+    from njode_tpu_torch.training import climate_trainer as ct
+    from njode_tpu_torch.utils.csv_frame import read_frame, to_float
+
+    d = results["climate"]["dir"]
+    models = os.path.join(d, "models_" + tag)
+    fs.reset_launch_counts()
+    fg.reset_launch_counts()
+    ct.train(epochs=2, batch_size=CLIMATE_B, climate_dir=d,
+             saved_models_path=models, device="cuda", **kw)
+    torch.cuda.synchronize()
+    counts = dict(fs.LAUNCHES, **fg.LAUNCHES)
+    cols, rows = read_frame(os.path.join(models, "id-1", "metric_id-1.csv"))
+    if len(rows) != 2:
+        raise AssertionError(f"{tag}: expected 2 metric rows, got {rows}")
+    for row in rows:
+        rec = dict(zip(cols, row))
+        vals = {k: to_float(rec[k]) for k in cols if k != "epoch"}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"{tag}: non-finite metrics: {rec}")
+        say("climate_trainer", arm=tag, epoch=rec["epoch"],
+            **{k: f"{v:.6f}" for k, v in vals.items()})
+    for k, v in counts.items():
+        if counts[k] != expect.get(k, 0):
+            raise AssertionError(f"{tag}: launch count {k}={counts[k]}, "
+                                 f"expected {expect.get(k, 0)}: {counts}")
+    say("climate_trainer", arm=tag,
+        launches=json.dumps({k: v for k, v in counts.items() if v})
+        .replace(" ", ""))
+    return counts
+
+
+def phase_climate_trainer(results):
+    n_batches = -(-results["climate"]["n_train"] // CLIMATE_B)
+    steps = 2 * n_batches            # 2 epochs; eval runs the eager forward
+    nj = _climate_run(results, "njode", {
+        "njode_scan_fwd": steps, "njode_scan_bwd": steps,
+        "philox_keep": 2 * steps, "reduce_partials": 2 * steps},
+        hidden_size=10, dropout_rate=0.1)
+    gb = _climate_run(results, "gob", {
+        "gob_scan_fwd": steps, "gob_scan_bwd": steps,
+        "gob_philox_keep": 2 * steps, "reduce_partials": 2 * steps},
+        hidden_size=50, dropout_rate=0.2, ode_nn=None, readout_nn=None,
+        enc_nn=None, other_model="GRU_ODE_Bayes",
+        **{"GRU_ODE_Bayes-impute": False, "GRU_ODE_Bayes-logvar": True,
+           "GRU_ODE_Bayes-mixing": 1e-4, "GRU_ODE_Bayes-p_hidden": 25,
+           "GRU_ODE_Bayes-prep_hidden": 10,
+           "GRU_ODE_Bayes-cov_hidden": 50})
+    results["climate_launches"] = dict(njode=nj, gob=gb)
+
+
 def kernels_line(results):
     src = "njode_tpu_torch/ops/csrc/fused_scan.cu"
     rows = [("njode_scan_fwd", "K1", "njode_tpu/ops/fused_scan.py:1115",
@@ -713,12 +1135,16 @@ def kernels_line(results):
              "njode_tpu/ops/fused_scan.py:522", "reduce_partials")]
     out = []
     gl = results["gob_launches"]
+    cn, cg = (results["climate_launches"][k] for k in ("njode", "gob"))
     for name, key, replaces, count in rows:
         ms, plain = results["times"][key]
         bms, by = results["bounds"][key]
         launches = results["launches"][count]
-        if name == "reduce_partials":    # runs on both paths
-            launches += gl["reduce_partials"]
+        if name == "reduce_partials":    # runs on every path
+            launches += (gl["reduce_partials"] + cn["reduce_partials"]
+                         + cg["reduce_partials"])
+        elif name == "philox_keep":      # the synthetic and climate paths
+            launches += cn["philox_keep"]
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": launches,
                     "max_abs_err": results["errs"][key], "ms": ms,
@@ -739,6 +1165,26 @@ def kernels_line(results):
                     "max_abs_err": results["gob_errs"][key], "ms": ms,
                     "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                     "library_ms": None})
+    # the climate path: the masked branch of K1-K3, K5/K6 at the climate
+    # GRU-ODE-Bayes arm (launches from the climate trainer phase)
+    ce = results["climate_errs"]
+    for name, key, s, replaces, launches in (
+            ("njode_scan_fwd_masked", "K1m", src,
+             "njode_tpu/ops/fused_scan.py:695", cn["njode_scan_fwd"]),
+            ("njode_scan_bwd_masked", "K2m", src,
+             "njode_tpu/ops/fused_scan.py:772", cn["njode_scan_bwd"]),
+            ("njode_scan_eval_masked", "K3m", src,
+             "njode_tpu/ops/fused_scan.py:695", cn["njode_scan_eval"]),
+            ("gob_scan_fwd_climate", "K5c", gsrc,
+             "njode_tpu/ops/fused_gob.py:919", cg["gob_scan_fwd"]),
+            ("gob_scan_bwd_climate", "K6c", gsrc,
+             "njode_tpu/ops/fused_gob.py:963", cg["gob_scan_bwd"])):
+        ms, plain = results["times"][key]
+        bms, by = results["bounds"][key]
+        out.append({"name": name, "route": "cuda", "source": s,
+                    "replaces": replaces, "launches": launches,
+                    "max_abs_err": ce[key], "ms": ms, "plain_ms": plain,
+                    "bound_ms": bms, "bound_by": by, "library_ms": None})
     return json.dumps({"kernels": out})
 
 
@@ -776,6 +1222,17 @@ def main():
         phase(results)
         say(phase.__name__[6:], phase_s=f"{time.time() - t0:.2f}")
         t0 = time.time()
+    tmp = tempfile.mkdtemp(prefix="njode_smoke_climate_")
+    try:
+        climate_setup(results, tmp)
+        t0 = time.time()
+        for phase in (phase_climate_kernels, phase_climate_timing,
+                      phase_climate_trainer):
+            phase(results)
+            say(phase.__name__[6:], phase_s=f"{time.time() - t0:.2f}")
+            t0 = time.time()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     print(kernels_line(results), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,10 +22,7 @@ from the caller's ``torch.Generator`` in that order when not given.
 
 ``solver='dopri5'`` runs through ops/odeint.py (eagerly, as in JAX: the
 fused kernels cover euler and midpoint). Not ported yet (ROADMAP.md Queue 1
-item 5): the Seq variants
-(``GRUODEBayesSeq``, not wired into any trainer), the real-data step
-functions (``make_grid_step_fns``, ``make_sparse_step_fns``,
-``make_prestacked_step_fns``, with Queue 1 item 4).
+item 5): the Seq variants (``GRUODEBayesSeq``, not wired into any trainer).
 """
 
 from __future__ import annotations
@@ -524,3 +521,100 @@ def make_step_fns(model: GOB, optimizer, times, dts, next_cond_exp=None,
 
     fns["pred_path"] = pred_path
     return fns
+
+
+def _gob_train_loss(model, use_kernels, mask_mode):
+    if use_kernels:
+        from njode_tpu_torch.ops import fused_gob
+        fused = fused_gob.make_fused_loss_fn(model.cfg, mask_mode=mask_mode)
+        return lambda batch, generator: fused(model, batch, generator, True)
+    return lambda batch, generator: forward(model, batch, train=True,
+                                            generator=generator)[1]
+
+
+def _gob_step(model, optimizer, train_loss):
+    """One optimizer step on a GridBatch. The GOB loss is a sum over
+    observations, so padded rows add nothing and no loss scale applies."""
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+    def step(batch, generator):
+        optimizer.zero_grad(set_to_none=False)
+        loss = train_loss(batch, generator)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def make_grid_step_fns(model: GOB, optimizer, sparse: bool = False,
+                       use_kernels: bool = False, mask_mode: str = "prng"):
+    """Real-data step functions with the dict and signatures of
+    ``training.steps.make_grid_step_fns``; ``weight`` and ``loss_scale``
+    are accepted for the interface and unused (the loss is an unnormalised
+    sum over observations, ``mixing`` fixed in the config). The training
+    loss runs through the fused GOB kernels when ``use_kernels``;
+    evaluation and prediction (the pre-jump mean path) stay eager."""
+    from njode_tpu_torch.data.grid import densify_sparse
+    from njode_tpu_torch.training.steps import _index_batch, real_data_fns
+
+    prep = densify_sparse if sparse else (lambda b: b)
+    step = _gob_step(model, optimizer,
+                     _gob_train_loss(model, use_kernels, mask_mode))
+    D = model.cfg.input_size
+
+    def train_step(b, weight, generator, loss_scale=1.0):
+        return step(prep(b), generator)
+
+    def train_epoch(b_stack, weight, generators, loss_scales):
+        return torch.stack([train_step(_index_batch(b_stack, i), weight, g)
+                            for i, g in enumerate(generators)])
+
+    def pre_path(batch, weight, get_loss):
+        _, loss, (p0, p_pre, _) = forward(model, batch, train=False,
+                                          get_loss=get_loss, return_path=True)
+        return loss, torch.cat([p0[None, :, :D], p_pre[:, :, :D]], dim=0)
+
+    return real_data_fns(pre_path, prep, train_step, train_epoch,
+                         scale_loss=False)
+
+
+def make_sparse_step_fns(model: GOB, optimizer, use_kernels: bool = False,
+                         mask_mode: str = "prng"):
+    """SparseBatch step functions (see :func:`make_grid_step_fns`)."""
+    return make_grid_step_fns(model, optimizer, sparse=True,
+                              use_kernels=use_kernels, mask_mode=mask_mode)
+
+
+def make_prestacked_step_fns(model: GOB, optimizer, times, dts,
+                             use_kernels: bool = False,
+                             mask_mode: str = "prng", cov_bank=None):
+    """Training steps over a pre-stacked event bank on the device (see
+    ``training.steps.make_prestacked_step_fns``). ``cov_bank [N+1, C]``:
+    per-series covariates (sentinel row N zeros) gathered per batch into
+    ``start_X``, the input of ``covariates_map``; without it ``start_X``
+    is zero."""
+    from njode_tpu_torch.training.steps import prestacked_batch
+
+    step = _gob_step(model, optimizer,
+                     _gob_train_loss(model, use_kernels, mask_mode))
+
+    def _batch(k_all, X_all, M_all, idx):
+        b = prestacked_batch(k_all, X_all, M_all, idx, times, dts)
+        if cov_bank is not None:
+            b = b._replace(start_X=cov_bank.index_select(0, idx.long()))
+        return b
+
+    def train_step(k_all, X_all, M_all, idx, weight, generator,
+                   loss_scale=1.0):
+        return step(_batch(k_all, X_all, M_all, idx), generator)
+
+    def train_epoch(k_all, X_all, M_all, idx_mat, weight, generators,
+                    loss_scales):
+        return torch.stack([
+            train_step(k_all, X_all, M_all, idx, weight, g)
+            for idx, g in zip(idx_mat, generators)])
+
+    return {"train_step": train_step, "train_epoch": train_epoch}

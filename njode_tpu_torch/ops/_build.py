@@ -118,9 +118,9 @@ def _declare(name, lib):
     if name == "fused_scan":
         lib.njode_error_string.argtypes = [I]
         lib.njode_error_string.restype = ctypes.c_char_p
-        lib.njode_scan_fwd.argtypes = [P] * 15 + [I, P]
+        lib.njode_scan_fwd.argtypes = [P] * 16 + [I, P]
         lib.njode_scan_fwd.restype = I
-        lib.njode_scan_bwd.argtypes = [P] * 15 + [P]
+        lib.njode_scan_bwd.argtypes = [P] * 16 + [P]
         lib.njode_scan_bwd.restype = I
         lib.njode_reduce_partials.argtypes = [P, I, I, F, P, P]
         lib.njode_reduce_partials.restype = I

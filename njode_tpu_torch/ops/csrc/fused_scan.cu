@@ -1,6 +1,8 @@
 // Hand-written Hopper kernels for the NJODE training scan (sm_90a).
 //
-// Replaces the Pallas TPU kernels of njode_tpu/ops/fused_scan.py:
+// Replaces the Pallas TPU kernels of njode_tpu/ops/fused_scan.py, both
+// their branches (unmasked, and masked: _step_forward / _step_backward's
+// imputation path):
 //   njode_scan_fwd_kernel<true>   K1  _fwd_impl / _make_fwd_kernel (training forward, histories)
 //   njode_scan_fwd_kernel<false>  K3  make_fused_eval_fn (eval loss, no histories, no dropout)
 //   njode_scan_bwd_kernel         K2  _fused_bwd / _make_bwd_kernel (hand-written BPTT)
@@ -27,6 +29,16 @@
 // the 132 SMs have a CTA. This first version is simple and exact; tensor
 // cores, fewer rows per CTA and overlapping the independent MLPs are later
 // work (PERF.md, Open questions).
+//
+// Masked branch (c.masked). The pre-jump readout imputes the unobserved
+// coordinates, X_imp = X*M + (1-M)*y_bj, and the encoder reads
+// [tanh X_imp, M] (2D wide) with its residual on X_imp (D wide), so a step
+// runs four MLP passes one after another: ODE, pre-jump readout (R rows,
+// slots s_r1), encoder, post-jump readout (R rows, slots s_r2, MLPDesc
+// ro2: the same weights, its own saved activations). The loss weighs each
+// coordinate by M, and last_X takes the post-jump prediction y at observed
+// rows, so the backward adds obs*dlast_X to dy and carries (1-M)*dX_imp
+// into dy_bj before the pre-jump readout's backward.
 //
 // Dropout masks. 'input' mode reads int8 keep-masks [K,S,B,Wmax]; 'prng'
 // mode draws Philox4x32-10 (philox.cuh, shared with the GRU-ODE-Bayes
@@ -58,15 +70,15 @@ struct MLPDesc {
 // Mirrored field by field by ops/fused_scan.py::_ScanCfg (all 4-byte fields).
 struct ScanCfg {
   int K, B, D, H, O, S, Wmax, n_params, n_leaves;
-  int enc_case, enc_mult, ro_case, ro_mult, easy, ict, mode;
+  int enc_case, enc_mult, ro_case, ro_mult, easy, ict, mode, masked;
   unsigned int thresh;
   float keep, weight;
   int rows, buf_w, smem_floats;
   int leaf_off[MAX_LEAVES + 1];
   int o_w, o_g, o_h, o_lx, o_tau, o_X, o_obs, o_nobs, o_lrow, o_h1, o_h2;
   int o_in_ode, o_tX, o_in_ro, o_f, o_enc, o_ro, o_dA, o_dB, o_dh, o_dlx;
-  int o_dtau, o_rs, o_dst, o_dh1, o_dhe, o_df, o_dlxc, o_dtauc;
-  MLPDesc ode, enc, ro;
+  int o_dtau, o_rs, o_dst, o_dh1, o_dhe, o_df, o_dlxc, o_dtauc, o_M, o_Xi;
+  MLPDesc ode, enc, ro, ro2;   // ro2: the masked branch's post-jump pass
 };
 
 struct Leaves { const float* p[MAX_LEAVES]; };
@@ -262,9 +274,20 @@ __device__ MaskCtx make_mask_ctx(const ScanCfg& c, const int8_t* u,
   return mc;
 }
 
+// readouts with residual: y_bj for row r (row r of h1 / the first half
+// of ro), y (row R + r: h2 / the second half)
+__device__ __forceinline__ float y_at(const ScanCfg& c, const float* sm,
+                                      int rr, int o) {
+  const float* hsrc = rr < ROWS ? sm + c.o_h1 + rr * c.H
+                                : sm + c.o_h2 + (rr - ROWS) * c.H;
+  return residual(c.ro_case, c.ro_mult, hsrc, c.H, o)
+         + sm[c.o_ro + rr * c.O + o];
+}
+
 // One step forward for the CTA's rows, from the carries in smem (h, lx,
-// tau, X, obs already loaded): fills h1, h2, tanh(X), the ODE input, the
-// stacked readout input and output, with every MLP's saved activations.
+// tau, X, obs and, masked, M already loaded): fills h1, h2, the encoder
+// input tX, the ODE input, the readout inputs and outputs (y_bj rows
+// 0..R-1, y rows R..2R-1), with every MLP's saved activations.
 __device__ void step_forward(const ScanCfg& c, float* sm, float t, float dt,
                              MaskCtx& mc) {
   const int R = ROWS, D = c.D, H = c.H, O = c.O;
@@ -284,15 +307,50 @@ __device__ void step_forward(const ScanCfg& c, float* sm, float t, float dt,
     else v = tau[r] + tdiff;                 // input_current_t feature
     in_ode[idx] = v;
   }
-  for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x)
-    tX[idx] = tanhf(X[idx]);
+  if (!c.masked)
+    for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x)
+      tX[idx] = tanhf(X[idx]);
   __syncthreads();
   mc.half = R; mc.jump = 0;
   mlp_fwd(c, c.ode, sm, in_ode, R, sm + c.o_f, mc);
-  mlp_fwd(c, c.enc, sm, tX, R, sm + c.o_enc, mc);
   float* f = sm + c.o_f; float* enc = sm + c.o_enc;
   float* h1 = sm + c.o_h1; float* h2 = sm + c.o_h2;
   float* in_ro = sm + c.o_in_ro;
+  if (c.masked) {
+    const float* M = sm + c.o_M;
+    float* Xi = sm + c.o_Xi;
+    for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
+      float a = h[idx] + dt * f[idx];
+      h1[idx] = a;
+      in_ro[idx] = tanhf(a);
+    }
+    __syncthreads();
+    mlp_fwd(c, c.ro, sm, in_ro, R, sm + c.o_ro, mc);     // y_bj, slots r1
+    for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x) {
+      int r = idx / D, q = idx - r * D;
+      float m = M[idx];
+      float xi = X[idx] * m + (1.f - m) * y_at(c, sm, r, q);
+      Xi[idx] = xi;
+      tX[r * 2 * D + q] = tanhf(xi);
+      tX[r * 2 * D + D + q] = m;
+    }
+    __syncthreads();
+    mlp_fwd(c, c.enc, sm, tX, R, enc, mc);
+    for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
+      int r = idx / H, j = idx - r * H;
+      float he = residual(c.enc_case, c.enc_mult, Xi + r * D, D, j)
+                 + enc[idx];
+      float o = obs[r];
+      float b = o * he + (1.f - o) * h1[idx];
+      h2[idx] = b;
+      in_ro[R * H + idx] = tanhf(b);
+    }
+    __syncthreads();
+    mlp_fwd(c, c.ro2, sm, in_ro + R * H, R, sm + c.o_ro + R * O, mc);
+    mc.half = 2 * R;
+    return;
+  }
+  mlp_fwd(c, c.enc, sm, tX, R, enc, mc);
   for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
     int r = idx / H, j = idx - r * H;
     float a = h[idx] + dt * f[idx];
@@ -308,16 +366,29 @@ __device__ void step_forward(const ScanCfg& c, float* sm, float t, float dt,
   mc.half = R; mc.jump = c.ro.n_lin - 1;   // rows >= R use the r2 slots
   mlp_fwd(c, c.ro, sm, in_ro, 2 * R, sm + c.o_ro, mc);
   mc.half = 2 * R;                          // no stacked rows elsewhere
-  (void)O;
 }
 
-// readouts with residual: y_bj for row r (stacked row r), y (row R + r)
-__device__ __forceinline__ float y_at(const ScanCfg& c, const float* sm,
-                                      int rr, int o) {
-  const float* hsrc = rr < ROWS ? sm + c.o_h1 + rr * c.H
-                                : sm + c.o_h2 + (rr - ROWS) * c.H;
-  return residual(c.ro_case, c.ro_mult, hsrc, c.H, o)
-         + sm[c.o_ro + rr * c.O + o];
+// the step's loss gradients wrt (e1, e2) per row, or its loss term: the
+// masked coordinates (M) count only where observed
+__device__ __forceinline__ void row_errors(const ScanCfg& c,
+                                           const float* sm, int r,
+                                           float& s1, float& s2, float& g) {
+  const int D = c.D;
+  const float* X = sm + c.o_X;
+  const float* M = sm + c.o_M;
+  float e1 = 0.f, e2 = 0.f;
+  for (int o = 0; o < c.O; ++o) {
+    float yb = y_at(c, sm, r, o), y = y_at(c, sm, ROWS + r, o);
+    float x = X[r * D + o];
+    float m = c.masked ? M[r * D + o] : 1.f;
+    float d1 = x - y, d2 = yb - (c.easy ? x : y);
+    e1 += m * d1 * d1;
+    e2 += m * d2 * d2;
+  }
+  s1 = sqrtf(e1 + 1e-10f);
+  s2 = sqrtf(e2 + 1e-10f);
+  float fac = c.easy ? 1.f : 2.f;
+  g = fac * c.weight * s1 + fac * (1.f - c.weight) * s2;
 }
 
 template <bool WANT_HISTS>
@@ -325,20 +396,22 @@ __global__ void __launch_bounds__(NTHREADS)
 njode_scan_fwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ times,
                       const float* __restrict__ dts,
                       const float* __restrict__ obs_g,
-                      const float* __restrict__ X_g, const int8_t* u,
+                      const float* __restrict__ X_g,
+                      const float* __restrict__ M_g, const int8_t* u,
                       const long long* seed,
                       const float* __restrict__ n_obs,
                       const float* __restrict__ h0,
                       const float* __restrict__ sx, float* loss_part,
                       float* hh, float* lxh, float* tauh) {
   extern __shared__ float sm[];
-  const int R = ROWS, D = c.D, H = c.H, O = c.O, B = c.B;
+  const int R = ROWS, D = c.D, H = c.H, B = c.B;
   const int row0 = blockIdx.x * R;
   const int nv = min(R, B - row0);
   load_weights(c, lv, sm);
   float* h = sm + c.o_h; float* lx = sm + c.o_lx; float* tau = sm + c.o_tau;
   float* X = sm + c.o_X; float* obs = sm + c.o_obs;
   float* nobs = sm + c.o_nobs; float* lrow = sm + c.o_lrow;
+  float* Mm = sm + c.o_M;
   for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
     int r = idx / H;
     h[idx] = r < nv ? h0[(size_t)row0 * H + idx] : 0.f;
@@ -368,28 +441,25 @@ njode_scan_fwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ times,
       obs[r] = r < nv ? obs_g[(size_t)k * B + row0 + r] : 0.f;
     for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x) {
       int r = idx / D;
-      X[idx] = r < nv ? X_g[((size_t)k * B + row0) * D + idx] : 0.f;
+      size_t gi = ((size_t)k * B + row0) * D + idx;
+      X[idx] = r < nv ? X_g[gi] : 0.f;
+      if (c.masked) Mm[idx] = r < nv ? M_g[gi] : 0.f;
     }
     mc.k = k;
     step_forward(c, sm, t, dt, mc);
-    // per-row loss term, then the carry updates
+    // per-row loss term, then the carry updates (masked: last_X takes the
+    // post-jump prediction, O == D)
     for (int r = threadIdx.x; r < R; r += blockDim.x) {
-      float e1 = 0.f, e2 = 0.f;
-      for (int o = 0; o < O; ++o) {
-        float yb = y_at(c, sm, r, o), y = y_at(c, sm, R + r, o);
-        float x = X[r * D + o];
-        float d1 = x - y, d2 = yb - (c.easy ? x : y);
-        e1 += d1 * d1;
-        e2 += d2 * d2;
-      }
-      float s1 = sqrtf(e1 + 1e-10f), s2 = sqrtf(e2 + 1e-10f);
-      float fac = c.easy ? 1.f : 2.f;
-      float g = fac * c.weight * s1 + fac * (1.f - c.weight) * s2;
+      float s1, s2, g;
+      row_errors(c, sm, r, s1, s2, g);
       lrow[r] += obs[r] * g * g / fmaxf(nobs[r], 1.f);
       if (obs[r] > 0.f) tau[r] = t;
     }
-    for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x)
-      if (obs[idx / D] > 0.f) lx[idx] = X[idx];
+    for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x) {
+      int r = idx / D;
+      if (obs[r] > 0.f)
+        lx[idx] = c.masked ? y_at(c, sm, R + r, idx - r * D) : X[idx];
+    }
     for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x)
       h[idx] = sm[c.o_h2 + idx];
     __syncthreads();
@@ -405,7 +475,8 @@ __global__ void __launch_bounds__(NTHREADS)
 njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ times,
                       const float* __restrict__ dts,
                       const float* __restrict__ obs_g,
-                      const float* __restrict__ X_g, const int8_t* u,
+                      const float* __restrict__ X_g,
+                      const float* __restrict__ M_g, const int8_t* u,
                       const long long* seed,
                       const float* __restrict__ n_obs,
                       const float* __restrict__ hh,
@@ -426,6 +497,7 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ times,
   float* rs = sm + c.o_rs; float* dst = sm + c.o_dst; float* dh1 = sm + c.o_dh1;
   float* dhe = sm + c.o_dhe; float* df = sm + c.o_df;
   float* dlxc = sm + c.o_dlxc; float* dtauc = sm + c.o_dtauc;
+  float* Mm = sm + c.o_M;
   for (int i = threadIdx.x; i < R * H; i += blockDim.x) dh[i] = 0.f;
   for (int i = threadIdx.x; i < R * D; i += blockDim.x) dlx[i] = 0.f;
   for (int r = threadIdx.x; r < R; r += blockDim.x) {
@@ -441,8 +513,10 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ times,
       h[idx] = idx / H < nv ? hh[((size_t)k * B + row0) * H + idx] : 0.f;
     for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x) {
       bool ok = idx / D < nv;
-      lx[idx] = ok ? lxh[((size_t)k * B + row0) * D + idx] : 0.f;
-      X[idx] = ok ? X_g[((size_t)k * B + row0) * D + idx] : 0.f;
+      size_t gi = ((size_t)k * B + row0) * D + idx;
+      lx[idx] = ok ? lxh[gi] : 0.f;
+      X[idx] = ok ? X_g[gi] : 0.f;
+      if (c.masked) Mm[idx] = ok ? M_g[gi] : 0.f;
     }
     for (int r = threadIdx.x; r < R; r += blockDim.x) {
       bool ok = r < nv;
@@ -453,17 +527,9 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ times,
     step_forward(c, sm, t, dt, mc);
     // loss gradients per row: rs = (de1, de2)
     for (int r = threadIdx.x; r < R; r += blockDim.x) {
-      float e1 = 0.f, e2 = 0.f;
-      for (int o = 0; o < O; ++o) {
-        float yb = y_at(c, sm, r, o), y = y_at(c, sm, R + r, o);
-        float x = X[r * D + o];
-        float d1 = x - y, d2 = yb - (c.easy ? x : y);
-        e1 += d1 * d1;
-        e2 += d2 * d2;
-      }
-      float s1 = sqrtf(e1 + 1e-10f), s2 = sqrtf(e2 + 1e-10f);
+      float s1, s2, gg;
+      row_errors(c, sm, r, s1, s2, gg);
       float fac = c.easy ? 1.f : 2.f;
-      float gg = fac * c.weight * s1 + fac * (1.f - c.weight) * s2;
       float dinner = dloss * obs[r] / fmaxf(nobs[r], 1.f) / (float)B;
       float dg = 2.f * gg * dinner;
       rs[2 * r] = (fac * c.weight * dg) * (0.5f / s1);
@@ -474,43 +540,88 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ times,
     for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x)
       dlxc[idx] = (1.f - obs[idx / D]) * dlx[idx];
     __syncthreads();
-    // d_stack = [dy_bj ; dy]
+    // d_stack = [dy_bj ; dy]; masked: M weighs each coordinate, and
+    // last_X2 = where(obs, y, last_X) adds obs * dlast_X to dy
     for (int idx = threadIdx.x; idx < R * O; idx += blockDim.x) {
       int r = idx / O, o = idx - r * O;
       float yb = y_at(c, sm, r, o), y = y_at(c, sm, R + r, o);
       float x = X[r * D + o];
-      float de1 = rs[2 * r], de2 = rs[2 * r + 1];
+      float m = c.masked ? Mm[r * D + o] : 1.f;
+      float de1 = rs[2 * r] * m, de2 = rs[2 * r + 1] * m;
       float dy = de1 * 2.f * (y - x);
       float dyb = de2 * 2.f * (yb - (c.easy ? x : y));
       if (!c.easy) dy += de2 * 2.f * (y - yb);
+      if (c.masked) dy += obs[r] * dlx[r * D + o];
       dst[idx] = dyb;
       dst[R * O + idx] = dy;
     }
     __syncthreads();
-    // stacked readout backward
-    mc.half = R; mc.jump = c.ro.n_lin - 1;
-    const float* d_rin = mlp_bwd(c, c.ro, sm, sm + c.o_in_ro, 2 * R, dst,
-                                 true, mc);
     const float* in_ro = sm + c.o_in_ro;
-    for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
-      int r = idx / H, j = idx - r * H;
-      float a1 = in_ro[idx], a2 = in_ro[R * H + idx];
-      float dt1 = d_rin[idx] * (1.f - a1 * a1)
-                  + residual_bwd(c.ro_case, c.ro_mult, dst + r * O, O, j);
-      float dt2 = d_rin[R * H + idx] * (1.f - a2 * a2)
-                  + residual_bwd(c.ro_case, c.ro_mult, dst + (R + r) * O, O,
-                                 j);
-      float o = obs[r];
-      float d2 = dh[idx] + dt2;
-      dhe[idx] = o * d2;
-      float d1 = (1.f - o) * d2 + dt1;
-      dh1[idx] = d1;
-      df[idx] = dt * d1;
+    if (!c.masked) {
+      // stacked readout backward
+      mc.half = R; mc.jump = c.ro.n_lin - 1;
+      const float* d_rin = mlp_bwd(c, c.ro, sm, in_ro, 2 * R, dst, true,
+                                   mc);
+      for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
+        int r = idx / H, j = idx - r * H;
+        float a1 = in_ro[idx], a2 = in_ro[R * H + idx];
+        float dt1 = d_rin[idx] * (1.f - a1 * a1)
+                    + residual_bwd(c.ro_case, c.ro_mult, dst + r * O, O, j);
+        float dt2 = d_rin[R * H + idx] * (1.f - a2 * a2)
+                    + residual_bwd(c.ro_case, c.ro_mult, dst + (R + r) * O,
+                                   O, j);
+        float o = obs[r];
+        float d2 = dh[idx] + dt2;
+        dhe[idx] = o * d2;
+        float d1 = (1.f - o) * d2 + dt1;
+        dh1[idx] = d1;
+        df[idx] = dt * d1;
+      }
+      __syncthreads();
+      mc.half = 2 * R; mc.jump = 0;
+      // encoder backward: X is data, only the weights get gradients
+      mlp_bwd(c, c.enc, sm, sm + c.o_tX, R, dhe, false, mc);
+    } else {
+      mc.half = 2 * R; mc.jump = 0;
+      // post-jump readout backward (input tanh h2)
+      const float* d_r2 = mlp_bwd(c, c.ro2, sm, in_ro + R * H, R,
+                                  dst + R * O, true, mc);
+      for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
+        int r = idx / H, j = idx - r * H;
+        float a2 = in_ro[R * H + idx];
+        float d2 = dh[idx] + d_r2[idx] * (1.f - a2 * a2)
+                   + residual_bwd(c.ro_case, c.ro_mult, dst + (R + r) * O, O,
+                                  j);
+        float o = obs[r];
+        dhe[idx] = o * d2;
+        dh1[idx] = (1.f - o) * d2;
+      }
+      __syncthreads();
+      // encoder backward to its input [tanh X_imp, M]; X_imp = X*M +
+      // (1-M)*y_bj, X and M are data, so dX_imp flows into dy_bj
+      const float* d_ein = mlp_bwd(c, c.enc, sm, sm + c.o_tX, R, dhe, true,
+                                   mc);
+      const float* tX = sm + c.o_tX;
+      for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x) {
+        int r = idx / D, q = idx - r * D;
+        float tx = tX[r * 2 * D + q];
+        float dxi = d_ein[r * 2 * D + q] * (1.f - tx * tx)
+                    + residual_bwd(c.enc_case, c.enc_mult, dhe + r * H, H, q);
+        dst[r * O + q] += (1.f - Mm[idx]) * dxi;
+      }
+      __syncthreads();
+      // pre-jump readout backward (input tanh h1)
+      const float* d_r1 = mlp_bwd(c, c.ro, sm, in_ro, R, dst, true, mc);
+      for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
+        int r = idx / H, j = idx - r * H;
+        float a1 = in_ro[idx];
+        float d1 = dh1[idx] + d_r1[idx] * (1.f - a1 * a1)
+                   + residual_bwd(c.ro_case, c.ro_mult, dst + r * O, O, j);
+        dh1[idx] = d1;
+        df[idx] = dt * d1;
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    mc.half = 2 * R; mc.jump = 0;
-    // encoder backward: X is data, only the weights get gradients
-    mlp_bwd(c, c.enc, sm, sm + c.o_tX, R, dhe, false, mc);
     // Euler step backward: h1 = h + dt * f(ode_in)
     const float* dino = mlp_bwd(c, c.ode, sm, sm + c.o_in_ode, R, df, true,
                                 mc);
@@ -583,6 +694,7 @@ extern "C" const char* njode_error_string(int code) {
 extern "C" int njode_scan_fwd(const ScanCfg* c, void** leaves,
                               const float* times, const float* dts,
                               const float* obs, const float* X,
+                              const float* M,
                               const int8_t* u, const long long* seed,
                               const float* n_obs, const float* h0,
                               const float* sx, float* loss_part, float* hh,
@@ -600,16 +712,16 @@ extern "C" int njode_scan_fwd(const ScanCfg* c, void** leaves,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
     njode_scan_fwd_kernel<true><<<grid, NTHREADS, smem, st>>>(
-        *c, lv, times, dts, obs, X, u, seed, n_obs, h0, sx, loss_part, hh,
-        lxh, tauh);
+        *c, lv, times, dts, obs, X, M, u, seed, n_obs, h0, sx, loss_part,
+        hh, lxh, tauh);
   } else {
     e = cudaFuncSetAttribute(njode_scan_fwd_kernel<false>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
     njode_scan_fwd_kernel<false><<<grid, NTHREADS, smem, st>>>(
-        *c, lv, times, dts, obs, X, u, seed, n_obs, h0, sx, loss_part, hh,
-        lxh, tauh);
+        *c, lv, times, dts, obs, X, M, u, seed, n_obs, h0, sx, loss_part,
+        hh, lxh, tauh);
   }
   return (int)cudaGetLastError();
 }
@@ -617,6 +729,7 @@ extern "C" int njode_scan_fwd(const ScanCfg* c, void** leaves,
 extern "C" int njode_scan_bwd(const ScanCfg* c, void** leaves,
                               const float* times, const float* dts,
                               const float* obs, const float* X,
+                              const float* M,
                               const int8_t* u, const long long* seed,
                               const float* n_obs, const float* hh,
                               const float* lxh, const float* tauh,
@@ -631,7 +744,7 @@ extern "C" int njode_scan_bwd(const ScanCfg* c, void** leaves,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   njode_scan_bwd_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      *c, lv, times, dts, obs, X, u, seed, n_obs, hh, lxh, tauh, dloss,
+      *c, lv, times, dts, obs, X, M, u, seed, n_obs, hh, lxh, tauh, dloss,
       partials, dh0);
   return (int)cudaGetLastError();
 }

@@ -19,11 +19,15 @@ tensors they launch the kernel or raise. ``scan_bwd_plain`` takes its
 gradients from ``torch.autograd`` over a re-run of each step, so it is
 independent of the hand-derived BPTT in the CUDA source.
 
-Kernel scope (``supported``): unmasked, no GRU jump, euler, standard or
-easy loss, tanh/relu MLPs of any depth up to ``MAX_LIN`` linears, residual
-cases 0/1/2, ``input_current_t`` on or off, fp32, widths within the shared
-memory of one CTA. The masked branch and the GRU jump come with the
-real-data slice (ROADMAP.md Queue 1 item 4).
+Kernel scope (``supported``): masked (with ``output_size ==
+input_size``) or unmasked, no GRU jump, euler, standard or easy loss,
+tanh/relu MLPs of any depth up to ``MAX_LIN`` linears, residual cases
+0/1/2, ``input_current_t`` on or off, fp32, weights and activations within
+the shared memory of one CTA. The masked branch imputes the unobserved
+coordinates from the pre-jump readout, so its two readouts run one after
+the other (pre-jump, encoder on ``[tanh X_imp, M]``, post-jump) instead of
+as one stacked chain, and ``last_X`` records the post-jump prediction. The
+GRU jump (``use_rnn``) is not ported yet (ROADMAP.md Queue 2).
 """
 
 from __future__ import annotations
@@ -72,6 +76,7 @@ class Spec:
         self.D, self.H, self.O = cfg.input_size, cfg.hidden_size, \
             cfg.output_size
         self.ict = bool(cfg.input_current_t)
+        self.masked = bool(cfg.masked)
         self.ode_w = net_widths(cfg, "ode_f")
         self.enc_w = net_widths(cfg, "encoder")
         self.ro_w = net_widths(cfg, "readout")
@@ -131,9 +136,15 @@ class Spec:
 
     def layout(self, R: int = ROWS):
         """Float offsets of every shared-memory region of one CTA, and the
-        total; one layout serves K1-K3."""
+        total; one layout serves K1-K3. ``tX`` holds the encoder's input
+        (``tanh X``, or ``[tanh X_imp, M]`` when masked); ``M`` and ``Xi``
+        (``X_imp``) are empty unless masked. The readout's saved
+        activations hold one stacked pass of 2R rows, or, when masked, the
+        pre-jump pass of R rows at ``s_ro`` and the post-jump one at
+        ``s_ro2``."""
         R2 = 2 * R
         D, H, O, P = self.D, self.H, self.O, self.n_params
+        DM = D if self.masked else 0
         off, n = {}, 0
 
         def take(name, size):
@@ -146,14 +157,16 @@ class Spec:
         for name, size in (("h", R * H), ("lx", R * D), ("tau", R),
                            ("X", R * D), ("obs", R), ("nobs", R),
                            ("lrow", R), ("h1", R * H), ("h2", R * H),
-                           ("in_ode", R * self.ode_w[0]), ("tX", R * D),
+                           ("in_ode", R * self.ode_w[0]),
+                           ("tX", R * self.enc_w[0]),
                            ("in_ro", R2 * H), ("f", R * H), ("enc", R * H),
-                           ("ro", R2 * O)):
+                           ("ro", R2 * O), ("M", R * DM), ("Xi", R * DM)):
             take(name, size)
         for name, ws, rows in (("s_ode", self.ode_w, R),
                                ("s_enc", self.enc_w, R),
                                ("s_ro", self.ro_w, R2)):
             take(name, 2 * rows * sum(ws[1:-1]))
+        off["s_ro2"] = off["s_ro"] + 2 * R * sum(self.ro_w[1:-1])
         for name, size in (("dA", R2 * self.buf_w), ("dB", R2 * self.buf_w),
                            ("dh", R * H), ("dlx", R * D), ("dtau", R),
                            ("rs", 2 * R), ("dst", R2 * O), ("dh1", R * H),
@@ -168,12 +181,13 @@ class Spec:
 
 
 def supported(cfg) -> bool:
-    """Whether the CUDA kernels cover the given NJODEConfig."""
+    """Whether the CUDA kernels cover the given NJODEConfig (the shared
+    memory of one CTA is counted on the layout of its own branch)."""
     if not (cfg.solver == "euler"
             and cfg.which_loss in ("standard", "easy")
             and cfg.ode_nn is not None and cfg.readout_nn is not None
             and cfg.enc_nn is not None
-            and not cfg.masked and not cfg.use_rnn
+            and not cfg.use_rnn
             and cfg.output_size == cfg.input_size
             and getattr(cfg, "compute_dtype", "float32") == "float32"):
         return False
@@ -286,13 +300,19 @@ def _step_masks_plain(spec, k, train, u, seed, B, device):
     return [m[s] for s in range(spec.S)]
 
 
-def _step_plain(spec, nets, h, last_X, tau, t, dt, obs, X, us):
-    """One step of the stacked-readout NJODE recursion; returns
-    (h2, last_X', tau', y, y_bj)."""
+def _step_plain(spec, nets, h, last_X, tau, t, dt, obs, X, M, us):
+    """One step of the NJODE recursion (the stacked readouts, or the
+    masked imputation branch); returns (h2, last_X', tau', y, y_bj)."""
     ws_ode, ws_enc, ws_ro = nets
 
     def sl(a, n):
         return None if us is None or n == 0 else us[a:a + n]
+
+    def readout(hh, masks):
+        return mlp.residual_apply(spec.ro_case, spec.ro_mult, hh,
+                                  _mlp_plain(ws_ro, spec.ro_a,
+                                             torch.tanh(hh), masks,
+                                             spec.rate))
 
     tdiff = (t - dt) - tau
     feats = [torch.tanh(last_X), torch.tanh(h), tau, tdiff]
@@ -302,23 +322,52 @@ def _step_plain(spec, nets, h, last_X, tau, t, dt, obs, X, us):
                    sl(spec.s_ode, spec.n_ode), spec.rate)
     h1 = h + dt * f
     obs_c = obs[:, None]
-    enc_o = _mlp_plain(ws_enc, spec.enc_a, torch.tanh(X),
-                       sl(spec.s_enc, spec.n_enc), spec.rate)
-    h_enc = mlp.residual_apply(spec.enc_case, spec.enc_mult, X, enc_o)
-    h2 = obs_c * h_enc + (1.0 - obs_c) * h1
-    hh = torch.cat([h1, h2], dim=0)
-    u_r = None
-    if us is not None and spec.n_ro:
-        u_r = [torch.cat([a, b], dim=0) for a, b in
-               zip(sl(spec.s_r1, spec.n_ro), sl(spec.s_r2, spec.n_ro))]
-    y2 = mlp.residual_apply(spec.ro_case, spec.ro_mult, hh,
-                            _mlp_plain(ws_ro, spec.ro_a, torch.tanh(hh),
-                                       u_r, spec.rate))
-    B = h.shape[0]
-    y_bj, y = y2[:B], y2[B:]
-    last_X2 = torch.where(obs_c > 0, X, last_X)
+    u_enc = sl(spec.s_enc, spec.n_enc)
+    if spec.masked:
+        # the pre-jump readout imputes the unobserved coordinates
+        y_bj = readout(h1, sl(spec.s_r1, spec.n_ro))
+        X_imp = X * M + (1.0 - M) * y_bj
+        enc_o = _mlp_plain(ws_enc, spec.enc_a,
+                           torch.cat([torch.tanh(X_imp), M], dim=-1),
+                           u_enc, spec.rate)
+        h_enc = mlp.residual_apply(spec.enc_case, spec.enc_mult, X_imp,
+                                   enc_o)
+        h2 = obs_c * h_enc + (1.0 - obs_c) * h1
+        y = readout(h2, sl(spec.s_r2, spec.n_ro))
+        new_last = y
+    else:
+        enc_o = _mlp_plain(ws_enc, spec.enc_a, torch.tanh(X), u_enc,
+                           spec.rate)
+        h_enc = mlp.residual_apply(spec.enc_case, spec.enc_mult, X, enc_o)
+        h2 = obs_c * h_enc + (1.0 - obs_c) * h1
+        u_r = None
+        if us is not None and spec.n_ro:
+            u_r = [torch.cat([a, b], dim=0) for a, b in
+                   zip(sl(spec.s_r1, spec.n_ro), sl(spec.s_r2, spec.n_ro))]
+        y2 = readout(torch.cat([h1, h2], dim=0), u_r)
+        B = h.shape[0]
+        y_bj, y = y2[:B], y2[B:]
+        new_last = X
+    last_X2 = torch.where(obs_c > 0, new_last, last_X)
     tau2 = torch.where(obs_c > 0, t.expand_as(tau), tau)
     return h2, last_X2, tau2, y, y_bj
+
+
+def unpack_arrays(spec, arrays):
+    """``(times, dts, obs, X, n_obs, start_X, M)`` from the batch arrays
+    ``(times, dts, obs, X, n_obs, start_X[, M])``; ``M [K,B,D]`` is
+    required by a masked spec and ignored (None) otherwise."""
+    times, dts, obs, X, n_obs, start_X = arrays[:6]
+    M = arrays[6] if len(arrays) > 6 else None
+    if spec.masked and M is None:
+        raise ValueError("a masked config needs the mask M [K,B,D]")
+    return times, dts, obs, X, n_obs, start_X, (M if spec.masked else None)
+
+
+def _step_loss_plain(spec, k, X, y, y_bj, obs, n_obs, B, weight, M):
+    return step_loss("easy" if spec.easy else "standard", X=X[k], Y=y,
+                     Y_bj=y_bj, obs=obs[k], n_obs_ot=n_obs, batch_size=B,
+                     weight=weight, M=None if M is None else M[k])
 
 
 def _seed_int(seed):
@@ -329,7 +378,7 @@ def scan_fwd_plain(spec, leaves, arrays, weight, h0, train, u=None,
                    seed=None, want_hists=True):
     """Plain K1/K3: returns (loss, (h_hist [K,B,H], lastX_hist [K,B,D],
     tau_hist [K,B,1]) or None)."""
-    times, dts, obs, X, n_obs, start_X = arrays
+    times, dts, obs, X, n_obs, start_X, M = unpack_arrays(spec, arrays)
     K, B = obs.shape
     nets = spec.split(list(leaves))
     seed_i = _seed_int(seed)
@@ -342,11 +391,11 @@ def scan_fwd_plain(spec, leaves, arrays, weight, h0, train, u=None,
             for lst, v in zip(hists, (h, lx, tau)):
                 lst.append(v)
         us = _step_masks_plain(spec, k, train, u, seed_i, B, h0.device)
-        h, lx2, tau, y, y_bj = _step_plain(spec, nets, h, lx, tau, times[k],
-                                           dts[k], obs[k], X[k], us)
-        loss = loss + step_loss(
-            "easy" if spec.easy else "standard", X=X[k], Y=y, Y_bj=y_bj,
-            obs=obs[k], n_obs_ot=n_obs, batch_size=B, weight=weight)
+        h, lx2, tau, y, y_bj = _step_plain(
+            spec, nets, h, lx, tau, times[k], dts[k], obs[k], X[k],
+            None if M is None else M[k], us)
+        loss = loss + _step_loss_plain(spec, k, X, y, y_bj, obs, n_obs, B,
+                                       weight, M)
         lx = lx2
     return loss, (tuple(torch.stack(v) for v in hists) if want_hists
                   else None)
@@ -356,7 +405,7 @@ def scan_bwd_plain(spec, leaves, arrays, weight, train, hists, dloss,
                    u=None, seed=None):
     """Plain K2: the reverse walk over the stored carries, each step re-run
     under autograd. Returns (grads in leaf order, dh0)."""
-    times, dts, obs, X, n_obs, start_X = arrays
+    times, dts, obs, X, n_obs, start_X, M = unpack_arrays(spec, arrays)
     hh, lxh, tauh = hists
     K, B = obs.shape
     lv = [p.detach().requires_grad_(True) for p in leaves]
@@ -372,12 +421,11 @@ def scan_bwd_plain(spec, leaves, arrays, weight, train, hists, dloss,
             lx = lxh[k].detach().requires_grad_(True)
             tau = tauh[k].detach().requires_grad_(True)
             us = _step_masks_plain(spec, k, train, u, seed_i, B, h.device)
-            h2, lx2, tau2, y, y_bj = _step_plain(spec, nets, h, lx, tau,
-                                                 times[k], dts[k], obs[k],
-                                                 X[k], us)
-            lk = step_loss("easy" if spec.easy else "standard", X=X[k], Y=y,
-                           Y_bj=y_bj, obs=obs[k], n_obs_ot=n_obs,
-                           batch_size=B, weight=weight)
+            h2, lx2, tau2, y, y_bj = _step_plain(
+                spec, nets, h, lx, tau, times[k], dts[k], obs[k], X[k],
+                None if M is None else M[k], us)
+            lk = _step_loss_plain(spec, k, X, y, y_bj, obs, n_obs, B, weight,
+                                  M)
             obj = (lk * dloss + (h2 * dh).sum() + (lx2 * dlx).sum()
                    + (tau2 * dtau).sum())
             g = torch.autograd.grad(obj, [h, lx, tau] + lv,
@@ -411,7 +459,7 @@ class _MLPDesc(ctypes.Structure):
 _LAYOUT_FIELDS = ("w", "g", "h", "lx", "tau", "X", "obs", "nobs", "lrow",
                   "h1", "h2", "in_ode", "tX", "in_ro", "f", "enc", "ro",
                   "dA", "dB", "dh", "dlx", "dtau", "rs", "dst", "dh1", "dhe",
-                  "df", "dlxc", "dtauc")
+                  "df", "dlxc", "dtauc", "M", "Xi")
 
 
 class _ScanCfg(ctypes.Structure):
@@ -419,13 +467,14 @@ class _ScanCfg(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_int) for n in (
         "K", "B", "D", "H", "O", "S", "Wmax", "n_params", "n_leaves",
         "enc_case", "enc_mult", "ro_case", "ro_mult", "easy", "ict",
-        "mode")]
+        "mode", "masked")]
         + [("thresh", ctypes.c_uint32), ("keep", ctypes.c_float),
            ("weight", ctypes.c_float)]
         + [(n, ctypes.c_int) for n in ("rows", "buf_w", "smem_floats")]
         + [("leaf_off", ctypes.c_int * (MAX_LEAVES + 1))]
         + [("o_" + n, ctypes.c_int) for n in _LAYOUT_FIELDS]
-        + [("ode", _MLPDesc), ("enc", _MLPDesc), ("ro", _MLPDesc)])
+        + [("ode", _MLPDesc), ("enc", _MLPDesc), ("ro", _MLPDesc),
+           ("ro2", _MLPDesc)])
 
 
 def make_cfg(spec: Spec, K: int, B: int, train: bool, weight: float):
@@ -440,6 +489,7 @@ def make_cfg(spec: Spec, K: int, B: int, train: bool, weight: float):
     c.easy, c.ict = int(spec.easy), int(spec.ict)
     dropping = train and spec.rate > 0.0 and spec.S > 0
     c.mode = 0 if not dropping else (1 if spec.mask_mode == "input" else 2)
+    c.masked = int(spec.masked)
     c.thresh = spec.thresh
     c.keep = 1.0 - spec.rate
     c.weight = float(weight)
@@ -468,6 +518,11 @@ def make_cfg(spec: Spec, K: int, B: int, train: bool, weight: float):
                 desc.b_off[i] = -1
         desc.slot0 = slot0
         desc.save_off = off[save]
+    # the masked branch's post-jump readout: the same weights, its own
+    # dropout slots and saved activations
+    c.ro2 = c.ro
+    c.ro2.slot0 = spec.s_r2
+    c.ro2.save_off = off["s_ro2"]
     return c
 
 
@@ -506,17 +561,16 @@ def _raise_rc(lib, rc, what):
 
 
 def _check_inputs(spec, leaves, arrays, train, u, seed):
-    if not supported(spec.cfg):
-        raise NotImplementedError(
-            "config outside the CUDA kernels' scope (masked / use_rnn "
-            "branches: ROADMAP.md Queue 1 item 4)")
-    times, dts, obs, X, n_obs, start_X = arrays
+    _require_supported(spec.cfg)
+    times, dts, obs, X, n_obs, start_X, M = unpack_arrays(spec, arrays)
     K, B = obs.shape
     for name, t, shp in (("times", times, (K,)), ("dts", dts, (K,)),
                          ("obs", obs, (K, B)), ("X", X, (K, B, spec.D)),
                          ("n_obs", n_obs, (B,)),
                          ("start_X", start_X, (B, spec.D))):
         _check(name, t, shp)
+    if spec.masked:
+        _check("M", M, (K, B, spec.D))
     for i, (p, s) in enumerate(zip(leaves, spec.leaf_shapes)):
         _check(f"leaf {i}", p, s)
     if len(leaves) != len(spec.leaf_shapes):
@@ -539,7 +593,7 @@ def scan_fwd_cuda(spec, leaves, arrays, weight, h0, train, u=None,
         raise ValueError("the history-free kernel is the eval forward")
     _check("h0", h0, (B, spec.H))
     lib = _build.load("fused_scan")
-    times, dts, obs, X, n_obs, start_X = arrays
+    times, dts, obs, X, n_obs, start_X, M = unpack_arrays(spec, arrays)
     dev = h0.device
     n_cta = -(-B // ROWS)
     loss_part = torch.empty((n_cta,), dtype=torch.float32, device=dev)
@@ -555,7 +609,7 @@ def scan_fwd_cuda(spec, leaves, arrays, weight, h0, train, u=None,
     with torch.cuda.device(dev):
         rc = lib.njode_scan_fwd(
             ctypes.addressof(cfg), ptrs, _ptr(times), _ptr(dts), _ptr(obs),
-            _ptr(X), _ptr(u), _ptr(seed), _ptr(n_obs), _ptr(h0),
+            _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs), _ptr(h0),
             _ptr(start_X), _ptr(loss_part), *(_ptr(t) for t in hists),
             int(want_hists), stream)
     _raise_rc(lib, rc, "njode_scan_fwd")
@@ -580,7 +634,7 @@ def scan_bwd_cuda(spec, leaves, arrays, weight, train, hists, dloss,
     dloss = dloss.reshape(1).to(torch.float32).contiguous()
     _check("dloss", dloss, (1,))
     lib = _build.load("fused_scan")
-    times, dts, obs, X, n_obs, start_X = arrays
+    times, dts, obs, X, n_obs, start_X, M = unpack_arrays(spec, arrays)
     dev = hh.device
     n_cta = -(-B // ROWS)
     partials = torch.empty((n_cta, spec.n_params), device=dev)
@@ -591,7 +645,8 @@ def scan_bwd_cuda(spec, leaves, arrays, weight, train, hists, dloss,
     with torch.cuda.device(dev):
         rc = lib.njode_scan_bwd(
             ctypes.addressof(cfg), ptrs, _ptr(times), _ptr(dts), _ptr(obs),
-            _ptr(X), _ptr(u), _ptr(seed), _ptr(n_obs), _ptr(hh), _ptr(lxh),
+            _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs), _ptr(hh),
+            _ptr(lxh),
             _ptr(tauh), _ptr(dloss), _ptr(partials), _ptr(dh0), stream)
     _raise_rc(lib, rc, "njode_scan_bwd")
     LAUNCHES["njode_scan_bwd"] += 1
@@ -667,37 +722,52 @@ def scan_bwd(spec, leaves, arrays, weight, train, hists, dloss, u=None,
 class FusedNJODELoss(torch.autograd.Function):
     """Loss of the NJODE scan from the t=0 hidden state ``h0``; the
     backward is K2 (CUDA) or its plain version (CPU). Differentiable in
-    ``h0`` and the parameter leaves; the batch arrays are data."""
+    ``h0`` and the parameter leaves; the batch arrays (``M [K,B,D]`` for a
+    masked spec, else None) are data."""
 
     @staticmethod
     def forward(ctx, spec, train, weight, u, seed, times, dts, obs, X,
-                n_obs, start_X, h0, *leaves):
-        arrays = (times, dts, obs, X, n_obs, start_X)
+                n_obs, start_X, M, h0, *leaves):
+        arrays = (times, dts, obs, X, n_obs, start_X, M)
         loss, hists = scan_fwd(spec, leaves, arrays, weight, h0, train, u,
                                seed, want_hists=True)
         ctx.spec, ctx.train, ctx.weight = spec, train, weight
-        ctx.n_leaves = len(leaves)
-        ctx.save_for_backward(times, dts, obs, X, n_obs, start_X, u, seed,
+        ctx.save_for_backward(times, dts, obs, X, n_obs, start_X, M, u, seed,
                               *hists, *leaves)
         return loss
 
     @staticmethod
     def backward(ctx, dloss):
         saved = ctx.saved_tensors
-        arrays = saved[:6]
-        u, seed = saved[6], saved[7]
-        hists = saved[8:11]
-        leaves = saved[11:]
+        arrays = saved[:7]
+        u, seed = saved[7], saved[8]
+        hists = saved[9:12]
+        leaves = saved[12:]
         grads, dh0 = scan_bwd(ctx.spec, leaves, arrays, ctx.weight,
                               ctx.train, hists, dloss, u, seed)
-        return (None,) * 11 + (dh0,) + tuple(grads)
+        return (None,) * 12 + (dh0,) + tuple(grads)
 
 
 def _require_supported(cfg):
     if not supported(cfg):
         raise NotImplementedError(
-            "config outside the fused kernels' scope (masked / use_rnn: "
-            "ROADMAP.md Queue 1 item 4); use models.njode.forward")
+            "config outside the fused kernels' scope (use_rnn: ROADMAP.md "
+            "Queue 2; masked with output_size != input_size; widths beyond "
+            "one CTA's shared memory); use models.njode.forward")
+
+
+def t0_state(model, batch, enc_masks=None):
+    """The t=0 encoder output ``h0``; a masked encoder gets the zero mask,
+    as ``njode.forward`` gives it."""
+    zero_mask = (torch.zeros_like(batch.start_X) if model.cfg.masked
+                 else None)
+    return model.encoder_map(batch.start_X, zero_mask, enc_masks)
+
+
+def batch_arrays(batch):
+    """The kernels' batch arrays of a GridBatch (M included)."""
+    return (batch.times, batch.dt, batch.obs, batch.X, batch.n_obs_ot,
+            batch.start_X, batch.M.contiguous())
 
 
 def make_fused_loss_fn(cfg, mask_mode: str = "prng", u_override=None):
@@ -738,10 +808,11 @@ def make_fused_loss_fn(cfg, mask_mode: str = "prng", u_override=None):
             else:
                 seed = torch.randint(0, 2 ** 62, (1,), generator=generator,
                                      device=dev, dtype=torch.int64)
-        h0 = model.encoder_map(batch.start_X, None, enc_masks)
+        h0 = t0_state(model, batch, enc_masks)
+        M = batch.M.contiguous() if spec.masked else None
         return FusedNJODELoss.apply(
             spec, train, float(weight), u, seed, batch.times, batch.dt,
-            batch.obs, batch.X, batch.n_obs_ot, batch.start_X, h0,
+            batch.obs, batch.X, batch.n_obs_ot, batch.start_X, M, h0,
             *flat_leaves(model))
 
     return loss_fn
@@ -756,12 +827,10 @@ def make_fused_eval_fn(cfg):
 
     def eval_fn(model, batch, weight):
         with torch.no_grad():
-            h0 = model.encoder_map(batch.start_X)
-            arrays = (batch.times, batch.dt, batch.obs, batch.X,
-                      batch.n_obs_ot, batch.start_X)
+            h0 = t0_state(model, batch)
             loss, _ = scan_fwd(spec, [p.detach() for p in
                                       flat_leaves(model)],
-                               arrays, float(weight), h0, False,
+                               batch_arrays(batch), float(weight), h0, False,
                                want_hists=False)
         return loss
 

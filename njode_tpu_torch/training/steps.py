@@ -1,21 +1,29 @@
-"""Training and evaluation step functions, the port's copy of the synthetic
-part of ``njode_tpu/training/steps.py``.
+"""Training and evaluation step functions, the port's copy of
+``njode_tpu/training/steps.py``.
 
-The dataset lives on the device; a step receives a batch index vector,
-gathers the batch, builds the dense GridBatch on the device and runs forward
-and backward through the scan: the fused CUDA kernels
-(``ops/fused_scan.py``) when ``use_kernels``, else the eager
-``models.njode.forward``. Step functions return device tensors and never
-synchronise, so an epoch queues all its steps before the host reads a loss.
-Running several epochs as one program (the JAX package's ``train_epochs``)
-is not ported yet (ROADMAP.md Queue 1 item 3).
+Synthetic data (:func:`make_step_fns`): the dataset lives on the device; a
+step receives a batch index vector, gathers the batch and builds the dense
+GridBatch on the device. Real data (:func:`make_grid_step_fns`,
+:func:`make_sparse_step_fns`, :func:`make_prestacked_step_fns`): a step
+receives a dense GridBatch, a :class:`~njode_tpu_torch.data.grid.SparseBatch`
+of events scattered on the device, or batch rows of a pre-stacked event
+bank resident on the device. Forward and backward run through the fused
+CUDA kernels (``ops/fused_scan.py``) when ``use_kernels``, else the eager
+``models.njode.forward``; evaluation and prediction stay on the eager
+forward, as the JAX package's stay on the XLA scan. Step functions return
+device tensors and never synchronise, so an epoch queues all its steps
+before the host reads a loss. Running several epochs as one program (the
+JAX package's ``train_epochs``) is not ported yet (ROADMAP.md Queue 1 item
+3), nor the PhysioNet metrics (``eval_loss_and_masked_metrics``, with
+PhysioNet).
 """
 
 from __future__ import annotations
 
 import torch
 
-from njode_tpu_torch.data.grid import GridBatch
+from njode_tpu_torch.data.grid import GridBatch, densify_sparse, \
+    scatter_events
 from njode_tpu_torch.models import njode
 
 
@@ -61,22 +69,14 @@ def make_step_fns(model: njode.NJODE, optimizer, times, dts,
         masks from it
     """
     cfg = model.cfg
+    step = _step(optimizer, _train_loss(model, use_kernels, mask_mode))
     if use_kernels:
         from njode_tpu_torch.ops import fused_scan
-        fused = fused_scan.make_fused_loss_fn(cfg, mask_mode=mask_mode)
         fused_eval = fused_scan.make_fused_eval_fn(cfg)
-
-        def _train_loss(batch, weight, generator):
-            return fused(model, batch, weight, generator, True)
 
         def _eval_loss(batch, weight):
             return fused_eval(model, batch, weight)
     else:
-        def _train_loss(batch, weight, generator):
-            _, loss = njode.forward(model, batch, weight=weight, train=True,
-                                    generator=generator)
-            return loss
-
         def _eval_loss(batch, weight):
             with torch.no_grad():
                 _, loss = njode.forward(model, batch, weight=weight,
@@ -88,12 +88,7 @@ def make_step_fns(model: njode.NJODE, optimizer, times, dts,
 
     def train_step(paths, obs, idx, weight, generator):
         """One optimizer step on batch rows ``idx``; returns the loss."""
-        batch = _batch(paths, obs, idx)
-        optimizer.zero_grad(set_to_none=True)
-        loss = _train_loss(batch, weight, generator)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        return step(_batch(paths, obs, idx), weight, generator)
 
     def train_epoch(paths, obs, idx_mat, weight, generator):
         """One step per row of ``idx_mat [n_batches, B]``; returns the
@@ -119,3 +114,175 @@ def make_step_fns(model: njode.NJODE, optimizer, times, dts,
 
     fns["pred_path"] = pred_path
     return fns
+
+
+def _index_batch(stack, i):
+    """Batch ``i`` of a batch whose fields carry a leading batch axis."""
+    return type(stack)(*(f[i] for f in stack))
+
+
+def _train_loss(model, use_kernels, mask_mode):
+    """The training loss ``(batch, weight, generator) -> loss``: through
+    the fused CUDA kernels when ``use_kernels`` (their plain versions on CPU
+    tensors), else the eager forward."""
+    if use_kernels:
+        from njode_tpu_torch.ops import fused_scan
+        fused = fused_scan.make_fused_loss_fn(model.cfg, mask_mode=mask_mode)
+        return lambda batch, weight, generator: fused(model, batch, weight,
+                                                      generator, True)
+    return lambda batch, weight, generator: njode.forward(
+        model, batch, weight=weight, train=True, generator=generator)[1]
+
+
+def _step(optimizer, train_loss):
+    """One optimizer step on a GridBatch; returns the loss times
+    ``loss_scale``."""
+
+    def step(batch, weight, generator, loss_scale=1.0):
+        optimizer.zero_grad(set_to_none=True)
+        loss = train_loss(batch, weight, generator) * loss_scale
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def make_grid_step_fns(model: njode.NJODE, optimizer, sparse: bool = False,
+                       use_kernels: bool = False, mask_mode: str = "prng"):
+    """Step functions for the real-data trainers (the JAX function's dict).
+
+    ``sparse=False``: steps take a dense :class:`GridBatch` of tensors;
+    ``sparse=True``: a SparseBatch of tensors, densified on its device
+    (``grid.densify_sparse``). ``loss_scale`` keeps the reference's
+    1/batch_size normalisation under padded batch rows. ``train_epoch``
+    takes a batch whose fields carry a leading [n_batches] axis and one
+    ``torch.Generator`` per batch.
+
+    :param use_kernels: the training loss through the fused CUDA kernels
+        (a supported config; their plain versions on CPU tensors)
+    :param mask_mode: the kernels' dropout-mask source ('prng' or 'input')
+    """
+    prep = densify_sparse if sparse else (lambda b: b)
+    step = _step(optimizer, _train_loss(model, use_kernels, mask_mode))
+
+    def train_step(b, weight, generator, loss_scale=1.0):
+        """One optimizer step; returns the scaled loss."""
+        return step(prep(b), weight, generator, loss_scale)
+
+    def train_epoch(b_stack, weight, generators, loss_scales):
+        return torch.stack([
+            train_step(_index_batch(b_stack, i), weight, gen, ls)
+            for i, (gen, ls) in enumerate(zip(generators, loss_scales))])
+
+    def forward(batch, weight, get_loss):
+        _, loss, (y0, y_pre, _) = njode.forward(
+            model, batch, weight=weight, train=False, get_loss=get_loss,
+            return_path=True)
+        return loss, torch.cat([y0[None], y_pre], dim=0)
+
+    return real_data_fns(forward, prep, train_step, train_epoch)
+
+
+def make_sparse_step_fns(model: njode.NJODE, optimizer,
+                         use_kernels: bool = False, mask_mode: str = "prng"):
+    """SparseBatch step functions (see :func:`make_grid_step_fns`)."""
+    return make_grid_step_fns(model, optimizer, sparse=True,
+                              use_kernels=use_kernels, mask_mode=mask_mode)
+
+
+def real_data_fns(forward, prep, train_step, train_epoch,
+                  scale_loss: bool = True):
+    """The real-data step functions' dict; its evaluation half runs one
+    eager ``forward(batch, weight, get_loss) -> (loss, path [K+1, B, D])``
+    (the pre-jump path, t=0 first) without gradients and gathers the
+    held-out points on the device. ``scale_loss=False``: the evaluation
+    losses ignore ``loss_scale`` (a loss that is a sum over
+    observations)."""
+
+    def _forward(b, weight=0.5, get_loss=True):
+        with torch.no_grad():
+            return forward(prep(b), weight, get_loss)
+
+    def _scaled(loss, loss_scale):
+        return loss * loss_scale if scale_loss else loss
+
+    def eval_loss(b, weight, loss_scale=1.0):
+        return _scaled(_forward(b, weight)[0], loss_scale)
+
+    def pred_prejump(b):
+        pred = _forward(b, get_loss=False)[1]
+        return pred[0], pred[1:]
+
+    def heldout_mse(b, k_idx, row_idx, x_val, m_val):
+        p = _forward(b, get_loss=False)[1][k_idx, row_idx]
+        return torch.sum(((x_val - p) ** 2) * m_val), torch.sum(m_val)
+
+    def pred_at(b, k_idx):
+        return _forward(b, get_loss=False)[1][k_idx]
+
+    def eval_loss_and_heldout_mse(b, k_idx, row_idx, x_val, m_val, weight,
+                                  loss_scale=1.0):
+        loss, pred = _forward(b, weight)
+        p = pred[k_idx, row_idx]
+        return (_scaled(loss, loss_scale),
+                torch.sum(((x_val - p) ** 2) * m_val), torch.sum(m_val))
+
+    def eval_loss_and_pred_at(b, k_idx, weight, loss_scale=1.0):
+        loss, pred = _forward(b, weight)
+        return _scaled(loss, loss_scale), pred[k_idx]
+
+    return {"train_step": train_step, "train_epoch": train_epoch,
+            "eval_loss": eval_loss, "pred_prejump": pred_prejump,
+            "heldout_mse": heldout_mse, "pred_at": pred_at,
+            "eval_loss_and_heldout_mse": eval_loss_and_heldout_mse,
+            "eval_loss_and_pred_at": eval_loss_and_pred_at}
+
+
+def prestacked_batch(k_all, X_all, M_all, idx, times, dts) -> GridBatch:
+    """One batch from a pre-stacked event bank on the device: gather rows
+    ``idx`` of ``k [N, E]`` (grid step per event, K = padding; row N the
+    all-padding sentinel) and ``X, M [N, E, D]``, and scatter them onto the
+    grid. ``start_X = 0``, the real-data trainers' convention."""
+    K = times.shape[0]
+    idx = idx.long()
+    k = k_all.index_select(0, idx)                    # [B, E]
+    Xe = X_all.index_select(0, idx)                   # [B, E, D]
+    Me = M_all.index_select(0, idx)
+    B, E = k.shape
+    row = torch.arange(B, device=k.device).view(B, 1).expand(B, E)
+    obs, X, M = scatter_events(k, row, Xe, Me, K, B)
+    return GridBatch(times=times, dt=dts, obs=obs, X=X, M=M,
+                     start_X=torch.zeros((B, Xe.shape[-1]),
+                                         dtype=torch.float32,
+                                         device=k.device),
+                     n_obs_ot=obs.sum(dim=0))
+
+
+def make_prestacked_step_fns(model: njode.NJODE, optimizer, times, dts,
+                             use_kernels: bool = False,
+                             mask_mode: str = "prng"):
+    """Training steps over a pre-stacked event bank resident on the device
+    (``k_all [N+1, E]``, ``X_all/M_all [N+1, E, D]``, e.g. from
+    ``climate.prestack_series`` with a sentinel row N appended): a batch is
+    a gather and a scatter on the device, so an epoch ships only its
+    ``[n_batches, B]`` index matrix. Pad a short batch with row N and scale
+    its loss with ``loss_scale``.
+
+    ``train_step(k_all, X_all, M_all, idx, weight, generator, loss_scale)``
+    and ``train_epoch(k_all, X_all, M_all, idx_mat, weight, generators,
+    loss_scales)``."""
+    step = _step(optimizer, _train_loss(model, use_kernels, mask_mode))
+
+    def train_step(k_all, X_all, M_all, idx, weight, generator,
+                   loss_scale=1.0):
+        return step(prestacked_batch(k_all, X_all, M_all, idx, times, dts),
+                    weight, generator, loss_scale)
+
+    def train_epoch(k_all, X_all, M_all, idx_mat, weight, generators,
+                    loss_scales):
+        return torch.stack([
+            train_step(k_all, X_all, M_all, idx, weight, gen, ls)
+            for idx, gen, ls in zip(idx_mat, generators, loss_scales)])
+
+    return {"train_step": train_step, "train_epoch": train_epoch}

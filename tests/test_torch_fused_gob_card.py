@@ -4,7 +4,8 @@ kernels cover (minimal and full field, impute on and off, logvar and
 abs-var, euler and midpoint, the discretized cell, bias on and off,
 dropout), the published width hidden 100, batches that are no multiple of
 the rows per CTA (B = 17-48), ``dt==0`` padding steps, partial coordinate
-masks (D = 2) and both mask modes.
+masks (D = 2), the climate arm's unequal widths (D = 5, p_hidden 25,
+prep_hidden 10, impute off) and both mask modes.
 
 The kernels have no CPU build, so every test here skips without a CUDA
 card. This file imports neither jax nor the JAX package; run it on the card
@@ -52,6 +53,11 @@ VARIANTS = [
                             dropout_rate=0.1), 1, 100, 37, 30, 3),
     ("published_h100_auto", dict(full_gru_ode=True, dropout_rate=0.1),
      1, 100, 20, 30, 0),
+    # the climate arm (experiments/configs.py climate_cross_validation):
+    # unequal widths at D = 5, impute off, dropout 0.2
+    ("climate", dict(full_gru_ode=True, impute=False, p_hidden=25,
+                     prep_hidden=10, cov_hidden=50, mixing=1e-4,
+                     dropout_rate=0.2), 5, 50, 37, 30, 3),
 ]
 
 

@@ -108,7 +108,7 @@ def test_fused_loss_function_matches_jax(train):
     h0 = model.encoder_map(tb.start_X, None, enc_masks)
     loss = fs.FusedNJODELoss.apply(
         spec, train, 0.7, u, None, tb.times, tb.dt, tb.obs, tb.X,
-        tb.n_obs_ot, tb.start_X, h0, *fs.flat_leaves(model))
+        tb.n_obs_ot, tb.start_X, None, h0, *fs.flat_leaves(model))
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(l_ref),
                                **H.LOSS_TOL)
@@ -230,11 +230,19 @@ def test_cuda_route_raises_instead_of_falling_back(monkeypatch):
 
 
 def test_unsupported_configs_raise():
-    for kw in (dict(masked=True), dict(use_rnn=True)):
+    """The GRU jump and a masked config whose output differs from its
+    input are outside the kernels; a masked config with ``output_size ==
+    input_size`` is inside."""
+    for kw in (dict(masked=True, output_size=1), dict(use_rnn=True),
+               dict(use_rnn=True, masked=True)):
         _, tcfg = H.configs(2, 10, **kw)
         assert not fs.supported(tcfg)
         with pytest.raises(NotImplementedError):
             fs.make_fused_loss_fn(tcfg)
+        with pytest.raises(NotImplementedError):
+            fs.make_fused_eval_fn(tcfg)
+    _, masked = H.configs(2, 10, masked=True)
+    assert fs.supported(masked)
     _, main = H.configs(1, 10, ode_nn=((50, "tanh"), (50, "tanh")),
                         readout_nn=((50, "tanh"), (50, "tanh")),
                         enc_nn=((50, "tanh"), (50, "tanh")),

@@ -2,7 +2,11 @@
 on the card, over the configurations ``supported`` admits beyond the main
 path: easy loss, ``input_current_t``, relu, deeper and narrower MLPs,
 residual cases 0 and 2, no bias, a batch that is no multiple of the rows
-per CTA, and ``dt==0`` padding steps.
+per CTA, and ``dt==0`` padding steps; and the masked branch (the climate
+model family): the masked cases of tests/test_fused_scan.py with partial
+coordinate masks, ragged batches, trailing ``dt==0`` padding, a leading
+``dt==0`` step that carries t=0 observations, the climate widths, and one
+grid of K = 2004 steps (the climate grid).
 
 The kernels have no CPU build, so every test here skips without a CUDA
 card. This file imports neither jax nor the JAX package; run it on the card
@@ -13,7 +17,10 @@ without the suite's conftest (which imports jax):
 Tolerances are those the Pallas kernel is held to (loss rtol 1e-5 / atol
 1e-6, gradients rtol 2e-4 / atol 2e-5); the carry histories take the
 gradient tolerance, since the kernel sums each product serially and the
-plain version through cuBLAS, and the difference grows over the steps.
+plain version through cuBLAS, and the difference grows over the steps. At
+K = 2004 each history and each gradient leaf takes an atol scaled by its
+own largest |value| (``LONG_TOL``; chip_smoke.py states the same and says
+why).
 """
 
 import numpy as np
@@ -152,7 +159,7 @@ def test_fused_loss_on_card_matches_cpu(card):
         h0 = model.encoder_map(batch.start_X)
         loss = fs.FusedNJODELoss.apply(
             spec, True, 0.6, None, seed, batch.times, batch.dt, batch.obs,
-            batch.X, batch.n_obs_ot, batch.start_X, h0,
+            batch.X, batch.n_obs_ot, batch.start_X, None, h0,
             *fs.flat_leaves(model))
         loss.backward()
         out.append((loss.detach().cpu(),
@@ -186,3 +193,185 @@ def test_wrappers_reject_bad_inputs(card):
     with pytest.raises(ValueError, match="contiguous"):
         fs.scan_fwd_cuda(spec, leaves, arrays, 0.6, h0.t().contiguous().t(),
                          False, want_hists=False)
+
+
+# K = 2004: the loss keeps its tolerance; the histories and gradients,
+# sums over up to 2004 fp32 steps, take rtol 2e-4 and an atol of 2e-5
+# scaled by the largest |value| (None below), as chip_smoke.py states
+
+
+def _scaled(ref):
+    return dict(rtol=2e-4, atol=2e-5 * max(1.0, float(ref.abs().max())))
+
+
+LONG_TOL = dict(loss=LOSS_TOL, hist=None, grad=None)
+
+# (id, D, H, B, K, trailing pad, leading t=0 step, config overrides)
+MASKED_VARIANTS = [
+    ("masked", 3, 12, 48, 30, 0, False, dict(dropout_rate=0.0)),
+    ("masked_easy", 3, 12, 40, 25, 0, False, dict(which_loss="easy")),
+    ("masked_no_residual", 3, 12, 33, 20, 0, False,
+     dict(residual_enc_dec=False)),
+    ("masked_dropout_ragged", 3, 12, 17, 20, 0, False, dict()),
+    ("masked_ict", 3, 12, 21, 20, 0, False, dict(input_current_t=True)),
+    ("masked_padding", 3, 12, 19, 20, 4, False, dict()),
+    ("masked_t0_step", 3, 12, 29, 20, 2, True, dict(input_current_t=True)),
+    ("masked_climate_widths", 5, 10, 37, 30, 0, False,
+     dict(ode_nn=((50, "tanh"), (50, "tanh")),
+          readout_nn=((50, "tanh"), (50, "tanh")),
+          enc_nn=((50, "tanh"), (50, "tanh")))),
+]
+
+
+def _masked_setup(D, H, B, K, pad, lead0, kw, dev, seed=0):
+    """A masked model and a batch with partial coordinate masks (X zero
+    where unobserved), ``pad`` trailing dt==0 steps and, with ``lead0``, a
+    leading dt==0 step at t=0 that carries observations."""
+    args = dict(input_size=D, hidden_size=H, output_size=D, ode_nn=T2,
+                readout_nn=T2, enc_nn=T2, dropout_rate=0.1, masked=True)
+    args.update(kw)
+    cfg = NJODEConfig(**args)
+    assert fs.supported(cfg)
+    torch.manual_seed(seed)
+    model = NJODE(cfg).to(dev)
+    rs = np.random.RandomState(seed)
+    f32 = np.float32
+    obs = (rs.random((K, B)) < 0.3).astype(f32)
+    m = (rs.random((K, B, D)) < 0.6).astype(f32)
+    m[..., 0] = 1.0
+    M = m * obs[:, :, None]
+    X = rs.normal(size=(K, B, D)).astype(f32) * M
+    times = np.arange(1, K + 1, dtype=f32) / K
+    dt = np.full(K, 1.0 / K, f32)
+    if lead0:
+        times = np.concatenate([[0.0], times]).astype(f32)
+        dt = np.concatenate([[0.0], dt]).astype(f32)
+        obs = np.concatenate([np.ones((1, B), f32), obs])
+        M = np.concatenate([np.ones((1, B, D), f32), M])
+        X = np.concatenate([rs.normal(size=(1, B, D)).astype(f32), X])
+    if pad:
+        times = np.concatenate([times, np.full(pad, times[-1], f32)])
+        dt = np.concatenate([dt, np.zeros(pad, f32)])
+        obs = np.concatenate([obs, np.zeros((pad, B), f32)])
+        M = np.concatenate([M, np.zeros((pad, B, D), f32)])
+        X = np.concatenate([X, np.zeros((pad, B, D), f32)])
+    b = grid.GridBatch(times, dt, obs, X, M, np.zeros((B, D), f32),
+                       obs.sum(axis=0))
+    batch = grid.to_torch(b, dev)
+    arrays = fs.batch_arrays(batch)
+    leaves = [p.detach() for p in fs.flat_leaves(model)]
+    with torch.no_grad():
+        h0 = fs.t0_state(model, batch)
+    return cfg, model, batch, arrays, leaves, h0
+
+
+def _check_masked(card, cfg, arrays, leaves, h0, mode, tol):
+    """K1 and K2 twice bit for bit and against the plain versions, and K3
+    against the plain eval forward; returns the largest errors."""
+    spec = fs.Spec(cfg, mode)
+    K, B = arrays[2].shape
+    gen = torch.Generator(device=card).manual_seed(1)
+    u = seed = None
+    if spec.rate > 0 and mode == "input":
+        u = (torch.rand((K, spec.S, B, spec.w_max), generator=gen,
+                        device=card) < 0.9).to(torch.int8)
+    elif spec.rate > 0:
+        seed = torch.randint(0, 2 ** 62, (1,), generator=gen, device=card,
+                             dtype=torch.int64)
+    lk, hk = fs.scan_fwd_cuda(spec, leaves, arrays, 0.6, h0, True, u, seed)
+    lk2, hk2 = fs.scan_fwd_cuda(spec, leaves, arrays, 0.6, h0, True, u, seed)
+    lp, hp = fs.scan_fwd_plain(spec, leaves, arrays, 0.6, h0, True, u, seed)
+    assert torch.equal(lk, lk2)
+    _close("loss", lk, lp, tol["loss"])
+    errs = {"loss": float((lk - lp).abs())}
+    for n, a, a2, p in zip(("h", "lastX", "tau"), hk, hk2, hp):
+        assert torch.equal(a, a2), n
+        _close(n, a, p, tol["hist"] or _scaled(p))
+    errs["hist"] = max(float((a - p).abs().max()) for a, p in zip(hk, hp))
+    dloss = torch.tensor(1.3, device=card)
+    gk, dk = fs.scan_bwd_cuda(spec, leaves, arrays, 0.6, True, hk, dloss, u,
+                              seed)
+    gk2, dk2 = fs.scan_bwd_cuda(spec, leaves, arrays, 0.6, True, hk, dloss,
+                                u, seed)
+    gp, dp = fs.scan_bwd_plain(spec, leaves, arrays, 0.6, True, hk, dloss, u,
+                               seed)
+    assert torch.equal(dk, dk2)
+    _close("dh0", dk, dp, tol["grad"] or _scaled(dp))
+    for i, (a, a2, p) in enumerate(zip(gk, gk2, gp)):
+        assert torch.equal(a, a2), i
+        _close(f"grad {i}", a, p, tol["grad"] or _scaled(p))
+    errs["grad"] = max(float((a - p).abs().max()) for a, p in zip(gk, gp))
+    errs["grad_rel"] = max(float((a - p).abs().max() / p.abs().max())
+                           for a, p in zip(gk, gp))
+    spec3 = fs.Spec(cfg, "input")
+    l3 = fs.scan_fwd_cuda(spec3, leaves, arrays, 0.6, h0, False,
+                          want_hists=False)[0]
+    l3b = fs.scan_fwd_cuda(spec3, leaves, arrays, 0.6, h0, False,
+                           want_hists=False)[0]
+    l3p, _ = fs.scan_fwd_plain(spec3, leaves, arrays, 0.6, h0, False,
+                               want_hists=False)
+    assert torch.equal(l3, l3b)
+    _close("eval loss", l3, l3p, tol["loss"])
+    errs["eval"] = float((l3 - l3p).abs())
+    return errs
+
+
+@pytest.mark.parametrize("mode", ["input", "prng"])
+@pytest.mark.parametrize("variant", MASKED_VARIANTS,
+                         ids=[v[0] for v in MASKED_VARIANTS])
+def test_masked_kernels_match_plain(card, variant, mode):
+    """The masked branch of K1, K2 and K3 against the plain versions, in
+    both mask modes, each kernel twice bit for bit."""
+    _, D, H, B, K, pad, lead0, kw = variant
+    cfg, _, _, arrays, leaves, h0 = _masked_setup(D, H, B, K, pad, lead0, kw,
+                                                  card)
+    _check_masked(card, cfg, arrays, leaves, h0, mode,
+                  dict(loss=LOSS_TOL, hist=GRAD_TOL, grad=GRAD_TOL))
+
+
+def test_masked_kernels_climate_grid(card):
+    """The climate widths over a grid of K = 2004 steps with 4 trailing
+    dt==0 steps, 'prng' masks, against the plain versions at
+    ``LONG_TOL``."""
+    nn = ((50, "tanh"), (50, "tanh"))
+    cfg, _, _, arrays, leaves, h0 = _masked_setup(
+        5, 10, 20, 2000, 4, False,
+        dict(ode_nn=nn, readout_nn=nn, enc_nn=nn), card)
+    errs = _check_masked(card, cfg, arrays, leaves, h0, "prng", LONG_TOL)
+    print("K=2004 errors:", {k: f"{v:.3e}" for k, v in errs.items()})
+
+
+def test_masked_fused_loss_on_card_matches_cpu(card):
+    """The masked training loss through ``make_fused_loss_fn`` on the card
+    (the t=0 encoder with the zero mask and dropout, then the kernels)
+    against the same composition through the plain versions on the CPU,
+    given the encoder keep-masks and the Philox seed the wrapper drew: the
+    same loss and parameter gradients."""
+    _, D, H, B, K, pad, lead0, kw = MASKED_VARIANTS[6]
+    cfg, model, batch, _, _, _ = _masked_setup(D, H, B, K, pad, lead0, kw,
+                                               card)
+    loss_fn = fs.make_fused_loss_fn(cfg, mask_mode="prng")
+    loss = loss_fn(model, batch, 0.6,
+                   torch.Generator(device=card).manual_seed(5), True)
+    loss.backward()
+    # the wrapper's draws, replayed from the same generator state
+    spec = fs.Spec(cfg, "prng")
+    gen = torch.Generator(device=card).manual_seed(5)
+    u0 = torch.rand((spec.n_enc, B, spec.w_max), generator=gen,
+                    device=card) < 1.0 - spec.rate
+    seed = torch.randint(0, 2 ** 62, (1,), generator=gen, device=card,
+                         dtype=torch.int64)
+    assert spec.n_enc > 0 and not bool(u0.all())
+    cpu = torch.device("cpu")
+    _, model_c, batch_c, _, _, _ = _masked_setup(D, H, B, K, pad, lead0, kw,
+                                                 cpu)
+    h0 = fs.t0_state(model_c, batch_c, list(u0.to(cpu)))
+    loss_c = fs.FusedNJODELoss.apply(
+        spec, True, 0.6, None, seed.to(cpu), batch_c.times, batch_c.dt,
+        batch_c.obs, batch_c.X, batch_c.n_obs_ot, batch_c.start_X,
+        batch_c.M, h0, *fs.flat_leaves(model_c))
+    loss_c.backward()
+    _close("loss", loss.detach().cpu(), loss_c.detach(), LOSS_TOL)
+    for i, (a, b) in enumerate(zip(model.parameters(),
+                                   model_c.parameters())):
+        _close(f"grad {i}", a.grad.cpu(), b.grad, GRAD_TOL)

@@ -1,4 +1,5 @@
-"""The port imports neither jax nor the JAX package."""
+"""The port imports neither jax nor the JAX package, nor the packages the
+card machine lacks (pandas, sklearn, matplotlib)."""
 
 import os
 import subprocess
@@ -13,9 +14,8 @@ names = [m.name for m in pkgutil.walk_packages(njode_tpu_torch.__path__,
                                                "njode_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
-bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.") or m == "optax"
-             or m == "njode_tpu" or m.startswith("njode_tpu."))
+banned = ("jax", "optax", "njode_tpu", "pandas", "sklearn", "matplotlib")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(len(names), ",".join(bad))
 """
 
@@ -29,3 +29,31 @@ def test_port_imports_no_jax():
         else (out.stdout.strip(), "")
     assert int(n) >= 15, out.stdout
     assert bad == "", f"the port imported {bad}"
+
+
+def test_chip_smoke_imports_no_jax_and_needs_a_card(tmp_path):
+    """``chip_smoke.py`` imports none of the banned packages, and exits
+    non-zero with no result line where there is no CUDA card, and where
+    the port is not beside it."""
+    import ast
+    import shutil
+
+    src = os.path.join(ROOT, "chip_smoke.py")
+    with open(src) as f:
+        tree = ast.parse(f.read())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods.add(node.module.split(".")[0])
+    banned = {"jax", "optax", "njode_tpu", "pandas", "sklearn", "matplotlib"}
+    assert not mods & banned, mods & banned
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(src, alone)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    for cwd, script in ((ROOT, src), (str(tmp_path), str(alone))):
+        out = subprocess.run([sys.executable, script], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0, out.stdout
+        assert '"ok": true' not in out.stdout
