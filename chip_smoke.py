@@ -51,7 +51,29 @@ power limit, and the final ``{"ok": true, ...}`` line:
               epochs of batch 100, the NJODE small arm and then the
               GRU-ODE-Bayes arm; losses and eval_metric finite, and the
               launch counts exactly what the epochs' batches need (so an
-              eager fallback on this path fails the run).
+              eager fallback on this path fails the run);
+12. physionet_setup - the PhysioNet stand-in at the published scale
+              (8,000 records of 41 variables, quantization 0.016 h, seed
+              0), the 80/20 split, the pre-stacked bank (K = 3,006 grid
+              steps) and the first training batch of epoch 1 (B = 50);
+13. physionet_kernels - K1, K2 and K3 in the global plan (weights in
+              device memory) against their plain versions: the PhysioNet
+              50 arm (D = hidden = 41, three 2x50 tanh MLPs, dropout 0.1)
+              over the first 100 steps in both mask modes and over all
+              3,006 in 'prng' mode, step by step (``STEP_TOL``), the 200
+              arm and the climate 400 arm
+              (on the first climate batch) over the first 100 steps in both
+              modes, each kernel run twice and compared bit for bit; and
+              the global plan forced at 16 rows bit for bit against the
+              resident plan on the main path and on the climate small arm;
+14. physionet_timing - CUDA-event times and bounds of the global plan's
+              K1/K2/K3 at the 50 and 200 arms (B = 50, K = 3,006) and at
+              the climate 400 arm (B = 100, K = 2,004), and of the 50 arm
+              in the resident plan forced at 4 rows;
+15. physionet_trainer - physionet_trainer.train at the 50 arm (batch 50,
+              'prng') for 2 epochs on the stand-in cut to 1,000 records
+              (800 train, 16 batches an epoch); losses and both metrics
+              finite, and the launch counts exact.
 
 Tolerances are those the JAX package's Pallas kernel is held to
 (tests/test_fused_scan.py): loss rtol 1e-5 / atol 1e-6, gradients rtol
@@ -65,7 +87,9 @@ sum over observations with 1/var and mixing/s2^2 (up to 5,000) factors, so
 gradients reach the thousands (tests/test_fused_gob.py scales its mesh
 check the same way); in the climate phase each gradient leaf takes the
 atol scaled by its own largest |value|. Over the climate grid's 2,004
-steps the masked kernels are held to ``LONG_TOL`` (see there).
+steps the masked kernels are held to ``LONG_TOL`` (see there), and over
+the PhysioNet grid's 3,006 step by step (``STEP_TOL``). The two plans sum
+in the same order, so at one row count they must agree bit for bit.
 """
 
 from __future__ import annotations
@@ -95,8 +119,25 @@ GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
 # leaf (None: scaled_tol of that reference). The climate_kernels lines
 # print the share of this tolerance each check used (PERF.md records it).
 LONG_TOL = dict(loss=LOSS_TOL, hist=None, grad=None)
+# K = 3,006 (the PhysioNet grid): at D = H = 41 the residual encoder and
+# readout make every jump h -> h + g(h) on the unobserved coordinates, and
+# over hundreds of jumps a record's state amplifies rounding until two
+# fp32 scans that sum in different orders part ways (the plain version
+# among them; PERF.md). K1 and K3 are then checked step by step: the plain
+# step map from each of the kernel's own step-entry carries
+# (fused_scan.scan_steps_plain) must give its next carry and, summed, its
+# loss, at LONG_TOL. K2 re-runs each step from K1's carries, as its plain
+# version does, and is checked as on the climate grid.
+STEP_TOL = dict(LONG_TOL, stepwise=True)
 CLIMATE_SERIES = 1114      # the published scale of the USHCN file
 CLIMATE_B = 100
+# PhysioNet (experiments/configs.py physionet_comparison): set-a + set-b at
+# n_samples 8,000, quantization 0.016 h, batch 50; the trainer phase's cut
+PHYS_RECORDS = 8000
+PHYS_QUANT = 0.016
+PHYS_T = 1 + 1e-12
+PHYS_B = 50
+PHYS_TRAIN_RECORDS = 1000
 
 
 def say(phase, **kw):
@@ -267,7 +308,7 @@ def phase_kernels(results):
                                want_hists=False)
     e3 = check_close("K3 loss", l3[0], l3p, LOSS_TOL)
     # reduce_partials at the K2 partials' shape
-    n_cta = -(-B // fs.ROWS)
+    n_cta = -(-B // fs.MAX_ROWS)
     parts = torch.randn((n_cta, spec3.n_params), generator=gen, device=dev)
     r1 = fs.reduce_partials_cuda(parts)
     r2 = fs.reduce_partials_cuda(parts)
@@ -360,10 +401,11 @@ def phase_timing(results):
                     + B * spec.H + P) + 8
     hist_bytes = 4 * K * B * (spec.H + spec.D + 1)
     f1 = 2.0 * mac * B * K
-    b1 = in_bytes + hist_bytes + 4 * -(-B // fs.ROWS)
+    n_cta = -(-B // spec.rows)
+    b1 = in_bytes + hist_bytes + 4 * n_cta
     # backward: the recomputed forward, plus dW and dx per linear
     f2 = 3.0 * f1
-    b2 = in_bytes + hist_bytes + 4 + 4 * -(-B // fs.ROWS) * P + 4 * B * spec.H
+    b2 = in_bytes + hist_bytes + 4 + 4 * n_cta * P + 4 * B * spec.H
     f3 = 2.0 * mac * B3 * K3
     b3 = 4 * (2 * K3 + K3 * B3 * 2 + B3 * 2 + B3 * spec.H + P)
     n_mask = K * spec.S * B * spec.w_max
@@ -790,13 +832,15 @@ def climate_setup(results, tmp):
         batch_obs=int(batch.obs.sum()), setup_s=f"{time.time() - t0:.2f}")
 
 
-def _climate_njode(dev, seed=0):
+def _masked_njode(D, H, width, dev, seed=0):
+    """A masked NJODE (output = input) with three 2 x ``width`` tanh MLPs
+    and dropout 0.1, the climate and PhysioNet arms' shape."""
     import torch
 
     from njode_tpu_torch.models.njode import NJODE, NJODEConfig
 
-    nn_desc = ((50, "tanh"), (50, "tanh"))
-    cfg = NJODEConfig(5, 10, 5, nn_desc, nn_desc, nn_desc,
+    nn_desc = ((width, "tanh"), (width, "tanh"))
+    cfg = NJODEConfig(D, H, D, nn_desc, nn_desc, nn_desc,
                       dropout_rate=0.1, masked=True)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
@@ -833,13 +877,24 @@ def _masked_checks(spec, leaves, arrays, h0, u, seed, tol, tag):
             torch.equal(a, b) for a, b in zip(hk, hk2))):
         raise AssertionError(f"masked K1 ({tag}) differs between two runs")
     ms = {}
-    (lp, hp), ms["K1m"] = timed(lambda: fs.scan_fwd_plain(
-        spec, leaves, arrays, 0.5, h0, True, u, seed))
-    e = {"loss": check_close(f"masked K1 loss ({tag})", lk, lp, tol["loss"]),
-         "loss_val": float(lp)}
-    e["hist"] = max(check_close(f"masked K1 {n} ({tag})", a, b,
-                                tol["hist"] or scaled_tol(b))
-                    for n, a, b in zip(("h", "lastX", "tau"), hk, hp))
+    if tol.get("stepwise"):
+        e_loss, e_hist, lp, ms["K1m"] = _stepwise_check(
+            f"masked K1 ({tag})", spec, leaves, arrays, lk, hk, True, u, seed,
+            tol)
+        e = {"loss": e_loss, "hist": e_hist, "loss_val": float(lp)}
+        # for the record: how far the free-running plain scan parts ways
+        lf, _ = fs.scan_fwd_plain(spec, leaves, arrays, 0.5, h0, True, u,
+                                  seed, want_hists=False)
+        e["free_run_gap"] = float((lk - lf).abs() / lf.abs())
+    else:
+        (lp, hp), ms["K1m"] = timed(lambda: fs.scan_fwd_plain(
+            spec, leaves, arrays, 0.5, h0, True, u, seed))
+        e = {"loss": check_close(f"masked K1 loss ({tag})", lk, lp,
+                                 tol["loss"]),
+             "loss_val": float(lp)}
+        e["hist"] = max(check_close(f"masked K1 {n} ({tag})", a, b,
+                                    tol["hist"] or scaled_tol(b))
+                        for n, a, b in zip(("h", "lastX", "tau"), hk, hp))
     dloss = torch.ones((), device=h0.device)
     outs = [fs.scan_bwd_cuda(spec, leaves, arrays, 0.5, True, hk, dloss, u,
                              seed) for _ in range(2)]
@@ -854,6 +909,23 @@ def _masked_checks(spec, leaves, arrays, h0, u, seed, tol, tag):
     e["dh0"] = check_close(f"masked K2 dh0 ({tag})", dk, dp,
                            tol["grad"] or scaled_tol(dp))
     return e, ms, hk
+
+
+def _stepwise_check(name, spec, leaves, arrays, lk, hk, train, u, seed,
+                    tol):
+    """A forward kernel's loss ``lk`` and step-entry carries ``hk`` against
+    the plain step map started from those carries
+    (``fused_scan.scan_steps_plain``, timed once with CUDA events); returns
+    (loss error, largest carry error, plain loss, plain ms)."""
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    (lp, nxt), ms = timed(lambda: fs.scan_steps_plain(
+        spec, leaves, arrays, 0.5, hk, train, u, seed))
+    e_loss = check_close(f"{name} loss", lk, lp, tol["loss"])
+    e_hist = max(check_close(f"{name} {n}", a[1:], b[:-1],
+                             tol["hist"] or scaled_tol(b[:-1]))
+                 for n, a, b in zip(("h", "lastX", "tau"), hk, nxt))
+    return e_loss, e_hist, lp, ms
 
 
 def _grad_errs(name, gk, gp, tol=None):
@@ -871,6 +943,77 @@ def _grad_errs(name, gk, gp, tol=None):
             ((a.double() - b.double()).abs()
              / (t["atol"] + t["rtol"] * b.double().abs())).max()))
     return e
+
+
+def _masked_arm_checks(phase, cfg, model, full, runs, gen, plan=None,
+                       **tags):
+    """The masked K1 and K2 (``_masked_checks``) and K3, each twice bit for
+    bit and against its plain version, over the first K steps of the batch
+    ``full`` for each ``(K, modes, tol)`` of ``runs``, in ``plan`` (None:
+    the spec's own). Returns (the largest error of each kernel, the plain
+    versions' ms and ``(leaves, arrays, h0, seed, hists)`` of the last
+    run)."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    dev = full.obs.device
+    B = full.obs.shape[1]
+    leaves = [p.detach() for p in fs.flat_leaves(model)]
+    errs = {"K1m": 0.0, "K2m": 0.0, "K3m": 0.0}
+    for K, modes, tol in runs:
+        b = _first_steps(full, K)
+        arrays = fs.batch_arrays(b)
+        with torch.no_grad():
+            h0 = fs.t0_state(model, b)
+        for mode in modes:
+            spec = fs.Spec(cfg, mode, plan)
+            u = seed = None
+            if mode == "input":
+                u = (torch.rand((K, spec.S, B, spec.w_max),
+                                generator=gen, device=dev) < 0.9).to(
+                    torch.int8)
+            else:
+                seed = torch.randint(0, 2 ** 62, (1,), generator=gen,
+                                     device=dev, dtype=torch.int64)
+            tag = " ".join([*map(str, tags.values()), f"K={K}", mode])
+            e, plain_ms, hists = _masked_checks(spec, leaves, arrays, h0, u,
+                                                seed, tol, tag)
+            errs["K1m"] = max(errs["K1m"], e["loss"])
+            errs["K2m"] = max(errs["K2m"], e["grad"], e["dh0"])
+            gap = ({"free_run_loss_gap": f"{e['free_run_gap']:.3e}"}
+                   if "free_run_gap" in e else {})
+            say(phase, **tags, K=K, mode=mode,
+                loss=f"{e['loss_val']:.6f}", K1_loss_err=f"{e['loss']:.3e}",
+                K1_hist_err=f"{e['hist']:.3e}",
+                K2_grad_err=f"{e['grad']:.3e}",
+                K2_grad_rel_err=f"{e['grad_rel']:.3e}",
+                K2_grad_tol_used=f"{e['grad_used']:.3e}",
+                K2_dh0_err=f"{e['dh0']:.3e}", **gap, bitwise_repeat=True)
+        spec3 = fs.Spec(cfg, "input", plan)
+        l3 = [fs.scan_fwd_cuda(spec3, leaves, arrays, 0.5, h0, False,
+                               want_hists=False)[0] for _ in range(2)]
+        torch.cuda.synchronize()
+        if not torch.equal(l3[0], l3[1]):
+            raise AssertionError(f"masked K3 ({tag}) differs between runs")
+        if tol.get("stepwise"):
+            # K1 without dropout walks K3's trajectory and keeps its carries
+            le, he = fs.scan_fwd_cuda(spec3, leaves, arrays, 0.5, h0, False)
+            if not torch.equal(le, l3[0]):
+                raise AssertionError(f"masked K3 ({tag}) differs from K1 "
+                                     "without dropout")
+            e3, _, _, plain_k3 = _stepwise_check(
+                f"masked K3 ({tag})", spec3, leaves, arrays, l3[0], he, False,
+                None, None, tol)
+        else:
+            (l3p, _), plain_k3 = timed(lambda: fs.scan_fwd_plain(
+                spec3, leaves, arrays, 0.5, h0, False, want_hists=False))
+            e3 = check_close(f"masked K3 ({tag})", l3[0], l3p, tol["loss"])
+        errs["K3m"] = max(errs["K3m"], e3)
+        say(phase, **tags, K=K, K3_loss_err=f"{e3:.3e}",
+            K3_loss=f"{float(l3[0]):.6f}", bitwise_repeat=True)
+    plain_ms["K3m"] = plain_k3
+    return errs, plain_ms, (leaves, arrays, h0, seed, hists)
 
 
 def _gob_checks(spec, leaves, arrays, st, u, seed, tag):
@@ -917,58 +1060,17 @@ def phase_climate_kernels(results):
 
     from njode_tpu_torch.models import gru_ode_bayes as gob
     from njode_tpu_torch.ops import fused_gob as fg
-    from njode_tpu_torch.ops import fused_scan as fs
 
     dev = torch.device("cuda")
     full = results["climate"]["batch"]
-    cfg, model = _climate_njode(dev)
-    leaves = [p.detach() for p in fs.flat_leaves(model)]
+    cfg, model = _masked_njode(5, 10, 50, dev)
     gen = torch.Generator(device=dev).manual_seed(3)
-    errs = {"K1m": 0.0, "K2m": 0.0, "K3m": 0.0}
     short_tol = dict(loss=LOSS_TOL, hist=GRAD_TOL, grad=GRAD_TOL)
-    for K, modes, tol in ((100, ("input", "prng"), short_tol),
-                          (results["climate"]["K"], ("prng",), LONG_TOL)):
-        b = _first_steps(full, K)
-        arrays = fs.batch_arrays(b)
-        with torch.no_grad():
-            h0 = fs.t0_state(model, b)
-        for mode in modes:
-            spec = fs.Spec(cfg, mode)
-            u = seed = None
-            if mode == "input":
-                u = (torch.rand((K, spec.S, CLIMATE_B, spec.w_max),
-                                generator=gen, device=dev) < 0.9).to(
-                    torch.int8)
-            else:
-                seed = torch.randint(0, 2 ** 62, (1,), generator=gen,
-                                     device=dev, dtype=torch.int64)
-            tag = f"K={K} {mode}"
-            e, plain_ms, hists = _masked_checks(spec, leaves, arrays, h0, u,
-                                                seed, tol, tag)
-            errs["K1m"] = max(errs["K1m"], e["loss"])
-            errs["K2m"] = max(errs["K2m"], e["grad"], e["dh0"])
-            say("climate_kernels", K=K, mode=mode,
-                loss=f"{e['loss_val']:.6f}", K1_loss_err=f"{e['loss']:.3e}",
-                K1_hist_err=f"{e['hist']:.3e}",
-                K2_grad_err=f"{e['grad']:.3e}",
-                K2_grad_rel_err=f"{e['grad_rel']:.3e}",
-                K2_grad_tol_used=f"{e['grad_used']:.3e}",
-                K2_dh0_err=f"{e['dh0']:.3e}", bitwise_repeat=True)
-        spec3 = fs.Spec(cfg, "input")
-        l3 = [fs.scan_fwd_cuda(spec3, leaves, arrays, 0.5, h0, False,
-                               want_hists=False)[0] for _ in range(2)]
-        torch.cuda.synchronize()
-        if not torch.equal(l3[0], l3[1]):
-            raise AssertionError(f"masked K3 (K={K}) differs between runs")
-        (l3p, _), plain_k3 = timed(lambda: fs.scan_fwd_plain(
-            spec3, leaves, arrays, 0.5, h0, False, want_hists=False))
-        e3 = check_close(f"masked K3 (K={K})", l3[0], l3p, tol["loss"])
-        errs["K3m"] = max(errs["K3m"], e3)
-        say("climate_kernels", K=K, K3_loss_err=f"{e3:.3e}",
-            K3_loss=f"{float(l3[0]):.6f}", bitwise_repeat=True)
-    plain_ms["K3m"] = plain_k3
-    results["climate"].update(
-        njode=(cfg, leaves, arrays, h0, seed, hists), plain_ms=plain_ms)
+    errs, plain_ms, last = _masked_arm_checks(
+        "climate_kernels", cfg, model, full,
+        ((100, ("input", "prng"), short_tol),
+         (results["climate"]["K"], ("prng",), LONG_TOL)), gen)
+    results["climate"].update(njode=(cfg, *last), plain_ms=plain_ms)
 
     # K5/K6 at the GRU-ODE-Bayes climate arm: the first 100 steps in both
     # mask modes, all 2,004 in 'prng' mode (the trainer's shape)
@@ -1008,6 +1110,41 @@ def phase_climate_kernels(results):
     results["climate_errs"] = dict(errs, **gerr)
 
 
+def _masked_times(spec, spec3, leaves, arrays, h0, seed, hists, reps):
+    """CUDA-event ms of the masked K1 and K2 (``spec``, 'prng') and of K3
+    (``spec3``), one warm-up and ``reps`` timed calls each."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    dloss = torch.ones((), device=h0.device)
+    return {"K1": cuda_ms(lambda: fs.scan_fwd_cuda(
+                spec, leaves, arrays, 0.5, h0, True, None, seed), reps, 1),
+            "K2": cuda_ms(lambda: fs.scan_bwd_cuda(
+                spec, leaves, arrays, 0.5, True, hists, dloss, None, seed),
+                reps, 1),
+            "K3": cuda_ms(lambda: fs.scan_fwd_cuda(
+                spec3, leaves, arrays, 0.5, h0, False, want_hists=False),
+                reps, 1)}
+
+
+def _masked_bounds(spec, K, B):
+    """Bounds of the masked K1, K2 and K3 at K steps of B rows in the
+    spec's plan: the FLOP from the MACs per row-step (backward 3x), the
+    bytes with each input read once and each output written once (K2's
+    output holds one partial row per CTA)."""
+    mac = _macs_per_row_step(spec)
+    D, H, P = spec.D, spec.H, spec.n_params
+    n_cta = -(-B // spec.rows)
+    data = 4 * (2 * K + K * B + 2 * K * B * D + B + B * D + B * H + P)
+    hist = 4 * K * B * (H + D + 1)
+    f1 = 2.0 * mac * B * K
+    return {"K1": bound(f1, data + 8 + hist + 4 * n_cta, PEAK_FP32),
+            "K2": bound(3.0 * f1, data + 8 + hist + 4 + 4 * n_cta * P
+                        + 4 * B * H, PEAK_FP32),
+            "K3": bound(f1, data + 4 * n_cta, PEAK_FP32)}
+
+
 def phase_climate_timing(results):
     import torch
 
@@ -1016,30 +1153,13 @@ def phase_climate_timing(results):
 
     cl = results["climate"]
     cfg, leaves, arrays, h0, seed, hists = cl["njode"]
-    spec = fs.Spec(cfg, "prng")
-    spec3 = fs.Spec(cfg, "input")
     K, B = arrays[2].shape
     dloss = torch.ones((), device=h0.device)
-    t, bnd = {}, {}
-    t["K1m"] = (cuda_ms(lambda: fs.scan_fwd_cuda(
-        spec, leaves, arrays, 0.5, h0, True, None, seed), 3, 1),
-        cl["plain_ms"]["K1m"])
-    t["K2m"] = (cuda_ms(lambda: fs.scan_bwd_cuda(
-        spec, leaves, arrays, 0.5, True, hists, dloss, None, seed), 3, 1),
-        cl["plain_ms"]["K2m"])
-    t["K3m"] = (cuda_ms(lambda: fs.scan_fwd_cuda(
-        spec3, leaves, arrays, 0.5, h0, False, want_hists=False), 3, 1),
-        cl["plain_ms"]["K3m"])
-    mac = _macs_per_row_step(spec)
-    D, H, P = spec.D, spec.H, spec.n_params
-    n_cta = -(-B // fs.ROWS)
-    data = 4 * (2 * K + K * B + 2 * K * B * D + B + B * D + B * H + P)
-    hist = 4 * K * B * (H + D + 1)
-    f1 = 2.0 * mac * B * K
-    bnd["K1m"] = bound(f1, data + 8 + hist + 4 * n_cta, PEAK_FP32)
-    bnd["K2m"] = bound(3.0 * f1, data + 8 + hist + 4 + 4 * n_cta * P
-                       + 4 * B * H, PEAK_FP32)
-    bnd["K3m"] = bound(f1, data + 4 * n_cta, PEAK_FP32)
+    spec = fs.Spec(cfg, "prng")
+    ms = _masked_times(spec, fs.Spec(cfg, "input"), leaves, arrays, h0,
+                       seed, hists, 3)
+    t = {k + "m": (ms[k], cl["plain_ms"][k + "m"]) for k in ms}
+    bnd = {k + "m": v for k, v in _masked_bounds(spec, K, B).items()}
 
     gcfg, gleaves, garrays, st, gseed, ghists = cl["gob"]
     gspec = fg.Spec(gcfg, "prng")
@@ -1121,6 +1241,218 @@ def phase_climate_trainer(results):
     results["climate_launches"] = dict(njode=nj, gob=gb)
 
 
+def physionet_setup(results):
+    """The stand-in at the published scale, its split, the pre-stacked bank
+    on the card and epoch 1's first training batch."""
+    import numpy as np
+    import torch
+
+    from njode_tpu_torch.data import physionet as pdu
+    from njode_tpu_torch.training import climate_trainer as ct
+    from njode_tpu_torch.training.steps import prestacked_batch
+
+    dev = torch.device("cuda")
+    t0 = time.time()
+    recs = pdu.make_synthetic_records(PHYS_RECORDS, quantization=PHYS_QUANT,
+                                      seed=0)
+    data = pdu.parse_datasets("", records=recs)
+    tr, te = data["train_records"], data["test_records"]
+    delta_t = PHYS_QUANT / 48.0
+    K = pdu.max_union_grid_steps(tr + te, delta_t, PHYS_T)
+    pre = pdu.prestack_train_records(tr, data["data_min"], data["data_max"],
+                                     delta_t, PHYS_T, K)
+    E, D = pre["k"].shape[1], pre["X"].shape[2]
+    bank = [torch.as_tensor(a, device=dev) for a in (
+        np.concatenate([pre["k"], np.full((1, E), K, np.int32)]).astype(
+            np.int64),
+        np.concatenate([pre["X"], np.zeros((1, E, D), np.float32)]),
+        np.concatenate([pre["M"], np.zeros((1, E, D), np.float32)]))]
+    idx_mat, _, _ = ct.epoch_batches(398, 1, len(tr), PHYS_B)
+    batch = prestacked_batch(*bank, torch.as_tensor(idx_mat[0], device=dev),
+                             torch.as_tensor(pre["times"], device=dev),
+                             torch.as_tensor(pre["dt"], device=dev))
+    torch.cuda.synchronize()
+    results["phys"] = dict(records=recs, batch=batch)
+    say("physionet_setup", records=len(recs), n_train=len(tr),
+        n_test=len(te), K=int(batch.obs.shape[0]), B=PHYS_B,
+        rows_mean=f"{pre['n_ev'].mean():.1f}", rows_max=int(E),
+        bank_GB=f"{(pre['X'].nbytes + pre['M'].nbytes) / 1e9:.3f}",
+        batch_obs=int(batch.obs.sum()), setup_s=f"{time.time() - t0:.2f}")
+
+
+def _kernel_outputs(spec, spec3, leaves, arrays, h0, u, seed):
+    """Every output of K1 (loss, histories), K2 (gradients, dh0) and K3."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    l1, hists = fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, True, u,
+                                 seed)
+    g, dh0 = fs.scan_bwd_cuda(spec, leaves, arrays, 0.5, True, hists,
+                              torch.ones((), device=h0.device), u, seed)
+    l3, _ = fs.scan_fwd_cuda(spec3, leaves, arrays, 0.5, h0, False,
+                             want_hists=False)
+    return [l1, *hists, *g, dh0, l3]
+
+
+def _plans_bit_identical(tag, cfg, leaves, arrays, h0, gen):
+    """The global plan forced at 16 rows against the resident plan, every
+    output of K1, K2 and K3 in both mask modes, bit for bit."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    K, B = arrays[2].shape
+    for mode in ("input", "prng"):
+        spec = fs.Spec(cfg, mode)
+        u = seed = None
+        if mode == "input":
+            u = (torch.rand((K, spec.S, B, spec.w_max), generator=gen,
+                            device=h0.device) < 0.9).to(torch.int8)
+        else:
+            seed = torch.randint(0, 2 ** 62, (1,), generator=gen,
+                                 device=h0.device, dtype=torch.int64)
+        outs = [_kernel_outputs(fs.Spec(cfg, mode, plan),
+                                fs.Spec(cfg, "input", plan), leaves, arrays,
+                                h0, u, seed)
+                for plan in (None, ("global", 16))]
+        torch.cuda.synchronize()
+        n_diff = sum(not torch.equal(a, b) for a, b in zip(*outs))
+        if n_diff or spec.plan != "resident":
+            raise AssertionError(f"global plan at 16 rows differs from the "
+                                 f"resident plan in {n_diff} outputs "
+                                 f"({tag} {mode})")
+        say("physionet_kernels", plans_bit_identical=tag, mode=mode,
+            outputs=len(outs[0]))
+
+
+# (arm, D, hidden, width, the batch it runs on)
+PHYS_ARMS = (("phys50", 41, 41, 50, "phys"), ("phys200", 41, 41, 200, "phys"),
+             ("climate400", 5, 50, 400, "climate"))
+
+
+def phase_physionet_kernels(results):
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    st = results["setup"]
+    _plans_bit_identical("main_path", st["cfg"], st["leaves"], st["arrays"],
+                         st["h0"], gen)
+    cfg_c, model_c = _masked_njode(5, 10, 50, dev)
+    b = _first_steps(results["climate"]["batch"], 100)
+    with torch.no_grad():
+        h0_c = fs.t0_state(model_c, b)
+    _plans_bit_identical("climate_small", cfg_c,
+                         [p.detach() for p in fs.flat_leaves(model_c)],
+                         fs.batch_arrays(b), h0_c, gen)
+
+    short_tol = dict(loss=LOSS_TOL, hist=GRAD_TOL, grad=GRAD_TOL)
+    arms, errs = {}, {"K1m": 0.0, "K2m": 0.0, "K3m": 0.0}
+    for arm, D, H, width, src in PHYS_ARMS:
+        full = results[src]["batch"]
+        cfg, model = _masked_njode(D, H, width, dev)
+        spec = fs.Spec(cfg)
+        if spec.plan != "global":
+            raise AssertionError(f"{arm}: plan {spec.plan}, expected global")
+        say("physionet_kernels", arm=arm, plan=spec.plan, rows=spec.rows,
+            smem_bytes=spec.smem_bytes, n_params=spec.n_params,
+            macs_per_row_step=_macs_per_row_step(spec))
+        runs = ((100, ("input", "prng"), short_tol),)
+        if arm == "phys50":          # the trainer's shape, all steps
+            runs += ((int(full.obs.shape[0]), ("prng",), STEP_TOL),)
+        e, plain_ms, _ = _masked_arm_checks("physionet_kernels", cfg, model,
+                                            full, runs, gen, arm=arm)
+        errs = {k: max(errs[k], e[k]) for k in errs}
+        arms[arm] = dict(cfg=cfg, model=model, full=full, plain_ms=plain_ms)
+    results["phys"].update(arms=arms, errs=errs)
+
+
+def phase_physionet_timing(results):
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    t, bnd = {}, {}
+    for arm, a in results["phys"]["arms"].items():
+        cfg, model, full = a["cfg"], a["model"], a["full"]
+        leaves = [p.detach() for p in fs.flat_leaves(model)]
+        arrays = fs.batch_arrays(full)
+        K, B = arrays[2].shape
+        with torch.no_grad():
+            h0 = fs.t0_state(model, full)
+        seed = torch.tensor([20261016], dtype=torch.int64, device=h0.device)
+        for plan in (None, ("resident", 4)) if arm == "phys50" else (None,):
+            spec = fs.Spec(cfg, "prng", plan)
+            _, hists = fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, True,
+                                        None, seed)
+            ms = _masked_times(spec, fs.Spec(cfg, "input", plan), leaves,
+                               arrays, h0, seed, hists,
+                               3 if arm == "phys50" else 2)
+            bd = _masked_bounds(spec, K, B)
+            for k in ("K1", "K2", "K3"):
+                bms, by = bd[k]
+                say("physionet_timing", arm=arm, plan=spec.plan,
+                    rows=spec.rows, kernel=k, B=B, K=K, ms=f"{ms[k]:.4f}",
+                    ms_per_step=f"{ms[k] / K:.5f}", bound_ms=f"{bms:.6f}",
+                    bound_by=by, roofline_share=f"{bms / ms[k]:.2e}")
+                if arm == "phys50" and plan is None:   # the trainer's arm
+                    t[k + "g"] = (ms[k], a["plain_ms"][k + "m"])
+                    bnd[k + "g"] = bd[k]
+    results["times"].update(t)
+    results["bounds"].update(bnd)
+
+
+def phase_physionet_trainer(results):
+    import numpy as np
+    import torch
+
+    from njode_tpu_torch.ops import fused_gob as fg
+    from njode_tpu_torch.ops import fused_scan as fs
+    from njode_tpu_torch.training import physionet_trainer as pt
+    from njode_tpu_torch.utils.csv_frame import read_frame, to_float
+
+    tmp = tempfile.mkdtemp(prefix="njode_smoke_phys_")
+    try:
+        recs = results["phys"]["records"][:PHYS_TRAIN_RECORDS]
+        models = os.path.join(tmp, "models")
+        fs.reset_launch_counts()
+        fg.reset_launch_counts()
+        pt.train(epochs=2, batch_size=PHYS_B, quantization=PHYS_QUANT,
+                 n_samples=PHYS_TRAIN_RECORDS, records=recs,
+                 saved_models_path=models, device="cuda",
+                 pallas_mask_mode="prng")
+        torch.cuda.synchronize()
+        counts = dict(fs.LAUNCHES, **fg.LAUNCHES)
+        cols, rows = read_frame(os.path.join(models, "id-1",
+                                             "metric_id-1.csv"))
+        if len(rows) != 2:
+            raise AssertionError(f"expected 2 metric rows, got {rows}")
+        for row in rows:
+            rec = dict(zip(cols, row))
+            vals = {k: to_float(rec[k]) for k in cols if k != "epoch"}
+            if not all(np.isfinite(v) for v in vals.values()):
+                raise AssertionError(f"non-finite PhysioNet metrics: {rec}")
+            say("physionet_trainer", epoch=rec["epoch"],
+                **{k: f"{v:.6f}" for k, v in vals.items()})
+        steps = 2 * -(-int(0.8 * PHYS_TRAIN_RECORDS) // PHYS_B)
+        expect = {"njode_scan_fwd_global": steps,
+                  "njode_scan_bwd_global": steps,
+                  "philox_keep": 2 * steps, "reduce_partials": 2 * steps}
+        for k, v in counts.items():
+            if v != expect.get(k, 0):
+                raise AssertionError(f"launch count {k}={v}, expected "
+                                     f"{expect.get(k, 0)}: {counts}")
+        say("physionet_trainer", records=len(recs),
+            launches=json.dumps({k: v for k, v in counts.items() if v})
+            .replace(" ", ""))
+        results["phys_launches"] = counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def kernels_line(results):
     src = "njode_tpu_torch/ops/csrc/fused_scan.cu"
     rows = [("njode_scan_fwd", "K1", "njode_tpu/ops/fused_scan.py:1115",
@@ -1136,15 +1468,16 @@ def kernels_line(results):
     out = []
     gl = results["gob_launches"]
     cn, cg = (results["climate_launches"][k] for k in ("njode", "gob"))
+    pl = results["phys_launches"]
     for name, key, replaces, count in rows:
         ms, plain = results["times"][key]
         bms, by = results["bounds"][key]
         launches = results["launches"][count]
         if name == "reduce_partials":    # runs on every path
             launches += (gl["reduce_partials"] + cn["reduce_partials"]
-                         + cg["reduce_partials"])
-        elif name == "philox_keep":      # the synthetic and climate paths
-            launches += cn["philox_keep"]
+                         + cg["reduce_partials"] + pl["reduce_partials"])
+        elif name == "philox_keep":      # the NJODE paths
+            launches += cn["philox_keep"] + pl["philox_keep"]
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": launches,
                     "max_abs_err": results["errs"][key], "ms": ms,
@@ -1184,6 +1517,24 @@ def kernels_line(results):
         out.append({"name": name, "route": "cuda", "source": s,
                     "replaces": replaces, "launches": launches,
                     "max_abs_err": ce[key], "ms": ms, "plain_ms": plain,
+                    "bound_ms": bms, "bound_by": by, "library_ms": None})
+    # the global plan of K1-K3 (the JAX kernel's blocked plan for nets that
+    # overflow VMEM), timed at the PhysioNet 50 arm; launches from the
+    # PhysioNet trainer phase, errors the largest of the physionet_kernels
+    # checks
+    pe = results["phys"]["errs"]
+    for name, key, replaces in (
+            ("njode_scan_fwd_global", "K1",
+             "njode_tpu/ops/fused_scan.py:431"),
+            ("njode_scan_bwd_global", "K2",
+             "njode_tpu/ops/fused_scan.py:1164"),
+            ("njode_scan_eval_global", "K3",
+             "njode_tpu/ops/fused_scan.py:1278")):
+        ms, plain = results["times"][key + "g"]
+        bms, by = results["bounds"][key + "g"]
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": replaces, "launches": pl[name],
+                    "max_abs_err": pe[key + "m"], "ms": ms, "plain_ms": plain,
                     "bound_ms": bms, "bound_by": by, "library_ms": None})
     return json.dumps({"kernels": out})
 
@@ -1233,6 +1584,13 @@ def main():
             t0 = time.time()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    physionet_setup(results)
+    t0 = time.time()
+    for phase in (phase_physionet_kernels, phase_physionet_timing,
+                  phase_physionet_trainer):
+        phase(results)
+        say(phase.__name__[6:], phase_s=f"{time.time() - t0:.2f}")
+        t0 = time.time()
     print(kernels_line(results), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,11 @@
 
 The kernels have a plain C interface (``ops/csrc/*.cu``), so the build needs
 no PyTorch headers: ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17
--O3 -shared -Xcompiler -fPIC`` into ``njode_tpu_torch/_build/`` (git-ignored),
-named by a hash of the source and of every ``csrc/`` header it includes, so
-a changed source or header rebuilds and an unchanged one loads the existing
-library. Nothing is built or imported when this module is imported."""
+-O3 -shared -Xcompiler -fPIC`` (plus ``EXTRA_FLAGS`` per library) into
+``njode_tpu_torch/_build/`` (git-ignored), named by a hash of the source
+and of every ``csrc/`` header it includes, so a changed source or header
+rebuilds and an unchanged one loads the existing library. Nothing is built
+or imported when this module is imported."""
 
 from __future__ import annotations
 
@@ -21,6 +22,13 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+
+# per library: fused_scan.cu holds twelve kernel instantiations, and
+# -split-compile=0 runs its device optimisation passes on every host core,
+# which halves its build on the H100 machine (24 to 12 s) and leaves its
+# kernel times as they were; the GOB kernels built so measured up to 50 %
+# slower in one run (PERF.md), so fused_gob.cu keeps the plain build
+EXTRA_FLAGS = {"fused_scan": ("-split-compile=0",)}
 
 _lock = threading.Lock()
 _loaded = {}
@@ -80,8 +88,8 @@ def build(name: str) -> str:
         return out
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", tmp, src]
+           "-std=c++17", "-O3", *EXTRA_FLAGS.get(name, ()), "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, src]
     t0 = time.time()
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
@@ -118,9 +126,9 @@ def _declare(name, lib):
     if name == "fused_scan":
         lib.njode_error_string.argtypes = [I]
         lib.njode_error_string.restype = ctypes.c_char_p
-        lib.njode_scan_fwd.argtypes = [P] * 16 + [I, P]
+        lib.njode_scan_fwd.argtypes = [P] * 17 + [I, P]
         lib.njode_scan_fwd.restype = I
-        lib.njode_scan_bwd.argtypes = [P] * 16 + [P]
+        lib.njode_scan_bwd.argtypes = [P] * 17 + [P]
         lib.njode_scan_bwd.restype = I
         lib.njode_reduce_partials.argtypes = [P, I, I, F, P, P]
         lib.njode_reduce_partials.restype = I

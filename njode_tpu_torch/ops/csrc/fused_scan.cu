@@ -10,10 +10,11 @@
 //   reduce_partials               the in-kernel accumulation of the TPU grid (loss_ref +=, _acc_wb)
 //
 // Design. The scan is K sequential steps of tiny matmuls (widths <= ~50,
-// batch rows 100-4000). One CTA owns ROWS batch rows and walks all K steps
-// itself; all weights, carries and per-step activations live in dynamic
-// shared memory, so a step touches device memory only for its per-step
-// inputs (t, dt, obs, X, masks) and the history rows. Each layer is fp32
+// batch rows 100-4000). One CTA owns R batch rows and walks all K steps
+// itself; all weights (resident plan, below), carries and per-step
+// activations live in dynamic shared memory, so a step touches device
+// memory only for its per-step inputs (t, dt, obs, X, masks) and the
+// history rows. Each layer is fp32
 // FMA with one thread per (row, output column) and a __syncthreads between
 // layers. The backward kernel re-materialises each step from the stored
 // step-entry carries (h, last_X, tau), walks k = K-1..0, and sums every
@@ -46,13 +47,35 @@
 // (col >> 2, global_row, k, slot), word col & 3, kept iff word < thresh.
 // The counter depends only on the global row and column, never on the CTA
 // split or the layer width, so the backward redraws the forward's masks.
+//
+// Two plans (c.plan; the counterpart of the JAX kernel's _select_plan /
+// _block_plan, which cut nets that overflow VMEM into K-chunks and batch
+// blocks). 'resident' (GW = false): every weight and its gradient sit in
+// shared memory, as above. 'global' (GW = true), for nets whose weights do
+// not fit one CTA (PhysioNet, the 400-wide arms): the kernels read the
+// weights from one packed fp32 buffer in device memory (leaf_off layout)
+// through L1/L2 with __ldg, and K2 adds each step's weight gradients in
+// place into its CTA's partial row, which it zeroes first. Each gradient
+// element has one owning thread within the CTA, so there are no atomics
+// and a run repeats bit for bit. The global plan's matmuls give a thread
+// one output column of up to RB rows with the row sums in registers, so a
+// weight is read once per RB rows a step; the sums run in the same order
+// as the resident plan's, so both plans give the same bits at one R. Only
+// activations live in shared memory there, and R (c.rows) is the largest of
+// 16, 8, 4, 2, 1 whose activations fit. In the 400-wide arms the partial
+// rows (2.3 MB a CTA) no longer stay in L2, and K2 reads and writes them
+// every step. Each kernel is built twice over R (template RT): with R = 16
+// a compile-time constant, so the row loops of the default plans unroll
+// (read at run time, R slowed the resident K2 by 12 %), and with R read
+// from c.rows for the other counts.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "philox.cuh"          // K4: philox_keep
 
-#define ROWS 16
+#define MAX_ROWS 16            // batch rows per CTA: c.rows in 1..MAX_ROWS
+#define RB 4                   // rows a thread sums in the global plan
 #define NTHREADS 256
 #define MAX_LIN 8
 #define MAX_LEAVES 48
@@ -73,7 +96,7 @@ struct ScanCfg {
   int enc_case, enc_mult, ro_case, ro_mult, easy, ict, mode, masked;
   unsigned int thresh;
   float keep, weight;
-  int rows, buf_w, smem_floats;
+  int rows, plan, buf_w, smem_floats;   // plan: 0 resident, 1 global
   int leaf_off[MAX_LEAVES + 1];
   int o_w, o_g, o_h, o_lx, o_tau, o_X, o_obs, o_nobs, o_lrow, o_h1, o_h2;
   int o_in_ode, o_tX, o_in_ro, o_f, o_enc, o_ro, o_dA, o_dB, o_dh, o_dlx;
@@ -127,13 +150,44 @@ __device__ __forceinline__ void linear(const float* W, const float* b,
   }
 }
 
+// The same product with W and b in device memory (the global plan): a
+// thread owns column j of up to RB rows, reads each W[j, i] once for them
+// and sums each row in the order linear() does.
+__device__ __forceinline__ void linear_rb(const float* __restrict__ W,
+                                          const float* __restrict__ b,
+                                          const float* x, int in, int out,
+                                          int rows, float* y) {
+  const int n_rb = (rows + RB - 1) / RB;
+  for (int idx = threadIdx.x; idx < n_rb * out; idx += blockDim.x) {
+    int q = idx / out, j = idx - q * out;
+    int r0 = q * RB, nr = min(RB, rows - r0);
+    const float* xr = x + r0 * in;
+    const float* wj = W + (size_t)j * in;
+    float acc[RB];
+#pragma unroll
+    for (int rr = 0; rr < RB; ++rr) acc[rr] = 0.f;
+    for (int i = 0; i < in; ++i) {
+      float w = __ldg(wj + i);
+#pragma unroll
+      for (int rr = 0; rr < RB; ++rr)
+        if (rr < nr) acc[rr] = fmaf(xr[rr * in + i], w, acc[rr]);
+    }
+    float bj = b ? __ldg(b + j) : 0.f;
+#pragma unroll
+    for (int rr = 0; rr < RB; ++rr)
+      if (rr < nr) y[(r0 + rr) * out + j] = b ? acc[rr] + bj : acc[rr];
+  }
+}
+
 // MLP forward over `rows` rows: saves each hidden layer's pre-activation
 // and post-dropout activation at sm + m.save_off (pre [rows, w], act
-// [rows, w] per layer) and writes the output to `out`. Ends synced.
+// [rows, w] per layer) and writes the output to `out`. Ends synced. GW:
+// the weights are read from `wg` in device memory (global plan).
+template <bool GW>
 __device__ void mlp_fwd(const ScanCfg& c, const MLPDesc& m, float* sm,
-                        const float* x, int rows, float* out,
-                        const MaskCtx& mc) {
-  const float* sw = sm + c.o_w;
+                        const float* wg, const float* x, int rows,
+                        float* out, const MaskCtx& mc) {
+  const float* sw = GW ? wg : sm + c.o_w;
   const float* in = x;
   float* save = sm + m.save_off;
   for (int l = 0; l < m.n_lin; ++l) {
@@ -141,7 +195,8 @@ __device__ void mlp_fwd(const ScanCfg& c, const MLPDesc& m, float* sm,
     const float* b = m.b_off[l] >= 0 ? sw + m.b_off[l] : nullptr;
     bool last = l == m.n_lin - 1;
     float* y = last ? out : save;
-    linear(sw + m.w_off[l], b, in, wi, wo, rows, y);
+    if (GW) linear_rb(sw + m.w_off[l], b, in, wi, wo, rows, y);
+    else linear(sw + m.w_off[l], b, in, wi, wo, rows, y);
     __syncthreads();
     if (!last) {
       float* a = save + rows * wo;
@@ -163,12 +218,16 @@ __device__ void mlp_fwd(const ScanCfg& c, const MLPDesc& m, float* sm,
 // MLP backward: d0 [rows, out] is the gradient of the output; adds the
 // weight and bias gradients of valid rows to the accumulator and returns
 // the buffer holding dx [rows, in] (nullptr unless want_dx). Ends synced.
+// GW: the weights are read from `wg` and the gradients added into `gg`,
+// both in device memory (global plan); each gradient element is updated
+// by the one thread that owns it, in every call.
+template <bool GW>
 __device__ const float* mlp_bwd(const ScanCfg& c, const MLPDesc& m,
-                                float* sm, const float* x, int rows,
-                                const float* d0, bool want_dx,
-                                const MaskCtx& mc) {
-  const float* sw = sm + c.o_w;
-  float* g = sm + c.o_g;
+                                float* sm, const float* wg, float* gg,
+                                const float* x, int rows, const float* d0,
+                                bool want_dx, const MaskCtx& mc) {
+  const float* sw = GW ? wg : sm + c.o_w;
+  float* g = GW ? gg : sm + c.o_g;
   float* bufs[2] = {sm + c.o_dA, sm + c.o_dB};
   // offsets of each hidden layer's saved (pre, act) pair
   int save_at[MAX_LIN];
@@ -203,7 +262,38 @@ __device__ const float* mlp_bwd(const ScanCfg& c, const MLPDesc& m,
       }
     }
     float* nxt = nullptr;
-    if (l > 0 || want_dx) {
+    if (GW && (l > 0 || want_dx)) {
+      // dx as below, a thread owning column i of up to RB rows
+      nxt = bufs[nb];
+      nb ^= 1;
+      const float* pre = l > 0 ? sm + save_at[l - 1] : nullptr;
+      const int n_rb = (rows + RB - 1) / RB;
+      for (int idx = threadIdx.x; idx < n_rb * wi; idx += blockDim.x) {
+        int q = idx / wi, i = idx - q * wi;
+        int r0 = q * RB, nr = min(RB, rows - r0);
+        float acc[RB];
+#pragma unroll
+        for (int rr = 0; rr < RB; ++rr) acc[rr] = 0.f;
+        for (int j = 0; j < wo; ++j) {
+          float w = __ldg(W + (size_t)j * wi + i);
+#pragma unroll
+          for (int rr = 0; rr < RB; ++rr)
+            if (rr < nr) acc[rr] = fmaf(cur[(r0 + rr) * wo + j], w, acc[rr]);
+        }
+#pragma unroll
+        for (int rr = 0; rr < RB; ++rr) {
+          if (rr >= nr) break;
+          int r = r0 + rr;
+          float v = acc[rr];
+          if (l > 0) {
+            if (mc.mode)
+              v = keep_at(mc, m.slot0 + l - 1, r, i) ? v / mc.keep : 0.f;
+            v *= act_grad(m.act[l - 1], pre[r * wi + i]);
+          }
+          nxt[r * wi + i] = v;
+        }
+      }
+    } else if (l > 0 || want_dx) {
       nxt = bufs[nb];
       nb ^= 1;
       const float* pre = l > 0 ? sm + save_at[l - 1] : nullptr;
@@ -269,7 +359,7 @@ __device__ MaskCtx make_mask_ctx(const ScanCfg& c, const int8_t* u,
   mc.k0 = (uint32_t)(s & 0xFFFFFFFFull);
   mc.k1 = (uint32_t)(s >> 32);
   mc.thresh = c.thresh;
-  mc.k = 0; mc.row0 = row0; mc.nv = nv; mc.half = ROWS; mc.jump = 0;
+  mc.k = 0; mc.row0 = row0; mc.nv = nv; mc.half = c.rows; mc.jump = 0;
   mc.B = c.B; mc.S = c.S; mc.Wmax = c.Wmax; mc.keep = c.keep;
   return mc;
 }
@@ -277,9 +367,9 @@ __device__ MaskCtx make_mask_ctx(const ScanCfg& c, const int8_t* u,
 // readouts with residual: y_bj for row r (row r of h1 / the first half
 // of ro), y (row R + r: h2 / the second half)
 __device__ __forceinline__ float y_at(const ScanCfg& c, const float* sm,
-                                      int rr, int o) {
-  const float* hsrc = rr < ROWS ? sm + c.o_h1 + rr * c.H
-                                : sm + c.o_h2 + (rr - ROWS) * c.H;
+                                      int R, int rr, int o) {
+  const float* hsrc = rr < R ? sm + c.o_h1 + rr * c.H
+                             : sm + c.o_h2 + (rr - R) * c.H;
   return residual(c.ro_case, c.ro_mult, hsrc, c.H, o)
          + sm[c.o_ro + rr * c.O + o];
 }
@@ -288,9 +378,11 @@ __device__ __forceinline__ float y_at(const ScanCfg& c, const float* sm,
 // tau, X, obs and, masked, M already loaded): fills h1, h2, the encoder
 // input tX, the ODE input, the readout inputs and outputs (y_bj rows
 // 0..R-1, y rows R..2R-1), with every MLP's saved activations.
-__device__ void step_forward(const ScanCfg& c, float* sm, float t, float dt,
+template <bool GW, int RT>
+__device__ void step_forward(const ScanCfg& c, float* sm, const float* wg,
+                             float t, float dt,
                              MaskCtx& mc) {
-  const int R = ROWS, D = c.D, H = c.H, O = c.O;
+  const int R = RT ? RT : c.rows, D = c.D, H = c.H, O = c.O;
   const int iw = c.ode.w[0];
   float* h = sm + c.o_h; float* lx = sm + c.o_lx; float* tau = sm + c.o_tau;
   float* X = sm + c.o_X; float* obs = sm + c.o_obs;
@@ -312,7 +404,7 @@ __device__ void step_forward(const ScanCfg& c, float* sm, float t, float dt,
       tX[idx] = tanhf(X[idx]);
   __syncthreads();
   mc.half = R; mc.jump = 0;
-  mlp_fwd(c, c.ode, sm, in_ode, R, sm + c.o_f, mc);
+  mlp_fwd<GW>(c, c.ode, sm, wg, in_ode, R, sm + c.o_f, mc);
   float* f = sm + c.o_f; float* enc = sm + c.o_enc;
   float* h1 = sm + c.o_h1; float* h2 = sm + c.o_h2;
   float* in_ro = sm + c.o_in_ro;
@@ -325,17 +417,17 @@ __device__ void step_forward(const ScanCfg& c, float* sm, float t, float dt,
       in_ro[idx] = tanhf(a);
     }
     __syncthreads();
-    mlp_fwd(c, c.ro, sm, in_ro, R, sm + c.o_ro, mc);     // y_bj, slots r1
+    mlp_fwd<GW>(c, c.ro, sm, wg, in_ro, R, sm + c.o_ro, mc);  // y_bj, r1
     for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x) {
       int r = idx / D, q = idx - r * D;
       float m = M[idx];
-      float xi = X[idx] * m + (1.f - m) * y_at(c, sm, r, q);
+      float xi = X[idx] * m + (1.f - m) * y_at(c, sm, R, r, q);
       Xi[idx] = xi;
       tX[r * 2 * D + q] = tanhf(xi);
       tX[r * 2 * D + D + q] = m;
     }
     __syncthreads();
-    mlp_fwd(c, c.enc, sm, tX, R, enc, mc);
+    mlp_fwd<GW>(c, c.enc, sm, wg, tX, R, enc, mc);
     for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
       int r = idx / H, j = idx - r * H;
       float he = residual(c.enc_case, c.enc_mult, Xi + r * D, D, j)
@@ -346,11 +438,12 @@ __device__ void step_forward(const ScanCfg& c, float* sm, float t, float dt,
       in_ro[R * H + idx] = tanhf(b);
     }
     __syncthreads();
-    mlp_fwd(c, c.ro2, sm, in_ro + R * H, R, sm + c.o_ro + R * O, mc);
+    mlp_fwd<GW>(c, c.ro2, sm, wg, in_ro + R * H, R, sm + c.o_ro + R * O,
+                mc);
     mc.half = 2 * R;
     return;
   }
-  mlp_fwd(c, c.enc, sm, tX, R, enc, mc);
+  mlp_fwd<GW>(c, c.enc, sm, wg, tX, R, enc, mc);
   for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
     int r = idx / H, j = idx - r * H;
     float a = h[idx] + dt * f[idx];
@@ -364,21 +457,21 @@ __device__ void step_forward(const ScanCfg& c, float* sm, float t, float dt,
   }
   __syncthreads();
   mc.half = R; mc.jump = c.ro.n_lin - 1;   // rows >= R use the r2 slots
-  mlp_fwd(c, c.ro, sm, in_ro, 2 * R, sm + c.o_ro, mc);
+  mlp_fwd<GW>(c, c.ro, sm, wg, in_ro, 2 * R, sm + c.o_ro, mc);
   mc.half = 2 * R;                          // no stacked rows elsewhere
 }
 
 // the step's loss gradients wrt (e1, e2) per row, or its loss term: the
 // masked coordinates (M) count only where observed
 __device__ __forceinline__ void row_errors(const ScanCfg& c,
-                                           const float* sm, int r,
+                                           const float* sm, int R, int r,
                                            float& s1, float& s2, float& g) {
   const int D = c.D;
   const float* X = sm + c.o_X;
   const float* M = sm + c.o_M;
   float e1 = 0.f, e2 = 0.f;
   for (int o = 0; o < c.O; ++o) {
-    float yb = y_at(c, sm, r, o), y = y_at(c, sm, ROWS + r, o);
+    float yb = y_at(c, sm, R, r, o), y = y_at(c, sm, R, R + r, o);
     float x = X[r * D + o];
     float m = c.masked ? M[r * D + o] : 1.f;
     float d1 = x - y, d2 = yb - (c.easy ? x : y);
@@ -391,9 +484,10 @@ __device__ __forceinline__ void row_errors(const ScanCfg& c,
   g = fac * c.weight * s1 + fac * (1.f - c.weight) * s2;
 }
 
-template <bool WANT_HISTS>
+template <bool WANT_HISTS, bool GW, int RT>
 __global__ void __launch_bounds__(NTHREADS)
-njode_scan_fwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ times,
+njode_scan_fwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
+                      const float* __restrict__ times,
                       const float* __restrict__ dts,
                       const float* __restrict__ obs_g,
                       const float* __restrict__ X_g,
@@ -404,10 +498,10 @@ njode_scan_fwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ times,
                       const float* __restrict__ sx, float* loss_part,
                       float* hh, float* lxh, float* tauh) {
   extern __shared__ float sm[];
-  const int R = ROWS, D = c.D, H = c.H, B = c.B;
+  const int R = RT ? RT : c.rows, D = c.D, H = c.H, B = c.B;
   const int row0 = blockIdx.x * R;
   const int nv = min(R, B - row0);
-  load_weights(c, lv, sm);
+  if (!GW) load_weights(c, lv, sm);
   float* h = sm + c.o_h; float* lx = sm + c.o_lx; float* tau = sm + c.o_tau;
   float* X = sm + c.o_X; float* obs = sm + c.o_obs;
   float* nobs = sm + c.o_nobs; float* lrow = sm + c.o_lrow;
@@ -446,19 +540,19 @@ njode_scan_fwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ times,
       if (c.masked) Mm[idx] = r < nv ? M_g[gi] : 0.f;
     }
     mc.k = k;
-    step_forward(c, sm, t, dt, mc);
+    step_forward<GW, RT>(c, sm, wg, t, dt, mc);
     // per-row loss term, then the carry updates (masked: last_X takes the
     // post-jump prediction, O == D)
     for (int r = threadIdx.x; r < R; r += blockDim.x) {
       float s1, s2, g;
-      row_errors(c, sm, r, s1, s2, g);
+      row_errors(c, sm, R, r, s1, s2, g);
       lrow[r] += obs[r] * g * g / fmaxf(nobs[r], 1.f);
       if (obs[r] > 0.f) tau[r] = t;
     }
     for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x) {
       int r = idx / D;
       if (obs[r] > 0.f)
-        lx[idx] = c.masked ? y_at(c, sm, R + r, idx - r * D) : X[idx];
+        lx[idx] = c.masked ? y_at(c, sm, R, R + r, idx - r * D) : X[idx];
     }
     for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x)
       h[idx] = sm[c.o_h2 + idx];
@@ -471,8 +565,10 @@ njode_scan_fwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ times,
   }
 }
 
+template <bool GW, int RT>
 __global__ void __launch_bounds__(NTHREADS)
-njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ times,
+njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
+                      const float* __restrict__ times,
                       const float* __restrict__ dts,
                       const float* __restrict__ obs_g,
                       const float* __restrict__ X_g,
@@ -484,12 +580,14 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ times,
                       const float* __restrict__ tauh, const float* dloss_p,
                       float* partials, float* dh0) {
   extern __shared__ float sm[];
-  const int R = ROWS, D = c.D, H = c.H, O = c.O, B = c.B;
+  const int R = RT ? RT : c.rows, D = c.D, H = c.H, O = c.O, B = c.B;
   const int row0 = blockIdx.x * R;
   const int nv = min(R, B - row0);
   const int iw = c.ode.w[0];
-  load_weights(c, lv, sm);
-  float* g = sm + c.o_g;
+  if (!GW) load_weights(c, lv, sm);
+  // the gradient accumulator: shared memory, or (global plan) this CTA's
+  // partial row, zeroed here and added into in place every step
+  float* g = GW ? partials + (size_t)blockIdx.x * c.n_params : sm + c.o_g;
   for (int i = threadIdx.x; i < c.n_params; i += blockDim.x) g[i] = 0.f;
   float* h = sm + c.o_h; float* lx = sm + c.o_lx; float* tau = sm + c.o_tau;
   float* X = sm + c.o_X; float* obs = sm + c.o_obs; float* nobs = sm + c.o_nobs;
@@ -524,11 +622,11 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ times,
       obs[r] = ok ? obs_g[(size_t)k * B + row0 + r] : 0.f;
     }
     mc.k = k;
-    step_forward(c, sm, t, dt, mc);
+    step_forward<GW, RT>(c, sm, wg, t, dt, mc);
     // loss gradients per row: rs = (de1, de2)
     for (int r = threadIdx.x; r < R; r += blockDim.x) {
       float s1, s2, gg;
-      row_errors(c, sm, r, s1, s2, gg);
+      row_errors(c, sm, R, r, s1, s2, gg);
       float fac = c.easy ? 1.f : 2.f;
       float dinner = dloss * obs[r] / fmaxf(nobs[r], 1.f) / (float)B;
       float dg = 2.f * gg * dinner;
@@ -544,7 +642,7 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ times,
     // last_X2 = where(obs, y, last_X) adds obs * dlast_X to dy
     for (int idx = threadIdx.x; idx < R * O; idx += blockDim.x) {
       int r = idx / O, o = idx - r * O;
-      float yb = y_at(c, sm, r, o), y = y_at(c, sm, R + r, o);
+      float yb = y_at(c, sm, R, r, o), y = y_at(c, sm, R, R + r, o);
       float x = X[r * D + o];
       float m = c.masked ? Mm[r * D + o] : 1.f;
       float de1 = rs[2 * r] * m, de2 = rs[2 * r + 1] * m;
@@ -560,8 +658,8 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ times,
     if (!c.masked) {
       // stacked readout backward
       mc.half = R; mc.jump = c.ro.n_lin - 1;
-      const float* d_rin = mlp_bwd(c, c.ro, sm, in_ro, 2 * R, dst, true,
-                                   mc);
+      const float* d_rin = mlp_bwd<GW>(c, c.ro, sm, wg, g, in_ro, 2 * R,
+                                       dst, true, mc);
       for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
         int r = idx / H, j = idx - r * H;
         float a1 = in_ro[idx], a2 = in_ro[R * H + idx];
@@ -580,12 +678,12 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ times,
       __syncthreads();
       mc.half = 2 * R; mc.jump = 0;
       // encoder backward: X is data, only the weights get gradients
-      mlp_bwd(c, c.enc, sm, sm + c.o_tX, R, dhe, false, mc);
+      mlp_bwd<GW>(c, c.enc, sm, wg, g, sm + c.o_tX, R, dhe, false, mc);
     } else {
       mc.half = 2 * R; mc.jump = 0;
       // post-jump readout backward (input tanh h2)
-      const float* d_r2 = mlp_bwd(c, c.ro2, sm, in_ro + R * H, R,
-                                  dst + R * O, true, mc);
+      const float* d_r2 = mlp_bwd<GW>(c, c.ro2, sm, wg, g, in_ro + R * H,
+                                      R, dst + R * O, true, mc);
       for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
         int r = idx / H, j = idx - r * H;
         float a2 = in_ro[R * H + idx];
@@ -599,8 +697,8 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ times,
       __syncthreads();
       // encoder backward to its input [tanh X_imp, M]; X_imp = X*M +
       // (1-M)*y_bj, X and M are data, so dX_imp flows into dy_bj
-      const float* d_ein = mlp_bwd(c, c.enc, sm, sm + c.o_tX, R, dhe, true,
-                                   mc);
+      const float* d_ein = mlp_bwd<GW>(c, c.enc, sm, wg, g, sm + c.o_tX, R,
+                                       dhe, true, mc);
       const float* tX = sm + c.o_tX;
       for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x) {
         int r = idx / D, q = idx - r * D;
@@ -611,7 +709,8 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ times,
       }
       __syncthreads();
       // pre-jump readout backward (input tanh h1)
-      const float* d_r1 = mlp_bwd(c, c.ro, sm, in_ro, R, dst, true, mc);
+      const float* d_r1 = mlp_bwd<GW>(c, c.ro, sm, wg, g, in_ro, R, dst,
+                                      true, mc);
       for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
         int r = idx / H, j = idx - r * H;
         float a1 = in_ro[idx];
@@ -623,8 +722,8 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ times,
       __syncthreads();
     }
     // Euler step backward: h1 = h + dt * f(ode_in)
-    const float* dino = mlp_bwd(c, c.ode, sm, sm + c.o_in_ode, R, df, true,
-                                mc);
+    const float* dino = mlp_bwd<GW>(c, c.ode, sm, wg, g, sm + c.o_in_ode, R,
+                                    df, true, mc);
     const float* in_ode = sm + c.o_in_ode;
     for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
       int r = idx / H, j = idx - r * H;
@@ -643,8 +742,9 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ times,
   }
   for (int idx = threadIdx.x; idx < nv * H; idx += blockDim.x)
     dh0[(size_t)row0 * H + idx] = dh[idx];
-  for (int i = threadIdx.x; i < c.n_params; i += blockDim.x)
-    partials[(size_t)blockIdx.x * c.n_params + i] = g[i];
+  if (!GW)
+    for (int i = threadIdx.x; i < c.n_params; i += blockDim.x)
+      partials[(size_t)blockIdx.x * c.n_params + i] = g[i];
 }
 
 // out[p] = scale * sum_c partials[c, p], summed in a fixed order
@@ -691,7 +791,46 @@ extern "C" const char* njode_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// the rows per CTA and the plan the config names, and the packed weights
+// exactly when the plan is global
+static bool cfg_ok(const ScanCfg* c, const float* wg) {
+  return c->rows >= 1 && c->rows <= MAX_ROWS
+         && (c->plan == 0 || c->plan == 1)
+         && (c->plan == 1) == (wg != nullptr);
+}
+
+template <bool H, bool GW, int RT>
+static cudaError_t launch_fwd(const ScanCfg* c, const Leaves& lv,
+                              const float* wg, const float* times,
+                              const float* dts, const float* obs,
+                              const float* X, const float* M,
+                              const int8_t* u, const long long* seed,
+                              const float* n_obs, const float* h0,
+                              const float* sx, float* loss_part, float* hh,
+                              float* lxh, float* tauh, cudaStream_t st) {
+  int grid = (c->B + c->rows - 1) / c->rows;
+  size_t smem = (size_t)c->smem_floats * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      njode_scan_fwd_kernel<H, GW, RT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  njode_scan_fwd_kernel<H, GW, RT><<<grid, NTHREADS, smem, st>>>(
+      *c, lv, wg, times, dts, obs, X, M, u, seed, n_obs, h0, sx, loss_part,
+      hh, lxh, tauh);
+  return cudaGetLastError();
+}
+
+// RT, the rows per CTA as a compile-time constant: MAX_ROWS (the row loops
+// of the default plans unroll), else 0 (read from c.rows)
+template <bool H, bool GW>
+static decltype(&launch_fwd<H, GW, 0>) fwd_for_rows(const ScanCfg* c) {
+  return c->rows == MAX_ROWS ? launch_fwd<H, GW, MAX_ROWS>
+                             : launch_fwd<H, GW, 0>;
+}
+
+// wg: the weights packed in leaf_off order (global plan), else null
 extern "C" int njode_scan_fwd(const ScanCfg* c, void** leaves,
+                              const float* wg,
                               const float* times, const float* dts,
                               const float* obs, const float* X,
                               const float* M,
@@ -700,33 +839,46 @@ extern "C" int njode_scan_fwd(const ScanCfg* c, void** leaves,
                               const float* sx, float* loss_part, float* hh,
                               float* lxh, float* tauh, int want_hists,
                               void* stream) {
-  if (c->rows != ROWS) return (int)cudaErrorInvalidValue;
+  if (!cfg_ok(c, wg)) return (int)cudaErrorInvalidValue;
   Leaves lv = make_leaves(c, leaves);
-  int grid = (c->B + ROWS - 1) / ROWS;
-  size_t smem = (size_t)c->smem_floats * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e;
-  if (want_hists) {
-    e = cudaFuncSetAttribute(njode_scan_fwd_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    njode_scan_fwd_kernel<true><<<grid, NTHREADS, smem, st>>>(
-        *c, lv, times, dts, obs, X, M, u, seed, n_obs, h0, sx, loss_part,
-        hh, lxh, tauh);
-  } else {
-    e = cudaFuncSetAttribute(njode_scan_fwd_kernel<false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    njode_scan_fwd_kernel<false><<<grid, NTHREADS, smem, st>>>(
-        *c, lv, times, dts, obs, X, M, u, seed, n_obs, h0, sx, loss_part,
-        hh, lxh, tauh);
-  }
-  return (int)cudaGetLastError();
+  auto f = want_hists ? (c->plan ? fwd_for_rows<true, true>(c)
+                                 : fwd_for_rows<true, false>(c))
+                      : (c->plan ? fwd_for_rows<false, true>(c)
+                                 : fwd_for_rows<false, false>(c));
+  return (int)f(c, lv, wg, times, dts, obs, X, M, u, seed, n_obs, h0, sx,
+                loss_part, hh, lxh, tauh, st);
+}
+
+template <bool GW, int RT>
+static cudaError_t launch_bwd(const ScanCfg* c, const Leaves& lv,
+                              const float* wg, const float* times,
+                              const float* dts, const float* obs,
+                              const float* X, const float* M,
+                              const int8_t* u, const long long* seed,
+                              const float* n_obs, const float* hh,
+                              const float* lxh, const float* tauh,
+                              const float* dloss, float* partials,
+                              float* dh0, cudaStream_t st) {
+  int grid = (c->B + c->rows - 1) / c->rows;
+  size_t smem = (size_t)c->smem_floats * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      njode_scan_bwd_kernel<GW, RT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  njode_scan_bwd_kernel<GW, RT><<<grid, NTHREADS, smem, st>>>(
+      *c, lv, wg, times, dts, obs, X, M, u, seed, n_obs, hh, lxh, tauh,
+      dloss, partials, dh0);
+  return cudaGetLastError();
+}
+
+template <bool GW>
+static decltype(&launch_bwd<GW, 0>) bwd_for_rows(const ScanCfg* c) {
+  return c->rows == MAX_ROWS ? launch_bwd<GW, MAX_ROWS> : launch_bwd<GW, 0>;
 }
 
 extern "C" int njode_scan_bwd(const ScanCfg* c, void** leaves,
+                              const float* wg,
                               const float* times, const float* dts,
                               const float* obs, const float* X,
                               const float* M,
@@ -735,18 +887,11 @@ extern "C" int njode_scan_bwd(const ScanCfg* c, void** leaves,
                               const float* lxh, const float* tauh,
                               const float* dloss, float* partials,
                               float* dh0, void* stream) {
-  if (c->rows != ROWS) return (int)cudaErrorInvalidValue;
+  if (!cfg_ok(c, wg)) return (int)cudaErrorInvalidValue;
   Leaves lv = make_leaves(c, leaves);
-  int grid = (c->B + ROWS - 1) / ROWS;
-  size_t smem = (size_t)c->smem_floats * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      njode_scan_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  njode_scan_bwd_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      *c, lv, times, dts, obs, X, M, u, seed, n_obs, hh, lxh, tauh, dloss,
-      partials, dh0);
-  return (int)cudaGetLastError();
+  auto f = c->plan ? bwd_for_rows<true>(c) : bwd_for_rows<false>(c);
+  return (int)f(c, lv, wg, times, dts, obs, X, M, u, seed, n_obs, hh, lxh,
+                tauh, dloss, partials, dh0, (cudaStream_t)stream);
 }
 
 extern "C" int njode_philox_masks(const long long* seed, int K, int S, int B,

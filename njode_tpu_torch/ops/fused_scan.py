@@ -22,12 +22,23 @@ independent of the hand-derived BPTT in the CUDA source.
 Kernel scope (``supported``): masked (with ``output_size ==
 input_size``) or unmasked, no GRU jump, euler, standard or easy loss,
 tanh/relu MLPs of any depth up to ``MAX_LIN`` linears, residual cases
-0/1/2, ``input_current_t`` on or off, fp32, weights and activations within
-the shared memory of one CTA. The masked branch imputes the unobserved
+0/1/2, ``input_current_t`` on or off, fp32, and the activations of at
+least one batch row within the shared memory of one CTA. The masked
+branch imputes the unobserved
 coordinates from the pre-jump readout, so its two readouts run one after
 the other (pre-jump, encoder on ``[tanh X_imp, M]``, post-jump) instead of
 as one stacked chain, and ``last_X`` records the post-jump prediction. The
 GRU jump (``use_rnn``) is not ported yet (ROADMAP.md Queue 2).
+
+Plans (``Spec.plan``, ``Spec.rows``; the counterpart of the JAX kernel's
+``_select_plan``). 'resident': every weight and its gradient in the shared
+memory of each CTA, 16 batch rows per CTA; taken wherever it fits.
+'global': the weights stay in one packed buffer in device memory and K2
+adds its gradients into the CTA's partial row in place, so only the
+activations of R rows sit in shared memory, R the largest of 16, 8, 4, 2,
+1 that fits (PhysioNet, the 400-wide arms). Both plans sum in the same
+order, so at one R they give the same bits. ``plan=(name, R)`` forces a
+plan, for the tests.
 """
 
 from __future__ import annotations
@@ -41,15 +52,21 @@ from njode_tpu_torch.models import mlp
 from njode_tpu_torch.models.losses import step_loss
 from njode_tpu_torch.models.njode import dropout_slots, net_widths
 
-ROWS = 16                 # batch rows per CTA (csrc/fused_scan.cu ROWS)
+MAX_ROWS = 16             # batch rows per CTA (csrc/fused_scan.cu MAX_ROWS)
+ROW_CHOICES = (16, 8, 4, 2, 1)
+PLANS = ("resident", "global")
 MAX_LIN = 8               # Linear layers per MLP
 MAX_LEAVES = 3 * 2 * MAX_LIN
 SMEM_LIMIT = 232448       # bytes of shared memory one CTA may use (H100)
 
 # launches per kernel; a wrapper adds one where it launches its kernel.
-# 'philox_keep' (K4) runs inside K1/K2: it counts their 'prng'-mode launches;
-# 'philox_masks' counts the stand-alone mask dump used by tests and timing.
+# K1-K3 count each plan apart (the '_global' keys: the global plan's
+# instantiations). 'philox_keep' (K4) runs inside K1/K2: it counts their
+# 'prng'-mode launches; 'philox_masks' counts the stand-alone mask dump used
+# by tests and timing.
 LAUNCHES = {"njode_scan_fwd": 0, "njode_scan_eval": 0, "njode_scan_bwd": 0,
+            "njode_scan_fwd_global": 0, "njode_scan_eval_global": 0,
+            "njode_scan_bwd_global": 0,
             "philox_keep": 0, "reduce_partials": 0, "philox_masks": 0}
 
 
@@ -66,9 +83,12 @@ class Spec:
     """Static kernel specification derived from an NJODEConfig.
 
     ``mask_mode``: 'input' (int8 keep-masks [K,S,B,Wmax] drawn outside) or
-    'prng' (Philox inside the kernels, keyed by a per-call seed)."""
+    'prng' (Philox inside the kernels, keyed by a per-call seed).
+    ``plan``: None (the rule: 'resident' at 16 rows if it fits, else
+    'global' at the most rows that fit) or a forced ``(name, rows)``;
+    ``self.plan`` is None when neither plan fits."""
 
-    def __init__(self, cfg, mask_mode: str = "prng"):
+    def __init__(self, cfg, mask_mode: str = "prng", plan=None):
         if mask_mode not in ("input", "prng"):
             raise ValueError(f"unknown mask_mode {mask_mode!r}")
         self.cfg = cfg
@@ -113,6 +133,26 @@ class Spec:
             self.leaf_off.append(self.leaf_off[-1] + n)
         self.n_params = self.leaf_off[-1]
         self.buf_w = max(self.ode_w + self.enc_w + self.ro_w)
+        self.plan, self.rows = self._choose_plan(plan)
+
+    def fits(self, plan: str, R: int) -> bool:
+        return 4 * self.layout(R, plan)[1] <= SMEM_LIMIT
+
+    def _choose_plan(self, plan):
+        if plan is not None:
+            name, R = plan
+            if name not in PLANS or R not in ROW_CHOICES:
+                raise ValueError(f"unknown plan {plan!r}")
+            if not self.fits(name, R):
+                raise ValueError(f"plan {plan!r} overflows one CTA's shared "
+                                 "memory")
+            return name, R
+        if self.fits("resident", MAX_ROWS):
+            return "resident", MAX_ROWS
+        for R in ROW_CHOICES:
+            if self.fits("global", R):
+                return "global", R
+        return None, None
 
     @property
     def thresh(self) -> int:
@@ -134,9 +174,11 @@ class Spec:
             out.append(layers)
         return out
 
-    def layout(self, R: int = ROWS):
-        """Float offsets of every shared-memory region of one CTA, and the
-        total; one layout serves K1-K3. ``tX`` holds the encoder's input
+    def layout(self, R: int = MAX_ROWS, plan: str = "resident"):
+        """Float offsets of every shared-memory region of one CTA with
+        ``R`` rows, and the total; one layout serves K1-K3. The weights
+        ``w`` and their gradients ``g`` are regions of the 'resident' plan
+        only. ``tX`` holds the encoder's input
         (``tanh X``, or ``[tanh X_imp, M]`` when masked); ``M`` and ``Xi``
         (``X_imp``) are empty unless masked. The readout's saved
         activations hold one stacked pass of 2R rows, or, when masked, the
@@ -152,8 +194,9 @@ class Spec:
             off[name] = n
             n += (size + 3) // 4 * 4        # 16-byte aligned regions
 
-        take("w", P)
-        take("g", P)
+        if plan == "resident":
+            take("w", P)
+            take("g", P)
         for name, size in (("h", R * H), ("lx", R * D), ("tau", R),
                            ("X", R * D), ("obs", R), ("nobs", R),
                            ("lrow", R), ("h1", R * H), ("h2", R * H),
@@ -177,12 +220,17 @@ class Spec:
 
     @property
     def smem_bytes(self) -> int:
-        return 4 * self.layout()[1]
+        """Shared memory of one CTA in this spec's plan (the resident
+        plan's at 16 rows when none fits)."""
+        if self.plan is None:
+            return 4 * self.layout()[1]
+        return 4 * self.layout(self.rows, self.plan)[1]
 
 
 def supported(cfg) -> bool:
     """Whether the CUDA kernels cover the given NJODEConfig (the shared
-    memory of one CTA is counted on the layout of its own branch)."""
+    memory of one CTA is counted on the layout of its own branch and of
+    the plan that ``Spec`` chooses)."""
     if not (cfg.solver == "euler"
             and cfg.which_loss in ("standard", "easy")
             and cfg.ode_nn is not None and cfg.readout_nn is not None
@@ -198,8 +246,7 @@ def supported(cfg) -> bool:
     if any(len(nn_desc) + 1 > MAX_LIN for nn_desc in nets):
         return False
     spec = Spec(cfg)
-    return (len(spec.leaf_shapes) <= MAX_LEAVES
-            and spec.smem_bytes <= SMEM_LIMIT)
+    return len(spec.leaf_shapes) <= MAX_LEAVES and spec.plan is not None
 
 
 def flat_leaves(model):
@@ -401,6 +448,37 @@ def scan_fwd_plain(spec, leaves, arrays, weight, h0, train, u=None,
                   else None)
 
 
+def scan_steps_plain(spec, leaves, arrays, weight, hists, train, u=None,
+                     seed=None):
+    """Plain K1 step by step: each step starts from the step-entry carry
+    stored in ``hists`` (K1's histories) instead of the previous step's
+    output. Returns (the loss, the carries each step gives: h [K,B,H],
+    last_X [K,B,D], tau [K,B,1]; step k's against ``hists[k + 1]``).
+
+    Where the dynamics amplify rounding (a residual encoder and readout
+    over thousands of jumps), two free-running scans that sum in different
+    orders part ways, the plain version among them; this checks each step
+    of the kernel's own trajectory instead."""
+    times, dts, obs, X, n_obs, start_X, M = unpack_arrays(spec, arrays)
+    hh, lxh, tauh = hists
+    K, B = obs.shape
+    nets = spec.split(list(leaves))
+    seed_i = _seed_int(seed)
+    loss = torch.zeros((), dtype=torch.float32, device=hh.device)
+    outs = ([], [], [])
+    with torch.no_grad():
+        for k in range(K):
+            us = _step_masks_plain(spec, k, train, u, seed_i, B, hh.device)
+            h, lx2, tau, y, y_bj = _step_plain(
+                spec, nets, hh[k], lxh[k], tauh[k], times[k], dts[k], obs[k],
+                X[k], None if M is None else M[k], us)
+            loss = loss + _step_loss_plain(spec, k, X, y, y_bj, obs, n_obs,
+                                           B, weight, M)
+            for lst, v in zip(outs, (h, lx2, tau)):
+                lst.append(v)
+    return loss, tuple(torch.stack(v) for v in outs)
+
+
 def scan_bwd_plain(spec, leaves, arrays, weight, train, hists, dloss,
                    u=None, seed=None):
     """Plain K2: the reverse walk over the stored carries, each step re-run
@@ -470,7 +548,8 @@ class _ScanCfg(ctypes.Structure):
         "mode", "masked")]
         + [("thresh", ctypes.c_uint32), ("keep", ctypes.c_float),
            ("weight", ctypes.c_float)]
-        + [(n, ctypes.c_int) for n in ("rows", "buf_w", "smem_floats")]
+        + [(n, ctypes.c_int) for n in ("rows", "plan", "buf_w",
+                                       "smem_floats")]
         + [("leaf_off", ctypes.c_int * (MAX_LEAVES + 1))]
         + [("o_" + n, ctypes.c_int) for n in _LAYOUT_FIELDS]
         + [("ode", _MLPDesc), ("enc", _MLPDesc), ("ro", _MLPDesc),
@@ -478,8 +557,10 @@ class _ScanCfg(ctypes.Structure):
 
 
 def make_cfg(spec: Spec, K: int, B: int, train: bool, weight: float):
-    """The kernels' configuration for one call (host memory)."""
-    off, total = spec.layout(ROWS)
+    """The kernels' configuration for one call (host memory), in the
+    spec's plan; the global plan has no ``w``/``g`` regions (their
+    offsets are -1)."""
+    off, total = spec.layout(spec.rows, spec.plan)
     c = _ScanCfg()
     c.K, c.B, c.D, c.H, c.O = K, B, spec.D, spec.H, spec.O
     c.S, c.Wmax, c.n_params = spec.S, spec.w_max, spec.n_params
@@ -493,11 +574,12 @@ def make_cfg(spec: Spec, K: int, B: int, train: bool, weight: float):
     c.thresh = spec.thresh
     c.keep = 1.0 - spec.rate
     c.weight = float(weight)
-    c.rows, c.buf_w, c.smem_floats = ROWS, spec.buf_w, total
+    c.rows, c.plan = spec.rows, PLANS.index(spec.plan)
+    c.buf_w, c.smem_floats = spec.buf_w, total
     for i, o in enumerate(spec.leaf_off):
         c.leaf_off[i] = o
     for n in _LAYOUT_FIELDS:
-        setattr(c, "o_" + n, off[n])
+        setattr(c, "o_" + n, off.get(n, -1))
     leaf = 0
     for desc, ws, acts, slot0, save in (
             (c.ode, spec.ode_w, spec.ode_a, spec.s_ode, "s_ode"),
@@ -554,6 +636,19 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def packed_weights(spec, leaves):
+    """The leaves packed into one flat buffer in ``leaf_off`` order, the
+    weights the global plan's kernels read; None in the resident plan
+    (its kernels copy each leaf into shared memory)."""
+    if spec.plan != "global":
+        return None
+    return torch.cat([p.reshape(-1) for p in leaves])
+
+
+def _plan_key(spec):
+    return "_global" if spec.plan == "global" else ""
+
+
 def _raise_rc(lib, rc, what):
     if rc:
         raise RuntimeError(f"{what} failed: "
@@ -595,7 +690,7 @@ def scan_fwd_cuda(spec, leaves, arrays, weight, h0, train, u=None,
     lib = _build.load("fused_scan")
     times, dts, obs, X, n_obs, start_X, M = unpack_arrays(spec, arrays)
     dev = h0.device
-    n_cta = -(-B // ROWS)
+    n_cta = -(-B // spec.rows)
     loss_part = torch.empty((n_cta,), dtype=torch.float32, device=dev)
     if want_hists:
         hists = (torch.empty((K, B, spec.H), device=dev),
@@ -605,15 +700,18 @@ def scan_fwd_cuda(spec, leaves, arrays, weight, h0, train, u=None,
         hists = (None, None, None)
     cfg = make_cfg(spec, K, B, train, weight)
     ptrs = (ctypes.c_void_p * len(leaves))(*[p.data_ptr() for p in leaves])
+    wg = packed_weights(spec, leaves)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.njode_scan_fwd(
-            ctypes.addressof(cfg), ptrs, _ptr(times), _ptr(dts), _ptr(obs),
-            _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs), _ptr(h0),
+            ctypes.addressof(cfg), ptrs, _ptr(wg), _ptr(times), _ptr(dts),
+            _ptr(obs), _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs),
+            _ptr(h0),
             _ptr(start_X), _ptr(loss_part), *(_ptr(t) for t in hists),
             int(want_hists), stream)
     _raise_rc(lib, rc, "njode_scan_fwd")
-    LAUNCHES["njode_scan_fwd" if want_hists else "njode_scan_eval"] += 1
+    LAUNCHES[("njode_scan_fwd" if want_hists else "njode_scan_eval")
+             + _plan_key(spec)] += 1
     if cfg.mode == 2:
         LAUNCHES["philox_keep"] += 1
     loss = reduce_partials_cuda(loss_part.view(n_cta, 1), 1.0 / B)
@@ -636,20 +734,21 @@ def scan_bwd_cuda(spec, leaves, arrays, weight, train, hists, dloss,
     lib = _build.load("fused_scan")
     times, dts, obs, X, n_obs, start_X, M = unpack_arrays(spec, arrays)
     dev = hh.device
-    n_cta = -(-B // ROWS)
+    n_cta = -(-B // spec.rows)
     partials = torch.empty((n_cta, spec.n_params), device=dev)
     dh0 = torch.empty((B, spec.H), device=dev)
     cfg = make_cfg(spec, K, B, train, weight)
     ptrs = (ctypes.c_void_p * len(leaves))(*[p.data_ptr() for p in leaves])
+    wg = packed_weights(spec, leaves)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.njode_scan_bwd(
-            ctypes.addressof(cfg), ptrs, _ptr(times), _ptr(dts), _ptr(obs),
-            _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs), _ptr(hh),
-            _ptr(lxh),
-            _ptr(tauh), _ptr(dloss), _ptr(partials), _ptr(dh0), stream)
+            ctypes.addressof(cfg), ptrs, _ptr(wg), _ptr(times), _ptr(dts),
+            _ptr(obs), _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs),
+            _ptr(hh), _ptr(lxh), _ptr(tauh), _ptr(dloss), _ptr(partials),
+            _ptr(dh0), stream)
     _raise_rc(lib, rc, "njode_scan_bwd")
-    LAUNCHES["njode_scan_bwd"] += 1
+    LAUNCHES["njode_scan_bwd" + _plan_key(spec)] += 1
     if cfg.mode == 2:
         LAUNCHES["philox_keep"] += 1
     flat = reduce_partials_cuda(partials, 1.0)
@@ -751,9 +850,10 @@ class FusedNJODELoss(torch.autograd.Function):
 def _require_supported(cfg):
     if not supported(cfg):
         raise NotImplementedError(
-            "config outside the fused kernels' scope (use_rnn: ROADMAP.md "
-            "Queue 2; masked with output_size != input_size; widths beyond "
-            "one CTA's shared memory); use models.njode.forward")
+            "config outside the fused kernels' scope (use_rnn or "
+            "output_size != input_size: ROADMAP.md Queue 2; activations of "
+            "one row beyond one CTA's shared memory); use "
+            "models.njode.forward")
 
 
 def t0_state(model, batch, enc_masks=None):
@@ -770,7 +870,8 @@ def batch_arrays(batch):
             batch.start_X, batch.M.contiguous())
 
 
-def make_fused_loss_fn(cfg, mask_mode: str = "prng", u_override=None):
+def make_fused_loss_fn(cfg, mask_mode: str = "prng", u_override=None,
+                       plan=None):
     """Return ``loss_fn(model, batch, weight, generator, train)``: the
     training loss through :class:`FusedNJODELoss`, differentiable in the
     model's parameters (the t=0 encoder runs in plain torch).
@@ -783,9 +884,10 @@ def make_fused_loss_fn(cfg, mask_mode: str = "prng", u_override=None):
 
     :param u_override: 'input' mode only: keep-masks ``[K,S,B,Wmax]`` used
         instead of the draw (replays another mask stream, e.g. the prng
-        one, through the input path)."""
+        one, through the input path).
+    :param plan: a forced ``(name, rows)`` kernel plan (see ``Spec``)."""
     _require_supported(cfg)
-    spec = Spec(cfg, mask_mode)
+    spec = Spec(cfg, mask_mode, plan)
 
     def loss_fn(model, batch, weight, generator, train):
         K, B = batch.obs.shape
@@ -818,12 +920,12 @@ def make_fused_loss_fn(cfg, mask_mode: str = "prng", u_override=None):
     return loss_fn
 
 
-def make_fused_eval_fn(cfg):
+def make_fused_eval_fn(cfg, plan=None):
     """Return ``eval_fn(model, batch, weight)``: the eval loss through the
     history-free forward (K3 on CUDA, its plain version on CPU) at any
-    batch size."""
+    batch size (``plan``: a forced kernel plan, see ``Spec``)."""
     _require_supported(cfg)
-    spec = Spec(cfg, "input")
+    spec = Spec(cfg, "input", plan)
 
     def eval_fn(model, batch, weight):
         with torch.no_grad():

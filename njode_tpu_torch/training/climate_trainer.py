@@ -15,9 +15,9 @@ Training batches come from a pre-stacked event bank on the device
 off the ``delta_t`` grid; then each epoch's batches are collated on the
 host. On a CUDA device with a config that ``fused_scan.supported`` (NJODE)
 or ``fused_gob.supported`` (GRU-ODE-Bayes) admits, the training loss runs
-through the hand-written kernels; otherwise (e.g. the 400-wide arm, whose
-weights do not fit one CTA) through the eager forward, and the initial
-print says which. Evaluation runs the eager forward, as the JAX trainer's
+through the hand-written kernels (the 400-wide arm in their global plan:
+its weights do not fit one CTA); otherwise through the eager forward, and
+the initial print says which. Evaluation runs the eager forward, as the JAX trainer's
 runs the XLA scan.
 
 Dropout draws from one ``torch.Generator`` per batch, seeded from (seed,

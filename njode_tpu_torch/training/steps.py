@@ -14,8 +14,7 @@ forward, as the JAX package's stay on the XLA scan. Step functions return
 device tensors and never synchronise, so an epoch queues all its steps
 before the host reads a loss. Running several epochs as one program (the
 JAX package's ``train_epochs``) is not ported yet (ROADMAP.md Queue 1 item
-3), nor the PhysioNet metrics (``eval_loss_and_masked_metrics``, with
-PhysioNet).
+3).
 """
 
 from __future__ import annotations
@@ -232,11 +231,30 @@ def real_data_fns(forward, prep, train_step, train_epoch,
         loss, pred = _forward(b, weight)
         return _scaled(loss, loss_scale), pred[k_idx]
 
+    def eval_loss_and_masked_metrics(b, k_idx, x_val, m_val, weight,
+                                     loss_scale=1.0):
+        """The PhysioNet evaluation on the device: the loss, the masked
+        squared-error sum and mask count at the held-out points
+        (``x_val/m_val [B, L, D]`` against the pre-jump prediction at grid
+        steps ``k_idx [L]``), and the latent-ODE per-(patient, dim)
+        metric (``physionet.compute_masked_likelihood_mse``)."""
+        loss, pred = _forward(b, weight)
+        B = x_val.shape[0]
+        p = pred[k_idx][:, :B].permute(1, 0, 2)             # [B, L, D]
+        err = ((x_val - p) ** 2) * m_val
+        cnt_bd = m_val.sum(dim=1)                           # [B, D]
+        se_bd = err.sum(dim=1)
+        per = torch.where(cnt_bd > 0, se_bd / cnt_bd.clamp_min(1.0),
+                          torch.zeros_like(se_bd))
+        return (_scaled(loss, loss_scale), err.sum(), m_val.sum(),
+                per.mean())
+
     return {"train_step": train_step, "train_epoch": train_epoch,
             "eval_loss": eval_loss, "pred_prejump": pred_prejump,
             "heldout_mse": heldout_mse, "pred_at": pred_at,
             "eval_loss_and_heldout_mse": eval_loss_and_heldout_mse,
-            "eval_loss_and_pred_at": eval_loss_and_pred_at}
+            "eval_loss_and_pred_at": eval_loss_and_pred_at,
+            "eval_loss_and_masked_metrics": eval_loss_and_masked_metrics}
 
 
 def prestacked_batch(k_all, X_all, M_all, idx, times, dts) -> GridBatch:

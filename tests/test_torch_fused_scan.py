@@ -254,7 +254,13 @@ def test_unsupported_configs_raise():
     _, wide = H.configs(1, 10, ode_nn=((400, "tanh"), (400, "tanh")),
                         readout_nn=((400, "tanh"), (400, "tanh")),
                         enc_nn=((400, "tanh"), (400, "tanh")))
-    assert not fs.supported(wide)       # weights alone overflow one CTA
+    # the weights alone overflow one CTA: the global plan takes it
+    assert fs.supported(wide) and fs.Spec(wide).plan == "global"
+    # a net whose activations of one row overflow one CTA is outside
+    _, huge = H.configs(1, 10, ode_nn=((30000, "tanh"),))
+    assert not fs.supported(huge)
+    with pytest.raises(NotImplementedError):
+        fs.make_fused_loss_fn(huge)
 
 
 def test_config_struct_mirrors_the_cuda_source():
@@ -282,6 +288,84 @@ def test_config_struct_mirrors_the_cuda_source():
     assert [f[0] for f in fs._ScanCfg._fields_] == c_fields("ScanCfg")
     n_int = sum(ctypes.sizeof(t) for _, t in fs._ScanCfg._fields_)
     assert ctypes.sizeof(fs._ScanCfg) == n_int
-    assert re.search(r"#define ROWS (\d+)", src).group(1) == str(fs.ROWS)
+    assert re.search(r"#define MAX_ROWS (\d+)", src).group(1) == \
+        str(fs.MAX_ROWS)
     assert re.search(r"#define MAX_LIN (\d+)", src).group(1) == \
         str(fs.MAX_LIN)
+
+
+def _arm_cfg(D, hidden, width, masked):
+    nn = ((width, "tanh"), (width, "tanh"))
+    return H.configs(D, hidden, ode_nn=nn, readout_nn=nn, enc_nn=nn,
+                     dropout_rate=0.1, masked=masked)[1]
+
+
+# (id, D, H, width, masked, plan, rows, bytes of one CTA): the two arms
+# that fit resident, and the four published arms whose weights do not fit
+# one CTA (experiments/configs.py: PhysioNet :233-245, climate :141-150,
+# sine :265-279)
+PLAN_ARMS = [
+    ("main_path", 1, 10, 50, False, "resident", 16, 153536),
+    ("climate_small", 5, 10, 50, True, "resident", 16, 163904),
+    ("physionet_50", 41, 41, 50, True, "global", 16, 138944),
+    ("physionet_200", 41, 41, 200, True, "global", 8, 161120),
+    ("climate_400", 5, 50, 400, True, "global", 4, 138800),
+    ("sine_400", 1, 10, 400, False, "global", 4, 130240),
+]
+
+
+@pytest.mark.parametrize("arm", PLAN_ARMS, ids=[a[0] for a in PLAN_ARMS])
+def test_plan_rule(arm):
+    """``Spec`` takes the resident plan at 16 rows where it fits, else the
+    global plan at the most rows of 16, 8, 4, 2, 1 whose activations fit;
+    ``supported`` admits all six arms."""
+    _, D, hidden, width, masked, plan, rows, nbytes = arm
+    cfg = _arm_cfg(D, hidden, width, masked)
+    spec = fs.Spec(cfg)
+    assert fs.supported(cfg)
+    assert (spec.plan, spec.rows, spec.smem_bytes) == (plan, rows, nbytes)
+    assert spec.smem_bytes <= fs.SMEM_LIMIT
+    if plan == "global":
+        assert not spec.fits("resident", 16)
+        if rows < 16:
+            assert not spec.fits("global", 2 * rows)
+
+
+def test_forced_plans_and_global_layout():
+    """A forced plan: the resident plan of PhysioNet's 50 arm fits at 4
+    rows (230,128 B), not at 8; the global plan's layout has no weight or
+    gradient regions, and ``make_cfg`` marks their offsets -1, names the
+    plan and the rows, and counts the activations alone."""
+    cfg = _arm_cfg(41, 41, 50, True)
+    spec = fs.Spec(cfg, "prng", ("resident", 4))
+    assert (spec.plan, spec.rows, spec.smem_bytes) == ("resident", 4, 230128)
+    with pytest.raises(ValueError, match="overflows"):
+        fs.Spec(cfg, "prng", ("resident", 8))
+    with pytest.raises(ValueError, match="unknown plan"):
+        fs.Spec(cfg, "prng", ("global", 3))
+    g = fs.Spec(cfg, "prng", ("global", 4))
+    off, total = g.layout(4, "global")
+    res_off, res_total = g.layout(4, "resident")
+    assert "w" not in off and "g" not in off
+    assert {"w", "g"} <= set(res_off)
+    assert res_total - total == 2 * ((g.n_params + 3) // 4 * 4)
+    c = fs.make_cfg(g, 30, 50, True, 0.5)
+    assert (c.rows, c.plan, c.smem_floats) == (4, 1, total)
+    assert c.o_w == -1 and c.o_g == -1
+    assert c.o_h == 0 and c.o_M == off["M"] and c.ro2.save_off == off["s_ro2"]
+    r = fs.make_cfg(fs.Spec(cfg, "prng", ("resident", 4)), 30, 50, True, 0.5)
+    assert (r.plan, r.o_w, r.o_g) == (0, 0, res_off["g"])
+    assert fs.packed_weights(spec, []) is None
+
+
+def test_packed_weights_follow_leaf_offsets():
+    """The global plan's weight buffer holds each leaf at its
+    ``leaf_off`` offset, flattened in the [out, in] layout."""
+    _, tcfg = H.configs(2, 10, masked=True)
+    _, model = H.twin_models(*H.configs(2, 10, masked=True))
+    spec = fs.Spec(tcfg, "prng", ("global", 16))
+    leaves = [p.detach() for p in fs.flat_leaves(model)]
+    wg = fs.packed_weights(spec, leaves)
+    assert wg.shape == (spec.n_params,)
+    for p, a, b in zip(leaves, spec.leaf_off[:-1], spec.leaf_off[1:]):
+        assert torch.equal(wg[a:b], p.reshape(-1))

@@ -6,7 +6,10 @@ per CTA, and ``dt==0`` padding steps; and the masked branch (the climate
 model family): the masked cases of tests/test_fused_scan.py with partial
 coordinate masks, ragged batches, trailing ``dt==0`` padding, a leading
 ``dt==0`` step that carries t=0 observations, the climate widths, and one
-grid of K = 2004 steps (the climate grid).
+grid of K = 2004 steps (the climate grid); and every one of these cases
+again in the global plan (weights in device memory, gradients added into
+the CTA's partial row) at 16 and at 4 rows per CTA, bit for bit what the
+resident plan gives at 16 rows.
 
 The kernels have no CPU build, so every test here skips without a CUDA
 card. This file imports neither jax nor the JAX package; run it on the card
@@ -265,10 +268,11 @@ def _masked_setup(D, H, B, K, pad, lead0, kw, dev, seed=0):
     return cfg, model, batch, arrays, leaves, h0
 
 
-def _check_masked(card, cfg, arrays, leaves, h0, mode, tol):
+def _check_masked(card, cfg, arrays, leaves, h0, mode, tol, plan=None):
     """K1 and K2 twice bit for bit and against the plain versions, and K3
-    against the plain eval forward; returns the largest errors."""
-    spec = fs.Spec(cfg, mode)
+    against the plain eval forward, in ``plan`` (None: the spec's own);
+    returns the largest errors and, under "bits", every kernel output."""
+    spec = fs.Spec(cfg, mode, plan)
     K, B = arrays[2].shape
     gen = torch.Generator(device=card).manual_seed(1)
     u = seed = None
@@ -303,7 +307,7 @@ def _check_masked(card, cfg, arrays, leaves, h0, mode, tol):
     errs["grad"] = max(float((a - p).abs().max()) for a, p in zip(gk, gp))
     errs["grad_rel"] = max(float((a - p).abs().max() / p.abs().max())
                            for a, p in zip(gk, gp))
-    spec3 = fs.Spec(cfg, "input")
+    spec3 = fs.Spec(cfg, "input", plan)
     l3 = fs.scan_fwd_cuda(spec3, leaves, arrays, 0.6, h0, False,
                           want_hists=False)[0]
     l3b = fs.scan_fwd_cuda(spec3, leaves, arrays, 0.6, h0, False,
@@ -313,6 +317,7 @@ def _check_masked(card, cfg, arrays, leaves, h0, mode, tol):
     assert torch.equal(l3, l3b)
     _close("eval loss", l3, l3p, tol["loss"])
     errs["eval"] = float((l3 - l3p).abs())
+    errs["bits"] = (lk, *hk, *gk, dk, l3)
     return errs
 
 
@@ -338,7 +343,8 @@ def test_masked_kernels_climate_grid(card):
         5, 10, 20, 2000, 4, False,
         dict(ode_nn=nn, readout_nn=nn, enc_nn=nn), card)
     errs = _check_masked(card, cfg, arrays, leaves, h0, "prng", LONG_TOL)
-    print("K=2004 errors:", {k: f"{v:.3e}" for k, v in errs.items()})
+    print("K=2004 errors:", {k: f"{v:.3e}" for k, v in errs.items()
+                             if k != "bits"})
 
 
 def test_masked_fused_loss_on_card_matches_cpu(card):
@@ -375,3 +381,38 @@ def test_masked_fused_loss_on_card_matches_cpu(card):
     for i, (a, b) in enumerate(zip(model.parameters(),
                                    model_c.parameters())):
         _close(f"grad {i}", a.grad.cpu(), b.grad, GRAD_TOL)
+
+
+GLOBAL_PLANS = [("global", 16), ("global", 4)]
+
+
+def _case(variant, dev):
+    """``(cfg, arrays, leaves, h0)`` of a VARIANTS or MASKED_VARIANTS
+    entry."""
+    if len(variant) == 7:
+        _, D, H, B, K, pad, kw = variant
+        cfg, _, _, arrays, leaves, h0 = _setup(D, H, B, K, pad, kw, dev)
+    else:
+        _, D, H, B, K, pad, lead0, kw = variant
+        cfg, _, _, arrays, leaves, h0 = _masked_setup(D, H, B, K, pad, lead0,
+                                                      kw, dev)
+    return cfg, arrays, leaves, h0
+
+
+@pytest.mark.parametrize("plan", GLOBAL_PLANS, ids=["global16", "global4"])
+@pytest.mark.parametrize("mode", ["input", "prng"])
+@pytest.mark.parametrize("variant", VARIANTS + MASKED_VARIANTS,
+                         ids=[v[0] for v in VARIANTS + MASKED_VARIANTS])
+def test_global_plan_matches_plain(card, variant, mode, plan):
+    """K1, K2 and K3 in the global plan against the plain versions, in both
+    mask modes, each kernel twice bit for bit; at 16 rows per CTA the
+    global plan sums in the resident plan's order, so every output is the
+    same bits."""
+    cfg, arrays, leaves, h0 = _case(variant, card)
+    assert fs.Spec(cfg).plan == "resident"
+    tol = dict(loss=LOSS_TOL, hist=GRAD_TOL, grad=GRAD_TOL)
+    got = _check_masked(card, cfg, arrays, leaves, h0, mode, tol, plan)
+    if plan[1] == 16:
+        ref = _check_masked(card, cfg, arrays, leaves, h0, mode, tol)
+        for i, (a, b) in enumerate(zip(got["bits"], ref["bits"])):
+            assert torch.equal(a, b), i

@@ -98,6 +98,33 @@ def test_plain_k1_k2_match_pallas_interpret(kw):
     np.testing.assert_allclose(dh0.numpy(), np.asarray(dh0_r), **H.GRAD_TOL)
 
 
+@pytest.mark.parametrize("kw", [dict(), dict(dropout_rate=0.1)],
+                         ids=["masked", "dropout"])
+def test_plain_steps_from_pallas_histories(kw):
+    """``scan_steps_plain`` started at every step from the interpret-mode
+    Pallas kernel's step-entry carries: each step's carry is the kernel's
+    next one and the summed loss the kernel's (the step-by-step check of
+    K1 on long grids, whose free-running scans part ways)."""
+    jcfg, tcfg, params, model, b = _setup(kw)
+    K, B = b.obs.shape
+    spec = fs.Spec(tcfg, "input")
+    train = spec.rate > 0
+    u_keep = (np.random.RandomState(5).random((K, spec.S, B, spec.w_max))
+              < 0.9) if train else None
+    loss_r, hists_r, _, _ = _pallas_reference(jcfg, params, b, u_keep, 0.6,
+                                              train)
+    hists = tuple(torch.as_tensor(np.array(h)) for h in hists_r)
+    u = None if u_keep is None else torch.as_tensor(u_keep).to(torch.int8)
+    loss, nxt = fs.scan_steps_plain(
+        spec, [p.detach() for p in fs.flat_leaves(model)],
+        fs.batch_arrays(H.tbatch(b)), 0.6, hists, train, u)
+    np.testing.assert_allclose(float(loss), float(loss_r), **H.LOSS_TOL)
+    for a, r in zip(nxt, hists):
+        assert a.shape == r.shape
+        np.testing.assert_allclose(a[:-1].numpy(), r[1:].numpy(),
+                                   **H.LOSS_TOL)
+
+
 @pytest.mark.parametrize("kw,train,lead0", [
     (dict(), False, False), (dict(dropout_rate=0.1), True, False),
     (dict(dropout_rate=0.1, input_current_t=True), True, True)],
@@ -139,8 +166,9 @@ def test_plain_k3_matches_pallas_eval():
 
 
 def test_masked_kernels_route_and_gates(monkeypatch):
-    """``supported`` admits masked configs with output == input and
-    rejects the GRU jump; the shared memory of the masked layout is
+    """``supported`` admits masked configs with output == input, those
+    whose weights overflow one CTA among them, and rejects the GRU jump;
+    the shared memory of the masked layout is
     counted; a CUDA-routed masked config never takes the plain version."""
     nn = ((50, "tanh"), (50, "tanh"))
     _, climate = H.configs(5, 10, ode_nn=nn, readout_nn=nn, enc_nn=nn,
@@ -157,7 +185,8 @@ def test_masked_kernels_route_and_gates(monkeypatch):
         assert not fs.supported(cfg)
     _, phys = H.configs(41, 41, ode_nn=nn, readout_nn=nn, enc_nn=nn,
                         masked=True)
-    assert not fs.supported(phys)       # 334,336 B: weights outside smem
+    # 334,336 B resident: the weights stay in device memory (global plan)
+    assert fs.supported(phys) and fs.Spec(phys).plan == "global"
     _, tcfg, _, model, b = _setup(dict(dropout_rate=0.1))
     tb = H.tbatch(b)
     with pytest.raises(ValueError, match="mask M"):

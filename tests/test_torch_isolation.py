@@ -31,15 +31,14 @@ def test_port_imports_no_jax():
     assert bad == "", f"the port imported {bad}"
 
 
-def test_chip_smoke_imports_no_jax_and_needs_a_card(tmp_path):
-    """``chip_smoke.py`` imports none of the banned packages, and exits
-    non-zero with no result line where there is no CUDA card, and where
-    the port is not beside it."""
-    import ast
-    import shutil
+BANNED = {"jax", "optax", "njode_tpu", "pandas", "sklearn", "matplotlib"}
 
-    src = os.path.join(ROOT, "chip_smoke.py")
-    with open(src) as f:
+
+def _imported_modules(path):
+    """The top-level names of every module a script imports."""
+    import ast
+
+    with open(path) as f:
         tree = ast.parse(f.read())
     mods = set()
     for node in ast.walk(tree):
@@ -47,8 +46,24 @@ def test_chip_smoke_imports_no_jax_and_needs_a_card(tmp_path):
             mods.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             mods.add(node.module.split(".")[0])
-    banned = {"jax", "optax", "njode_tpu", "pandas", "sklearn", "matplotlib"}
-    assert not mods & banned, mods & banned
+    return mods
+
+
+def test_ab_script_imports_no_jax():
+    """``ab_scan_kernels.py`` runs on the card machine too."""
+    mods = _imported_modules(os.path.join(ROOT, "ab_scan_kernels.py"))
+    assert "njode_tpu_torch" in mods and not mods & BANNED, mods
+
+
+def test_chip_smoke_imports_no_jax_and_needs_a_card(tmp_path):
+    """``chip_smoke.py`` imports none of the banned packages, and exits
+    non-zero with no result line where there is no CUDA card, and where
+    the port is not beside it."""
+    import shutil
+
+    src = os.path.join(ROOT, "chip_smoke.py")
+    mods = _imported_modules(src)
+    assert not mods & BANNED, mods & BANNED
     alone = tmp_path / "chip_smoke.py"
     shutil.copy(src, alone)
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
