@@ -16,8 +16,16 @@ power limit, and the final ``{"ok": true, ...}`` line:
 5. trainer  - njode_tpu_torch.training.trainer.train on a 20,000-path
               BlackScholes dataset, 2 epochs of batch 100 with 'prng'
               dropout masks; losses must be finite and the launch counts
-              of the main path's kernels what 2 epochs need;
-6. gob_kernels - the GRU-ODE-Bayes kernels (ops/csrc/fused_gob.cu: K5
+              of the main path's kernels what 2 epochs need; then
+              (rnn_trainer) the same run with the GRU jump (use_rnn), its
+              launches exact under the '_rnn' keys;
+6. rnn_kernels - the GRU jump of K1, K2 and K3 against their plain
+              versions at the main path's widths (B=200, K=100, both mask
+              modes; K3 also at B=4,000), each run twice bit for bit, and
+              the global plan forced at 16 rows bit for bit against the
+              resident plan;
+7. rnn_timing - CUDA-event times and bounds of those three kernels;
+8. gob_kernels - the GRU-ODE-Bayes kernels (ops/csrc/fused_gob.cu: K5
               forward, K6 backward, K7 masks) against their plain versions
               at the published widths (D=1, hidden 50 and 100 with
               p_hidden = prep_hidden = cov_hidden = hidden, full field,
@@ -25,15 +33,15 @@ power limit, and the final ``{"ok": true, ...}`` line:
               B=20, K=100), in both mask modes, each run twice and compared
               bit for bit; K5's eval form at B=2,000 (the validation split
               of the default 10,000-path dataset);
-7. gob_timing - CUDA-event times of K5, K5 eval, K6 and K7 and their plain
+9. gob_timing - CUDA-event times of K5, K5 eval, K6 and K7 and their plain
               versions, and the bound of each;
-8. gob_trainer - trainer.train(other_model="GRU_ODE_Bayes", hidden 50,
+10. gob_trainer - trainer.train(other_model="GRU_ODE_Bayes", hidden 50,
               batch 20, dropout 0.1, impute, logvar, mixing 1e-4) on a
               10,000-path BlackScholes dataset (8,000 train paths, 400 steps
               an epoch) for 2 epochs; losses and evaluation_mean_diff
               finite, optimal_eval_loss NaN by design, and the launch counts
               exactly what 2 epochs need;
-9. climate_kernels - on the full-scale climate stand-in (1,114 series, 5
+11. climate_kernels - on the full-scale climate stand-in (1,114 series, 5
               variables, T = 200, obs_perc 0.02; fold 0; the first training
               batch of epoch 1, B = 100, K = 2,004 grid steps): the masked
               branch of K1, K2 and K3 against their plain versions at the
@@ -45,18 +53,23 @@ power limit, and the final ``{"ok": true, ...}`` line:
               dropout 0.2) over the first 100 steps in both mask modes and
               over all 2,004 steps in 'prng' mode (the trainer's shape);
               each kernel run twice and compared bit for bit;
-10. climate_timing - CUDA-event times and bounds of the masked K1/K2/K3
+12. climate_timing - CUDA-event times and bounds of the masked K1/K2/K3
               and of K5/K6 at the climate arms, B = 100, K = 2,004;
-11. climate_trainer - climate_trainer.train on the stand-in, fold 0, 2
+13. climate_trainer - climate_trainer.train on the stand-in, fold 0, 2
               epochs of batch 100, the NJODE small arm and then the
               GRU-ODE-Bayes arm; losses and eval_metric finite, and the
               launch counts exactly what the epochs' batches need (so an
               eager fallback on this path fails the run);
-12. physionet_setup - the PhysioNet stand-in at the published scale
+14. climate_rnn - the masked GRU jump at the climate small arm: K1-K3
+              against their plain versions over the first 100 steps of the
+              first climate batch in both modes, their times and bounds
+              over all 2,004 steps, and one epoch of
+              climate_trainer.train(use_rnn=True) with exact launch counts;
+15. physionet_setup - the PhysioNet stand-in at the published scale
               (8,000 records of 41 variables, quantization 0.016 h, seed
               0), the 80/20 split, the pre-stacked bank (K = 3,006 grid
               steps) and the first training batch of epoch 1 (B = 50);
-13. physionet_kernels - K1, K2 and K3 in the global plan (weights in
+16. physionet_kernels - K1, K2 and K3 in the global plan (weights in
               device memory) against their plain versions: the PhysioNet
               50 arm (D = hidden = 41, three 2x50 tanh MLPs, dropout 0.1)
               over the first 100 steps in both mask modes and over all
@@ -66,14 +79,17 @@ power limit, and the final ``{"ok": true, ...}`` line:
               modes, each kernel run twice and compared bit for bit; and
               the global plan forced at 16 rows bit for bit against the
               resident plan on the main path and on the climate small arm;
-14. physionet_timing - CUDA-event times and bounds of the global plan's
+17. physionet_timing - CUDA-event times and bounds of the global plan's
               K1/K2/K3 at the 50 and 200 arms (B = 50, K = 3,006) and at
               the climate 400 arm (B = 100, K = 2,004), and of the 50 arm
               in the resident plan forced at 4 rows;
-15. physionet_trainer - physionet_trainer.train at the 50 arm (batch 50,
+18. physionet_trainer - physionet_trainer.train at the 50 arm (batch 50,
               'prng') for 2 epochs on the stand-in cut to 1,000 records
               (800 train, 16 batches an epoch); losses and both metrics
-              finite, and the launch counts exact.
+              finite, and the launch counts exact;
+19. physionet_rnn - the masked GRU jump at the 50 arm in the global plan:
+              K1-K3 against their plain versions over the first 100 steps
+              in both modes, and their times and bounds over all 3,006.
 
 Tolerances are those the JAX package's Pallas kernel is held to
 (tests/test_fused_scan.py): loss rtol 1e-5 / atol 1e-6, gradients rtol
@@ -194,8 +210,9 @@ def check_close(name, a, b, tol):
     return err
 
 
-def main_path_setup(B, K, seed, device):
-    """Main-path model and a BlackScholes batch on the card."""
+def main_path_setup(B, K, seed, device, use_rnn=False):
+    """Main-path model (with the GRU jump: ``use_rnn``) and a BlackScholes
+    batch on the card."""
     import numpy as np
     import torch
 
@@ -205,7 +222,7 @@ def main_path_setup(B, K, seed, device):
 
     nn_desc = ((50, "tanh"), (50, "tanh"))
     cfg = NJODEConfig(1, 10, 1, nn_desc, nn_desc, nn_desc,
-                      dropout_rate=0.1)
+                      dropout_rate=0.1, use_rnn=use_rnn)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = NJODE(cfg).to(device)
@@ -329,9 +346,14 @@ def phase_kernels(results):
 
 
 def _macs_per_row_step(spec):
+    """MACs of one forward step for one batch row: the ODE MLP, the jump
+    (the encoder, or the GRU's three gates over [X, h]) and both
+    readouts."""
     def macs(ws):
         return sum(a * b for a, b in zip(ws[:-1], ws[1:]))
-    return macs(spec.ode_w) + macs(spec.enc_w) + 2 * macs(spec.ro_w)
+    jump = (3 * spec.H * (spec.D + spec.H) if spec.use_rnn
+            else macs(spec.enc_w))
+    return macs(spec.ode_w) + jump + 2 * macs(spec.ro_w)
 
 
 def phase_timing(results):
@@ -430,14 +452,57 @@ def phase_timing(results):
             bound_ms=f"{bms:.5f}", bound_by=by)
 
 
-def phase_trainer(results):
+def _synthetic_run(tmp, phase, **kw):
+    """One ``trainer.train`` run (2 epochs of batch 100, 'prng' masks) on
+    the dataset under ``tmp``, with every count set to 0 just before and
+    read just after; checks the metric CSV and returns the counts."""
     import numpy as np
     import torch
 
-    from njode_tpu_torch.data import datasets
     from njode_tpu_torch.ops import fused_scan as fs
     from njode_tpu_torch.training import trainer
     from njode_tpu_torch.utils.csv_frame import read_frame, to_float
+
+    models = os.path.join(tmp, "models_" + phase)
+    fs.reset_launch_counts()
+    trainer.train(epochs=2, batch_size=100, dropout_rate=0.1,
+                  dataset="BlackScholes", plot=False, evaluate=True,
+                  pallas_mask_mode="prng",
+                  base_data_path=os.path.join(tmp, "data"),
+                  saved_models_path=models, **kw)
+    torch.cuda.synchronize()
+    counts = dict(fs.LAUNCHES)
+    cols, rows = read_frame(os.path.join(models, "id-1", "metric_id-1.csv"))
+    for row in rows:
+        rec = dict(zip(cols, row))
+        vals = {k: to_float(rec[k]) for k in (
+            "train_loss", "eval_loss", "optimal_eval_loss",
+            "evaluation_mean_diff", "train_time", "eval_time")}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"non-finite {phase} metrics: {rec}")
+        say(phase, epoch=rec["epoch"],
+            **{k: f"{v:.6f}" for k, v in vals.items()})
+    if len(rows) != 2:
+        raise AssertionError(f"expected 2 metric rows, got {len(rows)}")
+    return counts
+
+
+def _check_counts(phase, counts, expect, at_least=()):
+    """Each count exactly as expected (0 where ``expect`` has no key), but
+    the keys of ``at_least``, which must reach their value."""
+    for k, v in counts.items():
+        want = expect.get(k, 0)
+        if (v < want) if k in at_least else (v != want):
+            raise AssertionError(f"{phase}: launch count {k}={v}, expected "
+                                 f"{want}: {counts}")
+    say(phase, launches=json.dumps({k: v for k, v in counts.items() if v})
+        .replace(" ", ""))
+
+
+def phase_trainer(results):
+    """The main path, then the same trainer with the GRU jump
+    (``use_rnn``) on the same dataset, each with exact launch counts."""
+    from njode_tpu_torch.data import datasets
 
     tmp = tempfile.mkdtemp(prefix="njode_smoke_")
     try:
@@ -447,39 +512,21 @@ def phase_trainer(results):
         datasets.create_dataset("BlackScholes", hp, seed=0,
                                 base_path=os.path.join(tmp, "data"))
         say("trainer", dataset_s=f"{time.time() - t0:.2f}", paths=20000)
-        fs.reset_launch_counts()
-        trainer.train(epochs=2, batch_size=100, dropout_rate=0.1,
-                      dataset="BlackScholes", plot=False, evaluate=True,
-                      pallas_mask_mode="prng",
-                      base_data_path=os.path.join(tmp, "data"),
-                      saved_models_path=os.path.join(tmp, "models"))
-        counts = dict(fs.LAUNCHES)
-        cols, rows = read_frame(os.path.join(tmp, "models", "id-1",
-                                             "metric_id-1.csv"))
-        for row in rows:
-            rec = dict(zip(cols, row))
-            vals = {k: to_float(rec[k]) for k in (
-                "train_loss", "eval_loss", "optimal_eval_loss",
-                "evaluation_mean_diff", "train_time", "eval_time")}
-            if not all(np.isfinite(v) for v in vals.values()):
-                raise AssertionError(f"non-finite trainer metrics: {rec}")
-            say("trainer", epoch=rec["epoch"],
-                **{k: f"{v:.6f}" for k, v in vals.items()})
-        if len(rows) != 2:
-            raise AssertionError(f"expected 2 metric rows, got {len(rows)}")
         steps = 2 * (16_000 // 100)
-        expect = {"njode_scan_fwd": steps, "njode_scan_bwd": steps,
-                  "njode_scan_eval": 2, "philox_keep": 2 * steps}
-        for k, v in expect.items():
-            if counts[k] != v:
-                raise AssertionError(f"launch count {k}={counts[k]}, "
-                                     f"expected {v}: {counts}")
-        if counts["reduce_partials"] < 2 * steps + 2:
-            raise AssertionError(f"reduce_partials launched "
-                                 f"{counts['reduce_partials']} times")
-        say("trainer", launches=json.dumps(counts).replace(" ", ""))
+        counts = _synthetic_run(tmp, "trainer")
+        _check_counts("trainer", counts, {
+            "njode_scan_fwd": steps, "njode_scan_bwd": steps,
+            "njode_scan_eval": 2, "philox_keep": 2 * steps,
+            "reduce_partials": 2 * steps + 2}, at_least=("reduce_partials",))
         results["launches"] = counts
-        torch.cuda.synchronize()
+        t0 = time.time()
+        rnn = _synthetic_run(tmp, "rnn_trainer", use_rnn=True)
+        _check_counts("rnn_trainer", rnn, {
+            "njode_scan_fwd_rnn": steps, "njode_scan_bwd_rnn": steps,
+            "njode_scan_eval_rnn": 2, "philox_keep": 2 * steps,
+            "reduce_partials": 2 * steps + 2}, at_least=("reduce_partials",))
+        say("rnn_trainer", phase_s=f"{time.time() - t0:.2f}")
+        results["rnn_launches"] = rnn
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -832,16 +879,17 @@ def climate_setup(results, tmp):
         batch_obs=int(batch.obs.sum()), setup_s=f"{time.time() - t0:.2f}")
 
 
-def _masked_njode(D, H, width, dev, seed=0):
+def _masked_njode(D, H, width, dev, seed=0, use_rnn=False):
     """A masked NJODE (output = input) with three 2 x ``width`` tanh MLPs
-    and dropout 0.1, the climate and PhysioNet arms' shape."""
+    and dropout 0.1, the climate and PhysioNet arms' shape (with the GRU
+    jump: ``use_rnn``)."""
     import torch
 
     from njode_tpu_torch.models.njode import NJODE, NJODEConfig
 
     nn_desc = ((width, "tanh"), (width, "tanh"))
     cfg = NJODEConfig(D, H, D, nn_desc, nn_desc, nn_desc,
-                      dropout_rate=0.1, masked=True)
+                      dropout_rate=0.1, masked=True, use_rnn=use_rnn)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = NJODE(cfg).to(dev)
@@ -1128,15 +1176,16 @@ def _masked_times(spec, spec3, leaves, arrays, h0, seed, hists, reps):
                 reps, 1)}
 
 
-def _masked_bounds(spec, K, B):
-    """Bounds of the masked K1, K2 and K3 at K steps of B rows in the
-    spec's plan: the FLOP from the MACs per row-step (backward 3x), the
-    bytes with each input read once and each output written once (K2's
-    output holds one partial row per CTA)."""
+def _scan_bounds(spec, K, B):
+    """Bounds of K1, K2 and K3 at K steps of B rows in the spec's plan
+    and branch: the FLOP from the MACs per row-step (backward 3x), the
+    bytes with each input read once (X, and M when masked) and each output
+    written once (K2's output holds one partial row per CTA)."""
     mac = _macs_per_row_step(spec)
     D, H, P = spec.D, spec.H, spec.n_params
     n_cta = -(-B // spec.rows)
-    data = 4 * (2 * K + K * B + 2 * K * B * D + B + B * D + B * H + P)
+    nX = 2 if spec.masked else 1
+    data = 4 * (2 * K + K * B + nX * K * B * D + B + B * D + B * H + P)
     hist = 4 * K * B * (H + D + 1)
     f1 = 2.0 * mac * B * K
     return {"K1": bound(f1, data + 8 + hist + 4 * n_cta, PEAK_FP32),
@@ -1159,7 +1208,7 @@ def phase_climate_timing(results):
     ms = _masked_times(spec, fs.Spec(cfg, "input"), leaves, arrays, h0,
                        seed, hists, 3)
     t = {k + "m": (ms[k], cl["plain_ms"][k + "m"]) for k in ms}
-    bnd = {k + "m": v for k, v in _masked_bounds(spec, K, B).items()}
+    bnd = {k + "m": v for k, v in _scan_bounds(spec, K, B).items()}
 
     gcfg, gleaves, garrays, st, gseed, ghists = cl["gob"]
     gspec = fg.Spec(gcfg, "prng")
@@ -1183,9 +1232,10 @@ def phase_climate_timing(results):
             roofline_share=f"{bms / ms:.2e}")
 
 
-def _climate_run(results, tag, expect, **kw):
-    """One ``climate_trainer.train`` run with every count set to 0 just
-    before and read just after; checks the metric CSV and the counts."""
+def _climate_run(results, tag, expect, epochs=2, **kw):
+    """One ``climate_trainer.train`` run of ``epochs`` epochs with every
+    count set to 0 just before and read just after; checks the metric CSV
+    and the counts."""
     import numpy as np
     import torch
 
@@ -1198,13 +1248,14 @@ def _climate_run(results, tag, expect, **kw):
     models = os.path.join(d, "models_" + tag)
     fs.reset_launch_counts()
     fg.reset_launch_counts()
-    ct.train(epochs=2, batch_size=CLIMATE_B, climate_dir=d,
+    ct.train(epochs=epochs, batch_size=CLIMATE_B, climate_dir=d,
              saved_models_path=models, device="cuda", **kw)
     torch.cuda.synchronize()
     counts = dict(fs.LAUNCHES, **fg.LAUNCHES)
     cols, rows = read_frame(os.path.join(models, "id-1", "metric_id-1.csv"))
-    if len(rows) != 2:
-        raise AssertionError(f"{tag}: expected 2 metric rows, got {rows}")
+    if len(rows) != epochs:
+        raise AssertionError(f"{tag}: expected {epochs} metric rows, "
+                             f"got {rows}")
     for row in rows:
         rec = dict(zip(cols, row))
         vals = {k: to_float(rec[k]) for k in cols if k != "epoch"}
@@ -1295,7 +1346,8 @@ def _kernel_outputs(spec, spec3, leaves, arrays, h0, u, seed):
     return [l1, *hists, *g, dh0, l3]
 
 
-def _plans_bit_identical(tag, cfg, leaves, arrays, h0, gen):
+def _plans_bit_identical(tag, cfg, leaves, arrays, h0, gen,
+                         phase="physionet_kernels"):
     """The global plan forced at 16 rows against the resident plan, every
     output of K1, K2 and K3 in both mask modes, bit for bit."""
     import torch
@@ -1322,7 +1374,7 @@ def _plans_bit_identical(tag, cfg, leaves, arrays, h0, gen):
             raise AssertionError(f"global plan at 16 rows differs from the "
                                  f"resident plan in {n_diff} outputs "
                                  f"({tag} {mode})")
-        say("physionet_kernels", plans_bit_identical=tag, mode=mode,
+        say(phase, plans_bit_identical=tag, mode=mode,
             outputs=len(outs[0]))
 
 
@@ -1371,34 +1423,15 @@ def phase_physionet_kernels(results):
 
 
 def phase_physionet_timing(results):
-    import torch
-
-    from njode_tpu_torch.ops import fused_scan as fs
-
     t, bnd = {}, {}
     for arm, a in results["phys"]["arms"].items():
-        cfg, model, full = a["cfg"], a["model"], a["full"]
-        leaves = [p.detach() for p in fs.flat_leaves(model)]
-        arrays = fs.batch_arrays(full)
-        K, B = arrays[2].shape
-        with torch.no_grad():
-            h0 = fs.t0_state(model, full)
-        seed = torch.tensor([20261016], dtype=torch.int64, device=h0.device)
         for plan in (None, ("resident", 4)) if arm == "phys50" else (None,):
-            spec = fs.Spec(cfg, "prng", plan)
-            _, hists = fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, True,
-                                        None, seed)
-            ms = _masked_times(spec, fs.Spec(cfg, "input", plan), leaves,
-                               arrays, h0, seed, hists,
-                               3 if arm == "phys50" else 2)
-            bd = _masked_bounds(spec, K, B)
-            for k in ("K1", "K2", "K3"):
-                bms, by = bd[k]
-                say("physionet_timing", arm=arm, plan=spec.plan,
-                    rows=spec.rows, kernel=k, B=B, K=K, ms=f"{ms[k]:.4f}",
-                    ms_per_step=f"{ms[k] / K:.5f}", bound_ms=f"{bms:.6f}",
-                    bound_by=by, roofline_share=f"{bms / ms[k]:.2e}")
-                if arm == "phys50" and plan is None:   # the trainer's arm
+            ms, bd, K, B, spec = _full_grid_times(
+                a["cfg"], a["model"], a["full"],
+                3 if arm == "phys50" else 2, plan)
+            _say_times("physionet_timing", arm, spec, ms, bd, K, B)
+            if arm == "phys50" and plan is None:   # the trainer's arm
+                for k in ("K1", "K2", "K3"):
                     t[k + "g"] = (ms[k], a["plain_ms"][k + "m"])
                     bnd[k + "g"] = bd[k]
     results["times"].update(t)
@@ -1453,6 +1486,176 @@ def phase_physionet_trainer(results):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _check_plan(phase, arm, spec, plan):
+    """Fail unless ``spec`` takes ``plan`` at 16 rows; print its sizes."""
+    if (spec.plan, spec.rows) != (plan, 16):
+        raise AssertionError(f"{arm}: plan {spec.plan} at {spec.rows} rows, "
+                             f"expected {plan} at 16")
+    say(phase, arm=arm, plan=spec.plan, rows=spec.rows,
+        smem_bytes=spec.smem_bytes, n_params=spec.n_params,
+        macs_per_row_step=_macs_per_row_step(spec))
+
+
+def _full_grid_times(cfg, model, full, reps, plan=None):
+    """CUDA-event ms of K1, K2 ('prng') and K3 over the whole batch
+    ``full`` in ``plan`` (None: the spec's own) and their bounds; returns
+    (ms, bounds, K, B, the 'prng' spec)."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    leaves = [p.detach() for p in fs.flat_leaves(model)]
+    arrays = fs.batch_arrays(full)
+    K, B = arrays[2].shape
+    with torch.no_grad():
+        h0 = fs.t0_state(model, full)
+    seed = torch.tensor([20261016], dtype=torch.int64, device=h0.device)
+    spec = fs.Spec(cfg, "prng", plan)
+    _, hists = fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, True, None,
+                                seed)
+    ms = _masked_times(spec, fs.Spec(cfg, "input", plan), leaves, arrays, h0,
+                       seed, hists, reps)
+    return ms, _scan_bounds(spec, K, B), K, B, spec
+
+
+def _say_times(phase, arm, spec, ms, bd, K, B):
+    for k in ("K1", "K2", "K3"):
+        bms, by = bd[k]
+        say(phase, arm=arm, plan=spec.plan, rows=spec.rows, kernel=k, B=B,
+            K=K, ms=f"{ms[k]:.4f}", ms_per_step=f"{ms[k] / K:.5f}",
+            bound_ms=f"{bms:.6f}", bound_by=by,
+            roofline_share=f"{bms / ms[k]:.2e}")
+
+
+SHORT_TOL = dict(loss=LOSS_TOL, hist=GRAD_TOL, grad=GRAD_TOL)
+
+
+def phase_rnn_kernels(results):
+    """The GRU jump (use_rnn) of K1, K2 and K3 at the main path's widths
+    against their plain versions (B = 200, K = 100, both mask modes; K3
+    also at B = 4,000), each twice bit for bit, and the global plan forced
+    at 16 rows bit for bit against the resident plan."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    dev = torch.device("cuda")
+    B, K = 200, 100
+    cfg, model, batch = main_path_setup(B, K, 0, dev, use_rnn=True)
+    _check_plan("rnn_kernels", "main_path", fs.Spec(cfg), "resident")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    errs, plain_ms, last = _masked_arm_checks(
+        "rnn_kernels", cfg, model, batch,
+        ((K, ("input", "prng"), SHORT_TOL),),
+        gen, arm="main_path")
+    leaves, arrays, h0, _, _ = last
+    _plans_bit_identical("rnn_main_path", cfg, leaves, arrays, h0, gen,
+                         phase="rnn_kernels")
+    B3 = 4000
+    cfg3, model3, batch3 = main_path_setup(B3, K, 2, dev, use_rnn=True)
+    leaves3 = [p.detach() for p in fs.flat_leaves(model3)]
+    arrays3 = fs.batch_arrays(batch3)
+    with torch.no_grad():
+        h03 = fs.t0_state(model3, batch3)
+    spec3 = fs.Spec(cfg3, "input")
+    l3 = [fs.scan_fwd_cuda(spec3, leaves3, arrays3, 0.5, h03, False,
+                           want_hists=False)[0] for _ in range(2)]
+    torch.cuda.synchronize()
+    if not torch.equal(l3[0], l3[1]):
+        raise AssertionError("rnn K3 (B=4000) differs between two runs")
+    (l3p, _), plain_k3 = timed(lambda: fs.scan_fwd_plain(
+        spec3, leaves3, arrays3, 0.5, h03, False, want_hists=False))
+    e3 = check_close("rnn K3 loss (B=4000)", l3[0], l3p, LOSS_TOL)
+    say("rnn_kernels", arm="main_path", B=B3, K3_loss_err=f"{e3:.3e}",
+        K3_loss=f"{float(l3[0]):.6f}", bitwise_repeat=True)
+    results["rnn"] = dict(cfg=cfg, last=last,
+                          k3=(spec3, leaves3, arrays3, h03),
+                          plain_ms=dict(plain_ms, K3=plain_k3),
+                          errs=dict(errs, K3=e3))
+
+
+def phase_rnn_timing(results):
+    """CUDA-event times and bounds of the GRU jump's K1/K2 (B = 200) and
+    K3 (B = 4,000) at the main path, beside the encoder jump's."""
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    rn = results["rnn"]
+    cfg = rn["cfg"]
+    leaves, arrays, h0, seed, hists = rn["last"]
+    K, B = arrays[2].shape
+    spec = fs.Spec(cfg, "prng")
+    ms = _masked_times(spec, fs.Spec(cfg, "input"), leaves, arrays, h0, seed,
+                       hists, 20)
+    spec3, leaves3, arrays3, h03 = rn["k3"]
+    K3, B3 = arrays3[2].shape
+    ms["K3"] = cuda_ms(lambda: fs.scan_fwd_cuda(
+        spec3, leaves3, arrays3, 0.5, h03, False, want_hists=False), 10)
+    bd = _scan_bounds(spec, K, B)
+    bd["K3"] = _scan_bounds(spec3, K3, B3)["K3"]
+    pm = rn["plain_ms"]
+    plain = {"K1": pm["K1m"], "K2": pm["K2m"], "K3": pm["K3"]}
+    for k in ("K1", "K2", "K3"):
+        bms, by = bd[k]
+        results["times"][k + "r"] = (ms[k], plain[k])
+        results["bounds"][k + "r"] = bd[k]
+        say("rnn_timing", kernel=k, B=B3 if k == "K3" else B, K=K,
+            ms=f"{ms[k]:.4f}", plain_ms=f"{plain[k]:.4f}",
+            bound_ms=f"{bms:.6f}", bound_by=by,
+            roofline_share=f"{bms / ms[k]:.2e}",
+            vs_encoder_jump=f"{ms[k] / results['times'][k][0]:.3f}")
+
+
+def phase_climate_rnn(results):
+    """The masked GRU jump at the climate small arm: K1-K3 against their
+    plain versions on the first climate batch's first 100 steps in both
+    modes, CUDA-event times and bounds over all its steps, and one epoch
+    of ``climate_trainer.train(use_rnn=True)`` with exact launch counts."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    dev = torch.device("cuda")
+    full = results["climate"]["batch"]
+    cfg, model = _masked_njode(5, 10, 50, dev, use_rnn=True)
+    _check_plan("climate_rnn", "climate_small", fs.Spec(cfg), "resident")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    errs, plain_ms, _ = _masked_arm_checks(
+        "climate_rnn", cfg, model, full,
+        ((100, ("input", "prng"), SHORT_TOL),),
+        gen, arm="climate_small")
+    ms, bd, K, B, spec = _full_grid_times(cfg, model, full, 2)
+    _say_times("climate_rnn", "climate_small", spec, ms, bd, K, B)
+    n_b = -(-results["climate"]["n_train"] // CLIMATE_B)
+    counts = _climate_run(results, "njode_rnn", {
+        "njode_scan_fwd_rnn": n_b, "njode_scan_bwd_rnn": n_b,
+        "philox_keep": 2 * n_b, "reduce_partials": 2 * n_b}, epochs=1,
+        hidden_size=10, dropout_rate=0.1, use_rnn=True)
+    results["climate_rnn"] = dict(errs=errs, launches=counts, ms=ms, bd=bd)
+
+
+def phase_physionet_rnn(results):
+    """The masked GRU jump at the PhysioNet 50 arm in the global plan:
+    K1-K3 against their plain versions over the first 100 steps of the
+    first batch in both modes, and CUDA-event times and bounds over all
+    3,006 steps."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    dev = torch.device("cuda")
+    full = results["phys"]["batch"]
+    cfg, model = _masked_njode(41, 41, 50, dev, use_rnn=True)
+    _check_plan("physionet_rnn", "phys50", fs.Spec(cfg), "global")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    errs, _, _ = _masked_arm_checks(
+        "physionet_rnn", cfg, model, full,
+        ((100, ("input", "prng"), SHORT_TOL),),
+        gen, arm="phys50")
+    ms, bd, K, B, spec = _full_grid_times(cfg, model, full, 2)
+    _say_times("physionet_rnn", "phys50", spec, ms, bd, K, B)
+    results["phys_rnn"] = dict(errs=errs, ms=ms, bd=bd)
+
+
 def kernels_line(results):
     src = "njode_tpu_torch/ops/csrc/fused_scan.cu"
     rows = [("njode_scan_fwd", "K1", "njode_tpu/ops/fused_scan.py:1115",
@@ -1469,15 +1672,16 @@ def kernels_line(results):
     gl = results["gob_launches"]
     cn, cg = (results["climate_launches"][k] for k in ("njode", "gob"))
     pl = results["phys_launches"]
+    rl, cr = results["rnn_launches"], results["climate_rnn"]["launches"]
     for name, key, replaces, count in rows:
         ms, plain = results["times"][key]
         bms, by = results["bounds"][key]
         launches = results["launches"][count]
         if name == "reduce_partials":    # runs on every path
-            launches += (gl["reduce_partials"] + cn["reduce_partials"]
-                         + cg["reduce_partials"] + pl["reduce_partials"])
+            launches += sum(c["reduce_partials"]
+                            for c in (gl, cn, cg, pl, rl, cr))
         elif name == "philox_keep":      # the NJODE paths
-            launches += cn["philox_keep"] + pl["philox_keep"]
+            launches += sum(c["philox_keep"] for c in (cn, pl, rl, cr))
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": launches,
                     "max_abs_err": results["errs"][key], "ms": ms,
@@ -1536,6 +1740,25 @@ def kernels_line(results):
                     "replaces": replaces, "launches": pl[name],
                     "max_abs_err": pe[key + "m"], "ms": ms, "plain_ms": plain,
                     "bound_ms": bms, "bound_by": by, "library_ms": None})
+    # the GRU jump (use_rnn) of K1-K3, timed at the main path; launches
+    # from its trainer phase and the climate one, errors the largest of
+    # its checks at the main path, the climate small arm and phys50
+    rerrs = [results["rnn"]["errs"], results["climate_rnn"]["errs"],
+             results["phys_rnn"]["errs"]]
+    err = {k: max(e[k + "m"] for e in rerrs) for k in ("K1", "K2", "K3")}
+    err["K3"] = max(err["K3"], rerrs[0]["K3"])
+    for name, key, replaces in (
+            ("njode_scan_fwd_rnn", "K1", "njode_tpu/ops/fused_scan.py:594"),
+            ("njode_scan_bwd_rnn", "K2", "njode_tpu/ops/fused_scan.py:605"),
+            ("njode_scan_eval_rnn", "K3",
+             "njode_tpu/ops/fused_scan.py:718")):
+        ms, plain = results["times"][key + "r"]
+        bms, by = results["bounds"][key + "r"]
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": replaces,
+                    "launches": rl[name] + cr[name],
+                    "max_abs_err": err[key], "ms": ms, "plain_ms": plain,
+                    "bound_ms": bms, "bound_by": by, "library_ms": None})
     return json.dumps({"kernels": out})
 
 
@@ -1569,6 +1792,7 @@ def main():
     results = {}
     t0 = time.time()
     for phase in (phase_kernels, phase_timing, phase_trainer,
+                  phase_rnn_kernels, phase_rnn_timing,
                   phase_gob_kernels, phase_gob_timing, phase_gob_trainer):
         phase(results)
         say(phase.__name__[6:], phase_s=f"{time.time() - t0:.2f}")
@@ -1578,7 +1802,7 @@ def main():
         climate_setup(results, tmp)
         t0 = time.time()
         for phase in (phase_climate_kernels, phase_climate_timing,
-                      phase_climate_trainer):
+                      phase_climate_trainer, phase_climate_rnn):
             phase(results)
             say(phase.__name__[6:], phase_s=f"{time.time() - t0:.2f}")
             t0 = time.time()
@@ -1587,7 +1811,7 @@ def main():
     physionet_setup(results)
     t0 = time.time()
     for phase in (phase_physionet_kernels, phase_physionet_timing,
-                  phase_physionet_trainer):
+                  phase_physionet_trainer, phase_physionet_rnn):
         phase(results)
         say(phase.__name__[6:], phase_s=f"{time.time() - t0:.2f}")
         t0 = time.time()

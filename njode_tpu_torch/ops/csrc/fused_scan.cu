@@ -1,8 +1,8 @@
 // Hand-written Hopper kernels for the NJODE training scan (sm_90a).
 //
-// Replaces the Pallas TPU kernels of njode_tpu/ops/fused_scan.py, both
-// their branches (unmasked, and masked: _step_forward / _step_backward's
-// imputation path):
+// Replaces the Pallas TPU kernels of njode_tpu/ops/fused_scan.py, all
+// their branches (unmasked, masked: _step_forward / _step_backward's
+// imputation path, and the GRU jump: _gru_fwd / _gru_bwd):
 //   njode_scan_fwd_kernel<true>   K1  _fwd_impl / _make_fwd_kernel (training forward, histories)
 //   njode_scan_fwd_kernel<false>  K3  make_fused_eval_fn (eval loss, no histories, no dropout)
 //   njode_scan_bwd_kernel         K2  _fused_bwd / _make_bwd_kernel (hand-written BPTT)
@@ -41,6 +41,23 @@
 // rows, so the backward adds obs*dlast_X to dy and carries (1-M)*dX_imp
 // into dy_bj before the pre-jump readout's backward.
 //
+// GRU jump (c.use_rnn, a runtime branch like c.masked). At observed rows
+// h' = GRUCell(tanh X, h_t), h_t = tanh h1, on the raw observation whether
+// masked or not, in torch's gate order r, z, n: gate g is row g*H + j of
+// weight_ih [3H, D] and weight_hh [3H, H] (leaf offsets c.gru_*), and
+//   r = sig(gi_r + gh_r), z = sig(gi_z + gh_z), n = tanh(gi_n + r*gh_n),
+//   h' = (1-z)*n + z*h_t,  h2 = obs*h' + (1-obs)*h1,
+// with b_hh_n inside gh_n. It takes the encoder's place; the encoder runs
+// only at t=0, outside (its dropout slots stay in S, unused). Both readouts
+// then run as one stacked pass even when masked, and a masked config keeps
+// its M-weighted loss and last_X = y. gru_fwd gives a thread one (row, j)
+// and all three gates' sums (tanh X from tX [R, D], h_t from in_ro[0:R*H])
+// and saves (r, z, n, gh_n) in region gru [4][R*H]. gru_bwd writes the
+// gate gradients da_r, da_z, da_n = dgi_n and dgh_n = r*da_n (the gradient
+// of b_hh_n and the hh row of n: r scales gh_n) to dG [R, 4H], then adds
+// the four leaves' gradients (X is data: no dx) and dh1 += (dh'*z +
+// sum_g dgh_g W_hh[g]) * (1 - h_t^2).
+//
 // Dropout masks. 'input' mode reads int8 keep-masks [K,S,B,Wmax]; 'prng'
 // mode draws Philox4x32-10 (philox.cuh, shared with the GRU-ODE-Bayes
 // kernels) with key (seed_lo, seed_hi) and counter
@@ -78,7 +95,7 @@
 #define RB 4                   // rows a thread sums in the global plan
 #define NTHREADS 256
 #define MAX_LIN 8
-#define MAX_LEAVES 48
+#define MAX_LEAVES 52          // three MLPs of MAX_LIN layers, the GRU's 4
 
 struct MLPDesc {
   int n_lin;                 // Linear layers (hidden layers + 1)
@@ -93,14 +110,16 @@ struct MLPDesc {
 // Mirrored field by field by ops/fused_scan.py::_ScanCfg (all 4-byte fields).
 struct ScanCfg {
   int K, B, D, H, O, S, Wmax, n_params, n_leaves;
-  int enc_case, enc_mult, ro_case, ro_mult, easy, ict, mode, masked;
+  int enc_case, enc_mult, ro_case, ro_mult, easy, ict, mode, masked, use_rnn;
   unsigned int thresh;
   float keep, weight;
   int rows, plan, buf_w, smem_floats;   // plan: 0 resident, 1 global
+  int gru_wih, gru_whh, gru_bih, gru_bhh;   // GRU leaf offsets, -1: none
   int leaf_off[MAX_LEAVES + 1];
   int o_w, o_g, o_h, o_lx, o_tau, o_X, o_obs, o_nobs, o_lrow, o_h1, o_h2;
   int o_in_ode, o_tX, o_in_ro, o_f, o_enc, o_ro, o_dA, o_dB, o_dh, o_dlx;
   int o_dtau, o_rs, o_dst, o_dh1, o_dhe, o_df, o_dlxc, o_dtauc, o_M, o_Xi;
+  int o_gru, o_dG;             // use_rnn only: saved gates, gate gradients
   MLPDesc ode, enc, ro, ro2;   // ro2: the masked branch's post-jump pass
 };
 
@@ -374,10 +393,140 @@ __device__ __forceinline__ float y_at(const ScanCfg& c, const float* sm,
          + sm[c.o_ro + rr * c.O + o];
 }
 
+// a weight: from shared memory (resident plan) or through the read-only
+// path from device memory (global plan)
+template <bool GW>
+__device__ __forceinline__ float ldw(const float* p) {
+  if constexpr (GW) return __ldg(p);
+  else return *p;
+}
+
+__device__ __forceinline__ float sigmoid_f(float x) {
+  return 1.f / (1.f + expf(-x));
+}
+
+// The GRU jump forward (_gru_fwd) for R rows: tanh X at tX [R, D], h_t =
+// tanh h1 at in_ro[0:R*H]. A thread owns (row r, unit j) and sums the
+// three gates' rows of W_ih and W_hh in index order (the same order in both
+// plans), then writes h2, tanh h2 (in_ro[R*H:]) and the saved (r, z, n,
+// gh_n). Not synced at the end.
+template <bool GW>
+__device__ void gru_fwd(const ScanCfg& c, float* sm, const float* wg,
+                        int R) {
+  const int D = c.D, H = c.H, RH = R * H;
+  const float* sw = GW ? wg : sm + c.o_w;
+  const float* tX = sm + c.o_tX; float* in_ro = sm + c.o_in_ro;
+  const float* h1 = sm + c.o_h1; float* h2 = sm + c.o_h2;
+  const float* obs = sm + c.o_obs; float* sv = sm + c.o_gru;
+  for (int idx = threadIdx.x; idx < RH; idx += blockDim.x) {
+    int r = idx / H, j = idx - r * H;
+    const float* x = tX + r * D;
+    const float* ht = in_ro + r * H;
+    float gi[3], gh[3];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const float* wi = sw + c.gru_wih + (size_t)(q * H + j) * D;
+      const float* wh = sw + c.gru_whh + (size_t)(q * H + j) * H;
+      float a = 0.f, b = 0.f;
+      for (int i = 0; i < D; ++i) a = fmaf(x[i], ldw<GW>(wi + i), a);
+      for (int i = 0; i < H; ++i) b = fmaf(ht[i], ldw<GW>(wh + i), b);
+      if (c.gru_bih >= 0) {
+        a += ldw<GW>(sw + c.gru_bih + q * H + j);
+        b += ldw<GW>(sw + c.gru_bhh + q * H + j);
+      }
+      gi[q] = a;
+      gh[q] = b;
+    }
+    float rg = sigmoid_f(gi[0] + gh[0]);
+    float z = sigmoid_f(gi[1] + gh[1]);
+    float n = tanhf(gi[2] + rg * gh[2]);
+    float hp = (1.f - z) * n + z * ht[j];
+    sv[idx] = rg;
+    sv[RH + idx] = z;
+    sv[2 * RH + idx] = n;
+    sv[3 * RH + idx] = gh[2];
+    float o = obs[r];
+    float b2 = o * hp + (1.f - o) * h1[idx];
+    h2[idx] = b2;
+    in_ro[RH + idx] = tanhf(b2);
+  }
+}
+
+// dgh of gate row gj (0..3H) at row r: da_r, da_z for r and z, dgh_n for n
+__device__ __forceinline__ float dgh_at(const float* dG, int H, int r,
+                                        int gj) {
+  return dG[r * 4 * H + (gj < 2 * H ? gj : gj + H)];
+}
+
+// The GRU jump backward (_gru_bwd) for the CTA's nv valid rows of R, from
+// dh' = dhe (obs * dh2) and the saved gates; adds the four leaves'
+// gradients to g (shared memory, or the CTA's partial row in the global
+// plan; one owning thread per element), and dh_t * (1 - h_t^2) to dh1,
+// then df = dt * dh1. Starts and ends synced.
+template <bool GW>
+__device__ void gru_bwd(const ScanCfg& c, float* sm, const float* wg,
+                        float* g, int R, int nv, float dt) {
+  const int D = c.D, H = c.H, RH = R * H, H3 = 3 * H;
+  const float* sw = GW ? wg : sm + c.o_w;
+  const float* tX = sm + c.o_tX; const float* ht = sm + c.o_in_ro;
+  const float* sv = sm + c.o_gru; float* dG = sm + c.o_dG;
+  const float* dhe = sm + c.o_dhe;
+  float* dh1 = sm + c.o_dh1; float* df = sm + c.o_df;
+  for (int idx = threadIdx.x; idx < RH; idx += blockDim.x) {
+    int r = idx / H, j = idx - r * H;
+    float rg = sv[idx], z = sv[RH + idx], n = sv[2 * RH + idx];
+    float d = dhe[idx];
+    float da_n = d * (1.f - z) * (1.f - n * n);
+    float* q = dG + r * 4 * H;
+    q[j] = da_n * sv[3 * RH + idx] * rg * (1.f - rg);         // da_r
+    q[H + j] = d * (ht[idx] - n) * z * (1.f - z);             // da_z
+    q[2 * H + j] = da_n;                                      // dgi_n
+    q[3 * H + j] = da_n * rg;                                 // dgh_n
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < H3 * D; idx += blockDim.x) {
+    int gj = idx / D, i = idx - gj * D;
+    float acc = 0.f;
+    for (int r = 0; r < nv; ++r)
+      acc = fmaf(dG[r * 4 * H + gj], tX[r * D + i], acc);
+    g[c.gru_wih + idx] += acc;
+  }
+  for (int idx = threadIdx.x; idx < H3 * H; idx += blockDim.x) {
+    int gj = idx / H, i = idx - gj * H;
+    float acc = 0.f;
+    for (int r = 0; r < nv; ++r)
+      acc = fmaf(dgh_at(dG, H, r, gj), ht[r * H + i], acc);
+    g[c.gru_whh + idx] += acc;
+  }
+  if (c.gru_bih >= 0)
+    for (int gj = threadIdx.x; gj < H3; gj += blockDim.x) {
+      float a = 0.f, b = 0.f;
+      for (int r = 0; r < nv; ++r) {
+        a += dG[r * 4 * H + gj];
+        b += dgh_at(dG, H, r, gj);
+      }
+      g[c.gru_bih + gj] += a;
+      g[c.gru_bhh + gj] += b;
+    }
+  const float* Whh = sw + c.gru_whh;
+  for (int idx = threadIdx.x; idx < RH; idx += blockDim.x) {
+    int r = idx / H, i = idx - r * H;
+    float acc = dhe[idx] * sv[RH + idx];                      // dh' * z
+    for (int gj = 0; gj < H3; ++gj)
+      acc = fmaf(dgh_at(dG, H, r, gj), ldw<GW>(Whh + gj * H + i), acc);
+    float t = ht[idx];
+    float d1 = dh1[idx] + acc * (1.f - t * t);
+    dh1[idx] = d1;
+    df[idx] = dt * d1;
+  }
+  __syncthreads();
+}
+
 // One step forward for the CTA's rows, from the carries in smem (h, lx,
-// tau, X, obs and, masked, M already loaded): fills h1, h2, the encoder
+// tau, X, obs and, masked, M already loaded): fills h1, h2, the jump's
 // input tX, the ODE input, the readout inputs and outputs (y_bj rows
-// 0..R-1, y rows R..2R-1), with every MLP's saved activations.
+// 0..R-1, y rows R..2R-1), with every MLP's saved activations (and, with
+// use_rnn, the GRU's saved gates).
 template <bool GW, int RT>
 __device__ void step_forward(const ScanCfg& c, float* sm, const float* wg,
                              float t, float dt,
@@ -399,7 +548,7 @@ __device__ void step_forward(const ScanCfg& c, float* sm, const float* wg,
     else v = tau[r] + tdiff;                 // input_current_t feature
     in_ode[idx] = v;
   }
-  if (!c.masked)
+  if (!c.masked || c.use_rnn)      // the encoder's or the GRU's input
     for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x)
       tX[idx] = tanhf(X[idx]);
   __syncthreads();
@@ -408,7 +557,7 @@ __device__ void step_forward(const ScanCfg& c, float* sm, const float* wg,
   float* f = sm + c.o_f; float* enc = sm + c.o_enc;
   float* h1 = sm + c.o_h1; float* h2 = sm + c.o_h2;
   float* in_ro = sm + c.o_in_ro;
-  if (c.masked) {
+  if (c.masked && !c.use_rnn) {
     const float* M = sm + c.o_M;
     float* Xi = sm + c.o_Xi;
     for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
@@ -443,17 +592,28 @@ __device__ void step_forward(const ScanCfg& c, float* sm, const float* wg,
     mc.half = 2 * R;
     return;
   }
-  mlp_fwd<GW>(c, c.enc, sm, wg, tX, R, enc, mc);
-  for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
-    int r = idx / H, j = idx - r * H;
-    float a = h[idx] + dt * f[idx];
-    float he = residual(c.enc_case, c.enc_mult, X + r * D, D, j) + enc[idx];
-    float o = obs[r];
-    float b = o * he + (1.f - o) * a;
-    h1[idx] = a;
-    h2[idx] = b;
-    in_ro[idx] = tanhf(a);
-    in_ro[R * H + idx] = tanhf(b);
+  if (c.use_rnn) {
+    for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
+      float a = h[idx] + dt * f[idx];
+      h1[idx] = a;
+      in_ro[idx] = tanhf(a);
+    }
+    __syncthreads();
+    gru_fwd<GW>(c, sm, wg, R);
+  } else {
+    mlp_fwd<GW>(c, c.enc, sm, wg, tX, R, enc, mc);
+    for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
+      int r = idx / H, j = idx - r * H;
+      float a = h[idx] + dt * f[idx];
+      float he = residual(c.enc_case, c.enc_mult, X + r * D, D, j)
+                 + enc[idx];
+      float o = obs[r];
+      float b = o * he + (1.f - o) * a;
+      h1[idx] = a;
+      h2[idx] = b;
+      in_ro[idx] = tanhf(a);
+      in_ro[R * H + idx] = tanhf(b);
+    }
   }
   __syncthreads();
   mc.half = R; mc.jump = c.ro.n_lin - 1;   // rows >= R use the r2 slots
@@ -655,7 +815,7 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
     }
     __syncthreads();
     const float* in_ro = sm + c.o_in_ro;
-    if (!c.masked) {
+    if (!c.masked || c.use_rnn) {
       // stacked readout backward
       mc.half = R; mc.jump = c.ro.n_lin - 1;
       const float* d_rin = mlp_bwd<GW>(c, c.ro, sm, wg, g, in_ro, 2 * R,
@@ -677,8 +837,9 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
       }
       __syncthreads();
       mc.half = 2 * R; mc.jump = 0;
-      // encoder backward: X is data, only the weights get gradients
-      mlp_bwd<GW>(c, c.enc, sm, wg, g, sm + c.o_tX, R, dhe, false, mc);
+      // the jump's backward: X is data, only the weights get gradients
+      if (c.use_rnn) gru_bwd<GW>(c, sm, wg, g, R, nv, dt);
+      else mlp_bwd<GW>(c, c.enc, sm, wg, g, sm + c.o_tX, R, dhe, false, mc);
     } else {
       mc.half = 2 * R; mc.jump = 0;
       // post-jump readout backward (input tanh h2)

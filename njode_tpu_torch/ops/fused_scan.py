@@ -19,16 +19,28 @@ tensors they launch the kernel or raise. ``scan_bwd_plain`` takes its
 gradients from ``torch.autograd`` over a re-run of each step, so it is
 independent of the hand-derived BPTT in the CUDA source.
 
-Kernel scope (``supported``): masked (with ``output_size ==
-input_size``) or unmasked, no GRU jump, euler, standard or easy loss,
-tanh/relu MLPs of any depth up to ``MAX_LIN`` linears, residual cases
-0/1/2, ``input_current_t`` on or off, fp32, and the activations of at
-least one batch row within the shared memory of one CTA. The masked
-branch imputes the unobserved
-coordinates from the pre-jump readout, so its two readouts run one after
-the other (pre-jump, encoder on ``[tanh X_imp, M]``, post-jump) instead of
-as one stacked chain, and ``last_X`` records the post-jump prediction. The
-GRU jump (``use_rnn``) is not ported yet (ROADMAP.md Queue 2).
+Kernel scope (``supported``): masked or unmasked (both with
+``output_size == input_size``), the encoder jump or the GRU jump
+(``use_rnn``), euler, standard or easy loss, tanh/relu MLPs of any depth
+up to ``MAX_LIN`` linears, residual cases 0/1/2, ``input_current_t`` on or
+off, with or without bias, fp32, and the activations of at least one batch
+row within the shared memory of one CTA. The masked branch imputes the
+unobserved coordinates from the pre-jump readout, so its two readouts run
+one after the other (pre-jump, encoder on ``[tanh X_imp, M]``, post-jump)
+instead of as one stacked chain, and ``last_X`` records the post-jump
+prediction.
+
+The GRU jump replaces the encoder at observed rows, masked or not:
+``h' = GRUCell(tanh X, tanh h1)`` on the raw observation, in torch's gate
+order r, z, n (gate g at row offset ``g*H`` of ``weight_ih [3H, D]`` and
+``weight_hh [3H, H]``): ``n = tanh(gi_n + r * gh_n)`` with ``b_hh_n`` inside
+``gh_n``, so ``b_hh_n``'s gradient is ``r * da_n``, not ``da_n``. Both
+readouts then run as one stacked chain even when masked; a masked config
+keeps its M-weighted loss and ``last_X = y``. The encoder runs only at t=0,
+outside the kernels (its dropout slots stay in S, unused in the scan). The
+kernels save ``(r, z, n, gh_n)`` per row and unit (region ``gru``) and the
+backward's gate gradients (``dG``), regions the layout holds only with
+``use_rnn``.
 
 Plans (``Spec.plan``, ``Spec.rows``; the counterpart of the JAX kernel's
 ``_select_plan``). 'resident': every weight and its gradient in the shared
@@ -56,18 +68,18 @@ MAX_ROWS = 16             # batch rows per CTA (csrc/fused_scan.cu MAX_ROWS)
 ROW_CHOICES = (16, 8, 4, 2, 1)
 PLANS = ("resident", "global")
 MAX_LIN = 8               # Linear layers per MLP
-MAX_LEAVES = 3 * 2 * MAX_LIN
+MAX_LEAVES = 3 * 2 * MAX_LIN + 4      # three MLPs and the GRU's four leaves
 SMEM_LIMIT = 232448       # bytes of shared memory one CTA may use (H100)
 
 # launches per kernel; a wrapper adds one where it launches its kernel.
-# K1-K3 count each plan apart (the '_global' keys: the global plan's
-# instantiations). 'philox_keep' (K4) runs inside K1/K2: it counts their
-# 'prng'-mode launches; 'philox_masks' counts the stand-alone mask dump used
-# by tests and timing.
-LAUNCHES = {"njode_scan_fwd": 0, "njode_scan_eval": 0, "njode_scan_bwd": 0,
-            "njode_scan_fwd_global": 0, "njode_scan_eval_global": 0,
-            "njode_scan_bwd_global": 0,
-            "philox_keep": 0, "reduce_partials": 0, "philox_masks": 0}
+# K1-K3 count each branch and plan apart ('_rnn': the GRU jump; '_global':
+# the global plan's instantiations). 'philox_keep' (K4) runs inside K1/K2:
+# it counts their 'prng'-mode launches; 'philox_masks' counts the
+# stand-alone mask dump used by tests and timing.
+LAUNCHES = {k + rnn + plan: 0
+            for k in ("njode_scan_fwd", "njode_scan_eval", "njode_scan_bwd")
+            for rnn in ("", "_rnn") for plan in ("", "_global")}
+LAUNCHES.update(philox_keep=0, reduce_partials=0, philox_masks=0)
 
 
 def reset_launch_counts():
@@ -97,6 +109,7 @@ class Spec:
             cfg.output_size
         self.ict = bool(cfg.input_current_t)
         self.masked = bool(cfg.masked)
+        self.use_rnn = bool(cfg.use_rnn)
         self.ode_w = net_widths(cfg, "ode_f")
         self.enc_w = net_widths(cfg, "encoder")
         self.ro_w = net_widths(cfg, "readout")
@@ -118,13 +131,20 @@ class Spec:
         self.s_r2 = self.s_r1 + self.n_ro
         self.S = self.s_r2 + self.n_ro
         # flat leaf order: ode layers, enc layers, readout layers; per layer
-        # weight [out, in] then bias [out]
+        # weight [out, in] then bias [out]; then, with use_rnn, the GRU's
+        # weight_ih [3H, D], weight_hh [3H, H] (and bias_ih, bias_hh [3H])
         self.leaf_shapes = []
         for ws in (self.ode_w, self.enc_w, self.ro_w):
             for a, b in zip(ws[:-1], ws[1:]):
                 self.leaf_shapes.append((b, a))
                 if self.bias:
                     self.leaf_shapes.append((b,))
+        self.gru_leaf0 = len(self.leaf_shapes)
+        if self.use_rnn:
+            H3 = 3 * self.H
+            self.leaf_shapes += [(H3, self.D), (H3, self.H)]
+            if self.bias:
+                self.leaf_shapes += [(H3,), (H3,)]
         self.leaf_off = [0]
         for s in self.leaf_shapes:
             n = 1
@@ -159,7 +179,9 @@ class Spec:
         return min(int((1.0 - self.rate) * 2.0 ** 32), 2 ** 32 - 1)
 
     def split(self, flat):
-        """Per-MLP lists of (W, b) from the flat leaf list."""
+        """Per-MLP lists of (W, b) from the flat leaf list, and the GRU's
+        ``(weight_ih, weight_hh, bias_ih, bias_hh)`` (None without
+        use_rnn; the biases None without bias)."""
         out, i = [], 0
         for ws in (self.ode_w, self.enc_w, self.ro_w):
             layers = []
@@ -172,6 +194,11 @@ class Spec:
                     i += 1
                 layers.append((w, b))
             out.append(layers)
+        gru = None
+        if self.use_rnn:
+            gru = tuple(flat[i:i + 4]) if self.bias else (
+                flat[i], flat[i + 1], None, None)
+        out.append(gru)
         return out
 
     def layout(self, R: int = MAX_ROWS, plan: str = "resident"):
@@ -181,9 +208,13 @@ class Spec:
         only. ``tX`` holds the encoder's input
         (``tanh X``, or ``[tanh X_imp, M]`` when masked); ``M`` and ``Xi``
         (``X_imp``) are empty unless masked. The readout's saved
-        activations hold one stacked pass of 2R rows, or, when masked, the
-        pre-jump pass of R rows at ``s_ro`` and the post-jump one at
-        ``s_ro2``."""
+        activations hold one stacked pass of 2R rows, or, when masked
+        without use_rnn, the pre-jump pass of R rows at ``s_ro`` and the
+        post-jump one at ``s_ro2``. With use_rnn, ``tX`` holds the GRU's
+        input ``tanh X`` (R x D), ``in_ro[0:R*H]`` its ``tanh h1``, and two
+        regions follow the others, so the other configs' offsets and sizes
+        stay: ``gru`` (the saved r, z, n, gh_n, 4 x R x H) and ``dG`` (the
+        backward's da_r, da_z, da_n, dgh_n per row, R x 4H)."""
         R2 = 2 * R
         D, H, O, P = self.D, self.H, self.O, self.n_params
         DM = D if self.masked else 0
@@ -216,6 +247,9 @@ class Spec:
                            ("dhe", R * H), ("df", R * H), ("dlxc", R * D),
                            ("dtauc", R)):
             take(name, size)
+        if self.use_rnn:
+            take("gru", 4 * R * H)
+            take("dG", 4 * R * H)
         return off, n
 
     @property
@@ -235,7 +269,6 @@ def supported(cfg) -> bool:
             and cfg.which_loss in ("standard", "easy")
             and cfg.ode_nn is not None and cfg.readout_nn is not None
             and cfg.enc_nn is not None
-            and not cfg.use_rnn
             and cfg.output_size == cfg.input_size
             and getattr(cfg, "compute_dtype", "float32") == "float32"):
         return False
@@ -258,6 +291,11 @@ def flat_leaves(model):
             out.append(lin.weight)
             if lin.bias is not None:
                 out.append(lin.bias)
+    if model.cfg.use_rnn:
+        gru = model.obs_c.gru_d
+        out += [gru.weight_ih, gru.weight_hh]
+        if gru.bias:
+            out += [gru.bias_ih, gru.bias_hh]
     return out
 
 
@@ -347,10 +385,22 @@ def _step_masks_plain(spec, k, train, u, seed, B, device):
     return [m[s] for s in range(spec.S)]
 
 
+def _gru_plain(gru, x, h):
+    """torch's GRUCell (gate order r, z, n) from its four leaves."""
+    w_ih, w_hh, b_ih, b_hh = gru
+    gi_r, gi_z, gi_n = F.linear(x, w_ih, b_ih).chunk(3, dim=-1)
+    gh_r, gh_z, gh_n = F.linear(h, w_hh, b_hh).chunk(3, dim=-1)
+    r = torch.sigmoid(gi_r + gh_r)
+    z = torch.sigmoid(gi_z + gh_z)
+    n = torch.tanh(gi_n + r * gh_n)
+    return (1.0 - z) * n + z * h
+
+
 def _step_plain(spec, nets, h, last_X, tau, t, dt, obs, X, M, us):
-    """One step of the NJODE recursion (the stacked readouts, or the
-    masked imputation branch); returns (h2, last_X', tau', y, y_bj)."""
-    ws_ode, ws_enc, ws_ro = nets
+    """One step of the NJODE recursion (the stacked readouts after the
+    encoder or GRU jump, or the masked imputation branch); returns (h2,
+    last_X', tau', y, y_bj)."""
+    ws_ode, ws_enc, ws_ro, gru = nets
 
     def sl(a, n):
         return None if us is None or n == 0 else us[a:a + n]
@@ -370,7 +420,7 @@ def _step_plain(spec, nets, h, last_X, tau, t, dt, obs, X, M, us):
     h1 = h + dt * f
     obs_c = obs[:, None]
     u_enc = sl(spec.s_enc, spec.n_enc)
-    if spec.masked:
+    if spec.masked and not spec.use_rnn:
         # the pre-jump readout imputes the unobserved coordinates
         y_bj = readout(h1, sl(spec.s_r1, spec.n_ro))
         X_imp = X * M + (1.0 - M) * y_bj
@@ -381,11 +431,15 @@ def _step_plain(spec, nets, h, last_X, tau, t, dt, obs, X, M, us):
                                    enc_o)
         h2 = obs_c * h_enc + (1.0 - obs_c) * h1
         y = readout(h2, sl(spec.s_r2, spec.n_ro))
-        new_last = y
     else:
-        enc_o = _mlp_plain(ws_enc, spec.enc_a, torch.tanh(X), u_enc,
-                           spec.rate)
-        h_enc = mlp.residual_apply(spec.enc_case, spec.enc_mult, X, enc_o)
+        if spec.use_rnn:
+            # the GRU jump on the raw observation, masked or not
+            h_enc = _gru_plain(gru, torch.tanh(X), torch.tanh(h1))
+        else:
+            enc_o = _mlp_plain(ws_enc, spec.enc_a, torch.tanh(X), u_enc,
+                               spec.rate)
+            h_enc = mlp.residual_apply(spec.enc_case, spec.enc_mult, X,
+                                       enc_o)
         h2 = obs_c * h_enc + (1.0 - obs_c) * h1
         u_r = None
         if us is not None and spec.n_ro:
@@ -394,7 +448,8 @@ def _step_plain(spec, nets, h, last_X, tau, t, dt, obs, X, M, us):
         y2 = readout(torch.cat([h1, h2], dim=0), u_r)
         B = h.shape[0]
         y_bj, y = y2[:B], y2[B:]
-        new_last = X
+    # a masked config records the post-jump prediction as last_X
+    new_last = y if spec.masked else X
     last_X2 = torch.where(obs_c > 0, new_last, last_X)
     tau2 = torch.where(obs_c > 0, t.expand_as(tau), tau)
     return h2, last_X2, tau2, y, y_bj
@@ -537,7 +592,7 @@ class _MLPDesc(ctypes.Structure):
 _LAYOUT_FIELDS = ("w", "g", "h", "lx", "tau", "X", "obs", "nobs", "lrow",
                   "h1", "h2", "in_ode", "tX", "in_ro", "f", "enc", "ro",
                   "dA", "dB", "dh", "dlx", "dtau", "rs", "dst", "dh1", "dhe",
-                  "df", "dlxc", "dtauc", "M", "Xi")
+                  "df", "dlxc", "dtauc", "M", "Xi", "gru", "dG")
 
 
 class _ScanCfg(ctypes.Structure):
@@ -545,11 +600,12 @@ class _ScanCfg(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_int) for n in (
         "K", "B", "D", "H", "O", "S", "Wmax", "n_params", "n_leaves",
         "enc_case", "enc_mult", "ro_case", "ro_mult", "easy", "ict",
-        "mode", "masked")]
+        "mode", "masked", "use_rnn")]
         + [("thresh", ctypes.c_uint32), ("keep", ctypes.c_float),
            ("weight", ctypes.c_float)]
         + [(n, ctypes.c_int) for n in ("rows", "plan", "buf_w",
-                                       "smem_floats")]
+                                       "smem_floats", "gru_wih", "gru_whh",
+                                       "gru_bih", "gru_bhh")]
         + [("leaf_off", ctypes.c_int * (MAX_LEAVES + 1))]
         + [("o_" + n, ctypes.c_int) for n in _LAYOUT_FIELDS]
         + [("ode", _MLPDesc), ("enc", _MLPDesc), ("ro", _MLPDesc),
@@ -558,7 +614,8 @@ class _ScanCfg(ctypes.Structure):
 
 def make_cfg(spec: Spec, K: int, B: int, train: bool, weight: float):
     """The kernels' configuration for one call (host memory), in the
-    spec's plan; the global plan has no ``w``/``g`` regions (their
+    spec's plan; the global plan has no ``w``/``g`` regions, and a config
+    without use_rnn no ``gru``/``dG`` regions and no GRU leaves (their
     offsets are -1)."""
     off, total = spec.layout(spec.rows, spec.plan)
     c = _ScanCfg()
@@ -571,6 +628,11 @@ def make_cfg(spec: Spec, K: int, B: int, train: bool, weight: float):
     dropping = train and spec.rate > 0.0 and spec.S > 0
     c.mode = 0 if not dropping else (1 if spec.mask_mode == "input" else 2)
     c.masked = int(spec.masked)
+    c.use_rnn = int(spec.use_rnn)
+    gru_offs = [-1] * 4
+    for i in range(len(spec.leaf_shapes) - spec.gru_leaf0):
+        gru_offs[i] = spec.leaf_off[spec.gru_leaf0 + i]
+    c.gru_wih, c.gru_whh, c.gru_bih, c.gru_bhh = gru_offs
     c.thresh = spec.thresh
     c.keep = 1.0 - spec.rate
     c.weight = float(weight)
@@ -645,8 +707,10 @@ def packed_weights(spec, leaves):
     return torch.cat([p.reshape(-1) for p in leaves])
 
 
-def _plan_key(spec):
-    return "_global" if spec.plan == "global" else ""
+def _launch_key(spec):
+    """The ``LAUNCHES`` suffix of the spec's branch and plan."""
+    return ("_rnn" if spec.use_rnn else "") + (
+        "_global" if spec.plan == "global" else "")
 
 
 def _raise_rc(lib, rc, what):
@@ -711,7 +775,7 @@ def scan_fwd_cuda(spec, leaves, arrays, weight, h0, train, u=None,
             int(want_hists), stream)
     _raise_rc(lib, rc, "njode_scan_fwd")
     LAUNCHES[("njode_scan_fwd" if want_hists else "njode_scan_eval")
-             + _plan_key(spec)] += 1
+             + _launch_key(spec)] += 1
     if cfg.mode == 2:
         LAUNCHES["philox_keep"] += 1
     loss = reduce_partials_cuda(loss_part.view(n_cta, 1), 1.0 / B)
@@ -748,7 +812,7 @@ def scan_bwd_cuda(spec, leaves, arrays, weight, train, hists, dloss,
             _ptr(hh), _ptr(lxh), _ptr(tauh), _ptr(dloss), _ptr(partials),
             _ptr(dh0), stream)
     _raise_rc(lib, rc, "njode_scan_bwd")
-    LAUNCHES["njode_scan_bwd" + _plan_key(spec)] += 1
+    LAUNCHES["njode_scan_bwd" + _launch_key(spec)] += 1
     if cfg.mode == 2:
         LAUNCHES["philox_keep"] += 1
     flat = reduce_partials_cuda(partials, 1.0)
@@ -850,10 +914,12 @@ class FusedNJODELoss(torch.autograd.Function):
 def _require_supported(cfg):
     if not supported(cfg):
         raise NotImplementedError(
-            "config outside the fused kernels' scope (use_rnn or "
-            "output_size != input_size: ROADMAP.md Queue 2; activations of "
-            "one row beyond one CTA's shared memory); use "
-            "models.njode.forward")
+            "config outside the fused kernels' scope (output_size != "
+            "input_size: ROADMAP.md Queue 2; a solver other than euler, a "
+            "loss other than standard or easy, an MLP that is missing, "
+            "deeper than MAX_LIN or not tanh/relu, a compute_dtype other "
+            "than float32, or activations of one row beyond one CTA's "
+            "shared memory); use models.njode.forward")
 
 
 def t0_state(model, batch, enc_masks=None):

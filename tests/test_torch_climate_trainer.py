@@ -223,8 +223,10 @@ def _train(clim, tmp, **kw):
     dict(other_model="GRU_ODE_Bayes", use_pallas=True,
          **{"GRU_ODE_Bayes-p_hidden": 5, "GRU_ODE_Bayes-prep_hidden": 3}),
     dict(other_model="GRU_ODE_Bayes", cov_file="cov.csv", use_pallas=True,
-         **{"GRU_ODE_Bayes-p_hidden": 5, "GRU_ODE_Bayes-prep_hidden": 3})],
-    ids=["njode_kernels", "njode_collate", "gob_kernels", "gob_cov_file"])
+         **{"GRU_ODE_Bayes-p_hidden": 5, "GRU_ODE_Bayes-prep_hidden": 3}),
+    dict(use_rnn=True, use_pallas=True)],
+    ids=["njode_kernels", "njode_collate", "gob_kernels", "gob_cov_file",
+         "njode_rnn_kernels"])
 def test_climate_trainer_end_to_end(clim, tmp_path, kw, capsys):
     """Two epochs on the CPU: the metric CSV has the JAX trainer's columns
     with finite values, both checkpoint slots hold the model, and a second

@@ -230,19 +230,28 @@ def test_cuda_route_raises_instead_of_falling_back(monkeypatch):
 
 
 def test_unsupported_configs_raise():
-    """The GRU jump and a masked config whose output differs from its
-    input are outside the kernels; a masked config with ``output_size ==
-    input_size`` is inside."""
-    for kw in (dict(masked=True, output_size=1), dict(use_rnn=True),
-               dict(use_rnn=True, masked=True)):
+    """A config whose output differs from its input (masked or not, with
+    or without the GRU jump) and an MLP deeper than ``MAX_LIN`` linears are
+    outside the kernels; a masked config with ``output_size ==
+    input_size`` and the GRU jump, masked or not, are inside."""
+    deep = ((8, "tanh"),) * fs.MAX_LIN
+    for kw in (dict(masked=True, output_size=1),
+               dict(use_rnn=True, output_size=1),
+               dict(use_rnn=True, masked=True, output_size=1),
+               dict(use_rnn=True, ode_nn=deep)):
         _, tcfg = H.configs(2, 10, **kw)
         assert not fs.supported(tcfg)
         with pytest.raises(NotImplementedError):
             fs.make_fused_loss_fn(tcfg)
         with pytest.raises(NotImplementedError):
             fs.make_fused_eval_fn(tcfg)
-    _, masked = H.configs(2, 10, masked=True)
-    assert fs.supported(masked)
+    for kw in (dict(masked=True), dict(use_rnn=True),
+               dict(use_rnn=True, masked=True),
+               dict(use_rnn=True, bias=False)):
+        _, tcfg = H.configs(2, 10, **kw)
+        assert fs.supported(tcfg)
+        fs.make_fused_loss_fn(tcfg)
+        fs.make_fused_eval_fn(tcfg)
     _, main = H.configs(1, 10, ode_nn=((50, "tanh"), (50, "tanh")),
                         readout_nn=((50, "tanh"), (50, "tanh")),
                         enc_nn=((50, "tanh"), (50, "tanh")),
@@ -292,6 +301,12 @@ def test_config_struct_mirrors_the_cuda_source():
         str(fs.MAX_ROWS)
     assert re.search(r"#define MAX_LIN (\d+)", src).group(1) == \
         str(fs.MAX_LIN)
+    assert re.search(r"#define MAX_LEAVES (\d+)", src).group(1) == \
+        str(fs.MAX_LEAVES)
+    # the GRU's leaf offsets and regions follow the layout fields
+    names = [f[0] for f in fs._ScanCfg._fields_]
+    assert {"use_rnn", "gru_wih", "gru_whh", "gru_bih", "gru_bhh", "o_gru",
+            "o_dG"} <= set(names)
 
 
 def _arm_cfg(D, hidden, width, masked):

@@ -6,7 +6,8 @@ per CTA, and ``dt==0`` padding steps; and the masked branch (the climate
 model family): the masked cases of tests/test_fused_scan.py with partial
 coordinate masks, ragged batches, trailing ``dt==0`` padding, a leading
 ``dt==0`` step that carries t=0 observations, the climate widths, and one
-grid of K = 2004 steps (the climate grid); and every one of these cases
+grid of K = 2004 steps (the climate grid); the GRU jump (``use_rnn``),
+unmasked and masked, with and without bias; and every one of these cases
 again in the global plan (weights in device memory, gradients added into
 the CTA's partial row) at 16 and at 4 rows per CTA, bit for bit what the
 resident plan gives at 16 rows.
@@ -52,6 +53,12 @@ VARIANTS = [
                                                       bias=False)),
     ("residual_case2", 4, 2, 21, 20, 0, dict()),
     ("padding", 1, 10, 17, 20, 4, dict()),
+    ("rnn_main", 1, 10, 48, 30, 0, dict(
+        use_rnn=True, ode_nn=((50, "tanh"), (50, "tanh")),
+        readout_nn=((50, "tanh"), (50, "tanh")),
+        enc_nn=((50, "tanh"), (50, "tanh")))),
+    ("rnn_nobias_easy_ict_padding", 2, 10, 37, 20, 3, dict(
+        use_rnn=True, bias=False, which_loss="easy", input_current_t=True)),
 ]
 
 
@@ -221,6 +228,12 @@ MASKED_VARIANTS = [
     ("masked_t0_step", 3, 12, 29, 20, 2, True, dict(input_current_t=True)),
     ("masked_climate_widths", 5, 10, 37, 30, 0, False,
      dict(ode_nn=((50, "tanh"), (50, "tanh")),
+          readout_nn=((50, "tanh"), (50, "tanh")),
+          enc_nn=((50, "tanh"), (50, "tanh")))),
+    ("masked_rnn_t0_step", 3, 12, 29, 20, 2, True,
+     dict(use_rnn=True, input_current_t=True)),
+    ("masked_rnn_nobias_climate_widths", 5, 10, 37, 30, 0, False,
+     dict(use_rnn=True, bias=False, ode_nn=((50, "tanh"), (50, "tanh")),
           readout_nn=((50, "tanh"), (50, "tanh")),
           enc_nn=((50, "tanh"), (50, "tanh")))),
 ]

@@ -167,9 +167,10 @@ def test_plain_k3_matches_pallas_eval():
 
 def test_masked_kernels_route_and_gates(monkeypatch):
     """``supported`` admits masked configs with output == input, those
-    whose weights overflow one CTA among them, and rejects the GRU jump;
-    the shared memory of the masked layout is
-    counted; a CUDA-routed masked config never takes the plain version."""
+    whose weights overflow one CTA among them, and the GRU jump, and
+    rejects output != input with or without it; the shared memory of the
+    masked layout is counted; a CUDA-routed masked config never takes the
+    plain version."""
     nn = ((50, "tanh"), (50, "tanh"))
     _, climate = H.configs(5, 10, ode_nn=nn, readout_nn=nn, enc_nn=nn,
                            dropout_rate=0.1, masked=True)
@@ -180,9 +181,11 @@ def test_masked_kernels_route_and_gates(monkeypatch):
     _, unmasked = H.configs(5, 10, ode_nn=nn, readout_nn=nn, enc_nn=nn,
                             dropout_rate=0.1)
     assert fs.Spec(unmasked).smem_bytes < spec.smem_bytes
-    for kw in (dict(output_size=2), dict(use_rnn=True)):
+    for kw in (dict(output_size=2), dict(use_rnn=True, output_size=2)):
         _, cfg = H.configs(3, 12, masked=True, **kw)
         assert not fs.supported(cfg)
+    _, cfg = H.configs(3, 12, masked=True, use_rnn=True)
+    assert fs.supported(cfg)
     _, phys = H.configs(41, 41, ode_nn=nn, readout_nn=nn, enc_nn=nn,
                         masked=True)
     # 334,336 B resident: the weights stay in device memory (global plan)

@@ -175,8 +175,10 @@ def _train(phys, tmp, **kw):
 
 @pytest.mark.parametrize("kw", [dict(use_pallas=True),
                                 dict(prestack=False, use_pallas=True,
-                                     eval_input_prob=0.5)],
-                         ids=["prestacked", "collate_eval_input"])
+                                     eval_input_prob=0.5),
+                                dict(use_rnn=True, use_pallas=True)],
+                         ids=["prestacked", "collate_eval_input",
+                              "prestacked_rnn"])
 def test_physionet_trainer_end_to_end(phys, tmp_path, kw, capsys):
     """Two epochs on the CPU through the fused kernels' plain versions: the
     metric CSV has the JAX trainer's columns with finite values, both
