@@ -1,22 +1,145 @@
-"""A/B timing of the NJODE scan kernels (K1-K3, resident plan) of one
+"""A/B timing of the NJODE scan kernels (K1-K3) and reduce_partials of one
 checkout on one CUDA card, to compare two versions within one machine.
 
-    python3 ab_scan_kernels.py ROOT TAG
+    python3 ab_scan_kernels.py ROOT TAG [witness]
 
 ROOT is a checkout holding ``njode_tpu_torch/`` and ``chip_smoke.py`` (e.g.
 the parent commit unpacked with ``git archive`` into a git-ignored
 directory); TAG names it in the output. Run the versions alternately in one
 call (parent, change, change, parent). Prints the build time, ptxas's
-register and spill lines, then one line of CUDA-event ms: the main path's
-K1/K2/K3 ('prng', K = 100) at B = 200 and 100, and the masked K1/K2/K3 at
-the climate small arm's widths on a synthetic masked batch (B = 100,
-K = 2,004, 2 % of the rows observed a step)."""
+register and spill lines, then one line of CUDA-event ms:
 
+- the resident plan: the main path's K1/K2/K3 ('prng', K = 100) at B = 200
+  and 100, and the masked K1/K2/K3 at the climate small arm's widths
+  (B = 100, K = 2,004);
+- the global plan: K1/K2/K3 at the PhysioNet 50 arm (D = H = 41, width 50,
+  B = 50, K = 3,006) forced into it at 16 rows, and in the resident plan
+  at 4 rows beside it, the PhysioNet 200 arm (width 200, same grid) and
+  the climate 400 arm (D 5, H 50, width 400, B = 100, K = 2,004);
+- reduce_partials at the partials of the main path, the PhysioNet 50 arm
+  and the climate 400 arm: the device time per launch from torch.profiler
+  (``red...``) and, the old yardstick, CUDA events around a Python loop of
+  wrapper calls (``red...host``).
+
+Every arm runs on a synthetic masked batch (2 % of the rows observed a
+step, 40 % of an observed row's coordinates), its model from the
+checkout's ``chip_smoke._masked_njode``.
+
+With ``witness`` it runs ``draw_witness`` instead of the timings: K1 of
+the PhysioNet 200 arm on masks drawn as chip_smoke.py drew them, one line
+a draw with a digest of K1's output bits (equal digests: equal bits in two
+checkouts) and its histories against the plain version in fp32 and in
+fp64."""
+
+import hashlib
 import sys
 import time
 
 
-def main(root, tag):
+def device_ms(fn, name, reps=50):
+    """Device time per call of ``fn`` of the kernels whose name holds
+    ``name`` (torch.profiler), or None."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", 0.0)
+                or getattr(e, "cuda_time_total", 0.0)
+                for e in prof.key_averages() if name in e.key)
+    return total / 1e3 / reps if total > 0 else None
+
+
+def draw_witness(cs, fs, dev, tag):
+    """K1 of the PhysioNet 200 arm in 'prng' mode over the first 100 steps
+    of the stand-in's first batch (chip_smoke.py's check), on the two draws
+    chip_smoke.py's physionet_kernels phase made when every arm drew from
+    one generator, replayed from it (seed 4: the plan checks of the main
+    path and the climate small arm, the 50 arm's K = 100 and K = 3,006
+    checks, with ('shared_resident') or without ('shared') the 50 arm's two
+    checks in the resident plan, then the 200 arm's 'input' draw), and on
+    fresh draws. Prints, per draw, a digest of K1's
+    loss and histories and the histories' largest distance |a - b| and
+    share of GRAD_TOL (|a - b| / (atol + rtol |b|), 1 at the limit): the
+    kernel against the plain version in fp32 (chip_smoke.py's check) and
+    in fp64, and the fp32 plain version against the fp64 one."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    cs.physionet_setup(res)
+    b = cs._first_steps(res["phys"]["batch"], 100)
+    K, B = b.obs.shape
+    cfg, model = cs._masked_njode(41, 41, 200, dev)
+    leaves = [p.detach() for p in fs.flat_leaves(model)]
+    arrays = fs.batch_arrays(b)
+    with torch.no_grad():
+        h0 = fs.t0_state(model, b)
+    spec = fs.Spec(cfg, "prng")
+
+    def u_draw(gen, cfg_u, K_u, B_u):
+        s = fs.Spec(cfg_u, "input")
+        torch.rand((K_u, s.S, B_u, s.w_max), generator=gen, device=dev)
+
+    def seed_draw(gen):
+        return torch.randint(0, 2 ** 62, (1,), generator=gen, device=dev,
+                             dtype=torch.int64)
+
+    def replayed(resident_checks):
+        gen = torch.Generator(device=dev).manual_seed(4)
+        main_cfg = cs.main_path_setup(200, 100, 0, dev)[0]
+        cfg_c = cs._masked_njode(5, 10, 50, dev)[0]
+        cfg_50 = cs._masked_njode(41, 41, 50, dev)[0]
+        for cfg_u, B_u in ((main_cfg, 200), (cfg_c, 100)):
+            u_draw(gen, cfg_u, 100, B_u)
+            seed_draw(gen)
+        u_draw(gen, cfg_50, 100, 50)
+        seed_draw(gen)
+        seed_draw(gen)
+        if resident_checks:
+            u_draw(gen, cfg_50, 100, 50)
+            seed_draw(gen)
+        u_draw(gen, cfg, K, B)
+        return seed_draw(gen)
+
+    draws = [("shared", replayed(False)),
+             ("shared_resident", replayed(True))]
+    for i in range(4):
+        draws.append((f"fresh{i}", seed_draw(
+            torch.Generator(device=dev).manual_seed(100 + i))))
+    tol = cs.GRAD_TOL
+    leaves64 = [p.double() for p in leaves]
+    arrays64 = tuple(a.double() for a in arrays)
+
+    def dist(a, c):
+        d = (a.double() - c.double()).abs()
+        share = d / (tol["atol"] + tol["rtol"] * c.double().abs())
+        return float(d.max()), float(share.max())
+
+    for name, seed in draws:
+        lk, hk = fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, True, None,
+                                  seed)
+        torch.cuda.synchronize()
+        digest = hashlib.sha1(b"".join(
+            t.cpu().numpy().tobytes() for t in (lk, *hk))).hexdigest()[:16]
+        _, hp = fs.scan_fwd_plain(spec, leaves, arrays, 0.5, h0, True, None,
+                                  seed)
+        _, hd = fs.scan_fwd_plain(spec, leaves64, arrays64, 0.5, h0.double(),
+                                  True, None, seed)
+        ek, sk = dist(hk[0], hp[0])
+        ed, sd = dist(hk[0], hd[0])
+        ep, sp = dist(hp[0], hd[0])
+        print(tag, "witness", name, f"seed={int(seed)}", f"digest={digest}",
+              f"kernel_vs_fp32={ek:.4e}", f"share={sk:.3f}",
+              f"kernel_vs_fp64={ed:.4e}", f"share={sd:.3f}",
+              f"fp32_vs_fp64={ep:.4e}", f"share={sp:.3f}", flush=True)
+
+
+def main(root, tag, what="timing"):
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -34,12 +157,17 @@ def main(root, tag):
         if "registers" in ln or "spill" in ln or "Compiling" in ln:
             print(tag, ln.strip())
     dev = torch.device("cuda")
+    if what == "witness":
+        draw_witness(cs, fs, dev, tag)
+        return
     one = torch.ones((), device=dev)
     seed = torch.tensor([7], dtype=torch.int64, device=dev)
     out = {}
 
-    def time_three(cfg, leaves, arrays, h0, suffix, reps, warmup):
-        spec, spec3 = fs.Spec(cfg, "prng"), fs.Spec(cfg, "input")
+    def time_three(cfg, leaves, arrays, h0, suffix, reps, warmup,
+                   plan=None):
+        spec = fs.Spec(cfg, "prng", plan)
+        spec3 = fs.Spec(cfg, "input", plan)
         _, hists = fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, True,
                                     None, seed)
         out["K1" + suffix] = cs.cuda_ms(lambda: fs.scan_fwd_cuda(
@@ -59,29 +187,45 @@ def main(root, tag):
             h0 = model.encoder_map(batch.start_X)
         time_three(cfg, [p.detach() for p in fs.flat_leaves(model)], arrays,
                    h0, f" B={B}", 20, 2)
-    rs = np.random.RandomState(0)
-    K, B, D = 2004, 100, 5
-    obs = (rs.random((K, B)) < 0.02).astype(np.float32)
-    M = (rs.random((K, B, D)) < 0.4).astype(np.float32) * obs[:, :, None]
-    X = rs.normal(size=(K, B, D)).astype(np.float32) * M
-    times = (np.arange(1, K + 1) * 0.1).astype(np.float32)
-    b = GridBatch(times=torch.as_tensor(times, device=dev),
-                  dt=torch.full((K,), 0.1, device=dev),
-                  obs=torch.as_tensor(obs, device=dev),
-                  X=torch.as_tensor(X, device=dev),
-                  M=torch.as_tensor(M, device=dev),
-                  start_X=torch.zeros((B, D), device=dev),
-                  n_obs_ot=torch.as_tensor(obs.sum(0), device=dev))
-    if hasattr(cs, "_masked_njode"):
-        cfg, model = cs._masked_njode(5, 10, 50, dev)
-    else:                                 # checkouts before the global plan
-        cfg, model = cs._climate_njode(dev)
-    with torch.no_grad():
-        h0 = fs.t0_state(model, b)
-    time_three(cfg, [p.detach() for p in fs.flat_leaves(model)],
-               fs.batch_arrays(b), h0, "m", 3, 1)
+
+    def masked_batch(K, B, D):
+        rs = np.random.RandomState(0)
+        obs = (rs.random((K, B)) < 0.02).astype(np.float32)
+        M = (rs.random((K, B, D)) < 0.4).astype(np.float32) * obs[:, :, None]
+        X = rs.normal(size=(K, B, D)).astype(np.float32) * M
+        times = (np.arange(1, K + 1) * 0.1).astype(np.float32)
+        return GridBatch(times=torch.as_tensor(times, device=dev),
+                         dt=torch.full((K,), 0.1, device=dev),
+                         obs=torch.as_tensor(obs, device=dev),
+                         X=torch.as_tensor(X, device=dev),
+                         M=torch.as_tensor(M, device=dev),
+                         start_X=torch.zeros((B, D), device=dev),
+                         n_obs_ot=torch.as_tensor(obs.sum(0), device=dev))
+
+    # (suffix, D, H, width, B, K, timed calls, forced plan)
+    arms = [("m", 5, 10, 50, 100, 2004, 3, None),
+            ("g50", 41, 41, 50, 50, 3006, 3, ("global", 16)),
+            ("r50", 41, 41, 50, 50, 3006, 3, ("resident", 4)),
+            ("g200", 41, 41, 200, 50, 3006, 2, None),
+            ("g400", 5, 50, 400, 100, 2004, 2, None)]
+    for suffix, D, H, width, B, K, reps, plan in arms:
+        b = masked_batch(K, B, D)
+        cfg, model = cs._masked_njode(D, H, width, dev)
+        with torch.no_grad():
+            h0 = fs.t0_state(model, b)
+        time_three(cfg, [p.detach() for p in fs.flat_leaves(model)],
+                   fs.batch_arrays(b), h0, suffix, reps, 1, plan)
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for n_parts, n in ((13, 10071), (4, 24423), (25, 571305)):
+        P = torch.randn((n_parts, n), generator=gen, device=dev)
+        tag_s = f"red{n_parts}x{n}"
+        out[tag_s] = device_ms(lambda: fs.reduce_partials_cuda(P),
+                               "reduce_partials_kernel") or float("nan")
+        out[tag_s + "host"] = cs.cuda_ms(lambda: fs.reduce_partials_cuda(P),
+                                         200)
     print(tag, " ".join(f"{k}={v:.4f}" for k, v in out.items()), flush=True)
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:3])
+    main(*sys.argv[1:4])

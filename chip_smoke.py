@@ -10,9 +10,14 @@ power limit, and the final ``{"ok": true, ...}`` line:
 3. kernels  - every kernel against its plain PyTorch version at the main
               path's shapes (B=200, K=100, D=1, H=10, W=50, S=8, dropout
               0.1; the eval forward at B=4,000), in both mask modes, each
-              kernel run twice and compared bit for bit;
+              kernel run twice and compared bit for bit; reduce_partials
+              bit for bit its plain version at the gradient partials of
+              the main path, the PhysioNet 50 arm and the climate 400 arm
+              ([13, 10,071], [4, 24,423], [25, 571,305]);
 4. timing   - CUDA-event times of each kernel and its plain version, and
-              the least time the card could take (bound);
+              the least time the card could take (bound); reduce_partials'
+              device time per launch beside sum(dim=0)'s, both from
+              torch.profiler, and the old host-loop yardstick;
 5. trainer  - njode_tpu_torch.training.trainer.train on a 20,000-path
               BlackScholes dataset, 2 epochs of batch 100 with 'prng'
               dropout masks; losses must be finite and the launch counts
@@ -70,26 +75,33 @@ power limit, and the final ``{"ok": true, ...}`` line:
               0), the 80/20 split, the pre-stacked bank (K = 3,006 grid
               steps) and the first training batch of epoch 1 (B = 50);
 16. physionet_kernels - K1, K2 and K3 in the global plan (weights in
-              device memory) against their plain versions: the PhysioNet
-              50 arm (D = hidden = 41, three 2x50 tanh MLPs, dropout 0.1)
-              over the first 100 steps in both mask modes and over all
-              3,006 in 'prng' mode, step by step (``STEP_TOL``), the 200
-              arm and the climate 400 arm
-              (on the first climate batch) over the first 100 steps in both
-              modes, each kernel run twice and compared bit for bit; and
-              the global plan forced at 16 rows bit for bit against the
-              resident plan on the main path and on the climate small arm;
+              device memory, staged through the ring) against their plain
+              versions: the PhysioNet 50 arm (D = hidden = 41, three 2x50
+              tanh MLPs, dropout 0.1; forced into the global plan at 16
+              rows, the rule takes the resident plan at 4) over the first
+              100 steps in both mask modes and over all 3,006 in 'prng'
+              mode, step by step (``STEP_TOL``), the 200 arm and the
+              climate 400 arm (on the first climate batch) over the first
+              100 steps in both modes, each kernel run twice and compared
+              bit for bit; the 50 arm in the rule's resident plan at 4 rows
+              over 100 steps; and the global plan forced at 16 rows bit for
+              bit against the resident plan on the main path and on the
+              climate small arm;
 17. physionet_timing - CUDA-event times and bounds of the global plan's
-              K1/K2/K3 at the 50 and 200 arms (B = 50, K = 3,006) and at
-              the climate 400 arm (B = 100, K = 2,004), and of the 50 arm
-              in the resident plan forced at 4 rows;
+              K1/K2/K3 at the 50 arm (forced, 16 rows) and the 200 arm
+              (B = 50, K = 3,006) and at the climate 400 arm (B = 100,
+              K = 2,004), and of the 50 arm in the rule's resident plan at
+              4 rows;
 18. physionet_trainer - physionet_trainer.train at the 50 arm (batch 50,
-              'prng') for 2 epochs on the stand-in cut to 1,000 records
-              (800 train, 16 batches an epoch); losses and both metrics
-              finite, and the launch counts exact;
+              'prng', the resident plan at 4 rows) for 2 epochs on the
+              stand-in cut to 1,000 records (800 train, 16 batches an
+              epoch); losses and both metrics finite, and the launch counts
+              exact;
 19. physionet_rnn - the masked GRU jump at the 50 arm in the global plan:
               K1-K3 against their plain versions over the first 100 steps
-              in both modes, and their times and bounds over all 3,006.
+              in both modes, their times and bounds over all 3,006, and one
+              epoch of physionet_trainer.train(use_rnn=True) with exact
+              launch counts (the global plan's trainer path).
 
 Tolerances are those the JAX package's Pallas kernel is held to
 (tests/test_fused_scan.py): loss rtol 1e-5 / atol 1e-6, gradients rtol
@@ -145,6 +157,12 @@ LONG_TOL = dict(loss=LOSS_TOL, hist=None, grad=None)
 # loss, at LONG_TOL. K2 re-runs each step from K1's carries, as its plain
 # version does, and is checked as on the climate grid.
 STEP_TOL = dict(LONG_TOL, stepwise=True)
+SHORT_TOL = dict(loss=LOSS_TOL, hist=GRAD_TOL, grad=GRAD_TOL)
+# The PhysioNet arms (D = H = 41) over their first 100 steps: the same
+# amplification already parts two fp32 scans by more than GRAD_TOL on some
+# draws (the 200 arm's histories, PERF.md), so there too K1 and K3 are
+# checked step by step, at SHORT_TOL; K2 is held to GRAD_TOL as before.
+SHORT_STEP_TOL = dict(SHORT_TOL, stepwise=True)
 CLIMATE_SERIES = 1114      # the published scale of the USHCN file
 CLIMATE_B = 100
 # PhysioNet (experiments/configs.py physionet_comparison): set-a + set-b at
@@ -154,6 +172,11 @@ PHYS_QUANT = 0.016
 PHYS_T = 1 + 1e-12
 PHYS_B = 50
 PHYS_TRAIN_RECORDS = 1000
+PHYS_200_RECORDS = 400     # the stand-in cut for the 200 arm's one epoch
+# reduce_partials' shapes: the gradient partials of the main path (B =
+# 200, 13 CTAs), the PhysioNet 50 arm (B = 50 at 16 rows) and the climate
+# 400 arm (B = 100 at 4 rows)
+REDUCE_SHAPES = ((13, 10071), (4, 24423), (25, 571305))
 
 
 def say(phase, **kw):
@@ -324,17 +347,23 @@ def phase_kernels(results):
     l3p, _ = fs.scan_fwd_plain(spec3, leaves3, arrays3, weight, h03, False,
                                want_hists=False)
     e3 = check_close("K3 loss", l3[0], l3p, LOSS_TOL)
-    # reduce_partials at the K2 partials' shape
-    n_cta = -(-B // fs.MAX_ROWS)
-    parts = torch.randn((n_cta, spec3.n_params), generator=gen, device=dev)
-    r1 = fs.reduce_partials_cuda(parts)
-    r2 = fs.reduce_partials_cuda(parts)
-    if not torch.equal(r1, r2):
-        raise AssertionError("reduce_partials differs between two runs")
-    e_red = check_close("reduce_partials", r1,
-                        fs.reduce_partials_plain(parts), LOSS_TOL)
-    say("kernels", K3_loss_err=f"{e3:.3e}", K3_loss=f"{float(l3[0]):.6f}",
-        reduce_err=f"{e_red:.3e}")
+    say("kernels", K3_loss_err=f"{e3:.3e}", K3_loss=f"{float(l3[0]):.6f}")
+    # reduce_partials at the gradient partials of the main path (B = 200),
+    # the PhysioNet 50 arm and the climate 400 arm: its plain version's
+    # bits (the rows summed in ascending order), run after run
+    parts = {}
+    for n_parts, n in REDUCE_SHAPES:
+        P = torch.randn((n_parts, n), generator=gen, device=dev)
+        r1, r2 = fs.reduce_partials_cuda(P), fs.reduce_partials_cuda(P)
+        torch.cuda.synchronize()
+        if not (torch.equal(r1, r2)
+                and torch.equal(r1, fs.reduce_partials_plain(P))):
+            raise AssertionError(f"reduce_partials [{n_parts}, {n}] differs "
+                                 "from its plain version or between runs")
+        parts[(n_parts, n)] = P
+        say("kernels", reduce_shape=f"[{n_parts},{n}]", bit_equal=True,
+            bitwise_repeat=True)
+    e_red = 0.0
     results["setup"] = dict(cfg=cfg, model=model, batch=batch,
                             leaves=leaves, arrays=arrays, h0=h0,
                             arrays3=arrays3, leaves3=leaves3, h03=h03,
@@ -378,7 +407,6 @@ def phase_timing(results):
     K3, B3 = arrays3[2].shape
     ev = lambda: fs.scan_fwd_cuda(spec3, leaves3, arrays3, w, h03,  # noqa
                                   False, want_hists=False)
-    parts = st["parts"]
     t = {}
     t["K1"] = (cuda_ms(fwd, 20),
                cuda_ms(lambda: fs.scan_fwd_plain(spec, leaves, arrays, w, h0,
@@ -397,9 +425,10 @@ def phase_timing(results):
         cuda_ms(lambda: fs.philox_keep_plain(
             int(seed), karange, spec.S, B, spec.w_max, spec.thresh,
             h0.device), 3, 1))
-    lib_ms = cuda_ms(lambda: parts.sum(dim=0), 200)
-    t["reduce"] = (cuda_ms(lambda: fs.reduce_partials_cuda(parts), 200),
-                   cuda_ms(lambda: fs.reduce_partials_plain(parts), 200))
+    red = reduce_times(st["parts"])
+    main_shape = REDUCE_SHAPES[0]
+    t["reduce"] = (red[main_shape]["device_ms"], red[main_shape]["plain_ms"])
+    lib_ms = red[main_shape]["library_device_ms"]
     # K1 and K2 at the trainer's batch (100 rows), for the step breakdown
     Bt = 100
     arr_t = tuple(a.contiguous() for a in arrays[:2]) + tuple(
@@ -435,7 +464,7 @@ def phase_timing(results):
     # plus one compare per element
     f4 = n_mask * (98.0 / 4 + 1)
     b4 = n_mask + 8
-    n_parts, n = parts.shape
+    n_parts, n = main_shape
     b5 = 4 * (n_parts * n + n)
     f5 = float(n_parts * n)
 
@@ -450,6 +479,60 @@ def phase_timing(results):
         bms, by = results["bounds"][k]
         say("timing", kernel=k, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
             bound_ms=f"{bms:.5f}", bound_by=by)
+
+
+def device_ms(fn, name, reps=50):
+    """Device time per call of ``fn`` of the kernels whose name holds
+    ``name``, from ``torch.profiler``'s ``key_averages()`` over ``reps``
+    calls (one warm-up first); None if the profiler recorded none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if name in ev.key:
+            total += (getattr(ev, "device_time_total", 0.0)
+                      or getattr(ev, "cuda_time_total", 0.0))
+    return total / 1e3 / reps if total > 0 else None
+
+
+def reduce_times(parts):
+    """reduce_partials at each ``[n_parts, n]`` of ``parts``: its device
+    time per launch and ``sum(dim=0)``'s (the library call), both from
+    the profiler (which must record them), beside the old yardstick, CUDA
+    events around a Python loop of wrapper calls (host time included),
+    and the plain version's time; printed and returned by shape."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    out = {}
+    for (n_parts, n), P in parts.items():
+        dev_ms = device_ms(lambda: fs.reduce_partials_cuda(P),
+                           "reduce_partials_kernel")
+        lib_ms = device_ms(lambda: P.sum(dim=0), "reduce_kernel")
+        if dev_ms is None or lib_ms is None:
+            raise AssertionError("torch.profiler recorded no device time for "
+                                 "reduce_partials or sum(dim=0)")
+        r = dict(device_ms=dev_ms, library_device_ms=lib_ms,
+                 host_loop_ms=cuda_ms(lambda: fs.reduce_partials_cuda(P),
+                                      200),
+                 library_host_loop_ms=cuda_ms(lambda: P.sum(dim=0), 200),
+                 plain_ms=cuda_ms(lambda: fs.reduce_partials_plain(P), 20))
+        bms, by = bound(float(n_parts * n), 4.0 * (n_parts + 1) * n,
+                        PEAK_FP32)
+        torch.cuda.synchronize()
+        say("timing", kernel="reduce", shape=f"[{n_parts},{n}]",
+            **{k: "none" if v is None else f"{v:.5f}" for k, v in r.items()},
+            bound_ms=f"{bms:.5f}", bound_by=by)
+        out[(n_parts, n)] = r
+    return out
 
 
 def _synthetic_run(tmp, phase, **kw):
@@ -487,12 +570,11 @@ def _synthetic_run(tmp, phase, **kw):
     return counts
 
 
-def _check_counts(phase, counts, expect, at_least=()):
-    """Each count exactly as expected (0 where ``expect`` has no key), but
-    the keys of ``at_least``, which must reach their value."""
+def _check_counts(phase, counts, expect):
+    """Each count exactly as expected (0 where ``expect`` has no key)."""
     for k, v in counts.items():
         want = expect.get(k, 0)
-        if (v < want) if k in at_least else (v != want):
+        if v != want:
             raise AssertionError(f"{phase}: launch count {k}={v}, expected "
                                  f"{want}: {counts}")
     say(phase, launches=json.dumps({k: v for k, v in counts.items() if v})
@@ -517,14 +599,14 @@ def phase_trainer(results):
         _check_counts("trainer", counts, {
             "njode_scan_fwd": steps, "njode_scan_bwd": steps,
             "njode_scan_eval": 2, "philox_keep": 2 * steps,
-            "reduce_partials": 2 * steps + 2}, at_least=("reduce_partials",))
+            "reduce_partials": 2 * steps + 2})
         results["launches"] = counts
         t0 = time.time()
         rnn = _synthetic_run(tmp, "rnn_trainer", use_rnn=True)
         _check_counts("rnn_trainer", rnn, {
             "njode_scan_fwd_rnn": steps, "njode_scan_bwd_rnn": steps,
             "njode_scan_eval_rnn": 2, "philox_keep": 2 * steps,
-            "reduce_partials": 2 * steps + 2}, at_least=("reduce_partials",))
+            "reduce_partials": 2 * steps + 2})
         say("rnn_trainer", phase_s=f"{time.time() - t0:.2f}")
         results["rnn_launches"] = rnn
     finally:
@@ -1113,10 +1195,9 @@ def phase_climate_kernels(results):
     full = results["climate"]["batch"]
     cfg, model = _masked_njode(5, 10, 50, dev)
     gen = torch.Generator(device=dev).manual_seed(3)
-    short_tol = dict(loss=LOSS_TOL, hist=GRAD_TOL, grad=GRAD_TOL)
     errs, plain_ms, last = _masked_arm_checks(
         "climate_kernels", cfg, model, full,
-        ((100, ("input", "prng"), short_tol),
+        ((100, ("input", "prng"), SHORT_TOL),
          (results["climate"]["K"], ("prng",), LONG_TOL)), gen)
     results["climate"].update(njode=(cfg, *last), plain_ms=plain_ms)
 
@@ -1378,9 +1459,12 @@ def _plans_bit_identical(tag, cfg, leaves, arrays, h0, gen,
             outputs=len(outs[0]))
 
 
-# (arm, D, hidden, width, the batch it runs on)
-PHYS_ARMS = (("phys50", 41, 41, 50, "phys"), ("phys200", 41, 41, 200, "phys"),
-             ("climate400", 5, 50, 400, "climate"))
+# (arm, D, hidden, width, the batch it runs on, the plan checked and
+# timed: the rule's own, or the global plan forced where the rule now
+# takes the resident plan, the seed of its masks' draws)
+PHYS_ARMS = (("phys50", 41, 41, 50, "phys", ("global", 16), 41),
+             ("phys200", 41, 41, 200, "phys", None, 42),
+             ("climate400", 5, 50, 400, "climate", None, 43))
 
 
 def phase_physionet_kernels(results):
@@ -1401,36 +1485,55 @@ def phase_physionet_kernels(results):
                          [p.detach() for p in fs.flat_leaves(model_c)],
                          fs.batch_arrays(b), h0_c, gen)
 
-    short_tol = dict(loss=LOSS_TOL, hist=GRAD_TOL, grad=GRAD_TOL)
+    # each arm draws its masks from a generator of its own, so no check's
+    # draws depend on which checks ran before it
     arms, errs = {}, {"K1m": 0.0, "K2m": 0.0, "K3m": 0.0}
-    for arm, D, H, width, src in PHYS_ARMS:
+    for arm, D, H, width, src, plan, draw in PHYS_ARMS:
         full = results[src]["batch"]
         cfg, model = _masked_njode(D, H, width, dev)
-        spec = fs.Spec(cfg)
-        if spec.plan != "global":
-            raise AssertionError(f"{arm}: plan {spec.plan}, expected global")
-        say("physionet_kernels", arm=arm, plan=spec.plan, rows=spec.rows,
-            smem_bytes=spec.smem_bytes, n_params=spec.n_params,
+        own = fs.Spec(cfg)
+        spec = fs.Spec(cfg, "prng", plan)
+        if spec.plan != "global" or (plan is None) != (own.plan == "global"):
+            raise AssertionError(f"{arm}: plan {own.plan} at {own.rows} "
+                                 f"rows, checked {spec.plan}")
+        say("physionet_kernels", arm=arm, plan=own.plan, rows=own.rows,
+            smem_bytes=own.smem_bytes, checked_plan=spec.plan,
+            checked_rows=spec.rows, checked_smem_bytes=spec.smem_bytes,
+            n_params=spec.n_params,
             macs_per_row_step=_macs_per_row_step(spec))
-        runs = ((100, ("input", "prng"), short_tol),)
+        short = SHORT_STEP_TOL if src == "phys" else SHORT_TOL
+        runs = ((100, ("input", "prng"), short),)
         if arm == "phys50":          # the trainer's shape, all steps
             runs += ((int(full.obs.shape[0]), ("prng",), STEP_TOL),)
-        e, plain_ms, _ = _masked_arm_checks("physionet_kernels", cfg, model,
-                                            full, runs, gen, arm=arm)
+        e, plain_ms, _ = _masked_arm_checks(
+            "physionet_kernels", cfg, model, full, runs,
+            torch.Generator(device=dev).manual_seed(draw), plan, arm=arm)
         errs = {k: max(errs[k], e[k]) for k in errs}
-        arms[arm] = dict(cfg=cfg, model=model, full=full, plain_ms=plain_ms)
+        arms[arm] = dict(cfg=cfg, model=model, full=full, plain_ms=plain_ms,
+                         plan=plan, own=own.plan, draw=draw, short=short)
+    # then each arm forced into the global plan in the rule's own plan,
+    # the trainer's, on the same draws
+    for arm, a in arms.items():
+        if a["plan"] is not None:
+            _masked_arm_checks(
+                "physionet_kernels", a["cfg"], a["model"], a["full"],
+                ((100, ("input", "prng"), a["short"]),),
+                torch.Generator(device=dev).manual_seed(a["draw"]),
+                arm=arm, plan_checked=a["own"])
     results["phys"].update(arms=arms, errs=errs)
 
 
 def phase_physionet_timing(results):
     t, bnd = {}, {}
     for arm, a in results["phys"]["arms"].items():
-        for plan in (None, ("resident", 4)) if arm == "phys50" else (None,):
+        # the global plan (the rule's or forced), and at phys50 the rule's
+        # resident plan at 4 rows beside it
+        for plan in (a["plan"], None) if a["plan"] else (None,):
             ms, bd, K, B, spec = _full_grid_times(
                 a["cfg"], a["model"], a["full"],
                 3 if arm == "phys50" else 2, plan)
             _say_times("physionet_timing", arm, spec, ms, bd, K, B)
-            if arm == "phys50" and plan is None:   # the trainer's arm
+            if arm == "phys50" and spec.plan == "global":
                 for k in ("K1", "K2", "K3"):
                     t[k + "g"] = (ms[k], a["plain_ms"][k + "m"])
                     bnd[k + "g"] = bd[k]
@@ -1438,7 +1541,13 @@ def phase_physionet_timing(results):
     results["bounds"].update(bnd)
 
 
-def phase_physionet_trainer(results):
+def _physionet_run(results, phase, epochs, expect,
+                   n_records=PHYS_TRAIN_RECORDS, **kw):
+    """One ``physionet_trainer.train`` run (batch 50, 'prng'; the 50 arm
+    unless ``kw`` sets the widths) on the stand-in cut to ``n_records``
+    records, with every count set to 0 just before and read just after;
+    checks the metric CSV and that every count is what ``expect`` says (0
+    where it has no key)."""
     import numpy as np
     import torch
 
@@ -1449,41 +1558,50 @@ def phase_physionet_trainer(results):
 
     tmp = tempfile.mkdtemp(prefix="njode_smoke_phys_")
     try:
-        recs = results["phys"]["records"][:PHYS_TRAIN_RECORDS]
+        recs = results["phys"]["records"][:n_records]
         models = os.path.join(tmp, "models")
         fs.reset_launch_counts()
         fg.reset_launch_counts()
-        pt.train(epochs=2, batch_size=PHYS_B, quantization=PHYS_QUANT,
-                 n_samples=PHYS_TRAIN_RECORDS, records=recs,
+        pt.train(epochs=epochs, batch_size=PHYS_B, quantization=PHYS_QUANT,
+                 n_samples=n_records, records=recs,
                  saved_models_path=models, device="cuda",
-                 pallas_mask_mode="prng")
+                 pallas_mask_mode="prng", **kw)
         torch.cuda.synchronize()
         counts = dict(fs.LAUNCHES, **fg.LAUNCHES)
         cols, rows = read_frame(os.path.join(models, "id-1",
                                              "metric_id-1.csv"))
-        if len(rows) != 2:
-            raise AssertionError(f"expected 2 metric rows, got {rows}")
+        if len(rows) != epochs:
+            raise AssertionError(f"expected {epochs} metric rows, got {rows}")
         for row in rows:
             rec = dict(zip(cols, row))
             vals = {k: to_float(rec[k]) for k in cols if k != "epoch"}
             if not all(np.isfinite(v) for v in vals.values()):
                 raise AssertionError(f"non-finite PhysioNet metrics: {rec}")
-            say("physionet_trainer", epoch=rec["epoch"],
+            say(phase, epoch=rec["epoch"],
                 **{k: f"{v:.6f}" for k, v in vals.items()})
-        steps = 2 * -(-int(0.8 * PHYS_TRAIN_RECORDS) // PHYS_B)
-        expect = {"njode_scan_fwd_global": steps,
-                  "njode_scan_bwd_global": steps,
-                  "philox_keep": 2 * steps, "reduce_partials": 2 * steps}
-        for k, v in counts.items():
-            if v != expect.get(k, 0):
-                raise AssertionError(f"launch count {k}={v}, expected "
-                                     f"{expect.get(k, 0)}: {counts}")
-        say("physionet_trainer", records=len(recs),
-            launches=json.dumps({k: v for k, v in counts.items() if v})
-            .replace(" ", ""))
-        results["phys_launches"] = counts
+        say(phase, records=len(recs))
+        _check_counts(phase, counts, expect)
+        return counts
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_physionet_trainer(results):
+    steps = 2 * -(-int(0.8 * PHYS_TRAIN_RECORDS) // PHYS_B)
+    # the 50 arm takes the resident plan at 4 rows (the rule)
+    results["phys_launches"] = _physionet_run(
+        results, "physionet_trainer", 2,
+        {"njode_scan_fwd": steps, "njode_scan_bwd": steps,
+         "philox_keep": 2 * steps, "reduce_partials": 2 * steps})
+    # one epoch of the 200 arm, the global plan at 8 rows with the encoder
+    # jump, on the stand-in cut to PHYS_200_RECORDS records
+    n_b = -(-int(0.8 * PHYS_200_RECORDS) // PHYS_B)
+    nn = ((200, "tanh"), (200, "tanh"))
+    results["phys200_launches"] = _physionet_run(
+        results, "physionet_trainer_200", 1,
+        {"njode_scan_fwd_global": n_b, "njode_scan_bwd_global": n_b,
+         "philox_keep": 2 * n_b, "reduce_partials": 2 * n_b},
+        n_records=PHYS_200_RECORDS, ode_nn=nn, readout_nn=nn, enc_nn=nn)
 
 
 def _check_plan(phase, arm, spec, plan):
@@ -1526,8 +1644,6 @@ def _say_times(phase, arm, spec, ms, bd, K, B):
             bound_ms=f"{bms:.6f}", bound_by=by,
             roofline_share=f"{bms / ms[k]:.2e}")
 
-
-SHORT_TOL = dict(loss=LOSS_TOL, hist=GRAD_TOL, grad=GRAD_TOL)
 
 
 def phase_rnn_kernels(results):
@@ -1653,7 +1769,13 @@ def phase_physionet_rnn(results):
         gen, arm="phys50")
     ms, bd, K, B, spec = _full_grid_times(cfg, model, full, 2)
     _say_times("physionet_rnn", "phys50", spec, ms, bd, K, B)
-    results["phys_rnn"] = dict(errs=errs, ms=ms, bd=bd)
+    # one epoch of the trainer with the GRU jump: the global plan's path
+    n_b = -(-int(0.8 * PHYS_TRAIN_RECORDS) // PHYS_B)
+    counts = _physionet_run(
+        results, "physionet_rnn", 1,
+        {"njode_scan_fwd_rnn_global": n_b, "njode_scan_bwd_rnn_global": n_b,
+         "philox_keep": 2 * n_b, "reduce_partials": 2 * n_b}, use_rnn=True)
+    results["phys_rnn"] = dict(errs=errs, ms=ms, bd=bd, launches=counts)
 
 
 def kernels_line(results):
@@ -1671,7 +1793,8 @@ def kernels_line(results):
     out = []
     gl = results["gob_launches"]
     cn, cg = (results["climate_launches"][k] for k in ("njode", "gob"))
-    pl = results["phys_launches"]
+    pl, pr = results["phys_launches"], results["phys_rnn"]["launches"]
+    p2 = results["phys200_launches"]
     rl, cr = results["rnn_launches"], results["climate_rnn"]["launches"]
     for name, key, replaces, count in rows:
         ms, plain = results["times"][key]
@@ -1679,9 +1802,10 @@ def kernels_line(results):
         launches = results["launches"][count]
         if name == "reduce_partials":    # runs on every path
             launches += sum(c["reduce_partials"]
-                            for c in (gl, cn, cg, pl, rl, cr))
+                            for c in (gl, cn, cg, pl, p2, rl, cr, pr))
         elif name == "philox_keep":      # the NJODE paths
-            launches += sum(c["philox_keep"] for c in (cn, pl, rl, cr))
+            launches += sum(c["philox_keep"]
+                            for c in (cn, pl, p2, rl, cr, pr))
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": launches,
                     "max_abs_err": results["errs"][key], "ms": ms,
@@ -1703,13 +1827,17 @@ def kernels_line(results):
                     "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                     "library_ms": None})
     # the climate path: the masked branch of K1-K3, K5/K6 at the climate
-    # GRU-ODE-Bayes arm (launches from the climate trainer phase)
+    # GRU-ODE-Bayes arm (launches from the climate trainer phase and, for
+    # the masked branch, the PhysioNet one, whose 50 arm runs it in the
+    # resident plan at 4 rows)
     ce = results["climate_errs"]
     for name, key, s, replaces, launches in (
             ("njode_scan_fwd_masked", "K1m", src,
-             "njode_tpu/ops/fused_scan.py:695", cn["njode_scan_fwd"]),
+             "njode_tpu/ops/fused_scan.py:695",
+             cn["njode_scan_fwd"] + pl["njode_scan_fwd"]),
             ("njode_scan_bwd_masked", "K2m", src,
-             "njode_tpu/ops/fused_scan.py:772", cn["njode_scan_bwd"]),
+             "njode_tpu/ops/fused_scan.py:772",
+             cn["njode_scan_bwd"] + pl["njode_scan_bwd"]),
             ("njode_scan_eval_masked", "K3m", src,
              "njode_tpu/ops/fused_scan.py:695", cn["njode_scan_eval"]),
             ("gob_scan_fwd_climate", "K5c", gsrc,
@@ -1722,10 +1850,10 @@ def kernels_line(results):
                     "replaces": replaces, "launches": launches,
                     "max_abs_err": ce[key], "ms": ms, "plain_ms": plain,
                     "bound_ms": bms, "bound_by": by, "library_ms": None})
-    # the global plan of K1-K3 (the JAX kernel's blocked plan for nets that
-    # overflow VMEM), timed at the PhysioNet 50 arm; launches from the
-    # PhysioNet trainer phase, errors the largest of the physionet_kernels
-    # checks
+    # the global plan of K1-K3 with the encoder jump (the JAX kernel's
+    # blocked plan for nets that overflow VMEM), timed at the PhysioNet 50
+    # arm forced into it; launches from the 200 arm's epoch, errors the
+    # largest of the physionet_kernels checks
     pe = results["phys"]["errs"]
     for name, key, replaces in (
             ("njode_scan_fwd_global", "K1",
@@ -1737,12 +1865,14 @@ def kernels_line(results):
         ms, plain = results["times"][key + "g"]
         bms, by = results["bounds"][key + "g"]
         out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": replaces, "launches": pl[name],
+                    "replaces": replaces,
+                    "launches": p2[name],
                     "max_abs_err": pe[key + "m"], "ms": ms, "plain_ms": plain,
                     "bound_ms": bms, "bound_by": by, "library_ms": None})
     # the GRU jump (use_rnn) of K1-K3, timed at the main path; launches
-    # from its trainer phase and the climate one, errors the largest of
-    # its checks at the main path, the climate small arm and phys50
+    # from its trainer phase, the climate one and the PhysioNet one (the
+    # global plan), errors the largest of its checks at the main path, the
+    # climate small arm and phys50
     rerrs = [results["rnn"]["errs"], results["climate_rnn"]["errs"],
              results["phys_rnn"]["errs"]]
     err = {k: max(e[k + "m"] for e in rerrs) for k in ("K1", "K2", "K3")}
@@ -1756,7 +1886,7 @@ def kernels_line(results):
         bms, by = results["bounds"][key + "r"]
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces,
-                    "launches": rl[name] + cr[name],
+                    "launches": rl[name] + cr[name] + pr[name + "_global"],
                     "max_abs_err": err[key], "ms": ms, "plain_ms": plain,
                     "bound_ms": bms, "bound_by": by, "library_ms": None})
     return json.dumps({"kernels": out})

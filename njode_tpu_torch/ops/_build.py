@@ -121,14 +121,21 @@ def load(name: str = "fused_scan") -> ctypes.CDLL:
         return _loaded[name]
 
 
+def lib(name: str = "fused_scan") -> ctypes.CDLL:
+    """The loaded library (its argument types declared), taking the build
+    lock only on the first call: the wrappers' per-launch path."""
+    got = _loaded.get(name)
+    return got if got is not None else load(name)
+
+
 def _declare(name, lib):
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "fused_scan":
         lib.njode_error_string.argtypes = [I]
         lib.njode_error_string.restype = ctypes.c_char_p
-        lib.njode_scan_fwd.argtypes = [P] * 17 + [I, P]
+        lib.njode_scan_fwd.argtypes = [P] * 19 + [I, F, P]
         lib.njode_scan_fwd.restype = I
-        lib.njode_scan_bwd.argtypes = [P] * 17 + [P]
+        lib.njode_scan_bwd.argtypes = [P] * 20
         lib.njode_scan_bwd.restype = I
         lib.njode_reduce_partials.argtypes = [P, I, I, F, P, P]
         lib.njode_reduce_partials.restype = I

@@ -69,22 +69,53 @@
 // _block_plan, which cut nets that overflow VMEM into K-chunks and batch
 // blocks). 'resident' (GW = false): every weight and its gradient sit in
 // shared memory, as above. 'global' (GW = true), for nets whose weights do
-// not fit one CTA (PhysioNet, the 400-wide arms): the kernels read the
-// weights from one packed fp32 buffer in device memory (leaf_off layout)
-// through L1/L2 with __ldg, and K2 adds each step's weight gradients in
-// place into its CTA's partial row, which it zeroes first. Each gradient
-// element has one owning thread within the CTA, so there are no atomics
-// and a run repeats bit for bit. The global plan's matmuls give a thread
-// one output column of up to RB rows with the row sums in registers, so a
-// weight is read once per RB rows a step; the sums run in the same order
-// as the resident plan's, so both plans give the same bits at one R. Only
-// activations live in shared memory there, and R (c.rows) is the largest of
-// 16, 8, 4, 2, 1 whose activations fit. In the 400-wide arms the partial
-// rows (2.3 MB a CTA) no longer stay in L2, and K2 reads and writes them
-// every step. Each kernel is built twice over R (template RT): with R = 16
-// a compile-time constant, so the row loops of the default plans unroll
-// (read at run time, R slowed the resident K2 by 12 %), and with R read
-// from c.rows for the other counts.
+// not fit one CTA (PhysioNet, the 400-wide arms): the weights stay in one
+// packed fp32 buffer in device memory (each leaf at a 16-byte boundary,
+// Spec.pack_off), and K2 adds each step's weight gradients in place into
+// its CTA's partial row, which it zeroes first. Each gradient element has
+// one owning thread within the CTA, so there are no atomics and a run
+// repeats bit for bit. Only activations live in shared memory, and R
+// (c.rows) is the largest of 16, 8, 4, 2, 1 whose activations fit. Each
+// kernel is built twice over R (template RT): with R = 16 a compile-time
+// constant, so the row loops of the default plans unroll (read at run
+// time, R slowed the resident K2 by 12 %), and with R read from c.rows.
+//
+// The global plan's weights reach the FMA chains through shared memory.
+// Reading them through __ldg put an L2 round trip on every link of each
+// column's serial sum (one load in flight a thread, 8 warps an SM: K2 ran
+// at 0.07 % of its fp32 bound). Now the ring (the region left after the
+// activations, two stages) holds weight tiles that cp.async copies in the
+// background: acquiring tile t waits for it, syncs, and starts the copy of
+// tile t + 1 into the other stage, so each copy overlaps the arithmetic of
+// the tile before it, across layers, MLPs and steps. The host lists a
+// step's tiles in the order the kernels consume them (Spec.tile_program:
+// the forward's, then K2's backward), and every consumer checks the
+// descriptor's key. A forward product y = W x takes column blocks
+// [out x T] of W (bias on the last) and dx = W^T d row blocks [T x in];
+// the GRU's gates run as two such products into the region gsc. A thread
+// keeps its outputs (a column of up to RB rows, MAXI of them a pass) in
+// registers across tiles, walking the summed index upwards, so each sum
+// runs in the resident plan's order and both plans give the same bits at
+// one R. The weight gradients (no weights read) stay in the CTA's partial
+// row: a thread issues the loads of GB of its elements before it sums
+// them (the cheaper of the two ways to take the serial L2 round trip out
+// of the read-modify-write; staging the gradient tiles through shared
+// memory would also need ring space the 400-wide arms do not have beside
+// their weight tiles). The passes stay inlined into the six global kernel
+// instantiations, which makes this file slow to build (nvcc 249 s on the
+// H100 machine): compiled once each, out of line (__noinline__ mlp_fwd,
+// mlp_bwd, gru_fwd and gru_bwd), they built in 28 s but ran 35-47 %
+// slower on the card (PERF.md).
+//
+// reduce_partials. The scan kernels' C entries enqueue it themselves on
+// the same stream right after K1/K3 (the loss, [n_cta, 1]) and K2 (the
+// gradients): one launch more on the device, no Python call and no second
+// ctypes trip on the host. (The alternative, the last CTA of K1 summing the
+// loss after a ticket, would cover only the loss.) A thread sums one
+// column; its bound is bytes, (n_parts + 1) * n * 4. Two bodies shaped for
+// bandwidth were no faster on the card (float4 loads on rows padded to 16
+// bytes: the same device time; 4 columns a thread with 8 rows' loads ahead:
+// 3-4x slower; PERF.md), so the kernel kept its first body.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,6 +127,9 @@
 #define NTHREADS 256
 #define MAX_LIN 8
 #define MAX_LEAVES 52          // three MLPs of MAX_LIN layers, the GRU's 4
+#define MAXI 4                 // global plan: items a thread keeps over tiles
+#define GB 16                  // global plan: gradient loads issued ahead
+#define TILE_INTS 8            // ints of a tile descriptor (tile_program)
 
 struct MLPDesc {
   int n_lin;                 // Linear layers (hidden layers + 1)
@@ -103,6 +137,7 @@ struct MLPDesc {
   int act[MAX_LIN];          // per hidden layer: 0 tanh, 1 relu
   int w_off[MAX_LIN];        // weight [out, in] offset in the flat params
   int b_off[MAX_LIN];        // bias offset, -1 without bias
+  int pw_off[MAX_LIN];       // the weight's offset in the packed buffer
   int slot0;                 // dropout slot of hidden layer 0
   int save_off;              // smem offset of the saved pre-acts / acts
 };
@@ -115,11 +150,14 @@ struct ScanCfg {
   float keep, weight;
   int rows, plan, buf_w, smem_floats;   // plan: 0 resident, 1 global
   int gru_wih, gru_whh, gru_bih, gru_bhh;   // GRU leaf offsets, -1: none
+  int gru_pwih, gru_pwhh;      // the GRU weights in the packed buffer
+  int n_tiles_fwd, n_tiles_bwd, stage;   // global plan: tiles a step, stage
   int leaf_off[MAX_LEAVES + 1];
   int o_w, o_g, o_h, o_lx, o_tau, o_X, o_obs, o_nobs, o_lrow, o_h1, o_h2;
   int o_in_ode, o_tX, o_in_ro, o_f, o_enc, o_ro, o_dA, o_dB, o_dh, o_dlx;
   int o_dtau, o_rs, o_dst, o_dh1, o_dhe, o_df, o_dlxc, o_dtauc, o_M, o_Xi;
   int o_gru, o_dG;             // use_rnn only: saved gates, gate gradients
+  int o_gsc, o_ring;           // global plan: GRU gate sums, weight ring
   MLPDesc ode, enc, ro, ro2;   // ro2: the masked branch's post-jump pass
 };
 
@@ -169,53 +207,245 @@ __device__ __forceinline__ void linear(const float* W, const float* b,
   }
 }
 
-// The same product with W and b in device memory (the global plan): a
-// thread owns column j of up to RB rows, reads each W[j, i] once for them
-// and sums each row in the order linear() does.
-__device__ __forceinline__ void linear_rb(const float* __restrict__ W,
-                                          const float* __restrict__ b,
-                                          const float* x, int in, int out,
-                                          int rows, float* y) {
-  const int n_rb = (rows + RB - 1) / RB;
-  for (int idx = threadIdx.x; idx < n_rb * out; idx += blockDim.x) {
-    int q = idx / out, j = idx - q * out;
-    int r0 = q * RB, nr = min(RB, rows - r0);
-    const float* xr = x + r0 * in;
-    const float* wj = W + (size_t)j * in;
-    float acc[RB];
-#pragma unroll
-    for (int rr = 0; rr < RB; ++rr) acc[rr] = 0.f;
-    for (int i = 0; i < in; ++i) {
-      float w = __ldg(wj + i);
-#pragma unroll
-      for (int rr = 0; rr < RB; ++rr)
-        if (rr < nr) acc[rr] = fmaf(xr[rr * in + i], w, acc[rr]);
+// ------------------------------------------- the global plan's weight ring
+
+// Asynchronous copies from device into shared memory (cp.async); a host
+// build of these bodies (a CPU rehearsal) copies at once.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__)
+  unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__)
+  unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+#else
+  for (int i = 0; i < 4; ++i) dst[i] = src[i];
+#endif
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// The ring: two stages of `stage` floats at buf; tile t goes to stage t & 1.
+// prog lists one step's tiles (n of them; the list repeats every step),
+// TILE_INTS ints each: src (float offset in the packed weights), rows,
+// stride (floats between rows in the packed buffer), cols, flags (1: the
+// op's last tile, 2: a dx tile), bsrc (the bias's offset, copied after the
+// tile, or -1), key (the op's weight offset), unused.
+struct Ring {
+  const int* prog;
+  int n, t, stage;
+  float* buf;
+  const float* wg;
+};
+
+struct Tile {
+  const float* w;            // [rows x cols] in shared memory
+  const float* b;            // the bias, or null
+  int s0, ns, last;          // the summed index's block, the op's last tile
+};
+
+// start the copy of tile t into its stage (every thread takes a share)
+__device__ void ring_issue(const Ring& rg, int t) {
+  const int* d = rg.prog + TILE_INTS * (t % rg.n);
+  const int src = __ldg(d), rows = __ldg(d + 1), stride = __ldg(d + 2);
+  const int cols = __ldg(d + 3), bsrc = __ldg(d + 5);
+  float* dst = rg.buf + (t & 1) * rg.stage;
+  const float* s = rg.wg + src;
+  const int n = rows * cols;
+  if (stride == cols) {                // one contiguous run
+    if (((src | n) & 3) == 0)
+      for (int e = 4 * threadIdx.x; e < n; e += 4 * NTHREADS)
+        cp_async16(dst + e, s + e);
+    else
+      for (int e = threadIdx.x; e < n; e += NTHREADS)
+        cp_async4(dst + e, s + e);
+  } else if (((src | stride | cols) & 3) == 0) {  // 16-byte column blocks
+    const int c4 = cols >> 2;
+    for (int e = threadIdx.x; e < rows * c4; e += NTHREADS) {
+      int r = e / c4, q = e - r * c4;
+      cp_async16(dst + 4 * e, s + (size_t)r * stride + 4 * q);
     }
-    float bj = b ? __ldg(b + j) : 0.f;
+  } else {
+    const int dr = NTHREADS / cols, dc = NTHREADS - dr * cols;
+    int r = threadIdx.x / cols, q = threadIdx.x - r * cols;
+    for (; r < rows; r += dr, q += dc) {
+      if (q >= cols) { q -= cols; ++r; if (r >= rows) break; }
+      cp_async4(dst + r * cols + q, s + (size_t)r * stride + q);
+    }
+  }
+  if (bsrc >= 0)
+    for (int j = threadIdx.x; j < rows; j += NTHREADS)
+      cp_async4(dst + n + j, rg.wg + bsrc + j);
+  cp_async_commit();
+}
+
+// Wait for the next tile (it must belong to the op `key` of kind `dx`),
+// make it visible to the CTA and start the copy of the tile after it into
+// the other stage, which every thread has finished reading at the barrier.
+__device__ Tile ring_acquire(Ring& rg, int key, int dx) {
+  cp_async_wait_all();
+  __syncthreads();
+  ring_issue(rg, rg.t + 1);
+  const int* d = rg.prog + TILE_INTS * (rg.t % rg.n);
+  const int src = __ldg(d), rows = __ldg(d + 1), cols = __ldg(d + 3);
+  const int flags = __ldg(d + 4);
+  if (__ldg(d + 6) != key || ((flags >> 1) & 1) != dx) __trap();
+  Tile tl;
+  tl.w = rg.buf + (rg.t & 1) * rg.stage;
+  tl.b = __ldg(d + 5) >= 0 ? tl.w + rows * cols : nullptr;
+  tl.s0 = dx ? (src - key) / cols : src - key;
+  tl.ns = dx ? rows : cols;
+  tl.last = flags & 1;
+  rg.t++;
+  return tl;
+}
+
+// acc[rr] += a(r0 + rr, s) * W(o, s) over the tile's block of s, upwards
+template <bool DX, class A>
+__device__ __forceinline__ void tile_sums(const Tile& tl, int n_o, int r0,
+                                          int o, int nr, const A& a,
+                                          float (&acc)[RB]) {
+  const float* w = DX ? tl.w + o : tl.w + o * tl.ns;
+  const int ws = DX ? n_o : 1;
+  for (int s = 0; s < tl.ns; ++s) {
+    float wv = w[s * ws];
 #pragma unroll
     for (int rr = 0; rr < RB; ++rr)
-      if (rr < nr) y[(r0 + rr) * out + j] = b ? acc[rr] + bj : acc[rr];
+      if (rr < nr) acc[rr] = fmaf(a(r0 + rr, tl.s0 + s), wv, acc[rr]);
+  }
+}
+
+// One weight op of the global plan through the ring: for r < rows and
+// o < n_o, out(r, o, init(r, o) + sum_s a(r, s) * W(o, s) [+ b(o)]), the sum
+// over s upwards. The forward kind (DX false) multiplies by W [n_o, n_s]
+// (tiles: column blocks with the bias on the last); the dx kind by the
+// transpose of W [n_s, n_o] (tiles: row blocks). A thread owns (row block
+// q, output o) items, RB rows each: all of them within a tile when the op
+// is one tile, else MAXI of them a pass over the op's tiles.
+template <bool DX, class A, class I, class O>
+__device__ void ring_op(Ring& rg, int key, int n_o, int rows, const A& a,
+                        const I& init, const O& out) {
+  const int n_items = (rows + RB - 1) / RB * n_o;
+  Tile tl = ring_acquire(rg, key, DX);
+  if (tl.last) {
+    for (int idx = threadIdx.x; idx < n_items; idx += NTHREADS) {
+      int q = idx / n_o, o = idx - q * n_o;
+      int r0 = q * RB, nr = min(RB, rows - r0);
+      float acc[RB];
+#pragma unroll
+      for (int rr = 0; rr < RB; ++rr)
+        acc[rr] = rr < nr ? init(r0 + rr, o) : 0.f;
+      tile_sums<DX>(tl, n_o, r0, o, nr, a, acc);
+#pragma unroll
+      for (int rr = 0; rr < RB; ++rr)
+        if (rr < nr) out(r0 + rr, o, tl.b ? acc[rr] + tl.b[o] : acc[rr]);
+    }
+    return;
+  }
+  for (int base = 0; base < n_items; base += MAXI * NTHREADS) {
+    float acc[MAXI][RB];
+#pragma unroll
+    for (int m = 0; m < MAXI; ++m) {
+      int idx = base + m * NTHREADS + threadIdx.x;
+      int q = idx / n_o, o = idx - q * n_o;
+      int r0 = q * RB, nr = min(RB, rows - r0);
+#pragma unroll
+      for (int rr = 0; rr < RB; ++rr)
+        acc[m][rr] = idx < n_items && rr < nr ? init(r0 + rr, o) : 0.f;
+    }
+    for (;;) {
+#pragma unroll
+      for (int m = 0; m < MAXI; ++m) {
+        int idx = base + m * NTHREADS + threadIdx.x;
+        if (idx < n_items) {
+          int q = idx / n_o, o = idx - q * n_o;
+          tile_sums<DX>(tl, n_o, q * RB, o, min(RB, rows - q * RB), a,
+                        acc[m]);
+        }
+      }
+      if (tl.last) break;
+      tl = ring_acquire(rg, key, DX);
+    }
+#pragma unroll
+    for (int m = 0; m < MAXI; ++m) {
+      int idx = base + m * NTHREADS + threadIdx.x;
+      if (idx < n_items) {
+        int q = idx / n_o, o = idx - q * n_o;
+        int r0 = q * RB, nr = min(RB, rows - r0);
+#pragma unroll
+        for (int rr = 0; rr < RB; ++rr)
+          if (rr < nr)
+            out(r0 + rr, o, tl.b ? acc[m][rr] + tl.b[o] : acc[m][rr]);
+      }
+    }
+    if (base + MAXI * NTHREADS < n_items) tl = ring_acquire(rg, key, DX);
+  }
+}
+
+// g[idx] += sum(idx) for idx < n, each element by its one owning thread;
+// a thread issues the loads of GB of its elements before it sums them
+// (the global plan's gradients in the CTA's partial row)
+template <class F>
+__device__ __forceinline__ void grad_add(float* __restrict__ g, int n,
+                                         const F& sum) {
+  for (int base = threadIdx.x; base < n; base += GB * NTHREADS) {
+    float old[GB];
+#pragma unroll
+    for (int u = 0; u < GB; ++u) {
+      int idx = base + u * NTHREADS;
+      old[u] = idx < n ? g[idx] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < GB; ++u) {
+      int idx = base + u * NTHREADS;
+      if (idx < n) g[idx] = old[u] + sum(idx);
+    }
   }
 }
 
 // MLP forward over `rows` rows: saves each hidden layer's pre-activation
 // and post-dropout activation at sm + m.save_off (pre [rows, w], act
 // [rows, w] per layer) and writes the output to `out`. Ends synced. GW:
-// the weights are read from `wg` in device memory (global plan).
+// the weights come through the ring (global plan).
 template <bool GW>
 __device__ void mlp_fwd(const ScanCfg& c, const MLPDesc& m, float* sm,
-                        const float* wg, const float* x, int rows,
-                        float* out, const MaskCtx& mc) {
-  const float* sw = GW ? wg : sm + c.o_w;
+                        Ring& rg, const float* x, int rows, float* out,
+                        const MaskCtx& mc) {
+  const float* sw = sm + c.o_w;
   const float* in = x;
   float* save = sm + m.save_off;
   for (int l = 0; l < m.n_lin; ++l) {
     int wi = m.w[l], wo = m.w[l + 1];
-    const float* b = m.b_off[l] >= 0 ? sw + m.b_off[l] : nullptr;
     bool last = l == m.n_lin - 1;
     float* y = last ? out : save;
-    if (GW) linear_rb(sw + m.w_off[l], b, in, wi, wo, rows, y);
-    else linear(sw + m.w_off[l], b, in, wi, wo, rows, y);
+    if constexpr (GW) {
+      ring_op<false>(
+          rg, m.pw_off[l], wo, rows,
+          [&](int r, int s) { return in[r * wi + s]; },
+          [](int, int) { return 0.f; },
+          [&](int r, int o, float v) { y[r * wo + o] = v; });
+    } else {
+      const float* b = m.b_off[l] >= 0 ? sw + m.b_off[l] : nullptr;
+      linear(sw + m.w_off[l], b, in, wi, wo, rows, y);
+    }
     __syncthreads();
     if (!last) {
       float* a = save + rows * wo;
@@ -237,15 +467,16 @@ __device__ void mlp_fwd(const ScanCfg& c, const MLPDesc& m, float* sm,
 // MLP backward: d0 [rows, out] is the gradient of the output; adds the
 // weight and bias gradients of valid rows to the accumulator and returns
 // the buffer holding dx [rows, in] (nullptr unless want_dx). Ends synced.
-// GW: the weights are read from `wg` and the gradients added into `gg`,
-// both in device memory (global plan); each gradient element is updated
-// by the one thread that owns it, in every call.
+// GW: the weights come through the ring and the gradients are added into
+// `gg`, the CTA's partial row in device memory (global plan); each
+// gradient element is updated by the one thread that owns it, in every
+// call.
 template <bool GW>
 __device__ const float* mlp_bwd(const ScanCfg& c, const MLPDesc& m,
-                                float* sm, const float* wg, float* gg,
+                                float* sm, Ring& rg, float* gg,
                                 const float* x, int rows, const float* d0,
                                 bool want_dx, const MaskCtx& mc) {
-  const float* sw = GW ? wg : sm + c.o_w;
+  const float* sw = sm + c.o_w;
   float* g = GW ? gg : sm + c.o_g;
   float* bufs[2] = {sm + c.o_dA, sm + c.o_dB};
   // offsets of each hidden layer's saved (pre, act) pair
@@ -260,15 +491,20 @@ __device__ const float* mlp_bwd(const ScanCfg& c, const MLPDesc& m,
   for (int l = m.n_lin - 1; l >= 0; --l) {
     int wi = m.w[l], wo = m.w[l + 1];
     const float* a_in = l == 0 ? x : sm + save_at[l - 1] + rows * wi;
-    const float* W = sw + m.w_off[l];
-    for (int idx = threadIdx.x; idx < wo * wi; idx += blockDim.x) {
+    auto dw = [&](int idx) {
       int j = idx / wi, i = idx - j * wi;
       float acc = 0.f;
       for (int r = 0; r < rows; ++r) {
         int lr = r >= mc.half ? r - mc.half : r;
         if (lr < mc.nv) acc = fmaf(cur[r * wo + j], a_in[r * wi + i], acc);
       }
-      g[m.w_off[l] + idx] += acc;
+      return acc;
+    };
+    if constexpr (GW) {
+      grad_add(g + m.w_off[l], wo * wi, dw);
+    } else {
+      for (int idx = threadIdx.x; idx < wo * wi; idx += blockDim.x)
+        g[m.w_off[l] + idx] += dw(idx);
     }
     if (m.b_off[l] >= 0) {
       for (int j = threadIdx.x; j < wo; j += blockDim.x) {
@@ -281,38 +517,29 @@ __device__ const float* mlp_bwd(const ScanCfg& c, const MLPDesc& m,
       }
     }
     float* nxt = nullptr;
-    if (GW && (l > 0 || want_dx)) {
-      // dx as below, a thread owning column i of up to RB rows
-      nxt = bufs[nb];
-      nb ^= 1;
-      const float* pre = l > 0 ? sm + save_at[l - 1] : nullptr;
-      const int n_rb = (rows + RB - 1) / RB;
-      for (int idx = threadIdx.x; idx < n_rb * wi; idx += blockDim.x) {
-        int q = idx / wi, i = idx - q * wi;
-        int r0 = q * RB, nr = min(RB, rows - r0);
-        float acc[RB];
-#pragma unroll
-        for (int rr = 0; rr < RB; ++rr) acc[rr] = 0.f;
-        for (int j = 0; j < wo; ++j) {
-          float w = __ldg(W + (size_t)j * wi + i);
-#pragma unroll
-          for (int rr = 0; rr < RB; ++rr)
-            if (rr < nr) acc[rr] = fmaf(cur[(r0 + rr) * wo + j], w, acc[rr]);
-        }
-#pragma unroll
-        for (int rr = 0; rr < RB; ++rr) {
-          if (rr >= nr) break;
-          int r = r0 + rr;
-          float v = acc[rr];
-          if (l > 0) {
-            if (mc.mode)
-              v = keep_at(mc, m.slot0 + l - 1, r, i) ? v / mc.keep : 0.f;
-            v *= act_grad(m.act[l - 1], pre[r * wi + i]);
-          }
-          nxt[r * wi + i] = v;
-        }
+    if constexpr (GW) {
+      if (l > 0 || want_dx) {
+        // dx as below through the ring, a thread owning column i of up to
+        // RB rows
+        nxt = bufs[nb];
+        nb ^= 1;
+        const float* pre = l > 0 ? sm + save_at[l - 1] : nullptr;
+        ring_op<true>(
+            rg, m.pw_off[l], wi, rows,
+            [&](int r, int s) { return cur[r * wo + s]; },
+            [](int, int) { return 0.f; },
+            [&](int r, int i, float v) {
+              if (l > 0) {
+                if (mc.mode)
+                  v = keep_at(mc, m.slot0 + l - 1, r, i) ? v / mc.keep
+                                                          : 0.f;
+                v *= act_grad(m.act[l - 1], pre[r * wi + i]);
+              }
+              nxt[r * wi + i] = v;
+            });
       }
     } else if (l > 0 || want_dx) {
+      const float* W = sw + m.w_off[l];
       nxt = bufs[nb];
       nb ^= 1;
       const float* pre = l > 0 ? sm + save_at[l - 1] : nullptr;
@@ -393,31 +620,37 @@ __device__ __forceinline__ float y_at(const ScanCfg& c, const float* sm,
          + sm[c.o_ro + rr * c.O + o];
 }
 
-// a weight: from shared memory (resident plan) or through the read-only
-// path from device memory (global plan)
-template <bool GW>
-__device__ __forceinline__ float ldw(const float* p) {
-  if constexpr (GW) return __ldg(p);
-  else return *p;
-}
-
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
 // The GRU jump forward (_gru_fwd) for R rows: tanh X at tX [R, D], h_t =
 // tanh h1 at in_ro[0:R*H]. A thread owns (row r, unit j) and sums the
-// three gates' rows of W_ih and W_hh in index order (the same order in both
-// plans), then writes h2, tanh h2 (in_ro[R*H:]) and the saved (r, z, n,
-// gh_n). Not synced at the end.
+// three gates' rows of W_ih and W_hh in index order, then writes h2, tanh
+// h2 (in_ro[R*H:]) and the saved (r, z, n, gh_n). The global plan first
+// runs the gate sums as two ring products, gi = W_ih x and gh = W_hh h_t
+// (with their biases, each sum in the same order), into gsc [2][R, 3H].
+// Not synced at the end.
 template <bool GW>
-__device__ void gru_fwd(const ScanCfg& c, float* sm, const float* wg,
-                        int R) {
-  const int D = c.D, H = c.H, RH = R * H;
-  const float* sw = GW ? wg : sm + c.o_w;
+__device__ void gru_fwd(const ScanCfg& c, float* sm, Ring& rg, int R) {
+  const int D = c.D, H = c.H, RH = R * H, H3 = 3 * H;
+  const float* sw = sm + c.o_w;
   const float* tX = sm + c.o_tX; float* in_ro = sm + c.o_in_ro;
   const float* h1 = sm + c.o_h1; float* h2 = sm + c.o_h2;
   const float* obs = sm + c.o_obs; float* sv = sm + c.o_gru;
+  float* gs = sm + c.o_gsc;
+  if constexpr (GW) {
+    ring_op<false>(
+        rg, c.gru_pwih, H3, R, [&](int r, int s) { return tX[r * D + s]; },
+        [](int, int) { return 0.f; },
+        [&](int r, int o, float v) { gs[r * H3 + o] = v; });
+    ring_op<false>(
+        rg, c.gru_pwhh, H3, R,
+        [&](int r, int s) { return in_ro[r * H + s]; },
+        [](int, int) { return 0.f; },
+        [&](int r, int o, float v) { gs[(R + r) * H3 + o] = v; });
+    __syncthreads();
+  }
   for (int idx = threadIdx.x; idx < RH; idx += blockDim.x) {
     int r = idx / H, j = idx - r * H;
     const float* x = tX + r * D;
@@ -425,17 +658,22 @@ __device__ void gru_fwd(const ScanCfg& c, float* sm, const float* wg,
     float gi[3], gh[3];
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
-      const float* wi = sw + c.gru_wih + (size_t)(q * H + j) * D;
-      const float* wh = sw + c.gru_whh + (size_t)(q * H + j) * H;
-      float a = 0.f, b = 0.f;
-      for (int i = 0; i < D; ++i) a = fmaf(x[i], ldw<GW>(wi + i), a);
-      for (int i = 0; i < H; ++i) b = fmaf(ht[i], ldw<GW>(wh + i), b);
-      if (c.gru_bih >= 0) {
-        a += ldw<GW>(sw + c.gru_bih + q * H + j);
-        b += ldw<GW>(sw + c.gru_bhh + q * H + j);
+      if constexpr (GW) {
+        gi[q] = gs[r * H3 + q * H + j];
+        gh[q] = gs[(R + r) * H3 + q * H + j];
+      } else {
+        const float* wi = sw + c.gru_wih + (size_t)(q * H + j) * D;
+        const float* wh = sw + c.gru_whh + (size_t)(q * H + j) * H;
+        float a = 0.f, b = 0.f;
+        for (int i = 0; i < D; ++i) a = fmaf(x[i], wi[i], a);
+        for (int i = 0; i < H; ++i) b = fmaf(ht[i], wh[i], b);
+        if (c.gru_bih >= 0) {
+          a += sw[c.gru_bih + q * H + j];
+          b += sw[c.gru_bhh + q * H + j];
+        }
+        gi[q] = a;
+        gh[q] = b;
       }
-      gi[q] = a;
-      gh[q] = b;
     }
     float rg = sigmoid_f(gi[0] + gh[0]);
     float z = sigmoid_f(gi[1] + gh[1]);
@@ -462,12 +700,13 @@ __device__ __forceinline__ float dgh_at(const float* dG, int H, int r,
 // dh' = dhe (obs * dh2) and the saved gates; adds the four leaves'
 // gradients to g (shared memory, or the CTA's partial row in the global
 // plan; one owning thread per element), and dh_t * (1 - h_t^2) to dh1,
-// then df = dt * dh1. Starts and ends synced.
+// then df = dt * dh1 (its W_hh product through the ring in the global
+// plan). Starts and ends synced.
 template <bool GW>
-__device__ void gru_bwd(const ScanCfg& c, float* sm, const float* wg,
-                        float* g, int R, int nv, float dt) {
+__device__ void gru_bwd(const ScanCfg& c, float* sm, Ring& rg, float* g,
+                        int R, int nv, float dt) {
   const int D = c.D, H = c.H, RH = R * H, H3 = 3 * H;
-  const float* sw = GW ? wg : sm + c.o_w;
+  const float* sw = sm + c.o_w;
   const float* tX = sm + c.o_tX; const float* ht = sm + c.o_in_ro;
   const float* sv = sm + c.o_gru; float* dG = sm + c.o_dG;
   const float* dhe = sm + c.o_dhe;
@@ -484,19 +723,28 @@ __device__ void gru_bwd(const ScanCfg& c, float* sm, const float* wg,
     q[3 * H + j] = da_n * rg;                                 // dgh_n
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < H3 * D; idx += blockDim.x) {
+  auto dwi = [&](int idx) {
     int gj = idx / D, i = idx - gj * D;
     float acc = 0.f;
     for (int r = 0; r < nv; ++r)
       acc = fmaf(dG[r * 4 * H + gj], tX[r * D + i], acc);
-    g[c.gru_wih + idx] += acc;
-  }
-  for (int idx = threadIdx.x; idx < H3 * H; idx += blockDim.x) {
+    return acc;
+  };
+  auto dwh = [&](int idx) {
     int gj = idx / H, i = idx - gj * H;
     float acc = 0.f;
     for (int r = 0; r < nv; ++r)
       acc = fmaf(dgh_at(dG, H, r, gj), ht[r * H + i], acc);
-    g[c.gru_whh + idx] += acc;
+    return acc;
+  };
+  if constexpr (GW) {
+    grad_add(g + c.gru_wih, H3 * D, dwi);
+    grad_add(g + c.gru_whh, H3 * H, dwh);
+  } else {
+    for (int idx = threadIdx.x; idx < H3 * D; idx += blockDim.x)
+      g[c.gru_wih + idx] += dwi(idx);
+    for (int idx = threadIdx.x; idx < H3 * H; idx += blockDim.x)
+      g[c.gru_whh + idx] += dwh(idx);
   }
   if (c.gru_bih >= 0)
     for (int gj = threadIdx.x; gj < H3; gj += blockDim.x) {
@@ -508,16 +756,28 @@ __device__ void gru_bwd(const ScanCfg& c, float* sm, const float* wg,
       g[c.gru_bih + gj] += a;
       g[c.gru_bhh + gj] += b;
     }
-  const float* Whh = sw + c.gru_whh;
-  for (int idx = threadIdx.x; idx < RH; idx += blockDim.x) {
-    int r = idx / H, i = idx - r * H;
-    float acc = dhe[idx] * sv[RH + idx];                      // dh' * z
-    for (int gj = 0; gj < H3; ++gj)
-      acc = fmaf(dgh_at(dG, H, r, gj), ldw<GW>(Whh + gj * H + i), acc);
+  auto dh1_out = [&](int r, int i, float acc) {
+    int idx = r * H + i;
     float t = ht[idx];
     float d1 = dh1[idx] + acc * (1.f - t * t);
     dh1[idx] = d1;
     df[idx] = dt * d1;
+  };
+  if constexpr (GW) {
+    ring_op<true>(
+        rg, c.gru_pwhh, H, R,
+        [&](int r, int s) { return dgh_at(dG, H, r, s); },
+        [&](int r, int i) { return dhe[r * H + i] * sv[RH + r * H + i]; },
+        dh1_out);
+  } else {
+    const float* Whh = sw + c.gru_whh;
+    for (int idx = threadIdx.x; idx < RH; idx += blockDim.x) {
+      int r = idx / H, i = idx - r * H;
+      float acc = dhe[idx] * sv[RH + idx];                    // dh' * z
+      for (int gj = 0; gj < H3; ++gj)
+        acc = fmaf(dgh_at(dG, H, r, gj), Whh[gj * H + i], acc);
+      dh1_out(r, i, acc);
+    }
   }
   __syncthreads();
 }
@@ -528,9 +788,8 @@ __device__ void gru_bwd(const ScanCfg& c, float* sm, const float* wg,
 // 0..R-1, y rows R..2R-1), with every MLP's saved activations (and, with
 // use_rnn, the GRU's saved gates).
 template <bool GW, int RT>
-__device__ void step_forward(const ScanCfg& c, float* sm, const float* wg,
-                             float t, float dt,
-                             MaskCtx& mc) {
+__device__ void step_forward(const ScanCfg& c, float* sm, Ring& rg,
+                             float t, float dt, MaskCtx& mc) {
   const int R = RT ? RT : c.rows, D = c.D, H = c.H, O = c.O;
   const int iw = c.ode.w[0];
   float* h = sm + c.o_h; float* lx = sm + c.o_lx; float* tau = sm + c.o_tau;
@@ -553,7 +812,7 @@ __device__ void step_forward(const ScanCfg& c, float* sm, const float* wg,
       tX[idx] = tanhf(X[idx]);
   __syncthreads();
   mc.half = R; mc.jump = 0;
-  mlp_fwd<GW>(c, c.ode, sm, wg, in_ode, R, sm + c.o_f, mc);
+  mlp_fwd<GW>(c, c.ode, sm, rg, in_ode, R, sm + c.o_f, mc);
   float* f = sm + c.o_f; float* enc = sm + c.o_enc;
   float* h1 = sm + c.o_h1; float* h2 = sm + c.o_h2;
   float* in_ro = sm + c.o_in_ro;
@@ -566,7 +825,7 @@ __device__ void step_forward(const ScanCfg& c, float* sm, const float* wg,
       in_ro[idx] = tanhf(a);
     }
     __syncthreads();
-    mlp_fwd<GW>(c, c.ro, sm, wg, in_ro, R, sm + c.o_ro, mc);  // y_bj, r1
+    mlp_fwd<GW>(c, c.ro, sm, rg, in_ro, R, sm + c.o_ro, mc);  // y_bj, r1
     for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x) {
       int r = idx / D, q = idx - r * D;
       float m = M[idx];
@@ -576,7 +835,7 @@ __device__ void step_forward(const ScanCfg& c, float* sm, const float* wg,
       tX[r * 2 * D + D + q] = m;
     }
     __syncthreads();
-    mlp_fwd<GW>(c, c.enc, sm, wg, tX, R, enc, mc);
+    mlp_fwd<GW>(c, c.enc, sm, rg, tX, R, enc, mc);
     for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
       int r = idx / H, j = idx - r * H;
       float he = residual(c.enc_case, c.enc_mult, Xi + r * D, D, j)
@@ -587,7 +846,7 @@ __device__ void step_forward(const ScanCfg& c, float* sm, const float* wg,
       in_ro[R * H + idx] = tanhf(b);
     }
     __syncthreads();
-    mlp_fwd<GW>(c, c.ro2, sm, wg, in_ro + R * H, R, sm + c.o_ro + R * O,
+    mlp_fwd<GW>(c, c.ro2, sm, rg, in_ro + R * H, R, sm + c.o_ro + R * O,
                 mc);
     mc.half = 2 * R;
     return;
@@ -599,9 +858,9 @@ __device__ void step_forward(const ScanCfg& c, float* sm, const float* wg,
       in_ro[idx] = tanhf(a);
     }
     __syncthreads();
-    gru_fwd<GW>(c, sm, wg, R);
+    gru_fwd<GW>(c, sm, rg, R);
   } else {
-    mlp_fwd<GW>(c, c.enc, sm, wg, tX, R, enc, mc);
+    mlp_fwd<GW>(c, c.enc, sm, rg, tX, R, enc, mc);
     for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
       int r = idx / H, j = idx - r * H;
       float a = h[idx] + dt * f[idx];
@@ -617,7 +876,7 @@ __device__ void step_forward(const ScanCfg& c, float* sm, const float* wg,
   }
   __syncthreads();
   mc.half = R; mc.jump = c.ro.n_lin - 1;   // rows >= R use the r2 slots
-  mlp_fwd<GW>(c, c.ro, sm, wg, in_ro, 2 * R, sm + c.o_ro, mc);
+  mlp_fwd<GW>(c, c.ro, sm, rg, in_ro, 2 * R, sm + c.o_ro, mc);
   mc.half = 2 * R;                          // no stacked rows elsewhere
 }
 
@@ -647,6 +906,7 @@ __device__ __forceinline__ void row_errors(const ScanCfg& c,
 template <bool WANT_HISTS, bool GW, int RT>
 __global__ void __launch_bounds__(NTHREADS)
 njode_scan_fwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
+                      const int* __restrict__ prog,
                       const float* __restrict__ times,
                       const float* __restrict__ dts,
                       const float* __restrict__ obs_g,
@@ -680,6 +940,9 @@ njode_scan_fwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
     nobs[r] = r < nv ? n_obs[row0 + r] : 1.f;
   }
   MaskCtx mc = make_mask_ctx(c, u, seed, row0, nv);
+  // the global plan's weight ring: the forward's tiles, step after step
+  Ring rg{prog, c.n_tiles_fwd, 0, c.stage, sm + c.o_ring, wg};
+  if (GW) ring_issue(rg, 0);
   __syncthreads();
   for (int k = 0; k < c.K; ++k) {
     const float t = times[k], dt = dts[k];
@@ -700,7 +963,7 @@ njode_scan_fwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
       if (c.masked) Mm[idx] = r < nv ? M_g[gi] : 0.f;
     }
     mc.k = k;
-    step_forward<GW, RT>(c, sm, wg, t, dt, mc);
+    step_forward<GW, RT>(c, sm, rg, t, dt, mc);
     // per-row loss term, then the carry updates (masked: last_X takes the
     // post-jump prediction, O == D)
     for (int r = threadIdx.x; r < R; r += blockDim.x) {
@@ -718,6 +981,7 @@ njode_scan_fwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
       h[idx] = sm[c.o_h2 + idx];
     __syncthreads();
   }
+  if (GW) cp_async_wait_all();   // the next step's first tile, unused
   if (threadIdx.x == 0) {
     float s = 0.f;
     for (int r = 0; r < nv; ++r) s += lrow[r];
@@ -728,6 +992,7 @@ njode_scan_fwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
 template <bool GW, int RT>
 __global__ void __launch_bounds__(NTHREADS)
 njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
+                      const int* __restrict__ prog,
                       const float* __restrict__ times,
                       const float* __restrict__ dts,
                       const float* __restrict__ obs_g,
@@ -764,6 +1029,10 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
   }
   const float dloss = dloss_p[0];
   MaskCtx mc = make_mask_ctx(c, u, seed, row0, nv);
+  // the global plan's weight ring: the forward's tiles, then the
+  // backward's, step after step
+  Ring rg{prog, c.n_tiles_fwd + c.n_tiles_bwd, 0, c.stage, sm + c.o_ring, wg};
+  if (GW) ring_issue(rg, 0);
   __syncthreads();
   for (int k = c.K - 1; k >= 0; --k) {
     const float t = times[k], dt = dts[k];
@@ -782,7 +1051,7 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
       obs[r] = ok ? obs_g[(size_t)k * B + row0 + r] : 0.f;
     }
     mc.k = k;
-    step_forward<GW, RT>(c, sm, wg, t, dt, mc);
+    step_forward<GW, RT>(c, sm, rg, t, dt, mc);
     // loss gradients per row: rs = (de1, de2)
     for (int r = threadIdx.x; r < R; r += blockDim.x) {
       float s1, s2, gg;
@@ -818,7 +1087,7 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
     if (!c.masked || c.use_rnn) {
       // stacked readout backward
       mc.half = R; mc.jump = c.ro.n_lin - 1;
-      const float* d_rin = mlp_bwd<GW>(c, c.ro, sm, wg, g, in_ro, 2 * R,
+      const float* d_rin = mlp_bwd<GW>(c, c.ro, sm, rg, g, in_ro, 2 * R,
                                        dst, true, mc);
       for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
         int r = idx / H, j = idx - r * H;
@@ -838,12 +1107,12 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
       __syncthreads();
       mc.half = 2 * R; mc.jump = 0;
       // the jump's backward: X is data, only the weights get gradients
-      if (c.use_rnn) gru_bwd<GW>(c, sm, wg, g, R, nv, dt);
-      else mlp_bwd<GW>(c, c.enc, sm, wg, g, sm + c.o_tX, R, dhe, false, mc);
+      if (c.use_rnn) gru_bwd<GW>(c, sm, rg, g, R, nv, dt);
+      else mlp_bwd<GW>(c, c.enc, sm, rg, g, sm + c.o_tX, R, dhe, false, mc);
     } else {
       mc.half = 2 * R; mc.jump = 0;
       // post-jump readout backward (input tanh h2)
-      const float* d_r2 = mlp_bwd<GW>(c, c.ro2, sm, wg, g, in_ro + R * H,
+      const float* d_r2 = mlp_bwd<GW>(c, c.ro2, sm, rg, g, in_ro + R * H,
                                       R, dst + R * O, true, mc);
       for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
         int r = idx / H, j = idx - r * H;
@@ -858,7 +1127,7 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
       __syncthreads();
       // encoder backward to its input [tanh X_imp, M]; X_imp = X*M +
       // (1-M)*y_bj, X and M are data, so dX_imp flows into dy_bj
-      const float* d_ein = mlp_bwd<GW>(c, c.enc, sm, wg, g, sm + c.o_tX, R,
+      const float* d_ein = mlp_bwd<GW>(c, c.enc, sm, rg, g, sm + c.o_tX, R,
                                        dhe, true, mc);
       const float* tX = sm + c.o_tX;
       for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x) {
@@ -870,7 +1139,7 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
       }
       __syncthreads();
       // pre-jump readout backward (input tanh h1)
-      const float* d_r1 = mlp_bwd<GW>(c, c.ro, sm, wg, g, in_ro, R, dst,
+      const float* d_r1 = mlp_bwd<GW>(c, c.ro, sm, rg, g, in_ro, R, dst,
                                       true, mc);
       for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
         int r = idx / H, j = idx - r * H;
@@ -883,7 +1152,7 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
       __syncthreads();
     }
     // Euler step backward: h1 = h + dt * f(ode_in)
-    const float* dino = mlp_bwd<GW>(c, c.ode, sm, wg, g, sm + c.o_in_ode, R,
+    const float* dino = mlp_bwd<GW>(c, c.ode, sm, rg, g, sm + c.o_in_ode, R,
                                     df, true, mc);
     const float* in_ode = sm + c.o_in_ode;
     for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
@@ -901,6 +1170,7 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
       dtau[r] = dtauc[r] + dino[r * iw + D + H] - dino[r * iw + D + H + 1];
     __syncthreads();
   }
+  if (GW) cp_async_wait_all();   // the next step's first tile, unused
   for (int idx = threadIdx.x; idx < nv * H; idx += blockDim.x)
     dh0[(size_t)row0 * H + idx] = dh[idx];
   if (!GW)
@@ -953,22 +1223,32 @@ extern "C" const char* njode_error_string(int code) {
 }
 
 // the rows per CTA and the plan the config names, and the packed weights
-// exactly when the plan is global
-static bool cfg_ok(const ScanCfg* c, const float* wg) {
+// and the ring's tile program exactly when the plan is global
+static bool cfg_ok(const ScanCfg* c, const float* wg, const int* prog) {
   return c->rows >= 1 && c->rows <= MAX_ROWS
          && (c->plan == 0 || c->plan == 1)
-         && (c->plan == 1) == (wg != nullptr);
+         && (c->plan == 1) == (wg != nullptr)
+         && (c->plan == 1) == (prog != nullptr);
+}
+
+// reduce_partials on the stream
+static cudaError_t launch_reduce(const float* P, int n_parts, int n,
+                                 float scale, float* out, cudaStream_t st) {
+  int threads = 256, grid = (n + threads - 1) / threads;
+  reduce_partials_kernel<<<grid, threads, 0, st>>>(P, n_parts, n, scale, out);
+  return cudaGetLastError();
 }
 
 template <bool H, bool GW, int RT>
 static cudaError_t launch_fwd(const ScanCfg* c, const Leaves& lv,
-                              const float* wg, const float* times,
-                              const float* dts, const float* obs,
-                              const float* X, const float* M,
-                              const int8_t* u, const long long* seed,
-                              const float* n_obs, const float* h0,
-                              const float* sx, float* loss_part, float* hh,
-                              float* lxh, float* tauh, cudaStream_t st) {
+                              const float* wg, const int* prog,
+                              const float* times, const float* dts,
+                              const float* obs, const float* X,
+                              const float* M, const int8_t* u,
+                              const long long* seed, const float* n_obs,
+                              const float* h0, const float* sx,
+                              float* loss_part, float* hh, float* lxh,
+                              float* tauh, cudaStream_t st) {
   int grid = (c->B + c->rows - 1) / c->rows;
   size_t smem = (size_t)c->smem_floats * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
@@ -976,8 +1256,8 @@ static cudaError_t launch_fwd(const ScanCfg* c, const Leaves& lv,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   njode_scan_fwd_kernel<H, GW, RT><<<grid, NTHREADS, smem, st>>>(
-      *c, lv, wg, times, dts, obs, X, M, u, seed, n_obs, h0, sx, loss_part,
-      hh, lxh, tauh);
+      *c, lv, wg, prog, times, dts, obs, X, M, u, seed, n_obs, h0, sx,
+      loss_part, hh, lxh, tauh);
   return cudaGetLastError();
 }
 
@@ -989,38 +1269,45 @@ static decltype(&launch_fwd<H, GW, 0>) fwd_for_rows(const ScanCfg* c) {
                              : launch_fwd<H, GW, 0>;
 }
 
-// wg: the weights packed in leaf_off order (global plan), else null
+// K1 (want_hists) or K3, then the reduction of the per-CTA losses into
+// loss[0] (scaled by loss_scale), both on the stream. wg: the weights
+// packed at pack_off (global plan), prog: the ring's tile program (global
+// plan), else null.
 extern "C" int njode_scan_fwd(const ScanCfg* c, void** leaves,
-                              const float* wg,
+                              const float* wg, const int* prog,
                               const float* times, const float* dts,
                               const float* obs, const float* X,
                               const float* M,
                               const int8_t* u, const long long* seed,
                               const float* n_obs, const float* h0,
-                              const float* sx, float* loss_part, float* hh,
-                              float* lxh, float* tauh, int want_hists,
+                              const float* sx, float* loss_part, float* loss,
+                              float* hh, float* lxh, float* tauh,
+                              int want_hists, float loss_scale,
                               void* stream) {
-  if (!cfg_ok(c, wg)) return (int)cudaErrorInvalidValue;
+  if (!cfg_ok(c, wg, prog)) return (int)cudaErrorInvalidValue;
   Leaves lv = make_leaves(c, leaves);
   cudaStream_t st = (cudaStream_t)stream;
   auto f = want_hists ? (c->plan ? fwd_for_rows<true, true>(c)
                                  : fwd_for_rows<true, false>(c))
                       : (c->plan ? fwd_for_rows<false, true>(c)
                                  : fwd_for_rows<false, false>(c));
-  return (int)f(c, lv, wg, times, dts, obs, X, M, u, seed, n_obs, h0, sx,
-                loss_part, hh, lxh, tauh, st);
+  cudaError_t e = f(c, lv, wg, prog, times, dts, obs, X, M, u, seed, n_obs,
+                    h0, sx, loss_part, hh, lxh, tauh, st);
+  if (e != cudaSuccess) return (int)e;
+  int n_cta = (c->B + c->rows - 1) / c->rows;
+  return (int)launch_reduce(loss_part, n_cta, 1, loss_scale, loss, st);
 }
 
 template <bool GW, int RT>
 static cudaError_t launch_bwd(const ScanCfg* c, const Leaves& lv,
-                              const float* wg, const float* times,
-                              const float* dts, const float* obs,
-                              const float* X, const float* M,
-                              const int8_t* u, const long long* seed,
-                              const float* n_obs, const float* hh,
-                              const float* lxh, const float* tauh,
-                              const float* dloss, float* partials,
-                              float* dh0, cudaStream_t st) {
+                              const float* wg, const int* prog,
+                              const float* times, const float* dts,
+                              const float* obs, const float* X,
+                              const float* M, const int8_t* u,
+                              const long long* seed, const float* n_obs,
+                              const float* hh, const float* lxh,
+                              const float* tauh, const float* dloss,
+                              float* partials, float* dh0, cudaStream_t st) {
   int grid = (c->B + c->rows - 1) / c->rows;
   size_t smem = (size_t)c->smem_floats * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
@@ -1028,8 +1315,8 @@ static cudaError_t launch_bwd(const ScanCfg* c, const Leaves& lv,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   njode_scan_bwd_kernel<GW, RT><<<grid, NTHREADS, smem, st>>>(
-      *c, lv, wg, times, dts, obs, X, M, u, seed, n_obs, hh, lxh, tauh,
-      dloss, partials, dh0);
+      *c, lv, wg, prog, times, dts, obs, X, M, u, seed, n_obs, hh, lxh,
+      tauh, dloss, partials, dh0);
   return cudaGetLastError();
 }
 
@@ -1038,8 +1325,10 @@ static decltype(&launch_bwd<GW, 0>) bwd_for_rows(const ScanCfg* c) {
   return c->rows == MAX_ROWS ? launch_bwd<GW, MAX_ROWS> : launch_bwd<GW, 0>;
 }
 
+// K2, then the reduction of its partial rows ([n_cta, n_params]) into
+// grads [n_params], both on the stream
 extern "C" int njode_scan_bwd(const ScanCfg* c, void** leaves,
-                              const float* wg,
+                              const float* wg, const int* prog,
                               const float* times, const float* dts,
                               const float* obs, const float* X,
                               const float* M,
@@ -1047,12 +1336,16 @@ extern "C" int njode_scan_bwd(const ScanCfg* c, void** leaves,
                               const float* n_obs, const float* hh,
                               const float* lxh, const float* tauh,
                               const float* dloss, float* partials,
-                              float* dh0, void* stream) {
-  if (!cfg_ok(c, wg)) return (int)cudaErrorInvalidValue;
+                              float* grads, float* dh0, void* stream) {
+  if (!cfg_ok(c, wg, prog)) return (int)cudaErrorInvalidValue;
   Leaves lv = make_leaves(c, leaves);
+  cudaStream_t st = (cudaStream_t)stream;
   auto f = c->plan ? bwd_for_rows<true>(c) : bwd_for_rows<false>(c);
-  return (int)f(c, lv, wg, times, dts, obs, X, M, u, seed, n_obs, hh, lxh,
-                tauh, dloss, partials, dh0, (cudaStream_t)stream);
+  cudaError_t e = f(c, lv, wg, prog, times, dts, obs, X, M, u, seed, n_obs,
+                    hh, lxh, tauh, dloss, partials, dh0, st);
+  if (e != cudaSuccess) return (int)e;
+  int n_cta = (c->B + c->rows - 1) / c->rows;
+  return (int)launch_reduce(partials, n_cta, c->n_params, 1.f, grads, st);
 }
 
 extern "C" int njode_philox_masks(const long long* seed, int K, int S, int B,
@@ -1067,11 +1360,10 @@ extern "C" int njode_philox_masks(const long long* seed, int K, int S, int B,
   return (int)cudaGetLastError();
 }
 
+// out = scale * the sum of partials' rows (row q at partials + q * n)
 extern "C" int njode_reduce_partials(const float* partials, int n_parts,
                                      int n, float scale, float* out,
                                      void* stream) {
-  int threads = 256, grid = (n + threads - 1) / threads;
-  reduce_partials_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      partials, n_parts, n, scale, out);
-  return (int)cudaGetLastError();
+  return (int)launch_reduce(partials, n_parts, n, scale, out,
+                            (cudaStream_t)stream);
 }

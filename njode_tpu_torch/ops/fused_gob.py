@@ -35,7 +35,8 @@ Kernel scope (``supported``, as the JAX kernel's): euler or midpoint, the
 minimal or full GRU-ODE field, impute on or off, logvar or abs-var, the
 discretized cell, bias on or off, dropout in both mask modes. Widths must
 fit the kernels' shared memory (:meth:`Spec.smem_bytes`); the published
-widths (D = 1, hidden 50 and 100) do.
+widths (D = 1, hidden 50 and 100) do, and ``supported`` is false for wider
+ones, which the trainers run through the eager forward.
 """
 
 from __future__ import annotations
@@ -69,9 +70,13 @@ def reset_launch_counts():
 
 
 def supported(cfg) -> bool:
-    """Whether the CUDA kernels cover the given GOBConfig (the JAX kernel's
-    rule: euler or midpoint; dopri5 runs eagerly)."""
-    return cfg.solver in ("euler", "midpoint")
+    """Whether the CUDA kernels cover the given GOBConfig: the JAX kernel's
+    rule (euler or midpoint; dopri5 runs eagerly) and widths whose buffers
+    fit one CTA's shared memory (``Spec.smem_bytes`` within
+    ``SMEM_LIMIT``). The trainers route a config outside to the eager
+    ``gru_ode_bayes.forward`` (ROADMAP.md Queue 3 F1)."""
+    return (cfg.solver in ("euler", "midpoint")
+            and Spec(cfg).smem_bytes <= SMEM_LIMIT)
 
 
 # shared-memory buffers of one CTA, per batch row: (name, width). The
@@ -537,7 +542,7 @@ def make_cfg(spec: Spec, K: int, B: int, train: bool):
 
 
 def _check_inputs(spec, leaves, arrays, train, u, seed):
-    if not supported(spec.cfg):
+    if spec.cfg.solver not in ("euler", "midpoint"):
         raise NotImplementedError(
             "config outside the GOB kernels' scope (solver "
             f"{spec.cfg.solver!r}: euler and midpoint only; dopri5 runs "
@@ -545,8 +550,9 @@ def _check_inputs(spec, leaves, arrays, train, u, seed):
     if spec.smem_bytes > SMEM_LIMIT:
         raise NotImplementedError(
             f"GOB widths need {spec.smem_bytes} bytes of shared memory per "
-            f"CTA, more than the card's {SMEM_LIMIT} (ROADMAP.md Queue 2: "
-            "K5-K7 speed and widths)")
+            f"CTA, more than the card's {SMEM_LIMIT} (ROADMAP.md Queue 3 "
+            "F1: the trainers run such configs through the eager "
+            "models.gru_ode_bayes.forward)")
     times, dts, obs, X, M = arrays
     K, B = obs.shape
     for name, t, shp in (("times", times, (K,)), ("dts", dts, (K,)),
@@ -587,7 +593,7 @@ def gob_scan_fwd_cuda(spec, leaves, arrays, h0, m0, v0, train, u=None,
     _check("h0", h0, (B, spec.H))
     _check("m0", m0, (B, spec.D))
     _check("v0", v0, (B, spec.D))
-    lib = _build.load("fused_gob")
+    lib = _build.lib("fused_gob")
     times, dts, obs, X, M = arrays
     dev = h0.device
     n_cta = -(-B // ROWS)
@@ -610,7 +616,7 @@ def gob_scan_fwd_cuda(spec, leaves, arrays, h0, m0, v0, train, u=None,
     LAUNCHES["gob_scan_fwd" if want_hists else "gob_scan_eval"] += 1
     if cfg.mode == 2:
         LAUNCHES["gob_philox_keep"] += 1
-    loss = fs.reduce_partials_cuda(loss_part.view(n_cta, 1), 1.0)
+    loss = fs._reduce(loss_part.view(n_cta, 1), 1.0)
     return loss.reshape(()), (hists if want_hists else None)
 
 
@@ -627,7 +633,7 @@ def gob_scan_bwd_cuda(spec, leaves, arrays, train, hists, dloss, u=None,
     _check("v_hist", vh, (K, B, spec.D))
     dloss = dloss.reshape(1).to(torch.float32).contiguous()
     _check("dloss", dloss, (1,))
-    lib = _build.load("fused_gob")
+    lib = _build.lib("fused_gob")
     times, dts, obs, X, M = arrays
     dev = hh.device
     n_cta = -(-B // ROWS)
@@ -647,7 +653,7 @@ def gob_scan_bwd_cuda(spec, leaves, arrays, train, hists, dloss, u=None,
     LAUNCHES["gob_scan_bwd"] += 1
     if cfg.mode == 2:
         LAUNCHES["gob_philox_keep"] += 1
-    flat = fs.reduce_partials_cuda(partials, 1.0)
+    flat = fs._reduce(partials, 1.0)
     grads = [flat[a:b].view(s) for a, b, s in
              zip(spec.leaf_off[:-1], spec.leaf_off[1:], spec.leaf_shapes)]
     return grads, dh0, dm0, dv0
@@ -659,7 +665,7 @@ def gob_masks_cuda(seed, K: int, B: int, P: int, thresh: int):
     from njode_tpu_torch.ops import _build
 
     _check("seed", seed, (1,), torch.int64)
-    lib = _build.load("fused_gob")
+    lib = _build.lib("fused_gob")
     out = torch.empty((K, 3, B, P), dtype=torch.int8, device=seed.device)
     stream = torch.cuda.current_stream(seed.device).cuda_stream
     with torch.cuda.device(seed.device):
@@ -726,8 +732,10 @@ class FusedGOBLoss(torch.autograd.Function):
 def _require_supported(cfg):
     if not supported(cfg):
         raise NotImplementedError(
-            f"solver {cfg.solver!r} is outside the GOB kernels' scope "
-            "(euler and midpoint); use models.gru_ode_bayes.forward")
+            "config outside the GOB kernels' scope (solver "
+            f"{cfg.solver!r}: euler and midpoint only; or widths beyond "
+            "one CTA's shared memory, ROADMAP.md Queue 3 F1); use "
+            "models.gru_ode_bayes.forward")
 
 
 def make_fused_loss_fn(cfg, mask_mode: str = "prng", u_override=None):

@@ -44,17 +44,27 @@ backward's gate gradients (``dG``), regions the layout holds only with
 
 Plans (``Spec.plan``, ``Spec.rows``; the counterpart of the JAX kernel's
 ``_select_plan``). 'resident': every weight and its gradient in the shared
-memory of each CTA, 16 batch rows per CTA; taken wherever it fits.
-'global': the weights stay in one packed buffer in device memory and K2
-adds its gradients into the CTA's partial row in place, so only the
-activations of R rows sit in shared memory, R the largest of 16, 8, 4, 2,
-1 that fits (PhysioNet, the 400-wide arms). Both plans sum in the same
-order, so at one R they give the same bits. ``plan=(name, R)`` forces a
-plan, for the tests.
+memory of each CTA, R batch rows per CTA, R the largest of 16, 8, 4, 2, 1
+that fits; taken wherever one does (PhysioNet's 50 arm at 4 rows: on the
+H100 its K1 + K2 ran 2.2x faster than the global plan at 16, PERF.md).
+'global': the weights stay in one packed buffer in device memory (each
+leaf at a 16-byte boundary, ``Spec.pack_off``) and K2 adds its gradients
+into the CTA's partial row in place, so only the activations of R rows sit
+in shared memory, R the largest that fits (the 200- and 400-wide arms,
+the GRU jump at PhysioNet's widths), and the shared memory left over
+holds a ring of two weight tiles that the kernels fill in the background
+(``Spec.tile_program`` lists a step's tiles in the order the kernels use
+them). Both plans sum in the same order, so at one R they give the same
+bits. ``plan=(name, R)`` forces a plan, for the tests.
+
+The wrappers' C calls enqueue ``reduce_partials`` themselves, right after
+K1/K3 (the per-CTA losses) and K2 (the per-CTA gradient rows), and count
+it in ``LAUNCHES``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -70,6 +80,9 @@ PLANS = ("resident", "global")
 MAX_LIN = 8               # Linear layers per MLP
 MAX_LEAVES = 3 * 2 * MAX_LIN + 4      # three MLPs and the GRU's four leaves
 SMEM_LIMIT = 232448       # bytes of shared memory one CTA may use (H100)
+# the global plan's weight ring (csrc/fused_scan.cu): rows a thread sums,
+# items a thread carries across tiles, threads a CTA, ints a tile
+RB, MAXI, NTHREADS, TILE_INTS = 4, 4, 256, 8
 
 # launches per kernel; a wrapper adds one where it launches its kernel.
 # K1-K3 count each branch and plan apart ('_rnn': the GRU jump; '_global':
@@ -96,8 +109,9 @@ class Spec:
 
     ``mask_mode``: 'input' (int8 keep-masks [K,S,B,Wmax] drawn outside) or
     'prng' (Philox inside the kernels, keyed by a per-call seed).
-    ``plan``: None (the rule: 'resident' at 16 rows if it fits, else
-    'global' at the most rows that fit) or a forced ``(name, rows)``;
+    ``plan``: None (the rule: 'resident' at the most rows of 16, 8, 4, 2,
+    1 that fit, else 'global' at the most rows that fit) or a forced
+    ``(name, rows)``;
     ``self.plan`` is None when neither plan fits."""
 
     def __init__(self, cfg, mask_mode: str = "prng", plan=None):
@@ -152,11 +166,19 @@ class Spec:
                 n *= d
             self.leaf_off.append(self.leaf_off[-1] + n)
         self.n_params = self.leaf_off[-1]
+        # the global plan's packed weights: each leaf at a 16-byte boundary
+        self.pack_off = [0]
+        for a, b in zip(self.leaf_off[:-1], self.leaf_off[1:]):
+            self.pack_off.append(self.pack_off[-1] + (b - a + 3) // 4 * 4)
         self.buf_w = max(self.ode_w + self.enc_w + self.ro_w)
+        self._cfgs, self._progs = {}, {}
         self.plan, self.rows = self._choose_plan(plan)
 
     def fits(self, plan: str, R: int) -> bool:
-        return 4 * self.layout(R, plan)[1] <= SMEM_LIMIT
+        off, n = self.layout(R, plan)
+        return 4 * n <= SMEM_LIMIT and (
+            plan != "global"
+            or self._ring_stage(off["ring"]) >= self._ring_need()[0])
 
     def _choose_plan(self, plan):
         if plan is not None:
@@ -167,11 +189,10 @@ class Spec:
                 raise ValueError(f"plan {plan!r} overflows one CTA's shared "
                                  "memory")
             return name, R
-        if self.fits("resident", MAX_ROWS):
-            return "resident", MAX_ROWS
-        for R in ROW_CHOICES:
-            if self.fits("global", R):
-                return "global", R
+        for name in PLANS:
+            for R in ROW_CHOICES:
+                if self.fits(name, R):
+                    return name, R
         return None, None
 
     @property
@@ -250,7 +271,118 @@ class Spec:
         if self.use_rnn:
             take("gru", 4 * R * H)
             take("dG", 4 * R * H)
+        if plan == "global":
+            if self.use_rnn:
+                take("gsc", 6 * R * H)
+            take("ring", 2 * max(self._ring_stage(n), 0))
         return off, n
+
+    def ring_ops(self, R: int):
+        """The weight products of one step in the global plan, in the
+        order the kernels run them: the forward's (K1-K3, ``step_forward``)
+        and K2's backward's. Each ``(dx, key, wo, wi, rows, bias)``: W
+        [wo, wi] at packed offset ``key``, its bias at ``bias`` (-1: none,
+        or a dx product), y = W x (``dx`` False) or dx = W^T d, over
+        ``rows`` batch rows."""
+        po, i, nets = self.pack_off, 0, []
+        for ws in (self.ode_w, self.enc_w, self.ro_w):
+            layers = []
+            for wi, wo in zip(ws[:-1], ws[1:]):
+                key, i = po[i], i + 1
+                bias = -1
+                if self.bias:
+                    bias, i = po[i], i + 1
+                layers.append((key, bias, wo, wi))
+            nets.append(layers)
+        ode, enc, ro = nets
+
+        def fwd(net, rows):
+            return [(False, k, wo, wi, rows, b) for k, b, wo, wi in net]
+
+        def bwd(net, rows, want_dx):
+            return [(True, k, wo, wi, rows, -1)
+                    for l, (k, _, wo, wi) in reversed(list(enumerate(net)))
+                    if l > 0 or want_dx]
+
+        H3 = 3 * self.H
+        f = fwd(ode, R)
+        if self.masked and not self.use_rnn:
+            f += fwd(ro, R) + fwd(enc, R) + fwd(ro, R)
+            b = bwd(ro, R, True) + bwd(enc, R, True) + bwd(ro, R, True)
+        else:
+            g = self.gru_leaf0
+            if self.use_rnn:
+                bih, bhh = (po[g + 2], po[g + 3]) if self.bias else (-1, -1)
+                f += [(False, po[g], H3, self.D, R, bih),
+                      (False, po[g + 1], H3, self.H, R, bhh)]
+                jump = [(True, po[g + 1], H3, self.H, R, -1)]
+            else:
+                f += fwd(enc, R)
+                jump = bwd(enc, R, False)
+            f += fwd(ro, 2 * R)
+            b = bwd(ro, 2 * R, True) + jump
+        return f, b + bwd(ode, R, True)
+
+    def _ring_need(self):
+        """Floats a ring stage needs at least (one column of every forward
+        product with its bias, one row of every dx product) and for every
+        product whole."""
+        least = whole = 0
+        for dx, _, wo, wi, _, _ in sum(self.ring_ops(1), []):
+            n_o, n_s = (wi, wo) if dx else (wo, wi)
+            least = max(least, n_o if dx else 2 * n_o)
+            whole = max(whole, n_o * n_s if dx else n_o * (n_s + 1))
+        return least, whole
+
+    def _ring_stage(self, used: int) -> int:
+        """Floats of each of the ring's two stages when ``used`` floats of
+        shared memory hold the rest: every product whole if that fits,
+        else what is left, a multiple of 4 either way."""
+        whole = (self._ring_need()[1] + 3) // 4 * 4
+        return min(whole, (SMEM_LIMIT // 4 - used) // 2 // 4 * 4)
+
+    def tile_program(self):
+        """The global plan's ring tiles of one step, ``TILE_INTS`` ints
+        each (csrc/fused_scan.cu ``Ring``), and how many belong to the
+        forward and to K2's backward. A forward product takes column
+        blocks of W (as many columns as fit beside the bias, a multiple of
+        4 where it splits, for 16-byte copies), a dx product row blocks; a
+        split product is walked once per ``MAXI * NTHREADS`` of its (row
+        block, output) items."""
+        R = self.rows
+        if R not in self._progs:
+            stage = self._ring_stage(self.layout(R, "global")[0]["ring"])
+            lists = []
+            for ops in self.ring_ops(R):
+                tiles = []
+                for op in ops:
+                    tiles += self._op_tiles(op, stage)
+                lists.append(tiles)
+            self._progs[R] = (sum(lists[0] + lists[1], []), len(lists[0]),
+                              len(lists[1]), stage)
+        return self._progs[R]
+
+    @staticmethod
+    def _op_tiles(op, stage):
+        dx, key, wo, wi, rows, bias = op
+        n_o, n_s = (wi, wo) if dx else (wo, wi)
+        T = min(n_s, stage // n_o if dx else (stage - n_o) // n_o)
+        if not dx and 4 <= T < n_s:
+            T -= T % 4
+        tiles = []
+        for s0 in range(0, n_s, T):
+            ns = min(T, n_s - s0)
+            last = int(s0 + ns == n_s)
+            if dx:
+                tiles.append([key + s0 * wi, ns, wi, wi, last | 2, -1, key,
+                              0])
+            else:
+                tiles.append([key + s0, wo, wi, ns, last,
+                              bias if last else -1, key, 0])
+        if len(tiles) > 1:
+            items = -(-rows // RB) * n_o
+            tiles *= -(-items // (MAXI * NTHREADS))
+        return tiles
 
     @property
     def smem_bytes(self) -> int:
@@ -572,7 +704,13 @@ def scan_bwd_plain(spec, leaves, arrays, weight, train, hists, dloss,
 
 
 def reduce_partials_plain(partials, scale=1.0):
-    return partials.sum(dim=0) * scale
+    """``scale * (((0 + P[0]) + P[1]) + ...)``: the rows summed in
+    ascending order, the order the kernel keeps (fp32 adds, so the kernel
+    gives these bits)."""
+    s = torch.zeros_like(partials[0])
+    for q in range(partials.shape[0]):
+        s = s + partials[q]
+    return s * scale
 
 
 # ---------------------------------------------------------------------------
@@ -585,6 +723,7 @@ class _MLPDesc(ctypes.Structure):
                 ("act", ctypes.c_int * MAX_LIN),
                 ("w_off", ctypes.c_int * MAX_LIN),
                 ("b_off", ctypes.c_int * MAX_LIN),
+                ("pw_off", ctypes.c_int * MAX_LIN),
                 ("slot0", ctypes.c_int),
                 ("save_off", ctypes.c_int)]
 
@@ -592,7 +731,8 @@ class _MLPDesc(ctypes.Structure):
 _LAYOUT_FIELDS = ("w", "g", "h", "lx", "tau", "X", "obs", "nobs", "lrow",
                   "h1", "h2", "in_ode", "tX", "in_ro", "f", "enc", "ro",
                   "dA", "dB", "dh", "dlx", "dtau", "rs", "dst", "dh1", "dhe",
-                  "df", "dlxc", "dtauc", "M", "Xi", "gru", "dG")
+                  "df", "dlxc", "dtauc", "M", "Xi", "gru", "dG", "gsc",
+                  "ring")
 
 
 class _ScanCfg(ctypes.Structure):
@@ -605,7 +745,9 @@ class _ScanCfg(ctypes.Structure):
            ("weight", ctypes.c_float)]
         + [(n, ctypes.c_int) for n in ("rows", "plan", "buf_w",
                                        "smem_floats", "gru_wih", "gru_whh",
-                                       "gru_bih", "gru_bhh")]
+                                       "gru_bih", "gru_bhh", "gru_pwih",
+                                       "gru_pwhh", "n_tiles_fwd",
+                                       "n_tiles_bwd", "stage")]
         + [("leaf_off", ctypes.c_int * (MAX_LEAVES + 1))]
         + [("o_" + n, ctypes.c_int) for n in _LAYOUT_FIELDS]
         + [("ode", _MLPDesc), ("enc", _MLPDesc), ("ro", _MLPDesc),
@@ -614,9 +756,17 @@ class _ScanCfg(ctypes.Structure):
 
 def make_cfg(spec: Spec, K: int, B: int, train: bool, weight: float):
     """The kernels' configuration for one call (host memory), in the
-    spec's plan; the global plan has no ``w``/``g`` regions, and a config
-    without use_rnn no ``gru``/``dG`` regions and no GRU leaves (their
-    offsets are -1)."""
+    spec's plan; the global plan has no ``w``/``g`` regions, the resident
+    plan no ``ring``/``gsc`` regions and no tiles, and a config without
+    use_rnn no ``gru``/``dG`` regions and no GRU leaves (their offsets are
+    -1). Kept on the spec per call shape, so a step builds it once."""
+    key = (K, B, bool(train), float(weight))
+    if key not in spec._cfgs:
+        spec._cfgs[key] = _make_cfg(spec, K, B, train, weight)
+    return spec._cfgs[key]
+
+
+def _make_cfg(spec, K, B, train, weight):
     off, total = spec.layout(spec.rows, spec.plan)
     c = _ScanCfg()
     c.K, c.B, c.D, c.H, c.O = K, B, spec.D, spec.H, spec.O
@@ -629,10 +779,14 @@ def make_cfg(spec: Spec, K: int, B: int, train: bool, weight: float):
     c.mode = 0 if not dropping else (1 if spec.mask_mode == "input" else 2)
     c.masked = int(spec.masked)
     c.use_rnn = int(spec.use_rnn)
-    gru_offs = [-1] * 4
+    gru_offs, gru_pack = [-1] * 4, [-1] * 4
     for i in range(len(spec.leaf_shapes) - spec.gru_leaf0):
         gru_offs[i] = spec.leaf_off[spec.gru_leaf0 + i]
+        gru_pack[i] = spec.pack_off[spec.gru_leaf0 + i]
     c.gru_wih, c.gru_whh, c.gru_bih, c.gru_bhh = gru_offs
+    c.gru_pwih, c.gru_pwhh = gru_pack[:2]
+    if spec.plan == "global":
+        _, c.n_tiles_fwd, c.n_tiles_bwd, c.stage = spec.tile_program()
     c.thresh = spec.thresh
     c.keep = 1.0 - spec.rate
     c.weight = float(weight)
@@ -654,6 +808,7 @@ def make_cfg(spec: Spec, K: int, B: int, train: bool, weight: float):
             desc.act[i] = 0 if a == "tanh" else 1
         for i in range(desc.n_lin):
             desc.w_off[i] = spec.leaf_off[leaf]
+            desc.pw_off[i] = spec.pack_off[leaf]
             leaf += 1
             if spec.bias:
                 desc.b_off[i] = spec.leaf_off[leaf]
@@ -670,14 +825,16 @@ def make_cfg(spec: Spec, K: int, B: int, train: bool, weight: float):
     return c
 
 
-def _is_cuda(t: torch.Tensor) -> bool:
-    """Which route a tensor takes: True for CUDA (kernel), False for the
-    CPU (plain version); any other device raises."""
-    if t.device.type == "cuda":
+def _is_cuda(t) -> bool:
+    """Which route a tensor (or a device: the trainers' choice) takes: True
+    for CUDA (kernel), False for the CPU (plain version); any other device
+    raises."""
+    dev = t if isinstance(t, torch.device) else t.device
+    if dev.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if dev.type == "cpu":
         return False
-    raise RuntimeError(f"fused scan kernels: unsupported device {t.device}")
+    raise RuntimeError(f"fused scan kernels: unsupported device {dev}")
 
 
 def _check(name, t, shape, dtype=torch.float32):
@@ -699,12 +856,42 @@ def _ptr(t):
 
 
 def packed_weights(spec, leaves):
-    """The leaves packed into one flat buffer in ``leaf_off`` order, the
-    weights the global plan's kernels read; None in the resident plan
-    (its kernels copy each leaf into shared memory)."""
+    """The leaves packed into one flat buffer, leaf i at ``pack_off[i]``
+    (a 16-byte boundary; zeros between), the weights the global plan's
+    ring copies from; None in the resident plan (its kernels copy each
+    leaf into shared memory)."""
     if spec.plan != "global":
         return None
-    return torch.cat([p.reshape(-1) for p in leaves])
+    parts = []
+    for p, a, b in zip(leaves, spec.pack_off[:-1], spec.pack_off[1:]):
+        parts.append(p.reshape(-1))
+        if b - a > p.numel():
+            parts.append(p.new_zeros(b - a - p.numel()))
+    return torch.cat(parts)
+
+
+def _program(spec, dev):
+    """The ring's tile program on ``dev`` (global plan), else None."""
+    if spec.plan != "global":
+        return None
+    prog = spec._progs.get(("dev", dev))
+    if prog is None:
+        prog = torch.tensor(spec.tile_program()[0], dtype=torch.int32,
+                            device=dev)
+        spec._progs[("dev", dev)] = prog
+    return prog
+
+
+def _lib():
+    from njode_tpu_torch.ops import _build
+    return _build.lib("fused_scan")
+
+
+def _on(dev):
+    """The device context a launch needs: none when ``dev`` is current."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def _launch_key(spec):
@@ -744,18 +931,18 @@ def _check_inputs(spec, leaves, arrays, train, u, seed):
 
 def scan_fwd_cuda(spec, leaves, arrays, weight, h0, train, u=None,
                   seed=None, want_hists=True):
-    """Launch K1 (``want_hists``) or K3 and reduce the per-CTA losses."""
-    from njode_tpu_torch.ops import _build
-
+    """Launch K1 (``want_hists``) or K3 and, in the same C call, the
+    reduction of the per-CTA losses."""
     K, B = _check_inputs(spec, leaves, arrays, train, u, seed)
     if not want_hists and train:
         raise ValueError("the history-free kernel is the eval forward")
     _check("h0", h0, (B, spec.H))
-    lib = _build.load("fused_scan")
+    lib = _lib()
     times, dts, obs, X, n_obs, start_X, M = unpack_arrays(spec, arrays)
     dev = h0.device
     n_cta = -(-B // spec.rows)
     loss_part = torch.empty((n_cta,), dtype=torch.float32, device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
     if want_hists:
         hists = (torch.empty((K, B, spec.H), device=dev),
                  torch.empty((K, B, spec.D), device=dev),
@@ -766,28 +953,27 @@ def scan_fwd_cuda(spec, leaves, arrays, weight, h0, train, u=None,
     ptrs = (ctypes.c_void_p * len(leaves))(*[p.data_ptr() for p in leaves])
     wg = packed_weights(spec, leaves)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    with _on(dev):
         rc = lib.njode_scan_fwd(
-            ctypes.addressof(cfg), ptrs, _ptr(wg), _ptr(times), _ptr(dts),
-            _ptr(obs), _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs),
-            _ptr(h0),
-            _ptr(start_X), _ptr(loss_part), *(_ptr(t) for t in hists),
-            int(want_hists), stream)
+            ctypes.addressof(cfg), ptrs, _ptr(wg), _ptr(_program(spec, dev)),
+            _ptr(times), _ptr(dts), _ptr(obs), _ptr(X), _ptr(M), _ptr(u),
+            _ptr(seed), _ptr(n_obs), _ptr(h0), _ptr(start_X),
+            _ptr(loss_part), _ptr(loss), *(_ptr(t) for t in hists),
+            int(want_hists), 1.0 / B, stream)
     _raise_rc(lib, rc, "njode_scan_fwd")
     LAUNCHES[("njode_scan_fwd" if want_hists else "njode_scan_eval")
              + _launch_key(spec)] += 1
+    LAUNCHES["reduce_partials"] += 1
     if cfg.mode == 2:
         LAUNCHES["philox_keep"] += 1
-    loss = reduce_partials_cuda(loss_part.view(n_cta, 1), 1.0 / B)
-    return loss.reshape(()), (hists if want_hists else None)
+    return loss, (hists if want_hists else None)
 
 
 def scan_bwd_cuda(spec, leaves, arrays, weight, train, hists, dloss,
                   u=None, seed=None):
-    """Launch K2 and reduce the per-CTA gradient partials; returns (grads
-    as views of one flat buffer, in leaf order and layout, dh0)."""
-    from njode_tpu_torch.ops import _build
-
+    """Launch K2 and, in the same C call, the reduction of its per-CTA
+    gradient rows; returns (grads as views of one flat buffer, in leaf
+    order and layout, dh0)."""
     K, B = _check_inputs(spec, leaves, arrays, train, u, seed)
     hh, lxh, tauh = hists
     _check("h_hist", hh, (K, B, spec.H))
@@ -795,44 +981,53 @@ def scan_bwd_cuda(spec, leaves, arrays, weight, train, hists, dloss,
     _check("tau_hist", tauh, (K, B, 1))
     dloss = dloss.reshape(1).to(torch.float32).contiguous()
     _check("dloss", dloss, (1,))
-    lib = _build.load("fused_scan")
+    lib = _lib()
     times, dts, obs, X, n_obs, start_X, M = unpack_arrays(spec, arrays)
     dev = hh.device
     n_cta = -(-B // spec.rows)
-    partials = torch.empty((n_cta, spec.n_params), device=dev)
-    dh0 = torch.empty((B, spec.H), device=dev)
     cfg = make_cfg(spec, K, B, train, weight)
+    partials = torch.empty((n_cta, spec.n_params), device=dev)
+    flat = torch.empty((spec.n_params,), device=dev)
+    dh0 = torch.empty((B, spec.H), device=dev)
     ptrs = (ctypes.c_void_p * len(leaves))(*[p.data_ptr() for p in leaves])
     wg = packed_weights(spec, leaves)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    with _on(dev):
         rc = lib.njode_scan_bwd(
-            ctypes.addressof(cfg), ptrs, _ptr(wg), _ptr(times), _ptr(dts),
-            _ptr(obs), _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs),
-            _ptr(hh), _ptr(lxh), _ptr(tauh), _ptr(dloss), _ptr(partials),
-            _ptr(dh0), stream)
+            ctypes.addressof(cfg), ptrs, _ptr(wg), _ptr(_program(spec, dev)),
+            _ptr(times), _ptr(dts), _ptr(obs), _ptr(X), _ptr(M), _ptr(u),
+            _ptr(seed), _ptr(n_obs), _ptr(hh), _ptr(lxh), _ptr(tauh),
+            _ptr(dloss), _ptr(partials), _ptr(flat), _ptr(dh0), stream)
     _raise_rc(lib, rc, "njode_scan_bwd")
     LAUNCHES["njode_scan_bwd" + _launch_key(spec)] += 1
+    LAUNCHES["reduce_partials"] += 1
     if cfg.mode == 2:
         LAUNCHES["philox_keep"] += 1
-    flat = reduce_partials_cuda(partials, 1.0)
     grads = [flat[a:b].view(s) for a, b, s in
              zip(spec.leaf_off[:-1], spec.leaf_off[1:], spec.leaf_shapes)]
     return grads, dh0
 
 
 def reduce_partials_cuda(partials, scale=1.0):
-    """Sum ``partials [n_parts, n]`` over its rows in a fixed order."""
-    from njode_tpu_torch.ops import _build
+    """Sum ``partials [n_parts, n]`` (contiguous) over its rows in a fixed
+    order."""
+    if partials.device.type != "cuda" or partials.dtype != torch.float32:
+        raise ValueError("partials must be a CUDA float32 tensor")
+    if partials.dim() != 2 or not partials.is_contiguous():
+        raise ValueError("partials must be a contiguous [n_parts, n]")
+    return _reduce(partials, scale)
 
+
+def _reduce(partials, scale=1.0):
+    """reduce_partials on a buffer its caller made (no checks)."""
+    lib = _lib()
     n_parts, n = partials.shape
-    _check("partials", partials, (n_parts, n))
-    lib = _build.load("fused_scan")
-    out = torch.empty((n,), dtype=torch.float32, device=partials.device)
-    stream = torch.cuda.current_stream(partials.device).cuda_stream
-    with torch.cuda.device(partials.device):
-        rc = lib.njode_reduce_partials(_ptr(partials), n_parts, n,
-                                       float(scale), _ptr(out), stream)
+    dev = partials.device
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    with _on(dev):
+        rc = lib.njode_reduce_partials(
+            _ptr(partials), n_parts, n, float(scale), _ptr(out),
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_rc(lib, rc, "njode_reduce_partials")
     LAUNCHES["reduce_partials"] += 1
     return out
@@ -843,13 +1038,11 @@ def philox_masks_cuda(seed, K: int, S: int, B: int, w_max: int,
     """All K4 keep-masks of K steps, ``[K, S, B, Wmax]`` int8, drawn by
     the kernels' Philox (the masks 'prng' mode uses; for tests and
     timing)."""
-    from njode_tpu_torch.ops import _build
-
     _check("seed", seed, (1,), torch.int64)
-    lib = _build.load("fused_scan")
+    lib = _lib()
     out = torch.empty((K, S, B, w_max), dtype=torch.int8, device=seed.device)
     stream = torch.cuda.current_stream(seed.device).cuda_stream
-    with torch.cuda.device(seed.device):
+    with _on(seed.device):
         rc = lib.njode_philox_masks(_ptr(seed), K, S, B, w_max, thresh,
                                     _ptr(out), stream)
     _raise_rc(lib, rc, "njode_philox_masks")

@@ -226,7 +226,7 @@ def train(
     model.to(device)
     optimizer = steps.make_optimizer(model.parameters(),
                                      params_dict["learning_rate"])
-    use_kernels = options.get("use_pallas", device.type == "cuda"
+    use_kernels = options.get("use_pallas", fused_ops._is_cuda(device)
                               and fused_ops.supported(cfg))
     initial_print += ("\ntraining loss: fused CUDA kernels" if use_kernels
                       else "\ntraining loss: eager forward (the fused "

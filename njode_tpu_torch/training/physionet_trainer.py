@@ -177,7 +177,7 @@ def train(
     optimizer = steps.make_optimizer(model.parameters(),
                                      params_dict["learning_rate"])
     mask_mode = options.get("pallas_mask_mode", "prng")
-    use_kernels = options.get("use_pallas", device.type == "cuda"
+    use_kernels = options.get("use_pallas", fused_scan._is_cuda(device)
                               and fused_scan.supported(cfg))
     initial_print += ("\ntraining loss: fused CUDA kernels" if use_kernels
                       else "\ntraining loss: eager forward (the fused "

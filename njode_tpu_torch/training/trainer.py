@@ -220,7 +220,7 @@ def train(
     dts = torch.full((K,), delta_t, dtype=torch.float32, device=device)
     if model_name == "NJODE":
         from njode_tpu_torch.ops import fused_scan
-        use_kernels = opts.get("use_pallas", device.type == "cuda"
+        use_kernels = opts.get("use_pallas", fused_scan._is_cuda(device)
                                and fused_scan.supported(cfg))
         fns = make_step_fns(model, optimizer, times, dts, next_cond_exp,
                             use_kernels=use_kernels,
@@ -228,7 +228,7 @@ def train(
     else:
         # the JAX trainer passes no mask mode: 'prng', make_step_fns' default
         from njode_tpu_torch.ops import fused_gob
-        use_kernels = opts.get("use_pallas", device.type == "cuda"
+        use_kernels = opts.get("use_pallas", fused_gob._is_cuda(device)
                                and fused_gob.supported(cfg))
         fns = gob.make_step_fns(model, optimizer, times, dts, next_cond_exp,
                                 use_kernels=use_kernels,

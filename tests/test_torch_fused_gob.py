@@ -25,8 +25,15 @@ import torch
 import torch_port_helpers as H
 from njode_tpu.models import gru_ode_bayes as jgob
 from njode_tpu.ops import fused_gob as jfg
+from njode_tpu.training import steps as jsteps
+from njode_tpu_torch.data import datasets as tdatasets
 from njode_tpu_torch.models import gru_ode_bayes as tgob
 from njode_tpu_torch.ops import fused_gob as fg
+from njode_tpu_torch.ops import fused_scan as fs
+from njode_tpu_torch.training import steps as tsteps
+from njode_tpu_torch.training import trainer as ttrainer
+from njode_tpu_torch.training.jax_compat import \
+    gob_state_dict_from_jax_params
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -271,8 +278,78 @@ def test_unsupported_configs_raise():
                             prep_hidden=400, full_gru_ode=True, impute=True)
     spec = fg.Spec(wide)
     assert spec.smem_bytes > fg.SMEM_LIMIT
+    assert not fg.supported(wide)
     with pytest.raises(NotImplementedError, match="shared memory"):
         fg._check_inputs(spec, [], (None,) * 5, False, None, None)
+    with pytest.raises(NotImplementedError, match="Queue 3 F1"):
+        fg.make_fused_loss_fn(wide)
+
+
+def test_too_wide_config_trains_eagerly_on_the_cuda_route(monkeypatch,
+                                                          tmp_path):
+    """ROADMAP Queue 3 F1: a GOB config whose buffers overflow one CTA's
+    shared memory (D = 1, every width 200: 269,760 B) is outside
+    ``supported``, so the synthetic trainer on a CUDA device (the device
+    check mocked to say CUDA) trains it through the eager
+    ``gru_ode_bayes.forward``: no kernel wrapper and no plain version of
+    one runs. That route's epoch (``make_step_fns(use_kernels=False)``)
+    matches the JAX ``train_epoch`` from the same weights."""
+    kw = dict(D=1, hidden_size=200, p_hidden=200, prep_hidden=200,
+              cov_hidden=200, full_gru_ode=True, impute=True, mixing=1e-4)
+    jcfg, tcfg = H.gob_configs(**kw)
+    assert fg.Spec(tcfg).smem_bytes == 269760 > fg.SMEM_LIMIT
+    assert not fg.supported(tcfg)
+    monkeypatch.setattr(fs, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(fg, "_is_cuda", lambda t: True)
+
+    def boom(*a, **k):
+        raise AssertionError("the kernels' route taken for a config "
+                             "outside them")
+
+    for name in ("make_fused_loss_fn", "make_fused_eval_fn", "gob_scan_fwd",
+                 "gob_scan_bwd", "gob_scan_fwd_plain", "gob_scan_bwd_plain"):
+        monkeypatch.setattr(fg, name, boom)
+    data = str(tmp_path / "data")
+    hp = dict(tdatasets.hyperparam_default, nb_paths=30, nb_steps=6)
+    tdatasets.create_dataset("BlackScholes", hp, seed=0, base_path=data,
+                             device="cpu")
+    before = dict(fg.LAUNCHES)
+    assert ttrainer.train(
+        epochs=1, batch_size=12, dropout_rate=0.1, dataset="BlackScholes",
+        base_data_path=data, saved_models_path=str(tmp_path / "models"),
+        evaluate=True, device="cpu", hidden_size=200,
+        other_model="GRU_ODE_Bayes",
+        **{"GRU_ODE_Bayes-impute": True, "GRU_ODE_Bayes-logvar": True,
+           "GRU_ODE_Bayes-mixing": 1e-4}) == 0
+    assert fg.LAUNCHES == before
+
+    params, model = H.gob_twin_models(jcfg, tcfg, seed=3)
+    rs = np.random.RandomState(4)
+    N, K, B = 12, 6, 6
+    paths = rs.lognormal(0.0, 0.3, size=(N, 1, K + 1)).astype(np.float32)
+    obs = (rs.random((N, K + 1)) < 0.4).astype(np.float32)
+    idx_mat = rs.permutation(N).reshape(-1, B).astype(np.int32)
+    times = (np.arange(1, K + 1) / K).astype(np.float32)
+    dts = np.full(K, 1.0 / K, np.float32)
+    jopt = jsteps.make_optimizer(1e-3)
+    jfns = jgob.make_step_fns(jcfg, jopt, times, dts)
+    params, _, jl = jfns["train_epoch"](
+        params, jopt.init(params), jnp.asarray(paths), jnp.asarray(obs),
+        jnp.asarray(idx_mat), jnp.float32(0.5), jax.random.PRNGKey(0))
+    topt = tsteps.make_optimizer(model.parameters(), 1e-3)
+    tfns = tgob.make_step_fns(model, topt, torch.as_tensor(times),
+                              torch.as_tensor(dts),
+                              use_kernels=fg.supported(tcfg))
+    tl = tfns["train_epoch"](torch.as_tensor(paths), torch.as_tensor(obs),
+                             torch.as_tensor(idx_mat).long(), 0.5,
+                             torch.Generator())
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4)
+    ref = gob_state_dict_from_jax_params(jax.tree.map(np.asarray, params))
+    got = model.state_dict()
+    assert set(got) == set(ref)
+    for k in ref:
+        np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
 
 
 def test_leaf_layout_sizes_at_published_widths():

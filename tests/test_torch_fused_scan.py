@@ -315,35 +315,117 @@ def _arm_cfg(D, hidden, width, masked):
                      dropout_rate=0.1, masked=masked)[1]
 
 
-# (id, D, H, width, masked, plan, rows, bytes of one CTA): the two arms
-# that fit resident, and the four published arms whose weights do not fit
-# one CTA (experiments/configs.py: PhysioNet :233-245, climate :141-150,
-# sine :265-279)
+# (id, D, H, width, masked, use_rnn, plan, rows, bytes of one CTA, bytes
+# of the activations alone): the arms of PERF.md section 4, those that fit
+# resident and the published arms whose weights do not fit one CTA
+# (experiments/configs.py: PhysioNet :233-245, climate :141-150, sine
+# :265-279); the global plan adds the ring (and, with the GRU jump, its
+# gate sums) in the shared memory the activations leave
 PLAN_ARMS = [
-    ("main_path", 1, 10, 50, False, "resident", 16, 153536),
-    ("climate_small", 5, 10, 50, True, "resident", 16, 163904),
-    ("physionet_50", 41, 41, 50, True, "global", 16, 138944),
-    ("physionet_200", 41, 41, 200, True, "global", 8, 161120),
-    ("climate_400", 5, 50, 400, True, "global", 4, 138800),
-    ("sine_400", 1, 10, 400, False, "global", 4, 130240),
+    ("main_path", 1, 10, 50, False, False, "resident", 16, 153536, 153536),
+    ("main_path_rnn", 1, 10, 50, False, True, "resident", 16, 161792,
+     161792),
+    ("climate_small", 5, 10, 50, True, False, "resident", 16, 163904,
+     163904),
+    ("climate_small_rnn", 5, 10, 50, True, True, "resident", 16, 173088,
+     173088),
+    ("physionet_50", 41, 41, 50, True, False, "resident", 4, 230128,
+     230128),
+    ("physionet_50_rnn", 41, 41, 50, True, True, "global", 16, 217024,
+     159936),
+    ("physionet_200", 41, 41, 200, True, False, "global", 8, 232448,
+     161120),
+    ("climate_400", 5, 50, 400, True, False, "global", 4, 232432, 138800),
+    ("sine_400", 1, 10, 400, False, False, "global", 4, 232448, 130240),
 ]
+
+
+def _plan_cfg(arm):
+    _, D, hidden, width, masked, use_rnn = arm[:6]
+    nn = ((width, "tanh"), (width, "tanh"))
+    return H.configs(D, hidden, ode_nn=nn, readout_nn=nn, enc_nn=nn,
+                     dropout_rate=0.1, masked=masked, use_rnn=use_rnn)[1]
 
 
 @pytest.mark.parametrize("arm", PLAN_ARMS, ids=[a[0] for a in PLAN_ARMS])
 def test_plan_rule(arm):
-    """``Spec`` takes the resident plan at 16 rows where it fits, else the
-    global plan at the most rows of 16, 8, 4, 2, 1 whose activations fit;
-    ``supported`` admits all six arms."""
-    _, D, hidden, width, masked, plan, rows, nbytes = arm
-    cfg = _arm_cfg(D, hidden, width, masked)
+    """``Spec`` takes the resident plan at the most rows of 16, 8, 4, 2, 1
+    where every weight and its gradient fit (PhysioNet 50: 4), else the
+    global plan at the most rows whose activations fit, with the ring in
+    what they leave (no arm loses rows to it); ``supported`` admits every
+    arm."""
+    plan, rows, nbytes, act_bytes = arm[6:]
+    cfg = _plan_cfg(arm)
     spec = fs.Spec(cfg)
     assert fs.supported(cfg)
     assert (spec.plan, spec.rows, spec.smem_bytes) == (plan, rows, nbytes)
     assert spec.smem_bytes <= fs.SMEM_LIMIT
+    if rows < 16:
+        assert not spec.fits(plan, 2 * rows)
     if plan == "global":
-        assert not spec.fits("resident", 16)
-        if rows < 16:
-            assert not spec.fits("global", 2 * rows)
+        off, _ = spec.layout(rows, "global")
+        act = off["gsc"] if "gsc" in off else off["ring"]
+        assert 4 * act == act_bytes
+        assert not any(spec.fits("resident", R) for R in fs.ROW_CHOICES)
+
+
+@pytest.mark.parametrize("arm", [a for a in PLAN_ARMS if a[6] == "global"],
+                         ids=[a[0] for a in PLAN_ARMS if a[6] == "global"])
+def test_tile_program_walks_each_product(arm):
+    """The global plan's tile program: every weight product of a step, in
+    the order the kernels run them, walked in ascending blocks of its
+    summed index (once per pass of ``MAXI * NTHREADS`` items when split),
+    each tile within a ring stage (a forward tile with room for its bias),
+    the last tile of each walk flagged, and the counts ``make_cfg`` hands
+    the kernels."""
+    spec = fs.Spec(_plan_cfg(arm))
+    prog, n_fwd, n_bwd, stage = spec.tile_program()
+    tiles = iter([prog[i:i + fs.TILE_INTS]
+                  for i in range(0, len(prog), fs.TILE_INTS)])
+    assert len(prog) == fs.TILE_INTS * (n_fwd + n_bwd) and stage % 4 == 0
+    for ops, n_tiles in zip(spec.ring_ops(spec.rows), (n_fwd, n_bwd)):
+        used = 0
+        for dx, key, wo, wi, rows, bias in ops:
+            n_o, n_s = (wi, wo) if dx else (wo, wi)
+            walk, s0 = [], 0
+            while s0 < n_s:
+                tile = next(tiles)
+                src, nr, stride, cols, flags, bsrc, k, _ = tile
+                ns = nr if dx else cols
+                assert (k, flags >> 1, stride) == (key, int(dx), wi)
+                assert src == key + (s0 * wi if dx else s0)
+                assert nr * cols + (0 if dx else wo) <= stage
+                s0 += ns
+                assert (flags & 1) == int(s0 == n_s)
+                assert bsrc == (bias if s0 == n_s and not dx else -1)
+                walk.append(tile)
+            passes = 1 if len(walk) == 1 else -(
+                -(-(-rows // fs.RB) * n_o) // (fs.MAXI * fs.NTHREADS))
+            for _ in range((passes - 1) * len(walk)):
+                assert next(tiles) == walk[_ % len(walk)]
+            used += passes * len(walk)
+        assert used == n_tiles
+    c = fs.make_cfg(spec, 30, 50, True, 0.5)
+    assert (c.n_tiles_fwd, c.n_tiles_bwd, c.stage) == (n_fwd, n_bwd, stage)
+
+
+@pytest.mark.parametrize("shape", [(13, 10071), (4, 24423), (25, 571305)],
+                         ids=["main_path", "phys50", "climate400"])
+def test_reduce_order_is_ascending_rows(shape):
+    """``reduce_partials_plain``, the order the kernel keeps (and gives
+    bit for bit on the card, tests/test_torch_fused_scan_card.py), is an
+    fp32 sum of the rows in ascending order, then the scale: held against
+    a numpy loop."""
+    n_parts, n = shape
+    rs = np.random.RandomState(n_parts)
+    buf = rs.normal(size=(n_parts, n)).astype(np.float32)
+    want = np.zeros(n, np.float32)
+    for q in range(n_parts):
+        want = want + buf[q]
+    want = want * np.float32(0.37)
+    got = fs.reduce_partials_plain(torch.as_tensor(buf), 0.37)
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), want)
 
 
 def test_forced_plans_and_global_layout():
@@ -361,26 +443,37 @@ def test_forced_plans_and_global_layout():
     g = fs.Spec(cfg, "prng", ("global", 4))
     off, total = g.layout(4, "global")
     res_off, res_total = g.layout(4, "resident")
-    assert "w" not in off and "g" not in off
+    assert "w" not in off and "g" not in off and "ring" not in res_off
     assert {"w", "g"} <= set(res_off)
-    assert res_total - total == 2 * ((g.n_params + 3) // 4 * 4)
+    # the same activations; the ring takes two stages after them
+    assert res_total - off["ring"] == 2 * ((g.n_params + 3) // 4 * 4)
+    assert total - off["ring"] == 2 * g.tile_program()[3]
     c = fs.make_cfg(g, 30, 50, True, 0.5)
     assert (c.rows, c.plan, c.smem_floats) == (4, 1, total)
-    assert c.o_w == -1 and c.o_g == -1
+    assert c.o_w == -1 and c.o_g == -1 and c.o_ring == off["ring"]
     assert c.o_h == 0 and c.o_M == off["M"] and c.ro2.save_off == off["s_ro2"]
     r = fs.make_cfg(fs.Spec(cfg, "prng", ("resident", 4)), 30, 50, True, 0.5)
-    assert (r.plan, r.o_w, r.o_g) == (0, 0, res_off["g"])
+    assert (r.plan, r.o_w, r.o_g, r.o_ring, r.n_tiles_fwd) == (
+        0, 0, res_off["g"], -1, 0)
     assert fs.packed_weights(spec, []) is None
 
 
 def test_packed_weights_follow_leaf_offsets():
     """The global plan's weight buffer holds each leaf at its
-    ``leaf_off`` offset, flattened in the [out, in] layout."""
+    ``pack_off`` offset, flattened in the [out, in] layout: every leaf
+    starts at a 16-byte boundary (the ring's 16-byte copies assume it),
+    zeros fill the gaps, and ``make_cfg`` hands the kernels the packed
+    offsets beside the unpadded ``leaf_off`` ones of the gradients."""
     _, tcfg = H.configs(2, 10, masked=True)
     _, model = H.twin_models(*H.configs(2, 10, masked=True))
     spec = fs.Spec(tcfg, "prng", ("global", 16))
     leaves = [p.detach() for p in fs.flat_leaves(model)]
     wg = fs.packed_weights(spec, leaves)
-    assert wg.shape == (spec.n_params,)
-    for p, a, b in zip(leaves, spec.leaf_off[:-1], spec.leaf_off[1:]):
-        assert torch.equal(wg[a:b], p.reshape(-1))
+    assert wg.shape == (spec.pack_off[-1],)
+    assert all(o % 4 == 0 for o in spec.pack_off)
+    for p, a, b in zip(leaves, spec.pack_off[:-1], spec.pack_off[1:]):
+        assert torch.equal(wg[a:a + p.numel()], p.reshape(-1))
+        assert not wg[a + p.numel():b].any()
+    c = fs.make_cfg(spec, 30, 50, True, 0.5)
+    assert list(c.ode.pw_off[:3]) == spec.pack_off[0:6:2]
+    assert list(c.ode.w_off[:3]) == spec.leaf_off[0:6:2]

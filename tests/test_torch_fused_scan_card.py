@@ -8,9 +8,12 @@ coordinate masks, ragged batches, trailing ``dt==0`` padding, a leading
 ``dt==0`` step that carries t=0 observations, the climate widths, and one
 grid of K = 2004 steps (the climate grid); the GRU jump (``use_rnn``),
 unmasked and masked, with and without bias; and every one of these cases
-again in the global plan (weights in device memory, gradients added into
-the CTA's partial row) at 16 and at 4 rows per CTA, bit for bit what the
-resident plan gives at 16 rows.
+again in the global plan (weights in device memory, staged through the
+ring in shared memory, gradients added into the CTA's partial row) at 16
+and at 4 rows per CTA, bit for bit what the resident plan gives at 16 rows;
+the global plan at the PhysioNet 200 and climate 400 arms' widths; and
+``reduce_partials`` at three arms' partial shapes, bit for bit its plain
+version.
 
 The kernels have no CPU build, so every test here skips without a CUDA
 card. This file imports neither jax nor the JAX package; run it on the card
@@ -429,3 +432,40 @@ def test_global_plan_matches_plain(card, variant, mode, plan):
         ref = _check_masked(card, cfg, arrays, leaves, h0, mode, tol)
         for i, (a, b) in enumerate(zip(got["bits"], ref["bits"])):
             assert torch.equal(a, b), i
+
+
+# the published arms the global plan takes at fewer rows (PhysioNet 200:
+# D = H = 41, width 200, 8 rows; climate 400: D 5, H 50, width 400, 4
+# rows), on a short grid: each product split into several ring tiles
+WIDE_ARMS = [("physionet_200", 41, 41, 200, 8), ("climate_400", 5, 50, 400, 4)]
+
+
+@pytest.mark.parametrize("mode", ["input", "prng"])
+@pytest.mark.parametrize("arm", WIDE_ARMS, ids=[a[0] for a in WIDE_ARMS])
+def test_global_plan_wide_arms(card, arm, mode):
+    """K1, K2 and K3 of the global plan at the wide arms' widths against
+    the plain versions, each kernel twice bit for bit."""
+    _, D, H, width, rows = arm
+    nn = ((width, "tanh"), (width, "tanh"))
+    cfg, _, _, arrays, leaves, h0 = _masked_setup(
+        D, H, 20, 12, 0, False, dict(ode_nn=nn, readout_nn=nn, enc_nn=nn),
+        card)
+    spec = fs.Spec(cfg)
+    assert (spec.plan, spec.rows) == ("global", rows)
+    assert spec.tile_program()[1] > 12          # split products
+    _check_masked(card, cfg, arrays, leaves, h0, mode,
+                  dict(loss=LOSS_TOL, hist=GRAD_TOL, grad=GRAD_TOL))
+
+
+@pytest.mark.parametrize("shape", [(13, 10071), (4, 24423), (25, 571305)],
+                         ids=["main_path", "phys50", "climate400"])
+def test_reduce_partials_bit_equal(card, shape):
+    """reduce_partials at the partials of the main path, the PhysioNet 50
+    arm and the climate 400 arm: the plain version's bits, run after
+    run."""
+    n_parts, n = shape
+    gen = torch.Generator(device=card).manual_seed(2)
+    P = torch.randn((n_parts, n), generator=gen, device=card)
+    got = fs.reduce_partials_cuda(P, 0.37)
+    assert torch.equal(got, fs.reduce_partials_plain(P, 0.37))
+    assert torch.equal(got, fs.reduce_partials_cuda(P, 0.37))

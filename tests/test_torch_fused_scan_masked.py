@@ -188,8 +188,10 @@ def test_masked_kernels_route_and_gates(monkeypatch):
     assert fs.supported(cfg)
     _, phys = H.configs(41, 41, ode_nn=nn, readout_nn=nn, enc_nn=nn,
                         masked=True)
-    # 334,336 B resident: the weights stay in device memory (global plan)
-    assert fs.supported(phys) and fs.Spec(phys).plan == "global"
+    # 334,336 B resident at 16 rows: the rule takes the resident plan at
+    # the most rows that fit (4), before the global plan
+    assert fs.supported(phys)
+    assert (fs.Spec(phys).plan, fs.Spec(phys).rows) == ("resident", 4)
     _, tcfg, _, model, b = _setup(dict(dropout_rate=0.1))
     tb = H.tbatch(b)
     with pytest.raises(ValueError, match="mask M"):

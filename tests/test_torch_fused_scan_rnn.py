@@ -247,7 +247,7 @@ def test_rnn_gates_layout_and_route(monkeypatch):
     for D, hid, masked, plan, n_params, nbytes in (
             (1, 10, False, "resident", 10461, 161792),
             (5, 10, True, "resident", 11435, 173088),
-            (41, 41, True, "global", 34755, 159936)):
+            (41, 41, True, "global", 34755, 217024)):
         for bias in (True, False):
             _, cfg = H.configs(D, hid, ode_nn=nn, readout_nn=nn, enc_nn=nn,
                                dropout_rate=0.1, masked=masked,
@@ -259,12 +259,16 @@ def test_rnn_gates_layout_and_route(monkeypatch):
                 assert (spec.n_params, spec.smem_bytes) == (n_params, nbytes)
             _, base = H.configs(D, hid, ode_nn=nn, readout_nn=nn, enc_nn=nn,
                                 dropout_rate=0.1, masked=masked, bias=bias)
-            off, total = spec.layout(16, "global")
-            off0, total0 = fs.Spec(base).layout(16, "global")
+            off, _ = spec.layout(16, "global")
+            off0, _ = fs.Spec(base).layout(16, "global")
+            # the other configs' regions stay; the GRU's follow their
+            # activations, then (global plan) its gate sums and the ring
+            ring0 = off0.pop("ring")
             assert {k: v for k, v in off.items()
-                    if k not in ("gru", "dG")} == off0
-            assert (off["gru"], off["dG"], total) == (
-                total0, total0 + 64 * hid, total0 + 128 * hid)
+                    if k not in ("gru", "dG", "gsc", "ring")} == off0
+            assert (off["gru"], off["dG"], off["gsc"], off["ring"]) == (
+                ring0, ring0 + 64 * hid, ring0 + 128 * hid,
+                ring0 + 224 * hid)
             c = fs.make_cfg(spec, 20, 50, True, 0.5)
             i0 = spec.gru_leaf0
             assert (c.use_rnn, c.gru_wih, c.gru_whh) == (

@@ -153,9 +153,10 @@ def test_eval_masked_metrics_match_jax(phys, loss_scale):
 
 
 def test_physionet_widths_carry_across():
-    """The 50 and 200 arms' weights (D = H = 41) carry across both ways,
-    and both arms run the kernels' global plan."""
-    for w, rows in ((50, 16), (200, 8)):
+    """The 50 and 200 arms' weights (D = H = 41) carry across both ways;
+    the 50 arm runs the kernels' resident plan at 4 rows (the most that
+    fit), the 200 arm the global plan at 8."""
+    for w, plan, rows in ((50, "resident", 4), (200, "global", 8)):
         nn = ((w, "tanh"), (w, "tanh"))
         jcfg, tcfg = H.configs(41, 41, ode_nn=nn, readout_nn=nn, enc_nn=nn,
                                masked=True, dropout_rate=0.1)
@@ -163,7 +164,7 @@ def test_physionet_widths_carry_across():
         back = jax_params_from_state_dict(model.state_dict())
         np.testing.assert_array_equal(H.flat(back), H.flat(params))
         spec = fs.Spec(tcfg)
-        assert (spec.plan, spec.rows) == ("global", rows)
+        assert (spec.plan, spec.rows) == (plan, rows)
 
 
 def _train(phys, tmp, **kw):
