@@ -1,7 +1,7 @@
 """A/B timing of the NJODE scan kernels (K1-K3) and reduce_partials of one
 checkout on one CUDA card, to compare two versions within one machine.
 
-    python3 ab_scan_kernels.py ROOT TAG [witness]
+    python3 ab_scan_kernels.py ROOT TAG [witness|gob]
 
 ROOT is a checkout holding ``njode_tpu_torch/`` and ``chip_smoke.py`` (e.g.
 the parent commit unpacked with ``git archive`` into a git-ignored
@@ -24,6 +24,16 @@ register and spill lines, then one line of CUDA-event ms:
 Every arm runs on a synthetic masked batch (2 % of the rows observed a
 step, 40 % of an observed row's coordinates), its model from the
 checkout's ``chip_smoke._masked_njode``.
+
+With ``gob`` it times the GRU-ODE-Bayes kernels instead (``gob_arms``):
+K5, K5's eval form and K6 at hidden 50 and 100 (B = 20, K = 100, the
+published grid's widths), the climate GOB arm (D 5, hidden 50, p_hidden
+25, prep_hidden 10, impute off; B = 100, K = 2,004, on the synthetic
+masked batch) and the eval at B = 2,000 (hidden 50), through the API both
+the parent (8 rows a CTA, one backward kernel) and this tree have; where
+the checkout takes a forced rows per CTA (``fused_gob.ROW_CHOICES``), also
+at each R that fits, with the weights forced through L1/L2 ('G'), and
+K6's stages' device times (torch.profiler).
 
 With ``witness`` it runs ``draw_witness`` instead of the timings: K1 of
 the PhysioNet 200 arm on masks drawn as chip_smoke.py drew them, one line
@@ -139,6 +149,88 @@ def draw_witness(cs, fs, dev, tag):
               f"fp32_vs_fp64={ep:.4e}", f"share={sp:.3f}", flush=True)
 
 
+def gob_arms(cs, dev, tag, masked_batch):
+    """CUDA-event ms of K5 ('prng', training), K5 eval and K6 ('prng') at
+    each GOB arm, at the checkout's own rows rule ('rule') and, where it
+    takes one, each forced R that fits; K6's stage device times."""
+    import torch
+
+    from njode_tpu_torch.models import gru_ode_bayes as gob
+    from njode_tpu_torch.ops import fused_gob as fg
+
+    from njode_tpu_torch.ops import _build
+
+    for ln in _build.build_log["fused_gob"]["ptxas"].splitlines():
+        if "registers" in ln or "spill" in ln or "Compiling" in ln:
+            print(tag, ln.strip())
+    print(tag, "gob_nvcc_s", round(_build.build_log["fused_gob"]["seconds"],
+                                   2), flush=True)
+    seed = torch.tensor([7], dtype=torch.int64, device=dev)
+    one = torch.ones((), device=dev)
+    forced = getattr(fg, "ROW_CHOICES", None)
+    arms = []
+    for hidden in (50, 100):
+        cfg, _, _, arrays, leaves, st = cs.gob_setup(20, 100, hidden, True,
+                                                     1e-4, hidden, dev)
+        arms.append((f"h{hidden}", cfg, arrays, leaves, st, 10, 5))
+    gcfg, gmodel = cs._climate_gob(dev)
+    b = masked_batch(2004, 100, 5)
+    with torch.no_grad():
+        h0 = gob.mlp2(gmodel.covariates_map, b.start_X, 0.0)
+        p0 = gob.mlp2(gmodel.p_model, h0, 0.0)
+    arms.append(("clim", gcfg, (b.times, b.dt, b.obs, b.X, b.M),
+                 [p.detach() for p in fg.flat_leaves(gmodel, fg.Spec(gcfg))],
+                 (h0.contiguous(), p0[:, :5].contiguous(),
+                  p0[:, 5:].contiguous()), 3, 2))
+    cfg_e, _, _, arrays_e, leaves_e, st_e = cs.gob_setup(2000, 100, 50, True,
+                                                         1e-4, 7, dev)
+    out = {}
+
+    def spec_at(cfg, mode, R):
+        return fg.Spec(cfg, mode) if R is None else fg.Spec(cfg, mode, rows=R)
+
+    for name, cfg, arrays, leaves, st, r5, r6 in arms:
+        base = fg.Spec(cfg)
+        rows = [None] + [R for R in (forced or ()) if base.fits(R)]
+        for R in rows:
+            suffix = f"{name}" + ("" if R is None else f"R{R}")
+            spec = spec_at(cfg, "prng", R)
+            _, hists = fg.gob_scan_fwd_cuda(spec, leaves, arrays, *st, True,
+                                            None, seed)
+            out["K5" + suffix] = cs.cuda_ms(lambda: fg.gob_scan_fwd_cuda(
+                spec, leaves, arrays, *st, True, None, seed), r5, 1)
+            out["K6" + suffix] = cs.cuda_ms(lambda: fg.gob_scan_bwd_cuda(
+                spec, leaves, arrays, True, hists, one, None, seed), r6, 1)
+            if forced is not None and R is None:
+                # the weights forced through L1/L2 (the rule stages them
+                # where they fit): K5 and K6 once more
+                gspec = fg.Spec(cfg, "prng", weights="global")
+                out["K5" + suffix + "G"] = cs.cuda_ms(
+                    lambda: fg.gob_scan_fwd_cuda(gspec, leaves, arrays, *st,
+                                                 True, None, seed), r5, 1)
+                out["K6" + suffix + "G"] = cs.cuda_ms(
+                    lambda: fg.gob_scan_bwd_cuda(gspec, leaves, arrays, True,
+                                                 hists, one, None, seed),
+                    r6, 1)
+                for kern in ("gob_remat_kernel", "gob_chain_kernel",
+                             "gob_wgrad_kernel"):
+                    ms = device_ms(lambda: fg.gob_scan_bwd_cuda(
+                        spec, leaves, arrays, True, hists, one, None, seed),
+                        kern, reps=r6)
+                    out[kern.split("_")[1] + suffix] = ms or float("nan")
+            print(tag, " ".join(f"{k}={v:.4f}" for k, v in out.items()
+                                if k.endswith((suffix, suffix + "G"))),
+                  flush=True)
+    base = fg.Spec(cfg_e, "input")
+    rows = [None] + [R for R in (forced or ()) if base.fits(R, False)]
+    for R in rows:
+        spec = spec_at(cfg_e, "input", R)
+        k = "K5e" + ("" if R is None else f"R{R}")
+        out[k] = cs.cuda_ms(lambda: fg.gob_scan_fwd_cuda(
+            spec, leaves_e, arrays_e, *st_e, False, want_hists=False), 5, 1)
+        print(tag, f"{k}={out[k]:.4f}", flush=True)
+
+
 def main(root, tag, what="timing"):
     sys.path.insert(0, root)
     import numpy as np
@@ -150,7 +242,8 @@ def main(root, tag, what="timing"):
     from njode_tpu_torch.ops import fused_scan as fs
 
     t0 = time.time()
-    _build.build_all(("fused_scan",))
+    _build.build_all(("fused_scan", "fused_gob") if what == "gob"
+                     else ("fused_scan",))
     _build.load("fused_scan")
     print(tag, "build_s", round(time.time() - t0, 2), flush=True)
     for ln in _build.build_log["fused_scan"]["ptxas"].splitlines():
@@ -159,6 +252,24 @@ def main(root, tag, what="timing"):
     dev = torch.device("cuda")
     if what == "witness":
         draw_witness(cs, fs, dev, tag)
+        return
+
+    def masked_batch(K, B, D):
+        rs = np.random.RandomState(0)
+        obs = (rs.random((K, B)) < 0.02).astype(np.float32)
+        M = (rs.random((K, B, D)) < 0.4).astype(np.float32) * obs[:, :, None]
+        X = rs.normal(size=(K, B, D)).astype(np.float32) * M
+        times = (np.arange(1, K + 1) * 0.1).astype(np.float32)
+        return GridBatch(times=torch.as_tensor(times, device=dev),
+                         dt=torch.full((K,), 0.1, device=dev),
+                         obs=torch.as_tensor(obs, device=dev),
+                         X=torch.as_tensor(X, device=dev),
+                         M=torch.as_tensor(M, device=dev),
+                         start_X=torch.zeros((B, D), device=dev),
+                         n_obs_ot=torch.as_tensor(obs.sum(0), device=dev))
+
+    if what == "gob":
+        gob_arms(cs, dev, tag, masked_batch)
         return
     one = torch.ones((), device=dev)
     seed = torch.tensor([7], dtype=torch.int64, device=dev)
@@ -187,20 +298,6 @@ def main(root, tag, what="timing"):
             h0 = model.encoder_map(batch.start_X)
         time_three(cfg, [p.detach() for p in fs.flat_leaves(model)], arrays,
                    h0, f" B={B}", 20, 2)
-
-    def masked_batch(K, B, D):
-        rs = np.random.RandomState(0)
-        obs = (rs.random((K, B)) < 0.02).astype(np.float32)
-        M = (rs.random((K, B, D)) < 0.4).astype(np.float32) * obs[:, :, None]
-        X = rs.normal(size=(K, B, D)).astype(np.float32) * M
-        times = (np.arange(1, K + 1) * 0.1).astype(np.float32)
-        return GridBatch(times=torch.as_tensor(times, device=dev),
-                         dt=torch.full((K,), 0.1, device=dev),
-                         obs=torch.as_tensor(obs, device=dev),
-                         X=torch.as_tensor(X, device=dev),
-                         M=torch.as_tensor(M, device=dev),
-                         start_X=torch.zeros((B, D), device=dev),
-                         n_obs_ot=torch.as_tensor(obs.sum(0), device=dev))
 
     # (suffix, D, H, width, B, K, timed calls, forced plan)
     arms = [("m", 5, 10, 50, 100, 2004, 3, None),

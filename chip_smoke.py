@@ -31,21 +31,31 @@ power limit, and the final ``{"ok": true, ...}`` line:
               resident plan;
 7. rnn_timing - CUDA-event times and bounds of those three kernels;
 8. gob_kernels - the GRU-ODE-Bayes kernels (ops/csrc/fused_gob.cu: K5
-              forward, K6 backward, K7 masks) against their plain versions
-              at the published widths (D=1, hidden 50 and 100 with
-              p_hidden = prep_hidden = cov_hidden = hidden, full field,
-              logvar, mixing 1e-4 and 0.5, impute on and off, dropout 0.1,
-              B=20, K=100), in both mask modes, each run twice and compared
-              bit for bit; K5's eval form at B=2,000 (the validation split
-              of the default 10,000-path dataset);
+              forward, K6 backward in three stages, K7 masks) against their
+              plain versions at the published widths (D=1, hidden 50 and
+              100 with p_hidden = prep_hidden = cov_hidden = hidden, full
+              field, logvar, mixing 1e-4 and 0.5, impute on and off,
+              dropout 0.1, B=20, K=100) at the rows the rule takes (one a
+              CTA), again forced to 8 rows (hidden 50) and 4 (hidden 100,
+              the most that fit), and at the two wide configurations (D=1
+              at widths 200, D=41 at widths 50), in both mask modes, each
+              run twice and compared bit for bit; K6's stages against
+              their plain version (gob_scan_bwd_staged_plain: stage (a)'s
+              saved buffers and stage (b)'s deltas buffer by buffer, stage
+              (c)'s gradients); K5's eval form at B=2,000 (the validation
+              split of the default 10,000-path dataset);
 9. gob_timing - CUDA-event times of K5, K5 eval, K6 and K7 and their plain
-              versions, and the bound of each;
+              versions, K6's stages' device times (torch.profiler) beside
+              the plain version of each stage and, for stage (c), the
+              device time of its jobs as torch.matmul calls; the bound of
+              each;
 10. gob_trainer - trainer.train(other_model="GRU_ODE_Bayes", hidden 50,
               batch 20, dropout 0.1, impute, logvar, mixing 1e-4) on a
               10,000-path BlackScholes dataset (8,000 train paths, 400 steps
               an epoch) for 2 epochs; losses and evaluation_mean_diff
               finite, optimal_eval_loss NaN by design, and the launch counts
-              exactly what 2 epochs need;
+              exactly what 2 epochs need (K6's three stages once a chunk of
+              steps, ``BwdChunks``);
 11. climate_kernels - on the full-scale climate stand-in (1,114 series, 5
               variables, T = 200, obs_perc 0.02; fold 0; the first training
               batch of epoch 1, B = 100, K = 2,004 grid steps): the masked
@@ -483,9 +493,11 @@ def phase_timing(results):
 
 def device_ms(fn, name, reps=50):
     """Device time per call of ``fn`` of the kernels whose name holds
-    ``name``, from ``torch.profiler``'s ``key_averages()`` over ``reps``
-    calls (one warm-up first); None if the profiler recorded none."""
+    ``name`` (every kernel ``fn`` launches where ``name`` is None), from
+    ``torch.profiler``'s ``key_averages()`` over ``reps`` calls (one
+    warm-up first); None if the profiler recorded none."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -496,7 +508,8 @@ def device_ms(fn, name, reps=50):
         torch.cuda.synchronize()
     total = 0.0
     for ev in prof.key_averages():
-        if name in ev.key:
+        if (ev.device_type == DeviceType.CUDA if name is None
+                else name in ev.key):
             total += (getattr(ev, "device_time_total", 0.0)
                       or getattr(ev, "cuda_time_total", 0.0))
     return total / 1e3 / reps if total > 0 else None
@@ -651,6 +664,94 @@ def gob_setup(B, K, hidden, impute, mixing, seed, device):
         h0.contiguous(), p0[:, :1].contiguous(), p0[:, 1:].contiguous())
 
 
+def gob_wide_setup(D, width, B, K, seed, device):
+    """A GRU-ODE-Bayes model of D inputs with every width ``width`` (full
+    field, impute, logvar, mixing 1e-4, dropout 0.1) and a random batch
+    (lognormal paths, 10 % of the steps observed, 70 % of an observed
+    row's coordinates) on the card; returns what gob_setup returns."""
+    import numpy as np
+    import torch
+
+    from njode_tpu_torch.data import grid
+    from njode_tpu_torch.models import gru_ode_bayes as gob
+    from njode_tpu_torch.ops import fused_gob as fg
+
+    cfg = gob.GOBConfig(input_size=D, hidden_size=width, p_hidden=width,
+                        prep_hidden=width, cov_size=D, cov_hidden=width,
+                        logvar=True, mixing=1e-4, dropout_rate=0.1,
+                        full_gru_ode=True, impute=True)
+    model = gob.GOB(cfg, generator=torch.Generator().manual_seed(seed))
+    model.to(device)
+    rs = np.random.RandomState(seed)
+    paths = rs.lognormal(0.0, 0.3, size=(B, D, K + 1))
+    observed = (rs.random((B, K + 1)) < 0.1).astype(np.int64)
+    b = grid.recompute_n_obs(grid.batch_from_paths(paths, observed, 1.0 / K))
+    M = (rs.random(b.M.shape) < 0.7).astype(np.float32) * b.obs[:, :, None]
+    b = b._replace(X=(b.X * M).astype(np.float32), M=M)
+    batch = grid.to_torch(b, device)
+    arrays = (batch.times, batch.dt, batch.obs, batch.X, batch.M)
+    leaves = [p.detach() for p in fg.flat_leaves(model, fg.Spec(cfg))]
+    with torch.no_grad():
+        h0 = gob.mlp2(model.covariates_map, batch.start_X, 0.0)
+        p0 = gob.mlp2(model.p_model, h0, 0.0)
+    return cfg, model, batch, arrays, leaves, (
+        h0.contiguous(), p0[:, :D].contiguous(), p0[:, D:].contiguous())
+
+
+def _gob_masks(spec, mode, K, B, gen, dev):
+    import torch
+    if mode == "input":
+        return (torch.rand((K, 3, B, spec.P), generator=gen,
+                           device=dev) < 0.9).to(torch.int8), None
+    return None, torch.randint(0, 2 ** 62, (1,), generator=gen, device=dev,
+                               dtype=torch.int64)
+
+
+def _gob_pair(spec, leaves, arrays, st, u, seed, tag):
+    """K5 and K6 twice bit for bit and against their plain versions;
+    returns the errors (loss, histories, gradients, d(h0, m0, v0))."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_gob as fg
+
+    runs = [fg.gob_scan_fwd_cuda(spec, leaves, arrays, *st, True, u, seed)
+            for _ in range(2)]
+    (lk, hk), (lk2, hk2) = runs
+    torch.cuda.synchronize()
+    if not (torch.equal(lk, lk2) and all(
+            torch.equal(a, b) for a, b in zip(hk, hk2))):
+        raise AssertionError(f"K5 ({tag}) differs between runs")
+    lp, hp = fg.gob_scan_fwd_plain(spec, leaves, arrays, *st, True, u, seed)
+    e = {"loss": check_close(f"K5 loss ({tag})", lk, lp, LOSS_TOL),
+         "loss_val": float(lk)}
+    e["hist"] = max(check_close(f"K5 {n} ({tag})", a, b, scaled_tol(b))
+                    for n, a, b in zip("hmv", hk, hp))
+    dloss = torch.ones((), device=lk.device)
+    outs = [fg.gob_scan_bwd_cuda(spec, leaves, arrays, True, hk, dloss, u,
+                                 seed) for _ in range(2)]
+    torch.cuda.synchronize()
+    (gk, *dk), (gk2, *dk2) = outs
+    if not all(torch.equal(a, b) for a, b in
+               zip(list(gk) + dk, list(gk2) + dk2)):
+        raise AssertionError(f"K6 ({tag}) differs between runs")
+    gp, *dp = fg.gob_scan_bwd_plain(spec, leaves, arrays, True, hk, dloss, u,
+                                    seed)
+    tol = scaled_tol(torch.cat([g.reshape(-1) for g in gp]))
+    e["grad"] = max(check_close(f"K6 grad {i} ({tag})", a, b, tol)
+                    for i, (a, b) in enumerate(zip(gk, gp)))
+    e["d0"] = max(check_close(f"K6 {n} ({tag})", a, b, scaled_tol(b))
+                  for n, a, b in zip(("dh0", "dm0", "dv0"), dk, dp))
+    e["max_grad"] = float(tol["atol"]) / 2e-5
+    return e
+
+
+def _say_pair(tag_kw, e):
+    say("gob_kernels", **tag_kw, K5_loss_err=f"{e['loss']:.3e}",
+        K5_hist_err=f"{e['hist']:.3e}", K6_grad_err=f"{e['grad']:.3e}",
+        K6_d0_err=f"{e['d0']:.3e}", loss=f"{e['loss_val']:.6f}",
+        max_grad=f"{e['max_grad']:.3e}", bitwise_repeat=True)
+
+
 def phase_gob_kernels(results):
     import torch
 
@@ -660,61 +761,75 @@ def phase_gob_kernels(results):
     B, K = 20, 100
     errs = {"K5": 0.0, "K6": 0.0}
     gen = torch.Generator(device=dev).manual_seed(5)
+
+    def check(cfg, leaves, st, arrays, mode, rows, **tag):
+        spec = fg.Spec(cfg, mode, rows=rows)
+        u, seed = _gob_masks(spec, mode, K, B, gen, dev)
+        R = spec.rows_for(B)
+        e = _gob_pair(spec, leaves, arrays, st, u, seed,
+                      " ".join(f"{k}={v}" for k, v in tag.items())
+                      + f" {mode} R={R}")
+        errs["K5"] = max(errs["K5"], e["loss"])
+        errs["K6"] = max(errs["K6"], e["grad"], e["d0"])
+        _say_pair(dict(tag, mode=mode, R=R), e)
+
+    # the published widths at the rule's rows (one a CTA at B = 20)
     for hidden in (50, 100):
         for impute, mixing in ((True, 1e-4), (False, 1e-4), (True, 0.5),
                                (False, 0.5)):
-            cfg, _, _, arrays, leaves, (h0, m0, v0) = gob_setup(
+            cfg, _, _, arrays, leaves, st = gob_setup(
                 B, K, hidden, impute, mixing, hidden, dev)
             for mode in ("input", "prng"):
-                spec = fg.Spec(cfg, mode)
-                u = seed = None
-                if mode == "input":
-                    u = (torch.rand((K, 3, B, spec.P), generator=gen,
-                                    device=dev) < 0.9).to(torch.int8)
-                else:
-                    seed = torch.randint(0, 2 ** 62, (1,), generator=gen,
-                                         device=dev, dtype=torch.int64)
-                tag = f"H={hidden} impute={impute} mixing={mixing} {mode}"
-                runs = [fg.gob_scan_fwd_cuda(spec, leaves, arrays, h0, m0, v0,
-                                             True, u, seed)
-                        for _ in range(2)]
-                (lk, hk), (lk2, hk2) = runs
-                torch.cuda.synchronize()
-                if not (torch.equal(lk, lk2) and all(
-                        torch.equal(a, b) for a, b in zip(hk, hk2))):
-                    raise AssertionError(f"K5 ({tag}) differs between runs")
-                lp, hp = fg.gob_scan_fwd_plain(spec, leaves, arrays, h0, m0,
-                                               v0, True, u, seed)
-                e_loss = check_close(f"K5 loss ({tag})", lk, lp, LOSS_TOL)
-                e_hist = max(check_close(f"K5 {n} ({tag})", a, b,
-                                         scaled_tol(b))
-                             for n, a, b in zip("hmv", hk, hp))
-                dloss = torch.ones((), device=dev)
-                outs = [fg.gob_scan_bwd_cuda(spec, leaves, arrays, True, hk,
-                                             dloss, u, seed)
-                        for _ in range(2)]
-                torch.cuda.synchronize()
-                (gk, *dk), (gk2, *dk2) = outs
-                if not all(torch.equal(a, b) for a, b in
-                           zip(list(gk) + dk, list(gk2) + dk2)):
-                    raise AssertionError(f"K6 ({tag}) differs between runs")
-                gp, *dp = fg.gob_scan_bwd_plain(spec, leaves, arrays, True,
-                                                hk, dloss, u, seed)
-                tol = scaled_tol(torch.cat([g.reshape(-1) for g in gp]))
-                e_grad = max(check_close(f"K6 grad {i} ({tag})", a, b, tol)
-                             for i, (a, b) in enumerate(zip(gk, gp)))
-                e_d0 = max(check_close(f"K6 {n} ({tag})", a, b, scaled_tol(b))
-                           for n, a, b in zip(("dh0", "dm0", "dv0"), dk, dp))
-                errs["K5"] = max(errs["K5"], e_loss)
-                errs["K6"] = max(errs["K6"], e_grad, e_d0)
-                say("gob_kernels", H=hidden, impute=impute, mixing=mixing,
-                    mode=mode, K5_loss_err=f"{e_loss:.3e}",
-                    K5_hist_err=f"{e_hist:.3e}", K6_grad_err=f"{e_grad:.3e}",
-                    K6_d0_err=f"{e_d0:.3e}", loss=f"{float(lk):.6f}",
-                    max_grad=f"{float(tol['atol']) / 2e-5:.3e}",
-                    bitwise_repeat=True)
-    # K7 directly: the kernels' Philox slots 0-2 against the plain Philox
+                check(cfg, leaves, st, arrays, mode, None, H=hidden,
+                      impute=impute, mixing=mixing)
+    # forced rows: 8 at hidden 50, and at hidden 100 the most that fit (4)
+    for hidden, R in ((50, 8), (100, 4)):
+        cfg, _, _, arrays, leaves, st = gob_setup(B, K, hidden, True, 1e-4,
+                                                  hidden, dev)
+        for mode in ("input", "prng"):
+            check(cfg, leaves, st, arrays, mode, R, H=hidden, impute=True,
+                  mixing=1e-4, forced=True)
+    # the widths 8 rows a CTA could not hold: D = 1 at widths 200, D = 41
+    # at widths 50
+    for D, width in ((1, 200), (41, 50)):
+        cfg, _, _, arrays, leaves, st = gob_wide_setup(D, width, B, K, 11,
+                                                       dev)
+        if not fg.supported(cfg):
+            raise AssertionError(f"D={D} width={width} is not supported")
+        for mode in ("input", "prng"):
+            check(cfg, leaves, st, arrays, mode, None, D=D, width=width)
+    # K6's stages against their plain version at the trainer's widths:
+    # stage (a)'s saved buffers and stage (b)'s deltas in the workspace,
+    # buffer by buffer, and stage (c)'s gradients
+    cfg, _, _, arrays, leaves, st = gob_setup(B, K, 50, True, 1e-4, 50, dev)
     spec = fg.Spec(cfg, "prng")
+    _, seed = _gob_masks(spec, "prng", K, B, gen, dev)
+    _, hk = fg.gob_scan_fwd_cuda(spec, leaves, arrays, *st, True, None, seed)
+    dloss = torch.ones((), device=dev)
+    got = fg.gob_scan_bwd_cuda(spec, leaves, arrays, True, hk, dloss, None,
+                               seed, chunk=K, want_ws=True)
+    ref = fg.gob_scan_bwd_staged_plain(spec, leaves, arrays, True, hk, dloss,
+                                       None, seed, chunk=K, want_ws=True)
+    torch.cuda.synchronize()
+
+    def ws_err(names, what):
+        return max(check_close(f"K6 {what} {n}",
+                               fg.ws_view(spec, got[4], K * B, n),
+                               fg.ws_view(spec, ref[4], K * B, n),
+                               scaled_tol(fg.ws_view(spec, ref[4], K * B, n)))
+                   for n in names)
+
+    errs["remat"] = ws_err(fg.SAVED, "stage (a)")
+    errs["chain"] = ws_err([d for d, _ in spec.deltas], "stage (b)")
+    tol = scaled_tol(torch.cat([g.reshape(-1) for g in ref[0]]))
+    errs["wgrad"] = max(check_close(f"K6 stage (c) grad {i}", a, b, tol)
+                        for i, (a, b) in enumerate(zip(got[0], ref[0])))
+    say("gob_kernels", stages="remat,chain,wgrad",
+        remat_err=f"{errs['remat']:.3e}", chain_err=f"{errs['chain']:.3e}",
+        wgrad_err=f"{errs['wgrad']:.3e}", n_ws=spec.n_ws,
+        deltas=len(spec.deltas))
+    results["gob_stage"] = (spec, leaves, arrays, hk, seed, got[4])
+    # K7 directly: the kernels' Philox slots 0-2 against the plain Philox
     seed = torch.randint(0, 2 ** 62, (1,), generator=gen, device=dev,
                          dtype=torch.int64)
     m1 = fg.gob_masks_cuda(seed, K, B, 50, spec.thresh)
@@ -739,10 +854,9 @@ def phase_gob_kernels(results):
     lep, _ = fg.gob_scan_fwd_plain(spec_e, leaves_e, arrays_e, *st_e, False,
                                    want_hists=False)
     e_ev = check_close("K5 eval loss", le[0], lep, LOSS_TOL)
-    say("gob_kernels", K5_eval_B=Be, K5_eval_err=f"{e_ev:.3e}",
-        K5_eval_loss=f"{float(le[0]):.6f}")
-    results["gob_errs"] = dict(K5=errs["K5"], K5e=e_ev, K6=errs["K6"],
-                               K7=float(n_bad))
+    say("gob_kernels", K5_eval_B=Be, K5_eval_R=spec_e.rows_for(Be, False),
+        K5_eval_err=f"{e_ev:.3e}", K5_eval_loss=f"{float(le[0]):.6f}")
+    results["gob_errs"] = dict(errs, K5e=e_ev, K7=float(n_bad))
     results["gob_eval"] = (spec_e, arrays_e, leaves_e, st_e)
 
 
@@ -762,26 +876,122 @@ def gob_macs_per_row_step(spec):
     return n_field * field + n_pm * pm + obs
 
 
-def gob_bounds(spec, K, B, n_cta, train=True):
-    """(flop, bytes) of K5 (train or eval form) and K6 at these shapes:
-    the flops from the MACs per row-step (backward 3x the forward), the
-    bytes with each input read once and each output written once."""
+def gob_bounds(spec, K, B, train=True):
+    """(flop, bytes) of K5 (train or eval form) and K6 at these shapes,
+    the same whatever implements them: the flops from the MACs per
+    row-step (backward 3x the forward), the bytes with each input read
+    once (weights, times, dts, obs, X, M, the t=0 state or the histories,
+    the seed, dloss) and each output written once (the loss; the
+    histories; every gradient and d(h0, m0, v0))."""
     mac = gob_macs_per_row_step(spec)
     f_fwd = 2.0 * mac * B * K
     D, H = spec.D, spec.H
     w = 4 * spec.n_params
     data = 4 * (2 * K + K * B + 2 * K * B * D)
     hists = 4 * K * B * (H + 2 * D)
-    b_fwd = w + data + 4 * B * (H + 2 * D) + 4 * n_cta + (
-        hists + 8 if train else 0)
-    b_bwd = w + data + hists + 8 + 4 + 4 * n_cta * spec.n_params \
-        + 4 * B * (H + 2 * D)
+    state = 4 * B * (H + 2 * D)
+    b_fwd = w + data + state + 4 + (hists + 8 if train else 0)
+    b_bwd = w + data + hists + 8 + 4 + w + state
     return (f_fwd, b_fwd), (3.0 * f_fwd, b_bwd)
+
+
+def gob_stage_bounds(spec, K, B):
+    """(flop, bytes) of each of K6's stages at these shapes: (a) the
+    forward flops, reading the weights, the step inputs and the histories
+    and writing the saved buffers; (b) the transposed products (twice the
+    forward's flops), reading the saved buffers and writing the deltas
+    and d(h0, m0, v0); (c) 2 in out per (step, row) for every job of
+    ``wgrad_jobs``, reading each buffer it names once and writing every
+    gradient."""
+    from njode_tpu_torch.ops import fused_gob as fg
+
+    f = 2.0 * gob_macs_per_row_step(spec) * B * K
+    D, H, KB = spec.D, spec.H, K * B
+    w = 4 * spec.n_params
+    saved = sum(spec.width(n) for n in fg.SAVED)
+    deltas = spec.n_ws - saved
+    data = 4 * (2 * K + KB + 2 * KB * D)
+    hists = 4 * KB * (H + 2 * D)
+    jobs = spec.wgrad_jobs()
+    f_c = sum(2.0 * KB * spec.leaf_shapes[lf][0] * spec.leaf_shapes[lf][1]
+              for lf, _, _ in jobs)
+    read = {n for _, x, d in jobs for n in (x, d) if n is not None}
+    return {"remat": (f, w + data + hists + 8 + 4 * KB * saved),
+            "chain": (2.0 * f, w + 4 * K + 4 * KB * (saved + deltas) + 8
+                      + 4 * B * (H + 2 * D)),
+            "wgrad": (f_c, 4 * KB * sum(spec.width(n) for n in read) + w)}
 
 
 def bound(flops, nbytes, peak):
     tf, tb = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (tf, "operations") if tf >= tb else (tb, "bytes")
+
+
+def _staged_plain_ms(spec, leaves, arrays, hists, seed):
+    """CUDA-event ms of the plain version of each of K6's stages over one
+    chunk of all K steps ('prng' masks): (a) every step's saved buffers,
+    (b) the reverse chain, (c) the products of ``wgrad_jobs`` (the code of
+    ``fused_gob.gob_scan_bwd_staged_plain``, stage by stage)."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_gob as fg
+
+    times, dts, obs, X, M = arrays
+    hh, mh, vh = hists
+    K, B = obs.shape
+    w = spec.weights(list(leaves))
+    s_i = int(seed)
+    dt = [float(x) for x in dts]
+    masks = [fg._step_masks_plain(spec, k, True, None, s_i, B, hh.device)
+             for k in range(K)]
+    with torch.no_grad():
+        saved, ms_a = timed(lambda: [fg._step_bufs_plain(
+            spec, w, hh[k], mh[k], vh[k], dt[k], obs[k], X[k], M[k],
+            masks[k]) for k in range(K)])
+
+        def chain():
+            dh, dm, dv = (torch.zeros_like(x[0]) for x in hists)
+            out = [None] * K
+            for k in reversed(range(K)):
+                dh, dm, dv, out[k] = fg._chain_step_plain(
+                    spec, w, saved[k], dh, dm, dv, dt[k], 1.0, masks[k])
+            return out
+
+        dl, ms_b = timed(chain)
+        cat = {n: torch.cat([saved[k][n] for k in range(K)])
+               for n in fg.SAVED}
+        cat.update({n: torch.cat([dl[k][n] for k in range(K)])
+                    for n, _ in spec.deltas})
+        _, ms_c = timed(lambda: [
+            cat[d].sum(0) if x is None else cat[x].t() @ cat[d]
+            for _, x, d in spec.wgrad_jobs()])
+    return {"remat": ms_a, "chain": ms_b, "wgrad": ms_c}
+
+
+def _wgrad_library(spec, ws, KB):
+    """Stage (c)'s jobs as PyTorch calls on the kernel's own workspace
+    (torch.matmul of each x^T d, sum for a bias): the yardstick of
+    gob_wgrad_kernel, used nowhere in the port."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_gob as fg
+
+    out = []
+    for _, x, d in spec.wgrad_jobs():
+        dm = fg.ws_view(spec, ws, KB, d)
+        out.append(dm.sum(0) if x is None
+                   else torch.matmul(fg.ws_view(spec, ws, KB, x).t(), dm))
+    return out
+
+
+def stage_device_ms(fn, reps):
+    """Device ms per K6 call of each stage's kernel (torch.profiler); the
+    run fails if the profiler records none."""
+    out = {n: device_ms(fn, f"gob_{n}_kernel", reps)
+           for n in ("remat", "chain", "wgrad")}
+    if any(v is None for v in out.values()):
+        raise AssertionError(f"torch.profiler recorded no K6 stage: {out}")
+    return out
 
 
 def phase_gob_timing(results):
@@ -805,12 +1015,15 @@ def phase_gob_timing(results):
                                            hists, dloss, None, seed)
         k5 = cuda_ms(fwd, 10)
         k6 = cuda_ms(bwd, 5)
-        n_cta = -(-B // fg.ROWS)
-        (f5, b5), (f6, b6) = gob_bounds(spec, K, B, n_cta)
-        say("gob_timing", kernel="K5", H=hidden, B=B, ms=f"{k5:.4f}",
-            bound_ms=f"{bound(f5, b5, PEAK_FP32)[0]:.5f}")
-        say("gob_timing", kernel="K6", H=hidden, B=B, ms=f"{k6:.4f}",
-            bound_ms=f"{bound(f6, b6, PEAK_FP32)[0]:.5f}")
+        stages = stage_device_ms(bwd, 5)
+        (f5, b5), (f6, b6) = gob_bounds(spec, K, B)
+        sb = gob_stage_bounds(spec, K, B)
+        say("gob_timing", kernel="K5", H=hidden, B=B, R=spec.rows_for(B),
+            ms=f"{k5:.4f}", bound_ms=f"{bound(f5, b5, PEAK_FP32)[0]:.5f}")
+        say("gob_timing", kernel="K6", H=hidden, B=B, R=spec.rows_for(B),
+            ms=f"{k6:.4f}", bound_ms=f"{bound(f6, b6, PEAK_FP32)[0]:.5f}",
+            **{f"{n}_device_ms": f"{v:.4f}" for n, v in stages.items()},
+            chunks=-(-K // spec.bwd_chunk(K, B)))
         if hidden == 50:                 # the trainer's configuration
             t["K5"] = (k5, cuda_ms(lambda: fg.gob_scan_fwd_plain(
                 spec, leaves, arrays, *st, True, None, seed), 2, 1))
@@ -818,6 +1031,20 @@ def phase_gob_timing(results):
                 spec, leaves, arrays, True, hists, dloss, None, seed), 1, 1))
             bnd["K5"] = bound(f5, b5, PEAK_FP32)
             bnd["K6"] = bound(f6, b6, PEAK_FP32)
+            plain = _staged_plain_ms(spec, leaves, arrays, hists, seed)
+            ws = fg.gob_scan_bwd_cuda(spec, leaves, arrays, True, hists,
+                                      dloss, None, seed, want_ws=True)[4]
+            # the yardstick's device time, like the stages': the kernels
+            # of one pass over the jobs, host launches left out
+            lib = device_ms(lambda: _wgrad_library(spec, ws, K * B), None,
+                            reps=5)
+            if lib is None:
+                raise AssertionError("torch.profiler recorded no device "
+                                     "time for stage (c)'s yardstick")
+            for n in ("remat", "chain", "wgrad"):
+                t["K6" + n] = (stages[n], plain[n])
+                bnd["K6" + n] = bound(*sb[n], PEAK_FP32)
+            results["library_ms"]["K6wgrad"] = lib
             karange = torch.arange(K, device=dev)
             t["K7"] = (cuda_ms(lambda: fg.gob_masks_cuda(
                 seed, K, B, spec.P, spec.thresh), 50),
@@ -832,19 +1059,58 @@ def phase_gob_timing(results):
                                       *st_e, False, want_hists=False)
     t["K5e"] = (cuda_ms(ev, 5), cuda_ms(lambda: fg.gob_scan_fwd_plain(
         spec_e, leaves_e, arrays_e, *st_e, False, want_hists=False), 1, 1))
-    (fe, be), _ = gob_bounds(spec_e, Ke, Be, -(-Be // fg.ROWS), train=False)
+    (fe, be), _ = gob_bounds(spec_e, Ke, Be, train=False)
     bnd["K5e"] = bound(fe, be, PEAK_FP32)
     results["times"].update(t)
     results["bounds"].update(bnd)
-    for k in ("K5", "K5e", "K6", "K7"):
+    for k in ("K5", "K5e", "K6", "K6remat", "K6chain", "K6wgrad", "K7"):
         ms, plain = t[k]
         bms, by = bnd[k]
+        lib = results["library_ms"].get(k)
         say("gob_timing", kernel=k, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
             bound_ms=f"{bms:.6f}", bound_by=by,
-            roofline_share=f"{bms / ms:.2e}")
+            roofline_share=f"{bms / ms:.2e}",
+            library_ms="none" if lib is None else f"{lib:.4f}")
 
 
 GOB_TRAIN_SIZE = 8000      # all 8,000 training paths: 400 steps an epoch
+
+
+class BwdChunks:
+    """While a trainer runs, records for each K6 call the chunks of steps
+    its shapes take (``Spec.bwd_chunk``), each a launch of every stage,
+    so that the run's launch counts can be checked exactly; the wrapper
+    itself runs as it is."""
+
+    def __enter__(self):
+        from njode_tpu_torch.ops import fused_gob as fg
+
+        self.fg, self.orig, self.chunks = fg, fg.gob_scan_bwd_cuda, []
+
+        def recorded(spec, leaves, arrays, train, hists, dloss, u=None,
+                     seed=None, chunk=None, want_ws=False):
+            K, B = arrays[2].shape
+            self.chunks.append(-(-K // (chunk or spec.bwd_chunk(K, B))))
+            return self.orig(spec, leaves, arrays, train, hists, dloss, u,
+                             seed, chunk, want_ws)
+
+        fg.gob_scan_bwd_cuda = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.fg.gob_scan_bwd_cuda = self.orig
+
+    def expect(self, steps, evals=0, reduce_extra=0):
+        """The exact counts of ``steps`` training steps: K5 each, the
+        three stages and two Philox draws (stages a, b) per chunk."""
+        if len(self.chunks) != steps:
+            raise AssertionError(f"{len(self.chunks)} K6 calls, expected "
+                                 f"{steps}")
+        n = sum(self.chunks)
+        return {"gob_scan_fwd": steps, "gob_bwd_remat": n,
+                "gob_scan_bwd": n, "gob_bwd_wgrad": n, "gob_scan_eval": evals,
+                "gob_philox_keep": steps + 2 * n,
+                "reduce_partials": 2 * steps + reduce_extra}
 
 
 def phase_gob_trainer(results):
@@ -867,15 +1133,18 @@ def phase_gob_trainer(results):
             paths=hp["nb_paths"], training_size=GOB_TRAIN_SIZE)
         fs.reset_launch_counts()
         fg.reset_launch_counts()
-        trainer.train(epochs=2, batch_size=20, hidden_size=50,
-                      dropout_rate=0.1, dataset="BlackScholes", plot=False,
-                      evaluate=True, other_model="GRU_ODE_Bayes",
-                      training_size=GOB_TRAIN_SIZE,
-                      base_data_path=os.path.join(tmp, "data"),
-                      saved_models_path=os.path.join(tmp, "models"),
-                      **{"GRU_ODE_Bayes-impute": True,
-                         "GRU_ODE_Bayes-logvar": True,
-                         "GRU_ODE_Bayes-mixing": 1e-4})
+        chunks = BwdChunks()
+        with chunks:
+            trainer.train(epochs=2, batch_size=20, hidden_size=50,
+                          dropout_rate=0.1, dataset="BlackScholes",
+                          plot=False, evaluate=True,
+                          other_model="GRU_ODE_Bayes",
+                          training_size=GOB_TRAIN_SIZE,
+                          base_data_path=os.path.join(tmp, "data"),
+                          saved_models_path=os.path.join(tmp, "models"),
+                          **{"GRU_ODE_Bayes-impute": True,
+                             "GRU_ODE_Bayes-logvar": True,
+                             "GRU_ODE_Bayes-mixing": 1e-4})
         torch.cuda.synchronize()
         counts = dict(fg.LAUNCHES)
         counts["reduce_partials"] = fs.LAUNCHES["reduce_partials"]
@@ -898,9 +1167,8 @@ def phase_gob_trainer(results):
         if len(rows) != 2:
             raise AssertionError(f"expected 2 metric rows, got {len(rows)}")
         steps = 2 * (GOB_TRAIN_SIZE // 20)
-        expect = {"gob_scan_fwd": steps, "gob_scan_bwd": steps,
-                  "gob_scan_eval": 2, "gob_philox_keep": 2 * steps,
-                  "reduce_partials": 2 * steps + 2}
+        expect = chunks.expect(steps, evals=2, reduce_extra=2)
+        expect["gob_masks"] = 0
         for k, v in expect.items():
             if counts[k] != v:
                 raise AssertionError(f"launch count {k}={counts[k]}, "
@@ -1296,10 +1564,14 @@ def phase_climate_timing(results):
     t["K5c"] = (cuda_ms(lambda: fg.gob_scan_fwd_cuda(
         gspec, gleaves, garrays, *st, True, None, gseed), 2, 1),
         cl["plain_ms"]["K5c"])
-    t["K6c"] = (cuda_ms(lambda: fg.gob_scan_bwd_cuda(
-        gspec, gleaves, garrays, True, ghists, dloss, None, gseed), 2, 1),
-        cl["plain_ms"]["K6c"])
-    (f5, b5), (f6, b6) = gob_bounds(gspec, K, B, -(-B // fg.ROWS))
+    gbwd = lambda: fg.gob_scan_bwd_cuda(  # noqa: E731
+        gspec, gleaves, garrays, True, ghists, dloss, None, gseed)
+    t["K6c"] = (cuda_ms(gbwd, 2, 1), cl["plain_ms"]["K6c"])
+    stages = stage_device_ms(gbwd, 2)
+    say("climate_timing", kernel="K6c_stages", R=gspec.rows_for(B),
+        chunks=-(-K // gspec.bwd_chunk(K, B)),
+        **{f"{n}_device_ms": f"{v:.4f}" for n, v in stages.items()})
+    (f5, b5), (f6, b6) = gob_bounds(gspec, K, B)
     bnd["K5c"] = bound(f5, b5, PEAK_FP32)
     bnd["K6c"] = bound(f6, b6, PEAK_FP32)
     results["times"].update(t)
@@ -1329,9 +1601,13 @@ def _climate_run(results, tag, expect, epochs=2, **kw):
     models = os.path.join(d, "models_" + tag)
     fs.reset_launch_counts()
     fg.reset_launch_counts()
-    ct.train(epochs=epochs, batch_size=CLIMATE_B, climate_dir=d,
-             saved_models_path=models, device="cuda", **kw)
+    chunks = BwdChunks()
+    with chunks:
+        ct.train(epochs=epochs, batch_size=CLIMATE_B, climate_dir=d,
+                 saved_models_path=models, device="cuda", **kw)
     torch.cuda.synchronize()
+    if callable(expect):
+        expect = expect(chunks)
     counts = dict(fs.LAUNCHES, **fg.LAUNCHES)
     cols, rows = read_frame(os.path.join(models, "id-1", "metric_id-1.csv"))
     if len(rows) != epochs:
@@ -1361,9 +1637,7 @@ def phase_climate_trainer(results):
         "njode_scan_fwd": steps, "njode_scan_bwd": steps,
         "philox_keep": 2 * steps, "reduce_partials": 2 * steps},
         hidden_size=10, dropout_rate=0.1)
-    gb = _climate_run(results, "gob", {
-        "gob_scan_fwd": steps, "gob_scan_bwd": steps,
-        "gob_philox_keep": 2 * steps, "reduce_partials": 2 * steps},
+    gb = _climate_run(results, "gob", lambda chunks: chunks.expect(steps),
         hidden_size=50, dropout_rate=0.2, ode_nn=None, readout_nn=None,
         enc_nn=None, other_model="GRU_ODE_Bayes",
         **{"GRU_ODE_Bayes-impute": False, "GRU_ODE_Bayes-logvar": True,
@@ -1811,21 +2085,36 @@ def kernels_line(results):
                     "max_abs_err": results["errs"][key], "ms": ms,
                     "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                     "library_ms": results["library_ms"].get(key)})
+    # GRU-ODE-Bayes at the trainer's widths: K5, its eval form, K6 as a
+    # whole (ms of a call, its three stages included; launches: stage (b)'s,
+    # one a chunk) and each of K6's stages (device ms per call; launches
+    # from the synthetic and the climate GOB trainers), K7
     gsrc = "njode_tpu_torch/ops/csrc/fused_gob.cu"
-    for name, key, replaces in (
-            ("gob_scan_fwd", "K5", "njode_tpu/ops/fused_gob.py:919"),
-            ("gob_scan_eval", "K5e", "njode_tpu/ops/fused_gob.py:718"),
-            ("gob_scan_bwd", "K6", "njode_tpu/ops/fused_gob.py:963"),
-            ("gob_philox_keep", "K7", "njode_tpu/ops/fused_gob.py:700")):
+    ge = results["gob_errs"]
+    k6 = "njode_tpu/ops/fused_gob.py:963"
+    for name, key, replaces, launches, err in (
+            ("gob_scan_fwd", "K5", "njode_tpu/ops/fused_gob.py:919",
+             gl["gob_scan_fwd"], ge["K5"]),
+            ("gob_scan_eval", "K5e", "njode_tpu/ops/fused_gob.py:718",
+             gl["gob_scan_eval"], ge["K5e"]),
+            ("gob_scan_bwd", "K6", k6, gl["gob_scan_bwd"], ge["K6"]),
+            ("gob_bwd_remat", "K6remat", k6,
+             gl["gob_bwd_remat"] + cg["gob_bwd_remat"], ge["remat"]),
+            ("gob_bwd_chain", "K6chain", k6,
+             gl["gob_scan_bwd"] + cg["gob_scan_bwd"], ge["chain"]),
+            ("gob_bwd_wgrad", "K6wgrad", k6,
+             gl["gob_bwd_wgrad"] + cg["gob_bwd_wgrad"], ge["wgrad"]),
+            ("gob_philox_keep", "K7", "njode_tpu/ops/fused_gob.py:700",
+             gl["gob_philox_keep"], ge["K7"])):
         ms, plain = results["times"][key]
         bms, by = results["bounds"][key]
         out.append({"name": name, "route": "cuda",
                     "source": gsrc if key != "K7"
                     else "njode_tpu_torch/ops/csrc/philox.cuh",
-                    "replaces": replaces, "launches": gl[name],
-                    "max_abs_err": results["gob_errs"][key], "ms": ms,
+                    "replaces": replaces, "launches": launches,
+                    "max_abs_err": err, "ms": ms,
                     "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                    "library_ms": None})
+                    "library_ms": results["library_ms"].get(key)})
     # the climate path: the masked branch of K1-K3, K5/K6 at the climate
     # GRU-ODE-Bayes arm (launches from the climate trainer phase and, for
     # the masked branch, the PhysioNet one, whose 50 arm runs it in the

@@ -147,7 +147,7 @@ def _declare(name, lib):
         lib.gob_error_string.restype = ctypes.c_char_p
         lib.gob_scan_fwd.argtypes = [P] * 15 + [I, P]
         lib.gob_scan_fwd.restype = I
-        lib.gob_scan_bwd.argtypes = [P] * 16 + [P]
+        lib.gob_scan_bwd.argtypes = [P] * 13 + [I, P, I, P, I] + [P] * 5
         lib.gob_scan_bwd.restype = I
         lib.gob_masks.argtypes = [P, I, I, I, ctypes.c_uint32, P, P]
         lib.gob_masks.restype = I

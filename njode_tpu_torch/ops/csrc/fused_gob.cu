@@ -1,48 +1,70 @@
 // Hand-written Hopper kernels for the GRU-ODE-Bayes training scan (sm_90a).
 //
 // Replaces the Pallas TPU kernels of njode_tpu/ops/fused_gob.py:
-//   gob_scan_fwd_kernel<true>   K5  _fwd_impl / _make_fwd_kernel (training
-//                                   forward: loss and step-entry histories)
-//   gob_scan_fwd_kernel<false>  K5  eval form (_make_fwd_kernel, want_hists
-//                                   False: loss only, no dropout)
-//   gob_scan_bwd_kernel         K6  _fused_bwd / _make_bwd_kernel (BPTT)
-//   philox_keep (philox.cuh)    K7  _step_masks (p_model keep-masks, 3
-//                                   slots per step: ode-midpoint,
-//                                   ode-final, post-jump)
-// The per-CTA loss and gradient partials are summed by reduce_partials in
+//   gob_scan_fwd_kernel<R, true>   K5  _fwd_impl / _make_fwd_kernel
+//                                      (training forward: loss and the
+//                                      step-entry histories)
+//   gob_scan_fwd_kernel<R, false>  K5  eval form (_make_fwd_kernel,
+//                                      want_hists False: loss only)
+//   gob_remat_kernel<R>            K6  _fused_bwd / _make_bwd_kernel, stage
+//   gob_chain_kernel<R>                (a) remat, (b) chain, (c) wgrad
+//   gob_wgrad_kernel
+//   philox_keep (philox.cuh)       K7  _step_masks (p_model keep-masks, 3
+//                                      slots per step: ode-midpoint,
+//                                      ode-final, post-jump)
+// R, the batch rows one CTA owns, is one of 1, 2, 4, 8, 16
+// (ops/fused_gob.py Spec.rows_for picks it). The per-CTA loss partials and
+// stage (c)'s gradient partial rows are summed by reduce_partials in
 // fused_scan.cu, in a fixed order (no float atomics: runs repeat bit for
 // bit).
 //
-// Design. The scan is K sequential steps of small dependent matmuls over
-// the state (h, mean, var) of ROWS batch rows; one CTA owns ROWS rows and
-// walks all K steps itself. The weights do not fit shared memory at the
-// published widths (409 KB of fp32 leaves at hidden 100, 105 KB at 50),
-// so they stay in device memory and are read through L1/L2 (they fit L2
-// easily); shared memory holds only the rows' carries and each step's
-// activations (132 KB for the backward at hidden 100). Each matmul
-// is fp32 FMA with one thread per (row, output column) and a
-// __syncthreads after every phase. The backward re-materialises each step
-// from its step-entry carries, walks k = K-1..0, and adds every weight
-// gradient to the CTA's own partial row in device memory: an entry is
-// only ever updated by the one thread the loop maps it to, so no atomics
-// are needed.
-//
-// Bound on this card. About 28,250 MACs per row-step forward at hidden 50
-// (111,000 at 100): at B = 20, K = 100 a forward is 113 MFLOP, under 2 us
-// at the 67 TFLOP/s fp32 peak, and the bytes (histories, inputs, weights
-// once) are under 1 MB. What limits these kernels is latency: a chain of
-// K steps of ~40 dependent phases each, on ceil(B/ROWS) of the 132 SMs.
-// This first version is simple and exact; tensor cores, overlapping the
-// independent products and a faster gradient accumulation are later work.
+// Design. The scan is K sequential steps of small dependent products over
+// the state (h, mean, var) of each batch row. What bounds it on this card
+// is latency, not flops or bytes (about 28,250 MACs a row-step forward at
+// hidden 50: a K5 call at B = 20, K = 100 is 113 MFLOP, under 2 us at the
+// 67 TFLOP/s fp32 peak): a chain of K steps of dependent phases, each a
+// barrier and an FMA chain. So:
+// - a CTA owns few rows (one at the published training batches, eight at
+//   the eval's 2,000), so that the batch spreads over the 132 SMs and a
+//   phase takes one pass or few of the CTA's threads (256; 512 where the
+//   weights come from L2, to keep more of their loads in flight);
+// - every output of a product is split over S lanes of a warp (S a power
+//   of two, from the phase's outputs and input width): each lane runs
+//   in/S FMAs and the lanes reduce with __shfl_xor_sync in a fixed order;
+// - independent products share one phase behind one barrier (a field's r
+//   and z gates, p_model's two heads, the four prep products, the
+//   observation GRU's six products, the backward's transposed products
+//   into one gradient), and elementwise steps ride in the epilogue of the
+//   product before them;
+// - the weights (105 KB at hidden 50, 409 KB at 100) are staged into
+//   shared memory once per CTA by K5 and the chain where they fit beside
+//   the activations and the batch takes one CTA an SM (hidden 50, the
+//   climate arm), else read through L1/L2; the activations live in
+//   shared memory, reached from the out-of-line step bodies through
+//   offsets into the dynamic array (so those loads stay in the shared
+//   address space); each kernel copies the call's configuration and leaf
+//   pointers from its parameters into shared memory first, where those
+//   bodies read them;
+// - K6 keeps only the carry gradients on its sequential chain: stage (a)
+//   re-runs every step of a chunk at once from the stored carries (the
+//   same device code as K5, so the same bits) into a device workspace;
+//   stage (b) walks the chunk backwards at R rows a CTA, cp.async bringing
+//   the next step's activations while it works, and writes every delta a
+//   weight gradient needs; stage (c) sums x^T d over all (step, row) pairs
+//   of the chunk for every weight, in an order that does not depend on R.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "philox.cuh"          // K7: philox_keep
 
-#define ROWS 8
-#define NTHREADS 256
+#define MAX_NT 512          // threads of a scan CTA: 256 or 512 (cfg.threads)
+#define NT ((int)blockDim.x)
+#define WG_NT 256           // threads of a stage (c) CTA
 #define MAX_LEAVES 40
+#define MAX_SAVE 48
+#define MAX_DLT 32
+#define WG_TILE 32
 
 // Mirrored field by field by ops/fused_gob.py::_GobCfg (all 4-byte fields).
 // Leaf slots hold the index of a weight in the flat leaf list, -1 if absent:
@@ -55,40 +77,56 @@
 //        Whz, Whn; discretized: w_hh per gate); fhb its hidden biases
 //   wp   the packed prep blocks [D, D*prep] (X, mean, feat2, error); bp
 //        bias_prep [1, D*prep]; ih/hh/bih/bhh the observation GRU per gate
+// save_*: the buffers stage (a) writes to the workspace (shared offset in
+// the forward layout, workspace region, width); dlt_*: the deltas stage
+// (b) writes (dlt_prop: 0 on a dt == 0 padding step).
 struct GobCfg {
   int K, B, D, H, P, DP, prep, n_params, n_leaves;
   int full, impute, logvar, prop, bias, mode;  // prop 0 euler 1 mid 2 disc
   unsigned int thresh;
   float keep, mixing;
-  int rows, fwd_floats, smem_floats;
+  int rows, fwd_floats, smem_floats, n_ws, n_save, n_dlt;
+  int wsm, o_w;              // weights staged in shared memory at o_w
+  int threads;               // threads of a K5 / stage (a) / (b) CTA
   int leaf_off[MAX_LEAVES + 1];
   int pm[6];
   int fxm[3], fxv[3], fxb[3], fh[3], fhb[3];
   int wp[4], bp[1], ih[3], hh[3], bih[3], bhh[3];
+  int save_sm[MAX_SAVE], save_ws[MAX_SAVE], save_w[MAX_SAVE];
+  int dlt_sm[MAX_DLT], dlt_ws[MAX_DLT], dlt_w[MAX_DLT], dlt_prop[MAX_DLT];
   int o_h, o_m, o_v, o_X, o_M, o_obs, o_lrow, o_nll;
   int o_f1a, o_f1b, o_f1c, o_f1d, o_fo, o_kk, o_mk, o_vk, o_prek, o_ak;
   int o_f2a, o_f2b, o_f2c, o_f2d, o_h1p, o_pre1, o_a1, o_m1p, o_v1p;
   int o_h1, o_m1, o_v1, o_err, o_ft2, o_pre, o_gin;
   int o_ga, o_gb, o_gc, o_gd, o_gt, o_h2, o_pre2, o_a2, o_m2p, o_v2p;
   int o_m2, o_v2;
-  int o_dh, o_dm, o_dv, o_dh2, o_dh1, o_dm1, o_dv1, o_dm2, o_dv2;
-  int o_dg0, o_dg1, o_dg2, o_dg3, o_dx, o_dp, o_dmk, o_dvk, o_dkk;
-  int o_df, o_fa0, o_fa1, o_fa2, o_dhf, o_dfm, o_dff, o_dfe;
+  int o_dh, o_dm, o_dv, o_dh1, o_dm1, o_dv1, o_dm2, o_dv2, o_dp2;
+  int o_og0, o_og1, o_og2, o_og3, o_dx, o_dfm, o_dff, o_dfe, o_dp1;
+  int o_pg0, o_pg1, o_pg2, o_pg3, o_e1a0, o_e1a1, o_e1a2;
+  int o_e2a0, o_e2a1, o_e2a2, o_dp0, o_dmk, o_dvk, o_df, o_dhf, o_dkk;
 };
 
 struct Leaves { const float* p[MAX_LEAVES]; };
 
+// one call's configuration and weights: each kernel takes them as
+// parameters and copies them here first (load_call), where the
+// out-of-line step bodies read them (about 2.2 KB beside the dynamic
+// buffers; ops/fused_gob.py SMEM_LIMIT leaves room for them)
+__shared__ GobCfg cc;
+__shared__ Leaves cl;
+
+extern __shared__ float sm[];
+
 struct MaskCtx {
   int mode;                  // 0 none, 1 input masks, 2 philox
   const int8_t* u;
-  uint32_t k0, k1, thresh;
-  int k, row0, nv, B, P;
-  float keep;
+  uint32_t k0, k1;
+  int k, row0, nv;
 };
 
-#define BUF(name) (sm + c.o_##name)
-#define LW(i) ((i) >= 0 ? lv.p[(i)] : (const float*)nullptr)
-#define GL(i) (G + c.leaf_off[(i)])
+#define LW(i) ((i) >= 0 ? cl.p[(i)] : (const float*)nullptr)
+#define FO(name) (ab + cc.o_##name)       // forward buffer of a layout copy
+#define BO(name) (cc.o_##name)            // the chain's own buffers
 
 // constants of the loss, as the JAX kernel rounds them to float32
 #define TWO_LOG_LIK_C 1.8378770664093453f   // 2 log sqrt(2 pi)
@@ -111,381 +149,321 @@ __device__ __forceinline__ bool keep_at(const MaskCtx& m, int slot, int r,
   if (r >= m.nv) return true;    // padding row of the last CTA
   int grow = m.row0 + r;
   if (m.mode == 1)
-    return m.u[(((size_t)m.k * 3 + slot) * m.B + grow) * m.P + col] != 0;
-  return philox_keep(m.k0, m.k1, m.thresh, col, grow, m.k, slot);
+    return m.u[(((size_t)m.k * 3 + slot) * cc.B + grow) * cc.P + col] != 0;
+  return philox_keep(m.k0, m.k1, cc.thresh, col, grow, m.k, slot);
 }
 
-// ------------------------------------------------ products (all end synced)
-// The device functions below are __noinline__: each is called from many
-// sites and from three kernels, and inlining them all multiplies nvcc's
-// time (about 50 s for this file) for no measurable gain in a scan bound
-// by its chain of synchronised phases.
+__device__ __forceinline__ float bias_at(int slot, int j) {
+  return slot >= 0 ? cl.p[slot][j] : 0.f;
+}
 
-// y[r, j] = (acc ? y[r, j] : 0) + sum_i x[r, i] W[i, j] (+ b[j])
-__device__ __noinline__ void lin(const float* __restrict__ W, const float* __restrict__ b,
-                    const float* x, int in, int out, float* y, bool acc) {
-  for (int idx = threadIdx.x; idx < ROWS * out; idx += blockDim.x) {
-    int r = idx / out, j = idx - r * out;
-    const float* xr = x + r * in;
-    float s = 0.f;
-    for (int i = 0; i < in; ++i)
-      s = fmaf(xr[i], __ldg(W + (size_t)i * out + j), s);
-    if (b) s += __ldg(b + j);
-    y[idx] = acc ? y[idx] + s : s;
+// Asynchronous copies from device into shared memory (cp.async); a host
+// build of these bodies (a CPU rehearsal) copies at once.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__)
+  unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// ------------------------------------------------------------ one phase
+
+// Lanes per output: the largest power of two that keeps the phase in one
+// pass of the CTA's threads (cfg.threads, the same for K5 and stage (a),
+// so both sum in one order) and at least four FMAs a lane.
+__device__ __forceinline__ int pick_s(int n_out, int n_in) {
+  int S = 1;
+  while (S < 32 && n_out * S * 2 <= NT && n_in >= 8 * S) S <<= 1;
+  return S;
+}
+
+// lane l's share of sum_q x[q] W[q * ws]: q = l, l + S, ... The weights
+// are in shared memory (staged) or device memory (through L1/L2), so the
+// load is generic; eight of them are issued ahead of their FMAs.
+__device__ __forceinline__ float dotw(const float* x,
+                                      const float* __restrict__ W, int ws,
+                                      int n, int l, int S) {
+  float s = 0.f;
+#pragma unroll 8
+  for (int q = l; q < n; q += S) s = fmaf(x[q], W[(size_t)q * ws], s);
+  return s;
+}
+
+// n_out outputs, S lanes each: part(o, l) is lane l's partial sum of
+// output o, the S partials are reduced in a fixed butterfly and lane 0
+// hands the sum to epi(o, s). Every thread runs the same passes (the
+// shuffles need whole warps); ends with a barrier.
+template <class Part, class Epi>
+__device__ __forceinline__ void phase(int n_out, int S, Part part, Epi epi) {
+  const int n = n_out * S;
+  const int lg = __ffs(S) - 1;
+  for (int base = 0; base < n; base += NT) {
+    const int t = base + threadIdx.x;
+    const int o = t >> lg, l = t & (S - 1);
+    float s = t < n ? part(o, l) : 0.f;
+    for (int w = S >> 1; w > 0; w >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, w);
+    if (t < n && l == 0) epi(o, s);
   }
   __syncthreads();
 }
 
-// dx[r, i] = (acc ? dx[r, i] : 0) + sum_j d[r, j] W[i, j]
-__device__ __noinline__ void linT(const float* __restrict__ W, const float* d, int out,
-                     int in, float* dx, bool acc) {
-  for (int idx = threadIdx.x; idx < ROWS * in; idx += blockDim.x) {
-    int r = idx / in, i = idx - r * in;
-    const float* dr = d + r * out;
-    const float* wi = W + (size_t)i * out;
-    float s = 0.f;
-    for (int j = 0; j < out; ++j) s = fmaf(dr[j], __ldg(wi + j), s);
-    dx[idx] = acc ? dx[idx] + s : s;
-  }
-  __syncthreads();
+// ------------------------------------------------------------- forward
+// The step bodies below are out of line (each compiled once for every
+// kernel and R); they take shared-memory buffers as float offsets into sm.
+
+// input part of gate k of the field or cell: mi Wxm_k + vi Wxv_k (impute)
+__device__ __forceinline__ float gate_in(int k, const float* mi,
+                                         const float* vi, int r, int j,
+                                         int l, int S) {
+  if (!cc.impute) return 0.f;
+  const int D = cc.D, H = cc.H;
+  return dotw(mi + r * D, LW(cc.fxm[k]) + j, H, D, l, S)
+         + dotw(vi + r * D, LW(cc.fxv[k]) + j, H, D, l, S);
 }
 
-// G[i, j] += sum_{r < nv} x[r, i] d[r, j]   (the CTA's partial row)
-__device__ __noinline__ void wgrad(float* G, const float* x, int in, const float* d,
-                      int out, int nv) {
-  for (int idx = threadIdx.x; idx < in * out; idx += blockDim.x) {
-    int i = idx / out, j = idx - i * out;
-    float s = 0.f;
-    for (int r = 0; r < nv; ++r) s = fmaf(x[r * in + i], d[r * out + j], s);
-    G[idx] += s;
-  }
-  __syncthreads();
+
+// p_model: pre = x W0 + b0, a = dropout(relu(pre)), heads (mo, vo) = (a Wm
+// + bm, a Wv + bv). With cm >= 0 the heads also go to (cm, cv): as they
+// are (sel < 0), or selected by the per-row obs at sel, obs * head + (1 -
+// obs) * (om, ov) (the post-jump state).
+__device__ __noinline__ void pmodel_fwd(int x_, int pre_, int a_, int mo_,
+                                        int vo_, int cm_, int cv_, int sel_,
+                                        int om_, int ov_, const MaskCtx& mc,
+                                        int slot) {
+  const int R = cc.rows, H = cc.H, P = cc.P, D = cc.D;
+  const float* x = sm + x_;
+  float* pre = sm + pre_;
+  float* a = sm + a_;
+  const float* W0 = LW(cc.pm[0]);
+  const int b0 = cc.pm[1];
+  int S = pick_s(R * P, H);
+  phase(R * P, S,
+        [&](int o, int l) {
+          int r = o / P, j = o - r * P;
+          return dotw(x + r * H, W0 + j, P, H, l, S);
+        },
+        [&](int o, float s) {
+          int r = o / P, j = o - r * P;
+          s += bias_at(b0, j);
+          pre[o] = s;
+          float v = fmaxf(s, 0.f);
+          if (mc.mode) v = keep_at(mc, slot, r, j) ? v / cc.keep : 0.f;
+          a[o] = v;
+        });
+  const float* Wm = LW(cc.pm[2]);
+  const float* Wv = LW(cc.pm[4]);
+  S = pick_s(R * 2 * D, P);
+  phase(R * 2 * D, S,
+        [&](int o, int l) {
+          int g = o / (R * D), q = o - g * R * D, r = q / D, d = q - r * D;
+          return dotw(a + r * P, (g ? Wv : Wm) + d, D, P, l, S);
+        },
+        [&](int o, float s) {
+          int g = o / (R * D), q = o - g * R * D, r = q / D;
+          s += bias_at(cc.pm[g ? 5 : 3], q - r * D);
+          sm[(g ? vo_ : mo_) + q] = s;
+          if (cm_ >= 0) {
+            float* cp = sm + (g ? cv_ : cm_);
+            if (sel_ >= 0) {
+              float ob = sm[sel_ + r];
+              cp[q] = ob * s + (1.f - ob) * sm[(g ? ov_ : om_) + q];
+            } else {
+              cp[q] = s;
+            }
+          }
+        });
 }
 
-// G[j] += sum_{r < nv} d[r, j]
-__device__ __noinline__ void bgrad(float* G, const float* d, int out, int nv) {
-  for (int j = threadIdx.x; j < out; j += blockDim.x) {
-    float s = 0.f;
-    for (int r = 0; r < nv; ++r) s += d[r * out + j];
-    G[j] += s;
-  }
-  __syncthreads();
-}
-
-// ------------------------------------------------------------- p_model
-
-// pre = x W0 + b0, a = dropout(relu(pre)), (mo, vo) = (a Wm + bm, a Wv + bv)
-__device__ __noinline__ void pmodel_fwd(const GobCfg& c, const Leaves& lv, const float* x,
-                           float* pre, float* a, float* mo, float* vo,
-                           const MaskCtx& mc, int slot) {
-  const int P = c.P;
-  lin(LW(c.pm[0]), LW(c.pm[1]), x, c.H, P, pre, false);
-  for (int idx = threadIdx.x; idx < ROWS * P; idx += blockDim.x) {
-    float v = fmaxf(pre[idx], 0.f);
-    if (mc.mode) {
-      int r = idx / P, j = idx - r * P;
-      v = keep_at(mc, slot, r, j) ? v / mc.keep : 0.f;
-    }
-    a[idx] = v;
-  }
-  __syncthreads();
-  lin(LW(c.pm[2]), LW(c.pm[3]), a, P, c.D, mo, false);
-  lin(LW(c.pm[4]), LW(c.pm[5]), a, P, c.D, vo, false);
-}
-
-// adds the p_model gradients; dx (+)= the gradient wrt its input x
-__device__ __noinline__ void pmodel_bwd(const GobCfg& c, const Leaves& lv, float* G,
-                           const float* x, const float* pre, const float* a,
-                           const float* dm, const float* dv, float* dp,
-                           float* dx, bool acc_dx, const MaskCtx& mc,
-                           int slot, int nv) {
-  const int P = c.P, D = c.D;
-  wgrad(GL(c.pm[2]), a, P, dm, D, nv);
-  bgrad(GL(c.pm[3]), dm, D, nv);
-  wgrad(GL(c.pm[4]), a, P, dv, D, nv);
-  bgrad(GL(c.pm[5]), dv, D, nv);
-  const float* Wm = LW(c.pm[2]);
-  const float* Wv = LW(c.pm[4]);
-  for (int idx = threadIdx.x; idx < ROWS * P; idx += blockDim.x) {
-    int r = idx / P, j = idx - r * P;
-    float s = 0.f;
-    for (int d = 0; d < D; ++d)
-      s += dm[r * D + d] * __ldg(Wm + j * D + d)
-           + dv[r * D + d] * __ldg(Wv + j * D + d);
-    if (mc.mode) s = keep_at(mc, slot, r, j) ? s / mc.keep : 0.f;
-    dp[idx] = pre[idx] > 0.f ? s : 0.f;
-  }
-  __syncthreads();
-  wgrad(GL(c.pm[0]), x, c.H, dp, P, nv);
-  bgrad(GL(c.pm[1]), dp, P, nv);
-  linT(LW(c.pm[0]), dp, P, c.H, dx, acc_dx);
-}
-
-// ------------------------------------------------------- the GRU-ODE field
-
-// gate pre-activation: g = [mi Wxm_k + vi Wxv_k + bx_k] + hin Wh
-__device__ __noinline__ void gate_pre(const GobCfg& c, const Leaves& lv, int k,
-                         const float* mi, const float* vi, const float* hin,
-                         int wh, float* g) {
-  if (c.impute) {
-    lin(LW(c.fxm[k]), LW(c.fxb[k]), mi, c.D, c.H, g, false);
-    lin(LW(c.fxv[k]), nullptr, vi, c.D, c.H, g, true);
-    lin(LW(wh), nullptr, hin, c.H, c.H, g, true);
+// One field evaluation at (mi, vi, hin): F0..F3 (full: r, z, u, r*hin;
+// minimal: z, n, z*hin) and fo = f; with out >= 0 also out = base + coef f.
+__device__ __noinline__ void field_fwd(int mi_, int vi_, int hin_, int F0_,
+                                       int F1_, int F2_, int F3_, int fo_,
+                                       int base_, float coef, int out_) {
+  const int R = cc.rows, H = cc.H, D = cc.D;
+  const float* mi = sm + mi_;
+  const float* vi = sm + vi_;
+  const float* hin = sm + hin_;
+  float* F0 = sm + F0_;
+  float* F1 = sm + F1_;
+  float* F2 = sm + F2_;
+  float* F3 = sm + F3_;
+  const int n_in = (cc.impute ? 2 * D : 0) + H;
+  auto finish = [&](int o, float u, float z) {
+    float f = (1.f - z) * (u - hin[o]);
+    sm[fo_ + o] = f;
+    if (out_ >= 0) sm[out_ + o] = sm[base_ + o] + coef * f;
+  };
+  if (cc.full) {
+    int S = pick_s(R * 2 * H, n_in);
+    phase(R * 2 * H, S,
+          [&](int o, int l) {
+            int g = o / (R * H), q = o - g * R * H, r = q / H;
+            int j = q - r * H;
+            return gate_in(g, mi, vi, r, j, l, S)
+                   + dotw(hin + r * H, LW(cc.fh[g]) + j, H, H, l, S);
+          },
+          [&](int o, float s) {
+            int g = o / (R * H), q = o - g * R * H, j = q % H;
+            float y = sigm(s + bias_at(cc.fxb[g], j));
+            if (g == 0) {
+              F0[q] = y;
+              F3[q] = y * hin[q];
+            } else {
+              F1[q] = y;
+            }
+          });
+    S = pick_s(R * H, n_in);
+    phase(R * H, S,
+          [&](int o, int l) {
+            int r = o / H, j = o - r * H;
+            return gate_in(2, mi, vi, r, j, l, S)
+                   + dotw(F3 + r * H, LW(cc.fh[2]) + j, H, H, l, S);
+          },
+          [&](int o, float s) {
+            float u = tanhf(s + bias_at(cc.fxb[2], o % H));
+            F2[o] = u;
+            finish(o, u, F1[o]);
+          });
   } else {
-    lin(LW(wh), nullptr, hin, c.H, c.H, g, false);
+    int S = pick_s(R * H, n_in);
+    phase(R * H, S,
+          [&](int o, int l) {
+            int r = o / H, j = o - r * H;
+            return gate_in(0, mi, vi, r, j, l, S)
+                   + dotw(hin + r * H, LW(cc.fh[0]) + j, H, H, l, S);
+          },
+          [&](int o, float s) {
+            float z = sigm(s + bias_at(cc.fxb[0], o % H));
+            F0[o] = z;
+            F2[o] = z * hin[o];
+          });
+    phase(R * H, S,
+          [&](int o, int l) {
+            int r = o / H, j = o - r * H;
+            return gate_in(1, mi, vi, r, j, l, S)
+                   + dotw(F2 + r * H, LW(cc.fh[1]) + j, H, H, l, S);
+          },
+          [&](int o, float s) {
+            float n = tanhf(s + bias_at(cc.fxb[1], o % H));
+            F1[o] = n;
+            finish(o, n, F0[o]);
+          });
   }
 }
 
-// f = field(mi, vi, h) (the inputs are unread without impute). Saves
-// full: F0 r, F1 z, F2 u, F3 r*h;  minimal: F0 z, F1 n, F2 z*h.
-__device__ __noinline__ void field_fwd(const GobCfg& c, const Leaves& lv, const float* mi,
-                          const float* vi, const float* h, float* F0,
-                          float* F1, float* F2, float* F3, float* f) {
-  const int H = c.H;
-  if (c.full) {
-    gate_pre(c, lv, 0, mi, vi, h, c.fh[0], F0);
-    gate_pre(c, lv, 1, mi, vi, h, c.fh[1], F1);
-    for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x) {
-      float r = sigm(F0[idx]);
-      F0[idx] = r;
-      F1[idx] = sigm(F1[idx]);
-      F3[idx] = r * h[idx];
-    }
-    __syncthreads();
-    gate_pre(c, lv, 2, mi, vi, F3, c.fh[2], F2);
-    for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x) {
-      float u = tanhf(F2[idx]);
-      F2[idx] = u;
-      f[idx] = (1.f - F1[idx]) * (u - h[idx]);
-    }
-  } else {
-    gate_pre(c, lv, 0, mi, vi, h, c.fh[0], F0);
-    for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x) {
-      float z = sigm(F0[idx]);
-      F0[idx] = z;
-      F2[idx] = z * h[idx];
-    }
-    __syncthreads();
-    gate_pre(c, lv, 1, mi, vi, F2, c.fh[1], F1);
-    for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x) {
-      float n = tanhf(F1[idx]);
-      F1[idx] = n;
-      f[idx] = (1.f - F0[idx]) * (n - h[idx]);
-    }
+// The discretized cell: one GRU tick of h driven by (m, v). Leaves F0..F3
+// = r, z, n, gh_n, gt = gi_n, and h1p = (1 - z) n + z h.
+__device__ __noinline__ void cell_fwd(int m_, int v_, int h_, int F0_,
+                                      int F1_, int F2_, int F3_, int gt_,
+                                      int out_) {
+  const int R = cc.rows, H = cc.H, D = cc.D;
+  const float* m = sm + m_;
+  const float* v = sm + v_;
+  const float* h = sm + h_;
+  float* F0 = sm + F0_;
+  float* F1 = sm + F1_;
+  float* F3 = sm + F3_;
+  float* gt = sm + gt_;
+  // segments: gi_r + gh_r, gi_z + gh_z, gi_n, gh_n
+  int S = pick_s(R * 4 * H, (cc.impute ? 2 * D : 0) + H);
+  phase(R * 4 * H, S,
+        [&](int o, int l) {
+          int g = o / (R * H), q = o - g * R * H, r = q / H, j = q - r * H;
+          float s = g < 3 ? gate_in(g, m, v, r, j, l, S) : 0.f;
+          if (g != 2)
+            s += dotw(h + r * H, LW(cc.fh[g == 3 ? 2 : g]) + j, H, H, l, S);
+          return s;
+        },
+        [&](int o, float s) {
+          int g = o / (R * H), q = o - g * R * H, j = q % H;
+          if (g < 2) {
+            s += bias_at(cc.fxb[g], j) + bias_at(cc.fhb[g], j);
+            (g ? F1 : F0)[q] = s;
+          } else if (g == 2) {
+            gt[q] = s + bias_at(cc.fxb[2], j);
+          } else {
+            F3[q] = s + bias_at(cc.fhb[2], j);
+          }
+        });
+  for (int idx = threadIdx.x; idx < R * H; idx += NT) {
+    float r = sigm(F0[idx]), z = sigm(F1[idx]);
+    float n = tanhf(gt[idx] + r * F3[idx]);
+    F0[idx] = r;
+    F1[idx] = z;
+    sm[F2_ + idx] = n;
+    sm[out_ + idx] = (1.f - z) * n + z * h[idx];
   }
   __syncthreads();
 }
 
-// the input-projection gradients of gate k: weights, bias, and dm/dv
-__device__ __noinline__ void gate_in_bwd(const GobCfg& c, const Leaves& lv, float* G,
-                            int k, const float* mi, const float* vi,
-                            const float* da, float* dmo, float* dvo,
-                            bool acc, int nv) {
-  const int D = c.D, H = c.H;
-  wgrad(GL(c.fxm[k]), mi, D, da, H, nv);
-  wgrad(GL(c.fxv[k]), vi, D, da, H, nv);
-  if (c.fxb[k] >= 0) bgrad(GL(c.fxb[k]), da, H, nv);
-  linT(LW(c.fxm[k]), da, H, D, dmo, acc);
-  linT(LW(c.fxv[k]), da, H, D, dvo, acc);
-}
-
-// backward of field_fwd for the field gradient df: adds the weight
-// gradients, writes dhf = d/dh and (impute) dmo, dvo = d/d(mi, vi)
-__device__ __noinline__ void field_bwd(const GobCfg& c, const Leaves& lv, float* G,
-                          const float* mi, const float* vi, const float* h,
-                          const float* F0, const float* F1, const float* F2,
-                          const float* F3, const float* df, float* fa0,
-                          float* fa1, float* fa2, float* dhf, float* dmo,
-                          float* dvo, int nv) {
-  const int H = c.H;
-  if (c.full) {
-    for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x) {
-      float z = F1[idx], u = F2[idx], d = df[idx], hv = h[idx];
-      float du = d * (1.f - z);
-      fa1[idx] = -d * (u - hv);                 // dz
-      dhf[idx] = -d * (1.f - z);
-      fa0[idx] = du * (1.f - u * u);            // da_u
-    }
-    __syncthreads();
-    wgrad(GL(c.fh[2]), F3, H, fa0, H, nv);      // Whh += (r h)^T da_u
-    linT(LW(c.fh[2]), fa0, H, H, fa2, false);   // d(r h)
-    for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x) {
-      float r = F0[idx], z = F1[idx], drh = fa2[idx];
-      float dr = drh * h[idx];
-      dhf[idx] += drh * r;
-      fa2[idx] = dr * r * (1.f - r);            // da_r
-      fa1[idx] = fa1[idx] * z * (1.f - z);      // da_z
-    }
-    __syncthreads();
-    wgrad(GL(c.fh[1]), h, H, fa1, H, nv);
-    linT(LW(c.fh[1]), fa1, H, H, dhf, true);
-    wgrad(GL(c.fh[0]), h, H, fa2, H, nv);
-    linT(LW(c.fh[0]), fa2, H, H, dhf, true);
-    if (c.impute) {
-      gate_in_bwd(c, lv, G, 0, mi, vi, fa2, dmo, dvo, false, nv);
-      gate_in_bwd(c, lv, G, 1, mi, vi, fa1, dmo, dvo, true, nv);
-      gate_in_bwd(c, lv, G, 2, mi, vi, fa0, dmo, dvo, true, nv);
-    }
-    return;
-  }
-  for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x) {
-    float z = F0[idx], n = F1[idx], d = df[idx], hv = h[idx];
-    float dn = d * (1.f - z);
-    fa1[idx] = -d * (n - hv);                   // dz
-    dhf[idx] = -d * (1.f - z);
-    fa0[idx] = dn * (1.f - n * n);              // da_n
-  }
-  __syncthreads();
-  wgrad(GL(c.fh[1]), F2, H, fa0, H, nv);        // Whn += (z h)^T da_n
-  linT(LW(c.fh[1]), fa0, H, H, fa2, false);     // d(z h)
-  for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x) {
-    float z = F0[idx], dzh = fa2[idx];
-    float dz = fa1[idx] + dzh * h[idx];
-    dhf[idx] += dzh * z;
-    fa1[idx] = dz * z * (1.f - z);              // da_z
-  }
-  __syncthreads();
-  wgrad(GL(c.fh[0]), h, H, fa1, H, nv);
-  linT(LW(c.fh[0]), fa1, H, H, dhf, true);
-  if (c.impute) {
-    gate_in_bwd(c, lv, G, 0, mi, vi, fa1, dmo, dvo, false, nv);
-    gate_in_bwd(c, lv, G, 1, mi, vi, fa0, dmo, dvo, true, nv);
-  }
-}
-
-// ------------------------------------------------------------ GRU cells
-
-// The caller has put the input projections gi_r, gi_z into G0, G1 and gi_n
-// into gt. Completes G0..G3 = r, z, n, gh_n and out = (1-z) n + z h.
-__device__ __noinline__ void gru_fwd(const GobCfg& c, const Leaves& lv, const int* hh,
-                        const int* bhh, const float* h, float* G0, float* G1,
-                        float* G2, float* G3, const float* gt, float* out) {
-  const int H = c.H;
-  lin(LW(hh[0]), LW(bhh[0]), h, H, H, G0, true);
-  lin(LW(hh[1]), LW(bhh[1]), h, H, H, G1, true);
-  lin(LW(hh[2]), LW(bhh[2]), h, H, H, G3, false);
-  for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x) {
-    float r = sigm(G0[idx]), z = sigm(G1[idx]);
-    float n = tanhf(gt[idx] + r * G3[idx]);
-    G0[idx] = r;
-    G1[idx] = z;
-    G2[idx] = n;
-    out[idx] = (1.f - z) * n + z * h[idx];
-  }
-  __syncthreads();
-}
-
-// Backward of gru_fwd for d(out) = dy: dgi = (dg0, dg1, dg2), dgh = (dg0,
-// dg1, dg3); dhout (+)= dy z + sum_k dgh_k hh_k^T
-__device__ __noinline__ void gru_bwd(const GobCfg& c, const Leaves& lv, const int* hh,
-                        const float* h, const float* G0, const float* G1,
-                        const float* G2, const float* G3, const float* dy,
-                        float* dg0, float* dg1, float* dg2, float* dg3,
-                        float* dhout, bool acc) {
-  const int H = c.H;
-  for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x) {
-    float r = G0[idx], z = G1[idx], n = G2[idx], ghn = G3[idx];
-    float d = dy[idx];
-    float da_z = d * (h[idx] - n) * z * (1.f - z);
-    float da_n = d * (1.f - z) * (1.f - n * n);
-    float dr = da_n * ghn;
-    dg0[idx] = dr * r * (1.f - r);
-    dg1[idx] = da_z;
-    dg2[idx] = da_n;
-    dg3[idx] = da_n * r;
-    float dh = d * z;
-    dhout[idx] = acc ? dhout[idx] + dh : dh;
-  }
-  __syncthreads();
-  linT(LW(hh[0]), dg0, H, H, dhout, true);
-  linT(LW(hh[1]), dg1, H, H, dhout, true);
-  linT(LW(hh[2]), dg3, H, H, dhout, true);
-}
-
-// the weight gradients of a GRU cell from gru_bwd's dgi/dgh
-__device__ __noinline__ void gru_wgrads(const GobCfg& c, float* G, const int* ih,
-                           const int* hh, const int* bih, const int* bhh,
-                           const float* x, int in, const float* h,
-                           const float* dg0, const float* dg1,
-                           const float* dg2, const float* dg3, int nv) {
-  const int H = c.H;
-  const float* dgi[3] = {dg0, dg1, dg2};
-  const float* dgh[3] = {dg0, dg1, dg3};
-  for (int k = 0; k < 3; ++k) {
-    wgrad(GL(ih[k]), x, in, dgi[k], H, nv);
-    wgrad(GL(hh[k]), h, H, dgh[k], H, nv);
-    if (bih[k] >= 0) bgrad(GL(bih[k]), dgi[k], H, nv);
-    if (bhh[k] >= 0) bgrad(GL(bhh[k]), dgh[k], H, nv);
-  }
-}
-
-// ------------------------------------------------------------- one step
-
-// Forward of one step for the CTA's rows from the carries (h, m, v) and
-// the step's inputs (X, M, obs) in shared memory: fills every buffer the
-// backward reads, ends with (h2, m2, v2) and the per-row NLL.
-__device__ __noinline__ void step_fwd(const GobCfg& c, const Leaves& lv, float* sm,
-                         float dt, const MaskCtx& mc) {
-  const int H = c.H, D = c.D, DP = c.DP;
-  float* h = BUF(h); float* m = BUF(m); float* v = BUF(v);
-  float* X = BUF(X); float* M = BUF(M); float* obs = BUF(obs);
-  float* h1 = BUF(h1); float* m1 = BUF(m1); float* v1 = BUF(v1);
+// Forward of one step for the CTA's rows, on the forward buffers at `ab`,
+// from the carries (h, m, v) and the step's inputs (X, M, obs): fills every
+// buffer the backward reads, ends with (h2, m2, v2) and the per-row NLL.
+// A dt == 0 padding step skips the propagation: its buffers keep what they
+// held (stage (a) zeroes them first).
+__device__ __noinline__ void step_fwd(int ab, float dt, const MaskCtx& mc) {
+  const int R = cc.rows, H = cc.H, D = cc.D, DP = cc.DP;
   __syncthreads();                 // the carries and inputs are loaded
-  if (dt > 0.f) {                  // dt == 0 padding steps skip this
-    float* h1p = BUF(h1p);
-    if (c.prop == 2) {             // discretized: one GRU cell tick
-      float* gi[3] = {BUF(f1a), BUF(f1b), BUF(gt)};
-      for (int k = 0; k < 3; ++k) {
-        if (c.impute) {
-          lin(LW(c.fxm[k]), LW(c.fxb[k]), m, D, H, gi[k], false);
-          lin(LW(c.fxv[k]), nullptr, v, D, H, gi[k], true);
-        } else {
-          lin(nullptr, LW(c.fxb[k]), m, 0, H, gi[k], false);
-        }
-      }
-      gru_fwd(c, lv, c.fh, c.fhb, h, BUF(f1a), BUF(f1b), BUF(f1c), BUF(f1d),
-              BUF(gt), h1p);
+  if (dt > 0.f) {
+    if (cc.prop == 2) {
+      cell_fwd(FO(m), FO(v), FO(h), FO(f1a), FO(f1b), FO(f1c), FO(f1d),
+               FO(gt), FO(h1p));
+    } else if (cc.prop == 1) {     // midpoint
+      field_fwd(FO(m), FO(v), FO(h), FO(f1a), FO(f1b), FO(f1c), FO(f1d),
+                FO(fo), FO(h), dt * 0.5f, FO(kk));
+      if (cc.impute)
+        pmodel_fwd(FO(kk), FO(prek), FO(ak), FO(mk), FO(vk), -1, -1, -1, -1,
+                   -1, mc, 0);
+      field_fwd(FO(mk), FO(vk), FO(kk), FO(f2a), FO(f2b), FO(f2c), FO(f2d),
+                FO(fo), FO(h), dt, FO(h1p));
     } else {
-      float* fo = BUF(fo);
-      field_fwd(c, lv, m, v, h, BUF(f1a), BUF(f1b), BUF(f1c), BUF(f1d), fo);
-      if (c.prop == 1) {           // midpoint
-        float* kk = BUF(kk);
-        for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x)
-          kk[idx] = h[idx] + dt * 0.5f * fo[idx];
-        __syncthreads();
-        if (c.impute)
-          pmodel_fwd(c, lv, kk, BUF(prek), BUF(ak), BUF(mk), BUF(vk), mc, 0);
-        field_fwd(c, lv, BUF(mk), BUF(vk), kk, BUF(f2a), BUF(f2b), BUF(f2c),
-                  BUF(f2d), fo);
-      }
-      for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x)
-        h1p[idx] = h[idx] + dt * fo[idx];
-      __syncthreads();
+      field_fwd(FO(m), FO(v), FO(h), FO(f1a), FO(f1b), FO(f1c), FO(f1d),
+                FO(fo), FO(h), dt, FO(h1p));
     }
-    pmodel_fwd(c, lv, h1p, BUF(pre1), BUF(a1), BUF(m1p), BUF(v1p), mc, 1);
-    for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x)
-      h1[idx] = h1p[idx];
-    for (int idx = threadIdx.x; idx < ROWS * D; idx += blockDim.x) {
-      m1[idx] = BUF(m1p)[idx];
-      v1[idx] = BUF(v1p)[idx];
-    }
+    for (int idx = threadIdx.x; idx < R * H; idx += NT)
+      sm[FO(h1) + idx] = sm[FO(h1p) + idx];
+    pmodel_fwd(FO(h1p), FO(pre1), FO(a1), FO(m1p), FO(v1p), FO(m1), FO(v1),
+               -1, -1, -1, mc, 1);
   } else {
-    for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x)
-      h1[idx] = h[idx];
-    for (int idx = threadIdx.x; idx < ROWS * D; idx += blockDim.x) {
-      m1[idx] = m[idx];
-      v1[idx] = v[idx];
+    for (int idx = threadIdx.x; idx < R * H; idx += NT)
+      sm[FO(h1) + idx] = sm[FO(h) + idx];
+    for (int idx = threadIdx.x; idx < R * D; idx += NT) {
+      sm[FO(m1) + idx] = sm[FO(m) + idx];
+      sm[FO(v1) + idx] = sm[FO(v) + idx];
     }
+    __syncthreads();
   }
-  __syncthreads();
   // observation update: NLL, features, prep transform, GRU jump
-  float* err = BUF(err); float* ft2 = BUF(ft2); float* nll = BUF(nll);
-  for (int r = threadIdx.x; r < ROWS; r += blockDim.x) {
+  const float* X = sm + FO(X);
+  const float* M = sm + FO(M);
+  const float* obs = sm + FO(obs);
+  const float* m1 = sm + FO(m1);
+  const float* v1 = sm + FO(v1);
+  const float* h1 = sm + FO(h1);
+  float* err = sm + FO(err);
+  float* ft2 = sm + FO(ft2);
+  for (int r = threadIdx.x; r < R; r += NT) {
     float s = 0.f;
     for (int d = 0; d < D; ++d) {
       int i = r * D + d;
       float mean = m1[i], var = v1[i], e, t;
-      if (c.logvar) {
+      if (cc.logvar) {
         e = (X[i] - mean) / expf(0.5f * var);
         t = e * e + var + TWO_LOG_LIK_C;
         ft2[i] = var;
@@ -498,131 +476,317 @@ __device__ __noinline__ void step_fwd(const GobCfg& c, const Leaves& lv, float* 
       err[i] = e;
       s += t * M[i];
     }
-    nll[r] = 0.5f * s;
+    sm[FO(nll) + r] = 0.5f * s;
   }
   __syncthreads();
-  float* pre = BUF(pre); float* gin = BUF(gin);
-  lin(LW(c.wp[0]), nullptr, X, D, DP, pre, false);
-  lin(LW(c.wp[1]), nullptr, m1, D, DP, pre, true);
-  lin(LW(c.wp[2]), nullptr, ft2, D, DP, pre, true);
-  lin(LW(c.wp[3]), LW(c.bp[0]), err, D, DP, pre, true);
-  for (int idx = threadIdx.x; idx < ROWS * DP; idx += blockDim.x) {
-    int r = idx / DP, col = idx - r * DP;
-    gin[idx] = fmaxf(pre[idx], 0.f) * M[r * D + col / c.prep];
-  }
-  __syncthreads();
-  lin(LW(c.ih[0]), LW(c.bih[0]), gin, DP, H, BUF(ga), false);
-  lin(LW(c.ih[1]), LW(c.bih[1]), gin, DP, H, BUF(gb), false);
-  lin(LW(c.ih[2]), LW(c.bih[2]), gin, DP, H, BUF(gt), false);
-  float* h2 = BUF(h2);
-  gru_fwd(c, lv, c.hh, c.bhh, h1, BUF(ga), BUF(gb), BUF(gc), BUF(gd),
-          BUF(gt), h2);
-  for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x) {
+  float* pre = sm + FO(pre);
+  float* gin = sm + FO(gin);
+  int S = pick_s(R * DP, 4 * D);
+  phase(R * DP, S,
+        [&](int o, int l) {
+          int r = o / DP, col = o - r * DP, i = r * D;
+          return dotw(X + i, LW(cc.wp[0]) + col, DP, D, l, S)
+                 + dotw(m1 + i, LW(cc.wp[1]) + col, DP, D, l, S)
+                 + dotw(ft2 + i, LW(cc.wp[2]) + col, DP, D, l, S)
+                 + dotw(err + i, LW(cc.wp[3]) + col, DP, D, l, S);
+        },
+        [&](int o, float s) {
+          int r = o / DP, col = o - r * DP;
+          s += bias_at(cc.bp[0], col);
+          pre[o] = s;
+          gin[o] = fmaxf(s, 0.f) * M[r * D + col / cc.prep];
+        });
+  // the observation GRU: ga = gi_r + gh_r, gb = gi_z + gh_z, gt = gi_n,
+  // gd = gh_n
+  float* ga = sm + FO(ga);
+  float* gb = sm + FO(gb);
+  float* gd = sm + FO(gd);
+  float* gt = sm + FO(gt);
+  S = pick_s(R * 4 * H, DP + H);
+  phase(R * 4 * H, S,
+        [&](int o, int l) {
+          int g = o / (R * H), q = o - g * R * H, r = q / H, j = q - r * H;
+          float s = 0.f;
+          if (g < 3) s = dotw(gin + r * DP, LW(cc.ih[g]) + j, H, DP, l, S);
+          if (g != 2)
+            s += dotw(h1 + r * H, LW(cc.hh[g == 3 ? 2 : g]) + j, H, H, l, S);
+          return s;
+        },
+        [&](int o, float s) {
+          int g = o / (R * H), q = o - g * R * H, j = q % H;
+          if (g < 2)
+            (g ? gb : ga)[q] = s + bias_at(cc.bih[g], j)
+                               + bias_at(cc.bhh[g], j);
+          else if (g == 2)
+            gt[q] = s + bias_at(cc.bih[2], j);
+          else
+            gd[q] = s + bias_at(cc.bhh[2], j);
+        });
+  float* h2 = sm + FO(h2);
+  for (int idx = threadIdx.x; idx < R * H; idx += NT) {
+    float r = sigm(ga[idx]), z = sigm(gb[idx]);
+    float n = tanhf(gt[idx] + r * gd[idx]);
+    ga[idx] = r;
+    gb[idx] = z;
+    sm[FO(gc) + idx] = n;
     float o = obs[idx / H];
-    h2[idx] = o * h2[idx] + (1.f - o) * h1[idx];
+    h2[idx] = o * ((1.f - z) * n + z * h1[idx]) + (1.f - o) * h1[idx];
   }
   __syncthreads();
-  pmodel_fwd(c, lv, h2, BUF(pre2), BUF(a2), BUF(m2p), BUF(v2p), mc, 2);
-  float* m2 = BUF(m2); float* v2 = BUF(v2);
-  for (int idx = threadIdx.x; idx < ROWS * D; idx += blockDim.x) {
-    float o = obs[idx / D];
-    m2[idx] = o * BUF(m2p)[idx] + (1.f - o) * m1[idx];
-    v2[idx] = o * BUF(v2p)[idx] + (1.f - o) * v1[idx];
-  }
-  __syncthreads();
+  pmodel_fwd(FO(h2), FO(pre2), FO(a2), FO(m2p), FO(v2p), FO(m2), FO(v2),
+             FO(obs), FO(m1), FO(v1), mc, 2);
 }
 
-// Backward of one step, after step_fwd: from (dh, dm, dv) = the gradient
-// wrt the step's outputs (h2, m2, v2) to the gradient wrt its entry carries
-// (written back into dh, dm, dv), adding every weight gradient to G.
-__device__ __noinline__ void step_bwd(const GobCfg& c, const Leaves& lv, float* sm,
-                         float* G, float dt, float dloss, const MaskCtx& mc,
-                         int nv) {
-  const int H = c.H, D = c.D, DP = c.DP;
-  float* h = BUF(h); float* m = BUF(m); float* v = BUF(v);
-  float* X = BUF(X); float* M = BUF(M); float* obs = BUF(obs);
-  float* dh = BUF(dh); float* dm = BUF(dm); float* dv = BUF(dv);
-  float* dh1 = BUF(dh1); float* dh2 = BUF(dh2);
-  float* dm1 = BUF(dm1); float* dv1 = BUF(dv1);
-  float* dm2 = BUF(dm2); float* dv2 = BUF(dv2);
-  float* dp = BUF(dp); float* dx = BUF(dx);
-  float* dg0 = BUF(dg0); float* dg1 = BUF(dg1);
-  float* dg2 = BUF(dg2); float* dg3 = BUF(dg3);
+// ------------------------------------------------------------ backward
+
+// the p_model hidden delta dp = relu'(pre) * dropout^T (dm Wm^T + dv Wv^T)
+__device__ __noinline__ void pm_dp(int pre_, int dm_, int dv_, int dp_,
+                                   const MaskCtx& mc, int slot) {
+  const int R = cc.rows, P = cc.P, D = cc.D;
+  const float* dm = sm + dm_;
+  const float* dv = sm + dv_;
+  const float* Wm = LW(cc.pm[2]);
+  const float* Wv = LW(cc.pm[4]);
+  int S = pick_s(R * P, 2 * D);
+  phase(R * P, S,
+        [&](int o, int l) {
+          int r = o / P, j = o - r * P;
+          return dotw(dm + r * D, Wm + j * D, 1, D, l, S)
+                 + dotw(dv + r * D, Wv + j * D, 1, D, l, S);
+        },
+        [&](int o, float s) {
+          int r = o / P, j = o - r * P;
+          if (mc.mode) s = keep_at(mc, slot, r, j) ? s / cc.keep : 0.f;
+          sm[dp_ + o] = sm[pre_ + o] > 0.f ? s : 0.f;
+        });
+}
+
+// y (+)= dp W0^T (the p_model input gradient); with df >= 0 also df =
+// coef * y
+__device__ __noinline__ void pm_dx(int dp_, int y_, bool acc, int df_,
+                                   float coef) {
+  const int R = cc.rows, H = cc.H, P = cc.P;
+  const float* dp = sm + dp_;
+  const float* W0 = LW(cc.pm[0]);
+  int S = pick_s(R * H, P);
+  phase(R * H, S,
+        [&](int o, int l) {
+          int r = o / H, j = o - r * H;
+          return dotw(dp + r * P, W0 + j * P, 1, P, l, S);
+        },
+        [&](int o, float s) {
+          float y = acc ? sm[y_ + o] + s : s;
+          sm[y_ + o] = y;
+          if (df_ >= 0) sm[df_ + o] = coef * y;
+        });
+}
+
+// Backward of one field evaluation at (mi, vi, hin) with saved F0..F3 for
+// its gradient df: the deltas a0, a1, a2 (full: da_u, da_z, da_r;
+// minimal: da_n, da_z), dhf = d/d hin and (impute) dmo, dvo = d/d(mi, vi).
+__device__ __noinline__ void field_bwd(int hin_, int F0_, int F1_, int F2_,
+                                       int df_, int a0_, int a1_, int a2_,
+                                       int dhf_, int dmo_, int dvo_) {
+  const int R = cc.rows, H = cc.H, D = cc.D;
+  const float* hin = sm + hin_;
+  const float* F0 = sm + F0_;
+  const float* F1 = sm + F1_;
+  const float* F2 = sm + F2_;
+  const float* df = sm + df_;
+  float* a0 = sm + a0_;
+  float* a1 = sm + a1_;
+  float* a2 = sm + a2_;
+  float* dhf = sm + dhf_;
+  const bool full = cc.full;
+  const float* z_ = full ? F1 : F0;      // the update gate
+  const float* u_ = full ? F2 : F1;      // the candidate
+  for (int idx = threadIdx.x; idx < R * H; idx += NT) {
+    float z = z_[idx], u = u_[idx], d = df[idx];
+    a1[idx] = -d * (u - hin[idx]);
+    dhf[idx] = -d * (1.f - z);
+    a0[idx] = d * (1.f - z) * (1.f - u * u);
+  }
+  __syncthreads();
+  const float* Wlast = LW(cc.fh[full ? 2 : 1]);
+  int S = pick_s(R * H, H);
+  phase(R * H, S,
+        [&](int o, int l) {
+          int r = o / H, j = o - r * H;
+          return dotw(a0 + r * H, Wlast + j * H, 1, H, l, S);
+        },
+        [&](int o, float s) {
+          float hv = hin[o];
+          if (full) {            // s = d(r h)
+            float r = F0[o], z = F1[o];
+            dhf[o] += s * r;
+            a2[o] = s * hv * r * (1.f - r);
+            a1[o] = a1[o] * z * (1.f - z);
+          } else {               // s = d(z h)
+            float z = F0[o];
+            float dz = a1[o] + s * hv;
+            dhf[o] += s * z;
+            a1[o] = dz * z * (1.f - z);
+          }
+        });
+  // dhf += a1 Wz^T (+ a2 Wr^T); dmo, dvo = sum_k da_k Wx_k^T
+  const int ng = full ? 3 : 2;
+  const float* da[3] = {full ? a2 : a1, full ? a1 : a0, a0};
+  const int n_out = R * H + (cc.impute ? 2 * R * D : 0);
+  S = pick_s(n_out, ng * H);
+  phase(n_out, S,
+        [&](int o, int l) {
+          if (o < R * H) {
+            int r = o / H, j = o - r * H;
+            float s = dotw(a1 + r * H, LW(cc.fh[full ? 1 : 0]) + j * H, 1, H,
+                           l, S);
+            if (full) s += dotw(a2 + r * H, LW(cc.fh[0]) + j * H, 1, H, l, S);
+            return s;
+          }
+          int q = o - R * H, g = q / (R * D);
+          q -= g * R * D;
+          int r = q / D, d = q - r * D;
+          float s = 0.f;
+          for (int k = 0; k < ng; ++k)
+            s += dotw(da[k] + r * H, LW(g ? cc.fxv[k] : cc.fxm[k]) + d * H,
+                      1, H, l, S);
+          return s;
+        },
+        [&](int o, float s) {
+          if (o < R * H) {
+            dhf[o] += s;
+          } else {
+            int q = o - R * H, g = q / (R * D);
+            sm[(g ? dvo_ : dmo_) + q - g * R * D] = s;
+          }
+        });
+}
+
+// Backward of one step on the saved buffers at `ab`: from (dh, dm, dv) =
+// the gradient wrt the step's outputs (h2, m2, v2) to the gradient wrt its
+// entry carries (written back into dh, dm, dv), leaving in the chain's
+// buffers every delta a weight gradient needs.
+__device__ __noinline__ void step_bwd(int ab, float dt, float dloss,
+                                      const MaskCtx& mc) {
+  const int R = cc.rows, H = cc.H, D = cc.D, DP = cc.DP;
+  const float* obs = sm + FO(obs);
+  const float* M = sm + FO(M);
+  const float* X = sm + FO(X);
+  float* dh = sm + BO(dh);
+  float* dm = sm + BO(dm);
+  float* dv = sm + BO(dv);
+  float* dh1 = sm + BO(dh1);
+  float* dm1 = sm + BO(dm1);
+  float* dv1 = sm + BO(dv1);
   // KL on (m2, v2), the carry from the next step, the obs select
-  for (int idx = threadIdx.x; idx < ROWS * D; idx += blockDim.x) {
-    float o = obs[idx / D], mk = M[idx], mv = BUF(m2)[idx];
-    float vv = BUF(v2)[idx];
-    float sc = dloss * c.mixing * o * mk;
+  for (int idx = threadIdx.x; idx < R * D; idx += NT) {
+    float o = obs[idx / D], mk = M[idx], mv = sm[FO(m2) + idx];
+    float vv = sm[FO(v2) + idx];
+    float sc = dloss * cc.mixing * o * mk;
     float dklm = sc * (mv - X[idx]) * INV_S2SQ;
     float dklv;
-    if (c.logvar) {
+    if (cc.logvar) {
       dklv = sc * (-0.5f + expf(vv) / TWO_S2SQ);
     } else {
       float a = fabsf(vv) + 1e-5f;
       dklv = sc * sgnf(vv) * (-0.5f / a + INV_TWO_S2SQ);
     }
     float gm = dm[idx] + dklm, gv = dv[idx] + dklv;
-    dm2[idx] = o * gm;                         // -> p_model (post jump)
-    dv2[idx] = o * gv;
+    sm[BO(dm2) + idx] = o * gm;                // -> p_model (post jump)
+    sm[BO(dv2) + idx] = o * gv;
     dm1[idx] = (1.f - o) * gm;
     dv1[idx] = (1.f - o) * gv;
   }
   __syncthreads();
-  pmodel_bwd(c, lv, G, BUF(h2), BUF(pre2), BUF(a2), dm2, dv2, dp, dh2, false,
-             mc, 2, nv);
-  for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x) {
-    float o = obs[idx / H];
-    float g = dh2[idx] + dh[idx];
-    dh2[idx] = o * g;                          // d h_jump
-    dh1[idx] = (1.f - o) * g;
+  pm_dp(FO(pre2), BO(dm2), BO(dv2), BO(dp2), mc, 2);
+  // d h2 = dp2 W0^T + dh, split by obs; the observation GRU's deltas
+  {
+    const int P = cc.P;
+    const float* dp2 = sm + BO(dp2);
+    const float* W0 = LW(cc.pm[0]);
+    int S = pick_s(R * H, P);
+    phase(R * H, S,
+          [&](int o, int l) {
+            int r = o / H, j = o - r * H;
+            return dotw(dp2 + r * P, W0 + j * P, 1, P, l, S);
+          },
+          [&](int o, float s) {
+            float g = s + dh[o], ob = obs[o / H];
+            float dj = ob * g;
+            float r = sm[FO(ga) + o], z = sm[FO(gb) + o];
+            float n = sm[FO(gc) + o], ghn = sm[FO(gd) + o];
+            float da_z = dj * (sm[FO(h1) + o] - n) * z * (1.f - z);
+            float da_n = dj * (1.f - z) * (1.f - n * n);
+            sm[BO(og0) + o] = da_n * ghn * r * (1.f - r);
+            sm[BO(og1) + o] = da_z;
+            sm[BO(og2) + o] = da_n;
+            sm[BO(og3) + o] = da_n * r;
+            dh1[o] = (1.f - ob) * g + dj * z;
+          });
   }
-  __syncthreads();
-  // observation GRU
-  const float* h1 = BUF(h1);
-  gru_bwd(c, lv, c.hh, h1, BUF(ga), BUF(gb), BUF(gc), BUF(gd), dh2, dg0, dg1,
-          dg2, dg3, dh1, true);
-  gru_wgrads(c, G, c.ih, c.hh, c.bih, c.bhh, BUF(gin), DP, h1, dg0, dg1, dg2,
-             dg3, nv);
-  linT(LW(c.ih[0]), dg0, H, DP, dx, false);
-  linT(LW(c.ih[1]), dg1, H, DP, dx, true);
-  linT(LW(c.ih[2]), dg2, H, DP, dx, true);
-  const float* pre = BUF(pre);
-  for (int idx = threadIdx.x; idx < ROWS * DP; idx += blockDim.x) {
-    int r = idx / DP, col = idx - r * DP;
-    dx[idx] = pre[idx] > 0.f ? dx[idx] * M[r * D + col / c.prep] : 0.f;
+  // dh1 += dgh hh^T; dx = relu'(pre) M (dgi ih^T)
+  {
+    const float* og0 = sm + BO(og0);
+    const float* og1 = sm + BO(og1);
+    const float* og2 = sm + BO(og2);
+    const float* og3 = sm + BO(og3);
+    float* dx = sm + BO(dx);
+    int S = pick_s(R * (H + DP), 3 * H);
+    phase(R * (H + DP), S,
+          [&](int o, int l) {
+            if (o < R * H) {
+              int r = o / H, j = o - r * H;
+              return dotw(og0 + r * H, LW(cc.hh[0]) + j * H, 1, H, l, S)
+                     + dotw(og1 + r * H, LW(cc.hh[1]) + j * H, 1, H, l, S)
+                     + dotw(og3 + r * H, LW(cc.hh[2]) + j * H, 1, H, l, S);
+            }
+            int q = o - R * H, r = q / DP, col = q - r * DP;
+            return dotw(og0 + r * H, LW(cc.ih[0]) + col * H, 1, H, l, S)
+                   + dotw(og1 + r * H, LW(cc.ih[1]) + col * H, 1, H, l, S)
+                   + dotw(og2 + r * H, LW(cc.ih[2]) + col * H, 1, H, l, S);
+          },
+          [&](int o, float s) {
+            if (o < R * H) {
+              dh1[o] = dh1[o] + s;
+            } else {
+              int q = o - R * H, r = q / DP, col = q - r * DP;
+              dx[q] = sm[FO(pre) + q] > 0.f
+                          ? s * M[r * D + col / cc.prep] : 0.f;
+            }
+          });
+    // dfm, dff, dfe = dx wp[1..3]^T
+    S = pick_s(R * 3 * D, DP);
+    phase(R * 3 * D, S,
+          [&](int o, int l) {
+            int g = o / (R * D), q = o - g * R * D, r = q / D;
+            int d = q - r * D;
+            return dotw(dx + r * DP, LW(cc.wp[1 + g]) + d * DP, 1, DP, l, S);
+          },
+          [&](int o, float s) {
+            int g = o / (R * D), q = o - g * R * D;
+            sm[(g == 0 ? BO(dfm) : g == 1 ? BO(dff) : BO(dfe)) + q] = s;
+          });
   }
-  __syncthreads();
-  const float* m1 = BUF(m1); const float* v1 = BUF(v1);
-  const float* err = BUF(err); const float* ft2 = BUF(ft2);
-  wgrad(GL(c.wp[0]), X, D, dx, DP, nv);
-  wgrad(GL(c.wp[1]), m1, D, dx, DP, nv);
-  wgrad(GL(c.wp[2]), ft2, D, dx, DP, nv);
-  wgrad(GL(c.wp[3]), err, D, dx, DP, nv);
-  bgrad(GL(c.bp[0]), dx, DP, nv);
-  float* dfm = BUF(dfm); float* dff = BUF(dff); float* dfe = BUF(dfe);
-  linT(LW(c.wp[1]), dx, DP, D, dfm, false);
-  linT(LW(c.wp[2]), dx, DP, D, dff, false);
-  linT(LW(c.wp[3]), dx, DP, D, dfe, false);
   // the NLL and the feature paths into (m1, v1)
-  for (int idx = threadIdx.x; idx < ROWS * D; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < R * D; idx += NT) {
     float sc = dloss * obs[idx / D] * M[idx];
-    float e = err[idx];
-    if (c.logvar) {
-      float sigma = expf(0.5f * v1[idx]);
-      dm1[idx] += -sc * e / sigma - dfe[idx] / sigma + dfm[idx];
-      dv1[idx] += sc * 0.5f * (1.f - e * e) - 0.5f * dfe[idx] * e + dff[idx];
+    float e = sm[FO(err) + idx], v1 = sm[FO(v1) + idx];
+    float dfm = sm[BO(dfm) + idx], dff = sm[BO(dff) + idx];
+    float dfe = sm[BO(dfe) + idx];
+    if (cc.logvar) {
+      float sigma = expf(0.5f * v1);
+      dm1[idx] += -sc * e / sigma - dfe / sigma + dfm;
+      dv1[idx] += sc * 0.5f * (1.f - e * e) - 0.5f * dfe * e + dff;
     } else {
-      float a = ft2[idx], sq = sqrtf(a), sg = sgnf(v1[idx]);
-      dm1[idx] += -sc * e / sq - dfe[idx] / sq + dfm[idx];
+      float a = sm[FO(ft2) + idx], sq = sqrtf(a), sg = sgnf(v1);
+      dm1[idx] += -sc * e / sq - dfe / sq + dfm;
       dv1[idx] += sg * sc * 0.5f * (1.f - e * e) / a
-                  + sg * (-0.5f * dfe[idx] * e / a + dff[idx]);
+                  + sg * (-0.5f * dfe * e / a + dff);
     }
   }
   __syncthreads();
   if (!(dt > 0.f)) {               // padding step: the carries pass through
-    for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x)
-      dh[idx] = dh1[idx];
-    for (int idx = threadIdx.x; idx < ROWS * D; idx += blockDim.x) {
+    for (int idx = threadIdx.x; idx < R * H; idx += NT) dh[idx] = dh1[idx];
+    for (int idx = threadIdx.x; idx < R * D; idx += NT) {
       dm[idx] = dm1[idx];
       dv[idx] = dv1[idx];
     }
@@ -630,57 +794,79 @@ __device__ __noinline__ void step_bwd(const GobCfg& c, const Leaves& lv, float* 
     return;
   }
   // the propagation: h1 = cell(h, m, v), (m1, v1) = p_model(h1)
-  pmodel_bwd(c, lv, G, BUF(h1p), BUF(pre1), BUF(a1), dm1, dv1, dp, dh1,
-             true, mc, 1, nv);
-  if (c.prop == 2) {
-    gru_bwd(c, lv, c.fh, h, BUF(f1a), BUF(f1b), BUF(f1c), BUF(f1d), dh1, dg0,
-            dg1, dg2, dg3, dh, false);
-    const float* dgi[3] = {dg0, dg1, dg2};
-    const float* dgh[3] = {dg0, dg1, dg3};
-    for (int k = 0; k < 3; ++k) {
-      if (c.impute) {
-        wgrad(GL(c.fxm[k]), m, D, dgi[k], H, nv);
-        wgrad(GL(c.fxv[k]), v, D, dgi[k], H, nv);
-        linT(LW(c.fxm[k]), dgi[k], H, D, dm, k > 0);
-        linT(LW(c.fxv[k]), dgi[k], H, D, dv, k > 0);
-      }
-      wgrad(GL(c.fh[k]), h, H, dgh[k], H, nv);
-      if (c.fxb[k] >= 0) bgrad(GL(c.fxb[k]), dgi[k], H, nv);
-      if (c.fhb[k] >= 0) bgrad(GL(c.fhb[k]), dgh[k], H, nv);
+  pm_dp(FO(pre1), BO(dm1), BO(dv1), BO(dp1), mc, 1);
+  const bool field = cc.prop != 2;
+  pm_dx(BO(dp1), BO(dh1), true, field ? BO(df) : -1, dt);
+  if (cc.prop == 2) {
+    const float* h = sm + FO(h);
+    for (int idx = threadIdx.x; idx < R * H; idx += NT) {
+      float r = sm[FO(f1a) + idx], z = sm[FO(f1b) + idx];
+      float n = sm[FO(f1c) + idx], ghn = sm[FO(f1d) + idx];
+      float d = dh1[idx];
+      float da_z = d * (h[idx] - n) * z * (1.f - z);
+      float da_n = d * (1.f - z) * (1.f - n * n);
+      sm[BO(pg0) + idx] = da_n * ghn * r * (1.f - r);
+      sm[BO(pg1) + idx] = da_z;
+      sm[BO(pg2) + idx] = da_n;
+      sm[BO(pg3) + idx] = da_n * r;
+      dh[idx] = d * z;
     }
-  } else {
-    float* df = BUF(df); float* dhf = BUF(dhf);
-    float* fa0 = BUF(fa0); float* fa1 = BUF(fa1); float* fa2 = BUF(fa2);
-    for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x)
-      df[idx] = dt * dh1[idx];
     __syncthreads();
-    if (c.prop == 0) {
-      field_bwd(c, lv, G, m, v, h, BUF(f1a), BUF(f1b), BUF(f1c), BUF(f1d),
-                df, fa0, fa1, fa2, dhf, dm, dv, nv);
-      for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x)
-        dh[idx] = dh1[idx] + dhf[idx];
+    const float* pg0 = sm + BO(pg0);
+    const float* pg1 = sm + BO(pg1);
+    const float* pg2 = sm + BO(pg2);
+    const float* pg3 = sm + BO(pg3);
+    const int n_out = R * H + (cc.impute ? 2 * R * D : 0);
+    int S = pick_s(n_out, 3 * H);
+    phase(n_out, S,
+          [&](int o, int l) {
+            if (o < R * H) {
+              int r = o / H, j = o - r * H;
+              return dotw(pg0 + r * H, LW(cc.fh[0]) + j * H, 1, H, l, S)
+                     + dotw(pg1 + r * H, LW(cc.fh[1]) + j * H, 1, H, l, S)
+                     + dotw(pg3 + r * H, LW(cc.fh[2]) + j * H, 1, H, l, S);
+            }
+            int q = o - R * H, g = q / (R * D);
+            q -= g * R * D;
+            int r = q / D, d = q - r * D;
+            const int* fx = g ? cc.fxv : cc.fxm;
+            return dotw(pg0 + r * H, LW(fx[0]) + d * H, 1, H, l, S)
+                   + dotw(pg1 + r * H, LW(fx[1]) + d * H, 1, H, l, S)
+                   + dotw(pg2 + r * H, LW(fx[2]) + d * H, 1, H, l, S);
+          },
+          [&](int o, float s) {
+            if (o < R * H) {
+              dh[o] = dh[o] + s;
+            } else {
+              int q = o - R * H, g = q / (R * D);
+              (g ? dv : dm)[q - g * R * D] = s;
+            }
+          });
+  } else if (cc.prop == 0) {
+    field_bwd(FO(h), FO(f1a), FO(f1b), FO(f1c), BO(df), BO(e1a0), BO(e1a1),
+              BO(e1a2), BO(dhf), BO(dm), BO(dv));
+    for (int idx = threadIdx.x; idx < R * H; idx += NT)
+      dh[idx] = dh1[idx] + sm[BO(dhf) + idx];
+  } else {
+    // midpoint: h1 = h + dt f(mk, vk, kk), kk = h + dt/2 f(m, v, h),
+    // (mk, vk) = p_model(kk) with impute
+    field_bwd(FO(kk), FO(f2a), FO(f2b), FO(f2c), BO(df), BO(e2a0),
+              BO(e2a1), BO(e2a2), BO(dkk), BO(dmk), BO(dvk));
+    if (cc.impute) {
+      pm_dp(FO(prek), BO(dmk), BO(dvk), BO(dp0), mc, 0);
+      pm_dx(BO(dp0), BO(dkk), true, BO(df), dt * 0.5f);
     } else {
-      // midpoint: h1 = h + dt f(mk, vk, kk), kk = h + dt/2 f(m, v, h),
-      // (mk, vk) = p_model(kk) with impute
-      float* dkk = BUF(dkk);
-      const float* kk = BUF(kk);
-      field_bwd(c, lv, G, BUF(mk), BUF(vk), kk, BUF(f2a), BUF(f2b),
-                BUF(f2c), BUF(f2d), df, fa0, fa1, fa2, dkk, BUF(dmk),
-                BUF(dvk), nv);
-      if (c.impute)
-        pmodel_bwd(c, lv, G, kk, BUF(prek), BUF(ak), BUF(dmk), BUF(dvk), dp,
-                   dkk, true, mc, 0, nv);
-      for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x)
-        df[idx] = dt * 0.5f * dkk[idx];
+      for (int idx = threadIdx.x; idx < R * H; idx += NT)
+        sm[BO(df) + idx] = dt * 0.5f * sm[BO(dkk) + idx];
       __syncthreads();
-      field_bwd(c, lv, G, m, v, h, BUF(f1a), BUF(f1b), BUF(f1c), BUF(f1d),
-                df, fa0, fa1, fa2, dhf, dm, dv, nv);
-      for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x)
-        dh[idx] = dh1[idx] + dkk[idx] + dhf[idx];
     }
+    field_bwd(FO(h), FO(f1a), FO(f1b), FO(f1c), BO(df), BO(e1a0), BO(e1a1),
+              BO(e1a2), BO(dhf), BO(dm), BO(dv));
+    for (int idx = threadIdx.x; idx < R * H; idx += NT)
+      dh[idx] = dh1[idx] + sm[BO(dkk) + idx] + sm[BO(dhf) + idx];
   }
-  if (!c.impute)
-    for (int idx = threadIdx.x; idx < ROWS * D; idx += blockDim.x) {
+  if (!cc.impute)
+    for (int idx = threadIdx.x; idx < R * D; idx += NT) {
       dm[idx] = 0.f;
       dv[idx] = 0.f;
     }
@@ -689,45 +875,65 @@ __device__ __noinline__ void step_bwd(const GobCfg& c, const Leaves& lv, float* 
 
 // ---------------------------------------------------------------- kernels
 
-__device__ MaskCtx make_mask_ctx(const GobCfg& c, const int8_t* u,
-                                 const long long* seed, int row0, int nv) {
+__device__ __forceinline__ void load_call(const GobCfg& c, const Leaves& lv) {
+  const int* ci = (const int*)&c;
+  int* di = (int*)&cc;
+  for (int i = threadIdx.x; i < (int)(sizeof(GobCfg) / 4); i += NT)
+    di[i] = ci[i];
+  for (int i = threadIdx.x; i < MAX_LEAVES; i += NT) cl.p[i] = lv.p[i];
+  __syncthreads();
+}
+
+// With cc.wsm, every leaf into shared memory at o_w (leaf i at
+// leaf_off[i]) and the leaf pointers onto those copies (K5 and the chain,
+// where the weights fit beside the activations at one CTA an SM).
+__device__ __forceinline__ void stage_weights() {
+  if (!cc.wsm) return;
+  for (int i = 0; i < cc.n_leaves; ++i) {
+    const float* src = cl.p[i];
+    float* dst = sm + cc.o_w + cc.leaf_off[i];
+    const int n = cc.leaf_off[i + 1] - cc.leaf_off[i];
+    for (int e = threadIdx.x; e < n; e += NT) dst[e] = src[e];
+  }
+  __syncthreads();
+  if (threadIdx.x < cc.n_leaves)
+    cl.p[threadIdx.x] = sm + cc.o_w + cc.leaf_off[threadIdx.x];
+  __syncthreads();
+}
+
+__device__ MaskCtx make_mask_ctx(const int8_t* u, const long long* seed,
+                                 int row0, int nv) {
   MaskCtx mc;
-  mc.mode = c.mode;
+  mc.mode = cc.mode;
   mc.u = u;
-  unsigned long long s = (c.mode == 2) ? (unsigned long long)seed[0] : 0ull;
+  unsigned long long s = (cc.mode == 2) ? (unsigned long long)seed[0] : 0ull;
   mc.k0 = (uint32_t)(s & 0xFFFFFFFFull);
   mc.k1 = (uint32_t)(s >> 32);
-  mc.thresh = c.thresh;
-  mc.k = 0; mc.row0 = row0; mc.nv = nv; mc.B = c.B; mc.P = c.P;
-  mc.keep = c.keep;
+  mc.k = 0; mc.row0 = row0; mc.nv = nv;
   return mc;
 }
 
-// the step's inputs of the CTA's rows (zeros on padding rows)
-__device__ __noinline__ void load_step(const GobCfg& c, float* sm, int k, int row0,
-                          int nv, const float* obs_g, const float* X_g,
-                          const float* M_g) {
-  const int D = c.D, B = c.B;
-  float* obs = BUF(obs); float* X = BUF(X); float* M = BUF(M);
-  for (int r = threadIdx.x; r < ROWS; r += blockDim.x)
-    obs[r] = r < nv ? obs_g[(size_t)k * B + row0 + r] : 0.f;
-  for (int idx = threadIdx.x; idx < ROWS * D; idx += blockDim.x) {
-    bool ok = idx / D < nv;
-    size_t g = ((size_t)k * B + row0) * D + idx;
-    X[idx] = ok ? X_g[g] : 0.f;
-    M[idx] = ok ? M_g[g] : 0.f;
-  }
+// rows [0, nv) of a [.., B, W] array at step k into the R-row buffer at
+// offset dst (zeros on padding rows)
+__device__ __forceinline__ void load_rows(int R, int dst, const float* src,
+                                          int k, int W, int row0, int nv) {
+  for (int idx = threadIdx.x; idx < R * W; idx += NT)
+    sm[dst + idx] = idx / W < nv
+        ? src[((size_t)k * cc.B + row0) * W + idx] : 0.f;
 }
 
-// rows [0, nv) of a [.., B, W] array at step k into a [ROWS, W] buffer
-__device__ __noinline__ void load_rows(float* dst, const float* src, int k, int B, int W,
-                          int row0, int nv) {
-  for (int idx = threadIdx.x; idx < ROWS * W; idx += blockDim.x)
-    dst[idx] = idx / W < nv ? src[((size_t)k * B + row0) * W + idx] : 0.f;
+// the step's inputs of the CTA's rows into the forward buffers at ab
+__device__ __forceinline__ void load_step(int R, int ab, int k, int row0,
+                                          int nv, const float* obs_g,
+                                          const float* X_g,
+                                          const float* M_g) {
+  load_rows(R, FO(obs), obs_g, k, 1, row0, nv);
+  load_rows(R, FO(X), X_g, k, cc.D, row0, nv);
+  load_rows(R, FO(M), M_g, k, cc.D, row0, nv);
 }
 
-template <bool WANT_HISTS>
-__global__ void __launch_bounds__(NTHREADS)
+template <int R, bool WANT_HISTS>
+__global__ void __launch_bounds__(MAX_NT)
 gob_scan_fwd_kernel(GobCfg c, Leaves lv, const float* __restrict__ dts,
                     const float* __restrict__ obs_g,
                     const float* __restrict__ X_g,
@@ -736,39 +942,44 @@ gob_scan_fwd_kernel(GobCfg c, Leaves lv, const float* __restrict__ dts,
                     const float* __restrict__ m0,
                     const float* __restrict__ v0, float* loss_part,
                     float* hh, float* mh, float* vh) {
-  extern __shared__ float sm[];
-  const int H = c.H, D = c.D, B = c.B;
-  const int row0 = blockIdx.x * ROWS;
-  const int nv = min(ROWS, B - row0);
-  float* h = BUF(h); float* m = BUF(m); float* v = BUF(v);
-  float* lrow = BUF(lrow);
-  load_rows(h, h0, 0, B, H, row0, nv);
-  load_rows(m, m0, 0, B, D, row0, nv);
-  load_rows(v, v0, 0, B, D, row0, nv);
-  for (int r = threadIdx.x; r < ROWS; r += blockDim.x) lrow[r] = 0.f;
-  MaskCtx mc = make_mask_ctx(c, u, seed, row0, nv);
+  load_call(c, lv);
+  stage_weights();
+  const int H = cc.H, D = cc.D, B = cc.B, ab = 0;
+  const int row0 = blockIdx.x * R;
+  const int nv = min(R, B - row0);
+  float* h = sm + FO(h);
+  float* m = sm + FO(m);
+  float* v = sm + FO(v);
+  float* lrow = sm + FO(lrow);
+  load_rows(R, FO(h), h0, 0, H, row0, nv);
+  load_rows(R, FO(m), m0, 0, D, row0, nv);
+  load_rows(R, FO(v), v0, 0, D, row0, nv);
+  for (int r = threadIdx.x; r < R; r += NT) lrow[r] = 0.f;
+  MaskCtx mc = make_mask_ctx(u, seed, row0, nv);
   __syncthreads();
-  for (int k = 0; k < c.K; ++k) {
+  for (int k = 0; k < cc.K; ++k) {
     if (WANT_HISTS) {
-      for (int idx = threadIdx.x; idx < nv * H; idx += blockDim.x)
+      for (int idx = threadIdx.x; idx < nv * H; idx += NT)
         hh[((size_t)k * B + row0) * H + idx] = h[idx];
-      for (int idx = threadIdx.x; idx < nv * D; idx += blockDim.x) {
+      for (int idx = threadIdx.x; idx < nv * D; idx += NT) {
         mh[((size_t)k * B + row0) * D + idx] = m[idx];
         vh[((size_t)k * B + row0) * D + idx] = v[idx];
       }
     }
-    load_step(c, sm, k, row0, nv, obs_g, X_g, M_g);
+    load_step(R, ab, k, row0, nv, obs_g, X_g, M_g);
     mc.k = k;
-    step_fwd(c, lv, sm, dts[k], mc);
+    step_fwd(ab, dts[k], mc);
     // the step's loss per row: obs * (nll + mixing * KL(m2, v2))
-    const float* X = BUF(X); const float* M = BUF(M);
-    const float* m2 = BUF(m2); const float* v2 = BUF(v2);
-    for (int r = threadIdx.x; r < nv; r += blockDim.x) {
+    const float* X = sm + FO(X);
+    const float* M = sm + FO(M);
+    const float* m2 = sm + FO(m2);
+    const float* v2 = sm + FO(v2);
+    for (int r = threadIdx.x; r < nv; r += NT) {
       float kl = 0.f;
       for (int d = 0; d < D; ++d) {
         int i = r * D + d;
         float log_std, var;
-        if (c.logvar) {
+        if (cc.logvar) {
           log_std = 0.5f * v2[i];
           var = expf(v2[i]);
         } else {
@@ -779,12 +990,12 @@ gob_scan_fwd_kernel(GobCfg c, Leaves lv, const float* __restrict__ dts,
         kl += (LOG_S2 - log_std + (var + dmx * dmx) / TWO_S2SQ - 0.5f)
               * M[i];
       }
-      float o = BUF(obs)[r];
-      lrow[r] += o * BUF(nll)[r] + c.mixing * (o * kl);
+      float o = sm[FO(obs) + r];
+      lrow[r] += o * sm[FO(nll) + r] + cc.mixing * (o * kl);
     }
-    for (int idx = threadIdx.x; idx < ROWS * H; idx += blockDim.x)
-      h[idx] = BUF(h2)[idx];
-    for (int idx = threadIdx.x; idx < ROWS * D; idx += blockDim.x) {
+    for (int idx = threadIdx.x; idx < R * H; idx += NT)
+      h[idx] = sm[FO(h2) + idx];
+    for (int idx = threadIdx.x; idx < R * D; idx += NT) {
       m[idx] = m2[idx];
       v[idx] = v2[idx];
     }
@@ -797,45 +1008,161 @@ gob_scan_fwd_kernel(GobCfg c, Leaves lv, const float* __restrict__ dts,
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-gob_scan_bwd_kernel(GobCfg c, Leaves lv, const float* __restrict__ dts,
-                    const float* __restrict__ obs_g,
-                    const float* __restrict__ X_g,
-                    const float* __restrict__ M_g, const int8_t* u,
-                    const long long* seed, const float* __restrict__ hh,
-                    const float* __restrict__ mh,
-                    const float* __restrict__ vh, const float* dloss_p,
-                    float* partials, float* dh0, float* dm0, float* dv0) {
-  extern __shared__ float sm[];
-  const int H = c.H, D = c.D, B = c.B;
-  const int row0 = blockIdx.x * ROWS;
-  const int nv = min(ROWS, B - row0);
-  float* G = partials + (size_t)blockIdx.x * c.n_params;
-  for (int i = threadIdx.x; i < c.n_params; i += blockDim.x) G[i] = 0.f;
-  float* dh = BUF(dh); float* dm = BUF(dm); float* dv = BUF(dv);
-  for (int i = threadIdx.x; i < ROWS * H; i += blockDim.x) dh[i] = 0.f;
-  for (int i = threadIdx.x; i < ROWS * D; i += blockDim.x) {
-    dm[i] = 0.f;
-    dv[i] = 0.f;
+// K6 stage (a): CTA (x, y) re-runs step k0 + y for rows x*R.. from the
+// stored carries and writes the saved buffers into the chunk's workspace
+// (each buffer a [KBc, width] matrix, row (k - k0) * B + b).
+template <int R>
+__global__ void __launch_bounds__(MAX_NT)
+gob_remat_kernel(GobCfg c, Leaves lv, const float* __restrict__ dts,
+                 const float* __restrict__ obs_g,
+                 const float* __restrict__ X_g,
+                 const float* __restrict__ M_g, const int8_t* u,
+                 const long long* seed, const float* __restrict__ hh,
+                 const float* __restrict__ mh,
+                 const float* __restrict__ vh, int k0, int KBc, float* ws) {
+  load_call(c, lv);
+  const int B = cc.B, ab = 0;
+  const int row0 = blockIdx.x * R;
+  const int nv = min(R, B - row0);
+  const int k = k0 + blockIdx.y;
+  for (int i = threadIdx.x; i < cc.fwd_floats; i += NT) sm[i] = 0.f;
+  __syncthreads();
+  load_rows(R, FO(h), hh, k, cc.H, row0, nv);
+  load_rows(R, FO(m), mh, k, cc.D, row0, nv);
+  load_rows(R, FO(v), vh, k, cc.D, row0, nv);
+  load_step(R, ab, k, row0, nv, obs_g, X_g, M_g);
+  MaskCtx mc = make_mask_ctx(u, seed, row0, nv);
+  mc.k = k;
+  step_fwd(ab, dts[k], mc);
+  const size_t row = (size_t)blockIdx.y * B + row0;
+  for (int s = 0; s < cc.n_save; ++s) {
+    const int w = cc.save_w[s];
+    const float* src = sm + cc.save_sm[s];
+    float* dst = ws + (size_t)cc.save_ws[s] * KBc + row * w;
+    for (int idx = threadIdx.x; idx < nv * w; idx += NT) dst[idx] = src[idx];
+  }
+}
+
+// stage (a)'s buffers of step k (chunk row kl) into the layout copy at ab
+__device__ __forceinline__ void prefetch_step(int ab, const float* ws,
+                                              int KBc, int kl, int row0,
+                                              int nv) {
+  const size_t row = (size_t)kl * cc.B + row0;
+  for (int s = 0; s < cc.n_save; ++s) {
+    const int w = cc.save_w[s];
+    const float* src = ws + (size_t)cc.save_ws[s] * KBc + row * w;
+    float* dst = sm + ab + cc.save_sm[s];
+    for (int idx = threadIdx.x; idx < nv * w; idx += NT)
+      cp_async4(dst + idx, src + idx);
+  }
+  cp_async_commit();
+}
+
+// K6 stage (b): the reverse walk over steps [k0, k1) of the CTA's rows,
+// carrying (dh, dm, dv) in dh0/dm0/dv0 from chunk to chunk (zero before
+// the last chunk, `first`); writes each step's deltas to the workspace.
+template <int R>
+__global__ void __launch_bounds__(MAX_NT)
+gob_chain_kernel(GobCfg c, Leaves lv, const float* __restrict__ dts,
+                 const int8_t* u,
+                 const long long* seed, float* ws, int KBc, int k0, int k1,
+                 const float* dloss_p, float* dh0, float* dm0, float* dv0,
+                 int first) {
+  load_call(c, lv);
+  const int H = cc.H, D = cc.D, B = cc.B;
+  const int row0 = blockIdx.x * R;
+  const int nv = min(R, B - row0);
+  for (int i = threadIdx.x; i < cc.smem_floats; i += NT) sm[i] = 0.f;
+  stage_weights();
+  __syncthreads();
+  if (!first) {
+    load_rows(R, BO(dh), dh0, 0, H, row0, nv);
+    load_rows(R, BO(dm), dm0, 0, D, row0, nv);
+    load_rows(R, BO(dv), dv0, 0, D, row0, nv);
   }
   const float dloss = dloss_p[0];
-  MaskCtx mc = make_mask_ctx(c, u, seed, row0, nv);
+  MaskCtx mc = make_mask_ctx(u, seed, row0, nv);
+  prefetch_step(0, ws, KBc, k1 - 1 - k0, row0, nv);
+  cp_async_wait_all();
   __syncthreads();
-  for (int k = c.K - 1; k >= 0; --k) {
-    load_rows(BUF(h), hh, k, B, H, row0, nv);
-    load_rows(BUF(m), mh, k, B, D, row0, nv);
-    load_rows(BUF(v), vh, k, B, D, row0, nv);
-    load_step(c, sm, k, row0, nv, obs_g, X_g, M_g);
+  for (int k = k1 - 1, it = 0; k >= k0; --k, ++it) {
+    const int ab = (it & 1) ? cc.fwd_floats : 0;
+    if (k > k0)
+      prefetch_step(ab ? 0 : cc.fwd_floats, ws, KBc, k - 1 - k0, row0, nv);
     mc.k = k;
     const float dt = dts[k];
-    step_fwd(c, lv, sm, dt, mc);
-    step_bwd(c, lv, sm, G, dt, dloss, mc, nv);
+    step_bwd(ab, dt, dloss, mc);
+    const size_t row = (size_t)(k - k0) * B + row0;
+    for (int s = 0; s < cc.n_dlt; ++s) {
+      const int w = cc.dlt_w[s];
+      const bool zero = cc.dlt_prop[s] && !(dt > 0.f);
+      const float* src = sm + cc.dlt_sm[s];
+      float* dst = ws + (size_t)cc.dlt_ws[s] * KBc + row * w;
+      for (int idx = threadIdx.x; idx < nv * w; idx += NT)
+        dst[idx] = zero ? 0.f : src[idx];
+    }
+    cp_async_wait_all();
+    __syncthreads();
   }
-  for (int idx = threadIdx.x; idx < nv * H; idx += blockDim.x)
-    dh0[(size_t)row0 * H + idx] = dh[idx];
-  for (int idx = threadIdx.x; idx < nv * D; idx += blockDim.x) {
-    dm0[(size_t)row0 * D + idx] = dm[idx];
-    dv0[(size_t)row0 * D + idx] = dv[idx];
+  for (int idx = threadIdx.x; idx < nv * H; idx += NT)
+    dh0[(size_t)row0 * H + idx] = sm[BO(dh) + idx];
+  for (int idx = threadIdx.x; idx < nv * D; idx += NT) {
+    dm0[(size_t)row0 * D + idx] = sm[BO(dm) + idx];
+    dv0[(size_t)row0 * D + idx] = sm[BO(dv) + idx];
+  }
+}
+
+// K6 stage (c): CTA (t, s) owns output tile t of one leaf (tiles[t]: leaf
+// offset, in, out, i0, j0, first job, jobs) and the s-th of n_split
+// stretches of the chunk's nrows (step, row) pairs; it sums x^T d over its
+// stretch for each of the leaf's jobs (jobs[j]: x region or -1 for a
+// bias's ones, x width, delta region, delta width), in job order and then
+// row order, and writes (acc: adds) its partial row s. The order does not
+// depend on the rows per CTA of stages (a) and (b).
+__global__ void __launch_bounds__(WG_NT)
+gob_wgrad_kernel(const float* __restrict__ ws, int KBc, int nrows,
+                 const int* __restrict__ tiles, const int* __restrict__ jobs,
+                 int n_split, float* partials, int n_params, int acc) {
+  __shared__ float xs[WG_TILE][WG_TILE + 1], ds[WG_TILE][WG_TILE + 1];
+  const int* t = tiles + blockIdx.x * 7;
+  const int loff = t[0], in = t[1], out = t[2], i0 = t[3], j0 = t[4];
+  const int jf = t[5], jn = t[6];
+  const int per = (nrows + n_split - 1) / n_split;
+  const int r0 = blockIdx.y * per, r1 = min(nrows, r0 + per);
+  const int ty = threadIdx.x / WG_TILE, tx = threadIdx.x % WG_TILE;
+  float a[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int jb = 0; jb < jn; ++jb) {
+    const int* jp = jobs + (jf + jb) * 4;
+    const int xo = jp[0], xw = jp[1], dw = jp[3];
+    const float* Xm = xo >= 0 ? ws + (size_t)xo * KBc : nullptr;
+    const float* Dm = ws + (size_t)jp[2] * KBc;
+    for (int rb = r0; rb < r1; rb += WG_TILE) {
+      for (int e = threadIdx.x; e < WG_TILE * WG_TILE; e += WG_NT) {
+        int rr = e / WG_TILE, q = e % WG_TILE, row = rb + rr;
+        bool ok = row < r1;
+        xs[rr][q] = (ok && i0 + q < in)
+            ? (Xm ? Xm[(size_t)row * xw + i0 + q] : 1.f) : 0.f;
+        ds[rr][q] = (ok && j0 + q < out)
+            ? Dm[(size_t)row * dw + j0 + q] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int kk = 0; kk < WG_TILE; ++kk) {
+        float d = ds[kk][tx];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          a[q] = fmaf(xs[kk][ty + 8 * q], d, a[q]);
+      }
+      __syncthreads();
+    }
+  }
+  float* P = partials + (size_t)blockIdx.y * n_params + loff;
+  for (int q = 0; q < 4; ++q) {
+    int i = i0 + ty + 8 * q, j = j0 + tx;
+    if (i < in && j < out) {
+      float* p = P + (size_t)i * out + j;
+      *p = acc ? *p + a[q] : a[q];
+    }
   }
 }
 
@@ -860,12 +1187,31 @@ __global__ void gob_masks_kernel(const long long* seed, int K, int B, int P,
 
 // ------------------------------------------------------------ C interface
 
-static Leaves make_leaves(const GobCfg* c, void** leaves) {
-  Leaves lv;
+static cudaError_t make_leaves(const GobCfg* c, void** leaves, Leaves* lv) {
+  if (c->n_leaves > MAX_LEAVES || c->n_save > MAX_SAVE ||
+      c->n_dlt > MAX_DLT || (c->threads != 256 && c->threads != MAX_NT))
+    return cudaErrorInvalidValue;
   for (int i = 0; i < MAX_LEAVES; ++i)
-    lv.p[i] = i < c->n_leaves ? (const float*)leaves[i] : nullptr;
-  return lv;
+    lv->p[i] = i < c->n_leaves ? (const float*)leaves[i] : nullptr;
+  return cudaSuccess;
 }
+
+template <class F>
+static cudaError_t set_smem(F* kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+#define GOB_ROWS(R_, CASE)                                              \
+  switch (R_) {                                                         \
+    case 1: CASE(1); break;                                             \
+    case 2: CASE(2); break;                                             \
+    case 4: CASE(4); break;                                             \
+    case 8: CASE(8); break;                                             \
+    case 16: CASE(16); break;                                           \
+    default: return (int)cudaErrorInvalidValue;                         \
+  }
 
 extern "C" const char* gob_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
@@ -879,52 +1225,81 @@ extern "C" int gob_scan_fwd(const GobCfg* c, void** leaves,
                             const float* v0, float* loss_part, float* hh,
                             float* mh, float* vh, int want_hists,
                             void* stream) {
-  if (c->rows != ROWS || c->n_leaves > MAX_LEAVES)
-    return (int)cudaErrorInvalidValue;
-  Leaves lv = make_leaves(c, leaves);
-  int grid = (c->B + ROWS - 1) / ROWS;
-  size_t smem = (size_t)c->fwd_floats * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e;
-  if (want_hists) {
-    e = cudaFuncSetAttribute(gob_scan_fwd_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    gob_scan_fwd_kernel<true><<<grid, NTHREADS, smem, st>>>(
-        *c, lv, dts, obs, X, M, u, seed, h0, m0, v0, loss_part, hh, mh, vh);
-  } else {
-    e = cudaFuncSetAttribute(gob_scan_fwd_kernel<false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    gob_scan_fwd_kernel<false><<<grid, NTHREADS, smem, st>>>(
-        *c, lv, dts, obs, X, M, u, seed, h0, m0, v0, loss_part, hh, mh, vh);
+  Leaves lv;
+  cudaError_t e = make_leaves(c, leaves, &lv);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (c->B + c->rows - 1) / c->rows;
+  const size_t smem = (size_t)(c->wsm ? c->o_w + c->n_params
+                                      : c->fwd_floats) * sizeof(float);
+#define FWD_CASE(R)                                                         \
+  if (want_hists) {                                                         \
+    e = set_smem(gob_scan_fwd_kernel<R, true>, smem);                       \
+    if (e != cudaSuccess) return (int)e;                                    \
+    gob_scan_fwd_kernel<R, true><<<grid, c->threads, smem, st>>>(                   \
+        *c, lv, dts, obs, X, M, u, seed, h0, m0, v0, loss_part, hh, mh, vh);        \
+  } else {                                                                  \
+    e = set_smem(gob_scan_fwd_kernel<R, false>, smem);                      \
+    if (e != cudaSuccess) return (int)e;                                    \
+    gob_scan_fwd_kernel<R, false><<<grid, c->threads, smem, st>>>(                  \
+        *c, lv, dts, obs, X, M, u, seed, h0, m0, v0, loss_part, hh, mh, vh);        \
   }
+  GOB_ROWS(c->rows, FWD_CASE)
+#undef FWD_CASE
   return (int)cudaGetLastError();
 }
 
+// K6: for each chunk of Kc steps, last first, stages (a), (b) and (c) on
+// the stream; stage (c)'s partial rows [n_split, n_params] are left for
+// reduce_partials.
 extern "C" int gob_scan_bwd(const GobCfg* c, void** leaves,
                             const float* dts, const float* obs,
                             const float* X, const float* M,
                             const int8_t* u, const long long* seed,
                             const float* hh, const float* mh,
-                            const float* vh, const float* dloss,
-                            float* partials, float* dh0, float* dm0,
-                            float* dv0, void* stream) {
-  if (c->rows != ROWS || c->n_leaves > MAX_LEAVES)
-    return (int)cudaErrorInvalidValue;
-  Leaves lv = make_leaves(c, leaves);
-  int grid = (c->B + ROWS - 1) / ROWS;
-  size_t smem = (size_t)c->smem_floats * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      gob_scan_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+                            const float* vh, const float* dloss, float* ws,
+                            int Kc, const int* tiles, int n_tiles,
+                            const int* jobs, int n_split, float* partials,
+                            float* dh0, float* dm0, float* dv0,
+                            void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  Leaves lv;
+  cudaError_t e = make_leaves(c, leaves, &lv);
   if (e != cudaSuccess) return (int)e;
-  gob_scan_bwd_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      *c, lv, dts, obs, X, M, u, seed, hh, mh, vh, dloss, partials, dh0, dm0,
-      dv0);
-  return (int)cudaGetLastError();
+  const int B = c->B, K = c->K;
+  const int nb = (B + c->rows - 1) / c->rows;
+  const int KBc = Kc * B;
+  const int n_chunks = (K + Kc - 1) / Kc;
+  const size_t fwd = (size_t)c->fwd_floats * sizeof(float);
+  const size_t full = (size_t)(c->wsm ? c->o_w + c->n_params
+                                      : c->smem_floats) * sizeof(float);
+#define ATTR_CASE(R)                                          \
+  e = set_smem(gob_remat_kernel<R>, fwd);                     \
+  if (e == cudaSuccess) e = set_smem(gob_chain_kernel<R>, full);
+  GOB_ROWS(c->rows, ATTR_CASE)
+#undef ATTR_CASE
+  if (e != cudaSuccess) return (int)e;
+  for (int ci = n_chunks - 1; ci >= 0; --ci) {
+    const int k0 = ci * Kc, k1 = min(K, k0 + Kc);
+    const int last = ci == n_chunks - 1;
+#define STAGE_CASE(R)                                                      \
+  gob_remat_kernel<R><<<dim3(nb, k1 - k0), c->threads, fwd, st>>>(                 \
+      *c, lv, dts, obs, X, M, u, seed, hh, mh, vh, k0, KBc, ws);                   \
+  e = cudaGetLastError();                                                  \
+  if (e != cudaSuccess) return (int)e;                                     \
+  gob_chain_kernel<R><<<nb, c->threads, full, st>>>(*c, lv, dts, u, seed, ws, KBc, k0, k1, \
+                                            dloss, dh0, dm0, dv0, last);
+    GOB_ROWS(c->rows, STAGE_CASE)
+#undef STAGE_CASE
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    gob_wgrad_kernel<<<dim3(n_tiles, n_split), WG_NT, 0, st>>>(
+        ws, KBc, (k1 - k0) * B, tiles, jobs, n_split, partials,
+        c->n_params, !last);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
 }
 
 extern "C" int gob_masks(const long long* seed, int K, int B, int P,

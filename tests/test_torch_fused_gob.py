@@ -266,18 +266,21 @@ def test_unsupported_configs_raise():
             fg.make_fused_loss_fn(cfg)
         with pytest.raises(NotImplementedError):
             fg.make_fused_eval_fn(cfg)
-    # the published widths fit one CTA's shared memory; far wider ones
-    # raise on the CUDA route instead of launching
+    # the published widths fit one CTA's shared memory at the rows the
+    # rule takes; widths beyond one row raise on the CUDA route instead of
+    # launching
     for hidden in (50, 100):
         _, pub = H.gob_configs(D=1, hidden_size=hidden, p_hidden=hidden,
                                prep_hidden=hidden, cov_hidden=hidden,
                                full_gru_ode=True, impute=True)
         assert fg.supported(pub)
-        assert fg.Spec(pub).smem_bytes <= fg.SMEM_LIMIT
-    _, wide = H.gob_configs(D=1, hidden_size=400, p_hidden=400,
-                            prep_hidden=400, full_gru_ode=True, impute=True)
+        spec = fg.Spec(pub)
+        assert spec.smem_bytes(spec.rows_for(20)) <= fg.SMEM_LIMIT
+    _, wide = H.gob_configs(D=1, hidden_size=800, p_hidden=800,
+                            prep_hidden=800, full_gru_ode=True, impute=True)
     spec = fg.Spec(wide)
-    assert spec.smem_bytes > fg.SMEM_LIMIT
+    assert spec.smem_bytes(1) > fg.SMEM_LIMIT
+    assert spec.rows_for(20) is None
     assert not fg.supported(wide)
     with pytest.raises(NotImplementedError, match="shared memory"):
         fg._check_inputs(spec, [], (None,) * 5, False, None, None)
@@ -288,16 +291,16 @@ def test_unsupported_configs_raise():
 def test_too_wide_config_trains_eagerly_on_the_cuda_route(monkeypatch,
                                                           tmp_path):
     """ROADMAP Queue 3 F1: a GOB config whose buffers overflow one CTA's
-    shared memory (D = 1, every width 200: 269,760 B) is outside
-    ``supported``, so the synthetic trainer on a CUDA device (the device
-    check mocked to say CUDA) trains it through the eager
+    shared memory even at one row (D = 1, hidden 10, p_hidden 4,000:
+    243,760 B) is outside ``supported``, so the synthetic trainer on a
+    CUDA device (the device check mocked to say CUDA) trains it through the eager
     ``gru_ode_bayes.forward``: no kernel wrapper and no plain version of
     one runs. That route's epoch (``make_step_fns(use_kernels=False)``)
     matches the JAX ``train_epoch`` from the same weights."""
-    kw = dict(D=1, hidden_size=200, p_hidden=200, prep_hidden=200,
-              cov_hidden=200, full_gru_ode=True, impute=True, mixing=1e-4)
+    kw = dict(D=1, hidden_size=10, p_hidden=4000, prep_hidden=10,
+              cov_hidden=10, full_gru_ode=True, impute=True, mixing=1e-4)
     jcfg, tcfg = H.gob_configs(**kw)
-    assert fg.Spec(tcfg).smem_bytes == 269760 > fg.SMEM_LIMIT
+    assert fg.Spec(tcfg).smem_bytes(1) == 243760 > fg.SMEM_LIMIT
     assert not fg.supported(tcfg)
     monkeypatch.setattr(fs, "_is_cuda", lambda t: True)
     monkeypatch.setattr(fg, "_is_cuda", lambda t: True)
@@ -317,9 +320,10 @@ def test_too_wide_config_trains_eagerly_on_the_cuda_route(monkeypatch,
     assert ttrainer.train(
         epochs=1, batch_size=12, dropout_rate=0.1, dataset="BlackScholes",
         base_data_path=data, saved_models_path=str(tmp_path / "models"),
-        evaluate=True, device="cpu", hidden_size=200,
+        evaluate=True, device="cpu", hidden_size=10,
         other_model="GRU_ODE_Bayes",
         **{"GRU_ODE_Bayes-impute": True, "GRU_ODE_Bayes-logvar": True,
+           "GRU_ODE_Bayes-p_hidden": 4000,
            "GRU_ODE_Bayes-mixing": 1e-4}) == 0
     assert fg.LAUNCHES == before
 
@@ -352,6 +356,38 @@ def test_too_wide_config_trains_eagerly_on_the_cuda_route(monkeypatch,
                                    rtol=1e-4, atol=1e-6, err_msg=k)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(hidden_size=800, p_hidden=800, prep_hidden=800, cov_hidden=800),
+    dict(hidden_size=10, p_hidden=4000, prep_hidden=10, cov_hidden=10)],
+    ids=["widths800", "p_hidden4000"])
+def test_too_wide_config_gradients_match_jax(kw):
+    """Configs outside ``supported`` (D = 1, full field, impute, mixing
+    1e-4; every width 800, and the epoch test's above): the eager route's loss and every parameter gradient
+    before an optimizer step match ``gru_ode_bayes.forward`` +
+    ``jax.grad`` at the GOB gradient tolerance (``gob_grad_tol``). After
+    an Adam epoch their parameters are not compared: Adam moves each
+    weight by about its learning rate whatever the size of its gradient,
+    so a near-zero gradient whose sign rounding decides sets it apart."""
+    jcfg, tcfg = H.gob_configs(D=1, full_gru_ode=True, impute=True,
+                               mixing=1e-4, **kw)
+    assert fg.Spec(tcfg).smem_bytes(1) > fg.SMEM_LIMIT
+    assert not fg.supported(tcfg)
+    params, model = H.gob_twin_models(jcfg, tcfg, seed=3)
+    b = H.make_gob_np_batch(seed=4, D=1, B=6, steps=6)
+    l_ref, g_ref = jax.value_and_grad(lambda p: jgob.forward(
+        p, jcfg, H.jbatch(b), rng=jax.random.PRNGKey(0), train=True)[1])(
+            params)
+    _, loss = tgob.forward(model, H.tbatch(b), train=True)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(l_ref),
+                               **H.LOSS_TOL)
+    gr = H.flat({k: v for k, v in g_ref.items() if k != "class_model"})
+    got = H.gob_torch_grads_as_jax(model)
+    np.testing.assert_allclose(
+        H.flat({k: v for k, v in got.items() if k != "class_model"}), gr,
+        **H.gob_grad_tol(gr))
+
+
 def test_leaf_layout_sizes_at_published_widths():
     """The leaf count and the weights inside the kernels at H = 50 and
     H = 100 (impute, full field, bias, D = 1)."""
@@ -367,7 +403,9 @@ def test_leaf_layout_sizes_at_published_widths():
 def test_config_struct_mirrors_the_cuda_source():
     """``_GobCfg`` lists the fields of ``struct GobCfg`` in
     csrc/fused_gob.cu in order, all 4 bytes wide, with the same array
-    lengths; ROWS and MAX_LEAVES agree."""
+    lengths; the array bounds and the stage (c) tile agree, the source
+    instantiates every R of ``ROW_CHOICES`` (and only those), and the
+    shared memory kept for the call's configuration holds it."""
     with open(os.path.join(ROOT, "njode_tpu_torch", "ops", "csrc",
                            "fused_gob.cu")) as f:
         src = f.read()
@@ -386,16 +424,22 @@ def test_config_struct_mirrors_the_cuda_source():
     py = fg._GobCfg._fields_
     assert [f[0] for f in py] == [f[0] for f in fields]
     consts = {"MAX_LEAVES": fg.MAX_LEAVES, "MAX_LEAVES + 1":
-              fg.MAX_LEAVES + 1}
+              fg.MAX_LEAVES + 1, "MAX_SAVE": fg.MAX_SAVE,
+              "MAX_DLT": fg.MAX_DLT}
     for (name, t), (_, dim) in zip(py, fields):
         if dim is None:
             assert ctypes.sizeof(t) == 4, name
         else:
             n = consts.get(dim, None) or int(dim)
             assert ctypes.sizeof(t) == 4 * n, name
-    assert re.search(r"#define ROWS (\d+)", src).group(1) == str(fg.ROWS)
-    assert re.search(r"#define MAX_LEAVES (\d+)", src).group(1) == \
-        str(fg.MAX_LEAVES)
+    for name in ("MAX_LEAVES", "MAX_SAVE", "MAX_DLT", "WG_TILE"):
+        assert re.search(rf"#define {name} (\d+)", src).group(1) == \
+            str(getattr(fg, name)), name
+    switch = re.search(r"#define GOB_ROWS\(R_, CASE\)(.*?)default", src,
+                       re.S).group(1)
+    assert tuple(int(r) for r in re.findall(r"case (\d+):", switch)) == \
+        fg.ROW_CHOICES
+    assert ctypes.sizeof(fg._GobCfg) + 8 * fg.MAX_LEAVES <= fg.CALL_BYTES
 
 
 def test_build_hash_covers_included_headers(tmp_path):
@@ -418,3 +462,33 @@ def test_build_hash_covers_included_headers(tmp_path):
         f.write("\n// edited\n")
     for n, d in before.items():
         assert _build.source_digest(str(csrc / f"{n}.cu")) != d
+
+
+def test_ctypes_signatures_match_the_c_interface():
+    """The argument types ``_build`` declares for each function of
+    csrc/fused_gob.cu's C interface match its C parameters one for one
+    (a pointer passed where ctypes expects an int is cut to 32 bits)."""
+    import types
+
+    from njode_tpu_torch.ops import _build
+
+    with open(os.path.join(ROOT, "njode_tpu_torch", "ops", "csrc",
+                           "fused_gob.cu")) as f:
+        src = f.read()
+    lib = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in (
+        "gob_error_string", "gob_scan_fwd", "gob_scan_bwd", "gob_masks")})
+    _build._declare("fused_gob", lib)
+    for name in ("gob_scan_fwd", "gob_scan_bwd", "gob_masks"):
+        params = re.search(rf'extern "C" int {name}\((.*?)\)', src,
+                           re.S).group(1)
+        want = []
+        for decl in params.split(","):
+            decl = decl.strip()
+            if "*" in decl:
+                want.append(ctypes.c_void_p)
+            elif decl.startswith("unsigned"):
+                want.append(ctypes.c_uint32)
+            else:
+                assert decl.startswith("int "), decl
+                want.append(ctypes.c_int)
+        assert getattr(lib, name).argtypes == want, name

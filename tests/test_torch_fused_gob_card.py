@@ -5,7 +5,12 @@ abs-var, euler and midpoint, the discretized cell, bias on and off,
 dropout), the published width hidden 100, batches that are no multiple of
 the rows per CTA (B = 17-48), ``dt==0`` padding steps, partial coordinate
 masks (D = 2), the climate arm's unequal widths (D = 5, p_hidden 25,
-prep_hidden 10, impute off) and both mask modes.
+prep_hidden 10, impute off) and both mask modes; each at the rows the rule
+takes, and forced to 1, 2, 4 and 8 rows per CTA; K6's stages (remat,
+chain, wgrad) against their plain version ``gob_scan_bwd_staged_plain``
+(the workspace buffer by buffer), chunked and whole; and the two wide
+configurations that fit one CTA only at few rows (D = 1 at widths 200,
+D = 41 at widths 50).
 
 The kernels have no CPU build, so every test here skips without a CUDA
 card. This file imports neither jax nor the JAX package; run it on the card
@@ -74,7 +79,7 @@ def _tol(ref):
     return dict(rtol=2e-4, atol=2e-5 * max(1.0, float(ref.abs().max())))
 
 
-def _setup(variant, dev, seed=0):
+def _setup(variant, dev, seed=0, rows=None):
     _, kw, D, Hd, B, K, pad = variant
     args = dict(input_size=D, hidden_size=Hd, p_hidden=Hd if Hd > 9 else 7,
                 prep_hidden=Hd if Hd > 9 else 5, cov_size=D,
@@ -106,7 +111,7 @@ def _setup(variant, dev, seed=0):
         M=np.concatenate([M, np.zeros((pad, B, D))]).astype(f32))
     batch = grid.to_torch(b, dev)
     arrays = (batch.times, batch.dt, batch.obs, batch.X, batch.M)
-    spec = fg.Spec(cfg)
+    spec = fg.Spec(cfg, rows=rows)
     leaves = [p.detach() for p in fg.flat_leaves(model, spec)]
     with torch.no_grad():
         h0 = gob.mlp2(model.covariates_map, batch.start_X, 0.0)
@@ -119,22 +124,20 @@ def _close(name, a, b, tol):
     torch.testing.assert_close(a, b, msg=lambda m: f"{name}: {m}", **tol)
 
 
-@pytest.mark.parametrize("mode", ["input", "prng"])
-@pytest.mark.parametrize("variant", VARIANTS, ids=[v[0] for v in VARIANTS])
-def test_fwd_bwd_kernels_match_plain(card, variant, mode):
-    """K5 (loss, histories) and K6 (leaf grads, dh0, dm0, dv0) against the
-    plain versions, in both mask modes, and twice bit for bit."""
-    cfg, _, _, arrays, leaves, (h0, m0, v0) = _setup(variant, card)
-    spec = fg.Spec(cfg, mode)
-    K, B = arrays[2].shape
-    gen = torch.Generator(device=card).manual_seed(1)
-    u = seed = None
+def _masks(spec, mode, K, B, dev):
+    gen = torch.Generator(device=dev).manual_seed(1)
     if mode == "input":
-        u = (torch.rand((K, 3, B, spec.P), generator=gen,
-                        device=card) < 0.9).to(torch.int8)
-    else:
-        seed = torch.randint(0, 2 ** 62, (1,), generator=gen, device=card,
-                             dtype=torch.int64)
+        return (torch.rand((K, 3, B, spec.P), generator=gen,
+                           device=dev) < 0.9).to(torch.int8), None
+    return None, torch.randint(0, 2 ** 62, (1,), generator=gen, device=dev,
+                               dtype=torch.int64)
+
+
+def _check_fwd_bwd(dev, cfg, arrays, leaves, h0, m0, v0, mode, rows=None,
+                   weights=None):
+    spec = fg.Spec(cfg, mode, rows=rows, weights=weights)
+    K, B = arrays[2].shape
+    u, seed = _masks(spec, mode, K, B, dev)
     lk, hk = fg.gob_scan_fwd_cuda(spec, leaves, arrays, h0, m0, v0, True, u,
                                   seed)
     lk2, hk2 = fg.gob_scan_fwd_cuda(spec, leaves, arrays, h0, m0, v0, True,
@@ -146,7 +149,7 @@ def test_fwd_bwd_kernels_match_plain(card, variant, mode):
     for n, a, a2, p in zip(("h", "m", "v"), hk, hk2, hp):
         assert torch.equal(a, a2), n
         _close(n, a, p, _tol(p))
-    dloss = torch.tensor(1.3, device=card)
+    dloss = torch.tensor(1.3, device=dev)
     out = fg.gob_scan_bwd_cuda(spec, leaves, arrays, True, hk, dloss, u,
                                seed)
     out2 = fg.gob_scan_bwd_cuda(spec, leaves, arrays, True, hk, dloss, u,
@@ -162,6 +165,137 @@ def test_fwd_bwd_kernels_match_plain(card, variant, mode):
                            ref[1:]):
         assert torch.equal(a, a2), n
         _close(n, a, p, _tol(p))
+    es = fg.Spec(cfg, "input", rows=rows, weights=weights)
+    le = [fg.gob_scan_fwd_cuda(es, leaves, arrays, h0, m0, v0, False,
+                               want_hists=False)[0] for _ in range(2)]
+    lep, _ = fg.gob_scan_fwd_plain(es, leaves, arrays, h0, m0, v0, False,
+                                   want_hists=False)
+    assert torch.equal(le[0], le[1])
+    _close("eval loss", le[0], lep, LOSS_TOL)
+
+
+@pytest.mark.parametrize("mode", ["input", "prng"])
+@pytest.mark.parametrize("variant", VARIANTS, ids=[v[0] for v in VARIANTS])
+def test_fwd_bwd_kernels_match_plain(card, variant, mode):
+    """K5 (loss, histories), K6 (leaf grads, dh0, dm0, dv0) and K5's eval
+    form against the plain versions at the rows the rule takes, in both
+    mask modes, and twice bit for bit."""
+    cfg, _, _, arrays, leaves, (h0, m0, v0) = _setup(variant, card)
+    _check_fwd_bwd(card, cfg, arrays, leaves, h0, m0, v0, mode)
+
+
+FORCED = [v for v in VARIANTS if v[0] in (
+    "impute_drop", "mid_full_impute_drop", "disc_impute", "full_absvar",
+    "climate")]
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4, 8])
+@pytest.mark.parametrize("variant", FORCED, ids=[v[0] for v in FORCED])
+def test_forced_rows_match_plain(card, variant, rows):
+    """The same checks with the rows per CTA forced (batches of 17-48 rows:
+    a ragged last CTA at every R but 1), 'prng' masks."""
+    cfg, _, _, arrays, leaves, (h0, m0, v0) = _setup(variant, card,
+                                                     rows=rows)
+    _check_fwd_bwd(card, cfg, arrays, leaves, h0, m0, v0, "prng", rows)
+
+
+@pytest.mark.parametrize("rows", [1, 4])
+@pytest.mark.parametrize("variant", [VARIANTS[7], VARIANTS[8], VARIANTS[15]],
+                         ids=["mid_full_impute_drop", "disc_impute",
+                              "climate"])
+def test_stages_match_staged_plain(card, variant, rows):
+    """K6's stages against their plain version on the kernel's own
+    histories: stage (a)'s saved buffers and stage (b)'s deltas in the
+    workspace (one chunk of all K steps), buffer by buffer, and stage
+    (c)'s gradients; then K split into chunks of 7 steps against the whole
+    (launch counts: 3 stages a chunk)."""
+    cfg, _, _, arrays, leaves, (h0, m0, v0) = _setup(variant, card)
+    spec = fg.Spec(cfg, "input", rows=rows)
+    K, B = arrays[2].shape
+    u, _ = _masks(spec, "input", K, B, card)
+    _, hk = fg.gob_scan_fwd_cuda(spec, leaves, arrays, h0, m0, v0, True, u)
+    dloss = torch.tensor(1.3, device=card)
+    got = fg.gob_scan_bwd_cuda(spec, leaves, arrays, True, hk, dloss, u,
+                               chunk=K, want_ws=True)
+    ref = fg.gob_scan_bwd_staged_plain(spec, leaves, arrays, True, hk,
+                                       dloss, u, chunk=K, want_ws=True)
+    for name in fg.SAVED + tuple(d for d, _ in spec.deltas):
+        a = fg.ws_view(spec, got[4], K * B, name)
+        p = fg.ws_view(spec, ref[4], K * B, name)
+        _close(f"workspace {name}", a, p, _tol(p))
+    tol = _tol(torch.cat([g.reshape(-1) for g in ref[0]]))
+    for i, (a, p) in enumerate(zip(got[0], ref[0])):
+        _close(f"grad {i}", a, p, tol)
+    for n, a, p in zip(("dh0", "dm0", "dv0"), got[1:4], ref[1:4]):
+        _close(n, a, p, _tol(p))
+    before = dict(fg.LAUNCHES)
+    chunked = fg.gob_scan_bwd_cuda(spec, leaves, arrays, True, hk, dloss, u,
+                                   chunk=7)
+    n_chunks = -(-K // 7)
+    for key in ("gob_bwd_remat", "gob_scan_bwd", "gob_bwd_wgrad"):
+        assert fg.LAUNCHES[key] - before[key] == n_chunks, key
+    for i, (a, p) in enumerate(zip(chunked[0], got[0])):
+        _close(f"chunked grad {i}", a, p, tol)
+    for n, a, p in zip(("dh0", "dm0", "dv0"), chunked[1:], got[1:4]):
+        _close(f"chunked {n}", a, p, _tol(p))
+
+
+@pytest.mark.parametrize("mode", ["input", "prng"])
+@pytest.mark.parametrize("variant", [VARIANTS[7], VARIANTS[15]],
+                         ids=["mid_full_impute_drop", "climate"])
+def test_staged_weights_give_the_same_bits(card, variant, mode):
+    """K5, K5's eval form and K6 with every weight staged in shared memory
+    and read through L1/L2 give the same bits (the arithmetic is the same;
+    only where the loads come from differs), and the global form holds the
+    plain versions too."""
+    cfg, _, _, arrays, leaves, (h0, m0, v0) = _setup(variant, card)
+    K, B = arrays[2].shape
+    out = []
+    for w in ("shared", "global"):
+        spec = fg.Spec(cfg, mode, weights=w)
+        assert spec.stage_weights(B, chain=True) == (w == "shared")
+        u, seed = _masks(spec, mode, K, B, card)
+        lk, hk = fg.gob_scan_fwd_cuda(spec, leaves, arrays, h0, m0, v0, True,
+                                      u, seed)
+        g = fg.gob_scan_bwd_cuda(spec, leaves, arrays, True, hk,
+                                 torch.tensor(1.3, device=card), u, seed)
+        le, _ = fg.gob_scan_fwd_cuda(fg.Spec(cfg, "input", weights=w), leaves,
+                                     arrays, h0, m0, v0, False,
+                                     want_hists=False)
+        out.append([lk, *hk, *g[0], *g[1:], le])
+    for i, (a, c) in enumerate(zip(*out)):
+        assert torch.equal(a, c), i
+    _check_fwd_bwd(card, cfg, arrays, leaves, h0, m0, v0, mode,
+                   weights="global")
+
+
+# the widths a CTA of 8 rows cannot hold, which trained eagerly before
+# (ROADMAP Queue 3 F1): D = 1 at widths 200, D = 41 at widths 50
+WIDE = [
+    ("d1_w200", dict(full_gru_ode=True, impute=True, mixing=1e-4,
+                     dropout_rate=0.1), 1, 200, 20, 30, 2),
+    ("d41_w50", dict(full_gru_ode=True, impute=True, mixing=1e-4,
+                     dropout_rate=0.1), 41, 50, 20, 30, 2),
+]
+
+
+@pytest.mark.parametrize("mode", ["input", "prng"])
+@pytest.mark.parametrize("variant", WIDE, ids=[v[0] for v in WIDE])
+def test_wide_configs_run_through_the_kernels(card, variant, mode):
+    """The two wide configurations are ``supported`` now and run through
+    the kernels at the rule's rows (and forced to 2): K5, K6 and the eval
+    form against the plain versions, bit for bit twice; FusedGOBLoss moves
+    the launch counters."""
+    cfg, model, batch, arrays, leaves, (h0, m0, v0) = _setup(variant, card)
+    assert fg.supported(cfg)
+    _check_fwd_bwd(card, cfg, arrays, leaves, h0, m0, v0, mode)
+    _check_fwd_bwd(card, cfg, arrays, leaves, h0, m0, v0, mode, rows=2)
+    before = dict(fg.LAUNCHES)
+    loss = fg.make_fused_loss_fn(cfg, mode)(
+        model, batch, torch.Generator(device=card).manual_seed(0), True)
+    loss.backward()
+    assert fg.LAUNCHES["gob_scan_fwd"] == before["gob_scan_fwd"] + 1
+    assert fg.LAUNCHES["gob_scan_bwd"] > before["gob_scan_bwd"]
 
 
 @pytest.mark.parametrize("variant", VARIANTS, ids=[v[0] for v in VARIANTS])
