@@ -1,7 +1,7 @@
 """A/B timing of the NJODE scan kernels (K1-K3) and reduce_partials of one
 checkout on one CUDA card, to compare two versions within one machine.
 
-    python3 ab_scan_kernels.py ROOT TAG [witness|gob]
+    python3 ab_scan_kernels.py ROOT TAG [witness|gob|phases]
 
 ROOT is a checkout holding ``njode_tpu_torch/`` and ``chip_smoke.py`` (e.g.
 the parent commit unpacked with ``git archive`` into a git-ignored
@@ -9,17 +9,20 @@ directory); TAG names it in the output. Run the versions alternately in one
 call (parent, change, change, parent). Prints the build time, ptxas's
 register and spill lines, then one line of CUDA-event ms:
 
-- the resident plan: the main path's K1/K2/K3 ('prng', K = 100) at B = 200
-  and 100, and the masked K1/K2/K3 at the climate small arm's widths
-  (B = 100, K = 2,004);
-- the global plan: K1/K2/K3 at the PhysioNet 50 arm (D = H = 41, width 50,
-  B = 50, K = 3,006) forced into it at 16 rows, and in the resident plan
-  at 4 rows beside it, the PhysioNet 200 arm (width 200, same grid) and
-  the climate 400 arm (D 5, H 50, width 400, B = 100, K = 2,004);
-- reduce_partials at the partials of the main path, the PhysioNet 50 arm
-  and the climate 400 arm: the device time per launch from torch.profiler
-  (``red...``) and, the old yardstick, CUDA events around a Python loop of
-  wrapper calls (``red...host``).
+- the resident plan, each arm at the checkout's own rows rule and forced
+  at 16 rows (suffix ``r16``): the main path's K1/K2/K3 ('prng', K = 100)
+  at B = 200 and 100, its K3 at the eval's B = 4,000, and the masked
+  K1/K2/K3 at the climate small arm's widths (B = 100, K = 2,004); the
+  PhysioNet 50 arm (D = H = 41, width 50, B = 50, K = 3,006) at the rule's
+  rows (``r50``);
+- the global plan: K1/K2/K3 at the PhysioNet 50 arm forced into it at 16
+  rows, the PhysioNet 200 arm (width 200, same grid) and the climate 400
+  arm (D 5, H 50, width 400, B = 100, K = 2,004);
+- reduce_partials at the partials of the main path and the PhysioNet 50
+  arm at one row a CTA and at 16 rows, and of the climate 400 arm: the
+  device time per launch
+  from torch.profiler (``red...``) and, the old yardstick, CUDA events
+  around a Python loop of wrapper calls (``red...host``).
 
 Every arm runs on a synthetic masked batch (2 % of the rows observed a
 step, 40 % of an observed row's coordinates), its model from the
@@ -34,6 +37,15 @@ the parent (8 rows a CTA, one backward kernel) and this tree have; where
 the checkout takes a forced rows per CTA (``fused_gob.ROW_CHOICES``), also
 at each R that fits, with the weights forced through L1/L2 ('G'), and
 K6's stages' device times (torch.profiler).
+
+With ``phases`` it builds the scan kernels with -DNJODE_PHASE_CLOCK (a
+library of their own, where the checkout's ``_build`` takes defines) and
+prints, a line a
+kernel, the SM cycles of each phase of one step (the middle one, CTA 0)
+of the resident K1, K2 and K3 at the rows rule's pick: the main path (B =
+100 and 200, and K3 at 4,000) with the encoder and with the GRU jump, the
+climate small arm and the PhysioNet 50 arm (B = 50, on the synthetic
+masked batch, K = 200).
 
 With ``witness`` it runs ``draw_witness`` instead of the timings: K1 of
 the PhysioNet 200 arm on masks drawn as chip_smoke.py drew them, one line
@@ -231,6 +243,56 @@ def gob_arms(cs, dev, tag, masked_batch):
         print(tag, f"{k}={out[k]:.4f}", flush=True)
 
 
+def phase_clocks(cs, fs, lib, dev, tag, masked_batch):
+    """``phases``: K1, K2 and K3 through the library ``lib`` (built with
+    -DNJODE_PHASE_CLOCK); prints each launch's phase cycles."""
+    import ctypes
+
+    import torch
+
+    fs._lib = lambda: lib
+    seed = torch.tensor([7], dtype=torch.int64, device=dev)
+    one = torch.ones((), device=dev)
+
+    def show(name):
+        torch.cuda.synchronize()
+        buf = (ctypes.c_longlong * 256)()
+        n = ctypes.c_int(0)
+        fs._raise_rc(lib, lib.njode_phase_clock(buf, ctypes.byref(n)),
+                     "njode_phase_clock")
+        d = [buf[i + 1] - buf[i] for i in range(n.value - 1)]
+        print(tag, name, f"phases={len(d)} cycles={sum(d)} "
+              f"per_phase={','.join(map(str, d))}", flush=True)
+
+    def three(name, cfg, model, b, B3=None):
+        leaves = [p.detach() for p in fs.flat_leaves(model)]
+        arrays = fs.batch_arrays(b)
+        with torch.no_grad():
+            h0 = fs.t0_state(model, b)
+        K, B = arrays[2].shape
+        spec = fs.Spec(cfg, "prng")
+        _, hists = fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, True,
+                                    None, seed)
+        show(f"K1 {name} B={B} R={spec.rows_for(B, False)}")
+        fs.scan_bwd_cuda(spec, leaves, arrays, 0.5, True, hists, one, None,
+                         seed)
+        show(f"K2 {name} B={B} R={spec.rows_for(B)}")
+        spec3 = fs.Spec(cfg, "input")
+        fs.scan_fwd_cuda(spec3, leaves, arrays, 0.5, h0, False,
+                         want_hists=False)
+        show(f"K3 {name} B={B} R={spec3.rows_for(B, False)}")
+
+    for use_rnn in (False, True):
+        for B in (100, 200, 4000):
+            cfg, model, batch = cs.main_path_setup(B, 100, 0, dev, use_rnn)
+            three("main_path" + ("_rnn" if use_rnn else ""), cfg, model,
+                  batch)
+    for name, D, H, width, B in (("climate_small", 5, 10, 50, 100),
+                                 ("physionet_50", 41, 41, 50, 50)):
+        cfg, model = cs._masked_njode(D, H, width, dev)
+        three(name, cfg, model, masked_batch(200, B, D))
+
+
 def main(root, tag, what="timing"):
     sys.path.insert(0, root)
     import numpy as np
@@ -242,11 +304,16 @@ def main(root, tag, what="timing"):
     from njode_tpu_torch.ops import fused_scan as fs
 
     t0 = time.time()
-    _build.build_all(("fused_scan", "fused_gob") if what == "gob"
-                     else ("fused_scan",))
-    _build.load("fused_scan")
+    if what == "phases":
+        lib = _build.load("fused_scan", ("NJODE_PHASE_CLOCK",))
+        key = "fused_scan_njode_phase_clock"
+    else:
+        _build.build_all(("fused_scan", "fused_gob") if what == "gob"
+                         else ("fused_scan",))
+        _build.load("fused_scan")
+        key = "fused_scan"
     print(tag, "build_s", round(time.time() - t0, 2), flush=True)
-    for ln in _build.build_log["fused_scan"]["ptxas"].splitlines():
+    for ln in _build.build_log[key]["ptxas"].splitlines():
         if "registers" in ln or "spill" in ln or "Compiling" in ln:
             print(tag, ln.strip())
     dev = torch.device("cuda")
@@ -271,6 +338,9 @@ def main(root, tag, what="timing"):
     if what == "gob":
         gob_arms(cs, dev, tag, masked_batch)
         return
+    if what == "phases":
+        phase_clocks(cs, fs, lib, dev, tag, masked_batch)
+        return
     one = torch.ones((), device=dev)
     seed = torch.tensor([7], dtype=torch.int64, device=dev)
     out = {}
@@ -290,19 +360,32 @@ def main(root, tag, what="timing"):
             spec3, leaves, arrays, 0.5, h0, False, want_hists=False), reps,
             warmup)
 
+    r16 = ("resident", 16)
     for B in (200, 100):
         cfg, model, batch = cs.main_path_setup(B, 100, 0, dev)
         arrays = (batch.times, batch.dt, batch.obs, batch.X, batch.n_obs_ot,
                   batch.start_X)
         with torch.no_grad():
             h0 = model.encoder_map(batch.start_X)
-        time_three(cfg, [p.detach() for p in fs.flat_leaves(model)], arrays,
-                   h0, f" B={B}", 20, 2)
+        for plan, sfx in ((None, ""), (r16, "_r16")):
+            time_three(cfg, [p.detach() for p in fs.flat_leaves(model)],
+                       arrays, h0, f" B={B}{sfx}", 20, 2, plan)
+    cfg, model, batch = cs.main_path_setup(4000, 100, 2, dev)
+    arrays = (batch.times, batch.dt, batch.obs, batch.X, batch.n_obs_ot,
+              batch.start_X)
+    with torch.no_grad():
+        h0 = model.encoder_map(batch.start_X)
+    leaves = [p.detach() for p in fs.flat_leaves(model)]
+    for plan, sfx in ((None, ""), (r16, "_r16")):
+        spec3 = fs.Spec(cfg, "input", plan)
+        out["K3 B=4000" + sfx] = cs.cuda_ms(lambda: fs.scan_fwd_cuda(
+            spec3, leaves, arrays, 0.5, h0, False, want_hists=False), 10, 2)
 
     # (suffix, D, H, width, B, K, timed calls, forced plan)
     arms = [("m", 5, 10, 50, 100, 2004, 3, None),
+            ("m_r16", 5, 10, 50, 100, 2004, 3, r16),
             ("g50", 41, 41, 50, 50, 3006, 3, ("global", 16)),
-            ("r50", 41, 41, 50, 50, 3006, 3, ("resident", 4)),
+            ("r50", 41, 41, 50, 50, 3006, 3, None),
             ("g200", 41, 41, 200, 50, 3006, 2, None),
             ("g400", 5, 50, 400, 100, 2004, 2, None)]
     for suffix, D, H, width, B, K, reps, plan in arms:
@@ -314,7 +397,8 @@ def main(root, tag, what="timing"):
                    fs.batch_arrays(b), h0, suffix, reps, 1, plan)
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    for n_parts, n in ((13, 10071), (4, 24423), (25, 571305)):
+    for n_parts, n in ((100, 10071), (50, 24423), (13, 10071), (4, 24423),
+                       (25, 571305)):
         P = torch.randn((n_parts, n), generator=gen, device=dev)
         tag_s = f"red{n_parts}x{n}"
         out[tag_s] = device_ms(lambda: fs.reduce_partials_cuda(P),

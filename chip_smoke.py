@@ -10,25 +10,33 @@ power limit, and the final ``{"ok": true, ...}`` line:
 3. kernels  - every kernel against its plain PyTorch version at the main
               path's shapes (B=200, K=100, D=1, H=10, W=50, S=8, dropout
               0.1; the eval forward at B=4,000), in both mask modes, each
-              kernel run twice and compared bit for bit; reduce_partials
-              bit for bit its plain version at the gradient partials of
-              the main path, the PhysioNet 50 arm and the climate 400 arm
-              ([13, 10,071], [4, 24,423], [25, 571,305]);
+              kernel run twice and compared bit for bit, at the rows the
+              rule takes (one a CTA at B=100 and 200, 16 at B=4,000), each
+              launch's CTAs an SM held against what
+              cudaOccupancyMaxActiveBlocksPerMultiprocessor reports (no
+              launch the rule puts on one wave may take a second);
+              reduce_partials bit for bit its plain version at the
+              gradient partials of the main path and the PhysioNet 50 arm
+              at one row a CTA ([100, 10,071], [50, 24,423]), at 16 rows
+              ([13, 10,071], [4, 24,423]) and of the climate 400 arm
+              ([25, 571,305]);
 4. timing   - CUDA-event times of each kernel and its plain version, and
               the least time the card could take (bound); reduce_partials'
               device time per launch beside sum(dim=0)'s, both from
               torch.profiler, and the old host-loop yardstick;
 5. trainer  - njode_tpu_torch.training.trainer.train on a 20,000-path
               BlackScholes dataset, 2 epochs of batch 100 with 'prng'
-              dropout masks; losses must be finite and the launch counts
-              of the main path's kernels what 2 epochs need; then
+              dropout masks; losses must be finite, the launch counts
+              of the main path's kernels what 2 epochs need, and every
+              launch at the rows the rule takes at its batch; then
               (rnn_trainer) the same run with the GRU jump (use_rnn), its
               launches exact under the '_rnn' keys;
 6. rnn_kernels - the GRU jump of K1, K2 and K3 against their plain
               versions at the main path's widths (B=200, K=100, both mask
               modes; K3 also at B=4,000), each run twice bit for bit, and
-              the global plan forced at 16 rows bit for bit against the
-              resident plan;
+              the global plan bit for bit against the resident plan, both
+              forced at 16 rows, and forced at the rule's rows (one a CTA)
+              against the rule's own launch;
 7. rnn_timing - CUDA-event times and bounds of those three kernels;
 8. gob_kernels - the GRU-ODE-Bayes kernels (ops/csrc/fused_gob.cu: K5
               forward, K6 backward in three stages, K7 masks) against their
@@ -88,22 +96,24 @@ power limit, and the final ``{"ok": true, ...}`` line:
               device memory, staged through the ring) against their plain
               versions: the PhysioNet 50 arm (D = hidden = 41, three 2x50
               tanh MLPs, dropout 0.1; forced into the global plan at 16
-              rows, the rule takes the resident plan at 4) over the first
-              100 steps in both mask modes and over all 3,006 in 'prng'
-              mode, step by step (``STEP_TOL``), the 200 arm and the
+              rows, the rule takes the resident plan at one row a CTA)
+              over the first 100 steps in both mask modes and over all
+              3,006 in 'prng' mode, step by step (``STEP_TOL``), the 200
+              arm and the
               climate 400 arm (on the first climate batch) over the first
               100 steps in both modes, each kernel run twice and compared
-              bit for bit; the 50 arm in the rule's resident plan at 4 rows
-              over 100 steps; and the global plan forced at 16 rows bit for
-              bit against the resident plan on the main path and on the
-              climate small arm;
+              bit for bit; the 50 arm in the rule's resident plan (one row
+              a CTA) over 100 steps; and the global plan bit for bit
+              against the resident plan (both at 16 rows, and at the
+              rule's rows against the rule's launch) on the main path and
+              on the climate small arm;
 17. physionet_timing - CUDA-event times and bounds of the global plan's
               K1/K2/K3 at the 50 arm (forced, 16 rows) and the 200 arm
               (B = 50, K = 3,006) and at the climate 400 arm (B = 100,
-              K = 2,004), and of the 50 arm in the rule's resident plan at
-              4 rows;
+              K = 2,004), and of the 50 arm in the rule's resident plan
+              (one row a CTA);
 18. physionet_trainer - physionet_trainer.train at the 50 arm (batch 50,
-              'prng', the resident plan at 4 rows) for 2 epochs on the
+              'prng', the resident plan, one row a CTA) for 2 epochs on the
               stand-in cut to 1,000 records (800 train, 16 batches an
               epoch); losses and both metrics finite, and the launch counts
               exact;
@@ -132,6 +142,7 @@ in the same order, so at one row count they must agree bit for bit.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -183,10 +194,12 @@ PHYS_T = 1 + 1e-12
 PHYS_B = 50
 PHYS_TRAIN_RECORDS = 1000
 PHYS_200_RECORDS = 400     # the stand-in cut for the 200 arm's one epoch
-# reduce_partials' shapes: the gradient partials of the main path (B =
-# 200, 13 CTAs), the PhysioNet 50 arm (B = 50 at 16 rows) and the climate
-# 400 arm (B = 100 at 4 rows)
-REDUCE_SHAPES = ((13, 10071), (4, 24423), (25, 571305))
+# reduce_partials' shapes: the gradient partials of the main path's
+# trainer (B = 100, one row a CTA) and the PhysioNet 50 arm (B = 50, one
+# row a CTA), then at 16 rows a CTA: the main path at B = 200 and the
+# PhysioNet 50 arm; and the climate 400 arm (B = 100 at 4 rows)
+REDUCE_SHAPES = ((100, 10071), (50, 24423), (13, 10071), (4, 24423),
+                 (25, 571305))
 
 
 def say(phase, **kw):
@@ -358,9 +371,10 @@ def phase_kernels(results):
                                want_hists=False)
     e3 = check_close("K3 loss", l3[0], l3p, LOSS_TOL)
     say("kernels", K3_loss_err=f"{e3:.3e}", K3_loss=f"{float(l3[0]):.6f}")
-    # reduce_partials at the gradient partials of the main path (B = 200),
-    # the PhysioNet 50 arm and the climate 400 arm: its plain version's
-    # bits (the rows summed in ascending order), run after run
+    for Bw in (100, B, B3):
+        check_waves("kernels", "main_path", cfg, Bw)
+    # reduce_partials at REDUCE_SHAPES: its plain version's bits (the rows
+    # summed in ascending order), run after run
     parts = {}
     for n_parts, n in REDUCE_SHAPES:
         P = torch.randn((n_parts, n), generator=gen, device=dev)
@@ -462,11 +476,11 @@ def phase_timing(results):
                     + B * spec.H + P) + 8
     hist_bytes = 4 * K * B * (spec.H + spec.D + 1)
     f1 = 2.0 * mac * B * K
-    n_cta = -(-B // spec.rows)
-    b1 = in_bytes + hist_bytes + 4 * n_cta
+    b1 = in_bytes + hist_bytes + 4 * -(-B // spec.rows_for(B, False))
     # backward: the recomputed forward, plus dW and dx per linear
     f2 = 3.0 * f1
-    b2 = in_bytes + hist_bytes + 4 + 4 * n_cta * P + 4 * B * spec.H
+    b2 = (in_bytes + hist_bytes + 4 + 4 * -(-B // spec.rows_for(B)) * P
+          + 4 * B * spec.H)
     f3 = 2.0 * mac * B3 * K3
     b3 = 4 * (2 * K3 + K3 * B3 * 2 + B3 * 2 + B3 * spec.H + P)
     n_mask = K * spec.S * B * spec.w_max
@@ -594,6 +608,59 @@ def _check_counts(phase, counts, expect):
         .replace(" ", ""))
 
 
+def check_rows(phase, cfg):
+    """Every K1-K3 launch of the run just made (``LAUNCH_ROWS``, set to 0
+    with the counts) took the rows ``Spec(cfg).rows_for`` takes at its
+    batch; prints them."""
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    spec = fs.Spec(cfg)
+    seen = {}
+    for (key, B, R), n in sorted(fs.LAUNCH_ROWS.items()):
+        want = spec.rows_for(B, "bwd" in key)
+        if R != want:
+            raise AssertionError(f"{phase}: {key} at B={B} took {R} rows, "
+                                 f"the rule takes {want}")
+        seen[f"{key}@{B}"] = f"R{R}x{n}"
+    if not seen:
+        raise AssertionError(f"{phase}: no scan kernel launched")
+    say(phase, rows=json.dumps(seen).replace(" ", ""))
+
+
+def check_waves(phase, arm, cfg, B):
+    """K1, K3 and K2 of ``cfg`` at batch B at the rows the rule takes: the
+    CTAs an SM holds that the rule counts (``Spec.ctas_per_sm``; the
+    global plan: one) against cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    for the kernel the launch takes. Fails if the card holds fewer, or if a
+    launch the rule puts on one wave would take a second."""
+    import ctypes
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    spec = fs.Spec(cfg)
+    lib = fs._lib()
+    out = {}
+    for name, kind, bwd, train in (("K1", 0, False, True),
+                                   ("K3", 1, False, False),
+                                   ("K2", 2, True, True)):
+        c = fs.make_cfg(spec, 100, B, train, 0.5, bwd=bwd)
+        n = ctypes.c_int(0)
+        fs._raise_rc(lib, lib.njode_scan_occupancy(
+            ctypes.addressof(c), kind, ctypes.byref(n)),
+            "njode_scan_occupancy")
+        n_cta = -(-B // c.rows)
+        rule = (spec.ctas_per_sm(c.rows, bwd) if spec.plan == "resident"
+                else 1)
+        one_wave = n_cta <= rule * fs.N_SM
+        if n.value < rule or (one_wave and n_cta > n.value * fs.N_SM):
+            raise AssertionError(
+                f"{arm} {name} at B={B}, {c.rows} rows: the rule counts "
+                f"{rule} CTAs an SM, the card holds {n.value}")
+        out[name] = dict(rows=c.rows, ctas=n_cta, rule_per_sm=rule,
+                         card_per_sm=n.value, one_wave=one_wave)
+    say(phase, arm=arm, B=B, waves=json.dumps(out).replace(" ", ""))
+
+
 def phase_trainer(results):
     """The main path, then the same trainer with the GRU jump
     (``use_rnn``) on the same dataset, each with exact launch counts."""
@@ -613,6 +680,7 @@ def phase_trainer(results):
             "njode_scan_fwd": steps, "njode_scan_bwd": steps,
             "njode_scan_eval": 2, "philox_keep": 2 * steps,
             "reduce_partials": 2 * steps + 2})
+        check_rows("trainer", results["setup"]["cfg"])
         results["launches"] = counts
         t0 = time.time()
         rnn = _synthetic_run(tmp, "rnn_trainer", use_rnn=True)
@@ -620,6 +688,8 @@ def phase_trainer(results):
             "njode_scan_fwd_rnn": steps, "njode_scan_bwd_rnn": steps,
             "njode_scan_eval_rnn": 2, "philox_keep": 2 * steps,
             "reduce_partials": 2 * steps + 2})
+        check_rows("rnn_trainer", dataclasses.replace(
+            results["setup"]["cfg"], use_rnn=True))
         say("rnn_trainer", phase_s=f"{time.time() - t0:.2f}")
         results["rnn_launches"] = rnn
     finally:
@@ -1229,17 +1299,24 @@ def climate_setup(results, tmp):
         batch_obs=int(batch.obs.sum()), setup_s=f"{time.time() - t0:.2f}")
 
 
-def _masked_njode(D, H, width, dev, seed=0, use_rnn=False):
-    """A masked NJODE (output = input) with three 2 x ``width`` tanh MLPs
-    and dropout 0.1, the climate and PhysioNet arms' shape (with the GRU
-    jump: ``use_rnn``)."""
-    import torch
-
-    from njode_tpu_torch.models.njode import NJODE, NJODEConfig
+def _masked_cfg(D, H, width, use_rnn=False):
+    """The config of a masked NJODE (output = input) with three 2 x
+    ``width`` tanh MLPs and dropout 0.1, the climate and PhysioNet arms'
+    shape (with the GRU jump: ``use_rnn``)."""
+    from njode_tpu_torch.models.njode import NJODEConfig
 
     nn_desc = ((width, "tanh"), (width, "tanh"))
-    cfg = NJODEConfig(D, H, D, nn_desc, nn_desc, nn_desc,
-                      dropout_rate=0.1, masked=True, use_rnn=use_rnn)
+    return NJODEConfig(D, H, D, nn_desc, nn_desc, nn_desc,
+                       dropout_rate=0.1, masked=True, use_rnn=use_rnn)
+
+
+def _masked_njode(D, H, width, dev, seed=0, use_rnn=False):
+    """``_masked_cfg`` and its model on ``dev``, seeded."""
+    import torch
+
+    from njode_tpu_torch.models.njode import NJODE
+
+    cfg = _masked_cfg(D, H, width, use_rnn)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = NJODE(cfg).to(dev)
@@ -1468,6 +1545,7 @@ def phase_climate_kernels(results):
         ((100, ("input", "prng"), SHORT_TOL),
          (results["climate"]["K"], ("prng",), LONG_TOL)), gen)
     results["climate"].update(njode=(cfg, *last), plain_ms=plain_ms)
+    check_waves("climate_kernels", "climate_small", cfg, CLIMATE_B)
 
     # K5/K6 at the GRU-ODE-Bayes climate arm: the first 100 steps in both
     # mask modes, all 2,004 in 'prng' mode (the trainer's shape)
@@ -1532,15 +1610,16 @@ def _scan_bounds(spec, K, B):
     written once (K2's output holds one partial row per CTA)."""
     mac = _macs_per_row_step(spec)
     D, H, P = spec.D, spec.H, spec.n_params
-    n_cta = -(-B // spec.rows)
+    n_fwd = -(-B // spec.rows_for(B, False))
+    n_bwd = -(-B // spec.rows_for(B))
     nX = 2 if spec.masked else 1
     data = 4 * (2 * K + K * B + nX * K * B * D + B + B * D + B * H + P)
     hist = 4 * K * B * (H + D + 1)
     f1 = 2.0 * mac * B * K
-    return {"K1": bound(f1, data + 8 + hist + 4 * n_cta, PEAK_FP32),
-            "K2": bound(3.0 * f1, data + 8 + hist + 4 + 4 * n_cta * P
+    return {"K1": bound(f1, data + 8 + hist + 4 * n_fwd, PEAK_FP32),
+            "K2": bound(3.0 * f1, data + 8 + hist + 4 + 4 * n_bwd * P
                         + 4 * B * H, PEAK_FP32),
-            "K3": bound(f1, data + 4 * n_cta, PEAK_FP32)}
+            "K3": bound(f1, data + 4 * n_fwd, PEAK_FP32)}
 
 
 def phase_climate_timing(results):
@@ -1585,10 +1664,11 @@ def phase_climate_timing(results):
             roofline_share=f"{bms / ms:.2e}")
 
 
-def _climate_run(results, tag, expect, epochs=2, **kw):
+def _climate_run(results, tag, expect, epochs=2, rows_cfg=None, **kw):
     """One ``climate_trainer.train`` run of ``epochs`` epochs with every
     count set to 0 just before and read just after; checks the metric CSV
-    and the counts."""
+    and the counts (and, given the NJODE config ``rows_cfg``, the rows of
+    each scan launch)."""
     import numpy as np
     import torch
 
@@ -1627,6 +1707,8 @@ def _climate_run(results, tag, expect, epochs=2, **kw):
     say("climate_trainer", arm=tag,
         launches=json.dumps({k: v for k, v in counts.items() if v})
         .replace(" ", ""))
+    if rows_cfg is not None:
+        check_rows("climate_trainer", rows_cfg)
     return counts
 
 
@@ -1636,7 +1718,7 @@ def phase_climate_trainer(results):
     nj = _climate_run(results, "njode", {
         "njode_scan_fwd": steps, "njode_scan_bwd": steps,
         "philox_keep": 2 * steps, "reduce_partials": 2 * steps},
-        hidden_size=10, dropout_rate=0.1)
+        rows_cfg=_masked_cfg(5, 10, 50), hidden_size=10, dropout_rate=0.1)
     gb = _climate_run(results, "gob", lambda chunks: chunks.expect(steps),
         hidden_size=50, dropout_rate=0.2, ode_nn=None, readout_nn=None,
         enc_nn=None, other_model="GRU_ODE_Bayes",
@@ -1703,13 +1785,20 @@ def _kernel_outputs(spec, spec3, leaves, arrays, h0, u, seed):
 
 def _plans_bit_identical(tag, cfg, leaves, arrays, h0, gen,
                          phase="physionet_kernels"):
-    """The global plan forced at 16 rows against the resident plan, every
-    output of K1, K2 and K3 in both mask modes, bit for bit."""
+    """The global plan against the resident plan at the same rows, every
+    output of K1, K2 and K3 in both mask modes, bit for bit: both forced at
+    16 rows, and the global plan forced at the rows the rule takes at this
+    batch (one a CTA) against the rule's own launches."""
     import torch
 
     from njode_tpu_torch.ops import fused_scan as fs
 
     K, B = arrays[2].shape
+    own = fs.Spec(cfg)
+    R = own.rows_for(B)
+    if own.plan != "resident" or own.rows_for(B, False) != R:
+        raise AssertionError(f"{tag}: plan {own.plan}, K2 at {R} rows, K1 "
+                             f"at {own.rows_for(B, False)}")
     for mode in ("input", "prng"):
         spec = fs.Spec(cfg, mode)
         u = seed = None
@@ -1719,18 +1808,20 @@ def _plans_bit_identical(tag, cfg, leaves, arrays, h0, gen,
         else:
             seed = torch.randint(0, 2 ** 62, (1,), generator=gen,
                                  device=h0.device, dtype=torch.int64)
-        outs = [_kernel_outputs(fs.Spec(cfg, mode, plan),
-                                fs.Spec(cfg, "input", plan), leaves, arrays,
-                                h0, u, seed)
-                for plan in (None, ("global", 16))]
-        torch.cuda.synchronize()
-        n_diff = sum(not torch.equal(a, b) for a, b in zip(*outs))
-        if n_diff or spec.plan != "resident":
-            raise AssertionError(f"global plan at 16 rows differs from the "
-                                 f"resident plan in {n_diff} outputs "
-                                 f"({tag} {mode})")
-        say(phase, plans_bit_identical=tag, mode=mode,
-            outputs=len(outs[0]))
+        for pair in ((("resident", 16), ("global", 16)),
+                     (None, ("global", R))):
+            outs = [_kernel_outputs(fs.Spec(cfg, mode, plan),
+                                    fs.Spec(cfg, "input", plan), leaves,
+                                    arrays, h0, u, seed) for plan in pair]
+            torch.cuda.synchronize()
+            n_diff = sum(not torch.equal(a, b) for a, b in zip(*outs))
+            if n_diff:
+                raise AssertionError(
+                    f"global plan at {pair[1][1]} rows differs from the "
+                    f"resident plan in {n_diff} outputs ({tag} {mode})")
+            say(phase, plans_bit_identical=tag, mode=mode,
+                rows=pair[1][1], rule=pair[0] is None,
+                outputs=len(outs[0]))
 
 
 # (arm, D, hidden, width, the batch it runs on, the plan checked and
@@ -1770,6 +1861,7 @@ def phase_physionet_kernels(results):
         if spec.plan != "global" or (plan is None) != (own.plan == "global"):
             raise AssertionError(f"{arm}: plan {own.plan} at {own.rows} "
                                  f"rows, checked {spec.plan}")
+        check_waves("physionet_kernels", arm, cfg, int(full.obs.shape[1]))
         say("physionet_kernels", arm=arm, plan=own.plan, rows=own.rows,
             smem_bytes=own.smem_bytes, checked_plan=spec.plan,
             checked_rows=spec.rows, checked_smem_bytes=spec.smem_bytes,
@@ -1801,7 +1893,7 @@ def phase_physionet_timing(results):
     t, bnd = {}, {}
     for arm, a in results["phys"]["arms"].items():
         # the global plan (the rule's or forced), and at phys50 the rule's
-        # resident plan at 4 rows beside it
+        # resident plan (one row a CTA) beside it
         for plan in (a["plan"], None) if a["plan"] else (None,):
             ms, bd, K, B, spec = _full_grid_times(
                 a["cfg"], a["model"], a["full"],
@@ -1816,7 +1908,7 @@ def phase_physionet_timing(results):
 
 
 def _physionet_run(results, phase, epochs, expect,
-                   n_records=PHYS_TRAIN_RECORDS, **kw):
+                   n_records=PHYS_TRAIN_RECORDS, rows_cfg=None, **kw):
     """One ``physionet_trainer.train`` run (batch 50, 'prng'; the 50 arm
     unless ``kw`` sets the widths) on the stand-in cut to ``n_records``
     records, with every count set to 0 just before and read just after;
@@ -1855,6 +1947,8 @@ def _physionet_run(results, phase, epochs, expect,
                 **{k: f"{v:.6f}" for k, v in vals.items()})
         say(phase, records=len(recs))
         _check_counts(phase, counts, expect)
+        if rows_cfg is not None:
+            check_rows(phase, rows_cfg)
         return counts
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1862,11 +1956,12 @@ def _physionet_run(results, phase, epochs, expect,
 
 def phase_physionet_trainer(results):
     steps = 2 * -(-int(0.8 * PHYS_TRAIN_RECORDS) // PHYS_B)
-    # the 50 arm takes the resident plan at 4 rows (the rule)
+    # the 50 arm takes the resident plan, one row a CTA (the rule)
     results["phys_launches"] = _physionet_run(
         results, "physionet_trainer", 2,
         {"njode_scan_fwd": steps, "njode_scan_bwd": steps,
-         "philox_keep": 2 * steps, "reduce_partials": 2 * steps})
+         "philox_keep": 2 * steps, "reduce_partials": 2 * steps},
+        rows_cfg=_masked_cfg(41, 41, 50))
     # one epoch of the 200 arm, the global plan at 8 rows with the encoder
     # jump, on the stand-in cut to PHYS_200_RECORDS records
     n_b = -(-int(0.8 * PHYS_200_RECORDS) // PHYS_B)
@@ -1875,7 +1970,8 @@ def phase_physionet_trainer(results):
         results, "physionet_trainer_200", 1,
         {"njode_scan_fwd_global": n_b, "njode_scan_bwd_global": n_b,
          "philox_keep": 2 * n_b, "reduce_partials": 2 * n_b},
-        n_records=PHYS_200_RECORDS, ode_nn=nn, readout_nn=nn, enc_nn=nn)
+        n_records=PHYS_200_RECORDS, rows_cfg=_masked_cfg(41, 41, 200),
+        ode_nn=nn, readout_nn=nn, enc_nn=nn)
 
 
 def _check_plan(phase, arm, spec, plan):
@@ -1913,7 +2009,8 @@ def _full_grid_times(cfg, model, full, reps, plan=None):
 def _say_times(phase, arm, spec, ms, bd, K, B):
     for k in ("K1", "K2", "K3"):
         bms, by = bd[k]
-        say(phase, arm=arm, plan=spec.plan, rows=spec.rows, kernel=k, B=B,
+        say(phase, arm=arm, plan=spec.plan,
+            rows=spec.rows_for(B, k == "K2"), kernel=k, B=B,
             K=K, ms=f"{ms[k]:.4f}", ms_per_step=f"{ms[k] / K:.5f}",
             bound_ms=f"{bms:.6f}", bound_by=by,
             roofline_share=f"{bms / ms[k]:.2e}")
@@ -1958,6 +2055,8 @@ def phase_rnn_kernels(results):
     e3 = check_close("rnn K3 loss (B=4000)", l3[0], l3p, LOSS_TOL)
     say("rnn_kernels", arm="main_path", B=B3, K3_loss_err=f"{e3:.3e}",
         K3_loss=f"{float(l3[0]):.6f}", bitwise_repeat=True)
+    for Bw in (100, B, B3):
+        check_waves("rnn_kernels", "main_path", cfg, Bw)
     results["rnn"] = dict(cfg=cfg, last=last,
                           k3=(spec3, leaves3, arrays3, h03),
                           plain_ms=dict(plain_ms, K3=plain_k3),
@@ -2019,7 +2118,7 @@ def phase_climate_rnn(results):
     counts = _climate_run(results, "njode_rnn", {
         "njode_scan_fwd_rnn": n_b, "njode_scan_bwd_rnn": n_b,
         "philox_keep": 2 * n_b, "reduce_partials": 2 * n_b}, epochs=1,
-        hidden_size=10, dropout_rate=0.1, use_rnn=True)
+        rows_cfg=cfg, hidden_size=10, dropout_rate=0.1, use_rnn=True)
     results["climate_rnn"] = dict(errs=errs, launches=counts, ms=ms, bd=bd)
 
 
@@ -2048,7 +2147,8 @@ def phase_physionet_rnn(results):
     counts = _physionet_run(
         results, "physionet_rnn", 1,
         {"njode_scan_fwd_rnn_global": n_b, "njode_scan_bwd_rnn_global": n_b,
-         "philox_keep": 2 * n_b, "reduce_partials": 2 * n_b}, use_rnn=True)
+         "philox_keep": 2 * n_b, "reduce_partials": 2 * n_b},
+        rows_cfg=cfg, use_rnn=True)
     results["phys_rnn"] = dict(errs=errs, ms=ms, bd=bd, launches=counts)
 
 
@@ -2118,7 +2218,7 @@ def kernels_line(results):
     # the climate path: the masked branch of K1-K3, K5/K6 at the climate
     # GRU-ODE-Bayes arm (launches from the climate trainer phase and, for
     # the masked branch, the PhysioNet one, whose 50 arm runs it in the
-    # resident plan at 4 rows)
+    # resident plan, one row a CTA)
     ce = results["climate_errs"]
     for name, key, s, replaces, launches in (
             ("njode_scan_fwd_masked", "K1m", src,

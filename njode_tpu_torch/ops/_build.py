@@ -23,12 +23,16 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 
-# per library: fused_scan.cu holds twelve kernel instantiations, and
+# per library: fused_scan.cu holds fifteen kernel instantiations, and
 # -split-compile=0 runs its device optimisation passes on every host core,
 # which halves its build on the H100 machine (24 to 12 s) and leaves its
 # kernel times as they were; the GOB kernels built so measured up to 50 %
-# slower in one run (PERF.md), so fused_gob.cu keeps the plain build
-EXTRA_FLAGS = {"fused_scan": ("-split-compile=0",)}
+# slower in one run (PERF.md), so fused_gob.cu keeps the plain build.
+# -fmad=false: nvcc fuses no a * b + c the source does not write as fmaf,
+# so the resident and the global plan, which compute each output with the
+# same expressions in differently shaped code, round alike (fused where
+# the surrounding code allowed it, the two plans' K2 parted by an ulp)
+EXTRA_FLAGS = {"fused_scan": ("-split-compile=0", "-fmad=false")}
 
 _lock = threading.Lock()
 _loaded = {}
@@ -75,28 +79,35 @@ def source_digest(src: str) -> str:
     return h.hexdigest()[:16]
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless a library for the hash of it and
-    its headers exists; returns the library path."""
+def _key(name, defines):
+    return name + "".join("_" + d.lower() for d in defines)
+
+
+def build(name: str, defines=()) -> str:
+    """Compile ``csrc/<name>.cu`` (with ``-D`` of each of ``defines``, a
+    library of its own) unless a library for the hash of it and its headers
+    exists; returns the library path."""
     src = os.path.join(CSRC, name + ".cu")
     digest = source_digest(src)
+    key = _key(name, defines)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    out = os.path.join(BUILD_DIR, f"lib{key}_{digest}.so")
     if os.path.exists(out):
-        build_log.setdefault(name, {"seconds": 0.0, "ptxas": "",
-                                    "path": out})
+        build_log.setdefault(key, {"seconds": 0.0, "ptxas": "",
+                                   "path": out})
         return out
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", *EXTRA_FLAGS.get(name, ()), "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, src]
+           "-std=c++17", "-O3", *EXTRA_FLAGS.get(name, ()),
+           *("-D" + d for d in defines), "-shared", "-Xcompiler", "-fPIC",
+           "-Xptxas", "-v", "-o", tmp, src]
     t0 = time.time()
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
     os.replace(tmp, out)
-    build_log[name] = {"seconds": time.time() - t0, "ptxas": res.stderr,
-                       "path": out}
+    build_log[key] = {"seconds": time.time() - t0, "ptxas": res.stderr,
+                      "path": out}
     return out
 
 
@@ -111,14 +122,15 @@ def build_all(names) -> dict:
     return dict(zip(names, paths))
 
 
-def load(name: str = "fused_scan") -> ctypes.CDLL:
+def load(name: str = "fused_scan", defines=()) -> ctypes.CDLL:
     """Build (if needed) and load one kernel library, once per process."""
+    key = _key(name, defines)
     with _lock:
-        if name not in _loaded:
-            lib = ctypes.CDLL(build(name))
+        if key not in _loaded:
+            lib = ctypes.CDLL(build(name, defines))
             _declare(name, lib)
-            _loaded[name] = lib
-        return _loaded[name]
+            _loaded[key] = lib
+        return _loaded[key]
 
 
 def lib(name: str = "fused_scan") -> ctypes.CDLL:
@@ -142,6 +154,10 @@ def _declare(name, lib):
         lib.njode_philox_masks.argtypes = [P, I, I, I, I, ctypes.c_uint32,
                                            P, P]
         lib.njode_philox_masks.restype = I
+        lib.njode_scan_occupancy.argtypes = [P, I, P]
+        lib.njode_scan_occupancy.restype = I
+        lib.njode_phase_clock.argtypes = [P, P]
+        lib.njode_phase_clock.restype = I
     elif name == "fused_gob":
         lib.gob_error_string.argtypes = [I]
         lib.gob_error_string.restype = ctypes.c_char_p

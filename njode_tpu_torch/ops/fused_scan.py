@@ -42,11 +42,15 @@ kernels save ``(r, z, n, gh_n)`` per row and unit (region ``gru``) and the
 backward's gate gradients (``dG``), regions the layout holds only with
 ``use_rnn``.
 
-Plans (``Spec.plan``, ``Spec.rows``; the counterpart of the JAX kernel's
-``_select_plan``). 'resident': every weight and its gradient in the shared
-memory of each CTA, R batch rows per CTA, R the largest of 16, 8, 4, 2, 1
-that fits; taken wherever one does (PhysioNet's 50 arm at 4 rows: on the
-H100 its K1 + K2 ran 2.2x faster than the global plan at 16, PERF.md).
+Plans (``Spec.plan``, ``Spec.rows``, ``Spec.rows_for``; the counterpart of
+the JAX kernel's ``_select_plan``). 'resident': every weight in the shared
+memory of each CTA (and, in K2, every gradient); taken wherever it fits at
+some R of 16, 8, 4, 2, 1 (``Spec.rows``: the most that fit). A launch at
+batch B takes ``Spec.rows_for(B, bwd)`` rows a CTA: the fewest at which
+every CTA of the launch is resident on the card at once (``CTAS_PER_SM``
+a SM at most, fewer where the kernel's own shared memory allows fewer),
+so one row a CTA at the training batches (B = 50-200) and 16 at the
+eval's B = 4,000. K1/K3's layout holds no gradient or backward regions.
 'global': the weights stay in one packed buffer in device memory (each
 leaf at a 16-byte boundary, ``Spec.pack_off``) and K2 adds its gradients
 into the CTA's partial row in place, so only the activations of R rows sit
@@ -76,6 +80,13 @@ from njode_tpu_torch.models.njode import dropout_slots, net_widths
 
 MAX_ROWS = 16             # batch rows per CTA (csrc/fused_scan.cu MAX_ROWS)
 ROW_CHOICES = (16, 8, 4, 2, 1)
+N_SM = 132                # SMs of the H100 SXM
+SM_SMEM = 233472          # shared memory of one SM (228 KB)
+CTA_RESERVED = 1024       # shared memory the card reserves for each CTA
+# CTAs of the resident kernels an SM holds at most: their
+# __launch_bounds__(NTHREADS, CTAS_PER_SM) keeps a thread within the
+# registers that many CTAs of 256 threads leave (csrc/fused_scan.cu)
+CTAS_PER_SM = 2
 PLANS = ("resident", "global")
 MAX_LIN = 8               # Linear layers per MLP
 MAX_LEAVES = 3 * 2 * MAX_LIN + 4      # three MLPs and the GRU's four leaves
@@ -93,11 +104,14 @@ LAUNCHES = {k + rnn + plan: 0
             for k in ("njode_scan_fwd", "njode_scan_eval", "njode_scan_bwd")
             for rnn in ("", "_rnn") for plan in ("", "_global")}
 LAUNCHES.update(philox_keep=0, reduce_partials=0, philox_masks=0)
+# the rows per CTA of each K1-K3 launch: (LAUNCHES key, B, R) -> launches
+LAUNCH_ROWS = {}
 
 
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCH_ROWS.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -109,9 +123,10 @@ class Spec:
 
     ``mask_mode``: 'input' (int8 keep-masks [K,S,B,Wmax] drawn outside) or
     'prng' (Philox inside the kernels, keyed by a per-call seed).
-    ``plan``: None (the rule: 'resident' at the most rows of 16, 8, 4, 2,
-    1 that fit, else 'global' at the most rows that fit) or a forced
-    ``(name, rows)``;
+    ``plan``: None (the rule: 'resident' where K2's layout fits at some of
+    16, 8, 4, 2, 1 rows, ``rows`` the most that fit and each launch at
+    ``rows_for(B)``; else 'global' at the most rows that fit) or a forced
+    ``(name, rows)``, which every launch takes;
     ``self.plan`` is None when neither plan fits."""
 
     def __init__(self, cfg, mask_mode: str = "prng", plan=None):
@@ -172,9 +187,12 @@ class Spec:
             self.pack_off.append(self.pack_off[-1] + (b - a + 3) // 4 * 4)
         self.buf_w = max(self.ode_w + self.enc_w + self.ro_w)
         self._cfgs, self._progs = {}, {}
+        self.forced = plan is not None
         self.plan, self.rows = self._choose_plan(plan)
 
     def fits(self, plan: str, R: int) -> bool:
+        """Whether K1-K3 fit one CTA at R rows in ``plan`` (resident: K2's
+        layout, the larger)."""
         off, n = self.layout(R, plan)
         return 4 * n <= SMEM_LIMIT and (
             plan != "global"
@@ -194,6 +212,28 @@ class Spec:
                 if self.fits(name, R):
                     return name, R
         return None, None
+
+    def ctas_per_sm(self, R: int, bwd: bool = True) -> int:
+        """CTAs of the resident K2 (``bwd``) or K1/K3 at R rows that one SM
+        holds at once: as many as its shared memory takes, at most
+        ``CTAS_PER_SM``."""
+        n = 4 * self.layout(R, "resident", bwd)[1] + CTA_RESERVED
+        return min(CTAS_PER_SM, SM_SMEM // n)
+
+    def rows_for(self, B: int, bwd: bool = True) -> int:
+        """Rows per CTA of K2 (``bwd``) or K1/K3 at batch B: a forced plan's
+        rows, the global plan's ``rows``, else the fewest of 1, 2, 4, 8,
+        16 (up to ``rows``) at which the launch's ceil(B / R) CTAs are all
+        resident at once on the card's ``N_SM`` SMs, or ``rows`` where
+        none is."""
+        if self.forced or self.plan != "resident":
+            return self.rows
+        for R in reversed(ROW_CHOICES):
+            if R > self.rows:
+                break
+            if -(-B // R) <= self.ctas_per_sm(R, bwd) * N_SM:
+                return R
+        return self.rows
 
     @property
     def thresh(self) -> int:
@@ -222,20 +262,29 @@ class Spec:
         out.append(gru)
         return out
 
-    def layout(self, R: int = MAX_ROWS, plan: str = "resident"):
+    def layout(self, R: int = MAX_ROWS, plan: str = "resident",
+               bwd: bool = True):
         """Float offsets of every shared-memory region of one CTA with
-        ``R`` rows, and the total; one layout serves K1-K3. The weights
-        ``w`` and their gradients ``g`` are regions of the 'resident' plan
-        only. ``tX`` holds the encoder's input
+        ``R`` rows, and the total. ``tX`` holds the encoder's input
         (``tanh X``, or ``[tanh X_imp, M]`` when masked); ``M`` and ``Xi``
         (``X_imp``) are empty unless masked. The readout's saved
         activations hold one stacked pass of 2R rows, or, when masked
         without use_rnn, the pre-jump pass of R rows at ``s_ro`` and the
         post-jump one at ``s_ro2``. With use_rnn, ``tX`` holds the GRU's
-        input ``tanh X`` (R x D), ``in_ro[0:R*H]`` its ``tanh h1``, and two
-        regions follow the others, so the other configs' offsets and sizes
-        stay: ``gru`` (the saved r, z, n, gh_n, 4 x R x H) and ``dG`` (the
-        backward's da_r, da_z, da_n, dgh_n per row, R x 4H)."""
+        input ``tanh X`` (R x D), ``in_ro[0:R*H]`` its ``tanh h1``, and
+        ``gru`` the saved r, z, n, gh_n (4 x R x H), ``dG`` the backward's
+        da_r, da_z, da_n, dgh_n per row (R x 4H).
+
+        'global' (one layout for K1-K3): the activations, then the weight
+        ring in what they leave. 'resident': the weights ``w``,
+        then (K2, ``bwd``) their gradients ``g``, then two sets of the
+        step's inputs and carries (``io``: t and dt at ``tdt``, ``h``,
+        ``lx``, ``tau``, ``X``, ``obs``, ``M``, and the ODE's and the
+        jump's inputs ``in_ode``, ``tX``; the second set ``io2 - io``
+        floats after the first), so one step fills the other set while it
+        reads its own; ``le`` the loss's error terms of each row and
+        output, which the readout's last phase writes; the backward
+        regions only in K2's layout."""
         R2 = 2 * R
         D, H, O, P = self.D, self.H, self.O, self.n_params
         DM = D if self.masked else 0
@@ -246,35 +295,64 @@ class Spec:
             off[name] = n
             n += (size + 3) // 4 * 4        # 16-byte aligned regions
 
-        if plan == "resident":
-            take("w", P)
-            take("g", P)
-        for name, size in (("h", R * H), ("lx", R * D), ("tau", R),
-                           ("X", R * D), ("obs", R), ("nobs", R),
-                           ("lrow", R), ("h1", R * H), ("h2", R * H),
-                           ("in_ode", R * self.ode_w[0]),
-                           ("tX", R * self.enc_w[0]),
-                           ("in_ro", R2 * H), ("f", R * H), ("enc", R * H),
-                           ("ro", R2 * O), ("M", R * DM), ("Xi", R * DM)):
-            take(name, size)
-        for name, ws, rows in (("s_ode", self.ode_w, R),
-                               ("s_enc", self.enc_w, R),
-                               ("s_ro", self.ro_w, R2)):
-            take(name, 2 * rows * sum(ws[1:-1]))
-        off["s_ro2"] = off["s_ro"] + 2 * R * sum(self.ro_w[1:-1])
-        for name, size in (("dA", R2 * self.buf_w), ("dB", R2 * self.buf_w),
-                           ("dh", R * H), ("dlx", R * D), ("dtau", R),
-                           ("rs", 2 * R), ("dst", R2 * O), ("dh1", R * H),
-                           ("dhe", R * H), ("df", R * H), ("dlxc", R * D),
-                           ("dtauc", R)):
-            take(name, size)
-        if self.use_rnn:
-            take("gru", 4 * R * H)
-            take("dG", 4 * R * H)
+        def saves():
+            for name, ws, rows in (("s_ode", self.ode_w, R),
+                                   ("s_enc", self.enc_w, R),
+                                   ("s_ro", self.ro_w, R2)):
+                take(name, 2 * rows * sum(ws[1:-1]))
+            off["s_ro2"] = off["s_ro"] + 2 * R * sum(self.ro_w[1:-1])
+
         if plan == "global":
+            for name, size in (("h", R * H), ("lx", R * D), ("tau", R),
+                               ("X", R * D), ("obs", R), ("nobs", R),
+                               ("lrow", R), ("h1", R * H), ("h2", R * H),
+                               ("in_ode", R * self.ode_w[0]),
+                               ("tX", R * self.enc_w[0]),
+                               ("in_ro", R2 * H), ("f", R * H),
+                               ("enc", R * H), ("ro", R2 * O),
+                               ("M", R * DM), ("Xi", R * DM)):
+                take(name, size)
+            saves()
+            for name, size in (("dA", R2 * self.buf_w),
+                               ("dB", R2 * self.buf_w), ("dh", R * H),
+                               ("dlx", R * D), ("dtau", R), ("rs", 2 * R),
+                               ("dst", R2 * O), ("dh1", R * H),
+                               ("dhe", R * H), ("df", R * H),
+                               ("dlxc", R * D), ("dtauc", R)):
+                take(name, size)
             if self.use_rnn:
+                take("gru", 4 * R * H)
+                take("dG", 4 * R * H)
                 take("gsc", 6 * R * H)
             take("ring", 2 * max(self._ring_stage(n), 0))
+            return off, n
+        take("w", P)
+        if bwd:
+            take("g", P)
+        off["io"] = n
+        for name, size in (("tdt", 2), ("h", R * H), ("lx", R * D),
+                           ("tau", R), ("X", R * D), ("obs", R),
+                           ("M", R * DM), ("in_ode", R * self.ode_w[0]),
+                           ("tX", R * self.enc_w[0])):
+            take(name, size)
+        off["io2"] = n
+        n += n - off["io"]
+        for name, size in (("nobs", R), ("lrow", R), ("h1", R * H),
+                           ("h2", R * H), ("in_ro", R2 * H), ("ro", R2 * O),
+                           ("le", R2 * O), ("Xi", R * DM)):
+            take(name, size)
+        saves()
+        if bwd:
+            for name, size in (("dA", R2 * self.buf_w),
+                               ("dB", R2 * self.buf_w), ("dh", R * H),
+                               ("dlx", R * D), ("dtau", R), ("dst", R2 * O),
+                               ("dh1", R * H), ("dhe", R * H), ("df", R * H),
+                               ("dlxc", R * D), ("dtauc", R)):
+                take(name, size)
+        if self.use_rnn:
+            take("gru", 4 * R * H)
+            if bwd:
+                take("dG", 4 * R * H)
         return off, n
 
     def ring_ops(self, R: int):
@@ -732,7 +810,7 @@ _LAYOUT_FIELDS = ("w", "g", "h", "lx", "tau", "X", "obs", "nobs", "lrow",
                   "h1", "h2", "in_ode", "tX", "in_ro", "f", "enc", "ro",
                   "dA", "dB", "dh", "dlx", "dtau", "rs", "dst", "dh1", "dhe",
                   "df", "dlxc", "dtauc", "M", "Xi", "gru", "dG", "gsc",
-                  "ring")
+                  "ring", "tdt", "le")
 
 
 class _ScanCfg(ctypes.Structure):
@@ -747,27 +825,31 @@ class _ScanCfg(ctypes.Structure):
                                        "smem_floats", "gru_wih", "gru_whh",
                                        "gru_bih", "gru_bhh", "gru_pwih",
                                        "gru_pwhh", "n_tiles_fwd",
-                                       "n_tiles_bwd", "stage")]
+                                       "n_tiles_bwd", "stage", "io_stride")]
         + [("leaf_off", ctypes.c_int * (MAX_LEAVES + 1))]
         + [("o_" + n, ctypes.c_int) for n in _LAYOUT_FIELDS]
         + [("ode", _MLPDesc), ("enc", _MLPDesc), ("ro", _MLPDesc),
            ("ro2", _MLPDesc)])
 
 
-def make_cfg(spec: Spec, K: int, B: int, train: bool, weight: float):
-    """The kernels' configuration for one call (host memory), in the
-    spec's plan; the global plan has no ``w``/``g`` regions, the resident
-    plan no ``ring``/``gsc`` regions and no tiles, and a config without
-    use_rnn no ``gru``/``dG`` regions and no GRU leaves (their offsets are
-    -1). Kept on the spec per call shape, so a step builds it once."""
-    key = (K, B, bool(train), float(weight))
+def make_cfg(spec: Spec, K: int, B: int, train: bool, weight: float,
+             bwd: bool = True):
+    """The configuration of one call of K2 (``bwd``) or K1/K3 (host
+    memory), in the spec's plan at ``spec.rows_for(B, bwd)`` rows; the
+    global plan has no ``w``/``g`` regions, the resident plan no
+    ``ring``/``gsc`` regions and no tiles (and K1/K3's no ``g`` or
+    backward regions), and a config without use_rnn no ``gru``/``dG``
+    regions and no GRU leaves (their offsets are -1). Kept on the spec per
+    call shape, so a step builds it once."""
+    key = (K, B, bool(train), float(weight), bool(bwd))
     if key not in spec._cfgs:
-        spec._cfgs[key] = _make_cfg(spec, K, B, train, weight)
+        spec._cfgs[key] = _make_cfg(spec, K, B, train, weight, bwd)
     return spec._cfgs[key]
 
 
-def _make_cfg(spec, K, B, train, weight):
-    off, total = spec.layout(spec.rows, spec.plan)
+def _make_cfg(spec, K, B, train, weight, bwd):
+    R = spec.rows_for(B, bwd)
+    off, total = spec.layout(R, spec.plan, bwd)
     c = _ScanCfg()
     c.K, c.B, c.D, c.H, c.O = K, B, spec.D, spec.H, spec.O
     c.S, c.Wmax, c.n_params = spec.S, spec.w_max, spec.n_params
@@ -790,7 +872,8 @@ def _make_cfg(spec, K, B, train, weight):
     c.thresh = spec.thresh
     c.keep = 1.0 - spec.rate
     c.weight = float(weight)
-    c.rows, c.plan = spec.rows, PLANS.index(spec.plan)
+    c.rows, c.plan = R, PLANS.index(spec.plan)
+    c.io_stride = off["io2"] - off["io"] if "io" in off else 0
     c.buf_w, c.smem_floats = spec.buf_w, total
     for i, o in enumerate(spec.leaf_off):
         c.leaf_off[i] = o
@@ -900,6 +983,11 @@ def _launch_key(spec):
         "_global" if spec.plan == "global" else "")
 
 
+def _count(key, B, R):
+    LAUNCHES[key] += 1
+    LAUNCH_ROWS[(key, B, R)] = LAUNCH_ROWS.get((key, B, R), 0) + 1
+
+
 def _raise_rc(lib, rc, what):
     if rc:
         raise RuntimeError(f"{what} failed: "
@@ -940,7 +1028,8 @@ def scan_fwd_cuda(spec, leaves, arrays, weight, h0, train, u=None,
     lib = _lib()
     times, dts, obs, X, n_obs, start_X, M = unpack_arrays(spec, arrays)
     dev = h0.device
-    n_cta = -(-B // spec.rows)
+    cfg = make_cfg(spec, K, B, train, weight, bwd=False)
+    n_cta = -(-B // cfg.rows)
     loss_part = torch.empty((n_cta,), dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
     if want_hists:
@@ -949,7 +1038,6 @@ def scan_fwd_cuda(spec, leaves, arrays, weight, h0, train, u=None,
                  torch.empty((K, B, 1), device=dev))
     else:
         hists = (None, None, None)
-    cfg = make_cfg(spec, K, B, train, weight)
     ptrs = (ctypes.c_void_p * len(leaves))(*[p.data_ptr() for p in leaves])
     wg = packed_weights(spec, leaves)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -961,8 +1049,8 @@ def scan_fwd_cuda(spec, leaves, arrays, weight, h0, train, u=None,
             _ptr(loss_part), _ptr(loss), *(_ptr(t) for t in hists),
             int(want_hists), 1.0 / B, stream)
     _raise_rc(lib, rc, "njode_scan_fwd")
-    LAUNCHES[("njode_scan_fwd" if want_hists else "njode_scan_eval")
-             + _launch_key(spec)] += 1
+    _count(("njode_scan_fwd" if want_hists else "njode_scan_eval")
+           + _launch_key(spec), B, cfg.rows)
     LAUNCHES["reduce_partials"] += 1
     if cfg.mode == 2:
         LAUNCHES["philox_keep"] += 1
@@ -984,8 +1072,8 @@ def scan_bwd_cuda(spec, leaves, arrays, weight, train, hists, dloss,
     lib = _lib()
     times, dts, obs, X, n_obs, start_X, M = unpack_arrays(spec, arrays)
     dev = hh.device
-    n_cta = -(-B // spec.rows)
     cfg = make_cfg(spec, K, B, train, weight)
+    n_cta = -(-B // cfg.rows)
     partials = torch.empty((n_cta, spec.n_params), device=dev)
     flat = torch.empty((spec.n_params,), device=dev)
     dh0 = torch.empty((B, spec.H), device=dev)
@@ -999,7 +1087,7 @@ def scan_bwd_cuda(spec, leaves, arrays, weight, train, hists, dloss,
             _ptr(seed), _ptr(n_obs), _ptr(hh), _ptr(lxh), _ptr(tauh),
             _ptr(dloss), _ptr(partials), _ptr(flat), _ptr(dh0), stream)
     _raise_rc(lib, rc, "njode_scan_bwd")
-    LAUNCHES["njode_scan_bwd" + _launch_key(spec)] += 1
+    _count("njode_scan_bwd" + _launch_key(spec), B, cfg.rows)
     LAUNCHES["reduce_partials"] += 1
     if cfg.mode == 2:
         LAUNCHES["philox_keep"] += 1

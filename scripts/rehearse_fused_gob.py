@@ -35,19 +35,21 @@ STUB = r'''
 #include <cstddef>
 #include <cstdint>
 #include <cmath>
+#include <math.h>
 #include <cstring>
 #include <algorithm>
 #include <barrier>
 #include <thread>
 #include <vector>
 #include <limits>
+#include <cstdlib>
 using std::min; using std::max;
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
 #define __noinline__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
 #define __restrict__
 struct dim3 { unsigned x, y, z;
@@ -67,6 +69,7 @@ inline float __shfl_xor_sync(unsigned, float v, int w) {
   return r;
 }
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline void __trap() { std::abort(); }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline unsigned __umulhi(unsigned a, unsigned b) {
   return (unsigned)(((unsigned long long)a * b) >> 32); }
@@ -81,6 +84,9 @@ inline const char* cudaGetErrorString(cudaError_t) { return "error"; }
 inline cudaError_t cudaGetLastError() { return 0; }
 template <class F> inline cudaError_t cudaFuncSetAttribute(F*, int, int) {
   return 0; }
+template <class F> inline cudaError_t
+cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F*, int, size_t) {
+  *n = 0; return 0; }
 extern float sm[];
 template <class F> void launch_grid(dim3 g, int threads, size_t smem_bytes,
                                    F f) {
@@ -107,15 +113,17 @@ template <class F> void launch_grid(dim3 g, int threads, size_t smem_bytes,
 '''
 
 
-def build(out_dir):
-    """The CPU library of csrc/fused_gob.cu in ``out_dir``."""
+def build(out_dir, name="fused_gob"):
+    """The CPU library of csrc/<name>.cu in ``out_dir`` (fused_gob.cu, or
+    fused_scan.cu for scripts/rehearse_fused_scan.py)."""
     csrc = os.path.join(ROOT, "njode_tpu_torch", "ops", "csrc")
-    with open(os.path.join(csrc, "fused_gob.cu")) as f:
+    with open(os.path.join(csrc, name + ".cu")) as f:
         s = f.read()
-    s = s.replace("#include <cuda_runtime.h>", '#include "cuda_stub.h"')
+    s = s.replace("#include <cuda_runtime.h>",
+                  '#include "cuda_stub.h"\nfloat sm[1 << 18];')
     s = s.replace('#include "philox.cuh"',
                   '#include "' + os.path.join(csrc, "philox.cuh") + '"')
-    s = s.replace("extern __shared__ float sm[];", "float sm[1 << 18];")
+    s = s.replace("extern __shared__ float sm[];", "")
 
     def launch(m):
         name, cfg, args = m.group(1), m.group(2), m.group(3)
@@ -128,10 +136,10 @@ def build(out_dir):
                s, flags=re.S)
     with open(os.path.join(out_dir, "cuda_stub.h"), "w") as f:
         f.write(STUB)
-    src = os.path.join(out_dir, "fused_gob_cpu.cpp")
+    src = os.path.join(out_dir, name + "_cpu.cpp")
     with open(src, "w") as f:
         f.write(s)
-    lib = os.path.join(out_dir, "libfused_gob_cpu.so")
+    lib = os.path.join(out_dir, f"lib{name}_cpu.so")
     subprocess.run(["g++", "-std=c++20", "-O1", "-fPIC", "-shared",
                     "-Wno-unknown-pragmas", "-o", lib, src, "-lpthread"],
                    check=True)

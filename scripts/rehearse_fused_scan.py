@@ -1,0 +1,199 @@
+"""Rehearse the NJODE scan kernels (njode_tpu_torch/ops/csrc/fused_scan.cu)
+on the CPU, before a card run.
+
+    python scripts/rehearse_fused_scan.py [variant ...]
+
+Builds the source with g++ through the stub header of
+scripts/rehearse_fused_gob.py (each CTA's 256 threads as ``std::thread``s,
+``__syncthreads`` a ``std::barrier``, the dynamic shared memory a global
+array filled with NaN before each CTA, cp.async a plain copy), then drives
+the C interface with the configuration the wrappers build
+(``fused_scan.make_cfg``) on CPU tensors: K1 (loss and histories), K2
+(gradients and dh0) and K3 (eval loss) in the resident plan at R = 1, 2
+and 16 (the last CTA of a batch of 5 partly padding), in both mask modes,
+against the plain versions, and the global plan forced at the same rows
+against the resident plan bit for bit. Each variant is one branch of the
+kernels (unmasked or masked, encoder or GRU jump) or one option (no bias,
+relu, easy loss, input_current_t, residual encoder and readout, nets of
+other depths). It finds arithmetic, indexing and barrier faults (a
+mismatched barrier hangs), not what nvcc refuses.
+"""
+
+import ctypes
+import os
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+B, K = 5, 7
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _setup(kw, D, seed=0):
+    import numpy as np
+    import torch
+
+    from njode_tpu_torch.data import grid
+    from njode_tpu_torch.models.njode import NJODE, NJODEConfig
+
+    nn = kw.pop("nn", ((6, "tanh"), (5, "tanh")))
+    args = dict(input_size=D, hidden_size=4, output_size=D, ode_nn=nn,
+                readout_nn=nn, enc_nn=nn, dropout_rate=0.2)
+    args.update(kw)
+    cfg = NJODEConfig(**args)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = NJODE(cfg)
+    rs = np.random.RandomState(seed)
+    paths = rs.lognormal(0.0, 0.3, size=(B, D, K))
+    observed = (rs.random((B, K)) < 0.5).astype(np.int64)
+    b = grid.recompute_n_obs(grid.batch_from_paths(paths, observed,
+                                                   1.0 / (K - 1)))
+    m = (rs.random(b.X.shape) < 0.6).astype(np.float32)
+    m[..., 0] = 1.0
+    M = m * b.obs[:, :, None]
+    b = b._replace(M=M, X=(b.X * M).astype(np.float32))
+    batch = grid.to_torch(b, "cpu")
+    arrays = tuple(t.contiguous() for t in (
+        batch.times, batch.dt, batch.obs, batch.X, batch.n_obs_ot,
+        batch.start_X, batch.M))
+    leaves = [p.detach().contiguous() for p in
+              __import__("njode_tpu_torch.ops.fused_scan",
+                         fromlist=["x"]).flat_leaves(model)]
+    with torch.no_grad():
+        zero = torch.zeros_like(batch.start_X) if cfg.masked else None
+        h0 = model.encoder_map(batch.start_X, zero).contiguous()
+    return cfg, arrays, leaves, h0
+
+
+def _run(lib, fs, spec, leaves, arrays, h0, u, seed):
+    """K1, K2 and K3 of ``spec`` through the CPU build: (loss, histories,
+    gradients, dh0, eval loss)."""
+    import torch
+
+    times, dts, obs, X, n_obs, start_X, M = fs.unpack_arrays(spec, arrays)
+    Kk, Bb = obs.shape
+    ptrs = (ctypes.c_void_p * len(leaves))(*[p.data_ptr() for p in leaves])
+    wg = fs.packed_weights(spec, leaves)
+    prog = (None if spec.plan != "global" else
+            torch.tensor(spec.tile_program()[0], dtype=torch.int32))
+    out = []
+    for want in (True, False):
+        train = want
+        c = fs.make_cfg(spec, Kk, Bb, train, 0.5, bwd=False)
+        part = torch.full((-(-Bb // c.rows),), float("nan"))
+        loss = torch.empty(())
+        hists = ((torch.empty(Kk, Bb, spec.H), torch.empty(Kk, Bb, spec.D),
+                  torch.empty(Kk, Bb, 1)) if want else (None,) * 3)
+        rc = lib.njode_scan_fwd(
+            ctypes.addressof(c), ptrs, _ptr(wg), _ptr(prog), _ptr(times),
+            _ptr(dts), _ptr(obs), _ptr(X), _ptr(M),
+            _ptr(u if train else None), _ptr(seed if train else None),
+            _ptr(n_obs), _ptr(h0), _ptr(start_X), _ptr(part), _ptr(loss),
+            *(_ptr(t) for t in hists), int(want), 1.0 / Bb, None)
+        assert rc == 0, rc
+        out.append((loss.clone(), hists))
+    (loss, hists), (loss3, _) = out
+    c = fs.make_cfg(spec, Kk, Bb, True, 0.5)
+    parts = torch.full((-(-Bb // c.rows), spec.n_params), float("nan"))
+    flat = torch.empty(spec.n_params)
+    dh0 = torch.empty(Bb, spec.H)
+    dloss = torch.tensor([1.3])
+    rc = lib.njode_scan_bwd(
+        ctypes.addressof(c), ptrs, _ptr(wg), _ptr(prog), _ptr(times),
+        _ptr(dts), _ptr(obs), _ptr(X), _ptr(M), _ptr(u), _ptr(seed),
+        _ptr(n_obs), *(_ptr(t) for t in hists), _ptr(dloss), _ptr(parts),
+        _ptr(flat), _ptr(dh0), None)
+    assert rc == 0, rc
+    grads = [flat[a:b].view(s) for a, b, s in
+             zip(spec.leaf_off[:-1], spec.leaf_off[1:], spec.leaf_shapes)]
+    return [loss, *hists, *grads, dh0, loss3]
+
+
+def rehearse(lib, name, kw, D, R, mode):
+    """One variant at R rows in one mask mode against the plain versions,
+    and the global plan at R rows against the resident plan bit for bit;
+    prints one line and returns whether both hold."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    cfg, arrays, leaves, h0 = _setup(dict(kw), D)
+    spec = fs.Spec(cfg, mode, ("resident", R))
+    u = seed = None
+    if spec.rate > 0 and spec.S > 0:
+        if mode == "input":
+            u = (torch.rand((K, spec.S, B, spec.w_max),
+                            generator=torch.Generator().manual_seed(1))
+                 < 0.8).to(torch.int8)
+        else:
+            seed = torch.tensor([123456789012345], dtype=torch.int64)
+    got = _run(lib, fs, spec, leaves, arrays, h0, u, seed)
+    lp, hp = fs.scan_fwd_plain(spec, leaves, arrays, 0.5, h0, True, u, seed)
+    gp, dp = fs.scan_bwd_plain(spec, leaves, arrays, 0.5, True, got[1:4],
+                               torch.tensor(1.3), u, seed)
+    l3, _ = fs.scan_fwd_plain(spec, leaves, arrays, 0.5, h0, False,
+                              want_hists=False)
+    want = [lp, *hp, *gp, dp, l3]
+    errs = [float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+            for a, b in zip(got, want)]
+    glob = _run(lib, fs, fs.Spec(cfg, mode, ("global", R)), leaves, arrays,
+                h0, u, seed)
+    n_diff = sum(not torch.equal(a, b) for a, b in zip(got, glob))
+    ok = max(errs) < 1e-4 and n_diff == 0 and all(
+        bool(torch.isfinite(t).all()) for t in got)
+    print(f"{'ok ' if ok else 'BAD'} {name} R={R} {mode} "
+          f"loss {errs[0]:.1e} hist {max(errs[1:4]):.1e} "
+          f"grad {max(errs[4:-2]):.1e} dh0 {errs[-2]:.1e} eval "
+          f"{errs[-1]:.1e} global-vs-resident outputs differing {n_diff}",
+          flush=True)
+    return ok
+
+
+VARIANTS = [
+    ("unmasked", dict(), 1),
+    ("unmasked_D2", dict(), 2),
+    ("masked", dict(masked=True), 2),
+    ("rnn", dict(use_rnn=True), 2),
+    ("rnn_masked", dict(use_rnn=True, masked=True), 2),
+    ("rnn_nobias", dict(use_rnn=True, bias=False), 1),
+    ("nobias_relu_easy", dict(bias=False, which_loss="easy",
+                              nn=((6, "relu"), (5, "tanh"))), 2),
+    ("ict_residual", dict(input_current_t=True, residual_enc_dec=True), 2),
+    ("masked_ict_residual", dict(masked=True, input_current_t=True,
+                                 residual_enc_dec=True), 2),
+    ("depths", dict(ode_nn=((6, "tanh"),),
+                    enc_nn=((5, "tanh"), (6, "relu"), (4, "tanh")),
+                    readout_nn=((7, "tanh"),)), 1),
+    ("masked_depths", dict(masked=True, ode_nn=((6, "tanh"), (3, "tanh"),
+                                                (5, "tanh")),
+                           enc_nn=((5, "tanh"),)), 2),
+]
+
+
+def main(names):
+    import rehearse_fused_gob as rg
+
+    from njode_tpu_torch.ops import _build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = ctypes.CDLL(rg.build(tmp, "fused_scan"))
+        _build._declare("fused_scan", lib)
+        ok = True
+        for name, kw, D in VARIANTS:
+            if names and name not in names:
+                continue
+            for R in (1, 2, 16):
+                for mode in ("input", "prng"):
+                    ok &= rehearse(lib, name, kw, D, R, mode)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -320,17 +320,18 @@ def _arm_cfg(D, hidden, width, masked):
 # resident and the published arms whose weights do not fit one CTA
 # (experiments/configs.py: PhysioNet :233-245, climate :141-150, sine
 # :265-279); the global plan adds the ring (and, with the GRU jump, its
-# gate sums) in the shared memory the activations leave
+# gate sums) in the shared memory the activations leave; the resident
+# plan's bytes are K2's at the most rows that fit
 PLAN_ARMS = [
-    ("main_path", 1, 10, 50, False, False, "resident", 16, 153536, 153536),
-    ("main_path_rnn", 1, 10, 50, False, True, "resident", 16, 161792,
-     161792),
-    ("climate_small", 5, 10, 50, True, False, "resident", 16, 163904,
-     163904),
-    ("climate_small_rnn", 5, 10, 50, True, True, "resident", 16, 173088,
-     173088),
-    ("physionet_50", 41, 41, 50, True, False, "resident", 4, 230128,
-     230128),
+    ("main_path", 1, 10, 50, False, False, "resident", 16, 154080, 154080),
+    ("main_path_rnn", 1, 10, 50, False, True, "resident", 16, 162336,
+     162336),
+    ("climate_small", 5, 10, 50, True, False, "resident", 16, 166624,
+     166624),
+    ("climate_small_rnn", 5, 10, 50, True, True, "resident", 16, 175808,
+     175808),
+    ("physionet_50", 41, 41, 50, True, False, "resident", 2, 215632,
+     215632),
     ("physionet_50_rnn", 41, 41, 50, True, True, "global", 16, 217024,
      159936),
     ("physionet_200", 41, 41, 200, True, False, "global", 8, 232448,
@@ -349,8 +350,9 @@ def _plan_cfg(arm):
 
 @pytest.mark.parametrize("arm", PLAN_ARMS, ids=[a[0] for a in PLAN_ARMS])
 def test_plan_rule(arm):
-    """``Spec`` takes the resident plan at the most rows of 16, 8, 4, 2, 1
-    where every weight and its gradient fit (PhysioNet 50: 4), else the
+    """``Spec`` takes the resident plan where K2's layout (every weight
+    and its gradient) fits at some of 16, 8, 4, 2, 1 rows, ``rows`` the
+    most that fit (PhysioNet 50: 2), else the
     global plan at the most rows whose activations fit, with the ring in
     what they leave (no arm loses rows to it); ``supported`` admits every
     arm."""
@@ -367,6 +369,80 @@ def test_plan_rule(arm):
         act = off["gsc"] if "gsc" in off else off["ring"]
         assert 4 * act == act_bytes
         assert not any(spec.fits("resident", R) for R in fs.ROW_CHOICES)
+
+
+# (arm of PLAN_ARMS, batch, K2's rows, K1/K3's rows): the published
+# batches (experiments/configs.py) and the main path's last batch of 60;
+# the global arms keep their plan's rows
+ROWS_CASES = [
+    ("main_path", 100, 1, 1), ("main_path", 200, 1, 1),
+    ("main_path", 4000, 16, 16), ("main_path", 60, 1, 1),
+    ("main_path_rnn", 100, 1, 1), ("main_path_rnn", 200, 1, 1),
+    ("main_path_rnn", 4000, 16, 16), ("climate_small", 100, 1, 1),
+    ("climate_small_rnn", 100, 1, 1), ("physionet_50", 50, 1, 1),
+    ("physionet_50_rnn", 50, 16, 16), ("physionet_200", 50, 8, 8),
+]
+
+
+@pytest.mark.parametrize("case", ROWS_CASES,
+                         ids=[f"{c[0]}_B{c[1]}" for c in ROWS_CASES])
+def test_rows_rule(case):
+    """``Spec.rows_for(B, bwd)``: in the resident plan the fewest rows of
+    1, 2, 4, 8, 16 at which the launch's ceil(B / R) CTAs are all resident
+    at once on the card's SMs (counted from the kernel's own shared bytes,
+    at most ``CTAS_PER_SM`` a SM), else the most that fit, or the global
+    plan's rows; ``make_cfg``
+    takes them per batch and per kernel."""
+    name, B, r_bwd, r_fwd = case
+    spec = fs.Spec(_plan_cfg(next(a for a in PLAN_ARMS if a[0] == name)))
+    assert (spec.rows_for(B), spec.rows_for(B, False)) == (r_bwd, r_fwd)
+    for bwd, R in ((True, r_bwd), (False, r_fwd)):
+        assert fs.make_cfg(spec, 30, B, True, 0.5, bwd=bwd).rows == R
+        if spec.plan != "resident":
+            continue
+        assert spec.fits("resident", R)
+        per_sm = spec.ctas_per_sm(R, bwd)
+        total = 4 * spec.layout(R, "resident", bwd)[1] + fs.CTA_RESERVED
+        assert per_sm == min(fs.CTAS_PER_SM, fs.SM_SMEM // total) >= 1
+        # every CTA resident at once, or (K2 at the eval's B = 4,000) none
+        # of the rows that fit allows it and the most are taken
+        assert -(-B // R) <= per_sm * fs.N_SM or R == spec.rows
+        if R > 1:        # fewer rows would take a second wave
+            half = R // 2
+            assert -(-B // half) > spec.ctas_per_sm(half, bwd) * fs.N_SM
+
+
+def test_forward_layout_and_rows_per_batch():
+    """K1/K3's resident layout holds no gradient region and no backward
+    region (K2's holds both), so more of its CTAs fit an SM; ``make_cfg``
+    keeps one configuration per call shape and kernel, each at its batch's
+    rows (the last, smaller batch of an epoch at its own), and a forced
+    plan's rows at every batch."""
+    spec = fs.Spec(_plan_cfg(PLAN_ARMS[0]))
+    P4 = (spec.n_params + 3) // 4 * 4
+    bwd_only = {"g", "dA", "dB", "dh", "dlx", "dtau", "dst", "dh1", "dhe",
+                "df", "dlxc", "dtauc", "dG"}
+    for R in fs.ROW_CHOICES:
+        fwd, n_fwd = spec.layout(R, "resident", bwd=False)
+        bwd, n_bwd = spec.layout(R, "resident")
+        assert not bwd_only & set(fwd) and {"w", "g", "dA"} <= set(bwd)
+        assert {k: v - P4 for k, v in bwd.items()
+                if k not in bwd_only and k != "w"} == {
+            k: v for k, v in fwd.items() if k != "w"}
+        assert n_bwd - n_fwd > P4
+    assert 4 * spec.layout(16, "resident", bwd=False)[1] == 98048
+    assert (spec.ctas_per_sm(16), spec.ctas_per_sm(16, False)) == (1, 2)
+    c_fwd = fs.make_cfg(spec, 100, 100, True, 0.5, bwd=False)
+    c_bwd = fs.make_cfg(spec, 100, 100, True, 0.5)
+    assert (c_fwd.rows, c_fwd.o_g, c_fwd.o_dA) == (1, -1, -1)
+    assert (c_bwd.rows, c_bwd.o_g) == (1, P4)
+    assert c_fwd.smem_floats == spec.layout(1, "resident", bwd=False)[1]
+    assert fs.make_cfg(spec, 100, 100, True, 0.5, bwd=False) is c_fwd
+    assert fs.make_cfg(spec, 100, 4000, False, 0.5, bwd=False).rows == 16
+    assert fs.make_cfg(spec, 100, 60, True, 0.5).rows == 1
+    forced = fs.Spec(spec.cfg, "prng", ("resident", 16))
+    assert {fs.make_cfg(forced, 100, B, True, 0.5, bwd=bwd).rows
+            for B in (60, 100, 4000) for bwd in (True, False)} == {16}
 
 
 @pytest.mark.parametrize("arm", [a for a in PLAN_ARMS if a[6] == "global"],
@@ -429,32 +505,42 @@ def test_reduce_order_is_ascending_rows(shape):
 
 
 def test_forced_plans_and_global_layout():
-    """A forced plan: the resident plan of PhysioNet's 50 arm fits at 4
-    rows (230,128 B), not at 8; the global plan's layout has no weight or
-    gradient regions, and ``make_cfg`` marks their offsets -1, names the
-    plan and the rows, and counts the activations alone."""
+    """A forced plan: the resident plan of PhysioNet's 50 arm fits at 2
+    rows (215,632 B), not at 4, and every launch takes the forced rows
+    whatever the batch; the global plan's layout has no weight, gradient
+    or io-set regions, and ``make_cfg`` marks their offsets -1, names the
+    plan and the rows, and counts the activations alone; the resident
+    plan's holds the weights, then K2's gradients, then the two io sets
+    (``io_stride`` apart), and no ring."""
     cfg = _arm_cfg(41, 41, 50, True)
-    spec = fs.Spec(cfg, "prng", ("resident", 4))
-    assert (spec.plan, spec.rows, spec.smem_bytes) == ("resident", 4, 230128)
+    spec = fs.Spec(cfg, "prng", ("resident", 2))
+    assert (spec.plan, spec.rows, spec.smem_bytes) == ("resident", 2, 215632)
+    assert spec.rows_for(50) == spec.rows_for(4000, False) == 2
     with pytest.raises(ValueError, match="overflows"):
-        fs.Spec(cfg, "prng", ("resident", 8))
+        fs.Spec(cfg, "prng", ("resident", 4))
     with pytest.raises(ValueError, match="unknown plan"):
         fs.Spec(cfg, "prng", ("global", 3))
     g = fs.Spec(cfg, "prng", ("global", 4))
     off, total = g.layout(4, "global")
     res_off, res_total = g.layout(4, "resident")
     assert "w" not in off and "g" not in off and "ring" not in res_off
-    assert {"w", "g"} <= set(res_off)
-    # the same activations; the ring takes two stages after them
-    assert res_total - off["ring"] == 2 * ((g.n_params + 3) // 4 * 4)
+    assert not {"io", "io2", "tdt"} & set(off)
+    assert {"w", "g", "io", "io2", "tdt"} <= set(res_off)
+    assert (res_off["w"], res_off["g"], res_off["io"]) == (
+        0, (g.n_params + 3) // 4 * 4, 2 * ((g.n_params + 3) // 4 * 4))
+    # the ring takes two stages after the activations
     assert total - off["ring"] == 2 * g.tile_program()[3]
     c = fs.make_cfg(g, 30, 50, True, 0.5)
-    assert (c.rows, c.plan, c.smem_floats) == (4, 1, total)
+    assert (c.rows, c.plan, c.smem_floats, c.io_stride) == (4, 1, total, 0)
     assert c.o_w == -1 and c.o_g == -1 and c.o_ring == off["ring"]
     assert c.o_h == 0 and c.o_M == off["M"] and c.ro2.save_off == off["s_ro2"]
-    r = fs.make_cfg(fs.Spec(cfg, "prng", ("resident", 4)), 30, 50, True, 0.5)
-    assert (r.plan, r.o_w, r.o_g, r.o_ring, r.n_tiles_fwd) == (
-        0, 0, res_off["g"], -1, 0)
+    assert c.o_tdt == -1
+    r_off, r_total = spec.layout(2, "resident")
+    r = fs.make_cfg(spec, 30, 50, True, 0.5)
+    assert (r.rows, r.plan, r.o_w, r.o_g, r.o_ring, r.n_tiles_fwd) == (
+        2, 0, 0, r_off["g"], -1, 0)
+    assert (r.o_tdt, r.io_stride, r.smem_floats) == (
+        r_off["io"], r_off["io2"] - r_off["io"], r_total)
     assert fs.packed_weights(spec, []) is None
 
 
@@ -477,3 +563,39 @@ def test_packed_weights_follow_leaf_offsets():
     c = fs.make_cfg(spec, 30, 50, True, 0.5)
     assert list(c.ode.pw_off[:3]) == spec.pack_off[0:6:2]
     assert list(c.ode.w_off[:3]) == spec.leaf_off[0:6:2]
+
+
+def test_ctypes_signatures_match_the_c_interface():
+    """The argument types ``_build`` declares for each function of
+    csrc/fused_scan.cu's C interface (the occupancy query among them)
+    match its C parameters one for one (a pointer passed where ctypes
+    expects an int is cut to 32 bits)."""
+    import types
+
+    from njode_tpu_torch.ops import _build
+
+    with open(os.path.join(ROOT, "njode_tpu_torch", "ops", "csrc",
+                           "fused_scan.cu")) as f:
+        src = f.read()
+    names = ("njode_scan_fwd", "njode_scan_bwd", "njode_scan_occupancy",
+             "njode_phase_clock", "njode_reduce_partials",
+             "njode_philox_masks")
+    lib = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in (
+        "njode_error_string",) + names})
+    _build._declare("fused_scan", lib)
+    for name in names:
+        params = re.search(rf'extern "C" int {name}\((.*?)\)', src,
+                           re.S).group(1)
+        want = []
+        for decl in params.split(","):
+            decl = decl.strip()
+            if "*" in decl:
+                want.append(ctypes.c_void_p)
+            elif decl.startswith("unsigned"):
+                want.append(ctypes.c_uint32)
+            elif decl.startswith("float "):
+                want.append(ctypes.c_float)
+            else:
+                assert decl.startswith("int "), decl
+                want.append(ctypes.c_int)
+        assert getattr(lib, name).argtypes == want, name

@@ -9,8 +9,9 @@ coordinate masks, ragged batches, trailing ``dt==0`` padding, a leading
 grid of K = 2004 steps (the climate grid); the GRU jump (``use_rnn``),
 unmasked and masked, with and without bias; and every one of these cases
 again in the global plan (weights in device memory, staged through the
-ring in shared memory, gradients added into the CTA's partial row) at 16
-and at 4 rows per CTA, bit for bit what the resident plan gives at 16 rows;
+ring in shared memory, gradients added into the CTA's partial row) at 16,
+4 and 1 rows per CTA, bit for bit what the resident plan gives at the same
+rows (the rows rule takes one a CTA at these batches);
 the global plan at the PhysioNet 200 and climate 400 arms' widths; and
 ``reduce_partials`` at three arms' partial shapes, bit for bit its plain
 version.
@@ -399,7 +400,7 @@ def test_masked_fused_loss_on_card_matches_cpu(card):
         _close(f"grad {i}", a.grad.cpu(), b.grad, GRAD_TOL)
 
 
-GLOBAL_PLANS = [("global", 16), ("global", 4)]
+GLOBAL_PLANS = [("global", 16), ("global", 4), ("global", 1)]
 
 
 def _case(variant, dev):
@@ -415,23 +416,27 @@ def _case(variant, dev):
     return cfg, arrays, leaves, h0
 
 
-@pytest.mark.parametrize("plan", GLOBAL_PLANS, ids=["global16", "global4"])
+@pytest.mark.parametrize("plan", GLOBAL_PLANS,
+                         ids=["global16", "global4", "global1"])
 @pytest.mark.parametrize("mode", ["input", "prng"])
 @pytest.mark.parametrize("variant", VARIANTS + MASKED_VARIANTS,
                          ids=[v[0] for v in VARIANTS + MASKED_VARIANTS])
 def test_global_plan_matches_plain(card, variant, mode, plan):
     """K1, K2 and K3 in the global plan against the plain versions, in both
-    mask modes, each kernel twice bit for bit; at 16 rows per CTA the
-    global plan sums in the resident plan's order, so every output is the
-    same bits."""
+    mask modes, each kernel twice bit for bit; at one R the global plan
+    sums in the resident plan's order, so every output is the same bits
+    as the resident plan's forced at the same rows (at 1, the rule's)."""
     cfg, arrays, leaves, h0 = _case(variant, card)
-    assert fs.Spec(cfg).plan == "resident"
+    spec = fs.Spec(cfg)
+    assert spec.plan == "resident"
     tol = dict(loss=LOSS_TOL, hist=GRAD_TOL, grad=GRAD_TOL)
     got = _check_masked(card, cfg, arrays, leaves, h0, mode, tol, plan)
-    if plan[1] == 16:
-        ref = _check_masked(card, cfg, arrays, leaves, h0, mode, tol)
-        for i, (a, b) in enumerate(zip(got["bits"], ref["bits"])):
-            assert torch.equal(a, b), i
+    ref = _check_masked(card, cfg, arrays, leaves, h0, mode, tol,
+                        ("resident", plan[1]))
+    for i, (a, b) in enumerate(zip(got["bits"], ref["bits"])):
+        assert torch.equal(a, b), i
+    if plan[1] == 1:
+        assert spec.rows_for(arrays[2].shape[1]) == 1
 
 
 # the published arms the global plan takes at fewer rows (PhysioNet 200:
@@ -469,3 +474,37 @@ def test_reduce_partials_bit_equal(card, shape):
     got = fs.reduce_partials_cuda(P, 0.37)
     assert torch.equal(got, fs.reduce_partials_plain(P, 0.37))
     assert torch.equal(got, fs.reduce_partials_cuda(P, 0.37))
+
+
+# (D, H, width, masked, use_rnn, batch): the resident arms at their
+# published batches and the eval's
+OCC_ARMS = [(1, 10, 50, False, False, 200), (1, 10, 50, False, False, 4000),
+            (1, 10, 50, False, True, 200), (5, 10, 50, True, False, 100),
+            (41, 41, 50, True, False, 50)]
+
+
+@pytest.mark.parametrize("arm", OCC_ARMS,
+                         ids=["main", "main_eval", "main_rnn", "climate",
+                              "physionet_50"])
+def test_rows_rule_against_occupancy(card, arm):
+    """The CTAs an SM holds that ``Spec.rows_for`` counts, for K1, K3 and
+    K2 at the rows it takes, are at most what
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor reports for the kernel
+    the launch takes, so a launch the rule sees on one wave is on one."""
+    import ctypes
+
+    D, H, width, masked, use_rnn, B = arm
+    nn = ((width, "tanh"), (width, "tanh"))
+    cfg = NJODEConfig(D, H, D, nn, nn, nn, dropout_rate=0.1, masked=masked,
+                      use_rnn=use_rnn)
+    spec = fs.Spec(cfg)
+    lib = fs._lib()
+    for kind, bwd, train in ((0, False, True), (1, False, False),
+                             (2, True, True)):
+        c = fs.make_cfg(spec, 100, B, train, 0.5, bwd=bwd)
+        n = ctypes.c_int(0)
+        assert lib.njode_scan_occupancy(ctypes.addressof(c), kind,
+                                        ctypes.byref(n)) == 0
+        assert n.value >= spec.ctas_per_sm(c.rows, bwd) >= 1, (kind, n)
+        if -(-B // c.rows) <= spec.ctas_per_sm(c.rows, bwd) * fs.N_SM:
+            assert -(-B // c.rows) <= n.value * fs.N_SM

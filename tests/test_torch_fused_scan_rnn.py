@@ -245,8 +245,8 @@ def test_rnn_gates_layout_and_route(monkeypatch):
     launches nothing."""
     nn = ((50, "tanh"), (50, "tanh"))
     for D, hid, masked, plan, n_params, nbytes in (
-            (1, 10, False, "resident", 10461, 161792),
-            (5, 10, True, "resident", 11435, 173088),
+            (1, 10, False, "resident", 10461, 162336),
+            (5, 10, True, "resident", 11435, 175808),
             (41, 41, True, "global", 34755, 217024)):
         for bias in (True, False):
             _, cfg = H.configs(D, hid, ode_nn=nn, readout_nn=nn, enc_nn=nn,
