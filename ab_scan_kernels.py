@@ -1,7 +1,7 @@
 """A/B timing of the NJODE scan kernels (K1-K3) and reduce_partials of one
 checkout on one CUDA card, to compare two versions within one machine.
 
-    python3 ab_scan_kernels.py ROOT TAG [witness|gob|phases]
+    python3 ab_scan_kernels.py ROOT TAG [witness|gob|phases|masks]
 
 ROOT is a checkout holding ``njode_tpu_torch/`` and ``chip_smoke.py`` (e.g.
 the parent commit unpacked with ``git archive`` into a git-ignored
@@ -45,7 +45,21 @@ kernel, the SM cycles of each phase of one step (the middle one, CTA 0)
 of the resident K1, K2 and K3 at the rows rule's pick: the main path (B =
 100 and 200, and K3 at 4,000) with the encoder and with the GRU jump, the
 climate small arm and the PhysioNet 50 arm (B = 50, on the synthetic
-masked batch, K = 200).
+masked batch, K = 200); K1 and K2 in 'prng' mode and with dropout off
+(``off``: train False, no masks).
+
+With ``masks`` it times the dropout masks (``mask_costs``): the
+standalone mask kernels K4 (``philox_masks_kernel``, K = 100, S = 8, B =
+200, W = 50) and K7 (``gob_masks_kernel`` at the GOB shape K = 100, B =
+20, P = 50 and the climate GOB arm's K = 2,004, B = 100, P = 25) by
+device time (torch.profiler) beside the host yardstick (CUDA events around
+a loop of wrapper calls), and what the masks cost inside the kernels that
+draw them: K1/K2 at the main path (B = 100), the climate small arm and the
+PhysioNet 50 arm, K5/K6 at GOB hidden 50 and the climate GOB arm, each
+with dropout off, in 'input' mode fed with the standalone kernel's masks
+and in 'prng' mode (CUDA-event ms), whether the 'input' and the 'prng'
+outputs are equal bit for bit, and a digest of the 'prng' outputs (equal
+digests in two checkouts: equal bits).
 
 With ``witness`` it runs ``draw_witness`` instead of the timings: K1 of
 the PhysioNet 200 arm on masks drawn as chip_smoke.py drew them, one line
@@ -271,12 +285,13 @@ def phase_clocks(cs, fs, lib, dev, tag, masked_batch):
             h0 = fs.t0_state(model, b)
         K, B = arrays[2].shape
         spec = fs.Spec(cfg, "prng")
-        _, hists = fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, True,
-                                    None, seed)
-        show(f"K1 {name} B={B} R={spec.rows_for(B, False)}")
-        fs.scan_bwd_cuda(spec, leaves, arrays, 0.5, True, hists, one, None,
-                         seed)
-        show(f"K2 {name} B={B} R={spec.rows_for(B)}")
+        for train, mode in ((True, ""), (False, " off")):
+            _, hists = fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, train,
+                                        None, seed)
+            show(f"K1{mode} {name} B={B} R={spec.rows_for(B, False)}")
+            fs.scan_bwd_cuda(spec, leaves, arrays, 0.5, train, hists, one,
+                             None, seed)
+            show(f"K2{mode} {name} B={B} R={spec.rows_for(B)}")
         spec3 = fs.Spec(cfg, "input")
         fs.scan_fwd_cuda(spec3, leaves, arrays, 0.5, h0, False,
                          want_hists=False)
@@ -291,6 +306,112 @@ def phase_clocks(cs, fs, lib, dev, tag, masked_batch):
                                  ("physionet_50", 41, 41, 50, 50)):
         cfg, model = cs._masked_njode(D, H, width, dev)
         three(name, cfg, model, masked_batch(200, B, D))
+
+
+def mask_costs(cs, fs, dev, tag, masked_batch):
+    """``masks``: K4's and K7's device and host times, then each
+    mask-carrying kernel with dropout off (train False), in 'input' mode on
+    the standalone kernel's masks and in 'prng' mode (CUDA-event ms), and
+    whether 'input' and 'prng' give the same bits."""
+    import torch
+
+    from njode_tpu_torch.models import gru_ode_bayes as gob
+    from njode_tpu_torch.ops import fused_gob as fg
+
+    seed = torch.tensor([7], dtype=torch.int64, device=dev)
+    one = torch.ones((), device=dev)
+    thresh = min(int(0.9 * 2.0 ** 32), 2 ** 32 - 1)     # dropout 0.1
+    out = {}
+    for name, fn, kern in (
+            ("K4", lambda: fs.philox_masks_cuda(seed, 100, 8, 200, 50,
+                                                thresh),
+             "philox_masks_kernel"),
+            ("K7gob", lambda: fg.gob_masks_cuda(seed, 100, 20, 50, thresh),
+             "gob_masks_kernel"),
+            ("K7clim", lambda: fg.gob_masks_cuda(seed, 2004, 100, 25,
+                                                 thresh),
+             "gob_masks_kernel")):
+        out[name + "_device"] = device_ms(fn, kern) or float("nan")
+        out[name + "_host"] = cs.cuda_ms(fn, 50)
+    print(tag, "mask_kernels", " ".join(f"{k}={v:.5f}"
+                                        for k, v in out.items()), flush=True)
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def digest(ts):
+        return hashlib.sha1(b"".join(
+            t.cpu().numpy().tobytes() for t in ts)).hexdigest()[:16]
+
+    def njode(arm, cfg, model, b, reps):
+        leaves = [p.detach() for p in fs.flat_leaves(model)]
+        arrays = fs.batch_arrays(b)
+        with torch.no_grad():
+            h0 = fs.t0_state(model, b)
+        K, B = arrays[2].shape
+        sp, si = fs.Spec(cfg, "prng"), fs.Spec(cfg, "input")
+        u = fs.philox_masks_cuda(seed, K, sp.S, B, sp.w_max, sp.thresh)
+        ms, got = {}, {}
+        for mode, spec, train, uu, ss in (("off", sp, False, None, None),
+                                          ("input", si, True, u, None),
+                                          ("prng", sp, True, None, seed)):
+            lk, hk = fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, train,
+                                      uu, ss)
+            gk, dk = fs.scan_bwd_cuda(spec, leaves, arrays, 0.5, train, hk,
+                                      one, uu, ss)
+            got[mode] = (lk, *hk, *gk, dk)
+            ms["K1_" + mode] = cs.cuda_ms(lambda: fs.scan_fwd_cuda(
+                spec, leaves, arrays, 0.5, h0, train, uu, ss), reps, 1)
+            ms["K2_" + mode] = cs.cuda_ms(lambda: fs.scan_bwd_cuda(
+                spec, leaves, arrays, 0.5, train, hk, one, uu, ss), reps, 1)
+        print(tag, "mask_cost", f"arm={arm} B={B} K={K} "
+              f"R={sp.rows_for(B, False)}/{sp.rows_for(B)}",
+              " ".join(f"{k}={v:.4f}" for k, v in ms.items()),
+              f"prng_eq_input={same(got['prng'], got['input'])}",
+              f"prng_digest={digest(got['prng'])}", flush=True)
+
+    cfg, model, batch = cs.main_path_setup(100, 100, 0, dev)
+    njode("main", cfg, model, batch, 20)
+    for arm, D, H, K, B, reps in (("climate_small", 5, 10, 2004, 100, 3),
+                                  ("physionet_50", 41, 41, 3006, 50, 2)):
+        cfg, model = cs._masked_njode(D, H, 50, dev)
+        njode(arm, cfg, model, masked_batch(K, B, D), reps)
+
+    def gob_arm(arm, cfg, arrays, leaves, st, reps):
+        K, B = arrays[2].shape
+        spec, si = fg.Spec(cfg, "prng"), fg.Spec(cfg, "input")
+        u = fg.gob_masks_cuda(seed, K, B, spec.P, spec.thresh)
+        ms, got = {}, {}
+        for mode, sp, train, uu, ss in (("off", spec, False, None, None),
+                                        ("input", si, True, u, None),
+                                        ("prng", spec, True, None, seed)):
+            lk, hk = fg.gob_scan_fwd_cuda(sp, leaves, arrays, *st, train, uu,
+                                          ss)
+            g = fg.gob_scan_bwd_cuda(sp, leaves, arrays, train, hk, one, uu,
+                                     ss)
+            got[mode] = (lk, *hk, *g[0], *g[1:])
+            ms["K5_" + mode] = cs.cuda_ms(lambda: fg.gob_scan_fwd_cuda(
+                sp, leaves, arrays, *st, train, uu, ss), reps, 1)
+            ms["K6_" + mode] = cs.cuda_ms(lambda: fg.gob_scan_bwd_cuda(
+                sp, leaves, arrays, train, hk, one, uu, ss), reps, 1)
+        print(tag, "mask_cost", f"arm={arm} B={B} K={K} "
+              f"R={spec.rows_for(B)}",
+              " ".join(f"{k}={v:.4f}" for k, v in ms.items()),
+              f"prng_eq_input={same(got['prng'], got['input'])}",
+              f"prng_digest={digest(got['prng'])}", flush=True)
+
+    cfg, _, _, arrays, leaves, st = cs.gob_setup(20, 100, 50, True, 1e-4, 50,
+                                                 dev)
+    gob_arm("gob_h50", cfg, arrays, leaves, st, 10)
+    gcfg, gmodel = cs._climate_gob(dev)
+    b = masked_batch(2004, 100, 5)
+    with torch.no_grad():
+        h0 = gob.mlp2(gmodel.covariates_map, b.start_X, 0.0)
+        p0 = gob.mlp2(gmodel.p_model, h0, 0.0)
+    gob_arm("gob_climate", gcfg, (b.times, b.dt, b.obs, b.X, b.M),
+            [p.detach() for p in fg.flat_leaves(gmodel, fg.Spec(gcfg))],
+            (h0.contiguous(), p0[:, :5].contiguous(),
+             p0[:, 5:].contiguous()), 3)
 
 
 def main(root, tag, what="timing"):
@@ -308,8 +429,8 @@ def main(root, tag, what="timing"):
         lib = _build.load("fused_scan", ("NJODE_PHASE_CLOCK",))
         key = "fused_scan_njode_phase_clock"
     else:
-        _build.build_all(("fused_scan", "fused_gob") if what == "gob"
-                         else ("fused_scan",))
+        _build.build_all(("fused_scan", "fused_gob")
+                         if what in ("gob", "masks") else ("fused_scan",))
         _build.load("fused_scan")
         key = "fused_scan"
     print(tag, "build_s", round(time.time() - t0, 2), flush=True)
@@ -337,6 +458,9 @@ def main(root, tag, what="timing"):
 
     if what == "gob":
         gob_arms(cs, dev, tag, masked_batch)
+        return
+    if what == "masks":
+        mask_costs(cs, fs, dev, tag, masked_batch)
         return
     if what == "phases":
         phase_clocks(cs, fs, lib, dev, tag, masked_batch)

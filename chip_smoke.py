@@ -23,7 +23,12 @@ power limit, and the final ``{"ok": true, ...}`` line:
 4. timing   - CUDA-event times of each kernel and its plain version, and
               the least time the card could take (bound); reduce_partials'
               device time per launch beside sum(dim=0)'s, both from
-              torch.profiler, and the old host-loop yardstick;
+              torch.profiler, and the old host-loop yardstick; K4's
+              standalone kernel by device time (torch.profiler) beside its
+              host-loop time; the masks' cost inside K1 and K2 at the
+              trainer's batch (``mask_cost``: each with dropout off, in
+              'input' mode fed with K4's written-out masks and in 'prng'
+              mode, which must give the same bits);
 5. trainer  - njode_tpu_torch.training.trainer.train on a 20,000-path
               BlackScholes dataset, 2 epochs of batch 100 with 'prng'
               dropout masks; losses must be finite, the launch counts
@@ -52,10 +57,12 @@ power limit, and the final ``{"ok": true, ...}`` line:
               saved buffers and stage (b)'s deltas buffer by buffer, stage
               (c)'s gradients); K5's eval form at B=2,000 (the validation
               split of the default 10,000-path dataset);
-9. gob_timing - CUDA-event times of K5, K5 eval, K6 and K7 and their plain
+9. gob_timing - CUDA-event times of K5, K5 eval, K6 and their plain
               versions, K6's stages' device times (torch.profiler) beside
               the plain version of each stage and, for stage (c), the
-              device time of its jobs as torch.matmul calls; the bound of
+              device time of its jobs as torch.matmul calls; K7's device
+              time at the trainer's shape and the climate GOB arm's; the
+              masks' cost inside K5 and K6 (``mask_cost``); the bound of
               each;
 10. gob_trainer - trainer.train(other_model="GRU_ODE_Bayes", hidden 50,
               batch 20, dropout 0.1, impute, logvar, mixing 1e-4) on a
@@ -77,7 +84,8 @@ power limit, and the final ``{"ok": true, ...}`` line:
               over all 2,004 steps in 'prng' mode (the trainer's shape);
               each kernel run twice and compared bit for bit;
 12. climate_timing - CUDA-event times and bounds of the masked K1/K2/K3
-              and of K5/K6 at the climate arms, B = 100, K = 2,004;
+              and of K5/K6 at the climate arms, B = 100, K = 2,004, and the
+              masks' cost inside K1/K2 and K5/K6 there (``mask_cost``);
 13. climate_trainer - climate_trainer.train on the stand-in, fold 0, 2
               epochs of batch 100, the NJODE small arm and then the
               GRU-ODE-Bayes arm; losses and eval_metric finite, and the
@@ -111,7 +119,8 @@ power limit, and the final ``{"ok": true, ...}`` line:
               K1/K2/K3 at the 50 arm (forced, 16 rows) and the 200 arm
               (B = 50, K = 3,006) and at the climate 400 arm (B = 100,
               K = 2,004), and of the 50 arm in the rule's resident plan
-              (one row a CTA);
+              (one row a CTA), with the masks' cost inside its K1/K2
+              (``mask_cost``);
 18. physionet_trainer - physionet_trainer.train at the 50 arm (batch 50,
               'prng', the resident plan, one row a CTA) for 2 epochs on the
               stand-in cut to 1,000 records (800 train, 16 batches an
@@ -444,11 +453,13 @@ def phase_timing(results):
                                                  h03, False,
                                                  want_hists=False), 2, 1))
     karange = torch.arange(K, device=h0.device)
-    t["K4"] = (cuda_ms(lambda: fs.philox_masks_cuda(
-        seed, K, spec.S, B, spec.w_max, spec.thresh), 50),
-        cuda_ms(lambda: fs.philox_keep_plain(
-            int(seed), karange, spec.S, B, spec.w_max, spec.thresh,
-            h0.device), 3, 1))
+    t["K4"] = (mask_kernel_ms("timing", "philox_masks_kernel", lambda:
+                              fs.philox_masks_cuda(seed, K, spec.S, B,
+                                                   spec.w_max, spec.thresh),
+                              f"[{K},{spec.S},{B},{spec.w_max}]"),
+               cuda_ms(lambda: fs.philox_keep_plain(
+                   int(seed), karange, spec.S, B, spec.w_max, spec.thresh,
+                   h0.device), 3, 1))
     red = reduce_times(st["parts"])
     main_shape = REDUCE_SHAPES[0]
     t["reduce"] = (red[main_shape]["device_ms"], red[main_shape]["plain_ms"])
@@ -467,6 +478,7 @@ def phase_timing(results):
                                             hists_t, dloss, None, seed), 20)
     say("timing", kernel="K1", B=Bt, ms=f"{k1_t:.4f}")
     say("timing", kernel="K2", B=Bt, ms=f"{k2_t:.4f}")
+    mask_cost_njode("timing", "main_path", cfg, leaves, arr_t, h0_t, 20)
 
     # bounds: max(operations / peak, bytes / bandwidth), each input read
     # once and each output written once
@@ -503,6 +515,116 @@ def phase_timing(results):
         bms, by = results["bounds"][k]
         say("timing", kernel=k, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
             bound_ms=f"{bms:.5f}", bound_by=by)
+
+
+def mask_kernel_ms(phase, kern, fn, shape):
+    """Device ms per call of a standalone mask kernel (K4's
+    ``philox_masks_kernel``, K7's ``gob_masks_kernel``: torch.profiler,
+    which must record it), printed beside the old yardstick, CUDA events
+    around a loop of wrapper calls (host time included)."""
+    dev_ms = device_ms(fn, kern)
+    if dev_ms is None:
+        raise AssertionError(f"torch.profiler recorded no device time for "
+                             f"{kern}")
+    say(phase, kernel=kern, shape=shape, device_ms=f"{dev_ms:.5f}",
+        host_loop_ms=f"{cuda_ms(fn, 50):.5f}")
+    return dev_ms
+
+
+def _mask_cost(phase, arm, names, runs, reps):
+    """Each of ``runs`` ({mode: (fwd, bwd)}: the kernels ``names`` on
+    the same inputs with dropout off, in 'input' mode on the standalone
+    kernel's masks and in 'prng' mode) once for its outputs, then timed
+    (CUDA events, one warm-up and ``reps`` calls); fails unless 'input'
+    and 'prng' give the same bits; prints the times and the masks' cost
+    (prng - off) and returns the ms."""
+    import torch
+
+    outs, ms = {}, {}
+    for mode, (fwd, bwd) in runs.items():
+        loss, hists = fwd()
+        outs[mode] = (loss, *hists, *bwd())
+        ms[mode] = (cuda_ms(fwd, reps, 1), cuda_ms(bwd, reps, 1))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(outs["prng"],
+                                                 outs["input"]))
+    if not same:
+        raise AssertionError(f"{phase} {arm}: 'prng' and 'input' on its "
+                             "masks give different bits")
+    kw = {}
+    for i, n in enumerate(names):
+        for mode in ("off", "input", "prng"):
+            kw[f"{n}_{mode}_ms"] = f"{ms[mode][i]:.4f}"
+        kw[f"{n}_mask_ms"] = f"{ms['prng'][i] - ms['off'][i]:.4f}"
+    say(phase, mask_cost=arm, **kw, prng_equals_input=same)
+    return ms
+
+
+def mask_cost_njode(phase, arm, cfg, leaves, arrays, h0, reps):
+    """The masks' cost inside K1 and K2 (``_mask_cost``) on these
+    inputs, in the rule's plan."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    K, B = arrays[2].shape
+    sp, si = fs.Spec(cfg, "prng"), fs.Spec(cfg, "input")
+    seed = torch.tensor([20261017], dtype=torch.int64, device=h0.device)
+    u = fs.philox_masks_cuda(seed, K, sp.S, B, sp.w_max, sp.thresh)
+    dloss = torch.ones((), device=h0.device)
+    runs = {}
+    for mode, spec, train, uu, ss in (("off", sp, False, None, None),
+                                      ("input", si, True, u, None),
+                                      ("prng", sp, True, None, seed)):
+        hists = fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, train, uu,
+                                 ss)[1]
+
+        def fwd(spec=spec, train=train, uu=uu, ss=ss):
+            return fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, train, uu,
+                                    ss)
+
+        def bwd(spec=spec, train=train, uu=uu, ss=ss, hists=hists):
+            g, d = fs.scan_bwd_cuda(spec, leaves, arrays, 0.5, train, hists,
+                                    dloss, uu, ss)
+            return (*g, d)
+
+        runs[mode] = (fwd, bwd)
+    return _mask_cost(phase, f"{arm} B={B} K={K} R={sp.rows_for(B, False)}",
+                      ("K1", "K2"), runs, reps)
+
+
+def mask_cost_gob(phase, arm, cfg, leaves, arrays, st, reps):
+    """The masks' cost inside K5 and K6 (``_mask_cost``) on these
+    inputs."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_gob as fg
+
+    K, B = arrays[2].shape
+    sp, si = fg.Spec(cfg, "prng"), fg.Spec(cfg, "input")
+    dev = st[0].device
+    seed = torch.tensor([20261017], dtype=torch.int64, device=dev)
+    u = fg.gob_masks_cuda(seed, K, B, sp.P, sp.thresh)
+    dloss = torch.ones((), device=dev)
+    runs = {}
+    for mode, spec, train, uu, ss in (("off", sp, False, None, None),
+                                      ("input", si, True, u, None),
+                                      ("prng", sp, True, None, seed)):
+        hists = fg.gob_scan_fwd_cuda(spec, leaves, arrays, *st, train, uu,
+                                     ss)[1]
+
+        def fwd(spec=spec, train=train, uu=uu, ss=ss):
+            return fg.gob_scan_fwd_cuda(spec, leaves, arrays, *st, train,
+                                        uu, ss)
+
+        def bwd(spec=spec, train=train, uu=uu, ss=ss, hists=hists):
+            g = fg.gob_scan_bwd_cuda(spec, leaves, arrays, train, hists,
+                                     dloss, uu, ss)
+            return (*g[0], *g[1:])
+
+        runs[mode] = (fwd, bwd)
+    return _mask_cost(phase, f"{arm} B={B} K={K} R={sp.rows_for(B)}",
+                      ("K5", "K6"), runs, reps)
 
 
 def device_ms(fn, name, reps=50):
@@ -1116,13 +1238,28 @@ def phase_gob_timing(results):
                 bnd["K6" + n] = bound(*sb[n], PEAK_FP32)
             results["library_ms"]["K6wgrad"] = lib
             karange = torch.arange(K, device=dev)
-            t["K7"] = (cuda_ms(lambda: fg.gob_masks_cuda(
-                seed, K, B, spec.P, spec.thresh), 50),
+            t["K7"] = (mask_kernel_ms(
+                "gob_timing", "gob_masks_kernel",
+                lambda: fg.gob_masks_cuda(seed, K, B, spec.P, spec.thresh),
+                f"[{K},3,{B},{spec.P}]"),
                 cuda_ms(lambda: fg.gob_masks_plain(
                     int(seed), karange, B, spec.P, spec.thresh, dev), 3, 1))
             n_mask = K * 3 * B * spec.P
             bnd["K7"] = bound(n_mask * (98.0 / 4 + 1), n_mask + 8,
                               PEAK_INT32)
+            # the climate GOB arm's shape: the masks of its 2,004 steps
+            Kc, Bc, Pc = 2004, 100, 25
+            ms_c = mask_kernel_ms(
+                "gob_timing", "gob_masks_kernel",
+                lambda: fg.gob_masks_cuda(seed, Kc, Bc, Pc, spec.thresh),
+                f"[{Kc},3,{Bc},{Pc}]")
+            n_c = Kc * 3 * Bc * Pc
+            bms_c, by_c = bound(n_c * (98.0 / 4 + 1), n_c + 8, PEAK_INT32)
+            say("gob_timing", kernel="K7", shape=f"[{Kc},3,{Bc},{Pc}]",
+                device_ms=f"{ms_c:.5f}", bound_ms=f"{bms_c:.6f}",
+                bound_by=by_c, roofline_share=f"{bms_c / ms_c:.2e}")
+            mask_cost_gob("gob_timing", "gob_h50", cfg, leaves, arrays, st,
+                          10)
     spec_e, arrays_e, leaves_e, st_e = results["gob_eval"]
     Ke, Be = arrays_e[2].shape
     ev = lambda: fg.gob_scan_fwd_cuda(spec_e, leaves_e, arrays_e,  # noqa
@@ -1172,14 +1309,15 @@ class BwdChunks:
 
     def expect(self, steps, evals=0, reduce_extra=0):
         """The exact counts of ``steps`` training steps: K5 each, the
-        three stages and two Philox draws (stages a, b) per chunk."""
+        three stages per chunk, and the mask words K5 and stage (a) fill
+        ('gob_philox_keep'; stage (b) draws none)."""
         if len(self.chunks) != steps:
             raise AssertionError(f"{len(self.chunks)} K6 calls, expected "
                                  f"{steps}")
         n = sum(self.chunks)
         return {"gob_scan_fwd": steps, "gob_bwd_remat": n,
                 "gob_scan_bwd": n, "gob_bwd_wgrad": n, "gob_scan_eval": evals,
-                "gob_philox_keep": steps + 2 * n,
+                "gob_philox_keep": steps + n,
                 "reduce_partials": 2 * steps + reduce_extra}
 
 
@@ -1635,6 +1773,8 @@ def phase_climate_timing(results):
     spec = fs.Spec(cfg, "prng")
     ms = _masked_times(spec, fs.Spec(cfg, "input"), leaves, arrays, h0,
                        seed, hists, 3)
+    mask_cost_njode("climate_timing", "climate_small", cfg, leaves, arrays,
+                    h0, 2)
     t = {k + "m": (ms[k], cl["plain_ms"][k + "m"]) for k in ms}
     bnd = {k + "m": v for k, v in _scan_bounds(spec, K, B).items()}
 
@@ -1650,6 +1790,8 @@ def phase_climate_timing(results):
     say("climate_timing", kernel="K6c_stages", R=gspec.rows_for(B),
         chunks=-(-K // gspec.bwd_chunk(K, B)),
         **{f"{n}_device_ms": f"{v:.4f}" for n, v in stages.items()})
+    mask_cost_gob("climate_timing", "climate_gob", gcfg, gleaves, garrays,
+                  st, 2)
     (f5, b5), (f6, b6) = gob_bounds(gspec, K, B)
     bnd["K5c"] = bound(f5, b5, PEAK_FP32)
     bnd["K6c"] = bound(f6, b6, PEAK_FP32)
@@ -1903,8 +2045,24 @@ def phase_physionet_timing(results):
                 for k in ("K1", "K2", "K3"):
                     t[k + "g"] = (ms[k], a["plain_ms"][k + "m"])
                     bnd[k + "g"] = bd[k]
+            if arm == "phys50" and spec.plan == "resident":
+                mask_cost_physionet(a, 2)
     results["times"].update(t)
     results["bounds"].update(bnd)
+
+
+def mask_cost_physionet(a, reps):
+    """The masks' cost inside K1 and K2 of the PhysioNet 50 arm in the
+    rule's resident plan over the first batch's 3,006 steps."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    leaves = [p.detach() for p in fs.flat_leaves(a["model"])]
+    with torch.no_grad():
+        h0 = fs.t0_state(a["model"], a["full"])
+    mask_cost_njode("physionet_timing", "physionet_50", a["cfg"], leaves,
+                    fs.batch_arrays(a["full"]), h0, reps)
 
 
 def _physionet_run(results, phase, epochs, expect,

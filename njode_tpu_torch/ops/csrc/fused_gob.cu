@@ -9,9 +9,11 @@
 //   gob_remat_kernel<R>            K6  _fused_bwd / _make_bwd_kernel, stage
 //   gob_chain_kernel<R>                (a) remat, (b) chain, (c) wgrad
 //   gob_wgrad_kernel
-//   philox_keep (philox.cuh)       K7  _step_masks (p_model keep-masks, 3
+//   mask words (fill_masks)        K7  _step_masks (p_model keep-masks, 3
 //                                      slots per step: ode-midpoint,
 //                                      ode-final, post-jump)
+//   gob_masks_kernel                   the same masks written out (tests,
+//                                      timing)
 // R, the batch rows one CTA owns, is one of 1, 2, 4, 8, 16
 // (ops/fused_gob.py Spec.rows_for picks it). The per-CTA loss partials and
 // stage (c)'s gradient partial rows are summed by reduce_partials in
@@ -51,12 +53,22 @@
 //   stage (b) walks the chunk backwards at R rows a CTA, cp.async bringing
 //   the next step's activations while it works, and writes every delta a
 //   weight gradient needs; stage (c) sums x^T d over all (step, row) pairs
-//   of the chunk for every weight, in an order that does not depend on R.
+//   of the chunk for every weight, in an order that does not depend on R;
+// - the dropout masks (K7) are bits in shared memory (philox.cuh's mask
+//   words, region mw: per row and slot cc.nw words), one draw a quad of
+//   columns: K5 fills a step's words in the phase that loads its inputs,
+//   on the threads past those loads, while they are in flight (no barrier
+//   added; the call sits in step_fwd, out of line: in the kernels' own
+//   bodies it slowed K5 2-6 %, masks or not), stage (a) likewise, and
+//   stage (b) draws none: p_model's hidden layer is relu, so the mask's
+//   part of its backward, relu'(pre) * keep / (1 - rate), is a != 0 ? 1 /
+//   (1 - rate) : 0 on the saved post-dropout activation a (bit for bit,
+//   NaN and -0 included).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "philox.cuh"          // K7: philox_keep
+#include "philox.cuh"          // K7: philox_keep4, mask words, mask rows
 
 #define MAX_NT 512          // threads of a scan CTA: 256 or 512 (cfg.threads)
 #define NT ((int)blockDim.x)
@@ -88,6 +100,10 @@ struct GobCfg {
   int rows, fwd_floats, smem_floats, n_ws, n_save, n_dlt;
   int wsm, o_w;              // weights staged in shared memory at o_w
   int threads;               // threads of a K5 / stage (a) / (b) CTA
+  int o_mw, n_mw, nw, lg_nw; // the mask words (K5, stage a; past the staged
+                             // weights, the end of K5's dynamic memory):
+                             // offset, floats, words of a row and slot
+                             // (ceil(P / 32)), log2 of the power of two >= nw
   int leaf_off[MAX_LEAVES + 1];
   int pm[6];
   int fxm[3], fxv[3], fxb[3], fh[3], fhb[3];
@@ -121,7 +137,8 @@ struct MaskCtx {
   int mode;                  // 0 none, 1 input masks, 2 philox
   const int8_t* u;
   uint32_t k0, k1;
-  int k, row0, nv;
+  int row0, nv;
+  const uint32_t* bits;      // the step's mask words
 };
 
 #define LW(i) ((i) >= 0 ? cl.p[(i)] : (const float*)nullptr)
@@ -143,14 +160,44 @@ __device__ __forceinline__ float sgnf(float x) {
   return (float)((x > 0.f) - (x < 0.f));
 }
 
-// keep-mask of slot `slot` at local row r, column col
+// keep-mask of slot `slot` at local row r, column col: a bit of the step's
+// words (a padding row of the last CTA keeps every column)
 __device__ __forceinline__ bool keep_at(const MaskCtx& m, int slot, int r,
                                         int col) {
-  if (r >= m.nv) return true;    // padding row of the last CTA
-  int grow = m.row0 + r;
-  if (m.mode == 1)
-    return m.u[(((size_t)m.k * 3 + slot) * cc.B + grow) * cc.P + col] != 0;
-  return philox_keep(m.k0, m.k1, cc.thresh, col, grow, m.k, slot);
+  return (m.bits[(r * 3 + slot) * cc.nw + (col >> 5)] >> (col & 31)) & 1u;
+}
+
+
+// Step k's mask words (R * 3 * 2^lg_nw: the words of a row and slot
+// padded to a power of two), eight lanes a word, a draw each: the CTA's
+// thread t is lane e = t - lane0 (+ NT, ...), of word e >> 3 = (r * 3 +
+// slot) * 2^lg_nw + w and its quad 8w + (e & 7), the eight nibbles
+// combined by lanes_word (lane0, a multiple of 32, keeps a word's lanes in
+// one warp); a padding word (w >= nw) is skipped by its eight lanes
+// together, a padding row keeps every column. Out of line, so the step
+// bodies' code stays as it was; the caller syncs before the words are
+// read.
+__device__ __noinline__ void fill_masks(const MaskCtx& m, int k,
+                                        int lane0) {
+  const int n = cc.rows * 3 * (8 << cc.lg_nw);
+  uint32_t* words = (uint32_t*)(sm + cc.o_mw);
+  for (int e = (int)threadIdx.x - lane0; e < n; e += NT) {
+    if (e < 0) continue;
+    const int v = e >> 3, w = v & ((1 << cc.lg_nw) - 1);
+    if (w >= cc.nw) continue;
+    const int rs = v >> cc.lg_nw;          // r * 3 + slot
+    const int r = rs / 3, slot = rs - 3 * r;
+    uint32_t nib = 0xFu;
+    if (r < m.nv) {
+      const int grow = m.row0 + r;
+      const int8_t* ur = m.mode == 1
+          ? m.u + (((size_t)k * 3 + slot) * cc.B + grow) * cc.P : nullptr;
+      nib = quad_bits(m.mode, ur, m.k0, m.k1, cc.thresh, 8 * w + (e & 7),
+                      cc.P, grow, k, slot);
+    }
+    const uint32_t word = lanes_word(nib);
+    if ((e & 7) == 0) words[rs * cc.nw + w] = word;
+  }
 }
 
 __device__ __forceinline__ float bias_at(int slot, int j) {
@@ -412,13 +459,17 @@ __device__ __noinline__ void cell_fwd(int m_, int v_, int h_, int F0_,
   __syncthreads();
 }
 
-// Forward of one step for the CTA's rows, on the forward buffers at `ab`,
-// from the carries (h, m, v) and the step's inputs (X, M, obs): fills every
-// buffer the backward reads, ends with (h2, m2, v2) and the per-row NLL.
+// Forward of one step (k) for the CTA's rows, on the forward buffers at
+// `ab`, from the carries (h, m, v) and the step's inputs (X, M, obs): first
+// the step's mask words (fill_masks, from thread lane0 on, while the
+// caller's loads of the inputs are in flight), then every buffer the
+// backward reads; ends with (h2, m2, v2) and the per-row NLL.
 // A dt == 0 padding step skips the propagation: its buffers keep what they
 // held (stage (a) zeroes them first).
-__device__ __noinline__ void step_fwd(int ab, float dt, const MaskCtx& mc) {
+__device__ __noinline__ void step_fwd(int ab, float dt, const MaskCtx& mc,
+                                      int k, int lane0) {
   const int R = cc.rows, H = cc.H, D = cc.D, DP = cc.DP;
+  if (mc.mode) fill_masks(mc, k, lane0);   // the step's mask words
   __syncthreads();                 // the carries and inputs are loaded
   if (dt > 0.f) {
     if (cc.prop == 2) {
@@ -540,8 +591,10 @@ __device__ __noinline__ void step_fwd(int ab, float dt, const MaskCtx& mc) {
 // ------------------------------------------------------------ backward
 
 // the p_model hidden delta dp = relu'(pre) * dropout^T (dm Wm^T + dv Wv^T)
-__device__ __noinline__ void pm_dp(int pre_, int dm_, int dv_, int dp_,
-                                   const MaskCtx& mc, int slot) {
+// from the saved post-dropout activation a = dropout(relu(pre)): a != 0
+// exactly where pre > 0 and the column was kept (a kept pre > 0 divided
+// by 1 - rate stays > 0; NaN, -0 and pre <= 0 give 0), so no mask is drawn
+__device__ __noinline__ void pm_dp(int a_, int dm_, int dv_, int dp_) {
   const int R = cc.rows, P = cc.P, D = cc.D;
   const float* dm = sm + dm_;
   const float* dv = sm + dv_;
@@ -555,9 +608,8 @@ __device__ __noinline__ void pm_dp(int pre_, int dm_, int dv_, int dp_,
                  + dotw(dv + r * D, Wv + j * D, 1, D, l, S);
         },
         [&](int o, float s) {
-          int r = o / P, j = o - r * P;
-          if (mc.mode) s = keep_at(mc, slot, r, j) ? s / cc.keep : 0.f;
-          sm[dp_ + o] = sm[pre_ + o] > 0.f ? s : 0.f;
+          if (cc.mode) s = s / cc.keep;
+          sm[dp_ + o] = sm[a_ + o] != 0.f ? s : 0.f;
         });
 }
 
@@ -665,8 +717,7 @@ __device__ __noinline__ void field_bwd(int hin_, int F0_, int F1_, int F2_,
 // the gradient wrt the step's outputs (h2, m2, v2) to the gradient wrt its
 // entry carries (written back into dh, dm, dv), leaving in the chain's
 // buffers every delta a weight gradient needs.
-__device__ __noinline__ void step_bwd(int ab, float dt, float dloss,
-                                      const MaskCtx& mc) {
+__device__ __noinline__ void step_bwd(int ab, float dt, float dloss) {
   const int R = cc.rows, H = cc.H, D = cc.D, DP = cc.DP;
   const float* obs = sm + FO(obs);
   const float* M = sm + FO(M);
@@ -697,7 +748,7 @@ __device__ __noinline__ void step_bwd(int ab, float dt, float dloss,
     dv1[idx] = (1.f - o) * gv;
   }
   __syncthreads();
-  pm_dp(FO(pre2), BO(dm2), BO(dv2), BO(dp2), mc, 2);
+  pm_dp(FO(a2), BO(dm2), BO(dv2), BO(dp2));
   // d h2 = dp2 W0^T + dh, split by obs; the observation GRU's deltas
   {
     const int P = cc.P;
@@ -794,7 +845,7 @@ __device__ __noinline__ void step_bwd(int ab, float dt, float dloss,
     return;
   }
   // the propagation: h1 = cell(h, m, v), (m1, v1) = p_model(h1)
-  pm_dp(FO(pre1), BO(dm1), BO(dv1), BO(dp1), mc, 1);
+  pm_dp(FO(a1), BO(dm1), BO(dv1), BO(dp1));
   const bool field = cc.prop != 2;
   pm_dx(BO(dp1), BO(dh1), true, field ? BO(df) : -1, dt);
   if (cc.prop == 2) {
@@ -853,7 +904,7 @@ __device__ __noinline__ void step_bwd(int ab, float dt, float dloss,
     field_bwd(FO(kk), FO(f2a), FO(f2b), FO(f2c), BO(df), BO(e2a0),
               BO(e2a1), BO(e2a2), BO(dkk), BO(dmk), BO(dvk));
     if (cc.impute) {
-      pm_dp(FO(prek), BO(dmk), BO(dvk), BO(dp0), mc, 0);
+      pm_dp(FO(ak), BO(dmk), BO(dvk), BO(dp0));
       pm_dx(BO(dp0), BO(dkk), true, BO(df), dt * 0.5f);
     } else {
       for (int idx = threadIdx.x; idx < R * H; idx += NT)
@@ -909,7 +960,8 @@ __device__ MaskCtx make_mask_ctx(const int8_t* u, const long long* seed,
   unsigned long long s = (cc.mode == 2) ? (unsigned long long)seed[0] : 0ull;
   mc.k0 = (uint32_t)(s & 0xFFFFFFFFull);
   mc.k1 = (uint32_t)(s >> 32);
-  mc.k = 0; mc.row0 = row0; mc.nv = nv;
+  mc.row0 = row0; mc.nv = nv;
+  mc.bits = (const uint32_t*)(sm + cc.o_mw);
   return mc;
 }
 
@@ -967,8 +1019,9 @@ gob_scan_fwd_kernel(GobCfg c, Leaves lv, const float* __restrict__ dts,
       }
     }
     load_step(R, ab, k, row0, nv, obs_g, X_g, M_g);
-    mc.k = k;
-    step_fwd(ab, dts[k], mc);
+    // the step's mask words, by the threads past those that store the
+    // histories and load the inputs, while those loads are in flight
+    step_fwd(ab, dts[k], mc, k, ((max(R * H, R * D) - 1) % NT + 32) & ~31);
     // the step's loss per row: obs * (nll + mixing * KL(m2, v2))
     const float* X = sm + FO(X);
     const float* M = sm + FO(M);
@@ -1032,8 +1085,7 @@ gob_remat_kernel(GobCfg c, Leaves lv, const float* __restrict__ dts,
   load_rows(R, FO(v), vh, k, cc.D, row0, nv);
   load_step(R, ab, k, row0, nv, obs_g, X_g, M_g);
   MaskCtx mc = make_mask_ctx(u, seed, row0, nv);
-  mc.k = k;
-  step_fwd(ab, dts[k], mc);
+  step_fwd(ab, dts[k], mc, k, 0);
   const size_t row = (size_t)blockIdx.y * B + row0;
   for (int s = 0; s < cc.n_save; ++s) {
     const int w = cc.save_w[s];
@@ -1064,10 +1116,8 @@ __device__ __forceinline__ void prefetch_step(int ab, const float* ws,
 template <int R>
 __global__ void __launch_bounds__(MAX_NT)
 gob_chain_kernel(GobCfg c, Leaves lv, const float* __restrict__ dts,
-                 const int8_t* u,
-                 const long long* seed, float* ws, int KBc, int k0, int k1,
-                 const float* dloss_p, float* dh0, float* dm0, float* dv0,
-                 int first) {
+                 float* ws, int KBc, int k0, int k1, const float* dloss_p,
+                 float* dh0, float* dm0, float* dv0, int first) {
   load_call(c, lv);
   const int H = cc.H, D = cc.D, B = cc.B;
   const int row0 = blockIdx.x * R;
@@ -1081,7 +1131,6 @@ gob_chain_kernel(GobCfg c, Leaves lv, const float* __restrict__ dts,
     load_rows(R, BO(dv), dv0, 0, D, row0, nv);
   }
   const float dloss = dloss_p[0];
-  MaskCtx mc = make_mask_ctx(u, seed, row0, nv);
   prefetch_step(0, ws, KBc, k1 - 1 - k0, row0, nv);
   cp_async_wait_all();
   __syncthreads();
@@ -1089,9 +1138,8 @@ gob_chain_kernel(GobCfg c, Leaves lv, const float* __restrict__ dts,
     const int ab = (it & 1) ? cc.fwd_floats : 0;
     if (k > k0)
       prefetch_step(ab ? 0 : cc.fwd_floats, ws, KBc, k - 1 - k0, row0, nv);
-    mc.k = k;
     const float dt = dts[k];
-    step_bwd(ab, dt, dloss, mc);
+    step_bwd(ab, dt, dloss);
     const size_t row = (size_t)(k - k0) * B + row0;
     for (int s = 0; s < cc.n_dlt; ++s) {
       const int w = cc.dlt_w[s];
@@ -1167,22 +1215,11 @@ gob_wgrad_kernel(const float* __restrict__ ws, int KBc, int nrows,
 }
 
 // The K7 masks of K steps written out ([K, 3, B, P] int8): the draw the scan
-// kernels make in 'prng' mode, for tests and timing.
-__global__ void gob_masks_kernel(const long long* seed, int K, int B, int P,
-                                 unsigned thresh, int8_t* out) {
-  size_t n = (size_t)K * 3 * B * P;
-  unsigned long long s = (unsigned long long)seed[0];
-  uint32_t k0 = (uint32_t)(s & 0xFFFFFFFFull), k1 = (uint32_t)(s >> 32);
-  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
-       idx += (size_t)gridDim.x * blockDim.x) {
-    int col = (int)(idx % P);
-    size_t q = idx / P;
-    int row = (int)(q % B);
-    q /= B;
-    int slot = (int)(q % 3);
-    int k = (int)(q / 3);
-    out[idx] = philox_keep(k0, k1, thresh, col, row, k, slot) ? 1 : 0;
-  }
+// kernels make in 'prng' mode (one Philox a quad), for tests and timing.
+__global__ void __launch_bounds__(256)
+gob_masks_kernel(const long long* seed, int K, int S, int B, int P,
+                 unsigned thresh, int8_t* out) {
+  philox_mask_rows(seed, K, S, B, P, thresh, out);
 }
 
 // ------------------------------------------------------------ C interface
@@ -1230,8 +1267,7 @@ extern "C" int gob_scan_fwd(const GobCfg* c, void** leaves,
   cudaError_t e = make_leaves(c, leaves, &lv);
   if (e != cudaSuccess) return (int)e;
   const int grid = (c->B + c->rows - 1) / c->rows;
-  const size_t smem = (size_t)(c->wsm ? c->o_w + c->n_params
-                                      : c->fwd_floats) * sizeof(float);
+  const size_t smem = (size_t)(c->o_mw + c->n_mw) * sizeof(float);
 #define FWD_CASE(R)                                                         \
   if (want_hists) {                                                         \
     e = set_smem(gob_scan_fwd_kernel<R, true>, smem);                       \
@@ -1270,7 +1306,7 @@ extern "C" int gob_scan_bwd(const GobCfg* c, void** leaves,
   const int nb = (B + c->rows - 1) / c->rows;
   const int KBc = Kc * B;
   const int n_chunks = (K + Kc - 1) / Kc;
-  const size_t fwd = (size_t)c->fwd_floats * sizeof(float);
+  const size_t fwd = (size_t)(c->o_mw + c->n_mw) * sizeof(float);
   const size_t full = (size_t)(c->wsm ? c->o_w + c->n_params
                                       : c->smem_floats) * sizeof(float);
 #define ATTR_CASE(R)                                          \
@@ -1287,8 +1323,8 @@ extern "C" int gob_scan_bwd(const GobCfg* c, void** leaves,
       *c, lv, dts, obs, X, M, u, seed, hh, mh, vh, k0, KBc, ws);                   \
   e = cudaGetLastError();                                                  \
   if (e != cudaSuccess) return (int)e;                                     \
-  gob_chain_kernel<R><<<nb, c->threads, full, st>>>(*c, lv, dts, u, seed, ws, KBc, k0, k1, \
-                                            dloss, dh0, dm0, dv0, last);
+  gob_chain_kernel<R><<<nb, c->threads, full, st>>>(*c, lv, dts, ws, KBc, k0, \
+                                            k1, dloss, dh0, dm0, dv0, last);
     GOB_ROWS(c->rows, STAGE_CASE)
 #undef STAGE_CASE
     e = cudaGetLastError();
@@ -1304,11 +1340,6 @@ extern "C" int gob_scan_bwd(const GobCfg* c, void** leaves,
 
 extern "C" int gob_masks(const long long* seed, int K, int B, int P,
                          unsigned thresh, int8_t* out, void* stream) {
-  size_t n = (size_t)K * 3 * B * P;
-  int threads = 256;
-  int grid = (int)((n + threads - 1) / threads);
-  if (grid > 65535) grid = 65535;
-  gob_masks_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      seed, K, B, P, thresh, out);
-  return (int)cudaGetLastError();
+  return (int)launch_mask_rows(gob_masks_kernel, seed, K, 3, B, P, thresh,
+                               out, (cudaStream_t)stream);
 }

@@ -6,7 +6,8 @@
 //   njode_scan_fwd_kernel<true>   K1  _fwd_impl / _make_fwd_kernel (training forward, histories)
 //   njode_scan_fwd_kernel<false>  K3  make_fused_eval_fn (eval loss, no histories, no dropout)
 //   njode_scan_bwd_kernel         K2  _fused_bwd / _make_bwd_kernel (hand-written BPTT)
-//   philox_keep (device function) K4  _step_masks (per-step dropout keep-masks)
+//   mask words (fill_lanes)       K4  _step_masks (per-step dropout keep-masks)
+//   philox_masks_kernel               the same masks written out (tests, timing)
 //   reduce_partials               the in-kernel accumulation of the TPU grid (loss_ref +=, _acc_wb)
 //
 // Design. The scan is K sequential steps of tiny matmuls (widths <= ~50,
@@ -69,6 +70,19 @@
 // (col >> 2, global_row, k, slot), word col & 3, kept iff word < thresh.
 // The counter depends only on the global row and column, never on the CTA
 // split or the layer width, so the backward redraws the forward's masks.
+// A step's masks live as bits in shared memory (region mw: per row and
+// slot c.nw words of 32 columns), one draw giving a quad's four bits, and
+// applying a mask is a bit test (keep_at). The words of the next step (K1)
+// or of the step before (K2) are filled while a step runs, by lanes of the
+// warps its phases leave idle (items_fill; the resident plan keeps two
+// sets, by the parity of the step), so a draw is off the step's chain, K2
+// draws a step once for its re-materialisation and its dx, and no barrier
+// is added; in the global plan one set is filled at the end of each step.
+// 'input' mode fills the same words from u, so both modes share the bit
+// test. A word takes eight lanes, a draw each, where a phase leaves that
+// many threads idle (at one row the step's 16 words fill in its first
+// phase, 128 lanes), else a thread, its eight draws (at 16 rows the 256
+// words left over a pass of the CTA).
 //
 // Two plans (c.plan; the counterpart of the JAX kernel's _select_plan /
 // _block_plan, which cut nets that overflow VMEM into K-chunks and batch
@@ -126,7 +140,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "philox.cuh"          // K4: philox_keep
+#include "philox.cuh"          // K4: philox_keep4, mask words, mask rows
 
 #define MAX_ROWS 16            // batch rows per CTA: c.rows in 1..MAX_ROWS
 #define RB 4                   // rows a thread sums in the global plan
@@ -169,6 +183,11 @@ struct ScanCfg {
   int o_gsc, o_ring;           // global plan: GRU gate sums, weight ring
   int o_tdt, o_le;             // resident plan: the io set's t and dt, the
                                // loss's error terms
+  int o_mw;                    // the mask words (two sets resident, one global)
+  int nw, lg_nw;               // mask words of a row and slot, ceil(Wmax /
+                               // 32), and log2 of the power of two >= nw
+  int skip0, skip1;            // slots a step does not use (the encoder's
+                               // with the GRU jump): none drawn
   MLPDesc ode, enc, ro, ro2;   // ro2: the masked branch's post-jump pass
 };
 
@@ -178,21 +197,136 @@ struct MaskCtx {
   int mode;                  // 0 none, 1 input masks, 2 philox
   const int8_t* u;
   uint32_t k0, k1, thresh;
-  int k, row0, nv, half, jump, B, S, Wmax;
+  int row0, nv, half, jump, B, S, Wmax, nw, lg_nw, skip0, skip1;
   float keep;
+  const uint32_t* bits;      // the step's mask words
 };
 
 // keep-mask of hidden slot `slot` at local row r (stacked rows r >= half
-// belong to the second readout, slot + jump), column col
+// belong to the second readout, slot + jump), column col: a bit of step
+// k's words (a padding row of the last CTA keeps every column)
 __device__ __forceinline__ bool keep_at(const MaskCtx& m, int slot, int r,
                                         int col) {
   int lr = r;
   if (r >= m.half) { lr = r - m.half; slot += m.jump; }
-  int grow = m.row0 + lr;
-  if (lr >= m.nv) return true;   // padding row of the last CTA
-  if (m.mode == 1)
-    return m.u[(((size_t)m.k * m.S + slot) * m.B + grow) * m.Wmax + col] != 0;
-  return philox_keep(m.k0, m.k1, m.thresh, col, grow, m.k, slot);
+  return (m.bits[(lr * m.S + slot) * m.nw + (col >> 5)] >> (col & 31)) & 1u;
+}
+
+// the mask words of a step being filled: R * S * 2^lg_nw of them (the
+// words of a row and slot padded to a power of two; fill_words), `done`
+// of them so far
+struct Fill {
+  uint32_t* words;           // the step's set
+  int k, done, total, rows;  // the step; words done, words in all (0:
+                             // none); the CTA's rows
+};
+
+// the set of step k's mask words: by the parity of k in the resident plan
+// (one step's set is read while the other is filled), the one set in the
+// global plan
+__device__ __forceinline__ uint32_t* mask_set(const ScanCfg& c, float* sm,
+                                              int R, int k) {
+  return (uint32_t*)(sm + c.o_mw) + (c.plan ? 0 : (k & 1) * R * c.S * c.nw);
+}
+
+__device__ __forceinline__ Fill fill_of(const ScanCfg& c, float* sm, int R,
+                                        const MaskCtx& mc, int k) {
+  const bool on = mc.mode && k >= 0 && k < c.K;
+  return Fill{mask_set(c, sm, R, k), k, 0,
+              on ? R * c.S * (1 << c.lg_nw) : 0, R};
+}
+
+// Word v of step k's set (v = (r * S + slot) * 2^lg_nw + w: the words of
+// a row and slot padded to a power of two, so only the row takes a
+// division, and none at one row): false for a padding word (w >= nw),
+// else its row r, slot, w and where it goes.
+struct WordAt {
+  int r, slot, w, at;
+};
+
+__device__ __forceinline__ bool word_at(const MaskCtx& m, int rows, int v,
+                                        WordAt& a) {
+  a.w = v & ((1 << m.lg_nw) - 1);
+  if (a.w >= m.nw) return false;
+  const int rs = v >> m.lg_nw;           // r * S + slot
+  a.r = rows == 1 ? 0 : rs / m.S;
+  a.slot = rs - a.r * m.S;
+  a.at = rs * m.nw + a.w;
+  return true;
+}
+
+// The keep bits of quad q of word a's row and slot (every slot draws Wmax
+// columns, a narrower layer reading the first of them, but the unused
+// ones), or all kept on a padding row
+__device__ __forceinline__ uint32_t word_quad(const MaskCtx& m, int k,
+                                              const WordAt& a, int q) {
+  if (a.r >= m.nv) return 0xFu;
+  const int grow = m.row0 + a.r;
+  const int8_t* ur = m.mode == 1
+      ? m.u + (((size_t)k * m.S + a.slot) * m.B + grow) * m.Wmax : nullptr;
+  const int width = a.slot >= m.skip0 && a.slot < m.skip1 ? 0 : m.Wmax;
+  return quad_bits(m.mode, ur, m.k0, m.k1, m.thresh, q, width, grow, k,
+                   a.slot);
+}
+
+// Words e0 .. e0 + take - 1 of step k's set at `words` by eight lanes a
+// word, a draw each: the CTA's thread t is lane e = t - lane0 (one pass,
+// take * 8 <= NTHREADS - lane0), of word e0 + (e >> 3) and its quad 8w +
+// (e & 7), the eight nibbles combined by lanes_word (lane0, a multiple of
+// 32, keeps a word's lanes in one warp). Out of line and by value, so the
+// kernels' item code stays as it was.
+__device__ __noinline__ void fill_lanes(MaskCtx m, uint32_t* words, int k,
+                                        int rows, int e0, int lane0,
+                                        int take) {
+  const int e = (int)threadIdx.x - lane0;
+  WordAt a;
+  if (e < 0 || e >= 8 * take || !word_at(m, rows, e0 + (e >> 3), a)) return;
+  const uint32_t word = lanes_word(word_quad(m, k, a, 8 * a.w + (e & 7)));
+  if ((e & 7) == 0) words[a.at] = word;
+}
+
+// The same words a thread each, its eight draws, the CTA's thread t taking
+// word e0 + e, e = t - lane0 (+ NTHREADS, ...): for what is left at a
+// step's last phase, where few threads are idle.
+__device__ __noinline__ void fill_words(MaskCtx m, uint32_t* words, int k,
+                                        int rows, int e0, int lane0,
+                                        int take) {
+  for (int e = (int)threadIdx.x - lane0; e < take; e += NTHREADS) {
+    WordAt a;
+    if (e < 0 || !word_at(m, rows, e0 + e, a)) continue;
+    uint32_t word = 0u;
+#pragma unroll 4
+    for (int j = 0; j < 8; ++j)
+      word |= word_quad(m, k, a, 8 * a.w + j) << (4 * j);
+    words[a.at] = word;
+  }
+}
+
+// A phase's n items (item(idx), in passes of the CTA's threads), then
+// (f not null) words of f from f.done on, by the threads past the items
+// of the last pass (from the first whole warp there): as many as that
+// pass's idle threads hold at eight lanes a word (fill_lanes), or, where
+// `last`, all that are left at a word a thread (fill_words, in passes of
+// their own if need be). Two phases of a step take words: its first (at
+// one row a CTA all of them fit there) and its last (the rest). The words
+// are drawn after the item loop, so the items' code is the same with
+// masks and without.
+template <class F>
+__device__ __forceinline__ void items_fill(const MaskCtx& mc, Fill* f, int n,
+                                           bool last, const F& item) {
+  for (int idx = threadIdx.x; idx < n; idx += NTHREADS) item(idx);
+  if (!f) return;
+  int take = f->total - f->done;
+  if (take <= 0) return;
+  const int lane0 = n > 0 ? ((n - 1) % NTHREADS + 32) & ~31 : 0;
+  if (!last) {
+    take = min(take, (NTHREADS - lane0) >> 3);
+    if (take > 0)
+      fill_lanes(mc, f->words, f->k, f->rows, f->done, lane0, take);
+  } else {
+    fill_words(mc, f->words, f->k, f->rows, f->done, lane0, take);
+  }
+  f->done += take;
 }
 
 __device__ __forceinline__ float act_f(int a, float x) {
@@ -555,8 +689,9 @@ __device__ void load_weights(const ScanCfg& c, const Leaves& lv, float* sm) {
   }
 }
 
-__device__ MaskCtx make_mask_ctx(const ScanCfg& c, const int8_t* u,
-                                 const long long* seed, int row0, int nv) {
+__device__ MaskCtx make_mask_ctx(const ScanCfg& c, float* sm,
+                                 const int8_t* u, const long long* seed,
+                                 int row0, int nv) {
   MaskCtx mc;
   mc.mode = c.mode;
   mc.u = u;
@@ -564,8 +699,11 @@ __device__ MaskCtx make_mask_ctx(const ScanCfg& c, const int8_t* u,
   mc.k0 = (uint32_t)(s & 0xFFFFFFFFull);
   mc.k1 = (uint32_t)(s >> 32);
   mc.thresh = c.thresh;
-  mc.k = 0; mc.row0 = row0; mc.nv = nv; mc.half = c.rows; mc.jump = 0;
-  mc.B = c.B; mc.S = c.S; mc.Wmax = c.Wmax; mc.keep = c.keep;
+  mc.row0 = row0; mc.nv = nv; mc.half = c.rows; mc.jump = 0;
+  mc.B = c.B; mc.S = c.S; mc.Wmax = c.Wmax; mc.nw = c.nw;
+  mc.lg_nw = c.lg_nw; mc.skip0 = c.skip0; mc.skip1 = c.skip1;
+  mc.keep = c.keep;
+  mc.bits = c.mode ? mask_set(c, sm, c.rows, 0) : nullptr;
   return mc;
 }
 
@@ -1033,11 +1171,12 @@ __device__ __forceinline__ void lin_out_rows2(const Lin& L, int ra, int rb,
 __device__ __forceinline__ void hidden_item(const Lin& L, int idx,
                                             const MaskCtx& mc) {
   int r = idx / L.out, j = idx - r * L.out;
+  // the mask bit first, off the item's chain
+  const bool kp = !mc.mode || keep_hj(mc, L.slot, L.half, L.jump, r, j);
   float v = lin_out(L, r, j);
   L.pre[idx] = v;
   float a = act_f(L.actf, v);
-  if (mc.mode)
-    a = keep_hj(mc, L.slot, L.half, L.jump, r, j) ? a / mc.keep : 0.f;
+  if (mc.mode) a = kp ? a / mc.keep : 0.f;
   L.act[idx] = a;
 }
 
@@ -1054,9 +1193,11 @@ __device__ __forceinline__ Lin net_lin(const ScanCfg& c, float* sm,
 }
 
 // The hidden layers of net a and of net b (b.m null: none), aligned at
-// their ends, a phase each; ends synced. The caller runs the last layers.
+// their ends, a phase each (the first with lanes of f, where not null);
+// ends synced. The caller runs the last layers.
 __device__ void hidden_phases(const ScanCfg& c, float* sm, const Net& a,
-                              const Net& b, const MaskCtx& mc) {
+                              const Net& b, const MaskCtx& mc,
+                              Fill* f = nullptr) {
   const int ha = a.m->n_lin - 1, hb = b.m ? b.m->n_lin - 1 : 0;
   const int hm = max(ha, hb);
   for (int p = 0; p < hm; ++p) {
@@ -1071,10 +1212,10 @@ __device__ void hidden_phases(const ScanCfg& c, float* sm, const Net& a,
       Bl = net_lin(c, sm, b, lb);
       nb = Bl.rows * Bl.out;
     }
-    for (int idx = threadIdx.x; idx < na + nb; idx += NTHREADS) {
+    items_fill(mc, p == 0 ? f : nullptr, na + nb, false, [&](int idx) {
       if (idx < na) hidden_item(A, idx, mc);
       else hidden_item(Bl, idx - na, mc);
-    }
+    });
     phase_end();
   }
 }
@@ -1157,10 +1298,10 @@ __device__ __forceinline__ void row_sums(const ScanCfg& c, const float* sm,
 // One step forward from io set `io` (its in_ode, tX, h, X, obs, M, t, dt
 // in place and synced): h1, h2, tanh of both (in_ro), the readouts' outputs
 // ro (y_bj rows 0..R-1, y rows R..2R-1), every MLP's saved activations and
-// the GRU's saved gates. The last phase (the readout's last layer) is left
-// open: the caller ends it.
+// the GRU's saved gates; its first phase takes lanes of f. The last phase
+// (the readout's last layer) is left open: the caller ends it.
 __device__ void res_step_forward(const ScanCfg& c, float* sm, int R,
-                                 const IO& io, const MaskCtx& mc) {
+                                 const IO& io, const MaskCtx& mc, Fill& f) {
   const int D = c.D, H = c.H, O = c.O, RH = R * H;
   const float dt = io.tdt[1];
   float* h1 = sm + c.o_h1;
@@ -1173,7 +1314,7 @@ __device__ void res_step_forward(const ScanCfg& c, float* sm, int R,
     // the ODE net and the encoder side by side, the Euler step and the
     // jump in the phase of their last layers
     const Net enc{&c.enc, io.tX, R, R, 0};
-    hidden_phases(c, sm, ode, enc, mc);
+    hidden_phases(c, sm, ode, enc, mc, &f);
     const Lin F = net_lin(c, sm, ode, c.ode.n_lin - 1);
     const Lin E = net_lin(c, sm, enc, c.enc.n_lin - 1);
     for (int idx = threadIdx.x; idx < RH; idx += NTHREADS) {
@@ -1191,7 +1332,7 @@ __device__ void res_step_forward(const ScanCfg& c, float* sm, int R,
     }
     phase_end();
   } else {
-    hidden_phases(c, sm, ode, none, mc);
+    hidden_phases(c, sm, ode, none, mc, &f);
     const Lin F = net_lin(c, sm, ode, c.ode.n_lin - 1);
     for (int idx = threadIdx.x; idx < RH; idx += NTHREADS) {
       int r = idx / H, j = idx - r * H;
@@ -1337,11 +1478,13 @@ __device__ __forceinline__ void build_item(const ScanCfg& c, const IO& s,
 // K1/K3's last phase of step k: each row's loss term, the carries after the
 // step (tau, last_X, h; masked: last_X takes the post-jump prediction) into
 // io set nx, with their histories, and from them and nx's t, dt and X (in
-// place since the phase before) the next step's in_ode and tX
+// place since the phase before) the next step's in_ode and tX; and the
+// lanes of f the phases before left
 template <bool WANT_HISTS>
 __device__ void res_carry(const ScanCfg& c, float* sm, int R, const IO& cu,
                           const IO& nx, int k, int row0, int nv, float* hh,
-                          float* lxh, float* tauh) {
+                          float* lxh, float* tauh, const MaskCtx& mc,
+                          Fill& f) {
   const int D = c.D, H = c.H, iw = c.ode.w[0];
   const size_t kb = (size_t)(k + 1) * c.B + row0;
   const bool hist = WANT_HISTS && k + 1 < c.K;
@@ -1353,7 +1496,7 @@ __device__ void res_carry(const ScanCfg& c, float* sm, int R, const IO& cu,
   float* lrow = sm + c.o_lrow;
   const int n_x = !c.masked || c.use_rnn ? R * D : 0;
   const int n = R + R * D + R * H + n_x;
-  for (int e = threadIdx.x; e < n; e += NTHREADS) {
+  items_fill(mc, &f, n, true, [&](int e) {
     int q = e;
     if (q < R) {
       const int r = q;
@@ -1369,7 +1512,7 @@ __device__ void res_carry(const ScanCfg& c, float* sm, int R, const IO& cu,
       in[D + H + 1] = tdiff;
       if (c.ict) in[D + H + 2] = ta + tdiff;
       if (hist && r < nv) tauh[kb + r] = ta;
-      continue;
+      return;
     }
     q -= R;
     if (q < R * D) {
@@ -1380,7 +1523,7 @@ __device__ void res_carry(const ScanCfg& c, float* sm, int R, const IO& cu,
       nx.lx[q] = v;
       nx.in_ode[r * iw + i] = tanhf(v);
       if (hist && r < nv) lxh[kb * D + q] = v;
-      continue;
+      return;
     }
     q -= R * D;
     if (q < R * H) {
@@ -1389,19 +1532,21 @@ __device__ void res_carry(const ScanCfg& c, float* sm, int R, const IO& cu,
       nx.h[q] = v;
       nx.in_ode[r * iw + D + j] = tanhf(v);
       if (hist && r < nv) hh[kb * H + q] = v;
-      continue;
+      return;
     }
     q -= R * H;
     nx.tX[q] = tanhf(nx.X[q]);
-  }
+  });
 }
 
 // K2: each row's loss gradients into dst = [dy_bj ; dy] (masked: M weighs
 // each coordinate, and last_X2 = where(obs, y, last_X) adds obs * dlast_X
 // to dy; a thread of (row, output) computes its row's error terms), and
-// the carries' gradients past an observation (dlxc, dtauc)
+// the carries' gradients past an observation (dlxc, dtauc); and the lanes
+// of f the phases before left
 __device__ void res_loss_grads(const ScanCfg& c, float* sm, int R,
-                               const IO& cu, float dloss) {
+                               const IO& cu, float dloss, const MaskCtx& mc,
+                               Fill& f) {
   const int D = c.D, O = c.O;
   const float* h1 = sm + c.o_h1;
   const float* h2 = sm + c.o_h2;
@@ -1413,7 +1558,7 @@ __device__ void res_loss_grads(const ScanCfg& c, float* sm, int R,
   float* dlxc = sm + c.o_dlxc;
   float* dtauc = sm + c.o_dtauc;
   const int n = R * O + R * D + R;
-  for (int e = threadIdx.x; e < n; e += NTHREADS) {
+  items_fill(mc, &f, n, true, [&](int e) {
     int q = e;
     if (q < R * O) {
       const int r = q / O, o = q - r * O;
@@ -1435,16 +1580,16 @@ __device__ void res_loss_grads(const ScanCfg& c, float* sm, int R,
       if (c.masked) dy += cu.obs[r] * dlx[r * D + o];
       dst[q] = dyb;
       dst[R * O + q] = dy;
-      continue;
+      return;
     }
     q -= R * O;
     if (q < R * D) {
       dlxc[q] = (1.f - cu.obs[q / D]) * dlx[q];
-      continue;
+      return;
     }
     q -= R * D;
     dtauc[q] = (1.f - cu.obs[q]) * dtau[q];
-  }
+  });
 }
 
 // The backward of Linear l of an MLP over `rows` rows: d [rows, out], the
@@ -1547,9 +1692,9 @@ __device__ __forceinline__ void dw_all(const BLin& L) {
 __device__ __forceinline__ void dx_item(const BLin& L, int idx,
                                         const MaskCtx& mc) {
   const int r = idx / L.in, i = idx - r * L.in;
+  const bool kp = !mc.mode || keep_hj(mc, L.slot, L.half, L.jump, r, i);
   float acc = dot_col(L.d + r * L.out, L.W, L.out, L.in, i);
-  if (mc.mode)
-    acc = keep_hj(mc, L.slot, L.half, L.jump, r, i) ? acc / mc.keep : 0.f;
+  if (mc.mode) acc = kp ? acc / mc.keep : 0.f;
   acc *= act_grad(L.actf, L.pre[idx]);
   L.dx[idx] = acc;
 }
@@ -1770,9 +1915,10 @@ __device__ void res_scan_fwd(const ScanCfg& c, const Leaves& lv, float* sm,
                nullptr, nullptr);
   cp_async_wait_all();
   phase_end();
-  for (int e = threadIdx.x; e < n_build(c, R); e += NTHREADS)
-    build_item(c, s0, R, e);
-  MaskCtx mc = make_mask_ctx(c, u, seed, row0, nv);
+  MaskCtx mc = make_mask_ctx(c, sm, u, seed, row0, nv);
+  Fill f0 = fill_of(c, sm, R, mc, 0);      // step 0's mask words
+  items_fill(mc, &f0, n_build(c, R), true,
+             [&](int e) { build_item(c, s0, R, e); });
   phase_end();
   for (int k = 0; k < c.K; ++k) {
     phase_clock_step(k, c.K);
@@ -1780,11 +1926,13 @@ __device__ void res_scan_fwd(const ScanCfg& c, const Leaves& lv, float* sm,
     if (k + 1 < c.K)
       stage_inputs(c, nx, k + 1, row0, nv, R, times, dts, obs_g, X_g, M_g,
                    nullptr, nullptr, nullptr);
-    mc.k = k;
-    res_step_forward(c, sm, R, cu, mc);
+    mc.bits = mask_set(c, sm, R, k);
+    Fill f = fill_of(c, sm, R, mc, k + 1);   // the next step's
+    res_step_forward(c, sm, R, cu, mc, f);
     cp_async_wait_all();
     phase_end();
-    res_carry<WANT_HISTS>(c, sm, R, cu, nx, k, row0, nv, hh, lxh, tauh);
+    res_carry<WANT_HISTS>(c, sm, R, cu, nx, k, row0, nv, hh, lxh, tauh, mc,
+                          f);
     phase_end();
   }
   if (threadIdx.x == 0) {
@@ -1825,15 +1973,16 @@ __device__ void res_scan_bwd(const ScanCfg& c, const Leaves& lv, float* sm,
     sm[c.o_nobs + r] = r < nv ? n_obs[row0 + r] : 1.f;
   }
   const float dloss = dloss_p[0];
-  MaskCtx mc = make_mask_ctx(c, u, seed, row0, nv);
+  MaskCtx mc = make_mask_ctx(c, sm, u, seed, row0, nv);
   {
     const IO s = io_set(c, sm, c.K - 1);
     stage_inputs(c, s, c.K - 1, row0, nv, R, times, dts, obs_g, X_g, M_g, hh,
                  lxh, tauh);
     cp_async_wait_all();
     phase_end();
-    for (int e = threadIdx.x; e < n_build(c, R); e += NTHREADS)
-      build_item(c, s, R, e);
+    Fill f0 = fill_of(c, sm, R, mc, c.K - 1);   // the last step's words
+    items_fill(mc, &f0, n_build(c, R), true,
+               [&](int e) { build_item(c, s, R, e); });
     phase_end();
   }
   for (int k = c.K - 1; k >= 0; --k) {
@@ -1843,10 +1992,12 @@ __device__ void res_scan_bwd(const ScanCfg& c, const Leaves& lv, float* sm,
     if (more)
       stage_inputs(c, nx, k - 1, row0, nv, R, times, dts, obs_g, X_g, M_g,
                    hh, lxh, tauh);
-    mc.k = k;
-    res_step_forward(c, sm, R, cu, mc);
+    mc.bits = mask_set(c, sm, R, k);
+    // step k - 1's words, drawn once for its re-materialisation and its dx
+    Fill f = fill_of(c, sm, R, mc, k - 1);
+    res_step_forward(c, sm, R, cu, mc, f);
     phase_end();
-    res_loss_grads(c, sm, R, cu, dloss);
+    res_loss_grads(c, sm, R, cu, dloss, mc, f);
     cp_async_wait_all();
     phase_end();
     const float dt = cu.tdt[1];
@@ -1984,10 +2135,12 @@ njode_scan_fwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
     lrow[r] = 0.f;
     nobs[r] = r < nv ? n_obs[row0 + r] : 1.f;
   }
-  MaskCtx mc = make_mask_ctx(c, u, seed, row0, nv);
+  MaskCtx mc = make_mask_ctx(c, sm, u, seed, row0, nv);
   // the global plan's weight ring: the forward's tiles, step after step
   Ring rg{prog, c.n_tiles_fwd, 0, c.stage, sm + c.o_ring, wg};
   ring_issue(rg, 0);
+  Fill f0 = fill_of(c, sm, R, mc, 0);        // step 0's mask words
+  items_fill(mc, &f0, 0, true, [](int) {});
   __syncthreads();
   for (int k = 0; k < c.K; ++k) {
     const float t = times[k], dt = dts[k];
@@ -2007,7 +2160,6 @@ njode_scan_fwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
       X[idx] = r < nv ? X_g[gi] : 0.f;
       if (c.masked) Mm[idx] = r < nv ? M_g[gi] : 0.f;
     }
-    mc.k = k;
     step_forward<RT>(c, sm, rg, t, dt, mc);
     // per-row loss term, then the carry updates (masked: last_X takes the
     // post-jump prediction, O == D)
@@ -2024,6 +2176,10 @@ njode_scan_fwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
     }
     for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x)
       h[idx] = sm[c.o_h2 + idx];
+    // the next step's mask words (step k read its last before
+    // step_forward's last barrier)
+    Fill f = fill_of(c, sm, R, mc, k + 1);
+    items_fill(mc, &f, 0, true, [](int) {});
     __syncthreads();
   }
   cp_async_wait_all();           // the next step's first tile, unused
@@ -2078,11 +2234,13 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
     nobs[r] = r < nv ? n_obs[row0 + r] : 1.f;
   }
   const float dloss = dloss_p[0];
-  MaskCtx mc = make_mask_ctx(c, u, seed, row0, nv);
+  MaskCtx mc = make_mask_ctx(c, sm, u, seed, row0, nv);
   // the global plan's weight ring: the forward's tiles, then the
   // backward's, step after step
   Ring rg{prog, c.n_tiles_fwd + c.n_tiles_bwd, 0, c.stage, sm + c.o_ring, wg};
   ring_issue(rg, 0);
+  Fill f0 = fill_of(c, sm, R, mc, c.K - 1);  // the last step's mask words
+  items_fill(mc, &f0, 0, true, [](int) {});
   __syncthreads();
   for (int k = c.K - 1; k >= 0; --k) {
     const float t = times[k], dt = dts[k];
@@ -2100,7 +2258,6 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
       tau[r] = ok ? tauh[(size_t)k * B + row0 + r] : 0.f;
       obs[r] = ok ? obs_g[(size_t)k * B + row0 + r] : 0.f;
     }
-    mc.k = k;
     step_forward<RT>(c, sm, rg, t, dt, mc);
     // loss gradients per row: rs = (de1, de2)
     for (int r = threadIdx.x; r < R; r += blockDim.x) {
@@ -2218,6 +2375,10 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
     // the input_current_t feature tau + tdiff == t_prev is constant in tau
     for (int r = threadIdx.x; r < R; r += blockDim.x)
       dtau[r] = dtauc[r] + dino[r * iw + D + H] - dino[r * iw + D + H + 1];
+    // step k - 1's mask words (step k read its last before mlp_bwd's last
+    // barrier)
+    Fill f = fill_of(c, sm, R, mc, k - 1);
+    items_fill(mc, &f, 0, true, [](int) {});
     __syncthreads();
   }
   cp_async_wait_all();           // the next step's first tile, unused
@@ -2238,23 +2399,12 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partials,
 }
 
 // The K4 masks of K steps written out ([K, S, B, W] int8): the draw the
-// scan kernels make in 'prng' mode, for tests and timing.
-__global__ void philox_masks_kernel(const long long* seed, int K, int S,
-                                    int B, int W, unsigned thresh,
-                                    int8_t* out) {
-  size_t n = (size_t)K * S * B * W;
-  unsigned long long s = (unsigned long long)seed[0];
-  uint32_t k0 = (uint32_t)(s & 0xFFFFFFFFull), k1 = (uint32_t)(s >> 32);
-  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
-       idx += (size_t)gridDim.x * blockDim.x) {
-    int col = (int)(idx % W);
-    size_t q = idx / W;
-    int row = (int)(q % B);
-    q /= B;
-    int slot = (int)(q % S);
-    int k = (int)(q / S);
-    out[idx] = philox_keep(k0, k1, thresh, col, row, k, slot) ? 1 : 0;
-  }
+// scan kernels make in 'prng' mode (one Philox a quad), for tests and
+// timing.
+__global__ void __launch_bounds__(256)
+philox_masks_kernel(const long long* seed, int K, int S, int B, int W,
+                    unsigned thresh, int8_t* out) {
+  philox_mask_rows(seed, K, S, B, W, thresh, out);
 }
 
 // ------------------------------------------------------------ C interface
@@ -2448,13 +2598,8 @@ extern "C" int njode_phase_clock(long long* out, int* n) {
 extern "C" int njode_philox_masks(const long long* seed, int K, int S, int B,
                                   int W, unsigned thresh, int8_t* out,
                                   void* stream) {
-  size_t n = (size_t)K * S * B * W;
-  int threads = 256;
-  int grid = (int)((n + threads - 1) / threads);
-  if (grid > 65535) grid = 65535;
-  philox_masks_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      seed, K, S, B, W, thresh, out);
-  return (int)cudaGetLastError();
+  return (int)launch_mask_rows(philox_masks_kernel, seed, K, S, B, W, thresh,
+                               out, (cudaStream_t)stream);
 }
 
 // out = scale * the sum of partials' rows (row q at partials + q * n)

@@ -84,9 +84,10 @@ WG_TILE = 32                     # stage (c): output tile [32, 32] of a leaf
 # launches per kernel; a wrapper adds one where it launches its kernel.
 # K6 counts each of its stages per chunk: 'gob_bwd_remat' (a),
 # 'gob_scan_bwd' (b, the chain), 'gob_bwd_wgrad' (c). 'gob_philox_keep'
-# (K7) runs inside K5 and K6's stages (a) and (b): it counts their
-# 'prng'-mode launches; 'gob_masks' counts the stand-alone mask dump (tests,
-# timing). The loss and gradient partials are summed by the NJODE library's
+# (K7: the mask words K5 and K6's stage (a) fill as they run; stage (b)
+# reads the saved activations instead) counts their 'prng'-mode
+# launches; 'gob_masks' counts the stand-alone mask dump (tests, timing).
+# The loss and gradient partials are summed by the NJODE library's
 # reduce_partials (counted in fused_scan.LAUNCHES).
 LAUNCHES = {"gob_scan_fwd": 0, "gob_scan_eval": 0, "gob_bwd_remat": 0,
             "gob_scan_bwd": 0, "gob_bwd_wgrad": 0, "gob_philox_keep": 0,
@@ -418,10 +419,22 @@ class Spec:
     def dropping(self, train: bool) -> bool:
         return bool(train) and self.rate > 0.0
 
+    @property
+    def nw(self) -> int:
+        """Mask words of a row and slot: 32 columns a word."""
+        return -(-self.P // 32)
+
+    def mask_words(self, R: int) -> int:
+        """32-bit words of the dropout masks of K5 and stage (a) at R rows
+        (after their forward buffers, or after the weights where K5 stages
+        them): one step's three slots, 0 without dropout."""
+        return R * 3 * self.nw if self.rate > 0.0 else 0
+
     def layout(self, R: int):
         """Float offsets of every shared-memory buffer of one CTA at R rows
         (the forward buffers from 0, the chain's after its two copies of
-        them), the floats the forward kernels use and the chain's total."""
+        them), the floats the forward kernels use (K5 and stage (a) take
+        ``mask_words`` more after them) and the chain's total."""
         off, n = {}, 0
         for name, _ in _FWD_BUFS:
             off[name] = n
@@ -435,7 +448,7 @@ class Spec:
 
     def smem_bytes(self, R: int, bwd: bool = True) -> int:
         _, n_fwd, total = self.layout(R)
-        return 4 * (total if bwd else n_fwd)
+        return 4 * (total if bwd else n_fwd + self.mask_words(R))
 
     def fits(self, R: int, bwd: bool = True) -> bool:
         return self.smem_bytes(R, bwd) <= SMEM_LIMIT
@@ -473,9 +486,10 @@ class Spec:
         return self._stage_rule(B, bwd, chain)
 
     def _weights_fit(self, B, bwd, chain):
-        _, n_fwd, total = self.layout(self.rows_for(B, bwd))
-        return 4 * ((total if chain else n_fwd) + self.n_params) \
-            <= SMEM_LIMIT
+        R = self.rows_for(B, bwd)
+        _, n_fwd, total = self.layout(R)
+        return 4 * ((total if chain else n_fwd + self.mask_words(R))
+                    + (self.n_params + 3) // 4 * 4) <= SMEM_LIMIT
 
     def _stage_rule(self, B, bwd, chain):
         return (self._weights_fit(B, bwd, chain)
@@ -1083,7 +1097,8 @@ class _GobCfg(ctypes.Structure):
            ("mixing", ctypes.c_float)]
         + [(n, ctypes.c_int) for n in ("rows", "fwd_floats", "smem_floats",
                                        "n_ws", "n_save", "n_dlt", "wsm",
-                                       "o_w", "threads")]
+                                       "o_w", "threads", "o_mw", "n_mw",
+                                       "nw", "lg_nw")]
         + [("leaf_off", ctypes.c_int * (MAX_LEAVES + 1))]
         + [(n, ctypes.c_int * k) for n, k in _SLOTS]
         + [(n, ctypes.c_int * MAX_SAVE) for n in ("save_sm", "save_ws",
@@ -1125,6 +1140,12 @@ def _make_cfg(spec, K, B, train, bwd, chain):
     c.n_ws, c.n_save, c.n_dlt = spec.n_ws, len(SAVED), len(spec.deltas)
     c.wsm = int(spec.stage_weights(B, bwd, chain))
     c.o_w = total if chain else n_fwd
+    # the mask words past the weights K5 stages, else past the forward
+    # buffers (stage (a) takes them from the chain's configuration)
+    c.o_mw = (n_fwd + (spec.n_params + 3) // 4 * 4 if c.wsm and not chain
+              else n_fwd)
+    c.n_mw, c.nw = spec.mask_words(R), spec.nw
+    c.lg_nw = (spec.nw - 1).bit_length()
     c.threads = spec.threads_for(B, bwd)
     for i, o in enumerate(spec.leaf_off):
         c.leaf_off[i] = o
@@ -1271,7 +1292,7 @@ def gob_scan_bwd_cuda(spec, leaves, arrays, train, hists, dloss, u=None,
     for key in ("gob_bwd_remat", "gob_scan_bwd", "gob_bwd_wgrad"):
         LAUNCHES[key] += n_chunks
     if cfg.mode == 2:
-        LAUNCHES["gob_philox_keep"] += 2 * n_chunks
+        LAUNCHES["gob_philox_keep"] += n_chunks
     flat = fs._reduce(partials, 1.0)
     grads = [flat[a:b].view(s) for a, b, s in
              zip(spec.leaf_off[:-1], spec.leaf_off[1:], spec.leaf_shapes)]

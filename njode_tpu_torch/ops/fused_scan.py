@@ -97,9 +97,10 @@ RB, MAXI, NTHREADS, TILE_INTS = 4, 4, 256, 8
 
 # launches per kernel; a wrapper adds one where it launches its kernel.
 # K1-K3 count each branch and plan apart ('_rnn': the GRU jump; '_global':
-# the global plan's instantiations). 'philox_keep' (K4) runs inside K1/K2:
-# it counts their 'prng'-mode launches; 'philox_masks' counts the
-# stand-alone mask dump used by tests and timing.
+# the global plan's instantiations). 'philox_keep' (K4: the mask words
+# K1/K2 fill as they run) counts their 'prng'-mode launches;
+# 'philox_masks' counts the stand-alone mask dump used by tests and
+# timing.
 LAUNCHES = {k + rnn + plan: 0
             for k in ("njode_scan_fwd", "njode_scan_eval", "njode_scan_bwd")
             for rnn in ("", "_rnn") for plan in ("", "_global")}
@@ -284,7 +285,14 @@ class Spec:
         floats after the first), so one step fills the other set while it
         reads its own; ``le`` the loss's error terms of each row and
         output, which the readout's last phase writes; the backward
-        regions only in K2's layout."""
+        regions only in K2's layout.
+
+        Both plans end with ``mw``, the dropout masks as bits
+        (``mask_words``): two sets in the resident plan (a step's, and
+        the next one's being filled), one in the global plan (filled at
+        the end of each step; in the masked branch without the GRU jump
+        inside ``dB``, whose second half its backward never uses), none
+        without dropout."""
         R2 = 2 * R
         D, H, O, P = self.D, self.H, self.O, self.n_params
         DM = D if self.masked else 0
@@ -324,6 +332,15 @@ class Spec:
                 take("gru", 4 * R * H)
                 take("dG", 4 * R * H)
                 take("gsc", 6 * R * H)
+            if (self.masked and not self.use_rnn
+                    and self.mask_words(R) <= R * self.buf_w):
+                # the masked branch's backward passes run over R rows, so
+                # the second half of dB (2R rows for a stacked readout) is
+                # free all step: the mask words live there and the ring
+                # keeps its stages
+                off["mw"] = off["dB"] + R * self.buf_w
+            else:
+                take("mw", self.mask_words(R))
             take("ring", 2 * max(self._ring_stage(n), 0))
             return off, n
         take("w", P)
@@ -353,7 +370,20 @@ class Spec:
             take("gru", 4 * R * H)
             if bwd:
                 take("dG", 4 * R * H)
+        take("mw", 2 * self.mask_words(R))
         return off, n
+
+    @property
+    def nw(self) -> int:
+        """Mask words of a row and slot: 32 columns a word."""
+        return -(-self.w_max // 32)
+
+    def mask_words(self, R: int) -> int:
+        """32-bit words of one step's dropout masks at R rows (every slot
+        at ``nw`` words a row), 0 without dropout."""
+        if not (self.rate > 0.0 and self.S > 0):
+            return 0
+        return R * self.S * self.nw
 
     def ring_ops(self, R: int):
         """The weight products of one step in the global plan, in the
@@ -810,7 +840,7 @@ _LAYOUT_FIELDS = ("w", "g", "h", "lx", "tau", "X", "obs", "nobs", "lrow",
                   "h1", "h2", "in_ode", "tX", "in_ro", "f", "enc", "ro",
                   "dA", "dB", "dh", "dlx", "dtau", "rs", "dst", "dh1", "dhe",
                   "df", "dlxc", "dtauc", "M", "Xi", "gru", "dG", "gsc",
-                  "ring", "tdt", "le")
+                  "ring", "tdt", "le", "mw")
 
 
 class _ScanCfg(ctypes.Structure):
@@ -828,6 +858,7 @@ class _ScanCfg(ctypes.Structure):
                                        "n_tiles_bwd", "stage", "io_stride")]
         + [("leaf_off", ctypes.c_int * (MAX_LEAVES + 1))]
         + [("o_" + n, ctypes.c_int) for n in _LAYOUT_FIELDS]
+        + [(n, ctypes.c_int) for n in ("nw", "lg_nw", "skip0", "skip1")]
         + [("ode", _MLPDesc), ("enc", _MLPDesc), ("ro", _MLPDesc),
            ("ro2", _MLPDesc)])
 
@@ -879,6 +910,12 @@ def _make_cfg(spec, K, B, train, weight, bwd):
         c.leaf_off[i] = o
     for n in _LAYOUT_FIELDS:
         setattr(c, "o_" + n, off.get(n, -1))
+    c.nw, c.lg_nw = spec.nw, (spec.nw - 1).bit_length()
+    # the encoder's slots draw nothing with the GRU jump (it runs at t=0
+    # only, outside the kernels)
+    c.skip0 = c.skip1 = spec.s_enc
+    if spec.use_rnn:
+        c.skip1 = spec.s_enc + spec.n_enc
     leaf = 0
     for desc, ws, acts, slot0, save in (
             (c.ode, spec.ode_w, spec.ode_a, spec.s_ode, "s_ode"),

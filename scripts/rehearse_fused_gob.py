@@ -6,10 +6,12 @@ fused_gob.cu) on the CPU, before a card run.
 Compiles the source with g++ (C++20) through a small header that defines
 the CUDA keywords away: each CTA runs as its ``std::thread``s in turn,
 ``__syncthreads`` is a ``std::barrier`` of the CTA, ``__shfl_xor_sync`` an
-exchange through a per-warp buffer between two barriers of the warp, the
-dynamic shared memory a global array filled with NaN before each CTA, and
-every ``kernel<<<grid, block, smem, stream>>>(args)`` a loop over the grid
-(each CTA ``block`` threads).
+exchange through a per-warp buffer between two barriers of the warp,
+``__reduce_or_sync`` over one aligned group of eight lanes (the mask words'
+lanes) the same through a barrier of the group, the dynamic shared memory
+a global array filled with NaN before each CTA, and every
+``kernel<<<grid, block, smem, stream>>>(args)`` a loop over the grid (each
+CTA ``block`` threads, one- or two-dimensional).
 Then it drives the C interface with the configuration the wrappers build
 (``fused_gob.make_cfg``, ``Spec.wgrad_program``) on CPU tensors, at
 several rows per CTA and chunk lengths, in both mask modes, and prints
@@ -55,17 +57,31 @@ using std::min; using std::max;
 struct dim3 { unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 inline thread_local dim3 threadIdx, blockIdx;
+inline thread_local int g_lin;              // the thread's linear index
 inline dim3 blockDim(256), gridDim;
 inline std::barrier<>* g_block_bar;
 inline std::barrier<>* g_warp_bar[32];
+inline std::barrier<>* g_group_bar[32][4];
 inline float g_shfl[32][32];
+inline unsigned g_red[32][32];
 inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
 inline float __shfl_xor_sync(unsigned, float v, int w) {
-  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int warp = g_lin >> 5, lane = g_lin & 31;
   g_shfl[warp][lane] = v;
   g_warp_bar[warp]->arrive_and_wait();
   float r = g_shfl[warp][lane ^ w];
   g_warp_bar[warp]->arrive_and_wait();
+  return r;
+}
+
+inline unsigned __reduce_or_sync(unsigned mask, unsigned v) {
+  int warp = g_lin >> 5, lane = g_lin & 31, g = lane >> 3;
+  if (mask != (0xFFu << (8 * g))) std::abort();   // one group of eight
+  g_red[warp][lane] = v;
+  g_group_bar[warp][g]->arrive_and_wait();
+  unsigned r = 0;
+  for (int i = 0; i < 8; ++i) r |= g_red[warp][8 * g + i];
+  g_group_bar[warp][g]->arrive_and_wait();
   return r;
 }
 inline int __ffs(int x) { return __builtin_ffs(x); }
@@ -79,25 +95,37 @@ inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
-       cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+       cudaDevAttrMultiProcessorCount = 16 };
 inline const char* cudaGetErrorString(cudaError_t) { return "error"; }
 inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
+  *v = 1; return 0; }
 template <class F> inline cudaError_t cudaFuncSetAttribute(F*, int, int) {
   return 0; }
 template <class F> inline cudaError_t
 cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F*, int, size_t) {
   *n = 0; return 0; }
 extern float sm[];
-template <class F> void launch_grid(dim3 g, int threads, size_t smem_bytes,
+template <class F> void launch_grid(dim3 g, dim3 b, size_t smem_bytes,
                                    F f) {
   gridDim = g;
-  blockDim = dim3(threads);
+  blockDim = b;
+  const int threads = (int)(b.x * b.y * b.z);
   const int nw = threads / 32;
   std::barrier<> bb(threads);
   std::barrier<>* wb[32];
-  for (int w = 0; w < nw; ++w) wb[w] = new std::barrier<>(32);
+  std::barrier<>* gb[32][4];
+  for (int w = 0; w < nw; ++w) {
+    wb[w] = new std::barrier<>(32);
+    for (int q = 0; q < 4; ++q) gb[w][q] = new std::barrier<>(8);
+  }
   g_block_bar = &bb;
-  for (int w = 0; w < nw; ++w) g_warp_bar[w] = wb[w];
+  for (int w = 0; w < nw; ++w) {
+    g_warp_bar[w] = wb[w];
+    for (int q = 0; q < 4; ++q) g_group_bar[w][q] = gb[w][q];
+  }
   for (unsigned by = 0; by < g.y; ++by)
     for (unsigned bx = 0; bx < g.x; ++bx) {
       for (size_t i = 0; i < smem_bytes / 4; ++i)
@@ -105,10 +133,15 @@ template <class F> void launch_grid(dim3 g, int threads, size_t smem_bytes,
       std::vector<std::thread> ts;
       for (int t = 0; t < threads; ++t)
         ts.emplace_back([&, t, bx, by] {
-          threadIdx = dim3(t); blockIdx = dim3(bx, by); f(); });
+          g_lin = t;
+          threadIdx = dim3(t % b.x, t / b.x % b.y, t / (b.x * b.y));
+          blockIdx = dim3(bx, by); f(); });
       for (auto& th : ts) th.join();
     }
-  for (int w = 0; w < nw; ++w) delete wb[w];
+  for (int w = 0; w < nw; ++w) {
+    delete wb[w];
+    for (int q = 0; q < 4; ++q) delete gb[w][q];
+  }
 }
 '''
 
@@ -121,8 +154,9 @@ def build(out_dir, name="fused_gob"):
         s = f.read()
     s = s.replace("#include <cuda_runtime.h>",
                   '#include "cuda_stub.h"\nfloat sm[1 << 18];')
-    s = s.replace('#include "philox.cuh"',
-                  '#include "' + os.path.join(csrc, "philox.cuh") + '"')
+    with open(os.path.join(csrc, "philox.cuh")) as f:
+        s = s.replace('#include "philox.cuh"',
+                      f.read().replace("#pragma once", ""))
     s = s.replace("extern __shared__ float sm[];", "")
 
     def launch(m):

@@ -12,7 +12,8 @@ the C interface with the configuration the wrappers build
 (gradients and dh0) and K3 (eval loss) in the resident plan at R = 1, 2
 and 16 (the last CTA of a batch of 5 partly padding), in both mask modes,
 against the plain versions, and the global plan forced at the same rows
-against the resident plan bit for bit. Each variant is one branch of the
+against the resident plan bit for bit; and (``masks``) the standalone mask
+kernel's C call against ``philox_keep_plain`` bit for bit. Each variant is one branch of the
 kernels (unmasked or masked, encoder or GRU jump) or one option (no bias,
 relu, easy loss, input_current_t, residual encoder and readout, nets of
 other depths). It finds arithmetic, indexing and barrier faults (a
@@ -174,7 +175,28 @@ VARIANTS = [
     ("masked_depths", dict(masked=True, ode_nn=((6, "tanh"), (3, "tanh"),
                                                 (5, "tanh")),
                            enc_nn=((5, "tanh"),)), 2),
+    # a widest layer of 37 columns: a row's mask bits span two words and
+    # end in a partial quad, and the slots' widths differ
+    ("wide37", dict(ode_nn=((37, "tanh"), (6, "tanh")),
+                    readout_nn=((33, "tanh"),),
+                    enc_nn=((5, "tanh"), (37, "relu"))), 2),
 ]
+
+
+def masks(lib, K, S, Bm, W, seed=2 ** 40 + 17, rate=0.1):
+    """njode_philox_masks through the CPU build against
+    ``philox_keep_plain``: whether every byte is the plain draw."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    thresh = min(int((1.0 - rate) * 2.0 ** 32), 2 ** 32 - 1)
+    out = torch.full((K, S, Bm, W), -1, dtype=torch.int8)
+    sd = torch.tensor([seed], dtype=torch.int64)
+    assert lib.njode_philox_masks(_ptr(sd), K, S, Bm, W, thresh, _ptr(out),
+                                  None) == 0
+    want = fs.philox_keep_plain(seed, torch.arange(K), S, Bm, W, thresh)
+    return torch.equal(out, want.to(torch.int8))
 
 
 def main(names):

@@ -338,16 +338,63 @@ def test_fused_loss_on_card_matches_cpu(card):
         _close(f"grad {i}", a, b, _tol(b))
 
 
-@pytest.mark.parametrize("B,P", [(20, 50), (37, 13), (16, 4)])
+@pytest.mark.parametrize("B,P", [(20, 50), (37, 13), (16, 4), (21, 7),
+                                 (13, 32), (9, 33), (100, 25)])
 def test_gob_masks_match_plain(card, B, P):
     """K7's draw, written out, equals the plain Philox (slots 0-2) at
-    widths that are no multiple of 4 and at ragged batches."""
+    widths that are no multiple of 4 (a partial quad, one and two words)
+    and at ragged batches."""
     seed = torch.tensor([2 ** 40 + 17], dtype=torch.int64, device=card)
     thresh = min(int(0.9 * 2.0 ** 32), 2 ** 32 - 1)
     got = fg.gob_masks_cuda(seed, 6, B, P, thresh)
     want = fg.gob_masks_plain(int(seed), torch.arange(6, device=card), B, P,
                               thresh, card)
     assert torch.equal(got.bool(), want)
+
+
+def test_gob_masks_match_plain_over_many_rows(card):
+    """K7's draw at the climate GOB arm's grid (K = 2,004, B = 100, P =
+    25): more rows than the grid holds at once, so each thread strides
+    over rows (the (row, slot, step) it draws for advanced with
+    carries)."""
+    seed = torch.tensor([2 ** 40 + 17], dtype=torch.int64, device=card)
+    thresh = min(int(0.8 * 2.0 ** 32), 2 ** 32 - 1)
+    got = fg.gob_masks_cuda(seed, 2004, 100, 25, thresh)
+    for k0 in range(0, 2004, 500):
+        ks = torch.arange(k0, min(2004, k0 + 500), device=card)
+        want = fg.gob_masks_plain(int(seed), ks, 100, 25, thresh, card)
+        assert torch.equal(got[k0:k0 + len(ks)].bool(), want), k0
+
+
+PRNG_INPUT = [v for v in VARIANTS if v[0] in (
+    "impute_drop", "mid_full_impute_drop", "published_h100", "climate")]
+
+
+@pytest.mark.parametrize("rows", [None, 2, 4], ids=["rule", "R2", "R4"])
+@pytest.mark.parametrize("variant", PRNG_INPUT,
+                         ids=[v[0] for v in PRNG_INPUT])
+def test_prng_mode_equals_input_mode_on_its_masks(card, variant, rows):
+    """K5 and K6 in 'prng' mode (the mask words K5 and stage (a) fill;
+    stage (b) reads the saved activations) give the bits of 'input' mode
+    fed with the masks that gob_masks_cuda writes out for the same seed."""
+    cfg, _, _, arrays, leaves, (h0, m0, v0) = _setup(variant, card,
+                                                     rows=rows)
+    sp = fg.Spec(cfg, "prng", rows=rows)
+    si = fg.Spec(cfg, "input", rows=rows)
+    assert sp.rate > 0
+    K, B = arrays[2].shape
+    seed = torch.tensor([2 ** 41 + 5], dtype=torch.int64, device=card)
+    u = fg.gob_masks_cuda(seed, K, B, sp.P, sp.thresh)
+    dloss = torch.tensor(1.3, device=card)
+    out = []
+    for spec, uu, ss in ((sp, None, seed), (si, u, None)):
+        lk, hk = fg.gob_scan_fwd_cuda(spec, leaves, arrays, h0, m0, v0, True,
+                                      uu, ss)
+        g = fg.gob_scan_bwd_cuda(spec, leaves, arrays, True, hk, dloss, uu,
+                                 ss)
+        out.append((lk, *hk, *g[0], *g[1:]))
+    for i, (a, b) in enumerate(zip(*out)):
+        assert torch.equal(a, b), i
 
 
 def test_wrappers_reject_bad_inputs(card):

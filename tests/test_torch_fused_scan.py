@@ -321,23 +321,25 @@ def _arm_cfg(D, hidden, width, masked):
 # (experiments/configs.py: PhysioNet :233-245, climate :141-150, sine
 # :265-279); the global plan adds the ring (and, with the GRU jump, its
 # gate sums) in the shared memory the activations leave; the resident
-# plan's bytes are K2's at the most rows that fit
+# plan's bytes are K2's at the most rows that fit; both hold the dropout
+# mask words (the global plan's masked branch without the GRU jump inside
+# a backward buffer, so its bytes are the activations')
 PLAN_ARMS = [
-    ("main_path", 1, 10, 50, False, False, "resident", 16, 154080, 154080),
-    ("main_path_rnn", 1, 10, 50, False, True, "resident", 16, 162336,
-     162336),
-    ("climate_small", 5, 10, 50, True, False, "resident", 16, 166624,
-     166624),
-    ("climate_small_rnn", 5, 10, 50, True, True, "resident", 16, 175808,
-     175808),
-    ("physionet_50", 41, 41, 50, True, False, "resident", 2, 215632,
-     215632),
-    ("physionet_50_rnn", 41, 41, 50, True, True, "global", 16, 217024,
+    ("main_path", 1, 10, 50, False, False, "resident", 16, 156128, 156128),
+    ("main_path_rnn", 1, 10, 50, False, True, "resident", 16, 164384,
+     164384),
+    ("climate_small", 5, 10, 50, True, False, "resident", 16, 168672,
+     168672),
+    ("climate_small_rnn", 5, 10, 50, True, True, "resident", 16, 177856,
+     177856),
+    ("physionet_50", 41, 41, 50, True, False, "resident", 2, 215888,
+     215888),
+    ("physionet_50_rnn", 41, 41, 50, True, True, "global", 16, 218048,
      159936),
     ("physionet_200", 41, 41, 200, True, False, "global", 8, 232448,
      161120),
     ("climate_400", 5, 50, 400, True, False, "global", 4, 232432, 138800),
-    ("sine_400", 1, 10, 400, False, False, "global", 4, 232448, 130240),
+    ("sine_400", 1, 10, 400, False, False, "global", 4, 232448, 131904),
 ]
 
 
@@ -414,7 +416,8 @@ def test_rows_rule(case):
 
 def test_forward_layout_and_rows_per_batch():
     """K1/K3's resident layout holds no gradient region and no backward
-    region (K2's holds both), so more of its CTAs fit an SM; ``make_cfg``
+    region (K2's holds both), so more of its CTAs fit an SM; both end with
+    two sets of mask words; ``make_cfg``
     keeps one configuration per call shape and kernel, each at its batch's
     rows (the last, smaller batch of an epoch at its own), and a forced
     plan's rows at every batch."""
@@ -427,10 +430,13 @@ def test_forward_layout_and_rows_per_batch():
         bwd, n_bwd = spec.layout(R, "resident")
         assert not bwd_only & set(fwd) and {"w", "g", "dA"} <= set(bwd)
         assert {k: v - P4 for k, v in bwd.items()
-                if k not in bwd_only and k != "w"} == {
-            k: v for k, v in fwd.items() if k != "w"}
+                if k not in bwd_only and k not in ("w", "mw")} == {
+            k: v for k, v in fwd.items() if k not in ("w", "mw")}
         assert n_bwd - n_fwd > P4
-    assert 4 * spec.layout(16, "resident", bwd=False)[1] == 98048
+        for off, n in ((fwd, n_fwd), (bwd, n_bwd)):
+            assert n - off["mw"] == (2 * spec.mask_words(R) + 3) // 4 * 4
+            assert off["mw"] == max(off.values())
+    assert 4 * spec.layout(16, "resident", bwd=False)[1] == 100096
     assert (spec.ctas_per_sm(16), spec.ctas_per_sm(16, False)) == (1, 2)
     c_fwd = fs.make_cfg(spec, 100, 100, True, 0.5, bwd=False)
     c_bwd = fs.make_cfg(spec, 100, 100, True, 0.5)
@@ -506,7 +512,7 @@ def test_reduce_order_is_ascending_rows(shape):
 
 def test_forced_plans_and_global_layout():
     """A forced plan: the resident plan of PhysioNet's 50 arm fits at 2
-    rows (215,632 B), not at 4, and every launch takes the forced rows
+    rows (215,888 B), not at 4, and every launch takes the forced rows
     whatever the batch; the global plan's layout has no weight, gradient
     or io-set regions, and ``make_cfg`` marks their offsets -1, names the
     plan and the rows, and counts the activations alone; the resident
@@ -514,7 +520,7 @@ def test_forced_plans_and_global_layout():
     (``io_stride`` apart), and no ring."""
     cfg = _arm_cfg(41, 41, 50, True)
     spec = fs.Spec(cfg, "prng", ("resident", 2))
-    assert (spec.plan, spec.rows, spec.smem_bytes) == ("resident", 2, 215632)
+    assert (spec.plan, spec.rows, spec.smem_bytes) == ("resident", 2, 215888)
     assert spec.rows_for(50) == spec.rows_for(4000, False) == 2
     with pytest.raises(ValueError, match="overflows"):
         fs.Spec(cfg, "prng", ("resident", 4))

@@ -184,16 +184,34 @@ def test_fused_loss_on_card_matches_cpu(card):
         _close(f"grad {i}", a, b, GRAD_TOL)
 
 
-@pytest.mark.parametrize("S,B,W", [(8, 200, 50), (3, 37, 13), (5, 16, 4)])
+@pytest.mark.parametrize("S,B,W", [(8, 200, 50), (3, 37, 13), (5, 16, 4),
+                                   (3, 21, 7), (5, 13, 32), (7, 9, 33),
+                                   (8, 50, 400)])
 def test_philox_masks_match_plain(card, S, B, W):
     """K4's draw, written out, equals the plain Philox at widths that are
-    no multiple of 4 and at ragged batches."""
+    no multiple of 4 (a partial quad, one, two and thirteen words) and at
+    ragged batches."""
     seed = torch.tensor([2 ** 40 + 17], dtype=torch.int64, device=card)
     thresh = min(int(0.9 * 2.0 ** 32), 2 ** 32 - 1)
     got = fs.philox_masks_cuda(seed, 6, S, B, W, thresh)
     want = fs.philox_keep_plain(int(seed), torch.arange(6, device=card), S,
                                 B, W, thresh, card)
     assert torch.equal(got.bool(), want)
+
+
+@pytest.mark.parametrize("K,S,B,W", [(100, 8, 200, 50), (3006, 8, 50, 50)],
+                         ids=["main_path", "physionet_50"])
+def test_philox_masks_match_plain_over_many_rows(card, K, S, B, W):
+    """K4's draw at the main path's shape and the PhysioNet 50 arm's grid:
+    more rows than the grid holds at once, so each thread strides over
+    rows (the (row, slot, step) it draws for advanced with carries)."""
+    seed = torch.tensor([2 ** 40 + 17], dtype=torch.int64, device=card)
+    thresh = min(int(0.9 * 2.0 ** 32), 2 ** 32 - 1)
+    got = fs.philox_masks_cuda(seed, K, S, B, W, thresh)
+    for k0 in range(0, K, 500):
+        ks = torch.arange(k0, min(K, k0 + 500), device=card)
+        want = fs.philox_keep_plain(int(seed), ks, S, B, W, thresh, card)
+        assert torch.equal(got[k0:k0 + len(ks)].bool(), want), k0
 
 
 def test_wrappers_reject_bad_inputs(card):
@@ -508,3 +526,38 @@ def test_rows_rule_against_occupancy(card, arm):
         assert n.value >= spec.ctas_per_sm(c.rows, bwd) >= 1, (kind, n)
         if -(-B // c.rows) <= spec.ctas_per_sm(c.rows, bwd) * fs.N_SM:
             assert -(-B // c.rows) <= n.value * fs.N_SM
+
+
+PRNG_INPUT = ([v for v in VARIANTS if v[0] in ("main", "relu_deep",
+                                              "rnn_main")]
+              + [v for v in MASKED_VARIANTS if v[0] in (
+                  "masked_dropout_ragged", "masked_climate_widths",
+                  "masked_rnn_t0_step")])
+
+
+@pytest.mark.parametrize("plan", [None, ("resident", 16), ("global", 16),
+                                  ("global", 1)],
+                         ids=["rule", "resident16", "global16", "global1"])
+@pytest.mark.parametrize("variant", PRNG_INPUT,
+                         ids=[v[0] for v in PRNG_INPUT])
+def test_prng_mode_equals_input_mode_on_its_masks(card, variant, plan):
+    """K1 and K2 in 'prng' mode (the mask words each kernel fills as it
+    runs) give the bits of 'input' mode fed with the masks that
+    philox_masks_cuda writes out for the same seed: unmasked and masked,
+    the encoder and the GRU jump, nets of unequal widths, both plans."""
+    cfg, arrays, leaves, h0 = _case(variant, card)
+    sp, si = fs.Spec(cfg, "prng", plan), fs.Spec(cfg, "input", plan)
+    assert sp.rate > 0
+    K, B = arrays[2].shape
+    seed = torch.tensor([2 ** 41 + 5], dtype=torch.int64, device=card)
+    u = fs.philox_masks_cuda(seed, K, sp.S, B, sp.w_max, sp.thresh)
+    dloss = torch.tensor(1.3, device=card)
+    out = []
+    for spec, uu, ss in ((sp, None, seed), (si, u, None)):
+        lk, hk = fs.scan_fwd_cuda(spec, leaves, arrays, 0.6, h0, True, uu,
+                                  ss)
+        gk, dk = fs.scan_bwd_cuda(spec, leaves, arrays, 0.6, True, hk, dloss,
+                                  uu, ss)
+        out.append((lk, *hk, *gk, dk))
+    for i, (a, b) in enumerate(zip(*out)):
+        assert torch.equal(a, b), i

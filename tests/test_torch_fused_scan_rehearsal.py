@@ -6,8 +6,12 @@ configuration, K1, K2 and K3 of the resident plan against the plain
 versions at one row a CTA (the rows rule's pick at the training batches)
 and at 16 (the last CTA of the batch partly padding), and the global plan
 at the same rows bit for bit (scripts/rehearse_fused_scan.py, a few of its
-variants). This finds arithmetic, indexing and barrier faults of the
-source without a card; what nvcc refuses shows only on the card."""
+variants); 'prng' mode at 2 and 16 rows too, where the mask words of a
+step take more lanes than the idle warps of its phases hold, and a net
+37 columns wide (two words a row, a partial quad); and the standalone
+mask kernel's C call against the plain Philox. This finds arithmetic,
+indexing and barrier faults of the source without a card; what nvcc
+refuses shows only on the card."""
 
 import ctypes
 import os
@@ -44,3 +48,30 @@ def test_cuda_source_matches_plain_and_global_plan(cpu_lib, variant):
     name, kw, D = next(v for v in rs.VARIANTS if v[0] == variant)
     for R, mode in ((1, "prng"), (16, "input")):
         assert rs.rehearse(cpu_lib, name, kw, D, R, mode)
+
+
+@pytest.mark.parametrize("variant,R", [
+    (v, R) for v in ("unmasked", "masked", "rnn_masked", "depths")
+    for R in (2, 16)] + [("wide37", R) for R in (1, 2, 16)])
+def test_prng_masks_at_more_rows(cpu_lib, variant, R):
+    """'prng' mode at R rows a CTA: the mask words filled on the idle warps
+    of a step's phases (at 16 rows most of them in its last phase) give
+    the plain versions' results, and the global plan the same bits."""
+    sys.path.insert(0, SCRIPTS)
+    import rehearse_fused_scan as rs
+
+    name, kw, D = next(v for v in rs.VARIANTS if v[0] == variant)
+    assert rs.rehearse(cpu_lib, name, kw, D, R, "prng")
+
+
+@pytest.mark.parametrize("K,S,B,W", [(11, 5, 21, 7), (7, 3, 13, 32),
+                                     (4, 5, 9, 33), (4, 5, 9, 50)])
+def test_standalone_masks_match_plain(cpu_lib, K, S, B, W):
+    """njode_philox_masks (K4 written out: a Philox a quad, the rows
+    striding over a grid held to eight blocks on the CPU build's one SM)
+    equals philox_keep_plain bit for bit, at widths of a partial quad, one
+    and two words, with odd S and B."""
+    sys.path.insert(0, SCRIPTS)
+    import rehearse_fused_scan as rs
+
+    assert rs.masks(cpu_lib, K, S, B, W)
