@@ -35,7 +35,11 @@ power limit, and the final ``{"ok": true, ...}`` line:
               of the main path's kernels what 2 epochs need, and every
               launch at the rows the rule takes at its batch; then
               (rnn_trainer) the same run with the GRU jump (use_rnn), its
-              launches exact under the '_rnn' keys;
+              launches exact under the '_rnn' keys; and (chunk) the
+              first run again with epoch_chunk=2 (train_epochs), its
+              launch counts exact and the same, its metric rows (but the
+              times) and both checkpoints' tensors held to the per-epoch
+              run's (rtol 1e-6; printed: equal bit for bit or not);
 6. rnn_kernels - the GRU jump of K1, K2 and K3 against their plain
               versions at the main path's widths (B=200, K=100, both mask
               modes; K3 also at B=4,000), each run twice bit for bit, and
@@ -70,8 +74,23 @@ power limit, and the final ``{"ok": true, ...}`` line:
               an epoch) for 2 epochs; losses and evaluation_mean_diff
               finite, optimal_eval_loss NaN by design, and the launch counts
               exactly what 2 epochs need (K6's three stages once a chunk of
-              steps, ``BwdChunks``);
-11. climate_kernels - on the full-scale climate stand-in (1,114 series, 5
+              steps, ``BwdChunks``); then (gob_chunk) again with
+              epoch_chunk=2, held to it as the NJODE chunk is;
+11. sync     - one train_epochs call of 2 epochs (no oracle difference)
+              under torch.cuda.set_sync_debug_mode("error"), after a
+              warm-up call: NJODE at the main path's widths (B = 100) must
+              make the host wait nowhere; the GOB call (hidden 50, B = 20)
+              is reported, with the line that made it wait if one did; a
+              read back (.item()) under the check must be caught;
+12. busy     - the device's busy share (torch.profiler: kernel and copy
+              time over the host time of the window) over one epoch
+              queued through train_epoch and one train_epochs chunk: NJODE
+              at the bench's shape (16,000 paths, B = 200, chunk of 7),
+              GOB at the trainer's widths (2,000 paths, B = 20, chunk of 2);
+13. bench    - njode_tpu_torch.bench.main() at its shape, its card line
+              and JSON line printed as [bench] lines, with exact launch
+              counts (80 K1 and K2 an epoch, one K3 a chunked epoch);
+14. climate_kernels - on the full-scale climate stand-in (1,114 series, 5
               variables, T = 200, obs_perc 0.02; fold 0; the first training
               batch of epoch 1, B = 100, K = 2,004 grid steps): the masked
               branch of K1, K2 and K3 against their plain versions at the
@@ -83,24 +102,24 @@ power limit, and the final ``{"ok": true, ...}`` line:
               dropout 0.2) over the first 100 steps in both mask modes and
               over all 2,004 steps in 'prng' mode (the trainer's shape);
               each kernel run twice and compared bit for bit;
-12. climate_timing - CUDA-event times and bounds of the masked K1/K2/K3
+15. climate_timing - CUDA-event times and bounds of the masked K1/K2/K3
               and of K5/K6 at the climate arms, B = 100, K = 2,004, and the
               masks' cost inside K1/K2 and K5/K6 there (``mask_cost``);
-13. climate_trainer - climate_trainer.train on the stand-in, fold 0, 2
+16. climate_trainer - climate_trainer.train on the stand-in, fold 0, 2
               epochs of batch 100, the NJODE small arm and then the
               GRU-ODE-Bayes arm; losses and eval_metric finite, and the
               launch counts exactly what the epochs' batches need (so an
               eager fallback on this path fails the run);
-14. climate_rnn - the masked GRU jump at the climate small arm: K1-K3
+17. climate_rnn - the masked GRU jump at the climate small arm: K1-K3
               against their plain versions over the first 100 steps of the
               first climate batch in both modes, their times and bounds
               over all 2,004 steps, and one epoch of
               climate_trainer.train(use_rnn=True) with exact launch counts;
-15. physionet_setup - the PhysioNet stand-in at the published scale
+18. physionet_setup - the PhysioNet stand-in at the published scale
               (8,000 records of 41 variables, quantization 0.016 h, seed
               0), the 80/20 split, the pre-stacked bank (K = 3,006 grid
               steps) and the first training batch of epoch 1 (B = 50);
-16. physionet_kernels - K1, K2 and K3 in the global plan (weights in
+19. physionet_kernels - K1, K2 and K3 in the global plan (weights in
               device memory, staged through the ring) against their plain
               versions: the PhysioNet 50 arm (D = hidden = 41, three 2x50
               tanh MLPs, dropout 0.1; forced into the global plan at 16
@@ -115,18 +134,18 @@ power limit, and the final ``{"ok": true, ...}`` line:
               against the resident plan (both at 16 rows, and at the
               rule's rows against the rule's launch) on the main path and
               on the climate small arm;
-17. physionet_timing - CUDA-event times and bounds of the global plan's
+20. physionet_timing - CUDA-event times and bounds of the global plan's
               K1/K2/K3 at the 50 arm (forced, 16 rows) and the 200 arm
               (B = 50, K = 3,006) and at the climate 400 arm (B = 100,
               K = 2,004), and of the 50 arm in the rule's resident plan
               (one row a CTA), with the masks' cost inside its K1/K2
               (``mask_cost``);
-18. physionet_trainer - physionet_trainer.train at the 50 arm (batch 50,
+21. physionet_trainer - physionet_trainer.train at the 50 arm (batch 50,
               'prng', the resident plan, one row a CTA) for 2 epochs on the
               stand-in cut to 1,000 records (800 train, 16 batches an
               epoch); losses and both metrics finite, and the launch counts
               exact;
-19. physionet_rnn - the masked GRU jump at the 50 arm in the global plan:
+22. physionet_rnn - the masked GRU jump at the 50 arm in the global plan:
               K1-K3 against their plain versions over the first 100 steps
               in both modes, their times and bounds over all 3,006, and one
               epoch of physionet_trainer.train(use_rnn=True) with exact
@@ -155,7 +174,6 @@ import dataclasses
 import json
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -214,13 +232,6 @@ REDUCE_SHAPES = ((100, 10071), (50, 24423), (13, 10071), (4, 24423),
 def say(phase, **kw):
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
           flush=True)
-
-
-def card_line():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -719,6 +730,69 @@ def _synthetic_run(tmp, phase, **kw):
     return counts
 
 
+def same_as_per_epoch(phase, ref_dir, run_dir):
+    """A chunked run (``epoch_chunk``) against the per-epoch run of the
+    same dataset and seed: every metric of every row but the times, and
+    every tensor of both checkpoint slots (model and optimizer state),
+    epoch and weight. Prints whether all are equal bit for bit; fails if
+    any differs beyond rtol 1e-6 / atol 1e-7."""
+    import numpy as np
+    import torch
+
+    from njode_tpu_torch.utils.csv_frame import read_frame, to_float
+
+    def rows(d):
+        cols, rs = read_frame(os.path.join(d, "id-1", "metric_id-1.csv"))
+        keep = [i for i, c in enumerate(cols)
+                if c not in ("train_time", "eval_time")]
+        return [cols[i] for i in keep], np.array(
+            [[to_float(r[i]) for i in keep] for r in rs])
+
+    def leaves(obj, path=""):
+        if isinstance(obj, torch.Tensor):
+            yield path, obj
+        elif isinstance(obj, dict):
+            for k in sorted(obj, key=str):
+                yield from leaves(obj[k], f"{path}.{k}")
+        elif isinstance(obj, (list, tuple)):
+            for i, v in enumerate(obj):
+                yield from leaves(v, f"{path}[{i}]")
+        else:
+            yield path, obj
+
+    (c_ref, m_ref), (c_run, m_run) = rows(ref_dir), rows(run_dir)
+    if c_ref != c_run or m_ref.shape != m_run.shape:
+        raise AssertionError(f"{phase}: metric columns or rows differ: "
+                             f"{c_ref} {m_ref.shape} / {c_run} "
+                             f"{m_run.shape}")
+    bitwise = bool(np.array_equal(m_ref, m_run, equal_nan=True))
+    worst = float(np.nanmax(np.abs(m_ref - m_run) / (1e-7 + 1e-6 * np.abs(
+        m_ref)))) if m_ref.size else 0.0
+    for slot in ("last_checkpoint", "best_checkpoint"):
+        a, b = (torch.load(os.path.join(d, "id-1", slot, "checkpt.tar"),
+                           map_location="cpu", weights_only=True)
+                for d in (ref_dir, run_dir))
+        la, lb = list(leaves(a)), list(leaves(b))
+        if [k for k, _ in la] != [k for k, _ in lb]:
+            raise AssertionError(f"{phase}: {slot} keys differ")
+        for (k, x), (_, y) in zip(la, lb):
+            if not isinstance(x, torch.Tensor):
+                if x != y:
+                    raise AssertionError(f"{phase}: {slot}{k}: {x} != {y}")
+                continue
+            bitwise = bitwise and torch.equal(x, y)
+            d = ((x.double() - y.double()).abs()
+                 / (1e-7 + 1e-6 * y.double().abs()))
+            worst = max(worst, float(d.max()) if d.numel() else 0.0)
+    say(phase, same_as_per_epoch=f"bitwise={bitwise}",
+        tolerance_used=f"{worst:.3e}")
+    if worst > 1.0:
+        raise AssertionError(f"{phase}: the chunked run differs from the "
+                             f"per-epoch run beyond rtol 1e-6 / atol 1e-7 "
+                             f"({worst:.3e} of it)")
+    return bitwise
+
+
 def _check_counts(phase, counts, expect):
     """Each count exactly as expected (0 where ``expect`` has no key)."""
     for k, v in counts.items():
@@ -797,13 +871,22 @@ def phase_trainer(results):
                                 base_path=os.path.join(tmp, "data"))
         say("trainer", dataset_s=f"{time.time() - t0:.2f}", paths=20000)
         steps = 2 * (16_000 // 100)
+        expect = {"njode_scan_fwd": steps, "njode_scan_bwd": steps,
+                  "njode_scan_eval": 2, "philox_keep": 2 * steps,
+                  "reduce_partials": 2 * steps + 2}
         counts = _synthetic_run(tmp, "trainer")
-        _check_counts("trainer", counts, {
-            "njode_scan_fwd": steps, "njode_scan_bwd": steps,
-            "njode_scan_eval": 2, "philox_keep": 2 * steps,
-            "reduce_partials": 2 * steps + 2})
+        _check_counts("trainer", counts, expect)
         check_rows("trainer", results["setup"]["cfg"])
         results["launches"] = counts
+        # the same run in one chunk of 2 epochs (train_epochs)
+        t0 = time.time()
+        chunk = _synthetic_run(tmp, "chunk", epoch_chunk=2)
+        _check_counts("chunk", chunk, expect)
+        check_rows("chunk", results["setup"]["cfg"])
+        same_as_per_epoch("chunk", os.path.join(tmp, "models_trainer"),
+                          os.path.join(tmp, "models_chunk"))
+        say("chunk", phase_s=f"{time.time() - t0:.2f}")
+        results["chunk_launches"] = chunk
         t0 = time.time()
         rnn = _synthetic_run(tmp, "rnn_trainer", use_rnn=True)
         _check_counts("rnn_trainer", rnn, {
@@ -1321,15 +1404,72 @@ class BwdChunks:
                 "reduce_partials": 2 * steps + reduce_extra}
 
 
-def phase_gob_trainer(results):
+def _gob_run(tmp, phase, **kw):
+    """One GOB ``trainer.train`` run (2 epochs, the published widths) on
+    the dataset under ``tmp``, with every count set to 0 just before and
+    read just after; checks the metric CSV and the launch counts (exactly
+    what 2 epochs need) and returns the counts."""
     import numpy as np
     import torch
 
-    from njode_tpu_torch.data import datasets
     from njode_tpu_torch.ops import fused_gob as fg
     from njode_tpu_torch.ops import fused_scan as fs
     from njode_tpu_torch.training import trainer
     from njode_tpu_torch.utils.csv_frame import read_frame, to_float
+
+    models = os.path.join(tmp, "models_" + phase)
+    fs.reset_launch_counts()
+    fg.reset_launch_counts()
+    chunks = BwdChunks()
+    with chunks:
+        trainer.train(epochs=2, batch_size=20, hidden_size=50,
+                      dropout_rate=0.1, dataset="BlackScholes",
+                      plot=False, evaluate=True,
+                      other_model="GRU_ODE_Bayes",
+                      training_size=GOB_TRAIN_SIZE,
+                      base_data_path=os.path.join(tmp, "data"),
+                      saved_models_path=models,
+                      **{"GRU_ODE_Bayes-impute": True,
+                         "GRU_ODE_Bayes-logvar": True,
+                         "GRU_ODE_Bayes-mixing": 1e-4}, **kw)
+    torch.cuda.synchronize()
+    counts = dict(fg.LAUNCHES)
+    counts["reduce_partials"] = fs.LAUNCHES["reduce_partials"]
+    njode_counts = {k: v for k, v in fs.LAUNCHES.items()
+                    if k != "reduce_partials"}
+    cols, rows = read_frame(os.path.join(models, "id-1", "metric_id-1.csv"))
+    for row in rows:
+        rec = dict(zip(cols, row))
+        vals = {k: to_float(rec[k]) for k in (
+            "train_loss", "eval_loss", "evaluation_mean_diff",
+            "train_time", "eval_time")}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"non-finite GOB trainer metrics: {rec}")
+        if not np.isnan(to_float(rec["optimal_eval_loss"])):
+            raise AssertionError("optimal_eval_loss should be NaN for "
+                                 f"GRU-ODE-Bayes: {rec}")
+        say(phase, epoch=rec["epoch"],
+            **{k: f"{v:.6f}" for k, v in vals.items()})
+    if len(rows) != 2:
+        raise AssertionError(f"expected 2 metric rows, got {len(rows)}")
+    steps = 2 * (GOB_TRAIN_SIZE // 20)
+    expect = chunks.expect(steps, evals=2, reduce_extra=2)
+    expect["gob_masks"] = 0
+    for k, v in expect.items():
+        if counts[k] != v:
+            raise AssertionError(f"launch count {k}={counts[k]}, "
+                                 f"expected {v}: {counts}")
+    if any(njode_counts.values()):
+        raise AssertionError(f"NJODE kernels ran in the GOB path: "
+                             f"{njode_counts}")
+    say(phase, launches=json.dumps(counts).replace(" ", ""))
+    return counts
+
+
+def phase_gob_trainer(results):
+    """The GOB trainer per epoch, then (gob_chunk) in one chunk of 2
+    epochs (train_epochs) on the same dataset and seed, held against it."""
+    from njode_tpu_torch.data import datasets
 
     tmp = tempfile.mkdtemp(prefix="njode_smoke_gob_")
     try:
@@ -1339,55 +1479,212 @@ def phase_gob_trainer(results):
                                 base_path=os.path.join(tmp, "data"))
         say("gob_trainer", dataset_s=f"{time.time() - t0:.2f}",
             paths=hp["nb_paths"], training_size=GOB_TRAIN_SIZE)
-        fs.reset_launch_counts()
-        fg.reset_launch_counts()
-        chunks = BwdChunks()
-        with chunks:
-            trainer.train(epochs=2, batch_size=20, hidden_size=50,
-                          dropout_rate=0.1, dataset="BlackScholes",
-                          plot=False, evaluate=True,
-                          other_model="GRU_ODE_Bayes",
-                          training_size=GOB_TRAIN_SIZE,
-                          base_data_path=os.path.join(tmp, "data"),
-                          saved_models_path=os.path.join(tmp, "models"),
-                          **{"GRU_ODE_Bayes-impute": True,
-                             "GRU_ODE_Bayes-logvar": True,
-                             "GRU_ODE_Bayes-mixing": 1e-4})
-        torch.cuda.synchronize()
-        counts = dict(fg.LAUNCHES)
-        counts["reduce_partials"] = fs.LAUNCHES["reduce_partials"]
-        njode_counts = {k: v for k, v in fs.LAUNCHES.items()
-                        if k != "reduce_partials"}
-        cols, rows = read_frame(os.path.join(tmp, "models", "id-1",
-                                             "metric_id-1.csv"))
-        for row in rows:
-            rec = dict(zip(cols, row))
-            vals = {k: to_float(rec[k]) for k in (
-                "train_loss", "eval_loss", "evaluation_mean_diff",
-                "train_time", "eval_time")}
-            if not all(np.isfinite(v) for v in vals.values()):
-                raise AssertionError(f"non-finite GOB trainer metrics: {rec}")
-            if not np.isnan(to_float(rec["optimal_eval_loss"])):
-                raise AssertionError("optimal_eval_loss should be NaN for "
-                                     f"GRU-ODE-Bayes: {rec}")
-            say("gob_trainer", epoch=rec["epoch"],
-                **{k: f"{v:.6f}" for k, v in vals.items()})
-        if len(rows) != 2:
-            raise AssertionError(f"expected 2 metric rows, got {len(rows)}")
-        steps = 2 * (GOB_TRAIN_SIZE // 20)
-        expect = chunks.expect(steps, evals=2, reduce_extra=2)
-        expect["gob_masks"] = 0
-        for k, v in expect.items():
-            if counts[k] != v:
-                raise AssertionError(f"launch count {k}={counts[k]}, "
-                                     f"expected {v}: {counts}")
-        if any(njode_counts.values()):
-            raise AssertionError(f"NJODE kernels ran in the GOB path: "
-                                 f"{njode_counts}")
-        say("gob_trainer", launches=json.dumps(counts).replace(" ", ""))
-        results["gob_launches"] = counts
+        results["gob_launches"] = _gob_run(tmp, "gob_trainer")
+        t0 = time.time()
+        results["gob_chunk_launches"] = _gob_run(tmp, "gob_chunk",
+                                                 epoch_chunk=2)
+        same_as_per_epoch("gob_chunk",
+                          os.path.join(tmp, "models_gob_trainer"),
+                          os.path.join(tmp, "models_gob_chunk"))
+        say("gob_chunk", phase_s=f"{time.time() - t0:.2f}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def synthetic_setup(kind, N, K, seed=0):
+    """Step functions through the kernels for a model at a trainer's
+    widths on the card (``kind`` 'njode': the bench's and main path's;
+    'gob': the GOB trainer's, hidden 50, impute, logvar, mixing 1e-4,
+    dropout 0.1), with N of the bench's paths and observations on the
+    card; returns (fns, paths, obs)."""
+    import numpy as np
+    import torch
+
+    from njode_tpu_torch import bench
+    from njode_tpu_torch.models import gru_ode_bayes as gob
+    from njode_tpu_torch.models import njode
+    from njode_tpu_torch.training.steps import make_optimizer, make_step_fns
+
+    dev = torch.device("cuda")
+    dt = 1.0 / K
+    paths = torch.as_tensor(bench.simulate_bs_paths(N, K, dt), device=dev)
+    obs = torch.as_tensor((np.random.RandomState(1).random((N, K + 1))
+                           < 0.1).astype(np.float32), device=dev)
+    times = torch.as_tensor((np.arange(1, K + 1) * dt).astype(np.float32),
+                            device=dev)
+    dts = torch.full((K,), dt, dtype=torch.float32, device=dev)
+    if kind == "gob":
+        cfg = gob.GOBConfig(input_size=1, hidden_size=50, p_hidden=50,
+                            prep_hidden=50, cov_size=1, cov_hidden=50,
+                            logvar=True, mixing=1e-4, dropout_rate=0.1,
+                            full_gru_ode=True, impute=True)
+        model = gob.GOB(cfg, generator=torch.Generator().manual_seed(seed))
+        make = gob.make_step_fns
+    else:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            model = njode.NJODE(bench.bench_config())
+        make = make_step_fns
+    model.to(dev)
+    fns = make(model, make_optimizer(model.parameters(), 1e-3), times, dts,
+               use_kernels=True)
+    return fns, paths, obs
+
+
+def epochs_args(paths, obs, B, n_ep, seed, n_val=8):
+    """The arguments of a ``train_epochs`` call of ``n_ep`` epochs over
+    every path at batch B (validation: the first ``n_val`` paths, no
+    oracle difference), made on the card before the call."""
+    import numpy as np
+    import torch
+
+    N = paths.shape[0]
+    mats = torch.as_tensor(np.stack([
+        np.random.RandomState(seed + j).permutation(N).reshape(N // B, B)
+        for j in range(n_ep)]), device=paths.device)
+    gens = [torch.Generator(device=paths.device).manual_seed(seed + j)
+            for j in range(n_ep)]
+    return (paths, obs, mats, [0.5] * n_ep, gens, paths, obs,
+            torch.arange(n_val, device=paths.device), False)
+
+
+def sync_free(phase, arm, call):
+    """Runs ``call`` under ``torch.cuda.set_sync_debug_mode("error")``:
+    any operation that makes the host wait for the card (a read back, a
+    synchronous copy) raises. Prints whether none did and, if one did, the
+    port's line that made it; returns that line or None."""
+    import traceback
+
+    import torch
+
+    torch.cuda.synchronize()
+    where = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    except RuntimeError as e:
+        frames = [f for f in traceback.extract_tb(e.__traceback__)
+                  if "njode_tpu_torch" in f.filename]
+        where = (f"{os.path.relpath(frames[-1].filename, ROOT)}:"
+                 f"{frames[-1].lineno}" if frames
+                 else str(e).splitlines()[0][:120])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    say(phase, arm=arm, sync_free=where is None,
+        **({"first_sync": where} if where else {}))
+    return where
+
+
+def phase_sync(results):
+    """One ``train_epochs`` call (2 epochs, no oracle difference) under
+    the sync check, after a warm-up call that fills the kernels' caches:
+    NJODE at the main path's widths (B = 100, K = 100, 2,000 paths) must
+    make the host wait nowhere; the GOB chunk (hidden 50, B = 20, 400
+    paths) is reported. A read back (``.item()``) under the same check
+    must be caught, or the check proves nothing."""
+    import torch
+
+    one = torch.ones(1, device="cuda")
+    if sync_free("sync", "control_item", lambda: one.item()) is None:
+        raise AssertionError("the sync check let a read back through")
+    for kind, N, B in (("njode", 2000, 100), ("gob", 400, 20)):
+        fns, paths, obs = synthetic_setup(kind, N, 100)
+        fns["train_epochs"](*epochs_args(paths, obs, B, 2, 10))
+        args = epochs_args(paths, obs, B, 2, 20)
+        where = sync_free("sync", kind, lambda: fns["train_epochs"](*args))
+        results[f"sync_{kind}"] = where
+        if kind == "njode" and where is not None:
+            raise AssertionError(f"NJODE train_epochs made the host wait "
+                                 f"at {where}")
+
+
+def busy_share(fn):
+    """``fn()`` and a synchronise under torch.profiler (CUDA activity
+    only): the summed device time of every kernel and copy it recorded
+    over the host time of the window; (share, device ms, wall ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = sum((getattr(ev, "self_device_time_total", 0.0)
+               or getattr(ev, "self_cuda_time_total", 0.0))
+              for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA) / 1e3
+    if dev <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return dev / wall, dev, wall
+
+
+def phase_busy(results):
+    """The device's busy share over one epoch queued through
+    ``train_epoch`` and one ``train_epochs`` chunk: NJODE at the bench's
+    shape (16,000 paths, B = 200, K = 100; a chunk of 7, the bench's), GOB
+    at the trainer's widths (2,000 paths, B = 20, K = 100; a chunk of 2),
+    each after a warm-up."""
+    import torch
+
+    out = {}
+    for kind, N, B, CH in (("njode", 16_000, 200, 7), ("gob", 2000, 20, 2)):
+        fns, paths, obs = synthetic_setup(kind, N, 100)
+        perm = epochs_args(paths, obs, B, 1, 30)[2][0]
+
+        def epoch():
+            fns["train_epoch"](paths, obs, perm, 0.5, torch.Generator(
+                device=paths.device).manual_seed(31))
+
+        epoch()
+        args = epochs_args(paths, obs, B, CH, 40)
+        for arm, fn in (("epoch", epoch),
+                        (f"chunk{CH}", lambda: fns["train_epochs"](*args))):
+            share, dev, wall = busy_share(fn)
+            say("busy", path=kind, arm=arm, N=N, B=B,
+                busy_share=f"{share:.4f}", device_ms=f"{dev:.2f}",
+                wall_ms=f"{wall:.2f}")
+            out[(kind, arm)] = share
+    results["busy"] = out
+
+
+def phase_bench(results):
+    """``njode_tpu_torch.bench.main()`` at its shape (16,000 paths, B =
+    200, K = 100, ``NJODE_BENCH_REPS`` or 7 epochs each way, chunks of 7),
+    its lines printed as ``[bench]`` lines, with exact launch counts: 80
+    K1 and K2 an epoch (the warm-up, the timed, the queued and the chunked
+    epochs), one K3 a chunked epoch."""
+    import contextlib
+    import io
+
+    import torch
+
+    from njode_tpu_torch import bench
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    buf = io.StringIO()
+    fs.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        out = bench.main()
+    torch.cuda.synchronize()
+    counts = dict(fs.LAUNCHES)
+    for ln in buf.getvalue().splitlines():
+        print("[bench] " + ln, flush=True)
+    reps = out["per_epoch_dispatch"]["spread"]["n"]
+    chunked = 4 * out["epoch_chunk"]
+    steps = 80 * (1 + 2 * reps + chunked)
+    _check_counts("bench", counts, {
+        "njode_scan_fwd": steps, "njode_scan_bwd": steps,
+        "njode_scan_eval": chunked, "philox_keep": 2 * steps,
+        "reduce_partials": 2 * steps + chunked})
+    times = out["per_epoch_dispatch"]["epoch_s"]
+    say("bench", per_epoch_s=f"{sorted(times)[reps // 2]:.4f}",
+        pipelined_epoch_s=f"{16_000 / out['pipelined_paths_per_sec']:.4f}",
+        chunked_epoch_s=f"{16_000 / out['value']:.4f}")
+    results["bench_launches"] = counts
 
 
 def _first_steps(batch, K):
@@ -2323,7 +2620,9 @@ def kernels_line(results):
             ("reduce_partials", "reduce",
              "njode_tpu/ops/fused_scan.py:522", "reduce_partials")]
     out = []
-    gl = results["gob_launches"]
+    # GOB: the per-epoch and the chunked trainer runs
+    gl = {k: v + results["gob_chunk_launches"][k]
+          for k, v in results["gob_launches"].items()}
     cn, cg = (results["climate_launches"][k] for k in ("njode", "gob"))
     pl, pr = results["phys_launches"], results["phys_rnn"]["launches"]
     p2 = results["phys200_launches"]
@@ -2331,7 +2630,9 @@ def kernels_line(results):
     for name, key, replaces, count in rows:
         ms, plain = results["times"][key]
         bms, by = results["bounds"][key]
-        launches = results["launches"][count]
+        # the main path: the per-epoch and chunked trainer runs, the bench
+        launches = sum(results[r][count] for r in (
+            "launches", "chunk_launches", "bench_launches"))
         if name == "reduce_partials":    # runs on every path
             launches += sum(c["reduce_partials"]
                             for c in (gl, cn, cg, pl, p2, rl, cr, pr))
@@ -2450,6 +2751,7 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    from njode_tpu_torch.bench import card_line
     card = card_line()
     say("device", name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), card=f"'{card}'",
@@ -2470,7 +2772,8 @@ def main():
     t0 = time.time()
     for phase in (phase_kernels, phase_timing, phase_trainer,
                   phase_rnn_kernels, phase_rnn_timing,
-                  phase_gob_kernels, phase_gob_timing, phase_gob_trainer):
+                  phase_gob_kernels, phase_gob_timing, phase_gob_trainer,
+                  phase_sync, phase_busy, phase_bench):
         phase(results)
         say(phase.__name__[6:], phase_s=f"{time.time() - t0:.2f}")
         t0 = time.time()

@@ -450,8 +450,8 @@ def evaluate(model: GOB, batch: GridBatch, next_cond_exp, diff_fun=None):
 def make_step_fns(model: GOB, optimizer, times, dts, next_cond_exp=None,
                   use_kernels: bool = False, mask_mode: str = "prng"):
     """Step functions with the dict and signatures of
-    ``training.steps.make_step_fns`` (the loss weight is accepted and
-    ignored: ``mixing`` is fixed in the config).
+    ``training.steps.make_step_fns``, ``train_epochs`` included (the loss
+    weight is accepted and ignored: ``mixing`` is fixed in the config).
 
     :param use_kernels: run the training loss through the fused GOB
         kernels (K5/K6, dropout K7) and the eval loss through K5's eval
@@ -459,7 +459,8 @@ def make_step_fns(model: GOB, optimizer, times, dts, next_cond_exp=None,
         ``eval_msd`` and ``pred_path`` stay eager, as in the JAX package.
     :param mask_mode: the kernels' dropout-mask source ('prng' or 'input')
     """
-    from njode_tpu_torch.training.steps import gather_dense_batch
+    from njode_tpu_torch.training.steps import gather_dense_batch, \
+        make_train_epochs
 
     cfg = model.cfg
     if use_kernels:
@@ -510,11 +511,18 @@ def make_step_fns(model: GOB, optimizer, times, dts, next_cond_exp=None,
 
     fns = {"train_step": train_step, "train_epoch": train_epoch,
            "eval_loss": eval_loss}
+    msd = None
     if next_cond_exp is not None:
+        def msd(batch):
+            return evaluate(model, batch, next_cond_exp)
+
         def eval_msd(paths, obs, idx):
-            return evaluate(model, _batch(paths, obs, idx), next_cond_exp)
+            return msd(_batch(paths, obs, idx))
 
         fns["eval_msd"] = eval_msd
+    fns["train_epochs"] = make_train_epochs(
+        model, optimizer, train_epoch, _batch,
+        lambda batch, weight: _eval_loss(batch), msd)
 
     def pred_path(paths, obs, idx):
         return get_pred(model, _batch(paths, obs, idx))

@@ -12,9 +12,9 @@ CUDA kernels (``ops/fused_scan.py``) when ``use_kernels``, else the eager
 ``models.njode.forward``; evaluation and prediction stay on the eager
 forward, as the JAX package's stay on the XLA scan. Step functions return
 device tensors and never synchronise, so an epoch queues all its steps
-before the host reads a loss. Running several epochs as one program (the
-JAX package's ``train_epochs``) is not ported yet (ROADMAP.md Queue 1 item
-3).
+before the host reads a loss; ``train_epochs`` queues several epochs with
+their evaluations and per-epoch snapshots the same way (the JAX package
+runs them as one device program).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 from njode_tpu_torch.data.grid import GridBatch, densify_sparse, \
     scatter_events
 from njode_tpu_torch.models import njode
+from njode_tpu_torch.training.checkpoints import snapshot
 
 
 def make_optimizer(params, learning_rate: float,
@@ -100,19 +101,69 @@ def make_step_fns(model: njode.NJODE, optimizer, times, dts,
 
     fns = {"train_step": train_step, "train_epoch": train_epoch,
            "eval_loss": eval_loss}
-
+    msd = None
     if next_cond_exp is not None:
+        def msd(batch):
+            return njode.evaluate(model, batch, next_cond_exp)
+
         def eval_msd(paths, obs, idx):
-            return njode.evaluate(model, _batch(paths, obs, idx),
-                                  next_cond_exp)
+            return msd(_batch(paths, obs, idx))
 
         fns["eval_msd"] = eval_msd
+    fns["train_epochs"] = make_train_epochs(model, optimizer, train_epoch,
+                                            _batch, _eval_loss, msd)
 
     def pred_path(paths, obs, idx):
         return njode.get_pred(model, _batch(paths, obs, idx))
 
     fns["pred_path"] = pred_path
     return fns
+
+
+def make_train_epochs(model, optimizer, train_epoch, batch, eval_loss,
+                      msd=None):
+    """``train_epochs`` of a model's synthetic-data step functions, the
+    port's counterpart of the JAX ``train_epochs``:
+
+    ``train_epochs(paths, obs, idx_mats, weights, generators, val_paths,
+    val_obs, val_idx, do_msd) -> (train_last [N], eval_losses [N],
+    eval_msds [N], params_hist, opt_hist)``
+
+    For each of the N epochs: ``train_epoch`` over ``idx_mats[j]`` with
+    loss weight ``weights[j]`` (N host floats: a kernel's call
+    configuration is built from each) and ``generators[j]``; the
+    validation loss on the batch ``val_idx`` of ``val_paths/val_obs``,
+    gathered once for the call, and with ``do_msd`` the oracle's mean
+    squared difference (``msd``; 0 without one); then a snapshot of the
+    model's and the optimizer's state dicts
+    (:func:`~njode_tpu_torch.training.checkpoints.snapshot`). The model and
+    optimizer are updated in place, where the JAX function donates them.
+    Nothing is read back to the host between the first step and the
+    return (the oracle difference aside): the results are device tensors
+    the caller reads when it needs them.
+
+    :param batch: ``(paths, obs, idx) -> GridBatch``
+    :param eval_loss: ``(batch, weight) -> loss``, without gradients
+    :param msd: ``batch -> mean squared difference`` or None
+    """
+
+    def train_epochs(paths, obs, idx_mats, weights, generators, val_paths,
+                     val_obs, val_idx, do_msd):
+        val_batch = batch(val_paths, val_obs, val_idx)
+        no_msd = torch.zeros((), dtype=torch.float32, device=paths.device)
+        tl, ev, ms, p_hist, o_hist = [], [], [], [], []
+        for idx_mat, weight, gen in zip(idx_mats, weights, generators):
+            tl.append(train_epoch(paths, obs, idx_mat, weight, gen)[-1])
+            ev.append(eval_loss(val_batch, weight))
+            ms.append(msd(val_batch) if do_msd and msd is not None
+                      else no_msd)
+            p, o = snapshot(model, optimizer)
+            p_hist.append(p)
+            o_hist.append(o)
+        return (torch.stack(tl), torch.stack(ev), torch.stack(ms), p_hist,
+                o_hist)
+
+    return train_epochs
 
 
 def _index_batch(stack, i):

@@ -8,7 +8,10 @@ decay per epoch; NJODE, or GRU-ODE-Bayes with ``other_model=
 "GRU_ODE_Bayes"``.
 
 The dataset is resident on the device; each epoch queues its steps
-(training/steps.py) and reads the losses once at its end. On a CUDA device
+(training/steps.py) and reads the losses once at its end, or with
+'epoch_chunk' once at the end of a chunk of epochs (``train_epochs``,
+which keeps each epoch's evaluation and snapshot on the device for the
+rows and checkpoints). On a CUDA device
 with a supported config the training and eval losses run through the
 hand-written kernels (ops/fused_scan.py for NJODE, ops/fused_gob.py for
 GRU-ODE-Bayes), as the JAX trainer picks its Pallas kernels on a TPU.
@@ -17,6 +20,7 @@ their ROADMAP.md entry."""
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import time
@@ -47,12 +51,13 @@ default_enc_nn = ((50, "tanh"), (50, "tanh"))
 # options of the JAX trainer that this port does not handle yet
 _UNPORTED = {
     "mesh": "Queue 1 item 7 (data parallelism)",
-    "epoch_chunk": "Queue 1 item 3 (train_epochs, several epochs per call)",
-    "ema_decay": "Queue 1 item 3 (epoch-level parameter EMA)",
     "profile_dir": "Queue 1 item 8 (utils/profiling.py)",
     "anomaly_detection": "Queue 1 item 8 (utils/profiling.py)",
     "plot_only": "Queue 1 item 3 (plots and the demo's pretrained ids)",
 }
+# the per-epoch history of a chunk of epochs (parameters and Adam's two
+# moments, 3x the parameters' bytes an epoch) is capped to this many bytes
+HIST_BUDGET = 2 << 30
 
 
 def _reject_unported(plot, options):
@@ -62,8 +67,6 @@ def _reject_unported(plot, options):
             "training/plots.py)")
     for key, entry in _UNPORTED.items():
         val = options.get(key)
-        if key == "epoch_chunk" and val is not None and int(val) <= 1:
-            continue
         if val:
             raise NotImplementedError(
                 f"option '{key}' is not ported yet (ROADMAP.md {entry})")
@@ -102,7 +105,15 @@ def train(
     a supported config), 'pallas_mask_mode' ('prng' or 'input'),
     'other_model' ("GRU_ODE_Bayes" trains that model instead of NJODE; its
     'GRU_ODE_Bayes-<name>' options as in ``gru_ode_bayes.
-    config_from_options``; the optimal eval loss is then NaN).
+    config_from_options``; the optimal eval loss is then NaN),
+    'epoch_chunk' (N > 1: queue N epochs and their evaluations through
+    ``train_epochs`` before the host reads a loss; the metric rows and
+    checkpoints are the per-epoch loop's, ``train_time`` the chunk's time
+    an epoch and ``eval_time`` 0), 'epoch_chunk_hist_bytes' (the cap on a
+    chunk's per-epoch history, default 2 GiB), 'ema_decay' (d: an
+    epoch-level average ``ema = d*ema + (1-d)*params`` from the initial
+    weights, evaluated after each epoch into the columns 'eval_loss_ema'
+    and, with 'evaluate', 'evaluation_mean_diff_ema'; turns chunking off).
     :return: 0 (reference convention)
     """
     _reject_unported(plot, options)
@@ -219,21 +230,21 @@ def train(
                             .astype(np.float32), device=device)
     dts = torch.full((K,), delta_t, dtype=torch.float32, device=device)
     if model_name == "NJODE":
-        from njode_tpu_torch.ops import fused_scan
-        use_kernels = opts.get("use_pallas", fused_scan._is_cuda(device)
-                               and fused_scan.supported(cfg))
-        fns = make_step_fns(model, optimizer, times, dts, next_cond_exp,
-                            use_kernels=use_kernels,
-                            mask_mode=opts.get("pallas_mask_mode", "prng"))
+        from njode_tpu_torch.ops import fused_scan as fused
+        make = make_step_fns
     else:
-        # the JAX trainer passes no mask mode: 'prng', make_step_fns' default
-        from njode_tpu_torch.ops import fused_gob
-        use_kernels = opts.get("use_pallas", fused_gob._is_cuda(device)
-                               and fused_gob.supported(cfg))
-        fns = gob.make_step_fns(model, optimizer, times, dts, next_cond_exp,
-                                use_kernels=use_kernels,
-                                mask_mode=opts.get("pallas_mask_mode",
-                                                   "prng"))
+        from njode_tpu_torch.ops import fused_gob as fused
+        make = gob.make_step_fns
+    use_kernels = opts.get("use_pallas", fused._is_cuda(device)
+                           and fused.supported(cfg))
+
+    def _make_fns(m, opt):
+        # the JAX trainer passes GOB no mask mode: 'prng', the default
+        return make(m, opt, times, dts, next_cond_exp,
+                    use_kernels=use_kernels,
+                    mask_mode=opts.get("pallas_mask_mode", "prng"))
+
+    fns = _make_fns(model, optimizer)
 
     # device-resident dataset
     train_paths_np, train_obs_np = data_train.dense_arrays(functions)
@@ -247,9 +258,14 @@ def train(
 
     # ------- resume from checkpoint -------
     best_eval_loss = np.inf
+    ema_decay = options.get("ema_decay")
     metr_columns = list(METR_COLUMNS)
     if options.get("evaluate"):
         metr_columns.append("evaluation_mean_diff")
+    if ema_decay:
+        metr_columns.append("eval_loss_ema")
+        if options.get("evaluate"):
+            metr_columns.append("evaluation_mean_diff_ema")
     metric_rows = []
     epoch = 1
     cur_weight = float(params_dict["weight"])
@@ -283,20 +299,114 @@ def train(
         print(f"# parameters={count_params(model)}\n")
         print("start training ...")
 
-    def _save(path):
-        checkpoints.save_checkpoint(path, model, optimizer, epoch,
-                                    cur_weight)
+    # 'epoch_chunk' = N: N epochs and their evaluations queued through
+    # train_epochs before the host reads a loss, with the per-epoch loop's
+    # streams, rows and checkpoints (from each epoch's snapshot)
+    epoch_chunk = int(options.get("epoch_chunk", 0) or 0)
+    if epoch_chunk > 1:
+        state_bytes = 3 * sum(p.numel() * p.element_size()
+                              for p in model.parameters())
+        hist_budget = int(options.get("epoch_chunk_hist_bytes",
+                                      HIST_BUDGET))
+        max_chunk = hist_budget // max(state_bytes, 1)
+        if max_chunk < 2:
+            print(f"epoch_chunk disabled: model state "
+                  f"({state_bytes >> 20} MiB x chunk) exceeds the "
+                  f"history budget ({hist_budget >> 20} MiB; raise with "
+                  "the 'epoch_chunk_hist_bytes' option); using per-epoch "
+                  "dispatch")
+            epoch_chunk = -1  # already explained
+        elif epoch_chunk > max_chunk:
+            print(f"epoch_chunk: capping {epoch_chunk} -> {max_chunk} "
+                  f"(per-epoch history = {state_bytes >> 20} MiB/epoch, "
+                  f"budget {hist_budget >> 20} MiB; raise with the "
+                  "'epoch_chunk_hist_bytes' option)")
+            epoch_chunk = max_chunk
+    use_chunked = (epoch_chunk > 1 and not ema_decay
+                   and n_train % batch_size == 0)
+    if epoch_chunk > 1 and not use_chunked:
+        why = ("ema_decay" if ema_decay else
+               "ragged last batch (training size not divisible by "
+               "batch_size)")
+        print(f"epoch_chunk disabled ({why}); using per-epoch dispatch")
+    ema_model = ema_fns = None
+    if ema_decay:
+        # a second module holding the average, evaluated through the same
+        # step functions (the kernels' eval on the card) as the live one
+        ema_model = copy.deepcopy(model).requires_grad_(False)
+        ema_fns = _make_fns(ema_model, None)
 
     def _flush_metrics():
         write_frame(model_metric_file, metr_columns, metric_rows)
 
+    def _perm(ep):
+        # seeded per-epoch shuffle
+        return np.random.RandomState(
+            (rseed * 100_003 + ep) % 2**32).permutation(n_train)
+
+    def _generator(ep):
+        # the epoch's dropout stream
+        return torch.Generator(device=device).manual_seed(
+            ((rseed + 1) * 100_003 + ep) % 2**63)
+
+    def _after_epoch(ep, weight, row, loss_val, state):
+        """Append the epoch's metric row and write its checkpoints
+        (``state``: the epoch's (model, optimizer) state dicts)."""
+        nonlocal best_eval_loss
+        metric_rows.append(row)
+        if ep % save_every == 0:
+            print("save model ...")
+            _flush_metrics()
+            checkpoints.save_state(model_path_save_last, *state, ep, weight)
+            print("saved!")
+        if loss_val < best_eval_loss:
+            print(f"save new best model: last-best-loss: "
+                  f"{best_eval_loss:.5f}, new-best-loss: {loss_val:.5f}, "
+                  f"epoch: {ep}")
+            _flush_metrics()
+            checkpoints.save_state(model_path_save_last, *state, ep, weight)
+            checkpoints.save_state(model_path_save_best, *state, ep, weight)
+            best_eval_loss = loss_val
+            print("saved!")
+
+    def _print_epoch(ep, weight, train_loss, loss_val):
+        print(f"epoch {ep}, weight={weight:.5f}, "
+              f"train-loss={train_loss:.5f}, "
+              f"optimal-eval-loss={opt_eval_loss:.5f}, "
+              f"eval-loss={loss_val:.5f}, ")
+
+    while epoch <= epochs and use_chunked:
+        n_ep = min(epoch_chunk, epochs - epoch + 1)
+        t0 = time.time()
+        idx_mats = torch.as_tensor(np.stack([
+            _perm(epoch + j).reshape(-1, batch_size) for j in range(n_ep)]),
+            device=device)
+        ws, w = [], cur_weight
+        for _ in range(n_ep):
+            ws.append(w)
+            w = njode.weight_decay_step(w, w_decay)
+        do_msd = bool(options.get("evaluate"))
+        tl, ev, msd, p_hist, o_hist = fns["train_epochs"](
+            d_train_paths, d_train_obs, idx_mats, ws,
+            [_generator(epoch + j) for j in range(n_ep)], d_val_paths,
+            d_val_obs, val_idx_all, do_msd)
+        tl, ev, msd = (t.tolist() for t in (tl, ev, msd))
+        per_ep = (time.time() - t0) / n_ep
+        for j in range(n_ep):
+            _print_epoch(epoch + j, ws[j], tl[j], ev[j])
+            row = [epoch + j, per_ep, 0.0, tl[j], ev[j], opt_eval_loss]
+            if do_msd:
+                row.append(msd[j])
+                print(f"evaluation mean square difference={msd[j]:.5f}")
+            _after_epoch(epoch + j, ws[j], row, ev[j],
+                         (p_hist[j], o_hist[j]))
+        epoch += n_ep
+        cur_weight = w
+
     while epoch <= epochs:
         t0 = time.time()
-        # seeded per-epoch shuffle and dropout stream
-        perm = np.random.RandomState(
-            (rseed * 100_003 + epoch) % 2**32).permutation(n_train)
-        gen = torch.Generator(device=device).manual_seed(
-            ((rseed + 1) * 100_003 + epoch) % 2**63)
+        perm = _perm(epoch)
+        gen = _generator(epoch)
         n_full = (n_train // batch_size) * batch_size
         perm_d = torch.as_tensor(perm, device=device)
         losses = []
@@ -309,43 +419,34 @@ def train(
                 d_train_paths, d_train_obs, perm_d[n_full:], cur_weight,
                 gen).view(1))
         train_loss = float(torch.cat(losses)[-1])
+        if ema_decay:
+            with torch.no_grad():
+                for e, p in zip(ema_model.parameters(), model.parameters()):
+                    e.mul_(ema_decay).add_(p, alpha=1.0 - ema_decay)
         train_time = time.time() - t0
 
         # -------- evaluation --------
         t0 = time.time()
-        loss_val = float(fns["eval_loss"](d_val_paths, d_val_obs,
-                                          val_idx_all, cur_weight))
-        eval_msd = 0.0
+        args = (d_val_paths, d_val_obs, val_idx_all)
+        loss_val = float(fns["eval_loss"](*args, cur_weight))
+        extra = []
         if options.get("evaluate"):
-            eval_msd = float(fns["eval_msd"](d_val_paths, d_val_obs,
-                                             val_idx_all))
+            extra.append(float(fns["eval_msd"](*args)))
+        if ema_decay:
+            extra.append(float(ema_fns["eval_loss"](*args, cur_weight)))
+            if options.get("evaluate"):
+                extra.append(float(ema_fns["eval_msd"](*args)))
         eval_time = time.time() - t0
-        print(f"epoch {epoch}, weight={cur_weight:.5f}, "
-              f"train-loss={train_loss:.5f}, "
-              f"optimal-eval-loss={opt_eval_loss:.5f}, "
-              f"eval-loss={loss_val:.5f}, ")
+        _print_epoch(epoch, cur_weight, train_loss, loss_val)
         row = [epoch, train_time, eval_time, train_loss, loss_val,
-               opt_eval_loss]
+               opt_eval_loss] + extra
         if options.get("evaluate"):
-            row.append(eval_msd)
-            print(f"evaluation mean square difference={eval_msd:.5f}")
-        metric_rows.append(row)
-
-        # -------- save cadence --------
-        if epoch % save_every == 0:
-            print("save model ...")
-            _flush_metrics()
-            _save(model_path_save_last)
-            print("saved!")
-        if loss_val < best_eval_loss:
-            print(f"save new best model: last-best-loss: "
-                  f"{best_eval_loss:.5f}, new-best-loss: {loss_val:.5f}, "
-                  f"epoch: {epoch}")
-            _flush_metrics()
-            _save(model_path_save_last)
-            _save(model_path_save_best)
-            best_eval_loss = loss_val
-            print("saved!")
+            print(f"evaluation mean square difference={extra[0]:.5f}")
+            if ema_decay:
+                print(f"EMA eval-loss={extra[1]:.5f}, "
+                      f"EMA mean square difference={extra[2]:.5f}")
+        _after_epoch(epoch, cur_weight, row, loss_val,
+                     (model.state_dict(), optimizer.state_dict()))
 
         epoch += 1
         cur_weight = njode.weight_decay_step(cur_weight, w_decay)

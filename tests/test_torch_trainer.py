@@ -145,7 +145,7 @@ def test_trainer_writes_metrics_checkpoints_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("mesh", object()), ("epoch_chunk", 4), ("ema_decay", 0.99),
+    ("mesh", object()), ("plot_only", True),
     ("profile_dir", "p"),
     ("anomaly_detection", True), ("plot", True)])
 def test_unported_trainer_options_raise(option, value):
