@@ -23,8 +23,10 @@ power limit, and the final ``{"ok": true, ...}`` line:
 4. timing   - CUDA-event times of each kernel and its plain version, and
               the least time the card could take (bound); reduce_partials'
               device time per launch beside sum(dim=0)'s, both from
-              torch.profiler, and the old host-loop yardstick; K4's
-              standalone kernel by device time (torch.profiler) beside its
+              torch.profiler (or, where it records none, CUDA events with
+              the launches queued behind a device sleep), and the old
+              host-loop yardstick; K4's
+              standalone kernel by that device time beside its
               host-loop time; the masks' cost inside K1 and K2 at the
               trainer's batch (``mask_cost``: each with dropout off, in
               'input' mode fed with K4's written-out masks and in 'prng'
@@ -149,7 +151,32 @@ power limit, and the final ``{"ok": true, ...}`` line:
               K1-K3 against their plain versions over the first 100 steps
               in both modes, their times and bounds over all 3,006, and one
               epoch of physionet_trainer.train(use_rnn=True) with exact
-              launch counts (the global plan's trainer path).
+              launch counts (the global plan's trainer path);
+23. sweep    - the published grids of njode_tpu_torch/experiments/
+              configs.py at their widths and hyperparameters, their
+              datasets created on the card (3 base, 2 HestonWOFeller, the
+              combined and 2 sine datasets, 20,000 paths each), and 15 of
+              their entries driven through training/sweeps.
+              parallel_training, cut to one epoch (save_every 1): every
+              width of the convergence study (10-320, B = 20, its smallest
+              training size, 200), one NJODE and one GRU-ODE-Bayes entry
+              of the GOB comparison (hidden 50, impute, logvar, mixing
+              1e-4), both HestonWOFeller entries (D = 1 and the 2-D
+              return_vol set), the combined regime (2x100), both sine
+              entries (2x400; 1,000 training paths at B = 20 and 2,000 at
+              B = 100), fold 0 of the climate small arm on the stand-in
+              and a PhysioNet 50-arm entry on 1,000 stand-in records (the
+              'records' live key); each run's result must be 0, its metric
+              row finite, its launch counts exact under the key of the
+              plan it takes (the global plan at widths 100, 160, 320 and
+              400), every scan launch at the rule's rows, and, where
+              matplotlib is missing, its figures skipped with one printed
+              line and none written; then K1 and K2 (with K3) against
+              their plain versions in 'input' mode, each twice bit for
+              bit, at the sine 400 arm's shape (B = 100, global / 4) and
+              widths 320 and 160 at B = 20 (global / 8 and 16), with their
+              CUDA-event times, bounds, rows, CTAs and waves; the two
+              convergence widths timed again forced to one row a CTA.
 
 Tolerances are those the JAX package's Pallas kernel is held to
 (tests/test_fused_scan.py): loss rtol 1e-5 / atol 1e-6, gradients rtol
@@ -276,9 +303,12 @@ def check_close(name, a, b, tol):
     return err
 
 
-def main_path_setup(B, K, seed, device, use_rnn=False):
-    """Main-path model (with the GRU jump: ``use_rnn``) and a BlackScholes
-    batch on the card."""
+def main_path_setup(B, K, seed, device, use_rnn=False, width=50,
+                    data=("BlackScholes", {})):
+    """Main-path model (with the GRU jump: ``use_rnn``; three 2 x ``width``
+    tanh MLPs; input = output = the dataset's dimension D) and a batch of
+    ``data`` = (SDE model name, hyperparameters over the defaults) on the
+    card (BlackScholes, D = 1, unless asked otherwise)."""
     import numpy as np
     import torch
 
@@ -286,15 +316,17 @@ def main_path_setup(B, K, seed, device, use_rnn=False):
     from njode_tpu_torch.data.datasets import hyperparam_default
     from njode_tpu_torch.models.njode import NJODE, NJODEConfig
 
-    nn_desc = ((50, "tanh"), (50, "tanh"))
-    cfg = NJODEConfig(1, 10, 1, nn_desc, nn_desc, nn_desc,
+    name, over = data
+    hp = dict(hyperparam_default, **over, nb_paths=B, nb_steps=K)
+    D = hp["dimension"]
+    nn_desc = ((width, "tanh"), (width, "tanh"))
+    cfg = NJODEConfig(D, 10, D, nn_desc, nn_desc, nn_desc,
                       dropout_rate=0.1, use_rnn=use_rnn)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = NJODE(cfg).to(device)
-    hp = dict(hyperparam_default, nb_paths=B, nb_steps=K)
     gen = torch.Generator(device=device).manual_seed(seed)
-    paths, dt = sde.make_model("BlackScholes", hp).generate_paths(gen)
+    paths, dt = sde.make_model(name, hp).generate_paths(gen)
     obs = (np.random.RandomState(seed).random((B, K + 1)) < 0.1)
     batch = grid.to_torch(grid.batch_from_paths(
         paths.cpu().numpy(), obs.astype(np.int64), dt), device)
@@ -530,14 +562,13 @@ def phase_timing(results):
 
 def mask_kernel_ms(phase, kern, fn, shape):
     """Device ms per call of a standalone mask kernel (K4's
-    ``philox_masks_kernel``, K7's ``gob_masks_kernel``: torch.profiler,
-    which must record it), printed beside the old yardstick, CUDA events
-    around a loop of wrapper calls (host time included)."""
-    dev_ms = device_ms(fn, kern)
-    if dev_ms is None:
-        raise AssertionError(f"torch.profiler recorded no device time for "
-                             f"{kern}")
+    ``philox_masks_kernel``, K7's ``gob_masks_kernel``: :func:`kernel_ms`),
+    printed beside :func:`queued_ms` (the profiler's stand-in, run here
+    every time) and the old yardstick, CUDA events around a loop of
+    wrapper calls (host time included)."""
+    dev_ms = kernel_ms(fn, kern)
     say(phase, kernel=kern, shape=shape, device_ms=f"{dev_ms:.5f}",
+        queued_ms=f"{queued_ms(fn):.5f}",
         host_loop_ms=f"{cuda_ms(fn, 50):.5f}")
     return dev_ms
 
@@ -638,34 +669,75 @@ def mask_cost_gob(phase, arm, cfg, leaves, arrays, st, reps):
                       ("K5", "K6"), runs, reps)
 
 
-def device_ms(fn, name, reps=50):
+def device_ms(fn, name, reps=50, tries=3):
     """Device time per call of ``fn`` of the kernels whose name holds
     ``name`` (every kernel ``fn`` launches where ``name`` is None), from
     ``torch.profiler``'s ``key_averages()`` over ``reps`` calls (one
-    warm-up first); None if the profiler recorded none."""
+    warm-up first); a fresh profiler up to ``tries`` times, since CUPTI
+    now and then delivers no record of a run; None if none recorded it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for ev in prof.key_averages():
-        if (ev.device_type == DeviceType.CUDA if name is None
-                else name in ev.key):
-            total += (getattr(ev, "device_time_total", 0.0)
-                      or getattr(ev, "cuda_time_total", 0.0))
-    return total / 1e3 / reps if total > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for ev in prof.key_averages():
+            if (ev.device_type == DeviceType.CUDA if name is None
+                    else name in ev.key):
+                total += (getattr(ev, "device_time_total", 0.0)
+                          or getattr(ev, "cuda_time_total", 0.0))
+        if total > 0:
+            return total / 1e3 / reps
+    return None
+
+
+def queued_ms(fn, reps=50):
+    """Device ms per call of ``fn`` from CUDA events, its ``reps`` calls
+    queued behind a ``torch.cuda._sleep`` that outlasts their host launch
+    time, so the events bracket back-to-back device work only."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4e9 * host_s) + 1_000_000)  # >= 2x at <= 2 GHz
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def kernel_ms(fn, name, reps=50):
+    """:func:`device_ms` of the one kernel that ``fn`` launches, or where
+    the profiler recorded none, :func:`queued_ms` (said on a line)."""
+    ms = device_ms(fn, name, reps)
+    if ms is None:
+        ms = queued_ms(fn, reps)
+        say("profiler", kernel=name or "all", recorded="none",
+            timed_by="queued_cuda_events", ms=f"{ms:.5f}")
+    return ms
 
 
 def reduce_times(parts):
     """reduce_partials at each ``[n_parts, n]`` of ``parts``: its device
-    time per launch and ``sum(dim=0)``'s (the library call), both from
-    the profiler (which must record them), beside the old yardstick, CUDA
+    time per launch and ``sum(dim=0)``'s (the library call), both by
+    :func:`kernel_ms`, beside the old yardstick, CUDA
     events around a Python loop of wrapper calls (host time included),
     and the plain version's time; printed and returned by shape."""
     import torch
@@ -674,12 +746,9 @@ def reduce_times(parts):
 
     out = {}
     for (n_parts, n), P in parts.items():
-        dev_ms = device_ms(lambda: fs.reduce_partials_cuda(P),
+        dev_ms = kernel_ms(lambda: fs.reduce_partials_cuda(P),
                            "reduce_partials_kernel")
-        lib_ms = device_ms(lambda: P.sum(dim=0), "reduce_kernel")
-        if dev_ms is None or lib_ms is None:
-            raise AssertionError("torch.profiler recorded no device time for "
-                                 "reduce_partials or sum(dim=0)")
+        lib_ms = kernel_ms(lambda: P.sum(dim=0), "reduce_kernel")
         r = dict(device_ms=dev_ms, library_device_ms=lib_ms,
                  host_loop_ms=cuda_ms(lambda: fs.reduce_partials_cuda(P),
                                       200),
@@ -1260,8 +1329,9 @@ def _wgrad_library(spec, ws, KB):
 
 
 def stage_device_ms(fn, reps):
-    """Device ms per K6 call of each stage's kernel (torch.profiler); the
-    run fails if the profiler records none."""
+    """Device ms per K6 call of each stage's kernel (torch.profiler, each
+    up to three tries); the run fails if the profiler records none, as
+    one C call launches all three and no event can part them."""
     out = {n: device_ms(fn, f"gob_{n}_kernel", reps)
            for n in ("remat", "chain", "wgrad")}
     if any(v is None for v in out.values()):
@@ -1311,11 +1381,8 @@ def phase_gob_timing(results):
                                       dloss, None, seed, want_ws=True)[4]
             # the yardstick's device time, like the stages': the kernels
             # of one pass over the jobs, host launches left out
-            lib = device_ms(lambda: _wgrad_library(spec, ws, K * B), None,
+            lib = kernel_ms(lambda: _wgrad_library(spec, ws, K * B), None,
                             reps=5)
-            if lib is None:
-                raise AssertionError("torch.profiler recorded no device "
-                                     "time for stage (c)'s yardstick")
             for n in ("remat", "chain", "wgrad"):
                 t["K6" + n] = (stages[n], plain[n])
                 bnd["K6" + n] = bound(*sb[n], PEAK_FP32)
@@ -2607,6 +2674,262 @@ def phase_physionet_rnn(results):
     results["phys_rnn"] = dict(errs=errs, ms=ms, bd=bd, launches=counts)
 
 
+# the sweep phase's depth cut: one epoch of each run, on the convergence
+# study's own smallest training size and on SWEEP_TRAIN paths elsewhere
+SWEEP_TRAIN = {20: 1000, 100: 2000}     # batch size -> training paths
+# widths whose nets take the global plan (checked against fused_scan.Spec)
+SWEEP_GLOBAL_WIDTHS = (100, 160, 320, 400)
+# heston_wo_feller's 2-D return_vol dataset (experiments/configs.py)
+HWOF_RV = {"drift": 2.0, "volatility": 3.0, "mean": 1.0, "speed": 2.0,
+           "correlation": 0.5, "S0": 1, "maturity": 1.0, "dimension": 2,
+           "scheme": "euler", "return_vol": True, "v0": 0.5}
+# K1/K2 (with K3) against their plain versions at every shape the sweep's
+# unmasked runs take: (arm, width, B, the plan and rows the rule must take,
+# (SDE model, hyperparameters) of the batch, timed). Timed: the global-plan
+# shapes and the 2-D one; the convergence study's global arms are timed
+# again forced to one row a CTA (20 CTAs at B = 20), the rows a batch-aware
+# rule would take (ROADMAP Queue 2 levers). The resident arms at B = 20
+# (the convergence study's widths 10-80, the GRU-ODE-Bayes comparison's
+# NJODE at 50) are only checked.
+BS = ("BlackScholes", {})
+SWEEP_SHAPES = (("sine400", 400, 100, ("global", 4), BS, True),
+                ("conv320", 320, 20, ("global", 8), BS, True),
+                ("conv160", 160, 20, ("global", 16), BS, True),
+                ("combined100", 100, 100, ("global", 16), BS, True),
+                ("hwof_rv50", 50, 100, ("resident", 1),
+                 ("HestonWOFeller", HWOF_RV), True),
+                *((f"conv{w}", w, 20, ("resident", 1), BS, False)
+                  for w in (10, 20, 40, 80)),
+                ("gob_cmp_njode50", 50, 20, ("resident", 1), BS, False))
+
+
+def sweep_entries(results, data, models):
+    """The published grids built through the port's experiments/configs.py
+    at their widths and hyperparameters, their datasets created on the card
+    (20,000 paths each), and the entries the phase runs, cut to one epoch:
+    ``[(tag, kind, param dict)]``, kind 'njode', 'gob', 'climate' or
+    'physionet'."""
+    from njode_tpu_torch.experiments import configs
+
+    t0 = time.time()
+    configs.ensure_base_datasets(base_path=data)
+    hwof, _ = configs.heston_wo_feller(epochs=1, base_path=data)
+    comb, _ = configs.combined_regime(epochs=1, base_path=data)
+    sine, _ = configs.sine_models(epochs=1, base_path=data,
+                                  saved_models_path=models)
+    n_sets = len(os.listdir(data)) - 1        # less dataset_overview.csv
+    say("sweep", datasets=n_sets, paths=20000,
+        datasets_s=f"{time.time() - t0:.2f}")
+    conv, _ = configs.convergence_study(epochs=1, repeats=1,
+                                        saved_models_path=models)
+    gobc, _ = configs.gru_ode_bayes_comparison(epochs=1,
+                                               saved_models_path=models)
+    clim, _ = configs.climate_cross_validation(epochs=1)
+    phys, _ = configs.physionet_comparison(epochs=1, repeats=1,
+                                           saved_models_path=models)
+    width = lambda p: p["ode_nn"][0][0]  # noqa: E731
+    gob_nj = [p for p in gobc if "other_model" not in p
+              and p["dataset"] == "BlackScholes"]
+    gob_50 = [p for p in gobc if "other_model" in p
+              and p["dataset"] == "BlackScholes" and p["hidden_size"] == 50
+              and p["GRU_ODE_Bayes-impute"] and p["GRU_ODE_Bayes-logvar"]
+              and p["GRU_ODE_Bayes-mixing"] == 1e-4]
+    where = dict(save_every=1, saved_models_path=models)
+    out = []
+    for tag, entries in (
+            ("conv", [p for p in conv if p["training_size"] == 200]),
+            ("gob_cmp_njode", gob_nj), ("hwof", hwof), ("combined", comb),
+            ("sine", sine)):
+        for i, p in enumerate(entries):
+            q = dict(p, base_data_path=data, **where)
+            q.setdefault("training_size", SWEEP_TRAIN[p["batch_size"]])
+            n = f"{tag}{width(p)}"
+            out.append((n + (f"_{i}" if tag in ("hwof", "sine") else ""),
+                        "njode", q))
+    out.append(("gob_cmp_gob50", "gob", dict(
+        gob_50[0], base_data_path=data, training_size=SWEEP_TRAIN[20],
+        **where)))
+    small = [p for p in clim if "other_model" not in p and width(p) == 50
+             and p["data_index"] == 0]
+    out.append(("climate50", "climate", dict(
+        small[0], climate_dir=results["climate"]["dir"], **where)))
+    p50 = [p for p in phys if width(p) == 50]
+    out.append(("physionet50", "physionet", dict(
+        p50[0], records=results["phys"]["records"][:PHYS_TRAIN_RECORDS],
+        n_samples=PHYS_TRAIN_RECORDS, **where)))
+    if len(out) != 15 or len(gob_nj) != 1 or len(gob_50) != 1:
+        raise AssertionError(f"sweep: unexpected grid entries: "
+                             f"{[t for t, _, _ in out]}")
+    return out
+
+
+def _sweep_njode_cfg(p, data):
+    """The NJODE config a synthetic grid entry trains: its dataset's
+    dimension, output = input."""
+    from njode_tpu_torch.data import datasets
+    from njode_tpu_torch.models.njode import NJODEConfig
+
+    D = datasets.load_metadata(p["dataset"], p.get("dataset_id"),
+                               data)["dimension"]
+    return NJODEConfig(D, p["hidden_size"], D, p["ode_nn"], p["readout_nn"],
+                       p["enc_nn"], dropout_rate=p["dropout_rate"])
+
+
+def _sweep_expect(kind, p, cfg, results, chunks):
+    """The exact launch counts of one epoch of an entry."""
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    if kind == "njode":
+        steps = p["training_size"] // p["batch_size"]
+        g = "_global" if fs.Spec(cfg).plan == "global" else ""
+        return {"njode_scan_fwd" + g: steps, "njode_scan_bwd" + g: steps,
+                "njode_scan_eval" + g: 1, "philox_keep": 2 * steps,
+                "reduce_partials": 2 * steps + 1}
+    if kind == "gob":
+        steps = p["training_size"] // p["batch_size"]
+        return chunks.expect(steps, evals=1, reduce_extra=1)
+    n = (results["climate"]["n_train"] if kind == "climate"
+         else int(0.8 * p["n_samples"]))
+    steps = -(-n // p["batch_size"])     # the real-data eval is eager
+    return {"njode_scan_fwd": steps, "njode_scan_bwd": steps,
+            "philox_keep": 2 * steps, "reduce_partials": 2 * steps}
+
+
+def _sweep_run(results, tag, kind, p, data, models, draw):
+    """One entry through ``sweeps.parallel_training``, with every count set
+    to 0 just before and read just after, its trainer's output captured:
+    the result must be 0, its metric row finite, its counts exact, every
+    scan launch at the rule's rows, and its figures skipped with one line
+    where matplotlib is missing (``draw`` False), else written."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from njode_tpu_torch.ops import fused_gob as fg
+    from njode_tpu_torch.ops import fused_scan as fs
+    from njode_tpu_torch.training import registry, sweeps, trainer
+    from njode_tpu_torch.utils.csv_frame import read_frame, to_float
+
+    cfg = None
+    if kind == "njode":
+        cfg = _sweep_njode_cfg(p, data)
+        plan = fs.Spec(cfg).plan
+        if plan != ("global" if p["ode_nn"][0][0] in SWEEP_GLOBAL_WIDTHS
+                    else "resident"):
+            raise AssertionError(f"sweep {tag}: the rule takes the {plan} "
+                                 "plan")
+    elif kind in ("climate", "physionet"):
+        D, H = (5, 10) if kind == "climate" else (41, 41)
+        cfg = _masked_cfg(D, H, p["ode_nn"][0][0])
+    log = io.StringIO()
+    t0 = time.time()
+    fs.reset_launch_counts()
+    fg.reset_launch_counts()
+    with BwdChunks() as chunks, contextlib.redirect_stdout(log):
+        res = sweeps.parallel_training(params=[p])
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    counts = dict(fs.LAUNCHES, **fg.LAUNCHES)
+    text = log.getvalue()
+    if res != [0]:
+        print(text[-4000:], file=sys.stderr)
+        raise AssertionError(f"sweep {tag}: result {res!r}, expected [0]")
+    mid = registry.load_overview(models)[-1][0]
+    cols, rows = read_frame(os.path.join(models, f"id-{mid}",
+                                         f"metric_id-{mid}.csv"))
+    if len(rows) != 1:
+        raise AssertionError(f"sweep {tag}: {len(rows)} metric rows")
+    rec = {k: to_float(v) for k, v in zip(cols, rows[0])}
+    nan_ok = ("optimal_eval_loss",) if kind == "gob" else ()
+    if not all(np.isfinite(v) for k, v in rec.items() if k not in nan_ok):
+        raise AssertionError(f"sweep {tag}: non-finite metrics {rec}")
+    _check_counts("sweep", counts,
+                  _sweep_expect(kind, p, cfg, results, chunks))
+    if cfg is not None:
+        check_rows("sweep", cfg)
+    plots = os.path.join(models, f"id-{mid}", "plots")
+    n_figs = len(os.listdir(plots)) if os.path.isdir(plots) else 0
+    if p.get("plot"):
+        skipped = text.count(trainer.PLOT_SKIPPED)
+        want_figs = len(p["paths_to_plot"]) if draw else 0
+        if skipped != (0 if draw else 1) or n_figs != want_figs or \
+                text.count("optimal eval-loss (with current weight=") != 1:
+            raise AssertionError(f"sweep {tag}: {skipped} skip lines, "
+                                 f"{n_figs} figures (matplotlib: {draw})")
+    say("sweep", run=tag, id=mid, result=res[0], secs=f"{secs:.2f}",
+        **{k: f"{v:.6f}" for k, v in rec.items() if k != "epoch"},
+        figures=n_figs, plot_skip_line=trainer.PLOT_SKIPPED in text)
+    return counts
+
+
+def _sweep_shape_checks(results):
+    """K1 and K2 (with K3) against their plain versions in 'input' mode,
+    each twice bit for bit, at the North-star tolerances (``SHORT_TOL``),
+    at every shape of ``SWEEP_SHAPES``; the largest errors of each plan go
+    to ``results["sweep_errs"]``. For the timed shapes: their CUDA-event
+    times and bounds ('prng') and the rows, CTAs and waves
+    (``check_waves``)."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    worst = {p: {"K1m": 0.0, "K2m": 0.0, "K3m": 0.0}
+             for p in ("resident", "global")}
+    for arm, width, B, plan, data, timed_arm in SWEEP_SHAPES:
+        cfg, model, batch = main_path_setup(B, 100, 3, dev, width=width,
+                                            data=data)
+        spec = fs.Spec(cfg)
+        if (spec.plan, spec.rows_for(B), spec.rows_for(B, False)) != (
+                plan[0], plan[1], plan[1]):
+            raise AssertionError(f"sweep {arm}: plan {spec.plan} at "
+                                 f"{spec.rows_for(B)} rows, expected {plan}")
+        errs, _, _ = _masked_arm_checks(
+            "sweep", cfg, model, batch, ((100, ("input",), SHORT_TOL),), gen,
+            arm=arm, D=cfg.input_size)
+        for k, v in errs.items():
+            worst[plan[0]][k] = max(worst[plan[0]][k], v)
+        if not timed_arm:
+            continue
+        ms, bd, K, Bt, spec_p = _full_grid_times(cfg, model, batch, 10)
+        _say_times("sweep", arm, spec_p, ms, bd, K, Bt)
+        check_waves("sweep", arm, cfg, B)
+        if arm.startswith("conv"):
+            ms, bd, K, Bt, spec_p = _full_grid_times(cfg, model, batch, 10,
+                                                     plan=("global", 1))
+            _say_times("sweep", arm + "_forced_1_row", spec_p, ms, bd, K,
+                       Bt)
+    say("sweep", shape_errs=json.dumps(worst).replace(" ", ""))
+    results["sweep_errs"] = worst
+
+
+def phase_sweep(results):
+    """The published grids through the sweep runner on the card (the
+    datasets at 20,000 paths, one epoch a run), then K1-K3 against their
+    plain versions at every shape its unmasked runs take."""
+    from njode_tpu_torch.training.plots import have_matplotlib
+
+    tmp = tempfile.mkdtemp(prefix="njode_smoke_sweep_")
+    try:
+        data = os.path.join(tmp, "data")
+        models = os.path.join(tmp, "models")
+        draw = have_matplotlib()
+        say("sweep", matplotlib=draw)
+        launches = {"njode": {}, "masked": {}, "gob": {}}
+        for tag, kind, p in sweep_entries(results, data, models):
+            counts = _sweep_run(results, tag, kind, p, data, models, draw)
+            group = {"njode": "njode", "gob": "gob"}.get(kind, "masked")
+            for k, v in counts.items():
+                launches[group][k] = launches[group].get(k, 0) + v
+        results["sweep_launches"] = launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _sweep_shape_checks(results)
+
+
 def kernels_line(results):
     src = "njode_tpu_torch/ops/csrc/fused_scan.cu"
     rows = [("njode_scan_fwd", "K1", "njode_tpu/ops/fused_scan.py:1115",
@@ -2620,8 +2943,14 @@ def kernels_line(results):
             ("reduce_partials", "reduce",
              "njode_tpu/ops/fused_scan.py:522", "reduce_partials")]
     out = []
-    # GOB: the per-epoch and the chunked trainer runs
-    gl = {k: v + results["gob_chunk_launches"][k]
+    # the sweep's runs: unmasked NJODE (both plans), masked NJODE (climate,
+    # PhysioNet) and GRU-ODE-Bayes
+    sn, sm, sg = (results["sweep_launches"][k]
+                  for k in ("njode", "masked", "gob"))
+    # the sweep's unmasked shapes, checked in _sweep_shape_checks
+    se = results["sweep_errs"]
+    # GOB: the per-epoch and the chunked trainer runs, and the sweep's
+    gl = {k: v + results["gob_chunk_launches"][k] + sg.get(k, 0)
           for k, v in results["gob_launches"].items()}
     cn, cg = (results["climate_launches"][k] for k in ("njode", "gob"))
     pl, pr = results["phys_launches"], results["phys_rnn"]["launches"]
@@ -2635,13 +2964,18 @@ def kernels_line(results):
             "launches", "chunk_launches", "bench_launches"))
         if name == "reduce_partials":    # runs on every path
             launches += sum(c["reduce_partials"]
-                            for c in (gl, cn, cg, pl, p2, rl, cr, pr))
+                            for c in (gl, cn, cg, pl, p2, rl, cr, pr, sn, sm))
         elif name == "philox_keep":      # the NJODE paths
             launches += sum(c["philox_keep"]
-                            for c in (cn, pl, p2, rl, cr, pr))
+                            for c in (cn, pl, p2, rl, cr, pr, sn, sm))
+        else:
+            launches += sn[count]
+        err = results["errs"][key]
+        if key in ("K1", "K2", "K3"):
+            err = max(err, se["resident"][key + "m"])
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": launches,
-                    "max_abs_err": results["errs"][key], "ms": ms,
+                    "max_abs_err": err, "ms": ms,
                     "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                     "library_ms": results["library_ms"].get(key)})
     # GRU-ODE-Bayes at the trainer's widths: K5, its eval form, K6 as a
@@ -2682,10 +3016,12 @@ def kernels_line(results):
     for name, key, s, replaces, launches in (
             ("njode_scan_fwd_masked", "K1m", src,
              "njode_tpu/ops/fused_scan.py:695",
-             cn["njode_scan_fwd"] + pl["njode_scan_fwd"]),
+             cn["njode_scan_fwd"] + pl["njode_scan_fwd"]
+             + sm["njode_scan_fwd"]),
             ("njode_scan_bwd_masked", "K2m", src,
              "njode_tpu/ops/fused_scan.py:772",
-             cn["njode_scan_bwd"] + pl["njode_scan_bwd"]),
+             cn["njode_scan_bwd"] + pl["njode_scan_bwd"]
+             + sm["njode_scan_bwd"]),
             ("njode_scan_eval_masked", "K3m", src,
              "njode_tpu/ops/fused_scan.py:695", cn["njode_scan_eval"]),
             ("gob_scan_fwd_climate", "K5c", gsrc,
@@ -2700,8 +3036,8 @@ def kernels_line(results):
                     "bound_ms": bms, "bound_by": by, "library_ms": None})
     # the global plan of K1-K3 with the encoder jump (the JAX kernel's
     # blocked plan for nets that overflow VMEM), timed at the PhysioNet 50
-    # arm forced into it; launches from the 200 arm's epoch, errors the
-    # largest of the physionet_kernels checks
+    # arm forced into it; launches from the 200 arm's epoch and the sweep,
+    # errors the largest of the physionet_kernels and the sweep's checks
     pe = results["phys"]["errs"]
     for name, key, replaces in (
             ("njode_scan_fwd_global", "K1",
@@ -2714,8 +3050,10 @@ def kernels_line(results):
         bms, by = results["bounds"][key + "g"]
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces,
-                    "launches": p2[name],
-                    "max_abs_err": pe[key + "m"], "ms": ms, "plain_ms": plain,
+                    "launches": p2[name] + sn[name],
+                    "max_abs_err": max(pe[key + "m"],
+                                       se["global"][key + "m"]),
+                    "ms": ms, "plain_ms": plain,
                     "bound_ms": bms, "bound_by": by, "library_ms": None})
     # the GRU jump (use_rnn) of K1-K3, timed at the main path; launches
     # from its trainer phase, the climate one and the PhysioNet one (the
@@ -2777,6 +3115,7 @@ def main():
         phase(results)
         say(phase.__name__[6:], phase_s=f"{time.time() - t0:.2f}")
         t0 = time.time()
+    # the climate stand-in stays on disk for the sweep's climate run
     tmp = tempfile.mkdtemp(prefix="njode_smoke_climate_")
     try:
         climate_setup(results, tmp)
@@ -2786,15 +3125,16 @@ def main():
             phase(results)
             say(phase.__name__[6:], phase_s=f"{time.time() - t0:.2f}")
             t0 = time.time()
+        physionet_setup(results)
+        t0 = time.time()
+        for phase in (phase_physionet_kernels, phase_physionet_timing,
+                      phase_physionet_trainer, phase_physionet_rnn,
+                      phase_sweep):
+            phase(results)
+            say(phase.__name__[6:], phase_s=f"{time.time() - t0:.2f}")
+            t0 = time.time()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    physionet_setup(results)
-    t0 = time.time()
-    for phase in (phase_physionet_kernels, phase_physionet_timing,
-                  phase_physionet_trainer, phase_physionet_rnn):
-        phase(results)
-        say(phase.__name__[6:], phase_s=f"{time.time() - t0:.2f}")
-        t0 = time.time()
     print(kernels_line(results), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

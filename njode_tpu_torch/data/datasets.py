@@ -16,7 +16,7 @@ import copy
 import json
 import os
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -98,6 +98,55 @@ def create_dataset(stock_model_name: str = "BlackScholes",
     _register(rows, overview_file, stock_model_name, time_id, desc)
     hp["dt"] = float(dt)
     _persist(path, stock_paths, observed_dates, nb_obs, hp)
+    return path, time_id
+
+
+def create_combined_dataset(
+        stock_model_names: Sequence[str] = ("BlackScholes",
+                                            "OrnsteinUhlenbeck"),
+        hyperparam_dicts: Sequence[dict] = (hyperparam_default,
+                                            hyperparam_default),
+        seed: int = 0, base_path: Optional[str] = None, device="cuda"):
+    """Chain several models in time into one dataset (``sde.Combined``),
+    stored as ``combined_<names>-<time_id>`` with the JAX package's
+    metadata; returns (path, time_id).
+
+    :param device: where the paths are simulated"""
+    base = base_path or training_data_path
+    rows, overview_file = get_dataset_overview(base)
+    if len(stock_model_names) != len(hyperparam_dicts):
+        raise ValueError("one hyperparameter dict per model is needed")
+    hyperparam_dicts = [copy.deepcopy(h) for h in hyperparam_dicts]
+
+    filename = "combined_" + "_".join(stock_model_names)
+    maturity = sum(h["maturity"] for h in hyperparam_dicts)
+    for n, h in zip(stock_model_names, hyperparam_dicts):
+        h["model_name"] = n
+    obs_perc = hyperparam_dicts[0]["obs_perc"]
+
+    combined = sde.Combined(stock_model_names=list(stock_model_names),
+                            hyperparam_dicts=hyperparam_dicts)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    stock_paths, dt = combined.generate_paths(gen)
+    stock_paths = stock_paths.cpu().numpy().astype(np.float64)
+    size = stock_paths.shape
+    rs = np.random.RandomState(seed)
+    observed_dates = (rs.random((size[0], size[2])) < obs_perc).astype(np.int64)
+    nb_obs = observed_dates[:, 1:].sum(axis=1)
+
+    time_id = int(time.time())
+    while os.path.exists(os.path.join(base, f"{filename}-{time_id}")):
+        time_id += 1
+    path = os.path.join(base, f"{filename}-{time_id}")
+    metadata = {"dt": float(dt), "maturity": maturity,
+                "dimension": hyperparam_dicts[0]["dimension"],
+                "nb_paths": hyperparam_dicts[0]["nb_paths"],
+                "model_name": "combined",
+                "stock_model_names": list(stock_model_names),
+                "hyperparam_dicts": hyperparam_dicts}
+    desc = json.dumps(metadata, sort_keys=True)
+    _register(rows, overview_file, filename, time_id, desc)
+    _persist(path, stock_paths, observed_dates, nb_obs, metadata)
     return path, time_id
 
 

@@ -4,9 +4,11 @@
 
 The counterpart of the repo's ``demo.py``: generates the dataset if missing
 (20,000 paths) and trains the demo configuration (hidden 10, three 2x50
-tanh MLPs, dropout 0.1, batch 100). The pretrained reference models
-(``--model_id`` 1-3) and their plots are not ported yet (ROADMAP.md Queue 1
-item 3)."""
+tanh MLPs, dropout 0.1, batch 100), plotting the first validation path
+every 5 epochs (where matplotlib is installed). The pretrained reference
+models (``--model_id`` 1-3) are not ported, by design: their checkpoints
+are not in the repo (ROADMAP.md, ground rules, "Not ported, by
+design")."""
 
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ def main(argv=None):
         "--dataset", type=str, default="BlackScholes",
         help="one of: 'BlackScholes', 'Heston', 'OrnsteinUhlenbeck'")
     parser.add_argument("--model_id", type=str, default="None",
-                        help="None (pretrained ids are not ported yet)")
+                        help="None (pretrained ids are not ported)")
     parser.add_argument("--epochs", type=int, default=200,
                         help="int, number of epochs")
     parser.add_argument("--device", type=str, default="cuda",
@@ -28,8 +30,9 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.model_id not in ("None", "none", ""):
         raise NotImplementedError(
-            "pretrained model ids are not ported yet (ROADMAP.md Queue 1 "
-            "item 3: the demo's pretrained ids and plots)")
+            "pretrained model ids are not ported (ROADMAP.md, ground rules, "
+            "'Not ported, by design': the reference's checkpoints are not "
+            "in the repo)")
 
     from njode_tpu_torch.data import datasets as data_utils
     from njode_tpu_torch.training import trainer
@@ -51,7 +54,7 @@ def main(argv=None):
         ode_nn=nn_desc, enc_nn=nn_desc, readout_nn=nn_desc, use_rnn=False,
         which_loss="standard", residual_enc_dec=True,
         solver="euler", weight=0.5, weight_decay=1.0,
-        dataset=args.dataset, dataset_id=None, plot=False,
+        dataset=args.dataset, dataset_id=None, plot=True,
         device=args.device)
     return 0
 

@@ -30,10 +30,14 @@ def load_overview(saved_models_path: str):
     return [[int(float(i)), d] for i, d in rows]
 
 
+def write_overview(saved_models_path: str, rows):
+    """Write the rows ``[id, description]`` as the whole registry."""
+    write_frame(overview_file(saved_models_path), _COLUMNS, rows)
+
+
 def register_model(saved_models_path: str, model_id, desc: str):
     rows = load_overview(saved_models_path)
-    write_frame(overview_file(saved_models_path), _COLUMNS,
-                rows + [[int(model_id), desc]])
+    write_overview(saved_models_path, rows + [[int(model_id), desc]])
 
 
 def resolve_model_id(saved_models_path: str, model_id, desc: str):

@@ -3,9 +3,9 @@
 Dataset resolution, train/val split, optimal-loss oracle, model registry
 with resume-by-id, Adam (+5e-4 L2), epoch loop, full-validation-batch
 eval (+ optional oracle mean-squared difference), last/best checkpoints on
-the same cadence, the metric CSV with the same columns, and loss-weight
-decay per epoch; NJODE, or GRU-ODE-Bayes with ``other_model=
-"GRU_ODE_Bayes"``.
+the same cadence, the metric CSV with the same columns, loss-weight decay
+per epoch, path plots on the save cadence and the plot-only mode; NJODE, or
+GRU-ODE-Bayes with ``other_model="GRU_ODE_Bayes"``.
 
 The dataset is resident on the device; each epoch queues its steps
 (training/steps.py) and reads the losses once at its end, or with
@@ -36,6 +36,8 @@ from njode_tpu_torch.models import gru_ode_bayes as gob
 from njode_tpu_torch.models import njode
 from njode_tpu_torch.models.mlp import count_params
 from njode_tpu_torch.training import checkpoints, registry
+from njode_tpu_torch.training.plots import have_matplotlib, \
+    plot_one_path_with_pred
 from njode_tpu_torch.training.steps import make_optimizer, make_step_fns
 from njode_tpu_torch.utils import paths as path_cfg
 from njode_tpu_torch.utils.csv_frame import read_frame, to_float, \
@@ -53,18 +55,15 @@ _UNPORTED = {
     "mesh": "Queue 1 item 7 (data parallelism)",
     "profile_dir": "Queue 1 item 8 (utils/profiling.py)",
     "anomaly_detection": "Queue 1 item 8 (utils/profiling.py)",
-    "plot_only": "Queue 1 item 3 (plots and the demo's pretrained ids)",
 }
+# printed once by a run asked to plot where matplotlib cannot be imported
+PLOT_SKIPPED = "plot: matplotlib is not installed, figures skipped"
 # the per-epoch history of a chunk of epochs (parameters and Adam's two
 # moments, 3x the parameters' bytes an epoch) is capped to this many bytes
 HIST_BUDGET = 2 << 30
 
 
-def _reject_unported(plot, options):
-    if plot:
-        raise NotImplementedError(
-            "plot=True is not ported yet (ROADMAP.md Queue 1 item 3: "
-            "training/plots.py)")
+def _reject_unported(options):
     for key, entry in _UNPORTED.items():
         val = options.get(key)
         if val:
@@ -97,11 +96,22 @@ def train(
     """Train an NJODE model on a synthetic dataset.
 
     The arguments are the JAX trainer's, plus ``device`` (``"cuda"`` unless
-    the caller asks for the CPU). ``plot`` defaults to False here: plots
-    are not ported yet. Options read: 'base_data_path', 'training_size',
-    'func_appl_X', 'which_loss', 'residual_enc_dec', 'input_current_t',
-    'masked', 'evaluate', 'load_best', 'resume_training', 'repeat_seed',
-    'parallel', 'use_pallas' (use the fused kernels; default: on CUDA for
+    the caller asks for the CPU). ``plot`` defaults to False here, so that
+    a call that does not ask for figures writes none (the JAX trainer's
+    default is True; the demo and the published grids pass True). With
+    ``plot`` the paths ``paths_to_plot`` of the validation set are drawn
+    on the save cadence into ``id-<n>/plots/epoch-<e>_path-<i>.<fmt>``;
+    where matplotlib cannot be imported (a GPU host without it) one line says
+    so, the prediction and the optimal loss are still computed and
+    printed, and no figure is written. Options read: 'base_data_path',
+    'training_size', 'func_appl_X', 'which_loss', 'residual_enc_dec',
+    'input_current_t', 'masked', 'evaluate', 'load_best',
+    'resume_training', 'repeat_seed', 'parallel', 'plot_only' (draw the
+    current model's paths as ``demo-plot_epoch-<e>_path-<i>.<fmt>`` and
+    return without training), 'plot_variance' and 'std_factor' (a +-std
+    band from a 'power-2' ``func_appl_X`` moment), 'ylabels',
+    'save_extras' (``savefig`` keywords), 'plot_save_format' ('pdf'),
+    'use_pallas' (use the fused kernels; default: on CUDA for
     a supported config), 'pallas_mask_mode' ('prng' or 'input'),
     'other_model' ("GRU_ODE_Bayes" trains that model instead of NJODE; its
     'GRU_ODE_Bayes-<name>' options as in ``gru_ode_bayes.
@@ -116,7 +126,7 @@ def train(
     and, with 'evaluate', 'evaluation_mean_diff_ema'; turns chunking off).
     :return: 0 (reference convention)
     """
-    _reject_unported(plot, options)
+    _reject_unported(options)
     device = torch.device(device)
     saved_models_path = saved_models_path or path_cfg.saved_models_path
     base_data_path = options.get("base_data_path")
@@ -128,6 +138,7 @@ def train(
     metadata = du.load_metadata(dataset, dataset_id, base_data_path)
     input_size = metadata["dimension"]
     output_size = input_size
+    T = metadata["maturity"]
     delta_t = metadata["dt"]
 
     train_idx, val_idx = train_val_split(metadata["nb_paths"], test_size,
@@ -145,6 +156,11 @@ def train(
     functions = functions or None
     input_size *= mult
     output_size *= mult
+    plot_variance = False
+    std_factor = 1
+    if functions is not None and mult > 1:
+        plot_variance = options.get("plot_variance", False)
+        std_factor = options.get("std_factor", 1)
 
     # ------- oracle & optimal eval loss -------
     next_cond_exp = sde.make_model(metadata["model_name"],
@@ -191,6 +207,7 @@ def train(
     makedirs(model_path_save_best)
     model_metric_file = os.path.join(model_path,
                                      f"metric_id-{model_id}.csv")
+    plot_save_path = os.path.join(model_path, "plots")
 
     # ------- model & optimizer -------
     opts = params_dict.get("options", options)
@@ -292,6 +309,58 @@ def train(
     if not resume_training:
         initial_print += "\ninitiate new model ..."
 
+    want_plots = bool(plot or options.get("plot_only"))
+    draw = want_plots and have_matplotlib()
+    if want_plots and not draw:
+        print(PLOT_SKIPPED)
+
+    def _pred_path(model_state):
+        """The prediction on the validation set, from ``model_state`` (a
+        snapshot of the model's state dict) if given, else from the live
+        weights, which are restored after the call."""
+        args = (d_val_paths, d_val_obs, val_idx_all)
+        if model_state is None:
+            return fns["pred_path"](*args)
+        live = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(model_state)
+        try:
+            return fns["pred_path"](*args)
+        finally:
+            model.load_state_dict(live)
+
+    def _plot(filename_tpl, weight_for_opt, model_state=None):
+        """Draw ``paths_to_plot`` (where matplotlib is present); returns
+        the optimal loss at ``weight_for_opt``."""
+        pred = _pred_path(model_state)
+        if draw:
+            _, y_post = oracle.cond_exp_paths(next_cond_exp, val_batch)
+            true_t = np.concatenate([[0.0], val_batch.times.cpu().numpy()])
+            true_y = np.concatenate([val_batch.start_X.cpu().numpy()[None],
+                                     y_post.cpu().numpy()], axis=0)
+            plot_one_path_with_pred(
+                None, pred["pred_t"].cpu().numpy(),
+                pred["pred"].cpu().numpy(), true_t, true_y,
+                data_val.stock_paths, data_val.observed_dates, delta_t, T,
+                path_to_plot=paths_to_plot, save_path=plot_save_path,
+                filename=filename_tpl, plot_variance=plot_variance,
+                functions=options.get("func_appl_X"), std_factor=std_factor,
+                model_name=model_name, ylabels=options.get("ylabels"),
+                save_extras=options.get("save_extras", {}))
+        return float(oracle.optimal_loss(next_cond_exp, val_batch,
+                                         weight=weight_for_opt))
+
+    # ------- plot-only mode -------
+    plot_fmt = options.get("plot_save_format", "pdf")
+    if options.get("plot_only"):
+        epoch -= 1
+        initial_print += "\nplotting ..."
+        curr_opt = _plot(f"demo-plot_epoch-{epoch}" + "_path-{}." + plot_fmt,
+                         cur_weight)
+        initial_print += (f"\noptimal eval-loss (with current weight="
+                          f"{cur_weight:.5f}): {curr_opt:.5f}")
+        print(initial_print)
+        return 0
+
     # ------- training loop -------
     if epoch <= epochs:
         initial_print += f"\n\nmodel overview ({model_name}):"
@@ -349,12 +418,20 @@ def train(
         return torch.Generator(device=device).manual_seed(
             ((rseed + 1) * 100_003 + ep) % 2**63)
 
-    def _after_epoch(ep, weight, row, loss_val, state):
-        """Append the epoch's metric row and write its checkpoints
-        (``state``: the epoch's (model, optimizer) state dicts)."""
+    def _after_epoch(ep, weight, row, loss_val, state, snapshot=False):
+        """Append the epoch's metric row, draw its plots and write its
+        checkpoints (``state``: the epoch's (model, optimizer) state dicts;
+        ``snapshot``: a copy taken at the epoch's end, not the live
+        weights)."""
         nonlocal best_eval_loss
         metric_rows.append(row)
         if ep % save_every == 0:
+            if plot:
+                print("plotting ...")
+                curr_opt = _plot(f"epoch-{ep}" + "_path-{}." + plot_fmt,
+                                 weight, state[0] if snapshot else None)
+                print(f"optimal eval-loss (with current weight="
+                      f"{weight:.5f}): {curr_opt:.5f}")
             print("save model ...")
             _flush_metrics()
             checkpoints.save_state(model_path_save_last, *state, ep, weight)
@@ -399,7 +476,7 @@ def train(
                 row.append(msd[j])
                 print(f"evaluation mean square difference={msd[j]:.5f}")
             _after_epoch(epoch + j, ws[j], row, ev[j],
-                         (p_hist[j], o_hist[j]))
+                         (p_hist[j], o_hist[j]), snapshot=True)
         epoch += n_ep
         cur_weight = w
 

@@ -52,12 +52,35 @@ def test_batch_from_paths_and_recompute_n_obs_match_jax():
     np.testing.assert_array_equal(tt.n_obs_ot.numpy(), tb.n_obs_ot)
 
 
-@pytest.mark.parametrize("name", ["BlackScholes", "OrnsteinUhlenbeck",
-                                  "Heston"])
-def test_oracle_matches_jax(name):
-    b = H.make_np_batch(seed=1, D=1, pad=2)
-    jm = jsde.make_model(name, HP)
-    tm = tsde.make_model(name, HP)
+_SINE = dict(HP, sine_coeff=2 * np.pi)
+_WOF = dict(HP, correlation=0.5, volatility=3.0, mean=1.0, v0=0.5)
+_HALF = dict(HP, maturity=0.5)
+# id -> (model name, hyperparameters, dimension D); the combined model's
+# regime boundary (0.5) lies inside the batch's times (1/15 .. 1)
+ORACLE_CASES = {
+    "BlackScholes": ("BlackScholes", HP, 1),
+    "OrnsteinUhlenbeck": ("OrnsteinUhlenbeck", HP, 1),
+    "Heston": ("Heston", HP, 1),
+    "HestonWOFeller": ("HestonWOFeller", _WOF, 1),
+    "HestonWOFeller-return_vol": (
+        "HestonWOFeller", dict(_WOF, return_vol=True, dimension=2), 2),
+    "sine_BlackScholes": ("sine_BlackScholes", _SINE, 1),
+    "sine_Heston": ("sine_Heston", _SINE, 1),
+    "sine_OrnsteinUhlenbeck": ("sine_OrnsteinUhlenbeck", _SINE, 1),
+    "combined": ("combined", {
+        "stock_model_names": ["OrnsteinUhlenbeck", "sine_BlackScholes"],
+        "hyperparam_dicts": [dict(_HALF, mean=10), dict(_HALF,
+                                                        sine_coeff=np.pi)]},
+        1),
+}
+
+
+@pytest.mark.parametrize("case", list(ORACLE_CASES))
+def test_oracle_matches_jax(case):
+    name, hp, D = ORACLE_CASES[case]
+    b = H.make_np_batch(seed=1, D=D, pad=2)
+    jm = jsde.make_model(name, hp)
+    tm = tsde.make_model(name, hp)
     jpre, jpost = joracle.cond_exp_paths(jm.next_cond_exp, H.jbatch(b))
     tb = H.tbatch(b)
     tpre, tpost = toracle.cond_exp_paths(tm.next_cond_exp, tb)
@@ -159,9 +182,11 @@ def test_sampler_moments(name):
 
 
 def test_unported_models_raise():
-    for name in ("HestonWOFeller", "combined", "sine_BlackScholes"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsde.make_model(name, HP)
+    """A name outside both packages' registries raises KeyError in both."""
+    for name in ("NoSuchModel", "sine_NoSuchModel", "Combined"):
+        for sde in (tsde, jsde):
+            with pytest.raises(KeyError, match=name):
+                sde.make_model(name, HP)
 
 
 @pytest.mark.parametrize("n,test_size,seed", [(200, 0.2, 398),

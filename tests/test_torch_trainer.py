@@ -145,9 +145,8 @@ def test_trainer_writes_metrics_checkpoints_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("mesh", object()), ("plot_only", True),
-    ("profile_dir", "p"),
-    ("anomaly_detection", True), ("plot", True)])
+    ("mesh", object()), ("profile_dir", "p"),
+    ("anomaly_detection", True)])
 def test_unported_trainer_options_raise(option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrainer.train(**{option: value}, device="cpu")
