@@ -176,7 +176,32 @@ power limit, and the final ``{"ok": true, ...}`` line:
               bit, at the sine 400 arm's shape (B = 100, global / 4) and
               widths 320 and 160 at B = 20 (global / 8 and 16), with their
               CUDA-event times, bounds, rows, CTAs and waves; the two
-              convergence widths timed again forced to one row a CTA.
+              convergence widths timed again forced to one row a CTA;
+24. groups   - the grouped ensembles (training/group_sweep.py,
+              climate_group.py, physionet_group.py): K1 and K2 over a
+              member axis (one launch of grid (ceil(B/R), E) for E
+              members) at E = 3, in both mask modes, each member bit for
+              bit its own solo launches at the same rows and the member
+              launch twice bit for bit, and within the North-star
+              tolerances of the member plain version, at the main path
+              (B = 100), the convergence study's width 320 (global / 8,
+              B = 20), the climate small arm (B = 100, K = 2,004; the
+              plain version over the first 100 steps, LONG_TOL) and the
+              main path with the GRU jump; the member launch of K1/K2 at
+              E = 5 timed against five solo launches (CUDA events) at
+              widths 320 and 40 (B = 20), the main path (B = 100) and the
+              PhysioNet 50 arm (B = 50, K = 3,006), with E times the solo
+              bound; the member reduce_partials bit for bit its plain
+              version and timed (device time) beside five solo launches
+              and sum(dim=1); then sweeps.parallel_training(
+              vmap_groups=True), one epoch each: a convergence cell
+              (width 320, training size 200, B = 20, 5 repeats), the
+              climate small arm's 5 folds on the stand-in, the PhysioNet
+              50 arm x 2 repeats on 1,000 records; every result 0, every
+              member's row finite, the launch counts exact (one member
+              launch of K1 and of K2 a step: a group that fell back to
+              solo runs fails them), and one convergence member's metric
+              row bit for bit a solo run of its params.
 
 Tolerances are those the JAX package's Pallas kernel is held to
 (tests/test_fused_scan.py): loss rtol 1e-5 / atol 1e-6, gradients rtol
@@ -1795,7 +1820,11 @@ def climate_setup(results, tmp):
                              torch.as_tensor(pre["times"], device=dev),
                              torch.as_tensor(pre["dt"], device=dev))
     torch.cuda.synchronize()
-    results["climate"] = dict(dir=tmp, n_train=len(ds), batch=batch, K=K)
+    results["climate"] = dict(dir=tmp, n_train=len(ds), batch=batch, K=K,
+                              bank=(bank, torch.as_tensor(pre["times"],
+                                                          device=dev),
+                                    torch.as_tensor(pre["dt"], device=dev),
+                                    len(ds)))
     say("climate_setup", series=CLIMATE_SERIES, csv_rows=len(rows),
         n_train=len(ds), K=K, B=CLIMATE_B,
         batch_obs=int(batch.obs.sum()), setup_s=f"{time.time() - t0:.2f}")
@@ -2266,7 +2295,11 @@ def physionet_setup(results):
                              torch.as_tensor(pre["times"], device=dev),
                              torch.as_tensor(pre["dt"], device=dev))
     torch.cuda.synchronize()
-    results["phys"] = dict(records=recs, batch=batch)
+    results["phys"] = dict(records=recs, batch=batch,
+                           bank=(bank, torch.as_tensor(pre["times"],
+                                                       device=dev),
+                                 torch.as_tensor(pre["dt"], device=dev),
+                                 len(tr)))
     say("physionet_setup", records=len(recs), n_train=len(tr),
         n_test=len(te), K=int(batch.obs.shape[0]), B=PHYS_B,
         rows_mean=f"{pre['n_ev'].mean():.1f}", rows_max=int(E),
@@ -2930,6 +2963,452 @@ def phase_sweep(results):
     _sweep_shape_checks(results)
 
 
+# the groups phase: the member axis checked at E = 3, timed at E = 5
+GROUP_CHECK_E, GROUP_TIME_E = 3, 5
+GROUP_CONV_REPEATS, GROUP_CLIMATE_FOLDS, GROUP_PHYS_REPEATS = 5, 5, 2
+
+
+def _member_layout(models, batches):
+    """Each member's solo inputs (leaves, batch arrays, t=0 state) and
+    the member layout of all of them (leaves [E, ...], arrays with a
+    leading member axis but the shared grid, h0 [E, B, H])."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    solo = []
+    for m, b in zip(models, batches):
+        with torch.no_grad():
+            h0 = fs.t0_state(m, b).contiguous()
+        solo.append(([p.detach() for p in fs.flat_leaves(m)],
+                     fs.batch_arrays(b), h0))
+    leaves = [torch.stack(ls) for ls in zip(*(s[0] for s in solo))]
+    arrays = tuple(solo[0][1][i] if i < 2 else
+                   torch.stack([s[1][i] for s in solo]).contiguous()
+                   for i in range(7))
+    return solo, leaves, arrays, torch.stack([s[2] for s in solo])
+
+
+def _member_draws(spec, E, K, B, mode, gen, dev):
+    import torch
+    if mode == "input":
+        return (torch.rand((E, K, spec.S, B, spec.w_max), generator=gen,
+                           device=dev) < 0.9).to(torch.int8), None
+    return None, torch.randint(0, 2 ** 62, (E,), generator=gen, device=dev,
+                               dtype=torch.int64)
+
+
+def _member_check(arm, cfg, models, batches, gen, tol=SHORT_TOL,
+                  K_plain=None):
+    """K1 and K2 over a member axis (E members, each its own weights,
+    batch and masks) in 'input' and 'prng' mode: twice bit for bit, each
+    member bit for bit its own solo launches at the same rows, and within
+    ``tol`` of the member plain version (over the first ``K_plain`` steps
+    where given: the member launch run again on them). Returns the
+    largest errors against the plain version."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    dev = batches[0].obs.device
+    E = len(models)
+    solo, leaves, arrays, h0 = _member_layout(models, batches)
+    _, K, B = arrays[2].shape
+    errs = {"K1": 0.0, "K2": 0.0}
+    for mode in ("input", "prng"):
+        spec = fs.Spec(cfg, mode)
+        u, seed = _member_draws(spec, E, K, B, mode, gen, dev)
+        ones = torch.ones((E,), device=dev)
+        fs.reset_launch_counts()
+        outs = []
+        for _ in range(2):
+            lk, hk = fs.scan_fwd_members_cuda(spec, leaves, arrays, 0.5, h0,
+                                              True, u, seed)
+            gk, dk = fs.scan_bwd_members_cuda(spec, leaves, arrays, 0.5,
+                                              True, hk, ones, u, seed)
+            outs.append([lk, *hk, *gk, dk])
+        key = fs._launch_key(spec)
+        if (fs.LAUNCHES["njode_scan_fwd_members" + key],
+                fs.LAUNCHES["njode_scan_bwd_members" + key]) != (2, 2):
+            raise AssertionError(f"groups {arm}: member launches "
+                                 f"{fs.LAUNCHES}")
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*outs)):
+            raise AssertionError(f"groups {arm} ({mode}): the member "
+                                 "launches differ between two runs")
+        n_diff = 0
+        for e, (lv, arr, h0e) in enumerate(solo):
+            ue = None if u is None else u[e].contiguous()
+            se = None if seed is None else seed[e:e + 1]
+            ls, hs = fs.scan_fwd_cuda(spec, lv, arr, 0.5, h0e, True, ue, se)
+            gs, ds = fs.scan_bwd_cuda(spec, lv, arr, 0.5, True, hs,
+                                      ones[e], ue, se)
+            n_diff += sum(not torch.equal(a[e], b) for a, b in zip(
+                outs[0], [ls, *hs, *gs, ds]))
+        if n_diff:
+            raise AssertionError(f"groups {arm} ({mode}): {n_diff} member "
+                                 "outputs differ from their solo launches")
+        lk, hk, gk, dk = outs[0][0], outs[0][1:4], outs[0][4:-1], outs[0][-1]
+        arr_p, u_p = arrays, u
+        if K_plain is not None:
+            # the first K_plain steps of every member (n_obs recounted)
+            t, d, o, X, _, sx, M = arrays
+            o = o[:, :K_plain].contiguous()
+            arr_p = (t[:K_plain].contiguous(), d[:K_plain].contiguous(), o,
+                     X[:, :K_plain].contiguous(), o.sum(dim=1), sx,
+                     None if M is None else M[:, :K_plain].contiguous())
+            u_p = None if u is None else u[:, :K_plain].contiguous()
+            lk, hk = fs.scan_fwd_members_cuda(spec, leaves, arr_p, 0.5, h0,
+                                              True, u_p, seed)
+            gk, dk = fs.scan_bwd_members_cuda(spec, leaves, arr_p, 0.5, True,
+                                              hk, ones, u_p, seed)
+        (lp, hp), plain_fwd = timed(lambda: fs.scan_fwd_members_plain(
+            spec, leaves, arr_p, 0.5, h0, True, u_p, seed))
+        e1 = check_close(f"groups {arm} K1 loss ({mode})", lk, lp,
+                         tol["loss"])
+        eh = max(check_close(f"groups {arm} K1 {n} ({mode})", a, b,
+                             tol["hist"] or scaled_tol(b))
+                 for n, a, b in zip(("h", "lastX", "tau"), hk, hp))
+        (gp, dp), plain_bwd = timed(lambda: fs.scan_bwd_members_plain(
+            spec, leaves, arr_p, 0.5, True, hk, ones, u_p, seed))
+        e2 = max(check_close(f"groups {arm} K2 grad {i} ({mode})", a, b,
+                             tol["grad"] or scaled_tol(b))
+                 for i, (a, b) in enumerate(zip(gk, gp)))
+        ed = check_close(f"groups {arm} K2 dh0 ({mode})", dk, dp, GRAD_TOL)
+        errs["K1"] = max(errs["K1"], e1)
+        errs["K2"] = max(errs["K2"], e2, ed)
+        say("groups", check=arm, E=E, B=B, K=K, K_plain=K_plain or K,
+            mode=mode, plan=spec.plan, rows=spec.rows_for(B),
+            bit_equal_to_solo=True, bitwise_repeat=True,
+            K1_loss_err=f"{e1:.3e}", K1_hist_err=f"{eh:.3e}",
+            K2_grad_err=f"{e2:.3e}", K2_dh0_err=f"{ed:.3e}",
+            plain_fwd_ms=f"{plain_fwd:.1f}", plain_bwd_ms=f"{plain_bwd:.1f}")
+    return errs
+
+
+def _member_times(arm, cfg, models, batches, reps, plain=False):
+    """CUDA-event ms of the member launch of K1 and K2 ('prng') for the E
+    members against E solo launches one after another, the bounds (E
+    times the solo bound: the same MACs and bytes a member), the rows,
+    CTAs and the per-member ms; with ``plain`` the member plain version
+    too (one run). Returns the dict of this arm's numbers."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    dev = batches[0].obs.device
+    E = len(models)
+    solo, leaves, arrays, h0 = _member_layout(models, batches)
+    _, K, B = arrays[2].shape
+    spec = fs.Spec(cfg, "prng")
+    seed = torch.arange(1, E + 1, dtype=torch.int64, device=dev) * 7919
+    ones = torch.ones((E,), device=dev)
+    _, hk = fs.scan_fwd_members_cuda(spec, leaves, arrays, 0.5, h0, True,
+                                     None, seed)
+    hs = [fs.scan_fwd_cuda(spec, lv, arr, 0.5, h0e, True, None,
+                           seed[e:e + 1])[1]
+          for e, (lv, arr, h0e) in enumerate(solo)]
+
+    def solo_fwd():
+        for e, (lv, arr, h0e) in enumerate(solo):
+            fs.scan_fwd_cuda(spec, lv, arr, 0.5, h0e, True, None,
+                             seed[e:e + 1])
+
+    def solo_bwd():
+        for e, (lv, arr, h0e) in enumerate(solo):
+            fs.scan_bwd_cuda(spec, lv, arr, 0.5, True, hs[e], ones[e], None,
+                             seed[e:e + 1])
+
+    t = {"K1": cuda_ms(lambda: fs.scan_fwd_members_cuda(
+            spec, leaves, arrays, 0.5, h0, True, None, seed), reps, 1),
+         "K2": cuda_ms(lambda: fs.scan_bwd_members_cuda(
+            spec, leaves, arrays, 0.5, True, hk, ones, None, seed), reps, 1),
+         "K1_solo": cuda_ms(solo_fwd, reps, 1),
+         "K2_solo": cuda_ms(solo_bwd, reps, 1)}
+    bd = _scan_bounds(spec, K, B)
+    out = {"E": E, "B": B, "K": K, "spec": spec}
+    for k in ("K1", "K2"):
+        bms = E * bd[k][0]
+        out[k] = dict(ms=t[k], solo_x_E_ms=t[k + "_solo"], bound_ms=bms,
+                      bound_by=bd[k][1])
+        say("groups", timing=arm, kernel=k + "_members", E=E, B=B, K=K,
+            plan=spec.plan, rows=spec.rows_for(B, k == "K2"),
+            ctas=E * -(-B // spec.rows_for(B, k == "K2")),
+            ms=f"{t[k]:.4f}", ms_per_member=f"{t[k] / E:.4f}",
+            solo_x_E_ms=f"{t[k + '_solo']:.4f}",
+            solo_ms=f"{t[k + '_solo'] / E:.4f}",
+            speedup=f"{t[k + '_solo'] / t[k]:.3f}",
+            bound_ms=f"{bms:.6f}", bound_by=bd[k][1],
+            roofline_share=f"{bms / t[k]:.2e}")
+    if plain:
+        (_, hp), out["K1"]["plain_ms"] = timed(
+            lambda: fs.scan_fwd_members_plain(spec, leaves, arrays, 0.5, h0,
+                                              True, None, seed))
+        _, out["K2"]["plain_ms"] = timed(lambda: fs.scan_bwd_members_plain(
+            spec, leaves, arrays, 0.5, True, hk, ones, None, seed))
+        say("groups", timing=arm, plain_K1_ms=f"{out['K1']['plain_ms']:.1f}",
+            plain_K2_ms=f"{out['K2']['plain_ms']:.1f}")
+    return out
+
+
+def _synthetic_members(E, B, K, width, use_rnn=False, seed0=0):
+    """E main-path-shaped models (three 2 x ``width`` MLPs) and E
+    BlackScholes batches on the card, each its own seed."""
+    out = [main_path_setup(B, K, seed0 + e, "cuda", use_rnn=use_rnn,
+                           width=width) for e in range(E)]
+    return out[0][0], [o[1] for o in out], [o[2] for o in out]
+
+
+def _bank_members(E, setup, D, H, width, B, seed0=0):
+    """E masked models at (D, H, width) and E batches of epoch 1 of the
+    real-data bank ``setup`` (the climate or PhysioNet stand-in)."""
+    import torch
+
+    from njode_tpu_torch.training import climate_trainer as ct
+    from njode_tpu_torch.training.steps import prestacked_batch
+
+    bank, times, dts, n_train = setup["bank"]
+    idx_mat, _, _ = ct.epoch_batches(398, 1, n_train, B)
+    batches = [prestacked_batch(*bank, torch.as_tensor(
+        idx_mat[e], device=times.device), times, dts) for e in range(E)]
+    models = [_masked_njode(D, H, width, "cuda", seed=seed0 + e)[1]
+              for e in range(E)]
+    return _masked_cfg(D, H, width), models, batches
+
+
+def _member_reduce_times(E, n_parts, n):
+    """The member reduce_partials at [E, n_parts, n]: bit for bit its plain
+    version and E solo reductions, twice; device ms (``queued_ms``) beside
+    E solo launches' and ``sum(dim=1)``'s, the plain version's CUDA-event
+    ms, the bound (its bytes; the partials, 20 MB at the main path's
+    shape, stay in the 50 MB L2 between calls, so the time can beat it)."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    P = torch.randn((E, n_parts, n), generator=gen, device="cuda")
+    r1 = fs.reduce_partials_members_cuda(P)
+    r2 = fs.reduce_partials_members_cuda(P)
+    torch.cuda.synchronize()
+    if not (torch.equal(r1, r2)
+            and torch.equal(r1, fs.reduce_partials_members_plain(P))
+            and all(torch.equal(r1[e], fs.reduce_partials_cuda(P[e]))
+                    for e in range(E))):
+        raise AssertionError(f"reduce_partials_members [{E},{n_parts},{n}] "
+                             "differs from its plain version")
+    # device ms from CUDA events around calls queued behind a device sleep
+    # (queued_ms): torch.profiler lost records of these calls (a per-call
+    # average of 0.38 us, below the 6 us bound)
+    dev_ms = queued_ms(lambda: fs.reduce_partials_members_cuda(P))
+    solo_ms = queued_ms(lambda: [fs.reduce_partials_cuda(P[e])
+                                 for e in range(E)])
+    lib_ms = queued_ms(lambda: P.sum(dim=1))
+    plain = cuda_ms(lambda: fs.reduce_partials_members_plain(P), 5, 1)
+    bms, by = bound(float(E * n_parts * n), 4.0 * E * (n_parts + 1) * n,
+                    PEAK_FP32)
+    say("groups", timing="reduce_partials_members",
+        shape=f"[{E},{n_parts},{n}]", bit_equal=True,
+        queued_ms=f"{dev_ms:.5f}", solo_x_E_queued_ms=f"{solo_ms:.5f}",
+        library_queued_ms=f"{lib_ms:.5f}", plain_ms=f"{plain:.4f}",
+        bound_ms=f"{bms:.6f}", bound_by=by,
+        roofline_share=f"{bms / dev_ms:.2e}")
+    return dict(ms=dev_ms, plain_ms=plain, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by)
+
+
+def _group_run(tag, entries, expect, cfg, models_dir):
+    """``entries`` through ``sweeps.parallel_training(vmap_groups=True)``,
+    every count set to 0 just before and read just after: every result 0,
+    each member's metric row finite, the counts exact (a group that fell
+    back to solo runs launches no member kernel and fails here), every
+    scan launch at the rule's rows. Returns (counts, seconds, rows)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+    from njode_tpu_torch.training import registry, sweeps
+    from njode_tpu_torch.utils.csv_frame import read_frame, to_float
+
+    log = io.StringIO()
+    t0 = time.time()
+    fs.reset_launch_counts()
+    with contextlib.redirect_stdout(log):
+        res = sweeps.parallel_training(params=entries, vmap_groups=True)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    counts = dict(fs.LAUNCHES)
+    if res != [0] * len(entries):
+        print(log.getvalue()[-4000:], file=sys.stderr)
+        raise AssertionError(f"groups {tag}: results {res!r}")
+    if "group: " not in log.getvalue():
+        raise AssertionError(f"groups {tag}: the entries did not group")
+    ids = [r[0] for r in registry.load_overview(models_dir)][-len(entries):]
+    rows = []
+    for mid in ids:
+        cols, rs = read_frame(os.path.join(models_dir, f"id-{mid}",
+                                           f"metric_id-{mid}.csv"))
+        rec = {k: to_float(v) for k, v in zip(cols, rs[-1])}
+        if len(rs) != 1 or not all(np.isfinite(v) for v in rec.values()):
+            raise AssertionError(f"groups {tag}: id {mid} rows {rs}")
+        rows.append(rec)
+    _check_counts("groups", counts, expect)
+    check_rows("groups", cfg)
+    say("groups", run=tag, members=len(entries), secs=f"{secs:.2f}",
+        train_time_per_member=f"{rows[0]['train_time']:.4f}",
+        eval_time_per_member=f"{rows[0]['eval_time']:.4f}",
+        train_loss=",".join(f"{r['train_loss']:.6f}" for r in rows))
+    return counts, secs, ids
+
+
+def phase_groups(results):
+    """The grouped ensembles: the member axis of K1/K2 checked (E = 3, bit
+    for bit E solo launches and within the North-star tolerances of the
+    member plain version) at the main path, the convergence study's width
+    320 (global / 8), the climate small arm (masked, K = 2,004; the plain
+    version over the first 100 steps), the PhysioNet 50 arm (masked,
+    B = 50, K = 3,006; the same) and the main path with the GRU jump; timed at E = 5 against five solo launches at widths 320 and 40
+    (B = 20), the main path (B = 100) and the PhysioNet 50 arm (B = 50,
+    K = 3,006); the member reduce_partials; then three group trainers
+    through ``parallel_training(vmap_groups=True)``, one epoch each: a
+    convergence cell (width 320, 5 repeats), the climate small arm's 5
+    folds, the PhysioNet 50 arm x 2 repeats; one convergence member's row
+    against a solo run of its params, bit for bit."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from njode_tpu_torch.experiments import configs
+    from njode_tpu_torch.ops import fused_scan as fs
+    from njode_tpu_torch.training import registry, sweeps
+    from njode_tpu_torch.utils.csv_frame import read_frame
+
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    E = GROUP_CHECK_E
+    errs = {"K1": 0.0, "K2": 0.0}
+    checks = (
+        ("main", _synthetic_members(E, 100, 100, 50), {}),
+        ("conv320", _synthetic_members(E, 20, 100, 320), {}),
+        ("climate50", _bank_members(E, results["climate"], 5, 10, 50,
+                                    CLIMATE_B),
+         dict(tol=LONG_TOL, K_plain=100)),
+        ("phys50", _bank_members(E, results["phys"], 41, 41, 50, PHYS_B),
+         dict(tol=LONG_TOL, K_plain=100)),
+        ("main_rnn", _synthetic_members(E, 100, 100, 50, use_rnn=True), {}))
+    for arm, (cfg, models, batches), kw in checks:
+        spec = fs.Spec(cfg)
+        if arm == "conv320" and (spec.plan, spec.rows_for(20)) != (
+                "global", 8):
+            raise AssertionError(f"groups conv320: {spec.plan} / "
+                                 f"{spec.rows_for(20)}")
+        e = _member_check(arm, cfg, models, batches, gen, **kw)
+        for k in errs:
+            errs[k] = max(errs[k], e[k])
+    say("groups", checks_s=f"{time.time() - t0:.2f}")
+    t1 = time.time()
+    E = GROUP_TIME_E
+    times = {}
+    for arm, members, reps, plain in (
+            ("conv320", _synthetic_members(E, 20, 100, 320, seed0=3), 3,
+             False),
+            ("conv40", _synthetic_members(E, 20, 100, 40, seed0=3), 10,
+             False),
+            ("main", _synthetic_members(E, 100, 100, 50, seed0=3), 10, True),
+            ("phys50", _bank_members(E, results["phys"], 41, 41, 50, PHYS_B),
+             2, False)):
+        times[arm] = _member_times(arm, *members, reps, plain)
+    spec = times["main"]["spec"]
+    red = _member_reduce_times(E, -(-100 // spec.rows_for(100)),
+                               spec.n_params)
+    say("groups", timings_s=f"{time.time() - t1:.2f}")
+
+    tmp = tempfile.mkdtemp(prefix="njode_smoke_groups_")
+    launches = {}
+    try:
+        data = os.path.join(tmp, "data")
+        models = os.path.join(tmp, "models")
+        configs.ensure_base_datasets(base_path=data)
+        where = dict(saved_models_path=models, base_data_path=data)
+        conv, _ = configs.convergence_study(epochs=1,
+                                            repeats=GROUP_CONV_REPEATS,
+                                            saved_models_path=models)
+        conv = [dict(p, **where) for p in conv
+                if p["ode_nn"][0][0] == 320 and p["training_size"] == 200]
+        steps = 200 // 20
+        E = len(conv)
+        solo_entry = dict(conv[2])
+        cfg = _sweep_njode_cfg(conv[0], data)
+        counts, _, ids = _group_run("conv320", conv, {
+            "njode_scan_fwd_members_global": steps,
+            "njode_scan_bwd_members_global": steps,
+            "philox_keep_members": 2 * steps,
+            "reduce_partials_members": 2 * steps,
+            "njode_scan_eval_global": E, "reduce_partials": E}, cfg, models)
+        launches["conv320"] = counts
+        # member 2 against its solo run
+        solo_models = os.path.join(tmp, "solo")
+        fs.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            solo_res = sweeps.parallel_training(params=[dict(
+                solo_entry, saved_models_path=solo_models)])
+        if solo_res != [0]:
+            raise AssertionError("groups: the solo conv320 run failed")
+        cols, rg = read_frame(os.path.join(models, f"id-{ids[2]}",
+                                           f"metric_id-{ids[2]}.csv"))
+        mid = registry.load_overview(solo_models)[-1][0]
+        _, rs = read_frame(os.path.join(solo_models, f"id-{mid}",
+                                        f"metric_id-{mid}.csv"))
+        keep = [i for i, c in enumerate(cols)
+                if c not in ("train_time", "eval_time")]
+        same = [rg[0][i] for i in keep] == [rs[0][i] for i in keep]
+        say("groups", member_vs_solo="conv320 member 2",
+            columns=",".join(cols[i] for i in keep), bit_equal=same)
+        if not same:
+            raise AssertionError(f"groups: member row {rg[0]} differs from "
+                                 f"the solo run's {rs[0]}")
+
+        clim, _ = configs.climate_cross_validation(epochs=1)
+        clim = [dict(p, climate_dir=results["climate"]["dir"],
+                     saved_models_path=models) for p in clim
+                if "other_model" not in p and p["ode_nn"][0][0] == 50
+                and p["data_index"] < GROUP_CLIMATE_FOLDS]
+        n_tr = [len(np.load(os.path.join(
+            results["climate"]["dir"], f"small_chunk_fold_idx_{f}",
+            "train_idx.npy"))) for f in range(GROUP_CLIMATE_FOLDS)]
+        steps = max(-(-n // CLIMATE_B) for n in n_tr)
+        counts, _, _ = _group_run("climate50", clim, {
+            "njode_scan_fwd_members": steps,
+            "njode_scan_bwd_members": steps,
+            "philox_keep_members": 2 * steps,
+            "reduce_partials_members": 2 * steps},
+            _masked_cfg(5, 10, 50), models)
+        launches["climate50"] = counts
+
+        recs = results["phys"]["records"][:PHYS_TRAIN_RECORDS]
+        phys, _ = configs.physionet_comparison(
+            epochs=1, repeats=GROUP_PHYS_REPEATS, saved_models_path=models)
+        phys = [dict(p, records=recs, n_samples=PHYS_TRAIN_RECORDS)
+                for p in phys if p["ode_nn"][0][0] == 50]
+        steps = -(-int(0.8 * PHYS_TRAIN_RECORDS) // PHYS_B)
+        counts, _, _ = _group_run("phys50", phys, {
+            "njode_scan_fwd_members": steps,
+            "njode_scan_bwd_members": steps,
+            "philox_keep_members": 2 * steps,
+            "reduce_partials_members": 2 * steps},
+            _masked_cfg(41, 41, 50), models)
+        launches["phys50"] = counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    results["groups"] = dict(errs=errs, times=times, reduce=red,
+                             launches=launches)
+
+
 def kernels_line(results):
     src = "njode_tpu_torch/ops/csrc/fused_scan.cu"
     rows = [("njode_scan_fwd", "K1", "njode_tpu/ops/fused_scan.py:1115",
@@ -3075,6 +3554,35 @@ def kernels_line(results):
                     "launches": rl[name] + cr[name] + pr[name + "_global"],
                     "max_abs_err": err[key], "ms": ms, "plain_ms": plain,
                     "bound_ms": bms, "bound_by": by, "library_ms": None})
+    # K1/K2 over a member axis and the member reduce_partials (the groups
+    # phase): timed at the main path at E = 5 (B = 100), launches from its
+    # group trainers (both plans), errors the largest of its E = 3 checks
+    g = results["groups"]
+    gm = g["times"]["main"]
+    member_launches = {}
+    for counts in g["launches"].values():
+        for k, v in counts.items():
+            member_launches[k] = member_launches.get(k, 0) + v
+    for name, key, replaces in (
+            ("njode_scan_fwd_members", "K1",
+             "njode_tpu/ops/fused_scan.py:1115"),
+            ("njode_scan_bwd_members", "K2",
+             "njode_tpu/ops/fused_scan.py:1164")):
+        launches = sum(v for k, v in member_launches.items()
+                       if k.startswith(name))
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": replaces, "launches": launches,
+                    "max_abs_err": g["errs"][key], "ms": gm[key]["ms"],
+                    "plain_ms": gm[key]["plain_ms"],
+                    "bound_ms": gm[key]["bound_ms"],
+                    "bound_by": gm[key]["bound_by"], "library_ms": None})
+    r = g["reduce"]
+    out.append({"name": "reduce_partials_members", "route": "cuda",
+                "source": src, "replaces": "njode_tpu/ops/fused_scan.py:522",
+                "launches": member_launches["reduce_partials_members"],
+                "max_abs_err": 0.0, "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"]})
     return json.dumps({"kernels": out})
 
 
@@ -3129,7 +3637,7 @@ def main():
         t0 = time.time()
         for phase in (phase_physionet_kernels, phase_physionet_timing,
                       phase_physionet_trainer, phase_physionet_rnn,
-                      phase_sweep):
+                      phase_sweep, phase_groups):
             phase(results)
             say(phase.__name__[6:], phase_s=f"{time.time() - t0:.2f}")
             t0 = time.time()

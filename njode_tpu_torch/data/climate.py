@@ -16,8 +16,9 @@ The pandas semantics kept: series ids keep the order of first appearance
 when they are remapped, rows sort by time with numpy's quicksort as
 ``DataFrame.sort_values`` does, held-out rows are cut per series after the
 sort by time, times stay float64 while values are cast to float32.
-Not ported yet (ROADMAP.md Queue 2): ``seq_collate``, ``add_jitter``,
-``preprocess_ushcn_daily`` and the misc helpers of the JAX module.
+Not ported yet: ``seq_collate`` (ROADMAP.md Queue 1 item 5),
+``add_jitter``, ``preprocess_ushcn_daily`` and the misc helpers of the JAX
+module (item 9).
 """
 
 from __future__ import annotations

@@ -14,7 +14,7 @@ Grid-aligned synthetic data goes through ``batch_from_paths``; real data
 ``batch_from_events`` or the compact :class:`SparseBatch` that
 ``densify_sparse`` scatters on the batch's device. Every function is the
 numpy branch of the JAX function: the JAX package's C++ collation
-(``njode_tpu/native``) is not ported (ROADMAP Queue 2).
+(``njode_tpu/native``) is not ported (ROADMAP.md Queue 1 item 9).
 """
 
 from __future__ import annotations

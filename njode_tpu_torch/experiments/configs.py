@@ -300,11 +300,13 @@ EXPERIMENTS = {
 
 def run_experiment(name: str, nb_jobs: int = 1, vmap_groups: bool = False,
                    **kwargs):
-    """Expand and run a named canonical experiment via the sweep runner,
-    one run after another on the card (``kwargs`` go to the grid function,
-    e.g. ``device`` and ``base_path`` for those that create datasets).
-    ``vmap_groups=True`` and ``group_mesh`` raise ``NotImplementedError``
-    before any dataset is made (ROADMAP.md Queue 1 items 6b and 7)."""
+    """Expand and run a named canonical experiment via the sweep runner
+    (``kwargs`` go to the grid function, e.g. ``device`` and ``base_path``
+    for those that create datasets): one run after another on the card, or
+    with ``vmap_groups=True`` its repeats and folds as grouped ensembles
+    (``sweeps.parallel_training``). ``group_mesh`` raises
+    ``NotImplementedError`` before any dataset is made (ROADMAP.md Queue 1
+    item 7)."""
     from njode_tpu_torch.training.sweeps import parallel_training
     group_mesh = kwargs.pop("group_mesh", None)
     reject_grouping(vmap_groups, group_mesh)

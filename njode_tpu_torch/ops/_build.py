@@ -149,6 +149,12 @@ def _declare(name, lib):
         lib.njode_scan_fwd.restype = I
         lib.njode_scan_bwd.argtypes = [P] * 20
         lib.njode_scan_bwd.restype = I
+        lib.njode_scan_fwd_members.argtypes = [P, I] + [P] * 18 + [I, F, P]
+        lib.njode_scan_fwd_members.restype = I
+        lib.njode_scan_bwd_members.argtypes = [P, I] + [P] * 19
+        lib.njode_scan_bwd_members.restype = I
+        lib.njode_reduce_partials_members.argtypes = [P, I, I, I, F, P, P]
+        lib.njode_reduce_partials_members.restype = I
         lib.njode_reduce_partials.argtypes = [P, I, I, F, P, P]
         lib.njode_reduce_partials.restype = I
         lib.njode_philox_masks.argtypes = [P, I, I, I, I, ctypes.c_uint32,

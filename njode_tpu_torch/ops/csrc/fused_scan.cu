@@ -175,6 +175,8 @@ struct ScanCfg {
   int gru_pwih, gru_pwhh;      // the GRU weights in the packed buffer
   int n_tiles_fwd, n_tiles_bwd, stage;   // global plan: tiles a step, stage
   int io_stride;               // resident plan: floats between the io sets
+  int wg_stride;               // global plan: floats of one member's packed
+                               // weights (a member-axis launch)
   int leaf_off[MAX_LEAVES + 1];
   int o_w, o_g, o_h, o_lx, o_tau, o_X, o_obs, o_nobs, o_lrow, o_h1, o_h2;
   int o_in_ode, o_tX, o_in_ro, o_f, o_enc, o_ro, o_dA, o_dB, o_dh, o_dlx;
@@ -681,12 +683,24 @@ __device__ __forceinline__ float residual_bwd(int cs, int mult,
   return dr[i % out_w] / (float)mult;
 }
 
+// the CTA's member's leaves (a member-axis launch stacks each leaf as
+// [E, ...]: member blockIdx.y at blockIdx.y times the leaf's size)
 __device__ void load_weights(const ScanCfg& c, const Leaves& lv, float* sm) {
   float* sw = sm + c.o_w;
   for (int l = 0; l < c.n_leaves; ++l) {
     int off = c.leaf_off[l], n = c.leaf_off[l + 1] - off;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) sw[off + i] = lv.p[l][i];
+    const float* src = lv.p[l] + (size_t)blockIdx.y * n;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) sw[off + i] = src[i];
   }
+}
+
+// Member blockIdx.y's slice of a per-member tensor, `stride` elements a
+// member. A member-axis launch (njode_scan_*_members) runs E members of
+// one config as gridDim.y = E, every CTA offsetting its per-member
+// pointers once at entry; a solo launch has gridDim.y = 1 and keeps them.
+template <class T>
+__device__ __forceinline__ T* member_of(T* p, size_t stride) {
+  return p ? p + blockIdx.y * stride : p;
 }
 
 __device__ MaskCtx make_mask_ctx(const ScanCfg& c, float* sm,
@@ -2110,6 +2124,22 @@ njode_scan_fwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
                       const float* __restrict__ sx, float* loss_part,
                       float* hh, float* lxh, float* tauh) {
   extern __shared__ float sm[];
+  {
+    const size_t KB = (size_t)c.K * c.B;
+    obs_g = member_of(obs_g, KB);
+    X_g = member_of(X_g, KB * c.D);
+    M_g = member_of(M_g, KB * c.D);
+    u = member_of(u, KB * c.S * c.Wmax);
+    seed = member_of(seed, 1);
+    n_obs = member_of(n_obs, c.B);
+    h0 = member_of(h0, (size_t)c.B * c.H);
+    sx = member_of(sx, (size_t)c.B * c.D);
+    loss_part = member_of(loss_part, gridDim.x);
+    hh = member_of(hh, KB * c.H);
+    lxh = member_of(lxh, KB * c.D);
+    tauh = member_of(tauh, KB);
+    wg = member_of(wg, c.wg_stride);
+  }
   if constexpr (!GW) {
     res_scan_fwd<WANT_HISTS, RT>(c, lv, sm, times, dts, obs_g, X_g, M_g, u,
                                  seed, n_obs, h0, sx, loss_part, hh, lxh,
@@ -2208,6 +2238,22 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
                       const float* __restrict__ tauh, const float* dloss_p,
                       float* partials, float* dh0) {
   extern __shared__ float sm[];
+  {
+    const size_t KB = (size_t)c.K * c.B;
+    obs_g = member_of(obs_g, KB);
+    X_g = member_of(X_g, KB * c.D);
+    M_g = member_of(M_g, KB * c.D);
+    u = member_of(u, KB * c.S * c.Wmax);
+    seed = member_of(seed, 1);
+    n_obs = member_of(n_obs, c.B);
+    hh = member_of(hh, KB * c.H);
+    lxh = member_of(lxh, KB * c.D);
+    tauh = member_of(tauh, KB);
+    dloss_p = member_of(dloss_p, 1);
+    partials = member_of(partials, (size_t)gridDim.x * c.n_params);
+    dh0 = member_of(dh0, (size_t)c.B * c.H);
+    wg = member_of(wg, c.wg_stride);
+  }
   if constexpr (!GW) {
     res_scan_bwd<RT>(c, lv, sm, times, dts, obs_g, X_g, M_g, u, seed, n_obs,
                      hh, lxh, tauh, dloss_p, partials, dh0);
@@ -2387,12 +2433,15 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
   }
 }
 
-// out[p] = scale * sum_c partials[c, p], summed in a fixed order
+// out[p] = scale * sum_c partials[c, p], summed in a fixed order; member
+// blockIdx.y of a member-axis launch: partials [E, n_parts, n], out [E, n]
 __global__ void reduce_partials_kernel(const float* __restrict__ partials,
                                        int n_parts, int n, float scale,
                                        float* __restrict__ out) {
   int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
+  partials += (size_t)blockIdx.y * n_parts * n;
+  out += (size_t)blockIdx.y * n;
   float s = 0.f;
   for (int q = 0; q < n_parts; ++q) s += partials[(size_t)q * n + p];
   out[p] = s * scale;
@@ -2429,10 +2478,12 @@ static bool cfg_ok(const ScanCfg* c, const float* wg, const int* prog) {
          && (c->plan == 1) == (prog != nullptr);
 }
 
-// reduce_partials on the stream
+// reduce_partials on the stream, for each of E members
 static cudaError_t launch_reduce(const float* P, int n_parts, int n,
-                                 float scale, float* out, cudaStream_t st) {
-  int threads = 256, grid = (n + threads - 1) / threads;
+                                 float scale, float* out, cudaStream_t st,
+                                 int E = 1) {
+  int threads = 256;
+  dim3 grid((n + threads - 1) / threads, E);
   reduce_partials_kernel<<<grid, threads, 0, st>>>(P, n_parts, n, scale, out);
   return cudaGetLastError();
 }
@@ -2446,8 +2497,9 @@ static cudaError_t launch_fwd(const ScanCfg* c, const Leaves& lv,
                               const long long* seed, const float* n_obs,
                               const float* h0, const float* sx,
                               float* loss_part, float* hh, float* lxh,
-                              float* tauh, cudaStream_t st, int* occ) {
-  int grid = (c->B + c->rows - 1) / c->rows;
+                              float* tauh, cudaStream_t st, int* occ,
+                              int E) {
+  dim3 grid((c->B + c->rows - 1) / c->rows, E);
   size_t smem = (size_t)c->smem_floats * sizeof(float);
   auto kern = njode_scan_fwd_kernel<H, GW, RT>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -2474,10 +2526,34 @@ static decltype(&launch_fwd<H, GW, 0>) fwd_for_rows(const ScanCfg* c) {
   return launch_fwd<H, GW, 0>;
 }
 
-// K1 (want_hists) or K3, then the reduction of the per-CTA losses into
-// loss[0] (scaled by loss_scale), both on the stream. wg: the weights
-// packed at pack_off (global plan), prog: the ring's tile program (global
-// plan), else null.
+// K1 (want_hists) or K3 for E members (gridDim.y = E), then the reduction
+// of the per-CTA losses into loss[e] (scaled by loss_scale), both on the
+// stream. wg: the weights packed at pack_off (global plan), prog: the
+// ring's tile program (global plan), else null.
+static int scan_fwd(const ScanCfg* c, int E, void** leaves, const float* wg,
+                    const int* prog, const float* times, const float* dts,
+                    const float* obs, const float* X, const float* M,
+                    const int8_t* u, const long long* seed,
+                    const float* n_obs, const float* h0, const float* sx,
+                    float* loss_part, float* loss, float* hh, float* lxh,
+                    float* tauh, int want_hists, float loss_scale,
+                    void* stream) {
+  if (!cfg_ok(c, wg, prog) || E < 1 || E > 65535)
+    return (int)cudaErrorInvalidValue;
+  Leaves lv = make_leaves(c, leaves);
+  cudaStream_t st = (cudaStream_t)stream;
+  auto f = want_hists ? (c->plan ? fwd_for_rows<true, true>(c)
+                                 : fwd_for_rows<true, false>(c))
+                      : (c->plan ? fwd_for_rows<false, true>(c)
+                                 : fwd_for_rows<false, false>(c));
+  cudaError_t e = f(c, lv, wg, prog, times, dts, obs, X, M, u, seed, n_obs,
+                    h0, sx, loss_part, hh, lxh, tauh, st, nullptr, E);
+  if (e != cudaSuccess) return (int)e;
+  int n_cta = (c->B + c->rows - 1) / c->rows;
+  return (int)launch_reduce(loss_part, n_cta, 1, loss_scale, loss, st, E);
+}
+
+// K1 or K3 of one model: loss_part [n_cta], loss [1]
 extern "C" int njode_scan_fwd(const ScanCfg* c, void** leaves,
                               const float* wg, const int* prog,
                               const float* times, const float* dts,
@@ -2489,18 +2565,29 @@ extern "C" int njode_scan_fwd(const ScanCfg* c, void** leaves,
                               float* hh, float* lxh, float* tauh,
                               int want_hists, float loss_scale,
                               void* stream) {
-  if (!cfg_ok(c, wg, prog)) return (int)cudaErrorInvalidValue;
-  Leaves lv = make_leaves(c, leaves);
-  cudaStream_t st = (cudaStream_t)stream;
-  auto f = want_hists ? (c->plan ? fwd_for_rows<true, true>(c)
-                                 : fwd_for_rows<true, false>(c))
-                      : (c->plan ? fwd_for_rows<false, true>(c)
-                                 : fwd_for_rows<false, false>(c));
-  cudaError_t e = f(c, lv, wg, prog, times, dts, obs, X, M, u, seed, n_obs,
-                    h0, sx, loss_part, hh, lxh, tauh, st, nullptr);
-  if (e != cudaSuccess) return (int)e;
-  int n_cta = (c->B + c->rows - 1) / c->rows;
-  return (int)launch_reduce(loss_part, n_cta, 1, loss_scale, loss, st);
+  return scan_fwd(c, 1, leaves, wg, prog, times, dts, obs, X, M, u, seed,
+                  n_obs, h0, sx, loss_part, loss, hh, lxh, tauh, want_hists,
+                  loss_scale, stream);
+}
+
+// K1 or K3 of E members of one config in one launch: every leaf [E, ...],
+// wg [E, wg_stride], obs/X/M/u/seed/n_obs/h0/sx and the histories with a
+// leading member axis, times/dts shared; loss_part [E, n_cta], loss [E]
+extern "C" int njode_scan_fwd_members(const ScanCfg* c, int n_members,
+                                      void** leaves, const float* wg,
+                                      const int* prog, const float* times,
+                                      const float* dts, const float* obs,
+                                      const float* X, const float* M,
+                                      const int8_t* u,
+                                      const long long* seed,
+                                      const float* n_obs, const float* h0,
+                                      const float* sx, float* loss_part,
+                                      float* loss, float* hh, float* lxh,
+                                      float* tauh, int want_hists,
+                                      float loss_scale, void* stream) {
+  return scan_fwd(c, n_members, leaves, wg, prog, times, dts, obs, X, M, u,
+                  seed, n_obs, h0, sx, loss_part, loss, hh, lxh, tauh,
+                  want_hists, loss_scale, stream);
 }
 
 template <bool GW, int RT>
@@ -2513,8 +2600,8 @@ static cudaError_t launch_bwd(const ScanCfg* c, const Leaves& lv,
                               const float* hh, const float* lxh,
                               const float* tauh, const float* dloss,
                               float* partials, float* dh0, cudaStream_t st,
-                              int* occ) {
-  int grid = (c->B + c->rows - 1) / c->rows;
+                              int* occ, int E) {
+  dim3 grid((c->B + c->rows - 1) / c->rows, E);
   size_t smem = (size_t)c->smem_floats * sizeof(float);
   auto kern = njode_scan_bwd_kernel<GW, RT>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -2537,8 +2624,29 @@ static decltype(&launch_bwd<GW, 0>) bwd_for_rows(const ScanCfg* c) {
   return launch_bwd<GW, 0>;
 }
 
-// K2, then the reduction of its partial rows ([n_cta, n_params]) into
-// grads [n_params], both on the stream
+// K2 for E members (gridDim.y = E), then the reduction of each member's
+// partial rows ([E, n_cta, n_params]) into grads [E, n_params], both on the
+// stream
+static int scan_bwd(const ScanCfg* c, int E, void** leaves, const float* wg,
+                    const int* prog, const float* times, const float* dts,
+                    const float* obs, const float* X, const float* M,
+                    const int8_t* u, const long long* seed,
+                    const float* n_obs, const float* hh, const float* lxh,
+                    const float* tauh, const float* dloss, float* partials,
+                    float* grads, float* dh0, void* stream) {
+  if (!cfg_ok(c, wg, prog) || E < 1 || E > 65535)
+    return (int)cudaErrorInvalidValue;
+  Leaves lv = make_leaves(c, leaves);
+  cudaStream_t st = (cudaStream_t)stream;
+  auto f = c->plan ? bwd_for_rows<true>(c) : bwd_for_rows<false>(c);
+  cudaError_t e = f(c, lv, wg, prog, times, dts, obs, X, M, u, seed, n_obs,
+                    hh, lxh, tauh, dloss, partials, dh0, st, nullptr, E);
+  if (e != cudaSuccess) return (int)e;
+  int n_cta = (c->B + c->rows - 1) / c->rows;
+  return (int)launch_reduce(partials, n_cta, c->n_params, 1.f, grads, st, E);
+}
+
+// K2 of one model: partials [n_cta, n_params], grads [n_params]
 extern "C" int njode_scan_bwd(const ScanCfg* c, void** leaves,
                               const float* wg, const int* prog,
                               const float* times, const float* dts,
@@ -2549,15 +2657,27 @@ extern "C" int njode_scan_bwd(const ScanCfg* c, void** leaves,
                               const float* lxh, const float* tauh,
                               const float* dloss, float* partials,
                               float* grads, float* dh0, void* stream) {
-  if (!cfg_ok(c, wg, prog)) return (int)cudaErrorInvalidValue;
-  Leaves lv = make_leaves(c, leaves);
-  cudaStream_t st = (cudaStream_t)stream;
-  auto f = c->plan ? bwd_for_rows<true>(c) : bwd_for_rows<false>(c);
-  cudaError_t e = f(c, lv, wg, prog, times, dts, obs, X, M, u, seed, n_obs,
-                    hh, lxh, tauh, dloss, partials, dh0, st, nullptr);
-  if (e != cudaSuccess) return (int)e;
-  int n_cta = (c->B + c->rows - 1) / c->rows;
-  return (int)launch_reduce(partials, n_cta, c->n_params, 1.f, grads, st);
+  return scan_bwd(c, 1, leaves, wg, prog, times, dts, obs, X, M, u, seed,
+                  n_obs, hh, lxh, tauh, dloss, partials, grads, dh0, stream);
+}
+
+// K2 of E members of one config in one launch (the member layout of
+// njode_scan_fwd_members; dloss [E], dh0 [E, B, H])
+extern "C" int njode_scan_bwd_members(const ScanCfg* c, int n_members,
+                                      void** leaves, const float* wg,
+                                      const int* prog, const float* times,
+                                      const float* dts, const float* obs,
+                                      const float* X, const float* M,
+                                      const int8_t* u,
+                                      const long long* seed,
+                                      const float* n_obs, const float* hh,
+                                      const float* lxh, const float* tauh,
+                                      const float* dloss, float* partials,
+                                      float* grads, float* dh0,
+                                      void* stream) {
+  return scan_bwd(c, n_members, leaves, wg, prog, times, dts, obs, X, M, u,
+                  seed, n_obs, hh, lxh, tauh, dloss, partials, grads, dh0,
+                  stream);
 }
 
 // CTAs of the kernel a launch of c takes (kind 0: K1, 1: K3, 2: K2) that one
@@ -2570,14 +2690,14 @@ extern "C" int njode_scan_occupancy(const ScanCfg* c, int kind,
     return (int)(c->plan ? bwd_for_rows<true>(c) : bwd_for_rows<false>(c))(
         c, lv, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
         nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-        nullptr, nullptr, 0, blocks);
+        nullptr, nullptr, 0, blocks, 1);
   auto f = kind == 0 ? (c->plan ? fwd_for_rows<true, true>(c)
                                 : fwd_for_rows<true, false>(c))
                      : (c->plan ? fwd_for_rows<false, true>(c)
                                 : fwd_for_rows<false, false>(c));
   return (int)f(c, lv, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                 nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                nullptr, nullptr, nullptr, 0, blocks);
+                nullptr, nullptr, nullptr, 0, blocks, 1);
 }
 
 // the phase clock of the last launch (built with -DNJODE_PHASE_CLOCK, else
@@ -2608,4 +2728,14 @@ extern "C" int njode_reduce_partials(const float* partials, int n_parts,
                                      void* stream) {
   return (int)launch_reduce(partials, n_parts, n, scale, out,
                             (cudaStream_t)stream);
+}
+
+// the same for E members in one launch: partials [E, n_parts, n], out [E, n]
+extern "C" int njode_reduce_partials_members(const float* partials,
+                                             int n_members, int n_parts,
+                                             int n, float scale, float* out,
+                                             void* stream) {
+  if (n_members < 1 || n_members > 65535) return (int)cudaErrorInvalidValue;
+  return (int)launch_reduce(partials, n_parts, n, scale, out,
+                            (cudaStream_t)stream, n_members);
 }

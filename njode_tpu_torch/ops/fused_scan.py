@@ -64,6 +64,16 @@ bits. ``plan=(name, R)`` forces a plan, for the tests.
 The wrappers' C calls enqueue ``reduce_partials`` themselves, right after
 K1/K3 (the per-CTA losses) and K2 (the per-CTA gradient rows), and count
 it in ``LAUNCHES``.
+
+A member axis (the grouped ensembles; the JAX kernel under ``jax.vmap``):
+``njode_scan_fwd_members`` / ``njode_scan_bwd_members`` launch K1/K2 once
+for E members of one config, grid ``(ceil(B/R), E)``, each CTA offsetting
+its member's pointers at entry (leaves, packed weights, batch, masks,
+seed, histories, partial rows); the member ``reduce_partials`` gives
+``loss [E]`` and ``grads [E, n_params]``. A launch keeps the solo rows rule
+at B, so each member's bits are its solo launch's.
+:class:`FusedNJODEMembersLoss` and :func:`make_fused_members_loss_fn` wrap
+them; the member plain versions run the solo ones a member at a time.
 """
 
 from __future__ import annotations
@@ -97,14 +107,17 @@ RB, MAXI, NTHREADS, TILE_INTS = 4, 4, 256, 8
 
 # launches per kernel; a wrapper adds one where it launches its kernel.
 # K1-K3 count each branch and plan apart ('_rnn': the GRU jump; '_global':
-# the global plan's instantiations). 'philox_keep' (K4: the mask words
-# K1/K2 fill as they run) counts their 'prng'-mode launches;
-# 'philox_masks' counts the stand-alone mask dump used by tests and
-# timing.
+# the global plan's instantiations), and K1/K2 over a member axis apart
+# ('_members': one launch for the E members of a group). 'philox_keep'
+# (K4: the mask words K1/K2 fill as they run) counts their 'prng'-mode
+# launches; 'philox_masks' counts the stand-alone mask dump used by tests
+# and timing.
 LAUNCHES = {k + rnn + plan: 0
-            for k in ("njode_scan_fwd", "njode_scan_eval", "njode_scan_bwd")
+            for k in ("njode_scan_fwd", "njode_scan_eval", "njode_scan_bwd",
+                      "njode_scan_fwd_members", "njode_scan_bwd_members")
             for rnn in ("", "_rnn") for plan in ("", "_global")}
-LAUNCHES.update(philox_keep=0, reduce_partials=0, philox_masks=0)
+LAUNCHES.update(philox_keep=0, reduce_partials=0, philox_masks=0,
+                philox_keep_members=0, reduce_partials_members=0)
 # the rows per CTA of each K1-K3 launch: (LAUNCHES key, B, R) -> launches
 LAUNCH_ROWS = {}
 
@@ -855,7 +868,8 @@ class _ScanCfg(ctypes.Structure):
                                        "smem_floats", "gru_wih", "gru_whh",
                                        "gru_bih", "gru_bhh", "gru_pwih",
                                        "gru_pwhh", "n_tiles_fwd",
-                                       "n_tiles_bwd", "stage", "io_stride")]
+                                       "n_tiles_bwd", "stage", "io_stride",
+                                       "wg_stride")]
         + [("leaf_off", ctypes.c_int * (MAX_LEAVES + 1))]
         + [("o_" + n, ctypes.c_int) for n in _LAYOUT_FIELDS]
         + [(n, ctypes.c_int) for n in ("nw", "lg_nw", "skip0", "skip1")]
@@ -905,6 +919,7 @@ def _make_cfg(spec, K, B, train, weight, bwd):
     c.weight = float(weight)
     c.rows, c.plan = R, PLANS.index(spec.plan)
     c.io_stride = off["io2"] - off["io"] if "io" in off else 0
+    c.wg_stride = spec.pack_off[-1]
     c.buf_w, c.smem_floats = spec.buf_w, total
     for i, o in enumerate(spec.leaf_off):
         c.leaf_off[i] = o
@@ -988,6 +1003,22 @@ def packed_weights(spec, leaves):
         if b - a > p.numel():
             parts.append(p.new_zeros(b - a - p.numel()))
     return torch.cat(parts)
+
+
+def packed_weights_members(spec, leaves):
+    """``packed_weights`` of E members at once: the leaves stacked
+    ``[E, ...]`` packed into ``[E, pack_off[-1]]`` (member e's row its
+    packed buffer); None in the resident plan."""
+    if spec.plan != "global":
+        return None
+    E = leaves[0].shape[0]
+    parts = []
+    for p, a, b in zip(leaves, spec.pack_off[:-1], spec.pack_off[1:]):
+        p = p.reshape(E, -1)
+        parts.append(p)
+        if b - a > p.shape[1]:
+            parts.append(p.new_zeros((E, b - a - p.shape[1])))
+    return torch.cat(parts, dim=1)
 
 
 def _program(spec, dev):
@@ -1197,6 +1228,205 @@ def scan_bwd(spec, leaves, arrays, weight, train, hists, dloss, u=None,
 
 
 # ---------------------------------------------------------------------------
+# K1/K2 over a member axis (the E members of a grouped ensemble)
+# ---------------------------------------------------------------------------
+#
+# Member layout: every leaf ``[E, *leaf_shape]``; ``obs [E,K,B]``, ``X`` and
+# ``M [E,K,B,D]``, ``n_obs [E,B]``, ``start_X [E,B,D]``, ``h0 [E,B,H]``, the
+# histories ``[E,K,B,*]``, ``u [E,K,S,B,Wmax]`` ('input'), ``seed [E]``
+# ('prng'); ``times`` and ``dts [K]`` shared (a group trains on one grid).
+# A launch takes ``Spec.rows_for(B)`` rows a CTA as a solo launch does, so
+# member e sums in a solo launch's order and gives its bits.
+
+def member_arrays(arrays, e):
+    """Member e's batch arrays of member-layout ``arrays``."""
+    return tuple(a if i < 2 or a is None else a[e]
+                 for i, a in enumerate(arrays))
+
+
+def _check_member_inputs(spec, leaves, arrays, train, u, seed):
+    _require_supported(spec.cfg)
+    times, dts, obs, X, n_obs, start_X, M = unpack_arrays(spec, arrays)
+    if obs.dim() != 3:
+        raise ValueError("obs must be [E, K, B] in the member layout")
+    E, K, B = obs.shape
+    for name, t, shp in (("times", times, (K,)), ("dts", dts, (K,)),
+                         ("obs", obs, (E, K, B)),
+                         ("X", X, (E, K, B, spec.D)),
+                         ("n_obs", n_obs, (E, B)),
+                         ("start_X", start_X, (E, B, spec.D))):
+        _check(name, t, shp)
+    if spec.masked:
+        _check("M", M, (E, K, B, spec.D))
+    if len(leaves) != len(spec.leaf_shapes):
+        raise ValueError("wrong number of parameter leaves")
+    for i, (p, s) in enumerate(zip(leaves, spec.leaf_shapes)):
+        _check(f"leaf {i}", p, (E,) + tuple(s))
+    if train and spec.rate > 0.0 and spec.S > 0:
+        if spec.mask_mode == "input":
+            _check("u", u, (E, K, spec.S, B, spec.w_max), torch.int8)
+        else:
+            _check("seed", seed, (E,), torch.int64)
+    return E, K, B
+
+
+def scan_fwd_members_cuda(spec, leaves, arrays, weight, h0, train, u=None,
+                          seed=None):
+    """Launch K1 for E members at once (grid ``(ceil(B/R), E)``) and, in
+    the same C call, the member reduction of the per-CTA losses; returns
+    (loss [E], histories [E,K,B,*])."""
+    E, K, B = _check_member_inputs(spec, leaves, arrays, train, u, seed)
+    _check("h0", h0, (E, B, spec.H))
+    lib = _lib()
+    times, dts, obs, X, n_obs, start_X, M = unpack_arrays(spec, arrays)
+    dev = h0.device
+    cfg = make_cfg(spec, K, B, train, weight, bwd=False)
+    n_cta = -(-B // cfg.rows)
+    loss_part = torch.empty((E, n_cta), dtype=torch.float32, device=dev)
+    loss = torch.empty((E,), dtype=torch.float32, device=dev)
+    hists = (torch.empty((E, K, B, spec.H), device=dev),
+             torch.empty((E, K, B, spec.D), device=dev),
+             torch.empty((E, K, B, 1), device=dev))
+    ptrs = (ctypes.c_void_p * len(leaves))(*[p.data_ptr() for p in leaves])
+    wg = packed_weights_members(spec, leaves)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with _on(dev):
+        rc = lib.njode_scan_fwd_members(
+            ctypes.addressof(cfg), E, ptrs, _ptr(wg),
+            _ptr(_program(spec, dev)), _ptr(times), _ptr(dts), _ptr(obs),
+            _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs), _ptr(h0),
+            _ptr(start_X), _ptr(loss_part), _ptr(loss),
+            *(_ptr(t) for t in hists), 1, 1.0 / B, stream)
+    _raise_rc(lib, rc, "njode_scan_fwd_members")
+    _count("njode_scan_fwd_members" + _launch_key(spec), B, cfg.rows)
+    LAUNCHES["reduce_partials_members"] += 1
+    if cfg.mode == 2:
+        LAUNCHES["philox_keep_members"] += 1
+    return loss, hists
+
+
+def scan_bwd_members_cuda(spec, leaves, arrays, weight, train, hists, dloss,
+                          u=None, seed=None):
+    """Launch K2 for E members at once and, in the same C call, the member
+    reduction of its per-CTA gradient rows; returns (grads [E, *leaf] as
+    views of one [E, n_params] buffer, in leaf order, dh0 [E,B,H]).
+    ``dloss [E]``: each member's loss cotangent."""
+    E, K, B = _check_member_inputs(spec, leaves, arrays, train, u, seed)
+    hh, lxh, tauh = hists
+    _check("h_hist", hh, (E, K, B, spec.H))
+    _check("lastX_hist", lxh, (E, K, B, spec.D))
+    _check("tau_hist", tauh, (E, K, B, 1))
+    dloss = dloss.reshape(-1).to(torch.float32).contiguous()
+    _check("dloss", dloss, (E,))
+    lib = _lib()
+    times, dts, obs, X, n_obs, start_X, M = unpack_arrays(spec, arrays)
+    dev = hh.device
+    cfg = make_cfg(spec, K, B, train, weight)
+    n_cta = -(-B // cfg.rows)
+    P = spec.n_params
+    partials = torch.empty((E, n_cta, P), device=dev)
+    flat = torch.empty((E, P), device=dev)
+    dh0 = torch.empty((E, B, spec.H), device=dev)
+    ptrs = (ctypes.c_void_p * len(leaves))(*[p.data_ptr() for p in leaves])
+    wg = packed_weights_members(spec, leaves)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with _on(dev):
+        rc = lib.njode_scan_bwd_members(
+            ctypes.addressof(cfg), E, ptrs, _ptr(wg),
+            _ptr(_program(spec, dev)), _ptr(times), _ptr(dts), _ptr(obs),
+            _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs), _ptr(hh),
+            _ptr(lxh), _ptr(tauh), _ptr(dloss), _ptr(partials), _ptr(flat),
+            _ptr(dh0), stream)
+    _raise_rc(lib, rc, "njode_scan_bwd_members")
+    _count("njode_scan_bwd_members" + _launch_key(spec), B, cfg.rows)
+    LAUNCHES["reduce_partials_members"] += 1
+    if cfg.mode == 2:
+        LAUNCHES["philox_keep_members"] += 1
+    grads = [flat[:, a:b].view((E,) + tuple(s)) for a, b, s in
+             zip(spec.leaf_off[:-1], spec.leaf_off[1:], spec.leaf_shapes)]
+    return grads, dh0
+
+
+def _member_plain(spec, leaves, arrays, u, seed, e):
+    return ([p[e] for p in leaves], member_arrays(arrays, e),
+            None if u is None else u[e],
+            None if seed is None else seed[e:e + 1])
+
+
+def scan_fwd_members_plain(spec, leaves, arrays, weight, h0, train, u=None,
+                           seed=None):
+    """Plain member K1: ``scan_fwd_plain`` of each member, stacked."""
+    losses, hists = [], []
+    for e in range(h0.shape[0]):
+        lv, arr, ue, se = _member_plain(spec, leaves, arrays, u, seed, e)
+        loss, h = scan_fwd_plain(spec, lv, arr, weight, h0[e], train, ue, se)
+        losses.append(loss)
+        hists.append(h)
+    return torch.stack(losses), tuple(torch.stack(v) for v in zip(*hists))
+
+
+def scan_bwd_members_plain(spec, leaves, arrays, weight, train, hists,
+                           dloss, u=None, seed=None):
+    """Plain member K2: ``scan_bwd_plain`` of each member (cotangent
+    ``dloss[e]``), stacked."""
+    grads, dh0 = [], []
+    dloss = dloss.reshape(-1)
+    for e in range(hists[0].shape[0]):
+        lv, arr, ue, se = _member_plain(spec, leaves, arrays, u, seed, e)
+        g, d = scan_bwd_plain(spec, lv, arr, weight, train,
+                              tuple(h[e] for h in hists), dloss[e], ue, se)
+        grads.append(g)
+        dh0.append(d)
+    return [torch.stack(v) for v in zip(*grads)], torch.stack(dh0)
+
+
+def reduce_partials_members_cuda(partials, scale=1.0):
+    """Sum each member's rows of ``partials [E, n_parts, n]`` (contiguous)
+    in a fixed order, one launch for all members: ``[E, n]``."""
+    if partials.device.type != "cuda" or partials.dtype != torch.float32:
+        raise ValueError("partials must be a CUDA float32 tensor")
+    if partials.dim() != 3 or not partials.is_contiguous():
+        raise ValueError("partials must be a contiguous [E, n_parts, n]")
+    lib = _lib()
+    E, n_parts, n = partials.shape
+    dev = partials.device
+    out = torch.empty((E, n), dtype=torch.float32, device=dev)
+    with _on(dev):
+        rc = lib.njode_reduce_partials_members(
+            _ptr(partials), E, n_parts, n, float(scale), _ptr(out),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_rc(lib, rc, "njode_reduce_partials_members")
+    LAUNCHES["reduce_partials_members"] += 1
+    return out
+
+
+def reduce_partials_members_plain(partials, scale=1.0):
+    """``reduce_partials_plain`` of each member, stacked."""
+    return torch.stack([reduce_partials_plain(p, scale) for p in partials])
+
+
+def scan_fwd_members(spec, leaves, arrays, weight, h0, train, u=None,
+                     seed=None):
+    """Member K1 on CUDA tensors, the plain version on CPU tensors."""
+    if _is_cuda(h0):
+        return scan_fwd_members_cuda(spec, leaves, arrays, weight, h0, train,
+                                     u, seed)
+    with torch.no_grad():
+        return scan_fwd_members_plain(spec, leaves, arrays, weight, h0,
+                                      train, u, seed)
+
+
+def scan_bwd_members(spec, leaves, arrays, weight, train, hists, dloss,
+                     u=None, seed=None):
+    """Member K2 on CUDA tensors, the plain version on CPU tensors."""
+    if _is_cuda(hists[0]):
+        return scan_bwd_members_cuda(spec, leaves, arrays, weight, train,
+                                     hists, dloss, u, seed)
+    return scan_bwd_members_plain(spec, leaves, arrays, weight, train, hists,
+                                  dloss, u, seed)
+
+
+# ---------------------------------------------------------------------------
 # autograd
 # ---------------------------------------------------------------------------
 
@@ -1229,6 +1459,32 @@ class FusedNJODELoss(torch.autograd.Function):
         return (None,) * 12 + (dh0,) + tuple(grads)
 
 
+class FusedNJODEMembersLoss(torch.autograd.Function):
+    """The losses ``[E]`` of E members of one config in one member-axis
+    launch (K1), from their t=0 states ``h0 [E,B,H]`` and stacked leaves
+    ``[E, ...]`` (the member layout above); the backward is the member K2
+    (CUDA) or its plain version (CPU), given each member's cotangent."""
+
+    @staticmethod
+    def forward(ctx, spec, train, weight, u, seed, times, dts, obs, X,
+                n_obs, start_X, M, h0, *leaves):
+        arrays = (times, dts, obs, X, n_obs, start_X, M)
+        loss, hists = scan_fwd_members(spec, leaves, arrays, weight, h0,
+                                       train, u, seed)
+        ctx.spec, ctx.train, ctx.weight = spec, train, weight
+        ctx.save_for_backward(times, dts, obs, X, n_obs, start_X, M, u, seed,
+                              *hists, *leaves)
+        return loss
+
+    @staticmethod
+    def backward(ctx, dloss):
+        saved = ctx.saved_tensors
+        grads, dh0 = scan_bwd_members(ctx.spec, saved[12:], saved[:7],
+                                      ctx.weight, ctx.train, saved[9:12],
+                                      dloss, saved[7], saved[8])
+        return (None,) * 12 + (dh0,) + tuple(grads)
+
+
 def _require_supported(cfg):
     if not supported(cfg):
         raise NotImplementedError(
@@ -1254,6 +1510,34 @@ def batch_arrays(batch):
             batch.start_X, batch.M.contiguous())
 
 
+def _draw(spec, batch, generator, train, u_override=None):
+    """The dropout draws of one training step, in ``njode.forward``'s
+    order: the t=0 encoder's keep-masks, then the scan's ('input': a
+    ``[K,S,B,Wmax]`` int8 tensor, or ``u_override``; 'prng': one int64
+    Philox seed that stays on the device). Returns (encoder masks, u,
+    seed), None where nothing is drawn."""
+    K, B = batch.obs.shape
+    dev = batch.start_X.device
+    if not (train and spec.rate > 0.0 and spec.S > 0):
+        return None, None, None
+    u = seed = None
+    keep = 1.0 - spec.rate
+    u0 = torch.rand((max(spec.n_enc, 1), B, spec.w_max),
+                    generator=generator, device=dev) < keep
+    enc_masks = [u0[i] for i in range(spec.n_enc)]
+    if spec.mask_mode == "input":
+        if u_override is not None:
+            u = torch.as_tensor(u_override, device=dev)
+        else:
+            u = torch.rand((K, spec.S, B, spec.w_max),
+                           generator=generator, device=dev) < keep
+        u = u.to(torch.int8).contiguous()
+    else:
+        seed = torch.randint(0, 2 ** 62, (1,), generator=generator,
+                             device=dev, dtype=torch.int64)
+    return enc_masks, u, seed
+
+
 def make_fused_loss_fn(cfg, mask_mode: str = "prng", u_override=None,
                        plan=None):
     """Return ``loss_fn(model, batch, weight, generator, train)``: the
@@ -1274,32 +1558,53 @@ def make_fused_loss_fn(cfg, mask_mode: str = "prng", u_override=None,
     spec = Spec(cfg, mask_mode, plan)
 
     def loss_fn(model, batch, weight, generator, train):
-        K, B = batch.obs.shape
-        dev = batch.start_X.device
-        dropping = train and spec.rate > 0.0 and spec.S > 0
-        u = seed = None
-        enc_masks = None
-        if dropping:
-            keep = 1.0 - spec.rate
-            u0 = torch.rand((max(spec.n_enc, 1), B, spec.w_max),
-                            generator=generator, device=dev) < keep
-            enc_masks = [u0[i] for i in range(spec.n_enc)]
-            if mask_mode == "input":
-                if u_override is not None:
-                    u = torch.as_tensor(u_override, device=dev)
-                else:
-                    u = torch.rand((K, spec.S, B, spec.w_max),
-                                   generator=generator, device=dev) < keep
-                u = u.to(torch.int8).contiguous()
-            else:
-                seed = torch.randint(0, 2 ** 62, (1,), generator=generator,
-                                     device=dev, dtype=torch.int64)
+        enc_masks, u, seed = _draw(spec, batch, generator, train, u_override)
         h0 = t0_state(model, batch, enc_masks)
         M = batch.M.contiguous() if spec.masked else None
         return FusedNJODELoss.apply(
             spec, train, float(weight), u, seed, batch.times, batch.dt,
             batch.obs, batch.X, batch.n_obs_ot, batch.start_X, M, h0,
             *flat_leaves(model))
+
+    return loss_fn
+
+
+def make_fused_members_loss_fn(cfg, mask_mode: str = "prng", plan=None):
+    """Return ``loss_fn(models, batches, weight, generators, train)``: the
+    training losses ``[E]`` of E models of one config, each on its own
+    batch (one grid: the batches share ``times``/``dt`` and ``B``), through
+    :class:`FusedNJODEMembersLoss`: one member-axis launch of K1 (and of K2
+    in the backward) for all members. Member e draws from
+    ``generators[e]`` exactly what ``make_fused_loss_fn`` draws, in the
+    same order, and its t=0 encoder runs on its own; so each member's loss
+    and gradients are a solo step's, bit for bit on the card (the same
+    rows a CTA). The leaves are stacked differentiably (``torch.stack``),
+    so the gradients reach each model's own parameters."""
+    _require_supported(cfg)
+    spec = Spec(cfg, mask_mode, plan)
+
+    def loss_fn(models, batches, weight, generators, train):
+        us, seeds, h0s = [], [], []
+        for model, batch, gen in zip(models, batches, generators):
+            enc_masks, u, seed = _draw(spec, batch, gen, train)
+            h0s.append(t0_state(model, batch, enc_masks))
+            us.append(u)
+            seeds.append(seed)
+        u = torch.stack(us) if us[0] is not None else None
+        seed = torch.cat(seeds) if seeds[0] is not None else None
+        b0 = batches[0]
+
+        def stack(field):
+            return torch.stack([getattr(b, field) for b in batches])
+
+        M = (torch.stack([b.M.contiguous() for b in batches])
+             if spec.masked else None)
+        leaves = [torch.stack(ls) for ls in
+                  zip(*(flat_leaves(m) for m in models))]
+        return FusedNJODEMembersLoss.apply(
+            spec, train, float(weight), u, seed, b0.times, b0.dt,
+            stack("obs"), stack("X"), stack("n_obs_ot"), stack("start_X"),
+            M, torch.stack(h0s), *leaves)
 
     return loss_fn
 

@@ -10,12 +10,15 @@
   before any run starts (resume by ``model_ids``, or by ``first_id`` for
   ids already registered; ``overwrite_params`` rewrites the saved
   description), then the runs one after another (``nb_jobs > 1``: a
-  joblib pool), each run's exception becoming its result.
+  joblib pool), each run's exception becoming its result; with
+  ``vmap_groups`` the groupable entries train as grouped ensembles.
 
-The runs go one after another by default: one card runs one model at a
-time, and each run keeps it busy. The grouped ensembles of the JAX sweep
-(``vmap_groups``) and their device mesh (``group_mesh``) are not ported
-(ROADMAP.md Queue 1 items 6b and 7).
+The runs go one after another by default. With ``vmap_groups=True`` the
+entries that differ only in their seeds and ids (repeats, folds) train as
+one ensemble each, K1 and K2 launched once a step for all members
+(``group_sweep``, ``physionet_group``, ``climate_group``); a grid of small
+nets leaves most of the card idle run by run. The device mesh of the JAX
+sweep's groups (``group_mesh``) is not ported (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -67,11 +70,8 @@ def get_parameter_array(param_dict):
 
 
 def reject_grouping(vmap_groups=False, group_mesh=None):
-    """Raise for the JAX sweep's grouped ensembles, not ported yet."""
-    if vmap_groups:
-        raise NotImplementedError(
-            "vmap_groups is not ported yet (ROADMAP.md Queue 1 item 6b: the "
-            "grouped ensembles)")
+    """Raise for the device mesh of the JAX sweep's groups, not ported yet
+    (grouping itself, ``vmap_groups``, is)."""
     if group_mesh is not None:
         raise NotImplementedError(
             "group_mesh is not ported yet (ROADMAP.md Queue 1 item 7: data "
@@ -103,7 +103,12 @@ def parallel_training(params=None, model_ids=None, nb_jobs=1, first_id=None,
     - ids are assigned before any run starts; every run gets
       ``parallel=True`` (it does not touch the registry itself) and the
       sweep's ``saved_models_path`` unless it names its own.
-    - ``vmap_groups`` and ``group_mesh`` raise ``NotImplementedError``.
+    - ``vmap_groups``: the synthetic groups of ``group_sweep.plan_groups``
+      first (each with its ``plan_compile_sharing`` padding), then the
+      PhysioNet groups, then the climate groups among the leftovers, then
+      the remaining entries solo; a group that raises falls back to its
+      members solo, as a sweep without grouping would run them;
+    - ``group_mesh`` raises ``NotImplementedError``.
 
     :return: list of per-run return values (0 on success, the exception of
         a run that raised), or None if the sweep itself failed
@@ -176,7 +181,50 @@ def parallel_training(params=None, model_ids=None, nb_jobs=1, first_id=None,
                   f"{e}); continuing with the remaining runs", flush=True)
             return e
 
+    def _grouped_or_solo(idx, run_group):
+        # a group that fails (e.g. more device memory than the members
+        # alone take) falls back to its members solo
+        try:
+            return run_group()
+        except Exception as e:  # noqa: BLE001
+            if DEBUG:
+                raise
+            traceback.print_exc()
+            ids = [params[i].get("model_id") for i in idx]
+            print(f"group for ids {ids} failed ({e}); falling back to solo "
+                  "training", flush=True)
+            return [_solo(params[i]) for i in idx]
+
+    def _run_grouped():
+        from njode_tpu_torch.training import climate_group, group_sweep, \
+            physionet_group
+        groups, singles = group_sweep.plan_groups(params)
+        pads = group_sweep.plan_compile_sharing(params, groups)
+        results = [None] * len(params)
+        for gi, g in enumerate(groups):
+            res = _grouped_or_solo(g, lambda g=g, gi=gi: group_sweep.
+                                   train_group([params[i] for i in g],
+                                               pad_batches_to=pads.get(gi)))
+            for i, r in zip(g, res):
+                results[i] = r
+        left = list(singles)
+        for planner in (physionet_group, climate_group):
+            pgroups, rest = planner.plan_groups([params[i] for i in left])
+            for g in pgroups:
+                real = [left[i] for i in g]
+                res = _grouped_or_solo(real, lambda real=real, planner=planner:
+                                       planner.train_group(
+                                           [params[i] for i in real]))
+                for i, r in zip(real, res):
+                    results[i] = r
+            left = [left[i] for i in rest]
+        for i in left:
+            results[i] = _solo(params[i])
+        return results
+
     def _run_all():
+        if vmap_groups:
+            return _run_grouped()
         if nb_jobs <= 1:
             return [_solo(p) for p in params]
         from joblib import Parallel, delayed

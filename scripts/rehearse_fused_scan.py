@@ -12,8 +12,10 @@ the C interface with the configuration the wrappers build
 (gradients and dh0) and K3 (eval loss) in the resident plan at R = 1, 2
 and 16 (the last CTA of a batch of 5 partly padding), in both mask modes,
 against the plain versions, and the global plan forced at the same rows
-against the resident plan bit for bit; and (``masks``) the standalone mask
-kernel's C call against ``philox_keep_plain`` bit for bit. Each variant is one branch of the
+against the resident plan bit for bit; the member-axis calls (E = 3
+members in one launch) against three solo calls bit for bit; and
+(``masks``) the standalone mask kernel's C call against
+``philox_keep_plain`` bit for bit. Each variant is one branch of the
 kernels (unmasked or masked, encoder or GRU jump) or one option (no bias,
 relu, easy loss, input_current_t, residual encoder and readout, nets of
 other depths). It finds arithmetic, indexing and barrier faults (a
@@ -73,7 +75,7 @@ def _setup(kw, D, seed=0):
     return cfg, arrays, leaves, h0
 
 
-def _run(lib, fs, spec, leaves, arrays, h0, u, seed):
+def _run(lib, fs, spec, leaves, arrays, h0, u, seed, dloss=1.3):
     """K1, K2 and K3 of ``spec`` through the CPU build: (loss, histories,
     gradients, dh0, eval loss)."""
     import torch
@@ -105,7 +107,7 @@ def _run(lib, fs, spec, leaves, arrays, h0, u, seed):
     parts = torch.full((-(-Bb // c.rows), spec.n_params), float("nan"))
     flat = torch.empty(spec.n_params)
     dh0 = torch.empty(Bb, spec.H)
-    dloss = torch.tensor([1.3])
+    dloss = torch.tensor([dloss])
     rc = lib.njode_scan_bwd(
         ctypes.addressof(c), ptrs, _ptr(wg), _ptr(prog), _ptr(times),
         _ptr(dts), _ptr(obs), _ptr(X), _ptr(M), _ptr(u), _ptr(seed),
@@ -183,6 +185,95 @@ VARIANTS = [
 ]
 
 
+def rehearse_members(lib, name, kw, D, R, mode, plan="resident", E=3):
+    """The member-axis calls (njode_scan_fwd_members,
+    njode_scan_bwd_members: E members of one config, each on its own
+    weights and batch, in one launch of grid (ceil(B/R), E)) against E solo
+    calls of the same plan and rows, bit for bit: K1's losses and
+    histories, K2's gradients and dh0 (each member its own cotangent), K3's
+    losses; and njode_reduce_partials_members against its plain version.
+    Prints one line and returns whether all hold."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    members = [_setup(dict(kw), D, seed=e) for e in range(E)]
+    cfg = members[0][0]
+    Kk, Bb = members[0][1][2].shape
+    spec = fs.Spec(cfg, mode, (plan, R))
+    dropping = spec.rate > 0 and spec.S > 0
+    us, seeds, solo = [], [], []
+    dl = [1.3 + 0.25 * e for e in range(E)]
+    for e, (_, arrays, leaves, h0) in enumerate(members):
+        u = seed = None
+        if dropping and mode == "input":
+            u = (torch.rand((Kk, spec.S, Bb, spec.w_max),
+                            generator=torch.Generator().manual_seed(e + 1))
+                 < 0.8).to(torch.int8)
+        elif dropping:
+            seed = torch.tensor([123456789012345 + 7919 * e],
+                                dtype=torch.int64)
+        us.append(u)
+        seeds.append(seed)
+        solo.append(_run(lib, fs, spec, leaves, arrays, h0, u, seed,
+                         dloss=dl[e]))
+    leaves = [torch.stack(ls).contiguous()
+              for ls in zip(*(m[2] for m in members))]
+    arrays = tuple(members[0][1][i] if i < 2 else
+                   torch.stack([m[1][i] for m in members]).contiguous()
+                   for i in range(7))
+    h0 = torch.stack([m[3] for m in members]).contiguous()
+    u = torch.stack(us).contiguous() if us[0] is not None else None
+    seed = torch.cat(seeds) if seeds[0] is not None else None
+    times, dts, obs, X, n_obs, start_X, M = fs.unpack_arrays(spec, arrays)
+    ptrs = (ctypes.c_void_p * len(leaves))(*[p.data_ptr() for p in leaves])
+    wg = fs.packed_weights_members(spec, leaves)
+    prog = (None if spec.plan != "global" else
+            torch.tensor(spec.tile_program()[0], dtype=torch.int32))
+    out = []
+    for want in (True, False):
+        c = fs.make_cfg(spec, Kk, Bb, want, 0.5, bwd=False)
+        part = torch.full((E, -(-Bb // c.rows)), float("nan"))
+        loss = torch.empty(E)
+        hists = ((torch.empty(E, Kk, Bb, spec.H),
+                  torch.empty(E, Kk, Bb, spec.D), torch.empty(E, Kk, Bb, 1)) if want else (None,) * 3)
+        assert lib.njode_scan_fwd_members(
+            ctypes.addressof(c), E, ptrs, _ptr(wg), _ptr(prog), _ptr(times),
+            _ptr(dts), _ptr(obs), _ptr(X), _ptr(M),
+            _ptr(u if want else None), _ptr(seed if want else None),
+            _ptr(n_obs), _ptr(h0), _ptr(start_X), _ptr(part), _ptr(loss),
+            *(_ptr(t) for t in hists), int(want), 1.0 / Bb, None) == 0
+        out.append((loss, hists))
+    (loss, hists), (loss3, _) = out
+    c = fs.make_cfg(spec, Kk, Bb, True, 0.5)
+    parts = torch.full((E, -(-Bb // c.rows), spec.n_params), float("nan"))
+    flat = torch.empty(E, spec.n_params)
+    dh0 = torch.empty(E, Bb, spec.H)
+    dloss = torch.tensor(dl)
+    assert lib.njode_scan_bwd_members(
+        ctypes.addressof(c), E, ptrs, _ptr(wg), _ptr(prog), _ptr(times),
+        _ptr(dts), _ptr(obs), _ptr(X), _ptr(M), _ptr(u), _ptr(seed),
+        _ptr(n_obs), *(_ptr(t) for t in hists), _ptr(dloss),
+        _ptr(parts), _ptr(flat), _ptr(dh0), None) == 0
+    n_diff = 0
+    for e in range(E):
+        got = [loss[e], *(h[e] for h in hists),
+               *[flat[e, a:b].view(sh) for a, b, sh in zip(
+                   spec.leaf_off[:-1], spec.leaf_off[1:], spec.leaf_shapes)],
+               dh0[e], loss3[e]]
+        n_diff += sum(not torch.equal(a, b) for a, b in zip(got, solo[e]))
+    P = torch.randn(E, 5, 37, generator=torch.Generator().manual_seed(3))
+    red = torch.empty(E, 37)
+    assert lib.njode_reduce_partials_members(_ptr(P), E, 5, 37, 0.5,
+                                             _ptr(red), None) == 0
+    red_ok = torch.equal(red, fs.reduce_partials_members_plain(P, 0.5))
+    ok = n_diff == 0 and red_ok
+    print(f"{'ok ' if ok else 'BAD'} members {name} {plan} R={R} {mode} "
+          f"E={E} outputs differing from solo calls {n_diff} "
+          f"reduce_members_equal {red_ok}", flush=True)
+    return ok
+
+
 def masks(lib, K, S, Bm, W, seed=2 ** 40 + 17, rate=0.1):
     """njode_philox_masks through the CPU build against
     ``philox_keep_plain``: whether every byte is the plain draw."""
@@ -214,6 +305,9 @@ def main(names):
             for R in (1, 2, 16):
                 for mode in ("input", "prng"):
                     ok &= rehearse(lib, name, kw, D, R, mode)
+            for plan, R, mode in (("resident", 1, "prng"),
+                                  ("global", 2, "input")):
+                ok &= rehearse_members(lib, name, kw, D, R, mode, plan)
     return 0 if ok else 1
 
 

@@ -585,7 +585,8 @@ def test_ctypes_signatures_match_the_c_interface():
         src = f.read()
     names = ("njode_scan_fwd", "njode_scan_bwd", "njode_scan_occupancy",
              "njode_phase_clock", "njode_reduce_partials",
-             "njode_philox_masks")
+             "njode_philox_masks", "njode_scan_fwd_members",
+             "njode_scan_bwd_members", "njode_reduce_partials_members")
     lib = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in (
         "njode_error_string",) + names})
     _build._declare("fused_scan", lib)

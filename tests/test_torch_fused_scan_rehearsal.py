@@ -75,3 +75,19 @@ def test_standalone_masks_match_plain(cpu_lib, K, S, B, W):
     import rehearse_fused_scan as rs
 
     assert rs.masks(cpu_lib, K, S, B, W)
+
+
+@pytest.mark.parametrize("variant,plan,R,mode", [
+    ("unmasked", "resident", 1, "prng"), ("masked", "global", 2, "input"),
+    ("rnn", "global", 1, "prng"), ("rnn_masked", "resident", 16, "input")])
+def test_member_axis_matches_solo_calls(cpu_lib, variant, plan, R, mode):
+    """K1, K2 and K3 over a member axis (E = 3 members of one config, each
+    on its own weights, batch, masks and cotangent, one launch of grid
+    (ceil(B/R), E)) give each member the bits of its own solo call, in
+    both plans, masked or not, with the encoder or the GRU jump; the
+    member reduce_partials gives its plain version's bits."""
+    sys.path.insert(0, SCRIPTS)
+    import rehearse_fused_scan as rs
+
+    name, kw, D = next(v for v in rs.VARIANTS if v[0] == variant)
+    assert rs.rehearse_members(cpu_lib, name, kw, D, R, mode, plan)

@@ -215,12 +215,15 @@ def test_parallel_training_joblib_and_live_keys(tmp_path, monkeypatch):
 
 
 def test_grouping_raises_naming_roadmap(tmp_path):
-    for kw, item in ((dict(vmap_groups=True), "6b"),
-                     (dict(group_mesh=object()), "item 7")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+    """The groups' device mesh (``group_mesh``) is not ported: it raises
+    naming its ROADMAP item, with or without ``vmap_groups`` (grouping
+    itself is ported, tests/test_torch_group_sweep.py)."""
+    for kw in (dict(group_mesh=object()),
+               dict(vmap_groups=True, group_mesh=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
             tsweeps.parallel_training(params=[{"dataset": "BlackScholes"}],
                                       saved_models_path=str(tmp_path), **kw)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
             tconfigs.run_experiment("heston_wo_feller", **kw)
     # nothing was created before the raise
     assert not os.listdir(tmp_path)
