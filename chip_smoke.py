@@ -107,8 +107,8 @@ power limit, and the final ``{"ok": true, ...}`` line:
 15. climate_timing - CUDA-event times and bounds of the masked K1/K2/K3
               and of K5/K6 at the climate arms, B = 100, K = 2,004, and the
               masks' cost inside K1/K2 and K5/K6 there (``mask_cost``);
-16. climate_trainer - climate_trainer.train on the stand-in, fold 0, 2
-              epochs of batch 100, the NJODE small arm and then the
+16. climate_trainer - climate_trainer.train on the stand-in, fold 0, one
+              epoch of batch 100, the NJODE small arm and then the
               GRU-ODE-Bayes arm; losses and eval_metric finite, and the
               launch counts exactly what the epochs' batches need (so an
               eager fallback on this path fails the run);
@@ -143,9 +143,9 @@ power limit, and the final ``{"ok": true, ...}`` line:
               (one row a CTA), with the masks' cost inside its K1/K2
               (``mask_cost``);
 21. physionet_trainer - physionet_trainer.train at the 50 arm (batch 50,
-              'prng', the resident plan, one row a CTA) for 2 epochs on the
-              stand-in cut to 1,000 records (800 train, 16 batches an
-              epoch); losses and both metrics finite, and the launch counts
+              'prng', the resident plan, one row a CTA) for one epoch on
+              the stand-in cut to 1,000 records (800 train, 16 batches);
+              losses and both metrics finite, and the launch counts
               exact;
 22. physionet_rnn - the masked GRU jump at the 50 arm in the global plan:
               K1-K3 against their plain versions over the first 100 steps
@@ -196,12 +196,34 @@ power limit, and the final ``{"ok": true, ...}`` line:
               and sum(dim=1); then sweeps.parallel_training(
               vmap_groups=True), one epoch each: a convergence cell
               (width 320, training size 200, B = 20, 5 repeats), the
-              climate small arm's 5 folds on the stand-in, the PhysioNet
-              50 arm x 2 repeats on 1,000 records; every result 0, every
-              member's row finite, the launch counts exact (one member
-              launch of K1 and of K2 a step: a group that fell back to
-              solo runs fails them), and one convergence member's metric
-              row bit for bit a solo run of its params.
+              climate small arm's folds 0 and 1 on the stand-in, the
+              PhysioNet 50 arm x 2 repeats on 1,000 records; every result
+              0, every member's row finite, the launch counts exact (one
+              member launch of K1 and of K2 a step: a group that fell back
+              to solo runs fails them), and one convergence member's
+              metric row bit for bit a solo run of its params;
+25. parallel - data parallelism over torch.distributed
+              (njode_tpu_torch/parallel/): NCCL at world size 1 in this
+              process, 2 epochs of the main path (20,000 BlackScholes
+              paths, B = 100, 'prng') through trainer.train(mesh=...) bit
+              for bit the run without a mesh (every metric but the times,
+              both checkpoints' tensors), its launch counts exact; then
+              two gloo ranks sharing the card (NCCL refuses two ranks on
+              one device), spawned with the kernels already built: one
+              training step of the main path (B = 100, 50 rows a rank)
+              and of the GOB trainer's widths (B = 20, 10 a rank) in
+              'input' mode against the kernels without a mesh, at the
+              North-star tolerances; 2 epochs of the main path, one GOB
+              epoch (4,000 training paths), one epoch of the climate small
+              arm (its validation and test batches padded to an even
+              count), each with exact launch counts a rank at the rule's
+              rows for 50 rows and the parameters equal to rank 0's bit
+              for bit; the convergence cell (width 320) of 3 repeats over
+              the two ranks (one ghost member), every member's row and
+              checkpoints bit for bit the 1-rank group's; then K1/K2 at 50
+              rows and K5/K6 at 10, one rank's launches, timed alone on
+              the card beside their plain versions and bounds. Two ranks
+              on one card measure no speed.
 
 Tolerances are those the JAX package's Pallas kernel is held to
 (tests/test_fused_scan.py): loss rtol 1e-5 / atol 1e-6, gradients rtol
@@ -2248,15 +2270,16 @@ def _climate_run(results, tag, expect, epochs=2, rows_cfg=None, **kw):
 
 
 def phase_climate_trainer(results):
-    n_batches = -(-results["climate"]["n_train"] // CLIMATE_B)
-    steps = 2 * n_batches            # 2 epochs; eval runs the eager forward
+    steps = -(-results["climate"]["n_train"] // CLIMATE_B)
+    # one epoch of each arm; eval runs the eager forward
     nj = _climate_run(results, "njode", {
         "njode_scan_fwd": steps, "njode_scan_bwd": steps,
         "philox_keep": 2 * steps, "reduce_partials": 2 * steps},
-        rows_cfg=_masked_cfg(5, 10, 50), hidden_size=10, dropout_rate=0.1)
+        epochs=1, rows_cfg=_masked_cfg(5, 10, 50), hidden_size=10,
+        dropout_rate=0.1)
     gb = _climate_run(results, "gob", lambda chunks: chunks.expect(steps),
-        hidden_size=50, dropout_rate=0.2, ode_nn=None, readout_nn=None,
-        enc_nn=None, other_model="GRU_ODE_Bayes",
+        epochs=1, hidden_size=50, dropout_rate=0.2, ode_nn=None,
+        readout_nn=None, enc_nn=None, other_model="GRU_ODE_Bayes",
         **{"GRU_ODE_Bayes-impute": False, "GRU_ODE_Bayes-logvar": True,
            "GRU_ODE_Bayes-mixing": 1e-4, "GRU_ODE_Bayes-p_hidden": 25,
            "GRU_ODE_Bayes-prep_hidden": 10,
@@ -2510,10 +2533,10 @@ def _physionet_run(results, phase, epochs, expect,
 
 
 def phase_physionet_trainer(results):
-    steps = 2 * -(-int(0.8 * PHYS_TRAIN_RECORDS) // PHYS_B)
-    # the 50 arm takes the resident plan, one row a CTA (the rule)
+    steps = -(-int(0.8 * PHYS_TRAIN_RECORDS) // PHYS_B)
+    # one epoch of the 50 arm: the resident plan, one row a CTA (the rule)
     results["phys_launches"] = _physionet_run(
-        results, "physionet_trainer", 2,
+        results, "physionet_trainer", 1,
         {"njode_scan_fwd": steps, "njode_scan_bwd": steps,
          "philox_keep": 2 * steps, "reduce_partials": 2 * steps},
         rows_cfg=_masked_cfg(41, 41, 50))
@@ -2965,7 +2988,7 @@ def phase_sweep(results):
 
 # the groups phase: the member axis checked at E = 3, timed at E = 5
 GROUP_CHECK_E, GROUP_TIME_E = 3, 5
-GROUP_CONV_REPEATS, GROUP_CLIMATE_FOLDS, GROUP_PHYS_REPEATS = 5, 5, 2
+GROUP_CONV_REPEATS, GROUP_CLIMATE_FOLDS, GROUP_PHYS_REPEATS = 5, 2, 2
 
 
 def _member_layout(models, batches):
@@ -3274,8 +3297,8 @@ def phase_groups(results):
     (B = 20), the main path (B = 100) and the PhysioNet 50 arm (B = 50,
     K = 3,006); the member reduce_partials; then three group trainers
     through ``parallel_training(vmap_groups=True)``, one epoch each: a
-    convergence cell (width 320, 5 repeats), the climate small arm's 5
-    folds, the PhysioNet 50 arm x 2 repeats; one convergence member's row
+    convergence cell (width 320, 5 repeats), the climate small arm's
+    folds 0 and 1, the PhysioNet 50 arm x 2 repeats; one convergence member's row
     against a solo run of its params, bit for bit."""
     import contextlib
     import io
@@ -3407,6 +3430,405 @@ def phase_groups(results):
         shutil.rmtree(tmp, ignore_errors=True)
     results["groups"] = dict(errs=errs, times=times, reduce=red,
                              launches=launches)
+
+
+# the parallel phase: the main path's batch (50 rows a rank at 2 ranks),
+# the GOB trainer's training paths at 2 ranks (200 steps of 20, 10 rows a
+# rank), the convergence group's repeats over 2 ranks (one ghost member)
+PAR_B = 100
+PAR_GOB_TRAIN = 4000
+PAR_CONV_REPEATS = 3
+PAR_GOB_OPTS = {"GRU_ODE_Bayes-impute": True, "GRU_ODE_Bayes-logvar": True,
+                "GRU_ODE_Bayes-mixing": 1e-4}
+
+
+def _par_main_kw(tmp, models):
+    """The main path's trainer arguments (2 epochs of batch 100, 'prng')."""
+    return dict(epochs=2, batch_size=PAR_B, dropout_rate=0.1,
+                dataset="BlackScholes", plot=False, evaluate=True,
+                pallas_mask_mode="prng",
+                base_data_path=os.path.join(tmp, "data"),
+                saved_models_path=os.path.join(tmp, models))
+
+
+def _par_counted(fn):
+    """``fn()`` with every count set to 0 just before and read just after
+    (and K6's chunks recorded): result, counts, rows a launch, seconds."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_gob as fg
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    fs.reset_launch_counts()
+    fg.reset_launch_counts()
+    chunks = BwdChunks()
+    t0 = time.time()
+    with chunks:
+        res = fn()
+    torch.cuda.synchronize()
+    return dict(result=res, secs=time.time() - t0,
+                counts=dict(fs.LAUNCHES, **fg.LAUNCHES),
+                rows={f"{k}@{B}": (R, n) for (k, B, R), n in
+                      sorted(fs.LAUNCH_ROWS.items())},
+                chunks=list(chunks.chunks))
+
+
+def _par_step(kind, mesh):
+    """One training step's loss and gradients, 'input' masks from a
+    generator seeded 5, reduced over ``mesh`` (None: no mesh): NJODE at the
+    main path's width (B = 100, K = 100), GRU-ODE-Bayes at the GOB
+    trainer's (hidden 50, B = 20)."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_gob as fg
+    from njode_tpu_torch.ops import fused_scan as fs
+    from njode_tpu_torch.parallel import sharding
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    if kind == "njode":
+        cfg, model, batch = main_path_setup(PAR_B, 100, 3, dev)
+        loss = fs.make_fused_loss_fn(cfg, "input", mesh=mesh)(
+            model, batch, 0.5, gen, True)
+    else:
+        cfg, model, batch = gob_setup(20, 100, 50, True, 1e-4, 50, dev)[:3]
+        loss = fg.make_fused_loss_fn(cfg, "input", mesh=mesh)(
+            model, batch, gen, True)
+    loss.backward()
+    if mesh is not None:
+        loss = sharding.allreduce_grads(
+            list(model.parameters()), mesh,
+            "mean" if kind == "njode" else "sum", loss)
+    return loss.detach().cpu(), [p.grad.detach().cpu()
+                                 for p in model.parameters()
+                                 if p.grad is not None]
+
+
+def _same_as_rank0(model, mesh):
+    """True where every parameter equals rank 0's bit for bit."""
+    import torch
+
+    from njode_tpu_torch.parallel import sharding
+
+    ok = True
+    for p in model.parameters():
+        ref = p.detach().clone()
+        sharding.replicated([ref], mesh)
+        ok = ok and torch.equal(ref, p.detach())
+    return ok
+
+
+def parallel_rank(mesh, job):
+    """One of the parallel phase's two gloo ranks sharing the card, in a
+    process of its own (``parallel.sharding.spawn`` imports this script
+    by name; its ``main`` does not run): one NJODE and one GOB step at
+    full width, two epochs of the main path, one GOB epoch, one epoch of
+    the climate small arm and the convergence group over the mesh, each
+    with this rank's launch counts and rows; the trained parameters
+    compared with rank 0's."""
+    from njode_tpu_torch.parallel import sharding
+    from njode_tpu_torch.training import climate_trainer as ct
+    from njode_tpu_torch.training import sweeps, trainer
+
+    models = []
+    orig = sharding.shard_params
+
+    def shard_params(model, mesh_, optimizer=None):
+        # the model each trainer replicates, to compare after its run
+        models.append(model)
+        return orig(model, mesh_, optimizer)
+
+    sharding.shard_params = shard_params
+    tmp = job["tmp"]
+    out = {"njode_step": _par_step("njode", mesh),
+           "gob_step": _par_step("gob", mesh)}
+    out["main"] = _par_counted(lambda: trainer.train(
+        mesh=mesh, **_par_main_kw(tmp, "dp_main")))
+    out["main"]["same"] = _same_as_rank0(models[-1], mesh)
+    out["gob"] = _par_counted(lambda: trainer.train(
+        mesh=mesh, epochs=1, batch_size=20, hidden_size=50,
+        dropout_rate=0.1, dataset="BlackScholes", plot=False,
+        other_model="GRU_ODE_Bayes", training_size=PAR_GOB_TRAIN,
+        base_data_path=os.path.join(tmp, "data"),
+        saved_models_path=os.path.join(tmp, "dp_gob"), **PAR_GOB_OPTS))
+    out["gob"]["same"] = _same_as_rank0(models[-1], mesh)
+    out["climate"] = _par_counted(lambda: ct.train(
+        mesh=mesh, epochs=1, batch_size=CLIMATE_B,
+        climate_dir=job["climate_dir"], hidden_size=10, dropout_rate=0.1,
+        saved_models_path=os.path.join(tmp, "dp_climate"), device="cuda"))
+    out["climate"]["same"] = _same_as_rank0(models[-1], mesh)
+    out["group"] = _par_counted(lambda: sweeps.parallel_training(
+        params=[dict(p) for p in job["conv"]], vmap_groups=True,
+        group_mesh=mesh))
+    return out
+
+
+def _par_same_run(tag, dir_a, dir_b, mids=(1,)):
+    """Two runs' artifacts bit for bit: every metric of every row but the
+    times, and every tensor of both checkpoints (model and Adam state)."""
+    import torch
+
+    from njode_tpu_torch.utils.csv_frame import read_frame
+
+    for mid in mids:
+        runs = []
+        for d in (dir_a, dir_b):
+            cols, rows = read_frame(os.path.join(d, f"id-{mid}",
+                                                 f"metric_id-{mid}.csv"))
+            keep = [i for i, c in enumerate(cols)
+                    if c not in ("train_time", "eval_time")]
+            runs.append([[r[i] for i in keep] for r in rows])
+        if runs[0] != runs[1] or not runs[0]:
+            raise AssertionError(f"parallel {tag}: id {mid} rows "
+                                 f"{runs[0]} != {runs[1]}")
+        for slot in ("last_checkpoint", "best_checkpoint"):
+            a, b = (torch.load(os.path.join(d, f"id-{mid}", slot,
+                                            "checkpt.tar"),
+                               weights_only=True) for d in (dir_a, dir_b))
+            ta = list(a["model_state_dict"].values()) + [
+                t for st in a["optimizer_state_dict"]["state"].values()
+                for t in st.values()]
+            tb = list(b["model_state_dict"].values()) + [
+                t for st in b["optimizer_state_dict"]["state"].values()
+                for t in st.values()]
+            if len(ta) != len(tb) or not all(torch.equal(x, y)
+                                             for x, y in zip(ta, tb)):
+                raise AssertionError(f"parallel {tag}: id {mid} {slot} "
+                                     "differs")
+    say("parallel", run=tag, bit_equal=True, ids=list(mids))
+
+
+def _par_expect_main(steps):
+    return {"njode_scan_fwd": steps, "njode_scan_bwd": steps,
+            "njode_scan_eval": 2, "philox_keep": 2 * steps,
+            "reduce_partials": 2 * steps + 2}
+
+
+def _par_rows(tag, rows, cfg, B_local):
+    """Every scan launch of a rank took the rows the rule takes at its
+    batch (``B_local`` for the training launches)."""
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    spec = fs.Spec(cfg)
+    for key, (R, _) in rows.items():
+        name, B = key.rsplit("@", 1)
+        if R != spec.rows_for(int(B), "bwd" in name):
+            raise AssertionError(f"parallel {tag}: {key} took {R} rows")
+    if not any(int(k.rsplit("@", 1)[1]) == B_local for k in rows):
+        raise AssertionError(f"parallel {tag}: no launch at {B_local} "
+                             f"rows: {rows}")
+
+
+def phase_parallel(results):
+    """Data parallelism (njode_tpu_torch/parallel/) on the one card: NCCL
+    at world size 1 in this process, then two gloo ranks sharing the card
+    (NCCL refuses two ranks on one device), then the kernels at one rank's
+    rows timed here."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from njode_tpu_torch.data import datasets
+    from njode_tpu_torch.experiments import configs
+    from njode_tpu_torch.ops import fused_gob as fg
+    from njode_tpu_torch.ops import fused_scan as fs
+    from njode_tpu_torch.parallel import sharding
+    from njode_tpu_torch.training import sweeps
+
+    tmp = tempfile.mkdtemp(prefix="njode_smoke_parallel_")
+    launches = {}
+    try:
+        t0 = time.time()
+        data = os.path.join(tmp, "data")
+        datasets.create_dataset("BlackScholes", dict(
+            datasets.hyperparam_default, nb_paths=20_000, obs_perc=0.1),
+            seed=0, base_path=data)
+        datasets.create_dataset("Heston", dict(
+            datasets.hyperparam_default, nb_paths=20_000), base_path=data)
+        say("parallel", datasets_s=f"{time.time() - t0:.2f}")
+        steps = 2 * (16_000 // PAR_B)
+
+        # (a) NCCL at world size 1: the main path with and without a mesh
+        from njode_tpu_torch.training import trainer
+        sharding.initialize_distributed(
+            "nccl", "file://" + os.path.join(tmp, "nccl_store"),
+            world_size=1, rank=0, timeout=300)
+        try:
+            mesh1 = sharding.make_mesh()
+            solo = _par_counted(lambda: trainer.train(
+                **_par_main_kw(tmp, "solo")))
+            nccl = _par_counted(lambda: trainer.train(
+                mesh=mesh1, **_par_main_kw(tmp, "nccl1")))
+        finally:
+            dist.destroy_process_group()
+        for tag, run in (("solo", solo), ("nccl1", nccl)):
+            _check_counts("parallel", run["counts"], _par_expect_main(steps))
+        _par_same_run("nccl1", os.path.join(tmp, "solo"),
+                      os.path.join(tmp, "nccl1"))
+        launches["nccl1"] = nccl["counts"]
+        say("parallel", nccl1_s=f"{nccl['secs']:.2f}",
+            solo_s=f"{solo['secs']:.2f}")
+
+        # (b) two gloo ranks on the card
+        conv, _ = configs.convergence_study(epochs=1,
+                                            repeats=PAR_CONV_REPEATS)
+        conv = [dict(p, base_data_path=data,
+                     saved_models_path=os.path.join(tmp, "dp_group"))
+                for p in conv
+                if p["ode_nn"][0][0] == 320 and p["training_size"] == 200]
+        job = dict(tmp=tmp, climate_dir=results["climate"]["dir"],
+                   conv=conv)
+        t0 = time.time()
+        outs = sharding.spawn(parallel_rank, 2, args=(job,),
+                              backend="gloo", timeout=300, wait=600)
+        say("parallel", ranks=2, backend="gloo",
+            spawn_s=f"{time.time() - t0:.2f}",
+            runs_s=",".join(f"{k}:{outs[0][k]['secs']:.2f}" for k in (
+                "main", "gob", "climate", "group")))
+        errs = {}
+        for kind, tol in (("njode", GRAD_TOL), ("gob", None)):
+            ref_loss, ref_grads = _par_step(kind, None)
+            for r, out in enumerate(outs):
+                loss, grads = out[kind + "_step"]
+                e_l = check_close(f"parallel {kind} loss (rank {r})", loss,
+                                  ref_loss, LOSS_TOL)
+                if len(grads) != len(ref_grads):
+                    raise AssertionError(f"parallel {kind}: gradients")
+                e_g = max(check_close(
+                    f"parallel {kind} grad {i} (rank {r})", a, b,
+                    tol or scaled_tol(b))
+                    for i, (a, b) in enumerate(zip(grads, ref_grads)))
+                errs[kind] = max(errs.get(kind, 0.0), e_l, e_g)
+            say("parallel", step=kind, rows_a_rank=(PAR_B if kind == "njode"
+                                                    else 20) // 2,
+                max_abs_err=f"{errs[kind]:.3e}",
+                loss=f"{float(ref_loss):.6f}")
+        n_clim = -(-results["climate"]["n_train"] // CLIMATE_B)
+        for r, out in enumerate(outs):
+            tag = f"rank{r}"
+            _check_counts("parallel", out["main"]["counts"],
+                          _par_expect_main(steps))
+            _par_rows(f"main {tag}", out["main"]["rows"],
+                      results["setup"]["cfg"], PAR_B // 2)
+            gob_steps = PAR_GOB_TRAIN // 20
+            n = sum(out["gob"]["chunks"])
+            if len(out["gob"]["chunks"]) != gob_steps:
+                raise AssertionError(f"parallel gob {tag}: K6 calls")
+            _check_counts("parallel", out["gob"]["counts"], {
+                "gob_scan_fwd": gob_steps, "gob_bwd_remat": n,
+                "gob_scan_bwd": n, "gob_bwd_wgrad": n, "gob_scan_eval": 1,
+                "gob_philox_keep": gob_steps + n,
+                "reduce_partials": 2 * gob_steps + 1})
+            _check_counts("parallel", out["climate"]["counts"], {
+                "njode_scan_fwd": n_clim, "njode_scan_bwd": n_clim,
+                "philox_keep": 2 * n_clim, "reduce_partials": 2 * n_clim})
+            _par_rows(f"climate {tag}", out["climate"]["rows"],
+                      _masked_cfg(5, 10, 50), CLIMATE_B // 2)
+            conv_steps = 200 // 20
+            _check_counts("parallel", out["group"]["counts"], {
+                "njode_scan_fwd_members_global": conv_steps,
+                "njode_scan_bwd_members_global": conv_steps,
+                "philox_keep_members": 2 * conv_steps,
+                "reduce_partials_members": 2 * conv_steps,
+                "njode_scan_eval_global": 2, "reduce_partials": 2})
+            if out["group"]["result"] != [0] * PAR_CONV_REPEATS:
+                raise AssertionError(f"parallel group {tag}: "
+                                     f"{out['group']['result']}")
+            if not all(out[k]["same"] for k in ("main", "gob", "climate")):
+                raise AssertionError(f"parallel {tag}: parameters differ "
+                                     "from rank 0's")
+        say("parallel", params_equal_across_ranks=True,
+            launches_per_rank=json.dumps({k: {
+                c: v for c, v in outs[0][k]["counts"].items() if v}
+                for k in ("main", "gob", "climate", "group")})
+            .replace(" ", ""))
+        # the climate arm's evaluation padded to an even batch: finite rows
+        from njode_tpu_torch.utils.csv_frame import read_frame, to_float
+        cols, rows = read_frame(os.path.join(tmp, "dp_climate", "id-1",
+                                             "metric_id-1.csv"))
+        rec = {c: to_float(v) for c, v in zip(cols, rows[-1])}
+        if len(rows) != 1 or not all(np.isfinite(v) for v in rec.values()):
+            raise AssertionError(f"parallel climate: rows {rows}")
+        say("parallel", climate_row=json.dumps(rec).replace(" ", ""))
+        # the 1-rank group of the same entries, bit for bit
+        one = _par_counted(lambda: sweeps.parallel_training(
+            params=[dict(p, saved_models_path=os.path.join(tmp, "group1"))
+                    for p in conv], vmap_groups=True))
+        if one["result"] != [0] * PAR_CONV_REPEATS:
+            raise AssertionError(f"parallel group1: {one['result']}")
+        _check_counts("parallel", one["counts"], {
+            "njode_scan_fwd_members_global": conv_steps,
+            "njode_scan_bwd_members_global": conv_steps,
+            "philox_keep_members": 2 * conv_steps,
+            "reduce_partials_members": 2 * conv_steps,
+            "njode_scan_eval_global": PAR_CONV_REPEATS,
+            "reduce_partials": PAR_CONV_REPEATS})
+        _par_same_run("group", os.path.join(tmp, "dp_group"),
+                      os.path.join(tmp, "group1"),
+                      range(1, PAR_CONV_REPEATS + 1))
+        for k in ("main", "gob", "climate", "group"):
+            launches[k] = [out[k]["counts"] for out in outs]
+        # the main path's epochs: alone, under NCCL at world size 1, and
+        # over the two ranks that share the card (no speed figure: their
+        # kernels take turns on it, the gradient travels through the host)
+        for tag in ("solo", "nccl1", "dp_main"):
+            cols, rows = read_frame(os.path.join(tmp, tag, "id-1",
+                                                 "metric_id-1.csv"))
+            say("parallel", run=tag, **{c: ",".join(
+                f"{to_float(r[cols.index(c)]):.4f}" for r in rows)
+                for c in ("train_time", "eval_time", "train_loss",
+                          "eval_loss")})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the kernels at one rank's rows: K1/K2 of the main path at 50 rows,
+    # K5/K6 of the GOB trainer at 10, alone on the card
+    dev = torch.device("cuda")
+    t, bnd = {}, {}
+    cfg, model, batch = main_path_setup(PAR_B // 2, 100, 3, dev)
+    spec = fs.Spec(cfg, "prng")
+    leaves = [p.detach() for p in fs.flat_leaves(model)]
+    arrays = (batch.times, batch.dt, batch.obs, batch.X, batch.n_obs_ot,
+              batch.start_X)
+    with torch.no_grad():
+        h0 = model.encoder_map(batch.start_X)
+    seed = torch.tensor([20251018], dtype=torch.int64, device=dev)
+    _, hists = fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, True, None,
+                                seed)
+    dloss = torch.ones((), device=dev)
+    t["K1"] = (cuda_ms(lambda: fs.scan_fwd_cuda(
+        spec, leaves, arrays, 0.5, h0, True, None, seed), 20),
+        cuda_ms(lambda: fs.scan_fwd_plain(spec, leaves, arrays, 0.5, h0,
+                                          True, None, seed), 2, 1))
+    t["K2"] = (cuda_ms(lambda: fs.scan_bwd_cuda(
+        spec, leaves, arrays, 0.5, True, hists, dloss, None, seed), 20),
+        cuda_ms(lambda: fs.scan_bwd_plain(spec, leaves, arrays, 0.5, True,
+                                          hists, dloss, None, seed), 2, 1))
+    sb = _scan_bounds(spec, 100, PAR_B // 2)
+    bnd["K1"], bnd["K2"] = sb["K1"], sb["K2"]
+    gcfg, _, _, garrays, gleaves, st = gob_setup(10, 100, 50, True, 1e-4,
+                                                 50, dev)
+    gspec = fg.Spec(gcfg, "prng")
+    _, ghists = fg.gob_scan_fwd_cuda(gspec, gleaves, garrays, *st, True,
+                                     None, seed)
+    t["K5"] = (cuda_ms(lambda: fg.gob_scan_fwd_cuda(
+        gspec, gleaves, garrays, *st, True, None, seed), 10),
+        cuda_ms(lambda: fg.gob_scan_fwd_plain(gspec, gleaves, garrays, *st,
+                                              True, None, seed), 2, 1))
+    t["K6"] = (cuda_ms(lambda: fg.gob_scan_bwd_cuda(
+        gspec, gleaves, garrays, True, ghists, dloss, None, seed), 5),
+        cuda_ms(lambda: fg.gob_scan_bwd_plain(gspec, gleaves, garrays, True,
+                                              ghists, dloss, None, seed),
+                1, 1))
+    (f5, b5), (f6, b6) = gob_bounds(gspec, 100, 10)
+    bnd["K5"], bnd["K6"] = bound(f5, b5, PEAK_FP32), bound(f6, b6,
+                                                           PEAK_FP32)
+    for k, (ms, plain) in t.items():
+        say("parallel", kernel=k, rows_a_rank=PAR_B // 2 if k in (
+            "K1", "K2") else 10, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+            bound_ms=f"{bnd[k][0]:.5f}", bound_by=bnd[k][1])
+    results["parallel"] = dict(errs=errs, times=t, bounds=bnd,
+                               launches=launches)
 
 
 def kernels_line(results):
@@ -3560,7 +3982,9 @@ def kernels_line(results):
     g = results["groups"]
     gm = g["times"]["main"]
     member_launches = {}
-    for counts in g["launches"].values():
+    par = results["parallel"]
+    # the groups phase's runs and the parallel phase's group on two ranks
+    for counts in list(g["launches"].values()) + par["launches"]["group"]:
         for k, v in counts.items():
             member_launches[k] = member_launches.get(k, 0) + v
     for name, key, replaces in (
@@ -3583,6 +4007,33 @@ def kernels_line(results):
                 "max_abs_err": 0.0, "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"]})
+    # data parallelism (the parallel phase): K1/K2 and K5/K6 at one rank's
+    # rows, timed alone on the card; launches: every launch made under a
+    # mesh (NCCL at world size 1, both gloo ranks); errors: one step at two
+    # ranks against the kernel without a mesh
+    pl = par["launches"]
+    ranks = pl["main"] + pl["climate"]
+    for name, key, s, replaces, launches, err in (
+            ("njode_scan_fwd_dp", "K1", src,
+             "njode_tpu/ops/fused_scan.py:1482",
+             pl["nccl1"]["njode_scan_fwd"]
+             + sum(c["njode_scan_fwd"] for c in ranks), par["errs"]["njode"]),
+            ("njode_scan_bwd_dp", "K2", src,
+             "njode_tpu/ops/fused_scan.py:1482",
+             pl["nccl1"]["njode_scan_bwd"]
+             + sum(c["njode_scan_bwd"] for c in ranks), par["errs"]["njode"]),
+            ("gob_scan_fwd_dp", "K5", gsrc,
+             "njode_tpu/ops/fused_gob.py:1100",
+             sum(c["gob_scan_fwd"] for c in pl["gob"]), par["errs"]["gob"]),
+            ("gob_scan_bwd_dp", "K6", gsrc,
+             "njode_tpu/ops/fused_gob.py:1100",
+             sum(c["gob_scan_bwd"] for c in pl["gob"]), par["errs"]["gob"])):
+        ms, plain = par["times"][key]
+        bms, by = par["bounds"][key]
+        out.append({"name": name, "route": "cuda", "source": s,
+                    "replaces": replaces, "launches": launches,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                    "bound_ms": bms, "bound_by": by, "library_ms": None})
     return json.dumps({"kernels": out})
 
 
@@ -3637,7 +4088,7 @@ def main():
         t0 = time.time()
         for phase in (phase_physionet_kernels, phase_physionet_timing,
                       phase_physionet_trainer, phase_physionet_rnn,
-                      phase_sweep, phase_groups):
+                      phase_sweep, phase_groups, phase_parallel):
             phase(results)
             say(phase.__name__[6:], phase_s=f"{time.time() - t0:.2f}")
             t0 = time.time()

@@ -19,8 +19,8 @@ import os
 import numpy as np
 
 from njode_tpu_torch.data import datasets as data_utils
-from njode_tpu_torch.training.sweeps import get_parameter_array, \
-    reject_grouping
+from njode_tpu_torch.parallel import multihost, sharding
+from njode_tpu_torch.training.sweeps import get_parameter_array
 from njode_tpu_torch.utils import paths as path_cfg
 
 NN50 = ((50, "tanh"), (50, "tanh"))
@@ -304,13 +304,17 @@ def run_experiment(name: str, nb_jobs: int = 1, vmap_groups: bool = False,
     (``kwargs`` go to the grid function, e.g. ``device`` and ``base_path``
     for those that create datasets): one run after another on the card, or
     with ``vmap_groups=True`` its repeats and folds as grouped ensembles
-    (``sweeps.parallel_training``). ``group_mesh`` raises
-    ``NotImplementedError`` before any dataset is made (ROADMAP.md Queue 1
-    item 7)."""
+    (``sweeps.parallel_training``), with a ``group_mesh`` split over its
+    ranks (rank 0 creates the grid's datasets before the others read
+    them)."""
     from njode_tpu_torch.training.sweeps import parallel_training
-    group_mesh = kwargs.pop("group_mesh", None)
-    reject_grouping(vmap_groups, group_mesh)
-    params, first_id = EXPERIMENTS[name](**kwargs)
+    group_mesh = sharding.check_mesh(kwargs.pop("group_mesh", None))
+    coordinator = multihost.is_coordinator(group_mesh)
+    if coordinator:
+        params, first_id = EXPERIMENTS[name](**kwargs)
+    multihost.barrier("run_experiment", group_mesh)
+    if not coordinator:
+        params, first_id = EXPERIMENTS[name](**kwargs)
     return parallel_training(params=params, nb_jobs=nb_jobs,
                              first_id=first_id, vmap_groups=vmap_groups,
                              group_mesh=group_mesh)

@@ -448,7 +448,8 @@ def evaluate(model: GOB, batch: GridBatch, next_cond_exp, diff_fun=None):
 # ---------------------------------------------------------------------------
 
 def make_step_fns(model: GOB, optimizer, times, dts, next_cond_exp=None,
-                  use_kernels: bool = False, mask_mode: str = "prng"):
+                  use_kernels: bool = False, mask_mode: str = "prng",
+                  mesh=None):
     """Step functions with the dict and signatures of
     ``training.steps.make_step_fns``, ``train_epochs`` included (the loss
     weight is accepted and ignored: ``mixing`` is fixed in the config).
@@ -458,47 +459,38 @@ def make_step_fns(model: GOB, optimizer, times, dts, next_cond_exp=None,
         form (ops/fused_gob.py; their plain versions on CPU tensors).
         ``eval_msd`` and ``pred_path`` stay eager, as in the JAX package.
     :param mask_mode: the kernels' dropout-mask source ('prng' or 'input')
+    :param mesh: data-parallel ``parallel.sharding.Mesh`` (as in
+        ``training.steps``); the loss, a sum over observations, and its
+        gradients are summed over the ranks
     """
+    from njode_tpu_torch.parallel import sharding
     from njode_tpu_torch.training.steps import gather_dense_batch, \
         make_train_epochs
 
     cfg = model.cfg
+    step = _gob_step(model, optimizer,
+                     _gob_train_loss(model, use_kernels, mask_mode, mesh),
+                     mesh)
     if use_kernels:
         from njode_tpu_torch.ops import fused_gob
-        fused = fused_gob.make_fused_loss_fn(cfg, mask_mode=mask_mode)
-        fused_eval = fused_gob.make_fused_eval_fn(cfg)
-
-        def _train_loss(batch, generator):
-            return fused(model, batch, generator, True)
+        fused_eval = fused_gob.make_fused_eval_fn(cfg, mesh=mesh)
 
         def _eval_loss(batch):
             return fused_eval(model, batch)
     else:
-        def _train_loss(batch, generator):
-            return forward(model, batch, train=True, generator=generator)[1]
-
         def _eval_loss(batch):
+            if mesh is not None:
+                batch = sharding.shard_batch(batch, mesh)
             with torch.no_grad():
-                return forward(model, batch, train=False)[1]
+                loss = forward(model, batch, train=False)[1]
+            return loss if mesh is None else sharding.all_reduce(loss, mesh)
 
     def _batch(paths, obs, idx):
         return gather_dense_batch(paths, obs, idx, times, dts)
 
-    # every parameter holds a gradient, zero where the loss does not reach
-    # (classification_model): Adam's L2 term then updates it as the JAX
-    # optimizer updates every leaf of the pytree
-    for p in model.parameters():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-
     def train_step(paths, obs, idx, weight, generator):
         """One optimizer step on batch rows ``idx``; returns the loss."""
-        batch = _batch(paths, obs, idx)
-        optimizer.zero_grad(set_to_none=False)
-        loss = _train_loss(batch, generator)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        return step(_batch(paths, obs, idx), generator)
 
     def train_epoch(paths, obs, idx_mat, weight, generator):
         """One step per row of ``idx_mat [n_batches, B]``; returns the
@@ -531,26 +523,59 @@ def make_step_fns(model: GOB, optimizer, times, dts, next_cond_exp=None,
     return fns
 
 
-def _gob_train_loss(model, use_kernels, mask_mode):
+def _gob_train_loss(model, use_kernels, mask_mode, mesh=None):
+    """``(batch, generator) -> loss``: the fused kernels or the eager
+    forward; with a ``mesh``, this rank's sum over its block of the global
+    batch's rows, from the global masks."""
+    from njode_tpu_torch.parallel import sharding
+
     if use_kernels:
         from njode_tpu_torch.ops import fused_gob
-        fused = fused_gob.make_fused_loss_fn(model.cfg, mask_mode=mask_mode)
+        fused = fused_gob.make_fused_loss_fn(model.cfg, mask_mode=mask_mode,
+                                             mesh=mesh)
         return lambda batch, generator: fused(model, batch, generator, True)
-    return lambda batch, generator: forward(model, batch, train=True,
-                                            generator=generator)[1]
+    if mesh is None:
+        return lambda batch, generator: forward(model, batch, train=True,
+                                                generator=generator)[1]
+    cfg = model.cfg
+
+    def loss(batch, generator):
+        K, B = batch.obs.shape
+        sharding.check_divisible(B, mesh)
+        masks = None
+        if cfg.dropout_rate > 0.0:
+            u0c, u0p, u = draw_masks(cfg, K, B, generator,
+                                     batch.start_X.device)
+            masks = (sharding.shard_rows(u0c, mesh),
+                     sharding.shard_rows(u0p, mesh),
+                     sharding.shard_rows(u, mesh, 2))
+        return forward(model, sharding.shard_batch(batch, mesh), train=True,
+                       drop_masks=masks)[1]
+
+    return loss
 
 
-def _gob_step(model, optimizer, train_loss):
+def _gob_step(model, optimizer, train_loss, mesh=None):
     """One optimizer step on a GridBatch. The GOB loss is a sum over
-    observations, so padded rows add nothing and no loss scale applies."""
+    observations, so padded rows add nothing and no loss scale applies;
+    with a ``mesh`` the gradients and the loss are summed over the ranks
+    before the step."""
+    from njode_tpu_torch.parallel import sharding
+
+    # every parameter holds a gradient, zero where the loss does not reach
+    # (classification_model): Adam's L2 term then updates it as the JAX
+    # optimizer updates every leaf of the pytree
     for p in model.parameters():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    params = list(model.parameters())
 
     def step(batch, generator):
         optimizer.zero_grad(set_to_none=False)
         loss = train_loss(batch, generator)
         loss.backward()
+        if mesh is not None:
+            loss = sharding.allreduce_grads(params, mesh, "sum", loss)
         optimizer.step()
         return loss.detach()
 
@@ -558,19 +583,23 @@ def _gob_step(model, optimizer, train_loss):
 
 
 def make_grid_step_fns(model: GOB, optimizer, sparse: bool = False,
-                       use_kernels: bool = False, mask_mode: str = "prng"):
+                       use_kernels: bool = False, mask_mode: str = "prng",
+                       mesh=None):
     """Real-data step functions with the dict and signatures of
     ``training.steps.make_grid_step_fns``; ``weight`` and ``loss_scale``
     are accepted for the interface and unused (the loss is an unnormalised
     sum over observations, ``mixing`` fixed in the config). The training
     loss runs through the fused GOB kernels when ``use_kernels``;
-    evaluation and prediction (the pre-jump mean path) stay eager."""
+    evaluation and prediction (the pre-jump mean path) stay eager. With a
+    ``mesh`` each rank trains and evaluates its block of the rows (loss
+    and gradients summed over the ranks)."""
     from njode_tpu_torch.data.grid import densify_sparse
     from njode_tpu_torch.training.steps import _index_batch, real_data_fns
 
     prep = densify_sparse if sparse else (lambda b: b)
     step = _gob_step(model, optimizer,
-                     _gob_train_loss(model, use_kernels, mask_mode))
+                     _gob_train_loss(model, use_kernels, mask_mode, mesh),
+                     mesh)
     D = model.cfg.input_size
 
     def train_step(b, weight, generator, loss_scale=1.0):
@@ -586,28 +615,31 @@ def make_grid_step_fns(model: GOB, optimizer, sparse: bool = False,
         return loss, torch.cat([p0[None, :, :D], p_pre[:, :, :D]], dim=0)
 
     return real_data_fns(pre_path, prep, train_step, train_epoch,
-                         scale_loss=False)
+                         scale_loss=False, mesh=mesh)
 
 
 def make_sparse_step_fns(model: GOB, optimizer, use_kernels: bool = False,
-                         mask_mode: str = "prng"):
+                         mask_mode: str = "prng", mesh=None):
     """SparseBatch step functions (see :func:`make_grid_step_fns`)."""
     return make_grid_step_fns(model, optimizer, sparse=True,
-                              use_kernels=use_kernels, mask_mode=mask_mode)
+                              use_kernels=use_kernels, mask_mode=mask_mode,
+                              mesh=mesh)
 
 
 def make_prestacked_step_fns(model: GOB, optimizer, times, dts,
                              use_kernels: bool = False,
-                             mask_mode: str = "prng", cov_bank=None):
+                             mask_mode: str = "prng", cov_bank=None,
+                             mesh=None):
     """Training steps over a pre-stacked event bank on the device (see
     ``training.steps.make_prestacked_step_fns``). ``cov_bank [N+1, C]``:
     per-series covariates (sentinel row N zeros) gathered per batch into
     ``start_X``, the input of ``covariates_map``; without it ``start_X``
-    is zero."""
+    is zero. With a ``mesh`` each rank trains on its block of the rows."""
     from njode_tpu_torch.training.steps import prestacked_batch
 
     step = _gob_step(model, optimizer,
-                     _gob_train_loss(model, use_kernels, mask_mode))
+                     _gob_train_loss(model, use_kernels, mask_mode, mesh),
+                     mesh)
 
     def _batch(k_all, X_all, M_all, idx):
         b = prestacked_batch(k_all, X_all, M_all, idx, times, dts)

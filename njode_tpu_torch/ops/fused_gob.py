@@ -1379,7 +1379,8 @@ def _require_supported(cfg):
             "models.gru_ode_bayes.forward")
 
 
-def make_fused_loss_fn(cfg, mask_mode: str = "prng", u_override=None):
+def make_fused_loss_fn(cfg, mask_mode: str = "prng", u_override=None,
+                       mesh=None):
     """Return ``loss_fn(model, batch, generator, train)``: the training loss
     through :class:`FusedGOBLoss`, differentiable in the model's parameters
     (the t=0 prologue runs in plain torch).
@@ -1393,14 +1394,26 @@ def make_fused_loss_fn(cfg, mask_mode: str = "prng", u_override=None):
 
     :param u_override: 'input' mode only: keep-masks ``[K,3,B,P]`` used
         instead of the draw (replays another mask stream, e.g. the prng
-        one, through the input path)."""
+        one, through the input path).
+    :param mesh: a ``parallel.sharding.Mesh``: as in
+        ``fused_scan.make_fused_loss_fn`` (the global masks drawn on every
+        rank and sliced, one 'prng' seed a rank, the kernels at ``B / n``
+        rows), except that the loss is a sum over observations: rank r
+        returns the sum over its rows, and ``parallel.sharding.
+        allreduce_grads(..., 'sum', loss)`` makes loss and gradients the
+        global batch's (the JAX package's ``psum``)."""
     from njode_tpu_torch.models import gru_ode_bayes as gob
+    from njode_tpu_torch.parallel import sharding
 
     _require_supported(cfg)
     spec = Spec(cfg, mask_mode)
+    sharding.check_mesh(mesh)
+    n_seeds = 1 if mesh is None else mesh.size
 
     def loss_fn(model, batch, generator, train):
         K, B = batch.obs.shape
+        if mesh is not None:
+            sharding.check_divisible(B, mesh)
         dev = batch.start_X.device
         dropping = spec.dropping(train)
         u = seed = None
@@ -1419,8 +1432,18 @@ def make_fused_loss_fn(cfg, mask_mode: str = "prng", u_override=None):
                                    device=dev) < keep
                 u = u.to(torch.int8).contiguous()
             else:
-                seed = torch.randint(0, 2 ** 62, (1,), generator=generator,
-                                     device=dev, dtype=torch.int64)
+                seed = torch.randint(0, 2 ** 62, (n_seeds,),
+                                     generator=generator, device=dev,
+                                     dtype=torch.int64)
+        if mesh is not None:
+            batch = sharding.shard_batch(batch, mesh)
+            if dropping:
+                u0c = sharding.shard_rows(u0c, mesh)
+                u0p = sharding.shard_rows(u0p, mesh)
+            if u is not None:
+                u = sharding.shard_rows(u, mesh, 2)
+            if seed is not None:
+                seed = seed[mesh.rank:mesh.rank + 1]
         rate = spec.rate if dropping else 0.0
         h0 = gob.mlp2(model.covariates_map, batch.start_X, rate, u0c)
         p0 = gob.mlp2(model.p_model, h0, rate, u0p)
@@ -1434,15 +1457,19 @@ def make_fused_loss_fn(cfg, mask_mode: str = "prng", u_override=None):
     return loss_fn
 
 
-def make_fused_eval_fn(cfg):
+def make_fused_eval_fn(cfg, mesh=None):
     """Return ``eval_fn(model, batch)``: the eval loss through K5's
-    history-free form (its plain version on CPU) at any batch size."""
+    history-free form (its plain version on CPU) at any batch size; with a
+    ``mesh`` each rank runs it on its block of the global ``batch``'s rows
+    and the blocks' sums are summed over the ranks."""
     from njode_tpu_torch.models import gru_ode_bayes as gob
+    from njode_tpu_torch.parallel import sharding
 
     _require_supported(cfg)
     spec = Spec(cfg, "input")
+    sharding.check_mesh(mesh)
 
-    def eval_fn(model, batch):
+    def local(model, batch):
         with torch.no_grad():
             h0 = gob.mlp2(model.covariates_map, batch.start_X, 0.0)
             p0 = gob.mlp2(model.p_model, h0, 0.0)
@@ -1452,5 +1479,11 @@ def make_fused_eval_fn(cfg):
                 p0[:, :spec.D].contiguous(), p0[:, spec.D:].contiguous(),
                 False, want_hists=False)
         return loss
+
+    def eval_fn(model, batch):
+        if mesh is None:
+            return local(model, batch)
+        return sharding.all_reduce(
+            local(model, sharding.shard_batch(batch, mesh)), mesh)
 
     return eval_fn

@@ -1510,12 +1510,12 @@ def batch_arrays(batch):
             batch.start_X, batch.M.contiguous())
 
 
-def _draw(spec, batch, generator, train, u_override=None):
+def _draw(spec, batch, generator, train, u_override=None, n_seeds=1):
     """The dropout draws of one training step, in ``njode.forward``'s
     order: the t=0 encoder's keep-masks, then the scan's ('input': a
-    ``[K,S,B,Wmax]`` int8 tensor, or ``u_override``; 'prng': one int64
-    Philox seed that stays on the device). Returns (encoder masks, u,
-    seed), None where nothing is drawn."""
+    ``[K,S,B,Wmax]`` int8 tensor, or ``u_override``; 'prng': ``n_seeds``
+    int64 Philox seeds, one a shard of a mesh, that stay on the device).
+    Returns (encoder masks, u, seed), None where nothing is drawn."""
     K, B = batch.obs.shape
     dev = batch.start_X.device
     if not (train and spec.rate > 0.0 and spec.S > 0):
@@ -1533,13 +1533,13 @@ def _draw(spec, batch, generator, train, u_override=None):
                            generator=generator, device=dev) < keep
         u = u.to(torch.int8).contiguous()
     else:
-        seed = torch.randint(0, 2 ** 62, (1,), generator=generator,
+        seed = torch.randint(0, 2 ** 62, (n_seeds,), generator=generator,
                              device=dev, dtype=torch.int64)
     return enc_masks, u, seed
 
 
 def make_fused_loss_fn(cfg, mask_mode: str = "prng", u_override=None,
-                       plan=None):
+                       plan=None, mesh=None):
     """Return ``loss_fn(model, batch, weight, generator, train)``: the
     training loss through :class:`FusedNJODELoss`, differentiable in the
     model's parameters (the t=0 encoder runs in plain torch).
@@ -1553,12 +1553,36 @@ def make_fused_loss_fn(cfg, mask_mode: str = "prng", u_override=None,
     :param u_override: 'input' mode only: keep-masks ``[K,S,B,Wmax]`` used
         instead of the draw (replays another mask stream, e.g. the prng
         one, through the input path).
-    :param plan: a forced ``(name, rows)`` kernel plan (see ``Spec``)."""
+    :param plan: a forced ``(name, rows)`` kernel plan (see ``Spec``).
+    :param mesh: a ``parallel.sharding.Mesh``: ``batch`` is the global
+        batch, whose rows the mesh size must divide, and every rank draws
+        the global masks from a generator in the same state ('prng': one
+        seed a rank, rank r taking seed r; a mesh of one draws exactly
+        what no mesh draws), then keeps its own rows and runs the kernels
+        at ``B / n`` rows. The loss returned is this rank's, a mean over
+        its rows: ``parallel.sharding.allreduce_grads(..., 'mean',
+        loss)`` after the backward makes loss and gradients the global
+        batch's (the JAX package's ``pmean`` under ``shard_map``)."""
+    from njode_tpu_torch.parallel import sharding
+
     _require_supported(cfg)
     spec = Spec(cfg, mask_mode, plan)
+    sharding.check_mesh(mesh)
+    n_seeds = 1 if mesh is None else mesh.size
 
     def loss_fn(model, batch, weight, generator, train):
-        enc_masks, u, seed = _draw(spec, batch, generator, train, u_override)
+        if mesh is not None:
+            sharding.check_divisible(batch.start_X.shape[0], mesh)
+        enc_masks, u, seed = _draw(spec, batch, generator, train, u_override,
+                                   n_seeds)
+        if mesh is not None:
+            batch = sharding.shard_batch(batch, mesh)
+            if enc_masks is not None:
+                enc_masks = [sharding.shard_rows(m, mesh) for m in enc_masks]
+            if u is not None:
+                u = sharding.shard_rows(u, mesh, 2)
+            if seed is not None:
+                seed = seed[mesh.rank:mesh.rank + 1]
         h0 = t0_state(model, batch, enc_masks)
         M = batch.M.contiguous() if spec.masked else None
         return FusedNJODELoss.apply(
@@ -1609,20 +1633,29 @@ def make_fused_members_loss_fn(cfg, mask_mode: str = "prng", plan=None):
     return loss_fn
 
 
-def make_fused_eval_fn(cfg, plan=None):
+def make_fused_eval_fn(cfg, plan=None, mesh=None):
     """Return ``eval_fn(model, batch, weight)``: the eval loss through the
     history-free forward (K3 on CUDA, its plain version on CPU) at any
-    batch size (``plan``: a forced kernel plan, see ``Spec``)."""
+    batch size (``plan``: a forced kernel plan, see ``Spec``). With a
+    ``mesh`` each rank runs K3 on its block of the global ``batch``'s rows
+    and the blocks' losses are combined into the global batch mean
+    (``parallel.sharding.batch_mean``), the same on every rank."""
+    from njode_tpu_torch.parallel import sharding
+
     _require_supported(cfg)
     spec = Spec(cfg, "input", plan)
+    sharding.check_mesh(mesh)
 
     def eval_fn(model, batch, weight):
+        B = batch.start_X.shape[0]
+        if mesh is not None:
+            batch = sharding.shard_batch(batch, mesh)
         with torch.no_grad():
             h0 = t0_state(model, batch)
             loss, _ = scan_fwd(spec, [p.detach() for p in
                                       flat_leaves(model)],
                                batch_arrays(batch), float(weight), h0, False,
                                want_hists=False)
-        return loss
+        return loss if mesh is None else sharding.batch_mean(loss, mesh, B)
 
     return eval_fn

@@ -23,7 +23,9 @@ evaluation (each member's validation and test split, built once as the
 solo trainer builds them) runs one member after another, eager. Artifacts
 are the solo trainer's (the same columns, the best checkpoint on
 ``eval_metric``, the ``save_every`` cadence); ``train_time``/``eval_time``
-are the group's wall time divided by E.
+are the group's wall time divided by E. Under a ``mesh`` the members split
+over the ranks as in ``group_sweep`` (``group_common.MemberShard``), rank 0
+writing every member's artifacts.
 """
 
 from __future__ import annotations
@@ -43,7 +45,6 @@ from njode_tpu_torch.training import group_common, steps
 from njode_tpu_torch.training.climate_trainer import METR_COLUMNS, \
     _load_fold_idx, batch_seed, default_enc_nn, default_ode_nn, \
     default_readout_nn, epoch_batches
-from njode_tpu_torch.training.group_sweep import _reject_mesh
 from njode_tpu_torch.utils import paths as path_cfg
 
 _MATCH_KEYS = (
@@ -119,11 +120,13 @@ def train_group(group_params, verbose=True, mesh=None):
     end with the solo trainer's artifacts; where the times are off the
     ``delta_t`` grid (no bank) its members train solo.
 
-    :param mesh: raises ``NotImplementedError`` (ROADMAP Queue 1 item 7).
+    :param mesh: a ``parallel.sharding.Mesh`` whose ranks split the members
+        (every rank calls with the same arguments)
     :return: list of 0s, one per member
     """
-    _reject_mesh(mesh)
     E = len(group_params)
+    shard = group_common.MemberShard(E, mesh)
+    verbose = verbose and shard.writer
     p0 = group_params[0]
     device = torch.device(p0.get("device", "cuda"))
     saved_models_path = p0.get("saved_models_path") or os.path.join(
@@ -189,9 +192,10 @@ def train_group(group_params, verbose=True, mesh=None):
             cfg)
     mask_mode = str(p0.get("pallas_mask_mode", "prng"))
 
-    rseeds = [int(p.get("seed", 398))
-              + 7_654_321 * int(p.get("repeat_seed", 0) or 0)
-              for p in group_params]
+    rseeds = shard.take([int(p.get("seed", 398))
+                         + 7_654_321 * int(p.get("repeat_seed", 0) or 0)
+                         for p in group_params])
+    l_folds = shard.take(folds)
     models, optimizers, evals = [], [], []
     for r in rseeds:
         with torch.random.fork_rng(devices=[]):
@@ -205,7 +209,7 @@ def train_group(group_params, verbose=True, mesh=None):
                                                 mask_mode))
     # fold position -> bank row
     bank_pos = [np.searchsorted(ds_all.ids, fold_sets[f]["train_ids"])
-                for f in folds]
+                for f in l_folds]
     n_trains = [len(bp) for bp in bank_pos]
 
     Kp, Emax, Dp = (pre["times"].shape[0], pre["k"].shape[1],
@@ -237,10 +241,10 @@ def train_group(group_params, verbose=True, mesh=None):
         return sparse_to_torch(sb, device), pairs
 
     splits = {f: (_split(fold_sets[f]["val"]), _split(fold_sets[f]["test"]))
-              for f in fold_sets}
+              for f in set(l_folds)}
 
     arts = group_common.MemberArtifacts(group_params, saved_models_path,
-                                        METR_COLUMNS)
+                                        METR_COLUMNS, shard.writer)
     cur_weight = float(p0.get("weight", 0.5))
     w_decay = float(p0.get("weight_decay", 1.0))
     best = np.full(E, np.inf)
@@ -274,33 +278,22 @@ def train_group(group_params, verbose=True, mesh=None):
 
         t0 = time.time()
         rows = []
-        for e, f in enumerate(folds):
+        for e, f in enumerate(l_folds):
             val_split, test_split = splits[f]
-            rows.append(_evaluate(e, val_split) + _evaluate(e, test_split))
+            rows.append([train_losses[e]] + list(_evaluate(e, val_split))
+                        + list(_evaluate(e, test_split)))
+        # every member's [train_loss, loss_val, mse_val, loss_test,
+        # mse_test] on every rank
+        rows = shard.gather(torch.tensor(rows, dtype=torch.float64)).tolist()
         eval_time = (time.time() - t0) / E
         if verbose:
             print(f"epoch {epoch}, weight={cur_weight:.5f}, eval-metric="
-                  f"{[round(r[1], 5) for r in rows]}")
-
-        host = None
-        for i, (loss_val, mse_val, loss_test, mse_test) in enumerate(rows):
-            arts.append(i, [epoch, train_time, eval_time, train_losses[i],
-                            loss_val, mse_val, loss_test, mse_test])
-            improved = mse_val < best[i]
-            save_last = epoch % save_every == 0
-            if not (improved or save_last):
-                continue
-            if host is None:
-                host = group_common.member_states(
-                    [(m.state_dict(), o.state_dict())
+                  f"{[round(r[2], 5) for r in rows]}")
+        group_common.record_epoch(
+            arts, shard, [[epoch, train_time, eval_time] + r for r in rows],
+            [r[2] for r in rows], best, epoch, cur_weight, save_every,
+            lambda: [(m.state_dict(), o.state_dict())
                      for m, o in zip(models, optimizers)])
-            state = host[i]
-            if improved:
-                arts.save(i, "best_checkpoint", state, epoch, cur_weight)
-                best[i] = mse_val
-            if save_last:
-                arts.flush(i)
-                arts.save(i, "last_checkpoint", state, epoch, cur_weight)
         cur_weight = njode.weight_decay_step(cur_weight, w_decay)
 
     arts.flush_pending()

@@ -24,6 +24,12 @@ Dropout draws from one ``torch.Generator`` per batch, seeded from (seed,
 epoch, batch start): the batches are the JAX trainer's (the same numpy
 permutations), the dropout masks are not (JAX's ``fold_in`` key stream
 cannot be reproduced in torch).
+
+With the option 'mesh' (a ``parallel.sharding.Mesh``; every rank calls
+``train`` with the same arguments) each rank trains on its block of every
+batch's rows, the validation and test batches are padded to a multiple of
+the mesh size (their losses scaled back to 1/B) and split the same way,
+and only rank 0 writes the registry, the metric CSV and the checkpoints.
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ from njode_tpu_torch.data.grid import nearest_grid_steps, \
 from njode_tpu_torch.models import gru_ode_bayes as gob
 from njode_tpu_torch.models import njode
 from njode_tpu_torch.models.mlp import count_params
-from njode_tpu_torch.training import checkpoints, registry
+from njode_tpu_torch.parallel import multihost, sharding
+from njode_tpu_torch.training import checkpoints
 from njode_tpu_torch.training import steps
 from njode_tpu_torch.utils import paths as path_cfg
 from njode_tpu_torch.utils.csv_frame import read_frame, to_float, \
@@ -107,14 +114,16 @@ def train(
     'prestack' (default True), 'use_pallas' (the fused kernels; default: on
     CUDA for a supported config), 'pallas_mask_mode' ('prng' or 'input'),
     'other_model' ("GRU_ODE_Bayes" with its 'GRU_ODE_Bayes-<name>'
-    options). 'remat' and 'pallas_interpret' steer the JAX scan only and
-    are ignored. 'mesh' raises ``NotImplementedError``.
+    options), 'mesh' (a ``parallel.sharding.Mesh``: data-parallel training;
+    ``batch_size`` must divide by its size; kept out of the registry
+    description). 'remat' and 'pallas_interpret' steer the JAX scan only
+    and are ignored.
     :return: 0
     """
-    if options.pop("mesh", None) is not None:
-        raise NotImplementedError(
-            "option 'mesh' is not ported yet (ROADMAP.md Queue 1 item 7: "
-            "data parallelism)")
+    mesh = sharding.check_mesh(options.pop("mesh", None))
+    if mesh is not None and batch_size % mesh.size:
+        raise ValueError(f"batch_size={batch_size} must be divisible by the "
+                         f"mesh size {mesh.size} for data-parallel training")
     device = torch.device(device)
     saved_models_path = saved_models_path or os.path.join(
         os.path.dirname(path_cfg.saved_models_path.rstrip("/")),
@@ -168,7 +177,8 @@ def train(
     resume_training = False
     if not options.get("parallel", False):
         model_id, desc, saved_params, resume_training = \
-            registry.resolve_model_id(saved_models_path, model_id, desc)
+            multihost.resolve_model_id_synced(saved_models_path, model_id,
+                                              desc, mesh)
         if resume_training:
             initial_print += "\nmodel_id already exists -> resume training"
             params_dict = saved_params
@@ -233,20 +243,25 @@ def train(
                       "kernels are off or do not cover this config)")
     if model_name == "NJ-ODE":
         fns = steps.make_sparse_step_fns(model, optimizer, use_kernels,
-                                         mask_mode)
+                                         mask_mode, mesh)
     else:
         fns = gob.make_sparse_step_fns(model, optimizer, use_kernels,
-                                       mask_mode)
+                                       mask_mode, mesh)
 
     max_events = data_train.max_batch_events(batch_size)
     use_cov = cov_file is not None and model_name == "GRU-ODE-Bayes"
 
     def _full_batch(ds):
         ev = ds.collate(np.arange(len(ds)))
+        # under a mesh the full split is padded to a multiple of the mesh
+        # size; the loss scale Bp / B undoes the changed 1/B
+        B = ev["batch_size"]
+        Bp = B if mesh is None else -(-B // mesh.size) * mesh.size
         sb = sparse_from_events(ev, delta_t, T, max_steps,
                                 max_events=len(ev["obs_idx"]),
+                                pad_batch_to=Bp,
                                 cov=ev["cov"] if use_cov else None)
-        return ev, sb
+        return ev, sb, Bp / B
 
     def _heldout_pairs(ev, sb):
         k = nearest_grid_steps(sb.times, ev["times_val"])
@@ -255,8 +270,8 @@ def train(
             np.asarray(ev["X_val"], np.float32),
             np.asarray(ev["M_val"], np.float32)))
 
-    ev_val, sb_val = _full_batch(data_val)
-    ev_test, sb_test = _full_batch(data_test)
+    ev_val, sb_val, scale_val = _full_batch(data_val)
+    ev_test, sb_test, scale_test = _full_batch(data_test)
     pairs_val = _heldout_pairs(ev_val, sb_val)
     pairs_test = _heldout_pairs(ev_test, sb_test)
     b_val = sparse_to_torch(sb_val, device)
@@ -288,13 +303,15 @@ def train(
             resume_training = False
     if not resume_training:
         initial_print += "\ninitiate new model ..."
+    if mesh is not None:
+        sharding.shard_params(model, mesh, optimizer)
 
-    def evaluate_model(b_dev, pairs):
+    def evaluate_model(b_dev, pairs, scale):
         """(loss, masked-MSE metric) on a held-out split: one forward for
         the loss and the prediction path, the held-out points gathered on
         the device."""
         loss, se, n = fns["eval_loss_and_heldout_mse"](b_dev, *pairs,
-                                                       cur_weight)
+                                                       cur_weight, scale)
         return float(loss), float(se) / max(float(n), 1.0)
 
     n_train = len(data_train)
@@ -309,7 +326,8 @@ def train(
                         pre["X"].shape[2])
         if model_name == "NJ-ODE":
             pre_fns = steps.make_prestacked_step_fns(
-                model, optimizer, times_d, dts_d, use_kernels, mask_mode)
+                model, optimizer, times_d, dts_d, use_kernels, mask_mode,
+                mesh)
         else:
             cov_bank = (torch.as_tensor(np.concatenate(
                 [pre["cov"], np.zeros((1, pre["cov"].shape[1]),
@@ -317,7 +335,7 @@ def train(
                 if use_cov else None)
             pre_fns = gob.make_prestacked_step_fns(
                 model, optimizer, times_d, dts_d, use_kernels, mask_mode,
-                cov_bank=cov_bank)
+                cov_bank=cov_bank, mesh=mesh)
         # sentinel series N: zero events, pads the last short batch
         d_k = torch.as_tensor(np.concatenate(
             [pre["k"], np.full((1, Emax), Kp, np.int32)]).astype(np.int64),
@@ -352,8 +370,12 @@ def train(
         print("start training ...")
 
     def _save(path):
-        checkpoints.save_checkpoint(path, model, optimizer, epoch,
-                                    cur_weight)
+        multihost.coordinator_only(checkpoints.save_checkpoint, path, model,
+                                   optimizer, epoch, cur_weight, mesh=mesh)
+
+    def _write_rows():
+        multihost.coordinator_only(write_frame, model_metric_file,
+                                   METR_COLUMNS, metric_rows, mesh=mesh)
 
     pending = (None if (pre is not None or epoch > epochs)
                else _collate_epoch(epoch))
@@ -376,7 +398,7 @@ def train(
         train_time = time.time() - t0
 
         t0 = time.time()
-        loss_val, mse_val = evaluate_model(b_val, pairs_val)
+        loss_val, mse_val = evaluate_model(b_val, pairs_val, scale_val)
         eval_time = time.time() - t0
         print(f"epoch {epoch}, weight={cur_weight:.5f}, "
               f"train-loss={train_loss:.5f}, eval-loss={loss_val:.5f}, "
@@ -388,14 +410,15 @@ def train(
                   f"epoch: {epoch}")
             _save(model_path_save_best)
             best_eval_metric = mse_val
-        loss_test, mse_test = evaluate_model(b_test, pairs_test)
+        loss_test, mse_test = evaluate_model(b_test, pairs_test,
+                                             scale_test)
         print(f"test-loss={loss_test:.5f}, test-metric={mse_test:.5f}")
         metric_rows.append([epoch, train_time, eval_time, train_loss,
                             loss_val, mse_val, loss_test, mse_test])
 
         if epoch % save_every == 0:
             print("save model ...")
-            write_frame(model_metric_file, METR_COLUMNS, metric_rows)
+            _write_rows()
             _save(model_path_save_last)
             print("saved!")
 
@@ -404,5 +427,5 @@ def train(
 
     # flush trailing metric rows (the JAX trainer's fix of the reference)
     if metric_rows:
-        write_frame(model_metric_file, METR_COLUMNS, metric_rows)
+        _write_rows()
     return 0

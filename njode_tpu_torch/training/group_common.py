@@ -5,7 +5,8 @@ folds over the series bank). The planner, the normal form of param values
 for group keys, one device-to-host copy of all members' states per save
 event, the per-member artifacts (``id-<id>/`` folders, metric CSVs,
 last/best checkpoints in the ``checkpoints`` format), and the group step
-that trains E models of one config through the member-axis kernels.
+that trains E models of one config through the member-axis kernels, and
+the split of a group's members over a data mesh (:class:`MemberShard`).
 
 A group keeps one ``NJODE`` module and one ``torch.optim.Adam`` per member,
 built as the solo trainer builds them. A step stacks the live members'
@@ -20,8 +21,10 @@ from __future__ import annotations
 import os
 
 import torch
+import torch.distributed as dist
 
 from njode_tpu_torch.models import njode
+from njode_tpu_torch.parallel import sharding
 from njode_tpu_torch.training import checkpoints
 from njode_tpu_torch.utils.csv_frame import write_frame
 from njode_tpu_torch.utils.paths import makedirs
@@ -107,19 +110,68 @@ def _flat_tensors(obj):
     return out
 
 
+class MemberShard:
+    """The members of a group that this process trains. Without a ``mesh``:
+    all E. Under a mesh (``parallel.sharding.Mesh``) the group is padded to
+    a multiple of the mesh size with ghost copies of its last member (the
+    JAX package's ghost padding) and split in contiguous blocks of slots,
+    rank r training its block (``members``: the member each slot trains).
+    The members are independent, so training needs no collective;
+    :meth:`gather` brings every member's values to every rank and
+    :meth:`gather_states` their states to rank 0, the ``writer``, ghosts
+    dropped."""
+
+    def __init__(self, E, mesh=None):
+        self.E, self.mesh = E, sharding.check_mesh(mesh)
+        n = 1 if mesh is None else mesh.size
+        self.n_slots = -(-E // n) * n
+        lo, hi = (0, E) if mesh is None else mesh.rows(self.n_slots)
+        self.members = [min(i, E - 1) for i in range(lo, hi)]
+        self.writer = mesh is None or mesh.rank == 0
+
+    def take(self, seq):
+        """``seq``'s entries of this rank's slots."""
+        return [seq[i] for i in self.members]
+
+    def gather(self, t, dim=0):
+        """Every member's values along ``dim`` from this rank's slots'."""
+        if self.mesh is None:
+            return t
+        return sharding.gather_rows(t, self.mesh, self.n_slots,
+                                    dim).narrow(dim, 0, self.E)
+
+    def gather_states(self, states):
+        """``states`` (this rank's slots' (model, optimizer) state pairs)
+        on the host (:func:`member_states`): every member's on the writer,
+        None on the other ranks."""
+        host = member_states(states)
+        if self.mesh is None:
+            return host
+        parts = [None] * self.mesh.size if self.writer else None
+        dist.gather_object(host, parts, dst=self.mesh.coordinator,
+                           group=self.mesh.group)
+        return ([s for part in parts for s in part][:self.E] if self.writer
+                else None)
+
+
 class MemberArtifacts:
     """Per-member artifacts in the solo trainers' layout: ``id-<model_id>/``
     with last/best checkpoint slots and ``metric_id-<id>.csv``, rows kept
-    per member and written on :meth:`flush` (the solo trainers' cadence)."""
+    per member and written on :meth:`flush` (the solo trainers' cadence).
+    Where ``writer`` is False (a rank of a mesh other than 0) nothing is
+    written."""
 
-    def __init__(self, group_params, saved_models_path, columns):
+    def __init__(self, group_params, saved_models_path, columns,
+                 writer=True):
         self.columns = list(columns)
+        self.writer = writer
         self.model_dirs, self.metric_files, self.rows = [], [], []
         self.pending = []
         for p in group_params:
             mdir = os.path.join(saved_models_path, f"id-{p['model_id']}")
-            makedirs(os.path.join(mdir, "last_checkpoint"))
-            makedirs(os.path.join(mdir, "best_checkpoint"))
+            if writer:
+                makedirs(os.path.join(mdir, "last_checkpoint"))
+                makedirs(os.path.join(mdir, "best_checkpoint"))
             self.model_dirs.append(mdir)
             self.metric_files.append(os.path.join(
                 mdir, f"metric_id-{p['model_id']}.csv"))
@@ -131,7 +183,8 @@ class MemberArtifacts:
         self.pending[i] = True
 
     def flush(self, i):
-        write_frame(self.metric_files[i], self.columns, self.rows[i])
+        if self.writer:
+            write_frame(self.metric_files[i], self.columns, self.rows[i])
         self.pending[i] = False
 
     def flush_pending(self):
@@ -145,7 +198,33 @@ class MemberArtifacts:
     def save(self, i, slot, state, epoch, weight):
         """Write member i's ``(model state, optimizer state)`` to ``slot``
         ('last_checkpoint' or 'best_checkpoint')."""
-        checkpoints.save_state(self.ckpt_dir(i, slot), *state, epoch, weight)
+        if self.writer:
+            checkpoints.save_state(self.ckpt_dir(i, slot), *state, epoch,
+                                   weight)
+
+
+def record_epoch(arts, shard, rows, metric, best, epoch, weight, save_every,
+                 states):
+    """The real-data groups' writes of one epoch: member i's ``rows[i]``
+    appended; its best checkpoint where ``metric[i]`` beats ``best[i]``
+    (then updated); its rows flushed and its last checkpoint written on
+    the ``save_every`` cadence. ``states()``: this rank's slots'
+    (model, optimizer) state pairs, brought to the writer once and only
+    where a slot is written (``shard.gather_states``)."""
+    save_last = epoch % save_every == 0
+    for i, row in enumerate(rows):
+        arts.append(i, row)
+    saving = [i for i in range(shard.E) if save_last or metric[i] < best[i]]
+    host = shard.gather_states(states()) if saving else None
+    for i in saving:
+        if metric[i] < best[i]:
+            if host is not None:
+                arts.save(i, "best_checkpoint", host[i], epoch, weight)
+            best[i] = metric[i]
+        if save_last:
+            arts.flush(i)
+            if host is not None:
+                arts.save(i, "last_checkpoint", host[i], epoch, weight)
 
 
 def make_group_step(models, optimizers, use_kernels, mask_mode="prng"):

@@ -24,7 +24,11 @@ CPU (the plain versions). The evaluation runs each member as the solo
 trainer does (K3, one launch a member; the oracle's mean squared
 difference eager). Deviations, as in the JAX package: no per-epoch plots
 (draw them from the checkpoints), and ``train_time``/``eval_time`` are the
-group's wall time divided by E.
+group's wall time divided by E. Under a ``mesh`` the members split over
+the ranks (``group_common.MemberShard``: ghost copies of the last member
+pad the group to a multiple of the mesh size), each rank training its
+members through one member-axis launch a step; rank 0 gathers every
+member's row and state and writes the artifacts.
 """
 
 from __future__ import annotations
@@ -214,13 +218,6 @@ def make_group_step_fns(models, optimizers, times, dts, next_cond_exp=None,
             "eval_all": eval_all, "train_epochs": train_epochs}
 
 
-def _reject_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "a group's 'mesh' is not ported yet (ROADMAP.md Queue 1 item 7: "
-            "data parallelism)")
-
-
 def train_group(group_params, verbose=True, pad_batches_to=None,
                 mesh=None):
     """Train one group end to end with the solo trainer's artifacts.
@@ -232,11 +229,13 @@ def train_group(group_params, verbose=True, pad_batches_to=None,
         padding batch, so the port skips them: no launch, no optimizer
         step, an exact no-op (the JAX package runs them to share one
         compiled program and suppresses their updates).
-    :param mesh: raises ``NotImplementedError`` (ROADMAP Queue 1 item 7).
+    :param mesh: a ``parallel.sharding.Mesh`` whose ranks split the members
+        (every rank calls with the same arguments); a member's numbers are
+        those it has without one
     :return: list of 0s (reference convention), one per member
     """
-    _reject_mesh(mesh)
     E = len(group_params)
+    shard = group_common.MemberShard(E, mesh)
     p0 = group_params[0]
     device = torch.device(p0.get("device", "cuda"))
     saved_models_path = (p0.get("saved_models_path")
@@ -293,7 +292,10 @@ def train_group(group_params, verbose=True, pad_batches_to=None,
                          "(group_key enforces this)")
     n_full = (n_train // batch_size) * batch_size
     n_batches = n_full // batch_size
-    val_idxs = [torch.as_tensor(v, device=device) for _, v in splits]
+    # this rank's slots (all members without a mesh)
+    l_rseeds, l_splits = shard.take(rseeds), shard.take(splits)
+    EL = len(l_rseeds)
+    val_idxs = [torch.as_tensor(v, device=device) for _, v in l_splits]
 
     # each member's optimal eval loss on its validation split (as solo)
     opt_losses = []
@@ -306,7 +308,7 @@ def train_group(group_params, verbose=True, pad_batches_to=None,
 
     lr = float(p0.get("learning_rate", 1e-3))
     models, optimizers = [], []
-    for r in rseeds:
+    for r in l_rseeds:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(r)
             model = njode.NJODE(cfg)
@@ -322,6 +324,7 @@ def train_group(group_params, verbose=True, pad_batches_to=None,
                               use_kernels=bool(use_kernels),
                               mask_mode=str(p0.get("pallas_mask_mode",
                                                    "prng")))
+    verbose = verbose and shard.writer
     if verbose and (pad_batches_to or 0) > n_batches:
         print(f"group: {pad_batches_to - n_batches} padding batches an "
               "epoch skipped (exact no-ops)")
@@ -329,7 +332,7 @@ def train_group(group_params, verbose=True, pad_batches_to=None,
     metr_columns = METR_COLUMNS + (["evaluation_mean_diff"] if evaluate
                                    else [])
     arts = group_common.MemberArtifacts(group_params, saved_models_path,
-                                        metr_columns)
+                                        metr_columns, shard.writer)
     save_every = int(p0.get("save_every", 1))
     cur_weight = float(p0.get("weight", 0.5))
     w_decay = float(p0.get("weight_decay", 1.0))
@@ -343,19 +346,19 @@ def train_group(group_params, verbose=True, pad_batches_to=None,
 
     def _perm(e, ep):
         return np.random.RandomState(
-            (rseeds[e] * 100_003 + ep) % 2 ** 32).permutation(n_train)
+            (l_rseeds[e] * 100_003 + ep) % 2 ** 32).permutation(n_train)
 
     def _generators(ep):
         return [torch.Generator(device=device).manual_seed(
-            ((r + 1) * 100_003 + ep) % 2 ** 63) for r in rseeds]
+            ((r + 1) * 100_003 + ep) % 2 ** 63) for r in l_rseeds]
 
     def _epoch_rows(ep):
-        """``[E, n_batches, B]`` global rows of each member's batches (its
-        shuffle over its training positions) and each member's tail
+        """``[EL, n_batches, B]`` global rows of each slot's batches (its
+        member's shuffle over its training positions) and each slot's tail
         rows."""
-        mats = np.zeros((E, n_batches, batch_size), np.int64)
+        mats = np.zeros((EL, n_batches, batch_size), np.int64)
         tails = []
-        for e, (tr, _) in enumerate(splits):
+        for e, (tr, _) in enumerate(l_splits):
             rows = np.asarray(tr)[_perm(e, ep)]
             mats[e, :n_batches] = rows[:n_full].reshape(n_batches,
                                                         batch_size)
@@ -364,9 +367,9 @@ def train_group(group_params, verbose=True, pad_batches_to=None,
 
     def _bookkeep(ep, last_losses, ev, ms, ttime, etime, weight, states):
         """Each member's metric row and checkpoints, the solo trainer's
-        cadence (``states()``: the members' (model, optimizer) states on
-        the host, fetched once and only when a slot is written)."""
-        host = None
+        cadence (``last_losses``, ``ev``, ``ms``: every member's;
+        ``states()``: this rank's slots' (model, optimizer) states, brought
+        to the writer once and only when a slot is written)."""
         for i in range(E):
             row = [ep, ttime, etime, float(last_losses[i]), float(ev[i]),
                    opt_losses[i]]
@@ -376,18 +379,16 @@ def train_group(group_params, verbose=True, pad_batches_to=None,
         if verbose:
             print(f"epoch {ep}, weight={weight:.5f}, eval-loss="
                   f"{np.array2string(np.asarray(ev), precision=5)}")
-        for i in range(E):
-            save_last = ep % save_every == 0
-            improved = ev[i] < best_eval[i]
-            if not (save_last or improved):
-                continue
-            if host is None:
-                host = group_common.member_states(states())
-            state = host[i]
+        saving = [i for i in range(E)
+                  if ep % save_every == 0 or ev[i] < best_eval[i]]
+        host = shard.gather_states(states()) if saving else None
+        for i in saving:
             arts.flush(i)
-            arts.save(i, "last_checkpoint", state, ep, weight)
-            if improved:
-                arts.save(i, "best_checkpoint", state, ep, weight)
+            if host is not None:
+                arts.save(i, "last_checkpoint", host[i], ep, weight)
+            if ev[i] < best_eval[i]:
+                if host is not None:
+                    arts.save(i, "best_checkpoint", host[i], ep, weight)
                 best_eval[i] = ev[i]
 
     epoch_chunk = int(p0.get("epoch_chunk", 0) or 0)
@@ -420,7 +421,7 @@ def train_group(group_params, verbose=True, pad_batches_to=None,
             d_paths, d_obs, [_epoch_rows(epoch + j)[0] for j in range(n_ep)],
             ws, [_generators(epoch + j) for j in range(n_ep)], val_idxs,
             evaluate)
-        tl, ev, ms = (t.cpu().numpy() for t in (tl, ev, ms))
+        tl, ev, ms = (shard.gather(t, 1).cpu().numpy() for t in (tl, ev, ms))
         per_ep = (time.time() - t0) / (n_ep * E)
         for j in range(n_ep):
             _bookkeep(epoch + j, tl[j], ev[j], ms[j], per_ep, 0.0, ws[j],
@@ -440,13 +441,13 @@ def train_group(group_params, verbose=True, pad_batches_to=None,
             losses.append(fns["train_step"](
                 d_paths, d_obs, [torch.as_tensor(t, device=device)
                                  for t in tails], cur_weight, gens)[None])
-        last = torch.cat(losses)[-1].cpu().numpy()
+        last = shard.gather(torch.cat(losses)[-1]).cpu().numpy()
         train_time = (time.time() - t0) / E
 
         t0 = time.time()
         ev, ms = fns["eval_all"](d_paths, d_obs, val_idxs, cur_weight,
                                  evaluate)
-        ev, ms = ev.cpu().numpy(), ms.cpu().numpy()
+        ev, ms = shard.gather(ev).cpu().numpy(), shard.gather(ms).cpu().numpy()
         eval_time = (time.time() - t0) / E
         _bookkeep(epoch, last, ev, ms, train_time, eval_time, cur_weight,
                   lambda: [(m.state_dict(), o.state_dict())

@@ -20,7 +20,9 @@ eager, on the shared test batch, as the solo trainer's does. Artifacts are
 the solo trainer's: ``metric_id-<id>.csv`` (the same columns), the best
 checkpoint on ``eval_metric``, the ``save_every`` cadence. Deviations, as
 in the JAX package: ``train_time``/``eval_time`` are the group's wall time
-divided by E, and no figures.
+divided by E, and no figures. Under a ``mesh`` the members split over the
+ranks as in ``group_sweep`` (``group_common.MemberShard``), rank 0 writing
+every member's artifacts.
 """
 
 from __future__ import annotations
@@ -39,7 +41,6 @@ from njode_tpu_torch.ops import fused_scan
 from njode_tpu_torch.training import group_common, steps
 from njode_tpu_torch.training.climate_trainer import batch_seed, \
     epoch_batches
-from njode_tpu_torch.training.group_sweep import _reject_mesh
 from njode_tpu_torch.training.physionet_trainer import METR_COLUMNS, \
     _events, default_enc_nn, default_ode_nn, default_readout_nn
 from njode_tpu_torch.utils import paths as path_cfg
@@ -124,11 +125,13 @@ def train_group(group_params, verbose=True, mesh=None):
     artifacts; where the records are off the ``delta_t`` grid (no bank),
     its members train solo one after another.
 
-    :param mesh: raises ``NotImplementedError`` (ROADMAP Queue 1 item 7).
+    :param mesh: a ``parallel.sharding.Mesh`` whose ranks split the members
+        (every rank calls with the same arguments)
     :return: list of 0s, one per member
     """
-    _reject_mesh(mesh)
     E = len(group_params)
+    shard = group_common.MemberShard(E, mesh)
+    verbose = verbose and shard.writer
     p0 = group_params[0]
     device = torch.device(p0.get("device", "cuda"))
     saved_models_path = p0.get("saved_models_path") or os.path.join(
@@ -186,9 +189,9 @@ def train_group(group_params, verbose=True, mesh=None):
             cfg)
     mask_mode = str(p0.get("pallas_mask_mode", "prng"))
 
-    rseeds = [int(p.get("seed", 398))
-              + 7_654_321 * int(p.get("repeat_seed", 0) or 0)
-              for p in group_params]
+    rseeds = shard.take([int(p.get("seed", 398))
+                         + 7_654_321 * int(p.get("repeat_seed", 0) or 0)
+                         for p in group_params])
     models, optimizers, evals = [], [], []
     for r in rseeds:
         with torch.random.fork_rng(devices=[]):
@@ -231,7 +234,7 @@ def train_group(group_params, verbose=True, mesh=None):
     d_mask_val = torch.as_tensor(test_collate["mask_val"], device=device)
 
     arts = group_common.MemberArtifacts(group_params, saved_models_path,
-                                        METR_COLUMNS)
+                                        METR_COLUMNS, shard.writer)
     n_train = len(train_records)
     cur_weight = float(p0.get("weight", 0.5))
     w_decay = float(p0.get("weight_decay", 1.0))
@@ -259,35 +262,22 @@ def train_group(group_params, verbose=True, mesh=None):
 
         t0 = time.time()
         rows = []
-        for e in range(E):
+        for e in range(len(rseeds)):
             loss, sq, cnt, mse2 = evals[e]["eval_loss_and_masked_metrics"](
                 b_test, k_per_t, d_vals_val, d_mask_val, cur_weight)
-            rows.append((float(loss), float(sq) / max(float(cnt), 1.0),
-                         float(mse2)))
+            rows.append([float(train_losses[e]), float(loss),
+                         float(sq) / max(float(cnt), 1.0), float(mse2)])
+        # every member's [train_loss, loss_val, mse, mse2] on every rank
+        rows = shard.gather(torch.tensor(rows, dtype=torch.float64)).tolist()
         eval_time = (time.time() - t0) / E
         if verbose:
             print(f"epoch {epoch}, weight={cur_weight:.5f}, eval-metric="
-                  f"{[round(r[1], 5) for r in rows]}")
-
-        host = None
-        for i, (loss_val, mse, mse2) in enumerate(rows):
-            arts.append(i, [epoch, train_time, eval_time,
-                            float(train_losses[i]), loss_val, mse, mse2])
-            improved = mse < best[i]
-            save_last = epoch % save_every == 0
-            if not (improved or save_last):
-                continue
-            if host is None:
-                host = group_common.member_states(
-                    [(m.state_dict(), o.state_dict())
+                  f"{[round(r[2], 5) for r in rows]}")
+        group_common.record_epoch(
+            arts, shard, [[epoch, train_time, eval_time] + r for r in rows],
+            [r[2] for r in rows], best, epoch, cur_weight, save_every,
+            lambda: [(m.state_dict(), o.state_dict())
                      for m, o in zip(models, optimizers)])
-            state = host[i]
-            if improved:
-                arts.save(i, "best_checkpoint", state, epoch, cur_weight)
-                best[i] = mse
-            if save_last:
-                arts.flush(i)
-                arts.save(i, "last_checkpoint", state, epoch, cur_weight)
         cur_weight = njode.weight_decay_step(cur_weight, w_decay)
 
     arts.flush_pending()

@@ -24,6 +24,12 @@ split in one batch) runs the eager forward, as the JAX trainer's runs the
 XLA scan. Batches and loss scales are the JAX trainer's (the same numpy
 permutations); dropout draws from one ``torch.Generator`` per batch, not
 JAX's key stream.
+
+With the option 'mesh' (a ``parallel.sharding.Mesh``; every rank calls
+``train`` with the same arguments) each rank trains on its block of every
+batch's rows, the test batch is padded to a multiple of the mesh size (its
+loss scaled back to 1/B) and split the same way, and only rank 0 writes
+the registry, the metric CSV and the checkpoints.
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ from njode_tpu_torch.data.grid import nearest_grid_steps, \
 from njode_tpu_torch.models import njode
 from njode_tpu_torch.models.mlp import count_params
 from njode_tpu_torch.ops import fused_scan
-from njode_tpu_torch.training import checkpoints, registry, steps
+from njode_tpu_torch.parallel import multihost, sharding
+from njode_tpu_torch.training import checkpoints, steps
 from njode_tpu_torch.training.climate_trainer import batch_seed, \
     epoch_batches
 from njode_tpu_torch.utils import paths as path_cfg
@@ -83,15 +90,17 @@ def train(
     the stand-in, used instead of the files), 'download' (parse the raw
     tarballs; nothing is fetched), 'prestack' (default True), 'use_pallas'
     (the fused kernels; default: on CUDA for a supported config),
-    'pallas_mask_mode' ('prng' or 'input'). 'remat' and 'pallas_interpret'
-    steer the JAX scan only and are ignored. 'mesh' raises
-    ``NotImplementedError``; 'other_model' raises ``ValueError``.
+    'pallas_mask_mode' ('prng' or 'input'), 'mesh' (a
+    ``parallel.sharding.Mesh``: data-parallel training; ``batch_size`` must
+    divide by its size; kept out of the registry description). 'remat' and
+    'pallas_interpret' steer the JAX scan only and are ignored;
+    'other_model' raises ``ValueError``.
     :return: 0
     """
-    if options.pop("mesh", None) is not None:
-        raise NotImplementedError(
-            "option 'mesh' is not ported yet (ROADMAP.md Queue 1 item 7: "
-            "data parallelism)")
+    mesh = sharding.check_mesh(options.pop("mesh", None))
+    if mesh is not None and batch_size % mesh.size:
+        raise ValueError(f"batch_size={batch_size} must be divisible by the "
+                         f"mesh size {mesh.size} for data-parallel training")
     device = torch.device(device)
     saved_models_path = saved_models_path or os.path.join(
         os.path.dirname(path_cfg.saved_models_path.rstrip("/")),
@@ -131,7 +140,8 @@ def train(
     resume_training = False
     if not options.get("parallel", False):
         model_id, desc, saved_params, resume_training = \
-            registry.resolve_model_id(saved_models_path, model_id, desc)
+            multihost.resolve_model_id_synced(saved_models_path, model_id,
+                                              desc, mesh)
         if resume_training:
             initial_print += "\nmodel_id already exists -> resume training"
             params_dict = saved_params
@@ -182,7 +192,8 @@ def train(
     initial_print += ("\ntraining loss: fused CUDA kernels" if use_kernels
                       else "\ntraining loss: eager forward (the fused "
                       "kernels are off or do not cover this config)")
-    fns = steps.make_sparse_step_fns(model, optimizer, use_kernels, mask_mode)
+    fns = steps.make_sparse_step_fns(model, optimizer, use_kernels, mask_mode,
+                                     mesh)
     max_events = pdu.max_batch_events(train_records, batch_size)
 
     # test split: one batch with the second half of the timeline held out
@@ -190,8 +201,14 @@ def train(
         test_records, data_min, data_max, data_type="test",
         eval_input_prob=eval_input_prob, eval_input_seed=eval_input_seed)
     ev_test = _events(test_collate)
+    # under a mesh the test batch is padded to a multiple of the mesh size;
+    # the loss scale Bp / B undoes the changed 1/B
+    B_test = ev_test["batch_size"]
+    Bp_test = B_test if mesh is None else -(-B_test // mesh.size) * mesh.size
+    eval_scale = Bp_test / B_test
     sb_test = sparse_from_events(ev_test, delta_t, T, max_steps,
-                                 max_events=len(ev_test["obs_idx"]))
+                                 max_events=len(ev_test["obs_idx"]),
+                                 pad_batch_to=Bp_test)
     b_test = sparse_to_torch(sb_test, device)
     # held-out targets [B, L, D] and their grid steps stay on the device
     k_per_t = torch.as_tensor(nearest_grid_steps(
@@ -226,12 +243,14 @@ def train(
             resume_training = False
     if not resume_training:
         initial_print += "\ninitiate new model ..."
+    if mesh is not None:
+        sharding.shard_params(model, mesh, optimizer)
 
     def evaluate_model():
         """(eval_loss, mse, mse_2) on the held-out half: one forward, both
         metrics on the device, four scalars to the host."""
         loss, sq, cnt, mse2 = fns["eval_loss_and_masked_metrics"](
-            b_test, k_per_t, d_vals_val, d_mask_val, cur_weight)
+            b_test, k_per_t, d_vals_val, d_mask_val, cur_weight, eval_scale)
         return float(loss), float(sq) / max(float(cnt), 1.0), float(mse2)
 
     n_train = len(train_records)
@@ -245,7 +264,7 @@ def train(
         pre_fns = steps.make_prestacked_step_fns(
             model, optimizer, torch.as_tensor(pre["times"], device=device),
             torch.as_tensor(pre["dt"], device=device), use_kernels,
-            mask_mode)
+            mask_mode, mesh)
         Kp, Emax, Dp = (pre["times"].shape[0], pre["k"].shape[1],
                         pre["X"].shape[2])
         # sentinel record N: zero events, pads the last short batch
@@ -285,8 +304,12 @@ def train(
         print("start training ...")
 
     def _save(path):
-        checkpoints.save_checkpoint(path, model, optimizer, epoch,
-                                    cur_weight)
+        multihost.coordinator_only(checkpoints.save_checkpoint, path, model,
+                                   optimizer, epoch, cur_weight, mesh=mesh)
+
+    def _write_rows():
+        multihost.coordinator_only(write_frame, model_metric_file,
+                                   METR_COLUMNS, metric_rows, mesh=mesh)
 
     pending = (None if (bank is not None or epoch > epochs)
                else _collate_epoch(epoch))
@@ -326,7 +349,7 @@ def train(
 
         if epoch % save_every == 0:
             print("save model ...")
-            write_frame(model_metric_file, METR_COLUMNS, metric_rows)
+            _write_rows()
             _save(model_path_save_last)
             print("saved!")
 
@@ -335,5 +358,5 @@ def train(
 
     # flush trailing metric rows (the JAX trainer's fix of the reference)
     if metric_rows:
-        write_frame(model_metric_file, METR_COLUMNS, metric_rows)
+        _write_rows()
     return 0

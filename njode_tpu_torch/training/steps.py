@@ -15,6 +15,14 @@ device tensors and never synchronise, so an epoch queues all its steps
 before the host reads a loss; ``train_epochs`` queues several epochs with
 their evaluations and per-epoch snapshots the same way (the JAX package
 runs them as one device program).
+
+With a ``mesh`` (``parallel.sharding.Mesh``) every rank builds the global
+batch, draws the global dropout masks and trains on its block of the rows;
+a step reduces the flat gradient (and the loss) over the ranks in one
+collective and then takes the same Adam step everywhere (NJODE's loss, a
+batch mean, is averaged; see ``sharding.allreduce_grads``). Evaluation
+runs each rank's block and reduces the loss (and gathers a real-data
+prediction path), so every rank returns the global values.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 from njode_tpu_torch.data.grid import GridBatch, densify_sparse, \
     scatter_events
 from njode_tpu_torch.models import njode
+from njode_tpu_torch.parallel import sharding
 from njode_tpu_torch.training.checkpoints import snapshot
 
 
@@ -56,7 +65,7 @@ def gather_dense_batch(paths, obs, idx, times, dts) -> GridBatch:
 
 def make_step_fns(model: njode.NJODE, optimizer, times, dts,
                   next_cond_exp=None, use_kernels: bool = False,
-                  mask_mode: str = "prng"):
+                  mask_mode: str = "prng", mesh=None):
     """Step functions for a fixed grid.
 
     :param times/dts: [K] float32 grid tensors on the model's device
@@ -65,23 +74,31 @@ def make_step_fns(model: njode.NJODE, optimizer, times, dts,
         versions run)
     :param mask_mode: dropout-mask source of the kernels ('prng' = Philox
         inside the kernels; 'input' = a drawn [K,S,B,Wmax] mask tensor)
+    :param mesh: data-parallel ``parallel.sharding.Mesh`` (see the module
+        docstring); the training batches' rows must divide by its size.
+        ``eval_msd`` and ``pred_path`` run on the whole batch on every rank
     :return: dict of functions; those taking ``generator`` draw dropout
         masks from it
     """
     cfg = model.cfg
-    step = _step(optimizer, _train_loss(model, use_kernels, mask_mode))
+    step = _step(optimizer, _train_loss(model, use_kernels, mask_mode, mesh),
+                 mesh)
     if use_kernels:
         from njode_tpu_torch.ops import fused_scan
-        fused_eval = fused_scan.make_fused_eval_fn(cfg)
+        fused_eval = fused_scan.make_fused_eval_fn(cfg, mesh=mesh)
 
         def _eval_loss(batch, weight):
             return fused_eval(model, batch, weight)
     else:
         def _eval_loss(batch, weight):
+            B = batch.start_X.shape[0]
+            if mesh is not None:
+                batch = sharding.shard_batch(batch, mesh)
             with torch.no_grad():
                 _, loss = njode.forward(model, batch, weight=weight,
                                         train=False)
-            return loss
+            return loss if mesh is None else sharding.batch_mean(loss, mesh,
+                                                                 B)
 
     def _batch(paths, obs, idx):
         return gather_dense_batch(paths, obs, idx, times, dts)
@@ -171,27 +188,52 @@ def _index_batch(stack, i):
     return type(stack)(*(f[i] for f in stack))
 
 
-def _train_loss(model, use_kernels, mask_mode):
+def _train_loss(model, use_kernels, mask_mode, mesh=None):
     """The training loss ``(batch, weight, generator) -> loss``: through
     the fused CUDA kernels when ``use_kernels`` (their plain versions on CPU
-    tensors), else the eager forward."""
+    tensors), else the eager forward. With a ``mesh``: this rank's loss
+    over its block of the global batch's rows, from the global masks."""
     if use_kernels:
         from njode_tpu_torch.ops import fused_scan
-        fused = fused_scan.make_fused_loss_fn(model.cfg, mask_mode=mask_mode)
+        fused = fused_scan.make_fused_loss_fn(model.cfg, mask_mode=mask_mode,
+                                              mesh=mesh)
         return lambda batch, weight, generator: fused(model, batch, weight,
                                                       generator, True)
-    return lambda batch, weight, generator: njode.forward(
-        model, batch, weight=weight, train=True, generator=generator)[1]
+    if mesh is None:
+        return lambda batch, weight, generator: njode.forward(
+            model, batch, weight=weight, train=True, generator=generator)[1]
+    cfg = model.cfg
+    dropping = cfg.dropout_rate > 0.0 and any(njode.dropout_slots(cfg)[:3])
+
+    def loss(batch, weight, generator):
+        K, B = batch.obs.shape
+        sharding.check_divisible(B, mesh)
+        masks = None
+        if dropping:
+            u0, u = njode.draw_masks(cfg, K, B, generator,
+                                     batch.start_X.device)
+            masks = (sharding.shard_rows(u0, mesh, 1),
+                     sharding.shard_rows(u, mesh, 2))
+        return njode.forward(model, sharding.shard_batch(batch, mesh),
+                             weight=weight, train=True, drop_masks=masks)[1]
+
+    return loss
 
 
-def _step(optimizer, train_loss):
+def _step(optimizer, train_loss, mesh=None, op="mean"):
     """One optimizer step on a GridBatch; returns the loss times
-    ``loss_scale``."""
+    ``loss_scale``. With a ``mesh`` the gradients and the loss are reduced
+    over the ranks (``op``, see ``sharding.allreduce_grads``) before the
+    step."""
 
     def step(batch, weight, generator, loss_scale=1.0):
         optimizer.zero_grad(set_to_none=True)
         loss = train_loss(batch, weight, generator) * loss_scale
         loss.backward()
+        if mesh is not None:
+            loss = sharding.allreduce_grads(
+                [p for g in optimizer.param_groups for p in g["params"]],
+                mesh, op, loss)
         optimizer.step()
         return loss.detach()
 
@@ -199,7 +241,8 @@ def _step(optimizer, train_loss):
 
 
 def make_grid_step_fns(model: njode.NJODE, optimizer, sparse: bool = False,
-                       use_kernels: bool = False, mask_mode: str = "prng"):
+                       use_kernels: bool = False, mask_mode: str = "prng",
+                       mesh=None):
     """Step functions for the real-data trainers (the JAX function's dict).
 
     ``sparse=False``: steps take a dense :class:`GridBatch` of tensors;
@@ -212,9 +255,12 @@ def make_grid_step_fns(model: njode.NJODE, optimizer, sparse: bool = False,
     :param use_kernels: the training loss through the fused CUDA kernels
         (a supported config; their plain versions on CPU tensors)
     :param mask_mode: the kernels' dropout-mask source ('prng' or 'input')
+    :param mesh: data-parallel ``parallel.sharding.Mesh`` (module
+        docstring); the batches' rows must divide by its size
     """
     prep = densify_sparse if sparse else (lambda b: b)
-    step = _step(optimizer, _train_loss(model, use_kernels, mask_mode))
+    step = _step(optimizer, _train_loss(model, use_kernels, mask_mode, mesh),
+                 mesh)
 
     def train_step(b, weight, generator, loss_scale=1.0):
         """One optimizer step; returns the scaled loss."""
@@ -231,28 +277,42 @@ def make_grid_step_fns(model: njode.NJODE, optimizer, sparse: bool = False,
             return_path=True)
         return loss, torch.cat([y0[None], y_pre], dim=0)
 
-    return real_data_fns(forward, prep, train_step, train_epoch)
+    return real_data_fns(forward, prep, train_step, train_epoch, mesh=mesh)
 
 
 def make_sparse_step_fns(model: njode.NJODE, optimizer,
-                         use_kernels: bool = False, mask_mode: str = "prng"):
+                         use_kernels: bool = False, mask_mode: str = "prng",
+                         mesh=None):
     """SparseBatch step functions (see :func:`make_grid_step_fns`)."""
     return make_grid_step_fns(model, optimizer, sparse=True,
-                              use_kernels=use_kernels, mask_mode=mask_mode)
+                              use_kernels=use_kernels, mask_mode=mask_mode,
+                              mesh=mesh)
 
 
 def real_data_fns(forward, prep, train_step, train_epoch,
-                  scale_loss: bool = True):
+                  scale_loss: bool = True, mesh=None):
     """The real-data step functions' dict; its evaluation half runs one
     eager ``forward(batch, weight, get_loss) -> (loss, path [K+1, B, D])``
     (the pre-jump path, t=0 first) without gradients and gathers the
     held-out points on the device. ``scale_loss=False``: the evaluation
     losses ignore ``loss_scale`` (a loss that is a sum over
-    observations)."""
+    observations). With a ``mesh`` each rank runs ``forward`` on its block
+    of the rows; the loss is reduced (the batch mean, or with
+    ``scale_loss=False`` the sum) and the path gathered, so every rank
+    computes the metrics of the whole batch."""
 
     def _forward(b, weight=0.5, get_loss=True):
         with torch.no_grad():
-            return forward(prep(b), weight, get_loss)
+            batch = prep(b)
+            if mesh is None:
+                return forward(batch, weight, get_loss)
+            B = batch.start_X.shape[0]
+            loss, path = forward(sharding.shard_batch(batch, mesh), weight,
+                                 get_loss)
+            if get_loss:
+                loss = (sharding.batch_mean(loss, mesh, B) if scale_loss
+                        else sharding.all_reduce(loss, mesh))
+            return loss, sharding.gather_rows(path, mesh, B, dim=1)
 
     def _scaled(loss, loss_scale):
         return loss * loss_scale if scale_loss else loss
@@ -330,7 +390,7 @@ def prestacked_batch(k_all, X_all, M_all, idx, times, dts) -> GridBatch:
 
 def make_prestacked_step_fns(model: njode.NJODE, optimizer, times, dts,
                              use_kernels: bool = False,
-                             mask_mode: str = "prng"):
+                             mask_mode: str = "prng", mesh=None):
     """Training steps over a pre-stacked event bank resident on the device
     (``k_all [N+1, E]``, ``X_all/M_all [N+1, E, D]``, e.g. from
     ``climate.prestack_series`` with a sentinel row N appended): a batch is
@@ -340,8 +400,10 @@ def make_prestacked_step_fns(model: njode.NJODE, optimizer, times, dts,
 
     ``train_step(k_all, X_all, M_all, idx, weight, generator, loss_scale)``
     and ``train_epoch(k_all, X_all, M_all, idx_mat, weight, generators,
-    loss_scales)``."""
-    step = _step(optimizer, _train_loss(model, use_kernels, mask_mode))
+    loss_scales)``. With a ``mesh`` (module docstring) each rank trains on
+    its block of every batch's rows."""
+    step = _step(optimizer, _train_loss(model, use_kernels, mask_mode, mesh),
+                 mesh)
 
     def train_step(k_all, X_all, M_all, idx, weight, generator,
                    loss_scale=1.0):

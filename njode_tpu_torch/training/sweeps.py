@@ -17,8 +17,9 @@ The runs go one after another by default. With ``vmap_groups=True`` the
 entries that differ only in their seeds and ids (repeats, folds) train as
 one ensemble each, K1 and K2 launched once a step for all members
 (``group_sweep``, ``physionet_group``, ``climate_group``); a grid of small
-nets leaves most of the card idle run by run. The device mesh of the JAX
-sweep's groups (``group_mesh``) is not ported (ROADMAP.md Queue 1 item 7).
+nets leaves most of the card idle run by run. With a ``group_mesh`` (a
+``parallel.sharding.Mesh``, every rank calling with the same arguments)
+each group's members split over its ranks.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import itertools
 import json
 import traceback
 
+from njode_tpu_torch.parallel import multihost, sharding
 from njode_tpu_torch.training import registry
 from njode_tpu_torch.utils.notifications import SBM, SEND
 from njode_tpu_torch.utils.paths import makedirs, saved_models_path as \
@@ -69,15 +71,6 @@ def get_parameter_array(param_dict):
             for v in itertools.product(*(param_dict[k] for k in keys))]
 
 
-def reject_grouping(vmap_groups=False, group_mesh=None):
-    """Raise for the device mesh of the JAX sweep's groups, not ported yet
-    (grouping itself, ``vmap_groups``, is)."""
-    if group_mesh is not None:
-        raise NotImplementedError(
-            "group_mesh is not ported yet (ROADMAP.md Queue 1 item 7: data "
-            "parallelism)")
-
-
 def _saved_params(desc, model_id, overwrite_params):
     """The run's params from its registered description, marked to resume;
     with ``overwrite_params`` also the rewritten description."""
@@ -108,22 +101,45 @@ def parallel_training(params=None, model_ids=None, nb_jobs=1, first_id=None,
       PhysioNet groups, then the climate groups among the leftovers, then
       the remaining entries solo; a group that raises falls back to its
       members solo, as a sweep without grouping would run them;
-    - ``group_mesh`` raises ``NotImplementedError``.
+    - ``group_mesh``: a ``parallel.sharding.Mesh`` (with ``vmap_groups``):
+      every rank of it calls with the same arguments; rank 0 assigns the
+      ids and broadcasts them, each group's members split over the ranks
+      (ghost copies of the last member pad a group to a multiple of the
+      mesh size), and the entries that do not group run on rank 0 alone
+      (their results are None on the other ranks).
 
     :return: list of per-run return values (0 on success, the exception of
         a run that raised), or None if the sweep itself failed
     """
-    reject_grouping(vmap_groups, group_mesh)
+    sharding.check_mesh(group_mesh)
     if params is not None and "saved_models_path" in params[0]:
         saved_models_path = params[0]["saved_models_path"]
     saved_models_path = saved_models_path or default_saved_models_path
     makedirs(saved_models_path)
+    if model_ids is None and params is None:
+        return 0
+    lives = [{k: p[k] for k in _LIVE_KEYS if k in p} for p in params or ()]
+    if multihost.is_coordinator(group_mesh):
+        params = _assign_ids(params, model_ids, first_id, saved_models_path,
+                             overwrite_params)
+    if group_mesh is not None:
+        # rank 0's ids on every rank; the live keys stay each rank's own
+        plain = multihost.broadcast_from_coordinator(
+            [{k: v for k, v in p.items() if k not in _LIVE_KEYS}
+             for p in params] if multihost.is_coordinator(group_mesh)
+            else None, group_mesh)
+        params = [dict(p, **(lives[i] if model_ids is None else {}))
+                  for i, p in enumerate(plain)]
+    return _run(params, nb_jobs, vmap_groups, group_mesh, saved_models_path)
+
+
+def _assign_ids(params, model_ids, first_id, saved_models_path,
+                overwrite_params):
+    """The runs' params with their ids assigned against the registry (see
+    :func:`parallel_training`)."""
     rows = registry.load_overview(saved_models_path)
     ids = [r[0] for r in rows]
     max_id = max(ids) if ids else 0
-
-    if model_ids is None and params is None:
-        return 0
     if model_ids is None:
         model_id = (max_id + 1) if first_id is None else first_id
         for i, param in enumerate(params):
@@ -158,7 +174,12 @@ def parallel_training(params=None, model_ids=None, nb_jobs=1, first_id=None,
             if overwrite_params:
                 registry.write_overview(saved_models_path, rows)
             params.append(params_dict)
+    return params
 
+
+def _run(params, nb_jobs, vmap_groups, group_mesh, saved_models_path):
+    """Run the sweep's ``params`` (ids assigned): solo, in a joblib pool,
+    or grouped (see :func:`parallel_training`)."""
     for param in params:
         param["parallel"] = True
         param.setdefault("saved_models_path", saved_models_path)
@@ -170,7 +191,10 @@ def parallel_training(params=None, model_ids=None, nb_jobs=1, first_id=None,
     def _solo(p):
         # per-run failure isolation: one failing config does not stop the
         # sweep; its exception becomes that run's result. Under DEBUG the
-        # exception propagates unchanged.
+        # exception propagates unchanged. Under a group_mesh rank 0 alone
+        # runs the entries that do not group.
+        if not multihost.is_coordinator(group_mesh):
+            return None
         if DEBUG:
             return train_switcher(**p)
         try:
@@ -204,7 +228,8 @@ def parallel_training(params=None, model_ids=None, nb_jobs=1, first_id=None,
         for gi, g in enumerate(groups):
             res = _grouped_or_solo(g, lambda g=g, gi=gi: group_sweep.
                                    train_group([params[i] for i in g],
-                                               pad_batches_to=pads.get(gi)))
+                                               pad_batches_to=pads.get(gi),
+                                               mesh=group_mesh))
             for i, r in zip(g, res):
                 results[i] = r
         left = list(singles)
@@ -214,7 +239,8 @@ def parallel_training(params=None, model_ids=None, nb_jobs=1, first_id=None,
                 real = [left[i] for i in g]
                 res = _grouped_or_solo(real, lambda real=real, planner=planner:
                                        planner.train_group(
-                                           [params[i] for i in real]))
+                                           [params[i] for i in real],
+                                           mesh=group_mesh))
                 for i, r in zip(real, res):
                     results[i] = r
             left = [left[i] for i in rest]

@@ -15,6 +15,10 @@ rows and checkpoints). On a CUDA device
 with a supported config the training and eval losses run through the
 hand-written kernels (ops/fused_scan.py for NJODE, ops/fused_gob.py for
 GRU-ODE-Bayes), as the JAX trainer picks its Pallas kernels on a TPU.
+With the option 'mesh' (a ``parallel.sharding.Mesh``) the run is
+data-parallel: every rank of the mesh calls ``train`` with the same
+arguments, trains on its block of each batch's rows, and only rank 0
+writes the registry, the metric CSV, the checkpoints and the plots.
 Options the port does not handle yet raise ``NotImplementedError`` naming
 their ROADMAP.md entry."""
 
@@ -35,7 +39,8 @@ from njode_tpu_torch.data.grid import batch_from_paths, recompute_n_obs, \
 from njode_tpu_torch.models import gru_ode_bayes as gob
 from njode_tpu_torch.models import njode
 from njode_tpu_torch.models.mlp import count_params
-from njode_tpu_torch.training import checkpoints, registry
+from njode_tpu_torch.parallel import multihost, sharding
+from njode_tpu_torch.training import checkpoints
 from njode_tpu_torch.training.plots import have_matplotlib, \
     plot_one_path_with_pred
 from njode_tpu_torch.training.steps import make_optimizer, make_step_fns
@@ -52,7 +57,6 @@ default_enc_nn = ((50, "tanh"), (50, "tanh"))
 
 # options of the JAX trainer that this port does not handle yet
 _UNPORTED = {
-    "mesh": "Queue 1 item 7 (data parallelism)",
     "profile_dir": "Queue 1 item 8 (utils/profiling.py)",
     "anomaly_detection": "Queue 1 item 8 (utils/profiling.py)",
 }
@@ -123,10 +127,18 @@ def train(
     chunk's per-epoch history, default 2 GiB), 'ema_decay' (d: an
     epoch-level average ``ema = d*ema + (1-d)*params`` from the initial
     weights, evaluated after each epoch into the columns 'eval_loss_ema'
-    and, with 'evaluate', 'evaluation_mean_diff_ema'; turns chunking off).
+    and, with 'evaluate', 'evaluation_mean_diff_ema'; turns chunking off),
+    'mesh' (a ``parallel.sharding.Mesh``: data-parallel training, every
+    rank calling with the same arguments; ``batch_size`` must divide by
+    its size, a last batch that does not is dropped; kept out of the
+    registry description).
     :return: 0 (reference convention)
     """
     _reject_unported(options)
+    mesh = sharding.check_mesh(options.pop("mesh", None))
+    if mesh is not None and batch_size % mesh.size:
+        raise ValueError(f"batch_size={batch_size} must be divisible by the "
+                         f"mesh size {mesh.size} for data-parallel training")
     device = torch.device(device)
     saved_models_path = saved_models_path or path_cfg.saved_models_path
     base_data_path = options.get("base_data_path")
@@ -190,7 +202,8 @@ def train(
     resume_training = False
     if not options.get("parallel", False):
         model_id, desc, saved_params, resume_training = \
-            registry.resolve_model_id(saved_models_path, model_id, desc)
+            multihost.resolve_model_id_synced(saved_models_path, model_id,
+                                              desc, mesh)
         if resume_training:
             initial_print += "\nmodel_id already exists -> resume training"
             params_dict = saved_params
@@ -259,7 +272,8 @@ def train(
         # the JAX trainer passes GOB no mask mode: 'prng', the default
         return make(m, opt, times, dts, next_cond_exp,
                     use_kernels=use_kernels,
-                    mask_mode=opts.get("pallas_mask_mode", "prng"))
+                    mask_mode=opts.get("pallas_mask_mode", "prng"),
+                    mesh=mesh)
 
     fns = _make_fns(model, optimizer)
 
@@ -308,6 +322,8 @@ def train(
             resume_training = False
     if not resume_training:
         initial_print += "\ninitiate new model ..."
+    if mesh is not None:
+        sharding.shard_params(model, mesh, optimizer)
 
     want_plots = bool(plot or options.get("plot_only"))
     draw = want_plots and have_matplotlib()
@@ -332,7 +348,7 @@ def train(
         """Draw ``paths_to_plot`` (where matplotlib is present); returns
         the optimal loss at ``weight_for_opt``."""
         pred = _pred_path(model_state)
-        if draw:
+        if draw and multihost.is_coordinator(mesh):
             _, y_post = oracle.cond_exp_paths(next_cond_exp, val_batch)
             true_t = np.concatenate([[0.0], val_batch.times.cpu().numpy()])
             true_y = np.concatenate([val_batch.start_X.cpu().numpy()[None],
@@ -406,7 +422,11 @@ def train(
         ema_fns = _make_fns(ema_model, None)
 
     def _flush_metrics():
-        write_frame(model_metric_file, metr_columns, metric_rows)
+        multihost.coordinator_only(write_frame, model_metric_file,
+                                   metr_columns, metric_rows, mesh=mesh)
+
+    def _save_state(*a):
+        multihost.coordinator_only(checkpoints.save_state, *a, mesh=mesh)
 
     def _perm(ep):
         # seeded per-epoch shuffle
@@ -434,15 +454,15 @@ def train(
                       f"{weight:.5f}): {curr_opt:.5f}")
             print("save model ...")
             _flush_metrics()
-            checkpoints.save_state(model_path_save_last, *state, ep, weight)
+            _save_state(model_path_save_last, *state, ep, weight)
             print("saved!")
         if loss_val < best_eval_loss:
             print(f"save new best model: last-best-loss: "
                   f"{best_eval_loss:.5f}, new-best-loss: {loss_val:.5f}, "
                   f"epoch: {ep}")
             _flush_metrics()
-            checkpoints.save_state(model_path_save_last, *state, ep, weight)
-            checkpoints.save_state(model_path_save_best, *state, ep, weight)
+            _save_state(model_path_save_last, *state, ep, weight)
+            _save_state(model_path_save_best, *state, ep, weight)
             best_eval_loss = loss_val
             print("saved!")
 
@@ -491,7 +511,9 @@ def train(
             losses.append(fns["train_epoch"](
                 d_train_paths, d_train_obs,
                 perm_d[:n_full].view(-1, batch_size), cur_weight, gen))
-        if n_full < n_train:
+        if n_full < n_train and (mesh is None
+                                 or (n_train - n_full) % mesh.size == 0):
+            # under a mesh a last batch it does not divide is dropped
             losses.append(fns["train_step"](
                 d_train_paths, d_train_obs, perm_d[n_full:], cur_weight,
                 gen).view(1))

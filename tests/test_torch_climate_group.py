@@ -81,6 +81,9 @@ def test_group_matches_sequential(climate_dir, tmp_path, kw, capsys):
 
 
 def test_group_mesh_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    """The group's mesh is ported (tests/test_torch_parallel_trainers.py);
+    an object that is not a ``parallel.sharding.Mesh`` is refused before
+    anything is read."""
+    with pytest.raises(ValueError, match="1-D .*Mesh"):
         tcg.train_group([dict(dataset="climate", model_id=1)],
                         mesh=object())

@@ -263,9 +263,11 @@ def test_climate_trainer_end_to_end(clim, tmp_path, kw, capsys):
 
 
 def test_climate_trainer_options(clim, tmp_path, capsys):
-    """'mesh' is not ported; on the CPU the default training loss is the
-    eager forward, and the initial print says so."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    """'mesh' takes a ``parallel.sharding.Mesh`` (its runs:
+    tests/test_torch_parallel_trainers.py) and refuses anything else; on
+    the CPU the default training loss is the eager forward, and the
+    initial print says so."""
+    with pytest.raises(ValueError, match="1-D .*Mesh"):
         _train(clim, tmp_path, mesh=object())
     assert _train(clim, tmp_path, epochs=1) == 0
     assert "training loss: eager forward" in capsys.readouterr().out

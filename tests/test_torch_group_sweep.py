@@ -325,7 +325,9 @@ def test_group_mesh_raises_naming_roadmap(tiny_dataset, tmp_path):
     ps = [dict(_param(seed=s, saved_models_path=str(tmp_path),
                       base_data_path=tiny_dataset), model_id=i + 1)
           for i, s in enumerate((1, 2))]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    # the group's mesh is ported (tests/test_torch_parallel_trainers.py);
+    # an object that is not a parallel.sharding.Mesh is refused
+    with pytest.raises(ValueError, match="1-D .*Mesh"):
         tgroup.train_group(ps, mesh=object())
 
 

@@ -72,3 +72,30 @@ def test_chip_smoke_imports_no_jax_and_needs_a_card(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0, out.stdout
         assert '"ok": true' not in out.stdout
+
+
+_PARALLEL = r"""
+import sys
+import njode_tpu_torch.parallel.sharding, njode_tpu_torch.parallel.multihost
+sys.path.insert(0, "tests")
+import torch_parallel_ranks
+banned = ("jax", "optax", "njode_tpu", "pandas", "sklearn", "matplotlib")
+print(",".join(sorted(m for m in sys.modules if m.split(".")[0] in banned)))
+"""
+
+
+def test_parallel_modules_and_rank_functions_import_no_jax():
+    """``parallel/sharding.py`` and ``parallel/multihost.py``, and the rank
+    functions that ``sharding.spawn`` runs in the processes of the
+    data-parallel tests (``tests/torch_parallel_ranks.py``), import none
+    of the banned packages: a rank starts without JAX, as on the card
+    machine, which has none."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _PARALLEL], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"imported {out.stdout.strip()}"
+    mods = _imported_modules(os.path.join(ROOT, "tests",
+                                          "torch_parallel_ranks.py"))
+    assert "njode_tpu_torch" in mods and not mods & BANNED, mods

@@ -213,10 +213,12 @@ def test_physionet_trainer_end_to_end(phys, tmp_path, kw, capsys):
 
 
 def test_physionet_trainer_options(phys, tmp_path, capsys):
-    """'mesh' is not ported; 'other_model' is refused as the JAX trainer
-    refuses it; on the CPU the default training loss is the eager
-    forward, and the initial print says so."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    """'mesh' takes a ``parallel.sharding.Mesh`` (its runs:
+    tests/test_torch_parallel_trainers.py) and refuses anything else;
+    'other_model' is refused as the JAX trainer refuses it; on the CPU the
+    default training loss is the eager forward, and the initial print
+    says so."""
+    with pytest.raises(ValueError, match="1-D .*Mesh"):
         _train(phys, tmp_path, mesh=object())
     with pytest.raises(ValueError, match="other_model"):
         _train(phys, tmp_path, other_model="GRU_ODE_Bayes")

@@ -215,15 +215,16 @@ def test_parallel_training_joblib_and_live_keys(tmp_path, monkeypatch):
 
 
 def test_grouping_raises_naming_roadmap(tmp_path):
-    """The groups' device mesh (``group_mesh``) is not ported: it raises
-    naming its ROADMAP item, with or without ``vmap_groups`` (grouping
-    itself is ported, tests/test_torch_group_sweep.py)."""
+    """The groups' mesh (``group_mesh``) is ported (its runs:
+    tests/test_torch_parallel_trainers.py); an object that is not a
+    ``parallel.sharding.Mesh`` is refused, with or without
+    ``vmap_groups``, before anything is created."""
     for kw in (dict(group_mesh=object()),
                dict(vmap_groups=True, group_mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
+        with pytest.raises(ValueError, match="1-D .*Mesh"):
             tsweeps.parallel_training(params=[{"dataset": "BlackScholes"}],
                                       saved_models_path=str(tmp_path), **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
+        with pytest.raises(ValueError, match="1-D .*Mesh"):
             tconfigs.run_experiment("heston_wo_feller", **kw)
     # nothing was created before the raise
     assert not os.listdir(tmp_path)
