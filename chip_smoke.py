@@ -3,7 +3,10 @@
     python3 chip_smoke.py            # every phase, one card, no arguments
 
 Phases, one line each, then the ``kernels`` JSON line, the card's name and
-power limit, and the final ``{"ok": true, ...}`` line:
+power limit, and the final ``{"ok": true, ...}`` line. The set-ups of
+phases 14 and 18 and phases 26 and 28, which launch none of the kernels,
+run first, while nvcc builds them (phase 2); phase 27 runs right after the
+build, with the host idle, before phase 3:
 
 1. device   - a CUDA card must be present (else exit 1, no result);
 2. build    - nvcc builds ops/csrc/fused_scan.cu for sm_90a;
@@ -126,8 +129,9 @@ power limit, and the final ``{"ok": true, ...}`` line:
               versions: the PhysioNet 50 arm (D = hidden = 41, three 2x50
               tanh MLPs, dropout 0.1; forced into the global plan at 16
               rows, the rule takes the resident plan at one row a CTA)
-              over the first 100 steps in both mask modes and over all
-              3,006 in 'prng' mode, step by step (``STEP_TOL``), the 200
+              over the first 100 steps in both mask modes and over the
+              first 501 of its 3,006 in 'prng' mode, step by step
+              (``STEP_TOL``), the 200
               arm and the
               climate 400 arm (on the first climate batch) over the first
               100 steps in both modes, each kernel run twice and compared
@@ -224,6 +228,39 @@ power limit, and the final ``{"ok": true, ...}`` line:
               rows and K5/K6 at 10, one rank's launches, timed alone on
               the card beside their plain versions and bounds. Two ranks
               on one card measure no speed.
+26. seq_gob  - the sequential GRU-ODE-Bayes (models/gru_ode_bayes.py
+              SeqGOB, eager: it reaches no kernel) at the climate GOB arm's
+              widths (D 5, hidden 50, p_hidden 25, prep_hidden 10,
+              cov_hidden 50, full field, mixing 1e-4) on the first climate
+              batch (B = 100, K = 2,004) with seeded covariates: one
+              forward and backward on the card, timed, finite, and held to
+              the same run on the CPU;
+27. native   - the climate and PhysioNet set-up at the published scale
+              (the pre-stacked banks, the test splits, an epoch of climate
+              batches) with its union grids from the C++ collation
+              (njode_tpu_torch/native, built with g++) and from numpy, the
+              port's path: bit for bit, two runs each way, the seconds of
+              each, and one batch's scatter bit for bit;
+28. mixed_precision - compute_dtype='bfloat16': the bf16 product on the
+              card (torch.mm with out_dtype=float32: bf16 operands on the
+              tensor cores, fp32 result) against its plain form on the CPU,
+              one bf16 step's gradients at the bench shape against the CPU
+              with the card's rounding (BF16_GRAD_TOL, which the CPU route
+              and fp32 fail), then experiments/mixed_precision_study.py's
+              three shapes,
+              3 steps each way: no kernel launch, the bf16 loss within
+              2e-2 relative of the fp32 one, the route printed;
+29. width_scaling - the width study's model (hidden 50, widths 50, 100,
+              200, 400) on its own draws: one epoch of 2,000 paths at
+              B = 200 with exact launch counts at the rule's rows, then
+              K1/K2 (and K3) at each width's shape against their plain
+              versions ('input', SHORT_TOL, each twice bit for bit) with
+              their times and bounds;
+30. profiling - the main path's trainer with profile_dir (the Chrome trace
+              must hold one K1 and one K2 a step of the epoch) and with
+              anomaly_detection (exact launch counts, anomaly mode off
+              after it), then a step of the kernels with a NaN weight under
+              anomaly detection, which must raise.
 
 Tolerances are those the JAX package's Pallas kernel is held to
 (tests/test_fused_scan.py): loss rtol 1e-5 / atol 1e-6, gradients rtol
@@ -244,6 +281,7 @@ in the same order, so at one row count they must agree bit for bit.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -285,6 +323,14 @@ SHORT_TOL = dict(loss=LOSS_TOL, hist=GRAD_TOL, grad=GRAD_TOL)
 # draws (the 200 arm's histories, PERF.md), so there too K1 and K3 are
 # checked step by step, at SHORT_TOL; K2 is held to GRAD_TOL as before.
 SHORT_STEP_TOL = dict(SHORT_TOL, stepwise=True)
+# bf16 gradients of one eager step at the study's bench shape, card against
+# the CPU with the card's rounding (bf16_grad_check), as the relative L2
+# norm of the flat gradient; the loss is held to it too. Leaving the
+# cotangent unrounded (the CPU route) moves the gradients by 3.3e-4 and
+# float32 products by 2.5e-3, so both fail this bound; an H100 sits at
+# 2.5e-5 (loss 1.1e-5): its float32 sums and transcendentals differ from
+# the CPU's by ulps, and an ulp can flip a bf16-rounded operand by 2^-8.
+BF16_GRAD_TOL = 1e-4
 CLIMATE_SERIES = 1114      # the published scale of the USHCN file
 CLIMATE_B = 100
 # PhysioNet (experiments/configs.py physionet_comparison): set-a + set-b at
@@ -295,6 +341,9 @@ PHYS_T = 1 + 1e-12
 PHYS_B = 50
 PHYS_TRAIN_RECORDS = 1000
 PHYS_200_RECORDS = 400     # the stand-in cut for the 200 arm's one epoch
+# the 50 arm's 'prng' check step by step over the first sixth of the
+# grid's 3,006 steps (all of them until the script's time ran short)
+PHYS_STEPWISE_K = 501
 # reduce_partials' shapes: the gradient partials of the main path's
 # trainer (B = 100, one row a CTA) and the PhysioNet 50 arm (B = 50, one
 # row a CTA), then at 16 rows a CTA: the main path at B = 200 and the
@@ -351,9 +400,10 @@ def check_close(name, a, b, tol):
 
 
 def main_path_setup(B, K, seed, device, use_rnn=False, width=50,
-                    data=("BlackScholes", {})):
+                    data=("BlackScholes", {}), hidden=10):
     """Main-path model (with the GRU jump: ``use_rnn``; three 2 x ``width``
-    tanh MLPs; input = output = the dataset's dimension D) and a batch of
+    tanh MLPs; hidden size ``hidden``; input = output = the dataset's
+    dimension D) and a batch of
     ``data`` = (SDE model name, hyperparameters over the defaults) on the
     card (BlackScholes, D = 1, unless asked otherwise)."""
     import numpy as np
@@ -367,7 +417,7 @@ def main_path_setup(B, K, seed, device, use_rnn=False, width=50,
     hp = dict(hyperparam_default, **over, nb_paths=B, nb_steps=K)
     D = hp["dimension"]
     nn_desc = ((width, "tanh"), (width, "tanh"))
-    cfg = NJODEConfig(D, 10, D, nn_desc, nn_desc, nn_desc,
+    cfg = NJODEConfig(D, hidden, D, nn_desc, nn_desc, nn_desc,
                       dropout_rate=0.1, use_rnn=use_rnn)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
@@ -768,6 +818,34 @@ def queued_ms(fn, reps=50):
     e.record()
     e.synchronize()
     return s.elapsed_time(e) / reps
+
+
+def flushed_ms(fn, reps=20):
+    """Device ms per call of ``fn`` with the 50 MB L2 cache flushed before
+    each call (a 256 MB buffer written), from a CUDA event pair around
+    each call, all queued behind a ``torch.cuda._sleep`` as in
+    :func:`queued_ms`, so the events time device work on cold inputs."""
+    import torch
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        flush.zero_()
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(int(4e9 * host_s) + 1_000_000)  # >= 2x at <= 2 GHz
+    for s, e in ev:
+        flush.zero_()
+        s.record()
+        fn()
+        e.record()
+    ev[-1][1].synchronize()
+    return sum(s.elapsed_time(e) for s, e in ev) / reps
 
 
 def kernel_ms(fn, name, reps=50):
@@ -2431,8 +2509,8 @@ def phase_physionet_kernels(results):
             macs_per_row_step=_macs_per_row_step(spec))
         short = SHORT_STEP_TOL if src == "phys" else SHORT_TOL
         runs = ((100, ("input", "prng"), short),)
-        if arm == "phys50":          # the trainer's shape, all steps
-            runs += ((int(full.obs.shape[0]), ("prng",), STEP_TOL),)
+        if arm == "phys50":          # the trainer's shape, step by step
+            runs += ((PHYS_STEPWISE_K, ("prng",), STEP_TOL),)
         e, plain_ms, _ = _masked_arm_checks(
             "physionet_kernels", cfg, model, full, runs,
             torch.Generator(device=dev).manual_seed(draw), plan, arm=arm)
@@ -2462,6 +2540,13 @@ def phase_physionet_timing(results):
                 3 if arm == "phys50" else 2, plan)
             _say_times("physionet_timing", arm, spec, ms, bd, K, B)
             if arm == "phys50" and spec.plan == "global":
+                # the kernels line's pair: kernel and plain version over the
+                # steps the step-by-step check ran
+                ms, bd, K, B, spec = _full_grid_times(
+                    a["cfg"], a["model"], _first_steps(a["full"],
+                                                       PHYS_STEPWISE_K),
+                    3, plan)
+                _say_times("physionet_timing", arm, spec, ms, bd, K, B)
                 for k in ("K1", "K2", "K3"):
                     t[k + "g"] = (ms[k], a["plain_ms"][k + "m"])
                     bnd[k + "g"] = bd[k]
@@ -3201,10 +3286,12 @@ def _bank_members(E, setup, D, H, width, B, seed0=0):
 
 def _member_reduce_times(E, n_parts, n):
     """The member reduce_partials at [E, n_parts, n]: bit for bit its plain
-    version and E solo reductions, twice; device ms (``queued_ms``) beside
-    E solo launches' and ``sum(dim=1)``'s, the plain version's CUDA-event
-    ms, the bound (its bytes; the partials, 20 MB at the main path's
-    shape, stay in the 50 MB L2 between calls, so the time can beat it)."""
+    version and E solo reductions, twice; device ms with the L2 cache
+    flushed before each call (``flushed_ms``: the partials, 20 MB at the
+    main path's shape, would otherwise stay in the 50 MB L2 between calls
+    and beat the bound of their bytes from device memory) beside E solo
+    launches' and ``sum(dim=1)``'s, and the warm (``queued_ms``) times;
+    the plain version's CUDA-event ms; the bound (its bytes)."""
     import torch
 
     from njode_tpu_torch.ops import fused_scan as fs
@@ -3220,20 +3307,22 @@ def _member_reduce_times(E, n_parts, n):
                     for e in range(E))):
         raise AssertionError(f"reduce_partials_members [{E},{n_parts},{n}] "
                              "differs from its plain version")
-    # device ms from CUDA events around calls queued behind a device sleep
-    # (queued_ms): torch.profiler lost records of these calls (a per-call
-    # average of 0.38 us, below the 6 us bound)
-    dev_ms = queued_ms(lambda: fs.reduce_partials_members_cuda(P))
-    solo_ms = queued_ms(lambda: [fs.reduce_partials_cuda(P[e])
-                                 for e in range(E)])
-    lib_ms = queued_ms(lambda: P.sum(dim=1))
+    # device ms from CUDA events around calls queued behind a device sleep:
+    # torch.profiler lost records of these calls (a per-call average of
+    # 0.38 us, below the 6 us bound)
+    warm_ms = queued_ms(lambda: fs.reduce_partials_members_cuda(P))
+    dev_ms = flushed_ms(lambda: fs.reduce_partials_members_cuda(P))
+    solo_ms = flushed_ms(lambda: [fs.reduce_partials_cuda(P[e])
+                                  for e in range(E)])
+    lib_ms = flushed_ms(lambda: P.sum(dim=1))
     plain = cuda_ms(lambda: fs.reduce_partials_members_plain(P), 5, 1)
     bms, by = bound(float(E * n_parts * n), 4.0 * E * (n_parts + 1) * n,
                     PEAK_FP32)
     say("groups", timing="reduce_partials_members",
         shape=f"[{E},{n_parts},{n}]", bit_equal=True,
-        queued_ms=f"{dev_ms:.5f}", solo_x_E_queued_ms=f"{solo_ms:.5f}",
-        library_queued_ms=f"{lib_ms:.5f}", plain_ms=f"{plain:.4f}",
+        flushed_ms=f"{dev_ms:.5f}", solo_x_E_flushed_ms=f"{solo_ms:.5f}",
+        library_flushed_ms=f"{lib_ms:.5f}", warm_queued_ms=f"{warm_ms:.5f}",
+        plain_ms=f"{plain:.4f}",
         bound_ms=f"{bms:.6f}", bound_by=by,
         roofline_share=f"{bms / dev_ms:.2e}")
     return dict(ms=dev_ms, plain_ms=plain, library_ms=lib_ms, bound_ms=bms,
@@ -3831,6 +3920,600 @@ def phase_parallel(results):
                                launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# the sequential GRU-ODE-Bayes, the C++ collation, mixed precision, the
+# width study and profiling
+# ---------------------------------------------------------------------------
+
+SEQ_CFG = dict(input_size=5, hidden_size=50, p_hidden=25, prep_hidden=10,
+               cov_size=5, cov_hidden=50, mixing=1e-4, full_gru_ode=True)
+WIDTHS = (50, 100, 200, 400)      # the width study's widths (hidden 50)
+WIDTH_PATHS = 2000                # one epoch of 10 steps at B = 200
+
+
+def _seq_run(m, b):
+    """One forward and backward of ``seq_forward``: (loss, {name: grad})."""
+    from njode_tpu_torch.models import gru_ode_bayes as gob
+
+    m.zero_grad(set_to_none=True)
+    loss = gob.seq_forward(m, b)[1]
+    loss.backward()
+    return loss.detach(), {k: p.grad.detach()
+                           for k, p in m.named_parameters()
+                           if p.grad is not None}
+
+
+def seq_cpu_job(src, dst):
+    """The CPU reference of ``phase_seq_gob``, in a process of its own:
+    loads the model and batch ``src`` wrote, saves (loss, grads, ms)."""
+    import torch
+
+    from njode_tpu_torch.data.grid import GridBatch
+    from njode_tpu_torch.models import gru_ode_bayes as gob
+
+    st = torch.load(src, weights_only=True)
+    model = gob.SeqGOB(gob.SeqConfig(**SEQ_CFG))
+    model.load_state_dict(st["model"])
+    t0 = time.perf_counter()
+    loss, grads = _seq_run(model, GridBatch(*st["batch"]))
+    torch.save({"loss": loss, "grads": grads,
+                "ms": 1e3 * (time.perf_counter() - t0)}, dst + ".tmp")
+    os.replace(dst + ".tmp", dst)
+
+
+def start_seq_cpu(results, tmp):
+    """Seed the sequential GRU-ODE-Bayes and its batch (the first climate
+    batch, seeded covariates), and start its CPU reference run in a child
+    process (``chip_smoke.py --seq-cpu``, no card), which works while the
+    phases before ``seq_gob`` use the card."""
+    import subprocess
+
+    import torch
+
+    from njode_tpu_torch.models import gru_ode_bayes as gob
+
+    g = torch.Generator().manual_seed(14)
+    cfg = gob.SeqConfig(**SEQ_CFG)
+    model = gob.SeqGOB(cfg, generator=g)
+    full = results["climate"]["batch"]
+    cov = torch.randn((full.obs.shape[1], cfg.cov_size), generator=g)
+    batch = full._replace(start_X=cov.to(full.obs.device))
+    src = os.path.join(tmp, "seq_in.pt")
+    dst = os.path.join(tmp, "seq_out.pt")
+    torch.save({"model": model.state_dict(),
+                "batch": tuple(t.cpu() for t in batch)}, src)
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seq-cpu", src, dst],
+        cwd=ROOT, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    results["seq_cpu"] = dict(proc=proc, dst=dst, model=model, batch=batch)
+
+
+def phase_seq_gob(results):
+    """The sequential GRU-ODE-Bayes (``gru_ode_bayes.SeqGOB``) at the
+    climate GOB arm's widths on the first climate batch (B = 100, K =
+    2,004, seeded covariates): one forward and backward on the card,
+    CUDA-event timed, finite, and held to the same run on the CPU (run by
+    the child process ``start_seq_cpu`` started; loss ``LOSS_TOL``, each
+    gradient leaf ``scaled_tol`` of its own values)."""
+    import torch
+
+    job = results.pop("seq_cpu")
+    model = job["model"].to(torch.device("cuda"))
+    full, batch = results["climate"]["batch"], job["batch"]
+    (loss, grads), ms = timed(lambda: _seq_run(model, batch))
+    if job["proc"].wait(timeout=600) != 0:
+        raise AssertionError("seq_gob: the CPU reference run failed")
+    ref = torch.load(job["dst"], weights_only=True)
+    loss_c, grads_c, cpu_ms = ref["loss"], ref["grads"], ref["ms"]
+    if not (torch.isfinite(loss) and all(torch.isfinite(v).all()
+                                         for v in grads.values())):
+        raise AssertionError("seq_gob: non-finite loss or gradient")
+    if set(grads) != set(grads_c):
+        raise AssertionError("seq_gob: the card and the CPU reached "
+                             "different parameters")
+    e_loss = check_close("seq_gob loss", loss.cpu(), loss_c, LOSS_TOL)
+    used = 0.0
+    for k, gc in grads_c.items():
+        tol = scaled_tol(gc)
+        check_close(f"seq_gob gradient {k}", grads[k].cpu(), gc, tol)
+        gap = (grads[k].cpu() - gc).abs() / (tol["atol"]
+                                              + tol["rtol"] * gc.abs())
+        used = max(used, float(gap.max()))
+    K, B = full.obs.shape
+    say("seq_gob", K=K, B=B, loss=f"{float(loss):.6f}",
+        loss_err=f"{e_loss:.3e}", grad_tol_used=f"{used:.3e}",
+        card_ms=f"{ms:.1f}", cpu_ms=f"{cpu_ms:.1f}",
+        n_params=sum(p.numel() for p in model.parameters()))
+    results["seq_gob"] = dict(ms=ms, cpu_ms=cpu_ms)
+
+
+def _arrays(obj):
+    """Every numpy array in a (nested) collation output, in order."""
+    import numpy as np
+
+    if isinstance(obj, np.ndarray):
+        return [obj]
+    if isinstance(obj, dict):
+        return [a for k in sorted(obj) for a in _arrays(obj[k])]
+    if isinstance(obj, (list, tuple)):
+        return [a for v in obj for a in _arrays(v)]
+    return []
+
+
+@contextlib.contextmanager
+def native_union_grid():
+    """Inside the block the set-up builds its padded union grids with the
+    C++ collation (``native.build_union_grid``) in place of the numpy
+    ``grid.build_union_grid``, which ``data/grid.py`` and
+    ``data/physionet.py`` call; grids without ``max_steps`` stay numpy."""
+    from njode_tpu_torch import native
+    from njode_tpu_torch.data import grid
+    from njode_tpu_torch.data import physionet as pdu
+
+    plain = grid.build_union_grid
+
+    def union(obs_times, delta_t, T, max_steps=None):
+        if max_steps is None:
+            return plain(obs_times, delta_t, T)
+        return native.build_union_grid(obs_times, delta_t, T, max_steps)[:3]
+
+    grid.build_union_grid = pdu.build_union_grid = union
+    try:
+        yield
+    finally:
+        grid.build_union_grid = pdu.build_union_grid = plain
+
+
+def phase_native(results):
+    """The climate and PhysioNet set-up at the published scale with their
+    union grids from the C++ collation (``njode_tpu_torch/native``,
+    :func:`native_union_grid`) and from numpy, the port's path: fold 0's
+    pre-stacked training bank, the test split as one sparse batch, an
+    epoch's training batches as sparse batches and one dense batch
+    (climate, B = 100), and the PhysioNet pre-stacked bank and test batch;
+    the outputs bit for bit, and the dense batch's scatter
+    (``native.densify_events``) bit for bit numpy's. Run after the build,
+    with the host otherwise idle: numpy, native, numpy, native, the
+    seconds of each."""
+    import numpy as np
+
+    from njode_tpu_torch import native
+    from njode_tpu_torch.data import climate as cdu
+    from njode_tpu_torch.data import grid
+    from njode_tpu_torch.data import physionet as pdu
+    from njode_tpu_torch.training import climate_trainer as ct
+    from njode_tpu_torch.training.physionet_trainer import _events
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    say("native", build_s=f"{time.perf_counter() - t0:.2f}")
+    cdir = results["climate"]["dir"]
+    csv = os.path.join(cdir, "small_chunked_sporadic.csv")
+    fold = os.path.join(cdir, "small_chunk_fold_idx_0")
+    train_idx = np.load(os.path.join(fold, "train_idx.npy"))
+    test_idx = np.load(os.path.join(fold, "test_idx.npy"))
+    data = pdu.parse_datasets("", records=results["phys"]["records"])
+    tr, te = data["train_records"], data["test_records"]
+    dmin, dmax = data["data_min"], data["data_max"]
+    delta_p = PHYS_QUANT / 48.0
+
+    def climate():
+        ds = cdu.ClimateDataset(csv, idx=train_idx)
+        tst = cdu.ClimateDataset(csv, idx=test_idx)
+        K = max(ds.max_grid_steps(0.1, 200.0), tst.max_grid_steps(0.1,
+                                                                  200.0))
+        pre = cdu.prestack_series(ds, 0.1, 200.0, K)
+        ev = tst.collate(np.arange(len(tst)))
+        test = grid.sparse_from_events(ev, 0.1, 200.0, K,
+                                       max_events=len(ev["obs_idx"]))
+        idx_mat, _, _ = ct.epoch_batches(398, 1, len(ds), CLIMATE_B)
+        emax = ds.max_batch_events(CLIMATE_B)
+        # the batches without the sentinel rows that pad the last one
+        epoch = [grid.sparse_from_events(ds.collate(idx[idx < len(ds)]),
+                                         0.1, 200.0, K, max_events=emax)
+                 for idx in idx_mat]
+        dense = cdu.dense_batch_from_events(ds.collate(idx_mat[0]), 0.1,
+                                            200.0, K)
+        return [pre, test, epoch, dense]
+
+    def physionet():
+        K = pdu.max_union_grid_steps(tr + te, delta_p, PHYS_T)
+        pre = pdu.prestack_train_records(tr, dmin, dmax, delta_p, PHYS_T, K)
+        tc = _events(pdu.collate_records(te, dmin, dmax, data_type="test"))
+        test = grid.sparse_from_events(tc, delta_p, PHYS_T, K,
+                                       max_events=len(tc["obs_idx"]))
+        return [pre, test]
+
+    def same(a, b):
+        return len(a) == len(b) and all(
+            x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(a, b))
+
+    out = {}
+    for name, fn in (("climate", climate), ("physionet", physionet)):
+        got = {}
+        for nat in (False, True, False, True):
+            with (native_union_grid() if nat else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                res = fn()
+                got.setdefault(nat, []).append(
+                    (time.perf_counter() - t0, _arrays(res)))
+        if not same(got[True][0][1], got[False][0][1]):
+            raise AssertionError(f"native {name}: the C++ collation "
+                                 "differs from the numpy paths")
+        secs = {nat: [t for t, _ in got[nat]] for nat in got}
+        out[name] = dict(native_s=secs[True], numpy_s=secs[False])
+        say("native", setup=name, arrays=len(got[True][0][1]),
+            bit_equal=True,
+            native_s=",".join(f"{t:.3f}" for t in secs[True]),
+            numpy_s=",".join(f"{t:.3f}" for t in secs[False]))
+    # the dense climate batch's scatter, C++ against numpy
+    ds = cdu.ClimateDataset(csv, idx=train_idx)
+    ev = ds.collate(np.arange(CLIMATE_B))
+    K = ds.max_grid_steps(0.1, 200.0)
+    b = grid.batch_from_events(ev["times"], ev["time_ptr"], ev["X"],
+                               ev["obs_idx"], 0.1, 200.0,
+                               np.zeros((CLIMATE_B, ev["X"].shape[1]),
+                                        np.float32),
+                               M=ev["M"], max_steps=K)
+    _, _, obs_step, _ = native.build_union_grid(ev["times"], 0.1, 200.0, K)
+    nat = native.densify_events(obs_step, ev["time_ptr"], ev["obs_idx"],
+                                ev["X"], np.asarray(ev["M"], np.float32), K,
+                                CLIMATE_B)
+    if not same(list(nat), [b.obs, b.X, b.M]):
+        raise AssertionError("native: densify_events differs from "
+                             "grid.batch_from_events")
+    say("native", densify_events="bit_equal", K=K, B=CLIMATE_B)
+    results["native"] = out
+
+
+def bf16_grad_check():
+    """The gradients of one bf16 training step (eager, dropout 0) at the
+    study's bench shape (B = 200, K = 100, width 50, hidden 10) on the card
+    against the same step on the CPU with the card's rounding. On the card
+    each operand gradient's product takes the float32 cotangent rounded to
+    bfloat16 (torch.mm with out_dtype takes two bf16 operands), as the JAX
+    package's TPU dots do at their default precision; the CPU route keeps
+    it float32, as the JAX package's CPU dots do (the tests hold that route
+    to jax.grad). The reference swaps ``mlp._mm_bf16`` for that rounding on
+    the CPU. Relative L2 error of the flat gradient, held to
+    ``BF16_GRAD_TOL``; the CPU route's and the float32 step's gradients
+    must lie further than that from the reference."""
+    import torch
+
+    from njode_tpu_torch.experiments import mixed_precision_study as mps
+    from njode_tpu_torch.models import mlp, njode
+
+    _, B, K, D, W, H = mps.SHAPES[0]
+
+    def card_rounding(a, b):
+        return a.to(torch.bfloat16).float() @ b.float()
+
+    def step(cd, device, mm=None):
+        nn = ((W, "tanh"),)
+        cfg = njode.NJODEConfig(input_size=D, hidden_size=H, output_size=D,
+                                ode_nn=nn, readout_nn=nn, enc_nn=nn,
+                                dropout_rate=0.0, compute_dtype=cd)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(1)
+            model = njode.NJODE(cfg)
+        model = model.to(device)
+        plain = mlp._mm_bf16
+        if mm is not None:
+            mlp._mm_bf16 = mm
+        try:
+            _, loss = njode.forward(model, mps.make_batch(B, K, D, device),
+                                    train=True)
+            loss.backward()
+        finally:
+            mlp._mm_bf16 = plain
+        g = torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+        return g.double().cpu(), float(loss.detach())
+
+    ref, l_ref = step("bfloat16", "cpu", card_rounding)
+    card, l_card = step("bfloat16", "cuda")
+
+    def rel(g):
+        return float((g - ref).norm() / ref.norm())
+
+    err = {"card": rel(card), "cpu_route": rel(step("bfloat16", "cpu")[0]),
+           "float32": rel(step("float32", "cpu")[0])}
+    say("mixed_precision", grad_check=f"B={B},K={K},width={W}",
+        tol=BF16_GRAD_TOL, **{k: f"{v:.3e}" for k, v in err.items()},
+        loss_rel=f"{abs(l_card - l_ref) / abs(l_ref):.3e}")
+    if not (err["card"] <= BF16_GRAD_TOL < min(err["cpu_route"],
+                                               err["float32"])):
+        raise AssertionError(f"mixed_precision: bf16 gradients on the card "
+                             f"{err} (relative L2 against the CPU with the "
+                             f"card's rounding, tolerance {BF16_GRAD_TOL})")
+    if not abs(l_card - l_ref) <= BF16_GRAD_TOL * abs(l_ref):
+        raise AssertionError(f"mixed_precision: bf16 loss on the card "
+                             f"{l_card} against {l_ref}")
+
+
+def phase_mixed_precision(results):
+    """compute_dtype='bfloat16' on the card: the bf16 product against its
+    plain form on the CPU, then the mixed-precision study's three shapes
+    (``experiments/mixed_precision_study.py``, 2 steps each way) in float32
+    and bfloat16; no scan kernel may launch (bf16 takes the eager forward),
+    and each bf16 loss must lie within 2e-2 relative of the float32 one.
+    Before them, one bf16 step's gradients on the card against the CPU
+    (:func:`bf16_grad_check`).
+    Beside them, one product at the wide shapes in float32 and on the
+    bf16 route, CUDA-event timed."""
+    import torch
+
+    from njode_tpu_torch.experiments import mixed_precision_study as mps
+    from njode_tpu_torch.models import mlp
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(300, 257, generator=g)
+    w = torch.randn(129, 257, generator=g)
+    before = dict(mlp.BF16_ROUTES)
+    y_cpu = mlp.bf16_matmul(x, w)
+    y = mlp.bf16_matmul(x.cuda(), w.cuda())
+    routes = {k: v - before[k] for k, v in mlp.BF16_ROUTES.items()}
+    err = max_err(y.cpu(), y_cpu) / float(y_cpu.abs().max())
+    rounded = bool(torch.equal(y, y.to(torch.bfloat16).float()))
+    if y.dtype != torch.float32 or rounded or err > 1e-5:
+        raise AssertionError(f"mixed_precision: the bf16 product on the card "
+                             f"({y.dtype}, rounded to bf16: {rounded}, "
+                             f"rel err {err:.3e}) is not JAX's")
+    say("mixed_precision", product_rel_err=f"{err:.3e}",
+        fp32_output=True, route=json.dumps(routes).replace(" ", ""))
+    bf16_grad_check()
+    # one product at the wide shapes' activations: float32 (TF32 off)
+    # against the bf16 route, and a bf16-output matmul for reference
+    for n, k in ((2048, 512), (4096, 1024), (8192, 1024)):
+        a = torch.randn(n, k, device="cuda")
+        b = torch.randn(k, k, device="cuda")
+        ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        ms32 = cuda_ms(lambda: a @ b, 20)
+        ms16 = cuda_ms(lambda: torch.mm(ab, bb, out_dtype=torch.float32), 20)
+        ms_bf = cuda_ms(lambda: ab @ bb, 20)
+        say("mixed_precision", gemm=f"[{n},{k}]x[{k},{k}]",
+            fp32_ms=f"{ms32:.4f}", bf16_to_fp32_ms=f"{ms16:.4f}",
+            bf16_to_bf16_ms=f"{ms_bf:.4f}", speedup=f"{ms32 / ms16:.2f}",
+            bf16_tflops=f"{2 * n * k * k / ms16 / 1e9:.1f}")
+    fs.reset_launch_counts()
+    before = dict(mlp.BF16_ROUTES)
+    rows = mps.run(reps=2, warmup=1,
+                   log=lambda ln: print("[mixed_precision] " + ln,
+                                        flush=True))
+    torch.cuda.synchronize()
+    _check_counts("mixed_precision", dict(fs.LAUNCHES), {})
+    routes = {k: v - before[k] for k, v in mlp.BF16_ROUTES.items()}
+    if routes[mlp._CPU_ROUTE] or not routes[mlp._CUDA_ROUTE]:
+        raise AssertionError(f"mixed_precision: bf16 routes {routes}")
+    for r in rows:
+        l32, l16 = r["float32"]["loss"], r["bfloat16"]["loss"]
+        rel = abs(l16 - l32) / abs(l32)
+        if not rel < 2e-2:
+            raise AssertionError(f"mixed_precision {r['tag']}: bf16 loss "
+                                 f"{l16} vs fp32 {l32} ({rel:.3e})")
+        say("mixed_precision", tag=r["tag"], B=r["B"], K=r["K"],
+            width=r["width"], hidden=r["hidden"],
+            fp32_step_ms=f"{1e3 * r['float32']['piped_step_s']:.2f}",
+            bf16_step_ms=f"{1e3 * r['bfloat16']['piped_step_s']:.2f}",
+            speedup=f"{r['speedup']:.3f}", loss_rel_diff=f"{rel:.3e}")
+    say("mixed_precision", route=json.dumps(routes).replace(" ", ""))
+    results["mixed_precision"] = rows
+
+
+def phase_width_scaling(results):
+    """The width study's model (hidden 50, three 2 x width tanh MLPs,
+    dropout 0.1, 'prng') at widths 50-400 on its own draws: one epoch of
+    2,000 paths at B = 200 through ``make_step_fns`` with exact launch
+    counts at the rule's rows, then K1/K2 (and K3) at that width's shape
+    (B = 200, K = 100) against their plain versions in 'input' mode, each
+    twice bit for bit (``SHORT_TOL``), with their times and bounds."""
+    import numpy as np
+    import torch
+
+    from njode_tpu_torch.experiments import width_scaling as ws
+    from njode_tpu_torch.models import njode
+    from njode_tpu_torch.ops import fused_scan as fs
+    from njode_tpu_torch.training.steps import make_optimizer, make_step_fns
+
+    dev = torch.device("cuda")
+    N, B, K = WIDTH_PATHS, 200, ws.K_STEPS
+    paths, obs = ws._sim_paths(N)
+    d_paths = torch.as_tensor(paths, device=dev)
+    d_obs = torch.as_tensor(obs, device=dev)
+    times = torch.as_tensor((np.arange(1, K + 1) * ws.DT).astype(np.float32),
+                            device=dev)
+    dts = torch.full((K,), ws.DT, dtype=torch.float32, device=dev)
+    idx_mat = torch.as_tensor(np.random.RandomState(3).permutation(N)
+                              .reshape(N // B, B), device=dev)
+    steps = N // B
+    gen = torch.Generator(device=dev).manual_seed(12)
+    launches, worst = [], {p: {"K1m": 0.0, "K2m": 0.0, "K3m": 0.0}
+                           for p in ("resident", "global")}
+    for width in WIDTHS:
+        cfg = ws._cfg(width, 50)
+        plan = ws.kernel_plan(cfg, B)
+        if plan is None:
+            raise AssertionError(f"width_scaling: width {width} is outside "
+                                 "the kernels")
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = njode.NJODE(cfg).to(dev)
+        fns = make_step_fns(model, make_optimizer(model.parameters(), 1e-3),
+                            times, dts, use_kernels=True)
+        fs.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = fns["train_epoch"](d_paths, d_obs, idx_mat, 0.5,
+                                    torch.Generator(device=dev)
+                                    .manual_seed(2))
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        counts = dict(fs.LAUNCHES)
+        g = "_global" if plan[0] == "global" else ""
+        _check_counts("width_scaling", counts, {
+            "njode_scan_fwd" + g: steps, "njode_scan_bwd" + g: steps,
+            "philox_keep": 2 * steps, "reduce_partials": 2 * steps})
+        check_rows("width_scaling", cfg)
+        launches.append(counts)
+        if not torch.isfinite(losses).all():
+            raise AssertionError(f"width_scaling {width}: non-finite loss")
+        say("width_scaling", width=width, plan=plan[0], rows_K1=plan[1],
+            rows_K2=plan[2], epoch_s=f"{epoch_s:.3f}", steps=steps,
+            paths_per_s=f"{N / epoch_s:.1f}",
+            last_loss=f"{float(losses[-1]):.6f}")
+        cfg2, model2, batch = main_path_setup(B, K, 3, dev, width=width,
+                                              hidden=50)
+        errs, _, _ = _masked_arm_checks(
+            "width_scaling", cfg2, model2, batch,
+            ((K, ("input",), SHORT_TOL),), gen, arm=f"w{width}")
+        for k, v in errs.items():
+            worst[plan[0]][k] = max(worst[plan[0]][k], v)
+        ms, bd, Kt, Bt, spec = _full_grid_times(cfg2, model2, batch, 3)
+        _say_times("width_scaling", f"w{width}", spec, ms, bd, Kt, Bt)
+    say("width_scaling", errs=json.dumps(worst).replace(" ", ""))
+    results["width"] = dict(launches=launches, errs=worst)
+
+
+def trace_gaps(events):
+    """Where a Chrome trace of the trainer lacks K2: the steps (by the
+    backward's ``FusedNJODELossBackward`` op, in order) whose K2 launch
+    has no kernel event, the runtime launches without a kernel event, and
+    the first kernel's and the first runtime launch's offset from the
+    first CPU op (ms)."""
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    runtime = [e for e in events if e.get("cat") == "cuda_runtime"
+               and "Launch" in e.get("name", "")]
+    with_kernel = {e.get("args", {}).get("correlation") for e in kern}
+    k2_launch = sorted(r["ts"] for r in runtime
+                       if r.get("args", {}).get("correlation") in
+                       {e["args"].get("correlation") for e in kern
+                        if "njode_scan_bwd_kernel" in e["name"]})
+    bwd = sorted((e for e in events if e.get("cat") == "cpu_op"
+                  and "evaluate_function: FusedNJODELossBackward"
+                  in e.get("name", "")), key=lambda e: e["ts"])
+    t0 = min(e["ts"] for e in events if e.get("cat") == "cpu_op")
+    return dict(
+        backward_ops=len(bwd),
+        steps_without_k2=[i for i, op in enumerate(bwd)
+                          if not any(op["ts"] <= t <= op["ts"] + op["dur"]
+                                     for t in k2_launch)][:10],
+        launches_without_kernel=sum(
+            r.get("args", {}).get("correlation") not in with_kernel
+            for r in runtime),
+        first_kernel_ms=f"{(min(e['ts'] for e in kern) - t0) / 1e3:.3f}",
+        first_launch_ms=f"{(min(r['ts'] for r in runtime) - t0) / 1e3:.3f}")
+
+
+def phase_profiling(results):
+    """The trainer's 'profile_dir' and 'anomaly_detection' on the main path
+    (20,000 BlackScholes paths, one epoch of B = 100, 'prng'): the traced
+    run's Chrome trace must hold as many K1 and K2 events as the counters
+    saw launches (the kernel counts printed; on a mismatch, where the trace
+    lacks them, :func:`trace_gaps`),
+    the anomaly-detection run must train with exact launch
+    counts and leave anomaly mode off; then a step of the kernels with a
+    NaN weight under anomaly detection must raise."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from njode_tpu_torch.data import datasets
+    from njode_tpu_torch.experiments import width_scaling as ws
+    from njode_tpu_torch.models import njode
+    from njode_tpu_torch.ops import fused_scan as fs
+    from njode_tpu_torch.training import trainer
+    from njode_tpu_torch.training.steps import make_optimizer, make_step_fns
+    from njode_tpu_torch.utils import profiling
+    from njode_tpu_torch.utils.csv_frame import read_frame
+
+    tmp = tempfile.mkdtemp(prefix="njode_smoke_prof_")
+    counts = []
+    try:
+        hp = dict(datasets.hyperparam_default, nb_paths=20_000, obs_perc=0.1)
+        datasets.create_dataset("BlackScholes", hp, seed=0,
+                                base_path=os.path.join(tmp, "data"))
+        steps = 16_000 // 100
+        expect = {"njode_scan_fwd": steps, "njode_scan_bwd": steps,
+                  "njode_scan_eval": 1, "philox_keep": 2 * steps,
+                  "reduce_partials": 2 * steps + 1}
+        prof = os.path.join(tmp, "trace")
+        for tag, kw in (("traced", dict(profile_dir=prof)),
+                        ("anomaly", dict(anomaly_detection=True))):
+            fs.reset_launch_counts()
+            t0 = time.perf_counter()
+            trainer.train(epochs=1, batch_size=100, dropout_rate=0.1,
+                          dataset="BlackScholes", plot=False,
+                          pallas_mask_mode="prng",
+                          base_data_path=os.path.join(tmp, "data"),
+                          saved_models_path=os.path.join(tmp, tag), **kw)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            c = dict(fs.LAUNCHES)
+            _check_counts("profiling", c, expect)
+            check_rows("profiling", results["setup"]["cfg"])
+            counts.append(c)
+            cols, rows = read_frame(os.path.join(tmp, tag, "id-1",
+                                                 "metric_id-1.csv"))
+            say("profiling", run=tag, run_s=f"{run_s:.2f}",
+                train_time=dict(zip(cols, rows[0]))["train_time"],
+                anomaly_mode_after=torch.is_anomaly_enabled())
+        if torch.is_anomaly_enabled():
+            raise AssertionError("profiling: anomaly mode left on")
+        files = glob.glob(os.path.join(prof, "trace_*.json"))
+        if len(files) != 1:
+            raise AssertionError(f"profiling: {len(files)} trace files")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kern = {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                base = e["name"].removeprefix("void ").split("<")[0] \
+                    .split("(")[0]
+                kern[base] = kern.get(base, 0) + 1
+        say("profiling", trace_mb=f"{os.path.getsize(files[0]) / 1e6:.1f}",
+            kernels=json.dumps(kern).replace(" ", ""))
+        # one K1 and one K2 a step of the traced epoch, as counted
+        for name, key in (("njode_scan_fwd_kernel", "njode_scan_fwd"),
+                          ("njode_scan_bwd_kernel", "njode_scan_bwd")):
+            if kern.get(name, 0) != counts[0][key]:
+                say("profiling", **trace_gaps(events))
+                raise AssertionError(f"profiling: the trace holds "
+                                     f"{kern.get(name, 0)} {name} events, "
+                                     f"the counter {counts[0][key]}")
+        # a NaN weight under anomaly detection: the step must raise
+        dev = torch.device("cuda")
+        cfg = ws._cfg(50, 10)
+        model = njode.NJODE(cfg).to(dev)
+        K = ws.K_STEPS
+        fns = make_step_fns(
+            model, make_optimizer(model.parameters(), 1e-3),
+            torch.as_tensor((np.arange(1, K + 1) * ws.DT)
+                            .astype(np.float32), device=dev),
+            torch.full((K,), ws.DT, dtype=torch.float32, device=dev),
+            use_kernels=True)
+        p, o = (torch.as_tensor(a, device=dev) for a in ws._sim_paths(100))
+        idx = torch.arange(100, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        with torch.no_grad():
+            model.ode_f.f[0].weight[0, 0] = float("nan")
+        fs.reset_launch_counts()
+        raised = None
+        with profiling.anomaly_detection():
+            try:
+                fns["train_step"](p, o, idx, 0.5, gen)
+            except (RuntimeError, FloatingPointError) as e:
+                raised = e
+        torch.cuda.synchronize()
+        if raised is None or fs.LAUNCHES["njode_scan_fwd"] != 1:
+            raise AssertionError("profiling: a NaN step through the kernels "
+                                 "did not raise under anomaly detection")
+        say("profiling", nan_step=type(raised).__name__,
+            message=f"'{str(raised).splitlines()[0][:90]}'")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    results["profiling"] = dict(launches=counts)
+
+
 def kernels_line(results):
     src = "njode_tpu_torch/ops/csrc/fused_scan.cu"
     rows = [("njode_scan_fwd", "K1", "njode_tpu/ops/fused_scan.py:1115",
@@ -3857,6 +4540,9 @@ def kernels_line(results):
     pl, pr = results["phys_launches"], results["phys_rnn"]["launches"]
     p2 = results["phys200_launches"]
     rl, cr = results["rnn_launches"], results["climate_rnn"]["launches"]
+    # the width study's epochs (both plans) and the profiling phase's runs
+    wl = results["width"]["launches"] + results["profiling"]["launches"]
+    we = results["width"]["errs"]
     for name, key, replaces, count in rows:
         ms, plain = results["times"][key]
         bms, by = results["bounds"][key]
@@ -3871,9 +4557,11 @@ def kernels_line(results):
                             for c in (cn, pl, p2, rl, cr, pr, sn, sm))
         else:
             launches += sn[count]
+        launches += sum(c[count] for c in wl)
         err = results["errs"][key]
         if key in ("K1", "K2", "K3"):
-            err = max(err, se["resident"][key + "m"])
+            err = max(err, se["resident"][key + "m"],
+                      we["resident"][key + "m"])
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": launches,
                     "max_abs_err": err, "ms": ms,
@@ -3951,9 +4639,11 @@ def kernels_line(results):
         bms, by = results["bounds"][key + "g"]
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces,
-                    "launches": p2[name] + sn[name],
+                    "launches": p2[name] + sn[name]
+                    + sum(c[name] for c in wl),
                     "max_abs_err": max(pe[key + "m"],
-                                       se["global"][key + "m"]),
+                                       se["global"][key + "m"],
+                                       we["global"][key + "m"]),
                     "ms": ms, "plain_ms": plain,
                     "bound_ms": bms, "bound_by": by, "library_ms": None})
     # the GRU jump (use_rnn) of K1-K3, timed at the main path; launches
@@ -4039,10 +4729,15 @@ def kernels_line(results):
 
 def main():
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--seq-cpu"]:       # start_seq_cpu's child
+        seq_cpu_job(*sys.argv[2:4])
+        return 0
     if not os.path.isdir(os.path.join(ROOT, "njode_tpu_torch")):
         print("chip_smoke: the njode_tpu_torch package is not beside this "
               "script", file=sys.stderr)
         return 1
+    import threading
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4054,45 +4749,64 @@ def main():
         count=torch.cuda.device_count(), card=f"'{card}'",
         torch=torch.__version__, cuda=torch.version.cuda)
     from njode_tpu_torch.ops import _build
-    t0 = time.time()
     libs = ("fused_scan", "fused_gob")
-    _build.build_all(libs)             # one nvcc per source, in parallel
-    for name in libs:
-        _build.load(name)
-        log = _build.build_log[name]
-        say("build", lib=name, nvcc_s=f"{log['seconds']:.2f}")
-        for ln in log["ptxas"].splitlines():
-            if "registers" in ln or "spill" in ln or "Compiling" in ln:
-                print("[build] " + ln.strip(), flush=True)
-    say("build", seconds=f"{time.time() - t0:.2f}")
+    build = {}
+
+    def build_libs():                  # one nvcc per source, in parallel
+        try:
+            _build.build_all(libs)
+        except BaseException as e:     # raised again by the main thread
+            build["error"] = e
+
     results = {}
-    t0 = time.time()
-    for phase in (phase_kernels, phase_timing, phase_trainer,
-                  phase_rnn_kernels, phase_rnn_timing,
-                  phase_gob_kernels, phase_gob_timing, phase_gob_trainer,
-                  phase_sync, phase_busy, phase_bench):
-        phase(results)
-        say(phase.__name__[6:], phase_s=f"{time.time() - t0:.2f}")
-        t0 = time.time()
     # the climate stand-in stays on disk for the sweep's climate run
     tmp = tempfile.mkdtemp(prefix="njode_smoke_climate_")
+    t_build = time.time()
+    nvcc_thread = threading.Thread(target=build_libs)
+    nvcc_thread.start()
     try:
+        # the set-ups and the phases that launch none of the kernels run
+        # while nvcc builds them
         climate_setup(results, tmp)
-        t0 = time.time()
-        for phase in (phase_climate_kernels, phase_climate_timing,
-                      phase_climate_trainer, phase_climate_rnn):
-            phase(results)
-            say(phase.__name__[6:], phase_s=f"{time.time() - t0:.2f}")
-            t0 = time.time()
         physionet_setup(results)
+        start_seq_cpu(results, tmp)
         t0 = time.time()
-        for phase in (phase_physionet_kernels, phase_physionet_timing,
+        for phase in (phase_seq_gob, phase_mixed_precision):
+            phase(results)
+            say(phase.__name__[6:], phase_s=f"{time.time() - t0:.2f}",
+                while_building=nvcc_thread.is_alive())
+            t0 = time.time()
+        nvcc_thread.join()
+        if "error" in build:
+            raise build["error"]
+        for name in libs:
+            _build.load(name)
+            log = _build.build_log[name]
+            say("build", lib=name, nvcc_s=f"{log['seconds']:.2f}")
+            for ln in log["ptxas"].splitlines():
+                if "registers" in ln or "spill" in ln or "Compiling" in ln:
+                    print("[build] " + ln.strip(), flush=True)
+        say("build", seconds=f"{time.time() - t_build:.2f}")
+        t0 = time.time()
+        for phase in (phase_native, phase_kernels, phase_timing,
+                      phase_trainer,
+                      phase_rnn_kernels, phase_rnn_timing,
+                      phase_gob_kernels, phase_gob_timing,
+                      phase_gob_trainer, phase_sync, phase_busy, phase_bench,
+                      phase_climate_kernels, phase_climate_timing,
+                      phase_climate_trainer, phase_climate_rnn,
+                      phase_physionet_kernels, phase_physionet_timing,
                       phase_physionet_trainer, phase_physionet_rnn,
-                      phase_sweep, phase_groups, phase_parallel):
+                      phase_sweep, phase_groups, phase_parallel,
+                      phase_width_scaling, phase_profiling):
             phase(results)
             say(phase.__name__[6:], phase_s=f"{time.time() - t0:.2f}")
             t0 = time.time()
     finally:
+        if "seq_cpu" in results:            # a phase before seq_gob failed
+            results["seq_cpu"]["proc"].kill()
+            results["seq_cpu"]["proc"].wait()
+        nvcc_thread.join()
         shutil.rmtree(tmp, ignore_errors=True)
     print(kernels_line(results), flush=True)
     print(card, flush=True)

@@ -16,9 +16,11 @@ The pandas semantics kept: series ids keep the order of first appearance
 when they are remapped, rows sort by time with numpy's quicksort as
 ``DataFrame.sort_values`` does, held-out rows are cut per series after the
 sort by time, times stay float64 while values are cast to float32.
-Not ported yet: ``seq_collate`` (ROADMAP.md Queue 1 item 5),
-``add_jitter``, ``preprocess_ushcn_daily`` and the misc helpers of the JAX
-module (item 9).
+
+A table handed to :func:`seq_collate` and :func:`add_jitter`, or returned
+by :func:`preprocess_ushcn_daily`, is a *frame*: a dict of column name to
+a 1-D numpy array, in column order (what the JAX module takes as a pandas
+``DataFrame``); :func:`read_frame` reads one from a CSV.
 """
 
 from __future__ import annotations
@@ -419,3 +421,198 @@ def prestack_series(ds: ClimateDataset, delta_t: float, T: float,
     return {"times": g_times.astype(np.float32),
             "dt": g_dts.astype(np.float32), "k": k_all, "X": X_all,
             "M": M_all, "n_ev": n_ev, "cov": ds._cov_by_pos.copy()}
+
+
+# ---------------------------------------------------------------------------
+# frames, the sequential collate and the reference's misc helpers
+# ---------------------------------------------------------------------------
+
+def read_frame(path):
+    """A numeric CSV as a frame (columns in file order, float64)."""
+    columns, values = read_table(path)
+    return {c: values[:, j].copy() for j, c in enumerate(columns)}
+
+
+def _frame_rows(frame, keep):
+    return {c: np.asarray(v)[keep] for c, v in frame.items()}
+
+
+def seq_collate(frame, n_vars: int):
+    """Padded-sequence collate of the sequential-update model
+    (``seq_collate_fn``): rows sorted by (Time, -number of observed
+    features, ID), stably; per row the observed values and feature ids in
+    ascending feature order, padded to the batch's longest row.
+
+    :return: dict of numpy arrays: 'times' [T] (distinct, float64),
+        'time_ptr' [T+1], 'Xpadded'/'Fpadded' [n, l_max], 'X'/'M' [n, D]
+        float32 (values times mask), 'lengths' [n], 'obs_idx' [n]
+    """
+    t = np.asarray(frame["Time"], np.float64)
+    ids = np.asarray(frame["ID"]).astype(np.int64)
+    vals = np.stack([np.asarray(frame[f"Value_{j}"])
+                     for j in range(n_vars)], axis=1)
+    mask = np.stack([np.asarray(frame[f"Mask_{j}"])
+                     for j in range(n_vars)], axis=1)
+    observed = mask > 0
+    lengths = observed.sum(axis=1).astype(np.int64)
+    order = np.lexsort((ids, -lengths, t))
+    t, ids, vals, mask, observed, lengths = (
+        a[order] for a in (t, ids, vals, mask, observed, lengths))
+    times, counts = np.unique(t, return_counts=True)
+    time_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    n = len(t)
+    l_max = int(lengths.max()) if n else 1
+    # observed features first, each group in ascending feature order
+    feat = np.argsort(~observed, axis=1, kind="stable")[:, :l_max]
+    real = np.arange(l_max)[None, :] < lengths[:, None]
+    Fp = np.where(real, feat, 0).astype(np.int64)
+    Xp = np.where(real, np.take_along_axis(vals, feat, axis=1),
+                  0).astype(np.float32)
+    return {"times": times, "time_ptr": time_ptr, "Xpadded": Xp,
+            "Fpadded": Fp, "X": (vals * mask).astype(np.float32),
+            "M": mask.astype(np.float32), "lengths": lengths,
+            "obs_idx": ids}
+
+
+def add_jitter(frame, jitter_time: float = 1e-3, seed=None):
+    """Split the rows where both of 2 variables are observed into one row
+    per variable, moving one of the two ``jitter_time`` earlier (chosen by
+    ``RandomState(seed).randint(2)`` a row); times clip at 0. Rows come
+    out as the unsplit rows, then the variable-1 halves, then the
+    variable-2 halves (the reference's concat order).
+
+    :param frame: 6 columns: ID, Time, Value_1, Value_2, Mask_1, Mask_2
+    """
+    if len(frame) != 6:
+        raise ValueError(
+            "Only df with 6 columns: supports 2 value and 2 mask columns.")
+    rs = np.random.RandomState(seed)
+    m1, m2 = np.asarray(frame["Mask_1"]), np.asarray(frame["Mask_2"])
+    both = (m1 == 1.0) & (m2 == 1.0)
+    single = _frame_rows(frame, ~both)
+    b1, b2 = _frame_rows(frame, both), _frame_rows(frame, both)
+    b1["Mask_2"] = np.zeros_like(b1["Mask_2"])
+    b2["Mask_1"] = np.zeros_like(b2["Mask_1"])
+    jitter = rs.randint(2, size=int(both.sum()))
+    b1["Time"] = b1["Time"] - jitter_time * jitter
+    b2["Time"] = b2["Time"] - jitter_time * (1 - jitter)
+    out = {c: np.concatenate([single[c], b1[c], b2[c]]) for c in frame}
+    out["Time"] = np.maximum(out["Time"], 0.0)
+    return out
+
+
+def map_to_closest(values, reference):
+    """Per element, the closest entry of ``reference`` (the first on a
+    tie)."""
+    values = np.asarray(values)
+    reference = np.asarray(reference)
+    idx = np.abs(reference[None, :] - values[:, None]).argmin(axis=1)
+    return reference[idx]
+
+
+def adjust_learning_rate(epoch: int, init_lr: float) -> float:
+    """The reference's schedule, lr/3 after epoch 20 (returned, not set on
+    an optimizer)."""
+    return init_lr / 3.0 if epoch > 20 else init_lr
+
+
+def compute_corr(X_true, X_hat, mask):
+    """Masked per-feature Pearson correlation (float64)."""
+    X_true = np.asarray(X_true, np.float64)
+    X_hat = np.asarray(X_hat, np.float64)
+    mask = np.asarray(mask, np.float64)
+    means_true = X_true.sum(0) / mask.sum(0)
+    means_hat = X_hat.sum(0) / mask.sum(0)
+    num = ((X_true - means_true) * (X_hat - means_hat) * mask).sum(0)
+    d1 = np.sqrt((((X_true - means_true) ** 2) * mask).sum(0))
+    d2 = np.sqrt((((X_hat - means_hat) ** 2) * mask).sum(0))
+    return num / (d1 * d2)
+
+
+def sort_array_on_other(x1, x2):
+    """The permutation ``perm`` with ``x2[perm] == x1``."""
+    index = {v: i for i, v in enumerate(x1)}
+    perm = np.argsort([index[v] for v in x2])
+    if not (np.asarray(x2)[perm] == np.asarray(x1)).all():
+        raise ValueError("x2 is not a permutation of x1")
+    return perm
+
+
+def log_lik_gaussian(x, mu, logvar):
+    """Gaussian negative log-likelihood per element."""
+    x, mu, logvar = map(np.asarray, (x, mu, logvar))
+    return (np.log(np.sqrt(2 * np.pi)) + logvar / 2
+            + (x - mu) ** 2 / (2 * np.exp(logvar)))
+
+
+def tail_fun_gaussian(x, mu, logvar):
+    """P(N(mu, exp(logvar)) > x), in float64."""
+    import torch
+
+    x, mu, logvar = map(np.asarray, (x, mu, logvar))
+    z = (x - mu) / (np.exp(0.5 * logvar) * np.sqrt(2))
+    erf = torch.special.erf(torch.as_tensor(z, dtype=torch.float64))
+    return 0.5 - 0.5 * erf.numpy()
+
+
+def _dense_ids(*keys):
+    """Group numbers of the rows' keys in sorted key order (pandas'
+    ``groupby(keys).ngroup()``)."""
+    _, inv = np.unique(np.stack(keys, axis=1), axis=0, return_inverse=True)
+    return inv.reshape(-1).astype(np.int64)
+
+
+def preprocess_ushcn_daily(raw_csv: str, out_csv: str,
+                           chunk_days: int = 200, t_scale: float = 1.0,
+                           min_obs_per_chunk: int = 10):
+    """Write ``small_chunked_sporadic.csv`` from raw USHCN daily data (the
+    GRU-ODE-Bayes preprocessing recipe): each variable is centred and
+    scaled over its observed entries (sample standard deviation, ddof 1)
+    and zeroed elsewhere; the timeline is cut into ``chunk_days``-day
+    chunks, each (station, chunk) a new series numbered in sorted
+    (station, chunk) order; series with fewer than ``min_obs_per_chunk``
+    rows are dropped and the rest renumbered from 0; rows sort by (ID,
+    Time), stably.
+
+    :param raw_csv: the long-format raw file, columns ``ID, day,
+        Value_*, Mask_*``; it is never fetched (FileNotFoundError when
+        absent)
+    :return: the written frame
+    """
+    if not os.path.exists(raw_csv):
+        raise FileNotFoundError(
+            f"raw USHCN file {raw_csv} not found; download it with the "
+            "GRU-ODE-Bayes preprocessing scripts, or use "
+            "make_synthetic_climate_csv as a stand-in")
+    df = read_frame(raw_csv)
+    value_cols = [c for c in df if c.startswith("Value")]
+    mask_cols = [c for c in df if c.startswith("Mask")]
+    for v, m in zip(value_cols, mask_cols):
+        obs = df[m] > 0
+        x = df[v][obs]
+        mu, sd = x.mean(), x.std(ddof=1)
+        df[v] = np.where(obs, (df[v] - mu) / (sd + 1e-12), 0.0)
+    day = df["day"].astype(np.int64)
+    chunk = day // chunk_days
+    time = (day % chunk_days).astype(np.float64) * t_scale
+    sid = _dense_ids(df["ID"].astype(np.int64), chunk)
+    counts = np.bincount(sid)[sid]
+    keep = counts >= min_obs_per_chunk
+    sid = _dense_ids(sid[keep])
+    time = time[keep]
+    order = np.lexsort((time, sid))
+    out = {"ID": sid[order], "Time": time[order]}
+    for c in value_cols + mask_cols:
+        out[c] = df[c][keep][order]
+    makedirs(os.path.dirname(out_csv) or ".")
+    integral = {c for c in mask_cols if np.all(out[c] == np.round(out[c]))}
+    with open(out_csv, "w") as f:
+        f.write(",".join(out) + "\n")
+        for i in range(len(sid)):
+            cells = [str(int(out["ID"][i]))]
+            for c in list(out)[1:]:
+                v = out[c][i]
+                cells.append(str(int(v)) if c in integral
+                             else repr(float(v)))
+            f.write(",".join(cells) + "\n")
+    return out

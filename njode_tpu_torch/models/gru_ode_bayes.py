@@ -21,8 +21,12 @@ p_hidden])`` bool, slots ``[ode-midpoint, ode-final, post-jump]``, or drawn
 from the caller's ``torch.Generator`` in that order when not given.
 
 ``solver='dopri5'`` runs through ops/odeint.py (eagerly, as in JAX: the
-fused kernels cover euler and midpoint). Not ported yet (ROADMAP.md Queue 1
-item 5): the Seq variants (``GRUODEBayesSeq``, not wired into any trainer).
+fused kernels cover euler and midpoint).
+
+The sequential variant (``GRUODEBayesSeq``: :class:`SeqConfig`,
+:class:`SeqGOB`, :func:`seq_forward`) updates ``h`` one observed feature
+at a time; no trainer uses it, in the JAX package or the reference, and it
+reaches no kernel, so it runs eagerly on every device.
 """
 
 from __future__ import annotations
@@ -561,6 +565,7 @@ def _gob_step(model, optimizer, train_loss, mesh=None):
     with a ``mesh`` the gradients and the loss are summed over the ranks
     before the step."""
     from njode_tpu_torch.parallel import sharding
+    from njode_tpu_torch.utils import profiling
 
     # every parameter holds a gradient, zero where the loss does not reach
     # (classification_model): Adam's L2 term then updates it as the JAX
@@ -576,6 +581,7 @@ def _gob_step(model, optimizer, train_loss, mesh=None):
         loss.backward()
         if mesh is not None:
             loss = sharding.allreduce_grads(params, mesh, "sum", loss)
+        profiling.check_step(loss, params)
         optimizer.step()
         return loss.detach()
 
@@ -658,3 +664,138 @@ def make_prestacked_step_fns(model: GOB, optimizer, times, dts,
             for idx, g in zip(idx_mat, generators)])
 
     return {"train_step": train_step, "train_epoch": train_epoch}
+
+
+# ---------------------------------------------------------------------------
+# GRUODEBayesSeq: sequential per-feature jump updates
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SeqConfig:
+    """Static config of ``GRUODEBayesSeq`` (a plain copy of the JAX
+    dataclass). ``dropout_rate`` is kept for the interface: the sequential
+    model applies no dropout."""
+
+    input_size: int
+    hidden_size: int
+    p_hidden: int
+    prep_hidden: int
+    bias: bool = True
+    cov_size: int = 1
+    cov_hidden: int = 1
+    mixing: float = 1.0
+    dropout_rate: float = 0.0
+    obs_noise_std: float = 1e-2
+    full_gru_ode: bool = False
+
+
+class SeqGRUBayes(nn.Module):
+    """``SeqGRUBayes``: ``p_model`` (Linear, ReLU, Linear: no dropout), the
+    jump ``gru`` on ``prep_hidden`` inputs (one feature at a time) and the
+    per-feature prep weights ``w_prep [D, 4, prep]``, ``bias_prep [D,
+    prep]``."""
+
+    def __init__(self, cfg: SeqConfig, generator=None):
+        super().__init__()
+        H, D, P, bias = (cfg.hidden_size, cfg.input_size, cfg.prep_hidden,
+                         cfg.bias)
+        g = generator
+        self.p_model = nn.Sequential(_linear(H, cfg.p_hidden, bias, g),
+                                     nn.ReLU(),
+                                     _linear(cfg.p_hidden, 2 * D, bias, g))
+        self.gru = _gru_cell(P, H, bias, g)
+        std = math.sqrt(2.0 / (4 + P))
+        self.w_prep = nn.Parameter(
+            std * torch.randn((D, 4, P), generator=g))
+        self.bias_prep = nn.Parameter(torch.full((D, P), 0.1))
+
+    def p(self, h):
+        return self.p_model[2](torch.relu(self.p_model[0](h)))
+
+
+class SeqGOB(nn.Module):
+    """The ``GRUODEBayesSeq`` parameters under the reference's names:
+    ``covariates_map.{0,3}`` (no final tanh), ``gru_c`` (the imputing
+    GRU-ODE field, minimal or full), ``gru_bayes`` (:class:`SeqGRUBayes`)
+    and ``classification_model.{0,3}`` (read by nothing).
+
+    :param generator: the ``torch.Generator`` every initial weight is
+        drawn from (the global one when None)
+    """
+
+    def __init__(self, cfg: SeqConfig,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        H, D, bias = cfg.hidden_size, cfg.input_size, cfg.bias
+        g = generator
+        self.covariates_map = _mlp2_seq(cfg.cov_size, cfg.cov_hidden, H,
+                                        0.0, bias, g)
+        cell = FullGRUODECell if cfg.full_gru_ode else GRUODECell
+        self.gru_c = cell(2 * D, H, bias, True, g)
+        self.gru_bayes = SeqGRUBayes(cfg, g)
+        self.classification_model = _mlp2_seq(H, 1, 1, 0.0, bias, g)
+
+    def forward(self, batch: GridBatch, **kw):
+        return seq_forward(self, batch, **kw)
+
+
+def seq_forward(model: SeqGOB, batch: GridBatch, get_loss: bool = True,
+                return_path: bool = False):
+    """The ``GRUODEBayesSeq`` recursion over the grid (eager,
+    differentiable; ``cov = start_X``).
+
+    At each observation time the observed features update ``h`` one after
+    another in ascending feature order, each update recomputing the p-head
+    for its NLL term; the masked pre-update NLL over all observed features
+    and the post-update KL (log-variance) are added at observed rows.
+
+    :returns: ``(h_final, loss)`` and, if ``return_path``,
+        ``(p0, p_pre [K,B,2D], p_post [K,B,2D])``
+    """
+    cfg = model.cfg
+    D = cfg.input_size
+    device = batch.start_X.device
+    seq = model.gru_bayes
+    h = mlp2(model.covariates_map, batch.start_X, 0.0)
+    p = seq.p(h)
+    p0 = p
+    loss1 = torch.zeros((), dtype=torch.float32, device=device)
+    loss2 = torch.zeros((), dtype=torch.float32, device=device)
+    pres, posts = [], []
+    for k in range(batch.times.shape[0]):
+        dt, obs, X, M = batch.dt[k], batch.obs[k], batch.X[k], batch.M[k]
+        live = (dt > 0).to(h.dtype)
+        h_prop = h + dt * model.gru_c(p, h)
+        h = live * h_prop + (1.0 - live) * h
+        p = live * seq.p(h) + (1.0 - live) * p
+        p_pre = p
+        mean, logvar = torch.chunk(p, 2, dim=-1)
+        err = (X - mean) / torch.exp(0.5 * logvar)
+        loss_pre = ((0.5 * (err ** 2 + logvar)) * M).sum(-1)
+        hidden = h
+        loss_seq = torch.zeros_like(obs)
+        for d in range(D):
+            m_d = M[:, d]
+            mean_d, logvar_d = torch.chunk(seq.p(hidden), 2, dim=-1)
+            mu, lv = mean_d[:, d], logvar_d[:, d]
+            e = (X[:, d] - mu) / torch.exp(0.5 * lv)
+            loss_seq = loss_seq + m_d * 0.5 * (e ** 2 + lv)
+            feats = torch.stack([X[:, d], mu, lv, e], dim=-1)    # [B, 4]
+            gru_in = torch.relu(feats @ seq.w_prep[d] + seq.bias_prep[d])
+            h_new = seq.gru(gru_in, hidden)
+            hidden = m_d[:, None] * h_new + (1.0 - m_d[:, None]) * hidden
+        obs_c = obs[:, None]
+        h = obs_c * hidden + (1.0 - obs_c) * h
+        p = obs_c * seq.p(h) + (1.0 - obs_c) * p
+        if get_loss:
+            loss1 = loss1 + torch.sum(obs * (loss_seq + loss_pre))
+            loss2 = loss2 + torch.sum(
+                obs * kl_loss(p, X, M, True, cfg.obs_noise_std))
+        if return_path:
+            pres.append(p_pre)
+            posts.append(p)
+    loss = loss1 + cfg.mixing * loss2
+    if return_path:
+        return h, loss, (p0, torch.stack(pres), torch.stack(posts))
+    return h, loss

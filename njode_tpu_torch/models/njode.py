@@ -61,10 +61,18 @@ class NJODEConfig:
         object.__setattr__(self, "enc_nn", _norm_desc(self.enc_nn))
         if self.solver != "euler":
             raise ValueError(f"Unknown solver '{self.solver}'.")
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype '{self.compute_dtype}' is not ported yet "
-                "(ROADMAP.md Queue 1 item 8: mixed precision)")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"Unknown compute_dtype '{self.compute_dtype}' "
+                "(expected 'float32' or 'bfloat16').")
+
+    @property
+    def bf16(self) -> bool:
+        """Mixed precision: every matmul's operands rounded to bfloat16,
+        float32 sums and float32 everything else (``models/mlp.py``). The
+        fused kernels are float32 only (``fused_scan.supported``), so such
+        a config takes the eager forward."""
+        return self.compute_dtype == "bfloat16"
 
     @property
     def enc_case(self):
@@ -112,18 +120,20 @@ class NJODE(nn.Module):
     def __init__(self, cfg: NJODEConfig):
         super().__init__()
         self.cfg = cfg
-        rate = cfg.dropout_rate
+        rate, bf16 = cfg.dropout_rate, cfg.bf16
         self.ode_f = mlp.ODEFunc(net_widths(cfg, "ode_f")[0], cfg.ode_nn,
-                                 rate, cfg.bias, cfg.hidden_size)
+                                 rate, cfg.bias, cfg.hidden_size, bf16)
         self.encoder_map = mlp.FFNN(cfg.input_size, cfg.hidden_size,
                                     cfg.enc_nn, rate, cfg.bias,
-                                    cfg.residual_enc_dec, masked=cfg.masked)
+                                    cfg.residual_enc_dec, masked=cfg.masked,
+                                    bf16=bf16)
         self.readout_map = mlp.FFNN(cfg.hidden_size, cfg.output_size,
                                     cfg.readout_nn, rate, cfg.bias,
-                                    cfg.residual_enc_dec, masked=False)
+                                    cfg.residual_enc_dec, masked=False,
+                                    bf16=bf16)
         if cfg.use_rnn:
             self.obs_c = mlp.GRUJump(cfg.input_size, cfg.hidden_size,
-                                     cfg.bias)
+                                     cfg.bias, bf16)
 
     def forward(self, batch: GridBatch, **kw):
         return forward(self, batch, **kw)

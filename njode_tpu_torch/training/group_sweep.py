@@ -264,7 +264,8 @@ def train_group(group_params, verbose=True, pad_batches_to=None,
         which_loss=str(p0.get("which_loss", "standard")),
         residual_enc_dec=bool(p0.get("residual_enc_dec", True)),
         input_current_t=bool(p0.get("input_current_t", False)),
-        masked=bool(p0.get("masked", False)))
+        masked=bool(p0.get("masked", False)),
+        compute_dtype=str(p0.get("compute_dtype", "float32")))
     next_cond_exp = sde.make_model(metadata["model_name"],
                                    metadata).next_cond_exp
 

@@ -162,3 +162,69 @@ def gob_jax_params_from_state_dict(sd):
         "w_prep": sd["gru_obs.w_prep"].detach().cpu().numpy().copy(),
         "bias_prep": sd["gru_obs.bias_prep"].detach().cpu().numpy().copy()}
     return params
+
+
+# ---------------------------------------------------------------------------
+# GRUODEBayesSeq
+# ---------------------------------------------------------------------------
+
+# JAX name -> (the port's Sequential, step between its Linear layers)
+_SEQ_MLPS = {"cov_map": ("covariates_map", 3),
+             "p_model": ("gru_bayes.p_model", 2),
+             "class_model": ("classification_model", 3)}
+
+
+def seq_state_dict_from_jax_params(params_np):
+    """``GRUODEBayesSeq`` pytree (numpy leaves, ``seq_init_params``) -> the
+    ``state_dict`` of ``models.gru_ode_bayes.SeqGOB``: ``covariates_map``
+    and ``classification_model`` at Sequential indices 0 and 3,
+    ``gru_bayes.p_model`` at 0 and 2 (no dropout), ``gru_c.lin_*``,
+    ``gru_bayes.gru.*`` and ``gru_bayes.{w_prep, bias_prep}``."""
+    sd = OrderedDict()
+    for jname, (tname, step) in _SEQ_MLPS.items():
+        for j, layer in enumerate(params_np[jname]):
+            sd[f"{tname}.{step * j}.weight"] = _t(layer["w"])
+            if "b" in layer:
+                sd[f"{tname}.{step * j}.bias"] = _t(layer["b"])
+    for name, p in params_np["gru_c"].items():
+        sd[f"gru_c.{name}.weight"] = _t(p["w"])
+        if "b" in p:
+            sd[f"gru_c.{name}.bias"] = _t(p["b"])
+    so = params_np["seq_obs"]
+    for jk, tk in _GRU.items():
+        if jk in so["gru"]:
+            sd[f"gru_bayes.gru.{tk}"] = _t(so["gru"][jk])
+    sd["gru_bayes.w_prep"] = torch.tensor(np.asarray(so["w_prep"],
+                                                     np.float32))
+    sd["gru_bayes.bias_prep"] = torch.tensor(np.asarray(so["bias_prep"],
+                                                        np.float32))
+    return sd
+
+
+def seq_jax_params_from_state_dict(sd):
+    """``state_dict`` of a ``SeqGOB`` -> the JAX pytree of numpy arrays
+    (inverse of :func:`seq_state_dict_from_jax_params`)."""
+    params = {}
+    for jname, (tname, step) in _SEQ_MLPS.items():
+        layers = defaultdict(dict)
+        pat = re.compile(rf"^{re.escape(tname)}\.(\d+)\.(weight|bias)$")
+        for key, t in sd.items():
+            m = pat.match(key)
+            if m:
+                layers[int(m.group(1)) // step][
+                    "w" if m.group(2) == "weight" else "b"] = _np(t)
+        params[jname] = [layers[i] for i in sorted(layers)]
+    gc = defaultdict(dict)
+    pat = re.compile(r"^gru_c\.(lin_\w+)\.(weight|bias)$")
+    for key, t in sd.items():
+        m = pat.match(key)
+        if m:
+            gc[m.group(1)]["w" if m.group(2) == "weight" else "b"] = _np(t)
+    params["gru_c"] = dict(gc)
+    inv = {v: k for k, v in _GRU.items()}
+    params["seq_obs"] = {
+        "gru": {inv[k.rsplit(".", 1)[1]]: _np(t) for k, t in sd.items()
+                if k.startswith("gru_bayes.gru.")},
+        "w_prep": sd["gru_bayes.w_prep"].detach().cpu().numpy().copy(),
+        "bias_prep": sd["gru_bayes.bias_prep"].detach().cpu().numpy().copy()}
+    return params

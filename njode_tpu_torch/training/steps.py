@@ -34,6 +34,7 @@ from njode_tpu_torch.data.grid import GridBatch, densify_sparse, \
 from njode_tpu_torch.models import njode
 from njode_tpu_torch.parallel import sharding
 from njode_tpu_torch.training.checkpoints import snapshot
+from njode_tpu_torch.utils import profiling
 
 
 def make_optimizer(params, learning_rate: float,
@@ -224,7 +225,8 @@ def _step(optimizer, train_loss, mesh=None, op="mean"):
     """One optimizer step on a GridBatch; returns the loss times
     ``loss_scale``. With a ``mesh`` the gradients and the loss are reduced
     over the ranks (``op``, see ``sharding.allreduce_grads``) before the
-    step."""
+    step; under anomaly detection (``utils/profiling.py``) a non-finite
+    loss or gradient raises before it."""
 
     def step(batch, weight, generator, loss_scale=1.0):
         optimizer.zero_grad(set_to_none=True)
@@ -234,6 +236,8 @@ def _step(optimizer, train_loss, mesh=None, op="mean"):
             loss = sharding.allreduce_grads(
                 [p for g in optimizer.param_groups for p in g["params"]],
                 mesh, op, loss)
+        profiling.check_step(loss, (p for g in optimizer.param_groups
+                                    for p in g["params"]))
         optimizer.step()
         return loss.detach()
 

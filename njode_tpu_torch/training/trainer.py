@@ -19,12 +19,13 @@ With the option 'mesh' (a ``parallel.sharding.Mesh``) the run is
 data-parallel: every rank of the mesh calls ``train`` with the same
 arguments, trains on its block of each batch's rows, and only rank 0
 writes the registry, the metric CSV, the checkpoints and the plots.
-Options the port does not handle yet raise ``NotImplementedError`` naming
-their ROADMAP.md entry."""
+The options 'profile_dir' and 'anomaly_detection' trace the first epoch
+and check every step (utils/profiling.py)."""
 
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import os
 import time
@@ -45,6 +46,7 @@ from njode_tpu_torch.training.plots import have_matplotlib, \
     plot_one_path_with_pred
 from njode_tpu_torch.training.steps import make_optimizer, make_step_fns
 from njode_tpu_torch.utils import paths as path_cfg
+from njode_tpu_torch.utils import profiling
 from njode_tpu_torch.utils.csv_frame import read_frame, to_float, \
     write_frame
 from njode_tpu_torch.utils.paths import makedirs
@@ -55,24 +57,11 @@ default_ode_nn = ((50, "tanh"), (50, "tanh"))
 default_readout_nn = ((50, "tanh"), (50, "tanh"))
 default_enc_nn = ((50, "tanh"), (50, "tanh"))
 
-# options of the JAX trainer that this port does not handle yet
-_UNPORTED = {
-    "profile_dir": "Queue 1 item 8 (utils/profiling.py)",
-    "anomaly_detection": "Queue 1 item 8 (utils/profiling.py)",
-}
 # printed once by a run asked to plot where matplotlib cannot be imported
 PLOT_SKIPPED = "plot: matplotlib is not installed, figures skipped"
 # the per-epoch history of a chunk of epochs (parameters and Adam's two
 # moments, 3x the parameters' bytes an epoch) is capped to this many bytes
 HIST_BUDGET = 2 << 30
-
-
-def _reject_unported(options):
-    for key, entry in _UNPORTED.items():
-        val = options.get(key)
-        if val:
-            raise NotImplementedError(
-                f"option '{key}' is not ported yet (ROADMAP.md {entry})")
 
 
 def train_val_split(nb_paths: int, test_size: float, seed: int):
@@ -85,7 +74,7 @@ def train_val_split(nb_paths: int, test_size: float, seed: int):
     return perm[n_test:], perm[:n_test]
 
 
-def train(
+def _train(
         model_id=None, epochs=100, batch_size=100, save_every=1,
         learning_rate=0.001, test_size=0.2, seed=398,
         hidden_size=10, bias=True, dropout_rate=0.1,
@@ -131,10 +120,15 @@ def train(
     'mesh' (a ``parallel.sharding.Mesh``: data-parallel training, every
     rank calling with the same arguments; ``batch_size`` must divide by
     its size, a last batch that does not is dropped; kept out of the
-    registry description).
+    registry description), 'compute_dtype' ('float32' or 'bfloat16': the
+    matmuls' operands rounded to bfloat16, float32 sums; such a model
+    trains through the eager forward), 'profile_dir' (a ``torch.profiler``
+    Chrome trace of the first epoch's training written there,
+    ``utils/profiling.trace``), 'anomaly_detection' (for the call: torch's
+    autograd anomaly mode, and a NaN loss or gradient after a step raises
+    FloatingPointError, ``utils/profiling.anomaly_detection``).
     :return: 0 (reference convention)
     """
-    _reject_unported(options)
     mesh = sharding.check_mesh(options.pop("mesh", None))
     if mesh is not None and batch_size % mesh.size:
         raise ValueError(f"batch_size={batch_size} must be divisible by the "
@@ -238,7 +232,8 @@ def train(
             which_loss=opts.get("which_loss", "standard"),
             residual_enc_dec=opts.get("residual_enc_dec", True),
             input_current_t=opts.get("input_current_t", False),
-            masked=opts.get("masked", False))
+            masked=opts.get("masked", False),
+            compute_dtype=opts.get("compute_dtype", "float32"))
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(rseed)
             model = njode.NJODE(cfg)
@@ -472,6 +467,10 @@ def train(
               f"optimal-eval-loss={opt_eval_loss:.5f}, "
               f"eval-loss={loss_val:.5f}, ")
 
+    # the first epoch's (or chunk's) training is traced into 'profile_dir'
+    profile_dir = options.get("profile_dir")
+    profiled = False
+
     while epoch <= epochs and use_chunked:
         n_ep = min(epoch_chunk, epochs - epoch + 1)
         t0 = time.time()
@@ -483,11 +482,13 @@ def train(
             ws.append(w)
             w = njode.weight_decay_step(w, w_decay)
         do_msd = bool(options.get("evaluate"))
-        tl, ev, msd, p_hist, o_hist = fns["train_epochs"](
-            d_train_paths, d_train_obs, idx_mats, ws,
-            [_generator(epoch + j) for j in range(n_ep)], d_val_paths,
-            d_val_obs, val_idx_all, do_msd)
-        tl, ev, msd = (t.tolist() for t in (tl, ev, msd))
+        with profiling.trace(None if profiled else profile_dir):
+            tl, ev, msd, p_hist, o_hist = fns["train_epochs"](
+                d_train_paths, d_train_obs, idx_mats, ws,
+                [_generator(epoch + j) for j in range(n_ep)], d_val_paths,
+                d_val_obs, val_idx_all, do_msd)
+            tl, ev, msd = (t.tolist() for t in (tl, ev, msd))
+        profiled = True
         per_ep = (time.time() - t0) / n_ep
         for j in range(n_ep):
             _print_epoch(epoch + j, ws[j], tl[j], ev[j])
@@ -507,17 +508,19 @@ def train(
         n_full = (n_train // batch_size) * batch_size
         perm_d = torch.as_tensor(perm, device=device)
         losses = []
-        if n_full:
-            losses.append(fns["train_epoch"](
-                d_train_paths, d_train_obs,
-                perm_d[:n_full].view(-1, batch_size), cur_weight, gen))
-        if n_full < n_train and (mesh is None
-                                 or (n_train - n_full) % mesh.size == 0):
-            # under a mesh a last batch it does not divide is dropped
-            losses.append(fns["train_step"](
-                d_train_paths, d_train_obs, perm_d[n_full:], cur_weight,
-                gen).view(1))
-        train_loss = float(torch.cat(losses)[-1])
+        with profiling.trace(None if profiled else profile_dir):
+            if n_full:
+                losses.append(fns["train_epoch"](
+                    d_train_paths, d_train_obs,
+                    perm_d[:n_full].view(-1, batch_size), cur_weight, gen))
+            if n_full < n_train and (mesh is None or
+                                     (n_train - n_full) % mesh.size == 0):
+                # under a mesh a last batch it does not divide is dropped
+                losses.append(fns["train_step"](
+                    d_train_paths, d_train_obs, perm_d[n_full:],
+                    cur_weight, gen).view(1))
+            train_loss = float(torch.cat(losses)[-1])
+        profiled = True
         if ema_decay:
             with torch.no_grad():
                 for e, p in zip(ema_model.parameters(), model.parameters()):
@@ -554,3 +557,9 @@ def train(
     if metric_rows:
         _flush_metrics()
     return 0
+
+
+@functools.wraps(_train)
+def train(*args, **kwargs):
+    with profiling.anomaly_detection(bool(kwargs.get("anomaly_detection"))):
+        return _train(*args, **kwargs)

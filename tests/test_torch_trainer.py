@@ -148,10 +148,19 @@ def test_trainer_writes_metrics_checkpoints_and_resumes(tmp_path):
     ("mesh", object()), ("profile_dir", "p"),
     ("anomaly_detection", True)])
 def test_unported_trainer_options_raise(option, value):
-    """The options still unported raise naming their ROADMAP entry;
-    'mesh' is ported (tests/test_torch_parallel_trainers.py) and refuses
-    an object that is not a ``parallel.sharding.Mesh``."""
-    expect = ((ValueError, "1-D .*Mesh") if option == "mesh"
-              else (NotImplementedError, "ROADMAP"))
-    with pytest.raises(expect[0], match=expect[1]):
+    """Every option of the JAX trainer is ported now: 'mesh'
+    (tests/test_torch_parallel_trainers.py) refuses an object that is not
+    a ``parallel.sharding.Mesh``; 'profile_dir' and 'anomaly_detection'
+    (tests/test_torch_profiling.py) are no longer refused, so a call
+    without a dataset fails as it fails without them, and anomaly mode is
+    off again after it."""
+    if option == "mesh":
+        with pytest.raises(ValueError, match="1-D .*Mesh"):
+            ttrainer.train(**{option: value}, device="cpu")
+        return
+    with pytest.raises(TypeError) as plain:
+        ttrainer.train(device="cpu")
+    with pytest.raises(TypeError) as err:
         ttrainer.train(**{option: value}, device="cpu")
+    assert str(err.value) == str(plain.value)
+    assert not torch.is_anomaly_enabled()
