@@ -260,7 +260,26 @@ build, with the host idle, before phase 3:
               must hold one K1 and one K2 a step of the epoch) and with
               anomaly_detection (exact launch counts, anomaly mode off
               after it), then a step of the kernels with a NaN weight under
-              anomaly detection, which must raise.
+              anomaly detection, which must raise;
+31. tp       - (runs right after parallel) the entry points and tensor
+              parallelism (njode_tpu_torch/entry.py, parallel/
+              tensor_parallel.py): entry()'s flagship loss on the card
+              (B = 200, K = 100, 'prng'), finite, exactly one K1 launch;
+              dryrun_multichip(2) over two gloo ranks sharing the card
+              (each part of __graft_entry__.dryrun_multichip at its tiny
+              shapes and tolerances, rank 0's launches exact: the masked
+              K1/K2 twice, K3 once); then the main path's model (hidden
+              10, three 2x50 tanh MLPs, dropout 0.1, B = 100, K = 100) cut
+              over the 'model' axis of a 1 x 2 mesh of two gloo ranks on
+              the card, on the eager forward (as the JAX package's tensor
+              parallelism runs its XLA scan): the eval loss within 1e-5
+              relative of the unsharded eager run, one Adam step's loss
+              within 1e-4, its gathered gradients at rtol 2e-4 / atol 2e-5
+              and parameters at rtol 1e-4 / atol 1e-6, the two ranks'
+              parameters equal bit for bit (the dry run holds its 1-vs-n
+              and DP x TP gradients at rtol 2e-4 / atol 2e-5 too); the ms of
+              an eval and a step, sharded and not. Two ranks on one card
+              measure no speed.
 
 Tolerances are those the JAX package's Pallas kernel is held to
 (tests/test_fused_scan.py): loss rtol 1e-5 / atol 1e-6, gradients rtol
@@ -3920,6 +3939,162 @@ def phase_parallel(results):
                                launches=launches)
 
 
+# the tp phase: the main path's widths (hidden 10, three 2x50 tanh MLPs,
+# dropout 0.1) at B = 100, K = 100, the model split over 2 ranks
+TP_B = 100
+TP_K = 100
+TP_REPS = 2
+
+
+def tp_setup(dev):
+    """The main path's model (seeded 3) and a BlackScholes dataset of
+    ``TP_B`` paths on the card, in ``make_step_fns``' layout: ``(cfg,
+    model, (paths, obs, idx), (times, dts))``."""
+    import numpy as np
+    import torch
+
+    from njode_tpu_torch.data import sde
+    from njode_tpu_torch.data.datasets import hyperparam_default
+
+    cfg, model, _ = main_path_setup(TP_B, TP_K, 3, dev)
+    hp = dict(hyperparam_default, nb_paths=TP_B, nb_steps=TP_K)
+    paths, dt = sde.make_model("BlackScholes", hp).generate_paths(
+        torch.Generator(device=dev).manual_seed(3))
+    obs = torch.as_tensor((np.random.RandomState(3).random(
+        (TP_B, TP_K + 1)) < 0.1).astype(np.float32), device=dev)
+    times = torch.as_tensor((np.arange(1, TP_K + 1) * dt).astype(
+        np.float32), device=dev)
+    dts = torch.full((TP_K,), dt, dtype=torch.float32, device=dev)
+    idx = torch.arange(TP_B, device=dev)
+    return cfg, model, (paths.float().contiguous(), obs, idx), (times, dts)
+
+
+def _tp_run(mesh):
+    """The main path's model (:func:`tp_setup`), cut over the 'model' axis
+    of the 2-D ``mesh`` (None: unsharded): the eval loss, one Adam step's
+    loss (dropout 0.1, masks from a generator seeded 5), its gradients and
+    the parameters after it (both gathered where the model is cut), and the
+    ms of an eval and a step (host clock around ``TP_REPS`` of each, the
+    card synchronised)."""
+    import torch
+
+    from njode_tpu_torch.parallel import sharding, tensor_parallel
+    from njode_tpu_torch.training.steps import make_optimizer, make_step_fns
+
+    dev = torch.device("cuda")
+    _, model, data, grid_ = tp_setup(dev)
+    opt = make_optimizer(model.parameters(), 1e-3)
+    if mesh is not None:
+        sharding.shard_model(model, mesh, opt)
+    fns = make_step_fns(model, opt, *grid_, mesh=mesh)
+    ev = float(fns["eval_loss"](*data, 0.5))
+    loss = float(fns["train_step"](*data, 0.5,
+                                   torch.Generator(device=dev).manual_seed(5)))
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    params = model.state_dict()
+    if mesh is not None:
+        grads = tensor_parallel.full_state_dict(model, grads)
+        params = tensor_parallel.full_state_dict(model)
+    grads, params = ({k: v.detach().cpu().clone() for k, v in t.items()}
+                     for t in (grads, params))
+    ms = {}
+    for tag, fn in (("eval", lambda: fns["eval_loss"](*data, 0.5)),
+                    ("step", lambda: fns["train_step"](
+                        *data, 0.5, torch.Generator(device=dev).manual_seed(
+                            6)))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TP_REPS):
+            fn()
+        torch.cuda.synchronize()
+        ms[tag] = (time.perf_counter() - t0) * 1e3 / TP_REPS
+    return dict(eval=ev, loss=loss, grads=grads, params=params, ms=ms)
+
+
+def tp_rank(mesh, job):
+    """One of the tp phase's two gloo ranks sharing the card, in a process
+    of its own (``parallel.sharding.spawn`` imports this script by name):
+    the main path's model split over the 2-way 'model' axis of a 1 x 2
+    mesh, its eval, one step and their times."""
+    import torch
+
+    from njode_tpu_torch.parallel import sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return _tp_run(sharding.make_mesh_2d(mesh.size,
+                                         model_parallel=mesh.size))
+
+
+def phase_tp(results):
+    """Tensor parallelism and the entry points (njode_tpu_torch/entry.py):
+    the flagship's loss through ``entry()`` (one K1 launch), the dry run
+    over two gloo ranks sharing the card, and the main path's model split
+    over two ranks against the unsharded eager run."""
+    import numpy as np
+    import torch
+
+    from njode_tpu_torch import entry
+    from njode_tpu_torch.bench import card_line
+    from njode_tpu_torch.ops import fused_scan as fs
+    from njode_tpu_torch.parallel import sharding
+
+    t0 = time.time()
+    fn, args = entry.entry()
+    fs.reset_launch_counts()
+    with torch.no_grad():
+        loss = float(fn(*args))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in fs.LAUNCHES.items() if v}
+    if not np.isfinite(loss) or counts.get("njode_scan_fwd") != 1:
+        raise AssertionError(f"tp entry: loss {loss}, launches {counts}")
+    say("tp", entry_loss=f"{loss:.6f}", launches=json.dumps(counts)
+        .replace(" ", ""), entry_s=f"{time.time() - t0:.2f}")
+    t0 = time.time()
+    dry = entry.dryrun_multichip(2)
+    expect = {"njode_scan_fwd": 2, "njode_scan_bwd": 2, "njode_scan_eval": 1}
+    got = {k: dry["launches"].get(k, 0) for k in expect}
+    if got != expect:
+        raise AssertionError(f"tp dryrun: rank 0 launched {dry['launches']}")
+    say("tp", dryrun_s=f"{time.time() - t0:.2f}",
+        dryrun_launches_rank0=json.dumps(dry["launches"]).replace(" ", ""))
+    t0 = time.time()
+    outs = sharding.spawn(tp_rank, 2, args=({},), backend="gloo",
+                          timeout=300, wait=600)
+    spawn_s = time.time() - t0
+    ref = _tp_run(None)
+    errs = {}
+    for r, out in enumerate(outs):
+        e_ev = abs(out["eval"] - ref["eval"]) / abs(ref["eval"])
+        if e_ev > 1e-5:
+            raise AssertionError(f"tp eval (rank {r}): {out['eval']} vs "
+                                 f"{ref['eval']}")
+        if abs(out["loss"] - ref["loss"]) > 1e-4 * max(1.0, abs(ref["loss"])):
+            raise AssertionError(f"tp step loss (rank {r}): {out['loss']} "
+                                 f"vs {ref['loss']}")
+        # Adam's first step moves a parameter by about lr * sign(gradient):
+        # the gradients themselves show one off by a constant factor
+        e_g = max(check_close(f"tp grads {k} (rank {r})", out["grads"][k],
+                              v, GRAD_TOL)
+                  for k, v in ref["grads"].items())
+        e_p = max(check_close(f"tp params {k} (rank {r})", out["params"][k],
+                              v, dict(rtol=1e-4, atol=1e-6))
+                  for k, v in ref["params"].items())
+        errs[r] = dict(eval_rel=e_ev, loss_abs=abs(out["loss"] - ref["loss"]),
+                       grads_abs=e_g, params_abs=e_p)
+    if not all(torch.equal(outs[0]["params"][k], outs[1]["params"][k])
+               for k in ref["params"]):
+        raise AssertionError("tp: the two model ranks' gathered parameters "
+                             "differ")
+    card = card_line()
+    say("tp", mp=2, B=TP_B, K=TP_K, spawn_s=f"{spawn_s:.2f}",
+        errs=json.dumps(errs).replace(" ", ""), params_equal_across_ranks=True)
+    for tag in ("eval", "step"):
+        say("tp", timing=tag, tp_ms=f"{outs[0]['ms'][tag]:.3f}",
+            unsharded_ms=f"{ref['ms'][tag]:.3f}", card=f"'{card}'")
+    results["tp"] = dict(entry=counts, dryrun=dry["launches"], errs=errs,
+                         ms={"tp": outs[0]["ms"], "unsharded": ref["ms"]})
+
+
 # ---------------------------------------------------------------------------
 # the sequential GRU-ODE-Bayes, the C++ collation, mixed precision, the
 # width study and profiling
@@ -4543,12 +4718,18 @@ def kernels_line(results):
     # the width study's epochs (both plans) and the profiling phase's runs
     wl = results["width"]["launches"] + results["profiling"]["launches"]
     we = results["width"]["errs"]
+    # the tp phase: entry()'s launches and the dry run's rank 0's (its
+    # masked K1/K2 count under the masked rows)
+    tp = results["tp"]
     for name, key, replaces, count in rows:
         ms, plain = results["times"][key]
         bms, by = results["bounds"][key]
         # the main path: the per-epoch and chunked trainer runs, the bench
         launches = sum(results[r][count] for r in (
             "launches", "chunk_launches", "bench_launches"))
+        launches += tp["entry"].get(count, 0)
+        if count in ("njode_scan_eval", "philox_keep", "reduce_partials"):
+            launches += tp["dryrun"].get(count, 0)
         if name == "reduce_partials":    # runs on every path
             launches += sum(c["reduce_partials"]
                             for c in (gl, cn, cg, pl, p2, rl, cr, pr, sn, sm))
@@ -4606,11 +4787,11 @@ def kernels_line(results):
             ("njode_scan_fwd_masked", "K1m", src,
              "njode_tpu/ops/fused_scan.py:695",
              cn["njode_scan_fwd"] + pl["njode_scan_fwd"]
-             + sm["njode_scan_fwd"]),
+             + sm["njode_scan_fwd"] + tp["dryrun"]["njode_scan_fwd"]),
             ("njode_scan_bwd_masked", "K2m", src,
              "njode_tpu/ops/fused_scan.py:772",
              cn["njode_scan_bwd"] + pl["njode_scan_bwd"]
-             + sm["njode_scan_bwd"]),
+             + sm["njode_scan_bwd"] + tp["dryrun"]["njode_scan_bwd"]),
             ("njode_scan_eval_masked", "K3m", src,
              "njode_tpu/ops/fused_scan.py:695", cn["njode_scan_eval"]),
             ("gob_scan_fwd_climate", "K5c", gsrc,
@@ -4797,7 +4978,7 @@ def main():
                       phase_climate_trainer, phase_climate_rnn,
                       phase_physionet_kernels, phase_physionet_timing,
                       phase_physionet_trainer, phase_physionet_rnn,
-                      phase_sweep, phase_groups, phase_parallel,
+                      phase_sweep, phase_groups, phase_parallel, phase_tp,
                       phase_width_scaling, phase_profiling):
             phase(results)
             say(phase.__name__[6:], phase_s=f"{time.time() - t0:.2f}")

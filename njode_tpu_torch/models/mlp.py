@@ -55,21 +55,23 @@ def _mm_bf16(a, b):
     return a.float() @ b.float()
 
 
-def _round_bf16(x):
+def round_bf16(x):
     return x.to(torch.bfloat16).float()
 
 
 class _BF16Matmul(torch.autograd.Function):
     """``x [..., in] @ w.T`` for a torch-layout ``w [out, in]``, both
     rounded to bfloat16, float32 result and float32 gradients (each
-    rounded to bfloat16, as the JAX package's transposed dots are)."""
+    rounded to bfloat16, as the JAX package's transposed dots are; ``x``'s
+    left unrounded where ``round_gx`` is False, for a caller that sums
+    partial gradients first and rounds the sum)."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, round_gx=True):
         xb = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
         wb = w.to(torch.bfloat16)
         ctx.save_for_backward(xb, wb)
-        ctx.x_shape = x.shape
+        ctx.x_shape, ctx.round_gx = x.shape, round_gx
         return _mm_bf16(xb, wb.t()).reshape(*x.shape[:-1], w.shape[0])
 
     @staticmethod
@@ -78,15 +80,18 @@ class _BF16Matmul(torch.autograd.Function):
         g2 = g.reshape(-1, g.shape[-1]).float()
         gx = gw = None
         if ctx.needs_input_grad[0]:
-            gx = _round_bf16(_mm_bf16(g2, wb)).reshape(ctx.x_shape)
+            gx = _mm_bf16(g2, wb)
+            gx = (round_bf16(gx) if ctx.round_gx else gx).reshape(
+                ctx.x_shape)
         if ctx.needs_input_grad[1]:
-            gw = _round_bf16(_mm_bf16(g2.t(), xb))
-        return gx, gw
+            gw = round_bf16(_mm_bf16(g2.t(), xb))
+        return gx, gw, None
 
 
-def bf16_matmul(x, w):
-    """The mixed-precision product ``x @ w.T`` (``w [out, in]``)."""
-    return _BF16Matmul.apply(x, w)
+def bf16_matmul(x, w, round_gx: bool = True):
+    """The mixed-precision product ``x @ w.T`` (``w [out, in]``);
+    ``round_gx``: see :class:`_BF16Matmul`."""
+    return _BF16Matmul.apply(x, w, round_gx)
 
 
 def linear(lin: nn.Linear, x, bf16: bool = False):
@@ -132,7 +137,13 @@ def ffnn_apply(seq: nn.Sequential, x, acts: Sequence[str], rate: float = 0.0,
 
     ``keep_masks``: None (no dropout) or one bool tensor per hidden layer,
     ``[rows, W >= width]``, sliced to the layer's width; kept units are
-    scaled by ``1/(1-rate)``. ``bf16``: the mixed-precision products."""
+    scaled by ``1/(1-rate)``. ``bf16``: the mixed-precision products. A
+    Sequential cut by ``parallel.sharding.shard_model`` carries a
+    ``tp_plan``, which runs it tensor-parallel.
+    """
+    plan = getattr(seq, "tp_plan", None)
+    if plan is not None:
+        return plan.apply(seq, x, acts, rate, keep_masks, bf16)
     lins = linears(seq)
     y = linear(lins[0], x, bf16)
     keep = 1.0 - rate

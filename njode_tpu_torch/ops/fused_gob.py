@@ -1407,7 +1407,7 @@ def make_fused_loss_fn(cfg, mask_mode: str = "prng", u_override=None,
 
     _require_supported(cfg)
     spec = Spec(cfg, mask_mode)
-    sharding.check_mesh(mesh)
+    sharding.check_mesh(mesh, "fused kernel sharding")
     n_seeds = 1 if mesh is None else mesh.size
 
     def loss_fn(model, batch, generator, train):
@@ -1467,7 +1467,7 @@ def make_fused_eval_fn(cfg, mesh=None):
 
     _require_supported(cfg)
     spec = Spec(cfg, "input")
-    sharding.check_mesh(mesh)
+    sharding.check_mesh(mesh, "fused kernel sharding")
 
     def local(model, batch):
         with torch.no_grad():

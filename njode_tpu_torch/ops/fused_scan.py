@@ -1567,7 +1567,7 @@ def make_fused_loss_fn(cfg, mask_mode: str = "prng", u_override=None,
 
     _require_supported(cfg)
     spec = Spec(cfg, mask_mode, plan)
-    sharding.check_mesh(mesh)
+    sharding.check_mesh(mesh, "fused kernel sharding")
     n_seeds = 1 if mesh is None else mesh.size
 
     def loss_fn(model, batch, weight, generator, train):
@@ -1644,7 +1644,7 @@ def make_fused_eval_fn(cfg, plan=None, mesh=None):
 
     _require_supported(cfg)
     spec = Spec(cfg, "input", plan)
-    sharding.check_mesh(mesh)
+    sharding.check_mesh(mesh, "fused kernel sharding")
 
     def eval_fn(model, batch, weight):
         B = batch.start_X.shape[0]

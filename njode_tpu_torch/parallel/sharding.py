@@ -1,7 +1,5 @@
-"""Data parallelism over ``torch.distributed``, the port's copy of
-``njode_tpu/parallel/sharding.py`` (its 1-D data mesh; the tensor-parallel
-helpers ``make_mesh_2d``, ``ffnn_tp_specs`` and ``njode_tp_sharding`` are
-not ported, ROADMAP.md Queue 1 item 8).
+"""Data and tensor parallelism over ``torch.distributed``, the port's copy
+of ``njode_tpu/parallel/sharding.py``.
 
 The JAX package runs one process over several devices; here every rank is a
 process of its own running the whole program. A :class:`Mesh` is this
@@ -12,6 +10,13 @@ layout ``P('data')`` gives), parameters and optimizer state are replicated
 or averaged over the ranks in one collective (:func:`allreduce_grads`), so
 that every rank takes the same optimizer step. The JAX package gets that
 all-reduce from ``shard_map``'s transpose; here the step functions call it.
+
+Tensor parallelism: :func:`make_mesh_2d` lays the ranks out as a (data x
+model) grid, :func:`ffnn_tp_specs` and :func:`njode_tp_sharding` give the
+JAX package's Megatron-style specs of each MLP layer, and
+:func:`shard_model` cuts a replicated ``NJODE`` (and its Adam state) down
+to this rank's shards. ``parallel/tensor_parallel.py`` runs the sharded
+MLPs (what GSPMD does for the JAX forward).
 
 Backends are chosen by the caller, never switched silently: 'nccl' (one
 card a rank) or 'gloo' (CPU tensors, and CUDA tensors for all_reduce and
@@ -29,7 +34,7 @@ import os
 import shutil
 import tempfile
 import time
-from typing import Any
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
@@ -105,13 +110,167 @@ def make_mesh(n_devices=None, group=None) -> Mesh:
     return Mesh(size, dist.get_rank(group), group)
 
 
-def check_mesh(mesh):
-    """``mesh`` where it is a :class:`Mesh` or None, else ValueError."""
+def check_mesh(mesh, what: str = "data parallelism"):
+    """``mesh`` where it is a :class:`Mesh` or None, else ValueError (a
+    :class:`Mesh2D` with the JAX package's message for ``what``)."""
+    if isinstance(mesh, Mesh2D):
+        raise ValueError(f"{what} needs a 1-D mesh over 'data'; got axes "
+                         f"{mesh.axis_names}")
     if mesh is not None and not isinstance(mesh, Mesh):
-        raise ValueError("data parallelism needs a 1-D "
+        raise ValueError(f"{what} needs a 1-D "
                          "njode_tpu_torch.parallel.sharding.Mesh over "
                          f"'data' (make_mesh); got {type(mesh).__name__}")
     return mesh
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """A 2-D (data x model) mesh of ``shape = (n // mp, mp)`` ranks: global
+    rank r sits at data index ``r // mp`` and model index ``r % mp`` (the
+    layout of the JAX package's ``reshape(n // mp, mp)``). ``data`` is the
+    1-D :class:`Mesh` over this rank's column (the ranks of its model
+    index, which split the batch rows), ``model`` the one over its row (the
+    ranks of its data index, which split the MLP weights)."""
+    shape: tuple
+    data: Mesh
+    model: Mesh
+    axis_names: tuple = ("data", "model")
+
+
+def make_mesh_2d(n_devices=None, model_parallel: int = 1,
+                 axes=("data", "model")) -> Mesh2D:
+    """The 2-D (data x model) mesh over every process of the initialised
+    default group, for data and tensor parallelism at once. Every rank
+    creates every subgroup (``dist.new_group``) in the same order: first
+    one a row (the 'model' groups), then one a column (the 'data' groups).
+    ``n_devices``, where given, must be the world size; ``model_parallel``
+    must divide it."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh_2d needs a process group: call "
+                           "initialize_distributed first (or run under "
+                           "parallel.sharding.spawn)")
+    n = dist.get_world_size()
+    if n_devices is not None and int(n_devices) != n:
+        raise ValueError(f"make_mesh_2d({n_devices}): the process group "
+                         f"has {n} ranks")
+    mp = int(model_parallel)
+    if mp < 1 or n % mp:
+        raise ValueError(f"model_parallel={mp} does not divide the {n} "
+                         "ranks")
+    rows = n // mp
+    model_groups = [dist.new_group([i * mp + j for j in range(mp)])
+                    for i in range(rows)]
+    data_groups = [dist.new_group([i * mp + j for i in range(rows)])
+                   for j in range(mp)]
+    di, mi = divmod(dist.get_rank(), mp)
+    return Mesh2D((rows, mp), Mesh(rows, di, data_groups[mi]),
+                  Mesh(mp, mi, model_groups[di]), tuple(axes))
+
+
+def ffnn_tp_specs(layers, axis: str = "model", axis_size: int = 1):
+    """Megatron-style tensor-parallel specs of an MLP's layers (``nn.Linear``
+    modules, or a ``get_ffnn`` Sequential), in the JAX package's ``[in,
+    out]`` orientation, each spec the tuple
+    ``tuple(PartitionSpec(...))`` gives: even layers shard the output dim
+    (``w (None, axis)``, bias ``(axis,)``), odd layers the input dim (``w
+    (axis, None)``, bias replicated ``()``); a layer whose dim
+    ``axis_size`` does not divide stays replicated. Torch's ``[out, in]``
+    weights slice the transposed dim (:func:`shard_model`)."""
+    if isinstance(layers, torch.nn.Sequential):
+        layers = [m for m in layers if isinstance(m, torch.nn.Linear)]
+    specs = []
+    for i, lin in enumerate(layers):
+        d_out, d_in = lin.weight.shape
+        if i % 2 == 0 and d_out % axis_size == 0:
+            s = {"w": (None, axis), "b": (axis,)}
+        elif i % 2 == 1 and d_in % axis_size == 0:
+            s = {"w": (axis, None), "b": ()}
+        else:
+            s = {"w": (), "b": ()}
+        if lin.bias is None:
+            del s["b"]
+        specs.append(s)
+    return specs
+
+
+# the module paths of NJODE's MLP stacks (the JAX pytree's 'ode_f',
+# 'encoder' and 'readout')
+TP_NETS = ("ode_f.f", "encoder_map.ffnn", "readout_map.ffnn")
+
+
+def _tp_nets(model, axis, size):
+    """``(path, Sequential, [name of each Linear], ffnn_tp_specs)`` for each
+    MLP stack of ``model``: the one place that maps a layer to its
+    parameters' names."""
+    for path in TP_NETS:
+        seq = model.get_submodule(path)
+        names = [f"{path}.{k}" for k, m in seq.named_children()
+                 if isinstance(m, torch.nn.Linear)]
+        yield path, seq, names, ffnn_tp_specs(seq, axis, size)
+
+
+def njode_tp_sharding(model, mesh: Mesh2D, axis: str = "model"):
+    """The spec of every parameter of ``model`` (an ``NJODE``) by its
+    ``state_dict`` name: the three MLP stacks tensor-parallel over
+    ``axis`` (:func:`ffnn_tp_specs`), everything else (the GRU jump
+    ``obs_c.*``) replicated, ``()``."""
+    size = dict(zip(mesh.axis_names, mesh.shape))[axis]
+    specs = {name: () for name, _ in model.named_parameters()}
+    for _, _, names, layer_specs in _tp_nets(model, axis, size):
+        for name, s in zip(names, layer_specs):
+            specs[f"{name}.weight"] = s["w"]
+            if "b" in s:
+                specs[f"{name}.bias"] = s["b"]
+    return specs
+
+
+def shard_dim(spec, torch_weight: bool) -> Optional[int]:
+    """The torch dim a spec shards: a weight's JAX ``[in, out]`` dims are
+    torch's ``[out, in]`` transposed; None where nothing is sharded."""
+    if not any(spec):
+        return None
+    d = [i for i, a in enumerate(spec) if a is not None][0]
+    return 1 - d if torch_weight else d
+
+
+@dataclasses.dataclass(frozen=True)
+class TPState:
+    """What :func:`shard_model` leaves on a cut ``NJODE`` (``model.tp``):
+    its mesh and every parameter's spec (:func:`njode_tp_sharding`)."""
+    mesh: Mesh2D
+    specs: dict
+
+
+def shard_model(model, mesh: Mesh2D, optimizer=None):
+    """Cut a replicated ``NJODE`` (and the Adam state of ``optimizer``) down
+    to this rank's shards over the mesh's 'model' axis, in place: each
+    sharded parameter keeps block ``mesh.model.rank`` of its sharded dim
+    (even blocks: the spec rule shards only dims the axis size divides),
+    each MLP stack carries its plan (``tensor_parallel.TPPlan``), which
+    ``models/mlp.ffnn_apply`` follows, and ``model.tp`` the
+    :class:`TPState`. A bf16 config (``compute_dtype='bfloat16'``) runs the
+    same shards with bf16 products. Returns ``model``."""
+    from njode_tpu_torch.parallel import tensor_parallel
+
+    axis, sub = mesh.axis_names[1], mesh.model
+    specs = njode_tp_sharding(model, mesh, axis)
+    plans = [(seq, tensor_parallel.TPPlan.of(seq, layer_specs, sub))
+             for _, seq, _, layer_specs in _tp_nets(model, axis, sub.size)]
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            d = shard_dim(specs[name], name.endswith("weight"))
+            if d is None:
+                continue
+            lo, hi = sub.rows(p.shape[d])
+            state = optimizer.state.get(p, {}) if optimizer else {}
+            for k, v in state.items():
+                if torch.is_tensor(v) and v.shape == p.shape:
+                    state[k] = v.narrow(d, lo, hi - lo).clone()
+            p.data = p.data.narrow(d, lo, hi - lo).clone()
+    for seq, plan in plans:
+        seq.tp_plan = plan
+    model.tp = TPState(mesh, specs)
+    return model
 
 
 def check_divisible(n: int, mesh: Mesh):

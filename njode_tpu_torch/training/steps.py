@@ -22,7 +22,10 @@ a step reduces the flat gradient (and the loss) over the ranks in one
 collective and then takes the same Adam step everywhere (NJODE's loss, a
 batch mean, is averaged; see ``sharding.allreduce_grads``). Evaluation
 runs each rank's block and reduces the loss (and gathers a real-data
-prediction path), so every rank returns the global values.
+prediction path), so every rank returns the global values. Under a 2-D
+``sharding.Mesh2D`` the eager steps run the MLPs tensor-parallel over its
+'model' axis (``parallel/tensor_parallel.py``) and do all of the above over
+its 'data' axis.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 from njode_tpu_torch.data.grid import GridBatch, densify_sparse, \
     scatter_events
 from njode_tpu_torch.models import njode
-from njode_tpu_torch.parallel import sharding
+from njode_tpu_torch.parallel import sharding, tensor_parallel
 from njode_tpu_torch.training.checkpoints import snapshot
 from njode_tpu_torch.utils import profiling
 
@@ -77,11 +80,16 @@ def make_step_fns(model: njode.NJODE, optimizer, times, dts,
         inside the kernels; 'input' = a drawn [K,S,B,Wmax] mask tensor)
     :param mesh: data-parallel ``parallel.sharding.Mesh`` (see the module
         docstring); the training batches' rows must divide by its size.
-        ``eval_msd`` and ``pred_path`` run on the whole batch on every rank
+        ``eval_msd`` and ``pred_path`` run on the whole batch on every rank.
+        A ``sharding.Mesh2D`` (data x model) runs tensor parallelism too,
+        on the eager forward (``use_kernels`` False, as the JAX package's
+        tensor parallelism runs its XLA scan): ``model`` (and
+        ``optimizer``'s state) cut by ``sharding.shard_model`` first
     :return: dict of functions; those taking ``generator`` draw dropout
         masks from it
     """
     cfg = model.cfg
+    mesh = tensor_parallel.step_mesh(model, mesh, use_kernels)
     step = _step(optimizer, _train_loss(model, use_kernels, mask_mode, mesh),
                  mesh)
     if use_kernels:
@@ -263,6 +271,7 @@ def make_grid_step_fns(model: njode.NJODE, optimizer, sparse: bool = False,
         docstring); the batches' rows must divide by its size
     """
     prep = densify_sparse if sparse else (lambda b: b)
+    mesh = tensor_parallel.step_mesh(model, mesh, use_kernels)
     step = _step(optimizer, _train_loss(model, use_kernels, mask_mode, mesh),
                  mesh)
 
@@ -406,6 +415,7 @@ def make_prestacked_step_fns(model: njode.NJODE, optimizer, times, dts,
     and ``train_epoch(k_all, X_all, M_all, idx_mat, weight, generators,
     loss_scales)``. With a ``mesh`` (module docstring) each rank trains on
     its block of every batch's rows."""
+    mesh = tensor_parallel.step_mesh(model, mesh, use_kernels)
     step = _step(optimizer, _train_loss(model, use_kernels, mask_mode, mesh),
                  mesh)
 
