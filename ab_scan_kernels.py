@@ -1,7 +1,7 @@
 """A/B timing of the NJODE scan kernels (K1-K3) and reduce_partials of one
 checkout on one CUDA card, to compare two versions within one machine.
 
-    python3 ab_scan_kernels.py ROOT TAG [witness|gob|phases|masks]
+    python3 ab_scan_kernels.py ROOT TAG [witness|gob|phases|masks|main|scope]
 
 ROOT is a checkout holding ``njode_tpu_torch/`` and ``chip_smoke.py`` (e.g.
 the parent commit unpacked with ``git archive`` into a git-ignored
@@ -60,6 +60,20 @@ with dropout off, in 'input' mode fed with the standalone kernel's masks
 and in 'prng' mode (CUDA-event ms), whether the 'input' and the 'prng'
 outputs are equal bit for bit, and a digest of the 'prng' outputs (equal
 digests in two checkouts: equal bits).
+
+With ``main`` it times only the kernels of the main path and the arms
+that share their code (``main_arms``, CUDA-event ms, 'prng', K = 100): the
+resident K1/K2/K3 at B = 200 and 100 with the encoder and with the GRU
+jump, the same at B = 100 forced into the global plan at 16 rows, the
+resident K1/K2/K3 of the PhysioNet 50 arm (``r50``, on the synthetic
+masked batch), the member K1/K2 (E = 5, B = 100, through the checkout's
+``chip_smoke._member_times``), and where the checkout's ``supported``
+takes it, an unmasked output of another width than the input
+(HestonWOFeller return_vol shapes, D = 2, O = 1, B = 100) in the plan its
+rule picks.
+
+With ``scope`` it runs the checkout's ``chip_smoke.phase_scope`` alone
+(its checks, launch counts and times; a checkout that has it).
 
 With ``witness`` it runs ``draw_witness`` instead of the timings: K1 of
 the PhysioNet 200 arm on masks drawn as chip_smoke.py drew them, one line
@@ -414,6 +428,57 @@ def mask_costs(cs, fs, dev, tag, masked_batch):
              p0[:, 5:].contiguous()), 3)
 
 
+def main_arms(cs, fs, dev, tag, masked_batch):
+    """The ``main`` mode's timings (module docstring), one line."""
+    import torch
+
+    one = torch.ones((), device=dev)
+    seed = torch.tensor([7], dtype=torch.int64, device=dev)
+    out = {}
+
+    def time_three(cfg, model, batch, name, reps, plan=None):
+        spec = fs.Spec(cfg, "prng", plan)
+        spec3 = fs.Spec(cfg, "input", plan)
+        leaves = [p.detach() for p in fs.flat_leaves(model)]
+        arrays = fs.batch_arrays(batch)
+        with torch.no_grad():
+            h0 = fs.t0_state(model, batch)
+        _, hists = fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, True,
+                                    None, seed)
+        out["K1" + name] = cs.cuda_ms(lambda: fs.scan_fwd_cuda(
+            spec, leaves, arrays, 0.5, h0, True, None, seed), reps, 2)
+        out["K2" + name] = cs.cuda_ms(lambda: fs.scan_bwd_cuda(
+            spec, leaves, arrays, 0.5, True, hists, one, None, seed), reps,
+            2)
+        out["K3" + name] = cs.cuda_ms(lambda: fs.scan_fwd_cuda(
+            spec3, leaves, arrays, 0.5, h0, False, want_hists=False), reps,
+            2)
+
+    for rnn in (False, True):
+        for B in (200, 100):
+            cfg, model, batch = cs.main_path_setup(B, 100, 0, dev,
+                                                   use_rnn=rnn)
+            time_three(cfg, model, batch,
+                       f"_{'rnn' if rnn else 'main'}_B{B}", 20)
+        time_three(cfg, model, batch, f"_{'rnn' if rnn else 'main'}"
+                   "_B100_g16", 10, ("global", 16))
+    b = masked_batch(3006, 50, 41)
+    cfg, model = cs._masked_njode(41, 41, 50, dev)
+    time_three(cfg, model, b, "_r50", 3)
+    t = cs._member_times("main", *cs._synthetic_members(5, 100, 100, 50,
+                                                        seed0=3), 10)
+    out["K1_members"], out["K2_members"] = t["K1"]["ms"], t["K2"]["ms"]
+    try:
+        cfg, model, batch = cs.main_path_setup(
+            100, 100, 20, dev, data=("HestonWOFeller", cs.HWOF_RV),
+            output_size=1)
+    except (TypeError, AttributeError):  # a checkout without the option
+        cfg = None
+    if cfg is not None and fs.supported(cfg):
+        time_three(cfg, model, batch, f"_out1_{fs.Spec(cfg).plan}", 20)
+    print(tag, " ".join(f"{k}={v:.4f}" for k, v in out.items()), flush=True)
+
+
 def main(root, tag, what="timing"):
     sys.path.insert(0, root)
     import numpy as np
@@ -430,7 +495,8 @@ def main(root, tag, what="timing"):
         key = "fused_scan_njode_phase_clock"
     else:
         _build.build_all(("fused_scan", "fused_gob")
-                         if what in ("gob", "masks") else ("fused_scan",))
+                         if what in ("gob", "masks", "scope")
+                         else ("fused_scan",))
         _build.load("fused_scan")
         key = "fused_scan"
     print(tag, "build_s", round(time.time() - t0, 2), flush=True)
@@ -458,6 +524,14 @@ def main(root, tag, what="timing"):
 
     if what == "gob":
         gob_arms(cs, dev, tag, masked_batch)
+        return
+    if what == "main":
+        main_arms(cs, fs, dev, tag, masked_batch)
+        return
+    if what == "scope":
+        t1 = time.time()
+        cs.phase_scope({})
+        print(tag, "scope_s", round(time.time() - t1, 2), flush=True)
         return
     if what == "masks":
         mask_costs(cs, fs, dev, tag, masked_batch)

@@ -4,9 +4,10 @@
 
 Phases, one line each, then the ``kernels`` JSON line, the card's name and
 power limit, and the final ``{"ok": true, ...}`` line. The set-ups of
-phases 14 and 18 and phases 26 and 28, which launch none of the kernels,
-run first, while nvcc builds them (phase 2); phase 27 runs right after the
-build, with the host idle, before phase 3:
+phases 14 and 18, phases 26 and 28 and the tensor-parallel part of phase
+31, which launch none of the kernels, run first, while nvcc builds them
+(phase 2); phase 27 runs right after the build, with the host idle,
+before phase 3:
 
 1. device   - a CUDA card must be present (else exit 1, no result);
 2. build    - nvcc builds ops/csrc/fused_scan.cu for sm_90a;
@@ -187,10 +188,11 @@ build, with the host idle, before phase 3:
               members) at E = 3, in both mask modes, each member bit for
               bit its own solo launches at the same rows and the member
               launch twice bit for bit, and within the North-star
-              tolerances of the member plain version, at the main path
-              (B = 100), the convergence study's width 320 (global / 8,
-              B = 20), the climate small arm (B = 100, K = 2,004; the
-              plain version over the first 100 steps, LONG_TOL) and the
+              tolerances of the member plain version over the first 50
+              steps (the member launch run again on them), at the main
+              path (B = 100), the convergence study's width 320 (global /
+              8, B = 20), the climate small arm (B = 100, K = 2,004,
+              LONG_TOL), the PhysioNet 50 arm (B = 50, K = 3,006) and the
               main path with the GRU jump; the member launch of K1/K2 at
               E = 5 timed against five solo launches (CUDA events) at
               widths 320 and 40 (B = 20), the main path (B = 100) and the
@@ -208,7 +210,7 @@ build, with the host idle, before phase 3:
               metric row bit for bit a solo run of its params;
 25. parallel - data parallelism over torch.distributed
               (njode_tpu_torch/parallel/): NCCL at world size 1 in this
-              process, 2 epochs of the main path (20,000 BlackScholes
+              process, an epoch of the main path (20,000 BlackScholes
               paths, B = 100, 'prng') through trainer.train(mesh=...) bit
               for bit the run without a mesh (every metric but the times,
               both checkpoints' tensors), its launch counts exact; then
@@ -217,7 +219,7 @@ build, with the host idle, before phase 3:
               training step of the main path (B = 100, 50 rows a rank)
               and of the GOB trainer's widths (B = 20, 10 a rank) in
               'input' mode against the kernels without a mesh, at the
-              North-star tolerances; 2 epochs of the main path, one GOB
+              North-star tolerances; an epoch of the main path, one GOB
               epoch (4,000 training paths), one epoch of the climate small
               arm (its validation and test batches padded to an even
               count), each with exact launch counts a rank at the rule's
@@ -261,7 +263,8 @@ build, with the host idle, before phase 3:
               anomaly_detection (exact launch counts, anomaly mode off
               after it), then a step of the kernels with a NaN weight under
               anomaly detection, which must raise;
-31. tp       - (runs right after parallel) the entry points and tensor
+31. tp       - (runs right after parallel; its tensor-parallel part,
+              tp_eager, while nvcc builds) the entry points and tensor
               parallelism (njode_tpu_torch/entry.py, parallel/
               tensor_parallel.py): entry()'s flagship loss on the card
               (B = 200, K = 100, 'prng'), finite, exactly one K1 launch;
@@ -278,8 +281,26 @@ build, with the host idle, before phase 3:
               and parameters at rtol 1e-4 / atol 1e-6, the two ranks'
               parameters equal bit for bit (the dry run holds its 1-vs-n
               and DP x TP gradients at rtol 2e-4 / atol 2e-5 too); the ms of
-              an eval and a step, sharded and not. Two ranks on one card
-              measure no speed.
+              an eval and a step, sharded and not, beside nvcc. Two ranks
+              on one card measure no speed;
+32. scope    - (after width_scaling) the kernels' full scope: the main
+              path's model with a 9- and a 16-linear ODE net, one trainer
+              epoch each (1,000 paths, B = 100) with exact launch counts,
+              then K1-K3 against their plain versions (each twice bit for
+              bit; the 16-linear one timed); an unmasked output of another
+              width than the input (HestonWOFeller return_vol, D = 2, with
+              O = 1; BlackScholes, D = 1, with O = 2; the encoder and the
+              GRU jump; the global plan, the only one such a config has,
+              at 16 rows and at one) through the fused loss and eval
+              functions with exact launch counts, K1-K3 against their plain
+              versions; GOB at p_hidden 4,000 (hidden 10, prep 10), whose
+              buffers of one row overflow a CTA, in the device-memory form:
+              one trainer epoch (400 paths, B = 20) with exact launch
+              counts, K5, its eval form and K6 against their plain versions
+              and timed, K6's stages by device time (at least 90 % of
+              their records, their sum within 0.8-1.05 of K6's CUDA-event
+              time); and that
+              form forced at hidden 50, bit for bit the shared form.
 
 Tolerances are those the JAX package's Pallas kernel is held to
 (tests/test_fused_scan.py): loss rtol 1e-5 / atol 1e-6, gradients rtol
@@ -419,10 +440,12 @@ def check_close(name, a, b, tol):
 
 
 def main_path_setup(B, K, seed, device, use_rnn=False, width=50,
-                    data=("BlackScholes", {}), hidden=10):
+                    data=("BlackScholes", {}), hidden=10, ode_nn=None,
+                    output_size=None):
     """Main-path model (with the GRU jump: ``use_rnn``; three 2 x ``width``
-    tanh MLPs; hidden size ``hidden``; input = output = the dataset's
-    dimension D) and a batch of
+    tanh MLPs, the ODE net ``ode_nn`` where given; hidden size ``hidden``;
+    input = output = the dataset's dimension D, the output ``output_size``
+    where given) and a batch of
     ``data`` = (SDE model name, hyperparameters over the defaults) on the
     card (BlackScholes, D = 1, unless asked otherwise)."""
     import numpy as np
@@ -436,8 +459,8 @@ def main_path_setup(B, K, seed, device, use_rnn=False, width=50,
     hp = dict(hyperparam_default, **over, nb_paths=B, nb_steps=K)
     D = hp["dimension"]
     nn_desc = ((width, "tanh"), (width, "tanh"))
-    cfg = NJODEConfig(D, hidden, D, nn_desc, nn_desc, nn_desc,
-                      dropout_rate=0.1, use_rnn=use_rnn)
+    cfg = NJODEConfig(D, hidden, output_size or D, ode_nn or nn_desc,
+                      nn_desc, nn_desc, dropout_rate=0.1, use_rnn=use_rnn)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = NJODE(cfg).to(device)
@@ -785,6 +808,35 @@ def mask_cost_gob(phase, arm, cfg, leaves, arrays, st, reps):
                       ("K5", "K6"), runs, reps)
 
 
+def _profiled(fn, names, reps, warm=False):
+    """``{name: (device us, records)}`` of the kernels whose name holds
+    each of ``names`` (None: every kernel) over ``reps`` calls of ``fn``
+    in one ``torch.profiler`` run; with ``warm``, the capture opens with
+    ``utils.profiling``'s launches, after which CUPTI has not been seen
+    to lose a record (its ``trace``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from njode_tpu_torch.utils import profiling
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if warm:
+            profiling._warm_up()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {n: [0.0, 0] for n in names}
+    for ev in prof.key_averages():
+        for n in names:
+            if (ev.device_type == DeviceType.CUDA if n is None
+                    else n in ev.key):
+                out[n][0] += (getattr(ev, "device_time_total", 0.0)
+                              or getattr(ev, "cuda_time_total", 0.0))
+                out[n][1] += ev.count
+    return out
+
+
 def device_ms(fn, name, reps=50, tries=3):
     """Device time per call of ``fn`` of the kernels whose name holds
     ``name`` (every kernel ``fn`` launches where ``name`` is None), from
@@ -792,22 +844,11 @@ def device_ms(fn, name, reps=50, tries=3):
     warm-up first); a fresh profiler up to ``tries`` times, since CUPTI
     now and then delivers no record of a run; None if none recorded it."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total = 0.0
-        for ev in prof.key_averages():
-            if (ev.device_type == DeviceType.CUDA if name is None
-                    else name in ev.key):
-                total += (getattr(ev, "device_time_total", 0.0)
-                          or getattr(ev, "cuda_time_total", 0.0))
+        total = _profiled(fn, (name,), reps)[name][0]
         if total > 0:
             return total / 1e3 / reps
     return None
@@ -908,10 +949,11 @@ def reduce_times(parts):
     return out
 
 
-def _synthetic_run(tmp, phase, **kw):
-    """One ``trainer.train`` run (2 epochs of batch 100, 'prng' masks) on
-    the dataset under ``tmp``, with every count set to 0 just before and
-    read just after; checks the metric CSV and returns the counts."""
+def _synthetic_run(tmp, phase, epochs=2, **kw):
+    """One ``trainer.train`` run (``epochs`` epochs of batch 100, 'prng'
+    masks) on the dataset under ``tmp``, with every count set to 0 just
+    before and read just after; checks the metric CSV and returns the
+    counts."""
     import numpy as np
     import torch
 
@@ -921,7 +963,7 @@ def _synthetic_run(tmp, phase, **kw):
 
     models = os.path.join(tmp, "models_" + phase)
     fs.reset_launch_counts()
-    trainer.train(epochs=2, batch_size=100, dropout_rate=0.1,
+    trainer.train(epochs=epochs, batch_size=100, dropout_rate=0.1,
                   dataset="BlackScholes", plot=False, evaluate=True,
                   pallas_mask_mode="prng",
                   base_data_path=os.path.join(tmp, "data"),
@@ -938,8 +980,9 @@ def _synthetic_run(tmp, phase, **kw):
             raise AssertionError(f"non-finite {phase} metrics: {rec}")
         say(phase, epoch=rec["epoch"],
             **{k: f"{v:.6f}" for k, v in vals.items()})
-    if len(rows) != 2:
-        raise AssertionError(f"expected 2 metric rows, got {len(rows)}")
+    if len(rows) != epochs:
+        raise AssertionError(f"expected {epochs} metric rows, got "
+                             f"{len(rows)}")
     return counts
 
 
@@ -1118,8 +1161,10 @@ def scaled_tol(ref):
     return dict(rtol=2e-4, atol=2e-5 * max(1.0, float(ref.abs().max())))
 
 
-def gob_setup(B, K, hidden, impute, mixing, seed, device):
-    """A GRU-ODE-Bayes model at the published widths and a BlackScholes
+def gob_setup(B, K, hidden, impute, mixing, seed, device, p_hidden=None,
+              prep=None):
+    """A GRU-ODE-Bayes model at the published widths (every width
+    ``hidden``, p_hidden and prep_hidden where given) and a BlackScholes
     batch (obs_perc 0.1) on the card; returns (cfg, model, batch, arrays,
     leaves, (h0, m0, v0))."""
     import numpy as np
@@ -1130,8 +1175,10 @@ def gob_setup(B, K, hidden, impute, mixing, seed, device):
     from njode_tpu_torch.models import gru_ode_bayes as gob
     from njode_tpu_torch.ops import fused_gob as fg
 
-    cfg = gob.GOBConfig(input_size=1, hidden_size=hidden, p_hidden=hidden,
-                        prep_hidden=hidden, cov_size=1, cov_hidden=hidden,
+    cfg = gob.GOBConfig(input_size=1, hidden_size=hidden,
+                        p_hidden=p_hidden or hidden,
+                        prep_hidden=prep or hidden, cov_size=1,
+                        cov_hidden=hidden,
                         logvar=True, mixing=mixing, dropout_rate=0.1,
                         full_gru_ode=True, impute=impute)
     model = gob.GOB(cfg, generator=torch.Generator().manual_seed(seed))
@@ -1472,14 +1519,45 @@ def _wgrad_library(spec, ws, KB):
     return out
 
 
-def stage_device_ms(fn, reps):
-    """Device ms per K6 call of each stage's kernel (torch.profiler, each
-    up to three tries); the run fails if the profiler records none, as
-    one C call launches all three and no event can part them."""
-    out = {n: device_ms(fn, f"gob_{n}_kernel", reps)
-           for n in ("remat", "chain", "wgrad")}
-    if any(v is None for v in out.values()):
-        raise AssertionError(f"torch.profiler recorded no K6 stage: {out}")
+def stage_device_ms(fn, reps, chunks, whole_ms=None, tries=3):
+    """Device ms per K6 call of each stage's kernel (a stage launches once
+    a chunk, ``chunks`` a call) from a torch.profiler run of ``reps``
+    calls, opened with warm-up launches: CUPTI now and then loses records,
+    and a sum over fewer reads too fast (16x in one run). Up to ``tries``
+    runs for one with every record; else, from the run with the most, each
+    stage's mean over the records it has, times ``chunks``, where every
+    stage kept at least 90 % of them (said on a line). Given ``whole_ms``
+    (K6's CUDA-event ms a call), the three must sum to 0.8-1.05 of it. The
+    run fails otherwise, as one C call launches all three and no event can
+    part them."""
+    import torch
+
+    names = {n: f"gob_{n}_kernel" for n in ("remat", "chain", "wgrad")}
+    want = chunks * reps
+    fn()
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(tries):
+        got = _profiled(fn, tuple(names.values()), reps, warm=True)
+        have = min(got[k][1] for k in names.values())
+        if best is None or have > best[0]:
+            best = (have, got)
+        if have == want and all(got[k][1] == want for k in names.values()):
+            break
+    have, got = best
+    if have < 0.9 * want or any(got[k][1] > want for k in names.values()):
+        raise AssertionError(f"torch.profiler recorded K6's stages in part "
+                             f"(records, want {want} each): {got}")
+    out = {n: got[k][0] / 1e3 / got[k][1] * chunks
+           for n, k in names.items()}
+    if have < want:
+        say("profiler", kernel="K6 stages", records=json.dumps(
+            {n: got[k][1] for n, k in names.items()}), want=want,
+            timed_by="mean_of_the_records_x_chunks")
+    if whole_ms is not None and not (
+            0.8 * whole_ms <= sum(out.values()) <= 1.05 * whole_ms):
+        raise AssertionError(
+            f"K6's stages {out} do not sum to its {whole_ms:.4f} ms")
     return out
 
 
@@ -1504,7 +1582,7 @@ def phase_gob_timing(results):
                                            hists, dloss, None, seed)
         k5 = cuda_ms(fwd, 10)
         k6 = cuda_ms(bwd, 5)
-        stages = stage_device_ms(bwd, 5)
+        stages = stage_device_ms(bwd, 5, -(-K // spec.bwd_chunk(K, B)))
         (f5, b5), (f6, b6) = gob_bounds(spec, K, B)
         sb = gob_stage_bounds(spec, K, B)
         say("gob_timing", kernel="K5", H=hidden, B=B, R=spec.rows_for(B),
@@ -1615,11 +1693,14 @@ class BwdChunks:
                 "reduce_partials": 2 * steps + reduce_extra}
 
 
-def _gob_run(tmp, phase, **kw):
-    """One GOB ``trainer.train`` run (2 epochs, the published widths) on
-    the dataset under ``tmp``, with every count set to 0 just before and
-    read just after; checks the metric CSV and the launch counts (exactly
-    what 2 epochs need) and returns the counts."""
+def _gob_run(tmp, phase, epochs=2, train_size=GOB_TRAIN_SIZE, hidden=50,
+             gob_opts=None, **kw):
+    """One GOB ``trainer.train`` run (``epochs`` epochs of ``train_size``
+    paths, every width ``hidden``, the 'GRU_ODE_Bayes-' options
+    ``gob_opts`` over impute, logvar and mixing 1e-4) on the dataset under
+    ``tmp``, with every count set to 0 just before and read just after;
+    checks the metric CSV and the launch counts (exactly what the epochs
+    need) and returns the counts."""
     import numpy as np
     import torch
 
@@ -1632,17 +1713,16 @@ def _gob_run(tmp, phase, **kw):
     fs.reset_launch_counts()
     fg.reset_launch_counts()
     chunks = BwdChunks()
+    opts = {"GRU_ODE_Bayes-impute": True, "GRU_ODE_Bayes-logvar": True,
+            "GRU_ODE_Bayes-mixing": 1e-4, **(gob_opts or {})}
     with chunks:
-        trainer.train(epochs=2, batch_size=20, hidden_size=50,
+        trainer.train(epochs=epochs, batch_size=20, hidden_size=hidden,
                       dropout_rate=0.1, dataset="BlackScholes",
                       plot=False, evaluate=True,
                       other_model="GRU_ODE_Bayes",
-                      training_size=GOB_TRAIN_SIZE,
+                      training_size=train_size,
                       base_data_path=os.path.join(tmp, "data"),
-                      saved_models_path=models,
-                      **{"GRU_ODE_Bayes-impute": True,
-                         "GRU_ODE_Bayes-logvar": True,
-                         "GRU_ODE_Bayes-mixing": 1e-4}, **kw)
+                      saved_models_path=models, **opts, **kw)
     torch.cuda.synchronize()
     counts = dict(fg.LAUNCHES)
     counts["reduce_partials"] = fs.LAUNCHES["reduce_partials"]
@@ -1661,10 +1741,11 @@ def _gob_run(tmp, phase, **kw):
                                  f"GRU-ODE-Bayes: {rec}")
         say(phase, epoch=rec["epoch"],
             **{k: f"{v:.6f}" for k, v in vals.items()})
-    if len(rows) != 2:
-        raise AssertionError(f"expected 2 metric rows, got {len(rows)}")
-    steps = 2 * (GOB_TRAIN_SIZE // 20)
-    expect = chunks.expect(steps, evals=2, reduce_extra=2)
+    if len(rows) != epochs:
+        raise AssertionError(f"expected {epochs} metric rows, got "
+                             f"{len(rows)}")
+    steps = epochs * (train_size // 20)
+    expect = chunks.expect(steps, evals=epochs, reduce_extra=epochs)
     expect["gob_masks"] = 0
     for k, v in expect.items():
         if counts[k] != v:
@@ -2141,7 +2222,7 @@ def _masked_arm_checks(phase, cfg, model, full, runs, gen, plan=None,
     return errs, plain_ms, (leaves, arrays, h0, seed, hists)
 
 
-def _gob_checks(spec, leaves, arrays, st, u, seed, tag):
+def _gob_checks(spec, leaves, arrays, st, u, seed, tag, arm="climate"):
     """K5 and K6 twice bit for bit and against the plain versions (the
     plain calls timed once with CUDA events), histories and gradients per
     leaf at ``scaled_tol``; returns (errors, plain ms, K5's histories)."""
@@ -2155,13 +2236,13 @@ def _gob_checks(spec, leaves, arrays, st, u, seed, tag):
     torch.cuda.synchronize()
     if not (torch.equal(lk, lk2) and all(
             torch.equal(a, c) for a, c in zip(hk, hk2))):
-        raise AssertionError(f"K5 climate ({tag}) differs between two runs")
+        raise AssertionError(f"K5 {arm} ({tag}) differs between two runs")
     ms = {}
     (lp, hp), ms["K5c"] = timed(lambda: fg.gob_scan_fwd_plain(
         spec, leaves, arrays, *st, True, u, seed))
-    e = {"loss": check_close(f"K5 climate loss ({tag})", lk, lp, LOSS_TOL),
+    e = {"loss": check_close(f"K5 {arm} loss ({tag})", lk, lp, LOSS_TOL),
          "loss_val": float(lp)}
-    e["hist"] = max(check_close(f"K5 climate {n} ({tag})", a, c,
+    e["hist"] = max(check_close(f"K5 {arm} {n} ({tag})", a, c,
                                 scaled_tol(c))
                     for n, a, c in zip("hmv", hk, hp))
     dloss = torch.ones((), device=lk.device)
@@ -2171,11 +2252,11 @@ def _gob_checks(spec, leaves, arrays, st, u, seed, tag):
     (gk, *dk), (gk2, *dk2) = outs
     if not all(torch.equal(a, c) for a, c in
                zip(list(gk) + dk, list(gk2) + dk2)):
-        raise AssertionError(f"K6 climate ({tag}) differs between two runs")
+        raise AssertionError(f"K6 {arm} ({tag}) differs between two runs")
     (gp, *dp), ms["K6c"] = timed(lambda: fg.gob_scan_bwd_plain(
         spec, leaves, arrays, True, hk, dloss, u, seed))
-    e.update(_grad_errs(f"K6 climate ({tag})", gk, gp))
-    e["d0"] = max(check_close(f"K6 climate {n} ({tag})", a, c, scaled_tol(c))
+    e.update(_grad_errs(f"K6 {arm} ({tag})", gk, gp))
+    e["d0"] = max(check_close(f"K6 {arm} {n} ({tag})", a, c, scaled_tol(c))
                   for n, a, c in zip(("dh0", "dm0", "dv0"), dk, dp))
     return e, ms, hk
 
@@ -2298,7 +2379,7 @@ def phase_climate_timing(results):
     gbwd = lambda: fg.gob_scan_bwd_cuda(  # noqa: E731
         gspec, gleaves, garrays, True, ghists, dloss, None, gseed)
     t["K6c"] = (cuda_ms(gbwd, 2, 1), cl["plain_ms"]["K6c"])
-    stages = stage_device_ms(gbwd, 2)
+    stages = stage_device_ms(gbwd, 2, -(-K // gspec.bwd_chunk(K, B)))
     say("climate_timing", kernel="K6c_stages", R=gspec.rows_for(B),
         chunks=-(-K // gspec.bwd_chunk(K, B)),
         **{f"{n}_device_ms": f"{v:.4f}" for n, v in stages.items()})
@@ -3092,6 +3173,7 @@ def phase_sweep(results):
 
 # the groups phase: the member axis checked at E = 3, timed at E = 5
 GROUP_CHECK_E, GROUP_TIME_E = 3, 5
+GROUP_K_PLAIN = 50         # the steps each member check holds to the plain
 GROUP_CONV_REPEATS, GROUP_CLIMATE_FOLDS, GROUP_PHYS_REPEATS = 5, 2, 2
 
 
@@ -3424,14 +3506,17 @@ def phase_groups(results):
     E = GROUP_CHECK_E
     errs = {"K1": 0.0, "K2": 0.0}
     checks = (
-        ("main", _synthetic_members(E, 100, 100, 50), {}),
-        ("conv320", _synthetic_members(E, 20, 100, 320), {}),
+        ("main", _synthetic_members(E, 100, 100, 50),
+         dict(K_plain=GROUP_K_PLAIN)),
+        ("conv320", _synthetic_members(E, 20, 100, 320),
+         dict(K_plain=GROUP_K_PLAIN)),
         ("climate50", _bank_members(E, results["climate"], 5, 10, 50,
                                     CLIMATE_B),
-         dict(tol=LONG_TOL, K_plain=100)),
+         dict(tol=LONG_TOL, K_plain=GROUP_K_PLAIN)),
         ("phys50", _bank_members(E, results["phys"], 41, 41, 50, PHYS_B),
-         dict(tol=LONG_TOL, K_plain=100)),
-        ("main_rnn", _synthetic_members(E, 100, 100, 50, use_rnn=True), {}))
+         dict(tol=LONG_TOL, K_plain=GROUP_K_PLAIN)),
+        ("main_rnn", _synthetic_members(E, 100, 100, 50, use_rnn=True),
+         dict(K_plain=GROUP_K_PLAIN)))
     for arm, (cfg, models, batches), kw in checks:
         spec = fs.Spec(cfg)
         if arm == "conv320" and (spec.plan, spec.rows_for(20)) != (
@@ -3544,6 +3629,7 @@ def phase_groups(results):
 # the GOB trainer's training paths at 2 ranks (200 steps of 20, 10 rows a
 # rank), the convergence group's repeats over 2 ranks (one ghost member)
 PAR_B = 100
+PAR_EPOCHS = 1             # the main path's epochs in the parallel phase
 PAR_GOB_TRAIN = 4000
 PAR_CONV_REPEATS = 3
 PAR_GOB_OPTS = {"GRU_ODE_Bayes-impute": True, "GRU_ODE_Bayes-logvar": True,
@@ -3551,8 +3637,9 @@ PAR_GOB_OPTS = {"GRU_ODE_Bayes-impute": True, "GRU_ODE_Bayes-logvar": True,
 
 
 def _par_main_kw(tmp, models):
-    """The main path's trainer arguments (2 epochs of batch 100, 'prng')."""
-    return dict(epochs=2, batch_size=PAR_B, dropout_rate=0.1,
+    """The main path's trainer arguments (``PAR_EPOCHS`` epochs of batch
+    100, 'prng')."""
+    return dict(epochs=PAR_EPOCHS, batch_size=PAR_B, dropout_rate=0.1,
                 dataset="BlackScholes", plot=False, evaluate=True,
                 pallas_mask_mode="prng",
                 base_data_path=os.path.join(tmp, "data"),
@@ -3630,7 +3717,7 @@ def parallel_rank(mesh, job):
     """One of the parallel phase's two gloo ranks sharing the card, in a
     process of its own (``parallel.sharding.spawn`` imports this script
     by name; its ``main`` does not run): one NJODE and one GOB step at
-    full width, two epochs of the main path, one GOB epoch, one epoch of
+    full width, an epoch of the main path, one GOB epoch, one epoch of
     the climate small arm and the convergence group over the mesh, each
     with this rank's launch counts and rows; the trained parameters
     compared with rank 0's."""
@@ -3708,8 +3795,8 @@ def _par_same_run(tag, dir_a, dir_b, mids=(1,)):
 
 def _par_expect_main(steps):
     return {"njode_scan_fwd": steps, "njode_scan_bwd": steps,
-            "njode_scan_eval": 2, "philox_keep": 2 * steps,
-            "reduce_partials": 2 * steps + 2}
+            "njode_scan_eval": PAR_EPOCHS, "philox_keep": 2 * steps,
+            "reduce_partials": 2 * steps + PAR_EPOCHS}
 
 
 def _par_rows(tag, rows, cfg, B_local):
@@ -3754,7 +3841,7 @@ def phase_parallel(results):
         datasets.create_dataset("Heston", dict(
             datasets.hyperparam_default, nb_paths=20_000), base_path=data)
         say("parallel", datasets_s=f"{time.time() - t0:.2f}")
-        steps = 2 * (16_000 // PAR_B)
+        steps = PAR_EPOCHS * (16_000 // PAR_B)
 
         # (a) NCCL at world size 1: the main path with and without a mesh
         from njode_tpu_torch.training import trainer
@@ -4025,38 +4112,16 @@ def tp_rank(mesh, job):
                                          model_parallel=mesh.size))
 
 
-def phase_tp(results):
-    """Tensor parallelism and the entry points (njode_tpu_torch/entry.py):
-    the flagship's loss through ``entry()`` (one K1 launch), the dry run
-    over two gloo ranks sharing the card, and the main path's model split
-    over two ranks against the unsharded eager run."""
-    import numpy as np
+def phase_tp_eager(results):
+    """Tensor parallelism (parallel/tensor_parallel.py): the main path's
+    model split over two gloo ranks sharing the card against the unsharded
+    eager run. It launches none of the kernels, so it runs while nvcc
+    builds them: its ms beside nvcc."""
     import torch
 
-    from njode_tpu_torch import entry
     from njode_tpu_torch.bench import card_line
-    from njode_tpu_torch.ops import fused_scan as fs
     from njode_tpu_torch.parallel import sharding
 
-    t0 = time.time()
-    fn, args = entry.entry()
-    fs.reset_launch_counts()
-    with torch.no_grad():
-        loss = float(fn(*args))
-    torch.cuda.synchronize()
-    counts = {k: v for k, v in fs.LAUNCHES.items() if v}
-    if not np.isfinite(loss) or counts.get("njode_scan_fwd") != 1:
-        raise AssertionError(f"tp entry: loss {loss}, launches {counts}")
-    say("tp", entry_loss=f"{loss:.6f}", launches=json.dumps(counts)
-        .replace(" ", ""), entry_s=f"{time.time() - t0:.2f}")
-    t0 = time.time()
-    dry = entry.dryrun_multichip(2)
-    expect = {"njode_scan_fwd": 2, "njode_scan_bwd": 2, "njode_scan_eval": 1}
-    got = {k: dry["launches"].get(k, 0) for k in expect}
-    if got != expect:
-        raise AssertionError(f"tp dryrun: rank 0 launched {dry['launches']}")
-    say("tp", dryrun_s=f"{time.time() - t0:.2f}",
-        dryrun_launches_rank0=json.dumps(dry["launches"]).replace(" ", ""))
     t0 = time.time()
     outs = sharding.spawn(tp_rank, 2, args=({},), backend="gloo",
                           timeout=300, wait=600)
@@ -4090,9 +4155,42 @@ def phase_tp(results):
         errs=json.dumps(errs).replace(" ", ""), params_equal_across_ranks=True)
     for tag in ("eval", "step"):
         say("tp", timing=tag, tp_ms=f"{outs[0]['ms'][tag]:.3f}",
-            unsharded_ms=f"{ref['ms'][tag]:.3f}", card=f"'{card}'")
-    results["tp"] = dict(entry=counts, dryrun=dry["launches"], errs=errs,
-                         ms={"tp": outs[0]["ms"], "unsharded": ref["ms"]})
+            unsharded_ms=f"{ref['ms'][tag]:.3f}", card=f"'{card}'",
+            beside_nvcc=True)
+    results["tp"] = dict(errs=errs, ms={"tp": outs[0]["ms"],
+                                        "unsharded": ref["ms"]})
+
+
+def phase_tp(results):
+    """The entry points (njode_tpu_torch/entry.py): the flagship's loss
+    through ``entry()`` (one K1 launch) and the dry run over two gloo ranks
+    sharing the card (tensor parallelism itself: ``phase_tp_eager``)."""
+    import numpy as np
+    import torch
+
+    from njode_tpu_torch import entry
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    t0 = time.time()
+    fn, args = entry.entry()
+    fs.reset_launch_counts()
+    with torch.no_grad():
+        loss = float(fn(*args))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in fs.LAUNCHES.items() if v}
+    if not np.isfinite(loss) or counts.get("njode_scan_fwd") != 1:
+        raise AssertionError(f"tp entry: loss {loss}, launches {counts}")
+    say("tp", entry_loss=f"{loss:.6f}", launches=json.dumps(counts)
+        .replace(" ", ""), entry_s=f"{time.time() - t0:.2f}")
+    t0 = time.time()
+    dry = entry.dryrun_multichip(2)
+    expect = {"njode_scan_fwd": 2, "njode_scan_bwd": 2, "njode_scan_eval": 1}
+    got = {k: dry["launches"].get(k, 0) for k in expect}
+    if got != expect:
+        raise AssertionError(f"tp dryrun: rank 0 launched {dry['launches']}")
+    say("tp", dryrun_s=f"{time.time() - t0:.2f}",
+        dryrun_launches_rank0=json.dumps(dry["launches"]).replace(" ", ""))
+    results["tp"].update(entry=counts, dryrun=dry["launches"])
 
 
 # ---------------------------------------------------------------------------
@@ -4548,6 +4646,274 @@ def phase_width_scaling(results):
     results["width"] = dict(launches=launches, errs=worst)
 
 
+# the scope phase: the ODE net's linears of E3b's two configs, the paths
+# of its dataset (800 training paths: 8 steps an epoch at B = 100, the rest
+# the eval's), E3a's arms (id, data, output width, GRU jump, plan: None the
+# rule's, the global plan at 16 rows; or the global plan forced to one row,
+# the resident plan's rows at B = 100: such a config has the global plan
+# alone) and E3c's training paths (20 steps an epoch at B = 20)
+SCOPE_DEEP = (9, 16)
+SCOPE_PATHS = 1000
+SCOPE_OUT = (("hwof_D2_O1", ("HestonWOFeller", HWOF_RV), 1, False, None),
+             ("bs_D1_O2", BS, 2, False, ("global", 1)),
+             ("hwof_D2_O1_rnn", ("HestonWOFeller", HWOF_RV), 1, True,
+              ("global", 1)),
+             ("bs_D1_O2_rnn", BS, 2, True, None))
+SCOPE_GOB_TRAIN = 400
+SCOPE_P = 4000
+
+
+def _scope_deep(results, tmp, gen, out):
+    """E3b: the main path's model with a 9- and a 16-linear ODE net, one
+    epoch each through ``trainer.train`` with exact launch counts, then
+    K1-K3 at B = 100, K = 100 against their plain versions ('input' mode,
+    each twice bit for bit); the 16-linear one timed."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    dev = torch.device("cuda")
+    steps = int(0.8 * SCOPE_PATHS) // 100
+    for n_lin in SCOPE_DEEP:
+        ode = ((50, "tanh"),) * (n_lin - 1)
+        cfg, model, batch = main_path_setup(100, 100, n_lin, dev, ode_nn=ode)
+        g = fs._launch_key(fs.Spec(cfg))
+        t0 = time.time()
+        counts = _synthetic_run(tmp, f"scope_deep{n_lin}", epochs=1,
+                                ode_nn=ode)
+        _check_counts("scope", counts, {
+            "njode_scan_fwd" + g: steps, "njode_scan_bwd" + g: steps,
+            "njode_scan_eval" + g: 1, "philox_keep": 2 * steps,
+            "reduce_partials": 2 * steps + 1})
+        check_rows("scope", cfg)
+        out["launches"]["deep"].append(counts)
+        errs, plain, _ = _masked_arm_checks(
+            "scope", cfg, model, batch, ((100, ("input",), SHORT_TOL),), gen,
+            arm=f"deep{n_lin}")
+        for k, v in errs.items():
+            out["errs"]["deep"][k] = max(out["errs"]["deep"][k], v)
+        say("scope", arm=f"deep{n_lin}", plan=fs.Spec(cfg).plan,
+            n_params=fs.Spec(cfg).n_params, seconds=f"{time.time() - t0:.2f}")
+        if n_lin == SCOPE_DEEP[-1]:
+            ms, bd, K, B, spec = _full_grid_times(cfg, model, batch, 3)
+            _say_times("scope", f"deep{n_lin}", spec, ms, bd, K, B)
+            out["times"]["deep"] = {k: (ms[k], plain[k + "m"])
+                                    for k in ("K1", "K2", "K3")}
+            out["bounds"]["deep"] = bd
+            say("scope", arm=f"deep{n_lin}", **{
+                f"{k}_plain_ms": f"{plain[k + 'm']:.4f}"
+                for k in ("K1", "K2", "K3")})
+
+
+def _scope_out(results, gen, out):
+    """E3a: an unmasked output of another width than the input (the
+    HestonWOFeller return_vol data, D = 2, with O = 1; BlackScholes, D = 1,
+    with O = 2), with the encoder and the GRU jump, in the global plan (the
+    only one such a config has) at the rule's 16 rows and at one: a
+    training loss and its gradients through
+    ``make_fused_loss_fn`` and an eval loss through ``make_fused_eval_fn``
+    at B = 100, K = 100 with exact launch counts, then K1-K3 against their
+    plain versions (each twice bit for bit); the first arm timed."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    dev = torch.device("cuda")
+    for i, (arm, data, O, rnn, plan) in enumerate(SCOPE_OUT):
+        cfg, model, batch = main_path_setup(100, 100, 20 + i, dev,
+                                            use_rnn=rnn, data=data,
+                                            output_size=O)
+        if not fs.supported(cfg) or cfg.output_size == cfg.input_size:
+            raise AssertionError(f"scope {arm}: not an E3a config")
+        spec = fs.Spec(cfg, "prng", plan)
+        if spec.plan != "global":
+            raise AssertionError(f"scope {arm}: not in the global plan")
+        g = fs._launch_key(spec)
+        fs.reset_launch_counts()
+        loss = fs.make_fused_loss_fn(cfg, "prng", plan=plan)(
+            model, batch, 0.5, gen, True)
+        loss.backward()
+        ev = fs.make_fused_eval_fn(cfg, plan=plan)(model, batch, 0.5)
+        torch.cuda.synchronize()
+        counts = dict(fs.LAUNCHES)
+        _check_counts("scope", counts, {
+            "njode_scan_fwd" + g: 1, "njode_scan_bwd" + g: 1,
+            "njode_scan_eval" + g: 1, "philox_keep": 2,
+            "reduce_partials": 3})
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        if not (torch.isfinite(loss) and torch.isfinite(ev) and all(
+                torch.isfinite(x).all() for x in grads)):
+            raise AssertionError(f"scope {arm}: non-finite loss or grads")
+        model.zero_grad(set_to_none=True)
+        out["launches"]["out"].append(counts)
+        errs, plain, _ = _masked_arm_checks(
+            "scope", cfg, model, batch, ((100, ("input",), SHORT_TOL),), gen,
+            plan=plan, arm=arm)
+        for k, v in errs.items():
+            out["errs"]["out"][k] = max(out["errs"]["out"][k], v)
+        say("scope", arm=arm, D=cfg.input_size, O=O, use_rnn=rnn,
+            plan=spec.plan, rows=spec.rows_for(100),
+            train_loss=f"{float(loss.detach()):.6f}",
+            eval_loss=f"{float(ev):.6f}")
+        if i == 0:
+            ms, bd, K, B, spec = _full_grid_times(cfg, model, batch, 5, plan)
+            _say_times("scope", arm, spec, ms, bd, K, B)
+            out["times"]["out"] = {k: (ms[k], plain[k + "m"])
+                                   for k in ("K1", "K2", "K3")}
+            out["bounds"]["out"] = bd
+            say("scope", arm=arm, **{f"{k}_plain_ms": f"{plain[k + 'm']:.4f}"
+                                     for k in ("K1", "K2", "K3")})
+
+
+def _gob_outputs(spec, spec_e, leaves, arrays, st, seed):
+    """K5's loss and histories, K6's gradients and d(h0, m0, v0) ('prng'
+    masks) and the eval form's loss."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_gob as fg
+
+    lk, hk = fg.gob_scan_fwd_cuda(spec, leaves, arrays, *st, True, None,
+                                  seed)
+    g = fg.gob_scan_bwd_cuda(spec, leaves, arrays, True, hk,
+                             torch.ones((), device=lk.device), None, seed)
+    le, _ = fg.gob_scan_fwd_cuda(spec_e, leaves, arrays, *st, False,
+                                 want_hists=False)
+    return [lk, *hk, *g[0], *g[1:], le]
+
+
+def _scope_gob(results, tmp, gen, out):
+    """E3c: GOB at p_hidden 4,000 (D = 1, hidden 10, prep 10, full field,
+    impute, mixing 1e-4), whose buffers of one row overflow one CTA's shared
+    memory: one epoch through the synthetic trainer (the device-memory
+    form, exact launch counts), K5, its eval form and K6 at B = 20, K = 100
+    against their plain versions (each twice bit for bit) and timed, K6's
+    stages by device time; then the device-memory form forced at the
+    published hidden 50, bit for bit the shared form."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_gob as fg
+
+    dev = torch.device("cuda")
+    t0 = time.time()
+    counts = _gob_run(tmp, "scope_gob", epochs=1,
+                      train_size=SCOPE_GOB_TRAIN, hidden=10,
+                      gob_opts={"GRU_ODE_Bayes-p_hidden": SCOPE_P,
+                                "GRU_ODE_Bayes-prep_hidden": 10})
+    out["launches"]["gob"] = counts
+    say("scope", arm="gob_p4000_trainer", seconds=f"{time.time() - t0:.2f}")
+    B, K = 20, 100
+    cfg, _, _, arrays, leaves, st = gob_setup(B, K, 10, True, 1e-4, 5, dev,
+                                              p_hidden=SCOPE_P, prep=10)
+    spec = fg.Spec(cfg, "input")
+    if spec.acts_for() != "global" or spec.rows_for(B) != 1:
+        raise AssertionError("scope: p_hidden 4,000 is not in the "
+                             "device-memory form")
+    u = (torch.rand((K, 3, B, spec.P), generator=gen, device=dev)
+         < 0.9).to(torch.int8)
+    e, plain, hk = _gob_checks(spec, leaves, arrays, st, u, None, "input",
+                               arm="p4000")
+    spec_e = fg.Spec(cfg, "input")
+    le = [fg.gob_scan_fwd_cuda(spec_e, leaves, arrays, *st, False,
+                               want_hists=False)[0] for _ in range(2)]
+    torch.cuda.synchronize()
+    if not torch.equal(le[0], le[1]):
+        raise AssertionError("scope: the GOB eval form differs between runs")
+    (lep, _), plain_e = timed(lambda: fg.gob_scan_fwd_plain(
+        spec_e, leaves, arrays, *st, False, want_hists=False))
+    e_eval = check_close("scope p4000 eval", le[0], lep, LOSS_TOL)
+    out["errs"]["gob"] = {"K5": max(e["loss"], e["hist"]),
+                          "K5e": e_eval,
+                          "K6": max(e["grad"], e["d0"])}
+    say("scope", arm="p4000", B=B, K=K, slab_classes=spec.slab_classes,
+        slab_floats=spec.slab_floats(), smem_bytes=spec.smem_bytes(1),
+        K5_loss_err=f"{e['loss']:.3e}", K5_hist_err=f"{e['hist']:.3e}",
+        K6_grad_err=f"{e['grad']:.3e}", K6_grad_rel=f"{e['grad_rel']:.3e}",
+        K6_d0_err=f"{e['d0']:.3e}", eval_err=f"{e_eval:.3e}",
+        chunks=-(-K // spec.bwd_chunk(K, B)), bitwise_repeat=True)
+    # timing in 'prng' mode, as the trainer runs it
+    sp = fg.Spec(cfg, "prng")
+    seed = torch.tensor([20261018], dtype=torch.int64, device=dev)
+    fwd = lambda: fg.gob_scan_fwd_cuda(sp, leaves, arrays, *st,  # noqa
+                                       True, None, seed)
+    _, hists = fwd()
+    dloss = torch.ones((), device=dev)
+    bwd = lambda: fg.gob_scan_bwd_cuda(sp, leaves, arrays, True,  # noqa
+                                       hists, dloss, None, seed)
+    ev = lambda: fg.gob_scan_fwd_cuda(spec_e, leaves, arrays, *st,  # noqa
+                                      False, want_hists=False)
+    k6 = cuda_ms(bwd, 2, 1)
+    stages = stage_device_ms(bwd, 2, -(-K // sp.bwd_chunk(K, B)), k6)
+    sp_plain = _staged_plain_ms(sp, leaves, arrays, hists, seed)
+    (f5, b5), (f6, b6) = gob_bounds(sp, K, B)
+    (fe, be), _ = gob_bounds(sp, K, B, train=False)
+    sb = gob_stage_bounds(sp, K, B)
+    t = {"K5": (cuda_ms(fwd, 3, 1), plain["K5c"]),
+         "K5e": (cuda_ms(ev, 3, 1), plain_e),
+         "K6": (k6, plain["K6c"]),
+         "K6remat": (stages["remat"], sp_plain["remat"]),
+         "K6chain": (stages["chain"], sp_plain["chain"])}
+    bd = {"K5": bound(f5, b5, PEAK_FP32), "K5e": bound(fe, be, PEAK_FP32),
+          "K6": bound(f6, b6, PEAK_FP32),
+          "K6remat": bound(*sb["remat"], PEAK_FP32),
+          "K6chain": bound(*sb["chain"], PEAK_FP32)}
+    for k, (ms, pms) in t.items():
+        bms, by = bd[k]
+        say("scope", arm="p4000", kernel=k, ms=f"{ms:.4f}",
+            plain_ms=f"{pms:.4f}", bound_ms=f"{bms:.6f}", bound_by=by,
+            roofline_share=f"{bms / ms:.2e}")
+    out["times"]["gob"], out["bounds"]["gob"] = t, bd
+    # the hook: the device-memory form forced at hidden 50, bit for bit
+    cfg50, _, _, arrays50, leaves50, st50 = gob_setup(B, K, 50, True, 1e-4,
+                                                      50, dev)
+    got = []
+    for acts in ("shared", "global", "global"):
+        s5 = fg.Spec(cfg50, "prng", rows=1, acts=acts)
+        s5e = fg.Spec(cfg50, "input", rows=1, acts=acts)
+        got.append(_gob_outputs(s5, s5e, leaves50, arrays50, st50, seed))
+    torch.cuda.synchronize()
+    n_diff = sum(not (torch.equal(a, b) and torch.equal(b, c))
+                 for a, b, c in zip(*got))
+    if n_diff:
+        raise AssertionError(f"scope: the device-memory form differs from "
+                             f"the shared form at hidden 50 ({n_diff} "
+                             "outputs)")
+    say("scope", arm="gob_h50_forms", forms_bit_equal=True,
+        outputs=len(got[0]))
+
+
+def phase_scope(results):
+    """The kernels' full scope: E3b (MLPs of 9 and 16 linears), E3a (an
+    unmasked output of another width than the input) and E3c (GOB in the
+    device-memory form at p_hidden 4,000); each through the entry points a
+    user calls with exact launch counts, its kernels against their plain
+    versions and timed."""
+    import torch
+
+    from njode_tpu_torch.data import datasets
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    zero = {"K1m": 0.0, "K2m": 0.0, "K3m": 0.0}
+    out = {"launches": {"deep": [], "out": []}, "times": {}, "bounds": {},
+           "errs": {"deep": dict(zero), "out": dict(zero)}}
+    tmp = tempfile.mkdtemp(prefix="njode_smoke_scope_")
+    try:
+        hp = dict(datasets.hyperparam_default, nb_paths=SCOPE_PATHS,
+                  obs_perc=0.1)
+        datasets.create_dataset("BlackScholes", hp, seed=0,
+                                base_path=os.path.join(tmp, "data"))
+        for part in (_scope_deep, _scope_gob):
+            t0 = time.time()
+            part(results, tmp, gen, out)
+            say("scope", part=part.__name__[7:],
+                part_s=f"{time.time() - t0:.2f}")
+        t0 = time.time()
+        _scope_out(results, gen, out)
+        say("scope", part="out", part_s=f"{time.time() - t0:.2f}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    results["scope"] = out
+
+
 def trace_gaps(events):
     """Where a Chrome trace of the trainer lacks K2: the steps (by the
     backward's ``FusedNJODELossBackward`` op, in order) whose K2 launch
@@ -4905,6 +5271,53 @@ def kernels_line(results):
                     "replaces": replaces, "launches": launches,
                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
                     "bound_ms": bms, "bound_by": by, "library_ms": None})
+    # the full scope (the scope phase): K1-K3 with an unmasked output of
+    # another width than the input (E3a: the fused loss and eval functions'
+    # launches, the global plan at 16 rows and at one, both jumps; timed at
+    # HestonWOFeller return_vol, D = 2, O = 1) and with a 16-linear ODE net (E3b: the trainer's
+    # launches at 9 and 16 linears, the global plan), and K5, its eval form
+    # and K6 in the device-memory form (E3c: p_hidden 4,000, the trainer's
+    # launches; K6 whole and its stages (a) and (b))
+    sc = results["scope"]
+    for part, names in (("out", ("njode_scan_fwd_out", "njode_scan_bwd_out",
+                                 "njode_scan_eval_out")),
+                        ("deep", ("njode_scan_fwd_deep",
+                                  "njode_scan_bwd_deep",
+                                  "njode_scan_eval_deep"))):
+        for name, key, replaces in zip(names, ("K1", "K2", "K3"), (
+                "njode_tpu/ops/fused_scan.py:1145",
+                "njode_tpu/ops/fused_scan.py:1195",
+                "njode_tpu/ops/fused_scan.py:1318")):
+            base = name.rsplit("_", 1)[0]
+            ms, plain = sc["times"][part][key]
+            bms, by = sc["bounds"][part][key]
+            out.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces,
+                        "launches": sum(v for c in sc["launches"][part]
+                                        for k, v in c.items()
+                                        if k.startswith(base)
+                                        and "members" not in k),
+                        "max_abs_err": sc["errs"][part][key + "m"],
+                        "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                        "bound_by": by, "library_ms": None})
+    gc = sc["launches"]["gob"]
+    for name, key, replaces, launches, err in (
+            ("gob_scan_fwd_ga", "K5", "njode_tpu/ops/fused_gob.py:942",
+             gc["gob_scan_fwd"], sc["errs"]["gob"]["K5"]),
+            ("gob_scan_eval_ga", "K5e", "njode_tpu/ops/fused_gob.py:942",
+             gc["gob_scan_eval"], sc["errs"]["gob"]["K5e"]),
+            ("gob_scan_bwd_ga", "K6", "njode_tpu/ops/fused_gob.py:991",
+             gc["gob_scan_bwd"], sc["errs"]["gob"]["K6"]),
+            ("gob_bwd_remat_ga", "K6remat", "njode_tpu/ops/fused_gob.py:991",
+             gc["gob_bwd_remat"], sc["errs"]["gob"]["K6"]),
+            ("gob_bwd_chain_ga", "K6chain", "njode_tpu/ops/fused_gob.py:991",
+             gc["gob_scan_bwd"], sc["errs"]["gob"]["K6"])):
+        ms, plain = sc["times"]["gob"][key]
+        bms, by = sc["bounds"]["gob"][key]
+        out.append({"name": name, "route": "cuda", "source": gsrc,
+                    "replaces": replaces, "launches": launches,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                    "bound_ms": bms, "bound_by": by, "library_ms": None})
     return json.dumps({"kernels": out})
 
 
@@ -4952,7 +5365,8 @@ def main():
         physionet_setup(results)
         start_seq_cpu(results, tmp)
         t0 = time.time()
-        for phase in (phase_seq_gob, phase_mixed_precision):
+        for phase in (phase_seq_gob, phase_mixed_precision,
+                      phase_tp_eager):
             phase(results)
             say(phase.__name__[6:], phase_s=f"{time.time() - t0:.2f}",
                 while_building=nvcc_thread.is_alive())
@@ -4979,7 +5393,8 @@ def main():
                       phase_physionet_kernels, phase_physionet_timing,
                       phase_physionet_trainer, phase_physionet_rnn,
                       phase_sweep, phase_groups, phase_parallel, phase_tp,
-                      phase_width_scaling, phase_profiling):
+                      phase_width_scaling, phase_scope,
+                      phase_profiling):
             phase(results)
             say(phase.__name__[6:], phase_s=f"{time.time() - t0:.2f}")
             t0 = time.time()

@@ -327,7 +327,8 @@ def main(argv):
         return 0
     fn, args = this.entry()
     fused_scan.reset_launch_counts()
-    loss = float(fn(*args))
+    with torch.no_grad():           # a value only: no graph to keep
+        loss = float(fn(*args))
     print(f"entry loss: {loss} (launches: "
           f"{ {k: v for k, v in fused_scan.LAUNCHES.items() if v} })",
           flush=True)

@@ -1,4 +1,4 @@
-"""NJODE loss in dense-masked (scan-step) form, the port's copy of
+"""NJODE loss in dense-masked (scan-step) and event forms, the port's copy of
 ``njode_tpu/models/losses.py``.
 
 The 'standard' loss
@@ -49,3 +49,26 @@ def step_loss(which: str, X, Y, Y_bj, obs, n_obs_ot, batch_size,
     inner = _inner(which, X, Y, Y_bj, weight, M)
     denom = torch.clamp(n_obs_ot, min=1.0)
     return torch.sum(obs * inner / denom) / batch_size
+
+
+def compute_loss(X_obs, Y_obs, Y_obs_bj, n_obs_ot, batch_size,
+                 eps=EPS, weight=0.5, M_obs=None):
+    """Event-format 'standard' loss, the reference's ``models.py:71-106``,
+    on gathered observed rows ``[n_obs, D]`` (for event-format tools and
+    parity checks; training uses :func:`step_loss`). ``eps`` is the
+    reference's argument; the sum takes ``EPS``, as the reference's does."""
+    inner = _inner("standard", X_obs, Y_obs, Y_obs_bj, weight, M_obs)
+    return torch.sum(inner / n_obs_ot) / batch_size
+
+
+def compute_loss_2(X_obs, Y_obs, Y_obs_bj, n_obs_ot, batch_size,
+                   eps=EPS, weight=0.5, M_obs=None):
+    """Event-format 'easy' loss, the reference's ``models.py:109-126``."""
+    inner = _inner("easy", X_obs, Y_obs, Y_obs_bj, weight, M_obs)
+    return torch.sum(inner / n_obs_ot) / batch_size
+
+
+LOSS_FUN_DICT = {
+    "standard": compute_loss,
+    "easy": compute_loss_2,
+}

@@ -27,12 +27,16 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 # -split-compile=0 runs its device optimisation passes on every host core,
 # which halves its build on the H100 machine (24 to 12 s) and leaves its
 # kernel times as they were; the GOB kernels built so measured up to 50 %
-# slower in one run (PERF.md), so fused_gob.cu keeps the plain build.
+# slower in one run (PERF.md), so fused_gob.cu builds without it.
 # -fmad=false: nvcc fuses no a * b + c the source does not write as fmaf,
 # so the resident and the global plan, which compute each output with the
 # same expressions in differently shaped code, round alike (fused where
-# the surrounding code allowed it, the two plans' K2 parted by an ulp)
-EXTRA_FLAGS = {"fused_scan": ("-split-compile=0", "-fmad=false")}
+# the surrounding code allowed it, the two plans' K2 parted by an ulp);
+# likewise fused_gob.cu's shared and device-memory forms of the
+# activations (with contraction, 36 of K5/K6's 43 outputs parted by an ulp
+# at hidden 50; without it none, and K5 / K6 kept their times, PERF.md)
+EXTRA_FLAGS = {"fused_scan": ("-split-compile=0", "-fmad=false"),
+               "fused_gob": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _loaded = {}
@@ -167,9 +171,9 @@ def _declare(name, lib):
     elif name == "fused_gob":
         lib.gob_error_string.argtypes = [I]
         lib.gob_error_string.restype = ctypes.c_char_p
-        lib.gob_scan_fwd.argtypes = [P] * 15 + [I, P]
+        lib.gob_scan_fwd.argtypes = [P] * 15 + [I, P, P]
         lib.gob_scan_fwd.restype = I
-        lib.gob_scan_bwd.argtypes = [P] * 13 + [I, P, I, P, I] + [P] * 5
+        lib.gob_scan_bwd.argtypes = [P] * 13 + [I, P, I, P, I] + [P] * 6
         lib.gob_scan_bwd.restype = I
         lib.gob_masks.argtypes = [P, I, I, I, ctypes.c_uint32, P, P]
         lib.gob_masks.restype = I

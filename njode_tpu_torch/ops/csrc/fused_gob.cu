@@ -1,21 +1,22 @@
 // Hand-written Hopper kernels for the GRU-ODE-Bayes training scan (sm_90a).
 //
 // Replaces the Pallas TPU kernels of njode_tpu/ops/fused_gob.py:
-//   gob_scan_fwd_kernel<R, true>   K5  _fwd_impl / _make_fwd_kernel
-//                                      (training forward: loss and the
-//                                      step-entry histories)
-//   gob_scan_fwd_kernel<R, false>  K5  eval form (_make_fwd_kernel,
-//                                      want_hists False: loss only)
-//   gob_remat_kernel<R>            K6  _fused_bwd / _make_bwd_kernel, stage
-//   gob_chain_kernel<R>                (a) remat, (b) chain, (c) wgrad
-//   gob_wgrad_kernel
+//   gob_scan_fwd_kernel<R, true, GA>   K5  _fwd_impl / _make_fwd_kernel
+//                                          (training forward: loss and the
+//                                          step-entry histories)
+//   gob_scan_fwd_kernel<R, false, GA>  K5  eval form (_make_fwd_kernel,
+//                                          want_hists False: loss only)
+//   gob_remat_kernel<R, GA>            K6  _fused_bwd / _make_bwd_kernel,
+//   gob_chain_kernel<R, GA>                stage (a) remat, (b) chain, (c)
+//   gob_wgrad_kernel                       wgrad
 //   mask words (fill_masks)        K7  _step_masks (p_model keep-masks, 3
 //                                      slots per step: ode-midpoint,
 //                                      ode-final, post-jump)
 //   gob_masks_kernel                   the same masks written out (tests,
 //                                      timing)
 // R, the batch rows one CTA owns, is one of 1, 2, 4, 8, 16
-// (ops/fused_gob.py Spec.rows_for picks it). The per-CTA loss partials and
+// (ops/fused_gob.py Spec.rows_for picks it). GA: the device-memory form of
+// the activations (below), at R = 1 only. The per-CTA loss partials and
 // stage (c)'s gradient partial rows are summed by reduce_partials in
 // fused_scan.cu, in a fixed order (no float atomics: runs repeat bit for
 // bit).
@@ -63,7 +64,19 @@
 //   stage (b) draws none: p_model's hidden layer is relu, so the mask's
 //   part of its backward, relu'(pre) * keep / (1 - rate), is a != 0 ? 1 /
 //   (1 - rate) : 0 on the saved post-dropout activation a (bit for bit,
-//   NaN and -0 included).
+//   NaN and -0 included);
+// - where one row's buffers do not fit one CTA's shared memory (p_hidden
+//   4,000: 244-301 KB a row in the chain), the device-memory form (GA,
+//   cc.ga) keeps the widest of them (Spec.slab_classes: the P-wide first,
+//   then the D*prep-wide, then the rest) in a slab of device memory that
+//   the CTA owns (a few hundred KB, which stays in L2 at the training
+//   batches) and the others in shared memory. A buffer's offset carries
+//   SLAB_BIT where it lies in the slab (ap), so the step bodies, templated
+//   on GA, run the same arithmetic in the same order on either form and
+//   the two give the same bits; the shared form compiles as before. In the
+//   chain the slab holds its two copies of the forward part (stage (a)'s
+//   buffers come in by plain loads and stores, cp.async reaching only
+//   shared memory) and its own.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,6 +90,9 @@
 #define MAX_SAVE 48
 #define MAX_DLT 32
 #define WG_TILE 32
+// an activation offset with this bit set lies in the CTA's slab of device
+// memory (the device-memory form, cc.ga), the rest of it its offset there
+#define SLAB_BIT (1 << 28)
 
 // Mirrored field by field by ops/fused_gob.py::_GobCfg (all 4-byte fields).
 // Leaf slots hold the index of a weight in the flat leaf list, -1 if absent:
@@ -104,6 +120,11 @@ struct GobCfg {
                              // weights, the end of K5's dynamic memory):
                              // offset, floats, words of a row and slot
                              // (ceil(P / 32)), log2 of the power of two >= nw
+  int ga;                    // the device-memory form: buffers whose offset
+                             // has SLAB_BIT live in the CTA's slab
+  int slab_fwd, slab_floats; // floats of a slab: the forward buffers (K5,
+                             // stage a), the chain's (two copies of them,
+                             // then its own)
   int leaf_off[MAX_LEAVES + 1];
   int pm[6];
   int fxm[3], fxv[3], fxb[3], fh[3], fhb[3];
@@ -130,8 +151,26 @@ struct Leaves { const float* p[MAX_LEAVES]; };
 // buffers; ops/fused_gob.py SMEM_LIMIT leaves room for them)
 __shared__ GobCfg cc;
 __shared__ Leaves cl;
+__shared__ float* cslab;     // the CTA's slab (device-memory form)
 
 extern __shared__ float sm[];
+
+// The buffer at activation offset `off`: in shared memory, or (GA, the
+// device-memory form, where the offset has SLAB_BIT) in the CTA's slab.
+// The shared form (GA false) compiles to sm + off as before.
+template <bool GA>
+__device__ __forceinline__ float* ap(int off) {
+  if (GA && (off & SLAB_BIT)) return cslab + (off ^ SLAB_BIT);
+  return sm + off;
+}
+
+// forward buffer o of the layout copy at ab (0, or the chain's second copy
+// at cc.fwd_floats; its slab buffers at cc.slab_fwd)
+template <bool GA>
+__device__ __forceinline__ int fo(int ab, int o) {
+  if (GA && (o & SLAB_BIT)) return ab ? o + cc.slab_fwd : o;
+  return ab + o;
+}
 
 struct MaskCtx {
   int mode;                  // 0 none, 1 input masks, 2 philox
@@ -142,8 +181,10 @@ struct MaskCtx {
 };
 
 #define LW(i) ((i) >= 0 ? cl.p[(i)] : (const float*)nullptr)
-#define FO(name) (ab + cc.o_##name)       // forward buffer of a layout copy
+#define FO(name) fo<GA>(ab, cc.o_##name)   // forward buffer of a layout copy
 #define BO(name) (cc.o_##name)            // the chain's own buffers
+#define AP(off) ap<GA>(off)               // a buffer's address
+#define SM(off) (*ap<GA>(off))            // a buffer's element
 
 // constants of the loss, as the JAX kernel rounds them to float32
 #define TWO_LOG_LIK_C 1.8378770664093453f   // 2 log sqrt(2 pi)
@@ -289,14 +330,15 @@ __device__ __forceinline__ float gate_in(int k, const float* mi,
 // + bm, a Wv + bv). With cm >= 0 the heads also go to (cm, cv): as they
 // are (sel < 0), or selected by the per-row obs at sel, obs * head + (1 -
 // obs) * (om, ov) (the post-jump state).
+template <bool GA>
 __device__ __noinline__ void pmodel_fwd(int x_, int pre_, int a_, int mo_,
                                         int vo_, int cm_, int cv_, int sel_,
                                         int om_, int ov_, const MaskCtx& mc,
                                         int slot) {
   const int R = cc.rows, H = cc.H, P = cc.P, D = cc.D;
-  const float* x = sm + x_;
-  float* pre = sm + pre_;
-  float* a = sm + a_;
+  const float* x = AP(x_);
+  float* pre = AP(pre_);
+  float* a = AP(a_);
   const float* W0 = LW(cc.pm[0]);
   const int b0 = cc.pm[1];
   int S = pick_s(R * P, H);
@@ -324,12 +366,12 @@ __device__ __noinline__ void pmodel_fwd(int x_, int pre_, int a_, int mo_,
         [&](int o, float s) {
           int g = o / (R * D), q = o - g * R * D, r = q / D;
           s += bias_at(cc.pm[g ? 5 : 3], q - r * D);
-          sm[(g ? vo_ : mo_) + q] = s;
+          SM((g ? vo_ : mo_) + q) = s;
           if (cm_ >= 0) {
-            float* cp = sm + (g ? cv_ : cm_);
+            float* cp = AP((g ? cv_ : cm_));
             if (sel_ >= 0) {
-              float ob = sm[sel_ + r];
-              cp[q] = ob * s + (1.f - ob) * sm[(g ? ov_ : om_) + q];
+              float ob = SM(sel_ + r);
+              cp[q] = ob * s + (1.f - ob) * SM((g ? ov_ : om_) + q);
             } else {
               cp[q] = s;
             }
@@ -339,22 +381,23 @@ __device__ __noinline__ void pmodel_fwd(int x_, int pre_, int a_, int mo_,
 
 // One field evaluation at (mi, vi, hin): F0..F3 (full: r, z, u, r*hin;
 // minimal: z, n, z*hin) and fo = f; with out >= 0 also out = base + coef f.
+template <bool GA>
 __device__ __noinline__ void field_fwd(int mi_, int vi_, int hin_, int F0_,
                                        int F1_, int F2_, int F3_, int fo_,
                                        int base_, float coef, int out_) {
   const int R = cc.rows, H = cc.H, D = cc.D;
-  const float* mi = sm + mi_;
-  const float* vi = sm + vi_;
-  const float* hin = sm + hin_;
-  float* F0 = sm + F0_;
-  float* F1 = sm + F1_;
-  float* F2 = sm + F2_;
-  float* F3 = sm + F3_;
+  const float* mi = AP(mi_);
+  const float* vi = AP(vi_);
+  const float* hin = AP(hin_);
+  float* F0 = AP(F0_);
+  float* F1 = AP(F1_);
+  float* F2 = AP(F2_);
+  float* F3 = AP(F3_);
   const int n_in = (cc.impute ? 2 * D : 0) + H;
   auto finish = [&](int o, float u, float z) {
     float f = (1.f - z) * (u - hin[o]);
-    sm[fo_ + o] = f;
-    if (out_ >= 0) sm[out_ + o] = sm[base_ + o] + coef * f;
+    SM(fo_ + o) = f;
+    if (out_ >= 0) SM(out_ + o) = SM(base_ + o) + coef * f;
   };
   if (cc.full) {
     int S = pick_s(R * 2 * H, n_in);
@@ -416,17 +459,18 @@ __device__ __noinline__ void field_fwd(int mi_, int vi_, int hin_, int F0_,
 
 // The discretized cell: one GRU tick of h driven by (m, v). Leaves F0..F3
 // = r, z, n, gh_n, gt = gi_n, and h1p = (1 - z) n + z h.
+template <bool GA>
 __device__ __noinline__ void cell_fwd(int m_, int v_, int h_, int F0_,
                                       int F1_, int F2_, int F3_, int gt_,
                                       int out_) {
   const int R = cc.rows, H = cc.H, D = cc.D;
-  const float* m = sm + m_;
-  const float* v = sm + v_;
-  const float* h = sm + h_;
-  float* F0 = sm + F0_;
-  float* F1 = sm + F1_;
-  float* F3 = sm + F3_;
-  float* gt = sm + gt_;
+  const float* m = AP(m_);
+  const float* v = AP(v_);
+  const float* h = AP(h_);
+  float* F0 = AP(F0_);
+  float* F1 = AP(F1_);
+  float* F3 = AP(F3_);
+  float* gt = AP(gt_);
   // segments: gi_r + gh_r, gi_z + gh_z, gi_n, gh_n
   int S = pick_s(R * 4 * H, (cc.impute ? 2 * D : 0) + H);
   phase(R * 4 * H, S,
@@ -453,8 +497,8 @@ __device__ __noinline__ void cell_fwd(int m_, int v_, int h_, int F0_,
     float n = tanhf(gt[idx] + r * F3[idx]);
     F0[idx] = r;
     F1[idx] = z;
-    sm[F2_ + idx] = n;
-    sm[out_ + idx] = (1.f - z) * n + z * h[idx];
+    SM(F2_ + idx) = n;
+    SM(out_ + idx) = (1.f - z) * n + z * h[idx];
   }
   __syncthreads();
 }
@@ -466,6 +510,7 @@ __device__ __noinline__ void cell_fwd(int m_, int v_, int h_, int F0_,
 // backward reads; ends with (h2, m2, v2) and the per-row NLL.
 // A dt == 0 padding step skips the propagation: its buffers keep what they
 // held (stage (a) zeroes them first).
+template <bool GA>
 __device__ __noinline__ void step_fwd(int ab, float dt, const MaskCtx& mc,
                                       int k, int lane0) {
   const int R = cc.rows, H = cc.H, D = cc.D, DP = cc.DP;
@@ -473,42 +518,42 @@ __device__ __noinline__ void step_fwd(int ab, float dt, const MaskCtx& mc,
   __syncthreads();                 // the carries and inputs are loaded
   if (dt > 0.f) {
     if (cc.prop == 2) {
-      cell_fwd(FO(m), FO(v), FO(h), FO(f1a), FO(f1b), FO(f1c), FO(f1d),
+      cell_fwd<GA>(FO(m), FO(v), FO(h), FO(f1a), FO(f1b), FO(f1c), FO(f1d),
                FO(gt), FO(h1p));
     } else if (cc.prop == 1) {     // midpoint
-      field_fwd(FO(m), FO(v), FO(h), FO(f1a), FO(f1b), FO(f1c), FO(f1d),
+      field_fwd<GA>(FO(m), FO(v), FO(h), FO(f1a), FO(f1b), FO(f1c), FO(f1d),
                 FO(fo), FO(h), dt * 0.5f, FO(kk));
       if (cc.impute)
-        pmodel_fwd(FO(kk), FO(prek), FO(ak), FO(mk), FO(vk), -1, -1, -1, -1,
+        pmodel_fwd<GA>(FO(kk), FO(prek), FO(ak), FO(mk), FO(vk), -1, -1, -1, -1,
                    -1, mc, 0);
-      field_fwd(FO(mk), FO(vk), FO(kk), FO(f2a), FO(f2b), FO(f2c), FO(f2d),
+      field_fwd<GA>(FO(mk), FO(vk), FO(kk), FO(f2a), FO(f2b), FO(f2c), FO(f2d),
                 FO(fo), FO(h), dt, FO(h1p));
     } else {
-      field_fwd(FO(m), FO(v), FO(h), FO(f1a), FO(f1b), FO(f1c), FO(f1d),
+      field_fwd<GA>(FO(m), FO(v), FO(h), FO(f1a), FO(f1b), FO(f1c), FO(f1d),
                 FO(fo), FO(h), dt, FO(h1p));
     }
     for (int idx = threadIdx.x; idx < R * H; idx += NT)
-      sm[FO(h1) + idx] = sm[FO(h1p) + idx];
-    pmodel_fwd(FO(h1p), FO(pre1), FO(a1), FO(m1p), FO(v1p), FO(m1), FO(v1),
+      SM(FO(h1) + idx) = SM(FO(h1p) + idx);
+    pmodel_fwd<GA>(FO(h1p), FO(pre1), FO(a1), FO(m1p), FO(v1p), FO(m1), FO(v1),
                -1, -1, -1, mc, 1);
   } else {
     for (int idx = threadIdx.x; idx < R * H; idx += NT)
-      sm[FO(h1) + idx] = sm[FO(h) + idx];
+      SM(FO(h1) + idx) = SM(FO(h) + idx);
     for (int idx = threadIdx.x; idx < R * D; idx += NT) {
-      sm[FO(m1) + idx] = sm[FO(m) + idx];
-      sm[FO(v1) + idx] = sm[FO(v) + idx];
+      SM(FO(m1) + idx) = SM(FO(m) + idx);
+      SM(FO(v1) + idx) = SM(FO(v) + idx);
     }
     __syncthreads();
   }
   // observation update: NLL, features, prep transform, GRU jump
-  const float* X = sm + FO(X);
-  const float* M = sm + FO(M);
-  const float* obs = sm + FO(obs);
-  const float* m1 = sm + FO(m1);
-  const float* v1 = sm + FO(v1);
-  const float* h1 = sm + FO(h1);
-  float* err = sm + FO(err);
-  float* ft2 = sm + FO(ft2);
+  const float* X = AP(FO(X));
+  const float* M = AP(FO(M));
+  const float* obs = AP(FO(obs));
+  const float* m1 = AP(FO(m1));
+  const float* v1 = AP(FO(v1));
+  const float* h1 = AP(FO(h1));
+  float* err = AP(FO(err));
+  float* ft2 = AP(FO(ft2));
   for (int r = threadIdx.x; r < R; r += NT) {
     float s = 0.f;
     for (int d = 0; d < D; ++d) {
@@ -527,11 +572,11 @@ __device__ __noinline__ void step_fwd(int ab, float dt, const MaskCtx& mc,
       err[i] = e;
       s += t * M[i];
     }
-    sm[FO(nll) + r] = 0.5f * s;
+    SM(FO(nll) + r) = 0.5f * s;
   }
   __syncthreads();
-  float* pre = sm + FO(pre);
-  float* gin = sm + FO(gin);
+  float* pre = AP(FO(pre));
+  float* gin = AP(FO(gin));
   int S = pick_s(R * DP, 4 * D);
   phase(R * DP, S,
         [&](int o, int l) {
@@ -549,10 +594,10 @@ __device__ __noinline__ void step_fwd(int ab, float dt, const MaskCtx& mc,
         });
   // the observation GRU: ga = gi_r + gh_r, gb = gi_z + gh_z, gt = gi_n,
   // gd = gh_n
-  float* ga = sm + FO(ga);
-  float* gb = sm + FO(gb);
-  float* gd = sm + FO(gd);
-  float* gt = sm + FO(gt);
+  float* ga = AP(FO(ga));
+  float* gb = AP(FO(gb));
+  float* gd = AP(FO(gd));
+  float* gt = AP(FO(gt));
   S = pick_s(R * 4 * H, DP + H);
   phase(R * 4 * H, S,
         [&](int o, int l) {
@@ -573,18 +618,18 @@ __device__ __noinline__ void step_fwd(int ab, float dt, const MaskCtx& mc,
           else
             gd[q] = s + bias_at(cc.bhh[2], j);
         });
-  float* h2 = sm + FO(h2);
+  float* h2 = AP(FO(h2));
   for (int idx = threadIdx.x; idx < R * H; idx += NT) {
     float r = sigm(ga[idx]), z = sigm(gb[idx]);
     float n = tanhf(gt[idx] + r * gd[idx]);
     ga[idx] = r;
     gb[idx] = z;
-    sm[FO(gc) + idx] = n;
+    SM(FO(gc) + idx) = n;
     float o = obs[idx / H];
     h2[idx] = o * ((1.f - z) * n + z * h1[idx]) + (1.f - o) * h1[idx];
   }
   __syncthreads();
-  pmodel_fwd(FO(h2), FO(pre2), FO(a2), FO(m2p), FO(v2p), FO(m2), FO(v2),
+  pmodel_fwd<GA>(FO(h2), FO(pre2), FO(a2), FO(m2p), FO(v2p), FO(m2), FO(v2),
              FO(obs), FO(m1), FO(v1), mc, 2);
 }
 
@@ -594,10 +639,11 @@ __device__ __noinline__ void step_fwd(int ab, float dt, const MaskCtx& mc,
 // from the saved post-dropout activation a = dropout(relu(pre)): a != 0
 // exactly where pre > 0 and the column was kept (a kept pre > 0 divided
 // by 1 - rate stays > 0; NaN, -0 and pre <= 0 give 0), so no mask is drawn
+template <bool GA>
 __device__ __noinline__ void pm_dp(int a_, int dm_, int dv_, int dp_) {
   const int R = cc.rows, P = cc.P, D = cc.D;
-  const float* dm = sm + dm_;
-  const float* dv = sm + dv_;
+  const float* dm = AP(dm_);
+  const float* dv = AP(dv_);
   const float* Wm = LW(cc.pm[2]);
   const float* Wv = LW(cc.pm[4]);
   int S = pick_s(R * P, 2 * D);
@@ -609,16 +655,17 @@ __device__ __noinline__ void pm_dp(int a_, int dm_, int dv_, int dp_) {
         },
         [&](int o, float s) {
           if (cc.mode) s = s / cc.keep;
-          sm[dp_ + o] = sm[a_ + o] != 0.f ? s : 0.f;
+          SM(dp_ + o) = SM(a_ + o) != 0.f ? s : 0.f;
         });
 }
 
 // y (+)= dp W0^T (the p_model input gradient); with df >= 0 also df =
 // coef * y
+template <bool GA>
 __device__ __noinline__ void pm_dx(int dp_, int y_, bool acc, int df_,
                                    float coef) {
   const int R = cc.rows, H = cc.H, P = cc.P;
-  const float* dp = sm + dp_;
+  const float* dp = AP(dp_);
   const float* W0 = LW(cc.pm[0]);
   int S = pick_s(R * H, P);
   phase(R * H, S,
@@ -627,28 +674,29 @@ __device__ __noinline__ void pm_dx(int dp_, int y_, bool acc, int df_,
           return dotw(dp + r * P, W0 + j * P, 1, P, l, S);
         },
         [&](int o, float s) {
-          float y = acc ? sm[y_ + o] + s : s;
-          sm[y_ + o] = y;
-          if (df_ >= 0) sm[df_ + o] = coef * y;
+          float y = acc ? SM(y_ + o) + s : s;
+          SM(y_ + o) = y;
+          if (df_ >= 0) SM(df_ + o) = coef * y;
         });
 }
 
 // Backward of one field evaluation at (mi, vi, hin) with saved F0..F3 for
 // its gradient df: the deltas a0, a1, a2 (full: da_u, da_z, da_r;
 // minimal: da_n, da_z), dhf = d/d hin and (impute) dmo, dvo = d/d(mi, vi).
+template <bool GA>
 __device__ __noinline__ void field_bwd(int hin_, int F0_, int F1_, int F2_,
                                        int df_, int a0_, int a1_, int a2_,
                                        int dhf_, int dmo_, int dvo_) {
   const int R = cc.rows, H = cc.H, D = cc.D;
-  const float* hin = sm + hin_;
-  const float* F0 = sm + F0_;
-  const float* F1 = sm + F1_;
-  const float* F2 = sm + F2_;
-  const float* df = sm + df_;
-  float* a0 = sm + a0_;
-  float* a1 = sm + a1_;
-  float* a2 = sm + a2_;
-  float* dhf = sm + dhf_;
+  const float* hin = AP(hin_);
+  const float* F0 = AP(F0_);
+  const float* F1 = AP(F1_);
+  const float* F2 = AP(F2_);
+  const float* df = AP(df_);
+  float* a0 = AP(a0_);
+  float* a1 = AP(a1_);
+  float* a2 = AP(a2_);
+  float* dhf = AP(dhf_);
   const bool full = cc.full;
   const float* z_ = full ? F1 : F0;      // the update gate
   const float* u_ = full ? F2 : F1;      // the candidate
@@ -708,7 +756,7 @@ __device__ __noinline__ void field_bwd(int hin_, int F0_, int F1_, int F2_,
             dhf[o] += s;
           } else {
             int q = o - R * H, g = q / (R * D);
-            sm[(g ? dvo_ : dmo_) + q - g * R * D] = s;
+            SM((g ? dvo_ : dmo_) + q - g * R * D) = s;
           }
         });
 }
@@ -717,21 +765,22 @@ __device__ __noinline__ void field_bwd(int hin_, int F0_, int F1_, int F2_,
 // the gradient wrt the step's outputs (h2, m2, v2) to the gradient wrt its
 // entry carries (written back into dh, dm, dv), leaving in the chain's
 // buffers every delta a weight gradient needs.
+template <bool GA>
 __device__ __noinline__ void step_bwd(int ab, float dt, float dloss) {
   const int R = cc.rows, H = cc.H, D = cc.D, DP = cc.DP;
-  const float* obs = sm + FO(obs);
-  const float* M = sm + FO(M);
-  const float* X = sm + FO(X);
-  float* dh = sm + BO(dh);
-  float* dm = sm + BO(dm);
-  float* dv = sm + BO(dv);
-  float* dh1 = sm + BO(dh1);
-  float* dm1 = sm + BO(dm1);
-  float* dv1 = sm + BO(dv1);
+  const float* obs = AP(FO(obs));
+  const float* M = AP(FO(M));
+  const float* X = AP(FO(X));
+  float* dh = AP(BO(dh));
+  float* dm = AP(BO(dm));
+  float* dv = AP(BO(dv));
+  float* dh1 = AP(BO(dh1));
+  float* dm1 = AP(BO(dm1));
+  float* dv1 = AP(BO(dv1));
   // KL on (m2, v2), the carry from the next step, the obs select
   for (int idx = threadIdx.x; idx < R * D; idx += NT) {
-    float o = obs[idx / D], mk = M[idx], mv = sm[FO(m2) + idx];
-    float vv = sm[FO(v2) + idx];
+    float o = obs[idx / D], mk = M[idx], mv = SM(FO(m2) + idx);
+    float vv = SM(FO(v2) + idx);
     float sc = dloss * cc.mixing * o * mk;
     float dklm = sc * (mv - X[idx]) * INV_S2SQ;
     float dklv;
@@ -742,17 +791,17 @@ __device__ __noinline__ void step_bwd(int ab, float dt, float dloss) {
       dklv = sc * sgnf(vv) * (-0.5f / a + INV_TWO_S2SQ);
     }
     float gm = dm[idx] + dklm, gv = dv[idx] + dklv;
-    sm[BO(dm2) + idx] = o * gm;                // -> p_model (post jump)
-    sm[BO(dv2) + idx] = o * gv;
+    SM(BO(dm2) + idx) = o * gm;                // -> p_model (post jump)
+    SM(BO(dv2) + idx) = o * gv;
     dm1[idx] = (1.f - o) * gm;
     dv1[idx] = (1.f - o) * gv;
   }
   __syncthreads();
-  pm_dp(FO(a2), BO(dm2), BO(dv2), BO(dp2));
+  pm_dp<GA>(FO(a2), BO(dm2), BO(dv2), BO(dp2));
   // d h2 = dp2 W0^T + dh, split by obs; the observation GRU's deltas
   {
     const int P = cc.P;
-    const float* dp2 = sm + BO(dp2);
+    const float* dp2 = AP(BO(dp2));
     const float* W0 = LW(cc.pm[0]);
     int S = pick_s(R * H, P);
     phase(R * H, S,
@@ -763,24 +812,24 @@ __device__ __noinline__ void step_bwd(int ab, float dt, float dloss) {
           [&](int o, float s) {
             float g = s + dh[o], ob = obs[o / H];
             float dj = ob * g;
-            float r = sm[FO(ga) + o], z = sm[FO(gb) + o];
-            float n = sm[FO(gc) + o], ghn = sm[FO(gd) + o];
-            float da_z = dj * (sm[FO(h1) + o] - n) * z * (1.f - z);
+            float r = SM(FO(ga) + o), z = SM(FO(gb) + o);
+            float n = SM(FO(gc) + o), ghn = SM(FO(gd) + o);
+            float da_z = dj * (SM(FO(h1) + o) - n) * z * (1.f - z);
             float da_n = dj * (1.f - z) * (1.f - n * n);
-            sm[BO(og0) + o] = da_n * ghn * r * (1.f - r);
-            sm[BO(og1) + o] = da_z;
-            sm[BO(og2) + o] = da_n;
-            sm[BO(og3) + o] = da_n * r;
+            SM(BO(og0) + o) = da_n * ghn * r * (1.f - r);
+            SM(BO(og1) + o) = da_z;
+            SM(BO(og2) + o) = da_n;
+            SM(BO(og3) + o) = da_n * r;
             dh1[o] = (1.f - ob) * g + dj * z;
           });
   }
   // dh1 += dgh hh^T; dx = relu'(pre) M (dgi ih^T)
   {
-    const float* og0 = sm + BO(og0);
-    const float* og1 = sm + BO(og1);
-    const float* og2 = sm + BO(og2);
-    const float* og3 = sm + BO(og3);
-    float* dx = sm + BO(dx);
+    const float* og0 = AP(BO(og0));
+    const float* og1 = AP(BO(og1));
+    const float* og2 = AP(BO(og2));
+    const float* og3 = AP(BO(og3));
+    float* dx = AP(BO(dx));
     int S = pick_s(R * (H + DP), 3 * H);
     phase(R * (H + DP), S,
           [&](int o, int l) {
@@ -800,7 +849,7 @@ __device__ __noinline__ void step_bwd(int ab, float dt, float dloss) {
               dh1[o] = dh1[o] + s;
             } else {
               int q = o - R * H, r = q / DP, col = q - r * DP;
-              dx[q] = sm[FO(pre) + q] > 0.f
+              dx[q] = SM(FO(pre) + q) > 0.f
                           ? s * M[r * D + col / cc.prep] : 0.f;
             }
           });
@@ -814,21 +863,21 @@ __device__ __noinline__ void step_bwd(int ab, float dt, float dloss) {
           },
           [&](int o, float s) {
             int g = o / (R * D), q = o - g * R * D;
-            sm[(g == 0 ? BO(dfm) : g == 1 ? BO(dff) : BO(dfe)) + q] = s;
+            SM((g == 0 ? BO(dfm) : g == 1 ? BO(dff) : BO(dfe)) + q) = s;
           });
   }
   // the NLL and the feature paths into (m1, v1)
   for (int idx = threadIdx.x; idx < R * D; idx += NT) {
     float sc = dloss * obs[idx / D] * M[idx];
-    float e = sm[FO(err) + idx], v1 = sm[FO(v1) + idx];
-    float dfm = sm[BO(dfm) + idx], dff = sm[BO(dff) + idx];
-    float dfe = sm[BO(dfe) + idx];
+    float e = SM(FO(err) + idx), v1 = SM(FO(v1) + idx);
+    float dfm = SM(BO(dfm) + idx), dff = SM(BO(dff) + idx);
+    float dfe = SM(BO(dfe) + idx);
     if (cc.logvar) {
       float sigma = expf(0.5f * v1);
       dm1[idx] += -sc * e / sigma - dfe / sigma + dfm;
       dv1[idx] += sc * 0.5f * (1.f - e * e) - 0.5f * dfe * e + dff;
     } else {
-      float a = sm[FO(ft2) + idx], sq = sqrtf(a), sg = sgnf(v1);
+      float a = SM(FO(ft2) + idx), sq = sqrtf(a), sg = sgnf(v1);
       dm1[idx] += -sc * e / sq - dfe / sq + dfm;
       dv1[idx] += sg * sc * 0.5f * (1.f - e * e) / a
                   + sg * (-0.5f * dfe * e / a + dff);
@@ -845,28 +894,28 @@ __device__ __noinline__ void step_bwd(int ab, float dt, float dloss) {
     return;
   }
   // the propagation: h1 = cell(h, m, v), (m1, v1) = p_model(h1)
-  pm_dp(FO(a1), BO(dm1), BO(dv1), BO(dp1));
+  pm_dp<GA>(FO(a1), BO(dm1), BO(dv1), BO(dp1));
   const bool field = cc.prop != 2;
-  pm_dx(BO(dp1), BO(dh1), true, field ? BO(df) : -1, dt);
+  pm_dx<GA>(BO(dp1), BO(dh1), true, field ? BO(df) : -1, dt);
   if (cc.prop == 2) {
-    const float* h = sm + FO(h);
+    const float* h = AP(FO(h));
     for (int idx = threadIdx.x; idx < R * H; idx += NT) {
-      float r = sm[FO(f1a) + idx], z = sm[FO(f1b) + idx];
-      float n = sm[FO(f1c) + idx], ghn = sm[FO(f1d) + idx];
+      float r = SM(FO(f1a) + idx), z = SM(FO(f1b) + idx);
+      float n = SM(FO(f1c) + idx), ghn = SM(FO(f1d) + idx);
       float d = dh1[idx];
       float da_z = d * (h[idx] - n) * z * (1.f - z);
       float da_n = d * (1.f - z) * (1.f - n * n);
-      sm[BO(pg0) + idx] = da_n * ghn * r * (1.f - r);
-      sm[BO(pg1) + idx] = da_z;
-      sm[BO(pg2) + idx] = da_n;
-      sm[BO(pg3) + idx] = da_n * r;
+      SM(BO(pg0) + idx) = da_n * ghn * r * (1.f - r);
+      SM(BO(pg1) + idx) = da_z;
+      SM(BO(pg2) + idx) = da_n;
+      SM(BO(pg3) + idx) = da_n * r;
       dh[idx] = d * z;
     }
     __syncthreads();
-    const float* pg0 = sm + BO(pg0);
-    const float* pg1 = sm + BO(pg1);
-    const float* pg2 = sm + BO(pg2);
-    const float* pg3 = sm + BO(pg3);
+    const float* pg0 = AP(BO(pg0));
+    const float* pg1 = AP(BO(pg1));
+    const float* pg2 = AP(BO(pg2));
+    const float* pg3 = AP(BO(pg3));
     const int n_out = R * H + (cc.impute ? 2 * R * D : 0);
     int S = pick_s(n_out, 3 * H);
     phase(n_out, S,
@@ -894,27 +943,27 @@ __device__ __noinline__ void step_bwd(int ab, float dt, float dloss) {
             }
           });
   } else if (cc.prop == 0) {
-    field_bwd(FO(h), FO(f1a), FO(f1b), FO(f1c), BO(df), BO(e1a0), BO(e1a1),
+    field_bwd<GA>(FO(h), FO(f1a), FO(f1b), FO(f1c), BO(df), BO(e1a0), BO(e1a1),
               BO(e1a2), BO(dhf), BO(dm), BO(dv));
     for (int idx = threadIdx.x; idx < R * H; idx += NT)
-      dh[idx] = dh1[idx] + sm[BO(dhf) + idx];
+      dh[idx] = dh1[idx] + SM(BO(dhf) + idx);
   } else {
     // midpoint: h1 = h + dt f(mk, vk, kk), kk = h + dt/2 f(m, v, h),
     // (mk, vk) = p_model(kk) with impute
-    field_bwd(FO(kk), FO(f2a), FO(f2b), FO(f2c), BO(df), BO(e2a0),
+    field_bwd<GA>(FO(kk), FO(f2a), FO(f2b), FO(f2c), BO(df), BO(e2a0),
               BO(e2a1), BO(e2a2), BO(dkk), BO(dmk), BO(dvk));
     if (cc.impute) {
-      pm_dp(FO(ak), BO(dmk), BO(dvk), BO(dp0));
-      pm_dx(BO(dp0), BO(dkk), true, BO(df), dt * 0.5f);
+      pm_dp<GA>(FO(ak), BO(dmk), BO(dvk), BO(dp0));
+      pm_dx<GA>(BO(dp0), BO(dkk), true, BO(df), dt * 0.5f);
     } else {
       for (int idx = threadIdx.x; idx < R * H; idx += NT)
-        sm[BO(df) + idx] = dt * 0.5f * sm[BO(dkk) + idx];
+        SM(BO(df) + idx) = dt * 0.5f * SM(BO(dkk) + idx);
       __syncthreads();
     }
-    field_bwd(FO(h), FO(f1a), FO(f1b), FO(f1c), BO(df), BO(e1a0), BO(e1a1),
+    field_bwd<GA>(FO(h), FO(f1a), FO(f1b), FO(f1c), BO(df), BO(e1a0), BO(e1a1),
               BO(e1a2), BO(dhf), BO(dm), BO(dv));
     for (int idx = threadIdx.x; idx < R * H; idx += NT)
-      dh[idx] = dh1[idx] + sm[BO(dkk) + idx] + sm[BO(dhf) + idx];
+      dh[idx] = dh1[idx] + SM(BO(dkk) + idx) + SM(BO(dhf) + idx);
   }
   if (!cc.impute)
     for (int idx = threadIdx.x; idx < R * D; idx += NT) {
@@ -926,12 +975,15 @@ __device__ __noinline__ void step_bwd(int ab, float dt, float dloss) {
 
 // ---------------------------------------------------------------- kernels
 
-__device__ __forceinline__ void load_call(const GobCfg& c, const Leaves& lv) {
+// slab: the CTA's slab of device memory (the device-memory form), or null
+__device__ __forceinline__ void load_call(const GobCfg& c, const Leaves& lv,
+                                          float* slab) {
   const int* ci = (const int*)&c;
   int* di = (int*)&cc;
   for (int i = threadIdx.x; i < (int)(sizeof(GobCfg) / 4); i += NT)
     di[i] = ci[i];
   for (int i = threadIdx.x; i < MAX_LEAVES; i += NT) cl.p[i] = lv.p[i];
+  if (threadIdx.x == 0) cslab = slab;
   __syncthreads();
 }
 
@@ -967,26 +1019,29 @@ __device__ MaskCtx make_mask_ctx(const int8_t* u, const long long* seed,
 
 // rows [0, nv) of a [.., B, W] array at step k into the R-row buffer at
 // offset dst (zeros on padding rows)
+template <bool GA>
 __device__ __forceinline__ void load_rows(int R, int dst, const float* src,
                                           int k, int W, int row0, int nv) {
   for (int idx = threadIdx.x; idx < R * W; idx += NT)
-    sm[dst + idx] = idx / W < nv
+    SM(dst + idx) = idx / W < nv
         ? src[((size_t)k * cc.B + row0) * W + idx] : 0.f;
 }
 
 // the step's inputs of the CTA's rows into the forward buffers at ab
+template <bool GA>
 __device__ __forceinline__ void load_step(int R, int ab, int k, int row0,
                                           int nv, const float* obs_g,
                                           const float* X_g,
                                           const float* M_g) {
-  load_rows(R, FO(obs), obs_g, k, 1, row0, nv);
-  load_rows(R, FO(X), X_g, k, cc.D, row0, nv);
-  load_rows(R, FO(M), M_g, k, cc.D, row0, nv);
+  load_rows<GA>(R, FO(obs), obs_g, k, 1, row0, nv);
+  load_rows<GA>(R, FO(X), X_g, k, cc.D, row0, nv);
+  load_rows<GA>(R, FO(M), M_g, k, cc.D, row0, nv);
 }
 
-template <int R, bool WANT_HISTS>
+template <int R, bool WANT_HISTS, bool GA>
 __global__ void __launch_bounds__(MAX_NT)
-gob_scan_fwd_kernel(GobCfg c, Leaves lv, const float* __restrict__ dts,
+gob_scan_fwd_kernel(GobCfg c, Leaves lv, float* slab,
+                    const float* __restrict__ dts,
                     const float* __restrict__ obs_g,
                     const float* __restrict__ X_g,
                     const float* __restrict__ M_g, const int8_t* u,
@@ -994,18 +1049,18 @@ gob_scan_fwd_kernel(GobCfg c, Leaves lv, const float* __restrict__ dts,
                     const float* __restrict__ m0,
                     const float* __restrict__ v0, float* loss_part,
                     float* hh, float* mh, float* vh) {
-  load_call(c, lv);
+  load_call(c, lv, GA ? slab + (size_t)blockIdx.x * c.slab_fwd : nullptr);
   stage_weights();
   const int H = cc.H, D = cc.D, B = cc.B, ab = 0;
   const int row0 = blockIdx.x * R;
   const int nv = min(R, B - row0);
-  float* h = sm + FO(h);
-  float* m = sm + FO(m);
-  float* v = sm + FO(v);
-  float* lrow = sm + FO(lrow);
-  load_rows(R, FO(h), h0, 0, H, row0, nv);
-  load_rows(R, FO(m), m0, 0, D, row0, nv);
-  load_rows(R, FO(v), v0, 0, D, row0, nv);
+  float* h = AP(FO(h));
+  float* m = AP(FO(m));
+  float* v = AP(FO(v));
+  float* lrow = AP(FO(lrow));
+  load_rows<GA>(R, FO(h), h0, 0, H, row0, nv);
+  load_rows<GA>(R, FO(m), m0, 0, D, row0, nv);
+  load_rows<GA>(R, FO(v), v0, 0, D, row0, nv);
   for (int r = threadIdx.x; r < R; r += NT) lrow[r] = 0.f;
   MaskCtx mc = make_mask_ctx(u, seed, row0, nv);
   __syncthreads();
@@ -1018,15 +1073,15 @@ gob_scan_fwd_kernel(GobCfg c, Leaves lv, const float* __restrict__ dts,
         vh[((size_t)k * B + row0) * D + idx] = v[idx];
       }
     }
-    load_step(R, ab, k, row0, nv, obs_g, X_g, M_g);
+    load_step<GA>(R, ab, k, row0, nv, obs_g, X_g, M_g);
     // the step's mask words, by the threads past those that store the
     // histories and load the inputs, while those loads are in flight
-    step_fwd(ab, dts[k], mc, k, ((max(R * H, R * D) - 1) % NT + 32) & ~31);
+    step_fwd<GA>(ab, dts[k], mc, k, ((max(R * H, R * D) - 1) % NT + 32) & ~31);
     // the step's loss per row: obs * (nll + mixing * KL(m2, v2))
-    const float* X = sm + FO(X);
-    const float* M = sm + FO(M);
-    const float* m2 = sm + FO(m2);
-    const float* v2 = sm + FO(v2);
+    const float* X = AP(FO(X));
+    const float* M = AP(FO(M));
+    const float* m2 = AP(FO(m2));
+    const float* v2 = AP(FO(v2));
     for (int r = threadIdx.x; r < nv; r += NT) {
       float kl = 0.f;
       for (int d = 0; d < D; ++d) {
@@ -1043,11 +1098,11 @@ gob_scan_fwd_kernel(GobCfg c, Leaves lv, const float* __restrict__ dts,
         kl += (LOG_S2 - log_std + (var + dmx * dmx) / TWO_S2SQ - 0.5f)
               * M[i];
       }
-      float o = sm[FO(obs) + r];
-      lrow[r] += o * sm[FO(nll) + r] + cc.mixing * (o * kl);
+      float o = SM(FO(obs) + r);
+      lrow[r] += o * SM(FO(nll) + r) + cc.mixing * (o * kl);
     }
     for (int idx = threadIdx.x; idx < R * H; idx += NT)
-      h[idx] = sm[FO(h2) + idx];
+      h[idx] = SM(FO(h2) + idx);
     for (int idx = threadIdx.x; idx < R * D; idx += NT) {
       m[idx] = m2[idx];
       v[idx] = v2[idx];
@@ -1064,38 +1119,44 @@ gob_scan_fwd_kernel(GobCfg c, Leaves lv, const float* __restrict__ dts,
 // K6 stage (a): CTA (x, y) re-runs step k0 + y for rows x*R.. from the
 // stored carries and writes the saved buffers into the chunk's workspace
 // (each buffer a [KBc, width] matrix, row (k - k0) * B + b).
-template <int R>
+template <int R, bool GA>
 __global__ void __launch_bounds__(MAX_NT)
-gob_remat_kernel(GobCfg c, Leaves lv, const float* __restrict__ dts,
+gob_remat_kernel(GobCfg c, Leaves lv, float* slab,
+                 const float* __restrict__ dts,
                  const float* __restrict__ obs_g,
                  const float* __restrict__ X_g,
                  const float* __restrict__ M_g, const int8_t* u,
                  const long long* seed, const float* __restrict__ hh,
                  const float* __restrict__ mh,
                  const float* __restrict__ vh, int k0, int KBc, float* ws) {
-  load_call(c, lv);
+  load_call(c, lv, GA ? slab + ((size_t)blockIdx.y * gridDim.x + blockIdx.x)
+                                   * c.slab_fwd
+                      : nullptr);
   const int B = cc.B, ab = 0;
   const int row0 = blockIdx.x * R;
   const int nv = min(R, B - row0);
   const int k = k0 + blockIdx.y;
   for (int i = threadIdx.x; i < cc.fwd_floats; i += NT) sm[i] = 0.f;
+  if (GA)
+    for (int i = threadIdx.x; i < cc.slab_fwd; i += NT) cslab[i] = 0.f;
   __syncthreads();
-  load_rows(R, FO(h), hh, k, cc.H, row0, nv);
-  load_rows(R, FO(m), mh, k, cc.D, row0, nv);
-  load_rows(R, FO(v), vh, k, cc.D, row0, nv);
-  load_step(R, ab, k, row0, nv, obs_g, X_g, M_g);
+  load_rows<GA>(R, FO(h), hh, k, cc.H, row0, nv);
+  load_rows<GA>(R, FO(m), mh, k, cc.D, row0, nv);
+  load_rows<GA>(R, FO(v), vh, k, cc.D, row0, nv);
+  load_step<GA>(R, ab, k, row0, nv, obs_g, X_g, M_g);
   MaskCtx mc = make_mask_ctx(u, seed, row0, nv);
-  step_fwd(ab, dts[k], mc, k, 0);
+  step_fwd<GA>(ab, dts[k], mc, k, 0);
   const size_t row = (size_t)blockIdx.y * B + row0;
   for (int s = 0; s < cc.n_save; ++s) {
     const int w = cc.save_w[s];
-    const float* src = sm + cc.save_sm[s];
+    const float* src = AP(cc.save_sm[s]);
     float* dst = ws + (size_t)cc.save_ws[s] * KBc + row * w;
     for (int idx = threadIdx.x; idx < nv * w; idx += NT) dst[idx] = src[idx];
   }
 }
 
 // stage (a)'s buffers of step k (chunk row kl) into the layout copy at ab
+template <bool GA>
 __device__ __forceinline__ void prefetch_step(int ab, const float* ws,
                                               int KBc, int kl, int row0,
                                               int nv) {
@@ -1103,9 +1164,13 @@ __device__ __forceinline__ void prefetch_step(int ab, const float* ws,
   for (int s = 0; s < cc.n_save; ++s) {
     const int w = cc.save_w[s];
     const float* src = ws + (size_t)cc.save_ws[s] * KBc + row * w;
-    float* dst = sm + ab + cc.save_sm[s];
-    for (int idx = threadIdx.x; idx < nv * w; idx += NT)
-      cp_async4(dst + idx, src + idx);
+    const int o = fo<GA>(ab, cc.save_sm[s]);
+    float* dst = AP(o);
+    if (GA && (o & SLAB_BIT))
+      for (int idx = threadIdx.x; idx < nv * w; idx += NT) dst[idx] = src[idx];
+    else
+      for (int idx = threadIdx.x; idx < nv * w; idx += NT)
+        cp_async4(dst + idx, src + idx);
   }
   cp_async_commit();
 }
@@ -1113,38 +1178,42 @@ __device__ __forceinline__ void prefetch_step(int ab, const float* ws,
 // K6 stage (b): the reverse walk over steps [k0, k1) of the CTA's rows,
 // carrying (dh, dm, dv) in dh0/dm0/dv0 from chunk to chunk (zero before
 // the last chunk, `first`); writes each step's deltas to the workspace.
-template <int R>
+template <int R, bool GA>
 __global__ void __launch_bounds__(MAX_NT)
-gob_chain_kernel(GobCfg c, Leaves lv, const float* __restrict__ dts,
+gob_chain_kernel(GobCfg c, Leaves lv, float* slab,
+                 const float* __restrict__ dts,
                  float* ws, int KBc, int k0, int k1, const float* dloss_p,
                  float* dh0, float* dm0, float* dv0, int first) {
-  load_call(c, lv);
+  load_call(c, lv,
+            GA ? slab + (size_t)blockIdx.x * c.slab_floats : nullptr);
   const int H = cc.H, D = cc.D, B = cc.B;
   const int row0 = blockIdx.x * R;
   const int nv = min(R, B - row0);
   for (int i = threadIdx.x; i < cc.smem_floats; i += NT) sm[i] = 0.f;
+  if (GA)
+    for (int i = threadIdx.x; i < cc.slab_floats; i += NT) cslab[i] = 0.f;
   stage_weights();
   __syncthreads();
   if (!first) {
-    load_rows(R, BO(dh), dh0, 0, H, row0, nv);
-    load_rows(R, BO(dm), dm0, 0, D, row0, nv);
-    load_rows(R, BO(dv), dv0, 0, D, row0, nv);
+    load_rows<GA>(R, BO(dh), dh0, 0, H, row0, nv);
+    load_rows<GA>(R, BO(dm), dm0, 0, D, row0, nv);
+    load_rows<GA>(R, BO(dv), dv0, 0, D, row0, nv);
   }
   const float dloss = dloss_p[0];
-  prefetch_step(0, ws, KBc, k1 - 1 - k0, row0, nv);
+  prefetch_step<GA>(0, ws, KBc, k1 - 1 - k0, row0, nv);
   cp_async_wait_all();
   __syncthreads();
   for (int k = k1 - 1, it = 0; k >= k0; --k, ++it) {
     const int ab = (it & 1) ? cc.fwd_floats : 0;
     if (k > k0)
-      prefetch_step(ab ? 0 : cc.fwd_floats, ws, KBc, k - 1 - k0, row0, nv);
+      prefetch_step<GA>(ab ? 0 : cc.fwd_floats, ws, KBc, k - 1 - k0, row0, nv);
     const float dt = dts[k];
-    step_bwd(ab, dt, dloss);
+    step_bwd<GA>(ab, dt, dloss);
     const size_t row = (size_t)(k - k0) * B + row0;
     for (int s = 0; s < cc.n_dlt; ++s) {
       const int w = cc.dlt_w[s];
       const bool zero = cc.dlt_prop[s] && !(dt > 0.f);
-      const float* src = sm + cc.dlt_sm[s];
+      const float* src = AP(cc.dlt_sm[s]);
       float* dst = ws + (size_t)cc.dlt_ws[s] * KBc + row * w;
       for (int idx = threadIdx.x; idx < nv * w; idx += NT)
         dst[idx] = zero ? 0.f : src[idx];
@@ -1153,10 +1222,10 @@ gob_chain_kernel(GobCfg c, Leaves lv, const float* __restrict__ dts,
     __syncthreads();
   }
   for (int idx = threadIdx.x; idx < nv * H; idx += NT)
-    dh0[(size_t)row0 * H + idx] = sm[BO(dh) + idx];
+    dh0[(size_t)row0 * H + idx] = SM(BO(dh) + idx);
   for (int idx = threadIdx.x; idx < nv * D; idx += NT) {
-    dm0[(size_t)row0 * D + idx] = sm[BO(dm) + idx];
-    dv0[(size_t)row0 * D + idx] = sm[BO(dv) + idx];
+    dm0[(size_t)row0 * D + idx] = SM(BO(dm) + idx);
+    dv0[(size_t)row0 * D + idx] = SM(BO(dv) + idx);
   }
 }
 
@@ -1240,20 +1309,34 @@ static cudaError_t set_smem(F* kernel, size_t bytes) {
                               (int)bytes);
 }
 
-#define GOB_ROWS(R_, CASE)                                              \
-  switch (R_) {                                                         \
-    case 1: CASE(1); break;                                             \
-    case 2: CASE(2); break;                                             \
-    case 4: CASE(4); break;                                             \
-    case 8: CASE(8); break;                                             \
-    case 16: CASE(16); break;                                           \
-    default: return (int)cudaErrorInvalidValue;                         \
+// the kernel instance of the call's rows and activation form: the shared
+// form at 1, 2, 4, 8 or 16 rows, the device-memory form (c->ga) at one
+#define GOB_FORM(c_, CASE)                                              \
+  if ((c_)->ga) {                                                       \
+    if ((c_)->rows != 1) return (int)cudaErrorInvalidValue;             \
+    CASE(1, true);                                                      \
+  } else {                                                              \
+    switch ((c_)->rows) {                                               \
+      case 1: CASE(1, false); break;                                    \
+      case 2: CASE(2, false); break;                                    \
+      case 4: CASE(4, false); break;                                    \
+      case 8: CASE(8, false); break;                                    \
+      case 16: CASE(16, false); break;                                  \
+      default: return (int)cudaErrorInvalidValue;                       \
+    }                                                                   \
   }
+
+// the device-memory form needs its slab, the shared form none
+static bool slab_ok(const GobCfg* c, const float* slab) {
+  return (c->ga != 0) == (slab != nullptr);
+}
 
 extern "C" const char* gob_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// slab: the device-memory form's slabs, ceil(B / rows) * slab_fwd floats
+// (null in the shared form)
 extern "C" int gob_scan_fwd(const GobCfg* c, void** leaves,
                             const float* dts, const float* obs,
                             const float* X, const float* M,
@@ -1261,33 +1344,39 @@ extern "C" int gob_scan_fwd(const GobCfg* c, void** leaves,
                             const float* h0, const float* m0,
                             const float* v0, float* loss_part, float* hh,
                             float* mh, float* vh, int want_hists,
-                            void* stream) {
+                            float* slab, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Leaves lv;
   cudaError_t e = make_leaves(c, leaves, &lv);
   if (e != cudaSuccess) return (int)e;
+  if (!slab_ok(c, slab)) return (int)cudaErrorInvalidValue;
   const int grid = (c->B + c->rows - 1) / c->rows;
   const size_t smem = (size_t)(c->o_mw + c->n_mw) * sizeof(float);
-#define FWD_CASE(R)                                                         \
+#define FWD_CASE(R, GA)                                                     \
   if (want_hists) {                                                         \
-    e = set_smem(gob_scan_fwd_kernel<R, true>, smem);                       \
+    e = set_smem(gob_scan_fwd_kernel<R, true, GA>, smem);                   \
     if (e != cudaSuccess) return (int)e;                                    \
-    gob_scan_fwd_kernel<R, true><<<grid, c->threads, smem, st>>>(                   \
-        *c, lv, dts, obs, X, M, u, seed, h0, m0, v0, loss_part, hh, mh, vh);        \
+    gob_scan_fwd_kernel<R, true, GA><<<grid, c->threads, smem, st>>>(       \
+        *c, lv, slab, dts, obs, X, M, u, seed, h0, m0, v0, loss_part, hh,   \
+        mh, vh);                                                            \
   } else {                                                                  \
-    e = set_smem(gob_scan_fwd_kernel<R, false>, smem);                      \
+    e = set_smem(gob_scan_fwd_kernel<R, false, GA>, smem);                  \
     if (e != cudaSuccess) return (int)e;                                    \
-    gob_scan_fwd_kernel<R, false><<<grid, c->threads, smem, st>>>(                  \
-        *c, lv, dts, obs, X, M, u, seed, h0, m0, v0, loss_part, hh, mh, vh);        \
+    gob_scan_fwd_kernel<R, false, GA><<<grid, c->threads, smem, st>>>(      \
+        *c, lv, slab, dts, obs, X, M, u, seed, h0, m0, v0, loss_part, hh,   \
+        mh, vh);                                                            \
   }
-  GOB_ROWS(c->rows, FWD_CASE)
+  GOB_FORM(c, FWD_CASE)
 #undef FWD_CASE
   return (int)cudaGetLastError();
 }
 
 // K6: for each chunk of Kc steps, last first, stages (a), (b) and (c) on
 // the stream; stage (c)'s partial rows [n_split, n_params] are left for
-// reduce_partials.
+// reduce_partials. slab: the device-memory form's slabs (null in the shared
+// form), the larger of stage (a)'s ceil(B / rows) * Kc * slab_fwd floats and
+// the chain's ceil(B / rows) * slab_floats: the stages of a chunk run one
+// after the other on the stream and share it.
 extern "C" int gob_scan_bwd(const GobCfg* c, void** leaves,
                             const float* dts, const float* obs,
                             const float* X, const float* M,
@@ -1296,12 +1385,13 @@ extern "C" int gob_scan_bwd(const GobCfg* c, void** leaves,
                             const float* vh, const float* dloss, float* ws,
                             int Kc, const int* tiles, int n_tiles,
                             const int* jobs, int n_split, float* partials,
-                            float* dh0, float* dm0, float* dv0,
+                            float* dh0, float* dm0, float* dv0, float* slab,
                             void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Leaves lv;
   cudaError_t e = make_leaves(c, leaves, &lv);
   if (e != cudaSuccess) return (int)e;
+  if (!slab_ok(c, slab)) return (int)cudaErrorInvalidValue;
   const int B = c->B, K = c->K;
   const int nb = (B + c->rows - 1) / c->rows;
   const int KBc = Kc * B;
@@ -1309,23 +1399,23 @@ extern "C" int gob_scan_bwd(const GobCfg* c, void** leaves,
   const size_t fwd = (size_t)(c->o_mw + c->n_mw) * sizeof(float);
   const size_t full = (size_t)(c->wsm ? c->o_w + c->n_params
                                       : c->smem_floats) * sizeof(float);
-#define ATTR_CASE(R)                                          \
-  e = set_smem(gob_remat_kernel<R>, fwd);                     \
-  if (e == cudaSuccess) e = set_smem(gob_chain_kernel<R>, full);
-  GOB_ROWS(c->rows, ATTR_CASE)
+#define ATTR_CASE(R, GA)                                      \
+  e = set_smem(gob_remat_kernel<R, GA>, fwd);                 \
+  if (e == cudaSuccess) e = set_smem(gob_chain_kernel<R, GA>, full);
+  GOB_FORM(c, ATTR_CASE)
 #undef ATTR_CASE
   if (e != cudaSuccess) return (int)e;
   for (int ci = n_chunks - 1; ci >= 0; --ci) {
     const int k0 = ci * Kc, k1 = min(K, k0 + Kc);
     const int last = ci == n_chunks - 1;
-#define STAGE_CASE(R)                                                      \
-  gob_remat_kernel<R><<<dim3(nb, k1 - k0), c->threads, fwd, st>>>(                 \
-      *c, lv, dts, obs, X, M, u, seed, hh, mh, vh, k0, KBc, ws);                   \
+#define STAGE_CASE(R, GA)                                                  \
+  gob_remat_kernel<R, GA><<<dim3(nb, k1 - k0), c->threads, fwd, st>>>(     \
+      *c, lv, slab, dts, obs, X, M, u, seed, hh, mh, vh, k0, KBc, ws);     \
   e = cudaGetLastError();                                                  \
   if (e != cudaSuccess) return (int)e;                                     \
-  gob_chain_kernel<R><<<nb, c->threads, full, st>>>(*c, lv, dts, ws, KBc, k0, \
-                                            k1, dloss, dh0, dm0, dv0, last);
-    GOB_ROWS(c->rows, STAGE_CASE)
+  gob_chain_kernel<R, GA><<<nb, c->threads, full, st>>>(                   \
+      *c, lv, slab, dts, ws, KBc, k0, k1, dloss, dh0, dm0, dv0, last);
+    GOB_FORM(c, STAGE_CASE)
 #undef STAGE_CASE
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;

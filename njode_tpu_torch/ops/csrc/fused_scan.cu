@@ -145,8 +145,8 @@
 #define MAX_ROWS 16            // batch rows per CTA: c.rows in 1..MAX_ROWS
 #define RB 4                   // rows a thread sums in the global plan
 #define NTHREADS 256
-#define MAX_LIN 8
-#define MAX_LEAVES 52          // three MLPs of MAX_LIN layers, the GRU's 4
+#define MAX_LIN 16
+#define MAX_LEAVES 100         // three MLPs of MAX_LIN layers, the GRU's 4
 #define MAXI 4                 // global plan: items a thread keeps over tiles
 #define GB 16                  // global plan: gradient loads issued ahead
 #define TILE_INTS 8            // ints of a tile descriptor (tile_program)
@@ -964,6 +964,69 @@ __device__ __forceinline__ void out_errors(const ScanCfg& c, float yb,
   t2 = m * d2 * d2;
 }
 
+// The loss where the output's width O differs from the input's D
+// (unmasked, one of them 1; the global plan only, so the resident kernels'
+// code is the D == O code alone): as the eager forward's step loss, whose
+// coordinate mask M = ones_like(X) broadcasts with y, y_bj [B, O], a row
+// has NE = max(D, O) coordinates, coordinate e reading X at x_of(e) and y,
+// y_bj at y_of(e), and both terms sum over all NE of them. Out of line,
+// one row's pointers and sizes by value (Bcast), so that the global
+// kernels' code for D == O stays as it was.
+struct Bcast {
+  const float *h1, *h2, *rb, *r;   // the row's h1, h2 [H]; readout outputs
+                                   // before the residual, y_bj's and y's [O]
+  const float* x;                  // the row's X [D]
+  int D, O, H, ro_case, ro_mult, easy;
+};
+
+__device__ __forceinline__ Bcast bcast_row(const ScanCfg& c, const float* h1,
+                                           const float* h2, const float* ro,
+                                           const float* X, int R, int r) {
+  return Bcast{h1 + r * c.H, h2 + r * c.H, ro + r * c.O, ro + (R + r) * c.O,
+               X + r * c.D, c.D, c.O, c.H, c.ro_case, c.ro_mult, c.easy};
+}
+
+// y_bj and y at coordinate e (residual included), and X's value there
+__device__ __forceinline__ void bcast_at(const Bcast& b, int e, float& yb,
+                                         float& y, float& x) {
+  const int o = b.O == 1 ? 0 : e;
+  yb = residual(b.ro_case, b.ro_mult, b.h1, b.H, o) + b.rb[o];
+  y = residual(b.ro_case, b.ro_mult, b.h2, b.H, o) + b.r[o];
+  x = b.x[b.D == 1 ? 0 : e];
+}
+
+// the row's sums of both terms over its coordinates, in coordinate order
+__device__ __noinline__ float2 bcast_sums(Bcast b) {
+  float e1 = 0.f, e2 = 0.f;
+  for (int e = 0; e < max(b.D, b.O); ++e) {
+    float yb, y, x;
+    bcast_at(b, e, yb, y, x);
+    const float d1 = x - y, d2 = yb - (b.easy ? x : y);
+    e1 += d1 * d1;
+    e2 += d2 * d2;
+  }
+  return make_float2(e1, e2);
+}
+
+// output o's gradients (dy, dyb) from the row's (de1, de2), summed over its
+// coordinates (the broadcast axis)
+__device__ __noinline__ float2 bcast_grads(Bcast b, int o, float de1,
+                                           float de2) {
+  const int NE = max(b.D, b.O);
+  const int e0 = b.O == NE ? o : 0, e1 = b.O == NE ? o + 1 : NE;
+  float dy = 0.f, dyb = 0.f;
+  for (int e = e0; e < e1; ++e) {
+    float yb, y, x;
+    bcast_at(b, e, yb, y, x);
+    float ty = de1 * 2.f * (y - x);
+    const float tyb = de2 * 2.f * (yb - (b.easy ? x : y));
+    if (!b.easy) ty += de2 * 2.f * (y - yb);
+    dy = e == e0 ? ty : dy + ty;
+    dyb = e == e0 ? tyb : dyb + tyb;
+  }
+  return make_float2(dy, dyb);
+}
+
 // the row's two error norms and its loss factor g from the sums e1, e2 of
 // its outputs' error terms
 __device__ __forceinline__ void row_norms(const ScanCfg& c, float e1,
@@ -983,12 +1046,19 @@ __device__ __forceinline__ void row_errors(const ScanCfg& c,
   const float* X = sm + c.o_X;
   const float* M = sm + c.o_M;
   float e1 = 0.f, e2 = 0.f;
-  for (int o = 0; o < c.O; ++o) {
-    float t1, t2;
-    out_errors(c, y_at(c, sm, R, r, o), y_at(c, sm, R, R + r, o),
-               X[r * D + o], c.masked ? M[r * D + o] : 1.f, t1, t2);
-    e1 += t1;
-    e2 += t2;
+  if (c.D == c.O) {
+    for (int o = 0; o < c.O; ++o) {
+      float t1, t2;
+      out_errors(c, y_at(c, sm, R, r, o), y_at(c, sm, R, R + r, o),
+                 X[r * D + o], c.masked ? M[r * D + o] : 1.f, t1, t2);
+      e1 += t1;
+      e2 += t2;
+    }
+  } else {                         // unmasked: the loss broadcast
+    const float2 t = bcast_sums(bcast_row(c, sm + c.o_h1, sm + c.o_h2,
+                                          sm + c.o_ro, X, R, r));
+    e1 = t.x;
+    e2 = t.y;
   }
   row_norms(c, e1, e2, s1, s2, g);
 }
@@ -2325,13 +2395,22 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
     for (int idx = threadIdx.x; idx < R * O; idx += blockDim.x) {
       int r = idx / O, o = idx - r * O;
       float yb = y_at(c, sm, R, r, o), y = y_at(c, sm, R, R + r, o);
-      float x = X[r * D + o];
-      float m = c.masked ? Mm[r * D + o] : 1.f;
-      float de1 = rs[2 * r] * m, de2 = rs[2 * r + 1] * m;
-      float dy = de1 * 2.f * (y - x);
-      float dyb = de2 * 2.f * (yb - (c.easy ? x : y));
-      if (!c.easy) dy += de2 * 2.f * (y - yb);
-      if (c.masked) dy += obs[r] * dlx[r * D + o];
+      float dy, dyb;
+      if (c.D == c.O) {
+        float x = X[r * D + o];
+        float m = c.masked ? Mm[r * D + o] : 1.f;
+        float de1 = rs[2 * r] * m, de2 = rs[2 * r + 1] * m;
+        dy = de1 * 2.f * (y - x);
+        dyb = de2 * 2.f * (yb - (c.easy ? x : y));
+        if (!c.easy) dy += de2 * 2.f * (y - yb);
+        if (c.masked) dy += obs[r] * dlx[r * D + o];
+      } else {                     // summed over the broadcast X
+        const float2 d = bcast_grads(
+            bcast_row(c, sm + c.o_h1, sm + c.o_h2, sm + c.o_ro, X, R, r), o,
+            rs[2 * r], rs[2 * r + 1]);
+        dy = d.x;
+        dyb = d.y;
+      }
       dst[idx] = dyb;
       dst[R * O + idx] = dy;
     }

@@ -45,14 +45,18 @@ plain torch, stage by stage, in the kernels' workspace layout.
 
 Kernel scope (``supported``, as the JAX kernel's): euler or midpoint, the
 minimal or full GRU-ODE field, impute on or off, logvar or abs-var, the
-discretized cell, bias on or off, dropout in both mask modes, and widths
-whose buffers fit one CTA's shared memory at one batch row
-(:meth:`Spec.fits`); wider configs run through the eager forward.
+discretized cell, bias on or off, dropout in both mask modes, at any
+widths: where one row's buffers overflow one CTA's shared memory (p_hidden
+4,000), the kernels keep the widest of them in a slab of device memory
+that each CTA owns (the device-memory form, :meth:`Spec.acts_for`; the
+same bits as the shared form where both fit). dopri5 runs the eager
+forward, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -80,6 +84,13 @@ SMEM_LIMIT = fs.SMEM_LIMIT - CALL_BYTES
 # its three stages); the carry gradients pass from chunk to chunk
 WS_BUDGET = 32 << 20
 WG_TILE = 32                     # stage (c): output tile [32, 32] of a leaf
+# the device-memory form of the activations (csrc/fused_gob.cu SLAB_BIT):
+# a buffer whose offset carries this bit lies in the CTA's slab of device
+# memory; the width classes that go there, fewest first, the widest first
+SLAB_BIT = 1 << 28
+SLAB_ORDER = (("P",), ("P", "DP"), ("P", "DP", "H"),
+              ("P", "DP", "H", "D", "1"))
+ACTS = ("shared", "global")
 
 # launches per kernel; a wrapper adds one where it launches its kernel.
 # K6 counts each of its stages per chunk: 'gob_bwd_remat' (a),
@@ -101,10 +112,11 @@ def reset_launch_counts():
 
 def supported(cfg) -> bool:
     """Whether the CUDA kernels cover the given GOBConfig: the JAX kernel's
-    rule (euler or midpoint; dopri5 runs eagerly) and widths whose buffers
-    fit one CTA's shared memory at one batch row (``Spec.fits(1)``). The
+    rule (euler or midpoint; dopri5 runs eagerly, as in the JAX package),
+    at any widths (those whose buffers of one row overflow one CTA's
+    shared memory in the device-memory form, ``Spec.acts_for``). The
     trainers route a config outside to the eager
-    ``gru_ode_bayes.forward`` (ROADMAP.md Queue 3 F1)."""
+    ``gru_ode_bayes.forward``."""
     return (cfg.solver in ("euler", "midpoint")
             and Spec(cfg).fits(1))
 
@@ -166,6 +178,15 @@ class Spec:
     training batches, 8 at the eval's B = 2,000). It depends only on (cfg,
     B), so K5 and K6's stage (a) take the same R and give the same bits.
 
+    Activations (:meth:`acts_for`): ``acts`` forces 'shared' (every
+    per-row buffer in shared memory) or 'global' (the device-memory form:
+    the buffers of the width classes ``slab_classes`` in a slab of device
+    memory that each CTA owns, one row a CTA; the hook of the card check
+    that holds the two forms bit for bit); otherwise the rule takes
+    'shared' where the chain's buffers of one row fit one CTA's shared
+    memory, else 'global', for every kernel of the config. The bits are the
+    same either way.
+
     Weights in shared memory (:meth:`stage_weights`): ``weights`` forces
     'shared' or 'global' (the hook of the card test that holds the two
     bit for bit, and of ab_scan_kernels.py's A/B); otherwise K5 and the
@@ -183,15 +204,20 @@ class Spec:
     call take the same count, whatever ``weights`` forces."""
 
     def __init__(self, cfg, mask_mode: str = "prng", rows=None,
-                 weights=None):
+                 weights=None, acts=None):
         if mask_mode not in ("input", "prng"):
             raise ValueError(f"unknown mask_mode {mask_mode!r}")
         if rows is not None and rows not in ROW_CHOICES:
             raise ValueError(f"rows must be one of {ROW_CHOICES}")
         if weights not in (None, "shared", "global"):
             raise ValueError(f"unknown weights {weights!r}")
+        if acts not in (None,) + ACTS:
+            raise ValueError(f"unknown acts {acts!r}")
+        if acts == "global" and rows not in (None, 1):
+            raise ValueError("the device-memory form runs one row a CTA")
         self.cfg = cfg
         self.forced_weights = weights
+        self._acts = acts             # forced, or the rule's once known
         self.mask_mode = mask_mode
         self.forced_rows = rows
         self.D, self.H, self.P = cfg.input_size, cfg.hidden_size, \
@@ -430,32 +456,85 @@ class Spec:
         them): one step's three slots, 0 without dropout."""
         return R * 3 * self.nw if self.rate > 0.0 else 0
 
-    def layout(self, R: int):
-        """Float offsets of every shared-memory buffer of one CTA at R rows
-        (the forward buffers from 0, the chain's after its two copies of
-        them), the floats the forward kernels use (K5 and stage (a) take
-        ``mask_words`` more after them) and the chain's total."""
-        off, n = {}, 0
-        for name, _ in _FWD_BUFS:
-            off[name] = n
-            n += (R * self.width(name) + 3) // 4 * 4   # 16-byte aligned
-        n_fwd = n
-        n = 2 * n_fwd
-        for name, _ in _BWD_BUFS:
-            off[name] = n
-            n += (R * self.width(name) + 3) // 4 * 4
-        return off, n_fwd, n
+    def _layout(self, R, slab):
+        """Offsets of every per-row buffer at R rows, the buffers of the
+        width classes ``slab`` in the slab (offsets with ``SLAB_BIT``), the
+        rest in shared memory: the forward buffers first, the chain's after
+        its two copies of them, in each of the two; returns (offsets,
+        shared floats of the forward part and in all, slab floats of the
+        forward part and in all)."""
+        off, n, q = {}, 0, 0
+        for name, w in _FWD_BUFS:
+            size = (R * self.width(name) + 3) // 4 * 4   # 16-byte aligned
+            if w in slab:
+                off[name], q = SLAB_BIT | q, q + size
+            else:
+                off[name], n = n, n + size
+        n_fwd, q_fwd = n, q
+        n, q = 2 * n_fwd, 2 * q_fwd
+        for name, w in _BWD_BUFS:
+            size = (R * self.width(name) + 3) // 4 * 4
+            if w in slab:
+                off[name], q = SLAB_BIT | q, q + size
+            else:
+                off[name], n = n, n + size
+        return off, n_fwd, n, q_fwd, q
 
-    def smem_bytes(self, R: int, bwd: bool = True) -> int:
-        _, n_fwd, total = self.layout(R)
+    def layout(self, R: int, ga: bool = False):
+        """Float offsets of every buffer of one CTA at R rows (the forward
+        buffers from 0, the chain's after its two copies of them), the
+        shared-memory floats the forward kernels use (K5 and stage (a)
+        take ``mask_words`` more after them) and the chain's total. With
+        ``ga`` (the device-memory form) the buffers of ``slab_classes`` lie
+        in the CTA's slab (:meth:`slab_floats`): their offsets carry
+        ``SLAB_BIT``."""
+        return self._layout(R, self.slab_classes if ga else ())[:3]
+
+    def slab_floats(self):
+        """Floats of one CTA's slab in the device-memory form (one row a
+        CTA): the forward part (K5, stage (a)) and the chain's (two copies
+        of it and its own buffers)."""
+        return self._layout(1, self.slab_classes)[3:]
+
+    @functools.cached_property
+    def slab_classes(self):
+        """The width classes the device-memory form keeps in the slab: the
+        fewest of ``SLAB_ORDER`` with which the rest of the chain's buffers
+        of one row fit one CTA's shared memory."""
+        for slab in SLAB_ORDER:
+            _, n_fwd, total, _, _ = self._layout(1, slab)
+            if 4 * max(total, n_fwd + self.mask_words(1)) <= SMEM_LIMIT:
+                return slab
+        return SLAB_ORDER[-1]
+
+    def acts_for(self) -> str:
+        """The activations' form of every kernel of the config (K5, its
+        eval form, K6's stages): the forced one, else 'shared' where the
+        chain's buffers of one row fit one CTA's shared memory, else
+        'global'. One form a config: the eval form takes the training
+        form's, though its forward buffers alone may fit."""
+        if self._acts is None:
+            self._acts = ("shared" if self._smem(1, True, False)
+                          <= SMEM_LIMIT else "global")
+        return self._acts
+
+    def _smem(self, R, bwd, ga):
+        _, n_fwd, total = self.layout(R, ga)
         return 4 * (total if bwd else n_fwd + self.mask_words(R))
 
+    def smem_bytes(self, R: int, bwd: bool = True, acts=None) -> int:
+        """Shared memory of one CTA at R rows in the form ``acts``, by
+        default that of :meth:`acts_for`."""
+        return self._smem(R, bwd, (acts or self.acts_for()) == "global")
+
     def fits(self, R: int, bwd: bool = True) -> bool:
+        if self.acts_for() == "global" and R != 1:
+            return False
         return self.smem_bytes(R, bwd) <= SMEM_LIMIT
 
     def rows_for(self, B: int, bwd: bool = True):
-        """Rows per CTA at batch B (the rule in the class docstring), or
-        None where not even one row fits."""
+        """Rows per CTA at batch B (the rule in the class docstring; one in
+        the device-memory form), or None where not even one row fits."""
         if self.forced_rows is not None:
             return self.forced_rows
         fit = [R for R in ROW_CHOICES if self.fits(R, bwd)]
@@ -487,7 +566,7 @@ class Spec:
 
     def _weights_fit(self, B, bwd, chain):
         R = self.rows_for(B, bwd)
-        _, n_fwd, total = self.layout(R)
+        _, n_fwd, total = self.layout(R, self.acts_for() == "global")
         return 4 * ((total if chain else n_fwd + self.mask_words(R))
                     + (self.n_params + 3) // 4 * 4) <= SMEM_LIMIT
 
@@ -1098,7 +1177,8 @@ class _GobCfg(ctypes.Structure):
         + [(n, ctypes.c_int) for n in ("rows", "fwd_floats", "smem_floats",
                                        "n_ws", "n_save", "n_dlt", "wsm",
                                        "o_w", "threads", "o_mw", "n_mw",
-                                       "nw", "lg_nw")]
+                                       "nw", "lg_nw", "ga", "slab_fwd",
+                                       "slab_floats")]
         + [("leaf_off", ctypes.c_int * (MAX_LEAVES + 1))]
         + [(n, ctypes.c_int * k) for n, k in _SLOTS]
         + [(n, ctypes.c_int * MAX_SAVE) for n in ("save_sm", "save_ws",
@@ -1112,9 +1192,10 @@ def make_cfg(spec: Spec, K: int, B: int, train: bool, bwd: bool = True,
              chain: bool = False):
     """The kernels' configuration for one call (host memory, kept by the
     spec per shape: the callers only read it); its rows per CTA are
-    ``spec.rows_for(B, bwd)``, and K5 (``chain`` False) or the chain
-    stages the weights as ``spec.stage_weights`` says, after the kernel's
-    activations."""
+    ``spec.rows_for(B, bwd)``, its activations in the form of
+    ``spec.acts_for()``, and K5 (``chain`` False) or the chain stages
+    the weights as ``spec.stage_weights`` says, after the kernel's
+    activations in shared memory."""
     key = (K, B, spec.dropping(train), bwd, chain)
     if key not in spec._cfgs:
         spec._cfgs[key] = _make_cfg(spec, K, B, train, bwd, chain)
@@ -1123,7 +1204,8 @@ def make_cfg(spec: Spec, K: int, B: int, train: bool, bwd: bool = True,
 
 def _make_cfg(spec, K, B, train, bwd, chain):
     R = spec.rows_for(B, bwd)
-    off, n_fwd, total = spec.layout(R)
+    ga = spec.acts_for() == "global"
+    off, n_fwd, total = spec.layout(R, ga)
     c = _GobCfg()
     c.K, c.B, c.D, c.H, c.P = K, B, spec.D, spec.H, spec.P
     c.DP, c.prep, c.n_params = spec.DP, spec.prep, spec.n_params
@@ -1147,6 +1229,8 @@ def _make_cfg(spec, K, B, train, bwd, chain):
     c.n_mw, c.nw = spec.mask_words(R), spec.nw
     c.lg_nw = (spec.nw - 1).bit_length()
     c.threads = spec.threads_for(B, bwd)
+    c.ga = int(ga)
+    c.slab_fwd, c.slab_floats = spec.slab_floats() if ga else (0, 0)
     for i, o in enumerate(spec.leaf_off):
         c.leaf_off[i] = o
     for n, idx in spec.slots.items():
@@ -1171,17 +1255,12 @@ def _check_inputs(spec, leaves, arrays, train, u, seed, bwd=True):
             "config outside the GOB kernels' scope (solver "
             f"{spec.cfg.solver!r}: euler and midpoint only; dopri5 runs "
             "the eager models.gru_ode_bayes.forward)")
-    if not spec.fits(1, bwd):
-        raise NotImplementedError(
-            f"GOB widths need {spec.smem_bytes(1, bwd)} bytes of shared "
-            f"memory per CTA even at one row, more than the card's "
-            f"{SMEM_LIMIT} (ROADMAP.md Queue 3 F1: the trainers run such "
-            "configs through the eager models.gru_ode_bayes.forward)")
     times, dts, obs, X, M = arrays
     K, B = obs.shape
     R = spec.rows_for(B, bwd)
-    if not spec.fits(R, bwd):
-        raise ValueError(f"{R} rows per CTA need {spec.smem_bytes(R, bwd)} "
+    if R is None or not spec.fits(R, bwd):
+        raise ValueError(f"{R} rows per CTA ({spec.acts_for()} "
+                         f"activations) need {spec.smem_bytes(R or 1, bwd)} "
                          f"bytes of shared memory, more than {SMEM_LIMIT}")
     for name, t, shp in (("times", times, (K,)), ("dts", dts, (K,)),
                          ("obs", obs, (K, B)), ("X", X, (K, B, spec.D)),
@@ -1235,13 +1314,15 @@ def gob_scan_fwd_cuda(spec, leaves, arrays, h0, m0, v0, train, u=None,
                  torch.empty((K, B, spec.D), device=dev))
     else:
         hists = (None, None, None)
+    slab = (torch.empty((n_cta * cfg.slab_fwd,), device=dev) if cfg.ga
+            else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.gob_scan_fwd(
             ctypes.addressof(cfg), _leaf_ptrs(leaves), _ptr(dts), _ptr(obs),
             _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(h0), _ptr(m0),
             _ptr(v0), _ptr(loss_part), *(_ptr(t) for t in hists),
-            int(want_hists), stream)
+            int(want_hists), _ptr(slab), stream)
     _raise_rc(lib, rc, "gob_scan_fwd")
     LAUNCHES["gob_scan_fwd" if want_hists else "gob_scan_eval"] += 1
     if cfg.mode == 2:
@@ -1280,6 +1361,11 @@ def gob_scan_bwd_cuda(spec, leaves, arrays, train, hists, dloss, u=None,
     dm0 = torch.empty((B, spec.D), device=dev)
     dv0 = torch.empty((B, spec.D), device=dev)
     cfg = make_cfg(spec, K, B, train, chain=True)
+    slab = None
+    if cfg.ga:          # stage (a)'s slabs, then the chain's, in one buffer
+        nb = -(-B // cfg.rows)
+        slab = torch.empty((max(nb * Kc * cfg.slab_fwd,
+                                nb * cfg.slab_floats),), device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.gob_scan_bwd(
@@ -1287,7 +1373,7 @@ def gob_scan_bwd_cuda(spec, leaves, arrays, train, hists, dloss, u=None,
             _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(hh), _ptr(mh),
             _ptr(vh), _ptr(dloss), _ptr(ws), Kc, _ptr(tiles),
             int(tiles.shape[0]), _ptr(jobs), n_split, _ptr(partials),
-            _ptr(dh0), _ptr(dm0), _ptr(dv0), stream)
+            _ptr(dh0), _ptr(dm0), _ptr(dv0), _ptr(slab), stream)
     _raise_rc(lib, rc, "gob_scan_bwd")
     for key in ("gob_bwd_remat", "gob_scan_bwd", "gob_bwd_wgrad"):
         LAUNCHES[key] += n_chunks
@@ -1374,9 +1460,8 @@ def _require_supported(cfg):
     if not supported(cfg):
         raise NotImplementedError(
             "config outside the GOB kernels' scope (solver "
-            f"{cfg.solver!r}: euler and midpoint only; or widths beyond "
-            "one CTA's shared memory, ROADMAP.md Queue 3 F1); use "
-            "models.gru_ode_bayes.forward")
+            f"{cfg.solver!r}: euler and midpoint only, as the JAX kernel's "
+            "rule); use models.gru_ode_bayes.forward")
 
 
 def make_fused_loss_fn(cfg, mask_mode: str = "prng", u_override=None,

@@ -19,12 +19,17 @@ tensors they launch the kernel or raise. ``scan_bwd_plain`` takes its
 gradients from ``torch.autograd`` over a re-run of each step, so it is
 independent of the hand-derived BPTT in the CUDA source.
 
-Kernel scope (``supported``): masked or unmasked (both with
-``output_size == input_size``), the encoder jump or the GRU jump
-(``use_rnn``), euler, standard or easy loss, tanh/relu MLPs of any depth
-up to ``MAX_LIN`` linears, residual cases 0/1/2, ``input_current_t`` on or
-off, with or without bias, fp32, and the activations of at least one batch
-row within the shared memory of one CTA. The masked branch imputes the
+Kernel scope (``supported``): masked (``output_size == input_size``) or
+unmasked (``output_size`` and ``input_size`` equal, or one of them 1: the
+loss is the eager forward's, whose ``M = ones_like(X)`` broadcasts against
+``y [B, O]``, so both terms sum over max(D, O) coordinates and the
+gradient sums back over the broadcast axis; such a config runs in the
+global plan alone), the encoder jump or the GRU jump
+(``use_rnn``), euler, standard or easy loss, tanh/relu MLPs of any depth up
+to ``MAX_LIN`` linears (a cap of the kernels' parameter block: ROADMAP.md
+Queue 2), residual cases 0/1/2, ``input_current_t`` on or off, with or
+without bias, fp32, and the activations of at least one batch row within
+the shared memory of one CTA. The masked branch imputes the
 unobserved coordinates from the pre-jump readout, so its two readouts run
 one after the other (pre-jump, encoder on ``[tanh X_imp, M]``, post-jump)
 instead of as one stacked chain, and ``last_X`` records the post-jump
@@ -98,7 +103,7 @@ CTA_RESERVED = 1024       # shared memory the card reserves for each CTA
 # registers that many CTAs of 256 threads leave (csrc/fused_scan.cu)
 CTAS_PER_SM = 2
 PLANS = ("resident", "global")
-MAX_LIN = 8               # Linear layers per MLP
+MAX_LIN = 16              # Linear layers per MLP
 MAX_LEAVES = 3 * 2 * MAX_LIN + 4      # three MLPs and the GRU's four leaves
 SMEM_LIMIT = 232448       # bytes of shared memory one CTA may use (H100)
 # the global plan's weight ring (csrc/fused_scan.cu): rows a thread sums,
@@ -139,9 +144,10 @@ class Spec:
     'prng' (Philox inside the kernels, keyed by a per-call seed).
     ``plan``: None (the rule: 'resident' where K2's layout fits at some of
     16, 8, 4, 2, 1 rows, ``rows`` the most that fit and each launch at
-    ``rows_for(B)``; else 'global' at the most rows that fit) or a forced
-    ``(name, rows)``, which every launch takes;
-    ``self.plan`` is None when neither plan fits."""
+    ``rows_for(B)``; else 'global' at the most rows that fit; 'global'
+    alone where ``output_size != input_size``) or a forced ``(name,
+    rows)``, which every launch takes; ``self.plan`` is None when neither
+    plan fits."""
 
     def __init__(self, cfg, mask_mode: str = "prng", plan=None):
         if mask_mode not in ("input", "prng"):
@@ -213,15 +219,22 @@ class Spec:
             or self._ring_stage(off["ring"]) >= self._ring_need()[0])
 
     def _choose_plan(self, plan):
+        # the resident kernels compute the loss of D == O alone (their code
+        # stays the loss of the main path's configs); the global plan
+        # broadcasts it where O != D
+        plans = PLANS if self.O == self.D else ("global",)
         if plan is not None:
             name, R = plan
             if name not in PLANS or R not in ROW_CHOICES:
                 raise ValueError(f"unknown plan {plan!r}")
+            if name not in plans:
+                raise ValueError(f"plan {plan!r}: output_size != input_size "
+                                 "runs in the global plan alone")
             if not self.fits(name, R):
                 raise ValueError(f"plan {plan!r} overflows one CTA's shared "
                                  "memory")
             return name, R
-        for name in PLANS:
+        for name in plans:
             for R in ROW_CHOICES:
                 if self.fits(name, R):
                     return name, R
@@ -518,11 +531,15 @@ def supported(cfg) -> bool:
     """Whether the CUDA kernels cover the given NJODEConfig (the shared
     memory of one CTA is counted on the layout of its own branch and of
     the plan that ``Spec`` chooses)."""
+    D, O = cfg.input_size, cfg.output_size
     if not (cfg.solver == "euler"
             and cfg.which_loss in ("standard", "easy")
             and cfg.ode_nn is not None and cfg.readout_nn is not None
             and cfg.enc_nn is not None
-            and cfg.output_size == cfg.input_size
+            # masked: O == D (the JAX rule); unmasked, the loss broadcasts
+            # X [B, D] against y [B, O], so one of them is 1 where they
+            # differ (elsewhere the JAX forward and kernel fail to trace)
+            and (O == D or (not cfg.masked and min(D, O) == 1))
             and getattr(cfg, "compute_dtype", "float32") == "float32"):
         return False
     nets = (cfg.ode_nn, cfg.enc_nn, cfg.readout_nn)
@@ -1489,11 +1506,12 @@ def _require_supported(cfg):
     if not supported(cfg):
         raise NotImplementedError(
             "config outside the fused kernels' scope (output_size != "
-            "input_size: ROADMAP.md Queue 2; a solver other than euler, a "
-            "loss other than standard or easy, an MLP that is missing, "
-            "deeper than MAX_LIN or not tanh/relu, a compute_dtype other "
-            "than float32, or activations of one row beyond one CTA's "
-            "shared memory); use models.njode.forward")
+            "input_size when masked, or with neither of them 1; a solver "
+            "other than euler, a loss other than standard or easy, an MLP "
+            "that is missing, deeper than MAX_LIN linears (ROADMAP.md Queue "
+            "2) or not tanh/relu, a compute_dtype other than float32, or "
+            "activations of one row beyond one CTA's shared memory); use "
+            "models.njode.forward")
 
 
 def t0_state(model, batch, enc_masks=None):

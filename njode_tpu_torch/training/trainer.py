@@ -169,13 +169,13 @@ def _train(
         std_factor = options.get("std_factor", 1)
 
     # ------- oracle & optimal eval loss -------
-    next_cond_exp = sde.make_model(metadata["model_name"],
-                                   metadata).next_cond_exp
+    stockmodel = sde.make_model(metadata["model_name"], metadata)
+    next_cond_exp = stockmodel.next_cond_exp
     val_batch = to_torch(recompute_n_obs(batch_from_paths(
         data_val.stock_paths, data_val.observed_dates, delta_t,
         functions=functions)), device)
-    opt_eval_loss = float(oracle.optimal_loss(next_cond_exp, val_batch,
-                                              weight=0.5))
+    opt_eval_loss = compute_optimal_eval_loss(val_batch, stockmodel,
+                                              delta_t, T)
     initial_print += ("\noptimal eval loss (achieved by true cond exp): "
                       f"{opt_eval_loss:.5f}")
     if "other_model" in options:
@@ -357,8 +357,8 @@ def _train(
                 functions=options.get("func_appl_X"), std_factor=std_factor,
                 model_name=model_name, ylabels=options.get("ylabels"),
                 save_extras=options.get("save_extras", {}))
-        return float(oracle.optimal_loss(next_cond_exp, val_batch,
-                                         weight=weight_for_opt))
+        return compute_optimal_eval_loss(val_batch, stockmodel, delta_t, T,
+                                         weight=weight_for_opt)
 
     # ------- plot-only mode -------
     plot_fmt = options.get("plot_save_format", "pdf")
@@ -563,3 +563,14 @@ def _train(
 def train(*args, **kwargs):
     with profiling.anomaly_detection(bool(kwargs.get("anomaly_detection"))):
         return _train(*args, **kwargs)
+
+
+def compute_optimal_eval_loss(val_batch, stockmodel, delta_t, T,
+                              weight=0.5):
+    """Optimal evaluation loss on a GridBatch (the reference's
+    ``train.py:648-670``): the loss of ``stockmodel``'s true conditional
+    expectation. ``delta_t`` and ``T`` are the reference's arguments; the
+    grid batch carries both. ``weight`` is the loss's weight (the
+    reference's 0.5)."""
+    return float(oracle.optimal_loss(stockmodel.next_cond_exp, val_batch,
+                                     weight=weight))

@@ -14,7 +14,9 @@ a global array filled with NaN before each CTA, and every
 CTA ``block`` threads, one- or two-dimensional).
 Then it drives the C interface with the configuration the wrappers build
 (``fused_gob.make_cfg``, ``Spec.wgrad_program``) on CPU tensors, at
-several rows per CTA and chunk lengths, in both mask modes, and prints
+several rows per CTA and chunk lengths, in both mask modes, in the
+device-memory form of the activations (forced, bit for bit against the
+shared form, and at p_hidden 4,000 where the rule takes it), and prints
 each kernel's distance from its plain version: K5's loss and histories,
 the eval loss, K6's gradients and d(h0, m0, v0), and stage (a)'s and (b)'s
 workspace buffer by buffer against ``gob_scan_bwd_staged_plain``. It finds
@@ -90,6 +92,8 @@ template <class T> inline T __ldg(const T* p) { return *p; }
 inline unsigned __umulhi(unsigned a, unsigned b) {
   return (unsigned)(((unsigned long long)a * b) >> 32); }
 struct uint4 { unsigned x, y, z, w; };
+struct float2 { float x, y; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
   return {a, b, c, d}; }
 typedef int cudaError_t;
@@ -227,16 +231,30 @@ def _setup(kw, D, Hd, B, K, pad, seed=0):
                                  p0[:, D:].contiguous())
 
 
+def _slabs(cfg, B, Kc=1):
+    """The device-memory form's slab buffer of a call (None in the shared
+    form): K5's, or stage (a)'s and the chain's at chunk Kc."""
+    import torch
+
+    if not cfg.ga:
+        return None
+    nb = -(-B // cfg.rows)
+    return torch.full((max(nb * Kc * cfg.slab_fwd, nb * cfg.slab_floats),),
+                      float("nan"))
+
+
 def rehearse(lib, name, kw, D, Hd, B, K, pad, R, mode, chunk=None,
-             weights=None, threads=None):
+             weights=None, threads=None, acts=None, want=False):
     """One configuration through the CPU build against the plain versions;
-    prints one line and returns whether every distance is small."""
+    prints one line and returns whether every distance is small (with
+    ``want``, also the outputs: K5's loss and histories, the eval loss,
+    K6's gradients and d(h0, m0, v0))."""
     import torch
 
     from njode_tpu_torch.ops import fused_gob as fg
 
     cfg, arrays, leaves, (h0, m0, v0) = _setup(kw, D, Hd, B, K, pad)
-    spec = fg.Spec(cfg, mode, rows=R, weights=weights)
+    spec = fg.Spec(cfg, mode, rows=R, weights=weights, acts=acts)
     K, B = arrays[2].shape
     u = seed = None
     if spec.dropping(True):
@@ -252,22 +270,25 @@ def rehearse(lib, name, kw, D, Hd, B, K, pad, R, mode, chunk=None,
     if threads is not None:      # the other CTA width than the rule's
         c.threads = cb.threads = threads
     part = torch.empty(-(-B // R))
+    slab = _slabs(c, B)
     hists = (torch.empty(K, B, spec.H), torch.empty(K, B, spec.D),
              torch.empty(K, B, spec.D))
     assert lib.gob_scan_fwd(ctypes.addressof(c), lp_, _ptr(dts), _ptr(obs),
                             _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(h0),
                             _ptr(m0), _ptr(v0), _ptr(part),
-                            *(_ptr(t) for t in hists), 1, None) == 0
+                            *(_ptr(t) for t in hists), 1, _ptr(slab),
+                            None) == 0
     lp, hp = fg.gob_scan_fwd_plain(spec, leaves, arrays, h0, m0, v0, True,
                                    u, seed)
     e_l = abs(float(part.sum()) - float(lp)) / max(1.0, abs(float(lp)))
     e_h = max(float((a - b).abs().max()) for a, b in zip(hists, hp))
     ce = fg.make_cfg(spec, K, B, False, bwd=False)
     part_e = torch.empty(-(-B // ce.rows))
+    slab = _slabs(ce, B)
     assert lib.gob_scan_fwd(ctypes.addressof(ce), lp_, _ptr(dts), _ptr(obs),
                             _ptr(X), _ptr(M), None, None, _ptr(h0), _ptr(m0),
                             _ptr(v0), _ptr(part_e), None, None, None, 0,
-                            None) == 0
+                            _ptr(slab), None) == 0
     le, _ = fg.gob_scan_fwd_plain(spec, leaves, arrays, h0, m0, v0, False,
                                   want_hists=False)
     e_e = abs(float(part_e.sum()) - float(le)) / max(1.0, abs(float(le)))
@@ -279,12 +300,13 @@ def rehearse(lib, name, kw, D, Hd, B, K, pad, R, mode, chunk=None,
     d0 = (torch.empty(B, spec.H), torch.empty(B, spec.D),
           torch.empty(B, spec.D))
     dloss = torch.tensor([1.3])
+    slab = _slabs(cb, B, Kc)
     assert lib.gob_scan_bwd(ctypes.addressof(cb), lp_, _ptr(dts), _ptr(obs),
                             _ptr(X), _ptr(M), _ptr(u), _ptr(seed),
                             *(_ptr(t) for t in hists), _ptr(dloss), _ptr(ws),
                             Kc, _ptr(tiles), tiles.shape[0], _ptr(jobs),
                             n_split, _ptr(parts), *(_ptr(t) for t in d0),
-                            None) == 0
+                            _ptr(slab), None) == 0
     flat = fg.fs.reduce_partials_plain(parts)
     gk = [flat[a:b].view(s) for a, b, s in
           zip(spec.leaf_off[:-1], spec.leaf_off[1:], spec.leaf_shapes)]
@@ -309,8 +331,11 @@ def rehearse(lib, name, kw, D, Hd, B, K, pad, R, mode, chunk=None,
           and e_d < 1e-4 and not bad)
     print(f"{'ok ' if ok else 'BAD'} {name} R={R} {mode} chunk={Kc} "
           f"weights={'shared' if c.wsm else 'global'} threads={c.threads} "
+          f"acts={'global' if c.ga else 'shared'} "
           f"loss {e_l:.1e} hist {e_h:.1e} eval {e_e:.1e} grad {e_g:.1e} "
           f"d0 {e_d:.1e} workspace {bad or 'ok'}", flush=True)
+    if want:
+        return ok, [part.sum(), *hists, part_e.sum(), *gk, *d0, ws]
     return ok
 
 
@@ -333,23 +358,51 @@ VARIANTS = [
     ("climate_widths", dict(full_gru_ode=True, p_hidden=25, prep_hidden=10,
                             cov_hidden=50, mixing=1e-4, dropout_rate=0.2),
      5, 50, 5, 6, 2),
+    # p_hidden 4,000: one row overflows one CTA's shared memory, so the
+    # rule takes the device-memory form (the P-wide buffers in the slab)
+    ("p4000", dict(impute=True, full_gru_ode=True, p_hidden=4000,
+                   prep_hidden=10, cov_hidden=10, mixing=1e-4,
+                   dropout_rate=0.1), 1, 10, 2, 3, 1),
 ]
+
+
+def rehearse_forms(lib, name, kw, D, Hd, B, K, pad, mode, chunk=None):
+    """The device-memory form forced against the shared form at one row,
+    the weights in device memory in both (K5, the eval form and K6's
+    stages): every output and the workspace bit for bit. Prints one line
+    and returns whether they are equal."""
+    import torch
+
+    outs = [rehearse(lib, name, kw, D, Hd, B, K, pad, 1, mode, chunk,
+                     "global", None, acts, want=True)
+            for acts in ("shared", "global")]
+    n_diff = sum(not torch.equal(a, b) for a, b in zip(outs[0][1],
+                                                      outs[1][1]))
+    ok = outs[0][0] and outs[1][0] and n_diff == 0
+    print(f"{'ok ' if ok else 'BAD'} {name} device-memory form vs shared "
+          f"form: outputs differing {n_diff}", flush=True)
+    return ok
 
 
 def main(names):
     P, I = ctypes.c_void_p, ctypes.c_int
     with tempfile.TemporaryDirectory() as tmp:
         lib = ctypes.CDLL(build(tmp))
-        lib.gob_scan_fwd.argtypes = [P] * 15 + [I, P]
-        lib.gob_scan_bwd.argtypes = [P] * 13 + [I, P, I, P, I] + [P] * 5
+        lib.gob_scan_fwd.argtypes = [P] * 15 + [I, P, P]
+        lib.gob_scan_bwd.argtypes = [P] * 13 + [I, P, I, P, I] + [P] * 6
         ok = True
         for v in VARIANTS:
             if names and v[0] not in names:
+                continue
+            if v[0] == "p4000":          # the rule's device-memory form
+                for mode, chunk in (("prng", None), ("input", 2)):
+                    ok &= rehearse(lib, *v, 1, mode, chunk)
                 continue
             for R, mode, chunk, w, t in ((1, "input", None, "shared", 512),
                                          (2, "prng", 3, "global", 256),
                                          (4, "input", 2, None, None)):
                 ok &= rehearse(lib, *v, R, mode, chunk, w, t)
+            ok &= rehearse_forms(lib, *v, "prng", 3)
     return 0 if ok else 1
 
 

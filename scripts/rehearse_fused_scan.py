@@ -18,7 +18,8 @@ members in one launch) against three solo calls bit for bit; and
 ``philox_keep_plain`` bit for bit. Each variant is one branch of the
 kernels (unmasked or masked, encoder or GRU jump) or one option (no bias,
 relu, easy loss, input_current_t, residual encoder and readout, nets of
-other depths). It finds arithmetic, indexing and barrier faults (a
+other depths, nets of 9 to 16 linears, an output width other than the
+input's). It finds arithmetic, indexing and barrier faults (a
 mismatched barrier hangs), not what nvcc refuses.
 """
 
@@ -121,14 +122,17 @@ def _run(lib, fs, spec, leaves, arrays, h0, u, seed, dloss=1.3):
 
 def rehearse(lib, name, kw, D, R, mode):
     """One variant at R rows in one mask mode against the plain versions,
-    and the global plan at R rows against the resident plan bit for bit;
-    prints one line and returns whether both hold."""
+    and the global plan at R rows against the resident plan bit for bit
+    (an output of another width than the input runs in the global plan
+    alone: there the global plan against the plain versions); prints one
+    line and returns whether both hold."""
     import torch
 
     from njode_tpu_torch.ops import fused_scan as fs
 
     cfg, arrays, leaves, h0 = _setup(dict(kw), D)
-    spec = fs.Spec(cfg, mode, ("resident", R))
+    both = cfg.output_size == cfg.input_size
+    spec = fs.Spec(cfg, mode, ("resident" if both else "global", R))
     u = seed = None
     if spec.rate > 0 and spec.S > 0:
         if mode == "input":
@@ -146,15 +150,17 @@ def rehearse(lib, name, kw, D, R, mode):
     want = [lp, *hp, *gp, dp, l3]
     errs = [float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
             for a, b in zip(got, want)]
-    glob = _run(lib, fs, fs.Spec(cfg, mode, ("global", R)), leaves, arrays,
-                h0, u, seed)
+    glob = got if not both else _run(
+        lib, fs, fs.Spec(cfg, mode, ("global", R)), leaves, arrays, h0, u,
+        seed)
     n_diff = sum(not torch.equal(a, b) for a, b in zip(got, glob))
     ok = max(errs) < 1e-4 and n_diff == 0 and all(
         bool(torch.isfinite(t).all()) for t in got)
     print(f"{'ok ' if ok else 'BAD'} {name} R={R} {mode} "
           f"loss {errs[0]:.1e} hist {max(errs[1:4]):.1e} "
           f"grad {max(errs[4:-2]):.1e} dh0 {errs[-2]:.1e} eval "
-          f"{errs[-1]:.1e} global-vs-resident outputs differing {n_diff}",
+          f"{errs[-1]:.1e} " + (f"global-vs-resident outputs differing "
+                                 f"{n_diff}" if both else "global plan"),
           flush=True)
     return ok
 
@@ -182,6 +188,24 @@ VARIANTS = [
     ("wide37", dict(ode_nn=((37, "tanh"), (6, "tanh")),
                     readout_nn=((33, "tanh"),),
                     enc_nn=((5, "tanh"), (37, "relu"))), 2),
+    # output_size != input_size (unmasked, the global plan): the loss
+    # broadcasts X [B, D] against y [B, O], the gradient sums over the
+    # broadcast axis
+    ("out1_D2", dict(output_size=1), 2),
+    ("out2_D1", dict(output_size=2), 1),
+    ("easy_out1_D3", dict(output_size=1, which_loss="easy",
+                          residual_enc_dec=False), 3),
+    ("rnn_out1_D2", dict(use_rnn=True, output_size=1), 2),
+    ("rnn_out2_D1", dict(use_rnn=True, output_size=2), 1),
+    # nets deeper than 8 linears, up to MAX_LIN (16) in the ODE net
+    ("deep9", dict(ode_nn=((6, "tanh"),) * 8, enc_nn=((5, "relu"),) * 8,
+                   readout_nn=((4, "tanh"),) * 8), 1),
+    ("deep16", dict(ode_nn=((5, "tanh"), (4, "relu")) * 7 + ((6, "tanh"),),
+                    readout_nn=((4, "tanh"),) * 11), 2),
+    ("masked_deep12", dict(masked=True, ode_nn=((5, "tanh"),) * 11,
+                           enc_nn=((4, "tanh"),) * 9), 2),
+    ("rnn_deep10", dict(use_rnn=True, readout_nn=((5, "tanh"),) * 9,
+                        ode_nn=((4, "relu"),) * 9), 2),
 ]
 
 
@@ -307,7 +331,9 @@ def main(names):
                     ok &= rehearse(lib, name, kw, D, R, mode)
             for plan, R, mode in (("resident", 1, "prng"),
                                   ("global", 2, "input")):
-                ok &= rehearse_members(lib, name, kw, D, R, mode, plan)
+                # an output of another width than the input: global alone
+                if plan == "global" or kw.get("output_size", D) == D:
+                    ok &= rehearse_members(lib, name, kw, D, R, mode, plan)
     return 0 if ok else 1
 
 

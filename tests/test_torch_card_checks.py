@@ -80,6 +80,26 @@ def test_chip_smoke_passes_only_on_its_last_line(line, rc, ok):
     assert cc._last_line_ok(rc, "[phase] x=1\n" + line + "\n") is ok
 
 
+_BENCH_LINE = json.dumps({
+    "metric": "train_throughput_paths_per_sec_per_chip", "value": 33105.2,
+    "unit": "paths/sec/chip", "vs_baseline": 165.53,
+    "flops_per_path": 11462400, "device_tflops": 0.254, "mfu_pct": 0.379})
+
+
+@pytest.mark.parametrize("line,rc,ok", [
+    (_BENCH_LINE, 0, True),
+    ('{}', 0, False),
+    ('{"vs_baseline": 0.005}', 0, False),
+    (_BENCH_LINE.replace('"mfu_pct"', '"mfu"'), 0, False),
+    (_BENCH_LINE, 1, False),
+    (_BENCH_LINE.replace("165.53", "19.99"), 0, False),
+    ("no json", 0, False)])
+def test_bench_passes_only_on_the_jax_criterion(line, rc, ok):
+    out = "NVIDIA H100 80GB HBM3, 700.00 W\n" + line + "\n"
+    assert cc._bench_line_ok(rc, out) is ok
+    assert cc.CHECKS["bench"].ok is cc._bench_line_ok
+
+
 def test_commit_stamp_without_git(monkeypatch, tmp_path):
     commit, kind = cc.commit_stamp()
     assert commit and kind

@@ -267,8 +267,8 @@ def test_unsupported_configs_raise():
         with pytest.raises(NotImplementedError):
             fg.make_fused_eval_fn(cfg)
     # the published widths fit one CTA's shared memory at the rows the
-    # rule takes; widths beyond one row raise on the CUDA route instead of
-    # launching
+    # rule takes; widths beyond one row run in the device-memory form; a
+    # solver outside raises on the CUDA route instead of launching
     for hidden in (50, 100):
         _, pub = H.gob_configs(D=1, hidden_size=hidden, p_hidden=hidden,
                                prep_hidden=hidden, cov_hidden=hidden,
@@ -279,28 +279,31 @@ def test_unsupported_configs_raise():
     _, wide = H.gob_configs(D=1, hidden_size=800, p_hidden=800,
                             prep_hidden=800, full_gru_ode=True, impute=True)
     spec = fg.Spec(wide)
-    assert spec.smem_bytes(1) > fg.SMEM_LIMIT
-    assert spec.rows_for(20) is None
-    assert not fg.supported(wide)
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        fg._check_inputs(spec, [], (None,) * 5, False, None, None)
-    with pytest.raises(NotImplementedError, match="Queue 3 F1"):
-        fg.make_fused_loss_fn(wide)
+    assert spec.smem_bytes(1, acts="shared") > fg.SMEM_LIMIT
+    assert spec.acts_for() == "global" and spec.rows_for(20) == 1
+    assert spec.smem_bytes(1) <= fg.SMEM_LIMIT and fg.supported(wide)
+    with pytest.raises(NotImplementedError, match="dopri5"):
+        fg._check_inputs(fg.Spec(auto), [], (None,) * 5, False, None, None)
+    with pytest.raises(NotImplementedError, match="euler and midpoint"):
+        fg.make_fused_loss_fn(auto)
 
 
 def test_too_wide_config_trains_eagerly_on_the_cuda_route(monkeypatch,
                                                           tmp_path):
-    """ROADMAP Queue 3 F1: a GOB config whose buffers overflow one CTA's
-    shared memory even at one row (D = 1, hidden 10, p_hidden 4,000:
-    243,760 B) is outside ``supported``, so the synthetic trainer on a
-    CUDA device (the device check mocked to say CUDA) trains it through the eager
-    ``gru_ode_bayes.forward``: no kernel wrapper and no plain version of
-    one runs. That route's epoch (``make_step_fns(use_kernels=False)``)
-    matches the JAX ``train_epoch`` from the same weights."""
+    """A GOB config outside ``supported``, the adaptive dopri5 (as in the
+    JAX package), at widths whose buffers overflow one CTA's shared memory
+    even at one row (D = 1, hidden 10, p_hidden 4,000: 243,760 B): the
+    synthetic trainer on a CUDA device (the device check mocked to say
+    CUDA) trains it through the eager ``gru_ode_bayes.forward``: no kernel
+    wrapper and no plain version of one runs. That route's epoch
+    (``make_step_fns(use_kernels=False)``) matches the JAX ``train_epoch``
+    from the same weights."""
     kw = dict(D=1, hidden_size=10, p_hidden=4000, prep_hidden=10,
-              cov_hidden=10, full_gru_ode=True, impute=True, mixing=1e-4)
+              cov_hidden=10, full_gru_ode=True, impute=False, mixing=1e-4,
+              solver="dopri5")
     jcfg, tcfg = H.gob_configs(**kw)
-    assert fg.Spec(tcfg).smem_bytes(1) == 243760 > fg.SMEM_LIMIT
+    assert fg.Spec(tcfg).smem_bytes(1, acts="shared") == 243760 > \
+        fg.SMEM_LIMIT
     assert not fg.supported(tcfg)
     monkeypatch.setattr(fs, "_is_cuda", lambda t: True)
     monkeypatch.setattr(fg, "_is_cuda", lambda t: True)
@@ -322,8 +325,8 @@ def test_too_wide_config_trains_eagerly_on_the_cuda_route(monkeypatch,
         base_data_path=data, saved_models_path=str(tmp_path / "models"),
         evaluate=True, device="cpu", hidden_size=10,
         other_model="GRU_ODE_Bayes",
-        **{"GRU_ODE_Bayes-impute": True, "GRU_ODE_Bayes-logvar": True,
-           "GRU_ODE_Bayes-p_hidden": 4000,
+        **{"GRU_ODE_Bayes-impute": False, "GRU_ODE_Bayes-logvar": True,
+           "GRU_ODE_Bayes-p_hidden": 4000, "GRU_ODE_Bayes-solver": "dopri5",
            "GRU_ODE_Bayes-mixing": 1e-4}) == 0
     assert fg.LAUNCHES == before
 
@@ -361,8 +364,10 @@ def test_too_wide_config_trains_eagerly_on_the_cuda_route(monkeypatch,
     dict(hidden_size=10, p_hidden=4000, prep_hidden=10, cov_hidden=10)],
     ids=["widths800", "p_hidden4000"])
 def test_too_wide_config_gradients_match_jax(kw):
-    """Configs outside ``supported`` (D = 1, full field, impute, mixing
-    1e-4; every width 800, and the epoch test's above): the eager route's loss and every parameter gradient
+    """Configs whose buffers of one row overflow one CTA's shared memory
+    (D = 1, full field, impute, mixing 1e-4; every width 800, and p_hidden
+    4,000; the kernels run them in the device-memory form): the eager
+    forward's loss and every parameter gradient
     before an optimizer step match ``gru_ode_bayes.forward`` +
     ``jax.grad`` at the GOB gradient tolerance (``gob_grad_tol``). After
     an Adam epoch their parameters are not compared: Adam moves each
@@ -370,8 +375,7 @@ def test_too_wide_config_gradients_match_jax(kw):
     so a near-zero gradient whose sign rounding decides sets it apart."""
     jcfg, tcfg = H.gob_configs(D=1, full_gru_ode=True, impute=True,
                                mixing=1e-4, **kw)
-    assert fg.Spec(tcfg).smem_bytes(1) > fg.SMEM_LIMIT
-    assert not fg.supported(tcfg)
+    assert fg.Spec(tcfg).smem_bytes(1, acts="shared") > fg.SMEM_LIMIT
     params, model = H.gob_twin_models(jcfg, tcfg, seed=3)
     b = H.make_gob_np_batch(seed=4, D=1, B=6, steps=6)
     l_ref, g_ref = jax.value_and_grad(lambda p: jgob.forward(
@@ -435,10 +439,14 @@ def test_config_struct_mirrors_the_cuda_source():
     for name in ("MAX_LEAVES", "MAX_SAVE", "MAX_DLT", "WG_TILE"):
         assert re.search(rf"#define {name} (\d+)", src).group(1) == \
             str(getattr(fg, name)), name
-    switch = re.search(r"#define GOB_ROWS\(R_, CASE\)(.*?)default", src,
+    switch = re.search(r"#define GOB_FORM\(c_, CASE\)(.*?)default", src,
                        re.S).group(1)
     assert tuple(int(r) for r in re.findall(r"case (\d+):", switch)) == \
         fg.ROW_CHOICES
+    # the device-memory form: one instance, at one row
+    assert "CASE(1, true)" in switch
+    assert int(re.search(r"#define SLAB_BIT \(1 << (\d+)\)", src)
+               .group(1)) == fg.SLAB_BIT.bit_length() - 1
     assert ctypes.sizeof(fg._GobCfg) + 8 * fg.MAX_LEAVES <= fg.CALL_BYTES
 
 

@@ -8,9 +8,11 @@ masks (D = 2), the climate arm's unequal widths (D = 5, p_hidden 25,
 prep_hidden 10, impute off) and both mask modes; each at the rows the rule
 takes, and forced to 1, 2, 4 and 8 rows per CTA; K6's stages (remat,
 chain, wgrad) against their plain version ``gob_scan_bwd_staged_plain``
-(the workspace buffer by buffer), chunked and whole; and the two wide
+(the workspace buffer by buffer), chunked and whole; the two wide
 configurations that fit one CTA only at few rows (D = 1 at widths 200,
-D = 41 at widths 50).
+D = 41 at widths 50); and the device-memory form of the activations, bit
+for bit the shared form at one row (the published hidden 50, the
+midpoint and climate variants) and taken by the rule at p_hidden 4,000.
 
 The kernels have no CPU build, so every test here skips without a CUDA
 card. This file imports neither jax nor the JAX package; run it on the card
@@ -134,8 +136,8 @@ def _masks(spec, mode, K, B, dev):
 
 
 def _check_fwd_bwd(dev, cfg, arrays, leaves, h0, m0, v0, mode, rows=None,
-                   weights=None):
-    spec = fg.Spec(cfg, mode, rows=rows, weights=weights)
+                   weights=None, acts=None, chunk=None):
+    spec = fg.Spec(cfg, mode, rows=rows, weights=weights, acts=acts)
     K, B = arrays[2].shape
     u, seed = _masks(spec, mode, K, B, dev)
     lk, hk = fg.gob_scan_fwd_cuda(spec, leaves, arrays, h0, m0, v0, True, u,
@@ -151,9 +153,9 @@ def _check_fwd_bwd(dev, cfg, arrays, leaves, h0, m0, v0, mode, rows=None,
         _close(n, a, p, _tol(p))
     dloss = torch.tensor(1.3, device=dev)
     out = fg.gob_scan_bwd_cuda(spec, leaves, arrays, True, hk, dloss, u,
-                               seed)
+                               seed, chunk)
     out2 = fg.gob_scan_bwd_cuda(spec, leaves, arrays, True, hk, dloss, u,
-                                seed)
+                                seed, chunk)
     ref = fg.gob_scan_bwd_plain(spec, leaves, arrays, True, hk, dloss, u,
                                 seed)
     gk, gk2, gp = out[0], out2[0], ref[0]
@@ -165,7 +167,7 @@ def _check_fwd_bwd(dev, cfg, arrays, leaves, h0, m0, v0, mode, rows=None,
                            ref[1:]):
         assert torch.equal(a, a2), n
         _close(n, a, p, _tol(p))
-    es = fg.Spec(cfg, "input", rows=rows, weights=weights)
+    es = fg.Spec(cfg, "input", rows=rows, weights=weights, acts=acts)
     le = [fg.gob_scan_fwd_cuda(es, leaves, arrays, h0, m0, v0, False,
                                want_hists=False)[0] for _ in range(2)]
     lep, _ = fg.gob_scan_fwd_plain(es, leaves, arrays, h0, m0, v0, False,
@@ -269,8 +271,8 @@ def test_staged_weights_give_the_same_bits(card, variant, mode):
                    weights="global")
 
 
-# the widths a CTA of 8 rows cannot hold, which trained eagerly before
-# (ROADMAP Queue 3 F1): D = 1 at widths 200, D = 41 at widths 50
+# the widths a CTA of 8 rows cannot hold: D = 1 at widths 200, D = 41 at
+# widths 50
 WIDE = [
     ("d1_w200", dict(full_gru_ode=True, impute=True, mixing=1e-4,
                      dropout_rate=0.1), 1, 200, 20, 30, 2),
@@ -413,3 +415,63 @@ def test_wrappers_reject_bad_inputs(card):
     with pytest.raises(NotImplementedError):
         fg.gob_scan_fwd_cuda(fg.Spec(mid), leaves, arrays, h0, m0, v0,
                              False, want_hists=False)
+
+
+# the published hidden 50 (impute, full field, dropout 0.1) and the width
+# of one row beyond one CTA's shared memory (p_hidden 4,000)
+H50 = ("published_h50", dict(full_gru_ode=True, impute=True, mixing=1e-4,
+                             dropout_rate=0.1), 1, 50, 20, 30, 2)
+P4000 = ("p_hidden_4000", dict(full_gru_ode=True, impute=True, p_hidden=4000,
+                               prep_hidden=10, cov_hidden=10, mixing=1e-4,
+                               dropout_rate=0.1), 1, 10, 20, 30, 2)
+
+
+@pytest.mark.parametrize("mode", ["input", "prng"])
+@pytest.mark.parametrize("variant", [H50, VARIANTS[7], VARIANTS[15]],
+                         ids=["published_h50", "mid_full_impute_drop",
+                              "climate"])
+def test_device_memory_form_gives_the_same_bits(card, variant, mode):
+    """K5, its eval form and K6 with the activations' P-wide buffers in
+    each CTA's slab of device memory (``acts='global'``, one row a CTA)
+    give the bits of the shared form at one row, and hold the plain
+    versions."""
+    cfg, _, _, arrays, leaves, (h0, m0, v0) = _setup(variant, card)
+    K, B = arrays[2].shape
+    out = []
+    for acts in ("shared", "global"):
+        spec = fg.Spec(cfg, mode, rows=1, acts=acts)
+        assert spec.acts_for() == acts
+        u, seed = _masks(spec, mode, K, B, card)
+        lk, hk = fg.gob_scan_fwd_cuda(spec, leaves, arrays, h0, m0, v0, True,
+                                      u, seed)
+        g = fg.gob_scan_bwd_cuda(spec, leaves, arrays, True, hk,
+                                 torch.tensor(1.3, device=card), u, seed)
+        le, _ = fg.gob_scan_fwd_cuda(
+            fg.Spec(cfg, "input", rows=1, acts=acts), leaves, arrays, h0,
+            m0, v0, False, want_hists=False)
+        out.append([lk, *hk, *g[0], *g[1:], le])
+    for i, (a, c) in enumerate(zip(*out)):
+        assert torch.equal(a, c), i
+    _check_fwd_bwd(card, cfg, arrays, leaves, h0, m0, v0, mode, rows=1,
+                   acts="global")
+
+
+@pytest.mark.parametrize("mode", ["input", "prng"])
+def test_p_hidden_4000_runs_in_the_device_memory_form(card, mode):
+    """p_hidden 4,000 at hidden 10 (one row's buffers overflow one CTA's
+    shared memory): the rule takes the device-memory form; K5, K6 (in the
+    rule's chunks and in chunks of 7 steps, the carry gradients passed
+    between them) and the eval form hold the plain versions, twice bit for
+    bit; FusedGOBLoss moves the launch counters."""
+    cfg, model, batch, arrays, leaves, (h0, m0, v0) = _setup(P4000, card)
+    spec = fg.Spec(cfg)
+    assert spec.acts_for() == "global" and spec.rows_for(20) == 1
+    _check_fwd_bwd(card, cfg, arrays, leaves, h0, m0, v0, mode)
+    _check_fwd_bwd(card, cfg, arrays, leaves, h0, m0, v0, mode, chunk=7)
+    before = dict(fg.LAUNCHES)
+    loss = fg.make_fused_loss_fn(cfg, mode)(
+        model, batch, torch.Generator(device=card).manual_seed(0), True)
+    loss.backward()
+    n_chunks = -(-arrays[2].shape[0] // spec.bwd_chunk(*arrays[2].shape))
+    assert fg.LAUNCHES["gob_scan_fwd"] == before["gob_scan_fwd"] + 1
+    assert fg.LAUNCHES["gob_scan_bwd"] == before["gob_scan_bwd"] + n_chunks

@@ -5,7 +5,9 @@ barrier, the warp intrinsics through per-warp buffers), driven through its
 C interface with the wrappers' configuration. K5, its eval form and K6's
 three stages (remat, chain, wgrad; the workspace buffer by buffer) against
 the plain versions at one and two rows a CTA in both mask modes, on the
-variants with dropout (scripts/rehearse_fused_gob.py); stage (b)'s mask
+variants with dropout (scripts/rehearse_fused_gob.py); the device-memory
+form of the activations against the shared form bit for bit and, at
+p_hidden 4,000, against the plain versions; stage (b)'s mask
 source, the saved post-dropout activation, against the formula it
 replaces; and the standalone mask kernel's C call against the plain Philox.
 This finds arithmetic, indexing and barrier faults of the source without a
@@ -49,6 +51,31 @@ def test_cuda_source_matches_plain(cpu_lib, variant, R, mode):
 
     v = next(x for x in rg.VARIANTS if x[0] == variant)
     assert rg.rehearse(cpu_lib, *v, R, mode)
+
+
+def test_device_memory_form_matches_shared_form(cpu_lib):
+    """The device-memory form of the activations forced at one row (the
+    P-wide buffers in each CTA's slab) against the plain versions and, bit
+    for bit, against the shared form: K5, the eval form, K6's gradients,
+    d(h0, m0, v0) and the workspace (the midpoint variant with impute and
+    dropout; the script runs every variant so)."""
+    sys.path.insert(0, SCRIPTS)
+    import rehearse_fused_gob as rg
+
+    v = next(x for x in rg.VARIANTS if x[0] == "mid_full_impute_drop")
+    assert rg.rehearse_forms(cpu_lib, *v, "prng", 3)
+
+
+def test_p_hidden_4000_in_the_device_memory_form(cpu_lib):
+    """p_hidden 4,000 (one row overflows one CTA's shared memory): the rule
+    takes the device-memory form, and K5, the eval form and K6 in chunks of
+    two steps (the carries passed between them) match the plain
+    versions."""
+    sys.path.insert(0, SCRIPTS)
+    import rehearse_fused_gob as rg
+
+    v = next(x for x in rg.VARIANTS if x[0] == "p4000")
+    assert rg.rehearse(cpu_lib, *v, 1, "input", 2)
 
 
 def test_stage_b_mask_source_is_the_formula_it_replaces():

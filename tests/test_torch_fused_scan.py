@@ -230,25 +230,35 @@ def test_cuda_route_raises_instead_of_falling_back(monkeypatch):
 
 
 def test_unsupported_configs_raise():
-    """A config whose output differs from its input (masked or not, with
-    or without the GRU jump) and an MLP deeper than ``MAX_LIN`` linears are
-    outside the kernels; a masked config with ``output_size ==
-    input_size`` and the GRU jump, masked or not, are inside."""
+    """The refusals the JAX rule makes: a masked config whose output
+    differs from its input (with or without the GRU jump) and a bf16
+    config; and the port's own: an unmasked output differing from its input
+    with neither of them 1 (the JAX forward cannot broadcast its loss
+    there), and an MLP deeper than ``MAX_LIN`` linears (ROADMAP.md Queue
+    2). Inside: a masked config with ``output_size == input_size``, the GRU
+    jump masked or not, an unmasked output of 1 at input 2 (and of 2 at
+    input 1), with the encoder or the GRU jump, and nets of 9 to
+    ``MAX_LIN`` linears."""
     deep = ((8, "tanh"),) * fs.MAX_LIN
-    for kw in (dict(masked=True, output_size=1),
-               dict(use_rnn=True, output_size=1),
-               dict(use_rnn=True, masked=True, output_size=1),
-               dict(use_rnn=True, ode_nn=deep)):
-        _, tcfg = H.configs(2, 10, **kw)
+    for D, kw in ((2, dict(masked=True, output_size=1)),
+                  (2, dict(use_rnn=True, masked=True, output_size=1)),
+                  (2, dict(compute_dtype="bfloat16")),
+                  (2, dict(output_size=3)),
+                  (2, dict(use_rnn=True, ode_nn=deep))):
+        _, tcfg = H.configs(D, 10, **kw)
         assert not fs.supported(tcfg)
         with pytest.raises(NotImplementedError):
             fs.make_fused_loss_fn(tcfg)
         with pytest.raises(NotImplementedError):
             fs.make_fused_eval_fn(tcfg)
-    for kw in (dict(masked=True), dict(use_rnn=True),
-               dict(use_rnn=True, masked=True),
-               dict(use_rnn=True, bias=False)):
-        _, tcfg = H.configs(2, 10, **kw)
+    for D, kw in ((2, dict(masked=True)), (2, dict(use_rnn=True)),
+                  (2, dict(use_rnn=True, masked=True)),
+                  (2, dict(use_rnn=True, bias=False)),
+                  (2, dict(use_rnn=True, output_size=1)),
+                  (2, dict(output_size=1)), (1, dict(output_size=2)),
+                  (2, dict(use_rnn=True, ode_nn=deep[1:])),
+                  (1, dict(readout_nn=((50, "tanh"),) * 8))):
+        _, tcfg = H.configs(D, 10, **kw)
         assert fs.supported(tcfg)
         fs.make_fused_loss_fn(tcfg)
         fs.make_fused_eval_fn(tcfg)
@@ -303,6 +313,11 @@ def test_config_struct_mirrors_the_cuda_source():
         str(fs.MAX_LIN)
     assert re.search(r"#define MAX_LEAVES (\d+)", src).group(1) == \
         str(fs.MAX_LEAVES)
+    # K1-K3 take ScanCfg and Leaves by value: at MAX_LIN linears the two
+    # and the kernels' other parameters (at most 32 of 8 bytes) stay within
+    # the 4,096 bytes of a kernel's parameter block
+    assert fs.MAX_LIN >= 16
+    assert ctypes.sizeof(fs._ScanCfg) + 8 * fs.MAX_LEAVES + 32 * 8 <= 4096
     # the GRU's leaf offsets and regions follow the layout fields
     names = [f[0] for f in fs._ScanCfg._fields_]
     assert {"use_rnn", "gru_wih", "gru_whh", "gru_bih", "gru_bhh", "o_gru",

@@ -1,8 +1,9 @@
 """The CUDA kernels of ops/csrc/fused_scan.cu against their plain versions,
 on the card, over the configurations ``supported`` admits beyond the main
-path: easy loss, ``input_current_t``, relu, deeper and narrower MLPs,
-residual cases 0 and 2, no bias, a batch that is no multiple of the rows
-per CTA, and ``dt==0`` padding steps; and the masked branch (the climate
+path: easy loss, ``input_current_t``, relu, deeper and narrower MLPs
+(up to ``MAX_LIN`` = 16 linears), an unmasked output of another width than
+the input, residual cases 0 and 2, no bias, a batch that is no multiple of
+the rows per CTA, and ``dt==0`` padding steps; and the masked branch (the climate
 model family): the masked cases of tests/test_fused_scan.py with partial
 coordinate masks, ragged batches, trailing ``dt==0`` padding, a leading
 ``dt==0`` step that carries t=0 observations, the climate widths, and one
@@ -63,6 +64,15 @@ VARIANTS = [
         enc_nn=((50, "tanh"), (50, "tanh")))),
     ("rnn_nobias_easy_ict_padding", 2, 10, 37, 20, 3, dict(
         use_rnn=True, bias=False, which_loss="easy", input_current_t=True)),
+    # the full scope: an unmasked output of another width than the input
+    # (the global plan), and nets of 9 and 16 linears
+    ("out1_D2", 2, 10, 40, 25, 0, dict(output_size=1)),
+    ("out2_D1_rnn", 1, 10, 37, 20, 0, dict(output_size=2, use_rnn=True)),
+    ("easy_out1_D3", 3, 12, 29, 20, 2, dict(output_size=1,
+                                            which_loss="easy")),
+    ("deep9", 1, 10, 48, 20, 0, dict(ode_nn=((24, "tanh"),) * 8)),
+    ("deep16", 2, 10, 33, 20, 2, dict(ode_nn=((12, "tanh"),) * 15,
+                                      readout_nn=((10, "relu"),) * 11)),
 ]
 
 
@@ -443,12 +453,16 @@ def test_global_plan_matches_plain(card, variant, mode, plan):
     """K1, K2 and K3 in the global plan against the plain versions, in both
     mask modes, each kernel twice bit for bit; at one R the global plan
     sums in the resident plan's order, so every output is the same bits
-    as the resident plan's forced at the same rows (at 1, the rule's)."""
+    as the resident plan's forced at the same rows (at 1, the rule's). An
+    output of another width than the input has the global plan alone."""
     cfg, arrays, leaves, h0 = _case(variant, card)
     spec = fs.Spec(cfg)
-    assert spec.plan == "resident"
+    both = cfg.output_size == cfg.input_size
+    assert spec.plan == ("resident" if both else "global")
     tol = dict(loss=LOSS_TOL, hist=GRAD_TOL, grad=GRAD_TOL)
     got = _check_masked(card, cfg, arrays, leaves, h0, mode, tol, plan)
+    if not both:
+        return
     ref = _check_masked(card, cfg, arrays, leaves, h0, mode, tol,
                         ("resident", plan[1]))
     for i, (a, b) in enumerate(zip(got["bits"], ref["bits"])):
