@@ -1,13 +1,17 @@
 """A/B timing of the NJODE scan kernels (K1-K3) and reduce_partials of one
 checkout on one CUDA card, to compare two versions within one machine.
 
-    python3 ab_scan_kernels.py ROOT TAG [witness|gob|phases|masks|main|scope]
+    python3 ab_scan_kernels.py ROOT TAG [MODE]
+
+MODE: witness, gob, phases, masks, main, scope or build (none: the
+timings below).
 
 ROOT is a checkout holding ``njode_tpu_torch/`` and ``chip_smoke.py`` (e.g.
 the parent commit unpacked with ``git archive`` into a git-ignored
 directory); TAG names it in the output. Run the versions alternately in one
 call (parent, change, change, parent). Prints the build time, ptxas's
-register and spill lines, then one line of CUDA-event ms:
+register and spill lines, the bytes of K1/K2's parameter block
+(``param_bytes``), then one line of CUDA-event ms:
 
 - the resident plan, each arm at the checkout's own rows rule and forced
   at 16 rows (suffix ``r16``): the main path's K1/K2/K3 ('prng', K = 100)
@@ -70,10 +74,16 @@ masked batch), the member K1/K2 (E = 5, B = 100, through the checkout's
 ``chip_smoke._member_times``), and where the checkout's ``supported``
 takes it, an unmasked output of another width than the input
 (HestonWOFeller return_vol shapes, D = 2, O = 1, B = 100) in the plan its
-rule picks.
+rule picks, and the main path's model with a 16-linear ODE net (B = 100,
+the global plan); then a line of digests of each arm's outputs.
 
 With ``scope`` it runs the checkout's ``chip_smoke.phase_scope`` alone
 (its checks, launch counts and times; a checkout that has it).
+
+With ``build`` it builds ``fused_scan.cu`` and prints nvcc's seconds
+(``build_s``) and the parameter block's bytes, nothing else: run it for
+two checkouts side by side (two processes started together) to compare
+their builds on one machine.
 
 With ``witness`` it runs ``draw_witness`` instead of the timings: K1 of
 the PhysioNet 200 arm on masks drawn as chip_smoke.py drew them, one line
@@ -429,12 +439,19 @@ def mask_costs(cs, fs, dev, tag, masked_batch):
 
 
 def main_arms(cs, fs, dev, tag, masked_batch):
-    """The ``main`` mode's timings (module docstring), one line."""
+    """The ``main`` mode's timings (module docstring), one line, then a
+    line of digests of each arm's outputs (K1's loss and histories, K2's
+    gradients and dh0, K3's loss): equal digests in two checkouts, equal
+    bits."""
     import torch
 
     one = torch.ones((), device=dev)
     seed = torch.tensor([7], dtype=torch.int64, device=dev)
-    out = {}
+    out, digests = {}, {}
+
+    def digest(ts):
+        return hashlib.sha1(b"".join(
+            t.detach().cpu().numpy().tobytes() for t in ts)).hexdigest()[:16]
 
     def time_three(cfg, model, batch, name, reps, plan=None):
         spec = fs.Spec(cfg, "prng", plan)
@@ -443,8 +460,13 @@ def main_arms(cs, fs, dev, tag, masked_batch):
         arrays = fs.batch_arrays(batch)
         with torch.no_grad():
             h0 = fs.t0_state(model, batch)
-        _, hists = fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, True,
-                                    None, seed)
+        loss, hists = fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, True,
+                                       None, seed)
+        grads, dh0 = fs.scan_bwd_cuda(spec, leaves, arrays, 0.5, True, hists,
+                                      one, None, seed)
+        l3, _ = fs.scan_fwd_cuda(spec3, leaves, arrays, 0.5, h0, False,
+                                 want_hists=False)
+        digests[name[1:]] = digest([loss, *hists, *grads, dh0, l3])
         out["K1" + name] = cs.cuda_ms(lambda: fs.scan_fwd_cuda(
             spec, leaves, arrays, 0.5, h0, True, None, seed), reps, 2)
         out["K2" + name] = cs.cuda_ms(lambda: fs.scan_bwd_cuda(
@@ -476,7 +498,26 @@ def main_arms(cs, fs, dev, tag, masked_batch):
         cfg = None
     if cfg is not None and fs.supported(cfg):
         time_three(cfg, model, batch, f"_out1_{fs.Spec(cfg).plan}", 20)
+    # the scope phase's 16-linear ODE net (width 50, the global plan)
+    cfg, model, batch = cs.main_path_setup(
+        100, 100, 16, dev, ode_nn=((50, "tanh"),) * 15)
+    time_three(cfg, model, batch, "_deep16", 5)
     print(tag, " ".join(f"{k}={v:.4f}" for k, v in out.items()), flush=True)
+    print(tag, "digests", " ".join(f"{k}={v}" for k, v in digests.items()),
+          flush=True)
+
+
+def param_bytes(fs):
+    """Bytes of K1/K2's parameter block in the checkout ``fs`` comes from:
+    its own count, or (a checkout whose kernels take their per-leaf
+    pointers by value) ScanCfg, the ``MAX_LEAVES`` pointers at 8-byte
+    alignment and the 16 other pointers."""
+    import ctypes
+
+    if hasattr(fs, "param_bytes"):
+        return fs.param_bytes()
+    return (-(-ctypes.sizeof(fs._ScanCfg) // 8) * 8 + 8 * fs.MAX_LEAVES
+            + 8 * 16)
 
 
 def main(root, tag, what="timing"):
@@ -503,6 +544,9 @@ def main(root, tag, what="timing"):
     for ln in _build.build_log[key]["ptxas"].splitlines():
         if "registers" in ln or "spill" in ln or "Compiling" in ln:
             print(tag, ln.strip())
+    print(tag, "param_bytes", param_bytes(fs), flush=True)
+    if what == "build":
+        return
     dev = torch.device("cuda")
     if what == "witness":
         draw_witness(cs, fs, dev, tag)

@@ -101,16 +101,18 @@ before phase 3:
               batch of epoch 1, B = 100, K = 2,004 grid steps): the masked
               branch of K1, K2 and K3 against their plain versions at the
               climate widths (D 5, hidden 10, three 2x50 tanh MLPs, dropout
-              0.1) over the first 100 steps in both mask modes and over all
-              2,004 steps in 'prng' mode, and K5/K6 at the GRU-ODE-Bayes
-              climate arm (D 5, hidden 50, p_hidden 25, prep_hidden 10,
-              cov_hidden 50, full field, impute off, logvar, mixing 1e-4,
-              dropout 0.2) over the first 100 steps in both mask modes and
-              over all 2,004 steps in 'prng' mode (the trainer's shape);
+              0.1) over the first 100 steps in both mask modes and over the
+              first 501 of the 2,004 steps in 'prng' mode, and K5/K6 at
+              the GRU-ODE-Bayes climate arm (D 5, hidden 50, p_hidden 25,
+              prep_hidden 10, cov_hidden 50, full field, impute off,
+              logvar, mixing 1e-4, dropout 0.2) over the first 100 steps
+              in both mask modes and over the first 501 in 'prng' mode;
               each kernel run twice and compared bit for bit;
 15. climate_timing - CUDA-event times and bounds of the masked K1/K2/K3
-              and of K5/K6 at the climate arms, B = 100, K = 2,004, and the
-              masks' cost inside K1/K2 and K5/K6 there (``mask_cost``);
+              and of K5/K6 at the climate arms, B = 100, over all K = 2,004
+              steps (the trainer's shape) and over the first 501 (beside
+              the plain versions' times there), and the masks' cost inside
+              K1/K2 and K5/K6 at K = 2,004 (``mask_cost``);
 16. climate_trainer - climate_trainer.train on the stand-in, fold 0, one
               epoch of batch 100, the NJODE small arm and then the
               GRU-ODE-Bayes arm; losses and eval_metric finite, and the
@@ -284,10 +286,13 @@ before phase 3:
               an eval and a step, sharded and not, beside nvcc. Two ranks
               on one card measure no speed;
 32. scope    - (after width_scaling) the kernels' full scope: the main
-              path's model with a 9- and a 16-linear ODE net, one trainer
-              epoch each (1,000 paths, B = 100) with exact launch counts,
+              path's model with an ODE net of 9, 16, 33 and 65 linears
+              (width 50), one trainer epoch each (1,000 paths, B = 100)
+              with exact launch counts, and of 101 linears (width 10; the
+              resident plan), one training step and one eval through the
+              fused loss and eval functions with exact launch counts;
               then K1-K3 against their plain versions (each twice bit for
-              bit; the 16-linear one timed); an unmasked output of another
+              bit), every arm timed; an unmasked output of another
               width than the input (HestonWOFeller return_vol, D = 2, with
               O = 1; BlackScholes, D = 1, with O = 2; the encoder and the
               GRU jump; the global plan, the only one such a config has,
@@ -313,9 +318,10 @@ atol of 2e-5 scaled by the largest |value| (at least 1): the GOB loss is a
 sum over observations with 1/var and mixing/s2^2 (up to 5,000) factors, so
 gradients reach the thousands (tests/test_fused_gob.py scales its mesh
 check the same way); in the climate phase each gradient leaf takes the
-atol scaled by its own largest |value|. Over the climate grid's 2,004
-steps the masked kernels are held to ``LONG_TOL`` (see there), and over
-the PhysioNet grid's 3,006 step by step (``STEP_TOL``). The two plans sum
+atol scaled by its own largest |value|. Over the first 501 of the
+climate grid's 2,004 steps the masked kernels are held to ``LONG_TOL``
+(see there), and over the first 501 of the PhysioNet grid's 3,006 step by
+step (``STEP_TOL``). The two plans sum
 in the same order, so at one row count they must agree bit for bit.
 """
 
@@ -373,6 +379,10 @@ SHORT_STEP_TOL = dict(SHORT_TOL, stepwise=True)
 BF16_GRAD_TOL = 1e-4
 CLIMATE_SERIES = 1114      # the published scale of the USHCN file
 CLIMATE_B = 100
+# the climate kernels' long checks against the plain versions over the
+# first quarter of the grid's 2,004 steps, 'prng' mode (all of them until
+# the script's time ran short); their times over all 2,004
+CLIMATE_CHECK_K = 501
 # PhysioNet (experiments/configs.py physionet_comparison): set-a + set-b at
 # n_samples 8,000, quantization 0.016 h, batch 50; the trainer phase's cut
 PHYS_RECORDS = 8000
@@ -2264,33 +2274,28 @@ def _gob_checks(spec, leaves, arrays, st, u, seed, tag, arm="climate"):
 def phase_climate_kernels(results):
     import torch
 
-    from njode_tpu_torch.models import gru_ode_bayes as gob
     from njode_tpu_torch.ops import fused_gob as fg
 
     dev = torch.device("cuda")
     full = results["climate"]["batch"]
     cfg, model = _masked_njode(5, 10, 50, dev)
     gen = torch.Generator(device=dev).manual_seed(3)
-    errs, plain_ms, last = _masked_arm_checks(
+    errs, plain_ms, _ = _masked_arm_checks(
         "climate_kernels", cfg, model, full,
         ((100, ("input", "prng"), SHORT_TOL),
-         (results["climate"]["K"], ("prng",), LONG_TOL)), gen)
-    results["climate"].update(njode=(cfg, *last), plain_ms=plain_ms)
+         (CLIMATE_CHECK_K, ("prng",), LONG_TOL)), gen)
+    results["climate"].update(njode=(cfg, model), plain_ms=plain_ms)
     check_waves("climate_kernels", "climate_small", cfg, CLIMATE_B)
 
     # K5/K6 at the GRU-ODE-Bayes climate arm: the first 100 steps in both
-    # mask modes, all 2,004 in 'prng' mode (the trainer's shape)
+    # mask modes, the first CLIMATE_CHECK_K of the trainer's 2,004 in
+    # 'prng' mode
     gcfg, gmodel = _climate_gob(dev)
     gleaves = [p.detach() for p in fg.flat_leaves(gmodel, fg.Spec(gcfg))]
     gerr = {"K5c": 0.0, "K6c": 0.0}
     for K, modes in ((100, ("input", "prng")),
-                     (results["climate"]["K"], ("prng",))):
-        b = _first_steps(full, K)
-        garrays = (b.times, b.dt, b.obs, b.X, b.M)
-        with torch.no_grad():
-            h0 = gob.mlp2(gmodel.covariates_map, b.start_X, 0.0)
-            p0 = gob.mlp2(gmodel.p_model, h0, 0.0)
-        st = (h0.contiguous(), p0[:, :5].contiguous(), p0[:, 5:].contiguous())
+                     (CLIMATE_CHECK_K, ("prng",))):
+        garrays, st = _climate_gob_inputs(gmodel, full, K)
         for mode in modes:
             spec = fg.Spec(gcfg, mode)
             u = seed = None
@@ -2300,8 +2305,8 @@ def phase_climate_kernels(results):
             else:
                 seed = torch.randint(0, 2 ** 62, (1,), generator=gen,
                                      device=dev, dtype=torch.int64)
-            e, gplain_ms, ghists = _gob_checks(spec, gleaves, garrays, st, u,
-                                               seed, f"K={K} {mode}")
+            e, gplain_ms, _ = _gob_checks(spec, gleaves, garrays, st, u,
+                                          seed, f"K={K} {mode}")
             gerr["K5c"] = max(gerr["K5c"], e["loss"])
             gerr["K6c"] = max(gerr["K6c"], e["grad"], e["d0"])
             say("climate_kernels", model="GOB", K=K, mode=mode,
@@ -2312,8 +2317,23 @@ def phase_climate_kernels(results):
                 K6_grad_tol_used=f"{e['grad_used']:.3e}",
                 K6_d0_err=f"{e['d0']:.3e}", bitwise_repeat=True)
     plain_ms.update(gplain_ms)
-    results["climate"]["gob"] = (gcfg, gleaves, garrays, st, seed, ghists)
+    results["climate"]["gob"] = (gcfg, gmodel, gleaves)
     results["climate_errs"] = dict(errs, **gerr)
+
+
+def _climate_gob_inputs(gmodel, full, K):
+    """The GOB climate arm's batch arrays over the first K steps of
+    ``full`` and its t=0 state (h0, m0, v0)."""
+    import torch
+
+    from njode_tpu_torch.models import gru_ode_bayes as gob
+
+    b = _first_steps(full, K)
+    with torch.no_grad():
+        h0 = gob.mlp2(gmodel.covariates_map, b.start_X, 0.0)
+        p0 = gob.mlp2(gmodel.p_model, h0, 0.0)
+    return ((b.times, b.dt, b.obs, b.X, b.M),
+            (h0.contiguous(), p0[:, :5].contiguous(), p0[:, 5:].contiguous()))
 
 
 def _masked_times(spec, spec3, leaves, arrays, h0, seed, hists, reps):
@@ -2360,43 +2380,63 @@ def phase_climate_timing(results):
     from njode_tpu_torch.ops import fused_scan as fs
 
     cl = results["climate"]
-    cfg, leaves, arrays, h0, seed, hists = cl["njode"]
-    K, B = arrays[2].shape
-    dloss = torch.ones((), device=h0.device)
-    spec = fs.Spec(cfg, "prng")
-    ms = _masked_times(spec, fs.Spec(cfg, "input"), leaves, arrays, h0,
-                       seed, hists, 3)
-    mask_cost_njode("climate_timing", "climate_small", cfg, leaves, arrays,
-                    h0, 2)
-    t = {k + "m": (ms[k], cl["plain_ms"][k + "m"]) for k in ms}
-    bnd = {k + "m": v for k, v in _scan_bounds(spec, K, B).items()}
-
-    gcfg, gleaves, garrays, st, gseed, ghists = cl["gob"]
+    cfg, model = cl["njode"]
+    full = cl["batch"]
+    gcfg, gmodel, gleaves = cl["gob"]
     gspec = fg.Spec(gcfg, "prng")
-    t["K5c"] = (cuda_ms(lambda: fg.gob_scan_fwd_cuda(
-        gspec, gleaves, garrays, *st, True, None, gseed), 2, 1),
-        cl["plain_ms"]["K5c"])
-    gbwd = lambda: fg.gob_scan_bwd_cuda(  # noqa: E731
-        gspec, gleaves, garrays, True, ghists, dloss, None, gseed)
-    t["K6c"] = (cuda_ms(gbwd, 2, 1), cl["plain_ms"]["K6c"])
-    stages = stage_device_ms(gbwd, 2, -(-K // gspec.bwd_chunk(K, B)))
-    say("climate_timing", kernel="K6c_stages", R=gspec.rows_for(B),
-        chunks=-(-K // gspec.bwd_chunk(K, B)),
-        **{f"{n}_device_ms": f"{v:.4f}" for n, v in stages.items()})
-    mask_cost_gob("climate_timing", "climate_gob", gcfg, gleaves, garrays,
-                  st, 2)
-    (f5, b5), (f6, b6) = gob_bounds(gspec, K, B)
-    bnd["K5c"] = bound(f5, b5, PEAK_FP32)
-    bnd["K6c"] = bound(f6, b6, PEAK_FP32)
+    t, bnd = {}, {}
+    # each kernel over all 2,004 steps (the trainer's shape), then over the
+    # steps climate_kernels checked, beside the plain versions' time there
+    # (the kernels line's pair)
+    for K in (cl["K"], CLIMATE_CHECK_K):
+        b = _first_steps(full, K)
+        B = int(b.obs.shape[1])
+        leaves = [p.detach() for p in fs.flat_leaves(model)]
+        arrays = fs.batch_arrays(b)
+        with torch.no_grad():
+            h0 = fs.t0_state(model, b)
+        seed = torch.tensor([20261017], dtype=torch.int64, device=h0.device)
+        spec = fs.Spec(cfg, "prng")
+        _, hists = fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, True,
+                                    None, seed)
+        ms = _masked_times(spec, fs.Spec(cfg, "input"), leaves, arrays, h0,
+                           seed, hists, 3)
+        t.update({k + "m": (ms[k], cl["plain_ms"][k + "m"]) for k in ms})
+        bnd.update({k + "m": v for k, v in _scan_bounds(spec, K, B).items()})
+        garrays, st = _climate_gob_inputs(gmodel, full, K)
+        _, ghists = fg.gob_scan_fwd_cuda(gspec, gleaves, garrays, *st, True,
+                                         None, seed)
+        dloss = torch.ones((), device=h0.device)
+        t["K5c"] = (cuda_ms(lambda: fg.gob_scan_fwd_cuda(
+            gspec, gleaves, garrays, *st, True, None, seed), 2, 1),
+            cl["plain_ms"]["K5c"])
+        gbwd = lambda: fg.gob_scan_bwd_cuda(  # noqa: E731
+            gspec, gleaves, garrays, True, ghists, dloss, None, seed)
+        t["K6c"] = (cuda_ms(gbwd, 2, 1), cl["plain_ms"]["K6c"])
+        (f5, b5), (f6, b6) = gob_bounds(gspec, K, B)
+        bnd["K5c"] = bound(f5, b5, PEAK_FP32)
+        bnd["K6c"] = bound(f6, b6, PEAK_FP32)
+        if K == cl["K"]:
+            mask_cost_njode("climate_timing", "climate_small", cfg, leaves,
+                            arrays, h0, 2)
+            stages = stage_device_ms(gbwd, 2,
+                                     -(-K // gspec.bwd_chunk(K, B)))
+            say("climate_timing", kernel="K6c_stages", R=gspec.rows_for(B),
+                chunks=-(-K // gspec.bwd_chunk(K, B)),
+                **{f"{n}_device_ms": f"{v:.4f}" for n, v in stages.items()})
+            mask_cost_gob("climate_timing", "climate_gob", gcfg, gleaves,
+                          garrays, st, 2)
+        for k in ("K1m", "K2m", "K3m", "K5c", "K6c"):
+            ms, plain = t[k]
+            bms, by = bnd[k]
+            # the plain versions ran over CLIMATE_CHECK_K steps
+            say("climate_timing", kernel=k, B=B, K=K, ms=f"{ms:.4f}",
+                ms_per_step=f"{ms / K:.5f}", bound_ms=f"{bms:.6f}",
+                bound_by=by, roofline_share=f"{bms / ms:.2e}",
+                **({"plain_ms": f"{plain:.4f}"}
+                   if K == CLIMATE_CHECK_K else {}))
     results["times"].update(t)
     results["bounds"].update(bnd)
-    for k in ("K1m", "K2m", "K3m", "K5c", "K6c"):
-        ms, plain = t[k]
-        bms, by = bnd[k]
-        say("climate_timing", kernel=k, B=B, K=K, ms=f"{ms:.4f}",
-            ms_per_step=f"{ms / K:.5f}", plain_ms=f"{plain:.4f}",
-            bound_ms=f"{bms:.6f}", bound_by=by,
-            roofline_share=f"{bms / ms:.2e}")
 
 
 def _climate_run(results, tag, expect, epochs=2, rows_cfg=None, **kw):
@@ -4646,13 +4686,18 @@ def phase_width_scaling(results):
     results["width"] = dict(launches=launches, errs=worst)
 
 
-# the scope phase: the ODE net's linears of E3b's two configs, the paths
-# of its dataset (800 training paths: 8 steps an epoch at B = 100, the rest
-# the eval's), E3a's arms (id, data, output width, GRU jump, plan: None the
-# rule's, the global plan at 16 rows; or the global plan forced to one row,
-# the resident plan's rows at B = 100: such a config has the global plan
-# alone) and E3c's training paths (20 steps an epoch at B = 20)
-SCOPE_DEEP = (9, 16)
+# the scope phase: E3b's arms (the linears of the ODE net and its width;
+# the others keep the main path's 2 x 50, so the deepest arm of width 10
+# runs in the resident plan, the ODE net's 100 hidden phases beside the
+# encoder's two; whether a trainer epoch runs, else the fused loss and
+# eval functions once), the paths of its dataset (800 training paths: 8
+# steps an epoch at B = 100, the rest the eval's), E3a's arms (id, data,
+# output width, GRU jump, plan: None the rule's, the global plan at 16
+# rows; or the global plan forced to one row, the resident plan's rows at
+# B = 100: such a config has the global plan alone) and E3c's training
+# paths (20 steps an epoch at B = 20)
+SCOPE_DEEP = ((9, 50, True), (16, 50, True), (33, 50, True),
+              (65, 50, True), (101, 10, False))
 SCOPE_PATHS = 1000
 SCOPE_OUT = (("hwof_D2_O1", ("HestonWOFeller", HWOF_RV), 1, False, None),
              ("bs_D1_O2", BS, 2, False, ("global", 1)),
@@ -4664,45 +4709,69 @@ SCOPE_P = 4000
 
 
 def _scope_deep(results, tmp, gen, out):
-    """E3b: the main path's model with a 9- and a 16-linear ODE net, one
-    epoch each through ``trainer.train`` with exact launch counts, then
+    """E3b: the main path's model with an ODE net of each of
+    ``SCOPE_DEEP``'s depths (no cap since the layer table): one epoch
+    through ``trainer.train`` with exact launch counts (at 101 linears one
+    training loss and its gradients through ``make_fused_loss_fn`` and an
+    eval loss through ``make_fused_eval_fn``, exact launch counts), then
     K1-K3 at B = 100, K = 100 against their plain versions ('input' mode,
-    each twice bit for bit); the 16-linear one timed."""
+    each twice bit for bit), and every arm timed."""
     import torch
 
     from njode_tpu_torch.ops import fused_scan as fs
 
     dev = torch.device("cuda")
     steps = int(0.8 * SCOPE_PATHS) // 100
-    for n_lin in SCOPE_DEEP:
-        ode = ((50, "tanh"),) * (n_lin - 1)
+    for n_lin, width, epoch in SCOPE_DEEP:
+        arm = f"deep{n_lin}"
+        ode = ((width, "tanh"),) * (n_lin - 1)
         cfg, model, batch = main_path_setup(100, 100, n_lin, dev, ode_nn=ode)
-        g = fs._launch_key(fs.Spec(cfg))
+        spec = fs.Spec(cfg)
+        g = fs._launch_key(spec)
         t0 = time.time()
-        counts = _synthetic_run(tmp, f"scope_deep{n_lin}", epochs=1,
-                                ode_nn=ode)
-        _check_counts("scope", counts, {
-            "njode_scan_fwd" + g: steps, "njode_scan_bwd" + g: steps,
-            "njode_scan_eval" + g: 1, "philox_keep": 2 * steps,
-            "reduce_partials": 2 * steps + 1})
+        if epoch:
+            counts = _synthetic_run(tmp, f"scope_{arm}", epochs=1,
+                                    ode_nn=ode)
+            _check_counts("scope", counts, {
+                "njode_scan_fwd" + g: steps, "njode_scan_bwd" + g: steps,
+                "njode_scan_eval" + g: 1, "philox_keep": 2 * steps,
+                "reduce_partials": 2 * steps + 1})
+        else:
+            fs.reset_launch_counts()
+            loss = fs.make_fused_loss_fn(cfg, "prng")(model, batch, 0.5, gen,
+                                                     True)
+            loss.backward()
+            ev = fs.make_fused_eval_fn(cfg)(model, batch, 0.5)
+            torch.cuda.synchronize()
+            counts = dict(fs.LAUNCHES)
+            _check_counts("scope", counts, {
+                "njode_scan_fwd" + g: 1, "njode_scan_bwd" + g: 1,
+                "njode_scan_eval" + g: 1, "philox_keep": 2,
+                "reduce_partials": 3})
+            grads = [p.grad for p in model.parameters()
+                     if p.grad is not None]
+            if not (torch.isfinite(loss) and torch.isfinite(ev) and all(
+                    torch.isfinite(x).all() for x in grads)):
+                raise AssertionError(f"scope {arm}: non-finite loss or "
+                                     "grads")
+            model.zero_grad(set_to_none=True)
         check_rows("scope", cfg)
-        out["launches"]["deep"].append(counts)
+        out["launches"][arm] = counts
         errs, plain, _ = _masked_arm_checks(
             "scope", cfg, model, batch, ((100, ("input",), SHORT_TOL),), gen,
-            arm=f"deep{n_lin}")
-        for k, v in errs.items():
-            out["errs"]["deep"][k] = max(out["errs"]["deep"][k], v)
-        say("scope", arm=f"deep{n_lin}", plan=fs.Spec(cfg).plan,
-            n_params=fs.Spec(cfg).n_params, seconds=f"{time.time() - t0:.2f}")
-        if n_lin == SCOPE_DEEP[-1]:
-            ms, bd, K, B, spec = _full_grid_times(cfg, model, batch, 3)
-            _say_times("scope", f"deep{n_lin}", spec, ms, bd, K, B)
-            out["times"]["deep"] = {k: (ms[k], plain[k + "m"])
-                                    for k in ("K1", "K2", "K3")}
-            out["bounds"]["deep"] = bd
-            say("scope", arm=f"deep{n_lin}", **{
-                f"{k}_plain_ms": f"{plain[k + 'm']:.4f}"
-                for k in ("K1", "K2", "K3")})
+            arm=arm)
+        out["errs"][arm] = errs
+        ms, bd, K, B, spec = _full_grid_times(cfg, model, batch, 3)
+        _say_times("scope", arm, spec, ms, bd, K, B)
+        out["times"][arm] = {k: (ms[k], plain[k + "m"])
+                             for k in ("K1", "K2", "K3")}
+        out["bounds"][arm] = bd
+        say("scope", arm=arm, width=width, plan=spec.plan,
+            rows=spec.rows_for(100), n_params=spec.n_params,
+            smem_bytes=spec.smem_bytes, table_ints=spec.tab_ints,
+            trainer_epoch=epoch, seconds=f"{time.time() - t0:.2f}",
+            **{f"{k}_plain_ms": f"{plain[k + 'm']:.4f}"
+               for k in ("K1", "K2", "K3")})
 
 
 def _scope_out(results, gen, out):
@@ -4882,7 +4951,7 @@ def _scope_gob(results, tmp, gen, out):
 
 
 def phase_scope(results):
-    """The kernels' full scope: E3b (MLPs of 9 and 16 linears), E3a (an
+    """The kernels' full scope: E3b (MLPs of 9 to 101 linears), E3a (an
     unmasked output of another width than the input) and E3c (GOB in the
     device-memory form at p_hidden 4,000); each through the entry points a
     user calls with exact launch counts, its kernels against their plain
@@ -4893,8 +4962,8 @@ def phase_scope(results):
 
     gen = torch.Generator(device="cuda").manual_seed(16)
     zero = {"K1m": 0.0, "K2m": 0.0, "K3m": 0.0}
-    out = {"launches": {"deep": [], "out": []}, "times": {}, "bounds": {},
-           "errs": {"deep": dict(zero), "out": dict(zero)}}
+    out = {"launches": {"out": []}, "times": {}, "bounds": {},
+           "errs": {"out": dict(zero)}}
     tmp = tempfile.mkdtemp(prefix="njode_smoke_scope_")
     try:
         hp = dict(datasets.hyperparam_default, nb_paths=SCOPE_PATHS,
@@ -5274,26 +5343,25 @@ def kernels_line(results):
     # the full scope (the scope phase): K1-K3 with an unmasked output of
     # another width than the input (E3a: the fused loss and eval functions'
     # launches, the global plan at 16 rows and at one, both jumps; timed at
-    # HestonWOFeller return_vol, D = 2, O = 1) and with a 16-linear ODE net (E3b: the trainer's
-    # launches at 9 and 16 linears, the global plan), and K5, its eval form
-    # and K6 in the device-memory form (E3c: p_hidden 4,000, the trainer's
-    # launches; K6 whole and its stages (a) and (b))
+    # HestonWOFeller return_vol, D = 2, O = 1) and with an ODE net of 9 to
+    # 101 linears (E3b: each arm's own row, its trainer epoch's launches,
+    # or at 101 linears the fused loss and eval functions'), and K5, its
+    # eval form and K6 in the device-memory form (E3c: p_hidden 4,000, the
+    # trainer's launches; K6 whole and its stages (a) and (b))
     sc = results["scope"]
-    for part, names in (("out", ("njode_scan_fwd_out", "njode_scan_bwd_out",
-                                 "njode_scan_eval_out")),
-                        ("deep", ("njode_scan_fwd_deep",
-                                  "njode_scan_bwd_deep",
-                                  "njode_scan_eval_deep"))):
-        for name, key, replaces in zip(names, ("K1", "K2", "K3"), (
-                "njode_tpu/ops/fused_scan.py:1145",
-                "njode_tpu/ops/fused_scan.py:1195",
-                "njode_tpu/ops/fused_scan.py:1318")):
-            base = name.rsplit("_", 1)[0]
+    parts = [("out", sc["launches"]["out"])] + [
+        (f"deep{n}", [sc["launches"][f"deep{n}"]]) for n, _, _ in SCOPE_DEEP]
+    for part, counts in parts:
+        for base, key, replaces in zip(
+                ("njode_scan_fwd", "njode_scan_bwd", "njode_scan_eval"),
+                ("K1", "K2", "K3"), ("njode_tpu/ops/fused_scan.py:1145",
+                                     "njode_tpu/ops/fused_scan.py:1195",
+                                     "njode_tpu/ops/fused_scan.py:1318")):
             ms, plain = sc["times"][part][key]
             bms, by = sc["bounds"][part][key]
-            out.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces,
-                        "launches": sum(v for c in sc["launches"][part]
+            out.append({"name": f"{base}_{part}", "route": "cuda",
+                        "source": src, "replaces": replaces,
+                        "launches": sum(v for c in counts
                                         for k, v in c.items()
                                         if k.startswith(base)
                                         and "members" not in k),
@@ -5374,10 +5442,13 @@ def main():
         nvcc_thread.join()
         if "error" in build:
             raise build["error"]
+        from njode_tpu_torch.ops import fused_scan as fs
         for name in libs:
             _build.load(name)
             log = _build.build_log[name]
-            say("build", lib=name, nvcc_s=f"{log['seconds']:.2f}")
+            say("build", lib=name, nvcc_s=f"{log['seconds']:.2f}",
+                **({"param_bytes": fs.param_bytes()}
+                   if name == "fused_scan" else {}))
             for ln in log["ptxas"].splitlines():
                 if "registers" in ln or "spill" in ln or "Compiling" in ln:
                     print("[build] " + ln.strip(), flush=True)

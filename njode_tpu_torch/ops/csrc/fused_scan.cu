@@ -127,6 +127,19 @@
 // mlp_bwd, gru_fwd and gru_bwd), they built in 28 s but ran 35-47 %
 // slower on the card (PERF.md).
 //
+// The layer table. Each net's layers (widths, activation, offsets of
+// their weights and biases and of their saved activations) and the
+// leaves' offsets and addresses live in one small device buffer the host
+// builds once per config and leaf addresses (LayerRec), not in the
+// kernels' parameter block, which holds ScanCfg (a net: its depth, first
+// record, input width, first dropout slot and save offset) and pointers
+// alone: 544 bytes. Each CTA copies the records into shared memory at
+// entry (region lay), where every phase reads them, so a net's depth has
+// no cap but the shared memory of its activations, mask words and
+// records, which the host's plan counts. A hidden layer's save offset is
+// the host's prefix sum of the widths below it, so no loop over the
+// earlier layers runs per call.
+//
 // reduce_partials. The scan kernels' C entries enqueue it themselves on
 // the same stream right after K1/K3 (the loss, [n_cta, 1]) and K2 (the
 // gradients): one launch more on the device, no Python call and no second
@@ -145,21 +158,35 @@
 #define MAX_ROWS 16            // batch rows per CTA: c.rows in 1..MAX_ROWS
 #define RB 4                   // rows a thread sums in the global plan
 #define NTHREADS 256
-#define MAX_LIN 16
-#define MAX_LEAVES 100         // three MLPs of MAX_LIN layers, the GRU's 4
+#define LAYER_INTS 8           // ints of a layer's record (LayerRec)
 #define MAXI 4                 // global plan: items a thread keeps over tiles
 #define GB 16                  // global plan: gradient loads issued ahead
 #define TILE_INTS 8            // ints of a tile descriptor (tile_program)
 #define CTAS_PER_SM 2          // resident kernels: CTAs an SM holds at most
 #define DWB 4                  // resident K2: weight gradients a thread overlaps
 
+// One Linear layer of an MLP: a record of the layer table (above; built
+// by ops/fused_scan.py layer_table): the nets' records one after another
+// (the masked branch's post-jump readout shares the readout's), then the
+// leaves' offsets in the flat parameters (n_leaves + 1 ints, at
+// c.tab_leaves) and their device addresses (at c.tab_ptrs, 8-byte
+// aligned).
+struct LayerRec {
+  int w_in, w_out;           // the layer's input and output widths
+  int act;                   // a hidden layer's activation: 0 tanh, 1 relu
+  int w_off;                 // weight [out, in] offset in the flat params
+  int b_off;                 // bias offset, -1 without bias
+  int pw_off;                // the weight's offset in the packed buffer
+  int save;                  // the widths of the hidden layers below it,
+                             // summed: its saved pair at save_off + 2 *
+                             // rows * save
+  int pad;
+};
+
 struct MLPDesc {
   int n_lin;                 // Linear layers (hidden layers + 1)
-  int w[MAX_LIN + 1];        // width chain: in, hidden..., out
-  int act[MAX_LIN];          // per hidden layer: 0 tanh, 1 relu
-  int w_off[MAX_LIN];        // weight [out, in] offset in the flat params
-  int b_off[MAX_LIN];        // bias offset, -1 without bias
-  int pw_off[MAX_LIN];       // the weight's offset in the packed buffer
+  int w_in;                  // the net's input width
+  int lay;                   // its first layer's record in the table
   int slot0;                 // dropout slot of hidden layer 0
   int save_off;              // smem offset of the saved pre-acts / acts
 };
@@ -177,7 +204,9 @@ struct ScanCfg {
   int io_stride;               // resident plan: floats between the io sets
   int wg_stride;               // global plan: floats of one member's packed
                                // weights (a member-axis launch)
-  int leaf_off[MAX_LEAVES + 1];
+  int n_rec, tab_leaves, tab_ptrs;   // the layer table: records, and the
+                                     // ints before its leaf offsets and
+                                     // before its leaf addresses
   int o_w, o_g, o_h, o_lx, o_tau, o_X, o_obs, o_nobs, o_lrow, o_h1, o_h2;
   int o_in_ode, o_tX, o_in_ro, o_f, o_enc, o_ro, o_dA, o_dB, o_dh, o_dlx;
   int o_dtau, o_rs, o_dst, o_dh1, o_dhe, o_df, o_dlxc, o_dtauc, o_M, o_Xi;
@@ -186,6 +215,7 @@ struct ScanCfg {
   int o_tdt, o_le;             // resident plan: the io set's t and dt, the
                                // loss's error terms
   int o_mw;                    // the mask words (two sets resident, one global)
+  int o_lay;                   // the layer records (LayerRec)
   int nw, lg_nw;               // mask words of a row and slot, ceil(Wmax /
                                // 32), and log2 of the power of two >= nw
   int skip0, skip1;            // slots a step does not use (the encoder's
@@ -193,7 +223,12 @@ struct ScanCfg {
   MLPDesc ode, enc, ro, ro2;   // ro2: the masked branch's post-jump pass
 };
 
-struct Leaves { const float* p[MAX_LEAVES]; };
+// layer l of net m: its record in the CTA's copy of the table
+__device__ __forceinline__ const LayerRec& layer(const ScanCfg& c,
+                                                 const float* sm,
+                                                 const MLPDesc& m, int l) {
+  return reinterpret_cast<const LayerRec*>(sm + c.o_lay)[m.lay + l];
+}
 
 struct MaskCtx {
   int mode;                  // 0 none, 1 input masks, 2 philox
@@ -558,17 +593,18 @@ __device__ __forceinline__ void grad_add(float* __restrict__ g, int n,
 // ring: saves each hidden layer's pre-activation and post-dropout
 // activation at sm + m.save_off (pre [rows, w], act [rows, w] per layer)
 // and writes the output to `out`. Ends synced.
-__device__ void mlp_fwd(const MLPDesc& m, float* sm, Ring& rg,
-                        const float* x, int rows, float* out,
+__device__ void mlp_fwd(const ScanCfg& c, const MLPDesc& m, float* sm,
+                        Ring& rg, const float* x, int rows, float* out,
                         const MaskCtx& mc) {
   const float* in = x;
   float* save = sm + m.save_off;
   for (int l = 0; l < m.n_lin; ++l) {
-    int wi = m.w[l], wo = m.w[l + 1];
+    const LayerRec& ly = layer(c, sm, m, l);
+    int wi = ly.w_in, wo = ly.w_out;
     bool last = l == m.n_lin - 1;
     float* y = last ? out : save;
     ring_op<false>(
-        rg, m.pw_off[l], wo, rows,
+        rg, ly.pw_off, wo, rows,
         [&](int r, int s) { return in[r * wi + s]; },
         [](int, int) { return 0.f; },
         [&](int r, int o, float v) { y[r * wo + o] = v; });
@@ -576,7 +612,7 @@ __device__ void mlp_fwd(const MLPDesc& m, float* sm, Ring& rg,
     if (!last) {
       float* a = save + rows * wo;
       for (int idx = threadIdx.x; idx < rows * wo; idx += blockDim.x) {
-        float v = act_f(m.act[l], y[idx]);
+        float v = act_f(ly.act, y[idx]);
         if (mc.mode) {
           int r = idx / wo, j = idx - r * wo;
           v = keep_at(mc, m.slot0 + l, r, j) ? v / mc.keep : 0.f;
@@ -600,18 +636,16 @@ __device__ const float* mlp_bwd(const ScanCfg& c, const MLPDesc& m,
                                 const float* x, int rows, const float* d0,
                                 bool want_dx, const MaskCtx& mc) {
   float* bufs[2] = {sm + c.o_dA, sm + c.o_dB};
-  // offsets of each hidden layer's saved (pre, act) pair
-  int save_at[MAX_LIN];
-  int s = m.save_off;
-  for (int l = 0; l + 1 < m.n_lin; ++l) {
-    save_at[l] = s;
-    s += 2 * rows * m.w[l + 1];
-  }
   const float* cur = d0;
   int nb = 0;
   for (int l = m.n_lin - 1; l >= 0; --l) {
-    int wi = m.w[l], wo = m.w[l + 1];
-    const float* a_in = l == 0 ? x : sm + save_at[l - 1] + rows * wi;
+    const LayerRec& ly = layer(c, sm, m, l);
+    int wi = ly.w_in, wo = ly.w_out;
+    // the saved (pre, act) pair of hidden layer l - 1 (its input)
+    const float* below =
+        l > 0 ? sm + m.save_off + 2 * rows * layer(c, sm, m, l - 1).save
+              : nullptr;
+    const float* a_in = l == 0 ? x : below + rows * wi;
     auto dw = [&](int idx) {
       int j = idx / wi, i = idx - j * wi;
       float acc = 0.f;
@@ -621,15 +655,15 @@ __device__ const float* mlp_bwd(const ScanCfg& c, const MLPDesc& m,
       }
       return acc;
     };
-    grad_add(g + m.w_off[l], wo * wi, dw);
-    if (m.b_off[l] >= 0) {
+    grad_add(g + ly.w_off, wo * wi, dw);
+    if (ly.b_off >= 0) {
       for (int j = threadIdx.x; j < wo; j += blockDim.x) {
         float acc = 0.f;
         for (int r = 0; r < rows; ++r) {
           int lr = r >= mc.half ? r - mc.half : r;
           if (lr < mc.nv) acc += cur[r * wo + j];
         }
-        g[m.b_off[l] + j] += acc;
+        g[ly.b_off + j] += acc;
       }
     }
     float* nxt = nullptr;
@@ -637,16 +671,17 @@ __device__ const float* mlp_bwd(const ScanCfg& c, const MLPDesc& m,
       // dx through the ring, a thread owning column i of up to RB rows
       nxt = bufs[nb];
       nb ^= 1;
-      const float* pre = l > 0 ? sm + save_at[l - 1] : nullptr;
+      const float* pre = below;
+      const int act_below = l > 0 ? layer(c, sm, m, l - 1).act : 0;
       ring_op<true>(
-          rg, m.pw_off[l], wi, rows,
+          rg, ly.pw_off, wi, rows,
           [&](int r, int s) { return cur[r * wo + s]; },
           [](int, int) { return 0.f; },
           [&](int r, int i, float v) {
             if (l > 0) {
               if (mc.mode)
                 v = keep_at(mc, m.slot0 + l - 1, r, i) ? v / mc.keep : 0.f;
-              v *= act_grad(m.act[l - 1], pre[r * wi + i]);
+              v *= act_grad(act_below, pre[r * wi + i]);
             }
             nxt[r * wi + i] = v;
           });
@@ -683,13 +718,27 @@ __device__ __forceinline__ float residual_bwd(int cs, int mult,
   return dr[i % out_w] / (float)mult;
 }
 
-// the CTA's member's leaves (a member-axis launch stacks each leaf as
-// [E, ...]: member blockIdx.y at blockIdx.y times the leaf's size)
-__device__ void load_weights(const ScanCfg& c, const Leaves& lv, float* sm) {
+// the layer records of the table into the CTA's region lay (read by
+// every phase after the CTA's first barrier)
+__device__ void load_tables(const ScanCfg& c, const int* __restrict__ tab,
+                            float* sm) {
+  int* lay = reinterpret_cast<int*>(sm + c.o_lay);
+  for (int i = threadIdx.x; i < c.n_rec * LAYER_INTS; i += blockDim.x)
+    lay[i] = __ldg(tab + i);
+}
+
+// the CTA's member's leaves, from the table's offsets and addresses (a
+// member-axis launch stacks each leaf as [E, ...]: member blockIdx.y at
+// blockIdx.y times the leaf's size)
+__device__ void load_weights(const ScanCfg& c, const int* __restrict__ tab,
+                             float* sm) {
   float* sw = sm + c.o_w;
+  const int* leaf_off = tab + c.tab_leaves;
+  const float* const* ptr =
+      reinterpret_cast<const float* const*>(tab + c.tab_ptrs);
   for (int l = 0; l < c.n_leaves; ++l) {
-    int off = c.leaf_off[l], n = c.leaf_off[l + 1] - off;
-    const float* src = lv.p[l] + (size_t)blockIdx.y * n;
+    int off = __ldg(leaf_off + l), n = __ldg(leaf_off + l + 1) - off;
+    const float* src = ptr[l] + (size_t)blockIdx.y * n;
     for (int i = threadIdx.x; i < n; i += blockDim.x) sw[off + i] = src[i];
   }
 }
@@ -865,7 +914,7 @@ template <int RT>
 __device__ void step_forward(const ScanCfg& c, float* sm, Ring& rg,
                              float t, float dt, MaskCtx& mc) {
   const int R = RT ? RT : c.rows, D = c.D, H = c.H, O = c.O;
-  const int iw = c.ode.w[0];
+  const int iw = c.ode.w_in;
   float* h = sm + c.o_h; float* lx = sm + c.o_lx; float* tau = sm + c.o_tau;
   float* X = sm + c.o_X; float* obs = sm + c.o_obs;
   float* in_ode = sm + c.o_in_ode; float* tX = sm + c.o_tX;
@@ -886,7 +935,7 @@ __device__ void step_forward(const ScanCfg& c, float* sm, Ring& rg,
       tX[idx] = tanhf(X[idx]);
   __syncthreads();
   mc.half = R; mc.jump = 0;
-  mlp_fwd(c.ode, sm, rg, in_ode, R, sm + c.o_f, mc);
+  mlp_fwd(c, c.ode, sm, rg, in_ode, R, sm + c.o_f, mc);
   float* f = sm + c.o_f; float* enc = sm + c.o_enc;
   float* h1 = sm + c.o_h1; float* h2 = sm + c.o_h2;
   float* in_ro = sm + c.o_in_ro;
@@ -899,7 +948,7 @@ __device__ void step_forward(const ScanCfg& c, float* sm, Ring& rg,
       in_ro[idx] = tanhf(a);
     }
     __syncthreads();
-    mlp_fwd(c.ro, sm, rg, in_ro, R, sm + c.o_ro, mc);  // y_bj, r1
+    mlp_fwd(c, c.ro, sm, rg, in_ro, R, sm + c.o_ro, mc);  // y_bj, r1
     for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x) {
       int r = idx / D, q = idx - r * D;
       float m = M[idx];
@@ -909,7 +958,7 @@ __device__ void step_forward(const ScanCfg& c, float* sm, Ring& rg,
       tX[r * 2 * D + D + q] = m;
     }
     __syncthreads();
-    mlp_fwd(c.enc, sm, rg, tX, R, enc, mc);
+    mlp_fwd(c, c.enc, sm, rg, tX, R, enc, mc);
     for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
       int r = idx / H, j = idx - r * H;
       float he = residual(c.enc_case, c.enc_mult, Xi + r * D, D, j)
@@ -920,7 +969,7 @@ __device__ void step_forward(const ScanCfg& c, float* sm, Ring& rg,
       in_ro[R * H + idx] = tanhf(b);
     }
     __syncthreads();
-    mlp_fwd(c.ro2, sm, rg, in_ro + R * H, R, sm + c.o_ro + R * O,
+    mlp_fwd(c, c.ro2, sm, rg, in_ro + R * H, R, sm + c.o_ro + R * O,
                 mc);
     mc.half = 2 * R;
     return;
@@ -934,7 +983,7 @@ __device__ void step_forward(const ScanCfg& c, float* sm, Ring& rg,
     __syncthreads();
     gru_fwd(c, sm, rg, R);
   } else {
-    mlp_fwd(c.enc, sm, rg, tX, R, enc, mc);
+    mlp_fwd(c, c.enc, sm, rg, tX, R, enc, mc);
     for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
       int r = idx / H, j = idx - r * H;
       float a = h[idx] + dt * f[idx];
@@ -950,7 +999,7 @@ __device__ void step_forward(const ScanCfg& c, float* sm, Ring& rg,
   }
   __syncthreads();
   mc.half = R; mc.jump = c.ro.n_lin - 1;   // rows >= R use the r2 slots
-  mlp_fwd(c.ro, sm, rg, in_ro, 2 * R, sm + c.o_ro, mc);
+  mlp_fwd(c, c.ro, sm, rg, in_ro, 2 * R, sm + c.o_ro, mc);
   mc.half = 2 * R;                          // no stacked rows elsewhere
 }
 
@@ -1190,18 +1239,18 @@ struct Lin {
 __device__ Lin lin_of(const ScanCfg& c, const MLPDesc& m, float* sm,
                       const float* x0, int rows, int l, int half, int jump) {
   const float* sw = sm + c.o_w;
-  int s = m.save_off;
-  for (int q = 0; q < l; ++q) s += 2 * rows * m.w[q + 1];
+  const LayerRec& ly = layer(c, sm, m, l);
+  const int s = m.save_off + 2 * rows * ly.save;
   Lin L;
-  L.W = sw + m.w_off[l];
-  L.b = m.b_off[l] >= 0 ? sw + m.b_off[l] : nullptr;
-  L.x = l == 0 ? x0 : sm + s - rows * m.w[l];
+  L.W = sw + ly.w_off;
+  L.b = ly.b_off >= 0 ? sw + ly.b_off : nullptr;
+  L.x = l == 0 ? x0 : sm + s - rows * ly.w_in;
   L.pre = sm + s;
-  L.act = sm + s + rows * m.w[l + 1];
-  L.in = m.w[l];
-  L.out = m.w[l + 1];
+  L.act = sm + s + rows * ly.w_out;
+  L.in = ly.w_in;
+  L.out = ly.w_out;
   L.rows = rows;
-  L.actf = l + 1 < m.n_lin ? m.act[l] : 0;
+  L.actf = l + 1 < m.n_lin ? ly.act : 0;
   L.slot = m.slot0 + l;
   L.half = half;
   L.jump = jump;
@@ -1537,12 +1586,12 @@ __device__ void stage_inputs(const ScanCfg& c, const IO& s, int k, int row0,
 // items of build_item: the ODE's input [tanh last_X, tanh h, tau, tdiff
 // (, t_prev)] and the jump's tanh X (unmasked or GRU)
 __device__ __forceinline__ int n_build(const ScanCfg& c, int R) {
-  return R * c.ode.w[0] + (!c.masked || c.use_rnn ? R * c.D : 0);
+  return R * c.ode.w_in + (!c.masked || c.use_rnn ? R * c.D : 0);
 }
 
 __device__ __forceinline__ void build_item(const ScanCfg& c, const IO& s,
                                            int R, int e) {
-  const int D = c.D, H = c.H, iw = c.ode.w[0];
+  const int D = c.D, H = c.H, iw = c.ode.w_in;
   if (e < R * iw) {
     int r = e / iw, q = e - r * iw;
     float tdiff = (s.tdt[0] - s.tdt[1]) - s.tau[r];
@@ -1569,7 +1618,7 @@ __device__ void res_carry(const ScanCfg& c, float* sm, int R, const IO& cu,
                           const IO& nx, int k, int row0, int nv, float* hh,
                           float* lxh, float* tauh, const MaskCtx& mc,
                           Fill& f) {
-  const int D = c.D, H = c.H, iw = c.ode.w[0];
+  const int D = c.D, H = c.H, iw = c.ode.w_in;
   const size_t kb = (size_t)(k + 1) * c.B + row0;
   const bool hist = WANT_HISTS && k + 1 < c.K;
   const float t = cu.tdt[0], t1 = nx.tdt[0], dt1 = nx.tdt[1];
@@ -1696,19 +1745,20 @@ __device__ BLin blin_of(const ScanCfg& c, float* sm, const Net& n, int l,
                         const float* d, float* dx, int nv) {
   const MLPDesc& m = *n.m;
   const Lin L = net_lin(c, sm, n, l);
+  const LayerRec& ly = layer(c, sm, m, l);
   float* g = sm + c.o_g;
   BLin b;
   b.W = L.W;
-  b.gW = g + m.w_off[l];
-  b.gb = m.b_off[l] >= 0 ? g + m.b_off[l] : nullptr;
+  b.gW = g + ly.w_off;
+  b.gb = ly.b_off >= 0 ? g + ly.b_off : nullptr;
   b.a_in = L.x;
   b.d = d;
   b.dx = l > 0 ? dx : nullptr;
-  b.pre = l > 0 ? L.x - n.rows * m.w[l] : nullptr;
+  b.pre = l > 0 ? L.x - n.rows * ly.w_in : nullptr;
   b.in = L.in;
   b.out = L.out;
   b.rows = n.rows;
-  b.actf = l > 0 ? m.act[l - 1] : 0;
+  b.actf = l > 0 ? layer(c, sm, m, l - 1).act : 0;
   b.slot = m.slot0 + l - 1;
   b.half = n.half;
   b.jump = n.jump;
@@ -1933,7 +1983,7 @@ __device__ __forceinline__ void ode0_item(const ScanCfg& c, float* sm,
                                           int R, const BLin& L,
                                           const IO& cu, const IO& nx,
                                           int e) {
-  const int D = c.D, H = c.H, iw = c.ode.w[0];
+  const int D = c.D, H = c.H, iw = c.ode.w_in;
   if (e < R * H) {
     const int r = e / H, j = e - r * H;
     float th = cu.in_ode[r * iw + D + j];
@@ -1962,7 +2012,7 @@ __device__ __forceinline__ void ode0_item(const ScanCfg& c, float* sm,
 
 // K1 (WANT_HISTS) / K3 in the resident plan
 template <bool WANT_HISTS, int RT>
-__device__ void res_scan_fwd(const ScanCfg& c, const Leaves& lv, float* sm,
+__device__ void res_scan_fwd(const ScanCfg& c, const int* tab, float* sm,
                              const float* times, const float* dts,
                              const float* obs_g, const float* X_g,
                              const float* M_g, const int8_t* u,
@@ -1973,7 +2023,7 @@ __device__ void res_scan_fwd(const ScanCfg& c, const Leaves& lv, float* sm,
   const int R = RT ? RT : c.rows, D = c.D, H = c.H;
   const int row0 = blockIdx.x * R;
   const int nv = min(R, c.B - row0);
-  load_weights(c, lv, sm);
+  load_weights(c, tab, sm);
   float* nobs = sm + c.o_nobs;
   float* lrow = sm + c.o_lrow;
   const IO s0 = io_set(c, sm, 0);
@@ -2028,7 +2078,7 @@ __device__ void res_scan_fwd(const ScanCfg& c, const Leaves& lv, float* sm,
 
 // K2 in the resident plan
 template <int RT>
-__device__ void res_scan_bwd(const ScanCfg& c, const Leaves& lv, float* sm,
+__device__ void res_scan_bwd(const ScanCfg& c, const int* tab, float* sm,
                              const float* times, const float* dts,
                              const float* obs_g, const float* X_g,
                              const float* M_g, const int8_t* u,
@@ -2039,7 +2089,7 @@ __device__ void res_scan_bwd(const ScanCfg& c, const Leaves& lv, float* sm,
   const int R = RT ? RT : c.rows, D = c.D, H = c.H, O = c.O, RH = R * H;
   const int row0 = blockIdx.x * R;
   const int nv = min(R, c.B - row0);
-  load_weights(c, lv, sm);
+  load_weights(c, tab, sm);
   float* g = sm + c.o_g;
   for (int i = threadIdx.x; i < c.n_params; i += NTHREADS) g[i] = 0.f;
   float* dh = sm + c.o_dh;
@@ -2181,7 +2231,8 @@ __device__ void res_scan_bwd(const ScanCfg& c, const Leaves& lv, float* sm,
 // global plan's
 template <bool WANT_HISTS, bool GW, int RT>
 __global__ void __launch_bounds__(NTHREADS, GW ? 1 : CTAS_PER_SM)
-njode_scan_fwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
+njode_scan_fwd_kernel(ScanCfg c, const int* __restrict__ tab,
+                      const float* __restrict__ wg,
                       const int* __restrict__ prog,
                       const float* __restrict__ times,
                       const float* __restrict__ dts,
@@ -2210,8 +2261,9 @@ njode_scan_fwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
     tauh = member_of(tauh, KB);
     wg = member_of(wg, c.wg_stride);
   }
+  load_tables(c, tab, sm);
   if constexpr (!GW) {
-    res_scan_fwd<WANT_HISTS, RT>(c, lv, sm, times, dts, obs_g, X_g, M_g, u,
+    res_scan_fwd<WANT_HISTS, RT>(c, tab, sm, times, dts, obs_g, X_g, M_g, u,
                                  seed, n_obs, h0, sx, loss_part, hh, lxh,
                                  tauh);
   } else {
@@ -2294,7 +2346,8 @@ njode_scan_fwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
 // K2: the resident plan's body above, or (GW) the global plan's
 template <bool GW, int RT>
 __global__ void __launch_bounds__(NTHREADS, GW ? 1 : CTAS_PER_SM)
-njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
+njode_scan_bwd_kernel(ScanCfg c, const int* __restrict__ tab,
+                      const float* __restrict__ wg,
                       const int* __restrict__ prog,
                       const float* __restrict__ times,
                       const float* __restrict__ dts,
@@ -2324,14 +2377,15 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
     dh0 = member_of(dh0, (size_t)c.B * c.H);
     wg = member_of(wg, c.wg_stride);
   }
+  load_tables(c, tab, sm);
   if constexpr (!GW) {
-    res_scan_bwd<RT>(c, lv, sm, times, dts, obs_g, X_g, M_g, u, seed, n_obs,
+    res_scan_bwd<RT>(c, tab, sm, times, dts, obs_g, X_g, M_g, u, seed, n_obs,
                      hh, lxh, tauh, dloss_p, partials, dh0);
   } else {
   const int R = RT ? RT : c.rows, D = c.D, H = c.H, O = c.O, B = c.B;
   const int row0 = blockIdx.x * R;
   const int nv = min(R, B - row0);
-  const int iw = c.ode.w[0];
+  const int iw = c.ode.w_in;
   // the gradient accumulator: this CTA's partial row, zeroed here and
   // added into in place every step
   float* g = partials + (size_t)blockIdx.x * c.n_params;
@@ -2420,7 +2474,7 @@ njode_scan_bwd_kernel(ScanCfg c, Leaves lv, const float* __restrict__ wg,
       // stacked readout backward
       mc.half = R; mc.jump = c.ro.n_lin - 1;
       const float* d_rin = mlp_bwd(c, c.ro, sm, rg, g, in_ro, 2 * R,
-                                       dst, true, mc);
+                                   dst, true, mc);
       for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
         int r = idx / H, j = idx - r * H;
         float a1 = in_ro[idx], a2 = in_ro[R * H + idx];
@@ -2537,22 +2591,17 @@ philox_masks_kernel(const long long* seed, int K, int S, int B, int W,
 
 // ------------------------------------------------------------ C interface
 
-static Leaves make_leaves(const ScanCfg* c, void** leaves) {
-  Leaves lv;
-  for (int i = 0; i < MAX_LEAVES; ++i)
-    lv.p[i] = i < c->n_leaves ? (const float*)leaves[i] : nullptr;
-  return lv;
-}
-
 extern "C" const char* njode_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// the rows per CTA and the plan the config names, and the packed weights
-// and the ring's tile program exactly when the plan is global
-static bool cfg_ok(const ScanCfg* c, const float* wg, const int* prog) {
+// the rows per CTA and the plan the config names, a layer table, and the
+// packed weights and the ring's tile program exactly when the plan is
+// global
+static bool cfg_ok(const ScanCfg* c, const int* tab, const float* wg,
+                   const int* prog) {
   return c->rows >= 1 && c->rows <= MAX_ROWS
-         && (c->plan == 0 || c->plan == 1)
+         && (c->plan == 0 || c->plan == 1) && tab != nullptr
          && (c->plan == 1) == (wg != nullptr)
          && (c->plan == 1) == (prog != nullptr);
 }
@@ -2568,7 +2617,7 @@ static cudaError_t launch_reduce(const float* P, int n_parts, int n,
 }
 
 template <bool H, bool GW, int RT>
-static cudaError_t launch_fwd(const ScanCfg* c, const Leaves& lv,
+static cudaError_t launch_fwd(const ScanCfg* c, const int* tab,
                               const float* wg, const int* prog,
                               const float* times, const float* dts,
                               const float* obs, const float* X,
@@ -2587,9 +2636,9 @@ static cudaError_t launch_fwd(const ScanCfg* c, const Leaves& lv,
   if (occ)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, kern, NTHREADS,
                                                          smem);
-  kern<<<grid, NTHREADS, smem, st>>>(*c, lv, wg, prog, times, dts, obs, X, M,
-                                     u, seed, n_obs, h0, sx, loss_part, hh,
-                                     lxh, tauh);
+  kern<<<grid, NTHREADS, smem, st>>>(*c, tab, wg, prog, times, dts, obs, X,
+                                     M, u, seed, n_obs, h0, sx, loss_part,
+                                     hh, lxh, tauh);
   return cudaGetLastError();
 }
 
@@ -2607,9 +2656,10 @@ static decltype(&launch_fwd<H, GW, 0>) fwd_for_rows(const ScanCfg* c) {
 
 // K1 (want_hists) or K3 for E members (gridDim.y = E), then the reduction
 // of the per-CTA losses into loss[e] (scaled by loss_scale), both on the
-// stream. wg: the weights packed at pack_off (global plan), prog: the
-// ring's tile program (global plan), else null.
-static int scan_fwd(const ScanCfg* c, int E, void** leaves, const float* wg,
+// stream. tab: the layer table in device memory (LayerRec); wg: the
+// weights packed at pack_off (global plan), prog: the ring's tile program
+// (global plan), else null.
+static int scan_fwd(const ScanCfg* c, int E, const int* tab, const float* wg,
                     const int* prog, const float* times, const float* dts,
                     const float* obs, const float* X, const float* M,
                     const int8_t* u, const long long* seed,
@@ -2617,15 +2667,14 @@ static int scan_fwd(const ScanCfg* c, int E, void** leaves, const float* wg,
                     float* loss_part, float* loss, float* hh, float* lxh,
                     float* tauh, int want_hists, float loss_scale,
                     void* stream) {
-  if (!cfg_ok(c, wg, prog) || E < 1 || E > 65535)
+  if (!cfg_ok(c, tab, wg, prog) || E < 1 || E > 65535)
     return (int)cudaErrorInvalidValue;
-  Leaves lv = make_leaves(c, leaves);
   cudaStream_t st = (cudaStream_t)stream;
   auto f = want_hists ? (c->plan ? fwd_for_rows<true, true>(c)
                                  : fwd_for_rows<true, false>(c))
                       : (c->plan ? fwd_for_rows<false, true>(c)
                                  : fwd_for_rows<false, false>(c));
-  cudaError_t e = f(c, lv, wg, prog, times, dts, obs, X, M, u, seed, n_obs,
+  cudaError_t e = f(c, tab, wg, prog, times, dts, obs, X, M, u, seed, n_obs,
                     h0, sx, loss_part, hh, lxh, tauh, st, nullptr, E);
   if (e != cudaSuccess) return (int)e;
   int n_cta = (c->B + c->rows - 1) / c->rows;
@@ -2633,7 +2682,7 @@ static int scan_fwd(const ScanCfg* c, int E, void** leaves, const float* wg,
 }
 
 // K1 or K3 of one model: loss_part [n_cta], loss [1]
-extern "C" int njode_scan_fwd(const ScanCfg* c, void** leaves,
+extern "C" int njode_scan_fwd(const ScanCfg* c, const int* tab,
                               const float* wg, const int* prog,
                               const float* times, const float* dts,
                               const float* obs, const float* X,
@@ -2644,16 +2693,17 @@ extern "C" int njode_scan_fwd(const ScanCfg* c, void** leaves,
                               float* hh, float* lxh, float* tauh,
                               int want_hists, float loss_scale,
                               void* stream) {
-  return scan_fwd(c, 1, leaves, wg, prog, times, dts, obs, X, M, u, seed,
+  return scan_fwd(c, 1, tab, wg, prog, times, dts, obs, X, M, u, seed,
                   n_obs, h0, sx, loss_part, loss, hh, lxh, tauh, want_hists,
                   loss_scale, stream);
 }
 
-// K1 or K3 of E members of one config in one launch: every leaf [E, ...],
-// wg [E, wg_stride], obs/X/M/u/seed/n_obs/h0/sx and the histories with a
-// leading member axis, times/dts shared; loss_part [E, n_cta], loss [E]
+// K1 or K3 of E members of one config in one launch: every leaf [E, ...]
+// (the table's addresses those of the stacked leaves), wg [E, wg_stride],
+// obs/X/M/u/seed/n_obs/h0/sx and the histories with a leading member
+// axis, times/dts shared; loss_part [E, n_cta], loss [E]
 extern "C" int njode_scan_fwd_members(const ScanCfg* c, int n_members,
-                                      void** leaves, const float* wg,
+                                      const int* tab, const float* wg,
                                       const int* prog, const float* times,
                                       const float* dts, const float* obs,
                                       const float* X, const float* M,
@@ -2664,13 +2714,13 @@ extern "C" int njode_scan_fwd_members(const ScanCfg* c, int n_members,
                                       float* loss, float* hh, float* lxh,
                                       float* tauh, int want_hists,
                                       float loss_scale, void* stream) {
-  return scan_fwd(c, n_members, leaves, wg, prog, times, dts, obs, X, M, u,
+  return scan_fwd(c, n_members, tab, wg, prog, times, dts, obs, X, M, u,
                   seed, n_obs, h0, sx, loss_part, loss, hh, lxh, tauh,
                   want_hists, loss_scale, stream);
 }
 
 template <bool GW, int RT>
-static cudaError_t launch_bwd(const ScanCfg* c, const Leaves& lv,
+static cudaError_t launch_bwd(const ScanCfg* c, const int* tab,
                               const float* wg, const int* prog,
                               const float* times, const float* dts,
                               const float* obs, const float* X,
@@ -2689,8 +2739,8 @@ static cudaError_t launch_bwd(const ScanCfg* c, const Leaves& lv,
   if (occ)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, kern, NTHREADS,
                                                          smem);
-  kern<<<grid, NTHREADS, smem, st>>>(*c, lv, wg, prog, times, dts, obs, X, M,
-                                     u, seed, n_obs, hh, lxh, tauh, dloss,
+  kern<<<grid, NTHREADS, smem, st>>>(*c, tab, wg, prog, times, dts, obs, X,
+                                     M, u, seed, n_obs, hh, lxh, tauh, dloss,
                                      partials, dh0);
   return cudaGetLastError();
 }
@@ -2706,19 +2756,18 @@ static decltype(&launch_bwd<GW, 0>) bwd_for_rows(const ScanCfg* c) {
 // K2 for E members (gridDim.y = E), then the reduction of each member's
 // partial rows ([E, n_cta, n_params]) into grads [E, n_params], both on the
 // stream
-static int scan_bwd(const ScanCfg* c, int E, void** leaves, const float* wg,
+static int scan_bwd(const ScanCfg* c, int E, const int* tab, const float* wg,
                     const int* prog, const float* times, const float* dts,
                     const float* obs, const float* X, const float* M,
                     const int8_t* u, const long long* seed,
                     const float* n_obs, const float* hh, const float* lxh,
                     const float* tauh, const float* dloss, float* partials,
                     float* grads, float* dh0, void* stream) {
-  if (!cfg_ok(c, wg, prog) || E < 1 || E > 65535)
+  if (!cfg_ok(c, tab, wg, prog) || E < 1 || E > 65535)
     return (int)cudaErrorInvalidValue;
-  Leaves lv = make_leaves(c, leaves);
   cudaStream_t st = (cudaStream_t)stream;
   auto f = c->plan ? bwd_for_rows<true>(c) : bwd_for_rows<false>(c);
-  cudaError_t e = f(c, lv, wg, prog, times, dts, obs, X, M, u, seed, n_obs,
+  cudaError_t e = f(c, tab, wg, prog, times, dts, obs, X, M, u, seed, n_obs,
                     hh, lxh, tauh, dloss, partials, dh0, st, nullptr, E);
   if (e != cudaSuccess) return (int)e;
   int n_cta = (c->B + c->rows - 1) / c->rows;
@@ -2726,7 +2775,7 @@ static int scan_bwd(const ScanCfg* c, int E, void** leaves, const float* wg,
 }
 
 // K2 of one model: partials [n_cta, n_params], grads [n_params]
-extern "C" int njode_scan_bwd(const ScanCfg* c, void** leaves,
+extern "C" int njode_scan_bwd(const ScanCfg* c, const int* tab,
                               const float* wg, const int* prog,
                               const float* times, const float* dts,
                               const float* obs, const float* X,
@@ -2736,14 +2785,14 @@ extern "C" int njode_scan_bwd(const ScanCfg* c, void** leaves,
                               const float* lxh, const float* tauh,
                               const float* dloss, float* partials,
                               float* grads, float* dh0, void* stream) {
-  return scan_bwd(c, 1, leaves, wg, prog, times, dts, obs, X, M, u, seed,
+  return scan_bwd(c, 1, tab, wg, prog, times, dts, obs, X, M, u, seed,
                   n_obs, hh, lxh, tauh, dloss, partials, grads, dh0, stream);
 }
 
 // K2 of E members of one config in one launch (the member layout of
 // njode_scan_fwd_members; dloss [E], dh0 [E, B, H])
 extern "C" int njode_scan_bwd_members(const ScanCfg* c, int n_members,
-                                      void** leaves, const float* wg,
+                                      const int* tab, const float* wg,
                                       const int* prog, const float* times,
                                       const float* dts, const float* obs,
                                       const float* X, const float* M,
@@ -2754,7 +2803,7 @@ extern "C" int njode_scan_bwd_members(const ScanCfg* c, int n_members,
                                       const float* dloss, float* partials,
                                       float* grads, float* dh0,
                                       void* stream) {
-  return scan_bwd(c, n_members, leaves, wg, prog, times, dts, obs, X, M, u,
+  return scan_bwd(c, n_members, tab, wg, prog, times, dts, obs, X, M, u,
                   seed, n_obs, hh, lxh, tauh, dloss, partials, grads, dh0,
                   stream);
 }
@@ -2764,19 +2813,18 @@ extern "C" int njode_scan_bwd_members(const ScanCfg* c, int n_members,
 // *blocks
 extern "C" int njode_scan_occupancy(const ScanCfg* c, int kind,
                                     int* blocks) {
-  Leaves lv = {};
   if (kind == 2)
     return (int)(c->plan ? bwd_for_rows<true>(c) : bwd_for_rows<false>(c))(
-        c, lv, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+        c, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
         nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-        nullptr, nullptr, 0, blocks, 1);
+        nullptr, nullptr, nullptr, 0, blocks, 1);
   auto f = kind == 0 ? (c->plan ? fwd_for_rows<true, true>(c)
                                 : fwd_for_rows<true, false>(c))
                      : (c->plan ? fwd_for_rows<false, true>(c)
                                 : fwd_for_rows<false, false>(c));
-  return (int)f(c, lv, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+  return (int)f(c, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                 nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                nullptr, nullptr, nullptr, 0, blocks, 1);
+                nullptr, nullptr, nullptr, nullptr, 0, blocks, 1);
 }
 
 // the phase clock of the last launch (built with -DNJODE_PHASE_CLOCK, else

@@ -25,11 +25,10 @@ loss is the eager forward's, whose ``M = ones_like(X)`` broadcasts against
 ``y [B, O]``, so both terms sum over max(D, O) coordinates and the
 gradient sums back over the broadcast axis; such a config runs in the
 global plan alone), the encoder jump or the GRU jump
-(``use_rnn``), euler, standard or easy loss, tanh/relu MLPs of any depth up
-to ``MAX_LIN`` linears (a cap of the kernels' parameter block: ROADMAP.md
-Queue 2), residual cases 0/1/2, ``input_current_t`` on or off, with or
-without bias, fp32, and the activations of at least one batch row within
-the shared memory of one CTA. The masked branch imputes the
+(``use_rnn``), euler, standard or easy loss, tanh/relu MLPs of any depth,
+residual cases 0/1/2, ``input_current_t`` on or off, with or without bias,
+fp32, and the activations of at least one batch row within the shared
+memory of one CTA. The masked branch imputes the
 unobserved coordinates from the pre-jump readout, so its two readouts run
 one after the other (pre-jump, encoder on ``[tanh X_imp, M]``, post-jump)
 instead of as one stacked chain, and ``last_X`` records the post-jump
@@ -65,6 +64,17 @@ holds a ring of two weight tiles that the kernels fill in the background
 (``Spec.tile_program`` lists a step's tiles in the order the kernels use
 them). Both plans sum in the same order, so at one R they give the same
 bits. ``plan=(name, R)`` forces a plan, for the tests.
+
+The per-layer description of the nets (each Linear's widths, activation,
+offsets and where its activations are saved) and the leaves' offsets and
+device addresses travel in a layer table in device memory
+(``layer_table``; ``_LayerRec`` mirrors a record), not in the kernels'
+parameter block, so a net's depth has no cap but the shared memory its
+activations, mask words and records take, which ``Spec.layout`` counts.
+Each CTA copies the records into shared memory at entry. The table is
+built once per spec, device and leaf addresses and uploaded from pinned
+memory on the launch's stream; a trainer, whose Adam updates the leaves
+in place, uploads it once.
 
 The wrappers' C calls enqueue ``reduce_partials`` themselves, right after
 K1/K3 (the per-CTA losses) and K2 (the per-CTA gradient rows), and count
@@ -103,8 +113,9 @@ CTA_RESERVED = 1024       # shared memory the card reserves for each CTA
 # registers that many CTAs of 256 threads leave (csrc/fused_scan.cu)
 CTAS_PER_SM = 2
 PLANS = ("resident", "global")
-MAX_LIN = 16              # Linear layers per MLP
-MAX_LEAVES = 3 * 2 * MAX_LIN + 4      # three MLPs and the GRU's four leaves
+LAYER_INTS = 8            # ints of a layer's record (csrc/fused_scan.cu)
+# K1/K2's kernel parameters after ScanCfg: the layer table and 16 pointers
+KERNEL_PTRS = 17
 SMEM_LIMIT = 232448       # bytes of shared memory one CTA may use (H100)
 # the global plan's weight ring (csrc/fused_scan.cu): rows a thread sums,
 # items a thread carries across tiles, threads a CTA, ints a tile
@@ -206,7 +217,18 @@ class Spec:
         for a, b in zip(self.leaf_off[:-1], self.leaf_off[1:]):
             self.pack_off.append(self.pack_off[-1] + (b - a + 3) // 4 * 4)
         self.buf_w = max(self.ode_w + self.enc_w + self.ro_w)
-        self._cfgs, self._progs = {}, {}
+        # the layer table (layer_table): a record a Linear, the ODE net's,
+        # the encoder's, then the readout's (its first at lay0[net]), the
+        # leaves' offsets at tab_leaves, their addresses at tab_ptrs (an
+        # even int: 8-byte aligned), tab_ints ints in all
+        n_lin = [len(ws) - 1 for ws in (self.ode_w, self.enc_w, self.ro_w)]
+        self.lay0 = {"ode": 0, "enc": n_lin[0], "ro": n_lin[0] + n_lin[1]}
+        self.n_rec = sum(n_lin)
+        self.tab_leaves = LAYER_INTS * self.n_rec
+        self.tab_ptrs = -(-(self.tab_leaves + len(self.leaf_off)) // 2) * 2
+        self.tab_ints = self.tab_ptrs + 2 * len(self.leaf_shapes)
+        self._cfgs, self._progs, self._tabs = {}, {}, {}
+        self._head = None
         self.forced = plan is not None
         self.plan, self.rows = self._choose_plan(plan)
 
@@ -302,8 +324,9 @@ class Spec:
         ``gru`` the saved r, z, n, gh_n (4 x R x H), ``dG`` the backward's
         da_r, da_z, da_n, dgh_n per row (R x 4H).
 
-        'global' (one layout for K1-K3): the activations, then the weight
-        ring in what they leave. 'resident': the weights ``w``,
+        'global' (one layout for K1-K3): the activations, the layer
+        records ``lay``, then the weight ring in what they leave.
+        'resident': the weights ``w``,
         then (K2, ``bwd``) their gradients ``g``, then two sets of the
         step's inputs and carries (``io``: t and dt at ``tdt``, ``h``,
         ``lx``, ``tau``, ``X``, ``obs``, ``M``, and the ODE's and the
@@ -313,12 +336,14 @@ class Spec:
         output, which the readout's last phase writes; the backward
         regions only in K2's layout.
 
-        Both plans end with ``mw``, the dropout masks as bits
+        Both plans hold ``mw``, the dropout masks as bits
         (``mask_words``): two sets in the resident plan (a step's, and
         the next one's being filled), one in the global plan (filled at
         the end of each step; in the masked branch without the GRU jump
         inside ``dB``, whose second half its backward never uses), none
-        without dropout."""
+        without dropout; the resident plan ends with the layer records
+        ``lay`` (``LAYER_INTS`` ints a Linear), after every region the
+        kernels' phases read."""
         R2 = 2 * R
         D, H, O, P = self.D, self.H, self.O, self.n_params
         DM = D if self.masked else 0
@@ -367,6 +392,7 @@ class Spec:
                 off["mw"] = off["dB"] + R * self.buf_w
             else:
                 take("mw", self.mask_words(R))
+            take("lay", LAYER_INTS * self.n_rec)
             take("ring", 2 * max(self._ring_stage(n), 0))
             return off, n
         take("w", P)
@@ -397,6 +423,7 @@ class Spec:
             if bwd:
                 take("dG", 4 * R * H)
         take("mw", 2 * self.mask_words(R))
+        take("lay", LAYER_INTS * self.n_rec)
         return off, n
 
     @property
@@ -526,6 +553,30 @@ class Spec:
             return 4 * self.layout()[1]
         return 4 * self.layout(self.rows, self.plan)[1]
 
+    def table_head(self):
+        """The layer table's first ``tab_ptrs`` ints, those the config
+        alone decides: a record (``_LayerRec``) a Linear, then the leaves'
+        offsets in the flat parameters, then a zero where the addresses
+        need an even start."""
+        if self._head is None:
+            out, leaf = [], 0
+            for ws, acts in ((self.ode_w, self.ode_a),
+                             (self.enc_w, self.enc_a),
+                             (self.ro_w, self.ro_a)):
+                for l in range(len(ws) - 1):
+                    relu = int(l < len(acts) and acts[l] == "relu")
+                    w_off, pw_off = self.leaf_off[leaf], self.pack_off[leaf]
+                    leaf += 1
+                    b_off = -1
+                    if self.bias:
+                        b_off, leaf = self.leaf_off[leaf], leaf + 1
+                    out += [ws[l], ws[l + 1], relu, w_off, b_off, pw_off,
+                            sum(ws[1:l + 1]), 0]
+            out += self.leaf_off
+            out += [0] * (self.tab_ptrs - len(out))
+            self._head = torch.tensor(out, dtype=torch.int32)
+        return self._head
+
 
 def supported(cfg) -> bool:
     """Whether the CUDA kernels cover the given NJODEConfig (the shared
@@ -546,10 +597,7 @@ def supported(cfg) -> bool:
     if any(a not in ("tanh", "relu") for nn_desc in nets
            for _, a in nn_desc):
         return False
-    if any(len(nn_desc) + 1 > MAX_LIN for nn_desc in nets):
-        return False
-    spec = Spec(cfg)
-    return len(spec.leaf_shapes) <= MAX_LEAVES and spec.plan is not None
+    return Spec(cfg).plan is not None
 
 
 def flat_leaves(model):
@@ -855,22 +903,23 @@ def reduce_partials_plain(partials, scale=1.0):
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
+class _LayerRec(ctypes.Structure):
+    """Field-for-field mirror of ``struct LayerRec`` (a record of the
+    layer table, ``Spec.table_head``)."""
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "w_in", "w_out", "act", "w_off", "b_off", "pw_off", "save", "pad")]
+
+
 class _MLPDesc(ctypes.Structure):
-    _fields_ = [("n_lin", ctypes.c_int),
-                ("w", ctypes.c_int * (MAX_LIN + 1)),
-                ("act", ctypes.c_int * MAX_LIN),
-                ("w_off", ctypes.c_int * MAX_LIN),
-                ("b_off", ctypes.c_int * MAX_LIN),
-                ("pw_off", ctypes.c_int * MAX_LIN),
-                ("slot0", ctypes.c_int),
-                ("save_off", ctypes.c_int)]
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "n_lin", "w_in", "lay", "slot0", "save_off")]
 
 
 _LAYOUT_FIELDS = ("w", "g", "h", "lx", "tau", "X", "obs", "nobs", "lrow",
                   "h1", "h2", "in_ode", "tX", "in_ro", "f", "enc", "ro",
                   "dA", "dB", "dh", "dlx", "dtau", "rs", "dst", "dh1", "dhe",
                   "df", "dlxc", "dtauc", "M", "Xi", "gru", "dG", "gsc",
-                  "ring", "tdt", "le", "mw")
+                  "ring", "tdt", "le", "mw", "lay")
 
 
 class _ScanCfg(ctypes.Structure):
@@ -886,12 +935,19 @@ class _ScanCfg(ctypes.Structure):
                                        "gru_bih", "gru_bhh", "gru_pwih",
                                        "gru_pwhh", "n_tiles_fwd",
                                        "n_tiles_bwd", "stage", "io_stride",
-                                       "wg_stride")]
-        + [("leaf_off", ctypes.c_int * (MAX_LEAVES + 1))]
+                                       "wg_stride", "n_rec", "tab_leaves",
+                                       "tab_ptrs")]
         + [("o_" + n, ctypes.c_int) for n in _LAYOUT_FIELDS]
         + [(n, ctypes.c_int) for n in ("nw", "lg_nw", "skip0", "skip1")]
         + [("ode", _MLPDesc), ("enc", _MLPDesc), ("ro", _MLPDesc),
            ("ro2", _MLPDesc)])
+
+
+def param_bytes() -> int:
+    """Bytes of K1/K2's parameter block: ``ScanCfg`` by value, then the
+    layer table's address and the other pointers (``KERNEL_PTRS`` in all,
+    8-byte aligned)."""
+    return -(-ctypes.sizeof(_ScanCfg) // 8) * 8 + 8 * KERNEL_PTRS
 
 
 def make_cfg(spec: Spec, K: int, B: int, train: bool, weight: float,
@@ -938,8 +994,8 @@ def _make_cfg(spec, K, B, train, weight, bwd):
     c.io_stride = off["io2"] - off["io"] if "io" in off else 0
     c.wg_stride = spec.pack_off[-1]
     c.buf_w, c.smem_floats = spec.buf_w, total
-    for i, o in enumerate(spec.leaf_off):
-        c.leaf_off[i] = o
+    c.n_rec, c.tab_leaves, c.tab_ptrs = (spec.n_rec, spec.tab_leaves,
+                                         spec.tab_ptrs)
     for n in _LAYOUT_FIELDS:
         setattr(c, "o_" + n, off.get(n, -1))
     c.nw, c.lg_nw = spec.nw, (spec.nw - 1).bit_length()
@@ -948,29 +1004,16 @@ def _make_cfg(spec, K, B, train, weight, bwd):
     c.skip0 = c.skip1 = spec.s_enc
     if spec.use_rnn:
         c.skip1 = spec.s_enc + spec.n_enc
-    leaf = 0
-    for desc, ws, acts, slot0, save in (
-            (c.ode, spec.ode_w, spec.ode_a, spec.s_ode, "s_ode"),
-            (c.enc, spec.enc_w, spec.enc_a, spec.s_enc, "s_enc"),
-            (c.ro, spec.ro_w, spec.ro_a, spec.s_r1, "s_ro")):
-        desc.n_lin = len(ws) - 1
-        for i, w in enumerate(ws):
-            desc.w[i] = w
-        for i, a in enumerate(acts):
-            desc.act[i] = 0 if a == "tanh" else 1
-        for i in range(desc.n_lin):
-            desc.w_off[i] = spec.leaf_off[leaf]
-            desc.pw_off[i] = spec.pack_off[leaf]
-            leaf += 1
-            if spec.bias:
-                desc.b_off[i] = spec.leaf_off[leaf]
-                leaf += 1
-            else:
-                desc.b_off[i] = -1
+    for desc, net, ws, slot0, save in (
+            (c.ode, "ode", spec.ode_w, spec.s_ode, "s_ode"),
+            (c.enc, "enc", spec.enc_w, spec.s_enc, "s_enc"),
+            (c.ro, "ro", spec.ro_w, spec.s_r1, "s_ro")):
+        desc.n_lin, desc.w_in = len(ws) - 1, ws[0]
+        desc.lay = spec.lay0[net]
         desc.slot0 = slot0
         desc.save_off = off[save]
-    # the masked branch's post-jump readout: the same weights, its own
-    # dropout slots and saved activations
+    # the masked branch's post-jump readout: the same weights and layer
+    # records, its own dropout slots and saved activations
     c.ro2 = c.ro
     c.ro2.slot0 = spec.s_r2
     c.ro2.save_off = off["s_ro2"]
@@ -1050,6 +1093,32 @@ def _program(spec, dev):
     return prog
 
 
+def layer_table(spec, leaves):
+    """The kernels' layer table for ``leaves`` (solo, or stacked ``[E,
+    ...]`` for a member-axis launch), an int32 tensor of ``tab_ints`` on
+    their device: ``Spec.table_head``, then each leaf's address as 8
+    bytes. Kept on the spec per device with the addresses it holds; a new
+    one is built only when a leaf's ``data_ptr`` changes, on CUDA copied
+    from pinned host memory on the current stream (no host wait), so a
+    trainer, whose optimizer updates the leaves in place, uploads it once."""
+    ptrs = tuple(p.data_ptr() for p in leaves)
+    dev = leaves[0].device
+    hit = spec._tabs.get(dev)
+    if hit is not None and hit[0] == ptrs:
+        return hit[1]
+    cuda = dev.type == "cuda"
+    host = torch.empty((spec.tab_ints,), dtype=torch.int32, pin_memory=cuda)
+    host[:spec.tab_ptrs] = spec.table_head()
+    host[spec.tab_ptrs:].view(torch.int64).copy_(
+        torch.tensor(ptrs, dtype=torch.int64))
+    tab = host
+    if cuda:
+        tab = torch.empty((spec.tab_ints,), dtype=torch.int32, device=dev)
+        tab.copy_(host, non_blocking=True)
+    spec._tabs[dev] = (ptrs, tab)
+    return tab
+
+
 def _lib():
     from njode_tpu_torch.ops import _build
     return _build.lib("fused_scan")
@@ -1123,16 +1192,16 @@ def scan_fwd_cuda(spec, leaves, arrays, weight, h0, train, u=None,
                  torch.empty((K, B, 1), device=dev))
     else:
         hists = (None, None, None)
-    ptrs = (ctypes.c_void_p * len(leaves))(*[p.data_ptr() for p in leaves])
+    tab = layer_table(spec, leaves)
     wg = packed_weights(spec, leaves)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with _on(dev):
         rc = lib.njode_scan_fwd(
-            ctypes.addressof(cfg), ptrs, _ptr(wg), _ptr(_program(spec, dev)),
-            _ptr(times), _ptr(dts), _ptr(obs), _ptr(X), _ptr(M), _ptr(u),
-            _ptr(seed), _ptr(n_obs), _ptr(h0), _ptr(start_X),
-            _ptr(loss_part), _ptr(loss), *(_ptr(t) for t in hists),
-            int(want_hists), 1.0 / B, stream)
+            ctypes.addressof(cfg), _ptr(tab), _ptr(wg),
+            _ptr(_program(spec, dev)), _ptr(times), _ptr(dts), _ptr(obs),
+            _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs), _ptr(h0),
+            _ptr(start_X), _ptr(loss_part), _ptr(loss),
+            *(_ptr(t) for t in hists), int(want_hists), 1.0 / B, stream)
     _raise_rc(lib, rc, "njode_scan_fwd")
     _count(("njode_scan_fwd" if want_hists else "njode_scan_eval")
            + _launch_key(spec), B, cfg.rows)
@@ -1162,15 +1231,16 @@ def scan_bwd_cuda(spec, leaves, arrays, weight, train, hists, dloss,
     partials = torch.empty((n_cta, spec.n_params), device=dev)
     flat = torch.empty((spec.n_params,), device=dev)
     dh0 = torch.empty((B, spec.H), device=dev)
-    ptrs = (ctypes.c_void_p * len(leaves))(*[p.data_ptr() for p in leaves])
+    tab = layer_table(spec, leaves)
     wg = packed_weights(spec, leaves)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with _on(dev):
         rc = lib.njode_scan_bwd(
-            ctypes.addressof(cfg), ptrs, _ptr(wg), _ptr(_program(spec, dev)),
-            _ptr(times), _ptr(dts), _ptr(obs), _ptr(X), _ptr(M), _ptr(u),
-            _ptr(seed), _ptr(n_obs), _ptr(hh), _ptr(lxh), _ptr(tauh),
-            _ptr(dloss), _ptr(partials), _ptr(flat), _ptr(dh0), stream)
+            ctypes.addressof(cfg), _ptr(tab), _ptr(wg),
+            _ptr(_program(spec, dev)), _ptr(times), _ptr(dts), _ptr(obs),
+            _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs), _ptr(hh),
+            _ptr(lxh), _ptr(tauh), _ptr(dloss), _ptr(partials), _ptr(flat),
+            _ptr(dh0), stream)
     _raise_rc(lib, rc, "njode_scan_bwd")
     _count("njode_scan_bwd" + _launch_key(spec), B, cfg.rows)
     LAUNCHES["reduce_partials"] += 1
@@ -1304,12 +1374,12 @@ def scan_fwd_members_cuda(spec, leaves, arrays, weight, h0, train, u=None,
     hists = (torch.empty((E, K, B, spec.H), device=dev),
              torch.empty((E, K, B, spec.D), device=dev),
              torch.empty((E, K, B, 1), device=dev))
-    ptrs = (ctypes.c_void_p * len(leaves))(*[p.data_ptr() for p in leaves])
+    tab = layer_table(spec, leaves)
     wg = packed_weights_members(spec, leaves)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with _on(dev):
         rc = lib.njode_scan_fwd_members(
-            ctypes.addressof(cfg), E, ptrs, _ptr(wg),
+            ctypes.addressof(cfg), E, _ptr(tab), _ptr(wg),
             _ptr(_program(spec, dev)), _ptr(times), _ptr(dts), _ptr(obs),
             _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs), _ptr(h0),
             _ptr(start_X), _ptr(loss_part), _ptr(loss),
@@ -1344,12 +1414,12 @@ def scan_bwd_members_cuda(spec, leaves, arrays, weight, train, hists, dloss,
     partials = torch.empty((E, n_cta, P), device=dev)
     flat = torch.empty((E, P), device=dev)
     dh0 = torch.empty((E, B, spec.H), device=dev)
-    ptrs = (ctypes.c_void_p * len(leaves))(*[p.data_ptr() for p in leaves])
+    tab = layer_table(spec, leaves)
     wg = packed_weights_members(spec, leaves)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with _on(dev):
         rc = lib.njode_scan_bwd_members(
-            ctypes.addressof(cfg), E, ptrs, _ptr(wg),
+            ctypes.addressof(cfg), E, _ptr(tab), _ptr(wg),
             _ptr(_program(spec, dev)), _ptr(times), _ptr(dts), _ptr(obs),
             _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs), _ptr(hh),
             _ptr(lxh), _ptr(tauh), _ptr(dloss), _ptr(partials), _ptr(flat),
@@ -1508,10 +1578,9 @@ def _require_supported(cfg):
             "config outside the fused kernels' scope (output_size != "
             "input_size when masked, or with neither of them 1; a solver "
             "other than euler, a loss other than standard or easy, an MLP "
-            "that is missing, deeper than MAX_LIN linears (ROADMAP.md Queue "
-            "2) or not tanh/relu, a compute_dtype other than float32, or "
-            "activations of one row beyond one CTA's shared memory); use "
-            "models.njode.forward")
+            "that is missing or not tanh/relu, a compute_dtype other than "
+            "float32, or activations of one row beyond one CTA's shared "
+            "memory); use models.njode.forward")
 
 
 def t0_state(model, batch, enc_masks=None):

@@ -18,7 +18,7 @@ members in one launch) against three solo calls bit for bit; and
 ``philox_keep_plain`` bit for bit. Each variant is one branch of the
 kernels (unmasked or masked, encoder or GRU jump) or one option (no bias,
 relu, easy loss, input_current_t, residual encoder and readout, nets of
-other depths, nets of 9 to 16 linears, an output width other than the
+other depths, nets of 9 to 33 linears, an output width other than the
 input's). It finds arithmetic, indexing and barrier faults (a
 mismatched barrier hangs), not what nvcc refuses.
 """
@@ -83,7 +83,7 @@ def _run(lib, fs, spec, leaves, arrays, h0, u, seed, dloss=1.3):
 
     times, dts, obs, X, n_obs, start_X, M = fs.unpack_arrays(spec, arrays)
     Kk, Bb = obs.shape
-    ptrs = (ctypes.c_void_p * len(leaves))(*[p.data_ptr() for p in leaves])
+    tab = fs.layer_table(spec, leaves)
     wg = fs.packed_weights(spec, leaves)
     prog = (None if spec.plan != "global" else
             torch.tensor(spec.tile_program()[0], dtype=torch.int32))
@@ -96,7 +96,8 @@ def _run(lib, fs, spec, leaves, arrays, h0, u, seed, dloss=1.3):
         hists = ((torch.empty(Kk, Bb, spec.H), torch.empty(Kk, Bb, spec.D),
                   torch.empty(Kk, Bb, 1)) if want else (None,) * 3)
         rc = lib.njode_scan_fwd(
-            ctypes.addressof(c), ptrs, _ptr(wg), _ptr(prog), _ptr(times),
+            ctypes.addressof(c), _ptr(tab), _ptr(wg), _ptr(prog),
+            _ptr(times),
             _ptr(dts), _ptr(obs), _ptr(X), _ptr(M),
             _ptr(u if train else None), _ptr(seed if train else None),
             _ptr(n_obs), _ptr(h0), _ptr(start_X), _ptr(part), _ptr(loss),
@@ -110,7 +111,8 @@ def _run(lib, fs, spec, leaves, arrays, h0, u, seed, dloss=1.3):
     dh0 = torch.empty(Bb, spec.H)
     dloss = torch.tensor([dloss])
     rc = lib.njode_scan_bwd(
-        ctypes.addressof(c), ptrs, _ptr(wg), _ptr(prog), _ptr(times),
+        ctypes.addressof(c), _ptr(tab), _ptr(wg), _ptr(prog),
+        _ptr(times),
         _ptr(dts), _ptr(obs), _ptr(X), _ptr(M), _ptr(u), _ptr(seed),
         _ptr(n_obs), *(_ptr(t) for t in hists), _ptr(dloss), _ptr(parts),
         _ptr(flat), _ptr(dh0), None)
@@ -197,7 +199,8 @@ VARIANTS = [
                           residual_enc_dec=False), 3),
     ("rnn_out1_D2", dict(use_rnn=True, output_size=1), 2),
     ("rnn_out2_D1", dict(use_rnn=True, output_size=2), 1),
-    # nets deeper than 8 linears, up to MAX_LIN (16) in the ODE net
+    # nets deeper than 8 linears: 16 in the ODE net, then 17 and 33 (the
+    # layer table's records, no cap but shared memory)
     ("deep9", dict(ode_nn=((6, "tanh"),) * 8, enc_nn=((5, "relu"),) * 8,
                    readout_nn=((4, "tanh"),) * 8), 1),
     ("deep16", dict(ode_nn=((5, "tanh"), (4, "relu")) * 7 + ((6, "tanh"),),
@@ -206,6 +209,13 @@ VARIANTS = [
                            enc_nn=((4, "tanh"),) * 9), 2),
     ("rnn_deep10", dict(use_rnn=True, readout_nn=((5, "tanh"),) * 9,
                         ode_nn=((4, "relu"),) * 9), 2),
+    ("deep33", dict(ode_nn=((5, "tanh"), (6, "relu")) * 16,
+                    enc_nn=((4, "tanh"),) * 32,
+                    readout_nn=((6, "tanh"),) * 32), 1),
+    ("masked_deep17", dict(masked=True, ode_nn=((5, "tanh"),) * 16,
+                           readout_nn=((4, "relu"),) * 16), 2),
+    ("rnn_deep17", dict(use_rnn=True, ode_nn=((6, "tanh"),) * 16,
+                        readout_nn=((5, "tanh"),) * 3), 2),
 ]
 
 
@@ -250,7 +260,7 @@ def rehearse_members(lib, name, kw, D, R, mode, plan="resident", E=3):
     u = torch.stack(us).contiguous() if us[0] is not None else None
     seed = torch.cat(seeds) if seeds[0] is not None else None
     times, dts, obs, X, n_obs, start_X, M = fs.unpack_arrays(spec, arrays)
-    ptrs = (ctypes.c_void_p * len(leaves))(*[p.data_ptr() for p in leaves])
+    tab = fs.layer_table(spec, leaves)
     wg = fs.packed_weights_members(spec, leaves)
     prog = (None if spec.plan != "global" else
             torch.tensor(spec.tile_program()[0], dtype=torch.int32))
@@ -262,7 +272,8 @@ def rehearse_members(lib, name, kw, D, R, mode, plan="resident", E=3):
         hists = ((torch.empty(E, Kk, Bb, spec.H),
                   torch.empty(E, Kk, Bb, spec.D), torch.empty(E, Kk, Bb, 1)) if want else (None,) * 3)
         assert lib.njode_scan_fwd_members(
-            ctypes.addressof(c), E, ptrs, _ptr(wg), _ptr(prog), _ptr(times),
+            ctypes.addressof(c), E, _ptr(tab), _ptr(wg), _ptr(prog),
+            _ptr(times),
             _ptr(dts), _ptr(obs), _ptr(X), _ptr(M),
             _ptr(u if want else None), _ptr(seed if want else None),
             _ptr(n_obs), _ptr(h0), _ptr(start_X), _ptr(part), _ptr(loss),
@@ -275,7 +286,8 @@ def rehearse_members(lib, name, kw, D, R, mode, plan="resident", E=3):
     dh0 = torch.empty(E, Bb, spec.H)
     dloss = torch.tensor(dl)
     assert lib.njode_scan_bwd_members(
-        ctypes.addressof(c), E, ptrs, _ptr(wg), _ptr(prog), _ptr(times),
+        ctypes.addressof(c), E, _ptr(tab), _ptr(wg), _ptr(prog),
+        _ptr(times),
         _ptr(dts), _ptr(obs), _ptr(X), _ptr(M), _ptr(u), _ptr(seed),
         _ptr(n_obs), *(_ptr(t) for t in hists), _ptr(dloss),
         _ptr(parts), _ptr(flat), _ptr(dh0), None) == 0

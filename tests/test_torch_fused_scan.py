@@ -234,17 +234,15 @@ def test_unsupported_configs_raise():
     differs from its input (with or without the GRU jump) and a bf16
     config; and the port's own: an unmasked output differing from its input
     with neither of them 1 (the JAX forward cannot broadcast its loss
-    there), and an MLP deeper than ``MAX_LIN`` linears (ROADMAP.md Queue
-    2). Inside: a masked config with ``output_size == input_size``, the GRU
-    jump masked or not, an unmasked output of 1 at input 2 (and of 2 at
-    input 1), with the encoder or the GRU jump, and nets of 9 to
-    ``MAX_LIN`` linears."""
-    deep = ((8, "tanh"),) * fs.MAX_LIN
+    there). Inside: a masked config with ``output_size == input_size``, the
+    GRU jump masked or not, an unmasked output of 1 at input 2 (and of 2
+    at input 1), with the encoder or the GRU jump, and nets of 9 to 101
+    linears (no depth cap: the layer table)."""
+    deep = ((8, "tanh"),) * 16
     for D, kw in ((2, dict(masked=True, output_size=1)),
                   (2, dict(use_rnn=True, masked=True, output_size=1)),
                   (2, dict(compute_dtype="bfloat16")),
-                  (2, dict(output_size=3)),
-                  (2, dict(use_rnn=True, ode_nn=deep))):
+                  (2, dict(output_size=3))):
         _, tcfg = H.configs(D, 10, **kw)
         assert not fs.supported(tcfg)
         with pytest.raises(NotImplementedError):
@@ -257,6 +255,9 @@ def test_unsupported_configs_raise():
                   (2, dict(use_rnn=True, output_size=1)),
                   (2, dict(output_size=1)), (1, dict(output_size=2)),
                   (2, dict(use_rnn=True, ode_nn=deep[1:])),
+                  (2, dict(use_rnn=True, ode_nn=deep)),
+                  (1, dict(ode_nn=((10, "tanh"),) * 100,
+                           enc_nn=((10, "relu"),) * 100)),
                   (1, dict(readout_nn=((50, "tanh"),) * 8))):
         _, tcfg = H.configs(D, 10, **kw)
         assert fs.supported(tcfg)
@@ -282,46 +283,130 @@ def test_unsupported_configs_raise():
         fs.make_fused_loss_fn(huge)
 
 
+def _c_fields(src, name):
+    """The field names of ``struct name`` in a C source, in order."""
+    body = re.search(r"struct %s \{(.*?)\};" % name, src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    out = []
+    for decl in body.split(";"):
+        decl = decl.strip()
+        if not decl:
+            continue
+        names = decl.split(None, 1)[1] if not decl.startswith(
+            "unsigned") else decl.split(None, 2)[2]
+        for n in names.split(","):
+            out.append(re.sub(r"\[.*\]", "", n).strip())
+    return out
+
+
 def test_config_struct_mirrors_the_cuda_source():
     """``_ScanCfg`` / ``_MLPDesc`` list the fields of the C structs in
-    csrc/fused_scan.cu in order, all 4 bytes wide."""
+    csrc/fused_scan.cu in order, all 4 bytes wide, and no per-layer or
+    per-leaf array rides in them: the kernels' parameter block (the
+    config, the layer table's address and the other pointers) stays
+    within the 4,096 bytes a kernel may take and within the 1,776 bytes
+    of the by-value layout of 8 linears and 52 leaves it replaced."""
     with open(os.path.join(ROOT, "njode_tpu_torch", "ops", "csrc",
                            "fused_scan.cu")) as f:
         src = f.read()
 
-    def c_fields(name):
-        body = re.search(r"struct %s \{(.*?)\};" % name, src, re.S).group(1)
-        body = re.sub(r"//[^\n]*", "", body)
-        out = []
-        for decl in body.split(";"):
-            decl = decl.strip()
-            if not decl:
-                continue
-            names = decl.split(None, 1)[1] if not decl.startswith(
-                "unsigned") else decl.split(None, 2)[2]
-            for n in names.split(","):
-                out.append(re.sub(r"\[.*\]", "", n).strip())
-        return out
-
-    assert [f[0] for f in fs._MLPDesc._fields_] == c_fields("MLPDesc")
-    assert [f[0] for f in fs._ScanCfg._fields_] == c_fields("ScanCfg")
+    assert [f[0] for f in fs._MLPDesc._fields_] == _c_fields(src, "MLPDesc")
+    assert [f[0] for f in fs._ScanCfg._fields_] == _c_fields(src, "ScanCfg")
     n_int = sum(ctypes.sizeof(t) for _, t in fs._ScanCfg._fields_)
     assert ctypes.sizeof(fs._ScanCfg) == n_int
+    assert all(t is ctypes.c_int or t in (ctypes.c_uint32, ctypes.c_float)
+               or issubclass(t, fs._MLPDesc)
+               for _, t in fs._ScanCfg._fields_)
     assert re.search(r"#define MAX_ROWS (\d+)", src).group(1) == \
         str(fs.MAX_ROWS)
-    assert re.search(r"#define MAX_LIN (\d+)", src).group(1) == \
-        str(fs.MAX_LIN)
-    assert re.search(r"#define MAX_LEAVES (\d+)", src).group(1) == \
-        str(fs.MAX_LEAVES)
-    # K1-K3 take ScanCfg and Leaves by value: at MAX_LIN linears the two
-    # and the kernels' other parameters (at most 32 of 8 bytes) stay within
-    # the 4,096 bytes of a kernel's parameter block
-    assert fs.MAX_LIN >= 16
-    assert ctypes.sizeof(fs._ScanCfg) + 8 * fs.MAX_LEAVES + 32 * 8 <= 4096
+    assert not re.search(r"MAX_LIN|MAX_LEAVES", src)
+    # K1 and K2 take ScanCfg by value, then the table's address and 16
+    # other pointers
+    for kern in ("njode_scan_fwd_kernel", "njode_scan_bwd_kernel"):
+        params = re.search(r"\n%s\((.*?)\)" % kern, src, re.S).group(1)
+        decls = [d.strip() for d in params.split(",")]
+        assert decls[0] == "ScanCfg c" and "tab" in decls[1]
+        assert len(decls) == 1 + fs.KERNEL_PTRS
+        assert all("*" in d for d in decls[1:])
+    assert fs.param_bytes() <= min(4096, 1776)
     # the GRU's leaf offsets and regions follow the layout fields
     names = [f[0] for f in fs._ScanCfg._fields_]
     assert {"use_rnn", "gru_wih", "gru_whh", "gru_bih", "gru_bhh", "o_gru",
-            "o_dG"} <= set(names)
+            "o_dG", "o_lay", "n_rec", "tab_leaves", "tab_ptrs"} <= set(names)
+
+
+def test_layer_record_mirrors_the_cuda_source():
+    """``_LayerRec`` lists the fields of ``struct LayerRec`` in order, 4
+    bytes each, ``LAYER_INTS`` of them (the stride the kernels copy the
+    records with)."""
+    with open(os.path.join(ROOT, "njode_tpu_torch", "ops", "csrc",
+                           "fused_scan.cu")) as f:
+        src = f.read()
+    assert [f[0] for f in fs._LayerRec._fields_] == _c_fields(src,
+                                                              "LayerRec")
+    assert all(t is ctypes.c_int for _, t in fs._LayerRec._fields_)
+    assert ctypes.sizeof(fs._LayerRec) == 4 * fs.LAYER_INTS
+    assert re.search(r"#define LAYER_INTS (\d+)", src).group(1) == \
+        str(fs.LAYER_INTS)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(masked=True, ode_nn=((7, "relu"), (6, "tanh")),
+         readout_nn=((5, "tanh"),) * 3),
+    dict(use_rnn=True, bias=False, ode_nn=((4, "tanh"),) * 40)],
+    ids=["masked", "rnn_nobias_deep41"])
+def test_layer_table_holds_each_linear_and_leaf(kw):
+    """The layer table (``layer_table`` on CPU tensors): a record a Linear
+    of the ODE net, the encoder and the readout in turn (``lay`` in each
+    net's ``MLPDesc``; the post-jump readout shares the readout's), each
+    with its widths, the activation after it, its weight's and bias's
+    offsets in the flat and the packed parameters and the summed widths of
+    the hidden layers below it; then the leaves' offsets and their
+    addresses. A second call with the same leaves returns the same table;
+    a leaf at another address makes a new one."""
+    _, tcfg = H.configs(2, 10, **kw)
+    _, model = H.twin_models(*H.configs(2, 10, **kw))
+    spec = fs.Spec(tcfg)
+    leaves = [p.detach() for p in fs.flat_leaves(model)]
+    tab = fs.layer_table(spec, leaves)
+    assert tab.dtype == torch.int32 and tab.shape == (spec.tab_ints,)
+    recs = (fs._LayerRec * spec.n_rec).from_buffer_copy(
+        tab[:spec.tab_leaves].numpy().tobytes())
+    c = fs.make_cfg(spec, 30, 50, True, 0.5)
+    assert (c.n_rec, c.tab_leaves, c.tab_ptrs) == (
+        spec.n_rec, spec.tab_leaves, spec.tab_ptrs)
+    assert c.o_lay >= 0 and spec.tab_ptrs % 2 == 0
+    leaf = 0
+    for desc, ws, acts in ((c.ode, spec.ode_w, spec.ode_a),
+                           (c.enc, spec.enc_w, spec.enc_a),
+                           (c.ro, spec.ro_w, spec.ro_a)):
+        assert (desc.n_lin, desc.w_in) == (len(ws) - 1, ws[0])
+        for l in range(desc.n_lin):
+            r = recs[desc.lay + l]
+            assert (r.w_in, r.w_out) == (ws[l], ws[l + 1])
+            assert r.act == (0 if l == desc.n_lin - 1 or acts[l] == "tanh"
+                             else 1)
+            assert (r.w_off, r.pw_off) == (spec.leaf_off[leaf],
+                                           spec.pack_off[leaf])
+            leaf += 1
+            if spec.bias:
+                assert r.b_off == spec.leaf_off[leaf]
+                leaf += 1
+            else:
+                assert r.b_off == -1
+            assert r.save == sum(ws[1:l + 1])
+    assert c.ro2.lay == c.ro.lay and c.ro2.n_lin == c.ro.n_lin
+    n = len(spec.leaf_off)
+    assert tab[spec.tab_leaves:spec.tab_leaves + n].tolist() == \
+        spec.leaf_off
+    assert tab[spec.tab_ptrs:].view(torch.int64).tolist() == [
+        p.data_ptr() for p in leaves]
+    assert fs.layer_table(spec, leaves) is tab
+    moved = [leaves[0].clone()] + leaves[1:]
+    tab2 = fs.layer_table(spec, moved)
+    assert tab2 is not tab and torch.equal(tab2[:spec.tab_ptrs],
+                                           tab[:spec.tab_ptrs])
+    assert tab2[spec.tab_ptrs:].view(torch.int64)[0] == moved[0].data_ptr()
 
 
 def _arm_cfg(D, hidden, width, masked):
@@ -334,22 +419,23 @@ def _arm_cfg(D, hidden, width, masked):
 # of the activations alone): the arms of PERF.md section 4, those that fit
 # resident and the published arms whose weights do not fit one CTA
 # (experiments/configs.py: PhysioNet :233-245, climate :141-150, sine
-# :265-279); the global plan adds the ring (and, with the GRU jump, its
-# gate sums) in the shared memory the activations leave; the resident
-# plan's bytes are K2's at the most rows that fit; both hold the dropout
-# mask words (the global plan's masked branch without the GRU jump inside
-# a backward buffer, so its bytes are the activations')
+# :265-279); the global plan adds the layer records and the ring (and,
+# with the GRU jump, its gate sums) in the shared memory the activations
+# leave; the resident plan's bytes are K2's at the most rows that fit,
+# its nine layer records (288 bytes) included; both hold the dropout mask
+# words (the global plan's masked branch without the GRU jump inside a
+# backward buffer, so its bytes are the activations')
 PLAN_ARMS = [
-    ("main_path", 1, 10, 50, False, False, "resident", 16, 156128, 156128),
-    ("main_path_rnn", 1, 10, 50, False, True, "resident", 16, 164384,
-     164384),
-    ("climate_small", 5, 10, 50, True, False, "resident", 16, 168672,
-     168672),
-    ("climate_small_rnn", 5, 10, 50, True, True, "resident", 16, 177856,
-     177856),
-    ("physionet_50", 41, 41, 50, True, False, "resident", 2, 215888,
-     215888),
-    ("physionet_50_rnn", 41, 41, 50, True, True, "global", 16, 218048,
+    ("main_path", 1, 10, 50, False, False, "resident", 16, 156416, 156416),
+    ("main_path_rnn", 1, 10, 50, False, True, "resident", 16, 164672,
+     164672),
+    ("climate_small", 5, 10, 50, True, False, "resident", 16, 168960,
+     168960),
+    ("climate_small_rnn", 5, 10, 50, True, True, "resident", 16, 178144,
+     178144),
+    ("physionet_50", 41, 41, 50, True, False, "resident", 2, 216176,
+     216176),
+    ("physionet_50_rnn", 41, 41, 50, True, True, "global", 16, 218336,
      159936),
     ("physionet_200", 41, 41, 200, True, False, "global", 8, 232448,
      161120),
@@ -383,8 +469,9 @@ def test_plan_rule(arm):
         assert not spec.fits(plan, 2 * rows)
     if plan == "global":
         off, _ = spec.layout(rows, "global")
-        act = off["gsc"] if "gsc" in off else off["ring"]
+        act = off["gsc"] if "gsc" in off else off["lay"]
         assert 4 * act == act_bytes
+        assert off["ring"] - off["lay"] == fs.LAYER_INTS * spec.n_rec
         assert not any(spec.fits("resident", R) for R in fs.ROW_CHOICES)
 
 
@@ -432,7 +519,7 @@ def test_rows_rule(case):
 def test_forward_layout_and_rows_per_batch():
     """K1/K3's resident layout holds no gradient region and no backward
     region (K2's holds both), so more of its CTAs fit an SM; both end with
-    two sets of mask words; ``make_cfg``
+    two sets of mask words and the layer records; ``make_cfg``
     keeps one configuration per call shape and kernel, each at its batch's
     rows (the last, smaller batch of an epoch at its own), and a forced
     plan's rows at every batch."""
@@ -445,13 +532,15 @@ def test_forward_layout_and_rows_per_batch():
         bwd, n_bwd = spec.layout(R, "resident")
         assert not bwd_only & set(fwd) and {"w", "g", "dA"} <= set(bwd)
         assert {k: v - P4 for k, v in bwd.items()
-                if k not in bwd_only and k not in ("w", "mw")} == {
-            k: v for k, v in fwd.items() if k not in ("w", "mw")}
+                if k not in bwd_only and k not in ("w", "mw", "lay")} == {
+            k: v for k, v in fwd.items() if k not in ("w", "mw", "lay")}
         assert n_bwd - n_fwd > P4
         for off, n in ((fwd, n_fwd), (bwd, n_bwd)):
-            assert n - off["mw"] == (2 * spec.mask_words(R) + 3) // 4 * 4
-            assert off["mw"] == max(off.values())
-    assert 4 * spec.layout(16, "resident", bwd=False)[1] == 100096
+            assert off["lay"] - off["mw"] == (
+                2 * spec.mask_words(R) + 3) // 4 * 4
+            assert n - off["lay"] == fs.LAYER_INTS * spec.n_rec
+            assert off["lay"] == max(off.values())
+    assert 4 * spec.layout(16, "resident", bwd=False)[1] == 100384
     assert (spec.ctas_per_sm(16), spec.ctas_per_sm(16, False)) == (1, 2)
     c_fwd = fs.make_cfg(spec, 100, 100, True, 0.5, bwd=False)
     c_bwd = fs.make_cfg(spec, 100, 100, True, 0.5)
@@ -527,7 +616,7 @@ def test_reduce_order_is_ascending_rows(shape):
 
 def test_forced_plans_and_global_layout():
     """A forced plan: the resident plan of PhysioNet's 50 arm fits at 2
-    rows (215,888 B), not at 4, and every launch takes the forced rows
+    rows (216,176 B), not at 4, and every launch takes the forced rows
     whatever the batch; the global plan's layout has no weight, gradient
     or io-set regions, and ``make_cfg`` marks their offsets -1, names the
     plan and the rows, and counts the activations alone; the resident
@@ -535,7 +624,7 @@ def test_forced_plans_and_global_layout():
     (``io_stride`` apart), and no ring."""
     cfg = _arm_cfg(41, 41, 50, True)
     spec = fs.Spec(cfg, "prng", ("resident", 2))
-    assert (spec.plan, spec.rows, spec.smem_bytes) == ("resident", 2, 215888)
+    assert (spec.plan, spec.rows, spec.smem_bytes) == ("resident", 2, 216176)
     assert spec.rows_for(50) == spec.rows_for(4000, False) == 2
     with pytest.raises(ValueError, match="overflows"):
         fs.Spec(cfg, "prng", ("resident", 4))
@@ -569,7 +658,7 @@ def test_packed_weights_follow_leaf_offsets():
     """The global plan's weight buffer holds each leaf at its
     ``pack_off`` offset, flattened in the [out, in] layout: every leaf
     starts at a 16-byte boundary (the ring's 16-byte copies assume it),
-    zeros fill the gaps, and ``make_cfg`` hands the kernels the packed
+    zeros fill the gaps, and the layer table hands the kernels the packed
     offsets beside the unpadded ``leaf_off`` ones of the gradients."""
     _, tcfg = H.configs(2, 10, masked=True)
     _, model = H.twin_models(*H.configs(2, 10, masked=True))
@@ -581,9 +670,10 @@ def test_packed_weights_follow_leaf_offsets():
     for p, a, b in zip(leaves, spec.pack_off[:-1], spec.pack_off[1:]):
         assert torch.equal(wg[a:a + p.numel()], p.reshape(-1))
         assert not wg[a + p.numel():b].any()
-    c = fs.make_cfg(spec, 30, 50, True, 0.5)
-    assert list(c.ode.pw_off[:3]) == spec.pack_off[0:6:2]
-    assert list(c.ode.w_off[:3]) == spec.leaf_off[0:6:2]
+    recs = (fs._LayerRec * spec.n_rec).from_buffer_copy(
+        spec.table_head()[:spec.tab_leaves].numpy().tobytes())
+    assert [r.pw_off for r in recs[:3]] == spec.pack_off[0:6:2]
+    assert [r.w_off for r in recs[:3]] == spec.leaf_off[0:6:2]
 
 
 def test_ctypes_signatures_match_the_c_interface():

@@ -1,7 +1,7 @@
 """The CUDA kernels of ops/csrc/fused_scan.cu against their plain versions,
 on the card, over the configurations ``supported`` admits beyond the main
 path: easy loss, ``input_current_t``, relu, deeper and narrower MLPs
-(up to ``MAX_LIN`` = 16 linears), an unmasked output of another width than
+(up to 101 linears), an unmasked output of another width than
 the input, residual cases 0 and 2, no bias, a batch that is no multiple of
 the rows per CTA, and ``dt==0`` padding steps; and the masked branch (the climate
 model family): the masked cases of tests/test_fused_scan.py with partial
@@ -65,7 +65,8 @@ VARIANTS = [
     ("rnn_nobias_easy_ict_padding", 2, 10, 37, 20, 3, dict(
         use_rnn=True, bias=False, which_loss="easy", input_current_t=True)),
     # the full scope: an unmasked output of another width than the input
-    # (the global plan), and nets of 9 and 16 linears
+    # (the global plan), and nets of 9 to 101 linears (all three nets of
+    # 33 in one)
     ("out1_D2", 2, 10, 40, 25, 0, dict(output_size=1)),
     ("out2_D1_rnn", 1, 10, 37, 20, 0, dict(output_size=2, use_rnn=True)),
     ("easy_out1_D3", 3, 12, 29, 20, 2, dict(output_size=1,
@@ -73,6 +74,11 @@ VARIANTS = [
     ("deep9", 1, 10, 48, 20, 0, dict(ode_nn=((24, "tanh"),) * 8)),
     ("deep16", 2, 10, 33, 20, 2, dict(ode_nn=((12, "tanh"),) * 15,
                                       readout_nn=((10, "relu"),) * 11)),
+    ("deep33", 1, 8, 33, 20, 0, dict(ode_nn=((6, "tanh"),) * 32,
+                                     enc_nn=((5, "relu"),) * 32,
+                                     readout_nn=((6, "tanh"),) * 32)),
+    ("deep101", 2, 8, 29, 20, 2,
+     dict(ode_nn=((6, "tanh"), (5, "relu")) * 50)),
 ]
 
 
@@ -268,6 +274,10 @@ MASKED_VARIANTS = [
      dict(use_rnn=True, bias=False, ode_nn=((50, "tanh"), (50, "tanh")),
           readout_nn=((50, "tanh"), (50, "tanh")),
           enc_nn=((50, "tanh"), (50, "tanh")))),
+    ("masked_deep33", 3, 12, 21, 20, 0, False,
+     dict(ode_nn=((6, "tanh"),) * 32, readout_nn=((5, "tanh"),) * 32)),
+    ("masked_rnn_deep17", 3, 12, 29, 20, 0, False,
+     dict(use_rnn=True, ode_nn=((8, "relu"),) * 16)),
 ]
 
 

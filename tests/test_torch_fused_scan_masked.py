@@ -176,7 +176,7 @@ def test_masked_kernels_route_and_gates(monkeypatch):
                            dropout_rate=0.1, masked=True)
     assert fs.supported(climate)
     spec = fs.Spec(climate)
-    assert spec.n_params == 10925 and spec.smem_bytes == 168672
+    assert spec.n_params == 10925 and spec.smem_bytes == 168960
     assert spec.smem_bytes <= fs.SMEM_LIMIT
     _, unmasked = H.configs(5, 10, ode_nn=nn, readout_nn=nn, enc_nn=nn,
                             dropout_rate=0.1)

@@ -10,7 +10,8 @@ variants); 'prng' mode at 2 and 16 rows too, where the mask words of a
 step take more lanes than the idle warps of its phases hold, and a net
 37 columns wide (two words a row, a partial quad); and the standalone
 mask kernel's C call against the plain Philox; and the full scope: an
-output of another width than the input and nets of 9 to 16 linears.
+output of another width than the input and nets of 9 to 33 linears (the
+layer table in the kernels' device memory).
 This finds arithmetic, indexing and barrier faults of the source without
 a card; what nvcc refuses shows only on the card."""
 
@@ -51,14 +52,17 @@ def test_cuda_source_matches_plain_and_global_plan(cpu_lib, variant):
         assert rs.rehearse(cpu_lib, name, kw, D, R, mode)
 
 
-@pytest.mark.parametrize("variant", ["out1_D2", "rnn_out2_D1", "deep16"])
+@pytest.mark.parametrize("variant", ["out1_D2", "rnn_out2_D1", "deep16",
+                                     "rnn_deep17"])
 def test_full_scope_matches_plain_and_global_plan(cpu_lib, variant):
     """An unmasked output of another width than the input (the loss
     broadcast over the wider of the two, its gradient summed back; with
     the encoder and with the GRU jump; the global plan alone) and nets of
-    up to 16 linears (there the global plan bit for bit the resident
-    plan): K1, K2 and K3 against the plain versions, at one row in 'prng'
-    mode (the script's other full-scope variants run on request)."""
+    16 and 17 linears (the ODE net's 17 beside a 4-linear readout, with
+    the GRU jump; there the global plan bit for bit the resident plan):
+    K1, K2 and K3 against the plain versions, at one row in 'prng' mode
+    (the script's other full-scope variants, all three nets of 33
+    linears among them, run on request)."""
     sys.path.insert(0, SCRIPTS)
     import rehearse_fused_scan as rs
 

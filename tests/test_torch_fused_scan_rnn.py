@@ -245,9 +245,9 @@ def test_rnn_gates_layout_and_route(monkeypatch):
     launches nothing."""
     nn = ((50, "tanh"), (50, "tanh"))
     for D, hid, masked, plan, n_params, nbytes in (
-            (1, 10, False, "resident", 10461, 164384),
-            (5, 10, True, "resident", 11435, 177856),
-            (41, 41, True, "global", 34755, 218048)):
+            (1, 10, False, "resident", 10461, 164672),
+            (5, 10, True, "resident", 11435, 178144),
+            (41, 41, True, "global", 34755, 218336)):
         for bias in (True, False):
             _, cfg = H.configs(D, hid, ode_nn=nn, readout_nn=nn, enc_nn=nn,
                                dropout_rate=0.1, masked=masked,
@@ -264,15 +264,18 @@ def test_rnn_gates_layout_and_route(monkeypatch):
             # the other configs' regions stay; the GRU's follow their
             # activations, then (global plan) its gate sums, the mask
             # words (which the masked branch without the GRU keeps in a
-            # backward buffer instead) and the ring
+            # backward buffer instead), the layer records and the ring
             ring0, mw0 = off0.pop("ring"), off0.pop("mw")
-            a0 = ring0 if masked else mw0
+            lay0 = off0.pop("lay")
+            a0 = lay0 if masked else mw0
             n_mw = (spec.mask_words(16) + 3) // 4 * 4
-            assert {k: v for k, v in off.items()
-                    if k not in ("gru", "dG", "gsc", "mw", "ring")} == off0
-            assert (off["gru"], off["dG"], off["gsc"], off["mw"],
+            assert {k: v for k, v in off.items() if k not in (
+                "gru", "dG", "gsc", "mw", "lay", "ring")} == off0
+            a1 = a0 + 224 * hid + n_mw
+            assert (off["gru"], off["dG"], off["gsc"], off["mw"], off["lay"],
                     off["ring"]) == (a0, a0 + 64 * hid, a0 + 128 * hid,
-                                     a0 + 224 * hid, a0 + 224 * hid + n_mw)
+                                     a0 + 224 * hid, a1,
+                                     a1 + fs.LAYER_INTS * spec.n_rec)
             c = fs.make_cfg(spec, 20, 50, True, 0.5)
             i0 = spec.gru_leaf0
             assert (c.use_rnn, c.gru_wih, c.gru_whh) == (

@@ -1,7 +1,8 @@
 """The NJODE scan kernels' full scope (ops/fused_scan.py): an unmasked
-output of another width than the input (E3a) and MLPs of 9 to ``MAX_LIN``
-linears (E3b), the plain versions K1-K3 against the JAX package, and
-``supported`` against the JAX rule and plan over a grid of configs.
+output of another width than the input (E3a) and MLPs of 9 to 101 linears
+(E3b: no depth cap, the layers described by a table in device memory), the
+plain versions K1-K3 against the JAX package, and ``supported`` against
+the JAX rule and plan over a grid of configs.
 
 E3a. The eager forward's loss (``losses.step_loss`` with ``M =
 ones_like(X)``) broadcasts ``X [B, D]`` against ``y [B, O]``, so both terms
@@ -37,13 +38,20 @@ E3A = [("D2_O1", 2, 1, dict()), ("D1_O2", 1, 2, dict()),
        ("D1_O2_rnn", 1, 2, dict(use_rnn=True)),
        ("D3_O1_easy", 3, 1, dict(which_loss="easy",
                                  residual_enc_dec=False))]
-# (id, D, config overrides): 9 and 12 linears
+# (id, D, config overrides): 9 and 12 linears, then 17 and 33 (the GRU
+# jump, the masked branch, all three nets deep)
 E3B = [("ode9", 1, dict(ode_nn=((13, "tanh"),) * 8)),
        ("all12", 2, dict(ode_nn=((9, "tanh"), (7, "relu")) * 5 + (
            (8, "tanh"),), enc_nn=((6, "tanh"),) * 11,
            readout_nn=((5, "relu"),) * 11)),
        ("rnn_ro9", 1, dict(use_rnn=True, readout_nn=((11, "tanh"),) * 8)),
-       ("masked_enc9", 2, dict(masked=True, enc_nn=((7, "tanh"),) * 8))]
+       ("masked_enc9", 2, dict(masked=True, enc_nn=((7, "tanh"),) * 8)),
+       ("rnn_ode17", 1, dict(use_rnn=True, ode_nn=((6, "tanh"),) * 16)),
+       ("masked_ro17", 2, dict(masked=True, readout_nn=(
+           (5, "tanh"), (7, "relu")) * 8)),
+       ("all33", 1, dict(ode_nn=((7, "tanh"),) * 32,
+                         enc_nn=((5, "relu"),) * 32,
+                         readout_nn=((6, "tanh"),) * 32))]
 
 
 def _batch(D, masked):
@@ -115,10 +123,23 @@ def test_trainer_routes_give_one_loss_at_another_output_width(case):
     forward) on twin models: the same eval loss, the same first training
     loss and the same weights after two Adam steps (no dropout, so both
     routes see the same net)."""
+    _, D, O, kw = case
+    _trainer_routes_agree(D, dict(kw, output_size=O))
+
+
+def test_trainer_routes_give_one_loss_at_17_linears():
+    """The same at an ODE net of 17 linears with the GRU jump: the kernel
+    route takes it (``supported``) and gives the eager route's losses and
+    weights."""
+    _, D, kw = next(c for c in E3B if c[0] == "rnn_ode17")
+    assert fs.supported(H.configs(D, 10, **kw)[1])
+    _trainer_routes_agree(D, kw)
+
+
+def _trainer_routes_agree(D, kw):
     from njode_tpu_torch.training import steps
 
-    _, D, O, kw = case
-    jcfg, tcfg = H.configs(D, 10, output_size=O, **kw)
+    jcfg, tcfg = H.configs(D, 10, **kw)
     _, m_kern = H.twin_models(jcfg, tcfg)
     _, m_eager = H.twin_models(jcfg, tcfg)
     rs = np.random.RandomState(5)
@@ -194,7 +215,16 @@ def test_deep_nets_match_jax(case, train):
 def test_deep_net_plain_k1_matches_pallas_interpret():
     """12 linears: the plain K1 against the JAX kernel's forward in
     interpret mode (loss only; its K2 is covered by the XLA reference)."""
-    _, D, kw = E3B[1]
+    _eval_matches_pallas_interpret("all12")
+
+
+def test_17_linears_plain_k1_matches_pallas_interpret():
+    """17 linears in the ODE net, the GRU jump: the same."""
+    _eval_matches_pallas_interpret("rnn_ode17")
+
+
+def _eval_matches_pallas_interpret(name):
+    _, D, kw = next(c for c in E3B if c[0] == name)
     jcfg, tcfg = H.configs(D, 10, **kw)
     params, model = H.twin_models(jcfg, tcfg)
     b = _batch(D, False)
@@ -207,9 +237,9 @@ def test_deep_net_plain_k1_matches_pallas_interpret():
 # the grid: widths, hidden sizes and depths of the published arms and
 # beyond, each with the JAX rule's plan at the main path's K and the
 # climate one's
-_WIDTHS = (50, 200, 400, 1600)
+_WIDTHS = (10, 50, 200, 400, 1600)
 _HIDDEN = (10, 50, 200)
-_DEPTHS = (2, 8, 11, 15)         # hidden layers: 3 to 16 linears
+_DEPTHS = (2, 8, 15, 16, 32, 64, 100)  # hidden layers: 3 to 101 linears
 
 
 @pytest.mark.parametrize("D,O,masked,use_rnn", [
@@ -218,8 +248,7 @@ _DEPTHS = (2, 8, 11, 15)         # hidden layers: 3 to 16 linears
     (41, 1, False, False), (5, 5, False, False)])
 def test_supported_agrees_with_the_jax_rule_and_plan(D, O, masked, use_rnn):
     """Every fp32 config that the JAX rule takes and plans at K = 100 or
-    2,004 (B = 100) the port's ``supported`` takes; the port refuses only
-    a net deeper than ``MAX_LIN`` linears (the cap in ROADMAP.md Queue 2)."""
+    2,004 (B = 100) the port's ``supported`` takes, at every depth."""
     n = planned = 0
     for width in _WIDTHS:
         for hidden in _HIDDEN:
@@ -235,6 +264,6 @@ def test_supported_agrees_with_the_jax_rule_and_plan(D, O, masked, use_rnn):
                     != (None, None) for K in (100, 2004))
                 n += 1
                 planned += bool(jplan)
-                if jplan and depth + 1 <= fs.MAX_LIN:
+                if jplan:
                     assert fs.supported(tcfg), (width, hidden, depth)
     assert planned > n // 4
