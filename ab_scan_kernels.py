@@ -3,8 +3,8 @@ checkout on one CUDA card, to compare two versions within one machine.
 
     python3 ab_scan_kernels.py ROOT TAG [MODE]
 
-MODE: witness, gob, phases, masks, main, scope or build (none: the
-timings below).
+MODE: witness, gob, phases, masks, main, wgrad, scope or build (none:
+the timings below).
 
 ROOT is a checkout holding ``njode_tpu_torch/`` and ``chip_smoke.py`` (e.g.
 the parent commit unpacked with ``git archive`` into a git-ignored
@@ -77,6 +77,22 @@ takes it, an unmasked output of another width than the input
 rule picks, and the main path's model with a 16-linear ODE net (B = 100,
 the global plan); then a line of digests of each arm's outputs.
 
+The digests hold K1's and K3's outputs and, apart, K2's dh0; K2's weight
+gradients go to ``_check/ab_grads/<TAG>_<arm>.pt`` (a git-ignored
+directory), and ``python3
+ab_scan_kernels.py . TAG_A grads TAG_B`` holds each arm's against the
+other checkout's at the North-star tolerances (since K2's stage (c) sums
+them in another order than a single walk did, they need not be equal bit
+for bit).
+
+With ``wgrad`` it times the weight gradients' stage (c) alone
+(``wgrad_arms``): the device time a call (torch.profiler, every chunk's
+launch) of K2's ``njode_wgrad_kernel`` at the main path (B = 200 and 100,
+the GRU jump at B = 200, members E = 5 at B = 100) and of K6's
+``gob_wgrad_kernel`` at GOB hidden 50 and 100 and the climate GOB arm,
+then a line of digests of the gradients and d(h0) each call gives (equal
+digests in two checkouts: equal bits).
+
 With ``scope`` it runs the checkout's ``chip_smoke.phase_scope`` alone
 (its checks, launch counts and times; a checkout that has it).
 
@@ -92,6 +108,7 @@ checkouts) and its histories against the plain version in fp32 and in
 fp64."""
 
 import hashlib
+import os
 import sys
 import time
 
@@ -466,7 +483,15 @@ def main_arms(cs, fs, dev, tag, masked_batch):
                                       one, None, seed)
         l3, _ = fs.scan_fwd_cuda(spec3, leaves, arrays, 0.5, h0, False,
                                  want_hists=False)
-        digests[name[1:]] = digest([loss, *hists, *grads, dh0, l3])
+        # K1's and K3's outputs and K2's dh0 keep their bits (K1's
+        # histories apart: a plan that changed its rows a CTA sums the
+        # loss in another order); K2's weight
+        # gradients (summed in another order since K2's stage (c)) are
+        # saved for ``compare_grads``
+        digests[name[1:]] = digest([loss, *hists, l3])
+        digests[name[1:] + "_hist"] = digest(list(hists))
+        digests[name[1:] + "_dh0"] = digest([dh0])
+        torch.save([g.cpu() for g in grads], grads_file(tag, name[1:]))
         out["K1" + name] = cs.cuda_ms(lambda: fs.scan_fwd_cuda(
             spec, leaves, arrays, 0.5, h0, True, None, seed), reps, 2)
         out["K2" + name] = cs.cuda_ms(lambda: fs.scan_bwd_cuda(
@@ -507,6 +532,116 @@ def main_arms(cs, fs, dev, tag, masked_batch):
           flush=True)
 
 
+def wgrad_arms(cs, fs, dev, tag, masked_batch):
+    """The ``wgrad`` mode (module docstring): stage (c)'s device ms a call
+    at each arm, one line, then a line of digests of each call's outputs."""
+    import torch
+
+    from njode_tpu_torch.models import gru_ode_bayes as gob
+    from njode_tpu_torch.ops import fused_gob as fg
+
+    one = torch.ones((), device=dev)
+    seed = torch.tensor([7], dtype=torch.int64, device=dev)
+    out, digests = {}, {}
+
+    def digest(ts):
+        return hashlib.sha1(b"".join(
+            t.detach().cpu().numpy().tobytes() for t in ts)).hexdigest()[:16]
+
+    def njode(name, cfg, model, batch):
+        spec = fs.Spec(cfg, "prng")
+        leaves = [p.detach() for p in fs.flat_leaves(model)]
+        arrays = fs.batch_arrays(batch)
+        with torch.no_grad():
+            h0 = fs.t0_state(model, batch)
+        _, hists = fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, True,
+                                    None, seed)
+        bwd = lambda: fs.scan_bwd_cuda(spec, leaves, arrays, 0.5,  # noqa
+                                       True, hists, one, None, seed)
+        g, dh0 = bwd()
+        digests[name] = digest([*g, dh0])
+        out[name] = device_ms(bwd, "njode_wgrad_kernel", 20)
+
+    for B in (200, 100):
+        njode(f"main_B{B}", *cs.main_path_setup(B, 100, 0, dev))
+    njode("rnn_B200", *cs.main_path_setup(200, 100, 0, dev, use_rnn=True))
+    cfg, models, batches = cs._synthetic_members(5, 100, 100, 50, seed0=3)
+    _, leaves, arrays, h0 = cs._member_layout(models, batches)
+    spec = fs.Spec(cfg, "prng")
+    seeds = torch.arange(5, dtype=torch.int64, device=dev) + 11
+    _, hists = fs.scan_fwd_members_cuda(spec, leaves, arrays, 0.5, h0, True,
+                                        None, seeds)
+    dl = torch.linspace(0.8, 1.2, 5, device=dev)
+    bwd = lambda: fs.scan_bwd_members_cuda(spec, leaves, arrays,  # noqa
+                                           0.5, True, hists, dl, None, seeds)
+    g, dh0 = bwd()
+    digests["members_E5"] = digest([*g, dh0])
+    out["members_E5"] = device_ms(bwd, "njode_wgrad_kernel", 10)
+    arms = []
+    for hidden in (50, 100):
+        cfg, _, _, arrays, leaves, st = cs.gob_setup(20, 100, hidden, True,
+                                                     1e-4, hidden, dev)
+        arms.append((f"gob_h{hidden}", cfg, arrays, leaves, st, 10))
+    gcfg, gmodel = cs._climate_gob(dev)
+    b = masked_batch(2004, 100, 5)
+    with torch.no_grad():
+        h0 = gob.mlp2(gmodel.covariates_map, b.start_X, 0.0)
+        p0 = gob.mlp2(gmodel.p_model, h0, 0.0)
+    arms.append(("gob_clim", gcfg, (b.times, b.dt, b.obs, b.X, b.M),
+                 [p.detach() for p in fg.flat_leaves(gmodel, fg.Spec(gcfg))],
+                 (h0.contiguous(), p0[:, :5].contiguous(),
+                  p0[:, 5:].contiguous()), 3))
+    for name, cfg, arrays, leaves, st, reps in arms:
+        spec = fg.Spec(cfg, "prng")
+        _, hists = fg.gob_scan_fwd_cuda(spec, leaves, arrays, *st, True,
+                                        None, seed)
+        bwd = lambda: fg.gob_scan_bwd_cuda(spec, leaves, arrays,  # noqa
+                                           True, hists, one, None, seed)
+        digests[name] = digest([*bwd()[0]])
+        out[name] = device_ms(bwd, "gob_wgrad_kernel", reps)
+    print(tag, "wgrad_ms", " ".join(f"{k}={v:.5f}" for k, v in out.items()),
+          flush=True)
+    print(tag, "digests", " ".join(f"{k}={v}" for k, v in digests.items()),
+          flush=True)
+
+
+GRADS_DIR = os.path.join("_check", "ab_grads")
+
+
+def grads_file(tag, arm):
+    """Where ``main`` keeps an arm's K2 weight gradients (under the
+    working directory's git-ignored ``_check/``)."""
+    os.makedirs(GRADS_DIR, exist_ok=True)
+    safe = "".join(c if c.isalnum() else "_" for c in tag)
+    return os.path.join(GRADS_DIR, f"{safe}_{arm}.pt")
+
+
+def compare_grads(tag_a, tag_b):
+    """Each arm's K2 weight gradients of two checkouts' ``main`` runs
+    against each other: the largest |a - b| over atol + rtol |b| of every
+    leaf, at the North-star tolerances (rtol 2e-4, atol 2e-5), and whether
+    they are equal bit for bit; one line an arm, then whether all held."""
+    import glob
+
+    import torch
+
+    safe = "".join(c if c.isalnum() else "_" for c in tag_a)
+    head = os.path.join(GRADS_DIR, f"{safe}_")
+    ok = True
+    for path in sorted(glob.glob(head + "*.pt")):
+        arm = path[len(head):-3]
+        ga = torch.load(path)
+        gb = torch.load(grads_file(tag_b, arm))
+        share = max(float(((a - b).abs() / (2e-5 + 2e-4 * b.abs())).max())
+                    for a, b in zip(ga, gb))
+        equal = all(torch.equal(a, b) for a, b in zip(ga, gb))
+        ok &= share <= 1.0
+        print("grads", arm, f"share_of_tol={share:.4f}", f"bitwise={equal}",
+              flush=True)
+    print("grads_within_tolerance", ok, flush=True)
+    return ok
+
+
 def param_bytes(fs):
     """Bytes of K1/K2's parameter block in the checkout ``fs`` comes from:
     its own count, or (a checkout whose kernels take their per-leaf
@@ -536,7 +671,7 @@ def main(root, tag, what="timing"):
         key = "fused_scan_njode_phase_clock"
     else:
         _build.build_all(("fused_scan", "fused_gob")
-                         if what in ("gob", "masks", "scope")
+                         if what in ("gob", "masks", "scope", "wgrad")
                          else ("fused_scan",))
         _build.load("fused_scan")
         key = "fused_scan"
@@ -571,6 +706,9 @@ def main(root, tag, what="timing"):
         return
     if what == "main":
         main_arms(cs, fs, dev, tag, masked_batch)
+        return
+    if what == "wgrad":
+        wgrad_arms(cs, fs, dev, tag, masked_batch)
         return
     if what == "scope":
         t1 = time.time()
@@ -651,4 +789,6 @@ def main(root, tag, what="timing"):
 
 
 if __name__ == "__main__":
+    if sys.argv[3:4] == ["grads"]:
+        sys.exit(0 if compare_grads(sys.argv[2], sys.argv[4]) else 1)
     main(*sys.argv[1:4])

@@ -35,6 +35,19 @@ before phase 3:
               trainer's batch (``mask_cost``: each with dropout off, in
               'input' mode fed with K4's written-out masks and in 'prng'
               mode, which must give the same bits);
+4b. k2_stages - K2's three stages (stage (a) the forward re-run, stage
+              (b) the chain, stage (c) the weight gradients; one C call)
+              against their plain versions (fused_scan.
+              scan_bwd_staged_plain): the call twice bit for bit, the
+              workspace of its first chunk field by field (stage (a)'s
+              forward fields, the chain's deltas) and the gradients, at
+              the main path (B = 100, 200), the GRU jump, the climate small
+              and PhysioNet 50 arms (their first 100 steps), an output of
+              another width (the global plan), ODE nets of 9 and 16
+              linears and E = 3 members (each its solo call's bits); each
+              stage's device time at B = 200 (torch.profiler, summing to
+              the call's CUDA-event time), its plain version's, its bound
+              and stage (c)'s PyTorch yardstick; the workspace's bytes;
 5. trainer  - njode_tpu_torch.training.trainer.train on a 20,000-path
               BlackScholes dataset, 2 epochs of batch 100 with 'prng'
               dropout masks; losses must be finite, the launch counts
@@ -154,11 +167,12 @@ before phase 3:
               the stand-in cut to 1,000 records (800 train, 16 batches);
               losses and both metrics finite, and the launch counts
               exact;
-22. physionet_rnn - the masked GRU jump at the 50 arm in the global plan:
-              K1-K3 against their plain versions over the first 100 steps
-              in both modes, their times and bounds over all 3,006, and one
+22. physionet_rnn - the masked GRU jump at the 50 arm in the resident
+              plan (4 rows the most that fit, one a CTA at B = 50): K1-K3
+              against their plain versions over the first 100 steps in
+              both modes, their times and bounds over all 3,006, and one
               epoch of physionet_trainer.train(use_rnn=True) with exact
-              launch counts (the global plan's trainer path);
+              launch counts;
 23. sweep    - the published grids of njode_tpu_torch/experiments/
               configs.py at their widths and hyperparameters, their
               datasets created on the card (3 base, 2 HestonWOFeller, the
@@ -175,7 +189,7 @@ before phase 3:
               and a PhysioNet 50-arm entry on 1,000 stand-in records (the
               'records' live key); each run's result must be 0, its metric
               row finite, its launch counts exact under the key of the
-              plan it takes (the global plan at widths 100, 160, 320 and
+              plan it takes (the global plan at widths 160, 320 and
               400), every scan launch at the rule's rows, and, where
               matplotlib is missing, its figures skipped with one printed
               line and none written; then K1 and K2 (with K3) against
@@ -683,8 +697,7 @@ def phase_timing(results):
     b1 = in_bytes + hist_bytes + 4 * -(-B // spec.rows_for(B, False))
     # backward: the recomputed forward, plus dW and dx per linear
     f2 = 3.0 * f1
-    b2 = (in_bytes + hist_bytes + 4 + 4 * -(-B // spec.rows_for(B)) * P
-          + 4 * B * spec.H)
+    b2 = in_bytes + hist_bytes + 4 + 4 * P + 4 * B * spec.H
     f3 = 2.0 * mac * B3 * K3
     b3 = 4 * (2 * K3 + K3 * B3 * 2 + B3 * 2 + B3 * spec.H + P)
     n_mask = K * spec.S * B * spec.w_max
@@ -1070,6 +1083,22 @@ def _check_counts(phase, counts, expect):
         .replace(" ", ""))
 
 
+def _check_stage_counts(phase, n_bwd):
+    """K2's stage launches of the run just made (``STAGE_LAUNCHES``, set
+    to 0 with the counts) for its ``n_bwd`` resident K2 calls: each stage
+    the same positive multiple of them (a launch a chunk); returns them."""
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    got = dict(fs.STAGE_LAUNCHES)
+    n = got["njode_bwd_chain"]
+    if n <= 0 or n % n_bwd or set(got.values()) != {n}:
+        raise AssertionError(f"{phase}: K2's stage launches {got} for "
+                             f"{n_bwd} calls")
+    say(phase, k2_stage_launches=json.dumps(got).replace(" ", ""),
+        chunks_a_call=n // n_bwd)
+    return got
+
+
 def check_rows(phase, cfg):
     """Every K1-K3 launch of the run just made (``LAUNCH_ROWS``, set to 0
     with the counts) took the rows ``Spec(cfg).rows_for`` takes at its
@@ -1144,10 +1173,12 @@ def phase_trainer(results):
         _check_counts("trainer", counts, expect)
         check_rows("trainer", results["setup"]["cfg"])
         results["launches"] = counts
+        results["stage_launches"] = _check_stage_counts("trainer", steps)
         # the same run in one chunk of 2 epochs (train_epochs)
         t0 = time.time()
         chunk = _synthetic_run(tmp, "chunk", epoch_chunk=2)
         _check_counts("chunk", chunk, expect)
+        results["chunk_stage_launches"] = _check_stage_counts("chunk", steps)
         check_rows("chunk", results["setup"]["cfg"])
         same_as_per_epoch("chunk", os.path.join(tmp, "models_trainer"),
                           os.path.join(tmp, "models_chunk"))
@@ -1513,36 +1544,274 @@ def _staged_plain_ms(spec, leaves, arrays, hists, seed):
     return {"remat": ms_a, "chain": ms_b, "wgrad": ms_c}
 
 
-def _wgrad_library(spec, ws, KB):
-    """Stage (c)'s jobs as PyTorch calls on the kernel's own workspace
-    (torch.matmul of each x^T d, sum for a bias): the yardstick of
-    gob_wgrad_kernel, used nowhere in the port."""
+def _k2_written(spec):
+    """The workspace fields K2 writes in the spec's plan: stage (a)'s
+    forward fields (resident) or the global chain's Linear inputs, then
+    the chain's deltas; the mask words apart (checked through the
+    deltas)."""
+    kinds = "xfd" if spec.plan == "resident" else "xd"
+    return [(n, k) for n, _, k in spec.ws_fields if k in kinds
+            and n != ("mw",) and not (n[0] == "le" and spec.D != spec.O)]
+
+
+def k2_stage_checks(tag, spec, leaves, arrays, hists, u, seed,
+                    members=False):
+    """K2's three stages on the card against their plain versions
+    (``fused_scan.scan_bwd_staged_plain``, or its member form): the call
+    twice bit for bit (gradients, dh0 and every field it writes); the
+    workspace of its first chunk field by field, stage (a)'s forward
+    fields (the global plan: the chain's Linear inputs) and the chain's
+    deltas within GRAD_TOL scaled by the reference's largest |value|
+    (``scaled_tol``); dh0 and stage (c)'s gradients at GRAD_TOL. A
+    member launch's chunk may be shorter than its members' solo chunks:
+    the fields are compared over the rows both cover. Returns the largest
+    absolute errors {"remat", "chain", "wgrad"}; prints the workspace's
+    bytes."""
     import torch
 
-    from njode_tpu_torch.ops import fused_gob as fg
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    dev = hists[0].device
+    if members:
+        E, K, B = arrays[2].shape
+        dloss = torch.linspace(0.8, 1.2, E, device=dev)
+        cuda, plain = fs.scan_bwd_members_cuda, fs.scan_bwd_members_staged_plain
+    else:
+        E, (K, B) = 1, arrays[2].shape
+        dloss = torch.ones((), device=dev)
+        cuda, plain = fs.scan_bwd_cuda, fs.scan_bwd_staged_plain
+    written = _k2_written(spec)
+
+    def fields(ws, n):
+        return [fs.ws_view(spec, ws[..., :n, :], f) for f, _ in written]
+
+    runs = [cuda(spec, leaves, arrays, 0.5, True, hists, dloss, u, seed,
+                 want_ws=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    (g1, d1, w1), (g2, d2, w2) = runs
+    n = w1.shape[-2]
+    if not all(torch.equal(a, b) for a, b in zip(
+            g1 + [d1] + fields(w1, n), g2 + [d2] + fields(w2, n))):
+        raise AssertionError(f"K2 stages ({tag}) differ between two runs")
+    gp, dp, wp = plain(spec, leaves, arrays, 0.5, True, hists, dloss, u,
+                       seed, want_ws=True)
+    n = min(n, wp.shape[-2])
+    err = {"remat": 0.0, "chain": 0.0, "wgrad": 0.0}
+    for (f, kind), a, b in zip(written, fields(w1, n), fields(wp, n)):
+        key = "chain" if kind == "d" else "remat"
+        err[key] = max(err[key], check_close(
+            f"K2 stage {'(b) delta' if kind == 'd' else '(a) field'} {f} "
+            f"({tag})", a, b, scaled_tol(b)))
+    err["chain"] = max(err["chain"], check_close(
+        f"K2 stages dh0 ({tag})", d1, dp, GRAD_TOL))
+    for i, (a, b) in enumerate(zip(g1, gp)):
+        err["wgrad"] = max(err["wgrad"], check_close(
+            f"K2 stage (c) grad {i} ({tag})", a, b, GRAD_TOL))
+    Kc = spec.bwd_chunk(K, B, E)
+    say("k2_stages", arm=tag, plan=spec.plan, rows=spec.rows_for(B),
+        remat_rows=spec.remat_rows() if spec.plan == "resident" else 0,
+        E=E, K=K, B=B, chunk=Kc, stretch=spec.wgrad_steps(B),
+        chunks=-(-K // Kc), rec_floats=spec.rec,
+        ws_bytes=4 * E * Kc * B * spec.rec,
+        **{f"{k}_err": f"{v:.3e}" for k, v in err.items()},
+        bitwise_repeat=True)
+    return err
+
+
+def _k2_staged_plain_ms(spec, leaves, arrays, hists, seed):
+    """CUDA-event ms of the plain version of each of K2's stages ('prng'
+    masks): ``fused_scan.scan_bwd_staged_plain`` run once, each chunk's
+    stages timed through its ``timer`` and summed over the chunks."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    ms = {"remat": 0.0, "chain": 0.0, "wgrad": 0.0}
+
+    def timer(stage, fn):
+        out, t = timed(fn)
+        ms[stage] += t
+        return out
+
+    fs.scan_bwd_staged_plain(spec, leaves, arrays, 0.5, True, hists,
+                             torch.ones((), device=hists[0].device), None,
+                             seed, timer=timer)
+    return ms
+
+
+def _wgrad_library(spec, view, out_major):
+    """Stage (c)'s jobs (``spec.wgrad_jobs()``) as PyTorch calls on the
+    kernel's own workspace, ``view(field)`` a field's [records, width]:
+    torch.matmul of each d^T x (``out_major``, NJODE's [out, in] leaves)
+    or x^T d (GRU-ODE-Bayes' [in, out]), sum for a bias. The yardstick of
+    njode_wgrad_kernel and gob_wgrad_kernel, used nowhere in the port."""
+    import torch
 
     out = []
     for _, x, d in spec.wgrad_jobs():
-        dm = fg.ws_view(spec, ws, KB, d)
+        dm = view(d)
         out.append(dm.sum(0) if x is None
-                   else torch.matmul(fg.ws_view(spec, ws, KB, x).t(), dm))
+                   else torch.matmul(dm.t(), view(x)) if out_major
+                   else torch.matmul(view(x).t(), dm))
     return out
 
 
-def stage_device_ms(fn, reps, chunks, whole_ms=None, tries=3):
-    """Device ms per K6 call of each stage's kernel (a stage launches once
-    a chunk, ``chunks`` a call) from a torch.profiler run of ``reps``
-    calls, opened with warm-up launches: CUPTI now and then loses records,
-    and a sum over fewer reads too fast (16x in one run). Up to ``tries``
-    runs for one with every record; else, from the run with the most, each
-    stage's mean over the records it has, times ``chunks``, where every
-    stage kept at least 90 % of them (said on a line). Given ``whole_ms``
-    (K6's CUDA-event ms a call), the three must sum to 0.8-1.05 of it. The
-    run fails otherwise, as one C call launches all three and no event can
-    part them."""
+def k2_stage_bounds(spec, K, B):
+    """The least time of each of K2's stages at K steps of B rows:
+    max(FLOP / 67 TFLOP/s, bytes / 3.35 TB/s). (a): the forward's products
+    (2 MACs' FLOP a MAC), its inputs and stored carries read and its
+    forward fields written; (b) the chain: the dx products (about the
+    forward's) and those fields read, its deltas written; (c): d^T x of
+    every job over every (step, row), the Linear inputs and the deltas
+    read, the stretch partials written."""
+    w = dict((n, w) for n, w, _ in spec.ws_fields)
+    n_f = sum(w[n] for n, _, k in spec.ws_fields if k in "xf")
+    n_x = sum(w[n] for n, _, k in spec.ws_fields if k == "x")
+    n_d = sum(w[n] for n, _, k in spec.ws_fields if k == "d")
+    KB = K * B
+    f_fwd = 2.0 * _macs_per_row_step(spec) * KB
+    inputs = 4 * KB * (spec.H + 2 * spec.D + 2) + 4 * spec.n_params
+    ins = dict((n, w) for n, w, _ in spec.ws_fields)
+    f_c = 2.0 * KB * sum(
+        spec.leaf_shapes[leaf][0] * (ins[x] if x else 1)
+        for leaf, x, _ in spec.wgrad_jobs())
+    parts = 4 * -(-K // spec.wgrad_steps(B)) * spec.n_params
+    return {"remat": bound(f_fwd, inputs + 4 * KB * n_f, PEAK_FP32),
+            "chain": bound(f_fwd, 4 * KB * (n_f + n_d), PEAK_FP32),
+            "wgrad": bound(f_c, 4 * KB * (n_x + n_d) + parts, PEAK_FP32)}
+
+
+def phase_k2_stages(results):
+    """K2's three stages (stage (a) the forward re-run, stage (b) the
+    chain, stage (c) the weight gradients; one C call, ``k2_stage_checks``)
+    against their plain versions at the main path (B = 100 and 200), the
+    GRU jump, the climate small arm and the PhysioNet 50 arm (their first
+    100 steps), an output of another width than the input (E3a, the
+    global plan), ODE nets of 9 and 16 linears, and over a member axis (E
+    = 3, main path; each member bit for bit its solo call); then each
+    stage's device time at the main path (``stage_device_ms``; they must
+    sum to the call's CUDA-event time), its plain version's, its bound,
+    and stage (c)'s PyTorch yardstick."""
     import torch
 
-    names = {n: f"gob_{n}_kernel" for n in ("remat", "chain", "wgrad")}
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    err = {"remat": 0.0, "chain": 0.0, "wgrad": 0.0}
+
+    def check(tag, cfg, model, batch, members=None):
+        spec = fs.Spec(cfg, "prng")
+        if members is None:
+            leaves = [p.detach() for p in fs.flat_leaves(model)]
+            arrays = fs.batch_arrays(batch)
+            K, B = arrays[2].shape
+            with torch.no_grad():
+                h0 = fs.t0_state(model, batch)
+            seed = torch.randint(0, 2 ** 62, (1,), generator=gen, device=dev,
+                                 dtype=torch.int64)
+            _, hists = fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, True,
+                                        None, seed)
+        else:
+            solo, leaves, arrays, h0 = _member_layout(*members)
+            E, K, B = arrays[2].shape
+            _, seed = _member_draws(spec, E, K, B, "prng", gen, dev)
+            _, hists = fs.scan_fwd_members_cuda(spec, leaves, arrays, 0.5,
+                                                h0, True, None, seed)
+        e = k2_stage_checks(tag, spec, leaves, arrays, hists, None, seed,
+                            members is not None)
+        for k, v in e.items():
+            err[k] = max(err[k], v)
+        if members is not None:
+            # each member its solo call's bits (a solo call's chunk may
+            # be longer than the member launch's)
+            dl = torch.linspace(0.8, 1.2, E, device=dev)
+            g_e, d_e = fs.scan_bwd_members_cuda(spec, leaves, arrays, 0.5,
+                                                True, hists, dl, None, seed)
+            for i, (lv, arr, _) in enumerate(solo):
+                g, d = fs.scan_bwd_cuda(spec, lv, arr, 0.5, True,
+                                        tuple(h[i] for h in hists), dl[i],
+                                        None, seed[i:i + 1])
+                if not all(torch.equal(a[i], b)
+                           for a, b in zip(g_e + [d_e], g + [d])):
+                    raise AssertionError(f"K2 stages ({tag}): member {i} "
+                                         "differs from its solo call")
+            say("k2_stages", arm=tag, members_equal_solo_bitwise=True)
+        return spec, leaves, arrays, hists, seed
+
+    for B in (100, 200):
+        cfg, model, batch = main_path_setup(B, 100, 5, dev)
+        main = check(f"main_B{B}", cfg, model, batch)
+    cfg, model, batch = main_path_setup(200, 100, 6, dev, use_rnn=True)
+    check("rnn_B200", cfg, model, batch)
+    cfg, model = _masked_njode(5, 10, 50, dev)
+    check("climate_small", cfg, model,
+          _first_steps(results["climate"]["batch"], 100))
+    cfg, model = _masked_njode(41, 41, 50, dev)
+    check("phys50", cfg, model, _first_steps(results["phys"]["batch"], 100))
+    cfg, model, batch = main_path_setup(100, 100, 7, dev,
+                                        data=("HestonWOFeller", HWOF_RV),
+                                        output_size=1)
+    check("e3a_D2_O1", cfg, model, batch)
+    for n_lin in (9, 16):
+        cfg, model, batch = main_path_setup(
+            100, 100, 8, dev, ode_nn=((50, "tanh"),) * (n_lin - 1))
+        check(f"deep{n_lin}", cfg, model, batch)
+    sets = [main_path_setup(100, 100, 30 + e, dev) for e in range(3)]
+    check("members_E3", sets[0][0], None, None,
+          members=([m for _, m, _ in sets], [b for _, _, b in sets]))
+    # the stages' device times at the main path (B = 200, the K2 row's)
+    spec, leaves, arrays, hists, seed = main
+    K, B = arrays[2].shape
+    dl = torch.ones((), device=dev)
+    bwd = lambda: fs.scan_bwd_cuda(spec, leaves, arrays, 0.5,  # noqa
+                                   True, hists, dl, None, seed)
+    chunks = -(-K // spec.bwd_chunk(K, B))
+    whole = cuda_ms(bwd, 20)
+    ms = stage_device_ms(bwd, 5, chunks, whole, kernels=K2_STAGES)
+    plain = _k2_staged_plain_ms(spec, leaves, arrays, hists, seed)
+    bd = k2_stage_bounds(spec, K, B)
+    # stage (c)'s yardstick on the records the call's stage (c) sums: the
+    # workspace of all K steps (one chunk of K; a chunk's alone holds
+    # Kc / K of them)
+    _, _, ws = fs.scan_bwd_cuda(spec, leaves, arrays, 0.5, True, hists, dl,
+                                None, seed, chunk=K, want_ws=True)
+    ws = ws[:K * B]
+    lib_ms = device_ms(lambda: _wgrad_library(
+        spec, lambda f: fs.ws_view(spec, ws, f), True), None, reps=10)
+    for k in ("remat", "chain", "wgrad"):
+        say("k2_stages", stage=k, B=B, K=K, chunks=chunks,
+            ms=f"{ms[k]:.5f}", plain_ms=f"{plain[k]:.3f}",
+            bound_ms=f"{bd[k][0]:.6f}", bound_by=bd[k][1],
+            **({"library_ms": f"{lib_ms:.5f}"} if k == "wgrad" else {}))
+    say("k2_stages", K2_ms=f"{whole:.4f}", stages_sum_ms=f"{sum(ms.values()):.4f}",
+        errs=json.dumps({k: f"{v:.3e}" for k, v in err.items()})
+        .replace(" ", ""))
+    results["k2_stages"] = dict(ms=ms, plain=plain, bounds=bd, errs=err,
+                                library_ms=lib_ms, chunks=chunks)
+
+
+# K2's stages (fused_scan.cu): stage (a), the chain, stage (c); the global
+# plan's K2 has no stage (a) (its chain re-runs each step itself)
+K2_STAGES = {"remat": "njode_remat_kernel", "chain": "njode_scan_bwd_kernel",
+             "wgrad": "njode_wgrad_kernel"}
+
+
+def stage_device_ms(fn, reps, chunks, whole_ms=None, tries=3, kernels=None):
+    """Device ms per K6 call (or K2's, ``kernels``: {stage: kernel name})
+    of each stage's kernel (a stage launches once a chunk, ``chunks`` a
+    call) from a torch.profiler run of ``reps`` calls, opened with warm-up
+    launches: CUPTI now and then loses records, and a sum over fewer reads
+    too fast (16x in one run). Up to ``tries`` runs for one with every
+    record; else, from the run with the most, each stage's mean over the
+    records it has, times ``chunks``, where every stage kept at least 90 %
+    of them (said on a line). Given ``whole_ms`` (the call's CUDA-event
+    ms), the stages must sum to 0.8-1.05 of it. The run fails otherwise,
+    as one C call launches them all and no event can part them."""
+    import torch
+
+    names = kernels or {n: f"gob_{n}_kernel"
+                        for n in ("remat", "chain", "wgrad")}
     want = chunks * reps
     fn()
     torch.cuda.synchronize()
@@ -1556,18 +1825,18 @@ def stage_device_ms(fn, reps, chunks, whole_ms=None, tries=3):
             break
     have, got = best
     if have < 0.9 * want or any(got[k][1] > want for k in names.values()):
-        raise AssertionError(f"torch.profiler recorded K6's stages in part "
+        raise AssertionError(f"torch.profiler recorded the stages in part "
                              f"(records, want {want} each): {got}")
     out = {n: got[k][0] / 1e3 / got[k][1] * chunks
            for n, k in names.items()}
     if have < want:
-        say("profiler", kernel="K6 stages", records=json.dumps(
+        say("profiler", kernel=" ".join(names.values()), records=json.dumps(
             {n: got[k][1] for n, k in names.items()}), want=want,
             timed_by="mean_of_the_records_x_chunks")
     if whole_ms is not None and not (
             0.8 * whole_ms <= sum(out.values()) <= 1.05 * whole_ms):
         raise AssertionError(
-            f"K6's stages {out} do not sum to its {whole_ms:.4f} ms")
+            f"the stages {out} do not sum to the call's {whole_ms:.4f} ms")
     return out
 
 
@@ -1613,7 +1882,8 @@ def phase_gob_timing(results):
                                       dloss, None, seed, want_ws=True)[4]
             # the yardstick's device time, like the stages': the kernels
             # of one pass over the jobs, host launches left out
-            lib = kernel_ms(lambda: _wgrad_library(spec, ws, K * B), None,
+            lib = kernel_ms(lambda: _wgrad_library(
+                spec, lambda f: fg.ws_view(spec, ws, K * B, f), False), None,
                             reps=5)
             for n in ("remat", "chain", "wgrad"):
                 t["K6" + n] = (stages[n], plain[n])
@@ -1982,6 +2252,7 @@ def phase_bench(results):
         "njode_scan_fwd": steps, "njode_scan_bwd": steps,
         "njode_scan_eval": chunked, "philox_keep": 2 * steps,
         "reduce_partials": 2 * steps + chunked})
+    results["bench_stage_launches"] = _check_stage_counts("bench", steps)
     times = out["per_epoch_dispatch"]["epoch_s"]
     say("bench", per_epoch_s=f"{sorted(times)[reps // 2]:.4f}",
         pipelined_epoch_s=f"{16_000 / out['pipelined_paths_per_sec']:.4f}",
@@ -2358,18 +2629,17 @@ def _scan_bounds(spec, K, B):
     """Bounds of K1, K2 and K3 at K steps of B rows in the spec's plan
     and branch: the FLOP from the MACs per row-step (backward 3x), the
     bytes with each input read once (X, and M when masked) and each output
-    written once (K2's output holds one partial row per CTA)."""
+    written once (K2's: the gradients and dh0)."""
     mac = _macs_per_row_step(spec)
     D, H, P = spec.D, spec.H, spec.n_params
     n_fwd = -(-B // spec.rows_for(B, False))
-    n_bwd = -(-B // spec.rows_for(B))
     nX = 2 if spec.masked else 1
     data = 4 * (2 * K + K * B + nX * K * B * D + B + B * D + B * H + P)
     hist = 4 * K * B * (H + D + 1)
     f1 = 2.0 * mac * B * K
     return {"K1": bound(f1, data + 8 + hist + 4 * n_fwd, PEAK_FP32),
-            "K2": bound(3.0 * f1, data + 8 + hist + 4 + 4 * n_bwd * P
-                        + 4 * B * H, PEAK_FP32),
+            "K2": bound(3.0 * f1, data + 8 + hist + 4 + 4 * P + 4 * B * H,
+                        PEAK_FP32),
             "K3": bound(f1, data + 4 * n_fwd, PEAK_FP32)}
 
 
@@ -2564,11 +2834,12 @@ def _kernel_outputs(spec, spec3, leaves, arrays, h0, u, seed):
 
 
 def _plans_bit_identical(tag, cfg, leaves, arrays, h0, gen,
-                         phase="physionet_kernels"):
+                         phase="physionet_kernels", at16=True):
     """The global plan against the resident plan at the same rows, every
     output of K1, K2 and K3 in both mask modes, bit for bit: both forced at
-    16 rows, and the global plan forced at the rows the rule takes at this
-    batch (one a CTA) against the rule's own launches."""
+    16 rows (``at16``; not where the resident plan does not fit 16), and
+    the global plan forced at the rows the rule takes at this batch (one a
+    CTA) against the rule's own launches."""
     import torch
 
     from njode_tpu_torch.ops import fused_scan as fs
@@ -2588,8 +2859,8 @@ def _plans_bit_identical(tag, cfg, leaves, arrays, h0, gen,
         else:
             seed = torch.randint(0, 2 ** 62, (1,), generator=gen,
                                  device=h0.device, dtype=torch.int64)
-        for pair in ((("resident", 16), ("global", 16)),
-                     (None, ("global", R))):
+        for pair in (((("resident", 16), ("global", 16)),) * at16
+                     + ((None, ("global", R)),)):
             outs = [_kernel_outputs(fs.Spec(cfg, mode, plan),
                                     fs.Spec(cfg, "input", plan), leaves,
                                     arrays, h0, u, seed) for plan in pair]
@@ -2777,11 +3048,12 @@ def phase_physionet_trainer(results):
         ode_nn=nn, readout_nn=nn, enc_nn=nn)
 
 
-def _check_plan(phase, arm, spec, plan):
-    """Fail unless ``spec`` takes ``plan`` at 16 rows; print its sizes."""
-    if (spec.plan, spec.rows) != (plan, 16):
+def _check_plan(phase, arm, spec, plan, rows=16):
+    """Fail unless ``spec`` takes ``plan`` at ``rows`` rows; print its
+    sizes."""
+    if (spec.plan, spec.rows) != (plan, rows):
         raise AssertionError(f"{arm}: plan {spec.plan} at {spec.rows} rows, "
-                             f"expected {plan} at 16")
+                             f"expected {plan} at {rows}")
     say(phase, arm=arm, plan=spec.plan, rows=spec.rows,
         smem_bytes=spec.smem_bytes, n_params=spec.n_params,
         macs_per_row_step=_macs_per_row_step(spec))
@@ -2926,10 +3198,12 @@ def phase_climate_rnn(results):
 
 
 def phase_physionet_rnn(results):
-    """The masked GRU jump at the PhysioNet 50 arm in the global plan:
-    K1-K3 against their plain versions over the first 100 steps of the
-    first batch in both modes, and CUDA-event times and bounds over all
-    3,006 steps."""
+    """The masked GRU jump at the PhysioNet 50 arm in the resident plan
+    (the most rows that fit 4, one a CTA at B = 50): K1-K3 against their
+    plain versions over the first 100 steps of the first batch in both
+    modes, and CUDA-event times and bounds over all 3,006 steps; then the
+    same in the global plan forced at 16 rows (the only masked GRU-jump
+    check of that plan), with K2's stages against their plain versions."""
     import torch
 
     from njode_tpu_torch.ops import fused_scan as fs
@@ -2937,7 +3211,7 @@ def phase_physionet_rnn(results):
     dev = torch.device("cuda")
     full = results["phys"]["batch"]
     cfg, model = _masked_njode(41, 41, 50, dev, use_rnn=True)
-    _check_plan("physionet_rnn", "phys50", fs.Spec(cfg), "global")
+    _check_plan("physionet_rnn", "phys50", fs.Spec(cfg), "resident", 4)
     gen = torch.Generator(device=dev).manual_seed(8)
     errs, _, _ = _masked_arm_checks(
         "physionet_rnn", cfg, model, full,
@@ -2945,11 +3219,27 @@ def phase_physionet_rnn(results):
         gen, arm="phys50")
     ms, bd, K, B, spec = _full_grid_times(cfg, model, full, 2)
     _say_times("physionet_rnn", "phys50", spec, ms, bd, K, B)
-    # one epoch of the trainer with the GRU jump: the global plan's path
+    forced = ("global", 16)
+    errs_g, _, (leaves, arrays, _, seed, hists) = _masked_arm_checks(
+        "physionet_rnn", cfg, model, full,
+        ((100, ("input", "prng"), SHORT_TOL),),
+        torch.Generator(device=dev).manual_seed(9), forced,
+        arm="phys50_global16")
+    k2_stage_checks("phys50_rnn_global16", fs.Spec(cfg, "prng", forced),
+                    leaves, arrays, hists, None, seed)
+    with torch.no_grad():
+        h0 = fs.t0_state(model, _first_steps(full, 100))
+    _plans_bit_identical("phys50_rnn", cfg, leaves, arrays, h0,
+                         torch.Generator(device=dev).manual_seed(10),
+                         "physionet_rnn", at16=False)
+    errs = {k: max(v, errs_g[k]) for k, v in errs.items()}
+    ms_g, bd_g, K, B, spec_g = _full_grid_times(cfg, model, full, 2, forced)
+    _say_times("physionet_rnn", "phys50_global16", spec_g, ms_g, bd_g, K, B)
+    # one epoch of the trainer with the GRU jump: the resident plan's path
     n_b = -(-int(0.8 * PHYS_TRAIN_RECORDS) // PHYS_B)
     counts = _physionet_run(
         results, "physionet_rnn", 1,
-        {"njode_scan_fwd_rnn_global": n_b, "njode_scan_bwd_rnn_global": n_b,
+        {"njode_scan_fwd_rnn": n_b, "njode_scan_bwd_rnn": n_b,
          "philox_keep": 2 * n_b, "reduce_partials": 2 * n_b},
         rows_cfg=cfg, use_rnn=True)
     results["phys_rnn"] = dict(errs=errs, ms=ms, bd=bd, launches=counts)
@@ -2959,7 +3249,7 @@ def phase_physionet_rnn(results):
 # study's own smallest training size and on SWEEP_TRAIN paths elsewhere
 SWEEP_TRAIN = {20: 1000, 100: 2000}     # batch size -> training paths
 # widths whose nets take the global plan (checked against fused_scan.Spec)
-SWEEP_GLOBAL_WIDTHS = (100, 160, 320, 400)
+SWEEP_GLOBAL_WIDTHS = (160, 320, 400)
 # heston_wo_feller's 2-D return_vol dataset (experiments/configs.py)
 HWOF_RV = {"drift": 2.0, "volatility": 3.0, "mean": 1.0, "speed": 2.0,
            "correlation": 0.5, "S0": 1, "maturity": 1.0, "dimension": 2,
@@ -2976,7 +3266,7 @@ BS = ("BlackScholes", {})
 SWEEP_SHAPES = (("sine400", 400, 100, ("global", 4), BS, True),
                 ("conv320", 320, 20, ("global", 8), BS, True),
                 ("conv160", 160, 20, ("global", 16), BS, True),
-                ("combined100", 100, 100, ("global", 16), BS, True),
+                ("combined100", 100, 100, ("resident", 1), BS, True),
                 ("hwof_rv50", 50, 100, ("resident", 1),
                  ("HestonWOFeller", HWOF_RV), True),
                 *((f"conv{w}", w, 20, ("resident", 1), BS, False)
@@ -5037,7 +5327,7 @@ def phase_profiling(results):
     from njode_tpu_torch.utils.csv_frame import read_frame
 
     tmp = tempfile.mkdtemp(prefix="njode_smoke_prof_")
-    counts = []
+    counts, stages = [], []
     try:
         hp = dict(datasets.hyperparam_default, nb_paths=20_000, obs_perc=0.1)
         datasets.create_dataset("BlackScholes", hp, seed=0,
@@ -5062,6 +5352,7 @@ def phase_profiling(results):
             _check_counts("profiling", c, expect)
             check_rows("profiling", results["setup"]["cfg"])
             counts.append(c)
+            stages.append(_check_stage_counts("profiling", steps))
             cols, rows = read_frame(os.path.join(tmp, tag, "id-1",
                                                  "metric_id-1.csv"))
             say("profiling", run=tag, run_s=f"{run_s:.2f}",
@@ -5082,14 +5373,17 @@ def phase_profiling(results):
                 kern[base] = kern.get(base, 0) + 1
         say("profiling", trace_mb=f"{os.path.getsize(files[0]) / 1e6:.1f}",
             kernels=json.dumps(kern).replace(" ", ""))
-        # one K1 and one K2 a step of the traced epoch, as counted
-        for name, key in (("njode_scan_fwd_kernel", "njode_scan_fwd"),
-                          ("njode_scan_bwd_kernel", "njode_scan_bwd")):
-            if kern.get(name, 0) != counts[0][key]:
+        # one K1 a step of the traced epoch and K2's stages, a launch a
+        # chunk each, as counted
+        for name, n in (("njode_scan_fwd_kernel", counts[0]["njode_scan_fwd"]),
+                        ("njode_remat_kernel", stages[0]["njode_bwd_remat"]),
+                        ("njode_scan_bwd_kernel", stages[0]["njode_bwd_chain"]),
+                        ("njode_wgrad_kernel", stages[0]["njode_bwd_wgrad"])):
+            if kern.get(name, 0) != n:
                 say("profiling", **trace_gaps(events))
                 raise AssertionError(f"profiling: the trace holds "
                                      f"{kern.get(name, 0)} {name} events, "
-                                     f"the counter {counts[0][key]}")
+                                     f"the counter {n}")
         # a NaN weight under anomaly detection: the step must raise
         dev = torch.device("cuda")
         cfg = ws._cfg(50, 10)
@@ -5183,6 +5477,24 @@ def kernels_line(results):
                     "max_abs_err": err, "ms": ms,
                     "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                     "library_ms": results["library_ms"].get(key)})
+    # K2's stages at the main path (B = 200; device ms a call), launches
+    # from the main path's runs (trainer, chunk, bench: one a chunk each)
+    ks = results["k2_stages"]
+    runs = [results[r] for r in ("stage_launches", "chunk_stage_launches",
+                                 "bench_stage_launches")]
+    for name, key, replaces in (
+            ("njode_bwd_remat", "remat", "njode_tpu/ops/fused_scan.py:1164"),
+            ("njode_bwd_chain", "chain", "njode_tpu/ops/fused_scan.py:1164"),
+            ("njode_bwd_wgrad", "wgrad", "njode_tpu/ops/fused_scan.py:522")):
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": replaces,
+                    "launches": sum(c[name] for c in runs),
+                    "max_abs_err": ks["errs"][key], "ms": ks["ms"][key],
+                    "plain_ms": ks["plain"][key],
+                    "bound_ms": ks["bounds"][key][0],
+                    "bound_by": ks["bounds"][key][1],
+                    "library_ms": ks["library_ms"] if key == "wgrad"
+                    else None})
     # GRU-ODE-Bayes at the trainer's widths: K5, its eval form, K6 as a
     # whole (ms of a call, its three stages included; launches: stage (b)'s,
     # one a chunk) and each of K6's stages (device ms per call; launches
@@ -5264,8 +5576,8 @@ def kernels_line(results):
                     "bound_ms": bms, "bound_by": by, "library_ms": None})
     # the GRU jump (use_rnn) of K1-K3, timed at the main path; launches
     # from its trainer phase, the climate one and the PhysioNet one (the
-    # global plan), errors the largest of its checks at the main path, the
-    # climate small arm and phys50
+    # resident plan), errors the largest of its checks at the main path,
+    # the climate small arm and phys50 (resident, and global / 16)
     rerrs = [results["rnn"]["errs"], results["climate_rnn"]["errs"],
              results["phys_rnn"]["errs"]]
     err = {k: max(e[k + "m"] for e in rerrs) for k in ("K1", "K2", "K3")}
@@ -5279,7 +5591,7 @@ def kernels_line(results):
         bms, by = results["bounds"][key + "r"]
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces,
-                    "launches": rl[name] + cr[name] + pr[name + "_global"],
+                    "launches": rl[name] + cr[name] + pr[name],
                     "max_abs_err": err[key], "ms": ms, "plain_ms": plain,
                     "bound_ms": bms, "bound_by": by, "library_ms": None})
     # K1/K2 over a member axis and the member reduce_partials (the groups
@@ -5455,7 +5767,7 @@ def main():
         say("build", seconds=f"{time.time() - t_build:.2f}")
         t0 = time.time()
         for phase in (phase_native, phase_kernels, phase_timing,
-                      phase_trainer,
+                      phase_k2_stages, phase_trainer,
                       phase_rnn_kernels, phase_rnn_timing,
                       phase_gob_kernels, phase_gob_timing,
                       phase_gob_trainer, phase_sync, phase_busy, phase_bench,

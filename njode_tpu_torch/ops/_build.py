@@ -151,11 +151,11 @@ def _declare(name, lib):
         lib.njode_error_string.restype = ctypes.c_char_p
         lib.njode_scan_fwd.argtypes = [P] * 19 + [I, F, P]
         lib.njode_scan_fwd.restype = I
-        lib.njode_scan_bwd.argtypes = [P] * 20
+        lib.njode_scan_bwd.argtypes = [P] * 21
         lib.njode_scan_bwd.restype = I
         lib.njode_scan_fwd_members.argtypes = [P, I] + [P] * 18 + [I, F, P]
         lib.njode_scan_fwd_members.restype = I
-        lib.njode_scan_bwd_members.argtypes = [P, I] + [P] * 19
+        lib.njode_scan_bwd_members.argtypes = [P, I] + [P] * 20
         lib.njode_scan_bwd_members.restype = I
         lib.njode_reduce_partials_members.argtypes = [P, I, I, I, F, P, P]
         lib.njode_reduce_partials_members.restype = I

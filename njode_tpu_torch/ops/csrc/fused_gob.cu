@@ -82,14 +82,15 @@
 #include <stdint.h>
 
 #include "philox.cuh"          // K7: philox_keep4, mask words, mask rows
+#include "dtx.cuh"             // K6 stage (c): the d^T x tiles
 
 #define MAX_NT 512          // threads of a scan CTA: 256 or 512 (cfg.threads)
 #define NT ((int)blockDim.x)
-#define WG_NT 256           // threads of a stage (c) CTA
 #define MAX_LEAVES 40
 #define MAX_SAVE 48
 #define MAX_DLT 32
 #define WG_TILE 32
+static_assert(WG_TILE == DTX_TILE, "stage (c) tiles are dtx.cuh's");
 // an activation offset with this bit set lies in the CTA's slab of device
 // memory (the device-memory form, cc.ga), the rest of it its offset there
 #define SLAB_BIT (1 << 28)
@@ -1231,56 +1232,26 @@ gob_chain_kernel(GobCfg c, Leaves lv, float* slab,
 
 // K6 stage (c): CTA (t, s) owns output tile t of one leaf (tiles[t]: leaf
 // offset, in, out, i0, j0, first job, jobs) and the s-th of n_split
-// stretches of the chunk's nrows (step, row) pairs; it sums x^T d over its
-// stretch for each of the leaf's jobs (jobs[j]: x region or -1 for a
-// bias's ones, x width, delta region, delta width), in job order and then
-// row order, and writes (acc: adds) its partial row s. The order does not
-// depend on the rows per CTA of stages (a) and (b).
-__global__ void __launch_bounds__(WG_NT)
+// stretches of the chunk's nrows (step, row) pairs; dtx_tile (dtx.cuh)
+// sums x^T d over its stretch for each of the leaf's jobs (jobs[j]: x
+// region or -1 for a bias's ones, x width, delta region, delta width), in
+// job order and then row order, and writes (acc: adds) its partial row s.
+// The order does not depend on the rows per CTA of stages (a) and (b).
+__global__ void __launch_bounds__(DTX_NT)
 gob_wgrad_kernel(const float* __restrict__ ws, int KBc, int nrows,
                  const int* __restrict__ tiles, const int* __restrict__ jobs,
                  int n_split, float* partials, int n_params, int acc) {
-  __shared__ float xs[WG_TILE][WG_TILE + 1], ds[WG_TILE][WG_TILE + 1];
-  const int* t = tiles + blockIdx.x * 7;
-  const int loff = t[0], in = t[1], out = t[2], i0 = t[3], j0 = t[4];
-  const int jf = t[5], jn = t[6];
+  const int* tp = tiles + blockIdx.x * 7;
+  const DtxTile t{tp[0], tp[1], tp[2], tp[3], tp[4], tp[5], tp[6], -1};
+  const auto job_at = [&](int q) {
+    const int* jp = jobs + q * 4;
+    return DtxJob{jp[0] >= 0 ? ws + (size_t)jp[0] * KBc : nullptr, jp[1],
+                  ws + (size_t)jp[2] * KBc, jp[3]};
+  };
   const int per = (nrows + n_split - 1) / n_split;
-  const int r0 = blockIdx.y * per, r1 = min(nrows, r0 + per);
-  const int ty = threadIdx.x / WG_TILE, tx = threadIdx.x % WG_TILE;
-  float a[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int jb = 0; jb < jn; ++jb) {
-    const int* jp = jobs + (jf + jb) * 4;
-    const int xo = jp[0], xw = jp[1], dw = jp[3];
-    const float* Xm = xo >= 0 ? ws + (size_t)xo * KBc : nullptr;
-    const float* Dm = ws + (size_t)jp[2] * KBc;
-    for (int rb = r0; rb < r1; rb += WG_TILE) {
-      for (int e = threadIdx.x; e < WG_TILE * WG_TILE; e += WG_NT) {
-        int rr = e / WG_TILE, q = e % WG_TILE, row = rb + rr;
-        bool ok = row < r1;
-        xs[rr][q] = (ok && i0 + q < in)
-            ? (Xm ? Xm[(size_t)row * xw + i0 + q] : 1.f) : 0.f;
-        ds[rr][q] = (ok && j0 + q < out)
-            ? Dm[(size_t)row * dw + j0 + q] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < WG_TILE; ++kk) {
-        float d = ds[kk][tx];
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          a[q] = fmaf(xs[kk][ty + 8 * q], d, a[q]);
-      }
-      __syncthreads();
-    }
-  }
-  float* P = partials + (size_t)blockIdx.y * n_params + loff;
-  for (int q = 0; q < 4; ++q) {
-    int i = i0 + ty + 8 * q, j = j0 + tx;
-    if (i < in && j < out) {
-      float* p = P + (size_t)i * out + j;
-      *p = acc ? *p + a[q] : a[q];
-    }
-  }
+  const int r0 = blockIdx.y * per;
+  dtx_tile(t, job_at, r0, min(nrows, r0 + per),
+           partials + (size_t)blockIdx.y * n_params, false, acc != 0);
 }
 
 // The K7 masks of K steps written out ([K, 3, B, P] int8): the draw the scan
@@ -1419,7 +1390,7 @@ extern "C" int gob_scan_bwd(const GobCfg* c, void** leaves,
 #undef STAGE_CASE
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    gob_wgrad_kernel<<<dim3(n_tiles, n_split), WG_NT, 0, st>>>(
+    gob_wgrad_kernel<<<dim3(n_tiles, n_split), DTX_NT, 0, st>>>(
         ws, KBc, (k1 - k0) * B, tiles, jobs, n_split, partials,
         c->n_params, !last);
     e = cudaGetLastError();

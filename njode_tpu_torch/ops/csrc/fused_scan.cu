@@ -5,7 +5,9 @@
 // imputation path, and the GRU jump: _gru_fwd / _gru_bwd):
 //   njode_scan_fwd_kernel<true>   K1  _fwd_impl / _make_fwd_kernel (training forward, histories)
 //   njode_scan_fwd_kernel<false>  K3  make_fused_eval_fn (eval loss, no histories, no dropout)
-//   njode_scan_bwd_kernel         K2  _fused_bwd / _make_bwd_kernel (hand-written BPTT)
+//   njode_remat_kernel            K2  _fused_bwd / _make_bwd_kernel (hand-written BPTT),
+//   njode_scan_bwd_kernel             stage (a) the forward re-run, (b) the chain,
+//   njode_wgrad_kernel                (c) the weight gradients (_acc_wb)
 //   mask words (fill_lanes)       K4  _step_masks (per-step dropout keep-masks)
 //   philox_masks_kernel               the same masks written out (tests, timing)
 //   reduce_partials               the in-kernel accumulation of the TPU grid (loss_ref +=, _acc_wb)
@@ -16,11 +18,20 @@
 // activations live in dynamic shared memory, so a step touches device
 // memory only for its per-step inputs (t, dt, obs, X, masks) and the
 // history rows. Each output is one fp32 FMA chain over its summed index,
-// upwards, by one thread. The backward kernel re-materialises each step
-// from the stored step-entry carries (h, last_X, tau), walks k = K-1..0,
-// and sums every weight gradient in a per-CTA accumulator that it writes
-// to a per-CTA partial row; reduce_partials then sums the partials in a
-// fixed order (no float atomics: results are bit-identical run to run).
+// upwards, by one thread. K2 runs as three stages a chunk of Kc steps, last
+// chunk first (K2's C call, as K6 in fused_gob.cu): (a) re-runs every
+// (step, row) pair of the chunk at once from the stored step-entry
+// carries (h, last_X, tau), with the forward's own code, and writes every
+// forward value the backward reads to a workspace record of the pair; (b)
+// the chain walks k = k1-1..k0 at R rows a CTA, the carries' gradients
+// passing from chunk to chunk through device memory, reads each step's
+// records with cp.async while the step before works, and writes the
+// gradient of every Linear's output (its delta) to the records; (c) sums
+// d^T x over the records of each stretch of ceil(512 / B) steps for every
+// leaf into the stretch's partial row; reduce_partials then sums the
+// partials in a fixed order (no float atomics: results are bit-identical
+// run to run, and the order depends neither on R, nor on the plan, nor on
+// the chunk, nor on a member axis).
 //
 // Bound on this card. The work is ~25,600 FLOP per row-step at the main
 // path (12,800 MACs) - at B=200, K=100 that is 0.51 GFLOP, 7.6 us at the
@@ -32,10 +43,9 @@
 // run about 19 barriers a K1 step and 32 a K2 step. The resident plan
 // takes one row a CTA at the training batches (Spec.rows_for: the
 // fewest rows at which every CTA is resident at once, CTAS_PER_SM at most)
-// and fuses phases ("the resident plan", below): 7 a K1 step, 13 a K2 step
-// on the main path. Splitting a product over lanes or taking K2's weight
-// gradients off the sequential walk would part the two plans' bits; they
-// are later work for both plans (ROADMAP).
+// and fuses phases ("the resident plan", below): 7 a K1 step, 7 a step of
+// K2's chain on the main path. Splitting a product over lanes would part
+// the two plans' bits; it is later work for both plans (ROADMAP).
 //
 // Masked branch (c.masked). The pre-jump readout imputes the unobserved
 // coordinates, X_imp = X*M + (1-M)*y_bj, and the encoder reads
@@ -86,15 +96,14 @@
 //
 // Two plans (c.plan; the counterpart of the JAX kernel's _select_plan /
 // _block_plan, which cut nets that overflow VMEM into K-chunks and batch
-// blocks). 'resident' (GW = false): every weight (and, in K2, its
-// gradient) sits in shared memory, as above. 'global' (GW = true), for
-// nets whose weights do not fit one CTA (PhysioNet's GRU jump and 200
-// arm, the 400-wide arms): the weights stay in one packed fp32 buffer in
-// device memory (each leaf at a 16-byte boundary,
-// Spec.pack_off), and K2 adds each step's weight gradients in place into
-// its CTA's partial row, which it zeroes first. Each gradient element has
-// one owning thread within the CTA, so there are no atomics and a run
-// repeats bit for bit. Only activations live in shared memory, and R
+// blocks). 'resident' (GW = false): every weight sits in shared memory, as
+// above. 'global' (GW = true), for nets whose weights do not fit one CTA
+// (the 160- to 400-wide arms, PhysioNet's 200 arm): the weights stay in
+// one packed fp32 buffer in device memory (each leaf at a 16-byte
+// boundary, Spec.pack_off). Its K2 has no stage (a): its chain re-runs
+// each step inline through the ring and writes the Linears' inputs to the
+// records itself (queued: stage (a) for this plan). Only activations live
+// in shared memory, and R
 // (c.rows) is the largest of 16, 8, 4, 2, 1 whose activations fit. Each
 // kernel is built over R (template RT): R = 16 and (resident plan) R = 1
 // as compile-time constants, so the row loops unroll (read at run time, R
@@ -116,12 +125,7 @@
 // keeps its outputs (a column of up to RB rows, MAXI of them a pass) in
 // registers across tiles, walking the summed index upwards, so each sum
 // runs in the resident plan's order and both plans give the same bits at
-// one R. The weight gradients (no weights read) stay in the CTA's partial
-// row: a thread issues the loads of GB of its elements before it sums
-// them (the cheaper of the two ways to take the serial L2 round trip out
-// of the read-modify-write; staging the gradient tiles through shared
-// memory would also need ring space the 400-wide arms do not have beside
-// their weight tiles). The passes stay inlined into the six global kernel
+// one R. The passes stay inlined into the six global kernel
 // instantiations, which makes this file slow to build (nvcc 249 s on the
 // H100 machine): compiled once each, out of line (__noinline__ mlp_fwd,
 // mlp_bwd, gru_fwd and gru_bwd), they built in 28 s but ran 35-47 %
@@ -140,6 +144,29 @@
 // the host's prefix sum of the widths below it, so no loop over the
 // earlier layers runs per call.
 //
+// K2's workspace (ops/fused_scan.py Spec.ws_fields). A record of c.rec
+// floats a (step, row) pair, [Kc * B] records a chunk (a member's after
+// the member before): first the forward values, the Linears' inputs (the
+// nets' inputs, the hidden layers' post-dropout activations; stage (c)
+// reads them) and what only the chain reads (h1, h2, the readouts'
+// outputs and error terms, the pre-activations, the GRU's gates, the mask
+// words: a dropped tanh unit does not show in its saved activation), then
+// the deltas. A copy program lists a float of a record a line (index,
+// shared offset, row stride: put_fields / get_fields): stage (a) writes
+// the forward floats from its layout, the global chain the Linears'
+// inputs from its own, and the resident chain reads them into one of two
+// io sets, each holding a step's inputs and forward values, so the next
+// step's copies run while a step works on the other. A Linear's delta
+// goes to its record offset (LayerRec.dlt; the stacked readout's second
+// half, or the masked branch's post-jump pass, MLPDesc.dhalf, w_out
+// further), the GRU's to c.dlt_gru. Stage (c) owns a [32, 32] tile of a
+// weight (its bias one column more, of ones) and a stretch of steps a
+// CTA, and walks the leaf's jobs (x, d: the readout's two halves two
+// jobs), the next 32 records' tiles loaded into registers while it sums
+// the ones before. A chunk is
+// a multiple of the stretch, as long as keeps the workspace of the launch
+// (all its members) under 32 MiB.
+//
 // reduce_partials. The scan kernels' C entries enqueue it themselves on
 // the same stream right after K1/K3 (the loss, [n_cta, 1]) and K2 (the
 // gradients): one launch more on the device, no Python call and no second
@@ -154,16 +181,17 @@
 #include <stdint.h>
 
 #include "philox.cuh"          // K4: philox_keep4, mask words, mask rows
+#include "dtx.cuh"             // K2 stage (c): the d^T x tiles
 
 #define MAX_ROWS 16            // batch rows per CTA: c.rows in 1..MAX_ROWS
 #define RB 4                   // rows a thread sums in the global plan
 #define NTHREADS 256
 #define LAYER_INTS 8           // ints of a layer's record (LayerRec)
 #define MAXI 4                 // global plan: items a thread keeps over tiles
-#define GB 16                  // global plan: gradient loads issued ahead
 #define TILE_INTS 8            // ints of a tile descriptor (tile_program)
 #define CTAS_PER_SM 2          // resident kernels: CTAs an SM holds at most
-#define DWB 4                  // resident K2: weight gradients a thread overlaps
+#define WG_TILE 32             // K2 stage (c): output tile [32, 32] of a leaf
+static_assert(WG_TILE == DTX_TILE, "stage (c) tiles are dtx.cuh's");
 
 // One Linear layer of an MLP: a record of the layer table (above; built
 // by ops/fused_scan.py layer_table): the nets' records one after another
@@ -180,7 +208,9 @@ struct LayerRec {
   int save;                  // the widths of the hidden layers below it,
                              // summed: its saved pair at save_off + 2 *
                              // rows * save
-  int pad;
+  int dlt;                   // K2: its output's gradient in the workspace
+                             // record (rows of the second stacked half, or
+                             // of a net with dhalf, w_out further), -1 none
 };
 
 struct MLPDesc {
@@ -189,6 +219,8 @@ struct MLPDesc {
   int lay;                   // its first layer's record in the table
   int slot0;                 // dropout slot of hidden layer 0
   int save_off;              // smem offset of the saved pre-acts / acts
+  int dhalf;                 // 1: the masked branch's post-jump readout,
+                             // whose deltas take the records' second half
 };
 
 // Mirrored field by field by ops/fused_scan.py::_ScanCfg (all 4-byte fields).
@@ -207,7 +239,10 @@ struct ScanCfg {
   int n_rec, tab_leaves, tab_ptrs;   // the layer table: records, and the
                                      // ints before its leaf offsets and
                                      // before its leaf addresses
-  int o_w, o_g, o_h, o_lx, o_tau, o_X, o_obs, o_nobs, o_lrow, o_h1, o_h2;
+  int rec, dlt_gru;            // K2's workspace: floats of a (step, row)
+                               // record; the GRU's dgi [3H] there (dgh
+                               // [3H] after it), -1 without use_rnn
+  int o_w, o_h, o_lx, o_tau, o_X, o_obs, o_nobs, o_lrow, o_h1, o_h2;
   int o_in_ode, o_tX, o_in_ro, o_f, o_enc, o_ro, o_dA, o_dB, o_dh, o_dlx;
   int o_dtau, o_rs, o_dst, o_dh1, o_dhe, o_df, o_dlxc, o_dtauc, o_M, o_Xi;
   int o_gru, o_dG;             // use_rnn only: saved gates, gate gradients
@@ -568,25 +603,64 @@ __device__ void ring_op(Ring& rg, int key, int n_o, int rows, const A& a,
   }
 }
 
-// g[idx] += sum(idx) for idx < n, each element by its one owning thread;
-// a thread issues the loads of GB of its elements before it sums them
-// (the global plan's gradients in the CTA's partial row)
-template <class F>
-__device__ __forceinline__ void grad_add(float* __restrict__ g, int n,
-                                         const F& sum) {
-  for (int base = threadIdx.x; base < n; base += GB * NTHREADS) {
-    float old[GB];
-#pragma unroll
-    for (int u = 0; u < GB; ++u) {
-      int idx = base + u * NTHREADS;
-      old[u] = idx < n ? g[idx] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < GB; ++u) {
-      int idx = base + u * NTHREADS;
-      if (idx < n) g[idx] = old[u] + sum(idx);
+// K2's deltas: d [rows, w] (the gradient of a Linear's output, w = its
+// width) into the workspace records of the CTA's valid rows at wsr (its
+// first row's record of the step, rec floats a record), at record offset
+// dlt; rows from `half` on are the second stacked half, w further on
+__device__ __forceinline__ void put_delta(const float* d, int rows, int w,
+                                          int half, int nv, float* wsr,
+                                          int rec, int dlt) {
+  for (int idx = threadIdx.x; idx < rows * w; idx += blockDim.x) {
+    const int r = idx / w, j = idx - r * w;
+    const int hf = r >= half, lr = hf ? r - half : r;
+    if (lr < nv) wsr[(size_t)lr * rec + dlt + hf * w + j] = d[idx];
+  }
+}
+
+// Copy floats of the workspace records between shared memory and the
+// records of the CTA's rows at wsr (rec floats a record): the program fl
+// lists n floats of a record, 3 ints each, its index in the record, its
+// offset in shared memory and the floats between rows there (the fields
+// of Spec.ws_fields, a float at a time); a thread takes a float and its
+// rows in turn, so a row's consecutive floats go to consecutive threads.
+// put_fields writes the CTA's nv valid rows (stage (a), and the global
+// plan's chain); get_fields reads them back with cp.async and gives the
+// rows past nv zeros (the resident chain at more than one row). Bit for
+// bit: the mask words travel as fields.
+__device__ void put_fields(const int* __restrict__ fl, int n, const float* sm,
+                           float* wsr, int rec, int nv) {
+  for (int f = threadIdx.x; f < n; f += blockDim.x) {
+    const int ro = __ldg(fl + 3 * f), so = __ldg(fl + 3 * f + 1);
+    const int ss = __ldg(fl + 3 * f + 2);
+    for (int r = 0; r < nv; ++r)
+      reinterpret_cast<uint32_t*>(wsr)[(size_t)r * rec + ro] =
+          reinterpret_cast<const uint32_t*>(sm)[so + r * ss];
+  }
+}
+
+// One row's forward floats, the record's first n, into the resident
+// chain's io set at dst (its layout holds them as the record does: at one
+// row a CTA the same image), 16 bytes a copy (both 16-byte aligned)
+__device__ void get_record(float* dst, const float* src, int n) {
+  const int n4 = n >> 2;
+  for (int e = threadIdx.x; e < n4; e += blockDim.x)
+    cp_async16(dst + 4 * e, src + 4 * e);
+  for (int e = 4 * n4 + threadIdx.x; e < n; e += blockDim.x)
+    cp_async4(dst + e, src + e);
+  cp_async_commit();
+}
+
+__device__ void get_fields(const int* __restrict__ fl, int n, float* sm,
+                           const float* wsr, int rec, int R, int nv) {
+  for (int f = threadIdx.x; f < n; f += blockDim.x) {
+    const int ro = __ldg(fl + 3 * f), so = __ldg(fl + 3 * f + 1);
+    const int ss = __ldg(fl + 3 * f + 2);
+    for (int r = 0; r < R; ++r) {
+      if (r < nv) cp_async4(sm + so + r * ss, wsr + (size_t)r * rec + ro);
+      else sm[so + r * ss] = 0.f;
     }
   }
+  cp_async_commit();
 }
 
 // The global plan's MLP forward over `rows` rows, the weights through the
@@ -627,14 +701,14 @@ __device__ void mlp_fwd(const ScanCfg& c, const MLPDesc& m, float* sm,
 }
 
 // The global plan's MLP backward: d0 [rows, out] is the gradient of the
-// output; adds the weight and bias gradients of valid rows into g, the
-// CTA's partial row in device memory (each element by the one thread that
-// owns it, in every call), takes the weights through the ring and returns
-// the buffer holding dx [rows, in] (nullptr unless want_dx). Ends synced.
+// output; writes each Linear's output gradient (its delta) for the valid
+// rows into the workspace records at wsr (put_delta), takes the weights
+// through the ring and returns the buffer holding dx [rows, in] (nullptr
+// unless want_dx). Ends synced.
 __device__ const float* mlp_bwd(const ScanCfg& c, const MLPDesc& m,
-                                float* sm, Ring& rg, float* g,
-                                const float* x, int rows, const float* d0,
-                                bool want_dx, const MaskCtx& mc) {
+                                float* sm, Ring& rg, float* wsr, int rows,
+                                const float* d0, bool want_dx,
+                                const MaskCtx& mc) {
   float* bufs[2] = {sm + c.o_dA, sm + c.o_dB};
   const float* cur = d0;
   int nb = 0;
@@ -645,27 +719,8 @@ __device__ const float* mlp_bwd(const ScanCfg& c, const MLPDesc& m,
     const float* below =
         l > 0 ? sm + m.save_off + 2 * rows * layer(c, sm, m, l - 1).save
               : nullptr;
-    const float* a_in = l == 0 ? x : below + rows * wi;
-    auto dw = [&](int idx) {
-      int j = idx / wi, i = idx - j * wi;
-      float acc = 0.f;
-      for (int r = 0; r < rows; ++r) {
-        int lr = r >= mc.half ? r - mc.half : r;
-        if (lr < mc.nv) acc = fmaf(cur[r * wo + j], a_in[r * wi + i], acc);
-      }
-      return acc;
-    };
-    grad_add(g + ly.w_off, wo * wi, dw);
-    if (ly.b_off >= 0) {
-      for (int j = threadIdx.x; j < wo; j += blockDim.x) {
-        float acc = 0.f;
-        for (int r = 0; r < rows; ++r) {
-          int lr = r >= mc.half ? r - mc.half : r;
-          if (lr < mc.nv) acc += cur[r * wo + j];
-        }
-        g[ly.b_off + j] += acc;
-      }
-    }
+    put_delta(cur, rows, wo, mc.half, mc.nv, wsr, c.rec,
+              ly.dlt + m.dhalf * wo);
     float* nxt = nullptr;
     if (l > 0 || want_dx) {
       // dx through the ring, a thread owning column i of up to RB rows
@@ -729,7 +784,9 @@ __device__ void load_tables(const ScanCfg& c, const int* __restrict__ tab,
 
 // the CTA's member's leaves, from the table's offsets and addresses (a
 // member-axis launch stacks each leaf as [E, ...]: member blockIdx.y at
-// blockIdx.y times the leaf's size)
+// blockIdx.y times the leaf's size), copied with cp.async, every copy in
+// flight at once (K2's stage (a) loads them once a step); the caller
+// waits for them (cp_async_wait_all) before its first barrier
 __device__ void load_weights(const ScanCfg& c, const int* __restrict__ tab,
                              float* sm) {
   float* sw = sm + c.o_w;
@@ -739,8 +796,10 @@ __device__ void load_weights(const ScanCfg& c, const int* __restrict__ tab,
   for (int l = 0; l < c.n_leaves; ++l) {
     int off = __ldg(leaf_off + l), n = __ldg(leaf_off + l + 1) - off;
     const float* src = ptr[l] + (size_t)blockIdx.y * n;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) sw[off + i] = src[i];
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      cp_async4(sw + off + i, src + i);
   }
+  cp_async_commit();
 }
 
 // Member blockIdx.y's slice of a per-member tensor, `stride` elements a
@@ -840,15 +899,28 @@ __device__ __forceinline__ float dgh_at(const float* dG, int H, int r,
   return dG[r * 4 * H + (gj < 2 * H ? gj : gj + H)];
 }
 
+// The GRU's deltas of the CTA's valid rows from dG [R, 4H] (da_r, da_z,
+// da_n, dgh_n) into the workspace records at wsr: dgi = (da_r, da_z,
+// da_n), the gradient of W_ih x + b_ih, and dgh = (da_r, da_z, dgh_n), of
+// W_hh h_t + b_hh; idx over nv * 3H
+__device__ __forceinline__ void put_gru_delta(const ScanCfg& c,
+                                              const float* dG, float* wsr,
+                                              int idx) {
+  const int H3 = 3 * c.H, r = idx / H3, gj = idx - r * H3;
+  float* q = wsr + (size_t)r * c.rec + c.dlt_gru;
+  q[gj] = dG[r * 4 * c.H + gj];
+  q[H3 + gj] = dgh_at(dG, c.H, r, gj);
+}
+
 // The global plan's GRU jump backward (_gru_bwd) for the CTA's nv valid
-// rows of R, from dh' = dhe (obs * dh2) and the saved gates; adds the four
-// leaves' gradients to g, the CTA's partial row (one owning thread per
-// element), and dh_t * (1 - h_t^2) to dh1, then df = dt * dh1 (its W_hh
-// product through the ring). Starts and ends synced.
-__device__ void gru_bwd(const ScanCfg& c, float* sm, Ring& rg, float* g,
+// rows of R, from dh' = dhe (obs * dh2) and the saved gates: the gate
+// gradients dG, their deltas into the workspace records at wsr, and dh_t *
+// (1 - h_t^2) added to dh1, then df = dt * dh1 (its W_hh product through
+// the ring). Starts and ends synced.
+__device__ void gru_bwd(const ScanCfg& c, float* sm, Ring& rg, float* wsr,
                         int R, int nv, float dt) {
-  const int D = c.D, H = c.H, RH = R * H, H3 = 3 * H;
-  const float* tX = sm + c.o_tX; const float* ht = sm + c.o_in_ro;
+  const int H = c.H, RH = R * H;
+  const float* ht = sm + c.o_in_ro;
   const float* sv = sm + c.o_gru; float* dG = sm + c.o_dG;
   const float* dhe = sm + c.o_dhe;
   float* dh1 = sm + c.o_dh1; float* df = sm + c.o_df;
@@ -864,32 +936,8 @@ __device__ void gru_bwd(const ScanCfg& c, float* sm, Ring& rg, float* g,
     q[3 * H + j] = da_n * rg;                                 // dgh_n
   }
   __syncthreads();
-  auto dwi = [&](int idx) {
-    int gj = idx / D, i = idx - gj * D;
-    float acc = 0.f;
-    for (int r = 0; r < nv; ++r)
-      acc = fmaf(dG[r * 4 * H + gj], tX[r * D + i], acc);
-    return acc;
-  };
-  auto dwh = [&](int idx) {
-    int gj = idx / H, i = idx - gj * H;
-    float acc = 0.f;
-    for (int r = 0; r < nv; ++r)
-      acc = fmaf(dgh_at(dG, H, r, gj), ht[r * H + i], acc);
-    return acc;
-  };
-  grad_add(g + c.gru_wih, H3 * D, dwi);
-  grad_add(g + c.gru_whh, H3 * H, dwh);
-  if (c.gru_bih >= 0)
-    for (int gj = threadIdx.x; gj < H3; gj += blockDim.x) {
-      float a = 0.f, b = 0.f;
-      for (int r = 0; r < nv; ++r) {
-        a += dG[r * 4 * H + gj];
-        b += dgh_at(dG, H, r, gj);
-      }
-      g[c.gru_bih + gj] += a;
-      g[c.gru_bhh + gj] += b;
-    }
+  for (int idx = threadIdx.x; idx < nv * 3 * H; idx += blockDim.x)
+    put_gru_delta(c, dG, wsr, idx);
   auto dh1_out = [&](int r, int i, float acc) {
     int idx = r * H + i;
     float t = ht[idx];
@@ -1225,8 +1273,9 @@ __device__ __forceinline__ bool keep_hj(const MaskCtx& mc, int slot,
 
 // Linear l of MLP m over `rows` rows from x0 (its input at l = 0): weights,
 // input (the saved activation of layer l - 1), and where a hidden layer
-// saves its pre-activation and post-dropout activation; half / jump: the
-// stacked rows' dropout slots (keep_at)
+// saves its pre-activation and post-dropout activation (fo floats past the
+// layout's saves: the resident chain's io set of the step); half / jump:
+// the stacked rows' dropout slots (keep_at)
 struct Lin {
   const float* W;
   const float* b;
@@ -1237,10 +1286,11 @@ struct Lin {
 };
 
 __device__ Lin lin_of(const ScanCfg& c, const MLPDesc& m, float* sm,
-                      const float* x0, int rows, int l, int half, int jump) {
+                      const float* x0, int rows, int l, int half, int jump,
+                      int fo) {
   const float* sw = sm + c.o_w;
   const LayerRec& ly = layer(c, sm, m, l);
-  const int s = m.save_off + 2 * rows * ly.save;
+  const int s = fo + m.save_off + 2 * rows * ly.save;
   Lin L;
   L.W = sw + ly.w_off;
   L.b = ly.b_off >= 0 ? sw + ly.b_off : nullptr;
@@ -1313,16 +1363,18 @@ __device__ __forceinline__ void hidden_item(const Lin& L, int idx,
   L.act[idx] = a;
 }
 
-// an MLP run by a step: its description, input, rows and stacking
+// an MLP run by a step: its description, input, rows and stacking, and
+// where its saves lie (lin_of's fo)
 struct Net {
   const MLPDesc* m;
   const float* x;
   int rows, half, jump;
+  int fo;
 };
 
 __device__ __forceinline__ Lin net_lin(const ScanCfg& c, float* sm,
                                        const Net& n, int l) {
-  return lin_of(c, *n.m, sm, n.x, n.rows, l, n.half, n.jump);
+  return lin_of(c, *n.m, sm, n.x, n.rows, l, n.half, n.jump, n.fo);
 }
 
 // The hidden layers of net a and of net b (b.m null: none), aligned at
@@ -1441,12 +1493,12 @@ __device__ void res_step_forward(const ScanCfg& c, float* sm, int R,
   float* h2 = sm + c.o_h2;
   float* in_ro = sm + c.o_in_ro;
   float* ro = sm + c.o_ro;
-  const Net none{nullptr, nullptr, 0, 0, 0};
-  const Net ode{&c.ode, io.in_ode, R, R, 0};
+  const Net none{nullptr, nullptr, 0, 0, 0, 0};
+  const Net ode{&c.ode, io.in_ode, R, R, 0, 0};
   if (!c.masked && !c.use_rnn) {
     // the ODE net and the encoder side by side, the Euler step and the
     // jump in the phase of their last layers
-    const Net enc{&c.enc, io.tX, R, R, 0};
+    const Net enc{&c.enc, io.tX, R, R, 0, 0};
     hidden_phases(c, sm, ode, enc, mc, &f);
     const Lin F = net_lin(c, sm, ode, c.ode.n_lin - 1);
     const Lin E = net_lin(c, sm, enc, c.enc.n_lin - 1);
@@ -1481,7 +1533,7 @@ __device__ void res_step_forward(const ScanCfg& c, float* sm, int R,
       // masked: the pre-jump readout imputes the unobserved coordinates
       // in the phase of its last layer (O == D), the encoder reads
       // [tanh X_imp, M], the post-jump readout runs on its own
-      const Net r1{&c.ro, in_ro, R, R, 0};
+      const Net r1{&c.ro, in_ro, R, R, 0, 0};
       hidden_phases(c, sm, r1, none, mc);
       const Lin G = net_lin(c, sm, r1, c.ro.n_lin - 1);
       float* Xi = sm + c.o_Xi;
@@ -1497,7 +1549,7 @@ __device__ void res_step_forward(const ScanCfg& c, float* sm, int R,
         io.tX[r * 2 * D + D + q] = m;
       }
       phase_end();
-      const Net enc{&c.enc, io.tX, R, R, 0};
+      const Net enc{&c.enc, io.tX, R, R, 0, 0};
       hidden_phases(c, sm, enc, none, mc);
       const Lin E = net_lin(c, sm, enc, c.enc.n_lin - 1);
       for (int idx = threadIdx.x; idx < RH; idx += NTHREADS) {
@@ -1510,7 +1562,7 @@ __device__ void res_step_forward(const ScanCfg& c, float* sm, int R,
         in_ro[RH + idx] = tanhf(b);
       }
       phase_end();
-      const Net r2{&c.ro2, in_ro + RH, R, R, 0};
+      const Net r2{&c.ro2, in_ro + RH, R, R, 0, 0};
       hidden_phases(c, sm, r2, none, mc);
       const Lin G2 = net_lin(c, sm, r2, c.ro2.n_lin - 1);
       for (int idx = threadIdx.x; idx < R * O; idx += NTHREADS) {
@@ -1525,7 +1577,7 @@ __device__ void res_step_forward(const ScanCfg& c, float* sm, int R,
   // both readouts as one stacked pass of 2R rows (rows >= R: the r2 slots);
   // the last layer's thread of (row r, output o) sums both stacked rows'
   // (y_bj and y) side by side
-  const Net rs{&c.ro, in_ro, 2 * R, R, c.ro.n_lin - 1};
+  const Net rs{&c.ro, in_ro, 2 * R, R, c.ro.n_lin - 1, 0};
   hidden_phases(c, sm, rs, none, mc);
   const Lin G = net_lin(c, sm, rs, c.ro.n_lin - 1);
   for (int idx = threadIdx.x; idx < R * O; idx += NTHREADS) {
@@ -1552,7 +1604,7 @@ __device__ void stage_inputs(const ScanCfg& c, const IO& s, int k, int row0,
     cp_async4(s.tdt, times + k);
     cp_async4(s.tdt + 1, dts + k);
   }
-  for (int r = threadIdx.x; r < R; r += NTHREADS) {
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
     bool ok = r < nv;
     if (ok) cp_async4(s.obs + r, obs_g + kb + r);
     else s.obs[r] = 0.f;
@@ -1561,7 +1613,7 @@ __device__ void stage_inputs(const ScanCfg& c, const IO& s, int k, int row0,
       else s.tau[r] = 0.f;
     }
   }
-  for (int idx = threadIdx.x; idx < R * D; idx += NTHREADS) {
+  for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x) {
     bool ok = idx / D < nv;
     size_t gi = kb * D + idx;
     if (ok) cp_async4(s.X + idx, X_g + gi);
@@ -1576,7 +1628,7 @@ __device__ void stage_inputs(const ScanCfg& c, const IO& s, int k, int row0,
     }
   }
   if (hh)
-    for (int idx = threadIdx.x; idx < R * H; idx += NTHREADS) {
+    for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
       if (idx / H < nv) cp_async4(s.h + idx, hh + kb * H + idx);
       else s.h[idx] = 0.f;
     }
@@ -1672,18 +1724,17 @@ __device__ void res_carry(const ScanCfg& c, float* sm, int R, const IO& cu,
   });
 }
 
-// K2: each row's loss gradients into dst = [dy_bj ; dy] (masked: M weighs
-// each coordinate, and last_X2 = where(obs, y, last_X) adds obs * dlast_X
-// to dy; a thread of (row, output) computes its row's error terms), and
-// the carries' gradients past an observation (dlxc, dtauc); and the lanes
-// of f the phases before left
-__device__ void res_loss_grads(const ScanCfg& c, float* sm, int R,
-                               const IO& cu, float dloss, const MaskCtx& mc,
-                               Fill& f) {
+// K2's chain: each row's loss gradients into dst = [dy_bj ; dy] (masked:
+// M weighs each coordinate, and last_X2 = where(obs, y, last_X) adds obs *
+// dlast_X to dy; a thread of (row, output) computes its row's error
+// terms), and the carries' gradients past an observation (dlxc, dtauc);
+// the step's forward values (h1, h2, ro, le) at fs, its io set
+__device__ void res_loss_grads(const ScanCfg& c, float* sm, const float* fs,
+                               int R, const IO& cu, float dloss) {
   const int D = c.D, O = c.O;
-  const float* h1 = sm + c.o_h1;
-  const float* h2 = sm + c.o_h2;
-  const float* ro = sm + c.o_ro;
+  const float* h1 = fs + c.o_h1;
+  const float* h2 = fs + c.o_h2;
+  const float* ro = fs + c.o_ro;
   const float* nobs = sm + c.o_nobs;
   const float* dlx = sm + c.o_dlx;
   const float* dtau = sm + c.o_dtau;
@@ -1691,12 +1742,12 @@ __device__ void res_loss_grads(const ScanCfg& c, float* sm, int R,
   float* dlxc = sm + c.o_dlxc;
   float* dtauc = sm + c.o_dtauc;
   const int n = R * O + R * D + R;
-  items_fill(mc, &f, n, true, [&](int e) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
     int q = e;
     if (q < R * O) {
       const int r = q / O, o = q - r * O;
       float s1, s2, gg;
-      row_sums(c, sm, R, r, s1, s2, gg);
+      row_sums(c, fs, R, r, s1, s2, gg);
       float fac = c.easy ? 1.f : 2.f;
       float dinner = dloss * cu.obs[r] / fmaxf(nobs[r], 1.f) / (float)c.B;
       float dg = 2.f * gg * dinner;
@@ -1713,48 +1764,43 @@ __device__ void res_loss_grads(const ScanCfg& c, float* sm, int R,
       if (c.masked) dy += cu.obs[r] * dlx[r * D + o];
       dst[q] = dyb;
       dst[R * O + q] = dy;
-      return;
+      continue;
     }
     q -= R * O;
     if (q < R * D) {
       dlxc[q] = (1.f - cu.obs[q / D]) * dlx[q];
-      return;
+      continue;
     }
     q -= R * D;
     dtauc[q] = (1.f - cu.obs[q]) * dtau[q];
-  });
+  }
 }
 
 // The backward of Linear l of an MLP over `rows` rows: d [rows, out], the
-// gradient of its output, and its input a_in [rows, in]; its weight and
-// bias gradients (sums over the valid rows) go into g at gW / gb and,
-// where dx is set (a hidden layer below), dx [rows, in] through the layer
-// below's dropout and activation (pre: its saved pre-activation)
+// gradient of its output, which it writes for the valid rows to the
+// workspace records at wsr (record offset dlt; put_delta), and, where dx
+// is set (a hidden layer below), dx [rows, in] through the layer below's
+// dropout and activation (pre: its saved pre-activation)
 struct BLin {
   const float* W;
-  float* gW;
-  float* gb;
-  const float* a_in;
   const float* d;
   float* dx;
   const float* pre;
-  int in, out, rows, actf, slot, half, jump, nv;
+  float* wsr;
+  int in, out, rows, actf, slot, half, jump, nv, rec, dlt;
 };
 
 __device__ BLin blin_of(const ScanCfg& c, float* sm, const Net& n, int l,
-                        const float* d, float* dx, int nv) {
+                        const float* d, float* dx, int nv, float* wsr) {
   const MLPDesc& m = *n.m;
   const Lin L = net_lin(c, sm, n, l);
   const LayerRec& ly = layer(c, sm, m, l);
-  float* g = sm + c.o_g;
   BLin b;
   b.W = L.W;
-  b.gW = g + ly.w_off;
-  b.gb = ly.b_off >= 0 ? g + ly.b_off : nullptr;
-  b.a_in = L.x;
   b.d = d;
   b.dx = l > 0 ? dx : nullptr;
   b.pre = l > 0 ? L.x - n.rows * ly.w_in : nullptr;
+  b.wsr = wsr;
   b.in = L.in;
   b.out = L.out;
   b.rows = n.rows;
@@ -1763,64 +1809,9 @@ __device__ BLin blin_of(const ScanCfg& c, float* sm, const Net& n, int l,
   b.half = n.half;
   b.jump = n.jump;
   b.nv = nv;
+  b.rec = c.rec;
+  b.dlt = ly.dlt + m.dhalf * ly.w_out;
   return b;
-}
-
-__device__ __forceinline__ int n_dw(const BLin& L) {
-  return L.out * L.in + (L.gb ? L.out : 0);
-}
-
-// The weight and bias gradients of L (its out * in weight elements, then
-// its out bias elements), each a sum over the ROWS rows (0: L.rows, read at
-// run time) added to its accumulator; a thread takes every NTHREADS-th
-// element, DWB at a time: their loads first, then the sums, then the
-// read-modify-writes, so a thread's elements overlap.
-template <int ROWS>
-__device__ __forceinline__ void dw_rows(const BLin& L) {
-  const int nw = L.out * L.in, n = n_dw(L), rows = ROWS ? ROWS : L.rows;
-  for (int base = threadIdx.x; base < n; base += DWB * NTHREADS) {
-    float acc[DWB];
-    float* dst[DWB];
-#pragma unroll
-    for (int u = 0; u < DWB; ++u) {
-      const int e = base + u * NTHREADS;
-      acc[u] = 0.f;
-      dst[u] = nullptr;
-      if (e < nw) {
-        const int j = e / L.in, i = e - j * L.in;
-#pragma unroll
-        for (int r = 0; r < rows; ++r) {
-          int lr = r >= L.half ? r - L.half : r;
-          if (lr < L.nv)
-            acc[u] = fmaf(L.d[r * L.out + j], L.a_in[r * L.in + i], acc[u]);
-        }
-        dst[u] = L.gW + e;
-      } else if (e < n) {
-        const int j = e - nw;
-#pragma unroll
-        for (int r = 0; r < rows; ++r) {
-          int lr = r >= L.half ? r - L.half : r;
-          if (lr < L.nv) acc[u] += L.d[r * L.out + j];
-        }
-        dst[u] = L.gb + j;
-      }
-    }
-    float old[DWB];
-#pragma unroll
-    for (int u = 0; u < DWB; ++u) old[u] = dst[u] ? *dst[u] : 0.f;
-#pragma unroll
-    for (int u = 0; u < DWB; ++u)
-      if (dst[u]) *dst[u] = old[u] + acc[u];
-  }
-}
-
-// dw_rows with the rows a compile-time constant where the kernel's R is
-// (RT: R, or 2R on the stacked readout), so the row loops unroll
-template <int RT>
-__device__ __forceinline__ void dw_all(const BLin& L) {
-  if (RT && L.rows == RT) dw_rows<RT>(L);
-  else if (RT && L.rows == 2 * RT) dw_rows<2 * RT>(L);
-  else dw_rows<0>(L);
 }
 
 __device__ __forceinline__ void dx_item(const BLin& L, int idx,
@@ -1835,40 +1826,44 @@ __device__ __forceinline__ void dx_item(const BLin& L, int idx,
 
 // One backward phase: n_c items of `cust` first (a last layer's dx fused
 // with what reads it), then the dx items of A and B (where they have a
-// hidden layer below), then their weight and bias gradients (A or B null:
-// none); ends synced.
-template <int RT, class C>
+// hidden layer below), then their deltas into the workspace (A or B null:
+// none); with `last`, the step's last phase, it first waits for the next
+// step's copies; ends synced.
+template <class C>
 __device__ __forceinline__ void bwd_phase(const BLin* A, const BLin* B,
                                           int n_c, const C& cust,
-                                          const MaskCtx& mc) {
+                                          const MaskCtx& mc,
+                                          bool last = false) {
   const int xa = A && A->dx ? A->rows * A->in : 0;
   const int xb = B && B->dx ? B->rows * B->in : 0;
   const int n = n_c + xa + xb;
-  for (int e = threadIdx.x; e < n; e += NTHREADS) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
     int q = e;
     if (q < n_c) { cust(q); continue; }
     q -= n_c;
     if (q < xa) dx_item(*A, q, mc);
     else dx_item(*B, q - xa, mc);
   }
-  if (A) dw_all<RT>(*A);
-  if (B) dw_all<RT>(*B);
+  if (A) put_delta(A->d, A->rows, A->out, A->half, A->nv, A->wsr, A->rec,
+                  A->dlt);
+  if (B) put_delta(B->d, B->rows, B->out, B->half, B->nv, B->wsr, B->rec,
+                  B->dlt);
+  if (last) cp_async_wait_all();
   phase_end();
 }
 
 // The backward of net n's layers n_lin-1 .. 1, a phase each, from d0, the
 // gradient of its output, through the buffers b0, b1 in turn; returns the
 // gradient of layer 0's output.
-template <int RT>
 __device__ const float* bwd_upper(const ScanCfg& c, float* sm, const Net& n,
                                   const float* d0, float* b0, float* b1,
-                                  int nv, const MaskCtx& mc) {
+                                  int nv, float* wsr, const MaskCtx& mc) {
   const float* cur = d0;
   float* bufs[2] = {b0, b1};
   int nb = 0;
   for (int l = n.m->n_lin - 1; l >= 1; --l) {
-    const BLin L = blin_of(c, sm, n, l, cur, bufs[nb], nv);
-    bwd_phase<RT>(&L, nullptr, 0, [](int) {}, mc);
+    const BLin L = blin_of(c, sm, n, l, cur, bufs[nb], nv, wsr);
+    bwd_phase(&L, nullptr, 0, [](int) {}, mc);
     cur = bufs[nb];
     nb ^= 1;
   }
@@ -1878,13 +1873,15 @@ __device__ const float* bwd_upper(const ScanCfg& c, float* sm, const Net& n,
 // the stacked readout's layer-0 items fused with the jump's backward: a
 // thread of (row r, unit j) sums column j of the dx product for both
 // stacked rows, then dhe, dh1 and df (and, with the GRU jump, the gate
-// gradients dG from dhe and the saved gates)
-__device__ __forceinline__ void ro0_item(const ScanCfg& c, float* sm, int R,
+// gradients dG from dhe and the saved gates); the step's forward values
+// at fs
+__device__ __forceinline__ void ro0_item(const ScanCfg& c, float* sm,
+                                         const float* fs, int R,
                                          const BLin& L, const IO& cu,
                                          float dt, int e) {
   const int H = c.H, O = c.O, RH = R * H;
   const int r = e / H, j = e - r * H;
-  const float* in_ro = sm + c.o_in_ro;
+  const float* in_ro = fs + c.o_in_ro;
   const float* dst = sm + c.o_dst;
   float a, b;
   dot_col2(L.d + r * L.out, L.d + (R + r) * L.out, L.W, L.out, L.in, j, a,
@@ -1902,7 +1899,7 @@ __device__ __forceinline__ void ro0_item(const ScanCfg& c, float* sm, int R,
   sm[c.o_dh1 + e] = d1;
   sm[c.o_df + e] = dt * d1;
   if (c.use_rnn) {
-    const float* sv = sm + c.o_gru;
+    const float* sv = fs + c.o_gru;
     float rg = sv[e], z = sv[RH + e], n = sv[2 * RH + e];
     float da_n = d * (1.f - z) * (1.f - n * n);
     float* q = sm + c.o_dG + r * 4 * H;
@@ -1913,23 +1910,21 @@ __device__ __forceinline__ void ro0_item(const ScanCfg& c, float* sm, int R,
   }
 }
 
-// the GRU jump's backward after its gate gradients (dG): the four leaves'
-// gradients (X is data: no dx) and dh1 += (dh' z + sum_g dgh_g W_hh[g])
-// (1 - h_t^2), df = dt dh1; one phase
-__device__ void res_gru_bwd(const ScanCfg& c, float* sm, const IO& cu,
-                            int R, int nv, float dt) {
-  const int D = c.D, H = c.H, RH = R * H, H3 = 3 * H;
-  float* g = sm + c.o_g;
+// the GRU jump's backward after its gate gradients (dG): their deltas into
+// the workspace records at wsr (X is data: no dx) and dh1 += (dh' z +
+// sum_g dgh_g W_hh[g]) (1 - h_t^2), df = dt dh1; one phase
+__device__ void res_gru_bwd(const ScanCfg& c, float* sm, const float* fs,
+                            int R, int nv, float dt, float* wsr) {
+  const int H = c.H, RH = R * H, H3 = 3 * H;
   const float* Whh = sm + c.o_w + c.gru_whh;
-  const float* ht = sm + c.o_in_ro;
-  const float* sv = sm + c.o_gru;
+  const float* ht = fs + c.o_in_ro;
+  const float* sv = fs + c.o_gru;
   const float* dG = sm + c.o_dG;
   const float* dhe = sm + c.o_dhe;
   float* dh1 = sm + c.o_dh1;
   float* df = sm + c.o_df;
-  const int nb = c.gru_bih >= 0 ? H3 : 0;
-  const int n = RH + H3 * D + H3 * H + nb;
-  for (int e = threadIdx.x; e < n; e += NTHREADS) {
+  const int n = RH + nv * H3;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
     int q = e;
     if (q < RH) {
       const int r = q / H, i = q - r * H;
@@ -1942,47 +1937,21 @@ __device__ void res_gru_bwd(const ScanCfg& c, float* sm, const IO& cu,
       df[q] = dt * d1;
       continue;
     }
-    q -= RH;
-    float acc = 0.f;
-    if (q < H3 * D) {
-      const int gj = q / D, i = q - gj * D;
-      for (int r = 0; r < nv; ++r)
-        acc = fmaf(dG[r * 4 * H + gj], cu.tX[r * D + i], acc);
-      g[c.gru_wih + q] += acc;
-      continue;
-    }
-    q -= H3 * D;
-    if (q < H3 * H) {
-      const int gj = q / H, i = q - gj * H;
-      for (int r = 0; r < nv; ++r)
-        acc = fmaf(dgh_at(dG, H, r, gj), ht[r * H + i], acc);
-      g[c.gru_whh + q] += acc;
-      continue;
-    }
-    q -= H3 * H;
-    float b = 0.f;
-    for (int r = 0; r < nv; ++r) {
-      acc += dG[r * 4 * H + q];
-      b += dgh_at(dG, H, r, q);
-    }
-    g[c.gru_bih + q] += acc;
-    g[c.gru_bhh + q] += b;
+    put_gru_delta(c, dG, wsr, q - RH);
   }
   phase_end();
 }
 
 // items of the ODE net's layer-0 phase fused with the Euler step's
 // backward: dh = dh1 + dx_h (1 - tanh^2 h), dlast_X likewise, dtau (the
-// input_current_t feature tau + tdiff == t_prev is constant in tau); then,
-// with `build`, the next step's (k - 1) in_ode and tX in io set nx
-__device__ __forceinline__ int n_ode0(const ScanCfg& c, int R, bool build) {
-  return R * c.H + R * c.D + R + (build ? n_build(c, R) : 0);
+// input_current_t feature tau + tdiff == t_prev is constant in tau)
+__device__ __forceinline__ int n_ode0(const ScanCfg& c, int R) {
+  return R * c.H + R * c.D + R;
 }
 
 __device__ __forceinline__ void ode0_item(const ScanCfg& c, float* sm,
                                           int R, const BLin& L,
-                                          const IO& cu, const IO& nx,
-                                          int e) {
+                                          const IO& cu, int e) {
   const int D = c.D, H = c.H, iw = c.ode.w_in;
   if (e < R * H) {
     const int r = e / H, j = e - r * H;
@@ -2000,14 +1969,10 @@ __device__ __forceinline__ void ode0_item(const ScanCfg& c, float* sm,
     return;
   }
   e -= R * D;
-  if (e < R) {
-    const float* d = L.d + e * L.out;
-    sm[c.o_dtau + e] = sm[c.o_dtauc + e]
-                       + dot_col(d, L.W, L.out, iw, D + H)
-                       - dot_col(d, L.W, L.out, iw, D + H + 1);
-    return;
-  }
-  build_item(c, nx, R, e - R);
+  const float* d = L.d + e * L.out;
+  sm[c.o_dtau + e] = sm[c.o_dtauc + e]
+                     + dot_col(d, L.W, L.out, iw, D + H)
+                     - dot_col(d, L.W, L.out, iw, D + H + 1);
 }
 
 // K1 (WANT_HISTS) / K3 in the resident plan
@@ -2076,75 +2041,88 @@ __device__ void res_scan_fwd(const ScanCfg& c, const int* tab, float* sm,
   }
 }
 
-// K2 in the resident plan
+// K2 stage (b), the chain, in the resident plan: the steps k1 - 1 .. k0 of
+// the CTA's R rows, backwards. A step's forward values come from stage
+// (a)'s workspace records: get_fields copies them (fld) with cp.async into
+// the step's io set beside its inputs, while the step after them in the
+// walk (the one before in time) works on the other set, so a step reads
+// its forward values at fs, sm + fo. The carries' gradients (dh, dlast_X,
+// dtau) start at zero in the last chunk (`first`), else from dh0 and carry
+// where the chunk after left them, and go back there at the end. Every
+// delta a weight gradient needs goes to the step's records (put_delta);
+// stage (c) sums the weight gradients.
 template <int RT>
-__device__ void res_scan_bwd(const ScanCfg& c, const int* tab, float* sm,
-                             const float* times, const float* dts,
-                             const float* obs_g, const float* X_g,
-                             const float* M_g, const int8_t* u,
-                             const long long* seed, const float* n_obs,
-                             const float* hh, const float* lxh,
-                             const float* tauh, const float* dloss_p,
-                             float* partials, float* dh0) {
+__device__ void res_chain(const ScanCfg& c, const int* tab, float* sm,
+                          const float* times, const float* dts,
+                          const float* obs_g, const float* X_g,
+                          const float* M_g, const int8_t* u,
+                          const long long* seed, const float* n_obs,
+                          const float* dloss_p, float* ws,
+                          const int* fld, int n_fld, float* carry,
+                          float* dh0, int k0, int k1, int first) {
   const int R = RT ? RT : c.rows, D = c.D, H = c.H, O = c.O, RH = R * H;
   const int row0 = blockIdx.x * R;
   const int nv = min(R, c.B - row0);
   load_weights(c, tab, sm);
-  float* g = sm + c.o_g;
-  for (int i = threadIdx.x; i < c.n_params; i += NTHREADS) g[i] = 0.f;
   float* dh = sm + c.o_dh;
   float* dhe = sm + c.o_dhe;
   float* dh1 = sm + c.o_dh1;
   float* df = sm + c.o_df;
   float* dst = sm + c.o_dst;
-  float* in_ro = sm + c.o_in_ro;
   float* dA = sm + c.o_dA;
   float* dB = sm + c.o_dB;
-  for (int i = threadIdx.x; i < RH; i += NTHREADS) dh[i] = 0.f;
-  for (int i = threadIdx.x; i < R * D; i += NTHREADS) sm[c.o_dlx + i] = 0.f;
-  for (int r = threadIdx.x; r < R; r += NTHREADS) {
-    sm[c.o_dtau + r] = 0.f;
+  float* dlx = sm + c.o_dlx;
+  float* dtau = sm + c.o_dtau;
+  float* cr = carry + (size_t)row0 * (D + 1);    // the rows' [dlast_X, dtau]
+  for (int i = threadIdx.x; i < RH; i += blockDim.x)
+    dh[i] = first || i / H >= nv ? 0.f : dh0[(size_t)row0 * H + i];
+  for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
+    const int r = i / D;
+    dlx[i] = first || r >= nv ? 0.f : cr[r * (D + 1) + i - r * D];
+  }
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    dtau[r] = first || r >= nv ? 0.f : cr[r * (D + 1) + D];
     sm[c.o_nobs + r] = r < nv ? n_obs[row0 + r] : 1.f;
   }
   const float dloss = dloss_p[0];
   MaskCtx mc = make_mask_ctx(c, sm, u, seed, row0, nv);
-  {
-    const IO s = io_set(c, sm, c.K - 1);
-    stage_inputs(c, s, c.K - 1, row0, nv, R, times, dts, obs_g, X_g, M_g, hh,
-                 lxh, tauh);
-    cp_async_wait_all();
-    phase_end();
-    Fill f0 = fill_of(c, sm, R, mc, c.K - 1);   // the last step's words
-    items_fill(mc, &f0, n_build(c, R), true,
-               [&](int e) { build_item(c, s, R, e); });
-    phase_end();
-  }
-  for (int k = c.K - 1; k >= 0; --k) {
+  // step k's records: wsb + (k - k0) * B * rec
+  float* wsb = ws + (size_t)row0 * c.rec;
+  const size_t step_recs = (size_t)c.B * c.rec;
+  auto fetch = [&](int k) {
+    stage_inputs(c, io_set(c, sm, k), k, row0, nv, R, times, dts, obs_g,
+                 X_g, M_g, nullptr, nullptr, nullptr);
+    float* fs = sm + (k & 1) * c.io_stride;
+    if (R == 1)         // the io set's forward floats: the record's image
+      get_record(fs + c.o_in_ode, wsb + (k - k0) * step_recs, n_fld);
+    else
+      get_fields(fld, n_fld, fs, wsb + (k - k0) * step_recs, c.rec, R, nv);
+  };
+  fetch(k1 - 1);
+  cp_async_wait_all();
+  phase_end();
+  for (int k = k1 - 1; k >= k0; --k) {
     phase_clock_step(k, c.K);
-    const IO cu = io_set(c, sm, k), nx = io_set(c, sm, k - 1);
-    const bool more = k > 0;
-    if (more)
-      stage_inputs(c, nx, k - 1, row0, nv, R, times, dts, obs_g, X_g, M_g,
-                   hh, lxh, tauh);
-    mc.bits = mask_set(c, sm, R, k);
-    // step k - 1's words, drawn once for its re-materialisation and its dx
-    Fill f = fill_of(c, sm, R, mc, k - 1);
-    res_step_forward(c, sm, R, cu, mc, f);
-    phase_end();
-    res_loss_grads(c, sm, R, cu, dloss, mc, f);
-    cp_async_wait_all();
+    const IO cu = io_set(c, sm, k);
+    const int fo = (k & 1) * c.io_stride;
+    const float* fs = sm + fo;
+    float* in_ro = sm + fo + c.o_in_ro;
+    float* wsr = wsb + (k - k0) * step_recs;
+    if (k > k0) fetch(k - 1);
+    mc.bits = reinterpret_cast<const uint32_t*>(fs + c.o_mw);
+    res_loss_grads(c, sm, fs, R, cu, dloss);
     phase_end();
     const float dt = cu.tdt[1];
-    const Net ode{&c.ode, cu.in_ode, R, R, 0};
+    const Net ode{&c.ode, cu.in_ode, R, R, 0, fo};
     if (!c.masked && !c.use_rnn) {
       // the stacked readout, then the ODE net and the encoder side by
       // side from their tops (the encoder's input is data: no dx)
-      const Net rs{&c.ro, in_ro, 2 * R, R, c.ro.n_lin - 1};
-      const float* d = bwd_upper<RT>(c, sm, rs, dst, dA, dB, nv, mc);
-      const BLin L0 = blin_of(c, sm, rs, 0, d, nullptr, nv);
-      bwd_phase<RT>(&L0, nullptr, RH,
-                [&](int e) { ro0_item(c, sm, R, L0, cu, dt, e); }, mc);
-      const Net enc{&c.enc, cu.tX, R, R, 0};
+      const Net rs{&c.ro, in_ro, 2 * R, R, c.ro.n_lin - 1, fo};
+      const float* d = bwd_upper(c, sm, rs, dst, dA, dB, nv, wsr, mc);
+      const BLin L0 = blin_of(c, sm, rs, 0, d, nullptr, nv, wsr);
+      bwd_phase(&L0, nullptr, RH,
+                [&](int e) { ro0_item(c, sm, fs, R, L0, cu, dt, e); }, mc);
+      const Net enc{&c.enc, cu.tX, R, R, 0, fo};
       const float* co = df;
       const float* ce = dhe;
       float* ob[2] = {dA, dB};
@@ -2153,29 +2131,30 @@ __device__ void res_scan_bwd(const ScanCfg& c, const int* tab, float* sm,
       for (int lo = c.ode.n_lin - 1, le = c.enc.n_lin - 1;
            lo >= 0 || le >= 0; --lo, --le) {
         BLin Ol = {}, El = {};
-        if (lo >= 0) Ol = blin_of(c, sm, ode, lo, co, ob[no], nv);
-        if (le >= 0) El = blin_of(c, sm, enc, le, ce, eb[ne], nv);
-        bwd_phase<RT>(lo >= 0 ? &Ol : nullptr, le >= 0 ? &El : nullptr,
-                  lo == 0 ? n_ode0(c, R, more) : 0,
-                  [&](int e) { ode0_item(c, sm, R, Ol, cu, nx, e); }, mc);
+        if (lo >= 0) Ol = blin_of(c, sm, ode, lo, co, ob[no], nv, wsr);
+        if (le >= 0) El = blin_of(c, sm, enc, le, ce, eb[ne], nv, wsr);
+        bwd_phase(lo >= 0 ? &Ol : nullptr, le >= 0 ? &El : nullptr,
+                  lo == 0 ? n_ode0(c, R) : 0,
+                  [&](int e) { ode0_item(c, sm, R, Ol, cu, e); }, mc,
+                  lo <= 0 && le <= 0);
         if (lo > 0) { co = ob[no]; no ^= 1; }
         if (le > 0) { ce = eb[ne]; ne ^= 1; }
       }
       continue;
     }
     if (c.use_rnn) {
-      const Net rs{&c.ro, in_ro, 2 * R, R, c.ro.n_lin - 1};
-      const float* d = bwd_upper<RT>(c, sm, rs, dst, dA, dB, nv, mc);
-      const BLin L0 = blin_of(c, sm, rs, 0, d, nullptr, nv);
-      bwd_phase<RT>(&L0, nullptr, RH,
-                [&](int e) { ro0_item(c, sm, R, L0, cu, dt, e); }, mc);
-      res_gru_bwd(c, sm, cu, R, nv, dt);
+      const Net rs{&c.ro, in_ro, 2 * R, R, c.ro.n_lin - 1, fo};
+      const float* d = bwd_upper(c, sm, rs, dst, dA, dB, nv, wsr, mc);
+      const BLin L0 = blin_of(c, sm, rs, 0, d, nullptr, nv, wsr);
+      bwd_phase(&L0, nullptr, RH,
+                [&](int e) { ro0_item(c, sm, fs, R, L0, cu, dt, e); }, mc);
+      res_gru_bwd(c, sm, fs, R, nv, dt, wsr);
     } else {
       // masked: the post-jump readout (input tanh h2)
-      const Net r2{&c.ro2, in_ro + RH, R, R, 0};
-      const float* d = bwd_upper<RT>(c, sm, r2, dst + R * O, dA, dB, nv, mc);
-      const BLin L2 = blin_of(c, sm, r2, 0, d, nullptr, nv);
-      bwd_phase<RT>(&L2, nullptr, RH, [&](int e) {
+      const Net r2{&c.ro2, in_ro + RH, R, R, 0, fo};
+      const float* d = bwd_upper(c, sm, r2, dst + R * O, dA, dB, nv, wsr, mc);
+      const BLin L2 = blin_of(c, sm, r2, 0, d, nullptr, nv, wsr);
+      bwd_phase(&L2, nullptr, RH, [&](int e) {
         const int r = e / H, j = e - r * H;
         float a2 = in_ro[RH + e];
         float d2 = dh[e]
@@ -2188,10 +2167,10 @@ __device__ void res_scan_bwd(const ScanCfg& c, const int* tab, float* sm,
       }, mc);
       // the encoder to its input [tanh X_imp, M]; X_imp = X*M + (1-M)*y_bj,
       // X and M are data, so dX_imp flows into dy_bj
-      const Net en{&c.enc, cu.tX, R, R, 0};
-      d = bwd_upper<RT>(c, sm, en, dhe, dA, dB, nv, mc);
-      const BLin E0 = blin_of(c, sm, en, 0, d, nullptr, nv);
-      bwd_phase<RT>(&E0, nullptr, R * D, [&](int e) {
+      const Net en{&c.enc, cu.tX, R, R, 0, fo};
+      d = bwd_upper(c, sm, en, dhe, dA, dB, nv, wsr, mc);
+      const BLin E0 = blin_of(c, sm, en, 0, d, nullptr, nv, wsr);
+      bwd_phase(&E0, nullptr, R * D, [&](int e) {
         const int r = e / D, q = e - r * D;
         float tx = cu.tX[r * 2 * D + q];
         float dxi = dot_col(E0.d + r * E0.out, E0.W, E0.out, E0.in, q)
@@ -2201,10 +2180,10 @@ __device__ void res_scan_bwd(const ScanCfg& c, const int* tab, float* sm,
         dst[r * O + q] += (1.f - cu.M[e]) * dxi;
       }, mc);
       // the pre-jump readout (input tanh h1)
-      const Net r1{&c.ro, in_ro, R, R, 0};
-      d = bwd_upper<RT>(c, sm, r1, dst, dA, dB, nv, mc);
-      const BLin L1 = blin_of(c, sm, r1, 0, d, nullptr, nv);
-      bwd_phase<RT>(&L1, nullptr, RH, [&](int e) {
+      const Net r1{&c.ro, in_ro, R, R, 0, fo};
+      d = bwd_upper(c, sm, r1, dst, dA, dB, nv, wsr, mc);
+      const BLin L1 = blin_of(c, sm, r1, 0, d, nullptr, nv, wsr);
+      bwd_phase(&L1, nullptr, RH, [&](int e) {
         const int r = e / H, j = e - r * H;
         float a1 = in_ro[e];
         float d1 = dh1[e]
@@ -2216,15 +2195,108 @@ __device__ void res_scan_bwd(const ScanCfg& c, const int* tab, float* sm,
       }, mc);
     }
     // the Euler step's backward: h1 = h + dt * f(ode_in)
-    const float* d = bwd_upper<RT>(c, sm, ode, df, dA, dB, nv, mc);
-    const BLin O0 = blin_of(c, sm, ode, 0, d, nullptr, nv);
-    bwd_phase<RT>(&O0, nullptr, n_ode0(c, R, more),
-              [&](int e) { ode0_item(c, sm, R, O0, cu, nx, e); }, mc);
+    const float* d = bwd_upper(c, sm, ode, df, dA, dB, nv, wsr, mc);
+    const BLin O0 = blin_of(c, sm, ode, 0, d, nullptr, nv, wsr);
+    bwd_phase(&O0, nullptr, n_ode0(c, R),
+              [&](int e) { ode0_item(c, sm, R, O0, cu, e); }, mc, true);
   }
-  for (int idx = threadIdx.x; idx < nv * H; idx += NTHREADS)
+  for (int idx = threadIdx.x; idx < nv * H; idx += blockDim.x)
     dh0[(size_t)row0 * H + idx] = dh[idx];
-  for (int i = threadIdx.x; i < c.n_params; i += NTHREADS)
-    partials[(size_t)blockIdx.x * c.n_params + i] = g[i];
+  for (int idx = threadIdx.x; idx < nv * D; idx += blockDim.x) {
+    const int r = idx / D;
+    cr[r * (D + 1) + idx - r * D] = dlx[idx];
+  }
+  for (int r = threadIdx.x; r < nv; r += blockDim.x) cr[r * (D + 1) + D] = dtau[r];
+}
+
+// K2 stage (a), the forward re-run (resident plan): CTA x of member
+// blockIdx.y re-runs step k0 + x / nb (nb: the CTAs of a step) for its R
+// rows from the stored carries, with the forward's code at its layout
+// (res_step_forward: the bits the chain's walk used to re-run), and writes
+// the fields of the workspace records that the chain and stage (c) read
+// (fld) for its valid rows
+template <int RT>
+__global__ void __launch_bounds__(NTHREADS, CTAS_PER_SM)
+njode_remat_kernel(ScanCfg c, const int* __restrict__ tab,
+                   const float* __restrict__ times,
+                   const float* __restrict__ dts,
+                   const float* __restrict__ obs_g,
+                   const float* __restrict__ X_g,
+                   const float* __restrict__ M_g, const int8_t* u,
+                   const long long* seed, const float* __restrict__ hh,
+                   const float* __restrict__ lxh,
+                   const float* __restrict__ tauh, float* ws,
+                   const int* __restrict__ fld, int n_fld, int k0, int Kc) {
+  extern __shared__ float sm[];
+  {
+    const size_t KB = (size_t)c.K * c.B;
+    obs_g = member_of(obs_g, KB);
+    X_g = member_of(X_g, KB * c.D);
+    M_g = member_of(M_g, KB * c.D);
+    u = member_of(u, KB * c.S * c.Wmax);
+    seed = member_of(seed, 1);
+    hh = member_of(hh, KB * c.H);
+    lxh = member_of(lxh, KB * c.D);
+    tauh = member_of(tauh, KB);
+    ws = member_of(ws, (size_t)Kc * c.B * c.rec);
+  }
+  load_tables(c, tab, sm);
+  const int R = RT ? RT : c.rows;
+  const int nb = (c.B + R - 1) / R;
+  const int kl = blockIdx.x / nb, k = k0 + kl;
+  const int row0 = (blockIdx.x - kl * nb) * R;
+  const int nv = min(R, c.B - row0);
+  load_weights(c, tab, sm);
+  const IO s = io_set(c, sm, 0);
+  stage_inputs(c, s, k, row0, nv, R, times, dts, obs_g, X_g, M_g, hh, lxh,
+               tauh);
+  cp_async_wait_all();
+  phase_end();
+  // the step's mask words into the first set, then its ODE and jump inputs
+  MaskCtx mc = make_mask_ctx(c, sm, u, seed, row0, nv);
+  Fill f{mask_set(c, sm, R, 0), k, 0,
+         mc.mode ? R * c.S * (1 << c.lg_nw) : 0, R};
+  items_fill(mc, &f, n_build(c, R), true,
+             [&](int e) { build_item(c, s, R, e); });
+  phase_end();
+  Fill none{nullptr, k, 0, 0, R};
+  res_step_forward(c, sm, R, s, mc, none);
+  phase_end();
+  put_fields(fld, n_fld, sm, ws + ((size_t)kl * c.B + row0) * c.rec, c.rec,
+             nv);
+}
+
+// K2 stage (c), the weight gradients: CTA x of member blockIdx.y owns
+// output tile x % n_tiles (tiles: 8 ints, the weight leaf's offset, its
+// columns `in` and rows `out`, the tile's first row j0 and column i0, its
+// first job and job count, and its bias leaf's offset or -1: the bias is
+// the weight's column `in`, its x a column of ones) and stretch s = x /
+// n_tiles of the chunk's steps (Ks steps, all B rows each: the chunk's
+// stretch s is stretch s0 + s of the call). dtx_tile (dtx.cuh) sums
+// d[j] x[i] over every (step, row) record of its stretch for each of the
+// leaf's jobs (jobs: 2 ints, the record offsets of x and of d), in job
+// order, then record order, into the call's partial row of that stretch.
+// The order depends on neither the rows per CTA, nor the plan, nor the
+// chunk length, nor the member axis.
+__global__ void __launch_bounds__(DTX_NT)
+njode_wgrad_kernel(const float* __restrict__ ws, int rec, int B,
+                   int steps, int Ks, int s0, const int* __restrict__ tiles,
+                   const int* __restrict__ jobs, int n_tiles,
+                   float* partials, int n_params, int n_parts,
+                   size_t ws_member) {
+  ws += blockIdx.y * ws_member;
+  partials += (size_t)blockIdx.y * n_parts * n_params;
+  const int s = blockIdx.x / n_tiles;
+  const int* tp = tiles + (blockIdx.x - s * n_tiles) * 8;
+  const DtxTile t{__ldg(tp), __ldg(tp + 1), __ldg(tp + 2), __ldg(tp + 4),
+                  __ldg(tp + 3), __ldg(tp + 5), __ldg(tp + 6),
+                  __ldg(tp + 7)};
+  const auto job_at = [&](int q) {
+    return DtxJob{ws + __ldg(jobs + 2 * q), rec,
+                  ws + __ldg(jobs + 2 * q + 1), rec};
+  };
+  dtx_tile(t, job_at, s * Ks * B, min(steps, (s + 1) * Ks) * B,
+           partials + (size_t)(s0 + s) * n_params, true, false);
 }
 
 // K1 (WANT_HISTS) and K3: the resident plan's body above, or (GW) the
@@ -2343,7 +2415,12 @@ njode_scan_fwd_kernel(ScanCfg c, const int* __restrict__ tab,
   }
 }
 
-// K2: the resident plan's body above, or (GW) the global plan's
+// K2 stage (b), the chain of steps [k0, k1): the resident plan's body
+// above, or (GW) the global plan's, which re-runs each step inline
+// (step_forward, its weights through the ring), writes the fields that
+// stage (c) reads (fld: the Linears' inputs) and then walks its backward
+// as the resident chain does, the carries' gradients passing from chunk
+// to chunk the same way
 template <bool GW, int RT>
 __global__ void __launch_bounds__(NTHREADS, GW ? 1 : CTAS_PER_SM)
 njode_scan_bwd_kernel(ScanCfg c, const int* __restrict__ tab,
@@ -2359,7 +2436,9 @@ njode_scan_bwd_kernel(ScanCfg c, const int* __restrict__ tab,
                       const float* __restrict__ hh,
                       const float* __restrict__ lxh,
                       const float* __restrict__ tauh, const float* dloss_p,
-                      float* partials, float* dh0) {
+                      float* ws, const int* __restrict__ fld, int n_fld,
+                      float* carry, float* dh0, int k0, int k1, int Kc,
+                      int first) {
   extern __shared__ float sm[];
   {
     const size_t KB = (size_t)c.K * c.B;
@@ -2373,23 +2452,20 @@ njode_scan_bwd_kernel(ScanCfg c, const int* __restrict__ tab,
     lxh = member_of(lxh, KB * c.D);
     tauh = member_of(tauh, KB);
     dloss_p = member_of(dloss_p, 1);
-    partials = member_of(partials, (size_t)gridDim.x * c.n_params);
+    ws = member_of(ws, (size_t)Kc * c.B * c.rec);
+    carry = member_of(carry, (size_t)c.B * (c.D + 1));
     dh0 = member_of(dh0, (size_t)c.B * c.H);
     wg = member_of(wg, c.wg_stride);
   }
   load_tables(c, tab, sm);
   if constexpr (!GW) {
-    res_scan_bwd<RT>(c, tab, sm, times, dts, obs_g, X_g, M_g, u, seed, n_obs,
-                     hh, lxh, tauh, dloss_p, partials, dh0);
+    res_chain<RT>(c, tab, sm, times, dts, obs_g, X_g, M_g, u, seed, n_obs,
+                  dloss_p, ws, fld, n_fld, carry, dh0, k0, k1, first);
   } else {
   const int R = RT ? RT : c.rows, D = c.D, H = c.H, O = c.O, B = c.B;
   const int row0 = blockIdx.x * R;
   const int nv = min(R, B - row0);
   const int iw = c.ode.w_in;
-  // the gradient accumulator: this CTA's partial row, zeroed here and
-  // added into in place every step
-  float* g = partials + (size_t)blockIdx.x * c.n_params;
-  for (int i = threadIdx.x; i < c.n_params; i += blockDim.x) g[i] = 0.f;
   float* h = sm + c.o_h; float* lx = sm + c.o_lx; float* tau = sm + c.o_tau;
   float* X = sm + c.o_X; float* obs = sm + c.o_obs; float* nobs = sm + c.o_nobs;
   float* dh = sm + c.o_dh; float* dlx = sm + c.o_dlx; float* dtau = sm + c.o_dtau;
@@ -2397,10 +2473,15 @@ njode_scan_bwd_kernel(ScanCfg c, const int* __restrict__ tab,
   float* dhe = sm + c.o_dhe; float* df = sm + c.o_df;
   float* dlxc = sm + c.o_dlxc; float* dtauc = sm + c.o_dtauc;
   float* Mm = sm + c.o_M;
-  for (int i = threadIdx.x; i < R * H; i += blockDim.x) dh[i] = 0.f;
-  for (int i = threadIdx.x; i < R * D; i += blockDim.x) dlx[i] = 0.f;
+  float* cr = carry + (size_t)row0 * (D + 1);    // the rows' [dlast_X, dtau]
+  for (int i = threadIdx.x; i < R * H; i += blockDim.x)
+    dh[i] = first || i / H >= nv ? 0.f : dh0[(size_t)row0 * H + i];
+  for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
+    const int r = i / D;
+    dlx[i] = first || r >= nv ? 0.f : cr[r * (D + 1) + i - r * D];
+  }
   for (int r = threadIdx.x; r < R; r += blockDim.x) {
-    dtau[r] = 0.f;
+    dtau[r] = first || r >= nv ? 0.f : cr[r * (D + 1) + D];
     nobs[r] = r < nv ? n_obs[row0 + r] : 1.f;
   }
   const float dloss = dloss_p[0];
@@ -2409,10 +2490,11 @@ njode_scan_bwd_kernel(ScanCfg c, const int* __restrict__ tab,
   // backward's, step after step
   Ring rg{prog, c.n_tiles_fwd + c.n_tiles_bwd, 0, c.stage, sm + c.o_ring, wg};
   ring_issue(rg, 0);
-  Fill f0 = fill_of(c, sm, R, mc, c.K - 1);  // the last step's mask words
+  Fill f0 = fill_of(c, sm, R, mc, k1 - 1);   // the walk's first step's words
   items_fill(mc, &f0, 0, true, [](int) {});
   __syncthreads();
-  for (int k = c.K - 1; k >= 0; --k) {
+  for (int k = k1 - 1; k >= k0; --k) {
+    float* wsr = ws + ((size_t)(k - k0) * B + row0) * c.rec;
     const float t = times[k], dt = dts[k];
     for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x)
       h[idx] = idx / H < nv ? hh[((size_t)k * B + row0) * H + idx] : 0.f;
@@ -2429,6 +2511,7 @@ njode_scan_bwd_kernel(ScanCfg c, const int* __restrict__ tab,
       obs[r] = ok ? obs_g[(size_t)k * B + row0 + r] : 0.f;
     }
     step_forward<RT>(c, sm, rg, t, dt, mc);
+    put_fields(fld, n_fld, sm, wsr, c.rec, nv);
     // loss gradients per row: rs = (de1, de2)
     for (int r = threadIdx.x; r < R; r += blockDim.x) {
       float s1, s2, gg;
@@ -2473,8 +2556,8 @@ njode_scan_bwd_kernel(ScanCfg c, const int* __restrict__ tab,
     if (!c.masked || c.use_rnn) {
       // stacked readout backward
       mc.half = R; mc.jump = c.ro.n_lin - 1;
-      const float* d_rin = mlp_bwd(c, c.ro, sm, rg, g, in_ro, 2 * R,
-                                   dst, true, mc);
+      const float* d_rin = mlp_bwd(c, c.ro, sm, rg, wsr, 2 * R, dst, true,
+                                   mc);
       for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
         int r = idx / H, j = idx - r * H;
         float a1 = in_ro[idx], a2 = in_ro[R * H + idx];
@@ -2493,13 +2576,13 @@ njode_scan_bwd_kernel(ScanCfg c, const int* __restrict__ tab,
       __syncthreads();
       mc.half = 2 * R; mc.jump = 0;
       // the jump's backward: X is data, only the weights get gradients
-      if (c.use_rnn) gru_bwd(c, sm, rg, g, R, nv, dt);
-      else mlp_bwd(c, c.enc, sm, rg, g, sm + c.o_tX, R, dhe, false, mc);
+      if (c.use_rnn) gru_bwd(c, sm, rg, wsr, R, nv, dt);
+      else mlp_bwd(c, c.enc, sm, rg, wsr, R, dhe, false, mc);
     } else {
       mc.half = 2 * R; mc.jump = 0;
       // post-jump readout backward (input tanh h2)
-      const float* d_r2 = mlp_bwd(c, c.ro2, sm, rg, g, in_ro + R * H,
-                                      R, dst + R * O, true, mc);
+      const float* d_r2 = mlp_bwd(c, c.ro2, sm, rg, wsr, R, dst + R * O,
+                                  true, mc);
       for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
         int r = idx / H, j = idx - r * H;
         float a2 = in_ro[R * H + idx];
@@ -2513,8 +2596,7 @@ njode_scan_bwd_kernel(ScanCfg c, const int* __restrict__ tab,
       __syncthreads();
       // encoder backward to its input [tanh X_imp, M]; X_imp = X*M +
       // (1-M)*y_bj, X and M are data, so dX_imp flows into dy_bj
-      const float* d_ein = mlp_bwd(c, c.enc, sm, rg, g, sm + c.o_tX, R,
-                                       dhe, true, mc);
+      const float* d_ein = mlp_bwd(c, c.enc, sm, rg, wsr, R, dhe, true, mc);
       const float* tX = sm + c.o_tX;
       for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x) {
         int r = idx / D, q = idx - r * D;
@@ -2525,8 +2607,7 @@ njode_scan_bwd_kernel(ScanCfg c, const int* __restrict__ tab,
       }
       __syncthreads();
       // pre-jump readout backward (input tanh h1)
-      const float* d_r1 = mlp_bwd(c, c.ro, sm, rg, g, in_ro, R, dst,
-                                      true, mc);
+      const float* d_r1 = mlp_bwd(c, c.ro, sm, rg, wsr, R, dst, true, mc);
       for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
         int r = idx / H, j = idx - r * H;
         float a1 = in_ro[idx];
@@ -2538,8 +2619,7 @@ njode_scan_bwd_kernel(ScanCfg c, const int* __restrict__ tab,
       __syncthreads();
     }
     // Euler step backward: h1 = h + dt * f(ode_in)
-    const float* dino = mlp_bwd(c, c.ode, sm, rg, g, sm + c.o_in_ode, R,
-                                    df, true, mc);
+    const float* dino = mlp_bwd(c, c.ode, sm, rg, wsr, R, df, true, mc);
     const float* in_ode = sm + c.o_in_ode;
     for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
       int r = idx / H, j = idx - r * H;
@@ -2556,13 +2636,19 @@ njode_scan_bwd_kernel(ScanCfg c, const int* __restrict__ tab,
       dtau[r] = dtauc[r] + dino[r * iw + D + H] - dino[r * iw + D + H + 1];
     // step k - 1's mask words (step k read its last before mlp_bwd's last
     // barrier)
-    Fill f = fill_of(c, sm, R, mc, k - 1);
+    Fill f = fill_of(c, sm, R, mc, k > k0 ? k - 1 : -1);
     items_fill(mc, &f, 0, true, [](int) {});
     __syncthreads();
   }
   cp_async_wait_all();           // the next step's first tile, unused
   for (int idx = threadIdx.x; idx < nv * H; idx += blockDim.x)
     dh0[(size_t)row0 * H + idx] = dh[idx];
+  for (int idx = threadIdx.x; idx < nv * D; idx += blockDim.x) {
+    const int r = idx / D;
+    cr[r * (D + 1) + idx - r * D] = dlx[idx];
+  }
+  for (int r = threadIdx.x; r < nv; r += blockDim.x)
+    cr[r * (D + 1) + D] = dtau[r];
   }
 }
 
@@ -2719,105 +2805,169 @@ extern "C" int njode_scan_fwd_members(const ScanCfg* c, int n_members,
                   want_hists, loss_scale, stream);
 }
 
+// K2's staged plan beyond its config (ops/fused_scan.py::_K2Work): stage
+// (a)'s config (the forward layout at its own rows; the resident plan),
+// the workspace [E][Kc * B][rec] and the carries [E][B][D + 1] between
+// chunks, the field programs of stage (a) and of the chain (4 ints a
+// field, put_fields), stage (c)'s tiles and jobs, chunk and stretch
+// lengths (Kc a multiple of Ks), and the threads of a chain CTA (256, or
+// 128 in the resident plan at one row a CTA, where the launch's CTAs
+// overflow a wave of two an SM: the kernel's registers hold four CTAs of
+// 128 threads an SM, and its phases hold few items at one row)
+struct K2Work {
+  ScanCfg a;
+  float* ws;
+  float* carry;
+  const int* fa;
+  const int* fb;
+  const int* tiles;
+  const int* jobs;
+  int n_fa, n_fb, n_tiles, Kc, Ks, threads;
+};
+
+struct BwdArgs {                 // the per-call pointers of K2's kernels
+  const int* tab;
+  const float* wg;
+  const int* prog;
+  const float *times, *dts, *obs, *X, *M;
+  const int8_t* u;
+  const long long* seed;
+  const float *n_obs, *hh, *lxh, *tauh, *dloss;
+  float* dh0;
+};
+
+// the chain of steps [k0, k1) for E members; occ: the occupancy query only
 template <bool GW, int RT>
-static cudaError_t launch_bwd(const ScanCfg* c, const int* tab,
-                              const float* wg, const int* prog,
-                              const float* times, const float* dts,
-                              const float* obs, const float* X,
-                              const float* M, const int8_t* u,
-                              const long long* seed, const float* n_obs,
-                              const float* hh, const float* lxh,
-                              const float* tauh, const float* dloss,
-                              float* partials, float* dh0, cudaStream_t st,
-                              int* occ, int E) {
-  dim3 grid((c->B + c->rows - 1) / c->rows, E);
+static cudaError_t launch_chain(const ScanCfg* c, const K2Work* w,
+                                const BwdArgs& g, int k0, int k1, int first,
+                                cudaStream_t st, int* occ, int E) {
   size_t smem = (size_t)c->smem_floats * sizeof(float);
   auto kern = njode_scan_bwd_kernel<GW, RT>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
+  const int threads = w ? w->threads : NTHREADS;
   if (occ)
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, kern, NTHREADS,
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, kern, threads,
                                                          smem);
-  kern<<<grid, NTHREADS, smem, st>>>(*c, tab, wg, prog, times, dts, obs, X,
-                                     M, u, seed, n_obs, hh, lxh, tauh, dloss,
-                                     partials, dh0);
+  dim3 grid((c->B + c->rows - 1) / c->rows, E);
+  kern<<<grid, threads, smem, st>>>(
+      *c, g.tab, g.wg, g.prog, g.times, g.dts, g.obs, g.X, g.M, g.u, g.seed,
+      g.n_obs, g.hh, g.lxh, g.tauh, g.dloss, w->ws, w->fb, w->n_fb,
+      w->carry, g.dh0, k0, k1, w->Kc, first);
   return cudaGetLastError();
 }
 
 template <bool GW>
-static decltype(&launch_bwd<GW, 0>) bwd_for_rows(const ScanCfg* c) {
-  if (c->rows == MAX_ROWS) return launch_bwd<GW, MAX_ROWS>;
+static decltype(&launch_chain<GW, 0>) chain_for_rows(const ScanCfg* c) {
+  if (c->rows == MAX_ROWS) return launch_chain<GW, MAX_ROWS>;
   if constexpr (!GW)
-    if (c->rows == 1) return launch_bwd<GW, 1>;
-  return launch_bwd<GW, 0>;
+    if (c->rows == 1) return launch_chain<GW, 1>;
+  return launch_chain<GW, 0>;
 }
 
-// K2 for E members (gridDim.y = E), then the reduction of each member's
-// partial rows ([E, n_cta, n_params]) into grads [E, n_params], both on the
-// stream
-static int scan_bwd(const ScanCfg* c, int E, const int* tab, const float* wg,
-                    const int* prog, const float* times, const float* dts,
-                    const float* obs, const float* X, const float* M,
-                    const int8_t* u, const long long* seed,
-                    const float* n_obs, const float* hh, const float* lxh,
-                    const float* tauh, const float* dloss, float* partials,
-                    float* grads, float* dh0, void* stream) {
-  if (!cfg_ok(c, tab, wg, prog) || E < 1 || E > 65535)
+// stage (a) of steps [k0, k1) for E members
+template <int RT>
+static cudaError_t launch_remat(const K2Work* w, const BwdArgs& g, int k0,
+                                int k1, cudaStream_t st, int E) {
+  const ScanCfg* a = &w->a;
+  size_t smem = (size_t)a->smem_floats * sizeof(float);
+  auto kern = njode_remat_kernel<RT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((a->B + a->rows - 1) / a->rows * (k1 - k0), E);
+  kern<<<grid, NTHREADS, smem, st>>>(
+      *a, g.tab, g.times, g.dts, g.obs, g.X, g.M, g.u, g.seed, g.hh, g.lxh,
+      g.tauh, w->ws, w->fa, w->n_fa, k0, w->Kc);
+  return cudaGetLastError();
+}
+
+// K2 for E members (gridDim.y = E): for each chunk of Kc steps, last
+// first, stage (a) (resident plan), the chain and stage (c), then the
+// reduction of each member's stretch partials ([E, ceil(K / Ks),
+// n_params]) into grads [E, n_params], all on the stream
+static int scan_bwd(const ScanCfg* c, int E, const K2Work* w,
+                    const BwdArgs& g, float* partials, float* grads,
+                    void* stream) {
+  if (!cfg_ok(c, g.tab, g.wg, g.prog) || E < 1 || E > 65535 || !w
+      || w->Kc < 1 || w->Ks < 1 || w->Kc % w->Ks || !w->ws || !w->carry
+      || (w->threads != NTHREADS
+          && (w->threads != 128 || c->plan != 0 || c->rows != 1))
+      || (c->plan == 0 && (w->a.rows < 1 || w->a.rows > MAX_ROWS
+                           || w->a.plan != 0 || w->a.rec != c->rec)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  auto f = c->plan ? bwd_for_rows<true>(c) : bwd_for_rows<false>(c);
-  cudaError_t e = f(c, tab, wg, prog, times, dts, obs, X, M, u, seed, n_obs,
-                    hh, lxh, tauh, dloss, partials, dh0, st, nullptr, E);
-  if (e != cudaSuccess) return (int)e;
-  int n_cta = (c->B + c->rows - 1) / c->rows;
-  return (int)launch_reduce(partials, n_cta, c->n_params, 1.f, grads, st, E);
+  const int K = c->K, B = c->B, Kc = w->Kc, Ks = w->Ks;
+  const int n_parts = (K + Ks - 1) / Ks;
+  auto chain = c->plan ? chain_for_rows<true>(c) : chain_for_rows<false>(c);
+  auto remat = w->a.rows == MAX_ROWS ? launch_remat<MAX_ROWS>
+                                     : launch_remat<0>;
+  const size_t ws_member = (size_t)Kc * B * c->rec;
+  for (int ci = (K + Kc - 1) / Kc - 1; ci >= 0; --ci) {
+    const int k0 = ci * Kc, k1 = min(K, k0 + Kc);
+    cudaError_t e = cudaSuccess;
+    if (c->plan == 0) e = remat(w, g, k0, k1, st, E);
+    if (e == cudaSuccess)
+      e = chain(c, w, g, k0, k1, k1 == K, st, nullptr, E);
+    if (e != cudaSuccess) return (int)e;
+    const int n_str = (k1 - k0 + Ks - 1) / Ks;
+    njode_wgrad_kernel<<<dim3(w->n_tiles * n_str, E), DTX_NT, 0, st>>>(
+        w->ws, c->rec, B, k1 - k0, Ks, k0 / Ks, w->tiles, w->jobs,
+        w->n_tiles, partials, c->n_params, n_parts, ws_member);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)launch_reduce(partials, n_parts, c->n_params, 1.f, grads, st,
+                            E);
 }
 
-// K2 of one model: partials [n_cta, n_params], grads [n_params]
-extern "C" int njode_scan_bwd(const ScanCfg* c, const int* tab,
-                              const float* wg, const int* prog,
-                              const float* times, const float* dts,
-                              const float* obs, const float* X,
-                              const float* M,
+// K2 of one model: work (K2Work), partials [ceil(K / Ks), n_params], grads
+// [n_params]
+extern "C" int njode_scan_bwd(const ScanCfg* c, const K2Work* work,
+                              const int* tab, const float* wg,
+                              const int* prog, const float* times,
+                              const float* dts, const float* obs,
+                              const float* X, const float* M,
                               const int8_t* u, const long long* seed,
                               const float* n_obs, const float* hh,
                               const float* lxh, const float* tauh,
                               const float* dloss, float* partials,
                               float* grads, float* dh0, void* stream) {
-  return scan_bwd(c, 1, tab, wg, prog, times, dts, obs, X, M, u, seed,
-                  n_obs, hh, lxh, tauh, dloss, partials, grads, dh0, stream);
+  const BwdArgs g{tab, wg, prog, times, dts, obs, X, M, u, seed, n_obs, hh,
+                  lxh, tauh, dloss, dh0};
+  return scan_bwd(c, 1, work, g, partials, grads, stream);
 }
 
-// K2 of E members of one config in one launch (the member layout of
-// njode_scan_fwd_members; dloss [E], dh0 [E, B, H])
+// K2 of E members of one config in one launch a stage and chunk (the
+// member layout of njode_scan_fwd_members; dloss [E], dh0 [E, B, H], the
+// workspace, carries and partials with a leading member axis)
 extern "C" int njode_scan_bwd_members(const ScanCfg* c, int n_members,
-                                      const int* tab, const float* wg,
-                                      const int* prog, const float* times,
-                                      const float* dts, const float* obs,
-                                      const float* X, const float* M,
-                                      const int8_t* u,
+                                      const K2Work* work, const int* tab,
+                                      const float* wg, const int* prog,
+                                      const float* times, const float* dts,
+                                      const float* obs, const float* X,
+                                      const float* M, const int8_t* u,
                                       const long long* seed,
                                       const float* n_obs, const float* hh,
                                       const float* lxh, const float* tauh,
                                       const float* dloss, float* partials,
                                       float* grads, float* dh0,
                                       void* stream) {
-  return scan_bwd(c, n_members, tab, wg, prog, times, dts, obs, X, M, u,
-                  seed, n_obs, hh, lxh, tauh, dloss, partials, grads, dh0,
-                  stream);
+  const BwdArgs g{tab, wg, prog, times, dts, obs, X, M, u, seed, n_obs, hh,
+                  lxh, tauh, dloss, dh0};
+  return scan_bwd(c, n_members, work, g, partials, grads, stream);
 }
 
-// CTAs of the kernel a launch of c takes (kind 0: K1, 1: K3, 2: K2) that one
-// SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
-// *blocks
+// CTAs of the kernel a launch of c takes (kind 0: K1, 1: K3, 2: K2's
+// chain) that one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks
 extern "C" int njode_scan_occupancy(const ScanCfg* c, int kind,
                                     int* blocks) {
   if (kind == 2)
-    return (int)(c->plan ? bwd_for_rows<true>(c) : bwd_for_rows<false>(c))(
-        c, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-        nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-        nullptr, nullptr, nullptr, 0, blocks, 1);
+    return (int)(c->plan ? chain_for_rows<true>(c)
+                         : chain_for_rows<false>(c))(
+        c, nullptr, BwdArgs{}, 0, 0, 0, 0, blocks, 1);
   auto f = kind == 0 ? (c->plan ? fwd_for_rows<true, true>(c)
                                 : fwd_for_rows<true, false>(c))
                      : (c->plan ? fwd_for_rows<false, true>(c)

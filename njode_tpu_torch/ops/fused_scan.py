@@ -3,8 +3,13 @@
 The port's counterpart of ``njode_tpu/ops/fused_scan.py``. The whole K-step
 scan runs in one kernel launch (``csrc/fused_scan.cu``): the forward
 (K1, ``njode_scan_fwd``) stores only the step-entry carries ``h``,
-``last_X``, ``tau``; the backward (K2, ``njode_scan_bwd``) re-materialises
-each step from them in reverse and sums every weight gradient; the eval
+``last_X``, ``tau``; the backward (K2, ``njode_scan_bwd``, one C call)
+runs three stages a chunk of steps, last chunk first: (a) re-runs every
+step of the chunk at once from those carries into a workspace of
+per-(step, row) records (``Spec.ws_fields``), (b) walks the chunk
+backwards for the carries' gradients, writing the gradient of every
+Linear's output to the records, (c) sums every weight gradient as d^T x
+over the records of each stretch of steps; the eval
 forward (K3) is K1 without histories or dropout; the dropout keep-masks
 (K4) come from a counter-based Philox inside the kernels ('prng' mode) or
 from an int8 tensor ('input' mode). :class:`FusedNJODELoss` wraps the
@@ -13,11 +18,13 @@ plain torch, its gradient composes through the ``dh0`` the Function
 returns.
 
 Every kernel has a plain PyTorch version here (``scan_fwd_plain``,
-``scan_bwd_plain``, ``philox_keep_plain``, ``reduce_partials_plain``). The
-wrappers take the plain version only for tensors on the CPU; for CUDA
-tensors they launch the kernel or raise. ``scan_bwd_plain`` takes its
-gradients from ``torch.autograd`` over a re-run of each step, so it is
-independent of the hand-derived BPTT in the CUDA source.
+``scan_bwd_plain``, ``philox_keep_plain``, ``reduce_partials_plain``; K2's
+stages ``scan_bwd_staged_plain``). The wrappers take the plain version
+only for tensors on the CPU; for CUDA tensors they launch the kernel or
+raise. ``scan_bwd_plain`` takes its gradients from ``torch.autograd`` over
+a re-run of each step in one walk, so it is independent of the
+hand-derived BPTT in the CUDA source; ``scan_bwd_staged_plain`` does the
+same stage by stage and writes the workspace the kernels write.
 
 Kernel scope (``supported``): masked (``output_size == input_size``) or
 unmasked (``output_size`` and ``input_size`` equal, or one of them 1: the
@@ -48,18 +55,20 @@ backward's gate gradients (``dG``), regions the layout holds only with
 
 Plans (``Spec.plan``, ``Spec.rows``, ``Spec.rows_for``; the counterpart of
 the JAX kernel's ``_select_plan``). 'resident': every weight in the shared
-memory of each CTA (and, in K2, every gradient); taken wherever it fits at
+memory of each CTA (K2's chain also two io sets of a step's forward
+values, no weight gradients); taken wherever it fits at
 some R of 16, 8, 4, 2, 1 (``Spec.rows``: the most that fit). A launch at
 batch B takes ``Spec.rows_for(B, bwd)`` rows a CTA: the fewest at which
 every CTA of the launch is resident on the card at once (``CTAS_PER_SM``
 a SM at most, fewer where the kernel's own shared memory allows fewer),
 so one row a CTA at the training batches (B = 50-200) and 16 at the
-eval's B = 4,000. K1/K3's layout holds no gradient or backward regions.
+eval's B = 4,000. K1/K3's layout holds no backward regions. K2's stage
+(a) runs the forward layout at ``Spec.remat_rows`` rows a CTA.
 'global': the weights stay in one packed buffer in device memory (each
-leaf at a 16-byte boundary, ``Spec.pack_off``) and K2 adds its gradients
-into the CTA's partial row in place, so only the activations of R rows sit
-in shared memory, R the largest that fits (the 200- and 400-wide arms,
-the GRU jump at PhysioNet's widths), and the shared memory left over
+leaf at a 16-byte boundary, ``Spec.pack_off``) and K2's chain re-runs
+each step itself (no stage (a)), so only the activations of R rows sit
+in shared memory, R the largest that fits (the 160- to 400-wide arms),
+and the shared memory left over
 holds a ring of two weight tiles that the kernels fill in the background
 (``Spec.tile_program`` lists a step's tiles in the order the kernels use
 them). Both plans sum in the same order, so at one R they give the same
@@ -77,16 +86,19 @@ memory on the launch's stream; a trainer, whose Adam updates the leaves
 in place, uploads it once.
 
 The wrappers' C calls enqueue ``reduce_partials`` themselves, right after
-K1/K3 (the per-CTA losses) and K2 (the per-CTA gradient rows), and count
-it in ``LAUNCHES``.
+K1/K3 (the per-CTA losses) and K2 (stage (c)'s per-stretch gradient
+rows), and count it in ``LAUNCHES``; a K2 call counts once in
+``LAUNCHES`` and its stages, a launch a chunk each, in
+``STAGE_LAUNCHES``.
 
 A member axis (the grouped ensembles; the JAX kernel under ``jax.vmap``):
 ``njode_scan_fwd_members`` / ``njode_scan_bwd_members`` launch K1/K2 once
 for E members of one config, grid ``(ceil(B/R), E)``, each CTA offsetting
 its member's pointers at entry (leaves, packed weights, batch, masks,
-seed, histories, partial rows); the member ``reduce_partials`` gives
-``loss [E]`` and ``grads [E, n_params]``. A launch keeps the solo rows rule
-at B, so each member's bits are its solo launch's.
+seed, histories, workspace, partial rows); the member ``reduce_partials``
+gives ``loss [E]`` and ``grads [E, n_params]``. A launch keeps the solo
+rows rule at B, and K2's stage (c) sums in an order no chunk length
+changes, so each member's bits are its solo launch's.
 :class:`FusedNJODEMembersLoss` and :func:`make_fused_members_loss_fn` wrap
 them; the member plain versions run the solo ones a member at a time.
 """
@@ -114,8 +126,18 @@ CTA_RESERVED = 1024       # shared memory the card reserves for each CTA
 CTAS_PER_SM = 2
 PLANS = ("resident", "global")
 LAYER_INTS = 8            # ints of a layer's record (csrc/fused_scan.cu)
-# K1/K2's kernel parameters after ScanCfg: the layer table and 16 pointers
+# K1's kernel parameters after ScanCfg: the layer table and 16 pointers;
+# K2's chain's: 19 pointers and 5 ints (n_fld after its 17th pointer, then
+# two pointers and k0, k1, Kc, first)
 KERNEL_PTRS = 17
+CHAIN_PTRS, CHAIN_INTS = 19, 5
+# K2's workspace: a chunk of steps is as long as keeps the workspace of a
+# launch (all its members) under this many bytes, a multiple of the
+# stretch of stage (c), ceil(WG_ROWS / B) steps, whose sums are the
+# partial rows; WG_TILE: stage (c)'s output tile [32, 32] of a leaf
+WS_BUDGET = 32 << 20
+WG_ROWS = 512
+WG_TILE = 32
 SMEM_LIMIT = 232448       # bytes of shared memory one CTA may use (H100)
 # the global plan's weight ring (csrc/fused_scan.cu): rows a thread sums,
 # items a thread carries across tiles, threads a CTA, ints a tile
@@ -136,11 +158,17 @@ LAUNCHES.update(philox_keep=0, reduce_partials=0, philox_masks=0,
                 philox_keep_members=0, reduce_partials_members=0)
 # the rows per CTA of each K1-K3 launch: (LAUNCHES key, B, R) -> launches
 LAUNCH_ROWS = {}
+# K2's stages, which its C call launches once a chunk each (a K2 call
+# counts once in LAUNCHES): stage (a), the forward re-run (the resident
+# plan alone), stage (b), the chain, and stage (c), the weight gradients
+STAGE_LAUNCHES = {"njode_bwd_remat": 0, "njode_bwd_chain": 0,
+                  "njode_bwd_wgrad": 0}
 
 
 def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for d in (LAUNCHES, STAGE_LAUNCHES):
+        for k in d:
+            d[k] = 0
     LAUNCH_ROWS.clear()
 
 
@@ -205,6 +233,16 @@ class Spec:
             self.leaf_shapes += [(H3, self.D), (H3, self.H)]
             if self.bias:
                 self.leaf_shapes += [(H3,), (H3,)]
+        # each weight's bias leaf (an MLP's the leaf after it, the GRU's
+        # two leaves after its two weights)
+        self.bias_of = {}
+        if self.bias:
+            for i in range(self.gru_leaf0):
+                if len(self.leaf_shapes[i]) == 2:
+                    self.bias_of[i] = i + 1
+            if self.use_rnn:
+                g = self.gru_leaf0
+                self.bias_of.update({g: g + 2, g + 1: g + 3})
         self.leaf_off = [0]
         for s in self.leaf_shapes:
             n = 1
@@ -229,13 +267,16 @@ class Spec:
         self.tab_ints = self.tab_ptrs + 2 * len(self.leaf_shapes)
         self._cfgs, self._progs, self._tabs = {}, {}, {}
         self._head = None
+        self._build_ws()
         self.forced = plan is not None
         self.plan, self.rows = self._choose_plan(plan)
 
     def fits(self, plan: str, R: int) -> bool:
-        """Whether K1-K3 fit one CTA at R rows in ``plan`` (resident: K2's
-        layout, the larger)."""
+        """Whether K1-K3 fit one CTA at R rows in ``plan`` (resident: K1's
+        layout and K2's chain's)."""
         off, n = self.layout(R, plan)
+        if plan == "resident":
+            n = max(n, self.layout(R, plan, False)[1])
         return 4 * n <= SMEM_LIMIT and (
             plan != "global"
             or self._ring_stage(off["ring"]) >= self._ring_need()[0])
@@ -326,24 +367,28 @@ class Spec:
 
         'global' (one layout for K1-K3): the activations, the layer
         records ``lay``, then the weight ring in what they leave.
-        'resident': the weights ``w``,
-        then (K2, ``bwd``) their gradients ``g``, then two sets of the
-        step's inputs and carries (``io``: t and dt at ``tdt``, ``h``,
-        ``lx``, ``tau``, ``X``, ``obs``, ``M``, and the ODE's and the
-        jump's inputs ``in_ode``, ``tX``; the second set ``io2 - io``
-        floats after the first), so one step fills the other set while it
-        reads its own; ``le`` the loss's error terms of each row and
-        output, which the readout's last phase writes; the backward
-        regions only in K2's layout.
+        'resident', K1/K3 (``bwd`` False; K2's stage (a) at its own rows):
+        the weights ``w``, then two sets of the step's inputs and carries
+        (``io``: t and dt at ``tdt``, ``h``, ``lx``, ``tau``, ``X``,
+        ``obs``, ``M``, and the ODE's and the jump's inputs ``in_ode``,
+        ``tX``; the second set ``io2 - io`` floats after the first), so one
+        step fills the other set while it reads its own; then the step's
+        forward values, ``le`` the loss's error terms of each row and
+        output, which the readout's last phase writes. 'resident', K2's
+        chain (``bwd``): the weights, then two io sets that each hold a
+        step's inputs and every forward value the chain reads (stage (a)'s
+        fields, the mask words among them; no carries), the chain reading
+        one while the next step's copies fill the other, then the backward
+        regions.
 
         Both plans hold ``mw``, the dropout masks as bits
         (``mask_words``): two sets in the resident plan (a step's, and
-        the next one's being filled), one in the global plan (filled at
-        the end of each step; in the masked branch without the GRU jump
-        inside ``dB``, whose second half its backward never uses), none
-        without dropout; the resident plan ends with the layer records
-        ``lay`` (``LAYER_INTS`` ints a Linear), after every region the
-        kernels' phases read."""
+        the next one's being filled, or one in each io set of the chain),
+        one in the global plan (filled at the end of each step; in the
+        masked branch without the GRU jump inside ``dB``, whose second
+        half its backward never uses), none without dropout; the resident
+        plan ends with the layer records ``lay`` (``LAYER_INTS`` ints a
+        Linear), after every region the kernels' phases read."""
         R2 = 2 * R
         D, H, O, P = self.D, self.H, self.O, self.n_params
         DM = D if self.masked else 0
@@ -361,6 +406,22 @@ class Spec:
                 take(name, 2 * rows * sum(ws[1:-1]))
             off["s_ro2"] = off["s_ro"] + 2 * R * sum(self.ro_w[1:-1])
 
+        def fwd_values(*extra):
+            for name, size in (("h1", R * H), ("h2", R * H),
+                               ("in_ro", R2 * H), ("ro", R2 * O),
+                               ("le", R2 * O)) + extra:
+                take(name, size)
+            saves()
+
+        def bwd_regions(*extra):
+            for name, size in (("dA", R2 * self.buf_w),
+                               ("dB", R2 * self.buf_w), ("dh", R * H),
+                               ("dlx", R * D), ("dtau", R)) + extra + (
+                                  ("dst", R2 * O), ("dh1", R * H),
+                                  ("dhe", R * H), ("df", R * H),
+                                  ("dlxc", R * D), ("dtauc", R)):
+                take(name, size)
+
         if plan == "global":
             for name, size in (("h", R * H), ("lx", R * D), ("tau", R),
                                ("X", R * D), ("obs", R), ("nobs", R),
@@ -372,13 +433,7 @@ class Spec:
                                ("M", R * DM), ("Xi", R * DM)):
                 take(name, size)
             saves()
-            for name, size in (("dA", R2 * self.buf_w),
-                               ("dB", R2 * self.buf_w), ("dh", R * H),
-                               ("dlx", R * D), ("dtau", R), ("rs", 2 * R),
-                               ("dst", R2 * O), ("dh1", R * H),
-                               ("dhe", R * H), ("df", R * H),
-                               ("dlxc", R * D), ("dtauc", R)):
-                take(name, size)
+            bwd_regions(("rs", 2 * R))
             if self.use_rnn:
                 take("gru", 4 * R * H)
                 take("dG", 4 * R * H)
@@ -396,33 +451,42 @@ class Spec:
             take("ring", 2 * max(self._ring_stage(n), 0))
             return off, n
         take("w", P)
-        if bwd:
-            take("g", P)
+        c = 0 if bwd else 1             # the chain keeps no carries
         off["io"] = n
-        for name, size in (("tdt", 2), ("h", R * H), ("lx", R * D),
-                           ("tau", R), ("X", R * D), ("obs", R),
-                           ("M", R * DM), ("in_ode", R * self.ode_w[0]),
-                           ("tX", R * self.enc_w[0])):
+        for name, size in (("tdt", 2), ("h", c * R * H), ("lx", c * R * D),
+                           ("tau", c * R), ("X", R * D), ("obs", R),
+                           ("M", R * DM), ("in_ode", c * R * self.ode_w[0]),
+                           ("tX", c * R * self.enc_w[0])):
             take(name, size)
+        if bwd:
+            # the forward fields as the record holds them, R rows a field
+            fb = n
+            take("fwd", R * self.n_fwd)
+            w0 = self.ws_off
+            first = {"in_ode": ("in_ode",), "tX": ("tX",),
+                     "in_ro": ("in_ro", 0), "h1": ("h1",), "h2": ("h2",),
+                     "ro": ("ro", 0), "le": ("le", 0), "gru": ("gru", 0),
+                     "mw": ("mw",), "s_ode": ("pre", "ode", 0, 0),
+                     "s_enc": ("pre", "enc", 0, 0),
+                     "s_ro": ("pre", "ro", 0, 0),
+                     "s_ro2": ("pre", "ro", 0, 1)}
+            for name, field in first.items():
+                if name != "gru" or self.use_rnn:
+                    off[name] = fb + R * w0.get(field, 0)
         off["io2"] = n
         n += n - off["io"]
-        for name, size in (("nobs", R), ("lrow", R), ("h1", R * H),
-                           ("h2", R * H), ("in_ro", R2 * H), ("ro", R2 * O),
-                           ("le", R2 * O), ("Xi", R * DM)):
-            take(name, size)
-        saves()
         if bwd:
-            for name, size in (("dA", R2 * self.buf_w),
-                               ("dB", R2 * self.buf_w), ("dh", R * H),
-                               ("dlx", R * D), ("dtau", R), ("dst", R2 * O),
-                               ("dh1", R * H), ("dhe", R * H), ("df", R * H),
-                               ("dlxc", R * D), ("dtauc", R)):
-                take(name, size)
-        if self.use_rnn:
-            take("gru", 4 * R * H)
-            if bwd:
+            take("nobs", R)
+            bwd_regions()
+            if self.use_rnn:
                 take("dG", 4 * R * H)
-        take("mw", 2 * self.mask_words(R))
+        else:
+            take("nobs", R)
+            take("lrow", R)
+            fwd_values(("Xi", R * DM))
+            if self.use_rnn:
+                take("gru", 4 * R * H)
+            take("mw", 2 * self.mask_words(R))
         take("lay", LAYER_INTS * self.n_rec)
         return off, n
 
@@ -560,9 +624,9 @@ class Spec:
         need an even start."""
         if self._head is None:
             out, leaf = [], 0
-            for ws, acts in ((self.ode_w, self.ode_a),
-                             (self.enc_w, self.enc_a),
-                             (self.ro_w, self.ro_a)):
+            for net, ws, acts in (("ode", self.ode_w, self.ode_a),
+                                  ("enc", self.enc_w, self.enc_a),
+                                  ("ro", self.ro_w, self.ro_a)):
                 for l in range(len(ws) - 1):
                     relu = int(l < len(acts) and acts[l] == "relu")
                     w_off, pw_off = self.leaf_off[leaf], self.pack_off[leaf]
@@ -570,12 +634,238 @@ class Spec:
                     b_off = -1
                     if self.bias:
                         b_off, leaf = self.leaf_off[leaf], leaf + 1
+                    dlt = self.ws_off.get(("d", net, l, 0), -1)
                     out += [ws[l], ws[l + 1], relu, w_off, b_off, pw_off,
-                            sum(ws[1:l + 1]), 0]
+                            sum(ws[1:l + 1]), dlt]
             out += self.leaf_off
             out += [0] * (self.tab_ptrs - len(out))
             self._head = torch.tensor(out, dtype=torch.int32)
         return self._head
+
+
+    # -- K2's staged workspace ------------------------------------------------
+
+    def _nets(self):
+        """The nets K2 walks, with their widths and stacked halves: the
+        ODE net, the encoder (not with the GRU jump: it runs at t = 0
+        only), the readout (two halves: the pre-jump pass, y_bj, and the
+        post-jump one, y; stacked or, masked, one after the other)."""
+        out = [("ode", self.ode_w, (0,))]
+        if not self.use_rnn:
+            out.append(("enc", self.enc_w, (0,)))
+        return out + [("ro", self.ro_w, (0, 1))]
+
+    def _build_ws(self):
+        """K2's workspace record of one (step, row): its fields in order,
+        ``(name, width, kind)``, at ``ws_off[name]``, ``rec`` floats in
+        all (a multiple of 4). kind 'x': a forward value that stage (c)
+        reads, a Linear's input (the nets' inputs, the hidden layers'
+        post-dropout activations); 'f': a forward value only the resident
+        chain reads (h1, h2, the readouts' outputs before their residuals
+        ``ro``, the loss's error terms ``le``, the pre-activations, the
+        GRU's saved gates, the mask words ``mw``); 'd': a delta the chain
+        writes, the gradient of a Linear's output (``("d", net, l,
+        half)``) or of the GRU's gate sums (``dgi`` of W_ih x + b_ih,
+        ``dgh`` of W_hh h_t + b_hh). Stage (a) writes the 'x' and 'f'
+        fields (the resident plan); the global plan's chain, which re-runs
+        its steps itself, the 'x' fields. The forward fields come first,
+        each kernel region's fields together in its order (the stacked
+        readout's layer: both halves' pre-activations, then their
+        activations; the masked branch's two readout passes one after the
+        other), so the resident chain's io set holds them as the record
+        does, a field's R rows where the record has one (``layout``)."""
+        H, D, O = self.H, self.D, self.O
+        self.tX_w = D if self.use_rnn or not self.masked else 2 * D
+        f = [(("in_ode",), self.ode_w[0], "x"), (("tX",), self.tX_w, "x")]
+        f += [(("in_ro", h), H, "x") for h in (0, 1)]
+        f += [(("h1",), H, "f"), (("h2",), H, "f")]
+        f += [((n, h), O, "f") for n in ("ro", "le") for h in (0, 1)]
+        for net, ws, halves in self._nets():
+            hidden = range(len(ws) - 2)
+            if len(halves) == 1 or (self.masked and not self.use_rnn):
+                order = [(l, h, k) for h in halves for l in hidden
+                         for k in ("pre", "act")]
+            else:                                   # the stacked readout
+                order = [(l, h, k) for l in hidden for k in ("pre", "act")
+                         for h in halves]
+            f += [((k, net, l, h), ws[l + 1], "f" if k == "pre" else "x")
+                  for l, h, k in order]
+        if self.use_rnn:
+            f += [(("gru", q), H, "f") for q in range(4)]
+        if self.mask_words(1):
+            f.append((("mw",), self.S * self.nw, "f"))
+        for net, ws, halves in self._nets():
+            for l in range(len(ws) - 1):
+                f += [(("d", net, l, h), ws[l + 1], "d") for h in halves]
+        if self.use_rnn:
+            f += [(("dgi",), 3 * H, "d"), (("dgh",), 3 * H, "d")]
+        self.ws_fields = f
+        self.ws_off, n = {}, 0
+        for name, w, _ in f:
+            self.ws_off[name] = n
+            n += w
+        self.n_fwd = sum(w for _, w, k in f if k != "d")
+        self.rec = -(-n // 4) * 4
+
+    def _field_at(self, name, off, R):
+        """(offset, floats between rows) of a forward field in the shared
+        memory of a layout ``off`` at R rows."""
+        H, O, k = self.H, self.O, name[0]
+        if k == "in_ode":
+            return off["in_ode"], self.ode_w[0]
+        if k == "tX":
+            return off["tX"], self.tX_w
+        if k in ("h1", "h2"):
+            return off[k], H
+        if k in ("in_ro", "gru"):
+            return off[k] + name[1] * R * H, H
+        if k in ("ro", "le"):
+            return off[k] + name[1] * R * O, O
+        if k == "mw":
+            return off["mw"], self.S * self.nw
+        _, net, l, h = name
+        ws = {"ode": self.ode_w, "enc": self.enc_w, "ro": self.ro_w}[net]
+        w, below = ws[l + 1], sum(ws[1:l + 1])
+        if net == "ro" and self.masked and not self.use_rnn:
+            base, rows, ho = off["s_ro2" if h else "s_ro"], R, 0
+        elif net == "ro":
+            base, rows, ho = off["s_ro"], 2 * R, h * R * w
+        else:
+            base, rows, ho = off["s_" + net], R, 0
+        return base + 2 * rows * below + (rows * w if k == "act" else 0) \
+            + ho, w
+
+    def ws_fields_of(self, kind: str):
+        """The names of the fields that stage (a) ('a'), the resident
+        chain ('b') or the global plan's chain ('x') copies."""
+        kinds = "x" if kind == "x" else "xf"
+        return [n for n, _, k in self.ws_fields if k in kinds]
+
+    def ws_program(self, kind: str, R: int, device=None):
+        """The copy program of stage (a) ('a', the forward layout at R
+        rows), of the resident chain ('b', its layout at R rows: io set
+        0) or of the global plan's chain ('x'): 3 ints a float of the
+        fields it copies, the float's index in the record, its offset in
+        shared memory (row 0) and the floats between rows there
+        (csrc/fused_scan.cu put_fields / get_fields); an int32 tensor [n,
+        3] on ``device``, or the list."""
+        key = ("ws", kind, R, str(device))
+        if key not in self._progs:
+            off = (self.layout(R, "global")[0] if kind == "x" else
+                   self.layout(R, "resident", kind == "b")[0])
+            widths = dict((n, w) for n, w, _ in self.ws_fields)
+            prog = []
+            for name in self.ws_fields_of(kind):
+                so, ss = self._field_at(name, off, R)
+                ro = self.ws_off[name]
+                prog += [[ro + j, so + j, ss] for j in range(widths[name])]
+            if device is None:
+                return prog
+            self._progs[key] = torch.tensor(prog, dtype=torch.int32,
+                                            device=device).reshape(-1, 3)
+        return self._progs[key]
+
+    def wgrad_jobs(self):
+        """Stage (c)'s terms in leaf order, ``(leaf, x field or None for a
+        bias, delta field)``: the leaf's gradient is the sum of ``d^T x``
+        (a bias: of d) over every (step, row) record. The readout's two
+        halves are two jobs on one leaf; the encoder's leaves have none
+        with the GRU jump (their gradient stays zero)."""
+        jobs, leaf = [], 0
+        inputs = {"ode": ("in_ode",), "enc": ("tX",)}
+        walked = {net for net, _, _ in self._nets()}
+        for net, ws in (("ode", self.ode_w), ("enc", self.enc_w),
+                        ("ro", self.ro_w)):
+            halves = (0, 1) if net == "ro" else (0,)
+            for l in range(len(ws) - 1):
+                for with_x in ((True, False) if self.bias else (True,)):
+                    for h in halves if net in walked else ():
+                        x = (inputs.get(net, ("in_ro", h)) if l == 0
+                             else ("act", net, l - 1, h))
+                        jobs.append((leaf, x if with_x else None,
+                                     ("d", net, l, h)))
+                    leaf += 1
+        if self.use_rnn:
+            g = self.gru_leaf0
+            jobs += [(g, ("tX",), ("dgi",)), (g + 1, ("in_ro", 0), ("dgh",))]
+            if self.bias:
+                jobs += [(g + 2, None, ("dgi",)), (g + 3, None, ("dgh",))]
+        return jobs
+
+    def wgrad_program(self, device):
+        """Stage (c)'s program on ``device``: int32 tiles [n, 8] (the
+        weight leaf's offset, its columns ``in`` and rows ``out``, the
+        tile's first row j0 and column i0 of the leaf, its first job and
+        job count, its bias leaf's offset or -1; a tile a [WG_TILE,
+        WG_TILE] block of a weight and its bias, the bias the weight's
+        column ``in`` with x a column of ones, so a bias has no tile of
+        its own) and jobs [n, 2] (the record offsets of x and of d: the
+        weight's jobs; its bias's are the same deltas)."""
+        key = ("wgrad", str(device))
+        if key not in self._progs:
+            jobs = [j for j in self.wgrad_jobs() if j[1] is not None]
+            tiles = []
+            for leaf, shape in enumerate(self.leaf_shapes):
+                if len(shape) == 1:             # a bias: its weight's tile
+                    continue
+                out, inp = shape
+                boff = (self.leaf_off[self.bias_of[leaf]]
+                        if leaf in self.bias_of else -1)
+                mine = [i for i, j in enumerate(jobs) if j[0] == leaf]
+                for j0 in range(0, out, WG_TILE):
+                    for i0 in range(0, inp + (boff >= 0), WG_TILE):
+                        tiles.append((self.leaf_off[leaf], inp, out, j0, i0,
+                                      mine[0] if mine else 0, len(mine),
+                                      boff))
+            j = [(self.ws_off[x], self.ws_off[d]) for _, x, d in jobs] \
+                or [(0, 0)]
+            self._progs[key] = (
+                torch.tensor(tiles, dtype=torch.int32, device=device),
+                torch.tensor(j, dtype=torch.int32, device=device))
+        return self._progs[key]
+
+    def wgrad_steps(self, B: int) -> int:
+        """Stage (c)'s stretch: the steps whose (step, row) records one of
+        its partial rows sums, ceil(WG_ROWS / B). It depends on B alone,
+        so the sums' order depends neither on the rows per CTA, nor on the
+        plan, nor on the chunk, nor on a member axis."""
+        return max(1, -(-WG_ROWS // B))
+
+    def bwd_chunk(self, K: int, B: int, E: int = 1, chunk=None,
+                  stretch=None) -> int:
+        """Steps per chunk of K2 (a multiple of the stretch, at most the
+        stretches that cover K): ``chunk`` rounded up to one, or as many as
+        keep the workspace of E members within ``WS_BUDGET``, at least a
+        stretch."""
+        Ks = stretch or self.wgrad_steps(B)
+        if chunk:
+            Kc = -(-chunk // Ks) * Ks
+        else:
+            Kc = max(Ks, WS_BUDGET // (4 * E * B * self.rec) // Ks * Ks)
+        return min(Kc, -(-K // Ks) * Ks)
+
+    def chain_threads(self, R: int, n_cta: int) -> int:
+        """Threads of a CTA of K2's chain launch of ``n_cta`` CTAs at R
+        rows: 128 in the resident plan at one row where the launch
+        overflows ``CTAS_PER_SM`` CTAs an SM and the shared memory holds
+        more (a member launch: the kernel's registers hold four of 128
+        threads an SM; one row's phases hold few items), else
+        ``NTHREADS``. The arithmetic does not depend on it."""
+        if self.plan == "resident" and R == 1 and \
+                n_cta > CTAS_PER_SM * N_SM:
+            n = 4 * self.layout(1, "resident")[1] + CTA_RESERVED
+            if SM_SMEM // n > CTAS_PER_SM:
+                return 128
+        return NTHREADS
+
+    def remat_rows(self) -> int:
+        """Rows a CTA of K2's stage (a) re-runs at once: the most of 16,
+        8, 4, 2, 1 at which the forward layout fits (its (step, row) pairs
+        are independent, so the bits do not depend on it)."""
+        for R in ROW_CHOICES:
+            if 4 * self.layout(R, "resident", False)[1] <= SMEM_LIMIT:
+                return R
+        return 1
 
 
 def supported(cfg) -> bool:
@@ -678,9 +968,13 @@ def philox_keep_plain(seed: int, k, S: int, B: int, w_max: int,
 # plain versions of K1-K3 (eager loops over the grid)
 # ---------------------------------------------------------------------------
 
-def _mlp_plain(layers, acts, x, masks, rate):
+def _mlp_plain(layers, acts, x, masks, rate, rec=None):
+    """The MLP's output; ``rec`` (a list) gets each Linear's (input,
+    output)."""
     w, b = layers[0]
     y = F.linear(x, w, b)
+    if rec is not None:
+        rec.append((x, y))
     keep = 1.0 - rate
     for i, name in enumerate(acts):
         y = mlp.act_fn(name, y)
@@ -688,7 +982,10 @@ def _mlp_plain(layers, acts, x, masks, rate):
             y = torch.where(masks[i][:, :y.shape[-1]], y / keep,
                             torch.zeros_like(y))
         w, b = layers[i + 1]
+        a = y
         y = F.linear(y, w, b)
+        if rec is not None:
+            rec.append((a, y))
     return y
 
 
@@ -703,59 +1000,71 @@ def _step_masks_plain(spec, k, train, u, seed, B, device):
     return [m[s] for s in range(spec.S)]
 
 
-def _gru_plain(gru, x, h):
-    """torch's GRUCell (gate order r, z, n) from its four leaves."""
+def _gru_plain(gru, x, h, rec=None):
+    """torch's GRUCell (gate order r, z, n) from its four leaves; ``rec``
+    (a dict) gets the gate sums gi, gh and the saved gates r, z, n, gh_n."""
     w_ih, w_hh, b_ih, b_hh = gru
-    gi_r, gi_z, gi_n = F.linear(x, w_ih, b_ih).chunk(3, dim=-1)
-    gh_r, gh_z, gh_n = F.linear(h, w_hh, b_hh).chunk(3, dim=-1)
+    gi = F.linear(x, w_ih, b_ih)
+    gh = F.linear(h, w_hh, b_hh)
+    gi_r, gi_z, gi_n = gi.chunk(3, dim=-1)
+    gh_r, gh_z, gh_n = gh.chunk(3, dim=-1)
     r = torch.sigmoid(gi_r + gh_r)
     z = torch.sigmoid(gi_z + gh_z)
     n = torch.tanh(gi_n + r * gh_n)
+    if rec is not None:
+        rec.update(gi=gi, gh=gh, gru=(r, z, n, gh_n))
     return (1.0 - z) * n + z * h
 
 
-def _step_plain(spec, nets, h, last_X, tau, t, dt, obs, X, M, us):
+def _step_plain(spec, nets, h, last_X, tau, t, dt, obs, X, M, us, rec=None):
     """One step of the NJODE recursion (the stacked readouts after the
     encoder or GRU jump, or the masked imputation branch); returns (h2,
-    last_X', tau', y, y_bj)."""
+    last_X', tau', y, y_bj). ``rec`` (a dict) gets the step's values by
+    K2's workspace names (``Spec.ws_fields``): the nets' inputs, h1, h2,
+    each net's Linears' (input, output) under 'ode', 'enc' and 'ro' (the
+    masked branch's readouts under 'ro' and 'ro2'), and the GRU's."""
     ws_ode, ws_enc, ws_ro, gru = nets
+    rec = {} if rec is None else rec
 
     def sl(a, n):
         return None if us is None or n == 0 else us[a:a + n]
 
-    def readout(hh, masks):
+    def readout(hh, masks, key):
+        rec[key] = []
         return mlp.residual_apply(spec.ro_case, spec.ro_mult, hh,
                                   _mlp_plain(ws_ro, spec.ro_a,
                                              torch.tanh(hh), masks,
-                                             spec.rate))
+                                             spec.rate, rec[key]))
 
     tdiff = (t - dt) - tau
     feats = [torch.tanh(last_X), torch.tanh(h), tau, tdiff]
     if spec.ict:
         feats.append(tau + tdiff)
+    rec["ode"] = []
     f = _mlp_plain(ws_ode, spec.ode_a, torch.cat(feats, dim=-1),
-                   sl(spec.s_ode, spec.n_ode), spec.rate)
+                   sl(spec.s_ode, spec.n_ode), spec.rate, rec["ode"])
     h1 = h + dt * f
     obs_c = obs[:, None]
     u_enc = sl(spec.s_enc, spec.n_enc)
+    rec["enc"] = []
     if spec.masked and not spec.use_rnn:
         # the pre-jump readout imputes the unobserved coordinates
-        y_bj = readout(h1, sl(spec.s_r1, spec.n_ro))
+        y_bj = readout(h1, sl(spec.s_r1, spec.n_ro), "ro")
         X_imp = X * M + (1.0 - M) * y_bj
         enc_o = _mlp_plain(ws_enc, spec.enc_a,
                            torch.cat([torch.tanh(X_imp), M], dim=-1),
-                           u_enc, spec.rate)
+                           u_enc, spec.rate, rec["enc"])
         h_enc = mlp.residual_apply(spec.enc_case, spec.enc_mult, X_imp,
                                    enc_o)
         h2 = obs_c * h_enc + (1.0 - obs_c) * h1
-        y = readout(h2, sl(spec.s_r2, spec.n_ro))
+        y = readout(h2, sl(spec.s_r2, spec.n_ro), "ro2")
     else:
         if spec.use_rnn:
             # the GRU jump on the raw observation, masked or not
-            h_enc = _gru_plain(gru, torch.tanh(X), torch.tanh(h1))
+            h_enc = _gru_plain(gru, torch.tanh(X), torch.tanh(h1), rec)
         else:
             enc_o = _mlp_plain(ws_enc, spec.enc_a, torch.tanh(X), u_enc,
-                               spec.rate)
+                               spec.rate, rec["enc"])
             h_enc = mlp.residual_apply(spec.enc_case, spec.enc_mult, X,
                                        enc_o)
         h2 = obs_c * h_enc + (1.0 - obs_c) * h1
@@ -763,9 +1072,10 @@ def _step_plain(spec, nets, h, last_X, tau, t, dt, obs, X, M, us):
         if us is not None and spec.n_ro:
             u_r = [torch.cat([a, b], dim=0) for a, b in
                    zip(sl(spec.s_r1, spec.n_ro), sl(spec.s_r2, spec.n_ro))]
-        y2 = readout(torch.cat([h1, h2], dim=0), u_r)
+        y2 = readout(torch.cat([h1, h2], dim=0), u_r, "ro")
         B = h.shape[0]
         y_bj, y = y2[:B], y2[B:]
+    rec.update(h1=h1, h2=h2, y=y, y_bj=y_bj)
     # a masked config records the post-jump prediction as last_X
     new_last = y if spec.masked else X
     last_X2 = torch.where(obs_c > 0, new_last, last_X)
@@ -889,6 +1199,183 @@ def scan_bwd_plain(spec, leaves, arrays, weight, train, hists, dloss,
     return grads, dh.detach()
 
 
+def ws_view(spec, ws, name):
+    """Field ``name`` (``Spec.ws_fields``) of K2's workspace records ``ws
+    [..., rec]``: a view ``[..., width]``."""
+    o = spec.ws_off[name]
+    w = dict((n, w) for n, w, _ in spec.ws_fields)[name]
+    return ws[..., o:o + w]
+
+
+def _half(t, h, B, stacked):
+    return t[h * B:(h + 1) * B] if stacked else t
+
+
+def _step_fields_plain(spec, rec, X, M, B):
+    """A step's forward fields of K2's records (stage (a)'s, but the mask
+    words), ``{name: [B, width]}``, from ``_step_plain``'s ``rec``."""
+    out = {("in_ode",): rec["ode"][0][0],
+           ("tX",): rec["enc"][0][0] if rec["enc"] else torch.tanh(X),
+           ("h1",): rec["h1"], ("h2",): rec["h2"]}
+    stacked = "ro2" not in rec          # else two readout passes
+    ro = {0: rec["ro"], 1: rec.get("ro2", rec["ro"])}
+    for h in (0, 1):
+        out[("in_ro", h)] = _half(ro[h][0][0], h, B, stacked)
+        out[("ro", h)] = _half(ro[h][-1][1], h, B, stacked)
+    if spec.D == spec.O:
+        m = M if spec.masked else torch.ones_like(X)
+        x, y, yb = X, rec["y"], rec["y_bj"]
+        out[("le", 0)] = m * (x - y) ** 2
+        out[("le", 1)] = m * (yb - (x if spec.easy else y)) ** 2
+    for net, ws, halves in spec._nets():
+        for l in range(len(ws) - 2):
+            for h in halves:
+                r = ro[h] if net == "ro" else rec[net]
+                cut = net == "ro" and stacked
+                out[("pre", net, l, h)] = _half(r[l][1], h, B, cut)
+                out[("act", net, l, h)] = _half(r[l + 1][0], h, B, cut)
+    if spec.use_rnn:
+        for q in range(4):
+            out[("gru", q)] = rec["gru"][q]
+    return out
+
+
+def _step_deltas(spec, rec, B):
+    """The tensors whose gradients are a step's deltas (``Spec.ws_fields``
+    kind 'd'): [(name, tensor, (half, stacked))]."""
+    stacked = "ro2" not in rec
+    out = []
+    for net, ws, halves in spec._nets():
+        for l in range(len(ws) - 1):
+            for h in halves:
+                r = rec["ro2"] if net == "ro" and h and not stacked else \
+                    rec[net]
+                out.append((("d", net, l, h), r[l][1],
+                            h if net == "ro" and stacked else None))
+    if spec.use_rnn:
+        out += [(("dgi",), rec["gi"], None), (("dgh",), rec["gh"], None)]
+    return out
+
+
+def scan_bwd_staged_plain(spec, leaves, arrays, weight, train, hists, dloss,
+                          u=None, seed=None, chunk=None, stretch=None,
+                          want_ws=False, timer=None):
+    """Plain K2 as the kernels stage it: per chunk of steps
+    (``Spec.bwd_chunk``), last chunk first, (a) every step's forward
+    fields from the stored carries into the chunk's workspace records
+    ``[Kc * B, rec]`` (``Spec.ws_fields``; the mask words stay zero), (b)
+    the reverse chain, each step re-run under autograd from its stored
+    carries for the carries' gradients and the gradient of every Linear's
+    output (and of the GRU's gate sums), which it writes to the records,
+    (c) per stretch of ``Spec.wgrad_steps`` steps, every leaf's gradient
+    as ``d^T x`` (a bias: the sum of d) over the stretch's records, job by
+    job, then the stretches summed in order. Returns (grads in leaf order,
+    dh0), and with ``want_ws`` the workspace as the first chunk left
+    it. ``timer(stage, fn)``, where given, runs each chunk's stage ``fn``
+    ('remat', 'chain', 'wgrad'), so a caller can time the stages."""
+    times, dts, obs, X, n_obs, start_X, M = unpack_arrays(spec, arrays)
+    hh, lxh, tauh = hists
+    K, B = obs.shape
+    # the leaves require grad so that every Linear's output is in the graph
+    nets = spec.split([p.detach().requires_grad_(True) for p in leaves])
+    seed_i = _seed_int(seed)
+    Ks = stretch or spec.wgrad_steps(B)
+    Kc = spec.bwd_chunk(K, B, 1, chunk, Ks)
+    jobs = spec.wgrad_jobs()
+    parts = {}
+    dh = torch.zeros_like(hh[0])
+    dlx = torch.zeros_like(lxh[0])
+    dtau = torch.zeros_like(tauh[0])
+    ws = None
+    run = timer or (lambda stage, fn: fn())
+
+    def step(k, rec, carries=None):
+        us = _step_masks_plain(spec, k, train, u, seed_i, B, hh.device)
+        h, lx, tau = carries or (hh[k], lxh[k], tauh[k])
+        out = _step_plain(spec, nets, h, lx, tau, times[k], dts[k], obs[k],
+                          X[k], None if M is None else M[k], us, rec)
+        return out + (_step_loss_plain(spec, k, X, out[3], out[4], obs,
+                                       n_obs, B, weight, M),)
+
+    for k0 in reversed(range(0, K, Kc)):
+        k1 = min(K, k0 + Kc)
+        ws = torch.zeros((Kc * B, spec.rec), dtype=hh.dtype,
+                         device=hh.device)
+
+        def put(name, k, t):
+            ws_view(spec, ws[(k - k0) * B:(k - k0 + 1) * B], name)[:] = t
+
+        @torch.no_grad()
+        def remat():                                       # stage (a)
+            for k in range(k0, k1):
+                rec = {}
+                step(k, rec)
+                for name, t in _step_fields_plain(
+                        spec, rec, X[k], None if M is None else M[k],
+                        B).items():
+                    put(name, k, t)
+
+        def chain():                                       # stage (b)
+            nonlocal dh, dlx, dtau
+            for k in reversed(range(k0, k1)):
+                with torch.enable_grad():
+                    carries = tuple(t[k].detach().requires_grad_(True)
+                                    for t in (hh, lxh, tauh))
+                    rec = {}
+                    h2, lx2, tau2, _, _, lk = step(k, rec, carries)
+                    obj = (lk * dloss + (h2 * dh).sum() + (lx2 * dlx).sum()
+                           + (tau2 * dtau).sum())
+                    zs = _step_deltas(spec, rec, B)
+                    g = torch.autograd.grad(obj, list(carries)
+                                            + [t for _, t, _ in zs],
+                                            allow_unused=True)
+                dh, dlx, dtau = (torch.zeros_like(v) if gv is None else gv
+                                 for v, gv in zip(carries, g[:3]))
+                for (name, t, h), gz in zip(zs, g[3:]):
+                    gz = torch.zeros_like(t) if gz is None else gz
+                    put(name, k, gz if h is None else gz[h * B:(h + 1) * B])
+
+        @torch.no_grad()
+        def wgrad():                                       # stage (c)
+            for s0 in range(k0, k1, Ks):
+                r = ws[(s0 - k0) * B:(min(s0 + Ks, k1) - k0) * B]
+                part = [torch.zeros_like(p) for p in leaves]
+                for leaf, x, d in jobs:
+                    dm = ws_view(spec, r, d)
+                    part[leaf] = part[leaf] + (
+                        dm.sum(0) if x is None
+                        else dm.t() @ ws_view(spec, r, x))
+                parts[s0 // Ks] = part
+
+        run("remat", remat)
+        run("chain", chain)
+        run("wgrad", wgrad)
+    grads = [torch.zeros_like(p) for p in leaves]
+    for p in sorted(parts):
+        grads = [a + b for a, b in zip(grads, parts[p])]
+    out = (grads, dh.detach())
+    return out + (ws,) if want_ws else out
+
+
+def scan_bwd_members_staged_plain(spec, leaves, arrays, weight, train,
+                                  hists, dloss, u=None, seed=None,
+                                  chunk=None, stretch=None, want_ws=False):
+    """Plain member K2 as the kernels stage it:
+    ``scan_bwd_staged_plain`` of each member (cotangent ``dloss[e]``),
+    stacked (with ``want_ws``, each member's workspace at its solo chunk
+    length)."""
+    outs = []
+    dloss = dloss.reshape(-1)
+    for e in range(hists[0].shape[0]):
+        lv, arr, ue, se = _member_plain(spec, leaves, arrays, u, seed, e)
+        outs.append(scan_bwd_staged_plain(
+            spec, lv, arr, weight, train, tuple(h[e] for h in hists),
+            dloss[e], ue, se, chunk, stretch, want_ws))
+    grads = [torch.stack(v) for v in zip(*(o[0] for o in outs))]
+    out = (grads, torch.stack([o[1] for o in outs]))
+    return out + (torch.stack([o[2] for o in outs]),) if want_ws else out
+
+
 def reduce_partials_plain(partials, scale=1.0):
     """``scale * (((0 + P[0]) + P[1]) + ...)``: the rows summed in
     ascending order, the order the kernel keeps (fp32 adds, so the kernel
@@ -907,15 +1394,15 @@ class _LayerRec(ctypes.Structure):
     """Field-for-field mirror of ``struct LayerRec`` (a record of the
     layer table, ``Spec.table_head``)."""
     _fields_ = [(n, ctypes.c_int) for n in (
-        "w_in", "w_out", "act", "w_off", "b_off", "pw_off", "save", "pad")]
+        "w_in", "w_out", "act", "w_off", "b_off", "pw_off", "save", "dlt")]
 
 
 class _MLPDesc(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
-        "n_lin", "w_in", "lay", "slot0", "save_off")]
+        "n_lin", "w_in", "lay", "slot0", "save_off", "dhalf")]
 
 
-_LAYOUT_FIELDS = ("w", "g", "h", "lx", "tau", "X", "obs", "nobs", "lrow",
+_LAYOUT_FIELDS = ("w", "h", "lx", "tau", "X", "obs", "nobs", "lrow",
                   "h1", "h2", "in_ode", "tX", "in_ro", "f", "enc", "ro",
                   "dA", "dB", "dh", "dlx", "dtau", "rs", "dst", "dh1", "dhe",
                   "df", "dlxc", "dtauc", "M", "Xi", "gru", "dG", "gsc",
@@ -936,37 +1423,54 @@ class _ScanCfg(ctypes.Structure):
                                        "gru_pwhh", "n_tiles_fwd",
                                        "n_tiles_bwd", "stage", "io_stride",
                                        "wg_stride", "n_rec", "tab_leaves",
-                                       "tab_ptrs")]
+                                       "tab_ptrs", "rec", "dlt_gru")]
         + [("o_" + n, ctypes.c_int) for n in _LAYOUT_FIELDS]
         + [(n, ctypes.c_int) for n in ("nw", "lg_nw", "skip0", "skip1")]
         + [("ode", _MLPDesc), ("enc", _MLPDesc), ("ro", _MLPDesc),
            ("ro2", _MLPDesc)])
 
 
+class _K2Work(ctypes.Structure):
+    """Field-for-field mirror of ``struct K2Work`` in csrc/fused_scan.cu:
+    K2's staged plan beyond its config (stage (a)'s config, the
+    workspace, the carries between chunks, the field programs, stage
+    (c)'s tiles and jobs, the chunk and stretch lengths)."""
+    _fields_ = ([("a", _ScanCfg)]
+                + [(n, ctypes.c_void_p) for n in (
+                    "ws", "carry", "fa", "fb", "tiles", "jobs")]
+                + [(n, ctypes.c_int) for n in (
+                    "n_fa", "n_fb", "n_tiles", "Kc", "Ks", "threads")])
+
+
 def param_bytes() -> int:
-    """Bytes of K1/K2's parameter block: ``ScanCfg`` by value, then the
-    layer table's address and the other pointers (``KERNEL_PTRS`` in all,
-    8-byte aligned)."""
-    return -(-ctypes.sizeof(_ScanCfg) // 8) * 8 + 8 * KERNEL_PTRS
+    """Bytes of the larger parameter block of K1 and K2's chain:
+    ``ScanCfg`` by value, then K1's layer table's address and 16 other
+    pointers (``KERNEL_PTRS``), K2's chain's 19 pointers and 5 ints
+    (``CHAIN_PTRS``, ``CHAIN_INTS``; n_fld padded to 8 bytes before the
+    pointers after it)."""
+    cfg = -(-ctypes.sizeof(_ScanCfg) // 8) * 8
+    return cfg + max(8 * KERNEL_PTRS,
+                     8 * CHAIN_PTRS + 8 + 4 * (CHAIN_INTS - 1))
 
 
 def make_cfg(spec: Spec, K: int, B: int, train: bool, weight: float,
-             bwd: bool = True):
-    """The configuration of one call of K2 (``bwd``) or K1/K3 (host
-    memory), in the spec's plan at ``spec.rows_for(B, bwd)`` rows; the
-    global plan has no ``w``/``g`` regions, the resident plan no
-    ``ring``/``gsc`` regions and no tiles (and K1/K3's no ``g`` or
-    backward regions), and a config without use_rnn no ``gru``/``dG``
-    regions and no GRU leaves (their offsets are -1). Kept on the spec per
-    call shape, so a step builds it once."""
-    key = (K, B, bool(train), float(weight), bool(bwd))
+             bwd: bool = True, rows=None):
+    """The configuration of one call of K2's chain (``bwd``) or K1/K3
+    (host memory), in the spec's plan at ``spec.rows_for(B, bwd)`` rows
+    (``rows``: K2's stage (a), the forward layout at those rows); the
+    global plan has no ``w`` region, the resident plan no ``ring``/``gsc``
+    regions and no tiles (and K1/K3's no backward regions), and a config
+    without use_rnn no ``gru``/``dG`` regions and no GRU leaves (their
+    offsets are -1). Kept on the spec per call shape, so a step builds it
+    once."""
+    key = (K, B, bool(train), float(weight), bool(bwd), rows)
     if key not in spec._cfgs:
-        spec._cfgs[key] = _make_cfg(spec, K, B, train, weight, bwd)
+        spec._cfgs[key] = _make_cfg(spec, K, B, train, weight, bwd, rows)
     return spec._cfgs[key]
 
 
-def _make_cfg(spec, K, B, train, weight, bwd):
-    R = spec.rows_for(B, bwd)
+def _make_cfg(spec, K, B, train, weight, bwd, rows=None):
+    R = rows or spec.rows_for(B, bwd)
     off, total = spec.layout(R, spec.plan, bwd)
     c = _ScanCfg()
     c.K, c.B, c.D, c.H, c.O = K, B, spec.D, spec.H, spec.O
@@ -996,6 +1500,8 @@ def _make_cfg(spec, K, B, train, weight, bwd):
     c.buf_w, c.smem_floats = spec.buf_w, total
     c.n_rec, c.tab_leaves, c.tab_ptrs = (spec.n_rec, spec.tab_leaves,
                                          spec.tab_ptrs)
+    c.rec = spec.rec
+    c.dlt_gru = spec.ws_off.get(("dgi",), -1)
     for n in _LAYOUT_FIELDS:
         setattr(c, "o_" + n, off.get(n, -1))
     c.nw, c.lg_nw = spec.nw, (spec.nw - 1).bit_length()
@@ -1017,6 +1523,7 @@ def _make_cfg(spec, K, B, train, weight, bwd):
     c.ro2 = c.ro
     c.ro2.slot0 = spec.s_r2
     c.ro2.save_off = off["s_ro2"]
+    c.ro2.dhalf = 1
     return c
 
 
@@ -1211,11 +1718,54 @@ def scan_fwd_cuda(spec, leaves, arrays, weight, h0, train, u=None,
     return loss, (hists if want_hists else None)
 
 
+def _k2_work(spec, K, B, E, train, weight, dev, chunk=None, stretch=None):
+    """K2's staged plan of a call (``_K2Work``), its buffers and its stage
+    (c) partial rows: (config, work, (ws [E, Kc * B, rec], carry [E, B,
+    D + 1], partials [E, ceil(K / Ks), n_params], the programs), chunks).
+    The tensors must stay referenced until the C call returns."""
+    cfg = make_cfg(spec, K, B, train, weight)
+    Ks = stretch or spec.wgrad_steps(B)
+    Kc = spec.bwd_chunk(K, B, E, chunk, Ks)
+    w = _K2Work()
+    keep = []
+    if spec.plan == "resident":
+        Ra = spec.remat_rows()
+        w.a = make_cfg(spec, K, B, train, weight, bwd=False, rows=Ra)
+        fa = spec.ws_program("a", Ra, dev)
+        w.fa, w.n_fa = fa.data_ptr(), fa.shape[0]
+        keep.append(fa)
+    fb = spec.ws_program("b" if spec.plan == "resident" else "x", cfg.rows,
+                         dev)
+    tiles, jobs = spec.wgrad_program(dev)
+    ws = torch.empty((E, Kc * B, spec.rec), device=dev)
+    carry = torch.empty((E, B, spec.D + 1), device=dev)
+    partials = torch.empty((E, -(-K // Ks), spec.n_params), device=dev)
+    w.ws, w.carry = ws.data_ptr(), carry.data_ptr()
+    w.fb, w.n_fb = fb.data_ptr(), fb.shape[0]
+    w.tiles, w.jobs, w.n_tiles = (tiles.data_ptr(), jobs.data_ptr(),
+                                  tiles.shape[0])
+    w.Kc, w.Ks = Kc, Ks
+    w.threads = spec.chain_threads(cfg.rows, E * -(-B // cfg.rows))
+    keep += [fb, tiles, jobs, ws, carry, partials]
+    return cfg, w, keep, -(-K // Kc)
+
+
+def _count_stages(spec, chunks):
+    if spec.plan == "resident":
+        STAGE_LAUNCHES["njode_bwd_remat"] += chunks
+    STAGE_LAUNCHES["njode_bwd_chain"] += chunks
+    STAGE_LAUNCHES["njode_bwd_wgrad"] += chunks
+
+
 def scan_bwd_cuda(spec, leaves, arrays, weight, train, hists, dloss,
-                  u=None, seed=None):
-    """Launch K2 and, in the same C call, the reduction of its per-CTA
-    gradient rows; returns (grads as views of one flat buffer, in leaf
-    order and layout, dh0)."""
+                  u=None, seed=None, chunk=None, stretch=None,
+                  want_ws=False):
+    """Launch K2 (for each chunk of steps, last first, its stages (a)
+    forward re-run, (b) chain and (c) weight gradients) and, in the same C
+    call, the reduction of stage (c)'s partial rows; returns (grads as
+    views of one flat buffer, in leaf order and layout, dh0), and with
+    ``want_ws`` the workspace [Kc * B, rec] as the first chunk left it
+    (``chunk`` / ``stretch``: ``Spec.bwd_chunk``'s; tests and checks)."""
     K, B = _check_inputs(spec, leaves, arrays, train, u, seed)
     hh, lxh, tauh = hists
     _check("h_hist", hh, (K, B, spec.H))
@@ -1226,9 +1776,9 @@ def scan_bwd_cuda(spec, leaves, arrays, weight, train, hists, dloss,
     lib = _lib()
     times, dts, obs, X, n_obs, start_X, M = unpack_arrays(spec, arrays)
     dev = hh.device
-    cfg = make_cfg(spec, K, B, train, weight)
-    n_cta = -(-B // cfg.rows)
-    partials = torch.empty((n_cta, spec.n_params), device=dev)
+    cfg, work, keep, chunks = _k2_work(spec, K, B, 1, train, weight, dev,
+                                       chunk, stretch)
+    partials = keep[-1]
     flat = torch.empty((spec.n_params,), device=dev)
     dh0 = torch.empty((B, spec.H), device=dev)
     tab = layer_table(spec, leaves)
@@ -1236,19 +1786,20 @@ def scan_bwd_cuda(spec, leaves, arrays, weight, train, hists, dloss,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with _on(dev):
         rc = lib.njode_scan_bwd(
-            ctypes.addressof(cfg), _ptr(tab), _ptr(wg),
-            _ptr(_program(spec, dev)), _ptr(times), _ptr(dts), _ptr(obs),
-            _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs), _ptr(hh),
-            _ptr(lxh), _ptr(tauh), _ptr(dloss), _ptr(partials), _ptr(flat),
-            _ptr(dh0), stream)
+            ctypes.addressof(cfg), ctypes.addressof(work), _ptr(tab),
+            _ptr(wg), _ptr(_program(spec, dev)), _ptr(times), _ptr(dts),
+            _ptr(obs), _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs),
+            _ptr(hh), _ptr(lxh), _ptr(tauh), _ptr(dloss), _ptr(partials),
+            _ptr(flat), _ptr(dh0), stream)
     _raise_rc(lib, rc, "njode_scan_bwd")
     _count("njode_scan_bwd" + _launch_key(spec), B, cfg.rows)
+    _count_stages(spec, chunks)
     LAUNCHES["reduce_partials"] += 1
     if cfg.mode == 2:
         LAUNCHES["philox_keep"] += 1
     grads = [flat[a:b].view(s) for a, b, s in
              zip(spec.leaf_off[:-1], spec.leaf_off[1:], spec.leaf_shapes)]
-    return grads, dh0
+    return (grads, dh0) + ((keep[-3][0],) if want_ws else ())
 
 
 def reduce_partials_cuda(partials, scale=1.0):
@@ -1393,11 +1944,15 @@ def scan_fwd_members_cuda(spec, leaves, arrays, weight, h0, train, u=None,
 
 
 def scan_bwd_members_cuda(spec, leaves, arrays, weight, train, hists, dloss,
-                          u=None, seed=None):
-    """Launch K2 for E members at once and, in the same C call, the member
-    reduction of its per-CTA gradient rows; returns (grads [E, *leaf] as
-    views of one [E, n_params] buffer, in leaf order, dh0 [E,B,H]).
-    ``dloss [E]``: each member's loss cotangent."""
+                          u=None, seed=None, chunk=None, stretch=None,
+                          want_ws=False):
+    """Launch K2 for E members at once (each stage a chunk one launch of
+    grid (..., E)) and, in the same C call, the member reduction of stage
+    (c)'s partial rows; returns (grads [E, *leaf] as views of one [E,
+    n_params] buffer, in leaf order, dh0 [E,B,H]), and with ``want_ws``
+    the workspace [E, Kc * B, rec]. ``dloss [E]``: each member's loss
+    cotangent. The chunk may be shorter than a solo call's (the workspace
+    of all members within ``WS_BUDGET``); the bits are a solo call's."""
     E, K, B = _check_member_inputs(spec, leaves, arrays, train, u, seed)
     hh, lxh, tauh = hists
     _check("h_hist", hh, (E, K, B, spec.H))
@@ -1408,10 +1963,10 @@ def scan_bwd_members_cuda(spec, leaves, arrays, weight, train, hists, dloss,
     lib = _lib()
     times, dts, obs, X, n_obs, start_X, M = unpack_arrays(spec, arrays)
     dev = hh.device
-    cfg = make_cfg(spec, K, B, train, weight)
-    n_cta = -(-B // cfg.rows)
+    cfg, work, keep, chunks = _k2_work(spec, K, B, E, train, weight, dev,
+                                       chunk, stretch)
+    partials = keep[-1]
     P = spec.n_params
-    partials = torch.empty((E, n_cta, P), device=dev)
     flat = torch.empty((E, P), device=dev)
     dh0 = torch.empty((E, B, spec.H), device=dev)
     tab = layer_table(spec, leaves)
@@ -1419,19 +1974,20 @@ def scan_bwd_members_cuda(spec, leaves, arrays, weight, train, hists, dloss,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with _on(dev):
         rc = lib.njode_scan_bwd_members(
-            ctypes.addressof(cfg), E, _ptr(tab), _ptr(wg),
-            _ptr(_program(spec, dev)), _ptr(times), _ptr(dts), _ptr(obs),
-            _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs), _ptr(hh),
-            _ptr(lxh), _ptr(tauh), _ptr(dloss), _ptr(partials), _ptr(flat),
-            _ptr(dh0), stream)
+            ctypes.addressof(cfg), E, ctypes.addressof(work), _ptr(tab),
+            _ptr(wg), _ptr(_program(spec, dev)), _ptr(times), _ptr(dts),
+            _ptr(obs), _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs),
+            _ptr(hh), _ptr(lxh), _ptr(tauh), _ptr(dloss), _ptr(partials),
+            _ptr(flat), _ptr(dh0), stream)
     _raise_rc(lib, rc, "njode_scan_bwd_members")
     _count("njode_scan_bwd_members" + _launch_key(spec), B, cfg.rows)
+    _count_stages(spec, chunks)
     LAUNCHES["reduce_partials_members"] += 1
     if cfg.mode == 2:
         LAUNCHES["philox_keep_members"] += 1
     grads = [flat[:, a:b].view((E,) + tuple(s)) for a, b, s in
              zip(spec.leaf_off[:-1], spec.leaf_off[1:], spec.leaf_shapes)]
-    return grads, dh0
+    return (grads, dh0) + ((keep[-3],) if want_ws else ())
 
 
 def _member_plain(spec, leaves, arrays, u, seed, e):

@@ -93,6 +93,8 @@ inline unsigned __umulhi(unsigned a, unsigned b) {
   return (unsigned)(((unsigned long long)a * b) >> 32); }
 struct uint4 { unsigned x, y, z, w; };
 struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
+#define __align__(n) __attribute__((aligned(n)))
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
   return {a, b, c, d}; }
@@ -158,9 +160,10 @@ def build(out_dir, name="fused_gob"):
         s = f.read()
     s = s.replace("#include <cuda_runtime.h>",
                   '#include "cuda_stub.h"\nfloat sm[1 << 18];')
-    with open(os.path.join(csrc, "philox.cuh")) as f:
-        s = s.replace('#include "philox.cuh"',
-                      f.read().replace("#pragma once", ""))
+    for inc in re.findall(r'#include "(\w+\.cuh)"', s):
+        with open(os.path.join(csrc, inc)) as f:
+            s = s.replace(f'#include "{inc}"',
+                          f.read().replace("#pragma once", ""))
     s = s.replace("extern __shared__ float sm[];", "")
 
     def launch(m):

@@ -76,9 +76,11 @@ def _setup(kw, D, seed=0):
     return cfg, arrays, leaves, h0
 
 
-def _run(lib, fs, spec, leaves, arrays, h0, u, seed, dloss=1.3):
+def _run(lib, fs, spec, leaves, arrays, h0, u, seed, dloss=1.3, chunk=4,
+         stretch=4):
     """K1, K2 and K3 of ``spec`` through the CPU build: (loss, histories,
-    gradients, dh0, eval loss)."""
+    gradients, dh0, eval loss), then K2's workspace as the first chunk
+    left it (K2 at ``chunk`` steps a chunk, stage (c) at ``stretch``)."""
     import torch
 
     times, dts, obs, X, n_obs, start_X, M = fs.unpack_arrays(spec, arrays)
@@ -105,21 +107,46 @@ def _run(lib, fs, spec, leaves, arrays, h0, u, seed, dloss=1.3):
         assert rc == 0, rc
         out.append((loss.clone(), hists))
     (loss, hists), (loss3, _) = out
-    c = fs.make_cfg(spec, Kk, Bb, True, 0.5)
-    parts = torch.full((-(-Bb // c.rows), spec.n_params), float("nan"))
+    c, work, keep, _ = fs._k2_work(spec, Kk, Bb, 1, True, 0.5,
+                                   torch.device("cpu"), chunk, stretch)
+    keep[-3].fill_(float("nan"))
     flat = torch.empty(spec.n_params)
     dh0 = torch.empty(Bb, spec.H)
     dloss = torch.tensor([dloss])
     rc = lib.njode_scan_bwd(
-        ctypes.addressof(c), _ptr(tab), _ptr(wg), _ptr(prog),
-        _ptr(times),
+        ctypes.addressof(c), ctypes.addressof(work), _ptr(tab), _ptr(wg),
+        _ptr(prog), _ptr(times),
         _ptr(dts), _ptr(obs), _ptr(X), _ptr(M), _ptr(u), _ptr(seed),
-        _ptr(n_obs), *(_ptr(t) for t in hists), _ptr(dloss), _ptr(parts),
+        _ptr(n_obs), *(_ptr(t) for t in hists), _ptr(dloss), _ptr(keep[-1]),
         _ptr(flat), _ptr(dh0), None)
     assert rc == 0, rc
     grads = [flat[a:b].view(s) for a, b, s in
              zip(spec.leaf_off[:-1], spec.leaf_off[1:], spec.leaf_shapes)]
-    return [loss, *hists, *grads, dh0, loss3]
+    return [loss, *hists, *grads, dh0, loss3], keep[-3][0]
+
+
+def ws_errors(fs, spec, ws, ws_plain, rows, mode):
+    """The largest relative distance of the workspace fields the plan
+    writes (stage (a)'s forward fields, or the global chain's Linear
+    inputs, and the chain's deltas) from the plain stages', over the
+    records of ``rows`` (step, row) pairs: (forward, deltas); and
+    whether the mask words hold the draws the chain needs (their bits
+    are checked through the deltas; here only that stage (a) wrote
+    them: no NaN left from the CPU build's NaN fill)."""
+    kinds = "xf" if spec.plan == "resident" else "x"
+    err = {"fwd": 0.0, "dlt": 0.0}
+    for name, _, kind in spec.ws_fields:
+        if kind not in kinds + "d" or name == ("mw",):
+            continue
+        if name[0] == "le" and spec.D != spec.O:
+            continue
+        a = fs.ws_view(spec, ws[:rows], name)
+        b = fs.ws_view(spec, ws_plain[:rows], name)
+        e = float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+        e = e if e == e else float("inf")
+        key = "dlt" if kind == "d" else "fwd"
+        err[key] = max(err[key], e)
+    return err
 
 
 def rehearse(lib, name, kw, D, R, mode):
@@ -143,7 +170,7 @@ def rehearse(lib, name, kw, D, R, mode):
                  < 0.8).to(torch.int8)
         else:
             seed = torch.tensor([123456789012345], dtype=torch.int64)
-    got = _run(lib, fs, spec, leaves, arrays, h0, u, seed)
+    got, ws = _run(lib, fs, spec, leaves, arrays, h0, u, seed)
     lp, hp = fs.scan_fwd_plain(spec, leaves, arrays, 0.5, h0, True, u, seed)
     gp, dp = fs.scan_bwd_plain(spec, leaves, arrays, 0.5, True, got[1:4],
                                torch.tensor(1.3), u, seed)
@@ -152,16 +179,22 @@ def rehearse(lib, name, kw, D, R, mode):
     want = [lp, *hp, *gp, dp, l3]
     errs = [float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
             for a, b in zip(got, want)]
+    # K2's stages against the plain ones (the chunk of steps 0-3)
+    _, _, wsp = fs.scan_bwd_staged_plain(spec, leaves, arrays, 0.5, True,
+                                         got[1:4], torch.tensor(1.3), u,
+                                         seed, 4, 4, want_ws=True)
+    we = ws_errors(fs, spec, ws, wsp, 4 * B, mode)
     glob = got if not both else _run(
         lib, fs, fs.Spec(cfg, mode, ("global", R)), leaves, arrays, h0, u,
-        seed)
+        seed)[0]
     n_diff = sum(not torch.equal(a, b) for a, b in zip(got, glob))
-    ok = max(errs) < 1e-4 and n_diff == 0 and all(
+    ok = max(errs + list(we.values())) < 1e-4 and n_diff == 0 and all(
         bool(torch.isfinite(t).all()) for t in got)
     print(f"{'ok ' if ok else 'BAD'} {name} R={R} {mode} "
           f"loss {errs[0]:.1e} hist {max(errs[1:4]):.1e} "
           f"grad {max(errs[4:-2]):.1e} dh0 {errs[-2]:.1e} eval "
-          f"{errs[-1]:.1e} " + (f"global-vs-resident outputs differing "
+          f"{errs[-1]:.1e} stage_fwd {we['fwd']:.1e} stage_dlt "
+          f"{we['dlt']:.1e} " + (f"global-vs-resident outputs differing "
                                  f"{n_diff}" if both else "global plan"),
           flush=True)
     return ok
@@ -250,7 +283,7 @@ def rehearse_members(lib, name, kw, D, R, mode, plan="resident", E=3):
         us.append(u)
         seeds.append(seed)
         solo.append(_run(lib, fs, spec, leaves, arrays, h0, u, seed,
-                         dloss=dl[e]))
+                         dloss=dl[e], chunk=8, stretch=4)[0])
     leaves = [torch.stack(ls).contiguous()
               for ls in zip(*(m[2] for m in members))]
     arrays = tuple(members[0][1][i] if i < 2 else
@@ -280,17 +313,22 @@ def rehearse_members(lib, name, kw, D, R, mode, plan="resident", E=3):
             *(_ptr(t) for t in hists), int(want), 1.0 / Bb, None) == 0
         out.append((loss, hists))
     (loss, hists), (loss3, _) = out
-    c = fs.make_cfg(spec, Kk, Bb, True, 0.5)
-    parts = torch.full((E, -(-Bb // c.rows), spec.n_params), float("nan"))
+    # the member call at another chunk length than the solo calls' (both
+    # multiples of the stretch), as a launch whose workspace holds all its
+    # members takes: the same bits
+    c, work, keep, _ = fs._k2_work(spec, Kk, Bb, E, True, 0.5,
+                                   torch.device("cpu"), 4, 4)
+    if spec.plan == "resident" and R == 1:
+        work.threads = 128       # a member launch that overflows a wave
     flat = torch.empty(E, spec.n_params)
     dh0 = torch.empty(E, Bb, spec.H)
     dloss = torch.tensor(dl)
     assert lib.njode_scan_bwd_members(
-        ctypes.addressof(c), E, _ptr(tab), _ptr(wg), _ptr(prog),
-        _ptr(times),
+        ctypes.addressof(c), E, ctypes.addressof(work), _ptr(tab), _ptr(wg),
+        _ptr(prog), _ptr(times),
         _ptr(dts), _ptr(obs), _ptr(X), _ptr(M), _ptr(u), _ptr(seed),
         _ptr(n_obs), *(_ptr(t) for t in hists), _ptr(dloss),
-        _ptr(parts), _ptr(flat), _ptr(dh0), None) == 0
+        _ptr(keep[-1]), _ptr(flat), _ptr(dh0), None) == 0
     n_diff = 0
     for e in range(E):
         got = [loss[e], *(h[e] for h in hists),

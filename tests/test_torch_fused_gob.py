@@ -452,8 +452,8 @@ def test_config_struct_mirrors_the_cuda_source():
 
 def test_build_hash_covers_included_headers(tmp_path):
     """A library is named by the hash of its source and of the csrc/
-    headers it includes: editing philox.cuh renames both libraries, so a
-    stale build is never loaded."""
+    headers it includes: editing philox.cuh or dtx.cuh renames both
+    libraries, so a stale build is never loaded."""
     import shutil
 
     from njode_tpu_torch.ops import _build
@@ -463,13 +463,14 @@ def test_build_hash_covers_included_headers(tmp_path):
     for name in ("fused_scan", "fused_gob"):
         files = [os.path.basename(f) for f in
                  _build.source_files(str(csrc / f"{name}.cu"))]
-        assert files == [f"{name}.cu", "philox.cuh"]
-    before = {n: _build.source_digest(str(csrc / f"{n}.cu"))
-              for n in ("fused_scan", "fused_gob")}
-    with open(csrc / "philox.cuh", "a") as f:
-        f.write("\n// edited\n")
-    for n, d in before.items():
-        assert _build.source_digest(str(csrc / f"{n}.cu")) != d
+        assert files == [f"{name}.cu", "philox.cuh", "dtx.cuh"]
+    for header in ("philox.cuh", "dtx.cuh"):
+        before = {n: _build.source_digest(str(csrc / f"{n}.cu"))
+                  for n in ("fused_scan", "fused_gob")}
+        with open(csrc / header, "a") as f:
+            f.write("\n// edited\n")
+        for n, d in before.items():
+            assert _build.source_digest(str(csrc / f"{n}.cu")) != d, header
 
 
 def test_ctypes_signatures_match_the_c_interface():

@@ -320,14 +320,19 @@ def test_config_struct_mirrors_the_cuda_source():
     assert re.search(r"#define MAX_ROWS (\d+)", src).group(1) == \
         str(fs.MAX_ROWS)
     assert not re.search(r"MAX_LIN|MAX_LEAVES", src)
-    # K1 and K2 take ScanCfg by value, then the table's address and 16
-    # other pointers
-    for kern in ("njode_scan_fwd_kernel", "njode_scan_bwd_kernel"):
+    # K1 and K2's chain take ScanCfg by value, then the table's address
+    # and other pointers (K1: 16; the chain: 18 and, n_fld after the
+    # 17th, and k0, k1, Kc, first at the end, 5 ints)
+    for kern, n_ptr, n_int in (
+            ("njode_scan_fwd_kernel", fs.KERNEL_PTRS, 0),
+            ("njode_scan_bwd_kernel", fs.CHAIN_PTRS, fs.CHAIN_INTS)):
         params = re.search(r"\n%s\((.*?)\)" % kern, src, re.S).group(1)
         decls = [d.strip() for d in params.split(",")]
         assert decls[0] == "ScanCfg c" and "tab" in decls[1]
-        assert len(decls) == 1 + fs.KERNEL_PTRS
-        assert all("*" in d for d in decls[1:])
+        assert len(decls) == 1 + n_ptr + n_int
+        assert sum("*" in d for d in decls[1:]) == n_ptr
+        assert all(d.startswith("int ") for d in decls[1:]
+                   if "*" not in d)
     assert fs.param_bytes() <= min(4096, 1776)
     # the GRU's leaf offsets and regions follow the layout fields
     names = [f[0] for f in fs._ScanCfg._fields_]
@@ -421,22 +426,24 @@ def _arm_cfg(D, hidden, width, masked):
 # (experiments/configs.py: PhysioNet :233-245, climate :141-150, sine
 # :265-279); the global plan adds the layer records and the ring (and,
 # with the GRU jump, its gate sums) in the shared memory the activations
-# leave; the resident plan's bytes are K2's at the most rows that fit,
-# its nine layer records (288 bytes) included; both hold the dropout mask
-# words (the global plan's masked branch without the GRU jump inside a
-# backward buffer, so its bytes are the activations')
+# leave; the resident plan's bytes are K2's chain's at the most rows that
+# fit (its weights, two io sets each with a step's forward values, no
+# weight gradients), its nine layer records (288 bytes) included; both
+# hold the dropout mask words (the global plan's masked branch without
+# the GRU jump inside a backward buffer, so its bytes are the
+# activations').
 PLAN_ARMS = [
-    ("main_path", 1, 10, 50, False, False, "resident", 16, 156416, 156416),
-    ("main_path_rnn", 1, 10, 50, False, True, "resident", 16, 164672,
-     164672),
-    ("climate_small", 5, 10, 50, True, False, "resident", 16, 168960,
-     168960),
-    ("climate_small_rnn", 5, 10, 50, True, True, "resident", 16, 178144,
-     178144),
-    ("physionet_50", 41, 41, 50, True, False, "resident", 2, 216176,
-     216176),
-    ("physionet_50_rnn", 41, 41, 50, True, True, "global", 16, 218336,
-     159936),
+    ("main_path", 1, 10, 50, False, False, "resident", 16, 168544, 168544),
+    ("main_path_rnn", 1, 10, 50, False, True, "resident", 16, 152192,
+     152192),
+    ("climate_small", 5, 10, 50, True, False, "resident", 16, 177856,
+     177856),
+    ("climate_small_rnn", 5, 10, 50, True, True, "resident", 16, 161328,
+     161328),
+    ("physionet_50", 41, 41, 50, True, False, "resident", 8, 208512,
+     208512),
+    ("physionet_50_rnn", 41, 41, 50, True, True, "resident", 4, 194752,
+     194752),
     ("physionet_200", 41, 41, 200, True, False, "global", 8, 232448,
      161120),
     ("climate_400", 5, 50, 400, True, False, "global", 4, 232432, 138800),
@@ -453,9 +460,10 @@ def _plan_cfg(arm):
 
 @pytest.mark.parametrize("arm", PLAN_ARMS, ids=[a[0] for a in PLAN_ARMS])
 def test_plan_rule(arm):
-    """``Spec`` takes the resident plan where K2's layout (every weight
-    and its gradient) fits at some of 16, 8, 4, 2, 1 rows, ``rows`` the
-    most that fit (PhysioNet 50: 2), else the
+    """``Spec`` takes the resident plan where K2's chain's layout (every
+    weight, two io sets with a step's forward values) and K1's fit at some
+    of 16, 8, 4, 2, 1 rows, ``rows`` the most that fit (PhysioNet 50: 8),
+    else the
     global plan at the most rows whose activations fit, with the ring in
     what they leave (no arm loses rows to it); ``supported`` admits every
     arm."""
@@ -484,7 +492,7 @@ ROWS_CASES = [
     ("main_path_rnn", 100, 1, 1), ("main_path_rnn", 200, 1, 1),
     ("main_path_rnn", 4000, 16, 16), ("climate_small", 100, 1, 1),
     ("climate_small_rnn", 100, 1, 1), ("physionet_50", 50, 1, 1),
-    ("physionet_50_rnn", 50, 16, 16), ("physionet_200", 50, 8, 8),
+    ("physionet_50_rnn", 50, 1, 1), ("physionet_200", 50, 8, 8),
 ]
 
 
@@ -517,35 +525,40 @@ def test_rows_rule(case):
 
 
 def test_forward_layout_and_rows_per_batch():
-    """K1/K3's resident layout holds no gradient region and no backward
-    region (K2's holds both), so more of its CTAs fit an SM; both end with
-    two sets of mask words and the layer records; ``make_cfg``
-    keeps one configuration per call shape and kernel, each at its batch's
-    rows (the last, smaller batch of an epoch at its own), and a forced
-    plan's rows at every batch."""
+    """K1/K3's resident layout holds no backward region (K2's chain holds
+    them), so more of its CTAs fit an SM, and ends with two sets of mask
+    words and the layer records; the chain's holds no weight gradients
+    and no carries, and each of its two io sets holds a step's inputs and
+    every forward value the chain reads (stage (a)'s fields, the mask
+    words among them), ``io_stride`` apart; ``make_cfg`` keeps one
+    configuration per call shape and kernel, each at its batch's rows (the
+    last, smaller batch of an epoch at its own), and a forced plan's rows
+    at every batch."""
     spec = fs.Spec(_plan_cfg(PLAN_ARMS[0]))
     P4 = (spec.n_params + 3) // 4 * 4
-    bwd_only = {"g", "dA", "dB", "dh", "dlx", "dtau", "dst", "dh1", "dhe",
+    bwd_only = {"dA", "dB", "dh", "dlx", "dtau", "dst", "dh1", "dhe",
                 "df", "dlxc", "dtauc", "dG"}
+    in_io = ("in_ode", "tX", "h1", "h2", "in_ro", "ro", "le", "s_ode",
+             "s_enc", "s_ro", "mw")
     for R in fs.ROW_CHOICES:
         fwd, n_fwd = spec.layout(R, "resident", bwd=False)
         bwd, n_bwd = spec.layout(R, "resident")
-        assert not bwd_only & set(fwd) and {"w", "g", "dA"} <= set(bwd)
-        assert {k: v - P4 for k, v in bwd.items()
-                if k not in bwd_only and k not in ("w", "mw", "lay")} == {
-            k: v for k, v in fwd.items() if k not in ("w", "mw", "lay")}
-        assert n_bwd - n_fwd > P4
+        assert not bwd_only & set(fwd) and bwd_only - {"dG"} <= set(bwd)
+        assert "g" not in bwd and bwd["io"] == fwd["io"] == P4
+        assert all(bwd["io"] <= bwd[k] < bwd["io2"] for k in in_io)
+        assert bwd["h"] == bwd["lx"] == bwd["tau"] == bwd["X"]
+        assert n_bwd > n_fwd
+        assert fwd["lay"] - fwd["mw"] == (
+            2 * spec.mask_words(R) + 3) // 4 * 4
         for off, n in ((fwd, n_fwd), (bwd, n_bwd)):
-            assert off["lay"] - off["mw"] == (
-                2 * spec.mask_words(R) + 3) // 4 * 4
             assert n - off["lay"] == fs.LAYER_INTS * spec.n_rec
             assert off["lay"] == max(off.values())
     assert 4 * spec.layout(16, "resident", bwd=False)[1] == 100384
     assert (spec.ctas_per_sm(16), spec.ctas_per_sm(16, False)) == (1, 2)
     c_fwd = fs.make_cfg(spec, 100, 100, True, 0.5, bwd=False)
     c_bwd = fs.make_cfg(spec, 100, 100, True, 0.5)
-    assert (c_fwd.rows, c_fwd.o_g, c_fwd.o_dA) == (1, -1, -1)
-    assert (c_bwd.rows, c_bwd.o_g) == (1, P4)
+    assert (c_fwd.rows, c_fwd.o_dA) == (1, -1)
+    assert (c_bwd.rows, c_bwd.o_tdt, c_bwd.rec) == (1, P4, spec.rec)
     assert c_fwd.smem_floats == spec.layout(1, "resident", bwd=False)[1]
     assert fs.make_cfg(spec, 100, 100, True, 0.5, bwd=False) is c_fwd
     assert fs.make_cfg(spec, 100, 4000, False, 0.5, bwd=False).rows == 16
@@ -555,8 +568,13 @@ def test_forward_layout_and_rows_per_batch():
             for B in (60, 100, 4000) for bwd in (True, False)} == {16}
 
 
-@pytest.mark.parametrize("arm", [a for a in PLAN_ARMS if a[6] == "global"],
-                         ids=[a[0] for a in PLAN_ARMS if a[6] == "global"])
+# the arms the global plan runs, and PhysioNet 50's GRU jump forced into
+# it at 16 rows
+TILE_ARMS = [a for a in PLAN_ARMS
+             if a[6] == "global" or a[0] == "physionet_50_rnn"]
+
+
+@pytest.mark.parametrize("arm", TILE_ARMS, ids=[a[0] for a in TILE_ARMS])
 def test_tile_program_walks_each_product(arm):
     """The global plan's tile program: every weight product of a step, in
     the order the kernels run them, walked in ascending blocks of its
@@ -565,6 +583,8 @@ def test_tile_program_walks_each_product(arm):
     the last tile of each walk flagged, and the counts ``make_cfg`` hands
     the kernels."""
     spec = fs.Spec(_plan_cfg(arm))
+    if spec.plan != "global":
+        spec = fs.Spec(_plan_cfg(arm), "prng", ("global", 16))
     prog, n_fwd, n_bwd, stage = spec.tile_program()
     tiles = iter([prog[i:i + fs.TILE_INTS]
                   for i in range(0, len(prog), fs.TILE_INTS)])
@@ -615,40 +635,39 @@ def test_reduce_order_is_ascending_rows(shape):
 
 
 def test_forced_plans_and_global_layout():
-    """A forced plan: the resident plan of PhysioNet's 50 arm fits at 2
-    rows (216,176 B), not at 4, and every launch takes the forced rows
-    whatever the batch; the global plan's layout has no weight, gradient
-    or io-set regions, and ``make_cfg`` marks their offsets -1, names the
-    plan and the rows, and counts the activations alone; the resident
-    plan's holds the weights, then K2's gradients, then the two io sets
-    (``io_stride`` apart), and no ring."""
+    """A forced plan: the resident plan of PhysioNet's 50 arm fits at 8
+    rows (208,512 B), not at 16, and every launch takes the forced rows
+    whatever the batch; the global plan's layout has no weight or io-set
+    regions, and ``make_cfg`` marks their offsets -1, names the plan and
+    the rows, and counts the activations alone; the resident plan's holds
+    the weights, then the two io sets (``io_stride`` apart), and no
+    ring."""
     cfg = _arm_cfg(41, 41, 50, True)
-    spec = fs.Spec(cfg, "prng", ("resident", 2))
-    assert (spec.plan, spec.rows, spec.smem_bytes) == ("resident", 2, 216176)
-    assert spec.rows_for(50) == spec.rows_for(4000, False) == 2
+    spec = fs.Spec(cfg, "prng", ("resident", 8))
+    assert (spec.plan, spec.rows, spec.smem_bytes) == ("resident", 8, 208512)
+    assert spec.rows_for(50) == spec.rows_for(4000, False) == 8
     with pytest.raises(ValueError, match="overflows"):
-        fs.Spec(cfg, "prng", ("resident", 4))
+        fs.Spec(cfg, "prng", ("resident", 16))
     with pytest.raises(ValueError, match="unknown plan"):
         fs.Spec(cfg, "prng", ("global", 3))
     g = fs.Spec(cfg, "prng", ("global", 4))
     off, total = g.layout(4, "global")
     res_off, res_total = g.layout(4, "resident")
-    assert "w" not in off and "g" not in off and "ring" not in res_off
+    assert "w" not in off and "g" not in res_off and "ring" not in res_off
     assert not {"io", "io2", "tdt"} & set(off)
-    assert {"w", "g", "io", "io2", "tdt"} <= set(res_off)
-    assert (res_off["w"], res_off["g"], res_off["io"]) == (
-        0, (g.n_params + 3) // 4 * 4, 2 * ((g.n_params + 3) // 4 * 4))
+    assert {"w", "io", "io2", "tdt"} <= set(res_off)
+    assert (res_off["w"], res_off["io"]) == (0, (g.n_params + 3) // 4 * 4)
     # the ring takes two stages after the activations
     assert total - off["ring"] == 2 * g.tile_program()[3]
     c = fs.make_cfg(g, 30, 50, True, 0.5)
     assert (c.rows, c.plan, c.smem_floats, c.io_stride) == (4, 1, total, 0)
-    assert c.o_w == -1 and c.o_g == -1 and c.o_ring == off["ring"]
+    assert c.o_w == -1 and c.o_ring == off["ring"]
     assert c.o_h == 0 and c.o_M == off["M"] and c.ro2.save_off == off["s_ro2"]
     assert c.o_tdt == -1
-    r_off, r_total = spec.layout(2, "resident")
+    r_off, r_total = spec.layout(8, "resident")
     r = fs.make_cfg(spec, 30, 50, True, 0.5)
-    assert (r.rows, r.plan, r.o_w, r.o_g, r.o_ring, r.n_tiles_fwd) == (
-        2, 0, 0, r_off["g"], -1, 0)
+    assert (r.rows, r.plan, r.o_w, r.o_ring, r.n_tiles_fwd) == (
+        8, 0, 0, -1, 0)
     assert (r.o_tdt, r.io_stride, r.smem_floats) == (
         r_off["io"], r_off["io2"] - r_off["io"], r_total)
     assert fs.packed_weights(spec, []) is None

@@ -176,7 +176,7 @@ def test_masked_kernels_route_and_gates(monkeypatch):
                            dropout_rate=0.1, masked=True)
     assert fs.supported(climate)
     spec = fs.Spec(climate)
-    assert spec.n_params == 10925 and spec.smem_bytes == 168960
+    assert spec.n_params == 10925 and spec.smem_bytes == 177856
     assert spec.smem_bytes <= fs.SMEM_LIMIT
     _, unmasked = H.configs(5, 10, ode_nn=nn, readout_nn=nn, enc_nn=nn,
                             dropout_rate=0.1)
@@ -189,10 +189,10 @@ def test_masked_kernels_route_and_gates(monkeypatch):
     _, phys = H.configs(41, 41, ode_nn=nn, readout_nn=nn, enc_nn=nn,
                         masked=True)
     # too wide for the resident plan at 16 rows: the rule takes it at the
-    # most rows that fit (2), before the global plan, and each launch at
+    # most rows that fit (8), before the global plan, and each launch at
     # the batch's rows (one a CTA at B = 50)
     assert fs.supported(phys)
-    assert (fs.Spec(phys).plan, fs.Spec(phys).rows) == ("resident", 2)
+    assert (fs.Spec(phys).plan, fs.Spec(phys).rows) == ("resident", 8)
     assert fs.Spec(phys).rows_for(50) == 1
     _, tcfg, _, model, b = _setup(dict(dropout_rate=0.1))
     tb = H.tbatch(b)

@@ -4,9 +4,11 @@ scripts/rehearse_fused_gob.py (a CTA as 256 threads, ``__syncthreads`` a
 barrier), driven through its C interface with the wrappers'
 configuration, K1, K2 and K3 of the resident plan against the plain
 versions at one row a CTA (the rows rule's pick at the training batches)
-and at 16 (the last CTA of the batch partly padding), and the global plan
-at the same rows bit for bit (scripts/rehearse_fused_scan.py, a few of its
-variants); 'prng' mode at 2 and 16 rows too, where the mask words of a
+and at 16 (the last CTA of the batch partly padding), K2's three stages
+(chunks of 4 of the 7 steps, stretches of 4) field by field against the
+plain stages (``scan_bwd_staged_plain``'s workspace: stage (a)'s forward
+fields, the chain's deltas) and the global plan at the same rows bit for
+bit (scripts/rehearse_fused_scan.py, a few of its variants); 'prng' mode at 2 and 16 rows too, where the mask words of a
 step take more lanes than the idle warps of its phases hold, and a net
 37 columns wide (two words a row, a partial quad); and the standalone
 mask kernel's C call against the plain Philox; and the full scope: an
@@ -104,8 +106,10 @@ def test_member_axis_matches_solo_calls(cpu_lib, variant, plan, R, mode):
     """K1, K2 and K3 over a member axis (E = 3 members of one config, each
     on its own weights, batch, masks and cotangent, one launch of grid
     (ceil(B/R), E)) give each member the bits of its own solo call, in
-    both plans, masked or not, with the encoder or the GRU jump; the
-    member reduce_partials gives its plain version's bits."""
+    both plans, masked or not, with the encoder or the GRU jump, K2's
+    member call at chunks of 4 steps and the solo calls at 8 (a member
+    launch's workspace holds all its members); the member
+    reduce_partials gives its plain version's bits."""
     sys.path.insert(0, SCRIPTS)
     import rehearse_fused_scan as rs
 

@@ -238,23 +238,23 @@ def test_train_epoch_matches_jax():
 
 def test_rnn_gates_layout_and_route(monkeypatch):
     """``supported`` admits the GRU jump at the main path, the climate
-    small arm (resident plan, 16 rows) and the PhysioNet 50 arm (global
-    plan), with and without bias; its layout adds the ``gru`` and ``dG``
+    small arm (resident plan, 16 rows) and the PhysioNet 50 arm (resident
+    plan, 4 rows), with and without bias; its layout adds the ``gru`` and ``dG``
     regions after the others, and its launches count under the '_rnn'
     keys; a CUDA-routed GRU-jump config never takes a plain version and
     launches nothing."""
     nn = ((50, "tanh"), (50, "tanh"))
-    for D, hid, masked, plan, n_params, nbytes in (
-            (1, 10, False, "resident", 10461, 164672),
-            (5, 10, True, "resident", 11435, 178144),
-            (41, 41, True, "global", 34755, 218336)):
+    for D, hid, masked, plan, rows, n_params, nbytes in (
+            (1, 10, False, "resident", 16, 10461, 152192),
+            (5, 10, True, "resident", 16, 11435, 161328),
+            (41, 41, True, "resident", 4, 34755, 194752)):
         for bias in (True, False):
             _, cfg = H.configs(D, hid, ode_nn=nn, readout_nn=nn, enc_nn=nn,
                                dropout_rate=0.1, masked=masked,
                                use_rnn=True, bias=bias)
             assert fs.supported(cfg)
             spec = fs.Spec(cfg)
-            assert (spec.plan, spec.rows) == (plan, 16)
+            assert (spec.plan, spec.rows) == (plan, rows)
             if bias:
                 assert (spec.n_params, spec.smem_bytes) == (n_params, nbytes)
             _, base = H.configs(D, hid, ode_nn=nn, readout_nn=nn, enc_nn=nn,

@@ -154,10 +154,10 @@ def test_eval_masked_metrics_match_jax(phys, loss_scale):
 
 def test_physionet_widths_carry_across():
     """The 50 and 200 arms' weights (D = H = 41) carry across both ways;
-    the 50 arm runs the kernels' resident plan (2 rows the most that fit,
+    the 50 arm runs the kernels' resident plan (8 rows the most that fit,
     one a CTA at the trainer's batch of 50), the 200 arm the global plan at
     8."""
-    for w, plan, rows in ((50, "resident", 2), (200, "global", 8)):
+    for w, plan, rows in ((50, "resident", 8), (200, "global", 8)):
         nn = ((w, "tanh"), (w, "tanh"))
         jcfg, tcfg = H.configs(41, 41, ode_nn=nn, readout_nn=nn, enc_nn=nn,
                                masked=True, dropout_rate=0.1)
