@@ -3,8 +3,8 @@ checkout on one CUDA card, to compare two versions within one machine.
 
     python3 ab_scan_kernels.py ROOT TAG [MODE]
 
-MODE: witness, gob, phases, masks, main, wgrad, scope or build (none:
-the timings below).
+MODE: witness, gob, phases, masks, main, wgrad, scope, grows, walks,
+k1rep, digest or build (none: the timings below).
 
 ROOT is a checkout holding ``njode_tpu_torch/`` and ``chip_smoke.py`` (e.g.
 the parent commit unpacked with ``git archive`` into a git-ignored
@@ -50,7 +50,32 @@ of the resident K1, K2 and K3 at the rows rule's pick: the main path (B =
 100 and 200, and K3 at 4,000) with the encoder and with the GRU jump, the
 climate small arm and the PhysioNet 50 arm (B = 50, on the synthetic
 masked batch, K = 200); K1 and K2 in 'prng' mode and with dropout off
-(``off``: train False, no masks).
+(``off``: train False, no masks); then K1's member launch (E = 5, the
+main path at B = 100) with its threads a CTA (CTA 0 of member 0; a tree
+whose clock does not name the member records all members' CTA 0 at
+once, so its line is no one CTA's).
+
+With ``grows`` it times K1 ('prng') and K3 of the global plan forced at
+each rows a CTA that fits (``global_rows``): the main path's model with
+2 x 160, 320 and 400-wide MLPs at B = 20, 50, 100 and 200 (K = 100) and
+the PhysioNet 200 arm (B = 50, K = 3,006), a line an arm with the rows
+the checkout's rule takes and whether K1's histories keep their bits
+across the rows.
+
+With ``walks`` it times K1 and K3 at one row a CTA in the role walk
+against the item loop of the same checkout (``walk_arms``: ODE nets of 3
+to 16 linears, B = 200, the GRU jump), alternated in one process; with
+``k1rep`` K1 and K3 of the main path at B = 200 and 100 in five rounds
+(``k1_rounds``), for an A/B with more runs than ``main`` takes.
+
+With ``digest`` it saves, at every arm of ``digest_arms`` (the resident
+and global arms of the main path, its GRU jump, the real-data arms,
+nets of 9 to 101 linears, the convergence and sine widths, E3a and the
+member axis), K1's loss and histories, K3's loss and K2's dh0 and
+gradients under ``_check/ab_digest/`` and prints their digests; ``python3
+ab_scan_kernels.py . TAG_A digests TAG_B`` then holds two checkouts'
+against each other: bit for bit, a loss of a plan whose rows moved within
+rtol 1e-5 / atol 1e-6.
 
 With ``masks`` it times the dropout masks (``mask_costs``): the
 standalone mask kernels K4 (``philox_masks_kernel``, K = 100, S = 8, B =
@@ -70,8 +95,12 @@ that share their code (``main_arms``, CUDA-event ms, 'prng', K = 100): the
 resident K1/K2/K3 at B = 200 and 100 with the encoder and with the GRU
 jump, the same at B = 100 forced into the global plan at 16 rows, the
 resident K1/K2/K3 of the PhysioNet 50 arm (``r50``, on the synthetic
-masked batch), the member K1/K2 (E = 5, B = 100, through the checkout's
-``chip_smoke._member_times``), and where the checkout's ``supported``
+masked batch) and of the climate small arm (K = 2,004), ODE nets of 9
+and 101 linears (B = 100), the member K1/K2 (E = 5, B = 100, through
+the checkout's ``chip_smoke._member_times``) and the member K1 at E = 5
+of the PhysioNet 50 arm (K = 3,006) and the convergence width 320 at B
+= 20 beside five solo launches, with its threads a CTA, and where the
+checkout's ``supported``
 takes it, an unmasked output of another width than the input
 (HestonWOFeller return_vol shapes, D = 2, O = 1, B = 100) in the plan its
 rule picks, and the main path's model with a 16-linear ODE net (B = 100,
@@ -347,6 +376,19 @@ def phase_clocks(cs, fs, lib, dev, tag, masked_batch):
                                  ("physionet_50", 41, 41, 50, 50)):
         cfg, model = cs._masked_njode(D, H, width, dev)
         three(name, cfg, model, masked_batch(200, B, D))
+    # K1 over the member axis (E = 5, the main path at B = 100): CTA 0 of
+    # member 0 (a tree whose clock does not name the member records every
+    # member's CTA 0 at once: its line is not one CTA's)
+    cfg, models, batches = cs._synthetic_members(5, 100, 100, 50, seed0=3)
+    _, leaves, arrays, h0 = cs._member_layout(models, batches)
+    spec = fs.Spec(cfg, "prng")
+    seeds = torch.arange(5, dtype=torch.int64, device=dev) + 11
+    fs.scan_fwd_members_cuda(spec, leaves, arrays, 0.5, h0, True, None,
+                             seeds)
+    c = fs.make_cfg(spec, 100, 100, True, 0.5, bwd=False, **(
+        {"E": 5} if "E" in fs.make_cfg.__code__.co_varnames else {}))
+    show(f"K1 members E=5 main_path B=100 R={spec.rows_for(100, False)} "
+         f"threads={getattr(c, 'threads', fs.NTHREADS)}")
 
 
 def mask_costs(cs, fs, dev, tag, masked_batch):
@@ -512,9 +554,27 @@ def main_arms(cs, fs, dev, tag, masked_batch):
     b = masked_batch(3006, 50, 41)
     cfg, model = cs._masked_njode(41, 41, 50, dev)
     time_three(cfg, model, b, "_r50", 3)
+    cfg, model = cs._masked_njode(5, 10, 50, dev)
+    time_three(cfg, model, masked_batch(2004, 100, 5), "_climate_small", 3)
+    for n_lin, width in ((9, 50), (101, 10)):
+        cfg, model, batch = cs.main_path_setup(
+            100, 100, n_lin, dev, ode_nn=((width, "tanh"),) * (n_lin - 1))
+        time_three(cfg, model, batch, f"_deep{n_lin}", 5)
     t = cs._member_times("main", *cs._synthetic_members(5, 100, 100, 50,
                                                         seed0=3), 10)
     out["K1_members"], out["K2_members"] = t["K1"]["ms"], t["K2"]["ms"]
+    # K1 over the member axis, E = 5: PhysioNet 50 (K = 3,006, B = 50, on
+    # synthetic masked batches) and the convergence width 320 at B = 20
+    for name, mem, reps in (
+            ("phys50", _masked_members(cs, dev, masked_batch, 5, 41, 41, 50,
+                                       3006, 50), 2),
+            ("conv320", cs._synthetic_members(5, 20, 100, 320, seed0=3), 3)):
+        ms, solo_ms, threads = members_k1(cs, fs, *mem, reps)
+        out[f"K1_members_{name}"] = ms
+        out[f"K1_members_{name}_solo_x5"] = solo_ms
+        out[f"K1_members_{name}_threads"] = threads
+    out["K1_members_threads"] = members_k1(
+        cs, fs, *cs._synthetic_members(5, 100, 100, 50, seed0=3), 1)[2]
     try:
         cfg, model, batch = cs.main_path_setup(
             100, 100, 20, dev, data=("HestonWOFeller", cs.HWOF_RV),
@@ -605,6 +665,302 @@ def wgrad_arms(cs, fs, dev, tag, masked_batch):
           flush=True)
 
 
+def global_rows(cs, fs, dev, tag, masked_batch):
+    """``grows``: K1 ('prng') and K3 of the global plan forced at each rows
+    a CTA that fits (CUDA-event ms), at the main path's model with
+    three 2 x ``width`` MLPs (widths 160, 320, 400; B = 20, 50, 100, 200,
+    K = 100) and at the PhysioNet 200 arm (B = 50, K = 3,006, on the
+    synthetic masked batch); a line an arm, with the rows the checkout's
+    rule takes and whether K1's histories keep their bits across the
+    rows."""
+    import torch
+
+    seed = torch.tensor([7], dtype=torch.int64, device=dev)
+    arms = [(f"w{w}_B{B}", w, B, None) for w in (160, 320, 400)
+            for B in (20, 50, 100, 200)] + [("phys200_B50", 200, 50, 41)]
+    for name, width, B, D in arms:
+        if D is None:
+            cfg, model, batch = cs.main_path_setup(B, 100, 0, dev,
+                                                   width=width)
+            reps = 3
+        else:
+            batch = masked_batch(3006, B, D)
+            cfg, model = cs._masked_njode(D, D, width, dev)
+            reps = 1
+        leaves = [p.detach() for p in fs.flat_leaves(model)]
+        arrays = fs.batch_arrays(batch)
+        with torch.no_grad():
+            h0 = fs.t0_state(model, batch)
+        rule = fs.Spec(cfg)
+        out, hist0, same = [], None, True
+        for R in reversed(fs.ROW_CHOICES):
+            try:
+                spec = fs.Spec(cfg, "prng", ("global", R))
+            except ValueError:
+                continue
+            spec3 = fs.Spec(cfg, "input", ("global", R))
+            _, hists = fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, True,
+                                        None, seed)
+            if hist0 is None:
+                hist0 = hists
+            same &= all(torch.equal(a, b) for a, b in zip(hists, hist0))
+            k1 = cs.cuda_ms(lambda: fs.scan_fwd_cuda(
+                spec, leaves, arrays, 0.5, h0, True, None, seed), reps, 1)
+            k3 = cs.cuda_ms(lambda: fs.scan_fwd_cuda(
+                spec3, leaves, arrays, 0.5, h0, False, want_hists=False),
+                reps, 1)
+            out.append(f"K1_R{R}={k1:.4f} K3_R{R}={k3:.4f}")
+        print(tag, "grows", name, f"plan={rule.plan}",
+              f"rule_fwd={rule.rows_for(B, False)} rule_bwd="
+              f"{rule.rows_for(B)}", " ".join(out),
+              f"hists_equal_across_rows={same}", flush=True)
+
+
+def walk_arms(cs, fs, dev, tag):
+    """``walks``: K1 ('prng') and K3 of one checkout at one row a CTA in
+    the role walk and, through a spec without a role program, in the item
+    loop, alternated roles / items / items / roles in one process: the
+    main path's model (B = 100, K = 100) with ODE nets of 3, 5, 7, 9, 12
+    and 16 linears (width 50), at B = 200, and with the GRU jump; a line
+    an arm with each run's CUDA-event ms (20 launches a run) and whether
+    the two walks' outputs keep the same bits."""
+    import torch
+
+    class ItemLoopSpec(fs.Spec):
+        def _role_groups(self):
+            return None
+
+    seed = torch.tensor([7], dtype=torch.int64, device=dev)
+    arms = [(f"deep{n}", 100, n, False) for n in (3, 5, 7, 9, 12, 16)] + [
+        ("main_B200", 200, 3, False), ("rnn_B100", 100, 3, True)]
+    for name, B, n_lin, rnn in arms:
+        cfg, model, batch = cs.main_path_setup(
+            B, 100, n_lin, dev, use_rnn=rnn,
+            ode_nn=((50, "tanh"),) * (n_lin - 1))
+        leaves = [p.detach() for p in fs.flat_leaves(model)]
+        arrays = fs.batch_arrays(batch)
+        with torch.no_grad():
+            h0 = fs.t0_state(model, batch)
+        walks = {"roles": fs.Spec, "items": ItemLoopSpec}
+        specs = {w: (S(cfg, "prng"), S(cfg, "input"))
+                 for w, S in walks.items()}
+        if specs["roles"][0].roles is None:
+            print(tag, "walks", name, "no role program", flush=True)
+            continue
+        outs, ms = {}, {w: [] for w in walks}
+        for w in ("roles", "items", "items", "roles"):
+            sp, s3 = specs[w]
+            lk, hk = fs.scan_fwd_cuda(sp, leaves, arrays, 0.5, h0, True,
+                                      None, seed)
+            l3, _ = fs.scan_fwd_cuda(s3, leaves, arrays, 0.5, h0, False,
+                                     want_hists=False)
+            outs[w] = [lk, *hk, l3]
+            k1 = cs.cuda_ms(lambda: fs.scan_fwd_cuda(
+                sp, leaves, arrays, 0.5, h0, True, None, seed), 20, 2)
+            k3 = cs.cuda_ms(lambda: fs.scan_fwd_cuda(
+                s3, leaves, arrays, 0.5, h0, False, want_hists=False), 20, 2)
+            ms[w].append((k1, k3))
+        same = all(torch.equal(a, b) for a, b in zip(outs["roles"],
+                                                      outs["items"]))
+        print(tag, "walks", name,
+              f"phases={specs['roles'][0].k1_phases(1)[1]}/"
+              f"{specs['items'][0].k1_phases(1)[1]}",
+              " ".join(f"K1_{w}={','.join(f'{a:.4f}' for a, _ in v)} "
+                       f"K3_{w}={','.join(f'{b:.4f}' for _, b in v)}"
+                       for w, v in ms.items()),
+              f"bits_equal={same}", flush=True)
+
+
+def k1_rounds(cs, fs, dev, tag):
+    """``k1rep``: K1 ('prng') and K3 of the main path at B = 200 and 100
+    (K = 100), five rounds of 20 launches each (CUDA-event ms a launch), a
+    line an arm; through the API every checkout has."""
+    import torch
+
+    seed = torch.tensor([7], dtype=torch.int64, device=dev)
+    for B in (200, 100):
+        cfg, model, batch = cs.main_path_setup(B, 100, 0, dev)
+        spec, spec3 = fs.Spec(cfg, "prng"), fs.Spec(cfg, "input")
+        leaves = [p.detach() for p in fs.flat_leaves(model)]
+        arrays = fs.batch_arrays(batch)
+        with torch.no_grad():
+            h0 = fs.t0_state(model, batch)
+        k1, k3 = [], []
+        for _ in range(5):
+            k1.append(cs.cuda_ms(lambda: fs.scan_fwd_cuda(
+                spec, leaves, arrays, 0.5, h0, True, None, seed), 20, 2))
+            k3.append(cs.cuda_ms(lambda: fs.scan_fwd_cuda(
+                spec3, leaves, arrays, 0.5, h0, False, want_hists=False),
+                20, 2))
+        print(tag, "k1rep", f"main_B{B}",
+              "K1=" + ",".join(f"{v:.4f}" for v in k1),
+              "K3=" + ",".join(f"{v:.4f}" for v in k3), flush=True)
+
+
+def members_k1(cs, fs, cfg, models, batches, reps):
+    """CUDA-event ms of K1's member launch ('prng') of the members and of
+    their solo launches one after another, and the member launch's
+    threads a CTA."""
+    import torch
+
+    solo, leaves, arrays, h0 = cs._member_layout(models, batches)
+    E = len(models)
+    dev = h0.device
+    B = arrays[2].shape[2]
+    spec = fs.Spec(cfg, "prng")
+    seed = torch.arange(1, E + 1, dtype=torch.int64, device=dev) * 7919
+
+    def solo_fwd():
+        for e, (lv, arr, h0e) in enumerate(solo):
+            fs.scan_fwd_cuda(spec, lv, arr, 0.5, h0e, True, None,
+                             seed[e:e + 1])
+
+    ms = cs.cuda_ms(lambda: fs.scan_fwd_members_cuda(
+        spec, leaves, arrays, 0.5, h0, True, None, seed), reps, 1)
+    kw = {"E": E} if "E" in fs.make_cfg.__code__.co_varnames else {}
+    c = fs.make_cfg(spec, arrays[2].shape[1], B, True, 0.5, bwd=False, **kw)
+    return ms, cs.cuda_ms(solo_fwd, reps, 1), getattr(c, "threads", 256)
+
+
+def _masked_members(cs, dev, masked_batch, E, D, H, width, K, B):
+    """E masked models at (D, H, width) and E synthetic masked batches,
+    each its own seed."""
+    models = [cs._masked_njode(D, H, width, dev, seed=e)[1]
+              for e in range(E)]
+    batches = [masked_batch(K, B, D, seed=e) for e in range(E)]
+    return cs._masked_cfg(D, H, width), models, batches
+
+
+DIGEST_DIR = os.path.join("_check", "ab_digest")
+
+
+def digest_arms(cs, fs, dev, tag, masked_batch):
+    """``digest``: at every arm of the K1 redesign's acceptance (the
+    resident arms: main path B = 200 and 100 with the encoder and with the
+    GRU jump, the climate small arm, ``r50``, the members E = 5, ODE nets
+    of 9, 16 and 101 linears; the global arms: the main path forced into
+    it at 16 rows, both jumps, PhysioNet 50 forced at 16 rows, PhysioNet
+    200, climate 400 (501 steps), the convergence widths 160 and 320 and
+    sine 400, E3a's return_vol D = 2, O = 1) K1's loss and histories, K3's
+    loss and K2's dh0 and gradients ('prng'), a line of digests (equal
+    digests in two checkouts: equal bits), the tensors saved under
+    ``_check/ab_digest/`` for ``digests`` to compare."""
+    import torch
+
+    one = torch.ones((), device=dev)
+    seed = torch.tensor([7], dtype=torch.int64, device=dev)
+    os.makedirs(DIGEST_DIR, exist_ok=True)
+    digests = {}
+
+    def digest(ts):
+        return hashlib.sha1(b"".join(
+            t.detach().cpu().numpy().tobytes() for t in ts)).hexdigest()[:12]
+
+    def save(arm, d):
+        for k, v in d.items():
+            digests[f"{arm}.{k}"] = digest(v if isinstance(v, list)
+                                           else [v])
+        torch.save({k: ([t.cpu() for t in v] if isinstance(v, list)
+                        else v.cpu()) for k, v in d.items()},
+                   os.path.join(DIGEST_DIR, f"{_safe(tag)}_{arm}.pt"))
+
+    def arm(name, cfg, model, batch, plan=None):
+        spec = fs.Spec(cfg, "prng", plan)
+        spec3 = fs.Spec(cfg, "input", plan)
+        leaves = [p.detach() for p in fs.flat_leaves(model)]
+        arrays = fs.batch_arrays(batch)
+        with torch.no_grad():
+            h0 = fs.t0_state(model, batch)
+        loss, hists = fs.scan_fwd_cuda(spec, leaves, arrays, 0.5, h0, True,
+                                       None, seed)
+        grads, dh0 = fs.scan_bwd_cuda(spec, leaves, arrays, 0.5, True, hists,
+                                      one, None, seed)
+        l3, _ = fs.scan_fwd_cuda(spec3, leaves, arrays, 0.5, h0, False,
+                                 want_hists=False)
+        save(name, {"k1loss": loss, "hh": hists[0], "lxh": hists[1],
+                    "tauh": hists[2], "k3loss": l3, "dh0": dh0,
+                    "grads": list(grads)})
+
+    for rnn in (False, True):
+        for B in (200, 100):
+            arm(f"{'rnn' if rnn else 'main'}_B{B}",
+                *cs.main_path_setup(B, 100, 0, dev, use_rnn=rnn))
+        arm(f"{'rnn' if rnn else 'main'}_B100_g16",
+            *cs.main_path_setup(100, 100, 0, dev, use_rnn=rnn),
+            ("global", 16))
+    cfg, model = cs._masked_njode(5, 10, 50, dev)
+    arm("climate_small", cfg, model, masked_batch(2004, 100, 5))
+    cfg, model = cs._masked_njode(41, 41, 50, dev)
+    arm("r50", cfg, model, masked_batch(3006, 50, 41))
+    arm("g50", cfg, model, masked_batch(3006, 50, 41), ("global", 16))
+    cfg, model = cs._masked_njode(41, 41, 200, dev)
+    arm("g200", cfg, model, masked_batch(501, 50, 41))
+    cfg, model = cs._masked_njode(5, 50, 400, dev)
+    arm("g400", cfg, model, masked_batch(501, 100, 5))
+    for n_lin, width in ((9, 50), (16, 50), (101, 10)):
+        arm(f"deep{n_lin}", *cs.main_path_setup(
+            100, 100, n_lin, dev, ode_nn=((width, "tanh"),) * (n_lin - 1)))
+    for name, width, B in (("conv160", 160, 20), ("conv320", 320, 20),
+                           ("sine400", 400, 100)):
+        arm(name, *cs.main_path_setup(B, 100, 0, dev, width=width))
+    arm("out1", *cs.main_path_setup(100, 100, 20, dev,
+                                    data=("HestonWOFeller", cs.HWOF_RV),
+                                    output_size=1))
+    # the member axis (E = 5, the main path at B = 100)
+    cfg, models, batches = cs._synthetic_members(5, 100, 100, 50, seed0=3)
+    _, leaves, arrays, h0 = cs._member_layout(models, batches)
+    spec = fs.Spec(cfg, "prng")
+    seeds = torch.arange(5, dtype=torch.int64, device=dev) + 11
+    loss, hists = fs.scan_fwd_members_cuda(spec, leaves, arrays, 0.5, h0,
+                                           True, None, seeds)
+    dl = torch.linspace(0.8, 1.2, 5, device=dev)
+    grads, dh0 = fs.scan_bwd_members_cuda(spec, leaves, arrays, 0.5, True,
+                                          hists, dl, None, seeds)
+    save("members_E5", {"k1loss": loss, "hh": hists[0], "lxh": hists[1],
+                        "tauh": hists[2], "dh0": dh0, "grads": list(grads)})
+    print(tag, "digests", " ".join(f"{k}={v}" for k, v in digests.items()),
+          flush=True)
+
+
+def _safe(tag):
+    return "".join(c if c.isalnum() else "_" for c in tag)
+
+
+def compare_digests(tag_a, tag_b):
+    """Each ``digest`` arm of two checkouts: whether K1's loss, histories,
+    K3's loss and K2's dh0 and gradients are equal bit for bit, and where
+    a loss is not, whether it is within rtol 1e-5 / atol 1e-6 (a plan
+    whose rows moved sums the per-CTA losses in another order); one line
+    an arm, then whether every history, dh0 and gradient kept its bits
+    and every loss its tolerance."""
+    import glob
+
+    import torch
+
+    head = os.path.join(DIGEST_DIR, f"{_safe(tag_a)}_")
+    ok = True
+    for path in sorted(glob.glob(head + "*.pt")):
+        arm = path[len(head):-3]
+        a = torch.load(path)
+        b = torch.load(os.path.join(DIGEST_DIR, f"{_safe(tag_b)}_{arm}.pt"))
+        parts = []
+        for k in a:
+            ta = a[k] if isinstance(a[k], list) else [a[k]]
+            tb = b[k] if isinstance(b[k], list) else [b[k]]
+            eq = all(torch.equal(x, y) for x, y in zip(ta, tb))
+            if not eq and k.endswith("loss"):
+                close = all(torch.allclose(x, y, rtol=1e-5, atol=1e-6)
+                            for x, y in zip(ta, tb))
+                parts.append(f"{k}=close" if close else f"{k}=FAR")
+                ok &= close
+            else:
+                parts.append(f"{k}={'equal' if eq else 'DIFFERS'}")
+                ok &= eq
+        print("digests", arm, " ".join(parts), flush=True)
+    print("digests_hold", ok, flush=True)
+    return ok
+
+
 GRADS_DIR = os.path.join("_check", "ab_grads")
 
 
@@ -687,8 +1043,8 @@ def main(root, tag, what="timing"):
         draw_witness(cs, fs, dev, tag)
         return
 
-    def masked_batch(K, B, D):
-        rs = np.random.RandomState(0)
+    def masked_batch(K, B, D, seed=0):
+        rs = np.random.RandomState(seed)
         obs = (rs.random((K, B)) < 0.02).astype(np.float32)
         M = (rs.random((K, B, D)) < 0.4).astype(np.float32) * obs[:, :, None]
         X = rs.normal(size=(K, B, D)).astype(np.float32) * M
@@ -706,6 +1062,18 @@ def main(root, tag, what="timing"):
         return
     if what == "main":
         main_arms(cs, fs, dev, tag, masked_batch)
+        return
+    if what == "grows":
+        global_rows(cs, fs, dev, tag, masked_batch)
+        return
+    if what == "walks":
+        walk_arms(cs, fs, dev, tag)
+        return
+    if what == "k1rep":
+        k1_rounds(cs, fs, dev, tag)
+        return
+    if what == "digest":
+        digest_arms(cs, fs, dev, tag, masked_batch)
         return
     if what == "wgrad":
         wgrad_arms(cs, fs, dev, tag, masked_batch)
@@ -791,4 +1159,6 @@ def main(root, tag, what="timing"):
 if __name__ == "__main__":
     if sys.argv[3:4] == ["grads"]:
         sys.exit(0 if compare_grads(sys.argv[2], sys.argv[4]) else 1)
+    if sys.argv[3:4] == ["digests"]:
+        sys.exit(0 if compare_digests(sys.argv[2], sys.argv[4]) else 1)
     main(*sys.argv[1:4])

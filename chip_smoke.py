@@ -196,15 +196,14 @@ before phase 3:
               their plain versions in 'input' mode, each twice bit for
               bit, at the sine 400 arm's shape (B = 100, global / 4) and
               widths 320 and 160 at B = 20 (global / 8 and 16), with their
-              CUDA-event times, bounds, rows, CTAs and waves; the two
-              convergence widths timed again forced to one row a CTA;
+              CUDA-event times, bounds, rows, CTAs and waves;
 24. groups   - the grouped ensembles (training/group_sweep.py,
               climate_group.py, physionet_group.py): K1 and K2 over a
               member axis (one launch of grid (ceil(B/R), E) for E
               members) at E = 3, in both mask modes, each member bit for
               bit its own solo launches at the same rows and the member
               launch twice bit for bit, and within the North-star
-              tolerances of the member plain version over the first 50
+              tolerances of the member plain version over the first 25
               steps (the member launch run again on them), at the main
               path (B = 100), the convergence study's width 320 (global /
               8, B = 20), the climate small arm (B = 100, K = 2,004,
@@ -650,6 +649,10 @@ def phase_timing(results):
     t["K1"] = (cuda_ms(fwd, 20),
                cuda_ms(lambda: fs.scan_fwd_plain(spec, leaves, arrays, w, h0,
                                                  True, None, seed), 2, 1))
+    # K1's own reading of its last (timed) launch: walk, threads a CTA and
+    # the phases a step it ran
+    results["k1_walk"] = k1_probe_check(
+        "timing", spec, fs.make_cfg(spec, K, B, True, w, bwd=False))
     t["K2"] = (cuda_ms(bwd, 20),
                cuda_ms(lambda: fs.scan_bwd_plain(spec, leaves, arrays, w,
                                                  True, hists, dloss, None,
@@ -682,6 +685,7 @@ def phase_timing(results):
                                             True, None, seed), 20)
     k2_t = cuda_ms(lambda: fs.scan_bwd_cuda(spec, leaves, arr_t, w, True,
                                             hists_t, dloss, None, seed), 20)
+    say("timing", kernel="K1", B=B, **results["k1_walk"])
     say("timing", kernel="K1", B=Bt, ms=f"{k1_t:.4f}")
     say("timing", kernel="K2", B=Bt, ms=f"{k2_t:.4f}")
     mask_cost_njode("timing", "main_path", cfg, leaves, arr_t, h0_t, 20)
@@ -3256,16 +3260,14 @@ HWOF_RV = {"drift": 2.0, "volatility": 3.0, "mean": 1.0, "speed": 2.0,
            "scheme": "euler", "return_vol": True, "v0": 0.5}
 # K1/K2 (with K3) against their plain versions at every shape the sweep's
 # unmasked runs take: (arm, width, B, the plan and rows the rule must take,
-# (SDE model, hyperparameters) of the batch, timed). Timed: the global-plan
-# shapes and the 2-D one; the convergence study's global arms are timed
-# again forced to one row a CTA (20 CTAs at B = 20), the rows a batch-aware
-# rule would take (ROADMAP Queue 2 levers). The resident arms at B = 20
-# (the convergence study's widths 10-80, the GRU-ODE-Bayes comparison's
-# NJODE at 50) are only checked.
+# K2's and, where they differ, K1/K3's, (SDE model, hyperparameters) of the
+# batch, timed). Timed: the global-plan shapes and the 2-D one. The
+# resident arms at B = 20 (the convergence study's widths 10-80, the
+# GRU-ODE-Bayes comparison's NJODE at 50) are only checked.
 BS = ("BlackScholes", {})
-SWEEP_SHAPES = (("sine400", 400, 100, ("global", 4), BS, True),
-                ("conv320", 320, 20, ("global", 8), BS, True),
-                ("conv160", 160, 20, ("global", 16), BS, True),
+SWEEP_SHAPES = (("sine400", 400, 100, ("global", 4, 1), BS, True),
+                ("conv320", 320, 20, ("global", 8, 1), BS, True),
+                ("conv160", 160, 20, ("global", 16, 2), BS, True),
                 ("combined100", 100, 100, ("resident", 1), BS, True),
                 ("hwof_rv50", 50, 100, ("resident", 1),
                  ("HestonWOFeller", HWOF_RV), True),
@@ -3435,6 +3437,40 @@ def _sweep_run(results, tag, kind, p, data, models, draw):
     return counts
 
 
+def _global_rows_check(arm, cfg, model, batch, rows):
+    """K1 ('prng') and K3 of the global plan at the rows its forward rule
+    takes against the plan forced at ``rows`` (K2's): the histories bit
+    for bit (a row's sums run in one order at any rows), the losses (the
+    per-CTA sums taken over other CTAs) at LOSS_TOL."""
+    import torch
+
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    leaves = [p.detach() for p in fs.flat_leaves(model)]
+    arrays = fs.batch_arrays(batch)
+    with torch.no_grad():
+        h0 = fs.t0_state(model, batch)
+    seed = torch.tensor([20261019], dtype=torch.int64, device=h0.device)
+    out = []
+    for plan in (None, ("global", rows)):
+        sp, s3 = fs.Spec(cfg, "prng", plan), fs.Spec(cfg, "input", plan)
+        lk, hk = fs.scan_fwd_cuda(sp, leaves, arrays, 0.5, h0, True, None,
+                                  seed)
+        l3, _ = fs.scan_fwd_cuda(s3, leaves, arrays, 0.5, h0, False,
+                                 want_hists=False)
+        out.append((lk, hk, l3))
+    (la, ha, a3), (lb, hb, b3) = out
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(ha, hb)):
+        raise AssertionError(f"sweep {arm}: K1's histories at the rule's "
+                             f"rows differ from those at {rows}")
+    e1 = check_close(f"sweep {arm} K1 loss", la, lb, LOSS_TOL)
+    e3 = check_close(f"sweep {arm} K3 loss", a3, b3, LOSS_TOL)
+    say("sweep", arm=arm, fwd_rows=fs.Spec(cfg).rows_for(
+        arrays[2].shape[1], False), against_rows=rows, hists_bit_equal=True,
+        K1_loss_err=f"{e1:.3e}", K3_loss_err=f"{e3:.3e}")
+
+
 def _sweep_shape_checks(results):
     """K1 and K2 (with K3) against their plain versions in 'input' mode,
     each twice bit for bit, at the North-star tolerances (``SHORT_TOL``),
@@ -3455,9 +3491,13 @@ def _sweep_shape_checks(results):
                                             data=data)
         spec = fs.Spec(cfg)
         if (spec.plan, spec.rows_for(B), spec.rows_for(B, False)) != (
-                plan[0], plan[1], plan[1]):
+                plan[0], plan[1], plan[-1]):
             raise AssertionError(f"sweep {arm}: plan {spec.plan} at "
-                                 f"{spec.rows_for(B)} rows, expected {plan}")
+                                 f"{spec.rows_for(B)} / "
+                                 f"{spec.rows_for(B, False)} rows, expected "
+                                 f"{plan}")
+        if plan[-1] != plan[1]:
+            _global_rows_check(arm, cfg, model, batch, plan[1])
         errs, _, _ = _masked_arm_checks(
             "sweep", cfg, model, batch, ((100, ("input",), SHORT_TOL),), gen,
             arm=arm, D=cfg.input_size)
@@ -3468,11 +3508,6 @@ def _sweep_shape_checks(results):
         ms, bd, K, Bt, spec_p = _full_grid_times(cfg, model, batch, 10)
         _say_times("sweep", arm, spec_p, ms, bd, K, Bt)
         check_waves("sweep", arm, cfg, B)
-        if arm.startswith("conv"):
-            ms, bd, K, Bt, spec_p = _full_grid_times(cfg, model, batch, 10,
-                                                     plan=("global", 1))
-            _say_times("sweep", arm + "_forced_1_row", spec_p, ms, bd, K,
-                       Bt)
     say("sweep", shape_errs=json.dumps(worst).replace(" ", ""))
     results["sweep_errs"] = worst
 
@@ -3503,7 +3538,7 @@ def phase_sweep(results):
 
 # the groups phase: the member axis checked at E = 3, timed at E = 5
 GROUP_CHECK_E, GROUP_TIME_E = 3, 5
-GROUP_K_PLAIN = 50         # the steps each member check holds to the plain
+GROUP_K_PLAIN = 25         # the steps each member check holds to the plain
 GROUP_CONV_REPEATS, GROUP_CLIMATE_FOLDS, GROUP_PHYS_REPEATS = 5, 2, 2
 
 
@@ -3566,6 +3601,12 @@ def _member_check(arm, cfg, models, batches, gen, tol=SHORT_TOL,
             gk, dk = fs.scan_bwd_members_cuda(spec, leaves, arrays, 0.5,
                                               True, hk, ones, u, seed)
             outs.append([lk, *hk, *gk, dk])
+        k1c = fs.make_cfg(spec, K, B, True, 0.5, bwd=False, E=E)
+        walk = k1_probe_check(f"groups {arm}", spec, k1c)
+        if arm == "main" and walk["threads"] != 128:
+            raise AssertionError(f"groups main: K1's member launch ran "
+                                 f"{walk['threads']} threads a CTA, not "
+                                 "128")
         key = fs._launch_key(spec)
         if (fs.LAUNCHES["njode_scan_fwd_members" + key],
                 fs.LAUNCHES["njode_scan_bwd_members" + key]) != (2, 2):
@@ -3618,11 +3659,30 @@ def _member_check(arm, cfg, models, batches, gen, tol=SHORT_TOL,
         errs["K2"] = max(errs["K2"], e2, ed)
         say("groups", check=arm, E=E, B=B, K=K, K_plain=K_plain or K,
             mode=mode, plan=spec.plan, rows=spec.rows_for(B),
+            K1_threads=walk["threads"], K1_walk=walk["walk"],
+            K1_phases=walk["phases_per_step"],
             bit_equal_to_solo=True, bitwise_repeat=True,
             K1_loss_err=f"{e1:.3e}", K1_hist_err=f"{eh:.3e}",
             K2_grad_err=f"{e2:.3e}", K2_dh0_err=f"{ed:.3e}",
             plain_fwd_ms=f"{plain_fwd:.1f}", plain_bwd_ms=f"{plain_bwd:.1f}")
     return errs
+
+
+def k1_probe_check(phase, spec, c):
+    """K1's probe of its last launch (``fs.k1_probe``: what CTA 0 wrote of
+    itself, its walk, threads a CTA and, in the role walk, the phases its
+    middle step ended), held against the launch's config ``c`` and the
+    spec's walk (``Spec.k1_phases``); returns the probe."""
+    from njode_tpu_torch.ops import fused_scan as fs
+
+    got = fs.k1_probe()
+    walk = spec.k1_phases(c.rows) or ("global", None)
+    want = {"walk": walk[0], "threads": c.threads,
+            "phases_per_step": walk[1] if walk[0] == "roles" else None}
+    if got != want:
+        raise AssertionError(f"{phase}: K1's probe {got}, its config "
+                             f"{want}")
+    return got
 
 
 def _member_times(arm, cfg, models, batches, reps, plain=False):
@@ -3658,18 +3718,23 @@ def _member_times(arm, cfg, models, batches, reps, plain=False):
             fs.scan_bwd_cuda(spec, lv, arr, 0.5, True, hs[e], ones[e], None,
                              seed[e:e + 1])
 
+    k1c = fs.make_cfg(spec, K, B, True, 0.5, bwd=False, E=E)
     t = {"K1": cuda_ms(lambda: fs.scan_fwd_members_cuda(
-            spec, leaves, arrays, 0.5, h0, True, None, seed), reps, 1),
-         "K2": cuda_ms(lambda: fs.scan_bwd_members_cuda(
-            spec, leaves, arrays, 0.5, True, hk, ones, None, seed), reps, 1),
-         "K1_solo": cuda_ms(solo_fwd, reps, 1),
-         "K2_solo": cuda_ms(solo_bwd, reps, 1)}
+            spec, leaves, arrays, 0.5, h0, True, None, seed), reps, 1)}
+    walk = k1_probe_check(f"groups {arm}", spec, k1c)
+    t |= {"K2": cuda_ms(lambda: fs.scan_bwd_members_cuda(
+              spec, leaves, arrays, 0.5, True, hk, ones, None, seed), reps,
+              1),
+          "K1_solo": cuda_ms(solo_fwd, reps, 1),
+          "K2_solo": cuda_ms(solo_bwd, reps, 1)}
     bd = _scan_bounds(spec, K, B)
     out = {"E": E, "B": B, "K": K, "spec": spec}
     for k in ("K1", "K2"):
         bms = E * bd[k][0]
         out[k] = dict(ms=t[k], solo_x_E_ms=t[k + "_solo"], bound_ms=bms,
                       bound_by=bd[k][1])
+        if k == "K1":
+            out[k].update(walk)
         say("groups", timing=arm, kernel=k + "_members", E=E, B=B, K=K,
             plan=spec.plan, rows=spec.rows_for(B, k == "K2"),
             ctas=E * -(-B // spec.rows_for(B, k == "K2")),
@@ -3678,7 +3743,10 @@ def _member_times(arm, cfg, models, batches, reps, plain=False):
             solo_ms=f"{t[k + '_solo'] / E:.4f}",
             speedup=f"{t[k + '_solo'] / t[k]:.3f}",
             bound_ms=f"{bms:.6f}", bound_by=bd[k][1],
-            roofline_share=f"{bms / t[k]:.2e}")
+            roofline_share=f"{bms / t[k]:.2e}",
+            **({"K1_threads": walk["threads"], "K1_walk": walk["walk"],
+                "K1_phases": walk["phases_per_step"]}
+               if k == "K1" else {}))
     if plain:
         (_, hp), out["K1"]["plain_ms"] = timed(
             lambda: fs.scan_fwd_members_plain(spec, leaves, arrays, 0.5, h0,
@@ -5476,7 +5544,8 @@ def kernels_line(results):
                     "replaces": replaces, "launches": launches,
                     "max_abs_err": err, "ms": ms,
                     "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                    "library_ms": results["library_ms"].get(key)})
+                    "library_ms": results["library_ms"].get(key),
+                    **(results["k1_walk"] if key == "K1" else {})})
     # K2's stages at the main path (B = 200; device ms a call), launches
     # from the main path's runs (trainer, chunk, bench: one a chunk each)
     ks = results["k2_stages"]
@@ -5617,7 +5686,10 @@ def kernels_line(results):
                     "max_abs_err": g["errs"][key], "ms": gm[key]["ms"],
                     "plain_ms": gm[key]["plain_ms"],
                     "bound_ms": gm[key]["bound_ms"],
-                    "bound_by": gm[key]["bound_by"], "library_ms": None})
+                    "bound_by": gm[key]["bound_by"], "library_ms": None,
+                    **({k: gm["K1"][k] for k in
+                        ("threads", "walk", "phases_per_step")}
+                       if key == "K1" else {})})
     r = g["reduce"]
     out.append({"name": "reduce_partials_members", "route": "cuda",
                 "source": src, "replaces": "njode_tpu/ops/fused_scan.py:522",

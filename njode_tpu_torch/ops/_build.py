@@ -168,6 +168,8 @@ def _declare(name, lib):
         lib.njode_scan_occupancy.restype = I
         lib.njode_phase_clock.argtypes = [P, P]
         lib.njode_phase_clock.restype = I
+        lib.njode_k1_probe.argtypes = [P]
+        lib.njode_k1_probe.restype = I
     elif name == "fused_gob":
         lib.gob_error_string.argtypes = [I]
         lib.gob_error_string.restype = ctypes.c_char_p

@@ -43,9 +43,11 @@
 // run about 19 barriers a K1 step and 32 a K2 step. The resident plan
 // takes one row a CTA at the training batches (Spec.rows_for: the
 // fewest rows at which every CTA is resident at once, CTAS_PER_SM at most)
-// and fuses phases ("the resident plan", below): 7 a K1 step, 7 a step of
-// K2's chain on the main path. Splitting a product over lanes would part
-// the two plans' bits; it is later work for both plans (ROADMAP).
+// and fuses phases ("the resident plan", below): 7 a step of K2's chain on
+// the main path; K1/K3 at one row a CTA walk a role program (the role
+// walk, below: 3 phases a step on the main path, the stacked readout of a
+// step in the next step's phases). Splitting a product over lanes would
+// part the two plans' bits; it is later work for both plans (ROADMAP).
 //
 // Masked branch (c.masked). The pre-jump readout imputes the unobserved
 // coordinates, X_imp = X*M + (1-M)*y_bj, and the encoder reads
@@ -249,7 +251,8 @@ struct ScanCfg {
   int o_gsc, o_ring;           // global plan: GRU gate sums, weight ring
   int o_tdt, o_le;             // resident plan: the io set's t and dt, the
                                // loss's error terms
-  int o_mw;                    // the mask words (two sets resident, one global)
+  int o_mw;                    // the mask words (two sets resident, one
+                               // global; three in K1's role walk)
   int o_lay;                   // the layer records (LayerRec)
   int nw, lg_nw;               // mask words of a row and slot, ceil(Wmax /
                                // 32), and log2 of the power of two >= nw
@@ -257,6 +260,27 @@ struct ScanCfg {
                                // with the GRU jump): none drawn
   MLPDesc ode, enc, ro, ro2;   // ro2: the masked branch's post-jump pass
 };
+
+// K1/K3's call: the kernels' config, and what only the host reads (the
+// kernels take ScanCfg alone, so the role walk adds nothing to the item
+// loop's parameter block): the threads of a CTA (256, or 128 in the role
+// walk where a member launch overflows a wave of two an SM) and whether
+// the launch takes the role walk (role_scan_fwd)
+struct FwdCfg {
+  ScanCfg c;
+  int threads, roles;
+};
+
+// the role walk's head in the layer table (RHEAD ints at tab_leaves +
+// n_leaves + 1, after the leaves' offsets; its program after it): phases
+// of a step, virtual threads of a phase, groups of a phase's table, the
+// floats between the readout state's two copies, and the offsets of the
+// readout's X and obs, of the obs its loss term takes and of the
+// program's copy in shared memory
+struct RoleCfg {
+  int rph, rv, rg, rs_stride, o_rX, o_robs, o_lo, o_rp;
+};
+#define RHEAD 8
 
 // layer l of net m: its record in the CTA's copy of the table
 __device__ __forceinline__ const LayerRec& layer(const ScanCfg& c,
@@ -372,6 +396,29 @@ __device__ __noinline__ void fill_words(MaskCtx m, uint32_t* words, int k,
       word |= word_quad(m, k, a, 8 * a.w + j) << (4 * j);
     words[a.at] = word;
   }
+}
+
+// K1's role walk (role_scan_fwd): word e >> 3 of step k's set at `words`
+// by eight lanes, a draw each, this thread being lane e (its low three
+// bits those of threadIdx.x), of `take` words; or word w by this thread
+// alone, its eight draws
+__device__ __noinline__ void fill_lane_at(MaskCtx m, uint32_t* words, int k,
+                                          int e, int take) {
+  WordAt a;
+  if (e >= 8 * take || !word_at(m, 1, e >> 3, a)) return;
+  const uint32_t word = lanes_word(word_quad(m, k, a, 8 * a.w + (e & 7)));
+  if ((e & 7) == 0) words[a.at] = word;
+}
+
+__device__ __noinline__ void fill_word_at(MaskCtx m, uint32_t* words, int k,
+                                          int w) {
+  WordAt a;
+  if (!word_at(m, 1, w, a)) return;
+  uint32_t word = 0u;
+#pragma unroll 4
+  for (int j = 0; j < 8; ++j)
+    word |= word_quad(m, k, a, 8 * a.w + j) << (4 * j);
+  words[a.at] = word;
 }
 
 // A phase's n items (item(idx), in passes of the CTA's threads), then
@@ -1184,21 +1231,24 @@ __device__ __forceinline__ void row_errors(const ScanCfg& c,
 //     phase of the step before the one that reads them, and the ODE's and
 //     the jump's inputs of that step (tanh of the carries, the time
 //     features, tanh X) are built in the last phase of the step before.
-// So a K1 step on the unmasked encoder jump runs 7 phases (a layer a
-// phase, activations apart: about 19), K2 13 (about 32); masked 13 and
-// 25, with the GRU jump 8 and 15. Each output keeps its sum and the expressions around it,
-// so at one R the resident and the global plan give the same bits.
+// So a K1 step on the unmasked encoder jump runs 7 phases in this item
+// loop (a layer a phase, activations apart: about 19), K2 13 (about 32);
+// masked 13 and 25, with the GRU jump 8 and 15; K1/K3 at one row a CTA
+// take the role walk instead where the config has a role program
+// (role_scan_fwd, unmasked: 3, and 4 with the GRU jump). Each output keeps
+// its sum and the expressions around it, so at one R the resident and the
+// global plan give the same bits.
 
 // The end of a phase: a barrier. Built with -DNJODE_PHASE_CLOCK
-// (ab_scan_kernels.py's `phases`), thread 0 of CTA 0 also records the SM's
-// clock after it, over one step (the middle one) of each launch, for
-// njode_phase_clock to read.
+// (ab_scan_kernels.py's `phases`), thread 0 of CTA 0 (of member 0) also
+// records the SM's clock after it, over one step (the middle one) of each
+// launch, for njode_phase_clock to read.
 #ifdef NJODE_PHASE_CLOCK
 __device__ long long g_phase_clk[256];
 __device__ int g_phase_n, g_phase_on;
 
 __device__ __forceinline__ void phase_clock_step(int k, int K) {
-  if (threadIdx.x == 0 && blockIdx.x == 0) {
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0) {
     g_phase_on = k == K / 2;
     if (g_phase_on) {
       g_phase_n = 1;
@@ -1209,7 +1259,8 @@ __device__ __forceinline__ void phase_clock_step(int k, int K) {
 
 __device__ __forceinline__ void phase_end() {
   __syncthreads();
-  if (threadIdx.x == 0 && blockIdx.x == 0 && g_phase_on && g_phase_n < 256)
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 && g_phase_on
+      && g_phase_n < 256)
     g_phase_clk[g_phase_n++] = clock64();
 }
 #else
@@ -1313,7 +1364,43 @@ __device__ __forceinline__ float lin_out(const Lin& L, int r, int j) {
                 L.b ? L.b + j : nullptr);
 }
 
-// outputs j of row r of two Linears, the chains side by side
+// two dot products sum_i xa[i] wa[i] (na links) and sum_i xb[i] wb[i] (nb
+// links), the chains side by side, each then + its bias where not null
+__device__ __forceinline__ void dot_up2(const float* xa, const float* wa,
+                                        int na, const float* ba,
+                                        const float* xb, const float* wb,
+                                        int nb, const float* bb, float& fa,
+                                        float& fb) {
+  const int n = min(na, nb);
+  float a = 0.f, b = 0.f;
+#pragma unroll 8
+  for (int i = 0; i < n; ++i) {
+    a = fmaf(xa[i], wa[i], a);
+    b = fmaf(xb[i], wb[i], b);
+  }
+  for (int i = n; i < na; ++i) a = fmaf(xa[i], wa[i], a);
+  for (int i = n; i < nb; ++i) b = fmaf(xb[i], wb[i], b);
+  fa = ba ? a + *ba : a;
+  fb = bb ? b + *bb : b;
+}
+
+// the same row of weights w against two inputs, the chains side by side
+__device__ __forceinline__ void dot_rows2(const float* xa, const float* xb,
+                                          const float* w, int n,
+                                          const float* bias, float& fa,
+                                          float& fb) {
+  float a = 0.f, b = 0.f;
+#pragma unroll 8
+  for (int i = 0; i < n; ++i) {
+    a = fmaf(xa[i], w[i], a);
+    b = fmaf(xb[i], w[i], b);
+  }
+  fa = bias ? a + *bias : a;
+  fb = bias ? b + *bias : b;
+}
+
+// outputs j of row r of two Linears, the chains side by side (dot_up2's
+// chains, written out: the item loop's code stays as it was)
 __device__ __forceinline__ void lin_out2(const Lin& A, const Lin& B, int r,
                                          int j, float& fa, float& fb) {
   const float* xa = A.x + r * A.in;
@@ -1334,6 +1421,7 @@ __device__ __forceinline__ void lin_out2(const Lin& A, const Lin& B, int r,
 }
 
 // output j of rows ra and rb of a Linear, the chains side by side
+// (dot_rows2's, written out)
 __device__ __forceinline__ void lin_out_rows2(const Lin& L, int ra, int rb,
                                               int j, float& fa, float& fb) {
   const float* xa = L.x + ra * L.in;
@@ -2041,6 +2129,394 @@ __device__ void res_scan_fwd(const ScanCfg& c, const int* tab, float* sm,
   }
 }
 
+// ------------------------------------------------- K1's role walk (R = 1)
+//
+// K1/K3 at one row a CTA, where Spec.role_program gives the config a role
+// program (else res_scan_fwd's item loop). What held the item loop back:
+// every phase rebuilt each item's Linear from its layer record, found its
+// (row, output) by a division and its mask bit through the stacked rows'
+// slots; two nets' items shared a warp, which then ran both chains one
+// after the other; and the stacked readout and the carries sat on the
+// recurrence, between one step's jump and the next step's ODE net, though
+// unmasked no carry reads the readout. The host now resolves every role
+// before the walk: a phase is a table of groups (a Linear of a net, or a
+// fused last layer: the Euler step and the jump, the GRU, the readout's
+// last layer with the loss terms, the carries, the loss sum, the mask
+// words of the next step), each starting at a warp boundary of the
+// phase's rv virtual threads, and a 16-bit role word a virtual thread
+// (group, stacked row, output), so inside the walk a thread reads its
+// word and its group's addresses and neither divides nor reads a layer
+// record. Unmasked (the encoder or the GRU jump) the stacked readout of
+// step k runs in step k + 1's phases on the other copy of the readout
+// state (rs_stride floats apart: h1, h2, tanh of both, the saved
+// activations, X and obs), and its loss terms are summed in step order
+// into the row's loss two steps later (RLAG): 3 phases a step on the main
+// path (from 7), 4 with the GRU jump (from 8). Masked configs keep the
+// item loop: their post-jump prediction is the next last_X, so the
+// readouts stay on the recurrence, and a role walk of their 12 phases ran
+// 5 % slower than the item loop's 13 on the H100 (PERF.md §6). Three sets
+// of mask words: a step's, the step before's (its readout), the next
+// step's (filled by the lanes the phases leave). Each output keeps the
+// item loop's FMA chain and expressions, and the loss terms enter the
+// row's loss in step order, so the role walk gives the item loop's bits.
+// The virtual threads run in passes of the CTA's (256, or 128 where a
+// member launch overflows a wave), so the arithmetic does not depend on
+// the thread count. The walk's own sizes and offsets (RoleCfg) sit at the
+// head of its program in the layer table, not in ScanCfg.
+
+#define RGI 16                 // ints of a role group (Spec.role_program)
+#define RLAG 2                 // steps a step's loss sum lags it
+enum { RK_HID = 1, RK_EJ, RK_EU, RK_GRU, RK_ROL, RK_CAR, RK_ACC, RK_FILL };
+
+// the walk's state at step k: the offsets of the address modes (none, the
+// step's io set, the readout state of the step before, of the step), the
+// mask sets, which groups run ('rec' k < K, 'prev' 0 < k <= K, 'acc' k >=
+// RLAG), the io sets, where the carries' histories of step k + 1 go, and
+// the readout state's X, obs and loss obs (RoleCfg's)
+struct RStep {
+  int k;
+  int p_io, p_prev, p_cur;     // the offsets of modes 1-3 (mode 0: none)
+  int o_rX, o_robs, o_lo;
+  const uint32_t* mcur;
+  const uint32_t* mprev;
+  uint32_t* mnext;
+  bool rec, prv, acc;
+  IO cu, nx;
+  bool hist;
+  size_t kb;                   // (k + 1) * B + row0
+
+  // the offset of address mode m, by selects (no indexed local array)
+  __device__ __forceinline__ int par(int m) const {
+    return m == 1 ? p_io : m == 2 ? p_prev : m == 3 ? p_cur : 0;
+  }
+  // whether groups that run `when` (0 'rec', 1 'prev', 2 'acc') run
+  __device__ __forceinline__ bool on(int when) const {
+    return when == 0 ? rec : when == 1 ? prv : acc;
+  }
+};
+
+__device__ __forceinline__ const float* rbias(const float* sm, int off,
+                                              int j) {
+  return off >= 0 ? sm + off + j : nullptr;
+}
+
+// h after the jump, h2 of unit j, into the next step's carries: h, its
+// tanh in the ODE net's input, its history
+__device__ __forceinline__ void role_carry_h(const ScanCfg& c,
+                                             const RStep& st, int j, float b,
+                                             float tb, float* hh) {
+  st.nx.h[j] = b;
+  st.nx.in_ode[c.D + j] = tb;
+  if (st.hist) hh[st.kb * c.H + j] = b;
+}
+
+// a hidden layer's output j of stacked row r: the pre-activation, then the
+// activation and its dropout (hidden_item)
+__device__ __forceinline__ void role_hid(const ScanCfg& c, float* sm,
+                                         const RStep& st, const int* g,
+                                         int r, int j, const MaskCtx& mc) {
+  const int m = g[1], in = g[5], out = g[6];
+  bool kp = true;
+  if (mc.mode) {
+    const uint32_t* ms = (m & 3) == 1 ? st.mprev : st.mcur;
+    const int slot = g[10] + r * g[11];
+    kp = (ms[slot * c.nw + (j >> 5)] >> (j & 31)) & 1u;
+  }
+  const float v = dot_up(sm + g[2] + st.par((m >> 2) & 3) + r * in,
+                         sm + g[3] + j * in, in, rbias(sm, g[4], j));
+  const int o = st.par((m >> 4) & 3) + r * out + j;
+  sm[g[7] + o] = v;
+  float a = act_f(g[9], v);
+  if (mc.mode) a = kp ? a / mc.keep : 0.f;
+  sm[g[8] + o] = a;
+}
+
+// the ODE net's and the encoder's last layers, the Euler step and the jump
+// for unit j (res_step_forward's unmasked encoder phase), and h2 into the
+// next step's carries
+__device__ __forceinline__ void role_ej(const ScanCfg& c, float* sm,
+                                        const RStep& st, const int* g, int j,
+                                        float* hh) {
+  const int m = g[1], H = c.H;
+  float f, e;
+  dot_up2(sm + g[2] + st.par((m >> 2) & 3), sm + g[3] + j * g[5], g[5],
+          rbias(sm, g[4], j), sm + g[12] + st.par((m >> 6) & 3),
+          sm + g[13] + j * g[15], g[15], rbias(sm, g[14], j), f, e);
+  const IO& cu = st.cu;
+  const float a = cu.h[j] + cu.tdt[1] * f;
+  const float he = residual(c.enc_case, c.enc_mult, cu.X, c.D, j) + e;
+  const float o = cu.obs[0];
+  const float b = o * he + (1.f - o) * a;
+  const int rs = st.par((m >> 4) & 3);
+  sm[c.o_h1 + rs + j] = a;
+  sm[c.o_h2 + rs + j] = b;
+  sm[c.o_in_ro + rs + j] = tanhf(a);
+  const float tb = tanhf(b);
+  sm[c.o_in_ro + rs + H + j] = tb;
+  role_carry_h(c, st, j, b, tb, hh);
+}
+
+// the ODE net's last layer and the Euler step for unit j: h1, tanh h1
+__device__ __forceinline__ void role_eu(const ScanCfg& c, float* sm,
+                                        const RStep& st, const int* g,
+                                        int j) {
+  const int m = g[1];
+  const float f = dot_up(sm + g[2] + st.par((m >> 2) & 3),
+                         sm + g[3] + j * g[5], g[5], rbias(sm, g[4], j));
+  const float a = st.cu.h[j] + st.cu.tdt[1] * f;
+  const int rs = st.par((m >> 4) & 3);
+  sm[c.o_h1 + rs + j] = a;
+  sm[c.o_in_ro + rs + j] = tanhf(a);
+}
+
+// the GRU jump for unit j (res_gru_fwd's item, its gates unsaved: only K2
+// reads them), and h2 into the next step's carries
+__device__ __forceinline__ void role_gru(const ScanCfg& c, float* sm,
+                                         const RStep& st, const int* g,
+                                         int j, float* hh) {
+  const int D = c.D, H = c.H;
+  const int rs = st.par((g[1] >> 4) & 3);
+  const float* sw = sm + c.o_w;
+  const float* x = st.cu.tX;
+  float* in_ro = sm + c.o_in_ro + rs;
+  const float* ht = in_ro;
+  float gi[3], gh[3];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const float* wi = sw + c.gru_wih + (size_t)(q * H + j) * D;
+    const float* wh = sw + c.gru_whh + (size_t)(q * H + j) * H;
+    float a = 0.f, b = 0.f;
+    for (int i = 0; i < D; ++i) a = fmaf(x[i], wi[i], a);
+    for (int i = 0; i < H; ++i) b = fmaf(ht[i], wh[i], b);
+    if (c.gru_bih >= 0) {
+      a += sw[c.gru_bih + q * H + j];
+      b += sw[c.gru_bhh + q * H + j];
+    }
+    gi[q] = a;
+    gh[q] = b;
+  }
+  float rg = sigmoid_f(gi[0] + gh[0]);
+  float z = sigmoid_f(gi[1] + gh[1]);
+  float n = tanhf(gi[2] + rg * gh[2]);
+  float hp = (1.f - z) * n + z * ht[j];
+  float o = st.cu.obs[0];
+  float b2 = o * hp + (1.f - o) * sm[c.o_h1 + rs + j];
+  sm[c.o_h2 + rs + j] = b2;
+  const float tb = tanhf(b2);
+  in_ro[H + j] = tb;
+  role_carry_h(c, st, j, b2, tb, hh);
+}
+
+// the loss's error terms of output o from y_bj's and y's readout outputs
+// vb and v (loss_terms) into the readout state at rs, with the X of their
+// step; at o = 0 the row's obs for the loss sum
+__device__ __forceinline__ void role_terms(const ScanCfg& c, float* sm,
+                                           const RStep& st, int rs,
+                                           const float* X, float obs,
+                                           int o, float vb, float v) {
+  const int H = c.H;
+  float t1, t2;
+  out_errors(c,
+             residual(c.ro_case, c.ro_mult, sm + c.o_h1 + rs, H, o) + vb,
+             residual(c.ro_case, c.ro_mult, sm + c.o_h2 + rs, H, o) + v,
+             X[o], 1.f, t1, t2);
+  sm[c.o_le + rs + o] = t1;
+  sm[c.o_le + rs + c.O + o] = t2;
+  if (o == 0) sm[st.o_lo + rs] = obs;
+}
+
+// the stacked readout's last layer of the step before, output o of both
+// rows, and its loss terms (its X and obs saved by the carries in its
+// readout state)
+__device__ __forceinline__ void role_rol(const ScanCfg& c, float* sm,
+                                         const RStep& st, const int* g,
+                                         int o) {
+  const int m = g[1], in = g[5], rs = st.par((m >> 4) & 3);
+  const float* x = sm + g[2] + st.par((m >> 2) & 3);
+  float vb, v;
+  dot_rows2(x, x + in, sm + g[3] + o * in, in, rbias(sm, g[4], o), vb, v);
+  role_terms(c, sm, st, rs, sm + st.o_rX + rs, sm[st.o_robs + rs], o, vb,
+             v);
+}
+
+// the carries that read no net (res_carry's): item 0 tau and the time
+// features of the next step's ODE input, the next D last_X (the
+// observation) and the next D the next step's tanh X; the readout state
+// keeps the step's X and obs for its loss terms
+__device__ __forceinline__ void role_car(const ScanCfg& c, float* sm,
+                                         const RStep& st, const int* g,
+                                         int e, float* lxh, float* tauh) {
+  const int D = c.D, H = c.H, rs = st.par((g[1] >> 4) & 3);
+  const IO& cu = st.cu;
+  const IO& nx = st.nx;
+  if (e == 0) {
+    const float o = cu.obs[0];
+    const float ta = o > 0.f ? cu.tdt[0] : cu.tau[0];
+    nx.tau[0] = ta;
+    const float tdiff = (nx.tdt[0] - nx.tdt[1]) - ta;
+    nx.in_ode[D + H] = ta;
+    nx.in_ode[D + H + 1] = tdiff;
+    if (c.ict) nx.in_ode[D + H + 2] = ta + tdiff;
+    if (st.hist) tauh[st.kb] = ta;
+    sm[st.o_robs + rs] = o;
+    return;
+  }
+  e -= 1;
+  if (e < D) {
+    float v = cu.lx[e];
+    if (cu.obs[0] > 0.f) v = cu.X[e];
+    nx.lx[e] = v;
+    nx.in_ode[e] = tanhf(v);
+    if (st.hist) lxh[st.kb * D + e] = v;
+    sm[st.o_rX + rs + e] = cu.X[e];
+    return;
+  }
+  e -= D;
+  nx.tX[e] = tanhf(nx.X[e]);
+}
+
+// the row's loss term of the step `lag` before, from its error terms and
+// obs in the readout state at rs (row_sums, res_carry's)
+__device__ __forceinline__ void role_acc(const ScanCfg& c, float* sm,
+                                         const RStep& st, const int* g) {
+  const int rs = st.par((g[1] >> 4) & 3);
+  const float* le = sm + c.o_le + rs;
+  float e1 = 0.f, e2 = 0.f;
+  for (int o = 0; o < c.O; ++o) {
+    e1 += le[o];
+    e2 += le[c.O + o];
+  }
+  float s1, s2, gg;
+  row_norms(c, e1, e2, s1, s2, gg);
+  sm[c.o_lrow] += sm[st.o_lo + rs] * gg * gg / fmaxf(sm[c.o_nobs], 1.f);
+}
+
+// the next step's mask words by the group's g[5] lanes, this thread lane
+// e: eight lanes a word where they hold them all, else a word a lane
+__device__ __forceinline__ void role_fill(const ScanCfg& c, const RStep& st,
+                                          const int* g, int e,
+                                          const MaskCtx& mc) {
+  if (!mc.mode || st.k + 1 >= c.K) return;
+  const int total = c.S << c.lg_nw, lanes = g[5];
+  if (8 * total <= lanes) {
+    fill_lane_at(mc, st.mnext, st.k + 1, e, total);
+  } else {
+    for (int w = e; w < total; w += lanes)
+      fill_word_at(mc, st.mnext, st.k + 1, w);
+  }
+}
+
+// Returns the phases its middle step ended (counted as they end; the
+// probe of K1's launch, njode_k1_probe).
+template <bool WANT_HISTS>
+__device__ int role_scan_fwd(const ScanCfg& c, const int* tab, float* sm,
+                              const float* times, const float* dts,
+                              const float* obs_g, const float* X_g,
+                              const float* M_g, const int8_t* u,
+                              const long long* seed, const float* n_obs,
+                              const float* h0, const float* sx,
+                              float* loss_part, float* hh, float* lxh,
+                              float* tauh) {
+  const int D = c.D, H = c.H, row0 = blockIdx.x;
+  load_weights(c, tab, sm);
+  // the walk's head, then its program: rph group tables, then the role
+  // words
+  const int* head = tab + c.tab_leaves + c.n_leaves + 1;
+  RoleCfg rc;
+  rc.rph = __ldg(head); rc.rv = __ldg(head + 1); rc.rg = __ldg(head + 2);
+  rc.rs_stride = __ldg(head + 3); rc.o_rX = __ldg(head + 4);
+  rc.o_robs = __ldg(head + 5); rc.o_lo = __ldg(head + 6);
+  rc.o_rp = __ldg(head + 7);
+  const int n_rp = rc.rph * (rc.rg * RGI + (rc.rv >> 1));
+  int* rp = reinterpret_cast<int*>(sm + rc.o_rp);
+  for (int i = threadIdx.x; i < n_rp; i += blockDim.x)
+    rp[i] = __ldg(head + RHEAD + i);
+  float* nobs = sm + c.o_nobs;
+  float* lrow = sm + c.o_lrow;
+  const IO s0 = io_set(c, sm, 0);
+  for (int j = threadIdx.x; j < H; j += blockDim.x) {
+    const float v = h0[(size_t)row0 * H + j];
+    s0.h[j] = v;
+    if (WANT_HISTS) hh[(size_t)row0 * H + j] = v;
+  }
+  for (int i = threadIdx.x; i < D; i += blockDim.x) {
+    const float v = sx[(size_t)row0 * D + i];
+    s0.lx[i] = v;
+    if (WANT_HISTS) lxh[(size_t)row0 * D + i] = v;
+  }
+  if (threadIdx.x == 0) {
+    s0.tau[0] = 0.f;
+    lrow[0] = 0.f;
+    nobs[0] = n_obs[row0];
+    if (WANT_HISTS) tauh[row0] = 0.f;
+  }
+  stage_inputs(c, s0, 0, row0, 1, 1, times, dts, obs_g, X_g, M_g, nullptr,
+               nullptr, nullptr);
+  cp_async_wait_all();
+  phase_end();
+  MaskCtx mc = make_mask_ctx(c, sm, u, seed, row0, 1);
+  uint32_t* mw = reinterpret_cast<uint32_t*>(sm + c.o_mw);
+  const int set_w = c.S * c.nw;                // words of a set
+  if (mc.mode)                                 // step 0's words: set 0
+    for (int w = threadIdx.x; w < (c.S << c.lg_nw); w += blockDim.x)
+      fill_word_at(mc, mw, 0, w);
+  for (int e = threadIdx.x; e < n_build(c, 1); e += blockDim.x)
+    build_item(c, s0, 1, e);
+  phase_end();
+  const uint32_t* words =
+      reinterpret_cast<const uint32_t*>(rp + rc.rph * rc.rg * RGI);
+  int n_mid = 0;                               // the middle step's phases
+  for (int k = 0; k < c.K + RLAG; ++k) {
+    phase_clock_step(k, c.K);
+    RStep st;
+    st.k = k;
+    st.cu = io_set(c, sm, k);
+    st.nx = io_set(c, sm, k + 1);
+    st.p_io = (k & 1) * c.io_stride;
+    st.p_prev = ((k + 1) & 1) * rc.rs_stride;
+    st.p_cur = (k & 1) * rc.rs_stride;
+    st.o_rX = rc.o_rX;
+    st.o_robs = rc.o_robs;
+    st.o_lo = rc.o_lo;
+    st.mcur = mw + (k % 3) * set_w;
+    st.mprev = mw + ((k + 2) % 3) * set_w;
+    st.mnext = mw + ((k + 1) % 3) * set_w;
+    st.rec = k < c.K;
+    st.prv = k >= 1 && k <= c.K;
+    st.acc = k >= RLAG;
+    st.hist = WANT_HISTS && k + 1 < c.K;
+    st.kb = (size_t)(k + 1) * c.B + row0;
+    if (k + 1 < c.K)
+      stage_inputs(c, st.nx, k + 1, row0, 1, 1, times, dts, obs_g, X_g, M_g,
+                   nullptr, nullptr, nullptr);
+    for (int p = 0; p < rc.rph; ++p) {
+      const int* gt = rp + p * rc.rg * RGI;
+      const uint32_t* rw = words + p * (rc.rv >> 1);
+      for (int v = threadIdx.x; v < rc.rv; v += blockDim.x) {
+        const uint32_t w = (rw[v >> 1] >> ((v & 1) << 4)) & 0xFFFFu;
+        if (!(w & 7)) continue;
+        const int* g = gt + ((w & 7) - 1) * RGI;
+        if (!st.on(g[1] & 3)) continue;
+        const int r = (w >> 3) & 1, j = (int)(w >> 4), kind = g[0];
+        // the hidden layers first: most of a step's roles
+        if (kind == RK_HID) role_hid(c, sm, st, g, r, j, mc);
+        else if (kind == RK_EJ) role_ej(c, sm, st, g, j, hh);
+        else if (kind == RK_EU) role_eu(c, sm, st, g, j);
+        else if (kind == RK_GRU) role_gru(c, sm, st, g, j, hh);
+        else if (kind == RK_ROL) role_rol(c, sm, st, g, j);
+        else if (kind == RK_CAR) role_car(c, sm, st, g, j, lxh, tauh);
+        else if (kind == RK_ACC) role_acc(c, sm, st, g);
+        else if (kind == RK_FILL) role_fill(c, st, g, j, mc);
+      }
+      if (p == rc.rph - 2) cp_async_wait_all();  // the next step's inputs
+      phase_end();
+      n_mid += k == c.K / 2;
+    }
+  }
+  if (threadIdx.x == 0) loss_part[blockIdx.x] = 0.f + lrow[0];
+  return n_mid;
+}
+
 // K2 stage (b), the chain, in the resident plan: the steps k1 - 1 .. k0 of
 // the CTA's R rows, backwards. A step's forward values come from stage
 // (a)'s workspace records: get_fields copies them (fld) with cp.async into
@@ -2299,8 +2775,16 @@ njode_wgrad_kernel(const float* __restrict__ ws, int rec, int B,
            partials + (size_t)(s0 + s) * n_params, true, false);
 }
 
-// K1 (WANT_HISTS) and K3: the resident plan's body above, or (GW) the
-// global plan's
+// K1's probe: thread 0 of CTA 0 (of member 0) of each K1 launch writes
+// its walk (0 the item loop, 1 the role walk, 2 the global plan), the
+// threads of its CTA and the phases its middle step ended (counted in the
+// role walk; -1 where not counted), for njode_k1_probe to read
+__device__ int g_k1_probe[3];
+
+// K1 (WANT_HISTS) and K3: the resident plan's bodies above (RT < 0: the
+// role walk at one row a CTA, an instantiation of its own, so neither
+// body's code or registers weigh on the other's; else the item loop), or
+// (GW) the global plan's
 template <bool WANT_HISTS, bool GW, int RT>
 __global__ void __launch_bounds__(NTHREADS, GW ? 1 : CTAS_PER_SM)
 njode_scan_fwd_kernel(ScanCfg c, const int* __restrict__ tab,
@@ -2334,7 +2818,12 @@ njode_scan_fwd_kernel(ScanCfg c, const int* __restrict__ tab,
     wg = member_of(wg, c.wg_stride);
   }
   load_tables(c, tab, sm);
-  if constexpr (!GW) {
+  int n_mid = -1;
+  if constexpr (RT < 0) {
+    n_mid = role_scan_fwd<WANT_HISTS>(c, tab, sm, times, dts, obs_g, X_g,
+                                      M_g, u, seed, n_obs, h0, sx,
+                                      loss_part, hh, lxh, tauh);
+  } else if constexpr (!GW) {
     res_scan_fwd<WANT_HISTS, RT>(c, tab, sm, times, dts, obs_g, X_g, M_g, u,
                                  seed, n_obs, h0, sx, loss_part, hh, lxh,
                                  tauh);
@@ -2412,6 +2901,11 @@ njode_scan_fwd_kernel(ScanCfg c, const int* __restrict__ tab,
     for (int r = 0; r < nv; ++r) s += lrow[r];
     loss_part[blockIdx.x] = s;
   }
+  }
+  if (WANT_HISTS && threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0) {
+    g_k1_probe[0] = RT < 0 ? 1 : GW ? 2 : 0;
+    g_k1_probe[1] = (int)blockDim.x;
+    g_k1_probe[2] = n_mid;
   }
 }
 
@@ -2692,6 +3186,15 @@ static bool cfg_ok(const ScanCfg* c, const int* tab, const float* wg,
          && (c->plan == 1) == (prog != nullptr);
 }
 
+// K1/K3's threads and role walk: 256 threads, or 128 in the role walk
+// (one row a CTA, the resident plan, unmasked)
+static bool fwd_ok(const FwdCfg* f) {
+  const ScanCfg* c = &f->c;
+  if (f->roles && (c->plan != 0 || c->rows != 1 || c->masked))
+    return false;
+  return f->threads == NTHREADS || (f->threads == 128 && f->roles);
+}
+
 // reduce_partials on the stream, for each of E members
 static cudaError_t launch_reduce(const float* P, int n_parts, int n,
                                  float scale, float* out, cudaStream_t st,
@@ -2703,7 +3206,7 @@ static cudaError_t launch_reduce(const float* P, int n_parts, int n,
 }
 
 template <bool H, bool GW, int RT>
-static cudaError_t launch_fwd(const ScanCfg* c, const int* tab,
+static cudaError_t launch_fwd(const FwdCfg* f, const int* tab,
                               const float* wg, const int* prog,
                               const float* times, const float* dts,
                               const float* obs, const float* X,
@@ -2713,6 +3216,7 @@ static cudaError_t launch_fwd(const ScanCfg* c, const int* tab,
                               float* loss_part, float* hh, float* lxh,
                               float* tauh, cudaStream_t st, int* occ,
                               int E) {
+  const ScanCfg* c = &f->c;
   dim3 grid((c->B + c->rows - 1) / c->rows, E);
   size_t smem = (size_t)c->smem_floats * sizeof(float);
   auto kern = njode_scan_fwd_kernel<H, GW, RT>;
@@ -2720,23 +3224,27 @@ static cudaError_t launch_fwd(const ScanCfg* c, const int* tab,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   if (occ)
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, kern, NTHREADS,
-                                                         smem);
-  kern<<<grid, NTHREADS, smem, st>>>(*c, tab, wg, prog, times, dts, obs, X,
-                                     M, u, seed, n_obs, h0, sx, loss_part,
-                                     hh, lxh, tauh);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, kern,
+                                                         f->threads, smem);
+  kern<<<grid, f->threads, smem, st>>>(*c, tab, wg, prog, times, dts, obs, X,
+                                       M, u, seed, n_obs, h0, sx, loss_part,
+                                       hh, lxh, tauh);
   return cudaGetLastError();
 }
 
 // RT, the rows per CTA as a compile-time constant, so the row loops unroll
 // (read at run time, R slowed the resident K2 by 12 %): MAX_ROWS, and in
 // the resident plan 1 (the rows rule's pick at the training batches), else
-// 0 (read from c.rows)
+// 0 (read from c.rows); -1, the role walk (resident, one row a CTA, a role
+// program)
 template <bool H, bool GW>
-static decltype(&launch_fwd<H, GW, 0>) fwd_for_rows(const ScanCfg* c) {
+static decltype(&launch_fwd<H, GW, 0>) fwd_for_rows(const FwdCfg* f) {
+  const ScanCfg* c = &f->c;
   if (c->rows == MAX_ROWS) return launch_fwd<H, GW, MAX_ROWS>;
-  if constexpr (!GW)
+  if constexpr (!GW) {
+    if (f->roles) return launch_fwd<H, GW, -1>;
     if (c->rows == 1) return launch_fwd<H, GW, 1>;
+  }
   return launch_fwd<H, GW, 0>;
 }
 
@@ -2745,7 +3253,8 @@ static decltype(&launch_fwd<H, GW, 0>) fwd_for_rows(const ScanCfg* c) {
 // stream. tab: the layer table in device memory (LayerRec); wg: the
 // weights packed at pack_off (global plan), prog: the ring's tile program
 // (global plan), else null.
-static int scan_fwd(const ScanCfg* c, int E, const int* tab, const float* wg,
+static int scan_fwd(const FwdCfg* fc, int E, const int* tab,
+                    const float* wg,
                     const int* prog, const float* times, const float* dts,
                     const float* obs, const float* X, const float* M,
                     const int8_t* u, const long long* seed,
@@ -2753,14 +3262,15 @@ static int scan_fwd(const ScanCfg* c, int E, const int* tab, const float* wg,
                     float* loss_part, float* loss, float* hh, float* lxh,
                     float* tauh, int want_hists, float loss_scale,
                     void* stream) {
-  if (!cfg_ok(c, tab, wg, prog) || E < 1 || E > 65535)
+  const ScanCfg* c = &fc->c;
+  if (!cfg_ok(c, tab, wg, prog) || !fwd_ok(fc) || E < 1 || E > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  auto f = want_hists ? (c->plan ? fwd_for_rows<true, true>(c)
-                                 : fwd_for_rows<true, false>(c))
-                      : (c->plan ? fwd_for_rows<false, true>(c)
-                                 : fwd_for_rows<false, false>(c));
-  cudaError_t e = f(c, tab, wg, prog, times, dts, obs, X, M, u, seed, n_obs,
+  auto f = want_hists ? (c->plan ? fwd_for_rows<true, true>(fc)
+                                 : fwd_for_rows<true, false>(fc))
+                      : (c->plan ? fwd_for_rows<false, true>(fc)
+                                 : fwd_for_rows<false, false>(fc));
+  cudaError_t e = f(fc, tab, wg, prog, times, dts, obs, X, M, u, seed, n_obs,
                     h0, sx, loss_part, hh, lxh, tauh, st, nullptr, E);
   if (e != cudaSuccess) return (int)e;
   int n_cta = (c->B + c->rows - 1) / c->rows;
@@ -2768,7 +3278,7 @@ static int scan_fwd(const ScanCfg* c, int E, const int* tab, const float* wg,
 }
 
 // K1 or K3 of one model: loss_part [n_cta], loss [1]
-extern "C" int njode_scan_fwd(const ScanCfg* c, const int* tab,
+extern "C" int njode_scan_fwd(const FwdCfg* c, const int* tab,
                               const float* wg, const int* prog,
                               const float* times, const float* dts,
                               const float* obs, const float* X,
@@ -2788,7 +3298,7 @@ extern "C" int njode_scan_fwd(const ScanCfg* c, const int* tab,
 // (the table's addresses those of the stacked leaves), wg [E, wg_stride],
 // obs/X/M/u/seed/n_obs/h0/sx and the histories with a leading member
 // axis, times/dts shared; loss_part [E, n_cta], loss [E]
-extern "C" int njode_scan_fwd_members(const ScanCfg* c, int n_members,
+extern "C" int njode_scan_fwd_members(const FwdCfg* c, int n_members,
                                       const int* tab, const float* wg,
                                       const int* prog, const float* times,
                                       const float* dts, const float* obs,
@@ -2959,22 +3469,32 @@ extern "C" int njode_scan_bwd_members(const ScanCfg* c, int n_members,
   return scan_bwd(c, n_members, work, g, partials, grads, stream);
 }
 
-// CTAs of the kernel a launch of c takes (kind 0: K1, 1: K3, 2: K2's
-// chain) that one SM holds at once
+// CTAs of the kernel a launch of cfg takes (kind 0: K1, 1: K3, cfg an
+// FwdCfg; 2: K2's chain, cfg a ScanCfg) that one SM holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks
-extern "C" int njode_scan_occupancy(const ScanCfg* c, int kind,
+extern "C" int njode_scan_occupancy(const void* cfg, int kind,
                                     int* blocks) {
-  if (kind == 2)
+  if (kind == 2) {
+    const ScanCfg* c = static_cast<const ScanCfg*>(cfg);
     return (int)(c->plan ? chain_for_rows<true>(c)
                          : chain_for_rows<false>(c))(
         c, nullptr, BwdArgs{}, 0, 0, 0, 0, blocks, 1);
-  auto f = kind == 0 ? (c->plan ? fwd_for_rows<true, true>(c)
-                                : fwd_for_rows<true, false>(c))
-                     : (c->plan ? fwd_for_rows<false, true>(c)
-                                : fwd_for_rows<false, false>(c));
-  return (int)f(c, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+  }
+  const FwdCfg* fc = static_cast<const FwdCfg*>(cfg);
+  const int plan = fc->c.plan;
+  auto f = kind == 0 ? (plan ? fwd_for_rows<true, true>(fc)
+                             : fwd_for_rows<true, false>(fc))
+                     : (plan ? fwd_for_rows<false, true>(fc)
+                             : fwd_for_rows<false, false>(fc));
+  return (int)f(fc, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                 nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                 nullptr, nullptr, nullptr, nullptr, 0, blocks, 1);
+}
+
+// K1's probe of its last launch (g_k1_probe): walk, threads of a CTA and
+// the phases its middle step ended (-1: not counted), into out[3]
+extern "C" int njode_k1_probe(int* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_k1_probe, 3 * sizeof(int));
 }
 
 // the phase clock of the last launch (built with -DNJODE_PHASE_CLOCK, else

@@ -74,6 +74,17 @@ holds a ring of two weight tiles that the kernels fill in the background
 them). Both plans sum in the same order, so at one R they give the same
 bits. ``plan=(name, R)`` forces a plan, for the tests.
 
+K1/K3 at one row a CTA (the resident plan's training batches) take the
+role walk where ``Spec.role_program`` gives the config one (``Spec.roles``:
+unmasked configs; else the item loop): every thread's role in each phase
+of a step (its group: a net's Linear, or a last layer fused with what
+reads it; its stacked row and output) resolved on the host, each net's
+items from a warp boundary, the stacked readout and the loss terms of step
+k in step k + 1's phases, the carries in the last phase (3 phases a step
+on the main path, 4 with the GRU jump). Its CTAs take 128 threads where a
+member launch overflows a wave (``Spec.fwd_threads``), four an SM; the
+arithmetic and so the bits are the item loop's.
+
 The per-layer description of the nets (each Linear's widths, activation,
 offsets and where its activations are saved) and the leaves' offsets and
 device addresses travel in a layer table in device memory
@@ -142,6 +153,21 @@ SMEM_LIMIT = 232448       # bytes of shared memory one CTA may use (H100)
 # the global plan's weight ring (csrc/fused_scan.cu): rows a thread sums,
 # items a thread carries across tiles, threads a CTA, ints a tile
 RB, MAXI, NTHREADS, TILE_INTS = 4, 4, 256, 8
+# K1's role walk at one row a CTA (csrc/fused_scan.cu role_scan_fwd,
+# Spec.role_program): phases of a step at most, groups of a phase (fewer
+# than), ints of a group, virtual threads of a phase at most (256 or 512), the
+# group kinds and the offsets a group's addresses take each step (none,
+# the step's io set, the readout state of the step before, of the step)
+RPH_MAX, RG_MAX, RGI, RV_MAX = 16, 6, 16, 512
+# ints of the role walk's head in the layer table (csrc/fused_scan.cu
+# RoleCfg, Spec.role_head), before its program
+RHEAD = 8
+RK = {k: i + 1 for i, k in enumerate(
+    ("hid", "ej", "eu", "gru", "rol", "car", "acc", "fill"))}
+RM_NONE, RM_IO, RM_PREV, RM_CUR = 0, 1, 2, 3
+# when a group runs: the step's own recurrence, the readout of the step
+# before, the loss sum of the step two before (csrc/fused_scan.cu RLAG)
+RW = {"rec": 0, "prev": 1, "acc": 2}
 
 # launches per kernel; a wrapper adds one where it launches its kernel.
 # K1-K3 count each branch and plan apart ('_rnn': the GRU jump; '_global':
@@ -186,7 +212,10 @@ class Spec:
     ``rows_for(B)``; else 'global' at the most rows that fit; 'global'
     alone where ``output_size != input_size``) or a forced ``(name,
     rows)``, which every launch takes; ``self.plan`` is None when neither
-    plan fits."""
+    plan fits. For the tests, a subclass whose ``_role_groups`` returns
+    None keeps K1/K3 at one row a CTA in the item loop, and ``_threads``
+    (set after construction: 128 or 256) forces the threads a CTA of
+    every K1/K3 launch in the role walk (``fwd_threads``)."""
 
     def __init__(self, cfg, mask_mode: str = "prng", plan=None):
         if mask_mode not in ("input", "prng"):
@@ -263,13 +292,22 @@ class Spec:
         self.lay0 = {"ode": 0, "enc": n_lin[0], "ro": n_lin[0] + n_lin[1]}
         self.n_rec = sum(n_lin)
         self.tab_leaves = LAYER_INTS * self.n_rec
-        self.tab_ptrs = -(-(self.tab_leaves + len(self.leaf_off)) // 2) * 2
-        self.tab_ints = self.tab_ptrs + 2 * len(self.leaf_shapes)
         self._cfgs, self._progs, self._tabs = {}, {}, {}
         self._head = None
         self._build_ws()
         self.forced = plan is not None
         self.plan, self.rows = self._choose_plan(plan)
+        # K1's role walk (role_program), its program after the leaves'
+        # offsets in the layer table, at tab_roles
+        self.roles = self._role_groups()
+        self.rp_ints = self._rp_ints()
+        if self.roles is not None and not self._roles_fit():
+            self.roles, self.rp_ints = None, 0
+        self.tab_roles = self.tab_leaves + len(self.leaf_off)
+        self._threads = None
+        n_roles = RHEAD + self.rp_ints if self.roles is not None else 0
+        self.tab_ptrs = -(-(self.tab_roles + n_roles) // 2) * 2
+        self.tab_ints = self.tab_ptrs + 2 * len(self.leaf_shapes)
 
     def fits(self, plan: str, R: int) -> bool:
         """Whether K1-K3 fit one CTA at R rows in ``plan`` (resident: K1's
@@ -312,11 +350,35 @@ class Spec:
 
     def rows_for(self, B: int, bwd: bool = True) -> int:
         """Rows per CTA of K2 (``bwd``) or K1/K3 at batch B: a forced plan's
-        rows, the global plan's ``rows``, else the fewest of 1, 2, 4, 8,
-        16 (up to ``rows``) at which the launch's ceil(B / R) CTAs are all
-        resident at once on the card's ``N_SM`` SMs, or ``rows`` where
-        none is."""
-        if self.forced or self.plan != "resident":
+        rows; in the resident plan the fewest of 1, 2, 4, 8, 16 (up to
+        ``rows``) at which the launch's ceil(B / R) CTAs are all resident
+        at once on the card's ``N_SM`` SMs, or ``rows`` where none is; in
+        the global plan (one CTA an SM) K2 at ``rows``, and K1/K3 at the
+        fewest rows at which a solo launch's ceil(B / R) CTAs are all
+        resident at once, but at least two where no net is wider than a
+        CTA's ``NTHREADS`` threads, and at ``rows`` where that pick is
+        more than a quarter of ``rows``. Each part is what the H100
+        measured (``ab_scan_kernels.py ROOT TAG grows``, every rows that
+        fit at widths 160, 320, 400 at B = 20-200 and at PhysioNet 200 at
+        B = 50): the rule takes the fastest rows of all 13 arms. Width 160
+        and PhysioNet 200 ran 1.5x faster at two rows than at one; widths
+        320 and 400 at B <= 100 1.1-1.7x faster at one than at two; width
+        400 at B = 200 13 % faster at four than at two. A member launch
+        takes one member's rows, so each member sums in its solo launch's
+        order and gives its bits; its E ceil(B / R) CTAs may then take
+        more than one wave. A row's sums and so the histories keep their
+        bits at any rows."""
+        if self.forced:
+            return self.rows
+        if self.plan == "global":
+            if bwd:
+                return self.rows
+            R = next((R for R in reversed(ROW_CHOICES) if -(-B // R) <= N_SM),
+                     self.rows)
+            if self.buf_w <= NTHREADS:
+                R = max(R, 2)
+            return R if 4 * R <= self.rows else self.rows
+        if self.plan != "resident":
             return self.rows
         for R in reversed(ROW_CHOICES):
             if R > self.rows:
@@ -353,7 +415,7 @@ class Spec:
         return out
 
     def layout(self, R: int = MAX_ROWS, plan: str = "resident",
-               bwd: bool = True):
+               bwd: bool = True, roles: bool = False):
         """Float offsets of every shared-memory region of one CTA with
         ``R`` rows, and the total. ``tX`` holds the encoder's input
         (``tanh X``, or ``[tanh X_imp, M]`` when masked); ``M`` and ``Xi``
@@ -388,7 +450,16 @@ class Spec:
         masked branch without the GRU jump inside ``dB``, whose second
         half its backward never uses), none without dropout; the resident
         plan ends with the layer records ``lay`` (``LAYER_INTS`` ints a
-        Linear), after every region the kernels' phases read."""
+        Linear), after every region the kernels' phases read.
+
+        ``roles`` (K1/K3 at one row a CTA in the role walk,
+        ``role_program``): the step's forward values also hold the
+        readout's inputs of X (``rX``) and obs (``robs``) and the obs its
+        loss term is weighed by (``lo``), and, as the readout runs in the
+        step after its own, a second copy of them all, ``rs2``
+        (``rs_stride`` floats after the first); three sets
+        of mask words (a step's, the step before's, the next one's); the
+        role program ``rp``."""
         R2 = 2 * R
         D, H, O, P = self.D, self.H, self.O, self.n_params
         DM = D if self.masked else 0
@@ -483,10 +554,27 @@ class Spec:
         else:
             take("nobs", R)
             take("lrow", R)
-            fwd_values(("Xi", R * DM))
+            if not roles:
+                fwd_values(("Xi", R * DM))
+            else:
+                # the ODE net's and the encoder's saves, then the readout
+                # state twice
+                take("s_ode", 2 * R * sum(self.ode_w[1:-1]))
+                take("s_enc", 2 * R * sum(self.enc_w[1:-1]))
+                rs0 = n
+                for name, size in (("h1", R * H), ("h2", R * H),
+                                   ("in_ro", R2 * H), ("le", R2 * O),
+                                   ("rX", R * D), ("robs", R), ("lo", R),
+                                   ("s_ro", 2 * R2 * sum(self.ro_w[1:-1]))):
+                    take(name, size)
+                off["s_ro2"] = off["s_ro"] + 2 * R * sum(self.ro_w[1:-1])
+                off["rs2"] = n
+                n += n - rs0
             if self.use_rnn:
                 take("gru", 4 * R * H)
-            take("mw", 2 * self.mask_words(R))
+            take("mw", (3 if roles else 2) * self.mask_words(R))
+            if roles:
+                take("rp", self.rp_ints)
         take("lay", LAYER_INTS * self.n_rec)
         return off, n
 
@@ -566,15 +654,16 @@ class Spec:
         whole = (self._ring_need()[1] + 3) // 4 * 4
         return min(whole, (SMEM_LIMIT // 4 - used) // 2 // 4 * 4)
 
-    def tile_program(self):
-        """The global plan's ring tiles of one step, ``TILE_INTS`` ints
-        each (csrc/fused_scan.cu ``Ring``), and how many belong to the
-        forward and to K2's backward. A forward product takes column
-        blocks of W (as many columns as fit beside the bias, a multiple of
-        4 where it splits, for 16-byte copies), a dx product row blocks; a
-        split product is walked once per ``MAXI * NTHREADS`` of its (row
-        block, output) items."""
-        R = self.rows
+    def tile_program(self, R=None):
+        """The global plan's ring tiles of one step at R rows a CTA
+        (default ``rows``), ``TILE_INTS`` ints each (csrc/fused_scan.cu
+        ``Ring``), and how many belong to the forward and to K2's
+        backward. A forward product takes column blocks of W (as many
+        columns as fit beside the bias, a multiple of 4 where it splits,
+        for 16-byte copies), a dx product row blocks; a split product is
+        walked once per ``MAXI * NTHREADS`` of its (row block, output)
+        items."""
+        R = R or self.rows
         if R not in self._progs:
             stage = self._ring_stage(self.layout(R, "global")[0]["ring"])
             lists = []
@@ -620,8 +709,9 @@ class Spec:
     def table_head(self):
         """The layer table's first ``tab_ptrs`` ints, those the config
         alone decides: a record (``_LayerRec``) a Linear, then the leaves'
-        offsets in the flat parameters, then a zero where the addresses
-        need an even start."""
+        offsets in the flat parameters, then K1's role walk's head and
+        program (none without the role walk), then a zero where the
+        addresses need an even start."""
         if self._head is None:
             out, leaf = [], 0
             for net, ws, acts in (("ode", self.ode_w, self.ode_a),
@@ -638,6 +728,8 @@ class Spec:
                     out += [ws[l], ws[l + 1], relu, w_off, b_off, pw_off,
                             sum(ws[1:l + 1]), dlt]
             out += self.leaf_off
+            if self.roles is not None:
+                out += self.role_head() + self.role_program()
             out += [0] * (self.tab_ptrs - len(out))
             self._head = torch.tensor(out, dtype=torch.int32)
         return self._head
@@ -866,6 +958,251 @@ class Spec:
             if 4 * self.layout(R, "resident", False)[1] <= SMEM_LIMIT:
                 return R
         return 1
+
+    # -- K1's role walk -------------------------------------------------------
+
+    def _role_groups(self):
+        """K1/K3's step at one row a CTA as the role walk runs it
+        (csrc/fused_scan.cu ``role_scan_fwd``), or None where the item
+        loop keeps it: ``(V, phases)``, each phase a list of groups
+        ``(kind, when, net, l, rs)`` (``rs``: the copy of the readout state
+        its addresses take, ``RM_*``; a fill group's ``l`` its lanes).
+
+        Unmasked (the encoder or the GRU jump) no carry reads the readout
+        (last_X takes the observation), so the stacked readout of step k
+        runs in step k + 1's phases beside the ODE net and the jump
+        (``when`` 'prev', on the other copy of the readout state), and the
+        loss terms of step k are summed into the row's loss in step k +
+        2's last phase (the kernel's ``RLAG``): the phases are the ODE
+        net's and the encoder's hidden layers side by side (aligned at
+        their ends), then their last layers with the Euler step, the jump
+        and the carries; with the GRU jump the ODE net's hidden layers,
+        its last layer with the Euler step, then the GRU with the
+        carries. Each group starts
+        at a warp boundary of the phase's ``V`` virtual threads (256 or
+        512); the mask words of the next step fill the lanes of the phase
+        with the most left. Masked configs keep the item loop: their
+        post-jump prediction is the next last_X, so the readouts stay on
+        the recurrence, and the role walk of their 12 phases ran 5 % slower
+        on the H100 than the item loop's 13 (PERF.md §6)."""
+        if self.O != self.D or self.plan is None or self.masked:
+            return None
+        Lo, Le, Lr = (len(ws) - 1 for ws in
+                      (self.ode_w, self.enc_w, self.ro_w))
+        if self.use_rnn:
+            ph = [[("hid", "rec", "ode", l, RM_NONE)] for l in range(Lo - 1)]
+            ph += [[("eu", "rec", "ode", Lo - 1, RM_CUR)],
+                   [("gru", "rec", None, 0, RM_CUR)]]
+        else:
+            hm = max(Lo, Le) - 1
+            ph = [[] for _ in range(hm + 1)]
+            for net, L in (("ode", Lo), ("enc", Le)):
+                for l in range(L - 1):
+                    ph[hm - L + 1 + l].append(("hid", "rec", net, l, RM_NONE))
+            ph[hm].append(("ej", "rec", None, 0, RM_CUR))
+        if len(ph) < 2 or Lr > len(ph):
+            return None
+        for l in range(Lr - 1):
+            ph[l].append(("hid", "prev", "ros", l, RM_PREV))
+        ph[Lr - 1].append(("rol", "prev", "ros", Lr - 1, RM_PREV))
+        ph[-1] += [("car", "rec", None, 0, RM_CUR),
+                   ("acc", "acc", None, 0, RM_CUR)]
+        lanes = [sum(-(-self._role_items(g) // 32) * 32 for g in p)
+                 for p in ph]
+        if (len(ph) > RPH_MAX or max(lanes) > RV_MAX
+                or max(len(p) for p in ph) >= RG_MAX):
+            return None
+        V = 256 if max(lanes) <= 256 else RV_MAX
+        if self.rate > 0.0 and self.S > 0:
+            i = max(range(len(ph)), key=lambda i: (V - lanes[i], i))
+            if V - lanes[i] < 32:
+                return None
+            ph[i].append(("fill", "rec", None, V - lanes[i], RM_NONE))
+        return V, ph
+
+    def _role_items(self, g):
+        """The virtual threads a role group takes (one row a CTA)."""
+        kind, _, net, l, _ = g
+        if kind == "hid":
+            ws = {"ode": self.ode_w, "enc": self.enc_w, "ros": self.ro_w}
+            return (2 if net == "ros" else 1) * ws[net][l + 1]
+        return {"ej": self.H, "eu": self.H, "gru": self.H, "rol": self.O,
+                "car": 1 + 2 * self.D, "acc": 1, "fill": l}[kind]
+
+    @property
+    def role_rg(self) -> int:
+        """Groups of a phase's table in the role program: the most of any
+        phase's."""
+        return max(len(p) for p in self.roles[1])
+
+    def _rp_ints(self) -> int:
+        """Ints of the role program: a group table and a role word (16
+        bits) a virtual thread, per phase."""
+        if self.roles is None:
+            return 0
+        V, ph = self.roles
+        return len(ph) * (self.role_rg * RGI + V // 2)
+
+    def _roles_fit(self) -> bool:
+        """Whether K1's role layout at one row fits one CTA and keeps as
+        many CTAs an SM as the item loop's."""
+        if self.plan != "resident" or not self.fits("resident", 1):
+            return False
+        n = 4 * self.layout(1, "resident", False, True)[1]
+        return n <= SMEM_LIMIT and min(
+            CTAS_PER_SM, SM_SMEM // (n + CTA_RESERVED)) >= \
+            self.ctas_per_sm(1, False)
+
+    def _lin_at(self, net: str, l: int):
+        """(weight offset, bias offset or -1, relu) of Linear l of a net
+        in the flat parameters (the stacked readout: the readout's)."""
+        net = "ro" if net == "ros" else net
+        leaf = 0
+        for name, ws, acts in (("ode", self.ode_w, self.ode_a),
+                               ("enc", self.enc_w, self.enc_a),
+                               ("ro", self.ro_w, self.ro_a)):
+            for k in range(len(ws) - 1):
+                if (name, k) == (net, l):
+                    b = self.leaf_off[leaf + 1] if self.bias else -1
+                    return (self.leaf_off[leaf], b,
+                            int(k < len(acts) and acts[k] == "relu"))
+                leaf += 2 if self.bias else 1
+        raise KeyError((net, l))
+
+    def role_head(self):
+        """The role walk's head in the layer table (csrc/fused_scan.cu
+        ``RoleCfg``, ``RHEAD`` ints before its program): phases of a step,
+        virtual threads of a phase, groups of a phase's table, the floats
+        between the readout state's two copies, and the offsets of the
+        readout's X and obs, of the obs its loss term takes and of the
+        program's copy (region ``rp``) in the one-row role layout."""
+        V, ph = self.roles
+        off = self.layout(1, "resident", False, True)[0]
+        return [len(ph), V, self.role_rg, off["rs2"] - off["h1"], off["rX"],
+                off["robs"], off["lo"], off["rp"]]
+
+    def role_program(self):
+        """K1's role program (csrc/fused_scan.cu ``role_scan_fwd``), the
+        ints it copies into region ``rp``: for each phase ``role_rg``
+        groups of ``RGI`` ints (kind, when | x's copy << 2 | the outputs'
+        << 4 | B's x's << 6, then Linear A's input, weight, bias (-1: none),
+        widths in and out, saved pre-activation and activation, relu,
+        dropout slot and the stacked rows' slot jump, then Linear B's
+        input, weight, bias and width in; fill: its lanes at 5), then a
+        role word a virtual thread, two an int: its group + 1 (0: none),
+        its stacked row << 3 and its output (or item) << 4, every address
+        resolved on the host, so the walk neither divides nor reads a
+        layer record."""
+        V, ph = self.roles
+        RG = self.role_rg
+        off = self.layout(1, "resident", False, True)[0]
+        ws_of = {"ode": self.ode_w, "enc": self.enc_w, "ros": self.ro_w}
+        base = {"ode": "s_ode", "enc": "s_enc", "ros": "s_ro"}
+        slot0 = {"ode": self.s_ode, "enc": self.s_enc, "ros": self.s_r1}
+
+        def lin(net, l, rs):
+            """(x, x's copy, w, b, in, out, pre, act, relu, the outputs'
+            copy) of Linear l."""
+            ws = ws_of[net]
+            rows = 2 if net == "ros" else 1
+            sm_mode = rs if net == "ros" else RM_NONE
+            if l == 0:
+                x, xm = {"ode": (off["in_ode"], RM_IO),
+                         "enc": (off["tX"], RM_IO),
+                         "ros": (off["in_ro"], rs)}[net]
+            else:
+                x = (off[base[net]] + 2 * rows * sum(ws[1:l])
+                     + rows * ws[l])
+                xm = sm_mode
+            w, b, relu = self._lin_at(net, l)
+            pre = off[base[net]] + 2 * rows * sum(ws[1:l + 1])
+            return (x, xm, off["w"] + w, off["w"] + b if b >= 0 else -1,
+                    ws[l], ws[l + 1], pre, pre + rows * ws[l + 1], relu,
+                    sm_mode)
+
+        groups, roles = [], []
+        for p in ph:
+            gt = [0] * (RG * RGI)
+            rw = [0] * V
+            first = 0
+            for gi, g in enumerate(p):
+                kind, when, net, l, rs = g
+                q = gt[gi * RGI:(gi + 1) * RGI]
+                q[0] = RK[kind]
+                xm = om = bxm = rs
+                if kind == "hid":
+                    x, xm, w, b, i, o, pre, act, relu, om = lin(net, l, rs)
+                    q[2:12] = [x, w, b, i, o, pre, act, relu,
+                               slot0[net] + l,
+                               len(ws_of[net]) - 2 if net == "ros" else 0]
+                elif kind in ("ej", "eu", "rol"):
+                    if kind == "ej":
+                        a = lin("ode", len(self.ode_w) - 2, rs)
+                        bb = lin("enc", len(self.enc_w) - 2, rs)
+                        q[12:16] = [bb[0], bb[2], bb[3], bb[4]]
+                        bxm = bb[1]
+                    else:
+                        a = lin(net, l, rs)
+                    q[2:7] = [a[0], a[2], a[3], a[4], a[5]]
+                    xm = a[1]
+                elif kind == "fill":
+                    q[5] = l
+                q[1] = RW[when] | xm << 2 | om << 4 | bxm << 6
+                gt[gi * RGI:(gi + 1) * RGI] = q
+                n = self._role_items(g)
+                out = self.ro_w[l + 1] if (kind, net) == ("hid", "ros") \
+                    else 0
+                for i in range(n):
+                    r, j = (i // out, i % out) if out else (0, i)
+                    if j >= 1 << 12:
+                        raise ValueError("role output index overflows")
+                    rw[first + i] = (gi + 1) | r << 3 | j << 4
+                first += -(-n // 32) * 32
+            groups += gt
+            roles += [rw[v] | rw[v + 1] << 16 for v in range(0, V, 2)]
+        # the role words as int32 (two 16-bit words an int)
+        roles = [w - (1 << 32) if w >= 1 << 31 else w for w in roles]
+        prog = groups + roles
+        assert len(prog) == self.rp_ints
+        return prog
+
+    def k1_phases(self, R: int):
+        """(walk, phases) of a K1/K3 step of the resident plan at R rows
+        a CTA: the role walk's phases ('roles', one row a CTA where the
+        spec has a role program) or the item loop's ('items': the hidden
+        layers, the last layers fused with what reads them, the carries;
+        ``res_scan_fwd``); None in the global plan."""
+        if self.plan != "resident":
+            return None
+        if R == 1 and self.roles is not None:
+            return "roles", len(self.roles[1])
+        Lo, Le, Lr = (len(ws) - 1 for ws in
+                      (self.ode_w, self.enc_w, self.ro_w))
+        if self.masked and not self.use_rnn:
+            return "items", Lo + Le + 2 * Lr + 1
+        if self.use_rnn:
+            return "items", Lo + Lr + 2
+        return "items", max(Lo, Le) + Lr + 1
+
+    def fwd_threads(self, R: int, n_cta: int) -> int:
+        """Threads of a CTA of a K1/K3 launch of ``n_cta`` CTAs at R rows:
+        128 in the role walk where the launch overflows ``CTAS_PER_SM``
+        CTAs an SM and the shared memory holds four (a member launch; the
+        kernel's registers hold four CTAs of 128 threads an SM), else
+        ``NTHREADS``. The walk's virtual threads, and so its arithmetic,
+        do not depend on it."""
+        if self.roles is None or self.plan != "resident" or R != 1:
+            return NTHREADS
+        if self._threads:
+            if self._threads not in (128, NTHREADS):
+                raise ValueError(f"threads {self._threads!r}: 128 or "
+                                 f"{NTHREADS}")
+            return self._threads
+        if n_cta > CTAS_PER_SM * N_SM:
+            n = 4 * self.layout(1, "resident", False, True)[1]
+            if SM_SMEM // (n + CTA_RESERVED) >= 2 * CTAS_PER_SM:
+                return 128
+        return NTHREADS
 
 
 def supported(cfg) -> bool:
@@ -1430,6 +1767,14 @@ class _ScanCfg(ctypes.Structure):
            ("ro2", _MLPDesc)])
 
 
+class _FwdCfg(_ScanCfg):
+    """Mirror of ``struct FwdCfg``: K1/K3's call, ``ScanCfg`` (the fields
+    it inherits, which alone the kernels take) then what only the host
+    reads: the threads of a CTA and whether the launch takes the role
+    walk."""
+    _fields_ = [("threads", ctypes.c_int), ("roles", ctypes.c_int)]
+
+
 class _K2Work(ctypes.Structure):
     """Field-for-field mirror of ``struct K2Work`` in csrc/fused_scan.cu:
     K2's staged plan beyond its config (stage (a)'s config, the
@@ -1454,25 +1799,31 @@ def param_bytes() -> int:
 
 
 def make_cfg(spec: Spec, K: int, B: int, train: bool, weight: float,
-             bwd: bool = True, rows=None):
+             bwd: bool = True, rows=None, E: int = 1):
     """The configuration of one call of K2's chain (``bwd``) or K1/K3
     (host memory), in the spec's plan at ``spec.rows_for(B, bwd)`` rows
     (``rows``: K2's stage (a), the forward layout at those rows); the
     global plan has no ``w`` region, the resident plan no ``ring``/``gsc``
     regions and no tiles (and K1/K3's no backward regions), and a config
     without use_rnn no ``gru``/``dG`` regions and no GRU leaves (their
-    offsets are -1). Kept on the spec per call shape, so a step builds it
-    once."""
-    key = (K, B, bool(train), float(weight), bool(bwd), rows)
+    offsets are -1). K1/K3's call is a ``_FwdCfg``: at one row a CTA it
+    takes the role walk where the spec has one (``Spec.roles``; its
+    layout, and its program in the layer table), a launch of E members
+    ``Spec.fwd_threads`` threads a CTA. Kept on the spec per call shape,
+    so a step builds it once."""
+    key = (K, B, bool(train), float(weight), bool(bwd), rows, E)
     if key not in spec._cfgs:
-        spec._cfgs[key] = _make_cfg(spec, K, B, train, weight, bwd, rows)
+        spec._cfgs[key] = _make_cfg(spec, K, B, train, weight, bwd, rows, E)
     return spec._cfgs[key]
 
 
-def _make_cfg(spec, K, B, train, weight, bwd, rows=None):
+def _make_cfg(spec, K, B, train, weight, bwd, rows=None, E=1):
     R = rows or spec.rows_for(B, bwd)
-    off, total = spec.layout(R, spec.plan, bwd)
-    c = _ScanCfg()
+    roles = (not bwd and rows is None and R == 1
+             and spec.plan == "resident" and spec.roles is not None)
+    off, total = spec.layout(R, spec.plan, bwd, roles)
+    # K1/K3's call (FwdCfg); K2's chain and its stage (a) take ScanCfg
+    c = _FwdCfg() if not bwd and rows is None else _ScanCfg()
     c.K, c.B, c.D, c.H, c.O = K, B, spec.D, spec.H, spec.O
     c.S, c.Wmax, c.n_params = spec.S, spec.w_max, spec.n_params
     c.n_leaves = len(spec.leaf_shapes)
@@ -1490,7 +1841,7 @@ def _make_cfg(spec, K, B, train, weight, bwd, rows=None):
     c.gru_wih, c.gru_whh, c.gru_bih, c.gru_bhh = gru_offs
     c.gru_pwih, c.gru_pwhh = gru_pack[:2]
     if spec.plan == "global":
-        _, c.n_tiles_fwd, c.n_tiles_bwd, c.stage = spec.tile_program()
+        _, c.n_tiles_fwd, c.n_tiles_bwd, c.stage = spec.tile_program(R)
     c.thresh = spec.thresh
     c.keep = 1.0 - spec.rate
     c.weight = float(weight)
@@ -1524,6 +1875,9 @@ def _make_cfg(spec, K, B, train, weight, bwd, rows=None):
     c.ro2.slot0 = spec.s_r2
     c.ro2.save_off = off["s_ro2"]
     c.ro2.dhalf = 1
+    if isinstance(c, _FwdCfg):
+        c.roles = int(roles)
+        c.threads = spec.fwd_threads(R, E * -(-B // R))
     return c
 
 
@@ -1588,15 +1942,17 @@ def packed_weights_members(spec, leaves):
     return torch.cat(parts, dim=1)
 
 
-def _program(spec, dev):
-    """The ring's tile program on ``dev`` (global plan), else None."""
+def _program(spec, dev, R=None):
+    """The ring's tile program at R rows a CTA (default ``spec.rows``) on
+    ``dev`` (global plan), else None."""
     if spec.plan != "global":
         return None
-    prog = spec._progs.get(("dev", dev))
+    R = R or spec.rows
+    prog = spec._progs.get(("dev", dev, R))
     if prog is None:
-        prog = torch.tensor(spec.tile_program()[0], dtype=torch.int32,
+        prog = torch.tensor(spec.tile_program(R)[0], dtype=torch.int32,
                             device=dev)
-        spec._progs[("dev", dev)] = prog
+        spec._progs[("dev", dev, R)] = prog
     return prog
 
 
@@ -1678,6 +2034,20 @@ def _check_inputs(spec, leaves, arrays, train, u, seed):
     return K, B
 
 
+def k1_probe():
+    """What K1's last launch (CTA 0, member 0) wrote of itself: its walk
+    ('items', 'roles' or 'global'), the threads of its CTA and the phases
+    its middle step ended (counted in the role walk, else None). Waits
+    for the card first."""
+    lib = _lib()
+    torch.cuda.synchronize()
+    out = (ctypes.c_int * 3)()
+    _raise_rc(lib, lib.njode_k1_probe(out), "njode_k1_probe")
+    return {"walk": ("items", "roles", "global")[out[0]],
+            "threads": out[1],
+            "phases_per_step": out[2] if out[2] >= 0 else None}
+
+
 def scan_fwd_cuda(spec, leaves, arrays, weight, h0, train, u=None,
                   seed=None, want_hists=True):
     """Launch K1 (``want_hists``) or K3 and, in the same C call, the
@@ -1705,9 +2075,9 @@ def scan_fwd_cuda(spec, leaves, arrays, weight, h0, train, u=None,
     with _on(dev):
         rc = lib.njode_scan_fwd(
             ctypes.addressof(cfg), _ptr(tab), _ptr(wg),
-            _ptr(_program(spec, dev)), _ptr(times), _ptr(dts), _ptr(obs),
-            _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs), _ptr(h0),
-            _ptr(start_X), _ptr(loss_part), _ptr(loss),
+            _ptr(_program(spec, dev, cfg.rows)), _ptr(times), _ptr(dts),
+            _ptr(obs), _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs),
+            _ptr(h0), _ptr(start_X), _ptr(loss_part), _ptr(loss),
             *(_ptr(t) for t in hists), int(want_hists), 1.0 / B, stream)
     _raise_rc(lib, rc, "njode_scan_fwd")
     _count(("njode_scan_fwd" if want_hists else "njode_scan_eval")
@@ -1918,7 +2288,7 @@ def scan_fwd_members_cuda(spec, leaves, arrays, weight, h0, train, u=None,
     lib = _lib()
     times, dts, obs, X, n_obs, start_X, M = unpack_arrays(spec, arrays)
     dev = h0.device
-    cfg = make_cfg(spec, K, B, train, weight, bwd=False)
+    cfg = make_cfg(spec, K, B, train, weight, bwd=False, E=E)
     n_cta = -(-B // cfg.rows)
     loss_part = torch.empty((E, n_cta), dtype=torch.float32, device=dev)
     loss = torch.empty((E,), dtype=torch.float32, device=dev)
@@ -1931,9 +2301,9 @@ def scan_fwd_members_cuda(spec, leaves, arrays, weight, h0, train, u=None,
     with _on(dev):
         rc = lib.njode_scan_fwd_members(
             ctypes.addressof(cfg), E, _ptr(tab), _ptr(wg),
-            _ptr(_program(spec, dev)), _ptr(times), _ptr(dts), _ptr(obs),
-            _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs), _ptr(h0),
-            _ptr(start_X), _ptr(loss_part), _ptr(loss),
+            _ptr(_program(spec, dev, cfg.rows)), _ptr(times), _ptr(dts),
+            _ptr(obs), _ptr(X), _ptr(M), _ptr(u), _ptr(seed), _ptr(n_obs),
+            _ptr(h0), _ptr(start_X), _ptr(loss_part), _ptr(loss),
             *(_ptr(t) for t in hists), 1, 1.0 / B, stream)
     _raise_rc(lib, rc, "njode_scan_fwd_members")
     _count("njode_scan_fwd_members" + _launch_key(spec), B, cfg.rows)

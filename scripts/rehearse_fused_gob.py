@@ -113,6 +113,9 @@ template <class F> inline cudaError_t cudaFuncSetAttribute(F*, int, int) {
 template <class F> inline cudaError_t
 cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F*, int, size_t) {
   *n = 0; return 0; }
+template <class T> inline cudaError_t
+cudaMemcpyFromSymbol(void* dst, const T& sym, size_t n) {
+  std::memcpy(dst, &sym, n); return 0; }
 extern float sm[];
 template <class F> void launch_grid(dim3 g, dim3 b, size_t smem_bytes,
                                    F f) {

@@ -12,8 +12,10 @@ the C interface with the configuration the wrappers build
 (gradients and dh0) and K3 (eval loss) in the resident plan at R = 1, 2
 and 16 (the last CTA of a batch of 5 partly padding), in both mask modes,
 against the plain versions, and the global plan forced at the same rows
-against the resident plan bit for bit; the member-axis calls (E = 3
-members in one launch) against three solo calls bit for bit; and
+against the resident plan bit for bit (at one row also K1/K3's role walk
+against its item loop); the member-axis calls (E = 3 members in one
+launch, K1's role walk also at 128 threads a CTA) against three solo
+calls bit for bit; and
 (``masks``) the standalone mask kernel's C call against
 ``philox_keep_plain`` bit for bit. Each variant is one branch of the
 kernels (unmasked or masked, encoder or GRU jump) or one option (no bias,
@@ -76,11 +78,21 @@ def _setup(kw, D, seed=0):
     return cfg, arrays, leaves, h0
 
 
+def _item_loop_spec(fs):
+    """A Spec whose K1/K3 keep the item loop at one row a CTA (no role
+    program)."""
+    class ItemLoopSpec(fs.Spec):
+        def _role_groups(self):
+            return None
+    return ItemLoopSpec
+
+
 def _run(lib, fs, spec, leaves, arrays, h0, u, seed, dloss=1.3, chunk=4,
-         stretch=4):
+         stretch=4, k2=True):
     """K1, K2 and K3 of ``spec`` through the CPU build: (loss, histories,
     gradients, dh0, eval loss), then K2's workspace as the first chunk
-    left it (K2 at ``chunk`` steps a chunk, stage (c) at ``stretch``)."""
+    left it (K2 at ``chunk`` steps a chunk, stage (c) at ``stretch``); or,
+    without ``k2``, (loss, histories, eval loss)."""
     import torch
 
     times, dts, obs, X, n_obs, start_X, M = fs.unpack_arrays(spec, arrays)
@@ -107,6 +119,8 @@ def _run(lib, fs, spec, leaves, arrays, h0, u, seed, dloss=1.3, chunk=4,
         assert rc == 0, rc
         out.append((loss.clone(), hists))
     (loss, hists), (loss3, _) = out
+    if not k2:
+        return [loss, *hists, loss3]
     c, work, keep, _ = fs._k2_work(spec, Kk, Bb, 1, True, 0.5,
                                    torch.device("cpu"), chunk, stretch)
     keep[-3].fill_(float("nan"))
@@ -188,6 +202,13 @@ def rehearse(lib, name, kw, D, R, mode):
         lib, fs, fs.Spec(cfg, mode, ("global", R)), leaves, arrays, h0, u,
         seed)[0]
     n_diff = sum(not torch.equal(a, b) for a, b in zip(got, glob))
+    if both and R == 1 and spec.roles is not None:
+        # K1/K3's role walk against the item loop at one row: the same
+        # bits (K1's loss and histories, K3's loss)
+        loop = _run(lib, fs, _item_loop_spec(fs)(cfg, mode, ("resident", 1)),
+                    leaves, arrays, h0, u, seed, k2=False)
+        n_diff += sum(not torch.equal(got[i], b) for i, b in zip(
+            (0, 1, 2, 3, len(got) - 1), loop))
     ok = max(errs + list(we.values())) < 1e-4 and n_diff == 0 and all(
         bool(torch.isfinite(t).all()) for t in got)
     print(f"{'ok ' if ok else 'BAD'} {name} R={R} {mode} "
@@ -297,9 +318,16 @@ def rehearse_members(lib, name, kw, D, R, mode, plan="resident", E=3):
     wg = fs.packed_weights_members(spec, leaves)
     prog = (None if spec.plan != "global" else
             torch.tensor(spec.tile_program()[0], dtype=torch.int32))
-    out = []
-    for want in (True, False):
+    out, probe_bad = [], 0
+    for want, threads in ((True, 0), (False, 0), (True, 128)):
         c = fs.make_cfg(spec, Kk, Bb, want, 0.5, bwd=False)
+        if threads:
+            # the role walk at 128 threads a CTA (a member launch that
+            # overflows a wave): the same bits
+            if not c.roles:
+                continue
+            c = fs._FwdCfg.from_buffer_copy(c)
+            c.threads = threads
         part = torch.full((E, -(-Bb // c.rows)), float("nan"))
         loss = torch.empty(E)
         hists = ((torch.empty(E, Kk, Bb, spec.H),
@@ -312,7 +340,17 @@ def rehearse_members(lib, name, kw, D, R, mode, plan="resident", E=3):
             _ptr(n_obs), _ptr(h0), _ptr(start_X), _ptr(part), _ptr(loss),
             *(_ptr(t) for t in hists), int(want), 1.0 / Bb, None) == 0
         out.append((loss, hists))
-    (loss, hists), (loss3, _) = out
+        if want:
+            # K1's probe: the walk, threads and counted phases of a step
+            probe = (ctypes.c_int * 3)()
+            assert lib.njode_k1_probe(probe) == 0
+            walk = (1 if c.roles else 2 if spec.plan == "global" else 0)
+            n_ph = len(spec.roles[1]) if c.roles else -1
+            probe_bad += list(probe) != [walk, c.threads, n_ph]
+    (loss, hists), (loss3, _) = out[:2]
+    n_diff = sum(not (torch.equal(loss, l128) and all(
+        torch.equal(a, b) for a, b in zip(hists, h128)))
+        for l128, h128 in out[2:])
     # the member call at another chunk length than the solo calls' (both
     # multiples of the stretch), as a launch whose workspace holds all its
     # members takes: the same bits
@@ -329,7 +367,6 @@ def rehearse_members(lib, name, kw, D, R, mode, plan="resident", E=3):
         _ptr(dts), _ptr(obs), _ptr(X), _ptr(M), _ptr(u), _ptr(seed),
         _ptr(n_obs), *(_ptr(t) for t in hists), _ptr(dloss),
         _ptr(keep[-1]), _ptr(flat), _ptr(dh0), None) == 0
-    n_diff = 0
     for e in range(E):
         got = [loss[e], *(h[e] for h in hists),
                *[flat[e, a:b].view(sh) for a, b, sh in zip(
@@ -341,10 +378,11 @@ def rehearse_members(lib, name, kw, D, R, mode, plan="resident", E=3):
     assert lib.njode_reduce_partials_members(_ptr(P), E, 5, 37, 0.5,
                                              _ptr(red), None) == 0
     red_ok = torch.equal(red, fs.reduce_partials_members_plain(P, 0.5))
-    ok = n_diff == 0 and red_ok
+    ok = n_diff == 0 and red_ok and probe_bad == 0
     print(f"{'ok ' if ok else 'BAD'} members {name} {plan} R={R} {mode} "
           f"E={E} outputs differing from solo calls {n_diff} "
-          f"reduce_members_equal {red_ok}", flush=True)
+          f"reduce_members_equal {red_ok} k1_probes_wrong {probe_bad}",
+          flush=True)
     return ok
 
 

@@ -312,6 +312,13 @@ def test_config_struct_mirrors_the_cuda_source():
 
     assert [f[0] for f in fs._MLPDesc._fields_] == _c_fields(src, "MLPDesc")
     assert [f[0] for f in fs._ScanCfg._fields_] == _c_fields(src, "ScanCfg")
+    # K1/K3's call: ScanCfg, then what the host alone reads; the role
+    # walk's head in the layer table, RHEAD ints
+    assert _c_fields(src, "FwdCfg") == ["c"] + [
+        f[0] for f in fs._FwdCfg._fields_]
+    assert ctypes.sizeof(fs._FwdCfg) == ctypes.sizeof(fs._ScanCfg) + 8
+    assert len(_c_fields(src, "RoleCfg")) == fs.RHEAD == int(
+        re.search(r"#define RHEAD (\d+)", src).group(1))
     n_int = sum(ctypes.sizeof(t) for _, t in fs._ScanCfg._fields_)
     assert ctypes.sizeof(fs._ScanCfg) == n_int
     assert all(t is ctypes.c_int or t in (ctypes.c_uint32, ctypes.c_float)
@@ -485,14 +492,22 @@ def test_plan_rule(arm):
 
 # (arm of PLAN_ARMS, batch, K2's rows, K1/K3's rows): the published
 # batches (experiments/configs.py) and the main path's last batch of 60;
-# the global arms keep their plan's rows
+# the global arms' K2 keeps its plan's rows, their K1/K3 take the fewest
+# rows at which every CTA is resident at once, at least two where no net
+# is wider than a CTA's threads (PhysioNet 200), where those are at most
+# a quarter of the plan's rows (sine 400 at B = 200: two against four, so
+# four), and the plan's rows where no rows make every CTA resident (the
+# eval's B = 4,000)
 ROWS_CASES = [
     ("main_path", 100, 1, 1), ("main_path", 200, 1, 1),
     ("main_path", 4000, 16, 16), ("main_path", 60, 1, 1),
     ("main_path_rnn", 100, 1, 1), ("main_path_rnn", 200, 1, 1),
     ("main_path_rnn", 4000, 16, 16), ("climate_small", 100, 1, 1),
     ("climate_small_rnn", 100, 1, 1), ("physionet_50", 50, 1, 1),
-    ("physionet_50_rnn", 50, 1, 1), ("physionet_200", 50, 8, 8),
+    ("physionet_50_rnn", 50, 1, 1), ("physionet_200", 50, 8, 2),
+    ("physionet_200", 200, 8, 2), ("physionet_200", 4000, 8, 8),
+    ("climate_400", 100, 4, 1), ("sine_400", 100, 4, 1),
+    ("sine_400", 200, 4, 4), ("sine_400", 20, 4, 1),
 ]
 
 
@@ -509,8 +524,12 @@ def test_rows_rule(case):
     spec = fs.Spec(_plan_cfg(next(a for a in PLAN_ARMS if a[0] == name)))
     assert (spec.rows_for(B), spec.rows_for(B, False)) == (r_bwd, r_fwd)
     for bwd, R in ((True, r_bwd), (False, r_fwd)):
-        assert fs.make_cfg(spec, 30, B, True, 0.5, bwd=bwd).rows == R
+        c = fs.make_cfg(spec, 30, B, True, 0.5, bwd=bwd)
+        assert c.rows == R
         if spec.plan != "resident":
+            # the ring's tiles at the launch's own rows
+            assert (c.n_tiles_fwd, c.n_tiles_bwd, c.stage) == \
+                spec.tile_program(R)[1:]
             continue
         assert spec.fits("resident", R)
         per_sm = spec.ctas_per_sm(R, bwd)
@@ -522,6 +541,111 @@ def test_rows_rule(case):
         if R > 1:        # fewer rows would take a second wave
             half = R // 2
             assert -(-B // half) > spec.ctas_per_sm(half, bwd) * fs.N_SM
+
+
+class _ItemLoopSpec(fs.Spec):
+    """A spec whose K1/K3 keep the item loop at one row a CTA (the
+    tests' hook: no role program)."""
+
+    def _role_groups(self):
+        return None
+
+
+def test_fwd_threads_rule():
+    """``Spec.fwd_threads``: a K1/K3 launch takes 128 threads a CTA in the
+    role walk (one row a CTA) where its CTAs overflow ``CTAS_PER_SM`` an SM
+    and four of the role layout fit an SM (the main path's member launch,
+    E = 5 at B = 100: 500 CTAs), else 256; ``make_cfg`` takes it per
+    launch; the item loop keeps 256; a forced count (tests) applies to the
+    role walk alone."""
+    main = fs.Spec(_plan_cfg(PLAN_ARMS[0]))
+    assert main.fwd_threads(1, 100) == main.fwd_threads(1, 264) == 256
+    assert main.fwd_threads(1, 265) == main.fwd_threads(1, 500) == 128
+    assert main.fwd_threads(16, 500) == 256
+    n = 4 * main.layout(1, "resident", False, True)[1] + fs.CTA_RESERVED
+    assert fs.SM_SMEM // n >= 2 * fs.CTAS_PER_SM
+    assert fs.make_cfg(main, 100, 100, True, 0.5, bwd=False,
+                       E=5).threads == 128
+    assert fs.make_cfg(main, 100, 100, True, 0.5, bwd=False).threads == 256
+    assert fs.make_cfg(main, 100, 4000, False, 0.5, bwd=False,
+                       E=5).threads == 256
+    # the main path's model at width 80: its role layout two an SM, not
+    # four; a masked config (PhysioNet 50) keeps the item loop
+    nn = ((80, "tanh"), (80, "tanh"))
+    w80 = fs.Spec(H.configs(1, 10, ode_nn=nn, readout_nn=nn, enc_nn=nn,
+                            dropout_rate=0.1)[1])
+    assert w80.roles is not None and w80.fwd_threads(1, 500) == 256
+    phys = fs.Spec(_plan_cfg(PLAN_ARMS[4]))
+    assert phys.roles is None and phys.fwd_threads(1, 500) == 256
+    assert _ItemLoopSpec(main.cfg).fwd_threads(1, 500) == 256
+    forced = fs.Spec(main.cfg)
+    forced._threads = 128
+    assert forced.fwd_threads(1, 10) == 128
+    assert forced.fwd_threads(16, 10) == 256
+    forced._threads = 64
+    with pytest.raises(ValueError):
+        forced.fwd_threads(1, 10)
+
+
+# (arm of PLAN_ARMS, the role walk's phases a step (None: the item loop),
+# the item loop's phases a step)
+ROLE_ARMS = [("main_path", 3, 7), ("main_path_rnn", 4, 8),
+             ("climate_small", None, 13), ("climate_small_rnn", None, 8),
+             ("physionet_50", None, 13), ("physionet_50_rnn", None, 8)]
+
+
+@pytest.mark.parametrize("case", ROLE_ARMS, ids=[c[0] for c in ROLE_ARMS])
+def test_role_program(case):
+    """K1's role program at one row a CTA (``Spec.role_program``, after
+    the leaves' offsets in the layer table): the readout of the step
+    before in the step's first phases and the carries with the loss sum
+    in its last (3 phases on the main path, 4 with the GRU jump, from 7
+    and 8); every group's virtual threads one block from a warp boundary,
+    its role words naming it, its addresses the layout's. Masked configs
+    have none and keep the item loop."""
+    name, n_ph, n_items = case
+    cfg = _plan_cfg(next(a for a in PLAN_ARMS if a[0] == name))
+    spec = fs.Spec(cfg)
+    if n_ph is None:
+        assert spec.roles is None and spec.rp_ints == 0
+        assert spec.k1_phases(1) == ("items", n_items)
+        assert fs.make_cfg(spec, 30, 50, True, 0.5, bwd=False).roles == 0
+        return
+    V, ph = spec.roles
+    assert (len(ph), V) == (n_ph, 256)
+    assert spec.k1_phases(1) == ("roles", n_ph)
+    assert spec.k1_phases(16) == ("items", n_items)
+    assert _ItemLoopSpec(cfg).k1_phases(1) == ("items", n_items)
+    prog = spec.role_program()
+    RG, RGI = spec.role_rg, fs.RGI
+    off = spec.layout(1, "resident", False, True)[0]
+    # the walk's head (RoleCfg), then its program, after the leaves'
+    # offsets in the layer table
+    head = spec.table_head().tolist()[spec.tab_roles:]
+    assert head[:fs.RHEAD] == spec.role_head() == [
+        n_ph, V, RG, off["rs2"] - off["h1"], off["rX"], off["robs"],
+        off["lo"], off["rp"]]
+    assert head[fs.RHEAD:fs.RHEAD + spec.rp_ints] == prog
+    words = prog[len(ph) * RG * RGI:]
+    for p, groups in enumerate(ph):
+        rw = []
+        for w in words[p * V // 2:(p + 1) * V // 2]:
+            rw += [w & 0xFFFF, (w >> 16) & 0xFFFF]
+        first = 0
+        for gi, g in enumerate(groups):
+            lanes = [v for v in range(V) if rw[v] & 7 == gi + 1]
+            assert lanes[0] == first and lanes[0] % 32 == 0
+            assert lanes == list(range(first, first + len(lanes)))
+            assert len(lanes) == spec._role_items(g)
+            first += -(-len(lanes) // 32) * 32
+            q = prog[(p * RG + gi) * RGI:(p * RG + gi + 1) * RGI]
+            assert q[0] == fs.RK[g[0]] and q[1] & 3 == fs.RW[g[1]]
+            if g[0] == "hid":
+                w_off, _, relu = spec._lin_at(g[2], g[3])
+                assert (q[3], q[9]) == (off["w"] + w_off, relu)
+    kinds = [[g[0] for g in p] for p in ph]
+    assert "car" in kinds[-1] and "acc" in kinds[-1]
+    assert all(g[1] == "prev" for p in ph for g in p if g[2] == "ros")
 
 
 def test_forward_layout_and_rows_per_batch():
@@ -559,7 +683,16 @@ def test_forward_layout_and_rows_per_batch():
     c_bwd = fs.make_cfg(spec, 100, 100, True, 0.5)
     assert (c_fwd.rows, c_fwd.o_dA) == (1, -1)
     assert (c_bwd.rows, c_bwd.o_tdt, c_bwd.rec) == (1, P4, spec.rec)
-    assert c_fwd.smem_floats == spec.layout(1, "resident", bwd=False)[1]
+    # K1/K3 at one row take the role walk: its layout (the readout state
+    # twice, three sets of mask words, the role program) and program
+    roles, n_roles = spec.layout(1, "resident", bwd=False, roles=True)
+    assert spec.roles is not None and c_fwd.roles == 1
+    assert c_fwd.smem_floats == n_roles
+    assert spec.role_head()[3] == roles["rs2"] - roles["h1"] > 0
+    assert roles["lay"] - roles["rp"] == (spec.rp_ints + 3) // 4 * 4
+    assert roles["rp"] - roles["mw"] == (
+        3 * spec.mask_words(1) + 3) // 4 * 4
+    assert n_roles > spec.layout(1, "resident", bwd=False)[1]
     assert fs.make_cfg(spec, 100, 100, True, 0.5, bwd=False) is c_fwd
     assert fs.make_cfg(spec, 100, 4000, False, 0.5, bwd=False).rows == 16
     assert fs.make_cfg(spec, 100, 60, True, 0.5).rows == 1
@@ -710,7 +843,8 @@ def test_ctypes_signatures_match_the_c_interface():
     names = ("njode_scan_fwd", "njode_scan_bwd", "njode_scan_occupancy",
              "njode_phase_clock", "njode_reduce_partials",
              "njode_philox_masks", "njode_scan_fwd_members",
-             "njode_scan_bwd_members", "njode_reduce_partials_members")
+             "njode_scan_bwd_members", "njode_reduce_partials_members",
+             "njode_k1_probe")
     lib = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in (
         "njode_error_string",) + names})
     _build._declare("fused_scan", lib)
@@ -730,3 +864,44 @@ def test_ctypes_signatures_match_the_c_interface():
                 assert decl.startswith("int "), decl
                 want.append(ctypes.c_int)
         assert getattr(lib, name).argtypes == want, name
+
+
+def test_plain_k1_at_the_global_rows_matches_pallas():
+    """The global plan's K1 at the rows its rule takes at a small batch
+    (two a CTA: every CTA resident at once, and no net wider than a CTA's
+    threads) against ``_fwd_impl`` in
+    interpret mode: the plain K1 run CTA by CTA on blocks of those rows
+    (each block's loss weighed by its rows, the histories side by side),
+    as the kernel sums per-CTA losses, holds the JAX loss and histories at
+    the loss tolerance, as it does at the plan's most rows."""
+    nn = ((200, "tanh"), (200, "tanh"))
+    jcfg, tcfg = H.configs(1, 10, ode_nn=nn, readout_nn=nn, enc_nn=nn)
+    params, model = H.twin_models(jcfg, tcfg)
+    b = H.make_np_batch(seed=4, D=1, steps=6)
+    K, B = b.obs.shape
+    spec = fs.Spec(tcfg, "input")
+    assert spec.plan == "global" and spec.rows >= 4
+    R = spec.rows_for(B, False)
+    assert (R, spec.rows_for(B)) == (2, spec.rows)
+    loss_r, hists_r, _, _ = _pallas_reference(jcfg, params, b, None, 0.6,
+                                              False)
+    tb = H.tbatch(b)
+    arrays = (tb.times, tb.dt, tb.obs, tb.X, tb.n_obs_ot, tb.start_X)
+    leaves = [p.detach() for p in fs.flat_leaves(model)]
+    with torch.no_grad():
+        h0 = model.encoder_map(tb.start_X)
+    for rows in (R, spec.rows):
+        loss, hists = 0.0, []
+        for r0 in range(0, B, rows):
+            sl = slice(r0, min(B, r0 + rows))
+            blk = arrays[:2] + (arrays[2][:, sl], arrays[3][:, sl],
+                                arrays[4][sl], arrays[5][sl])
+            lb, hb = fs.scan_fwd_plain(spec, leaves, blk, 0.6, h0[sl],
+                                       False)
+            loss += float(lb) * (sl.stop - sl.start) / B
+            hists.append(hb)
+        np.testing.assert_allclose(loss, float(loss_r), **H.LOSS_TOL)
+        for i, r in enumerate(hists_r):
+            got = torch.cat([h[i] for h in hists], dim=1)
+            np.testing.assert_allclose(got.numpy(), np.asarray(r),
+                                       **H.LOSS_TOL)

@@ -524,20 +524,25 @@ def test_reduce_partials_bit_equal(card, shape):
 
 
 # (D, H, width, masked, use_rnn, batch): the resident arms at their
-# published batches and the eval's
+# published batches and the eval's; the global plan's PhysioNet 200 arm
+# and convergence width 320 at their batches (K1/K3 at two rows and at
+# one row a CTA)
 OCC_ARMS = [(1, 10, 50, False, False, 200), (1, 10, 50, False, False, 4000),
             (1, 10, 50, False, True, 200), (5, 10, 50, True, False, 100),
-            (41, 41, 50, True, False, 50)]
+            (41, 41, 50, True, False, 50), (41, 41, 200, True, False, 50),
+            (1, 10, 320, False, False, 20)]
 
 
 @pytest.mark.parametrize("arm", OCC_ARMS,
                          ids=["main", "main_eval", "main_rnn", "climate",
-                              "physionet_50"])
+                              "physionet_50", "physionet_200", "conv320"])
 def test_rows_rule_against_occupancy(card, arm):
-    """The CTAs an SM holds that ``Spec.rows_for`` counts, for K1, K3 and
-    K2 at the rows it takes, are at most what
+    """The CTAs an SM holds that ``Spec.rows_for`` counts (the global
+    plan: one), for K1, K3 and K2 at the rows it takes, are at most what
     cudaOccupancyMaxActiveBlocksPerMultiprocessor reports for the kernel
-    the launch takes, so a launch the rule sees on one wave is on one."""
+    the launch takes, so a launch the rule sees on one wave is on one;
+    the global plan's K1/K3 take one wave, at two rows where no net is
+    wider than a CTA's threads, else one."""
     import ctypes
 
     D, H, width, masked, use_rnn, B = arm
@@ -552,9 +557,14 @@ def test_rows_rule_against_occupancy(card, arm):
         n = ctypes.c_int(0)
         assert lib.njode_scan_occupancy(ctypes.addressof(c), kind,
                                         ctypes.byref(n)) == 0
-        assert n.value >= spec.ctas_per_sm(c.rows, bwd) >= 1, (kind, n)
-        if -(-B // c.rows) <= spec.ctas_per_sm(c.rows, bwd) * fs.N_SM:
+        per_sm = (spec.ctas_per_sm(c.rows, bwd) if spec.plan == "resident"
+                  else 1)
+        assert n.value >= per_sm >= 1, (kind, n)
+        if -(-B // c.rows) <= per_sm * fs.N_SM:
             assert -(-B // c.rows) <= n.value * fs.N_SM
+        if spec.plan == "global" and not bwd:
+            assert (c.rows, -(-B // c.rows) <= fs.N_SM) == (
+                2 if spec.buf_w <= fs.NTHREADS else 1, True)
 
 
 PRNG_INPUT = ([v for v in VARIANTS if v[0] in ("main", "relu_deep",
@@ -590,3 +600,107 @@ def test_prng_mode_equals_input_mode_on_its_masks(card, variant, plan):
         out.append((lk, *hk, *gk, dk))
     for i, (a, b) in enumerate(zip(*out)):
         assert torch.equal(a, b), i
+
+
+# K1/K3's role walk at one row a CTA (Spec.role_program): the encoder, the
+# GRU jump, an ODE net of 16 linears (one phase a linear); masked (with and
+# without the GRU jump) and an ODE net of 101 linears have no role program
+# and keep the item loop
+ROLE_VARIANTS = ([v for v in VARIANTS if v[0] in (
+    "main", "rnn_main", "relu_deep", "deep16", "deep101")]
+    + [v for v in MASKED_VARIANTS if v[0] in (
+        "masked_dropout_ragged", "masked_climate_widths",
+        "masked_rnn_t0_step")])
+
+
+class _ItemLoopSpec(fs.Spec):
+    """A spec whose K1/K3 keep the item loop at one row a CTA (the
+    tests' hook: no role program)."""
+
+    def _role_groups(self):
+        return None
+
+
+def _at_threads(spec, threads):
+    """``spec`` with its role walk's threads a CTA forced (the tests'
+    hook, ``Spec._threads``)."""
+    spec._threads = threads
+    return spec
+
+
+def _k1_k3(spec, spec3, leaves, arrays, h0, seed):
+    lk, hk = fs.scan_fwd_cuda(spec, leaves, arrays, 0.6, h0, True, None,
+                              seed)
+    probe = fs.k1_probe()
+    l3, _ = fs.scan_fwd_cuda(spec3, leaves, arrays, 0.6, h0, False,
+                             want_hists=False)
+    torch.cuda.synchronize()
+    return [lk, *hk, l3], probe
+
+
+@pytest.mark.parametrize("variant", ROLE_VARIANTS,
+                         ids=[v[0] for v in ROLE_VARIANTS])
+def test_role_walk_matches_item_loop(card, variant):
+    """K1's loss and histories ('prng') and K3's loss at one row a CTA:
+    the role walk at 256 and at 128 threads a CTA and the item loop give
+    the same bits (every output's FMA chain and the loss terms' order are
+    the item loop's); a config without a role program (masked, 101
+    linears) keeps the item loop. K1's probe reads the walk, the threads
+    and (the role walk) the phases of a step that the launch ran."""
+    cfg, arrays, leaves, h0 = _case(variant, card)
+    seed = torch.tensor([2 ** 40 + 3], dtype=torch.int64, device=card)
+    plan = ("resident", 1)
+    ref, probe = _k1_k3(_ItemLoopSpec(cfg, "prng", plan),
+                        _ItemLoopSpec(cfg, "input", plan), leaves, arrays,
+                        h0, seed)
+    assert all(bool(torch.isfinite(t).all()) for t in ref)
+    assert probe == {"walk": "items", "threads": 256,
+                     "phases_per_step": None}
+    walk = fs.Spec(cfg, "prng", plan)
+    if variant[0] == "deep101" or cfg.masked:
+        assert walk.roles is None
+    else:
+        assert walk.roles is not None and fs.make_cfg(
+            walk, arrays[2].shape[0], arrays[2].shape[1], True, 0.6,
+            bwd=False).roles == 1
+    for threads in (256, 128) if walk.roles is not None else (256,):
+        got, probe = _k1_k3(
+            _at_threads(fs.Spec(cfg, "prng", plan), threads),
+            _at_threads(fs.Spec(cfg, "input", plan), threads), leaves,
+            arrays, h0, seed)
+        for i, (a, b) in enumerate(zip(got, ref)):
+            assert torch.equal(a, b), (threads, i)
+        if walk.roles is not None:
+            assert probe == {"walk": "roles", "threads": threads,
+                             "phases_per_step": len(walk.roles[1])}
+
+
+def test_role_walk_members_at_128_threads(card):
+    """K1's member launch of the main path's shape (E = 3) in the role
+    walk at 128 and at 256 threads a CTA: each member's loss and
+    histories the bits of its solo launch."""
+    E = 3
+    cases = [_setup(1, 10, 48, 30, 0, VARIANTS[0][6], card, seed=e)
+             for e in range(E)]
+    cfg = cases[0][0]
+    leaves = [torch.stack(ls).contiguous()
+              for ls in zip(*(c[4] for c in cases))]
+    arrays = tuple(cases[0][3][i] if i < 2 else torch.stack(
+        [c[3][i] for c in cases]).contiguous() for i in range(6))
+    h0 = torch.stack([c[5] for c in cases]).contiguous()
+    seed = torch.arange(E, dtype=torch.int64, device=card) + 17
+    solo = []
+    for e, c in enumerate(cases):
+        lk, hk = fs.scan_fwd_cuda(fs.Spec(cfg, "prng"), c[4], c[3], 0.6,
+                                  c[5], True, None, seed[e:e + 1])
+        solo.append([lk, *hk])
+    for threads in (128, 256):
+        spec = _at_threads(fs.Spec(cfg, "prng"), threads)
+        assert spec.roles is not None
+        lk, hk = fs.scan_fwd_members_cuda(spec, leaves, arrays, 0.6, h0,
+                                          True, None, seed)
+        torch.cuda.synchronize()
+        for e in range(E):
+            for i, (a, b) in enumerate(zip([lk[e], *(h[e] for h in hk)],
+                                           solo[e])):
+                assert torch.equal(a, b), (threads, e, i)
